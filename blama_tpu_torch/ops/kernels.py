@@ -1,0 +1,139 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Every kernel source under ``ops/csrc/`` is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface and loaded with
+``ctypes``. Libraries are built at first use into ``build/kernels/`` at the
+repository root, named by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused. All sources build in
+parallel, one ``nvcc`` per source.
+
+Each wrapper that launches a kernel adds one to its entry in ``LAUNCHES``
+at the launch and nowhere else, so a run can show which kernels it went
+through (``reset_launches`` before, read ``LAUNCHES`` after).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points of each source, with their argument types
+SIGNATURES = {
+    "quant_matmul": {
+        "w4a8_matmul_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _P],
+        "q4k_dequant_mm_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "decode_attention": {
+        "decode_attention_launch": [_P] * 12 + [_I] * 6 + [_F, _P],
+        "prefill_attention_launch": [_P] * 9 + [_I] * 7 + [_F, _P],
+    },
+}
+
+# launch counts per kernel (see module docstring)
+LAUNCHES = {"w4a8_gemv": 0, "q4k_dequant_matmul": 0,
+            "decode_attention": 0, "prefill_attention": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{tag}.so"
+
+
+def build_all() -> float:
+    """Compile every source that has no library yet, all in parallel.
+    Returns the seconds spent; raises with nvcc's output on a failure."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in SIGNATURES:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = BUILD_DIR / f"{name}.nvcc.log"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        fh = open(log, "w")
+        procs.append((name, out, tmp, log, fh,
+                      subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, out, tmp, log, fh, proc in procs:
+        rc = proc.wait()
+        fh.close()
+        if rc != 0:
+            failed.append(f"{name}: nvcc exit {rc}\n{log.read_text()}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of source `name`, building the kernels if needed."""
+    if name not in _libs:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        so = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(so, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _libs[name] = so
+    return _libs[name]
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device for `device`; raises if it names CUDA and no card is
+    present, so an entry point never carries on on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: launch failed (CUDA error {rc})")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
