@@ -2,9 +2,10 @@
 
 Counterpart of blama_tpu/models/llama.py for the slice the port serves: the
 `q4k_a8` engine (packed Q4_K weights, W4A8 matmuls for up to 16 rows, exact
-dequant matmuls above), unfused q/k/v and gate/up projections, dense (not
-paged) KV rows, INT8 KV and fused attention (the two-pass chain serves the
-chunks the fused gates refuse, T in {2, 4}, as in the reference).
+dequant matmuls above), unfused q/k/v and gate/up projections, dense KV
+rows or the scheduler's paged pool, INT8 or bf16 KV (f32 on the CPU) and
+fused attention (the two-pass chain serves the chunks and geometries the
+fused gates refuse, T in {2, 4}, as in the reference).
 
 Weights are a plain dict: {"tok_emb", "out_norm", "output", "layers": [one
 dict per layer], optional "rope_freqs"}. The forward keeps the reference's
@@ -23,9 +24,12 @@ import numpy as np
 import torch
 
 from ..ops import decode_attention as dattn
+from ..ops import paged_attention as pattn
+from ..ops import kv_cache as kvc
+from ..ops import paged_kv as pkv
 from ..ops.attention import attention
 from ..ops.kernels import resolve_device
-from ..ops.kv_cache import KVCache, dequantize_kv, quantize_kv
+from ..ops.kv_cache import SlotStore, dequantize_kv
 from ..ops.norms import rms_norm
 from ..ops.quant_matmul import (
     QuantEmbedding, QuantTensorA8S, emb_lookup, pack_a8s, qmm, repack_q4k_a8s,
@@ -167,6 +171,41 @@ def params_from_jax(tree: dict, device="cuda") -> dict[str, Any]:
     return out
 
 
+def _opt(a, device):
+    return None if a is None else _to_torch(a, device)
+
+
+def cache_from_jax(arrays: dict, device="cuda") -> kvc.KVCache:
+    """Carry a JAX KVCache (numpy arrays k, v, positions and, in INT8 mode,
+    k_scale, v_scale; float caches as ml_dtypes bf16 or f32) over to the
+    port's dense store."""
+    device = resolve_device(device)
+    return kvc.KVCache(_to_torch(arrays["k"], device), _to_torch(arrays["v"], device),
+                       _to_torch(arrays["positions"], device),
+                       _opt(arrays.get("k_scale"), device),
+                       _opt(arrays.get("v_scale"), device))
+
+
+def paged_cache_from_jax(arrays: dict, device="cuda") -> pkv.PagedKVCache:
+    """Carry a JAX PagedKVCache (numpy arrays k, v [L, P, G, Hkv, D],
+    positions [P, G], page_table [B, MP] and optional k_scale, v_scale) over
+    to the port's pool, so both packages start a step from the same pool,
+    positions and page table."""
+    device = resolve_device(device)
+    k = _to_torch(arrays["k"], device)
+    L, P, G, Hkv, D = k.shape
+    table = np.asarray(arrays["page_table"])
+    cache = pkv.PagedKVCache.create(L, table.shape[0], P, G, table.shape[1], Hkv, D,
+                                    k.dtype, device=device)
+    cache.k.copy_(k)
+    cache.v.copy_(_to_torch(arrays["v"], device))
+    cache.positions.copy_(_to_torch(arrays["positions"], device))
+    if arrays.get("k_scale") is not None:
+        cache.k_scale.copy_(_to_torch(arrays["k_scale"], device))
+        cache.v_scale.copy_(_to_torch(arrays["v_scale"], device))
+    return cache.with_table(table)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -220,12 +259,14 @@ def forward(
     tokens: torch.Tensor,      # [B, T] int32 (padded)
     positions: torch.Tensor,   # [B, T] int32 position of each token
     slots: torch.Tensor,       # [B, T] int32 cache slot; >= n_slots → dropped (pad)
-    cache: KVCache,
+    cache: SlotStore,
     logits_index: torch.Tensor | None = None,  # [B] index into T of the logit token
-) -> tuple[torch.Tensor, KVCache]:
+) -> tuple[torch.Tensor, SlotStore]:
     """One decode/prefill step. Returns (logits [B, V] f32, cache); the cache
-    is updated in place. Pad tokens (slot >= n_slots) must follow the real
-    ones of their row, and every row's first token must be real.
+    (dense KVCache rows, or the scheduler's PagedKVCache pool, where `slots`
+    are FLAT pool indices and reads go through the row's page table) is
+    updated in place. A pad token (slot >= n_slots) writes to the store's
+    spare slot, which nothing reads, so a row may be all pads.
 
     Deterministic: fixed kernel shapes and reduction orders, sequential slot
     writes — replaying the same token stream gives bit-identical logits."""
@@ -234,47 +275,38 @@ def forward(
     rope_dim, freq_base = st.rope_dim, st.freq_base
     if st.act_fn != "silu":
         raise NotImplementedError(f"act_fn={st.act_fn!r} (ROADMAP.md §1 item 12)")
-    if not cache.quantized:
-        raise NotImplementedError(
-            "float KV caches are not ported (ROADMAP.md §1 item 9, other engines)")
     B, T = tokens.shape
-    S = cache.n_slots
-    dev = cache.k.device
+    dev = cache.device
+    paged = isinstance(cache, pkv.PagedKVCache)
     tokens = tokens.to(dev).long()
     positions = positions.to(dev, torch.int32)
     slots = slots.to(dev).long()
 
     x = emb_lookup(params["tok_emb"], tokens)                    # [B, T, E] bf16
 
-    # pad tokens write nothing: redirect each pad to its row's first token,
-    # rewriting that token's own values (duplicate index_put of equal values
-    # is order-free, and no host sync is needed to find the pads)
-    valid = slots < S
-    w_slots = torch.where(valid, slots, slots[:, :1])
-    w_rows = torch.arange(B, device=dev)[:, None].expand(B, T)
-
-    def pick(a):
-        shp = (B, T) + (1,) * (a.dim() - 2)
-        return torch.where(valid.reshape(shp), a, a[:, :1])
-
-    cache.positions[w_rows, w_slots] = pick(positions)
+    # flat store slot of every token; pads go to the spare slot
+    flat = cache.flat_slots(slots)                               # [B*T]
+    cache.pos_store[flat] = positions.reshape(-1)
     new_positions = cache.positions
+    kv_dtype = cache.k_store.dtype
 
     eps = st.rms_eps
     rs, yarn = st.rope_scale, st.yarn
     ff = params.get("rope_freqs")
     q_rope = rope_angles(positions, rope_dim, freq_base, rs, yarn=yarn,
                          freq_factors=ff)
-    if not st.causal or (yarn is not None and rope_dim < D) \
-            or not dattn.supports(S, D, cache.k.dtype, B):
-        raise NotImplementedError(
-            "the fused attention kernels do not serve this model or cache "
-            f"geometry (causal={st.causal}, rope_dim={rope_dim}, head_dim={D}, "
-            f"slots={S}); the two-pass mode is not ported (ROADMAP.md §1 item 9)")
-    # the reference's routes: kernel C at T == 1, kernel D for T % 8 == 0
-    # chunks, the two-pass chain for the rest (T in {2, 4} buckets)
-    use_fused_attn = T == 1
-    use_fused_prefill = dattn.prefill_supports(T, S, D, cache.k.dtype, B)
+    # the reference's routes (its attn="fused" mode): kernel C/E at T == 1,
+    # kernel D/F for T % 8 == 0 chunks, the two-pass chain for the rest
+    # (T in {2, 4} buckets) and for geometries the gates refuse
+    fused_ok = st.causal and not (yarn is not None and rope_dim < D)
+    if paged:
+        G = cache.page_size
+        use_fused_attn = fused_ok and T == 1 and pattn.supports(G, D, kv_dtype)
+        use_fused_prefill = fused_ok and pattn.prefill_supports(T, G, D, kv_dtype)
+    else:
+        S = cache.n_slots
+        use_fused_attn = fused_ok and T == 1 and dattn.supports(S, D, kv_dtype, B)
+        use_fused_prefill = fused_ok and dattn.prefill_supports(T, S, D, kv_dtype, B)
     if use_fused_attn or use_fused_prefill:
         if ff is None:
             inv_freq_e, mscale = _inv_freq_on(rope_dim, D, freq_base, rs, yarn, dev)
@@ -282,9 +314,10 @@ def forward(
             inv_freq_e, mscale = dattn.effective_inv_freq(
                 rope_dim, D, freq_base, rs, yarn=yarn, freq_factors=ff)
             inv_freq_e = inv_freq_e.to(dev)
-        kv_rope = None
+        kv_rope = pos_view = None
     else:
-        kv_rope = rope_angles(torch.clamp(new_positions, min=0), rope_dim,
+        pos_view = pkv.view_positions(cache) if paged else new_positions
+        kv_rope = rope_angles(torch.clamp(pos_view, min=0), rope_dim,
                               freq_base, rs, yarn=yarn, freq_factors=ff)
 
     for li, p in enumerate(params["layers"]):
@@ -297,28 +330,34 @@ def forward(
         v = v.reshape(B, T, Hkv, D)
         q = apply_rope(q, positions, rope_dim, freq_base, True, cos_sin=q_rope)
 
-        # write unrotated K and V into their cache slots
-        k_l, v_l = cache.k[li], cache.v[li]                       # [B, S, Hkv, D]
-        ks_l, vs_l = cache.k_scale[li], cache.v_scale[li]         # [B, S, Hkv]
-        k_codes, k_sc = quantize_kv(k)
-        v_codes, v_sc = quantize_kv(v)
-        k_l[w_rows, w_slots] = pick(k_codes)
-        v_l[w_rows, w_slots] = pick(v_codes)
-        ks_l[w_rows, w_slots] = pick(k_sc)
-        vs_l[w_rows, w_slots] = pick(v_sc)
+        # write unrotated K and V into their store slots, in place
+        cache.write(li, flat, k, v)
+        k_l, v_l = cache.k[li], cache.v[li]     # [B, S, Hkv, D] or [P, G, Hkv, D]
+        ks_l = vs_l = None
+        if cache.quantized:
+            ks_l, vs_l = cache.k_scale[li], cache.v_scale[li]
 
-        if use_fused_attn:
-            attn = dattn.decode_attention(
-                q, k_l, v_l, positions[:, 0], new_positions, inv_freq_e,
-                k_scale=ks_l, v_scale=vs_l, mscale=mscale)
-        elif use_fused_prefill:
-            attn = dattn.prefill_attention(
-                q, k_l, v_l, positions, new_positions, inv_freq_e,
-                k_scale=ks_l, v_scale=vs_l, mscale=mscale)
+        if use_fused_attn or use_fused_prefill:
+            q_pos = positions[:, 0] if use_fused_attn else positions
+            if paged:
+                fn = (pattn.paged_decode_attention if use_fused_attn
+                      else pattn.paged_prefill_attention)
+                attn = fn(q, k_l, v_l, new_positions, cache.page_table, q_pos,
+                          inv_freq_e, k_scale=ks_l, v_scale=vs_l, mscale=mscale)
+            else:
+                fn = (dattn.decode_attention if use_fused_attn
+                      else dattn.prefill_attention)
+                attn = fn(q, k_l, v_l, q_pos, new_positions, inv_freq_e,
+                          k_scale=ks_l, v_scale=vs_l, mscale=mscale)
         else:
-            k_use = dequantize_kv(k_l, ks_l, x.dtype)
-            v_use = dequantize_kv(v_l, vs_l, x.dtype)
-            attn = attention(q, k_use, v_use, positions, new_positions,
+            if paged:
+                # gather the logical row view (element-identical to a dense
+                # row, ops/paged_kv.py) and run the dense chain
+                k_l, v_l, ks_l, vs_l = pkv.gather_view(cache, k_l, v_l, ks_l, vs_l)
+            if ks_l is not None:
+                k_l = dequantize_kv(k_l, ks_l, x.dtype)
+                v_l = dequantize_kv(v_l, vs_l, x.dtype)
+            attn = attention(q, k_l, v_l, positions, pos_view,
                              rope_dim=rope_dim, freq_base=freq_base,
                              interleaved=True, causal=st.causal, kv_rope=kv_rope)
         x = x + qmm(attn.reshape(B, T, H * D), p["wo"])

@@ -1,0 +1,52 @@
+// Kernels E and F: flash attention over the PAGED KV pool.
+//
+// Kernel E (paged_decode_attention_launch) and kernel F
+// (paged_prefill_attention_launch) replace
+//   blama_tpu/ops/pallas/paged_attention.py:_paged_attn_kernel
+// in its decode (block_t == 0) and prefill forms.
+//
+// The pool is [P*G (+ spare), Hkv, D] slots in pages of G, int8 codes with
+// f32 scales (kv_type 0) or bf16 values with null scale pointers
+// (kv_type 1); pool_pos [P*G] holds each slot's position (-1 = empty) and
+// page_table [B, MP] each row's physical page per logical page (-1 =
+// unmapped). A row's logical window is S = MP*G slots. The device code is
+// the dense kernels' (attention_common.cuh): the same fixed split of S, the
+// same per-warp slot order and the same combine, so the output is
+// bit-identical to kernels C and D over the same logical row, whatever the
+// physical placement; only a tile's address goes through the page table. An
+// unmapped page is skipped without reading it: only live pages cost bytes.
+
+#include "attention_common.cuh"
+
+extern "C" {
+
+// Each returns a cudaError_t; -1 for a head dim or store type the kernels
+// are not built for.
+int paged_decode_attention_launch(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* pool_pos, const void* page_table,
+    const void* q_pos, const void* invf, void* part_m, void* part_l,
+    void* part_acc, void* out, int B, int H, int Hkv, int D, int MP, int G,
+    int chunk, int kv_type, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const attn::PagedAddr addr{static_cast<const int*>(page_table), MP, G};
+  const int S = MP * G;
+  ATTN_DISPATCH(attn::decode_impl, attn::PagedAddr, q, k, v, ks, vs, pool_pos,
+                q_pos, invf, part_m, part_l, part_acc, out, addr, B, H, Hkv, S,
+                chunk, scale, st);
+}
+
+int paged_prefill_attention_launch(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* pool_pos, const void* page_table,
+    const void* q_pos, const void* invf, void* out, int B, int T, int H,
+    int Hkv, int D, int MP, int G, int qt, int kv_type, float scale,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const attn::PagedAddr addr{static_cast<const int*>(page_table), MP, G};
+  const int S = MP * G;
+  ATTN_DISPATCH(attn::prefill_impl, attn::PagedAddr, q, k, v, ks, vs, pool_pos,
+                q_pos, invf, out, addr, B, T, H, Hkv, S, qt, scale, st);
+}
+
+}  // extern "C"

@@ -1,10 +1,10 @@
-"""Fused flash attention over the position-mapped INT8 KV cache.
+"""Fused flash attention over the position-mapped KV cache (INT8 or bf16).
 
 Counterpart of blama_tpu/ops/pallas/decode_attention.py: one streaming pass
 of the stored cache per layer and step replaces the two-pass chain
-(ops/attention.py). K stays int8 codes until it is in fast memory, rope is
-applied to K inside the kernel from the slot position map, and the INT8
-scales fold into the score and probability rows:
+(ops/attention.py). K stays as stored (int8 codes or bf16) until it is in
+fast memory, rope is applied to K inside the kernel from the slot position
+map, and in INT8 mode the scales fold into the score and probability rows:
 
     q . rope(ks*codes_k) == ks * (q . rope(codes_k))
     p @ (vs*codes_v)     == (p*vs) @ codes_v
@@ -160,27 +160,86 @@ def flash_attention_plain(q, k_cache, v_cache, q_pos, kv_pos, inv_freq_e,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def kv_type_of(k_cache, v_cache, k_scale, v_scale) -> int:
+    """The kernels' store type: 0 = int8 codes with f32 scales, 1 = bf16
+    values with none. Anything else (an f32 cache) has no kernel."""
+    if k_cache.dtype != v_cache.dtype:
+        raise TypeError("k and v caches must share a dtype")
+    if k_cache.dtype == torch.int8 and k_scale is not None and v_scale is not None:
+        return 0
+    if k_cache.dtype == torch.bfloat16 and k_scale is None and v_scale is None:
+        return 1
+    raise NotImplementedError(
+        "the CUDA attention kernels take an INT8 cache with scales or a bf16 "
+        f"cache without, got {k_cache.dtype} (an f32 cache runs the plain "
+        "version on the CPU only; ROADMAP.md §1 item 9)")
+
+
+KERNEL_HEAD_DIMS = (64, 128, 256)   # the head sizes kernels C-F are instantiated for
+
+
+def require_kernel_geometry(device, n_head: int, n_head_kv: int, head_dim: int,
+                            kv_dtype) -> None:
+    """Refuse, where a cache is created for a card, what the route gates
+    admit but kernels C-F were not built for. The gates (`supports`,
+    `prefill_supports`, and ops/paged_attention.py's) are the reference's, so
+    a geometry takes the same route in both packages; on the CPU the plain
+    versions serve all of it. On a card the owner of the cache calls this at
+    construction, so no step fails in the middle of `forward`."""
+    if torch.device(device).type == "cpu":
+        return
+    if (head_dim not in KERNEL_HEAD_DIMS or n_head % n_head_kv
+            or n_head // n_head_kv > 32):
+        raise NotImplementedError(
+            f"the CUDA attention kernels are built for head_dim in "
+            f"{KERNEL_HEAD_DIMS} and at most 32 query heads per KV head, got "
+            f"n_head={n_head} n_head_kv={n_head_kv} head_dim={head_dim} "
+            "(ROADMAP.md §1 item 9, other engines)")
+    if kv_dtype not in (torch.int8, torch.bfloat16):
+        raise NotImplementedError(
+            f"the CUDA attention kernels read an INT8 or a bf16 cache, got "
+            f"{kv_dtype}; an f32 cache runs on the CPU only "
+            "(ROADMAP.md §1 item 9, other engines)")
+
+
+def check_cuda_common(q, inv_freq_e, q_pos, kv_pos, Hkv):
+    B, T, H, D = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"queries must be bf16, got {q.dtype}")
+    if D not in KERNEL_HEAD_DIMS or H % Hkv or H // Hkv > 32:
+        raise ValueError(f"unsupported head geometry H={H} Hkv={Hkv} D={D}")
+    if kv_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
+        raise TypeError("positions must be int32")
+    if inv_freq_e.dtype != torch.float32:
+        raise TypeError("inv_freq_e must be f32")
+
+
+def check_tensors(device, expect: dict) -> None:
+    for name, (t, shp, dtype) in expect.items():
+        if t is None:
+            continue
+        if (tuple(t.shape) != shp or t.device != device or not t.is_contiguous()
+                or (dtype is not None and t.dtype != dtype)):
+            raise ValueError(
+                f"{name}: need a contiguous {shp} {dtype or ''} tensor on {device}")
+
+
+def ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def _check_cuda(q, k_cache, v_cache, k_scale, v_scale, kv_pos, q_pos, inv_freq_e):
     B, T, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    if (k_scale is None or v_scale is None or k_cache.dtype != torch.int8
-            or v_cache.dtype != torch.int8):
-        raise ValueError("the CUDA attention kernels take the INT8 cache only")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"queries must be bf16, got {q.dtype}")
-    if D not in (64, 128, 256) or H % Hkv or H // Hkv > 32:
-        raise ValueError(f"unsupported head geometry H={H} Hkv={Hkv} D={D}")
-    expect = {"k_cache": (k_cache, (B, S, Hkv, D)), "v_cache": (v_cache, (B, S, Hkv, D)),
-              "k_scale": (k_scale, (B, S, Hkv)), "v_scale": (v_scale, (B, S, Hkv)),
-              "kv_pos": (kv_pos, (B, S)), "inv_freq_e": (inv_freq_e, (D,))}
-    for name, (t, shp) in expect.items():
-        if tuple(t.shape) != shp or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {shp} tensor on {q.device}")
-    if kv_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
-        raise TypeError("positions must be int32")
-    if any(t.dtype != torch.float32 for t in (k_scale, v_scale, inv_freq_e)):
-        raise TypeError("scales and inv_freq_e must be f32")
-    return B, T, H, D, S, Hkv
+    kv_type = kv_type_of(k_cache, v_cache, k_scale, v_scale)
+    check_cuda_common(q, inv_freq_e, q_pos, kv_pos, Hkv)
+    check_tensors(q.device, {
+        "k_cache": (k_cache, (B, S, Hkv, D), None),
+        "v_cache": (v_cache, (B, S, Hkv, D), None),
+        "k_scale": (k_scale, (B, S, Hkv), torch.float32),
+        "v_scale": (v_scale, (B, S, Hkv), torch.float32),
+        "kv_pos": (kv_pos, (B, S), None), "inv_freq_e": (inv_freq_e, (D,), None)})
+    return B, T, H, D, S, Hkv, kv_type
 
 
 def decode_split(B: int, Hkv: int, S: int) -> int:
@@ -191,9 +250,14 @@ def decode_split(B: int, Hkv: int, S: int) -> int:
     return -(-per_split // TILE_S) * TILE_S
 
 
+def prefill_q_tile(H: int, Hkv: int) -> int:
+    """Query tokens per block of kernels D and F (8 warps at g <= 8)."""
+    return max(1, 8 // (H // Hkv))
+
+
 def decode_attention(
     q: torch.Tensor,          # [B, 1, H, D] rotated query (one decode token)
-    k_cache: torch.Tensor,    # [B, S, Hkv, D] unrotated int8 codes
+    k_cache: torch.Tensor,    # [B, S, Hkv, D] unrotated; int8 codes or bf16
     v_cache: torch.Tensor,    # [B, S, Hkv, D]
     q_pos: torch.Tensor,      # [B] int32
     kv_pos: torch.Tensor,     # [B, S] int32, -1 = empty slot
@@ -213,7 +277,7 @@ def decode_attention(
                                      kv_pos, inv_freq_e, k_scale, v_scale, scale)
     q = q.contiguous()
     q_pos = q_pos.reshape(B).contiguous()
-    B, T, H, D, S, Hkv = _check_cuda(q, k_cache, v_cache, k_scale, v_scale,
+    B, T, H, D, S, Hkv, kv_type = _check_cuda(q, k_cache, v_cache, k_scale, v_scale,
                                      kv_pos, q_pos, inv_freq_e)
     chunk = decode_split(B, Hkv, S)
     nsplit = -(-S // chunk)
@@ -223,10 +287,10 @@ def decode_attention(
     part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32, device=dev)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
     rc = kernels.lib("decode_attention").decode_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
+        ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(),
         inv_freq_e.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(), B, H, Hkv, D, S, chunk,
+        part_acc.data_ptr(), out.data_ptr(), B, H, Hkv, D, S, chunk, kv_type,
         float(scale), kernels.stream_ptr(dev))
     kernels.check(rc, "decode_attention")
     kernels.count("decode_attention")
@@ -235,7 +299,7 @@ def decode_attention(
 
 def prefill_attention(
     q: torch.Tensor,          # [B, T, H, D] rotated queries (prompt chunk)
-    k_cache: torch.Tensor,    # [B, S, Hkv, D] unrotated int8 codes
+    k_cache: torch.Tensor,    # [B, S, Hkv, D] unrotated; int8 codes or bf16
     v_cache: torch.Tensor,    # [B, S, Hkv, D]
     q_pos: torch.Tensor,      # [B, T] int32
     kv_pos: torch.Tensor,     # [B, S] int32, -1 = empty slot
@@ -253,16 +317,16 @@ def prefill_attention(
                                      inv_freq_e, k_scale, v_scale, scale)
     q = q.contiguous()
     q_pos = q_pos.contiguous()
-    B, T, H, D, S, Hkv = _check_cuda(q, k_cache, v_cache, k_scale, v_scale,
+    B, T, H, D, S, Hkv, kv_type = _check_cuda(q, k_cache, v_cache, k_scale, v_scale,
                                      kv_pos, q_pos, inv_freq_e)
     if tuple(q_pos.shape) != (B, T):
         raise ValueError(f"q_pos must be [B, T] = {(B, T)}")
-    qt = max(1, 8 // (H // Hkv))   # query tokens per block (8 warps at g <= 8)
+    qt = prefill_q_tile(H, Hkv)
     out = torch.empty_like(q)
     rc = kernels.lib("decode_attention").prefill_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
-        inv_freq_e.data_ptr(), out.data_ptr(), B, T, H, Hkv, D, S, qt,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
+        ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(),
+        inv_freq_e.data_ptr(), out.data_ptr(), B, T, H, Hkv, D, S, qt, kv_type,
         float(scale), kernels.stream_ptr(q.device))
     kernels.check(rc, "prefill_attention")
     kernels.count("prefill_attention")

@@ -1,9 +1,11 @@
-"""Greedy and teacher-forced decode loops.
+"""Greedy, teacher-forced and scheduler decode loops.
 
 Counterpart of blama_tpu/ops/generate_loop.py. Each loop is a Python loop
 of T == 1 forwards whose token choice (torch.argmax) and top-10 capture
 (torch.topk) stay on the device; nothing is pulled to the host inside the
-loop. The prover's loops (greedy_generate, continue_greedy) and the
+loop. `scheduler_loop` is the continuous-batching scheduler's horizon: the
+same step over a batch that mixes greedy, teacher-forced and idle rows, on
+dense rows or the paged pool. The prover's loops (greedy_generate, continue_greedy) and the
 verifier's (teacher_forced) run the same per-step forward at the same
 shapes, so a same-backend replay reproduces the prover's logits bit for
 bit. Slots are sequential (slot = position), matching the SlotAllocator.
@@ -14,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from ..models import llama as llama_mod
-from .kv_cache import KVCache
+from . import paged_kv as pkv
+from .kv_cache import KVCache, SlotStore
 
 
 def _step(st, params, cache, tok, pos):
@@ -106,3 +109,62 @@ def continue_greedy(
         out.append(logits)
         pos = pos + 1
     return torch.stack(toks, 1), torch.stack(out, 1), cache
+
+
+@torch.no_grad()
+def scheduler_loop(
+    st: "llama_mod.LlamaStatic",
+    params,
+    cache: SlotStore,
+    logits0: torch.Tensor,      # [B, V] f32, stays on the device between horizons
+    start_pos: torch.Tensor,    # [B] int32 next position (= slot, dense rows)
+    forced_toks: torch.Tensor,  # [B, H] int32; -1 = greedy-argmax this row/step
+    claimed_ids: torch.Tensor,  # [B, H, 10] int32 ids to gather (verify rows)
+    n_steps: int,
+):
+    """H decode steps for the continuous-batching scheduler with the logits
+    kept ON the device (carried in and out as a device tensor). Mixes greedy
+    rows (argmax) and teacher-forced verification rows (forced_toks >= 0)
+    per step and returns only small per-step outputs: sampled tokens, the
+    top-10 capture, and the logit values at each verify row's claimed top-10
+    ids. Inactive rows (forced_toks == -2) pass a pad slot, so their writes
+    go to the store's spare slot.
+
+    Per-row arithmetic is the batched T == 1 step the per-token path runs,
+    so greedy tokens match the per-token scheduler. Returns (toks [B, H],
+    top_ids [B, H, 10], top_vals [B, H, 10], claimed_vals [B, H, 10],
+    logits [B, V], cache)."""
+    dev = cache.device
+    logits = logits0.to(dev)
+    pos = start_pos.to(dev, torch.int32)
+    forced_toks = forced_toks.to(dev, torch.int32)
+    claimed_ids = claimed_ids.to(dev).long()
+    B = logits.shape[0]
+    paged = isinstance(cache, pkv.PagedKVCache)
+    n_slots = cache.n_slots      # a slot >= n_slots is a pad
+    zero = torch.zeros((B,), dtype=torch.long, device=dev)
+    toks, tids, tvals, cvals = [], [], [], []
+    for i in range(n_steps):
+        forced = forced_toks[:, i]
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = torch.where(forced >= 0, torch.clamp(forced, min=0), greedy)
+        inactive = forced == -2
+        if paged:
+            # flat pool slot via the row's page table (pages pre-allocated
+            # host-side for the whole horizon before the loop)
+            G = cache.page_size
+            page = torch.gather(cache.page_table, 1,
+                                torch.div(pos, G, rounding_mode="floor")[:, None].long())[:, 0]
+            slot = torch.where(inactive, n_slots, page * G + pos % G)
+        else:
+            slot = torch.where(inactive, n_slots, pos)
+        logits, cache = llama_mod.forward(params, st, tok[:, None], pos[:, None],
+                                          slot[:, None], cache, zero)
+        top_vals, top_ids = torch.topk(logits, 10, dim=-1)
+        toks.append(tok)
+        tids.append(top_ids)
+        tvals.append(top_vals)
+        cvals.append(torch.gather(logits, 1, claimed_ids[:, i]))
+        pos = pos + 1
+    return (torch.stack(toks, 1), torch.stack(tids, 1), torch.stack(tvals, 1),
+            torch.stack(cvals, 1), logits, cache)

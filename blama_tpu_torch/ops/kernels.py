@@ -3,9 +3,9 @@
 Every kernel source under ``ops/csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes``. Libraries are built at first use into ``build/kernels/`` at the
-repository root, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. All sources build in
-parallel, one ``nvcc`` per source.
+repository root, named by a hash of the source, the shared ``*.cuh`` headers
+and the flags, so an edited source is rebuilt and an unchanged one is reused.
+All sources build in parallel, one ``nvcc`` per source.
 
 Each wrapper that launches a kernel adds one to its entry in ``LAUNCHES``
 at the launch and nowhere else, so a run can show which kernels it went
@@ -38,14 +38,19 @@ SIGNATURES = {
         "q4k_dequant_mm_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     },
     "decode_attention": {
-        "decode_attention_launch": [_P] * 12 + [_I] * 6 + [_F, _P],
-        "prefill_attention_launch": [_P] * 9 + [_I] * 7 + [_F, _P],
+        "decode_attention_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
+        "prefill_attention_launch": [_P] * 9 + [_I] * 8 + [_F, _P],
+    },
+    "paged_attention": {
+        "paged_decode_attention_launch": [_P] * 13 + [_I] * 8 + [_F, _P],
+        "paged_prefill_attention_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
     },
 }
 
 # launch counts per kernel (see module docstring)
 LAUNCHES = {"w4a8_gemv": 0, "q4k_dequant_matmul": 0,
-            "decode_attention": 0, "prefill_attention": 0}
+            "decode_attention": 0, "prefill_attention": 0,
+            "paged_decode_attention": 0, "paged_prefill_attention": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -70,6 +75,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):   # shared device code
+        src += header.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 

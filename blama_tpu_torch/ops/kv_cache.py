@@ -9,15 +9,15 @@ semantics (llama_kv_self_seq_rm/add/div).
 
 Unlike the JAX package, whose arrays are immutable, the port updates the
 cache in place: the forward pass writes K/V rows into the layer tensors and
-the edits rewrite `positions`. Each function still returns the cache.
+the edits rewrite `positions`. Each function still returns the cache. The
+JAX package drops a pad token's out-of-range write; the port sends it to a
+spare slot that nothing reads (SlotStore).
 
 Slot allocation is host-side and strictly sequential per sequence, so the
 same token stream always lands in the same slots and replays bit-exactly.
 """
 
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -27,42 +27,138 @@ from .kernels import resolve_device
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 
 
-@dataclass
-class KVCache:
-    """INT8 KV store: k/v hold int8 codes with per-(slot, head) max-abs
-    scales k_scale/v_scale (f32 [L, B, S, H_kv]). The reference's float
-    caches are not ported (ROADMAP.md §1 item 9)."""
+def resolve_kv_dtype(dtype) -> torch.dtype:
+    """The store's element type: int8 codes (with scales), bf16 or f32."""
+    table = {"int8": torch.int8, "bfloat16": torch.bfloat16,
+             "float32": torch.float32}
+    dt = table.get(dtype, dtype)
+    if dt not in table.values():
+        raise ValueError(f"unsupported KV dtype {dtype!r}")
+    return dt
 
-    k: torch.Tensor          # [L, B, S, H_kv, D] int8 codes of unrotated keys
-    v: torch.Tensor          # [L, B, S, H_kv, D]
-    positions: torch.Tensor  # [B, S] int32; -1 = empty
-    k_scale: torch.Tensor | None = None  # [L, B, S, H_kv] f32
-    v_scale: torch.Tensor | None = None
+
+class SlotStore:
+    """Per-layer K/V slots, their positions and (INT8 mode) their scales,
+    stored flat with ONE SPARE SLOT at the end of every tensor.
+
+    A pad token's writes go to the spare slot, so a step needs no host sync
+    to find the pads and a row with no real token (an idle scheduler row) is
+    as safe as any other. No view, position map or page table ever exposes
+    the spare slot; what it holds is never read.
+
+    k_store/v_store [L, N + 1, H_kv, D], pos_store [N + 1] int32 (-1 = empty),
+    k_scale_store/v_scale_store [L, N + 1, H_kv] f32 or None (float stores).
+    """
+
+    def __init__(self, k_store, v_store, pos_store, k_scale_store=None,
+                 v_scale_store=None):
+        self.k_store, self.v_store, self.pos_store = k_store, v_store, pos_store
+        self.k_scale_store, self.v_scale_store = k_scale_store, v_scale_store
+
+    @staticmethod
+    def _alloc(n_layer, n, n_kv_head, head_dim, dtype, device):
+        dt = resolve_kv_dtype(dtype)
+        device = resolve_device(device)
+        shape = (n_layer, n + 1, n_kv_head, head_dim)
+        scales = (None, None)
+        if dt == torch.int8:
+            scales = tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                           for _ in range(2))
+        return (torch.zeros(shape, dtype=dt, device=device),
+                torch.zeros(shape, dtype=dt, device=device),
+                torch.full((n + 1,), -1, dtype=torch.int32, device=device), *scales)
 
     @property
-    def n_slots(self) -> int:
-        return self.k.shape[2]
+    def pad_slot(self) -> int:
+        """Flat index of the spare slot (the target of dropped writes)."""
+        return self.pos_store.shape[0] - 1
 
     @property
     def quantized(self) -> bool:
-        return self.k_scale is not None
+        return self.k_scale_store is not None
+
+    @property
+    def device(self) -> torch.device:
+        return self.k_store.device
+
+    def write(self, li: int, flat: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+        """Write K/V [B, T, H_kv, D] of layer `li` at flat slots [B*T]
+        (quantizing on write in INT8 mode). Unique indices apart from the
+        spare slot, whose content is never read."""
+        if self.quantized:
+            k, k_sc = quantize_kv(k)
+            v, v_sc = quantize_kv(v)
+            self.k_scale_store[li][flat] = k_sc.flatten(0, 1)
+            self.v_scale_store[li][flat] = v_sc.flatten(0, 1)
+        self.k_store[li][flat] = k.flatten(0, 1).to(self.k_store.dtype)
+        self.v_store[li][flat] = v.flatten(0, 1).to(self.v_store.dtype)
+
+
+class KVCache(SlotStore):
+    """Dense rows: B rows of S slots. In float mode k/v hold values; in INT8
+    mode int8 codes with per-(slot, head) max-abs scales (f32). The
+    [L, B, S, ...] tensors are views of the flat stores."""
+
+    def __init__(self, k, v, positions, k_scale=None, v_scale=None):
+        """From whole tensors (k/v [L, B, S, H_kv, D], positions [B, S],
+        scales [L, B, S, H_kv]): copied into a fresh store."""
+        L, B, S, Hkv, D = k.shape
+        stores = self._alloc(L, B * S, Hkv, D, k.dtype, k.device)
+        super().__init__(*stores)
+        self.batch, self.n_slots = B, S
+        self.k.copy_(k)
+        self.v.copy_(v)
+        self.positions.copy_(positions)
+        if self.quantized:
+            self.k_scale.copy_(k_scale)
+            self.v_scale.copy_(v_scale)
 
     @classmethod
     def create(cls, n_layer: int, batch: int, n_slots: int, n_kv_head: int,
-               head_dim: int, dtype="int8", device="cuda"):
-        if dtype not in (torch.int8, "int8"):
-            raise NotImplementedError(
-                f"KV dtype {dtype!r}: only the INT8 cache is ported "
-                "(ROADMAP.md §1 item 9, other engines)")
-        shape = (n_layer, batch, n_slots, n_kv_head, head_dim)
-        device = resolve_device(device)
-        return cls(
-            k=torch.zeros(shape, dtype=torch.int8, device=device),
-            v=torch.zeros(shape, dtype=torch.int8, device=device),
-            positions=torch.full((batch, n_slots), -1, dtype=torch.int32, device=device),
-            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-        )
+               head_dim: int, dtype="bfloat16", device="cuda"):
+        self = cls.__new__(cls)
+        SlotStore.__init__(self, *cls._alloc(n_layer, batch * n_slots, n_kv_head,
+                                             head_dim, dtype, device))
+        self.batch, self.n_slots = batch, n_slots
+        return self
+
+    def _rows(self, store, lead: int):
+        n = self.batch * self.n_slots
+        body = store[:n] if lead == 0 else store[:, :n]
+        shape = store.shape[:lead] + (self.batch, self.n_slots) + store.shape[lead + 1:]
+        return body.view(shape)
+
+    @property
+    def k(self) -> torch.Tensor:          # [L, B, S, H_kv, D] unrotated keys
+        return self._rows(self.k_store, 1)
+
+    @property
+    def v(self) -> torch.Tensor:          # [L, B, S, H_kv, D]
+        return self._rows(self.v_store, 1)
+
+    @property
+    def positions(self) -> torch.Tensor:  # [B, S] int32; -1 = empty
+        return self._rows(self.pos_store, 0)
+
+    @positions.setter
+    def positions(self, value: torch.Tensor) -> None:
+        self.positions.copy_(value)
+
+    @property
+    def k_scale(self) -> torch.Tensor | None:   # [L, B, S, H_kv] f32
+        return self._rows(self.k_scale_store, 1) if self.quantized else None
+
+    @property
+    def v_scale(self) -> torch.Tensor | None:
+        return self._rows(self.v_scale_store, 1) if self.quantized else None
+
+    def flat_slots(self, slots: torch.Tensor) -> torch.Tensor:
+        """[B, T] per-row slots (>= n_slots = pad) -> [B*T] flat store slots."""
+        B = slots.shape[0]
+        rows = torch.arange(B, device=slots.device)[:, None] * self.n_slots
+        return torch.where(slots < self.n_slots, rows + slots,
+                           self.pad_slot).reshape(-1)
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

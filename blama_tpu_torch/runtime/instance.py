@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops import decode_attention as dattn
 from ..ops import kv_cache as kvc
 from .session import Session, SessionInitParams
 
@@ -40,7 +41,7 @@ class InstanceInitParams:
     # fused attention kernels; the port's only attention mode, as the
     # reference's is whenever the model was loaded with attn="fused"
     flash_attn: bool = False
-    kv_dtype: str = "float32"    # the port serves "int8"
+    kv_dtype: str = "float32"    # float32 (CPU only) | bfloat16 | int8
     fast_greedy: bool = True     # device-loop fast path for eligible complete()
     ring_mesh: object = None     # sequence-parallel prefill (not ported)
     ring_min_prompt: int = 32
@@ -51,10 +52,9 @@ class Instance:
         self.model = model
         self.params = params or InstanceInitParams()
         cfg = model.config
-        if self.params.kv_dtype != "int8":
-            raise NotImplementedError(
-                f"kv_dtype={self.params.kv_dtype!r}: the port serves the INT8 KV "
-                "cache (ROADMAP.md §1 item 9, other engines)")
+        kv_dtype = kvc.resolve_kv_dtype(self.params.kv_dtype)
+        dattn.require_kernel_geometry(model.device, cfg.n_head, cfg.n_head_kv,
+                                      cfg.head_dim_, kv_dtype)
         if self.params.ring_mesh is not None:
             raise NotImplementedError(
                 "ring (sequence-parallel) prefill is not ported "
@@ -69,11 +69,10 @@ class Instance:
         self.ubatch_size = min(self.params.ubatch_size, self.batch_size)
         self.device = model.device
         self.cache = kvc.KVCache.create(cfg.n_layer, 1, self.ctx_len, cfg.n_head_kv,
-                                        cfg.head_dim_, "int8", device=self.device)
+                                        cfg.head_dim_, kv_dtype, device=self.device)
         self.allocator = kvc.SlotAllocator(self.ctx_len)
 
         from ..models.llama import make_step_fn
-        from ..ops import decode_attention as dattn
 
         if not dattn.supports(self.ctx_len, cfg.head_dim_, self.cache.k.dtype):
             raise NotImplementedError(
@@ -134,8 +133,13 @@ class Instance:
 
     def cache_host(self):
         c = self.cache
-        return tuple(t.cpu().numpy()
-                     for t in (c.k, c.v, c.positions, c.k_scale, c.v_scale))
+
+        def host(t):
+            if t is None:
+                return None
+            return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+        return tuple(host(t) for t in (c.k, c.v, c.positions, c.k_scale, c.v_scale))
 
     def restore_cache(self, k, v, pos, k_scale=None, v_scale=None) -> None:
         dev = self.device

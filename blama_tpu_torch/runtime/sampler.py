@@ -127,9 +127,9 @@ class Sampler:
         self.params = params or SamplerParams()
         self._grammar = grammar_sampler
         if self._grammar is None and self.params.grammar:
-            raise NotImplementedError(
-                "grammar-constrained sampling is not ported yet "
-                "(ROADMAP.md §1 item 8, serving)")
+            from .grammar import GrammarSampler  # lazy; optional subsystem
+
+            self._grammar = GrammarSampler(self.params.grammar, vocab)
         self.reset(reseed=True)
 
     # -- lifecycle ----------------------------------------------------------

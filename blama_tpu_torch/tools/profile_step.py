@@ -1,12 +1,16 @@
 """Where a decode step's time goes on the card.
 
-    python -m blama_tpu_torch.tools.profile_step [--steps 16] [--ctx 2048]
+    python -m blama_tpu_torch.tools.profile_step [--steps 16] [--ctx 2048] [--scheduler]
 
 Loads the synthesized llama3-8b `q4k_a8` GGUF (testing.cached_llama_gguf),
 prefills a 128-token prompt, then times greedy decode steps
 (generate_loop.continue_greedy): wall time per step with the device
 synchronized, and one torch.profiler window over the same steps for the
-device time per kernel. Prints one JSON object: wall ms/step, device-busy
+device time per kernel. With `--scheduler` the step is the serving step: the
+continuous-batching scheduler with 8 rows on the paged bf16 pool, each row
+a greedy request over a 128-token prompt, driven one horizon of 8 batched
+decode steps at a time (ops.generate_loop.scheduler_loop, host bookkeeping
+included). Prints one JSON object: wall ms/step, device-busy
 ms/step (the sum of kernel times), the idle share 1 - busy/wall, the top
 kernels and host ops, and the card's name and power limit.
 """
@@ -23,6 +27,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--ctx", type=int, default=2048)
+    ap.add_argument("--scheduler", action="store_true",
+                    help="profile the batched paged serving step (8 rows)")
     args = ap.parse_args()
 
     import numpy as np
@@ -43,23 +49,45 @@ def main() -> None:
                          text=True, check=True).stdout.strip().splitlines()[0]
     model = Model(cached_llama_gguf("llama3-8b", seed=7),
                   ModelParams(dtype="q4k_a8", attn="fused"))
-    inst = Instance(model, InstanceInitParams(ctx_size=args.ctx, flash_attn=True,
-                                              kv_dtype="int8"))
     rng = np.random.default_rng(7)
-    prompt = [1] + rng.integers(259, model.config.n_vocab, 127).tolist()
-    logits = inst.decode(prompt, np.arange(len(prompt)))
-    st = LlamaStatic.of(inst.step_config)
-    n_past = len(prompt)
+    rows, horizon = 1, 1
+    if args.scheduler:
+        from ..runtime.sampler import SamplerParams
+        from ..server.scheduler import ContinuousBatchingScheduler, GenRequest
 
-    def steps(n):
-        nonlocal n_past
-        _, lg, inst.cache = continue_greedy(
-            st, model.weights, inst.cache, torch.from_numpy(logits[None]),
-            torch.tensor([n_past], dtype=torch.int32), n)
-        n_past += n
-        return lg
+        rows, horizon = 8, 8
+        if args.steps % horizon:
+            raise SystemExit(f"--steps must be a multiple of the horizon ({horizon})")
+        sched = ContinuousBatchingScheduler(model, max_batch=rows, ctx_size=args.ctx,
+                                            paged=True, horizon=horizon)
+        for _ in range(rows):
+            sched.submit(GenRequest(
+                prompt=[1] + rng.integers(259, model.config.n_vocab, 127).tolist(),
+                max_tokens=3 * args.steps + 2 * horizon,
+                sampler_params=SamplerParams(temp=0.0)))
 
-    steps(2)                                   # warm
+        def steps(n):
+            for _ in range(n // horizon):
+                sched._iteration()
+
+        steps(horizon)                         # admission, joint prefill, one horizon
+    else:
+        inst = Instance(model, InstanceInitParams(ctx_size=args.ctx, flash_attn=True,
+                                                  kv_dtype="int8"))
+        prompt = [1] + rng.integers(259, model.config.n_vocab, 127).tolist()
+        logits = inst.decode(prompt, np.arange(len(prompt)))
+        st = LlamaStatic.of(inst.step_config)
+        n_past = len(prompt)
+
+        def steps(n):
+            nonlocal n_past
+            _, lg, inst.cache = continue_greedy(
+                st, model.weights, inst.cache, torch.from_numpy(logits[None]),
+                torch.tensor([n_past], dtype=torch.int32), n)
+            n_past += n
+            return lg
+
+    steps(2 * horizon)                         # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps(args.steps)
@@ -83,10 +111,11 @@ def main() -> None:
                    for e in ev if e.self_cpu_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in kern)
     print(json.dumps(dict(
-        card=smi, steps=args.steps, ctx=args.ctx, wall_ms_per_step=wall_ms,
+        card=smi, mode="scheduler" if args.scheduler else "solo", rows=rows,
+        steps=args.steps, ctx=args.ctx, wall_ms_per_step=wall_ms,
         device_busy_ms_per_step=busy,
         idle_share=(1 - busy / wall_ms) if busy else None,
-        top_kernels=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in kern[:12]],
+        top_kernels=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in kern[:16]],
         top_host_ops=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in host[:12]],
     ), indent=1))
 

@@ -7,19 +7,35 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
 
 1. device: prints the card's name and power limit (nvidia-smi) and the CUDA
    version, builds the kernels and prints the build time;
-2. kernels: holds each kernel against its plain PyTorch version on the card,
-   at the Llama-3-8B shapes of the main path, and times it (median of CUDA
-   event timings, L2 flushed before every launch) beside its bound, its
-   plain version and one PyTorch library call computing the same function;
-3. end to end: synthesizes the llama3-8b Q4_K GGUF from a seed (reused from
-   the temp directory when present), loads it as `q4k_a8` with fused
-   attention and an INT8 cache (ctx 2048), warms up, and answers three
+2. kernels, attention: holds each kernel against its plain PyTorch version on
+   the card, at the Llama-3-8B shapes the main paths give it (kernel A at 1
+   and 8 rows, the lm head included; kernel B at 64, 128 and 2048 flattened
+   rows; attention at T = 1, 8, 128 and 256 on one row and on 8), and times
+   it (median of CUDA event timings, L2 flushed before every launch) beside
+   its bound, its plain version and one PyTorch library call computing the
+   same function. The attention kernels run on INT8 and bf16 stores; the
+   paged kernels E and F must equal the dense C and D bit for bit over the
+   same logical rows under scrambled page placement;
+3. solo: synthesizes the llama3-8b Q4_K GGUF from a seed (reused from the
+   temp directory when present), loads it as `q4k_a8` with fused attention,
+   and on an INT8 cache (ctx 2048) one solo Session answers three
    prove-and-verify requests; every same-backend replay must score exactly
-   1.0 and every kernel must have launched during this phase;
-4. small reference: the tiny llama fixture proven on the card and replayed
-   by the port on the CPU must meet the cross-backend thresholds.
+   1.0 (kernels A, B, C, D);
+4. serving: the port's HttpServer in-process on 127.0.0.1 over the
+   continuous-batching scheduler (8 rows, paged bf16 pool, horizon 8,
+   ctx 2048) answers 12 concurrent /complete and /chat/completions requests,
+   ten greedy and two sampled; every greedy response must verify to exactly
+   1.0 over /verify_completion and /chat/verify_completion (kernels A, B, E,
+   F). On a pool of 3 pages the server must preempt, resume and finish every
+   request, each with the uncontended run's tokens up to its preemption;
+   the same pool driven synchronously (one fixed admission order) must give
+   the uncontended tokens throughout; dense rows (kernels C and D on bf16)
+   must give the paged run's tokens;
+5. small: the tiny llama fixture proven on the card and replayed by the port
+   on the CPU must meet the cross-backend thresholds.
 
-Any failure raises and the script exits non-zero. The last line of standard
+Launch counts are set to 0 just before each path and read just after. Any
+failure raises and the script exits non-zero. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its launches, error and times. Detailed results also go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX or blama_tpu.
@@ -123,7 +139,6 @@ def check_close(name, out, ref, tol):
 
 def kernel_phase(torch, timer, rng):
     """Each kernel against its plain version at the 8B shapes."""
-    from blama_tpu_torch.ops import decode_attention as da
     from blama_tpu_torch.ops import quant_matmul as qm
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -131,13 +146,18 @@ def kernel_phase(torch, timer, rng):
     for label, (K, N) in SHAPES.items():
         w = qm.repack_q4k_a8s(random_q4k(rng, N, K, K ** -0.5), N, K, "cuda")
         wb = dequant_bf16(w)
-        ms = (1, 8) if label != "lm_head" else (1,)
-        for M in ms:
-            # the lm head takes f32 input (bf16-valued), the projections bf16
-            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-            if label == "lm_head":
-                x = x.float()
+        # 1 row: a solo decode step; 8 rows: a solo T=8 chunk and every
+        # serving decode step (the lm head too: forward takes the logits of
+        # [max_batch, E] rows)
+        # the lm head takes f32 input (bf16-valued), the projections bf16
+        x8 = torch.randn((8, K), generator=gen, device="cuda").to(torch.bfloat16)
+        if label == "lm_head":
+            x8 = x8.float()
+        outs = {}
+        for M in (1, 8):
+            x = x8[8 - M:].contiguous()
             out, xq, xs, sxm = qm.w4a8_launch(x, w)
+            outs[M] = out
             pxq, pxs, psxm = qm.quant_acts(x)
             for a, b, what in ((xq, pxq, "codes"), (xs, pxs, "scales"),
                                (sxm, psxm, "scale*sum")):
@@ -155,10 +175,18 @@ def kernel_phase(torch, timer, rng):
                 library_ms=timer(lambda: torch.matmul(xb, wb.t())),
                 bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations"))
             log(f"kernel A {rows[-1]}")
-        if label != "lm_head":
-            M = 128
-            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        # batch invariance, which the scheduler's exact replay rests on: a
+        # row's result depends neither on the row count nor on its index
+        if not torch.equal(outs[8][7:], outs[1]):
+            raise AssertionError(f"kernel A {label}: row 7 of 8 differs from the row alone")
+        # kernel B takes every chunk of more than 16 flattened rows: a solo
+        # T=128 chunk, and the scheduler's joint prefill of 8 rows x T=8..256
+        # (64 to 2048 rows); the lm head only ever sees the rows' last tokens
+        x2048 = torch.randn((2048, K), generator=gen, device="cuda").to(torch.bfloat16)
+        for M in (64, 128, 2048) if label != "lm_head" else ():
+            x = x2048[2048 - M:].contiguous()
             out = qm.q4k_pos(x, w)
+            outs[M] = out
             ref = qm.q4k_pos_plain(x, w)
             err = check_close(f"kernel B {label} M={M}", out, ref, MATMUL_TOL)
             nbytes = K * N // 2 + 2 * (K // 32) * N + M * K * 2 + M * N * 4
@@ -172,84 +200,193 @@ def kernel_phase(torch, timer, rng):
                 library_ms=timer(lambda: torch.matmul(x, wb.t())),
                 bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations"))
             log(f"kernel B {rows[-1]}")
-        del w, wb
+        if label != "lm_head" and not (torch.equal(outs[2048][-64:], outs[64])
+                                       and torch.equal(outs[2048][-128:], outs[128])):
+            raise AssertionError(f"kernel B {label}: rows of 2048 differ from the same rows "
+                                 "in a chunk of 64 or 128")
+        del w, wb, outs
         torch.cuda.empty_cache()
 
-    # attention: one 8B layer's INT8 cache at S=2048 with empty slots and
-    # slots positioned past the queries
-    B, H, Hkv, D, S = 1, 32, 8, 128, 2048
-    k = torch.randint(-127, 128, (B, S, Hkv, D), generator=gen, device="cuda", dtype=torch.int8)
-    v = torch.randint(-127, 128, (B, S, Hkv, D), generator=gen, device="cuda", dtype=torch.int8)
-    ks = torch.rand((B, S, Hkv), generator=gen, device="cuda") * 0.02 + 1e-3
-    vs = torch.rand((B, S, Hkv), generator=gen, device="cuda") * 0.02 + 1e-3
-    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].clone()
-    pos[0, ::37] = -1
-    pos[0, 1900:] = -1
-    pos[0, 1200:1260] = 4000
+    return rows
+
+
+def _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H):
+    """Dequantized, pre-rotated dense rows with GQA heads expanded, and the
+    boolean visibility mask, for the library yardstick."""
+    B, S, Hkv, D = k.shape
+    theta = pos.float()[:, :, None] * inv                       # [B, S, D]
+    kf = k.float()
+    sw = kf.reshape(B, S, Hkv, D // 2, 2).flip(-1).reshape(kf.shape)
+    even = torch.arange(D, device=k.device) % 2 == 0
+    sin = torch.sin(theta)[:, :, None, :]
+    krot = kf * torch.cos(theta)[:, :, None, :] + sw * torch.where(even, -sin, sin)
+    vf = v.float()
+    if ks is not None:
+        krot, vf = krot * ks[..., None], vf * vs[..., None]
+    kd = krot.to(torch.bfloat16).permute(0, 2, 1, 3)
+    vd = vf.to(torch.bfloat16).permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(H // Hkv, dim=1).contiguous()
+    vd = vd.repeat_interleave(H // Hkv, dim=1).contiguous()
+    mask = (pos[:, None, None, :] >= 0) & (pos[:, None, None, :] <= q_pos[:, None, :, None])
+    return kd, vd, mask
+
+
+def _attn_row(torch, timer, name, label, kernel, plain, q, dense, q_pos, inv, extra_bytes):
+    """Check one attention kernel against its plain version and time it
+    beside its bound and the library yardstick. `dense` = (k, v, ks, vs,
+    pos) is the logical [B, S, ...] view the queries attend to."""
+    k, v, ks, vs, pos = dense
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    out = kernel()
+    torch.cuda.synchronize()
+    err = check_close(f"{name} {label}", out, plain(), ATTN_TOL)
+    seen = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_pos[:, :, None])    # [B, T, S]
+    pairs, slots = int(seen.sum()), int(seen.any(1).sum())
+    per_slot = Hkv * (2 * D * k.element_size() + (8 if ks is not None else 0))
+    nbytes = slots * per_slot + pos.numel() * 4 + 2 * q.numel() * 2 + q_pos.numel() * 4 \
+        + D * 4 + extra_bytes
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * H * D * pairs / BF16_FLOPS
+    kd, vd, mask = _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H)
+    qh = q.permute(0, 2, 1, 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(
+        kernel=name, shape=f"{label} B={B} T={T} H={H} Hkv={Hkv} D={D} S={k.shape[1]} "
+                           f"slots={slots} pairs={pairs}",
+        max_abs_err=err, kernel_ms=timer(kernel), plain_ms=timer(plain, reps=5, warm=1),
+        library_ms=timer(lambda: sdpa(qh, kd, vd, attn_mask=mask)),
+        bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+    log(f"{name} {row}")
+    return row, out
+
+
+def attention_phase(torch, timer):
+    """Kernels C, D (dense rows) and E, F (paged pool) against their plain
+    versions at the 8B shapes, INT8 and bf16; E and F must equal C and D bit
+    for bit over the same logical rows under scrambled page placement."""
+    from blama_tpu_torch.ops import decode_attention as da
+    from blama_tpu_torch.ops import paged_attention as pa
+    from blama_tpu_torch.ops import paged_kv as pkv
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    H, Hkv, D = 32, 8, 128
     inv, mscale = da.effective_inv_freq(D, D, 500000.0)
     inv = inv.cuda()
     scale = D ** -0.5
 
-    def sdpa_inputs(q_pos):
-        """Dequantized, pre-rotated cache with GQA heads expanded, and the
-        boolean visibility mask, for the library yardstick."""
-        theta = pos.float()[0][:, None] * inv
-        kf = k.float()
-        sw = kf.reshape(B, S, Hkv, D // 2, 2).flip(-1).reshape(kf.shape)
-        even = torch.arange(D, device="cuda") % 2 == 0
-        sin = torch.sin(theta)[None, :, None, :]
-        krot = kf * torch.cos(theta)[None, :, None, :] + sw * torch.where(even, -sin, sin)
-        kd = (krot * ks[..., None]).to(torch.bfloat16).permute(0, 2, 1, 3)
-        vd = (v.float() * vs[..., None]).to(torch.bfloat16).permute(0, 2, 1, 3)
-        kd = kd.repeat_interleave(H // Hkv, dim=1).contiguous()
-        vd = vd.repeat_interleave(H // Hkv, dim=1).contiguous()
-        mask = (pos[:, None, None, :] >= 0) & (pos[:, None, None, :] <= q_pos[:, None, :, None])
-        return kd, vd, mask
+    def rand_store(shape, int8):
+        if int8:
+            kv = [torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2)]
+            sc = [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 + 1e-3
+                  for _ in range(2)]
+            return kv[0], kv[1], sc[0], sc[1]
+        kv = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2)]
+        return kv[0], kv[1], None, None
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    q_pos = torch.tensor([1800], dtype=torch.int32, device="cuda")
-    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
-    out = da.decode_attention(q, k, v, q_pos, pos, inv, ks, vs, mscale=mscale)
-    ref = da.flash_attention_plain(q, k, v, q_pos[:, None], pos, inv, ks, vs, scale)
-    err = check_close("kernel C", out, ref, ATTN_TOL)
-    vis = int(((pos >= 0) & (pos <= 1800)).sum())
-    nbytes = vis * Hkv * (2 * D + 8) + S * 4 + 2 * B * H * D * 2 + D * 4
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * H * D * vis / BF16_FLOPS
-    kd, vd, mask = sdpa_inputs(q_pos[:, None])
-    qh = q.permute(0, 2, 1, 3)
-    rows.append(dict(
-        kernel="decode_attention", shape=f"H={H} Hkv={Hkv} D={D} S={S} visible={vis}",
-        max_abs_err=err,
-        kernel_ms=timer(lambda: da.decode_attention(q, k, v, q_pos, pos, inv, ks, vs, mscale=mscale)),
-        plain_ms=timer(lambda: da.flash_attention_plain(q, k, v, q_pos[:, None], pos, inv,
-                                                       ks, vs, scale), reps=5, warm=1),
-        library_ms=timer(lambda: sdpa(qh, kd, vd, attn_mask=mask)),
-        bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations"))
-    log(f"kernel C {rows[-1]}")
+    # -- solo shape: one INT8 (then bf16) row at S=2048 with empty slots
+    # and slots positioned past the queries ------------------------------------
+    B, S = 1, 2048
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].clone()
+    pos[0, ::37] = -1
+    pos[0, 1900:] = -1
+    pos[0, 1200:1260] = 4000
+    for int8 in (True, False):
+        tag = "int8" if int8 else "bf16"
+        k, v, ks, vs = rand_store((B, S, Hkv, D), int8)
+        dense = (k, v, ks, vs, pos)
+        q_pos = torch.tensor([[1800]], dtype=torch.int32, device="cuda")
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        rows.append(_attn_row(
+            torch, timer, "decode_attention", f"solo {tag}",
+            lambda: da.decode_attention(q, k, v, q_pos[:, 0], pos, inv, ks, vs, mscale=mscale),
+            lambda: da.flash_attention_plain(q, k, v, q_pos, pos, inv, ks, vs, scale),
+            q, dense, q_pos, inv, 0)[0])
+        T = 128
+        qp = torch.arange(1672, 1672 + T, dtype=torch.int32, device="cuda")[None]
+        q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        rows.append(_attn_row(
+            torch, timer, "prefill_attention", f"solo {tag}",
+            lambda: da.prefill_attention(q, k, v, qp, pos, inv, ks, vs, mscale=mscale),
+            lambda: da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, scale),
+            q, dense, qp, inv, 0)[0])
 
-    T = 128
-    qp = torch.arange(1672, 1672 + T, dtype=torch.int32, device="cuda")[None]
-    q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
-    out = da.prefill_attention(q, k, v, qp, pos, inv, ks, vs, mscale=mscale)
-    ref = da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, scale)
-    err = check_close("kernel D", out, ref, ATTN_TOL)
-    seen = (pos[0][None, :] >= 0) & (pos[0][None, :] <= qp[0][:, None])      # [T, S]
-    pairs = int(seen.sum())
-    slots = int(seen.any(0).sum())
-    nbytes = slots * Hkv * (2 * D + 8) + S * 4 + 2 * B * T * H * D * 2 + T * 4 + D * 4
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * H * D * pairs / BF16_FLOPS
-    kd, vd, mask = sdpa_inputs(qp)
-    qh = q.permute(0, 2, 1, 3)
-    rows.append(dict(
-        kernel="prefill_attention", shape=f"T={T} H={H} Hkv={Hkv} D={D} S={S} pairs={pairs}",
-        max_abs_err=err,
-        kernel_ms=timer(lambda: da.prefill_attention(q, k, v, qp, pos, inv, ks, vs, mscale=mscale)),
-        plain_ms=timer(lambda: da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, scale),
-                       reps=5, warm=1),
-        library_ms=timer(lambda: sdpa(qh, kd, vd, attn_mask=mask)),
-        bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations"))
-    log(f"kernel D {rows[-1]}")
+    # -- serving shape: 8 rows on a scrambled pool, G=128, MP=16 ----------------
+    B, G, MP, P = 8, 128, 16, 160
+    S = MP * G
+    lens = [300, 0, 1500, 2047, 129, 640, 256, 1000]     # row 1 is idle (no page)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(3)).tolist()
+    table = torch.full((B, MP), -1, dtype=torch.int32)
+    # pages no row owns hold live-looking positions: reading one would show
+    pool_pos = torch.randint(0, 2048, (P, G), generator=torch.Generator().manual_seed(4),
+                             dtype=torch.int32)
+    for b, n in enumerate(lens):
+        for lp in range(-(-n // G)):
+            page = perm.pop()
+            table[b, lp] = page
+            p = torch.arange(lp * G, (lp + 1) * G, dtype=torch.int32)
+            pool_pos[page] = torch.where(p < n, p, -1)
+    pool_pos[table[2, 3], 5:40] = -1          # an edited position map: holes
+    pool_pos[table[3, 7], 10:20] = 5000       # and slots past every query
+    table, pool_pos = table.cuda(), pool_pos.cuda()
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        kp, vp, ksp, vsp = rand_store((P, G, Hkv, D), int8)
+        # the logical rows, gathered: what kernels C and D read
+        mapped = torch.repeat_interleave(table >= 0, G, dim=1)
+        pos_v = torch.where(mapped, pool_pos.reshape(-1)[pkv.view_slot_map(table, G)],
+                            -1).to(torch.int32).contiguous()
+        kd, vd, ksd, vsd = _gather(pkv, table, G, kp, vp, ksp, vsp)
+        dense = (kd, vd, ksd, vsd, pos_v)
+        for T in (1, 8, 128, 256):
+            if T == 1:
+                qp = torch.tensor([[max(n - 1, 0)] for n in lens], dtype=torch.int32, device="cuda")
+            else:
+                qp = torch.stack([torch.arange(T, dtype=torch.int32) + max(n - T, 0)
+                                  for n in lens]).cuda()
+            q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            if T == 1:
+                paged = lambda: pa.paged_decode_attention(          # noqa: E731
+                    q, kp, vp, pool_pos, table, qp[:, 0], inv, ksp, vsp, mscale=mscale)
+                dense_fn = lambda: da.decode_attention(             # noqa: E731
+                    q, kd, vd, qp[:, 0], pos_v, inv, ksd, vsd, mscale=mscale)
+                names = ("paged_decode_attention", "decode_attention")
+            else:
+                paged = lambda: pa.paged_prefill_attention(         # noqa: E731
+                    q, kp, vp, pool_pos, table, qp, inv, ksp, vsp, mscale=mscale)
+                dense_fn = lambda: da.prefill_attention(            # noqa: E731
+                    q, kd, vd, qp, pos_v, inv, ksd, vsd, mscale=mscale)
+                names = ("paged_prefill_attention", "prefill_attention")
+            r_p, out_p = _attn_row(
+                torch, timer, names[0], f"serving {tag}", paged,
+                lambda: pa.paged_attention_plain(q, kp, vp, pool_pos, table, qp, inv,
+                                                 ksp, vsp, scale),
+                q, dense, qp, inv, table.numel() * 4)
+            r_d, out_d = _attn_row(
+                torch, timer, names[1], f"serving {tag}", dense_fn,
+                lambda: da.flash_attention_plain(q, kd, vd, qp, pos_v, inv, ksd, vsd, scale),
+                q, dense, qp, inv, 0)
+            if not torch.equal(out_p, out_d):
+                raise AssertionError(
+                    f"{names[0]} {tag} T={T}: differs from {names[1]} over the same "
+                    f"logical rows (max {(out_p.float() - out_d.float()).abs().max().item()})")
+            if not (out_p[1] == 0).all():
+                raise AssertionError(f"{names[0]} {tag} T={T}: idle row is not zero")
+            log(f"{names[0]} {tag} T={T}: bit-identical to {names[1]} under scrambled pages")
+            rows += [r_p, r_d]
     return rows
+
+
+def _gather(pkv, table, G, kp, vp, ksp, vsp):
+    slot_map = pkv.view_slot_map(table, G)
+    Hkv, D = kp.shape[-2], kp.shape[-1]
+    out = [kp.reshape(-1, Hkv, D)[slot_map].contiguous(),
+           vp.reshape(-1, Hkv, D)[slot_map].contiguous()]
+    for sc in (ksp, vsp):
+        out.append(None if sc is None else sc.reshape(-1, Hkv)[slot_map].contiguous())
+    return out
 
 
 def prove_and_verify(inst, prompt, n):
@@ -288,11 +425,7 @@ def prove_and_verify(inst, prompt, n):
                 decode_tok_s=len(preds) / dt, score=score)
 
 
-def e2e_phase(torch, kind):
-    import numpy as np
-
-    from blama_tpu_torch.ops import kernels
-    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+def load_8b(torch, kind):
     from blama_tpu_torch.runtime.model import Model, ModelParams
     from blama_tpu_torch.testing import cached_llama_gguf
 
@@ -306,6 +439,23 @@ def e2e_phase(torch, kind):
     load_s = time.perf_counter() - t0
     log(f"e2e: load {load_s:.1f} s on {kind}; depth {model.config.n_layer} layers "
         f"(not cut), width {model.config.n_embd}")
+    return model, load_s
+
+
+def require_launched(launches, names, where):
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in {where}: {missing}")
+
+
+def solo_phase(torch, model, kind):
+    """The first slice's main path: one solo Session on an INT8 cache proves and
+    verifies three requests (kernels A, B, C, D)."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+
     kernels.reset_launches()
     inst = Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True,
                                               kv_dtype="int8"))
@@ -317,20 +467,304 @@ def e2e_phase(torch, kind):
     for n_prompt, n_gen in requests:
         prompt = [1] + rng.integers(259, vocab, n_prompt - 1).tolist()
         r = prove_and_verify(inst, prompt, n_gen)
-        log(f"e2e request {r} on {kind}")
+        log(f"solo request {r} on {kind}")
         if r["score"] != 1.0:
             raise AssertionError(f"same-backend replay scored {r['score']}, not 1.0")
         results.append(r)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    log(f"e2e launches {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    model.close()
-    del inst, model
+    log(f"solo launches {launches}")
+    require_launched(launches, ("w4a8_gemv", "q4k_dequant_matmul", "decode_attention",
+                                "prefill_attention"), "the solo path")
+    del inst
     torch.cuda.empty_cache()
-    return dict(load_s=load_s, requests=results), launches
+    return dict(requests=results), launches
+
+
+class Served:
+    """The port's HttpServer in-process on 127.0.0.1 (ephemeral port) over a
+    SchedulerServer; `post`/`get` are plain HTTP clients."""
+
+    def __init__(self, model, **sched):
+        import threading
+
+        from blama_tpu_torch.runtime.instance import InstanceInitParams
+        from blama_tpu_torch.server.http import HttpServer
+        from blama_tpu_torch.server.scheduler_server import SchedulerServer
+
+        self.api = SchedulerServer(model, InstanceInitParams(ctx_size=2048), **sched)
+        self.srv = HttpServer(("127.0.0.1", 0), self.api, request_timeout=600.0)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+
+    def post(self, path, body):
+        import urllib.request
+
+        req = urllib.request.Request(self.url + path, json.dumps(body).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return json.loads(r.read())
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + path, timeout=60) as r:
+            return json.loads(r.read())
+
+    def post_all(self, jobs):
+        """Post (path, body) jobs concurrently; returns (responses, seconds)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(jobs)) as ex:
+            futs = [ex.submit(self.post, path, body) for path, body in jobs]
+            out = [f.result(timeout=900) for f in futs]
+        return out, time.perf_counter() - t0
+
+    def close(self):
+        self.srv.shutdown()
+        self.thread.join(timeout=60)
+        self.srv.server_close()
+        self.api.close()
+        if self.thread.is_alive() or self.api.scheduler._thread.is_alive():
+            raise AssertionError("server threads did not stop")
+
+
+def _request_body(kind, text, **kw):
+    body = {"messages": [{"role": "user", "content": text}]} if kind == "chat" \
+        else {"prompt": text}
+    return dict(body, **kw)
+
+
+PATHS = {"plain": ("/complete", "/verify_completion"),
+         "chat": ("/chat/completions", "/chat/verify_completion")}
+
+
+def time_breakdown(snap, wall):
+    """Where the scheduler thread's time went during `wall` seconds of
+    serving, from its nested timers (server/scheduler.py `_iteration`)."""
+    t = {k: v["total_s"] for k, v in snap["timers"].items()}
+    parts = {k: t.get(k, 0.0) for k in ("prefill", "sample", "decode_step", "decode_horizon")}
+    out = dict(wall_s=wall, idle_s=t.get("idle", 0.0), iteration_s=t.get("iteration", 0.0),
+               **{k + "_s": v for k, v in parts.items()})
+    out["bookkeeping_s"] = out["iteration_s"] - sum(parts.values())
+    for k in ("decode_step", "decode_horizon", "queue_wait"):
+        c = snap["timers"].get(k)
+        if c:
+            out[k + "_count"], out[k + "_mean_ms"] = c["count"], c["mean_ms"]
+    return out
+
+
+def serving_phase(torch, model, kind):
+    """This slice's main path: the HTTP server over the continuous-batching
+    scheduler on the paged bf16 pool (kernels A, B, E, F), then the same
+    scheduler with a tight pool (forced preemption) and on dense rows
+    (kernels C and D on bf16)."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(11)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+
+    def text(n_chars):
+        return "".join(rng.choice(letters, n_chars))
+
+    # 12 requests: prompts of 5 to ~300 tokens (the synthetic vocab falls
+    # back to one token per byte), 32 tokens each; ten greedy, two sampled
+    # with a seed (these force the per-token path and the mode transition)
+    n_gen = 32
+    specs = [("plain", 1), ("chat", 3), ("plain", 100), ("plain", 100), ("plain", 100),
+             ("chat", 40), ("plain", 296), ("chat", 200), ("plain", 17), ("plain", 150),
+             ("plain", 30), ("chat", 60)]
+    reqs = []
+    for i, (kind_i, n_chars) in enumerate(specs):
+        sampled = i in (5, 10)
+        reqs.append((kind_i, _request_body(
+            kind_i, text(n_chars), max_tokens=n_gen,
+            **(dict(temp=0.8, seed=100 + i) if sampled else dict(temp=0.0)))))
+    greedy = [i for i, (_, body) in enumerate(reqs) if body["temp"] == 0.0]
+
+    def tokens_of(resp):
+        return [t["id"] for t in resp["tokenData"]]
+
+    # -- paged pool, horizon 8: the main path --------------------------------
+    srv = Served(model, max_batch=8, paged=True, horizon=8)
+    try:
+        kernels.reset_launches()
+        resps, wall = srv.post_all([(PATHS[k][0], body) for k, body in reqs])
+        torch.cuda.synchronize()
+        gen_launches = dict(kernels.LAUNCHES)
+        n_tok = sum(len(r["tokenData"]) for r in resps)
+        for i, r in enumerate(resps):
+            if len(r["tokenData"]) != n_gen or r.get("finish_reason") != "length" \
+                    or any(len(t["logits"]) != 10 for t in r["tokenData"]):
+                raise AssertionError(f"request {i}: short or malformed response "
+                                     f"({len(r['tokenData'])} tokens, {r.get('finish_reason')})")
+            for t in r["tokenData"]:
+                for lg in t["logits"]:
+                    if not abs(lg["logit"]) < float("inf"):
+                        raise AssertionError(f"request {i}: non-finite logit")
+        snap = srv.get("/metrics")["scheduler"]
+        log(f"serving (paged, horizon 8, 8 rows): {len(reqs)} requests, {n_tok} tokens in "
+            f"{wall:.2f} s = {n_tok / wall:.1f} tok/s over all rows on {kind}; "
+            f"prefilled {snap['tokens_prefilled']} tokens, TTFT (mean prefill of an "
+            f"admission batch) {snap['ttft_mean_s']} s")
+        log(f"serving scheduler metrics {snap}")
+        breakdown = time_breakdown(snap, wall)
+        log(f"serving time breakdown (scheduler thread, generation) {breakdown}")
+        log(f"serving launches (generation) {gen_launches}")
+        verify_jobs = [(PATHS[reqs[i][0]][1], {"request": reqs[i][1], "response": resps[i]})
+                       for i in greedy]
+        scores, vwall = srv.post_all(verify_jobs)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        log(f"serving verify: {[s['result'] for s in scores]} in {vwall:.2f} s")
+        for i, sc in zip(greedy, scores, strict=True):
+            if sc["result"] != 1.0:
+                raise AssertionError(
+                    f"request {i}: scheduler replay scored {sc['result']}, not 1.0")
+        log(f"serving launches (generation + verify) {launches}")
+        require_launched(launches, ("w4a8_gemv", "q4k_dequant_matmul",
+                                    "paged_decode_attention", "paged_prefill_attention"),
+                         "the serving phase")
+        if launches["decode_attention"] or launches["prefill_attention"]:
+            raise AssertionError("the paged scheduler launched a dense attention kernel")
+        result = dict(requests=len(reqs), tokens=n_tok, wall_s=wall, tok_s=n_tok / wall,
+                      verify_wall_s=vwall, scheduler=srv.get("/metrics")["scheduler"],
+                      generation_breakdown=breakdown)
+        # the uncontended reference of the tight-pool run below: three
+        # 104-token prompts again, 64 tokens each (two pages per row)
+        tight, n_long = [2, 3, 4], 64
+        long_jobs = [(PATHS["plain"][0], dict(reqs[i][1], max_tokens=n_long)) for i in tight]
+        long_ref = [tokens_of(r) for r in srv.post_all(long_jobs)[0]]
+        for i, ref in zip(tight, long_ref, strict=True):
+            if len(ref) != n_long or ref[:n_gen] != tokens_of(resps[i]):
+                raise AssertionError(f"request {i}: a longer run changed its first tokens")
+    finally:
+        srv.close()
+    del srv
+    torch.cuda.empty_cache()
+
+    # -- tight pool over HTTP: the same three requests on 3 pages. Each row
+    # needs two pages to finish and a third must stay free for admission, so
+    # whatever the arrival order, two rows are admitted, one takes the last
+    # page at its boundary (24 tokens in) and the other is preempted there,
+    # requeues and resumes by re-prefilling prompt + generated. A resumed row
+    # continues with re-prefill numerics (kernels B/F over what A/E decoded),
+    # as in the reference: what is guaranteed, and held here, is that every
+    # request finishes with its full budget and that its tokens before the
+    # preemption are the uncontended run's ----------------------------------
+    srv = Served(model, max_batch=8, paged=True, horizon=8, n_pages=3)
+    sched = srv.api.scheduler
+    seen, submit = [], sched.submit
+
+    def recording_submit(r):
+        if not any(r is x for x in seen):
+            seen.append(r)
+        submit(r)
+
+    sched.submit = recording_submit
+    try:
+        kernels.reset_launches()
+        h_resps, h_wall = srv.post_all(long_jobs)
+        torch.cuda.synchronize()
+        h_snap = srv.get("/metrics")["scheduler"]
+    finally:
+        srv.close()
+    del srv, sched
+    torch.cuda.empty_cache()
+    prompts = [model.vocab.tokenize(reqs[i][1]["prompt"], True, True) for i in tight]
+    n_prompt = sum(len(p) for p in prompts)
+    cuts = []
+    for i, p, r, ref in zip(tight, prompts, h_resps, long_ref, strict=True):
+        req = next(x for x in seen if x.prompt == p)
+        got = tokens_of(r)
+        cut = req.preempted_at[0] if req.preempted_at else n_long
+        same = sum(1 for a, b in zip(got, ref) if a == b)
+        log(f"tight pool over HTTP, request {i}: {r.get('finish_reason')}, {len(got)} tokens, "
+            f"preempted at {req.preempted_at}, {same} equal to the uncontended run's")
+        if r.get("finish_reason") != "length" or len(got) != n_long:
+            raise AssertionError(f"request {i}: tight pool gave {r.get('finish_reason')}, "
+                                 f"{len(got)} tokens")
+        if got[:cut] != ref[:cut]:
+            raise AssertionError(f"request {i}: tokens before the preemption at {cut} "
+                                 f"differ: {got[:cut]} vs {ref[:cut]}")
+        cuts.append(list(req.preempted_at))
+    log(f"tight pool over HTTP (3 pages): {len(tight)} requests x {n_long} tokens in "
+        f"{h_wall:.2f} s, prefilled {h_snap['tokens_prefilled']} tokens for {n_prompt} "
+        f"prompt tokens; {time_breakdown(h_snap, h_wall)}")
+    if not any(cuts) or h_snap["tokens_prefilled"] <= n_prompt:
+        raise AssertionError("the tight pool over HTTP forced no preemption")
+    result["tight_pool_http"] = dict(
+        requests=len(tight), tokens_each=n_long, wall_s=h_wall, preempted_at=cuts,
+        prompt_tokens=n_prompt, tokens_prefilled=h_snap["tokens_prefilled"])
+
+    # -- the same pool driven synchronously through the scheduler's own API,
+    # 32 tokens each: all three requests are queued before the first
+    # iteration, so the admission order, and with it the whole run, is fixed.
+    # Two rows reach their page boundary together after 24 tokens; one takes
+    # the last free page, the other is preempted, requeues behind the third
+    # request and resumes. In this order the tokens after the resume equal
+    # the uncontended run's too (their argmax margins exceed the drift) ------
+    from blama_tpu_torch.runtime.sampler import SamplerParams
+    from blama_tpu_torch.server.scheduler import ContinuousBatchingScheduler, GenRequest
+
+    sched = ContinuousBatchingScheduler(model, max_batch=8, ctx_size=2048, paged=True,
+                                        horizon=8, n_pages=3)
+    t_out = {}
+    t_reqs = [GenRequest(prompt=p, max_tokens=n_gen,
+                         sampler_params=SamplerParams(rng_seed=0, temp=0.0, top_p=0.95),
+                         on_done=lambda preds, i=i: t_out.__setitem__(
+                             i, [x.token for x in preds]))
+              for i, p in zip(tight, prompts, strict=True)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for r in t_reqs:
+        sched.submit(r)
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    snap = sched.metrics.snapshot()
+    del sched
+    torch.cuda.empty_cache()
+    log(f"tight pool (3 pages): {len(tight)} requests ({[len(p) for p in prompts]} prompt "
+        f"tokens) in {t_wall:.2f} s, prefilled {snap['tokens_prefilled']} tokens for "
+        f"{n_prompt} prompt tokens")
+    if snap["tokens_prefilled"] <= n_prompt:
+        raise AssertionError("the tight pool forced no preemption (nothing was re-prefilled)")
+    for i, r in zip(tight, t_reqs, strict=True):
+        same = sum(1 for a, b in zip(t_out[i], tokens_of(resps[i])) if a == b)
+        log(f"tight pool request {i}: {r.finish_reason}, {len(t_out[i])} tokens, "
+            f"preempted at {r.preempted_at}, {same} equal to the uncontended run's")
+        if r.finish_reason != "length" or t_out[i] != tokens_of(resps[i]):
+            raise AssertionError(
+                f"request {i}: tight-pool run gave {r.finish_reason} "
+                f"{t_out[i]} vs {tokens_of(resps[i])}")
+    result["tight_pool"] = dict(requests=len(tight), wall_s=t_wall, prompt_tokens=n_prompt,
+                                tokens_prefilled=snap["tokens_prefilled"])
+
+    # -- dense rows: kernels C and D on the bf16 cache ------------------------
+    some = greedy[:6]
+    srv = Served(model, max_batch=8, paged=False, horizon=8)
+    try:
+        kernels.reset_launches()
+        d_resps, d_wall = srv.post_all([(PATHS[reqs[i][0]][0], reqs[i][1]) for i in some])
+        torch.cuda.synchronize()
+        dense_launches = dict(kernels.LAUNCHES)
+    finally:
+        srv.close()
+    del srv
+    torch.cuda.empty_cache()
+    log(f"dense scheduler: {len(some)} requests in {d_wall:.2f} s; launches {dense_launches}")
+    require_launched(dense_launches, ("w4a8_gemv", "q4k_dequant_matmul", "decode_attention",
+                                      "prefill_attention"), "the dense-scheduler check")
+    for i, r in zip(some, d_resps, strict=True):
+        if tokens_of(r) != tokens_of(resps[i]):
+            raise AssertionError(f"request {i}: dense rows gave other tokens than the paged pool")
+    result["dense"] = dict(requests=len(some), wall_s=d_wall)
+    return result, launches, dense_launches
 
 
 def small_reference_phase(torch):
@@ -366,6 +800,35 @@ def small_reference_phase(torch):
     return res
 
 
+# per kernel of the line: source, the TPU kernel it replaces, and the shape
+# (a prefix of the row's label) that stands for it on the main path: the
+# serving step's 8 rows for A, and the heaviest serving chunk (8 rows x
+# T=256) for B, D and F; every other shape's row is in chip_smoke.json
+KERNELS = {
+    "w4a8_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                  "blama_tpu/ops/pallas/quant_matmul.py:1629", "gate/up K=4096 N=14336 M=8"),
+    "q4k_dequant_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                           "blama_tpu/ops/pallas/quant_matmul.py:221",
+                           "gate/up K=4096 N=14336 M=2048"),
+    "decode_attention": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
+                         "blama_tpu/ops/pallas/decode_attention.py:106", "solo int8 "),
+    "prefill_attention": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
+                          "blama_tpu/ops/pallas/decode_attention.py:976", "solo int8 "),
+    "decode_attention_bf16": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
+                              "blama_tpu/ops/pallas/decode_attention.py:106",
+                              "serving bf16 B=8 T=1 "),
+    "prefill_attention_bf16": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
+                               "blama_tpu/ops/pallas/decode_attention.py:976",
+                               "serving bf16 B=8 T=256 "),
+    "paged_decode_attention": ("blama_tpu_torch/ops/csrc/paged_attention.cu",
+                               "blama_tpu/ops/pallas/paged_attention.py:155",
+                               "serving bf16 B=8 T=1 "),
+    "paged_prefill_attention": ("blama_tpu_torch/ops/csrc/paged_attention.cu",
+                                "blama_tpu/ops/pallas/paged_attention.py:155",
+                                "serving bf16 B=8 T=256 "),
+}
+
+
 def main() -> int:
     import torch
 
@@ -391,43 +854,60 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    res = {}
     with torch.no_grad():
         timer = Timer(torch)
         rows = kernel_phase(torch, timer, np.random.default_rng(0))
+        rows += attention_phase(torch, timer)
         del timer
         torch.cuda.empty_cache()
-        e2e, launches = e2e_phase(torch, kind)
-        small = small_reference_phase(torch)
+        log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
+        model, res["load_s"] = load_8b(torch, kind)
+        res["solo"], solo_l = solo_phase(torch, model, kind)
+        log(f"solo phase done at {time.perf_counter() - t_start:.1f} s")
+        res["serving"], serve_l, dense_l = serving_phase(torch, model, kind)
+        log(f"serving phase done at {time.perf_counter() - t_start:.1f} s")
+        model.close()
+        del model
+        torch.cuda.empty_cache()
+        res["small_reference"] = small_reference_phase(torch)
 
-    replaces = {
-        "w4a8_gemv": "blama_tpu/ops/pallas/quant_matmul.py:1629",
-        "q4k_dequant_matmul": "blama_tpu/ops/pallas/quant_matmul.py:221",
-        "decode_attention": "blama_tpu/ops/pallas/decode_attention.py:106",
-        "prefill_attention": "blama_tpu/ops/pallas/decode_attention.py:976",
-    }
-    source = {"w4a8_gemv": "blama_tpu_torch/ops/csrc/quant_matmul.cu",
-              "q4k_dequant_matmul": "blama_tpu_torch/ops/csrc/quant_matmul.cu",
-              "decode_attention": "blama_tpu_torch/ops/csrc/decode_attention.cu",
-              "prefill_attention": "blama_tpu_torch/ops/csrc/decode_attention.cu"}
-    # the line's entry per kernel: its main-path representative shape
-    rep = {"w4a8_gemv": "gate/up K=4096 N=14336 M=1",
-           "q4k_dequant_matmul": "gate/up K=4096 N=14336 M=128"}
-    kernels_line = []
-    for name in replaces:
-        cands = [r for r in rows if r["kernel"] == name]
-        r = next((c for c in cands if c["shape"] == rep.get(name)), cands[0])
-        kernels_line.append(dict(
-            name=name, route="cuda", source=source[name], replaces=replaces[name],
-            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        nvidia_smi=smi, device=kind, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=build_s, kernel_rows=rows, e2e=e2e, launches=launches,
-        small_reference=small, seconds=time.perf_counter() - t_start), indent=1))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    report = dict(nvidia_smi=smi, device=kind, torch=torch.__version__,
+                  cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
+                  launches=dict(solo=solo_l, serving=serve_l, dense_scheduler=dense_l), **res)
+
+    # launches of the line: each kernel's count from the run of the path it
+    # belongs to, counts set to 0 just before that path and read just after.
+    # A and B: the serving phase (they also ran on the solo path, `solo_launches`)
+    line_launches = {
+        "w4a8_gemv": serve_l["w4a8_gemv"], "q4k_dequant_matmul": serve_l["q4k_dequant_matmul"],
+        "decode_attention": solo_l["decode_attention"],
+        "prefill_attention": solo_l["prefill_attention"],
+        "decode_attention_bf16": dense_l["decode_attention"],
+        "prefill_attention_bf16": dense_l["prefill_attention"],
+        "paged_decode_attention": serve_l["paged_decode_attention"],
+        "paged_prefill_attention": serve_l["paged_prefill_attention"],
+    }
+    kernels_line = []
+    for name, (source, replaces, shape) in KERNELS.items():
+        base = name.removesuffix("_bf16")
+        r = next(c for c in rows if c["kernel"] == base and c["shape"].startswith(shape))
+        entry = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=line_launches[name], max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"])
+        if base in solo_l and name == base:
+            entry["solo_launches"] = solo_l[base]
+        if entry["launches"] == 0:
+            raise AssertionError(f"{name}: not launched on its path")
+        kernels_line.append(entry)
+    report["seconds"] = time.perf_counter() - t_start
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    log(f"total {report['seconds']:.1f} s")
+    log(smi)
     log(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -16,6 +16,7 @@ from blama_tpu.ops.pallas import decode_attention as jda
 from blama_tpu_torch.ops import attention as pattn
 from blama_tpu_torch.ops import decode_attention as pda
 from blama_tpu_torch.ops import kv_cache as pkv
+from blama_tpu_torch.ops import paged_attention as ppa
 
 B, S, HKV, H, D = 1, 64, 2, 4, 64
 
@@ -129,3 +130,92 @@ def test_decode_split_is_fixed_and_covers_cache():
         chunk = pda.decode_split(b, hkv, s)
         assert chunk % pda.TILE_S == 0 and chunk * -(-s // chunk) >= s
         assert chunk == pda.decode_split(b, hkv, s)
+
+
+# -- bf16 cache (the scheduler's store): kernels C and D read values, no scales
+
+
+@pytest.fixture(scope="module")
+def bf16_cache():
+    """Three rows of 128 slots (the smallest bf16 geometry the decode gate
+    takes), with an empty slot, an unused tail, a slot ahead of every query
+    and one row that holds nothing at all."""
+    rng = np.random.default_rng(8)
+    b, s = 3, 128
+    k = jnp.asarray(rng.standard_normal((b, s, HKV, D)), jnp.bfloat16)
+    v = jnp.asarray(rng.standard_normal((b, s, HKV, D)), jnp.bfloat16)
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    pos[0, 5] = -1
+    pos[0, 100:] = -1
+    pos[0, 30] = 500
+    pos[1, 60:] = -1
+    pos[2, :] = -1            # an idle row
+    return k, v, pos
+
+
+def _bt(a):
+    return torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t", [1, 8, 16])
+def test_bf16_cache_plain_matches_jax(bf16_cache, t):
+    k, v, pos = bf16_cache
+    b = k.shape[0]
+    assert jda.supports(128, D, jnp.bfloat16, b) and pda.supports(128, D, torch.bfloat16, b)
+    x = np.random.default_rng(50 + t).standard_normal((b, t, H, D)).astype(np.float32)
+    qb = jnp.asarray(x, jnp.bfloat16)
+    qp = np.stack([np.arange(90 - t, 90), np.arange(60 - t, 60), np.arange(t)]).astype(np.int32)
+    inv, ms = jda.effective_inv_freq(D, D, 10000.0)
+    pinv, pms = pda.effective_inv_freq(D, D, 10000.0)
+    if t == 1:
+        ref = jda.decode_attention(qb, k, v, jnp.asarray(qp[:, 0]), jnp.asarray(pos), inv,
+                                   mscale=ms)
+        out = pda.decode_attention(_bt(qb), _bt(k), _bt(v), _t(qp[:, 0]), _t(pos), pinv,
+                                   mscale=pms)
+    else:
+        ref = jda.prefill_attention(qb, k, v, jnp.asarray(qp), jnp.asarray(pos), inv,
+                                    mscale=ms)
+        out = pda.prefill_attention(_bt(qb), _bt(k), _bt(v), _t(qp), _t(pos), pinv,
+                                    mscale=pms)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (b, t, H, D)
+    _close(out.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+    assert (out[2] == 0).all()      # the idle row attends to nothing
+
+
+def test_route_gates_match_jax_float_caches():
+    for s in (64, 128, 192, 512, 2048):
+        for b in (1, 8):
+            for jd, pd_ in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
+                assert pda.supports(s, 64, pd_, b) == jda.supports(s, 64, jd, b), (s, b)
+                for t in (1, 4, 8, 256):
+                    assert pda.prefill_supports(t, s, 64, pd_, b) == \
+                        jda.prefill_supports(t, s, 64, jd, b), (t, s, b)
+
+
+def test_cuda_wrappers_refuse_f32_cache():
+    """An f32 cache has no kernel: the store-type check raises (it runs
+    before anything touches the card)."""
+    k = torch.zeros((1, 128, HKV, D))
+    with pytest.raises(NotImplementedError):
+        pda.kv_type_of(k, k, None, None)
+    assert pda.kv_type_of(k.to(torch.bfloat16), k.to(torch.bfloat16), None, None) == 1
+    assert pda.kv_type_of(k.to(torch.int8), k.to(torch.int8), k[..., 0], k[..., 0]) == 0
+
+
+@pytest.mark.parametrize("case,ok", [
+    (("cuda", 32, 8, 128, torch.bfloat16), True),
+    (("cuda", 32, 8, 64, torch.int8), True),
+    (("cuda", 32, 8, 96, torch.bfloat16), False),    # the gates admit D=96
+    (("cuda", 32, 8, 128, torch.float32), False),    # and an f32 store
+    (("cuda", 66, 2, 128, torch.bfloat16), False),   # 33 query heads per KV head
+    (("cpu", 4, 2, 16, torch.float32), True),        # the plain versions serve all
+], ids=["bf16", "int8", "d96", "f32", "g33", "cpu"])
+def test_kernel_geometry_refused_at_construction(case, ok):
+    """What the route gates admit but kernels C-F were not built for is
+    refused for a card where the cache is created, not inside a step."""
+    if ok:
+        pda.require_kernel_geometry(*case)
+    else:
+        assert ppa.supports(128, case[3], case[4]) and pda.supports(2048, case[3], case[4])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pda.require_kernel_geometry(*case)

@@ -7,8 +7,10 @@ machine without one every test skips. On the card:
 
 Small, ragged shapes on purpose: the 8B shapes run in chip_smoke.py; here
 the edges — row counts that are not powers of two, widths that do not fill
-a block, a K that ends inside a staging chunk, batch > 1, a head dim of 64 —
-and replay determinism (two launches give the same bits).
+a block, a K that ends inside a staging chunk, batch > 1, a head dim of 64,
+bf16 and INT8 stores, pages of 32 slots on a scrambled pool — and replay
+determinism (two launches give the same bits). The last test drives the
+scheduler on the card on the tiny fixture.
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from blama_tpu_torch.ops import decode_attention as da
+from blama_tpu_torch.ops import paged_attention as pa
+from blama_tpu_torch.ops import paged_kv as pkv
 from blama_tpu_torch.ops import quant_matmul as qm
 
 # tolerances as in chip_smoke.py: f32 sums in another order (matmuls);
@@ -108,3 +112,114 @@ def test_kernel_d(cuda, b, t, h, hkv, d, s):
     ref = da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, d ** -0.5)
     _close(out, ref, ATTN_TOL)
     assert torch.equal(out, da.prefill_attention(q, k, v, qp, pos, inv, ks, vs))
+
+
+def _bf16_cache(b, s, hkv, d, seed, device):
+    k, v, _, _, pos = _cache(b, s, hkv, d, seed, device)
+    g = torch.Generator().manual_seed(seed + 1)
+    k, v = (torch.randn(k.shape, generator=g).to(torch.bfloat16).to(device) for _ in range(2))
+    return k, v, pos
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,s", [(1, 1, 4, 2, 64, 64), (3, 1, 8, 2, 128, 96),
+                                           (2, 8, 8, 2, 256, 64), (1, 24, 32, 8, 128, 256)])
+def test_kernels_c_d_bf16(cuda, b, t, h, hkv, d, s):
+    k, v, pos = _bf16_cache(b, s, hkv, d, seed=s + t, device=cuda)
+    inv = da.effective_inv_freq(d, d, 10000.0)[0].to(cuda)
+    q = torch.randn((b, t, h, d), generator=torch.Generator().manual_seed(3)) \
+        .to(torch.bfloat16).to(cuda)
+    qp = (torch.arange(t, dtype=torch.int32) + s // 3).repeat(b, 1).to(cuda)
+    run = (lambda: da.decode_attention(q, k, v, qp[:, 0], pos, inv)) if t == 1 else \
+        (lambda: da.prefill_attention(q, k, v, qp, pos, inv))
+    out = run()
+    _close(out, da.flash_attention_plain(q, k, v, qp, pos, inv, None, None, d ** -0.5),
+           ATTN_TOL)
+    assert torch.equal(out, run())
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("t,g,d", [(1, 32, 64), (1, 128, 128), (8, 32, 128), (16, 64, 64)])
+def test_kernels_e_f_equal_dense(cuda, int8, t, g, d):
+    """Paged kernels on a scrambled pool: within tolerance of the plain
+    version and bit-identical to the dense kernels over the gathered rows;
+    an unmapped row gives zeros."""
+    b, h, hkv, mp, p = 3, 8, 2, 4, 20
+    gen = torch.Generator().manual_seed(t + g + d)
+    if int8:
+        kp, vp = (torch.randint(-127, 128, (p, g, hkv, d), generator=gen, dtype=torch.int8)
+                  .to(cuda) for _ in range(2))
+        ksp, vsp = ((torch.rand((p, g, hkv), generator=gen) * 0.02 + 1e-3).to(cuda)
+                    for _ in range(2))
+    else:
+        kp, vp = (torch.randn((p, g, hkv, d), generator=gen).to(torch.bfloat16).to(cuda)
+                  for _ in range(2))
+        ksp = vsp = None
+    lens = [3 * g + 5, 0, g - 1]
+    perm = torch.randperm(p, generator=gen).tolist()
+    table = torch.full((b, mp), -1, dtype=torch.int32)
+    pool_pos = torch.randint(0, 50, (p, g), generator=gen, dtype=torch.int32)
+    for r, n in enumerate(lens):
+        for lp in range(-(-n // g)):
+            page = perm.pop()
+            table[r, lp] = page
+            s = torch.arange(lp * g, (lp + 1) * g, dtype=torch.int32)
+            pool_pos[page] = torch.where(s < n, s, -1)
+    pool_pos[table[0, 1], 3:9] = -1
+    table, pool_pos = table.to(cuda), pool_pos.to(cuda)
+    inv = da.effective_inv_freq(d, d, 10000.0)[0].to(cuda)
+    q = torch.randn((b, t, h, d), generator=gen).to(torch.bfloat16).to(cuda)
+    qp = torch.stack([torch.arange(t, dtype=torch.int32) + max(n - t, 0) for n in lens]).to(cuda)
+    slot_map = pkv.view_slot_map(table, g)
+    mapped = torch.repeat_interleave(table >= 0, g, dim=1)
+    pos_v = torch.where(mapped, pool_pos.reshape(-1)[slot_map], -1).to(torch.int32).contiguous()
+    gather = lambda a: None if a is None else \
+        a.reshape(-1, *a.shape[2:])[slot_map].contiguous()   # noqa: E731
+    kd, vd, ksd, vsd = gather(kp), gather(vp), gather(ksp), gather(vsp)
+    if t == 1:
+        out = pa.paged_decode_attention(q, kp, vp, pool_pos, table, qp[:, 0], inv, ksp, vsp)
+        dense = da.decode_attention(q, kd, vd, qp[:, 0], pos_v, inv, ksd, vsd)
+    else:
+        out = pa.paged_prefill_attention(q, kp, vp, pool_pos, table, qp, inv, ksp, vsp)
+        dense = da.prefill_attention(q, kd, vd, qp, pos_v, inv, ksd, vsd)
+    _close(out, pa.paged_attention_plain(q, kp, vp, pool_pos, table, qp, inv, ksp, vsp,
+                                         d ** -0.5), ATTN_TOL)
+    assert torch.equal(out, dense)
+    assert (out[1] == 0).all()
+
+
+def test_scheduler_on_the_card(cuda, tmp_path):
+    """The tiny fixture through the paged horizon scheduler on the card: a
+    row's tokens do not depend on its neighbours or on the layout, and a
+    scheduler replay scores exactly 1.0."""
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.runtime.sampler import SamplerParams
+    from blama_tpu_torch.server.scheduler import (ContinuousBatchingScheduler, GenRequest,
+                                                  VerifyRequest)
+    from blama_tpu_torch.testing import write_tiny_llama
+
+    path = str(tmp_path / "t.gguf")
+    write_tiny_llama(path)
+    m = Model(path, ModelParams(dtype="q4k_a8", attn="fused"))
+    prompts = [m.vocab.tokenize(t, True, True)
+               for t in ("hello world the cat", "the cat sat on the", "president george bush")]
+
+    def run(prompts, **kw):
+        sched = ContinuousBatchingScheduler(m, max_batch=4, ctx_size=256, **kw)
+        outs = {}
+        for i, p in enumerate(prompts):
+            sched.submit(GenRequest(prompt=p, max_tokens=8,
+                                    sampler_params=SamplerParams(temp=0.0),
+                                    on_done=lambda g, i=i: outs.__setitem__(i, g)))
+        sched.run_until_idle()
+        return sched, [outs[i] for i in range(len(prompts))]
+
+    toks = lambda preds: [[p.token for p in ps] for ps in preds]   # noqa: E731
+    sched, paged = run(prompts, paged=True, horizon=4)
+    assert toks(run(prompts)[1]) == toks(paged)                     # dense, per token
+    assert toks(run(prompts[1:2], paged=True)[1]) == toks(paged)[1:2]   # alone
+    got = {}
+    sched.submit(VerifyRequest(prompt=prompts[0], predictions=paged[0],
+                               on_done=lambda s: got.__setitem__("s", s)))
+    sched.run_until_idle()
+    assert got["s"] == 1.0
+    m.close()

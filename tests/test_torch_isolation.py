@@ -32,6 +32,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res["bad"] == []
     assert "blama_tpu_torch.runtime.session" in res["modules"]
     assert "blama_tpu_torch.ops.decode_attention" in res["modules"]
+    for name in ("ops.paged_kv", "ops.paged_attention", "runtime.chat", "runtime.grammar",
+                 "runtime.antiprompt", "server.scheduler", "server.scheduler_server",
+                 "server.server", "server.http", "utils.logging", "utils.metrics",
+                 "tools.profile_step"):
+        assert f"blama_tpu_torch.{name}" in res["modules"], name
 
 
 _NO_CUDA = r"""
@@ -85,3 +90,88 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+_NO_CUDA_SERVING = r"""
+import os, sys
+sys.path.insert(0, {root!r})
+import torch
+assert not torch.cuda.is_available()
+from blama_tpu_torch.ops.kv_cache import KVCache
+from blama_tpu_torch.ops.paged_kv import PagedKVCache
+from blama_tpu_torch.models.llama import cache_from_jax, paged_cache_from_jax
+from blama_tpu_torch.server import http
+from blama_tpu_torch.testing import write_tiny_llama
+write_tiny_llama({path!r})
+os.environ.update(BLAMA_MODEL={path!r}, BLAMA_SCHEDULER="2", BLAMA_PAGED_KV="1",
+                  BLAMA_HOST="127.0.0.1", BLAMA_PORT="7331")
+calls = {{
+    "KVCache.create": lambda: KVCache.create(1, 1, 8, 1, 8, "bfloat16"),
+    "PagedKVCache.create": lambda: PagedKVCache.create(1, 1, 2, 128, 1, 1, 8),
+    "cache_from_jax": lambda: cache_from_jax({{}}),
+    "paged_cache_from_jax": lambda: paged_cache_from_jax({{}}),
+    "http.main": http.main,
+}}
+for name, call in calls.items():
+    try:
+        call()
+    except RuntimeError as e:
+        print(name, "refused:", e)
+    else:
+        print(name, "ran on the CPU")
+"""
+
+
+def test_serving_entry_points_without_cuda_raise(tmp_path):
+    """The server's main, the caches and the cache conversions want the card
+    unless the caller asks for the CPU; without one each raises."""
+    code = _NO_CUDA_SERVING.format(root=str(ROOT), path=str(tmp_path / "t.gguf"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    lines = [l for l in out.stdout.strip().splitlines() if "refused" in l or "ran on" in l]
+    assert len(lines) == 5, out.stdout
+    for line in lines:
+        assert " refused: no CUDA device" in line, line
+
+
+def test_http_main_serves_on_the_cpu_when_asked(tmp_path):
+    """`python -m blama_tpu_torch.server.http` with BLAMA_DEVICE=cpu: starts,
+    answers a request over the paged scheduler and drains on SIGTERM."""
+    import json
+    import signal
+    import socket
+    import time
+    import urllib.request
+
+    from blama_tpu_torch.testing import write_tiny_llama
+
+    path = str(tmp_path / "t.gguf")
+    write_tiny_llama(path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "BLAMA_MODEL": path, "BLAMA_DEVICE": "cpu", "BLAMA_HOST": "127.0.0.1",
+           "BLAMA_PORT": str(port), "BLAMA_SCHEDULER": "2", "BLAMA_PAGED_KV": "1",
+           "BLAMA_HORIZON": "4", "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)}
+    proc = subprocess.Popen([sys.executable, "-m", "blama_tpu_torch.server.http"], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        body = json.dumps({"prompt": "hello world", "max_tokens": 4, "temp": 0.0}).encode()
+        out, deadline = None, time.time() + 120
+        while out is None and time.time() < deadline and proc.poll() is None:
+            try:
+                req = urllib.request.Request(f"http://127.0.0.1:{port}/complete", body,
+                                             method="POST")
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    out = json.loads(r.read())
+            except OSError:
+                time.sleep(0.2)
+        assert out is not None and len(out["tokenData"]) == 4, proc.poll()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+        assert "continuous batching enabled (max_batch=2, paged KV)" in proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)

@@ -22,6 +22,8 @@ from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
 from blama_tpu_torch.runtime.verify import LogitComparer, MetricsAggregator
 from blama_tpu_torch.testing import write_tiny_llama
 
+torch.set_num_threads(1)   # tiny shapes: threads only contend with the other test workers
+
 PROMPT = "hello world the cat sat"
 
 
