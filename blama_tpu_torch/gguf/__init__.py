@@ -1,5 +1,5 @@
 """GGUF container + the GGML block formats the port reads (host side):
-reader, writer, and numpy reference (de)quantizers for F32/F16/Q4_K."""
+reader, writer, and numpy reference (de)quantizers for F32/F16/Q4_K/Q8_0/Q6_K."""
 
 from .constants import GGMLType, GGUFValueType, QK_K, ggml_type_size, tensor_nbytes
 from .reader import GGUFReader, TensorInfo

@@ -1,10 +1,10 @@
-"""GGML block-quantization formats the port reads: F32, F16 and Q4_K.
+"""GGML block-quantization formats the port reads: F32, F16, Q4_K, Q8_0
+and Q6_K.
 
 Vectorized numpy reference implementations (copied from the JAX package's
 host code, which the port does not import). Bit layouts follow the public
 GGML/GGUF spec, so existing GGUF files load unmodified. Every other GGML type
-raises NotImplementedError until the engine that serves it is ported
-(ROADMAP.md §1 item 9).
+raises NotImplementedError until an engine serves it (ROADMAP.md §1 item 9).
 
 Conventions:
   * A tensor's quantization runs along its *row* (ggml ne[0], the contiguous
@@ -53,6 +53,31 @@ def _blocks(x: np.ndarray, block: int) -> np.ndarray:
         raise ValueError(f"row length {row_len} not divisible by block {block}")
     return np.ascontiguousarray(x, dtype=np.float32).reshape(-1, block)
 
+
+
+# ---------------------------------------------------------------------------
+# Q8_0 : 32-elem blocks, fp16 scale + int8 values  (34 bytes)
+# ---------------------------------------------------------------------------
+
+def quantize_q8_0(x: np.ndarray) -> np.ndarray:
+    b = _blocks(x, 32)
+    amax = np.abs(b).max(axis=1)
+    d = (amax / 127.0).astype(np.float32)
+    d16 = _f16(d)
+    d = d16.astype(np.float32)  # store/compute with the rounded scale
+    inv = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+    q = np.clip(_nearest_int(b * inv[:, None]), -127, 127).astype(np.int8)
+    out = np.empty((b.shape[0], 34), dtype=np.uint8)
+    out[:, 0:2] = d16.view(np.uint8).reshape(-1, 2)
+    out[:, 2:] = q.view(np.uint8)
+    return out.reshape(-1)
+
+
+def dequantize_q8_0(data: np.ndarray, n_rows: int, row_len: int) -> np.ndarray:
+    blk = data.reshape(-1, 34)
+    d = _f16_col(blk, 0, 2)[:, None]
+    q = blk[:, 2:].view(np.int8).astype(np.float32)
+    return (q * d).reshape(n_rows, row_len)
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +182,79 @@ def dequantize_q4_k(data: np.ndarray, n_rows: int, row_len: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Q6_K: 256-element superblocks, 16 sub-blocks of 16 with int8 scales
+# ---------------------------------------------------------------------------
+
+def quantize_q6_k(x: np.ndarray) -> np.ndarray:
+    b = _blocks(x, QK_K)
+    nb = b.shape[0]
+    sub = b.reshape(nb, 16, 16)
+    # per-sub-block symmetric scale; int8 super-scale encoding
+    amax = np.abs(sub).max(axis=2)
+    s = amax / 31.0                                 # q-32 in [-32,31]
+    d = s.max(axis=1) / 127.0
+    d16 = _f16(d)
+    d = d16.astype(np.float32)
+    inv_d = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+    sc = np.clip(_nearest_int(s * inv_d[:, None]), -128, 127).astype(np.int8)
+    eff = d[:, None] * sc.astype(np.float32)        # (nb, 16)
+    inv = np.where(eff != 0, 1.0 / np.where(eff != 0, eff, 1.0), 0.0)
+    q = np.clip(_nearest_int(sub * inv[:, :, None]) + 32, 0, 63).astype(np.uint8)
+    q = q.reshape(nb, QK_K)
+    out = np.empty((nb, 210), dtype=np.uint8)
+    ql = out[:, 0:128]
+    qh = out[:, 128:192]
+    for h in range(2):  # halves of 128
+        qq = q[:, 128 * h: 128 * (h + 1)]
+        q1, q2, q3, q4 = qq[:, 0:32], qq[:, 32:64], qq[:, 64:96], qq[:, 96:128]
+        ql[:, 64 * h: 64 * h + 32] = (q1 & 0xF) | ((q3 & 0xF) << 4)
+        ql[:, 64 * h + 32: 64 * h + 64] = (q2 & 0xF) | ((q4 & 0xF) << 4)
+        qh[:, 32 * h: 32 * (h + 1)] = (
+            (q1 >> 4) | ((q2 >> 4) << 2) | ((q3 >> 4) << 4) | ((q4 >> 4) << 6)
+        )
+    out[:, 192:208] = sc.view(np.uint8)
+    out[:, 208:210] = d16.view(np.uint8).reshape(-1, 2)
+    return out.reshape(-1)
+
+
+def dequantize_q6_k(data: np.ndarray, n_rows: int, row_len: int) -> np.ndarray:
+    blk = data.reshape(-1, 210)
+    nb = blk.shape[0]
+    ql = blk[:, 0:128]
+    qh = blk[:, 128:192]
+    sc = blk[:, 192:208].view(np.int8).astype(np.float32)
+    d = _f16_col(blk, 208, 210)[:, None]
+    y = np.empty((nb, QK_K), dtype=np.float32)
+    l16 = np.arange(32) // 16  # sub-block index within a 32-chunk (0 or 1)
+    for h in range(2):
+        lql = ql[:, 64 * h: 64 * h + 32]
+        lql2 = ql[:, 64 * h + 32: 64 * h + 64]
+        lqh = qh[:, 32 * h: 32 * (h + 1)].astype(np.int32)
+        q1 = (lql & 0xF).astype(np.int32) | ((lqh & 3) << 4)
+        q2 = (lql2 & 0xF).astype(np.int32) | (((lqh >> 2) & 3) << 4)
+        q3 = (lql >> 4).astype(np.int32) | (((lqh >> 4) & 3) << 4)
+        q4 = (lql2 >> 4).astype(np.int32) | (((lqh >> 6) & 3) << 4)
+        base = 8 * h
+        s1 = sc[:, base + l16]
+        s2 = sc[:, base + 2 + l16]
+        s3 = sc[:, base + 4 + l16]
+        s4 = sc[:, base + 6 + l16]
+        y[:, 128 * h + 0: 128 * h + 32] = d * s1 * (q1 - 32)
+        y[:, 128 * h + 32: 128 * h + 64] = d * s2 * (q2 - 32)
+        y[:, 128 * h + 64: 128 * h + 96] = d * s3 * (q3 - 32)
+        y[:, 128 * h + 96: 128 * h + 128] = d * s4 * (q4 - 32)
+    return y.reshape(n_rows, row_len)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
+
+_QUANTIZERS = {GGMLType.Q8_0: quantize_q8_0, GGMLType.Q4_K: quantize_q4_k,
+               GGMLType.Q6_K: quantize_q6_k}
+_DEQUANTIZERS = {GGMLType.Q8_0: dequantize_q8_0, GGMLType.Q4_K: dequantize_q4_k,
+                 GGMLType.Q6_K: dequantize_q6_k}
+
 
 def _unsupported(t: GGMLType) -> NotImplementedError:
     return NotImplementedError(
@@ -175,8 +271,8 @@ def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
         return np.ascontiguousarray(x, dtype=np.float32).view(np.uint8).reshape(-1)
     if t == GGMLType.F16:
         return np.ascontiguousarray(x, dtype=np.float16).view(np.uint8).reshape(-1)
-    if t == GGMLType.Q4_K:
-        return quantize_q4_k(x)
+    if t in _QUANTIZERS:
+        return _QUANTIZERS[t](x)
     raise _unsupported(t)
 
 
@@ -194,6 +290,6 @@ def dequantize(data: np.ndarray, t: GGMLType, shape: tuple[int, ...]) -> np.ndar
         return data.view(np.float32).reshape(shape).astype(np.float32)
     if t == GGMLType.F16:
         return data.view(np.float16).reshape(shape).astype(np.float32)
-    if t == GGMLType.Q4_K:
-        return dequantize_q4_k(data, n_rows, row_len).reshape(shape)
+    if t in _DEQUANTIZERS:
+        return _DEQUANTIZERS[t](data, n_rows, row_len).reshape(shape)
     raise _unsupported(t)

@@ -1,11 +1,13 @@
 """Llama-family transformer: GGUF weight loading and the forward pass.
 
 Counterpart of blama_tpu/models/llama.py for the slice the port serves: the
-`q4k_a8` engine (packed Q4_K weights, W4A8 matmuls for up to 16 rows, exact
-dequant matmuls above), unfused q/k/v and gate/up projections, dense KV
-rows or the scheduler's paged pool, INT8 or bf16 KV (f32 on the CPU) and
-fused attention (the two-pass chain serves the chunks and geometries the
-fused gates refuse, T in {2, 4}, as in the reference).
+packed weight engines (`fused_quant` True, "k4", "a8", "a8k4", "a8x": Q4_K
+tensors packed as the engine says, Q8_0 and Q6_K tensors packed for the exact
+int8-code kernel under every engine, anything else a dense bf16 weight),
+unfused q/k/v and gate/up projections, dense KV rows or the scheduler's
+paged pool, INT8 or bf16 KV (f32 on the CPU) and fused attention (the
+two-pass chain serves the chunks and geometries the fused gates refuse, T in
+{2, 4}, as in the reference).
 
 Weights are a plain dict: {"tok_emb", "out_norm", "output", "layers": [one
 dict per layer], optional "rope_freqs"}. The forward keeps the reference's
@@ -31,10 +33,8 @@ from ..ops.attention import attention
 from ..ops.kernels import resolve_device
 from ..ops.kv_cache import SlotStore, dequantize_kv
 from ..ops.norms import rms_norm
-from ..ops.quant_matmul import (
-    QuantEmbedding, QuantTensorA8S, emb_lookup, pack_a8s, qmm, repack_q4k_a8s,
-    repack_q4k_embedding,
-)
+from ..ops import quant_matmul as qm
+from ..ops.quant_matmul import QuantEmbedding, emb_lookup, qmm
 from ..ops.rope import apply_rope, rope_angles
 from .config import ModelConfig
 
@@ -64,19 +64,28 @@ def _bf16_rounded(a, device) -> torch.Tensor:
 # weight loading
 # ---------------------------------------------------------------------------
 
-def load_llama_params(reader, cfg: ModelConfig, fused_quant="a8",
-                      device="cuda", progress_cb=None) -> dict[str, Any]:
-    """Load llama-family weights for the `q4k_a8` engine onto `device`.
+# fused_quant → the repack of a Q4_K matmul tensor (reference load_llama_params)
+Q4K_REPACKS = {True: qm.repack_q4k_exact, "k4": qm.repack_q4k_native,
+               "a8": qm.repack_q4k_a8s, "a8k4": qm.repack_q4k_a8k4,
+               "a8x": qm.repack_q4k_w4a8}
 
-    Every Q4_K matmul weight is repacked on the device and uploaded as soon
-    as it is read, so host memory holds one tensor's GGUF bytes at a time.
+
+def load_llama_params(reader, cfg: ModelConfig, fused_quant: bool | str = "a8",
+                      device="cuda", progress_cb=None) -> dict[str, Any]:
+    """Load llama-family weights for a packed engine onto `device`.
+
+    Per tensor, as in the reference: a Q8_0 or Q6_K tensor is packed for the
+    exact int8-code kernel whatever the engine, a Q4_K tensor is packed as
+    `fused_quant` says, any other type becomes a dense bf16 (n_in, n_out)
+    weight. Every tensor is repacked on the device and uploaded as soon as it
+    is read, so host memory holds one tensor's GGUF bytes at a time.
     """
     from ..gguf.constants import GGMLType
 
     device = resolve_device(device)
-    if fused_quant != "a8":
+    if fused_quant not in Q4K_REPACKS:
         raise NotImplementedError(
-            f"fused_quant={fused_quant!r}: only the q4k_a8 engine is ported "
+            f"fused_quant={fused_quant!r}: the dense engines are not ported "
             "(ROADMAP.md §1 item 9, other engines)")
     if cfg.n_layer and ("blk.0.attn_qkv.weight" in reader.tensors
                         or "blk.0.ffn_gate.weight" not in reader.tensors
@@ -84,15 +93,18 @@ def load_llama_params(reader, cfg: ModelConfig, fused_quant="a8",
         raise NotImplementedError(
             "fused qkv / gate-up tensors (phi3) and q/k/v biases (qwen2) are "
             "not ported (ROADMAP.md §1 item 12, other families)")
+    repacks = {GGMLType.Q4_K: Q4K_REPACKS[fused_quant], GGMLType.Q8_0: qm.repack_q8_0,
+               GGMLType.Q6_K: qm.repack_q6_k_expanded}
 
-    def get_t(name: str) -> QuantTensorA8S:
+    def dense(name: str) -> torch.Tensor:
+        return torch.from_numpy(reader.tensor_float(name)).to(device).to(torch.bfloat16)
+
+    def get_t(name: str):
         info = reader.tensors[name]
-        if info.ggml_type != GGMLType.Q4_K:
-            raise NotImplementedError(
-                f"{name}: {info.ggml_type!r} matmul weights need another engine "
-                "(ROADMAP.md §1 item 9, other engines)")
-        return repack_q4k_a8s(reader.tensor_bytes(name), info.ne[1], info.ne[0],
-                              device)
+        if info.ggml_type in repacks:
+            return repacks[info.ggml_type](reader.tensor_bytes(name), info.ne[1],
+                                           info.ne[0], device)
+        return dense(name).t().contiguous()            # (n_in, n_out)
 
     def get_v(name: str) -> np.ndarray:
         return reader.tensor_float(name)
@@ -112,19 +124,24 @@ def load_llama_params(reader, cfg: ModelConfig, fused_quant="a8",
             progress_cb((i + 1) / n_total)
 
     emb_info = reader.tensors["token_embd.weight"]
-    if emb_info.ggml_type != GGMLType.Q4_K:
-        raise NotImplementedError(
-            f"token_embd.weight: {emb_info.ggml_type!r} embeddings need another "
-            "engine (ROADMAP.md §1 item 9, other engines)")
-    tok_emb = repack_q4k_embedding(reader.tensor_bytes("token_embd.weight"),
-                                   emb_info.ne[1], emb_info.ne[0], device)
+    if emb_info.ggml_type == GGMLType.Q4_K:
+        tok_emb = qm.repack_q4k_embedding(reader.tensor_bytes("token_embd.weight"),
+                                          emb_info.ne[1], emb_info.ne[0], device)
+    else:
+        tok_emb = dense("token_embd.weight")            # (V, E) bf16, gathered
+    if "output.weight" in reader.tensors:
+        output = get_t("output.weight")
+    elif isinstance(tok_emb, QuantEmbedding):
+        # tied embeddings, packed table: the lm head reads the token_embd
+        # bytes through the matmul repack
+        output = get_t("token_embd.weight")
+    else:
+        output = tok_emb.t().contiguous()
     params = {
         "tok_emb": tok_emb,
         "out_norm": _bf16_rounded(get_v("output_norm.weight"), device),
         "layers": layers,
-        # tied embeddings read the token_embd bytes through the matmul repack
-        "output": get_t("output.weight" if "output.weight" in reader.tensors
-                        else "token_embd.weight"),
+        "output": output,
     }
     if "rope_freqs.weight" in reader.tensors:
         params["rope_freqs"] = _bf16_rounded(get_v("rope_freqs.weight"), device)
@@ -138,34 +155,82 @@ def _to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _a8s_from_jax(w, device) -> QuantTensorA8S:
-    """The reference's QuantTensorA8S (codes u8 [K/2, N_pad], rows (j, j+128)
-    of each 256-row superblock paired in one byte; bf16 scales/mins
-    [K/32, N_pad]) → the port's layout."""
-    codes = np.asarray(w.codes)
+def _cols(a, n_out: int, device) -> torch.Tensor:
+    """A reference array [rows, N_pad] → [N, rows] on `device`, lane padding
+    dropped."""
+    return _to_torch(np.asarray(a)[:, :n_out].T, device)
+
+
+def _q4k_elements(codes: np.ndarray, n_out: int) -> np.ndarray:
+    """The reference's paired codes u8 [K/2, N_pad] (rows (j, j+128) of each
+    256-row superblock in one byte) → element-order codes [N, K]."""
     K = codes.shape[0] * 2
     ct = codes.reshape(K // 256, 128, -1)
-    full = np.concatenate([ct & 0x0F, ct >> 4], axis=1).reshape(K, -1)[:, :w.n_out]
-    return pack_a8s(_to_torch(full.T, device),
-                    _to_torch(np.asarray(w.scales)[:, :w.n_out].T, device),
-                    _to_torch(np.asarray(w.mins)[:, :w.n_out].T, device))
+    return np.concatenate([ct & 0x0F, ct >> 4], axis=1).reshape(K, -1)[:, :n_out].T
+
+
+def _q4k_blocks_from_jax(w) -> np.ndarray:
+    """The reference's native-layout arrays (paired codes, ddm i32 [K/256,
+    N_pad], scmn i32 [3K/256, N_pad]) → the GGUF superblock bytes [N, K/256 ·
+    144] they were cut from."""
+    q = _q4k_elements(np.asarray(w.codes), w.n_out)              # [N, K]
+    N, K = q.shape
+    nsb = K // 256
+    blk = np.empty((N, nsb, 144), np.uint8)
+    ddm = np.ascontiguousarray(np.asarray(w.ddm)[:, :N].T)        # [N, nsb] i32
+    blk[:, :, 0:4] = ddm.view(np.uint8).reshape(N, nsb, 4)
+    scmn = np.asarray(w.scmn)[:, :N].reshape(nsb, 3, N).transpose(2, 0, 1)
+    blk[:, :, 4:16] = np.ascontiguousarray(scmn).view(np.uint8).reshape(N, nsb, 12)
+    ch = q.reshape(N, nsb, 4, 2, 32)                               # chunk, low | high
+    blk[:, :, 16:] = (ch[:, :, :, 0] | (ch[:, :, :, 1] << 4)).reshape(N, nsb, 128)
+    return blk.reshape(N, -1)
+
+
+def _weight_from_jax(w, device, n_vocab: int | None = None):
+    """One matmul weight of the JAX tree (a packed class with numpy leaves,
+    or a dense array) → the port's class and layout. Classes are told apart
+    by name: the port imports nothing of the JAX package."""
+    kind = type(w).__name__
+    if kind in ("QuantTensor", "QuantTensorA8S"):
+        pack = qm.pack_a8s if kind == "QuantTensorA8S" else qm.pack_exact
+        return pack(_to_torch(_q4k_elements(np.asarray(w.codes), w.n_out), device),
+                    _cols(w.scales, w.n_out, device).float(),
+                    _cols(w.mins, w.n_out, device).float())
+    if kind in ("QuantTensorK4", "QuantTensorA8K4"):
+        cls = qm.QuantTensorA8K4 if kind == "QuantTensorA8K4" else qm.QuantTensorK4
+        return cls(_to_torch(_q4k_blocks_from_jax(w), device))
+    if kind == "QuantTensorQ8":
+        return qm.QuantTensorQ8(_cols(w.codes, w.n_out, device),
+                                _cols(w.scales, w.n_out, device), w.group)
+    if kind == "QuantTensorA8":
+        return qm.QuantTensorA8(_cols(w.codes, w.n_out, device),
+                                _cols(w.scales, w.n_out, device),
+                                _cols(w.mins, w.n_out, device))
+    dense = _to_torch(w, device)              # (n_in, n_out) bf16
+    # the reference pads a dense lm head's vocabulary to a multiple of 128
+    return dense if n_vocab is None else dense[:, :n_vocab].contiguous()
 
 
 def params_from_jax(tree: dict, device="cuda") -> dict[str, Any]:
-    """Carry the JAX package's `q4k_a8` parameter tree (leaves as numpy
-    arrays: each QuantTensorA8S's codes/scales/mins/n_out, the
-    QuantEmbedding arrays, the f32 norms) over to the port's layout."""
+    """Carry a packed engine's parameter tree of the JAX package (leaves as
+    numpy arrays: QuantTensor, QuantTensorA8S, QuantTensorK4, QuantTensorA8K4,
+    QuantTensorQ8 or QuantTensorA8 weights, dense bf16 leaves, a packed or
+    dense embedding, the f32 norms) over to the port's layouts."""
     device = resolve_device(device)
     emb = tree["tok_emb"]
-    tok_emb = QuantEmbedding(_to_torch(emb.codes, device),
-                             _to_torch(emb.scales, device).float(),
-                             _to_torch(emb.mins, device).float())
+    if type(emb).__name__ == "QuantEmbedding":
+        tok_emb = QuantEmbedding(_to_torch(emb.codes, device),
+                                 _to_torch(emb.scales, device).float(),
+                                 _to_torch(emb.mins, device).float())
+    else:
+        tok_emb = _to_torch(emb, device)
     layers = []
     for p in tree["layers"]:
         layers.append({k: _to_torch(p[k], device).float() if k.endswith("_norm")
-                       else _a8s_from_jax(p[k], device) for k in _LAYER_TENSORS})
+                       else _weight_from_jax(p[k], device) for k in _LAYER_TENSORS})
     out = {"tok_emb": tok_emb, "out_norm": _to_torch(tree["out_norm"], device).float(),
-           "layers": layers, "output": _a8s_from_jax(tree["output"], device)}
+           "layers": layers,
+           "output": _weight_from_jax(tree["output"], device, tok_emb.shape[0])}
     if "rope_freqs" in tree:
         out["rope_freqs"] = _to_torch(tree["rope_freqs"], device).float()
     return out
@@ -250,6 +315,19 @@ def _inv_freq_on(rope_dim, head_dim, freq_base, scale, yarn, device):
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)   # x·sigmoid(x) in x's dtype, as jax.nn.silu
+
+
+# columns of a dense lm head upcast at a time (1 GiB of f32 at E = 4096)
+_HEAD_CHUNK = 65536
+
+
+def _dense_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Logits through a dense bf16 lm head [E, V]: operands in the weight's
+    dtype, products and sums in f32, as the reference's dot with
+    preferred_element_type=float32."""
+    hb = h.to(w.dtype).float()
+    return torch.cat([hb @ w[:, i:i + _HEAD_CHUNK].float()
+                      for i in range(0, w.shape[1], _HEAD_CHUNK)], dim=1)
 
 
 @torch.no_grad()
@@ -370,6 +448,8 @@ def forward(
         logits_index = torch.full((B,), T - 1, dtype=torch.long, device=dev)
     last_h = x[torch.arange(B, device=dev), logits_index.to(dev).long()]   # [B, E]
     last_h = rms_norm(last_h, params["out_norm"], eps)
+    if isinstance(params["output"], torch.Tensor):
+        return _dense_head(last_h, params["output"]), cache
     return qmm(last_h.float(), params["output"]), cache
 
 

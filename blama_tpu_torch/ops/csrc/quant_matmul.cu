@@ -1,13 +1,22 @@
-// W4A8 and exact Q4_K matmul kernels for Hopper (sm_90a), CUDA C++.
+// Quantized-weight matmul kernels for Hopper (sm_90a), CUDA C++.
 //
-// Weight layout (built by blama_tpu_torch/ops/quant_matmul.py from GGUF
-// Q4_K bytes): codes uint8 [N, K/2], row-major along K. Each 32-element
-// group g of row n owns 16 consecutive bytes; byte i holds code 32g+i in its
-// low nibble and code 32g+16+i in its high nibble. scales / mins are bf16
-// [N, K/32] (d*sc and dmin*mn of each group), so a weight decodes to
-// code*scale - min.
+// Every weight layout keeps one output column's weights contiguous along K
+// (built by blama_tpu_torch/ops/quant_matmul.py from GGUF bytes; N rows):
+//   Q4_K, split   codes uint8 [N, K/2]: each 32-element group g of row n owns
+//                 16 consecutive bytes, byte i = code 32g+i (low nibble) and
+//                 code 32g+16+i (high nibble); scales / mins [N, K/32] hold
+//                 d*sc and dmin*mn of each group, bf16 (W4A8 engine) or f32
+//                 (exact engine); a weight decodes to code*scale - min.
+//   Q4_K, native  the GGUF tensor's own bytes, [N, K/256] superblocks of 144
+//                 bytes: f16 d, f16 dmin, 12 bytes of 6-bit sc/mn (ggml's
+//                 get_scale_min_k4 scheme), then 4 chunks of 32 code bytes;
+//                 byte i of chunk c = element 64c+i (low) and 64c+32+i (high),
+//                 so chunk c holds groups 2c (low nibbles) and 2c+1 (high).
+//   int8 codes    codes int8 [N, K], scales f32 [N, K/group], group 32 (Q8_0)
+//                 or 16 (Q6_K expanded: code = q - 32, scale = f32(d)*sc); a
+//                 weight decodes to code*scale.
 //
-// Kernel A (w4a8_matmul_launch) replaces the TPU kernels
+// Kernel A (w4a8_matmul_launch, CUDA C++) replaces the TPU kernels
 //   blama_tpu/ops/pallas/quant_matmul.py:_a8s_xin_kernel (one row) and
 //   blama_tpu/ops/pallas/quant_matmul.py:_a8s_pinned_kernel (2..16 rows),
 // which compute the same function. Two launches:
@@ -27,23 +36,52 @@
 // keeps the activations of a K chunk in shared memory, so device memory
 // sees each weight byte once per call.
 //
-// Kernel B (q4k_dequant_mm_launch) replaces
-//   blama_tpu/ops/pallas/quant_matmul.py:_q4k_matmul_kernel:
-// out[m, n] = sum_k x[m, k] * code[n, k] * scale[n, k/32] in f32 (the min
-// term is applied by the caller, as q4k_matmul does outside its kernel).
-// Bound on this card: at the prompt chunks (M = 32..512) the f32 products,
-// 2*M*K*N operations against the same weight bytes, bind (M=128 is ~400 f32
-// ops per weight byte). Design: a tiled f32 SIMT GEMM (64x64 output tile per
-// 256-thread block, 4x4 outputs per thread) that dequantizes one 32-group of
-// 64 weight rows into shared memory per K step. f32 FMA keeps the products
-// exact to the f32 dot the reference takes; tensor cores (wgmma) are later
-// work.
+// Kernel I (w4a8k4_matmul_launch, CUDA C++) replaces
+//   blama_tpu/ops/pallas/quant_matmul.py:_a8k4_kernel:
+// kernel A's function on the native superblocks, with f32 d*sc and dmin*mn
+// decoded in the kernel (__half2float is exact for subnormals too), not
+// bf16-rounded. The same quant_acts_kernel, then w4a8k4_gemv_kernel: one warp
+// per output column, a lane per 64-element chunk (two groups: 32 code bytes in
+// two 16-byte loads plus the block's 16-byte header), eight superblocks per
+// warp step, the same staging of the int8 activations. Bound: bytes, 0.5625
+// per weight.
 //
-// Determinism: every sum runs in a fixed order (per-lane K order, then a
-// fixed xor-butterfly across the warp); no atomics, so a replay on the same
-// card gives the same bits.
+// The tiled exact dequant GEMM (dequant_mm_kernel, CUDA C++) serves three
+// kernels that differ only in how a 32-element K step of 64 weight rows is
+// dequantized into shared memory (the loader):
+//   B (q4k_dequant_mm_launch) replaces
+//     blama_tpu/ops/pallas/quant_matmul.py:_q4k_matmul_kernel:
+//     out[m, n] = sum_k x[m, k] * code[n, k] * scale[n, k/32] in f32 (the min
+//     term is applied by the caller, as q4k_matmul does outside its kernel),
+//     scales bf16 or f32;
+//   G (q8_dequant_mm_launch) replaces
+//     blama_tpu/ops/pallas/quant_matmul.py:_q8_matmul_kernel:
+//     out[m, n] = sum_k x[m, k] * (float(code[n, k]) * scale[n, k/group]);
+//   H (q4k_native_mm_launch) replaces
+//     blama_tpu/ops/pallas/quant_matmul.py:_q4k_native_kernel:
+//     per 32-group the positive dot as in B with scale = f32(d)*sc decoded in
+//     the kernel, then minus (sum of the group's x) * (f32(dmin)*mn): the min
+//     term is inside, as a 33rd step of the group's K loop.
+// Bound on this card: at the prompt chunks (M = 32..512) the f32 products,
+// 2*M*K*N operations against the weight bytes, bind (M=128 is ~400 f32 ops
+// per Q4_K weight byte); at the decode rows the exact engines send here
+// (M = 1..16) the weight bytes bind. Design, two rows or more: a tiled f32
+// SIMT GEMM (dequant_mm_kernel: 64x64 output tile per 256-thread block, 4x4
+// outputs per thread) that dequantizes one 32-group of 64 weight rows into
+// shared memory per K step. One row (a solo decode step): dequant_row_kernel,
+// one thread per output column, which streams the column's weights with
+// 16-byte loads (a tile with one live row wastes the tile). Both take the
+// same products in the same order for every output element, so a row's bits
+// do not depend on which of the two ran. f32 FMA keeps the products exact to
+// the f32 dot the reference takes; tensor cores (wgmma) are later work.
+//
+// Determinism: every sum runs in a fixed order (per-lane or per-thread K
+// order, then a fixed xor-butterfly across the warp); no atomics, so a replay
+// on the same card gives the same bits, and an output element's sum does not
+// depend on M or on its row's index.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -178,17 +216,284 @@ void launch_gemv(const int8_t* xq, const float* xs, const float* sxm,
 }
 
 // ---------------------------------------------------------------------------
-// kernel B: exact dequant GEMM (positive part), f32 SIMT tiles
+// kernel I: the W4A8 GEMV on native Q4_K superblocks, one warp per column
+// ---------------------------------------------------------------------------
+constexpr int QK_K = 256;       // Q4_K superblock
+constexpr int Q4K_BLOCK = 144;  // its bytes
+
+// 6-bit scale and min of group j from the 12 scale bytes, as three
+// little-endian words (ggml get_scale_min_k4)
+__device__ __forceinline__ void scale_min_k4(int j, uint32_t w0, uint32_t w1,
+                                             uint32_t w2, int& sc, int& mn) {
+  if (j < 4) {
+    sc = (w0 >> (8 * j)) & 63;
+    mn = (w1 >> (8 * j)) & 63;
+  } else {
+    const int i = j - 4;
+    sc = ((w2 >> (8 * i)) & 0xF) | (((w0 >> (8 * i + 6)) & 3) << 4);
+    mn = ((w2 >> (8 * i + 4)) & 0xF) | (((w1 >> (8 * i + 6)) & 3) << 4);
+  }
+}
+
+__device__ __forceinline__ float half_bits_to_f32(uint32_t bits) {
+  return __half2float(__ushort_as_half((unsigned short)(bits & 0xFFFFu)));
+}
+
+template <int MT>
+__global__ void __launch_bounds__(A_WARPS * 32)
+w4a8k4_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                   const float* __restrict__ sxm,
+                   const uint8_t* __restrict__ blocks,
+                   float* __restrict__ out, int M, int K, int N) {
+  __shared__ __align__(16) int8_t s_x[MT * A_KC];
+  __shared__ float s_xs[MT * (A_KC / GROUP)];
+  __shared__ float s_sxm[MT * (A_KC / GROUP)];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x * A_WARPS + warp;
+  const int G = K / GROUP;
+  const int nsb = K / QK_K;
+  const uint8_t* wrow = blocks + (size_t)n * nsb * Q4K_BLOCK;
+  const int tl = lane >> 2, c = lane & 3;  // superblock of the step, chunk
+  float acc[MT];
+#pragma unroll
+  for (int r = 0; r < MT; ++r) acc[r] = 0.0f;
+
+  for (int k0 = 0; k0 < K; k0 += A_KC) {
+    const int kc = min(A_KC, K - k0);
+    const int gc = kc / GROUP;
+    __syncthreads();
+    for (int i = threadIdx.x; i < M * (kc / 16); i += blockDim.x) {
+      const int r = i / (kc / 16), cc = i % (kc / 16);
+      reinterpret_cast<int4*>(s_x + r * A_KC)[cc] =
+          reinterpret_cast<const int4*>(xq + (size_t)r * K + k0)[cc];
+    }
+    for (int i = threadIdx.x; i < M * gc; i += blockDim.x) {
+      const int r = i / gc, cc = i % gc;
+      s_xs[r * (A_KC / GROUP) + cc] = xs[(size_t)r * G + k0 / GROUP + cc];
+      s_sxm[r * (A_KC / GROUP) + cc] = sxm[(size_t)r * G + k0 / GROUP + cc];
+    }
+    __syncthreads();
+    const int t = k0 / QK_K + tl;
+    if (n < N && t < nsb) {
+      const uint4* blk = reinterpret_cast<const uint4*>(wrow + (size_t)t * Q4K_BLOCK);
+      const uint4 hdr = __ldg(blk);
+      const uint4 a = __ldg(blk + 1 + 2 * c);  // chunk bytes 0..15
+      const uint4 b = __ldg(blk + 2 + 2 * c);  // chunk bytes 16..31
+      const float d = half_bits_to_f32(hdr.x), dmin = half_bits_to_f32(hdr.x >> 16);
+      int sc1, mn1, sc2, mn2;
+      scale_min_k4(2 * c, hdr.y, hdr.z, hdr.w, sc1, mn1);
+      scale_min_k4(2 * c + 1, hdr.y, hdr.z, hdr.w, sc2, mn2);
+      const float ws1 = d * (float)sc1, wm1 = dmin * (float)mn1;
+      const float ws2 = d * (float)sc2, wm2 = dmin * (float)mn2;
+      // group 2c: the low nibbles of the 32 bytes; group 2c+1: the high ones
+      const int l0 = a.x & 0x0F0F0F0F, h0 = (a.x >> 4) & 0x0F0F0F0F;
+      const int l1 = a.y & 0x0F0F0F0F, h1 = (a.y >> 4) & 0x0F0F0F0F;
+      const int l2 = a.z & 0x0F0F0F0F, h2 = (a.z >> 4) & 0x0F0F0F0F;
+      const int l3 = a.w & 0x0F0F0F0F, h3 = (a.w >> 4) & 0x0F0F0F0F;
+      const int l4 = b.x & 0x0F0F0F0F, h4 = (b.x >> 4) & 0x0F0F0F0F;
+      const int l5 = b.y & 0x0F0F0F0F, h5 = (b.y >> 4) & 0x0F0F0F0F;
+      const int l6 = b.z & 0x0F0F0F0F, h6 = (b.z >> 4) & 0x0F0F0F0F;
+      const int l7 = b.w & 0x0F0F0F0F, h7 = (b.w >> 4) & 0x0F0F0F0F;
+#pragma unroll
+      for (int r = 0; r < MT; ++r) {
+        if (r < M) {
+          const int4* xp =
+              reinterpret_cast<const int4*>(s_x + r * A_KC + tl * QK_K + c * 64);
+          const int4 x0 = xp[0], x1 = xp[1];  // group 2c
+          const int4 x2 = xp[2], x3 = xp[3];  // group 2c+1
+          int dot1 = __dp4a(l0, x0.x, 0);
+          dot1 = __dp4a(l1, x0.y, dot1);
+          dot1 = __dp4a(l2, x0.z, dot1);
+          dot1 = __dp4a(l3, x0.w, dot1);
+          dot1 = __dp4a(l4, x1.x, dot1);
+          dot1 = __dp4a(l5, x1.y, dot1);
+          dot1 = __dp4a(l6, x1.z, dot1);
+          dot1 = __dp4a(l7, x1.w, dot1);
+          int dot2 = __dp4a(h0, x2.x, 0);
+          dot2 = __dp4a(h1, x2.y, dot2);
+          dot2 = __dp4a(h2, x2.z, dot2);
+          dot2 = __dp4a(h3, x2.w, dot2);
+          dot2 = __dp4a(h4, x3.x, dot2);
+          dot2 = __dp4a(h5, x3.y, dot2);
+          dot2 = __dp4a(h6, x3.z, dot2);
+          dot2 = __dp4a(h7, x3.w, dot2);
+          const int si = r * (A_KC / GROUP) + tl * 8 + 2 * c;
+          acc[r] += (float)dot1 * ws1 * s_xs[si] - s_sxm[si] * wm1;
+          acc[r] += (float)dot2 * ws2 * s_xs[si + 1] - s_sxm[si + 1] * wm2;
+        }
+      }
+    }
+  }
+  if (n < N) {
+#pragma unroll
+    for (int r = 0; r < MT; ++r) {
+      float v = acc[r];
+#pragma unroll
+      for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0 && r < M) out[(size_t)r * N + n] = v;
+    }
+  }
+}
+
+template <int MT>
+void launch_gemv_k4(const int8_t* xq, const float* xs, const float* sxm,
+                    const uint8_t* blocks, float* out, int M, int K, int N,
+                    cudaStream_t st) {
+  const int nblocks = (N + A_WARPS - 1) / A_WARPS;
+  w4a8k4_gemv_kernel<MT><<<nblocks, A_WARPS * 32, 0, st>>>(xq, xs, sxm, blocks, out,
+                                                           M, K, N);
+}
+
+template <typename T>
+void launch_quant_acts(const void* x, int M, int K, void* xq, void* xs, void* sxm,
+                       cudaStream_t st) {
+  const int warps = M * (K / GROUP);
+  const int qblocks = (warps * 32 + 255) / 256;
+  quant_acts_kernel<T><<<qblocks, 256, 0, st>>>(
+      static_cast<const T*>(x), M, K, static_cast<int8_t*>(xq),
+      static_cast<float*>(xs), static_cast<float*>(sxm));
+}
+
+// ---------------------------------------------------------------------------
+// kernels B, G, H: exact dequant GEMM, f32 SIMT tiles, one loader each
 // ---------------------------------------------------------------------------
 constexpr int B_BM = 64, B_BN = 64, B_BK = GROUP;
 
-template <typename T>
+// A loader dequantizes K step g (32 elements) of weight rows n0..n0+63 into
+// s_w[k][column]; rows past N give zeros. With MIN_ROW it also writes
+// s_w[32][column] = -(the group's min), which the tile loop multiplies with
+// the sum of the group's x.
+
+// kernel B: split Q4_K codes with scales of type S; no min term
+template <typename S>
+struct Q4KLoader {
+  static constexpr bool MIN_ROW = false;
+  const uint8_t* codes;
+  const S* scales;
+  __device__ __forceinline__ void load(float (*s_w)[B_BN + 4], int g, int n0,
+                                       int K, int N) const {
+    const int G = K / GROUP;
+    for (int i = threadIdx.x; i < B_BN * 16; i += blockDim.x) {
+      const int c = i / 16, b = i % 16;
+      const int n = n0 + c;
+      float s = 0.0f;
+      int byte = 0;
+      if (n < N) {
+        byte = codes[(size_t)n * (K / 2) + (size_t)g * 16 + b];
+        s = to_f32(scales[(size_t)n * G + g]);
+      }
+      s_w[b][c] = (float)(byte & 15) * s;
+      s_w[b + 16][c] = (float)(byte >> 4) * s;
+    }
+  }
+  __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
+                                      int K) const {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(codes + (size_t)n * (K / 2)) + g);
+    const float s = to_f32(scales[(size_t)n * (K / GROUP) + g]);
+    const uint32_t wd[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const uint32_t byte = (wd[b / 4] >> (8 * (b % 4))) & 0xFFu;
+      wv[b] = (float)(byte & 15u) * s;
+      wv[b + 16] = (float)(byte >> 4) * s;
+    }
+  }
+};
+
+// kernel G: int8 codes, one f32 scale per SG (32 or 16) elements
+template <int SG>
+struct Q8Loader {
+  static constexpr bool MIN_ROW = false;
+  const int8_t* codes;
+  const float* scales;
+  __device__ __forceinline__ void load(float (*s_w)[B_BN + 4], int g, int n0,
+                                       int K, int N) const {
+    for (int i = threadIdx.x; i < B_BN * 8; i += blockDim.x) {
+      const int c = i / 8, p = i % 8;  // 4 codes at k = 4p..4p+3
+      const int n = n0 + c;
+      float s = 0.0f;
+      char4 q = make_char4(0, 0, 0, 0);
+      if (n < N) {
+        q = *reinterpret_cast<const char4*>(codes + (size_t)n * K + (size_t)g * GROUP + 4 * p);
+        s = scales[(size_t)n * (K / SG) + ((size_t)g * GROUP + 4 * p) / SG];
+      }
+      s_w[4 * p + 0][c] = (float)q.x * s;
+      s_w[4 * p + 1][c] = (float)q.y * s;
+      s_w[4 * p + 2][c] = (float)q.z * s;
+      s_w[4 * p + 3][c] = (float)q.w * s;
+    }
+  }
+  __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
+                                      int K) const {
+    const uint4* cp =
+        reinterpret_cast<const uint4*>(codes + (size_t)n * K + (size_t)g * GROUP);
+    const uint4 a = __ldg(cp), b = __ldg(cp + 1);
+    const float* sp = scales + (size_t)n * (K / SG) + (size_t)g * (GROUP / SG);
+    const float s0 = sp[0], s1 = sp[GROUP / SG - 1];  // the same scale when SG == 32
+    const uint32_t wd[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k) {
+      const int8_t q = (int8_t)((wd[k / 4] >> (8 * (k % 4))) & 0xFFu);
+      wv[k] = (float)q * (k < 16 ? s0 : s1);
+    }
+  }
+};
+
+// kernel H: native Q4_K superblocks; scale and min decoded here
+struct K4Loader {
+  static constexpr bool MIN_ROW = true;
+  const uint8_t* blocks;
+  __device__ __forceinline__ void load(float (*s_w)[B_BN + 4], int g, int n0,
+                                       int K, int N) const {
+    const int nsb = K / QK_K;
+    const int t = g / 8, j = g % 8;  // superblock, group within it
+    for (int i = threadIdx.x; i < B_BN * 8; i += blockDim.x) {
+      const int c = i / 8, p = i % 8;  // 4 code bytes: elements 4p..4p+3
+      const int n = n0 + c;
+      float s = 0.0f, m = 0.0f;
+      uint32_t q = 0;
+      if (n < N) {
+        const uint32_t* blk = reinterpret_cast<const uint32_t*>(
+            blocks + ((size_t)n * nsb + t) * Q4K_BLOCK);
+        const uint32_t dd = blk[0];
+        int sc, mn;
+        scale_min_k4(j, blk[1], blk[2], blk[3], sc, mn);
+        s = half_bits_to_f32(dd) * (float)sc;
+        m = half_bits_to_f32(dd >> 16) * (float)mn;
+        q = blk[4 + 8 * (j / 2) + p] >> (4 * (j & 1));
+      }
+      s_w[4 * p + 0][c] = (float)(q & 15) * s;
+      s_w[4 * p + 1][c] = (float)((q >> 8) & 15) * s;
+      s_w[4 * p + 2][c] = (float)((q >> 16) & 15) * s;
+      s_w[4 * p + 3][c] = (float)((q >> 24) & 15) * s;
+      if (p == 0) s_w[B_BK][c] = -m;
+    }
+  }
+  __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
+                                      int K) const {
+    const int t = g / 8, j = g % 8;
+    const uint4* blk = reinterpret_cast<const uint4*>(
+        blocks + ((size_t)n * (K / QK_K) + t) * Q4K_BLOCK);
+    const uint4 hdr = __ldg(blk);
+    const uint4 a = __ldg(blk + 1 + 2 * (j / 2)), b = __ldg(blk + 2 + 2 * (j / 2));
+    int sc, mn;
+    scale_min_k4(j, hdr.y, hdr.z, hdr.w, sc, mn);
+    const float s = half_bits_to_f32(hdr.x) * (float)sc;
+    negmin = -(half_bits_to_f32(hdr.x >> 16) * (float)mn);
+    const uint32_t wd[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k)
+      wv[k] = (float)((wd[k / 4] >> (8 * (k % 4) + 4 * (j & 1))) & 15u) * s;
+  }
+};
+
+template <typename T, typename Loader>
 __global__ void __launch_bounds__(256)
-q4k_dequant_mm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
-                      const __nv_bfloat16* __restrict__ scales,
-                      float* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) float s_x[B_BK][B_BM + 4];
-  __shared__ __align__(16) float s_w[B_BK][B_BN + 4];
+dequant_mm_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
+                  int M, int K, int N) {
+  constexpr int ROWS = B_BK + (Loader::MIN_ROW ? 1 : 0);
+  __shared__ __align__(16) float s_x[ROWS][B_BM + 4];
+  __shared__ __align__(16) float s_w[ROWS][B_BN + 4];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * B_BM, n0 = blockIdx.x * B_BN;
   const int G = K / GROUP;
@@ -199,26 +504,23 @@ q4k_dequant_mm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int g = 0; g < G; ++g) {
+    // each warp loads one row's 32 elements of the step per iteration
     for (int i = threadIdx.x; i < B_BM * B_BK; i += blockDim.x) {
       const int r = i / B_BK, k = i % B_BK;
       const int m = m0 + r;
-      s_x[k][r] = m < M ? to_f32(x[(size_t)m * K + (size_t)g * GROUP + k]) : 0.0f;
-    }
-    for (int i = threadIdx.x; i < B_BN * 16; i += blockDim.x) {
-      const int c = i / 16, b = i % 16;
-      const int n = n0 + c;
-      float s = 0.0f;
-      int byte = 0;
-      if (n < N) {
-        byte = codes[(size_t)n * (K / 2) + (size_t)g * 16 + b];
-        s = __bfloat162float(scales[(size_t)n * G + g]);
+      const float v = m < M ? to_f32(x[(size_t)m * K + (size_t)g * GROUP + k]) : 0.0f;
+      s_x[k][r] = v;
+      if constexpr (Loader::MIN_ROW) {
+        float sum = v;  // the group's sum of x, fixed butterfly order
+#pragma unroll
+        for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (k == 0) s_x[B_BK][r] = sum;
       }
-      s_w[b][c] = (float)(byte & 15) * s;
-      s_w[b + 16][c] = (float)(byte >> 4) * s;
     }
+    w.load(s_w, g, n0, K, N);
     __syncthreads();
 #pragma unroll 8
-    for (int k = 0; k < B_BK; ++k) {
+    for (int k = 0; k < ROWS; ++k) {
       const float4 a = *reinterpret_cast<const float4*>(&s_x[k][ty * 4]);
       const float4 b = *reinterpret_cast<const float4*>(&s_w[k][tx * 4]);
       const float av[4] = {a.x, a.y, a.z, a.w};
@@ -226,7 +528,7 @@ q4k_dequant_mm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -242,6 +544,95 @@ q4k_dequant_mm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes
   }
 }
 
+// ---------------------------------------------------------------------------
+// the same function for one row: one thread per output column
+// ---------------------------------------------------------------------------
+// A 64-row tile with one live row wastes the tile, and one row is every solo
+// decode step of the exact engines. Here a thread owns a column and streams
+// its weights group by group (Loader::row). The output keeps the tile
+// kernel's sum bit for bit: the same dequantized products, fma over k
+// ascending, and for MIN_ROW the group's x summed in the butterfly's order
+// before its fma; so a row gives the same bits alone and among other rows.
+// (With 2..16 rows an accumulator per row in this kernel measured slower
+// than the tiles: its loads are not hidden with one warp per scheduler.)
+// one warp per block and four groups' loads in flight measured fastest for
+// the Q4_K loader at the 8B shapes on an NVIDIA H100 (blocks of 32, 64, 128
+// threads x unroll 1, 2, 4, 8)
+constexpr int R_THREADS = 32;
+constexpr int R_UNROLL = 4;
+
+__device__ __forceinline__ void load_x32(const float* p, float* xv) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+    xv[4 * i] = v.x, xv[4 * i + 1] = v.y, xv[4 * i + 2] = v.z, xv[4 * i + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void load_x32(const __nv_bfloat16* p, float* xv) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // a bf16 is the high half of its f32
+      xv[8 * i + 2 * j] = __uint_as_float(wd[j] << 16);
+      xv[8 * i + 2 * j + 1] = __uint_as_float(wd[j] & 0xFFFF0000u);
+    }
+  }
+}
+
+template <typename T, typename Loader>
+__global__ void __launch_bounds__(R_THREADS)
+dequant_row_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
+                   int K, int N) {
+  const int n = blockIdx.x * R_THREADS + threadIdx.x;
+  if (n >= N) return;
+  float acc = 0.0f;
+#pragma unroll R_UNROLL
+  for (int g = 0; g < K / GROUP; ++g) {
+    float wv[GROUP], xv[GROUP];
+    float negmin = 0.0f;
+    w.row(wv, negmin, n, g, K);
+    load_x32(x + (size_t)g * GROUP, xv);
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k) acc = fmaf(xv[k], wv[k], acc);
+    if constexpr (Loader::MIN_ROW) {
+      // lane 0's value of the tile kernel's xor butterfly (16, 8, .., 1)
+#pragma unroll
+      for (int o = 16; o; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < o; ++i) xv[i] = xv[i] + xv[i + o];
+      acc = fmaf(xv[0], negmin, acc);
+    }
+  }
+  out[n] = acc;
+}
+
+template <typename T, typename Loader>
+void launch_dequant_t(const void* x, const Loader& w, void* out, int M, int K, int N,
+                      cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  float* o = static_cast<float*>(out);
+  if (M == 1) {
+    const int blocks = (N + R_THREADS - 1) / R_THREADS;
+    dequant_row_kernel<T, Loader><<<blocks, R_THREADS, 0, st>>>(xp, w, o, K, N);
+  } else {
+    dim3 grid((N + B_BN - 1) / B_BN, (M + B_BM - 1) / B_BM);
+    dequant_mm_kernel<T, Loader><<<grid, 256, 0, st>>>(xp, w, o, M, K, N);
+  }
+}
+
+// one row goes to the column-per-thread kernel, more to the tiles
+template <typename Loader>
+int launch_dequant_mm(const void* x, int x_bf16, const Loader& w, void* out, int M,
+                      int K, int N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16) launch_dequant_t<__nv_bfloat16>(x, w, out, M, K, N, st);
+  else launch_dequant_t<float>(x, w, out, M, K, N, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -252,16 +643,8 @@ int w4a8_matmul_launch(const void* x, int x_bf16, const void* codes,
                        const void* scales, const void* mins, void* xq, void* xs,
                        void* sxm, void* out, int M, int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int warps = M * (K / GROUP);
-  const int qblocks = (warps * 32 + 255) / 256;
-  if (x_bf16)
-    quant_acts_kernel<__nv_bfloat16><<<qblocks, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), M, K, static_cast<int8_t*>(xq),
-        static_cast<float*>(xs), static_cast<float*>(sxm));
-  else
-    quant_acts_kernel<float><<<qblocks, 256, 0, st>>>(
-        static_cast<const float*>(x), M, K, static_cast<int8_t*>(xq),
-        static_cast<float*>(xs), static_cast<float*>(sxm));
+  if (x_bf16) launch_quant_acts<__nv_bfloat16>(x, M, K, xq, xs, sxm, st);
+  else launch_quant_acts<float>(x, M, K, xq, xs, sxm, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int8_t* q = static_cast<const int8_t*>(xq);
@@ -279,21 +662,61 @@ int w4a8_matmul_launch(const void* x, int x_bf16, const void* codes,
   return (int)cudaGetLastError();
 }
 
-// x: [M, K] bf16 (x_bf16 != 0) or f32, K % 32 == 0; out: [M, N] f32.
-int q4k_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
-                          const void* scales, void* out, int M, int K, int N,
-                          void* stream) {
+// The same on native Q4_K superblocks: blocks [N, K/256 * 144] bytes,
+// 16-byte aligned; K % 256 == 0.
+int w4a8k4_matmul_launch(const void* x, int x_bf16, const void* blocks, void* xq,
+                         void* xs, void* sxm, void* out, int M, int K, int N,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + B_BN - 1) / B_BN, (M + B_BM - 1) / B_BM);
-  if (x_bf16)
-    q4k_dequant_mm_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
-        static_cast<const __nv_bfloat16*>(scales), static_cast<float*>(out), M, K, N);
-  else
-    q4k_dequant_mm_kernel<float><<<grid, 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const uint8_t*>(codes),
-        static_cast<const __nv_bfloat16*>(scales), static_cast<float*>(out), M, K, N);
+  if (x_bf16) launch_quant_acts<__nv_bfloat16>(x, M, K, xq, xs, sxm, st);
+  else launch_quant_acts<float>(x, M, K, xq, xs, sxm, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int8_t* q = static_cast<const int8_t*>(xq);
+  const float* s = static_cast<const float*>(xs);
+  const float* sm = static_cast<const float*>(sxm);
+  const uint8_t* b = static_cast<const uint8_t*>(blocks);
+  float* o = static_cast<float*>(out);
+  if (M <= 1) launch_gemv_k4<1>(q, s, sm, b, o, M, K, N, st);
+  else if (M <= 2) launch_gemv_k4<2>(q, s, sm, b, o, M, K, N, st);
+  else if (M <= 4) launch_gemv_k4<4>(q, s, sm, b, o, M, K, N, st);
+  else if (M <= 8) launch_gemv_k4<8>(q, s, sm, b, o, M, K, N, st);
+  else launch_gemv_k4<16>(q, s, sm, b, o, M, K, N, st);
   return (int)cudaGetLastError();
+}
+
+// x: [M, K] bf16 (x_bf16 != 0) or f32, K % 32 == 0; out: [M, N] f32.
+// scales: [N, K/32] f32 (scales_f32 != 0) or bf16.
+int q4k_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
+                          const void* scales, int scales_f32, void* out, int M,
+                          int K, int N, void* stream) {
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  if (scales_f32)
+    return launch_dequant_mm(x, x_bf16, Q4KLoader<float>{c, static_cast<const float*>(scales)},
+                             out, M, K, N, stream);
+  return launch_dequant_mm(
+      x, x_bf16, Q4KLoader<__nv_bfloat16>{c, static_cast<const __nv_bfloat16*>(scales)},
+      out, M, K, N, stream);
+}
+
+// codes: [N, K] int8; scales: [N, K/group] f32, group 32 or 16; K % 32 == 0.
+int q8_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
+                         const void* scales, int group, void* out, int M, int K,
+                         int N, void* stream) {
+  const int8_t* c = static_cast<const int8_t*>(codes);
+  const float* s = static_cast<const float*>(scales);
+  if (group == 32)
+    return launch_dequant_mm(x, x_bf16, Q8Loader<32>{c, s}, out, M, K, N, stream);
+  if (group == 16)
+    return launch_dequant_mm(x, x_bf16, Q8Loader<16>{c, s}, out, M, K, N, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// blocks: [N, K/256 * 144] bytes of Q4_K superblocks; K % 256 == 0.
+int q4k_native_mm_launch(const void* x, int x_bf16, const void* blocks, void* out,
+                         int M, int K, int N, void* stream) {
+  return launch_dequant_mm(x, x_bf16, K4Loader{static_cast<const uint8_t*>(blocks)},
+                           out, M, K, N, stream);
 }
 
 }  // extern "C"

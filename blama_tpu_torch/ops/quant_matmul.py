@@ -1,25 +1,52 @@
-"""Q4_K weights for the W4A8 engine (`q4k_a8`) and the matmul dispatch.
+"""Packed GGUF weights, their matmul kernels' wrappers and the dispatch.
 
-Counterpart of blama_tpu/ops/pallas/quant_matmul.py for the `q4k_a8`
-engine. The weight layout is chosen for a GEMV that streams each output
-column's weights along K:
+Counterpart of blama_tpu/ops/pallas/quant_matmul.py for the single-card
+engines. Every layout keeps one output column's weights contiguous along K
+(K = n_in, N = n_out; all arrays are [N, ...] row-major), so a warp streams a
+column with 16-byte loads; none carries the reference's K-major transposition,
+(j, j+128) row pairing or lane padding, which are TPU artefacts. `n_out` is
+the arrays' own first dimension.
 
-  codes  uint8 [N, K/2]  row n holds K/32 groups of 16 bytes; byte i of
-                         group g = code[32g + i] | code[32g + 16 + i] << 4
-  scales bf16  [N, K/32] d·sc of each 32-group
-  mins   bf16  [N, K/32] dmin·mn of each 32-group
+  QuantTensor      `q4k_fused`, exact: the reference's class of the same name
+                   (its repack is repack_q4k_for_tpu, here repack_q4k_exact).
+                     codes  uint8 [N, K/2]  group g of row n owns 16 bytes;
+                            byte i = code[32g + i] | code[32g + 16 + i] << 4
+                     scales f32 [N, K/32]   d·sc of each 32-group
+                     mins   f32 [N, K/32]   dmin·mn
+                   value[k, n] = code · scale − min, bitwise the host dequant
+                   (gguf.quants.dequantize_q4_k takes the same f32 products).
+  QuantTensorA8S   `q4k_a8`, W4A8: the same arrays with bf16 scales and mins
+                   (5 bits/weight).
+  QuantTensorK4    `q4k_fused_k4`, exact on 4.5 bits/weight: the GGUF tensor's
+                   own bytes, uint8 [N, K/256 · 144], not repacked at all.
+                   The file already stores each row's superblocks one after
+                   another (144 bytes: f16 d, f16 dmin, 12 bytes of 6-bit
+                   sc/mn, 128 code bytes; 144 = 9 · 16 keeps every block
+                   16-byte aligned), which is the layout a column-streaming
+                   warp wants; the kernels decode d·sc and dmin·mn as they go.
+                   (The reference splits the block into codes/ddm/scmn arrays
+                   because its kernels read K-major planes.)
+  QuantTensorA8K4  `q4k_a8_k4`, W4A8 on the same bytes, f32 d·sc and dmin·mn
+                   (not bf16-rounded: other numerics than `q4k_a8`).
+  QuantTensorQ8    Q8_0 and Q6_K tensors under every fused engine, exact:
+                     codes  int8 [N, K]          Q8_0 codes, or Q6_K's q − 32
+                     scales f32  [N, K/group]    group 32: f32(d); group 16:
+                                                 f32(d)·sc (Q6_K expanded)
+                   value = code · scale, bitwise the host dequant.
+  QuantTensorA8    `q4k_a8_xla`: int8 codes [N, K] (0..15), f16 scales/mins
+                   [N, K/32]; plain PyTorch on every device, as the reference
+                   leaves this engine to XLA.
+  torch.Tensor     any other tensor type: dense bf16 [K, N] through matmul.
 
-  value[k, n] = codes(n, k) · scales[n, k//32] − mins[n, k//32]
-
-(K = n_in, N = n_out.) bf16 scales/mins keep the reference's 5 bits/weight.
-
-`qmm` dispatches on the number of flat rows as the reference's
-_quant_kernel_call does: up to A8S_MAX_BATCH rows take kernel A (W4A8:
-activations quantized per 32-group to int8, int8 dots against the 4-bit
-codes), more rows take kernel B (exact dequant-matmul in f32, min term
-outside the kernel). Both kernels are CUDA C++ (ops/csrc/quant_matmul.cu).
-On a CPU tensor each wrapper runs its plain PyTorch version below; on a CUDA
-tensor it launches the kernel or raises.
+`qmm` dispatches on the class and the number of flat rows as the reference's
+_quant_kernel_call does. The kernels are CUDA C++ (ops/csrc/quant_matmul.cu):
+A (W4A8 GEMV, 1..16 rows, QuantTensorA8S), I (the same on QuantTensorA8K4),
+and one exact dequant GEMM with a weight loader each for B (Q4_K positive
+part, bf16 or f32 scales; the min term is a small product outside, as in the
+reference), G (int8 codes, group 32 or 16) and H (native Q4_K, min term
+inside): 64 x 64 tiles, or a thread per output column for a single row, the
+same sum order per output element in both. On a CPU tensor each wrapper runs its plain PyTorch version
+below; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,30 +59,83 @@ import torch
 from . import kernels
 
 GROUP = 32        # Q4_K sub-block size
-QK_K = 256        # Q4_K superblock
-# row count up to which the W4A8 kernel serves (reference A8S_MAX_BATCH)
+QK_K = 256        # K-quant superblock
+Q4K_BLOCK = 144   # bytes of one Q4_K superblock
+# row count up to which the W4A8 kernels serve (reference A8S_MAX_BATCH)
 A8S_MAX_BATCH = 16
 
 
-@dataclass
-class QuantTensorA8S:
-    """Packed Q4_K weight of the W4A8 engine, x @ W semantics (n_in, n_out)."""
-
-    codes: torch.Tensor    # uint8 [N, K/2]
-    scales: torch.Tensor   # bf16  [N, K/32]
-    mins: torch.Tensor     # bf16  [N, K/32]
+class _Packed:
+    """Shape protocol of the packed classes: x @ W semantics (n_in, n_out)."""
 
     @property
     def n_out(self) -> int:
         return self.codes.shape[0]
 
     @property
+    def device(self):
+        return self.codes.device
+
+
+@dataclass
+class QuantTensor(_Packed):
+    """Packed Q4_K weight of the exact engine (f32 scales and mins)."""
+
+    codes: torch.Tensor    # uint8 [N, K/2]
+    scales: torch.Tensor   # f32   [N, K/32]
+    mins: torch.Tensor     # f32   [N, K/32]
+
+    @property
     def shape(self):
         return (self.codes.shape[1] * 2, self.codes.shape[0])
 
+
+@dataclass
+class QuantTensorA8S(QuantTensor):
+    """The same arrays with bf16 scales and mins; marks dispatch to the W4A8
+    kernel for up to 16 rows."""
+
+
+@dataclass
+class QuantTensorK4(_Packed):
+    """Native-layout Q4_K weight: the GGUF bytes, one row per output column."""
+
+    codes: torch.Tensor    # uint8 [N, K/256 * 144] superblocks as in the file
+
     @property
-    def device(self):
-        return self.codes.device
+    def shape(self):
+        return (self.codes.shape[1] // Q4K_BLOCK * QK_K, self.codes.shape[0])
+
+
+@dataclass
+class QuantTensorA8K4(QuantTensorK4):
+    """The same bytes; marks dispatch to the W4A8 kernel for up to 16 rows."""
+
+
+@dataclass
+class QuantTensorQ8(_Packed):
+    """int8-code weight: Q8_0 (group 32) or Q6_K expanded (group 16)."""
+
+    codes: torch.Tensor    # int8 [N, K]
+    scales: torch.Tensor   # f32  [N, K/group]
+    group: int = 32
+
+    @property
+    def shape(self):
+        return (self.codes.shape[1], self.codes.shape[0])
+
+
+@dataclass
+class QuantTensorA8(_Packed):
+    """int8-code Q4_K weight of the plain-PyTorch W4A8 engine."""
+
+    codes: torch.Tensor    # int8 [N, K], values 0..15
+    scales: torch.Tensor   # f16  [N, K/32]
+    mins: torch.Tensor     # f16  [N, K/32]
+
+    @property
+    def shape(self):
+        return (self.codes.shape[1], self.codes.shape[0])
 
 
 @dataclass
@@ -74,8 +154,20 @@ class QuantEmbedding:
 
 
 # ---------------------------------------------------------------------------
-# repack from GGUF Q4_K bytes (runs on the target device, one tensor at a time)
+# repacks from GGUF bytes (run on the target device, one tensor at a time)
 # ---------------------------------------------------------------------------
+
+def _blocks_on(data, block_bytes: int, device) -> torch.Tensor:
+    """GGUF tensor bytes → uint8 [n_blocks, block_bytes] on `device`."""
+    device = kernels.resolve_device(device)
+    raw = torch.from_numpy(np.array(data, dtype=np.uint8, copy=True))
+    return raw.to(device).view(-1, block_bytes)
+
+
+def _f16_col(blk: torch.Tensor, a: int) -> torch.Tensor:
+    """The f16 scalar at byte column `a` of every block → f32 [nb, 1] (exact)."""
+    return blk[:, a:a + 2].contiguous().view(torch.float16).float()
+
 
 def _unpack_scale_min_k4(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """12-byte Q4_K scale block [n, 12] → (sc, mn) int32 [n, 8]."""
@@ -87,39 +179,101 @@ def _unpack_scale_min_k4(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.cat([sc_lo, sc_hi], dim=1), torch.cat([mn_lo, mn_hi], dim=1)
 
 
-def unpack_q4k(data, n_rows: int, row_len: int, device="cuda"):
-    """GGUF Q4_K bytes → (codes u8 [N, K] in element order, scales f32
-    [N, K/32], mins f32 [N, K/32]) on `device`. Same bit walk and the same
-    f32 products as the reference's host unpack (unpack_q4k_arrays)."""
-    device = kernels.resolve_device(device)
-    raw = torch.from_numpy(np.array(data, dtype=np.uint8, copy=True))
-    blk = raw.to(device).view(-1, 144)
+def decode_q4k_blocks(blk: torch.Tensor, n_rows: int):
+    """Q4_K superblocks uint8 [nb, 144] → (codes u8 [N, K] in element order,
+    scales f32 [N, K/32], mins f32 [N, K/32]). Same bit walk and the same f32
+    products as the reference's host unpack (unpack_q4k_arrays)."""
     nb = blk.shape[0]
-    d = blk[:, 0:2].contiguous().view(torch.float16).float()      # [nb, 1]
-    dmin = blk[:, 2:4].contiguous().view(torch.float16).float()
     sc, mn = _unpack_scale_min_k4(blk[:, 4:16])
     qs = blk[:, 16:].reshape(nb, 4, 32)
     # chunk c: low nibbles are elements 64c..64c+31, high nibbles 64c+32..
-    codes = torch.stack([qs & 0x0F, qs >> 4], dim=2).reshape(n_rows, row_len)
-    scales = (d * sc.float()).reshape(n_rows, row_len // GROUP)
-    mins = (dmin * mn.float()).reshape(n_rows, row_len // GROUP)
+    codes = torch.stack([qs & 0x0F, qs >> 4], dim=2).reshape(n_rows, -1)
+    scales = (_f16_col(blk, 0) * sc.float()).reshape(n_rows, -1)
+    mins = (_f16_col(blk, 2) * mn.float()).reshape(n_rows, -1)
     return codes, scales, mins
+
+
+def unpack_q4k(data, n_rows: int, row_len: int, device="cuda"):
+    """GGUF Q4_K bytes → decode_q4k_blocks' arrays on `device`."""
+    return decode_q4k_blocks(_blocks_on(data, Q4K_BLOCK, device), n_rows)
+
+
+def _pack_q4k(cls, dtype, codes, scales, mins):
+    N, K = codes.shape
+    c = codes.reshape(N, K // GROUP, GROUP)
+    packed = (c[..., :16] | (c[..., 16:] << 4)).reshape(N, K // 2)
+    return cls(packed.contiguous(), scales.to(dtype).contiguous(),
+               mins.to(dtype).contiguous())
 
 
 def pack_a8s(codes: torch.Tensor, scales: torch.Tensor,
              mins: torch.Tensor) -> QuantTensorA8S:
     """Element-order codes u8 [N, K] + f32 scales/mins [N, K/32] → the
-    kernel layout (bf16 scales/mins)."""
-    N, K = codes.shape
-    c = codes.reshape(N, K // GROUP, GROUP)
-    packed = (c[..., :16] | (c[..., 16:] << 4)).reshape(N, K // 2)
-    return QuantTensorA8S(packed.contiguous(), scales.to(torch.bfloat16).contiguous(),
-                          mins.to(torch.bfloat16).contiguous())
+    kernel layout with bf16 scales/mins."""
+    return _pack_q4k(QuantTensorA8S, torch.bfloat16, codes, scales, mins)
+
+
+def pack_exact(codes: torch.Tensor, scales: torch.Tensor,
+               mins: torch.Tensor) -> QuantTensor:
+    """The same codes with the f32 scales/mins kept as they are."""
+    return _pack_q4k(QuantTensor, torch.float32, codes, scales, mins)
 
 
 def repack_q4k_a8s(data, n_rows: int, row_len: int, device="cuda") -> QuantTensorA8S:
     """GGUF Q4_K tensor bytes → QuantTensorA8S on `device`."""
     return pack_a8s(*unpack_q4k(data, n_rows, row_len, device))
+
+
+def repack_q4k_exact(data, n_rows: int, row_len: int, device="cuda") -> QuantTensor:
+    """GGUF Q4_K tensor bytes → QuantTensor (f32 scales) on `device`."""
+    return pack_exact(*unpack_q4k(data, n_rows, row_len, device))
+
+
+def repack_q4k_native(data, n_rows: int, row_len: int, device="cuda") -> QuantTensorK4:
+    """GGUF Q4_K tensor bytes → QuantTensorK4: an upload, nothing else."""
+    return QuantTensorK4(_blocks_on(data, Q4K_BLOCK, device).view(n_rows, -1))
+
+
+def repack_q4k_a8k4(data, n_rows: int, row_len: int, device="cuda") -> QuantTensorA8K4:
+    return QuantTensorA8K4(repack_q4k_native(data, n_rows, row_len, device).codes)
+
+
+def repack_q4k_w4a8(data, n_rows: int, row_len: int, device="cuda") -> QuantTensorA8:
+    """GGUF Q4_K tensor bytes → QuantTensorA8 (int8 codes, f16 scales/mins)."""
+    codes, scales, mins = unpack_q4k(data, n_rows, row_len, device)
+    return QuantTensorA8(codes.to(torch.int8).contiguous(),
+                         scales.to(torch.float16).contiguous(),
+                         mins.to(torch.float16).contiguous())
+
+
+def repack_q8_0(data, n_rows: int, row_len: int, device="cuda") -> QuantTensorQ8:
+    """GGUF Q8_0 tensor bytes (34-byte blocks: f16 d, 32 int8 codes) →
+    QuantTensorQ8 with group 32."""
+    blk = _blocks_on(data, 34, device)
+    codes = blk[:, 2:].contiguous().view(torch.int8).reshape(n_rows, row_len)
+    return QuantTensorQ8(codes, _f16_col(blk, 0).reshape(n_rows, -1).contiguous(), 32)
+
+
+def repack_q6_k_expanded(data, n_rows: int, row_len: int, device="cuda") -> QuantTensorQ8:
+    """GGUF Q6_K tensor bytes (210-byte superblocks: 128 B ql, 64 B qh, 16
+    int8 scales, f16 d) → QuantTensorQ8 with group 16: the 6-bit codes widened
+    to int8 (q − 32) and the two-level scale f32(d)·sc multiplied out in f32,
+    the association gguf.quants.dequantize_q6_k uses."""
+    blk = _blocks_on(data, 210, device)
+    nb = blk.shape[0]
+    ql = blk[:, 0:128].reshape(nb, 2, 2, 32)     # [half, lql | lql2, 32]
+    qh = blk[:, 128:192].reshape(nb, 2, 1, 32)
+    lo, hi = ql & 0xF, ql >> 4
+    # element 128h + 32s + i of a superblock, s = 0..3: (lql, lql2) low
+    # nibbles then high nibbles, with bit pair s of qh on top
+    q = torch.cat([lo[:, :, 0:1] | ((qh & 3) << 4),
+                   lo[:, :, 1:2] | (((qh >> 2) & 3) << 4),
+                   hi[:, :, 0:1] | (((qh >> 4) & 3) << 4),
+                   hi[:, :, 1:2] | ((qh >> 6) << 4)], dim=2)        # [nb, 2, 4, 32]
+    codes = (q.reshape(n_rows, row_len).to(torch.int16) - 32).to(torch.int8)
+    sc = blk[:, 192:208].contiguous().view(torch.int8).float()       # [nb, 16]
+    scales = (_f16_col(blk, 208) * sc).reshape(n_rows, -1)
+    return QuantTensorQ8(codes.contiguous(), scales.contiguous(), 16)
 
 
 def repack_q4k_embedding(data, n_rows: int, row_len: int, device="cuda") -> QuantEmbedding:
@@ -131,14 +285,33 @@ def repack_q4k_embedding(data, n_rows: int, row_len: int, device="cuda") -> Quan
 
 
 def unpair_codes(codes: torch.Tensor) -> torch.Tensor:
-    """QuantTensorA8S codes [N, K/2] → element-order codes u8 [N, K]."""
+    """QuantTensor codes [N, K/2] → element-order codes u8 [N, K]."""
     N = codes.shape[0]
     c = codes.reshape(N, -1, 16)
     return torch.cat([c & 0x0F, c >> 4], dim=-1).reshape(N, -1)
 
 
-def emb_lookup(emb: QuantEmbedding, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Packed embedding row gather, dequantized on the fly."""
+def dequantize(w) -> torch.Tensor:
+    """The f32 values [N, K] a packed weight stands for (tests and the smoke
+    run's yardsticks; no engine calls it)."""
+    if isinstance(w, QuantTensorK4):
+        codes, scales, mins = decode_q4k_blocks(w.codes.view(-1, Q4K_BLOCK), w.n_out)
+    elif isinstance(w, QuantTensorQ8):
+        return (w.codes.float().reshape(w.n_out, -1, w.group)
+                * w.scales[..., None]).reshape(w.n_out, -1)
+    elif isinstance(w, QuantTensorA8):
+        codes, scales, mins = w.codes, w.scales.float(), w.mins.float()
+    else:
+        codes, scales, mins = unpair_codes(w.codes), w.scales.float(), w.mins.float()
+    q = codes.float().reshape(w.n_out, -1, GROUP)
+    return (q * scales[..., None] - mins[..., None]).reshape(w.n_out, -1)
+
+
+def emb_lookup(emb, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Embedding row gather; a QuantEmbedding is dequantized on the fly, a
+    dense table is gathered as it is."""
+    if not isinstance(emb, QuantEmbedding):
+        return emb[tokens]
     ci = emb.codes[tokens].to(torch.int32)               # [..., E/2]
     q = torch.cat([ci & 0xF, (ci >> 4) & 0xF], dim=-1).float()
     s = emb.scales[tokens]                                # [..., E/32]
@@ -150,13 +323,62 @@ def emb_lookup(emb: QuantEmbedding, tokens: torch.Tensor, dtype=torch.bfloat16) 
 
 
 # ---------------------------------------------------------------------------
-# kernel A: W4A8 for 1..16 rows
+# launch plumbing
+# ---------------------------------------------------------------------------
+
+def _check_cuda(x: torch.Tensor, arrays, k_multiple: int = GROUP) -> tuple[int, int]:
+    """Raise on what the kernels do not take; `arrays` is ((tensor, dtype,
+    shape), ...) of the weight's arrays. Returns (M, K)."""
+    M, K = x.shape
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"activations must be bf16 or f32, got {x.dtype}")
+    if K % k_multiple:
+        raise ValueError(f"K={K} is not a multiple of {k_multiple}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("activations must be contiguous and 16-byte aligned")
+    for t, dt, shape in arrays:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"x {tuple(x.shape)} does not match weight array "
+                             f"{tuple(t.shape)} (expected {shape})")
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError("weight arrays must be contiguous on x's device")
+    return M, K
+
+
+def _q4k_arrays(w: QuantTensor, K: int, scale_dtype):
+    N, G = w.n_out, K // GROUP
+    return ((w.codes, torch.uint8, (N, K // 2)), (w.scales, scale_dtype, (N, G)),
+            (w.mins, scale_dtype, (N, G)))
+
+
+def _k4_arrays(w: QuantTensorK4, K: int):
+    return ((w.codes, torch.uint8, (w.n_out, K // QK_K * Q4K_BLOCK)),)
+
+
+def _is_bf16(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.bfloat16)
+
+
+def _w4a8_buffers(M: int, K: int, N: int, dev):
+    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    xs = torch.empty((M, K // GROUP), dtype=torch.float32, device=dev)
+    return xq, xs, torch.empty_like(xs), torch.empty((M, N), dtype=torch.float32, device=dev)
+
+
+def _check_rows(M: int, what: str) -> None:
+    if not 1 <= M <= A8S_MAX_BATCH:
+        raise ValueError(f"{what} takes 1..{A8S_MAX_BATCH} rows, got {M}")
+
+
+# ---------------------------------------------------------------------------
+# kernels A and I: W4A8 for 1..16 rows
 # ---------------------------------------------------------------------------
 
 def quant_acts(x: torch.Tensor):
     """[M, K] float → (xq int8 [M, K], xs f32 [M, K/32], sxm f32 [M, K/32]):
     per-32-group scale amax/127, codes round(x·(1/scale)), and
-    scale·Σcodes (the min-term weight). Plain version of kernel A's prologue."""
+    scale·Σcodes (the min-term weight). Plain version of the W4A8 kernels'
+    prologue."""
     M, K = x.shape
     xg = x.float().reshape(M, K // GROUP, GROUP)
     amax = torch.amax(torch.abs(xg), dim=-1)
@@ -169,67 +391,95 @@ def quant_acts(x: torch.Tensor):
     return xqg.reshape(M, K), scale, scale * xsum
 
 
-def w4a8_matmul_plain(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
-    """Plain version of kernel A: x [M, K] → [M, N] f32."""
+def _w4a8_plain(x: torch.Tensor, codes: torch.Tensor, ws: torch.Tensor,
+                wm: torch.Tensor) -> torch.Tensor:
+    """Σ_g dot_g·ws_g·xs_g − sxm_g·wm_g over element-order codes [N, K] and
+    f32 group scales/mins [N, K/32]: the W4A8 kernels' sum, group by group."""
     xq, xs, sxm = quant_acts(x)
     M, K = xq.shape
     G = K // GROUP
-    codes = unpair_codes(w.codes).reshape(-1, G, GROUP).float()  # [N, G, 32]
     # int8 x 4-bit dots of one group stay below 2^24: exact in f32
-    dots = torch.einsum("mgi,ngi->mng", xq.reshape(M, G, GROUP).float(), codes)
-    ws, wm = w.scales.float(), w.mins.float()                   # [N, G]
+    dots = torch.einsum("mgi,ngi->mng", xq.reshape(M, G, GROUP).float(),
+                        codes.reshape(-1, G, GROUP).float())
     terms = dots * ws[None] * xs[:, None, :] - sxm[:, None, :] * wm[None]
     return terms.sum(dim=-1)
 
 
-def _check_cuda_weight(x: torch.Tensor, w: QuantTensorA8S) -> tuple[int, int, int]:
-    M, K = x.shape
-    N = w.n_out
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"activations must be bf16 or f32, got {x.dtype}")
-    if K % GROUP or w.codes.shape != (N, K // 2):
-        raise ValueError(f"x {tuple(x.shape)} does not match codes {tuple(w.codes.shape)}")
-    for t, dt in ((w.codes, torch.uint8), (w.scales, torch.bfloat16),
-                  (w.mins, torch.bfloat16)):
-        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError("weight arrays must be contiguous on x's device")
-    if not x.is_contiguous():
-        raise ValueError("activations must be contiguous")
-    return M, K, N
+def w4a8_matmul_plain(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
+    """Plain version of kernel A: x [M, K] → [M, N] f32."""
+    return _w4a8_plain(x, unpair_codes(w.codes), w.scales.float(), w.mins.float())
 
 
 def w4a8_launch(x: torch.Tensor, w: QuantTensorA8S):
     """Launch kernel A on CUDA tensors. Returns (out [M, N] f32, and the
     prologue's xq, xs, sxm, so a check can compare the activation codes)."""
-    M, K, N = _check_cuda_weight(x, w)
-    if not 1 <= M <= A8S_MAX_BATCH:
-        raise ValueError(f"kernel A takes 1..{A8S_MAX_BATCH} rows, got {M}")
-    dev = x.device
-    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
-    xs = torch.empty((M, K // GROUP), dtype=torch.float32, device=dev)
-    sxm = torch.empty_like(xs)
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    M, K = _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.bfloat16))
+    _check_rows(M, "kernel A")
+    xq, xs, sxm, out = _w4a8_buffers(M, K, w.n_out, x.device)
     rc = kernels.lib("quant_matmul").w4a8_matmul_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), w.codes.data_ptr(),
+        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(),
         w.scales.data_ptr(), w.mins.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-        sxm.data_ptr(), out.data_ptr(), M, K, N, kernels.stream_ptr(dev))
+        sxm.data_ptr(), out.data_ptr(), M, K, w.n_out, kernels.stream_ptr(x.device))
     kernels.check(rc, "w4a8_gemv")
     kernels.count("w4a8_gemv")
     return out, xq, xs, sxm
 
 
 def w4a8_matmul(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
-    """Kernel A: x [M <= 16, K] @ W → [M, N] f32."""
+    """Kernel A (CUDA C++, replaces the TPU kernels _a8s_xin_kernel and
+    _a8s_pinned_kernel): x [M <= 16, K] @ W → [M, N] f32."""
     if x.device.type == "cpu":
         return w4a8_matmul_plain(x, w)
     return w4a8_launch(x, w)[0]
 
 
+def a8k4_matmul_plain(x: torch.Tensor, w: QuantTensorA8K4) -> torch.Tensor:
+    """Plain version of kernel I: kernel A's sum with the f32 d·sc and
+    dmin·mn decoded from the native superblocks."""
+    return _w4a8_plain(x, *decode_q4k_blocks(w.codes.view(-1, Q4K_BLOCK), w.n_out))
+
+
+def a8k4_launch(x: torch.Tensor, w: QuantTensorA8K4):
+    """Launch kernel I on CUDA tensors; returns (out, xq, xs, sxm) as
+    w4a8_launch does."""
+    M, K = _check_cuda(x, _k4_arrays(w, x.shape[1]), QK_K)
+    _check_rows(M, "kernel I")
+    xq, xs, sxm, out = _w4a8_buffers(M, K, w.n_out, x.device)
+    rc = kernels.lib("quant_matmul").w4a8k4_matmul_launch(
+        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+        sxm.data_ptr(), out.data_ptr(), M, K, w.n_out, kernels.stream_ptr(x.device))
+    kernels.check(rc, "w4a8k4_gemv")
+    kernels.count("w4a8k4_gemv")
+    return out, xq, xs, sxm
+
+
+def a8k4_matmul(x: torch.Tensor, w: QuantTensorA8K4) -> torch.Tensor:
+    """Kernel I (CUDA C++, replaces the TPU kernel _a8k4_kernel):
+    x [M <= 16, K] @ native-layout W → [M, N] f32 (W4A8)."""
+    if x.device.type == "cpu":
+        return a8k4_matmul_plain(x, w)
+    return a8k4_launch(x, w)[0]
+
+
+def w4a8_xla_matmul(x: torch.Tensor, w: QuantTensorA8) -> torch.Tensor:
+    """The `q4k_a8_xla` matmul, plain PyTorch on every device (the reference's
+    w4a8_matmul is plain XLA): exact int group dots, then the positive and
+    the min sums taken apart, pos − neg. Materializes [M, N, K/32] floats, so
+    it serves small models only."""
+    xq, xs, sxm = quant_acts(x)
+    M, K = xq.shape
+    G = K // GROUP
+    dots = torch.einsum("mgi,ngi->mng", xq.reshape(M, G, GROUP).float(),
+                        w.codes.reshape(-1, G, GROUP).float())
+    pos = (dots * xs[:, None, :] * w.scales.float()[None]).sum(dim=-1)
+    return pos - sxm @ w.mins.float().t()
+
+
 # ---------------------------------------------------------------------------
-# kernel B: exact dequant-matmul for more than 16 rows
+# kernels B, G, H: exact dequant matmuls
 # ---------------------------------------------------------------------------
 
-def q4k_pos_plain(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
+def q4k_pos_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
     """Plain version of kernel B: x [M, K] @ (code·scale) → [M, N] f32."""
     N = w.n_out
     codes = unpair_codes(w.codes).reshape(N, -1, GROUP).float()
@@ -237,21 +487,30 @@ def q4k_pos_plain(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
     return x.float() @ wdq.t()
 
 
-def q4k_pos(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
-    """Kernel B: positive part x @ (code·scale) → [M, N] f32."""
-    if x.device.type == "cpu":
-        return q4k_pos_plain(x, w)
-    M, K, N = _check_cuda_weight(x, w)
+def _tile_launch(fn: str, name: str, x: torch.Tensor, N: int, *args) -> torch.Tensor:
+    M, K = x.shape
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    rc = kernels.lib("quant_matmul").q4k_dequant_mm_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), w.codes.data_ptr(),
-        w.scales.data_ptr(), out.data_ptr(), M, K, N, kernels.stream_ptr(x.device))
-    kernels.check(rc, "q4k_dequant_matmul")
-    kernels.count("q4k_dequant_matmul")
+    rc = getattr(kernels.lib("quant_matmul"), fn)(
+        x.data_ptr(), _is_bf16(x), *args, out.data_ptr(), M, K, N,
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, name)
+    kernels.count(name)
     return out
 
 
-def q4k_matmul(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
+def q4k_pos(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
+    """Kernel B (CUDA C++, replaces the TPU kernel _q4k_matmul_kernel):
+    positive part x @ (code·scale) → [M, N] f32; bf16 scales
+    (QuantTensorA8S) or f32 scales (QuantTensor)."""
+    if x.device.type == "cpu":
+        return q4k_pos_plain(x, w)
+    f32 = not isinstance(w, QuantTensorA8S)
+    _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.float32 if f32 else torch.bfloat16))
+    return _tile_launch("q4k_dequant_mm_launch", "q4k_dequant_matmul", x, w.n_out,
+                        w.codes.data_ptr(), w.scales.data_ptr(), int(f32))
+
+
+def q4k_matmul(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
     """x [M, K] @ packed W → [M, N] f32, exact dequant numerics. The affine
     min term Σ_g (Σ_{k∈g} x_k)·min_g is a small f32 product outside the
     kernel, as in the reference."""
@@ -261,18 +520,73 @@ def q4k_matmul(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
     return pos - xg_sum @ w.mins.float().t()
 
 
+def q8_0_matmul_plain(x: torch.Tensor, w: QuantTensorQ8) -> torch.Tensor:
+    """Plain version of kernel G: x [M, K] @ (code·scale) → [M, N] f32."""
+    return x.float() @ dequantize(w).t()
+
+
+def q8_0_matmul(x: torch.Tensor, w: QuantTensorQ8) -> torch.Tensor:
+    """Kernel G (CUDA C++, replaces the TPU kernel _q8_matmul_kernel):
+    x [M, K] @ int8-code W → [M, N] f32, scale group 32 or 16."""
+    if x.device.type == "cpu":
+        return q8_0_matmul_plain(x, w)
+    if w.group not in (16, 32):
+        raise ValueError(f"kernel G takes scale groups of 16 or 32, got {w.group}")
+    K = x.shape[1]
+    _check_cuda(x, ((w.codes, torch.int8, (w.n_out, K)),
+                    (w.scales, torch.float32, (w.n_out, K // w.group))))
+    return _tile_launch("q8_dequant_mm_launch", "q8_dequant_matmul", x, w.n_out,
+                        w.codes.data_ptr(), w.scales.data_ptr(), w.group)
+
+
+def q4k_native_matmul_plain(x: torch.Tensor, w: QuantTensorK4) -> torch.Tensor:
+    """Plain version of kernel H: per 32-group the positive dot
+    x_g · (code·scale) minus (Σ x_g)·min, the groups then summed."""
+    codes, scales, mins = decode_q4k_blocks(w.codes.view(-1, Q4K_BLOCK), w.n_out)
+    M, K = x.shape
+    G = K // GROUP
+    xg = x.float().reshape(M, G, GROUP)
+    wdq = codes.float().reshape(-1, G, GROUP) * scales[..., None]
+    pos = torch.einsum("mgi,ngi->mng", xg, wdq)
+    return (pos - xg.sum(dim=-1)[:, None, :] * mins[None]).sum(dim=-1)
+
+
+def q4k_native_matmul(x: torch.Tensor, w: QuantTensorK4) -> torch.Tensor:
+    """Kernel H (CUDA C++, replaces the TPU kernel _q4k_native_kernel):
+    x [M, K] @ native-layout W → [M, N] f32, exact dequant numerics, scales
+    decoded and min term applied inside the kernel."""
+    if x.device.type == "cpu":
+        return q4k_native_matmul_plain(x, w)
+    _check_cuda(x, _k4_arrays(w, x.shape[1]), QK_K)
+    return _tile_launch("q4k_native_mm_launch", "q4k_native_matmul", x, w.n_out,
+                        w.codes.data_ptr())
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
-def _quant_kernel_call(flat: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
-    if flat.shape[0] <= A8S_MAX_BATCH:
-        return w4a8_matmul(flat, w)
+def _quant_kernel_call(flat: torch.Tensor, w) -> torch.Tensor:
+    """The reference's routing by class and row count."""
+    few = flat.shape[0] <= A8S_MAX_BATCH
+    if isinstance(w, QuantTensorA8K4):
+        return a8k4_matmul(flat, w) if few else q4k_native_matmul(flat, w)
+    if isinstance(w, QuantTensorK4):
+        return q4k_native_matmul(flat, w)
+    if isinstance(w, QuantTensorA8S):
+        return w4a8_matmul(flat, w) if few else q4k_matmul(flat, w)
+    if isinstance(w, QuantTensorA8):
+        return w4a8_xla_matmul(flat, w)
+    if isinstance(w, QuantTensorQ8):
+        return q8_0_matmul(flat, w)
     return q4k_matmul(flat, w)
 
 
-def qmm(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
-    """x [..., K] @ W → [..., N] in x's dtype (f32 accumulation inside)."""
+def qmm(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., K] @ W → [..., N] in x's dtype: a packed weight through its
+    kernel (f32 accumulation inside), a dense [K, N] tensor through matmul."""
+    if isinstance(w, torch.Tensor):
+        return x @ w
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1]).contiguous()
     out = _quant_kernel_call(flat, w)

@@ -18,12 +18,19 @@ from .vocab import Vocab
 
 ModelLoadProgressCb = Callable[[float], None]
 
+# ModelParams.dtype → load_llama_params' fused_quant (the reference's map):
+# how a Q4_K tensor is packed. Q8_0 and Q6_K tensors take the exact int8-code
+# kernel under every one of them, so `q8_0_fused` / `q6_k_fused` are the
+# exact engine under the name of the file type they are meant for.
+ENGINES = {"q4k_fused": True, "q4k_fused_k4": "k4", "q4k_a8": "a8",
+           "q4k_a8_k4": "a8k4", "q4k_a8_xla": "a8x",
+           "q8_0_fused": True, "q6_k_fused": True}
 
 
 @dataclass
 class ModelParams:
     """Reference: Model::Params (Model.hpp:28-34). `dtype` selects the
-    weight engine; the port serves `q4k_a8` (W4A8 on packed Q4_K)."""
+    weight engine; the port serves the packed engines of ENGINES."""
 
     vocab_only: bool = False
     prefix_inputs_with_bos: bool = False
@@ -73,15 +80,16 @@ class Model:
             self.weights = self._load_weights(progress_cb)
 
     def _load_weights(self, progress_cb: ModelLoadProgressCb | None):
-        if self.params.dtype != "q4k_a8":
+        if self.params.dtype not in ENGINES:
             raise NotImplementedError(
                 f"dtype={self.params.dtype!r} is not ported; the port serves "
-                "'q4k_a8' (ROADMAP.md §1 item 9, other engines)")
+                f"{sorted(ENGINES)} (ROADMAP.md §1 item 9, dense engines)")
         from ..models.llama import load_llama_params
 
         if progress_cb:
             progress_cb(0.0)
-        w = load_llama_params(self.reader, self.config, fused_quant="a8",
+        w = load_llama_params(self.reader, self.config,
+                              fused_quant=ENGINES[self.params.dtype],
                               device=self.device, progress_cb=progress_cb)
         if progress_cb:
             progress_cb(1.0)

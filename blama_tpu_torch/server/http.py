@@ -251,7 +251,8 @@ def main() -> None:
     8, 0 disables) is the number of decode steps per scheduler iteration
     with the logits kept on the device; it engages only when every active
     row is greedy or a verification row and gives way to per-token steps
-    otherwise.
+    otherwise. BLAMA_DTYPE names the weight engine (default `q4k_a8`; one
+    the port does not serve fails here with Model's NotImplementedError).
     """
     import logging
 
@@ -271,7 +272,7 @@ def main() -> None:
         print(f"\rloading model: {p * 100:5.1f}%", end="", flush=True)
 
     model = Model(model_path,
-                  ModelParams(dtype="q4k_a8",
+                  ModelParams(dtype=os.environ.get("BLAMA_DTYPE", "q4k_a8"),
                               device=os.environ.get("BLAMA_DEVICE", "cuda")),
                   progress_cb=progress)
     print()

@@ -1,9 +1,12 @@
 """Deterministic model fixtures for the port's tests and its chip smoke run.
 
-Tiny-but-real GGUF models (genuine Q4_K tensors, SPM-style vocab with byte
-fallback) with seeded weights, and a direct-packed synthesizer for full-size
-geometries. A copy of the JAX package's fixtures, so the port and its smoke
-script never import that package; the same seed writes the same file.
+Tiny-but-real GGUF models (genuine Q4_K, Q8_0 or Q6_K tensors, SPM-style
+vocab with byte fallback) with seeded weights, and a direct-packed synthesizer
+for full-size geometries. A copy of the JAX package's fixtures, so the port
+and its smoke script never import that package; `write_tiny_llama` writes the
+same file from the same seed. Beyond the copy: the mixed-type layout of
+llama.cpp's Q4_K_M files (`quant=Q4_K_M`), a direct Q6_K packer, and a
+`n_layer` cut of the presets.
 """
 
 from __future__ import annotations
@@ -49,6 +52,25 @@ def tiny_spm_vocab() -> tuple[list[str], list[float], list[int]]:
     return tokens, scores, types
 
 
+# `quant` value selecting llama.cpp's LLAMA_FTYPE_MOSTLY_Q4_K_M tensor types
+Q4_K_M = "Q4_K_M"
+
+
+def q4_k_m_type(name: str, n_layer: int) -> GGMLType:
+    """The type llama.cpp's Q4_K_M recipe (llama_tensor_get_type) gives a
+    matmul tensor: output.weight is Q6_K; attn_v and ffn_down are Q6_K in the
+    first and last eighth of the layers and every third layer between
+    (use_more_bits); everything else, token_embd included, is Q4_K."""
+    if name == "output.weight":
+        return GGMLType.Q6_K
+    if name.endswith((".attn_v.weight", ".ffn_down.weight")):
+        i = int(name.split(".")[1])
+        if (i < n_layer // 8 or i >= 7 * n_layer // 8
+                or (i - n_layer // 8) % 3 == 2):
+            return GGMLType.Q6_K
+    return GGMLType.Q4_K
+
+
 TINY_LLAMA_SPEC = dict(
     n_layer=2,
     n_embd=256,
@@ -63,12 +85,13 @@ TINY_LLAMA_SPEC = dict(
 
 def write_tiny_llama(
     path: str,
-    quant: GGMLType = GGMLType.Q4_K,
+    quant: GGMLType | str = GGMLType.Q4_K,
     seed: int = 1234,
     chat_template: str = "",
     spec: dict | None = None,
 ) -> None:
-    """Write a deterministic tiny llama-architecture GGUF model."""
+    """Write a deterministic tiny llama-architecture GGUF model. `quant` is
+    one GGML type for every matmul tensor, or Q4_K_M for the mixed layout."""
     s = dict(TINY_LLAMA_SPEC)
     if spec:
         s.update(spec)
@@ -84,6 +107,10 @@ def write_tiny_llama(
         return (rng.standard_normal(shape) * scale).astype(np.float32)
 
     g = GGUFWriter(path)
+
+    def add(name, data):
+        g.add_tensor(name, data, q4_k_m_type(name, L) if quant == Q4_K_M else quant)
+
     g.add_kv("general.architecture", "llama")
     g.add_kv("general.name", "tiny-llama-fixture")
     g.add_kv("llama.block_count", L)
@@ -112,20 +139,20 @@ def write_tiny_llama(
         g.add_kv("tokenizer.chat_template", chat_template)
 
     # norms stay f32 (as real GGUF files do)
-    g.add_tensor("token_embd.weight", w((n_vocab, E), 0.05), quant)
+    add("token_embd.weight", w((n_vocab, E), 0.05))
     g.add_tensor("output_norm.weight", np.ones(E, np.float32) + w((E,), 0.01), GGMLType.F32)
     if not s.get("tie_output"):  # tied-embedding models omit output.weight
-        g.add_tensor("output.weight", w((n_vocab, E)), quant)
+        add("output.weight", w((n_vocab, E)))
     for i in range(L):
         g.add_tensor(f"blk.{i}.attn_norm.weight", np.ones(E, np.float32) + w((E,), 0.01), GGMLType.F32)
-        g.add_tensor(f"blk.{i}.attn_q.weight", w((H * D, E)), quant)
-        g.add_tensor(f"blk.{i}.attn_k.weight", w((HKV * D, E)), quant)
-        g.add_tensor(f"blk.{i}.attn_v.weight", w((HKV * D, E)), quant)
-        g.add_tensor(f"blk.{i}.attn_output.weight", w((E, H * D)), quant)
+        add(f"blk.{i}.attn_q.weight", w((H * D, E)))
+        add(f"blk.{i}.attn_k.weight", w((HKV * D, E)))
+        add(f"blk.{i}.attn_v.weight", w((HKV * D, E)))
+        add(f"blk.{i}.attn_output.weight", w((E, H * D)))
         g.add_tensor(f"blk.{i}.ffn_norm.weight", np.ones(E, np.float32) + w((E,), 0.01), GGMLType.F32)
-        g.add_tensor(f"blk.{i}.ffn_gate.weight", w((F, E)), quant)
-        g.add_tensor(f"blk.{i}.ffn_up.weight", w((F, E)), quant)
-        g.add_tensor(f"blk.{i}.ffn_down.weight", w((E, F)), quant)
+        add(f"blk.{i}.ffn_gate.weight", w((F, E)))
+        add(f"blk.{i}.ffn_up.weight", w((F, E)))
+        add(f"blk.{i}.ffn_down.weight", w((E, F)))
     g.write()
 
 
@@ -167,21 +194,63 @@ def _pack_q4_k_direct(rng: np.random.Generator, n_rows: int, row_len: int,
     return out.tobytes()
 
 
+def _pack_q8_0_direct(rng: np.random.Generator, n_rows: int, row_len: int,
+                      sigma: float) -> bytes:
+    """Directly synthesize packed Q8_0 blocks (34 B: f16 d + 32 int8 codes)
+    with plausible statistics. The codes are drawn as int8 (a 64-bit draw of
+    a full-size tensor takes gigabytes), so the bytes differ from the JAX
+    package's packer for the same seed."""
+    n_blocks = (n_rows * row_len) // 32
+    out = np.zeros((n_blocks, 34), dtype=np.uint8)
+    # std of uniform int8 codes in [-127, 127] is ~73.3
+    d = np.float16(sigma / 73.3)
+    out[:, 0:2] = np.frombuffer(d.tobytes(), dtype=np.uint8)
+    out[:, 2:] = rng.integers(-127, 128, size=(n_blocks, 32),
+                              dtype=np.int8).view(np.uint8)
+    return out.tobytes()
+
+
+def _pack_q6_k_direct(rng: np.random.Generator, n_rows: int, row_len: int,
+                      sigma: float) -> bytes:
+    """Directly synthesize packed Q6_K superblocks (210 B: 128 B ql, 64 B qh,
+    16 int8 scales, f16 d): random 6-bit codes, random signed scales of
+    magnitude 32..96, and d chosen so dequantized values have std ≈ sigma."""
+    n_blocks = (n_rows * row_len) // 256
+    out = np.empty((n_blocks, 210), dtype=np.uint8)
+    out[:, :192] = rng.integers(0, 256, size=(n_blocks, 192), dtype=np.uint8)
+    sc = rng.integers(32, 97, size=(n_blocks, 16), dtype=np.int8)
+    sc *= rng.integers(0, 2, size=(n_blocks, 16), dtype=np.int8) * 2 - 1
+    out[:, 192:208] = sc.view(np.uint8)
+    # rms of the scales is ~66.6; std of uniform q - 32 in [-32, 31] is ~18.5
+    d = np.float16(sigma / (66.6 * 18.5))
+    out[:, 208:210] = np.frombuffer(d.tobytes(), dtype=np.uint8)
+    return out.tobytes()
+
+
+_DIRECT_PACKERS = {GGMLType.Q4_K: _pack_q4_k_direct, GGMLType.Q8_0: _pack_q8_0_direct,
+                   GGMLType.Q6_K: _pack_q6_k_direct}
+
+
 def _pack_f32_norm(n: int) -> tuple[bytes, tuple[int, ...]]:
     return np.ones(n, np.float32).tobytes(), (n,)
 
 
 def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
-                          seed: int = 7, quant: GGMLType = GGMLType.Q4_K) -> dict:
+                          seed: int = 7, quant: GGMLType | str = GGMLType.Q4_K,
+                          n_layer: int | None = None) -> dict:
     """Write a realistic-size llama GGUF with direct-packed quantized tensors.
 
     Weight *values* are random (throughput benchmarking does not depend on
     them) but every byte layout, metadata key, and tensor name is real, so the
-    full load path (parse → dequant/repack → upload) is exercised.
+    full load path (parse → dequant/repack → upload) is exercised. `quant`
+    is Q4_K, Q8_0, Q6_K or Q4_K_M (the mixed layout); `n_layer` cuts the
+    preset's depth (its widths stay).
     """
-    if quant != GGMLType.Q4_K:
-        raise NotImplementedError("direct synthesis packs Q4_K only in the port")
+    if quant != Q4_K_M and quant not in _DIRECT_PACKERS:
+        raise NotImplementedError("direct synthesis packs Q4_K, Q8_0, Q6_K or Q4_K_M")
     s = dict(MODEL_PRESETS[preset])
+    if n_layer is not None:
+        s["n_layer"] = n_layer
     E, H, HKV, F, L, V = (s["n_embd"], s["n_head"], s["n_head_kv"],
                           s["n_ff"], s["n_layer"], s["n_vocab"])
     D = E // H
@@ -223,8 +292,9 @@ def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
 
     def q(name, n_out, n_in, sigma=None):
         sigma = sigma if sigma is not None else 1.0 / np.sqrt(n_in)
-        g.add_tensor(name, None, quant,
-                     raw_bytes=_pack_q4_k_direct(rng, n_out, n_in, sigma),
+        t = q4_k_m_type(name, L) if quant == Q4_K_M else quant
+        g.add_tensor(name, None, t,
+                     raw_bytes=_DIRECT_PACKERS[t](rng, n_out, n_in, sigma),
                      ne=(n_in, n_out))
 
     def norm(name, n):
@@ -248,16 +318,21 @@ def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
     return s
 
 
-def cached_llama_gguf(preset: str = "llama3-8b", seed: int = 7) -> str:
-    """Path of synthesize_llama_gguf(preset, seed) in the temp directory,
-    written once (atomically) and reused by later runs."""
+def cached_llama_gguf(preset: str = "llama3-8b", seed: int = 7,
+                      quant: GGMLType | str = GGMLType.Q4_K,
+                      n_layer: int | None = None) -> str:
+    """Path of synthesize_llama_gguf(preset, seed, quant, n_layer) in the temp
+    directory, written once (atomically) and reused by later runs."""
     import os
     import tempfile
 
+    tag = "" if quant == GGMLType.Q4_K else f"-{getattr(quant, 'name', quant)}"
+    if n_layer is not None:
+        tag += f"-L{n_layer}"
     path = os.path.join(tempfile.gettempdir(),
-                        f"blama_tpu_torch-{preset}-seed{seed}.gguf")
+                        f"blama_tpu_torch-{preset}{tag}-seed{seed}.gguf")
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
-        synthesize_llama_gguf(tmp, preset, seed=seed)
+        synthesize_llama_gguf(tmp, preset, seed=seed, quant=quant, n_layer=n_layer)
         os.replace(tmp, path)
     return path

@@ -1,8 +1,11 @@
 """Where a decode step's time goes on the card.
 
     python -m blama_tpu_torch.tools.profile_step [--steps 16] [--ctx 2048] [--scheduler]
+        [--dtype q4k_a8] [--quant Q4_K] [--layers N]
 
-Loads the synthesized llama3-8b `q4k_a8` GGUF (testing.cached_llama_gguf),
+Loads the synthesized llama3-8b GGUF (testing.cached_llama_gguf; `--quant`
+Q4_K, Q8_0 or Q4_K_M, `--layers` cuts its depth) as engine `--dtype` (any of
+runtime.model.ENGINES, e.g. `q4k_fused`, or `q8_0_fused` with `--quant Q8_0`),
 prefills a 128-token prompt, then times greedy decode steps
 (generate_loop.continue_greedy): wall time per step with the device
 synchronized, and one torch.profiler window over the same steps for the
@@ -29,6 +32,10 @@ def main() -> None:
     ap.add_argument("--ctx", type=int, default=2048)
     ap.add_argument("--scheduler", action="store_true",
                     help="profile the batched paged serving step (8 rows)")
+    ap.add_argument("--dtype", default="q4k_a8", help="weight engine (runtime.model.ENGINES)")
+    ap.add_argument("--quant", default="Q4_K", choices=["Q4_K", "Q8_0", "Q4_K_M"],
+                    help="tensor types of the synthesized file")
+    ap.add_argument("--layers", type=int, default=None, help="cut the file's depth")
     args = ap.parse_args()
 
     import numpy as np
@@ -40,15 +47,17 @@ def main() -> None:
     from ..ops.generate_loop import continue_greedy
     from ..runtime.instance import Instance, InstanceInitParams
     from ..runtime.model import Model, ModelParams
-    from ..testing import cached_llama_gguf
+    from ..gguf import GGMLType
+    from ..testing import Q4_K_M, cached_llama_gguf
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    model = Model(cached_llama_gguf("llama3-8b", seed=7),
-                  ModelParams(dtype="q4k_a8", attn="fused"))
+    quant = Q4_K_M if args.quant == Q4_K_M else GGMLType[args.quant]
+    model = Model(cached_llama_gguf("llama3-8b", seed=7, quant=quant, n_layer=args.layers),
+                  ModelParams(dtype=args.dtype, attn="fused"))
     rng = np.random.default_rng(7)
     rows, horizon = 1, 1
     if args.scheduler:
@@ -112,6 +121,7 @@ def main() -> None:
     busy = sum(r[1] for r in kern)
     print(json.dumps(dict(
         card=smi, mode="scheduler" if args.scheduler else "solo", rows=rows,
+        engine=args.dtype, file=args.quant, layers=model.config.n_layer,
         steps=args.steps, ctx=args.ctx, wall_ms_per_step=wall_ms,
         device_busy_ms_per_step=busy,
         idle_share=(1 - busy / wall_ms) if busy else None,

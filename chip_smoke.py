@@ -15,7 +15,11 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    its bound, its plain version and one PyTorch library call computing the
    same function. The attention kernels run on INT8 and bf16 stores; the
    paged kernels E and F must equal the dense C and D bit for bit over the
-   same logical rows under scrambled page placement;
+   same logical rows under scrambled page placement. The other engines'
+   kernels at the same shapes: B on f32 scales, G (int8 codes, scale group
+   32 and 16) and H (native Q4_K) at 1, 8 and 128 rows, I (W4A8 on native
+   Q4_K) at 1 and 8 rows, each with a row's result held equal at every row
+   count;
 3. solo: synthesizes the llama3-8b Q4_K GGUF from a seed (reused from the
    temp directory when present), loads it as `q4k_a8` with fused attention,
    and on an INT8 cache (ctx 2048) one solo Session answers three
@@ -31,8 +35,17 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    the same pool driven synchronously (one fixed admission order) must give
    the uncontended tokens throughout; dense rows (kernels C and D on bf16)
    must give the paged run's tokens;
-5. small: the tiny llama fixture proven on the card and replayed by the port
-   on the CPU must meet the cross-backend thresholds.
+5. engines: at full 8B width, `q4k_fused` (kernel B on f32 scales),
+   `q4k_fused_k4` (H) and `q4k_a8_k4` (I, H) load the same Q4_K file at full
+   depth, `q8_0_fused` (G) a synthesized Q8_0 file and `q4k_a8` a mixed Q4_K
+   + Q6_K file in llama.cpp's Q4_K_M pattern (A, B, G), the last two cut to
+   ENGINE_FILE_LAYERS layers; one model on the card at a time, the solo
+   phase's three request shapes each, every same-backend replay exactly 1.0,
+   and each engine must have launched its own kernels and no other matmul
+   kernel;
+6. small: the tiny llama fixture proven on the card and replayed by the port
+   on the CPU must meet the cross-backend thresholds, and so must, on the
+   card, `q4k_a8` replayed by `q4k_fused` and `q4k_a8_xla` by `q4k_a8`.
 
 Launch counts are set to 0 just before each path and read just after. Any
 failure raises and the script exits non-zero. The last line of standard
@@ -63,6 +76,9 @@ ATTN_TOL = 2.0 ** -7  # x max|ref|: bf16 outputs, one rounding flip is 2^-8 of a
 SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
           "gate/up": (4096, 14336), "down": (14336, 4096),
           "lm_head": (4096, 128256)}
+# depth of the synthesized Q8_0 and mixed files of the engines phase (the
+# all-Q4_K file has the full 32 layers); widths are not cut
+ENGINE_FILE_LAYERS = 8
 
 
 def log(msg: str) -> None:
@@ -95,6 +111,34 @@ def random_q4k(rng, n_rows: int, row_len: int, sigma: float) -> bytes:
     return out.reshape(-1)
 
 
+def random_q8_0(rng, n_rows: int, row_len: int, sigma: float):
+    """Q8_0 blocks with random int8 codes and a random f16 d per block."""
+    import numpy as np
+
+    nb = n_rows * row_len // 32
+    out = np.empty((nb, 34), np.uint8)
+    d = (sigma / 73.3 * rng.uniform(0.5, 1.5, nb)).astype(np.float16)
+    out[:, 0:2] = d.view(np.uint8).reshape(-1, 2)
+    out[:, 2:] = rng.integers(-127, 128, (nb, 32), dtype=np.int8).view(np.uint8)
+    return out.reshape(-1)
+
+
+def random_q6_k(rng, n_rows: int, row_len: int, sigma: float):
+    """Q6_K superblocks with random 6-bit codes, random signed int8 scales
+    (a sign or sub-block indexing error shows) and a random f16 d."""
+    import numpy as np
+
+    nb = n_rows * row_len // 256
+    out = np.empty((nb, 210), np.uint8)
+    out[:, :192] = rng.integers(0, 256, (nb, 192), dtype=np.uint8)
+    sc = rng.integers(16, 128, (nb, 16), dtype=np.int8)
+    sc *= rng.integers(0, 2, (nb, 16), dtype=np.int8) * 2 - 1
+    out[:, 192:208] = sc.view(np.uint8)
+    d = (sigma / (78.0 * 18.5) * rng.uniform(0.5, 1.5, nb)).astype(np.float16)
+    out[:, 208:210] = d.view(np.uint8).reshape(-1, 2)
+    return out.reshape(-1)
+
+
 class Timer:
     """Median CUDA-event time of single launches, L2 flushed before each."""
 
@@ -119,16 +163,6 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def dequant_bf16(w):
-    """[N, K] bf16 weights (code·scale − min) for the library yardstick."""
-    from blama_tpu_torch.ops.quant_matmul import GROUP, unpair_codes
-
-    n = w.n_out
-    c = unpair_codes(w.codes).reshape(n, -1, GROUP).float()
-    return (c * w.scales.float()[..., None] - w.mins.float()[..., None]) \
-        .reshape(n, -1).to(w.scales.dtype)
-
-
 def check_close(name, out, ref, tol):
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
@@ -145,7 +179,7 @@ def kernel_phase(torch, timer, rng):
     rows = []
     for label, (K, N) in SHAPES.items():
         w = qm.repack_q4k_a8s(random_q4k(rng, N, K, K ** -0.5), N, K, "cuda")
-        wb = dequant_bf16(w)
+        wb = qm.dequantize(w).to(torch.bfloat16)   # the library yardstick's weights
         # 1 row: a solo decode step; 8 rows: a solo T=8 chunk and every
         # serving decode step (the lm head too: forward takes the logits of
         # [max_batch, E] rows)
@@ -207,6 +241,111 @@ def kernel_phase(torch, timer, rng):
         del w, wb, outs
         torch.cuda.empty_cache()
 
+    return rows
+
+
+def _bound(nbytes, ops, rate):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
+    return dict(bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def engine_kernel_phase(torch, timer, rng):
+    """The other engines' kernels against their plain versions at the 8B
+    shapes: B on f32 scales, G with scale groups 32 and 16, H at 1, 8 and 128
+    rows (the lm head at 1 and 8: forward takes the logits of the rows' last
+    tokens only), I at 1 and 8 rows. The exact engines send every row count
+    through one kernel, so a row's result must not depend on the rows beside
+    it: row 7 of 8 and the last row of 128 are held equal to the row alone."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for label, (K, N) in SHAPES.items():
+        sigma = K ** -0.5
+        q4k = random_q4k(rng, N, K, sigma)
+        x128 = torch.randn((128, K), generator=gen, device="cuda").to(torch.bfloat16)
+        if label == "lm_head":      # f32 input (bf16-valued), as forward feeds it
+            x128 = x128.float()
+        xsz = x128.element_size()
+        # (row name, weight, kernel, plain version, weight bytes the kernel reads)
+        exact = qm.repack_q4k_exact(q4k, N, K, "cuda")
+        native = qm.repack_q4k_native(q4k, N, K, "cuda")
+        tiles = [
+            ("q4k_dequant_matmul_f32", exact, qm.q4k_pos, qm.q4k_pos_plain,
+             K * N // 2 + 4 * (K // 32) * N, "kernel B (f32 scales)"),
+            ("q8_dequant_matmul_g32", qm.repack_q8_0(random_q8_0(rng, N, K, sigma), N, K, "cuda"),
+             qm.q8_0_matmul, qm.q8_0_matmul_plain, K * N + 4 * (K // 32) * N, "kernel G (group 32)"),
+            ("q8_dequant_matmul_g16",
+             qm.repack_q6_k_expanded(random_q6_k(rng, N, K, sigma), N, K, "cuda"),
+             qm.q8_0_matmul, qm.q8_0_matmul_plain, K * N + 4 * (K // 16) * N, "kernel G (group 16)"),
+            ("q4k_native_matmul", native, qm.q4k_native_matmul, qm.q4k_native_matmul_plain,
+             (K // 256) * 144 * N, "kernel H"),
+        ]
+        for name, w, kernel, plain, wbytes, what in tiles:
+            # the yardstick: bf16 matmul over the dequantized weights (for B
+            # the positive part alone, which is what the kernel computes)
+            wd = qm.dequantize(w)
+            if name == "q4k_dequant_matmul_f32":
+                wd = wd + w.mins.repeat_interleave(32, dim=1)
+            wb = wd.to(torch.bfloat16)
+            del wd
+            outs = {}
+            for M in (1, 8, 128) if label != "lm_head" else (1, 8):
+                x = x128[128 - M:].contiguous()
+                out = kernel(x, w)
+                torch.cuda.synchronize()
+                outs[M] = out
+                err = check_close(f"{what} {label} M={M}", out, plain(x, w), MATMUL_TOL)
+                xb = x.to(torch.bfloat16)
+                rows.append(dict(
+                    kernel=name, shape=f"{label} K={K} N={N} M={M}", max_abs_err=err,
+                    kernel_ms=timer(lambda: kernel(x, w)),
+                    plain_ms=timer(lambda: plain(x, w), reps=3, warm=1),
+                    library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                    # as for kernel B: the products fit bf16 tensor cores
+                    **_bound(wbytes + M * K * xsz + M * N * 4, 2 * M * K * N, BF16_FLOPS)))
+                log(f"{what} {rows[-1]}")
+            for M in outs:
+                if not torch.equal(outs[M][-1:], outs[1]):
+                    raise AssertionError(f"{what} {label}: the last row of {M} differs from "
+                                         "the row alone")
+            del w, wb, outs
+            torch.cuda.empty_cache()
+        # printed, not gated: the exact engine's min term is a library product
+        # outside kernel B, whose sum order may depend on the row count
+        same = torch.equal(qm.q4k_matmul(x128[-8:].contiguous(), exact)[-1:],
+                           qm.q4k_matmul(x128[-1:].contiguous(), exact))
+        log(f"q4k_matmul (kernel B + outside min term) {label}: row 7 of 8 "
+            f"{'equals' if same else 'differs from'} the row alone")
+        next(r for r in rows if r["kernel"] == "q4k_dequant_matmul_f32"
+             and r["shape"] == f"{label} K={K} N={N} M=8")["min_term_row_invariant"] = same
+        # kernel I, on the same native bytes as H
+        w = qm.QuantTensorA8K4(native.codes)
+        wb = qm.dequantize(w).to(torch.bfloat16)
+        outs = {}
+        for M in (1, 8):
+            x = x128[128 - M:].contiguous()
+            out, xq, xs, sxm = qm.a8k4_launch(x, w)
+            torch.cuda.synchronize()
+            outs[M] = out
+            pxq, pxs, psxm = qm.quant_acts(x)
+            for a, b, part in ((xq, pxq, "codes"), (xs, pxs, "scales"), (sxm, psxm, "scale*sum")):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"kernel I {label} M={M}: activation {part} differ")
+            err = check_close(f"kernel I {label} M={M}", out, qm.a8k4_matmul_plain(x, w),
+                              MATMUL_TOL)
+            xb = x.to(torch.bfloat16)
+            rows.append(dict(
+                kernel="w4a8k4_gemv", shape=f"{label} K={K} N={N} M={M}", max_abs_err=err,
+                kernel_ms=timer(lambda: qm.a8k4_launch(x, w)),
+                plain_ms=timer(lambda: qm.a8k4_matmul_plain(x, w), reps=3, warm=1),
+                library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                **_bound((K // 256) * 144 * N + M * K * xsz + M * N * 4, 2 * M * K * N, INT8_OPS)))
+            log(f"kernel I {rows[-1]}")
+        if not torch.equal(outs[8][7:], outs[1]):
+            raise AssertionError(f"kernel I {label}: row 7 of 8 differs from the row alone")
+        del w, wb, outs, exact, native
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -389,13 +528,29 @@ def _gather(pkv, table, G, kp, vp, ksp, vsp):
     return out
 
 
-def prove_and_verify(inst, prompt, n):
+def replay_score(inst, prompt, preds):
+    """A fresh session of `inst` replays a record; returns the score."""
+    from blama_tpu_torch.runtime.session import SessionInitParams
+    from blama_tpu_torch.runtime.verify import LogitComparer, MetricsAggregator
+
+    v = inst.start_session(SessionInitParams(seed=7, temperature=0.0))
+    v.set_initial_prompt(prompt)
+    replayed = v.fill_ctx(preds)
+    inst.stop_session()
+    agg = MetricsAggregator()
+    score = 0.0
+    for a, b in zip(preds, replayed, strict=True):
+        score = agg.push_and_verify(LogitComparer.compare(a.logits, b.logits))
+    return score
+
+
+def prove_and_verify(inst, prompt, n, record=None):
     """One request: a prover session generates n greedy tokens with top-10
-    capture, a fresh session replays them; returns the replay score."""
+    capture, a fresh session replays them; returns the replay score. The
+    prompt and the predictions are appended to `record` when given."""
     import torch
 
     from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
-    from blama_tpu_torch.runtime.verify import LogitComparer, MetricsAggregator
 
     s = inst.start_session(SessionInitParams(seed=7, temperature=0.0))
     t0 = time.perf_counter()
@@ -413,32 +568,30 @@ def prove_and_verify(inst, prompt, n):
         for td in p.logits:
             if not (td.logit == td.logit and abs(td.logit) < float("inf")):
                 raise AssertionError("non-finite logit captured")
-    v = inst.start_session(SessionInitParams(seed=7, temperature=0.0))
-    v.set_initial_prompt(prompt)
-    replayed = v.fill_ctx(preds)
-    inst.stop_session()
-    agg = MetricsAggregator()
-    score = 0.0
-    for a, b in zip(preds, replayed, strict=True):
-        score = agg.push_and_verify(LogitComparer.compare(a.logits, b.logits))
+    if record is not None:
+        record.append((prompt, preds))
     return dict(prompt=len(prompt), tokens=len(preds), ttft_s=ttft,
-                decode_tok_s=len(preds) / dt, score=score)
+                decode_tok_s=len(preds) / dt, score=replay_score(inst, prompt, preds))
 
 
-def load_8b(torch, kind):
+def load_8b(torch, kind, dtype="q4k_a8", quant=None, n_layer=None):
+    """Synthesize (or reuse) the llama3-8b GGUF of `quant` (default Q4_K) at
+    `n_layer` layers (default: all 32) and load it as engine `dtype`."""
+    from blama_tpu_torch.gguf import GGMLType
     from blama_tpu_torch.runtime.model import Model, ModelParams
     from blama_tpu_torch.testing import cached_llama_gguf
 
     t0 = time.perf_counter()
-    path = Path(cached_llama_gguf("llama3-8b", seed=7))
-    log(f"e2e: llama3-8b GGUF ready in {time.perf_counter() - t0:.1f} s "
+    path = Path(cached_llama_gguf("llama3-8b", seed=7, quant=quant or GGMLType.Q4_K,
+                                  n_layer=n_layer))
+    log(f"e2e: llama3-8b GGUF {path.name} ready in {time.perf_counter() - t0:.1f} s "
         f"({path.stat().st_size / 2**30:.2f} GiB)")
     t0 = time.perf_counter()
-    model = Model(str(path), ModelParams(dtype="q4k_a8", attn="fused"))
+    model = Model(str(path), ModelParams(dtype=dtype, attn="fused"))
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    log(f"e2e: load {load_s:.1f} s on {kind}; depth {model.config.n_layer} layers "
-        f"(not cut), width {model.config.n_embd}")
+    log(f"e2e: {dtype} load {load_s:.1f} s on {kind}; depth {model.config.n_layer} layers "
+        f"({'not cut' if n_layer is None else 'cut from 32'}), width {model.config.n_embd}")
     return model, load_s
 
 
@@ -448,9 +601,9 @@ def require_launched(launches, names, where):
         raise AssertionError(f"kernels not launched in {where}: {missing}")
 
 
-def solo_phase(torch, model, kind):
+def solo_phase(torch, model, kind, record):
     """The first slice's main path: one solo Session on an INT8 cache proves and
-    verifies three requests (kernels A, B, C, D)."""
+    verifies three requests (kernels A, B, C, D); the records go to `record`."""
     import numpy as np
 
     from blama_tpu_torch.ops import kernels
@@ -466,7 +619,7 @@ def solo_phase(torch, model, kind):
     results = []
     for n_prompt, n_gen in requests:
         prompt = [1] + rng.integers(259, vocab, n_prompt - 1).tolist()
-        r = prove_and_verify(inst, prompt, n_gen)
+        r = prove_and_verify(inst, prompt, n_gen, record)
         log(f"solo request {r} on {kind}")
         if r["score"] != 1.0:
             raise AssertionError(f"same-backend replay scored {r['score']}, not 1.0")
@@ -479,6 +632,77 @@ def solo_phase(torch, model, kind):
     del inst
     torch.cuda.empty_cache()
     return dict(requests=results), launches
+
+
+MATMUL_KERNELS = ("w4a8_gemv", "q4k_dequant_matmul", "q8_dequant_matmul",
+                  "q4k_native_matmul", "w4a8k4_gemv")
+
+
+def engines_phase(torch, kind, a8_record):
+    """This slice's main path: every other engine at full 8B width, one model
+    on the card at a time, through Model -> Instance -> Session: three solo
+    prove-and-verify requests each (prompts of 128, 5 and 3 tokens, so the
+    kernels run at 128, 8, 4 and 1 rows), every same-backend replay exactly
+    1.0, and each engine must launch its own matmul kernels and no other."""
+    import numpy as np
+
+    from blama_tpu_torch.gguf import GGMLType
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.testing import Q4_K_M
+
+    cut = ENGINE_FILE_LAYERS
+    # engine, file type, depth, the matmul kernels it must launch
+    engines = [
+        ("q4k_fused", None, None, ("q4k_dequant_matmul",)),
+        ("q4k_fused_k4", None, None, ("q4k_native_matmul",)),
+        ("q4k_a8_k4", None, None, ("w4a8k4_gemv", "q4k_native_matmul")),
+        ("q8_0_fused", GGMLType.Q8_0, cut, ("q8_dequant_matmul",)),
+        ("q4k_a8", Q4_K_M, cut, ("w4a8_gemv", "q4k_dequant_matmul", "q8_dequant_matmul")),
+    ]
+    requests = [(128, 16), (5, 16), (3, 8)]
+    out, tokens = {}, {}
+    for dtype, quant, n_layer, needs in engines:
+        name = dtype if quant is None else f"{dtype} on {getattr(quant, 'name', quant)}"
+        model, load_s = load_8b(torch, kind, dtype, quant, n_layer)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        inst = Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True,
+                                                  kv_dtype="int8"))
+        rng = np.random.default_rng(7)
+        record, results = [], []
+        for n_prompt, n_gen in requests:
+            prompt = [1] + rng.integers(259, model.config.n_vocab, n_prompt - 1).tolist()
+            r = prove_and_verify(inst, prompt, n_gen, record)
+            log(f"engine {name} request {r} on {kind}")
+            if r["score"] != 1.0:
+                raise AssertionError(f"{name}: same-backend replay scored {r['score']}, not 1.0")
+            results.append(r)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        log(f"engine {name} launches {launches}")
+        require_launched(launches, needs + ("decode_attention", "prefill_attention"),
+                         f"the {name} engine")
+        others = [k for k in MATMUL_KERNELS if k not in needs and launches[k]]
+        if others:
+            raise AssertionError(f"{name} launched another engine's kernels: {others}")
+        res = dict(load_s=load_s, layers=model.config.n_layer, requests=results,
+                   launches=launches, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if dtype == "q4k_fused":
+            # printed, not gated (random 8B weights have flat logits): the
+            # exact engine as verifier of the W4A8 prover's records
+            res["replay_of_q4k_a8"] = [replay_score(inst, p, preds) for p, preds in a8_record]
+            log(f"engine q4k_fused replaying q4k_a8's records: {res['replay_of_q4k_a8']}")
+        if quant is None:
+            tokens[dtype] = [[p.token for p in preds] for _, preds in record]
+        out[name] = res
+        model.close()
+        del inst, model, record
+        torch.cuda.empty_cache()
+    same = tokens["q4k_fused"] == tokens["q4k_fused_k4"]
+    log(f"engines q4k_fused and q4k_fused_k4 give {'the same' if same else 'other'} tokens")
+    out["fused_and_k4_same_tokens"] = same
+    return out
 
 
 class Served:
@@ -767,37 +991,53 @@ def serving_phase(torch, model, kind):
     return result, launches, dense_launches
 
 
-def small_reference_phase(torch):
-    """Tiny fixture: prove on the card, replay with the port on the CPU."""
+def _tiny_replay(path, prover, verifier):
+    """The tiny fixture: `prover` = (engine, device) generates 12 greedy
+    tokens, `verifier` replays them; returns the replay's score."""
     from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
     from blama_tpu_torch.runtime.model import Model, ModelParams
     from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
     from blama_tpu_torch.runtime.verify import LogitComparer, MetricsAggregator
+
+    preds = None
+    for dtype, dev in (prover, verifier):
+        m = Model(path, ModelParams(dtype=dtype, attn="fused", device=dev))
+        inst = Instance(m, InstanceInitParams(ctx_size=64, flash_attn=True, kv_dtype="int8"))
+        s = inst.start_session(SessionInitParams(seed=11, temperature=0.0))
+        s.set_initial_prompt(m.vocab.tokenize("hello world the cat sat", True, True))
+        if preds is None:
+            preds = s.complete(CompleteParams(max_tokens=12))
+        else:
+            replayed = s.fill_ctx(preds)
+        m.close()
+    agg, sims = MetricsAggregator(), []
+    for a, b in zip(preds, replayed, strict=True):
+        score = agg.push_and_verify(LogitComparer.compare(a.logits, b.logits))
+        sims.append(LogitComparer.logit_similarity(a.logits, b.logits))
+    return dict(tokens=len(sims), score=score, mean_similarity=sum(sims) / len(sims))
+
+
+def small_phase(torch):
+    """Tiny fixture, held to the reference's thresholds (score >= 0.95, mean
+    similarity >= 0.98): proven on the card and replayed by the port on the
+    CPU; and on the card across engines, the W4A8 prover replayed by the exact
+    engine, and the plain-PyTorch W4A8 engine (`q4k_a8_xla`, run at this size
+    only) replayed by `q4k_a8`."""
     from blama_tpu_torch.testing import write_tiny_llama
 
     path = str(Path(tempfile.gettempdir()) / "blama_tpu_torch-tiny.gguf")
     write_tiny_llama(path)
     out = {}
-    for dev in ("cuda", "cpu"):
-        m = Model(path, ModelParams(dtype="q4k_a8", attn="fused", device=dev))
-        inst = Instance(m, InstanceInitParams(ctx_size=64, flash_attn=True, kv_dtype="int8"))
-        s = inst.start_session(SessionInitParams(seed=11, temperature=0.0))
-        s.set_initial_prompt(m.vocab.tokenize("hello world the cat sat", True, True))
-        if dev == "cuda":
-            out["preds"] = s.complete(CompleteParams(max_tokens=12))
-        else:
-            out["replayed"] = s.fill_ctx(out["preds"])
-        m.close()
-    agg = MetricsAggregator()
-    sims = []
-    for a, b in zip(out["preds"], out["replayed"], strict=True):
-        score = agg.push_and_verify(LogitComparer.compare(a.logits, b.logits))
-        sims.append(LogitComparer.logit_similarity(a.logits, b.logits))
-    res = dict(tokens=len(sims), score=score, mean_similarity=sum(sims) / len(sims))
-    log(f"small reference (card prover -> CPU verifier): {res}")
-    if not (res["score"] >= 0.95 and res["mean_similarity"] >= 0.98):
-        raise AssertionError(f"cross-backend replay below thresholds: {res}")
-    return res
+    for name, prover, verifier in (
+            ("card prover -> CPU verifier", ("q4k_a8", "cuda"), ("q4k_a8", "cpu")),
+            ("q4k_a8 -> q4k_fused, on the card", ("q4k_a8", "cuda"), ("q4k_fused", "cuda")),
+            ("q4k_a8_xla -> q4k_a8, on the card", ("q4k_a8_xla", "cuda"), ("q4k_a8", "cuda"))):
+        res = _tiny_replay(path, prover, verifier)
+        log(f"small ({name}): {res}")
+        if not (res["score"] >= 0.95 and res["mean_similarity"] >= 0.98):
+            raise AssertionError(f"small ({name}): replay below thresholds: {res}")
+        out[name] = res
+    return out
 
 
 # per kernel of the line: source, the TPU kernel it replaces, and the shape
@@ -826,6 +1066,22 @@ KERNELS = {
     "paged_prefill_attention": ("blama_tpu_torch/ops/csrc/paged_attention.cu",
                                 "blama_tpu/ops/pallas/paged_attention.py:155",
                                 "serving bf16 B=8 T=256 "),
+    # the engines phase's kernels, at a solo decode step's one row
+    "q4k_dequant_matmul_f32": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                               "blama_tpu/ops/pallas/quant_matmul.py:221",
+                               "gate/up K=4096 N=14336 M=1"),
+    "q8_dequant_matmul_g32": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                              "blama_tpu/ops/pallas/quant_matmul.py:2056",
+                              "gate/up K=4096 N=14336 M=1"),
+    "q8_dequant_matmul_g16": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                              "blama_tpu/ops/pallas/quant_matmul.py:2056",
+                              "lm_head K=4096 N=128256 M=1"),
+    "q4k_native_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                          "blama_tpu/ops/pallas/quant_matmul.py:938",
+                          "gate/up K=4096 N=14336 M=1"),
+    "w4a8k4_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                    "blama_tpu/ops/pallas/quant_matmul.py:1071",
+                    "gate/up K=4096 N=14336 M=1"),
 }
 
 
@@ -858,19 +1114,24 @@ def main() -> int:
     with torch.no_grad():
         timer = Timer(torch)
         rows = kernel_phase(torch, timer, np.random.default_rng(0))
+        rows += engine_kernel_phase(torch, timer, np.random.default_rng(1))
         rows += attention_phase(torch, timer)
         del timer
         torch.cuda.empty_cache()
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
         model, res["load_s"] = load_8b(torch, kind)
-        res["solo"], solo_l = solo_phase(torch, model, kind)
+        a8_record = []
+        res["solo"], solo_l = solo_phase(torch, model, kind, a8_record)
         log(f"solo phase done at {time.perf_counter() - t_start:.1f} s")
         res["serving"], serve_l, dense_l = serving_phase(torch, model, kind)
         log(f"serving phase done at {time.perf_counter() - t_start:.1f} s")
         model.close()
         del model
         torch.cuda.empty_cache()
-        res["small_reference"] = small_reference_phase(torch)
+        res["engines"] = engines_phase(torch, kind, a8_record)
+        del a8_record
+        log(f"engines phase done at {time.perf_counter() - t_start:.1f} s")
+        res["small"] = small_phase(torch)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -890,16 +1151,26 @@ def main() -> int:
         "paged_decode_attention": serve_l["paged_decode_attention"],
         "paged_prefill_attention": serve_l["paged_prefill_attention"],
     }
+    # the engines phase: each kernel's count from the engine that owns it
+    eng = {k: v["launches"] for k, v in res["engines"].items() if isinstance(v, dict)}
+    line_launches.update({
+        "q4k_dequant_matmul_f32": eng["q4k_fused"]["q4k_dequant_matmul"],
+        "q8_dequant_matmul_g32": eng["q8_0_fused on Q8_0"]["q8_dequant_matmul"],
+        "q8_dequant_matmul_g16": eng["q4k_a8 on Q4_K_M"]["q8_dequant_matmul"],
+        "q4k_native_matmul": eng["q4k_fused_k4"]["q4k_native_matmul"],
+        "w4a8k4_gemv": eng["q4k_a8_k4"]["w4a8k4_gemv"],
+    })
     kernels_line = []
     for name, (source, replaces, shape) in KERNELS.items():
         base = name.removesuffix("_bf16")
-        r = next(c for c in rows if c["kernel"] == base and c["shape"].startswith(shape))
+        r = next(c for c in rows if c["kernel"] == base
+                 and (c["shape"] + " ").startswith(shape.rstrip() + " "))
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=line_launches[name], max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"])
-        if base in solo_l and name == base:
+        if name == base and solo_l.get(base):
             entry["solo_launches"] = solo_l[base]
         if entry["launches"] == 0:
             raise AssertionError(f"{name}: not launched on its path")

@@ -9,8 +9,9 @@ Small, ragged shapes on purpose: the 8B shapes run in chip_smoke.py; here
 the edges — row counts that are not powers of two, widths that do not fill
 a block, a K that ends inside a staging chunk, batch > 1, a head dim of 64,
 bf16 and INT8 stores, pages of 32 slots on a scrambled pool — and replay
-determinism (two launches give the same bits). The last test drives the
-scheduler on the card on the tiny fixture.
+determinism (two launches give the same bits), for every kernel (A, B with
+bf16 and f32 scales, C to F, G, H, I). The last tests drive each engine and
+the scheduler on the card on the tiny fixture.
 """
 
 import numpy as np
@@ -69,6 +70,123 @@ def test_kernel_b(cuda, m, n, k):
     out = qm.q4k_pos(x, w)
     _close(out, qm.q4k_pos_plain(x, w), MATMUL_TOL)
     assert torch.equal(out, qm.q4k_pos(x, w))
+
+
+def _bytes(n, k, seed, name):
+    from blama_tpu_torch.gguf import GGMLType, quants
+
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    return quants.quantize(w, GGMLType[name])
+
+
+def _acts(m, k, dtype, device):
+    return torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dtype).to(device)
+
+
+# ragged edges of the exact kernels: one row (a thread per column) and 8 to
+# 130 rows (64 x 64 tiles that rows and columns do not fill), a K of one
+# superblock; a row must give the same bits through either
+TILE_SHAPES = [(1, 320, 512), (17, 72, 768), (130, 1000, 256), (8, 300, 2560),
+               (16, 200, 512)]
+
+
+@pytest.mark.parametrize("m,n,k", TILE_SHAPES)
+def test_kernel_b_f32_scales(cuda, m, n, k):
+    """Kernel B on the exact engine's f32 scales, every row count; a row's
+    result does not depend on the rows beside it."""
+    w = qm.repack_q4k_exact(_bytes(n, k, m, "Q4_K"), n, k, cuda)
+    x = _acts(m, k, torch.bfloat16, cuda)
+    out = qm.q4k_pos(x, w)
+    _close(out, qm.q4k_pos_plain(x, w), MATMUL_TOL)
+    assert torch.equal(out, qm.q4k_pos(x, w))
+    assert torch.equal(out[-1:], qm.q4k_pos(x[-1:].contiguous(), w))
+    _close(qm.q4k_matmul(x, w), x.float() @ qm.dequantize(w).t(), MATMUL_TOL)
+
+
+@pytest.mark.parametrize("name", ["Q8_0", "Q6_K"])
+@pytest.mark.parametrize("m,n,k", TILE_SHAPES)
+def test_kernel_g(cuda, m, n, k, name):
+    repack = qm.repack_q8_0 if name == "Q8_0" else qm.repack_q6_k_expanded
+    w = repack(_bytes(n, k, m, name), n, k, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _acts(m, k, dtype, cuda)
+        out = qm.q8_0_matmul(x, w)
+        _close(out, qm.q8_0_matmul_plain(x, w), MATMUL_TOL)
+        assert torch.equal(out, qm.q8_0_matmul(x, w))
+        assert torch.equal(out[-1:], qm.q8_0_matmul(x[-1:].contiguous(), w))
+
+
+@pytest.mark.parametrize("m,n,k", TILE_SHAPES)
+def test_kernel_h(cuda, m, n, k):
+    w = qm.repack_q4k_native(_bytes(n, k, m, "Q4_K"), n, k, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _acts(m, k, dtype, cuda)
+        out = qm.q4k_native_matmul(x, w)
+        _close(out, qm.q4k_native_matmul_plain(x, w), MATMUL_TOL)
+        _close(out, x.float() @ qm.dequantize(w).t(), MATMUL_TOL)
+        assert torch.equal(out, qm.q4k_native_matmul(x, w))
+        assert torch.equal(out[-1:], qm.q4k_native_matmul(x[-1:].contiguous(), w))
+
+
+@pytest.mark.parametrize("m,n,k,dtype", [
+    (1, 320, 512, torch.bfloat16), (3, 320, 2560, torch.bfloat16),
+    (16, 72, 256, torch.bfloat16), (1, 300, 768, torch.float32),
+    (8, 77, 4352, torch.bfloat16)])
+def test_kernel_i(cuda, m, n, k, dtype):
+    """Kernel I: activation codes equal the plain quantizer's bit for bit,
+    K ends inside a staging chunk, and row 0 alone equals row 0 of m."""
+    w = qm.repack_q4k_a8k4(_bytes(n, k, m, "Q4_K"), n, k, cuda)
+    x = _acts(m, k, dtype, cuda)
+    out, xq, xs, sxm = qm.a8k4_launch(x, w)
+    pxq, pxs, psxm = qm.quant_acts(x)
+    assert torch.equal(xq, pxq) and torch.equal(xs, pxs) and torch.equal(sxm, psxm)
+    _close(out, qm.a8k4_matmul_plain(x, w), MATMUL_TOL)
+    assert torch.equal(out, qm.a8k4_launch(x, w)[0])
+    assert torch.equal(out[:1], qm.a8k4_launch(x[:1].contiguous(), w)[0])
+
+
+@pytest.mark.parametrize("dtype", ["q4k_fused", "q4k_fused_k4", "q4k_a8_k4", "q4k_a8_xla",
+                                   "q8_0_fused", "q6_k_fused"])
+def test_engines_on_the_card(cuda, tmp_path, dtype):
+    """Each engine on the tiny fixture on the card: a same-backend replay
+    scores exactly 1.0 and the port on the CPU (plain versions) verifies the
+    card's record within the cross-backend thresholds."""
+    from blama_tpu_torch.gguf import GGMLType
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
+    from blama_tpu_torch.runtime.verify import LogitComparer, MetricsAggregator
+    from blama_tpu_torch.testing import write_tiny_llama
+
+    quant = {"q8_0_fused": GGMLType.Q8_0, "q6_k_fused": GGMLType.Q6_K}.get(dtype, GGMLType.Q4_K)
+    path = str(tmp_path / "t.gguf")
+    write_tiny_llama(path, quant)
+
+    def session(dev):
+        m = Model(path, ModelParams(dtype=dtype, device=dev))
+        inst = Instance(m, InstanceInitParams(ctx_size=64, flash_attn=True, kv_dtype="int8"))
+        s = inst.start_session(SessionInitParams(seed=11, temperature=0.0))
+        s.set_initial_prompt(m.vocab.tokenize("hello world the cat sat", True, True))
+        return m, s
+
+    def score(preds, replayed):
+        agg, sc, sims = MetricsAggregator(), 0.0, []
+        for a, b in zip(preds, replayed, strict=True):
+            sc = agg.push_and_verify(LogitComparer.compare(a.logits, b.logits))
+            sims.append(LogitComparer.logit_similarity(a.logits, b.logits))
+        return sc, sum(sims) / len(sims)
+
+    m, s = session("cuda")
+    preds = s.complete(CompleteParams(max_tokens=10))
+    m.close()
+    m, s = session("cuda")
+    assert score(preds, s.fill_ctx(preds)) == (1.0, 1.0)
+    m.close()
+    m, s = session("cpu")
+    sc, sim = score(preds, s.fill_ctx(preds))
+    assert sc >= 0.95 and sim >= 0.98, (sc, sim)
+    m.close()
 
 
 def _cache(b, s, hkv, d, seed, device):

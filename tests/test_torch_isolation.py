@@ -57,6 +57,14 @@ calls = {{
     "unpack_q4k": lambda: qm.unpack_q4k(q4k, 1, 256),
     "repack_q4k_a8s": lambda: qm.repack_q4k_a8s(q4k, 1, 256),
     "repack_q4k_embedding": lambda: qm.repack_q4k_embedding(q4k, 1, 256),
+    "repack_q4k_exact": lambda: qm.repack_q4k_exact(q4k, 1, 256),
+    "repack_q4k_native": lambda: qm.repack_q4k_native(q4k, 1, 256),
+    "repack_q4k_a8k4": lambda: qm.repack_q4k_a8k4(q4k, 1, 256),
+    "repack_q4k_w4a8": lambda: qm.repack_q4k_w4a8(q4k, 1, 256),
+    "repack_q8_0": lambda: qm.repack_q8_0(np.zeros(34 * 8, np.uint8), 1, 256),
+    "repack_q6_k_expanded": lambda: qm.repack_q6_k_expanded(np.zeros(210, np.uint8), 1, 256),
+    "Model q4k_fused": lambda: Model({path!r}, ModelParams(dtype="q4k_fused")),
+    "Model q4k_a8_k4": lambda: Model({path!r}, ModelParams(dtype="q4k_a8_k4")),
 }}
 for name, call in calls.items():
     try:
@@ -77,7 +85,7 @@ def test_model_without_cuda_raises(tmp_path):
                          text=True, check=True, cwd=ROOT,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     lines = out.stdout.strip().splitlines()
-    assert len(lines) == 5, out.stdout
+    assert len(lines) == 13, out.stdout
     for line in lines:
         assert " refused: no CUDA device" in line, line
 
