@@ -305,6 +305,10 @@ class LlamaStatic:
                    cfg.rope_freq_base, cfg.rms_norm_eps, cfg.act_fn, cfg.causal,
                    rope_scale, yarn=yarn)
 
+    def step(self, params, tokens, positions, slots, cache, logits_index=None):
+        """forward under this config (every loop calls its static's step)."""
+        return forward(params, self, tokens, positions, slots, cache, logits_index)
+
 
 @functools.lru_cache(maxsize=16)
 def _inv_freq_on(rope_dim, head_dim, freq_base, scale, yarn, device):
@@ -328,6 +332,30 @@ def _dense_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     hb = h.to(w.dtype).float()
     return torch.cat([hb @ w[:, i:i + _HEAD_CHUNK].float()
                       for i in range(0, w.shape[1], _HEAD_CHUNK)], dim=1)
+
+
+def _place(params, tokens, positions, slots, cache):
+    """The forward's prologue: the tokens embedded ([B, T, E] bf16) and each
+    token's position written to its store slot (pads to the spare slot).
+    Returns (x, positions int32 on the store's device, flat slots [B*T])."""
+    dev = cache.device
+    positions = positions.to(dev, torch.int32)
+    flat = cache.flat_slots(slots.to(dev).long())
+    cache.pos_store[flat] = positions.reshape(-1)
+    return emb_lookup(params["tok_emb"], tokens.to(dev).long()), positions, flat
+
+
+def _head(params, x, logits_index, eps):
+    """The forward's epilogue: each row's logit token (the last when
+    logits_index is None), the final norm and the lm head → [B, V] f32."""
+    B, T = x.shape[:2]
+    if logits_index is None:
+        logits_index = torch.full((B,), T - 1, dtype=torch.long, device=x.device)
+    last_h = x[torch.arange(B, device=x.device), logits_index.to(x.device).long()]
+    last_h = rms_norm(last_h, params["out_norm"], eps)                    # [B, E]
+    if isinstance(params["output"], torch.Tensor):
+        return _dense_head(last_h, params["output"])
+    return qmm(last_h.float(), params["output"])
 
 
 @torch.no_grad()
@@ -356,15 +384,7 @@ def forward(
     B, T = tokens.shape
     dev = cache.device
     paged = isinstance(cache, pkv.PagedKVCache)
-    tokens = tokens.to(dev).long()
-    positions = positions.to(dev, torch.int32)
-    slots = slots.to(dev).long()
-
-    x = emb_lookup(params["tok_emb"], tokens)                    # [B, T, E] bf16
-
-    # flat store slot of every token; pads go to the spare slot
-    flat = cache.flat_slots(slots)                               # [B*T]
-    cache.pos_store[flat] = positions.reshape(-1)
+    x, positions, flat = _place(params, tokens, positions, slots, cache)
     new_positions = cache.positions
     kv_dtype = cache.k_store.dtype
 
@@ -444,20 +464,9 @@ def forward(
         gate = _silu(qmm(h2, p["w_gate"]))
         x = x + qmm(gate * qmm(h2, p["w_up"]), p["w_down"])
 
-    if logits_index is None:
-        logits_index = torch.full((B,), T - 1, dtype=torch.long, device=dev)
-    last_h = x[torch.arange(B, device=dev), logits_index.to(dev).long()]   # [B, E]
-    last_h = rms_norm(last_h, params["out_norm"], eps)
-    if isinstance(params["output"], torch.Tensor):
-        return _dense_head(last_h, params["output"]), cache
-    return qmm(last_h.float(), params["output"]), cache
+    return _head(params, x, logits_index, eps), cache
 
 
 def make_step_fn(cfg: ModelConfig):
     """Step function bound to the architecture's static config."""
-    st = LlamaStatic.of(cfg)
-
-    def step(params, tokens, positions, slots, cache, logits_index):
-        return forward(params, st, tokens, positions, slots, cache, logits_index)
-
-    return step
+    return LlamaStatic.of(cfg).step

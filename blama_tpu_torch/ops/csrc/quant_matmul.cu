@@ -75,6 +75,27 @@
 // do not depend on which of the two ran. f32 FMA keeps the products exact to
 // the f32 dot the reference takes; tensor cores (wgmma) are later work.
 //
+// Kernels J and K replace the MoE expert-bank kernels
+//   blama_tpu/ops/pallas/quant_matmul.py:_a8s_bank_kernel (J) and
+//   blama_tpu/ops/pallas/quant_matmul.py:_q4k_bank_kernel (K),
+// which multiply x by selected experts of a stacked Q4_K bank (codes [Ne, N,
+// K/2], scales / mins [Ne, N, K/32]; expert e owns rows e*N..e*N+N-1), the
+// experts picked by a list of ids and read in place, with no gathered copy.
+// The TPU kernels take the ids by scalar prefetch into their index maps; here
+// a grid dimension walks the selected experts and each block offsets its
+// weight pointers by eids[j]*N rows. x is one [M, K] shared by every selected
+// expert (gate and up) or one [M, K] per selected expert (down: the routed
+// decode step feeds each expert its own row). out [n_sel, M, N] f32.
+//   J (w4a8_bank_launch): kernel A's quantizer and kernel A's GEMV body, so
+//     J(x, bank, eids)[j] equals A(x, bank[eids[j]]) bit for bit; M <= 16.
+//   K (q4k_bank_mm_launch): kernel B's loader with the min term inside (the
+//     33rd step of each group, as H), under the same tiled GEMM and one-row
+//     kernel, so a row's bits do not depend on the row count; f32 scales
+//     (exact engine) or bf16 (W4A8 engine above 16 rows).
+// Bound: bytes at the routed decode step (two experts' weights, 5 or 6 bits
+// each); f32 operations for the masked all-expert chunks (8 experts x M rows).
+// An id outside the bank gives NaN outputs, not a stray read.
+//
 // Determinism: every sum runs in a fixed order (per-lane or per-thread K
 // order, then a fixed xor-butterfly across the warp); no atomics, so a replay
 // on the same card gives the same bits, and an output element's sum does not
@@ -130,13 +151,13 @@ constexpr int A_WARPS = 8;     // output columns per block
 constexpr int A_KC = 2048;     // K elements of x staged per chunk
 
 template <int MT>
-__global__ void __launch_bounds__(A_WARPS * 32)
-w4a8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                 const float* __restrict__ sxm,
-                 const uint8_t* __restrict__ codes,
-                 const __nv_bfloat16* __restrict__ scales,
-                 const __nv_bfloat16* __restrict__ mins,
-                 float* __restrict__ out, int M, int K, int N) {
+__device__ __forceinline__ void w4a8_gemv_body(const int8_t* __restrict__ xq,
+                                               const float* __restrict__ xs,
+                                               const float* __restrict__ sxm,
+                                               const uint8_t* __restrict__ codes,
+                                               const __nv_bfloat16* __restrict__ scales,
+                                               const __nv_bfloat16* __restrict__ mins,
+                                               float* __restrict__ out, int M, int K, int N) {
   __shared__ __align__(16) int8_t s_x[MT * A_KC];
   __shared__ float s_xs[MT * (A_KC / GROUP)];
   __shared__ float s_sxm[MT * (A_KC / GROUP)];
@@ -203,6 +224,57 @@ w4a8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
       if (lane == 0 && r < M) out[(size_t)r * N + n] = v;
     }
   }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(A_WARPS * 32)
+w4a8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                 const float* __restrict__ sxm,
+                 const uint8_t* __restrict__ codes,
+                 const __nv_bfloat16* __restrict__ scales,
+                 const __nv_bfloat16* __restrict__ mins,
+                 float* __restrict__ out, int M, int K, int N) {
+  w4a8_gemv_body<MT>(xq, xs, sxm, codes, scales, mins, out, M, K, N);
+}
+
+// kernel J: kernel A's body for selected expert j = blockIdx.y of a bank
+// (expert e = eids[j] owns rows e*N..e*N+N-1 of the stacked arrays); the
+// activations are shared by every expert, or expert j's own M rows
+__device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
+
+template <int MT>
+__global__ void __launch_bounds__(A_WARPS * 32)
+w4a8_bank_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                      const float* __restrict__ sxm,
+                      const uint8_t* __restrict__ codes,
+                      const __nv_bfloat16* __restrict__ scales,
+                      const __nv_bfloat16* __restrict__ mins,
+                      const int* __restrict__ eids, int n_expert, int x_per_expert,
+                      float* __restrict__ out, int M, int K, int N) {
+  const int j = blockIdx.y, e = eids[j];
+  float* o = out + (size_t)j * M * N;
+  if (e < 0 || e >= n_expert) {  // an id outside the bank: NaN, loudly
+    const int n = blockIdx.x * A_WARPS + (threadIdx.x >> 5);
+    if ((threadIdx.x & 31) == 0 && n < N)
+      for (int r = 0; r < M; ++r) o[(size_t)r * N + n] = quiet_nan();
+    return;
+  }
+  const size_t xr = x_per_expert ? (size_t)j * M : 0;  // first activation row
+  const size_t w0 = (size_t)e * N;                     // first weight row
+  w4a8_gemv_body<MT>(xq + xr * K, xs + xr * (K / GROUP), sxm + xr * (K / GROUP),
+                     codes + w0 * (K / 2), scales + w0 * (K / GROUP),
+                     mins + w0 * (K / GROUP), o, M, K, N);
+}
+
+template <int MT>
+void launch_bank_gemv(const int8_t* xq, const float* xs, const float* sxm,
+                      const uint8_t* codes, const __nv_bfloat16* scales,
+                      const __nv_bfloat16* mins, const int* eids, int n_sel,
+                      int n_expert, int x_per_expert, float* out, int M, int K,
+                      int N, cudaStream_t st) {
+  const dim3 grid((N + A_WARPS - 1) / A_WARPS, n_sel);
+  w4a8_bank_gemv_kernel<MT><<<grid, A_WARPS * 32, 0, st>>>(
+      xq, xs, sxm, codes, scales, mins, eids, n_expert, x_per_expert, out, M, K, N);
 }
 
 template <int MT>
@@ -400,6 +472,32 @@ struct Q4KLoader {
   }
 };
 
+// kernel K: kernel B's loader with the min term inside, as H folds it (a
+// 33rd step per group); expert(e) points it at expert e of a stacked bank
+template <typename S>
+struct Q4KMinLoader : Q4KLoader<S> {
+  static constexpr bool MIN_ROW = true;
+  const S* mins;
+  __device__ __forceinline__ Q4KMinLoader expert(int e, int K, int N) const {
+    const size_t w0 = (size_t)e * N;
+    return {{this->codes + w0 * (K / 2), this->scales + w0 * (K / GROUP)},
+            mins + w0 * (K / GROUP)};
+  }
+  __device__ __forceinline__ void load(float (*s_w)[B_BN + 4], int g, int n0,
+                                       int K, int N) const {
+    Q4KLoader<S>::load(s_w, g, n0, K, N);
+    for (int c = threadIdx.x; c < B_BN; c += blockDim.x) {
+      const int n = n0 + c;
+      s_w[B_BK][c] = n < N ? -to_f32(mins[(size_t)n * (K / GROUP) + g]) : 0.0f;
+    }
+  }
+  __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
+                                      int K) const {
+    Q4KLoader<S>::row(wv, negmin, n, g, K);
+    negmin = -to_f32(mins[(size_t)n * (K / GROUP) + g]);
+  }
+};
+
 // kernel G: int8 codes, one f32 scale per SG (32 or 16) elements
 template <int SG>
 struct Q8Loader {
@@ -488,9 +586,9 @@ struct K4Loader {
 };
 
 template <typename T, typename Loader>
-__global__ void __launch_bounds__(256)
-dequant_mm_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
-                  int M, int K, int N) {
+__device__ __forceinline__ void dequant_mm_body(const T* __restrict__ x, const Loader& w,
+                                                float* __restrict__ out, int M, int K,
+                                                int N) {
   constexpr int ROWS = B_BK + (Loader::MIN_ROW ? 1 : 0);
   __shared__ __align__(16) float s_x[ROWS][B_BM + 4];
   __shared__ __align__(16) float s_w[ROWS][B_BN + 4];
@@ -544,6 +642,33 @@ dequant_mm_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ o
   }
 }
 
+template <typename T, typename Loader>
+__global__ void __launch_bounds__(256)
+dequant_mm_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
+                  int M, int K, int N) {
+  dequant_mm_body<T, Loader>(x, w, out, M, K, N);
+}
+
+// kernel K's tiles: selected expert j = blockIdx.z, e = eids[j]
+template <typename T, typename Loader>
+__global__ void __launch_bounds__(256)
+dequant_bank_mm_kernel(const T* __restrict__ x, const Loader w,
+                       const int* __restrict__ eids, int n_expert, int x_per_expert,
+                       float* __restrict__ out, int M, int K, int N) {
+  const int j = blockIdx.z, e = eids[j];
+  float* o = out + (size_t)j * M * N;
+  if (e < 0 || e >= n_expert) {  // an id outside the bank: NaN, loudly
+    const int m0 = blockIdx.y * B_BM, n0 = blockIdx.x * B_BN;
+    for (int i = threadIdx.x; i < B_BM * B_BN; i += blockDim.x) {
+      const int m = m0 + i / B_BN, n = n0 + i % B_BN;
+      if (m < M && n < N) o[(size_t)m * N + n] = quiet_nan();
+    }
+    return;
+  }
+  dequant_mm_body<T, Loader>(x + (x_per_expert ? (size_t)j * M * K : 0),
+                             w.expert(e, K, N), o, M, K, N);
+}
+
 // ---------------------------------------------------------------------------
 // the same function for one row: one thread per output column
 // ---------------------------------------------------------------------------
@@ -583,9 +708,8 @@ __device__ __forceinline__ void load_x32(const __nv_bfloat16* p, float* xv) {
 }
 
 template <typename T, typename Loader>
-__global__ void __launch_bounds__(R_THREADS)
-dequant_row_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
-                   int K, int N) {
+__device__ __forceinline__ void dequant_row_body(const T* __restrict__ x, const Loader& w,
+                                                 float* __restrict__ out, int K, int N) {
   const int n = blockIdx.x * R_THREADS + threadIdx.x;
   if (n >= N) return;
   float acc = 0.0f;
@@ -598,15 +722,46 @@ dequant_row_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ 
 #pragma unroll
     for (int k = 0; k < GROUP; ++k) acc = fmaf(xv[k], wv[k], acc);
     if constexpr (Loader::MIN_ROW) {
-      // lane 0's value of the tile kernel's xor butterfly (16, 8, .., 1)
+      // lane 0's value of the tile kernel's xor butterfly (16, 8, .., 1),
+      // each level a loop of fixed trip count so that it unrolls and the
+      // sums stay in registers (a loop over the level put xv in local memory)
+      float t[16];
 #pragma unroll
-      for (int o = 16; o; o >>= 1)
+      for (int i = 0; i < 16; ++i) t[i] = xv[i] + xv[i + 16];
 #pragma unroll
-        for (int i = 0; i < o; ++i) xv[i] = xv[i] + xv[i + o];
-      acc = fmaf(xv[0], negmin, acc);
+      for (int i = 0; i < 8; ++i) t[i] = t[i] + t[i + 8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) t[i] = t[i] + t[i + 4];
+      t[0] = t[0] + t[2];
+      t[1] = t[1] + t[3];
+      acc = fmaf(t[0] + t[1], negmin, acc);
     }
   }
   out[n] = acc;
+}
+
+template <typename T, typename Loader>
+__global__ void __launch_bounds__(R_THREADS)
+dequant_row_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
+                   int K, int N) {
+  dequant_row_body<T, Loader>(x, w, out, K, N);
+}
+
+// kernel K's one row: selected expert j = blockIdx.y, e = eids[j]
+template <typename T, typename Loader>
+__global__ void __launch_bounds__(R_THREADS)
+dequant_bank_row_kernel(const T* __restrict__ x, const Loader w,
+                        const int* __restrict__ eids, int n_expert, int x_per_expert,
+                        float* __restrict__ out, int K, int N) {
+  const int j = blockIdx.y, e = eids[j];
+  float* o = out + (size_t)j * N;
+  if (e < 0 || e >= n_expert) {  // an id outside the bank: NaN, loudly
+    const int n = blockIdx.x * R_THREADS + threadIdx.x;
+    if (n < N) o[n] = quiet_nan();
+    return;
+  }
+  dequant_row_body<T, Loader>(x + (x_per_expert ? (size_t)j * K : 0), w.expert(e, K, N),
+                              o, K, N);
 }
 
 template <typename T, typename Loader>
@@ -621,6 +776,34 @@ void launch_dequant_t(const void* x, const Loader& w, void* out, int M, int K, i
     dim3 grid((N + B_BN - 1) / B_BN, (M + B_BM - 1) / B_BM);
     dequant_mm_kernel<T, Loader><<<grid, 256, 0, st>>>(xp, w, o, M, K, N);
   }
+}
+
+template <typename T, typename Loader>
+void launch_bank_t(const void* x, const Loader& w, const int* eids, int n_sel,
+                   int n_expert, int x_per_expert, void* out, int M, int K, int N,
+                   cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  float* o = static_cast<float*>(out);
+  if (M == 1) {
+    const dim3 grid((N + R_THREADS - 1) / R_THREADS, n_sel);
+    dequant_bank_row_kernel<T, Loader><<<grid, R_THREADS, 0, st>>>(
+        xp, w, eids, n_expert, x_per_expert, o, K, N);
+  } else {
+    const dim3 grid((N + B_BN - 1) / B_BN, (M + B_BM - 1) / B_BM, n_sel);
+    dequant_bank_mm_kernel<T, Loader><<<grid, 256, 0, st>>>(
+        xp, w, eids, n_expert, x_per_expert, o, M, K, N);
+  }
+}
+
+template <typename Loader>
+int launch_bank_mm(const void* x, int x_bf16, const Loader& w, const void* eids,
+                   int n_sel, int n_expert, int x_per_expert, void* out, int M, int K,
+                   int N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ei = static_cast<const int*>(eids);
+  if (x_bf16) launch_bank_t<__nv_bfloat16>(x, w, ei, n_sel, n_expert, x_per_expert, out, M, K, N, st);
+  else launch_bank_t<float>(x, w, ei, n_sel, n_expert, x_per_expert, out, M, K, N, st);
+  return (int)cudaGetLastError();
 }
 
 // one row goes to the column-per-thread kernel, more to the tiles
@@ -717,6 +900,57 @@ int q4k_native_mm_launch(const void* x, int x_bf16, const void* blocks, void* ou
                          int M, int K, int N, void* stream) {
   return launch_dequant_mm(x, x_bf16, K4Loader{static_cast<const uint8_t*>(blocks)},
                            out, M, K, N, stream);
+}
+
+// Kernel J: kernel A over selected experts of a bank. codes [Ne, N, K/2],
+// scales / mins [Ne, N, K/32] bf16; eids [n_sel] int32 on the card; x is [M, K]
+// shared by every selected expert, or [n_sel, M, K] (x_per_expert != 0),
+// 1 <= M <= 16. xq / xs / sxm hold the quantized rows of x (M or n_sel*M);
+// out [n_sel, M, N] f32.
+int w4a8_bank_launch(const void* x, int x_bf16, int x_per_expert, const void* codes,
+                     const void* scales, const void* mins, const void* eids, int n_sel,
+                     int n_expert, void* xq, void* xs, void* sxm, void* out, int M,
+                     int K, int N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = (x_per_expert ? n_sel : 1) * M;
+  if (x_bf16) launch_quant_acts<__nv_bfloat16>(x, rows, K, xq, xs, sxm, st);
+  else launch_quant_acts<float>(x, rows, K, xq, xs, sxm, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int8_t* q = static_cast<const int8_t*>(xq);
+  const float* s = static_cast<const float*>(xs);
+  const float* sm = static_cast<const float*>(sxm);
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
+  const __nv_bfloat16* mn = static_cast<const __nv_bfloat16*>(mins);
+  const int* ei = static_cast<const int*>(eids);
+  float* o = static_cast<float*>(out);
+  if (M <= 1) launch_bank_gemv<1>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
+  else if (M <= 2) launch_bank_gemv<2>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
+  else if (M <= 4) launch_bank_gemv<4>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
+  else if (M <= 8) launch_bank_gemv<8>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
+  else launch_bank_gemv<16>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
+  return (int)cudaGetLastError();
+}
+
+// Kernel K: the exact dequant GEMM over selected experts of a bank, min term
+// inside. codes [Ne, N, K/2], scales / mins [Ne, N, K/32] f32 (scales_f32 !=
+// 0) or bf16; eids and x as for kernel J (any M >= 1); out [n_sel, M, N] f32.
+int q4k_bank_mm_launch(const void* x, int x_bf16, int x_per_expert, const void* codes,
+                       const void* scales, const void* mins, int scales_f32,
+                       const void* eids, int n_sel, int n_expert, void* out, int M,
+                       int K, int N, void* stream) {
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  if (scales_f32) {
+    const Q4KMinLoader<float> w{{c, static_cast<const float*>(scales)},
+                                static_cast<const float*>(mins)};
+    return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, out, M, K,
+                          N, stream);
+  }
+  const Q4KMinLoader<__nv_bfloat16> w{{c, static_cast<const __nv_bfloat16*>(scales)},
+                                      static_cast<const __nv_bfloat16*>(mins)};
+  return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, out, M, K, N,
+                        stream);
 }
 
 }  // extern "C"

@@ -9,6 +9,8 @@ dense rows or the paged pool. The prover's loops (greedy_generate, continue_gree
 verifier's (teacher_forced) run the same per-step forward at the same
 shapes, so a same-backend replay reproduces the prover's logits bit for
 bit. Slots are sequential (slot = position), matching the SlotAllocator.
+Every loop serves llama and MoE models alike: it calls its static config's
+step (static_of, the reference's _forward_for).
 """
 
 from __future__ import annotations
@@ -16,20 +18,28 @@ from __future__ import annotations
 import torch
 
 from ..models import llama as llama_mod
+from ..models import moe as moe_mod
 from . import paged_kv as pkv
 from .kv_cache import KVCache, SlotStore
+
+
+def static_of(cfg):
+    """The static config of a model config, which carries its forward as
+    `step`: MoEStatic for a MoE (Mixtral-family) model, else LlamaStatic.
+    The one place the loops, the session, the instance and the scheduler
+    tell the two families apart."""
+    return (moe_mod.MoEStatic if cfg.is_moe else llama_mod.LlamaStatic).of(cfg)
 
 
 def _step(st, params, cache, tok, pos):
     B = tok.shape[0]
     zero = torch.zeros((B,), dtype=torch.long, device=tok.device)
-    return llama_mod.forward(params, st, tok[:, None], pos[:, None],
-                             pos[:, None], cache, zero)
+    return st.step(params, tok[:, None], pos[:, None], pos[:, None], cache, zero)
 
 
 @torch.no_grad()
 def greedy_generate(
-    st: "llama_mod.LlamaStatic",
+    st: llama_mod.LlamaStatic | moe_mod.MoEStatic,
     params,
     prompt_tokens: torch.Tensor,   # [B, P] int32, already-tokenized prompt
     cache: KVCache,
@@ -47,8 +57,7 @@ def greedy_generate(
     B, P = prompt_tokens.shape
     positions = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
     li = torch.full((B,), n_prompt - 1, dtype=torch.long, device=dev)
-    logits, cache = llama_mod.forward(params, st, prompt_tokens, positions,
-                                      positions, cache, li)
+    logits, cache = st.step(params, prompt_tokens, positions, positions, cache, li)
     pos = torch.full((B,), n_prompt, dtype=torch.int32, device=dev)
     toks, ids, vals = [], [], []
     for _ in range(n_steps):
@@ -64,7 +73,7 @@ def greedy_generate(
 
 @torch.no_grad()
 def teacher_forced(
-    st: "llama_mod.LlamaStatic",
+    st: llama_mod.LlamaStatic | moe_mod.MoEStatic,
     params,
     cache: KVCache,
     tokens: torch.Tensor,     # [B, n] claimed tokens to force
@@ -87,7 +96,7 @@ def teacher_forced(
 
 @torch.no_grad()
 def continue_greedy(
-    st: "llama_mod.LlamaStatic",
+    st: llama_mod.LlamaStatic | moe_mod.MoEStatic,
     params,
     cache: KVCache,
     logits0: torch.Tensor,    # [B, V] current logits
@@ -113,7 +122,7 @@ def continue_greedy(
 
 @torch.no_grad()
 def scheduler_loop(
-    st: "llama_mod.LlamaStatic",
+    st: llama_mod.LlamaStatic | moe_mod.MoEStatic,
     params,
     cache: SlotStore,
     logits0: torch.Tensor,      # [B, V] f32, stays on the device between horizons
@@ -158,8 +167,8 @@ def scheduler_loop(
             slot = torch.where(inactive, n_slots, page * G + pos % G)
         else:
             slot = torch.where(inactive, n_slots, pos)
-        logits, cache = llama_mod.forward(params, st, tok[:, None], pos[:, None],
-                                          slot[:, None], cache, zero)
+        logits, cache = st.step(params, tok[:, None], pos[:, None], slot[:, None],
+                                cache, zero)
         top_vals, top_ids = torch.topk(logits, 10, dim=-1)
         toks.append(tok)
         tids.append(top_ids)

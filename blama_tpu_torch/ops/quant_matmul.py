@@ -45,7 +45,9 @@ and one exact dequant GEMM with a weight loader each for B (Q4_K positive
 part, bf16 or f32 scales; the min term is a small product outside, as in the
 reference), G (int8 codes, group 32 or 16) and H (native Q4_K, min term
 inside): 64 x 64 tiles, or a thread per output column for a single row, the
-same sum order per output element in both. On a CPU tensor each wrapper runs its plain PyTorch version
+same sum order per output element in both. MoE expert banks (QuantExperts,
+the stacked arrays of Ne QuantTensors) go through J (kernel A over selected
+experts) and K (B's loader with the min term inside, over selected experts). On a CPU tensor each wrapper runs its plain PyTorch version
 below; on a CUDA tensor it launches the kernel or raises.
 """
 
@@ -479,12 +481,41 @@ def w4a8_xla_matmul(x: torch.Tensor, w: QuantTensorA8) -> torch.Tensor:
 # kernels B, G, H: exact dequant matmuls
 # ---------------------------------------------------------------------------
 
-def q4k_pos_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
-    """Plain version of kernel B: x [M, K] @ (code·scale) → [M, N] f32."""
+# rows of the zeroed block each row of an exact plain product goes through on
+# the CPU
+_CPU_ROW_BLOCK = 16
+
+
+def rows_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N], each row's bits independent of the rows beside
+    it, as the exact kernels give them (a MoE decode step and its padded
+    replay rest on it). On the CPU the BLAS picks its kernel, and with it a
+    row's sum order, by the row count, the thread count and the operand's
+    alignment; so every row goes alone, as row 0 of a zeroed 16-row block in
+    a buffer of its own: the same call on the same operands at any M. (At 16
+    rows the BLAS takes its GEMM kernel, whose sum order the reference's CPU
+    dot shares.) On the card one product: the plain versions there only check
+    the kernels."""
+    if a.device.type != "cpu":
+        return a @ b
+    rows = []
+    for i in range(a.shape[0]):
+        blk = a.new_zeros((_CPU_ROW_BLOCK, a.shape[1]))
+        blk[0] = a[i]
+        rows.append((blk @ b)[:1])
+    return torch.cat(rows) if rows else a @ b
+
+
+def _q4k_values(w: QuantTensor) -> torch.Tensor:
+    """code·scale of a split Q4_K weight → f32 [N, K] (the min term apart)."""
     N = w.n_out
     codes = unpair_codes(w.codes).reshape(N, -1, GROUP).float()
-    wdq = (codes * w.scales.float()[..., None]).reshape(N, -1)   # [N, K] f32
-    return x.float() @ wdq.t()
+    return (codes * w.scales.float()[..., None]).reshape(N, -1)
+
+
+def q4k_pos_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
+    """Plain version of kernel B: x [M, K] @ (code·scale) → [M, N] f32."""
+    return rows_mm(x.float(), _q4k_values(w).t())
 
 
 def _tile_launch(fn: str, name: str, x: torch.Tensor, N: int, *args) -> torch.Tensor:
@@ -517,7 +548,7 @@ def q4k_matmul(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
     M, K = x.shape
     pos = q4k_pos(x, w)
     xg_sum = x.float().reshape(M, K // GROUP, GROUP).sum(dim=-1)
-    return pos - xg_sum @ w.mins.float().t()
+    return pos - rows_mm(xg_sum, w.mins.float().t())
 
 
 def q8_0_matmul_plain(x: torch.Tensor, w: QuantTensorQ8) -> torch.Tensor:
@@ -560,6 +591,156 @@ def q4k_native_matmul(x: torch.Tensor, w: QuantTensorK4) -> torch.Tensor:
     _check_cuda(x, _k4_arrays(w, x.shape[1]), QK_K)
     return _tile_launch("q4k_native_mm_launch", "q4k_native_matmul", x, w.n_out,
                         w.codes.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# MoE expert banks: kernels J and K
+# ---------------------------------------------------------------------------
+
+@dataclass
+class QuantExperts:
+    """Expert bank kept 4-bit packed (the reference's class of the same name):
+    the Ne experts' QuantTensor arrays stacked, N-major as every layout here.
+    Expert e's arrays are [e] of each; a8 selects the W4A8 engine's bf16
+    scales and dispatch (kernel J up to 16 rows), else f32 scales (exact)."""
+
+    codes: torch.Tensor    # uint8 [Ne, N, K/2]
+    scales: torch.Tensor   # f32 (exact) / bf16 (a8) [Ne, N, K/32]
+    mins: torch.Tensor     # the same
+    a8: bool = False
+
+    @property
+    def n_expert(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def n_out(self) -> int:
+        return self.codes.shape[1]
+
+    @property
+    def shape(self):
+        return (self.codes.shape[2] * 2, self.codes.shape[1])
+
+    @property
+    def device(self):
+        return self.codes.device
+
+    def expert(self, e: int) -> QuantTensor:
+        """Expert e as a QuantTensor (A8S when a8): views, no copy."""
+        cls = QuantTensorA8S if self.a8 else QuantTensor
+        return cls(self.codes[e], self.scales[e], self.mins[e])
+
+
+def repack_q4k_bank(data, n_expert: int, n_rows: int, row_len: int, a8: bool,
+                    device="cuda") -> QuantExperts:
+    """GGUF Q4_K expert-bank bytes (ggml ne = (K, N, Ne)): expert e's N rows
+    are rows e·N .. e·N + N − 1 of one [Ne·N, K] matrix, so the whole bank is
+    repacked in one call and split by a view (the port's counterpart of the
+    reference's _repack_bank)."""
+    w = (repack_q4k_a8s if a8 else repack_q4k_exact)(data, n_expert * n_rows,
+                                                     row_len, device)
+
+    def split(a):
+        return a.view(n_expert, n_rows, -1)
+
+    return QuantExperts(split(w.codes), split(w.scales), split(w.mins), a8)
+
+
+def _bank_rows(x: torch.Tensor, n_sel: int):
+    """x [R, K] (shared by every selected expert) or [n_sel, R, K] (one input
+    per expert) → (per_expert, R, K, expert j's input as a function of j)."""
+    if x.dim() == 2:
+        return False, x.shape[0], x.shape[1], lambda j: x
+    if x.dim() != 3 or x.shape[0] != n_sel:
+        raise ValueError(f"bank input must be [R, K] or [{n_sel}, R, K], got {tuple(x.shape)}")
+    return True, x.shape[1], x.shape[2], lambda j: x[j]
+
+
+def w4a8_bank_plain(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel J: kernel A's sum against each selected expert
+    → [n_sel, R, N] f32."""
+    ids = eids.tolist()
+    _, _, _, xj = _bank_rows(x, len(ids))
+    return torch.stack([w4a8_matmul_plain(xj(j), bank.expert(e)) for j, e in enumerate(ids)])
+
+
+def q4k_bank_plain(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel K: x @ (code·scale) minus (Σ x over each
+    32-group)·min against each selected expert → [n_sel, R, N] f32."""
+    ids = eids.tolist()
+    _, R, K, xj = _bank_rows(x, len(ids))
+    outs = []
+    for j, e in enumerate(ids):
+        w = bank.expert(e)
+        xf = xj(j).float()
+        xg = xf.reshape(R, K // GROUP, GROUP).sum(dim=-1)
+        outs.append(rows_mm(xf, _q4k_values(w).t()) - rows_mm(xg, w.mins.float().t()))
+    return torch.stack(outs)
+
+
+def _check_bank(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor, scale_dtype):
+    n_sel = eids.shape[0]
+    per, R, K = _bank_rows(x, n_sel)[:3]
+    Ne, N, G = bank.n_expert, bank.n_out, K // GROUP
+    _check_cuda(x.reshape(-1, K), ((bank.codes, torch.uint8, (Ne, N, K // 2)),
+                                   (bank.scales, scale_dtype, (Ne, N, G)),
+                                   (bank.mins, scale_dtype, (Ne, N, G))))
+    if eids.dim() != 1 or eids.dtype != torch.int32 or eids.device != x.device \
+            or not eids.is_contiguous() or not 1 <= n_sel <= 65535:
+        raise ValueError("eids must be a contiguous int32 vector on x's device")
+    return per, R, K, N, n_sel
+
+
+def w4a8_bank_launch(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor):
+    """Launch kernel J on CUDA tensors. Returns (out [n_sel, R, N] f32, and
+    the prologue's xq, xs, sxm of every quantized input row)."""
+    per, R, K, N, n_sel = _check_bank(x, bank, eids, torch.bfloat16)
+    _check_rows(R, "kernel J")
+    xq, xs, sxm, _ = _w4a8_buffers((n_sel if per else 1) * R, K, 0, x.device)
+    out = torch.empty((n_sel, R, N), dtype=torch.float32, device=x.device)
+    rc = kernels.lib("quant_matmul").w4a8_bank_launch(
+        x.data_ptr(), _is_bf16(x), int(per), bank.codes.data_ptr(), bank.scales.data_ptr(),
+        bank.mins.data_ptr(), eids.data_ptr(), n_sel, bank.n_expert, xq.data_ptr(),
+        xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), R, K, N, kernels.stream_ptr(x.device))
+    kernels.check(rc, "w4a8_bank_gemv")
+    kernels.count("w4a8_bank_gemv")
+    return out, xq, xs, sxm
+
+
+def w4a8_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
+    """Kernel J (CUDA C++, replaces the TPU kernel _a8s_bank_kernel): x [R <= 16,
+    K] or [n_sel, R, K] @ bank[eids[j]] → [n_sel, R, N] f32 (W4A8)."""
+    if x.device.type == "cpu":
+        return w4a8_bank_plain(x, bank, eids)
+    return w4a8_bank_launch(x, bank, eids)[0]
+
+
+def q4k_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
+    """Kernel K (CUDA C++, replaces the TPU kernel _q4k_bank_kernel): x [R, K]
+    or [n_sel, R, K] @ bank[eids[j]] → [n_sel, R, N] f32, exact dequant with
+    the min term inside; the bank's own scale dtype (f32 or bf16)."""
+    if x.device.type == "cpu":
+        return q4k_bank_plain(x, bank, eids)
+    f32 = not bank.a8
+    per, R, K, N, n_sel = _check_bank(x, bank, eids, torch.float32 if f32 else torch.bfloat16)
+    out = torch.empty((n_sel, R, N), dtype=torch.float32, device=x.device)
+    rc = kernels.lib("quant_matmul").q4k_bank_mm_launch(
+        x.data_ptr(), _is_bf16(x), int(per), bank.codes.data_ptr(), bank.scales.data_ptr(),
+        bank.mins.data_ptr(), int(f32), eids.data_ptr(), n_sel, bank.n_expert, out.data_ptr(),
+        R, K, N, kernels.stream_ptr(x.device))
+    kernels.check(rc, "q4k_bank_matmul")
+    kernels.count("q4k_bank_matmul")
+    return out
+
+
+def bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
+    """x [R, K] (or one [R, K] per selected expert, [n_sel, R, K]) against
+    bank[eids[j]] → [n_sel, R, N] f32, the experts' packed bytes read in
+    place. The reference's routing by row count: a W4A8 bank with at most
+    A8S_MAX_BATCH rows goes to kernel J, everything else to kernel K."""
+    if bank.a8 and x.shape[-2] <= A8S_MAX_BATCH:
+        return w4a8_bank_matmul(x, bank, eids)
+    return q4k_bank_matmul(x, bank, eids)
 
 
 # ---------------------------------------------------------------------------

@@ -53,8 +53,11 @@ class Instance:
         self.params = params or InstanceInitParams()
         cfg = model.config
         kv_dtype = kvc.resolve_kv_dtype(self.params.kv_dtype)
-        dattn.require_kernel_geometry(model.device, cfg.n_head, cfg.n_head_kv,
-                                      cfg.head_dim_, kv_dtype)
+        # the fused attention kernels' gates; a model loaded with attn="xla"
+        # (a MoE model) runs the two-pass chain, which takes any geometry
+        if cfg.attn_fused:
+            dattn.require_kernel_geometry(model.device, cfg.n_head, cfg.n_head_kv,
+                                          cfg.head_dim_, kv_dtype)
         if self.params.ring_mesh is not None:
             raise NotImplementedError(
                 "ring (sequence-parallel) prefill is not ported "
@@ -72,15 +75,16 @@ class Instance:
                                         cfg.head_dim_, kv_dtype, device=self.device)
         self.allocator = kvc.SlotAllocator(self.ctx_len)
 
-        from ..models.llama import make_step_fn
+        from ..ops.generate_loop import static_of
 
-        if not dattn.supports(self.ctx_len, cfg.head_dim_, self.cache.k.dtype):
+        if cfg.attn_fused and not dattn.supports(self.ctx_len, cfg.head_dim_,
+                                                 self.cache.k.dtype):
             raise NotImplementedError(
                 f"the fused attention kernels reject ctx_size={self.ctx_len} "
                 f"head_dim={cfg.head_dim_}, and the two-pass mode for such "
                 "geometries is not ported (ROADMAP.md §1 item 9, other engines)")
         self.step_config = cfg  # session fast paths derive statics from this
-        self._step = make_step_fn(cfg)
+        self._step = static_of(cfg).step
         self._session: Session | None = None
 
     # -- session lifecycle (single active session, Instance.cpp:121-131) -----

@@ -25,12 +25,16 @@ ModelLoadProgressCb = Callable[[float], None]
 ENGINES = {"q4k_fused": True, "q4k_fused_k4": "k4", "q4k_a8": "a8",
            "q4k_a8_k4": "a8k4", "q4k_a8_xla": "a8x",
            "q8_0_fused": True, "q6_k_fused": True}
+# the engines that serve a MoE (Mixtral-family) file: packed Q4_K expert banks
+# for the exact engine and for W4A8 (models/moe.load_moe_params)
+MOE_ENGINES = {"q4k_fused": True, "q4k_a8": "a8"}
 
 
 @dataclass
 class ModelParams:
     """Reference: Model::Params (Model.hpp:28-34). `dtype` selects the
-    weight engine; the port serves the packed engines of ENGINES."""
+    weight engine; the port serves the packed engines of ENGINES (of
+    MOE_ENGINES for a MoE file)."""
 
     vocab_only: bool = False
     prefix_inputs_with_bos: bool = False
@@ -39,9 +43,11 @@ class ModelParams:
     sharding_rules: object = None
     tp_blocks: int = -1
     moe_ragged: bool | None = None
-    # flash attention kernels (own numerics: prover and verifier pick the
-    # same mode); the reference's "xla" mode is not ported
-    attn: str = "fused"
+    # "fused": the flash attention kernels (own numerics: prover and verifier
+    # pick the same mode), the only mode of a llama file; "xla": the two-pass
+    # chain at every chunk, the only mode of a MoE file (as in the reference);
+    # None: the file's own mode
+    attn: str | None = None
     device: str = "cuda"
 
 
@@ -55,42 +61,51 @@ class Model:
             raise NotImplementedError(
                 "meshes, sharding and tp_blocks are not ported "
                 "(ROADMAP.md §1 item 13, multi-GPU)")
-        if self.params.attn == "xla":
-            raise NotImplementedError(
-                "attn='xla' (the two-pass chain for every chunk) is not ported; "
-                "the port serves attn='fused' (ROADMAP.md §1 item 9, other engines)")
-        if self.params.attn != "fused":
+        if self.params.attn not in ("xla", "fused", None):
             raise ValueError(
-                f"ModelParams.attn must be 'fused', got {self.params.attn!r}")
+                f"ModelParams.attn must be 'xla' or 'fused', got {self.params.attn!r}")
         self.reader = GGUFReader(gguf_path)
         self.config = ModelConfig.from_gguf(self.reader)
         from ..models.llama import ARCHS
 
-        if self.config.is_moe:
-            raise NotImplementedError(
-                "MoE models are not ported (ROADMAP.md §1 item 10)")
         if self.config.arch not in ARCHS:
             raise NotImplementedError(
                 f"architecture {self.config.arch!r} is not ported "
                 "(ROADMAP.md §1 item 12, other families)")
-        self.config.attn_fused = True
+        if self.config.is_moe and self.params.attn == "fused":
+            # the reference's refusal: fused attention is a verification
+            # mode, and the MoE forward runs the two-pass chain only
+            raise ValueError(
+                "attn='fused' is unsupported with a MoE model; "
+                "use attn='xla' (the MoE forward is XLA-attention only)")
+        if not self.config.is_moe and self.params.attn == "xla":
+            raise NotImplementedError(
+                "attn='xla' (the two-pass chain for every chunk) is not ported for "
+                "llama files; the port serves attn='fused' (ROADMAP.md §1 item 9, "
+                "other engines)")
+        # the attention mode the model runs (Instance and the scheduler read it)
+        self.config.attn_fused = not self.config.is_moe
         self.vocab = Vocab.from_gguf(self.reader)
         self.weights = None
         if not self.params.vocab_only:
             self.weights = self._load_weights(progress_cb)
 
     def _load_weights(self, progress_cb: ModelLoadProgressCb | None):
-        if self.params.dtype not in ENGINES:
+        engines = MOE_ENGINES if self.config.is_moe else ENGINES
+        if self.params.dtype not in engines:
             raise NotImplementedError(
-                f"dtype={self.params.dtype!r} is not ported; the port serves "
-                f"{sorted(ENGINES)} (ROADMAP.md §1 item 9, dense engines)")
-        from ..models.llama import load_llama_params
+                f"dtype={self.params.dtype!r} is not ported for "
+                f"{'MoE' if self.config.is_moe else 'llama'} files; the port serves "
+                f"{sorted(engines)} (ROADMAP.md §1 item 9, other engines)")
+        if self.config.is_moe:
+            from ..models.moe import load_moe_params as load
+        else:
+            from ..models.llama import load_llama_params as load
 
         if progress_cb:
             progress_cb(0.0)
-        w = load_llama_params(self.reader, self.config,
-                              fused_quant=ENGINES[self.params.dtype],
-                              device=self.device, progress_cb=progress_cb)
+        w = load(self.reader, self.config, fused_quant=engines[self.params.dtype],
+                 device=self.device, progress_cb=progress_cb)
         if progress_cb:
             progress_cb(1.0)
         return w

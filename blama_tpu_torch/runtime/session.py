@@ -254,12 +254,11 @@ class Session:
 
         import torch
 
-        from ..models.llama import LlamaStatic
-        from ..ops.generate_loop import continue_greedy
+        from ..ops.generate_loop import continue_greedy, static_of
 
         # derive statics from the instance's step config so the device loop
         # uses the same attention engine (flash_attn) as the step path
-        st = LlamaStatic.of(inst.step_config)
+        st = static_of(inst.step_config)
         tokens, all_logits, cache = continue_greedy(
             st, inst.model.weights, inst.cache,
             torch.from_numpy(self._last_logits[None, :]),
@@ -356,10 +355,9 @@ class Session:
 
         import torch
 
-        from ..models.llama import LlamaStatic
-        from ..ops.generate_loop import teacher_forced
+        from ..ops.generate_loop import static_of, teacher_forced
 
-        st = LlamaStatic.of(inst.step_config)
+        st = static_of(inst.step_config)
         claim = torch.tensor([[tp.token for tp in tokens]], dtype=torch.int32)
         all_logits, cache = teacher_forced(
             st, inst.model.weights, inst.cache, claim,

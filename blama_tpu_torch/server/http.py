@@ -252,7 +252,8 @@ def main() -> None:
     with the logits kept on the device; it engages only when every active
     row is greedy or a verification row and gives way to per-token steps
     otherwise. BLAMA_DTYPE names the weight engine (default `q4k_a8`; one
-    the port does not serve fails here with Model's NotImplementedError).
+    the port does not serve fails here with Model's NotImplementedError; a
+    MoE file takes `q4k_a8` or `q4k_fused`, and runs attn="xla").
     """
     import logging
 
@@ -271,6 +272,7 @@ def main() -> None:
     def progress(p: float) -> None:
         print(f"\rloading model: {p * 100:5.1f}%", end="", flush=True)
 
+    # attn is left to the file: fused kernels for llama, the chain for MoE
     model = Model(model_path,
                   ModelParams(dtype=os.environ.get("BLAMA_DTYPE", "q4k_a8"),
                               device=os.environ.get("BLAMA_DEVICE", "cuda")),

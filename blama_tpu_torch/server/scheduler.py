@@ -135,8 +135,9 @@ class ContinuousBatchingScheduler:
         self._stale_dev = set()           # rows whose _dev_logits row lags
         emb_dtype = getattr(model.weights["tok_emb"], "dtype", torch.bfloat16)
         kv_dtype = torch.float32 if emb_dtype == torch.float32 else torch.bfloat16
-        dattn.require_kernel_geometry(self.device, cfg.n_head, cfg.n_head_kv,
-                                      cfg.head_dim_, kv_dtype)
+        if cfg.attn_fused:   # attn="xla" (a MoE model): the two-pass chain only
+            dattn.require_kernel_geometry(self.device, cfg.n_head, cfg.n_head_kv,
+                                          cfg.head_dim_, kv_dtype)
         self.paged = paged
         self._head = None  # head-of-line request awaiting pool space (FIFO)
         if paged:
@@ -156,10 +157,11 @@ class ContinuousBatchingScheduler:
                 cfg.n_layer, self.B, self.S, cfg.n_head_kv, cfg.head_dim_,
                 kv_dtype, device=self.device)
             self._pad_slot = self.S
-        from ..models.llama import LlamaStatic, forward as fwd
+        from ..ops.generate_loop import static_of
 
-        self._st = LlamaStatic.of(cfg)
-        self._fwd = fwd
+        # llama or MoE; every decode step has B·T > 1 rows, so a MoE model
+        # takes its masked all-expert path throughout (rows batch-invariant)
+        self._st = static_of(cfg)
         self._slots = [_Slot() for _ in range(self.B)]
         self._queue: queue.Queue[GenRequest] = queue.Queue()
         self.metrics = Metrics()
@@ -190,9 +192,9 @@ class ContinuousBatchingScheduler:
         (horizon mode)."""
         if table is not None:
             self.cache.with_table(table)
-        logits, self.cache = self._fwd(
-            self.model.weights, self._st, self._put(toks), self._put(pos),
-            self._put(sl), self.cache, self._put(li))
+        logits, self.cache = self._st.step(
+            self.model.weights, self._put(toks), self._put(pos), self._put(sl),
+            self.cache, self._put(li))
         if len(capture):
             if self._dev_logits is None:
                 self._dev_logits = torch.zeros_like(logits)

@@ -5,8 +5,8 @@ vocab with byte fallback) with seeded weights, and a direct-packed synthesizer
 for full-size geometries. A copy of the JAX package's fixtures, so the port
 and its smoke script never import that package; `write_tiny_llama` writes the
 same file from the same seed. Beyond the copy: the mixed-type layout of
-llama.cpp's Q4_K_M files (`quant=Q4_K_M`), a direct Q6_K packer, and a
-`n_layer` cut of the presets.
+llama.cpp's Q4_K_M files (`quant=Q4_K_M`), a direct Q6_K packer, a
+`n_layer` cut of the presets, and the Mixtral-8x7B widths as a MoE preset.
 """
 
 from __future__ import annotations
@@ -235,6 +235,50 @@ def _pack_f32_norm(n: int) -> tuple[bytes, tuple[int, ...]]:
     return np.ones(n, np.float32).tobytes(), (n,)
 
 
+def _synthetic_header(path: str, preset: str, s: dict) -> GGUFWriter:
+    """A GGUFWriter holding the metadata of a synthesized preset `s`: llama
+    architecture keys (the expert counts when `s` has them) and a vocabulary
+    of specials, 256 byte tokens and numbered pieces."""
+    E, H, V = s["n_embd"], s["n_head"], s["n_vocab"]
+    tokens = ["<unk>", "<s>", "</s>"]
+    types = [TT_UNKNOWN, TT_CONTROL, TT_CONTROL]
+    scores = [-1e9, 0.0, 0.0]
+    for b in range(256):
+        tokens.append(f"<0x{b:02X}>")
+        types.append(TT_BYTE)
+        scores.append(-1e6)
+    for i in range(V - len(tokens)):
+        tokens.append(f"▁tok{i}")
+        types.append(TT_NORMAL)
+        scores.append(-10.0)
+
+    g = GGUFWriter(path)
+    g.add_kv("general.architecture", "llama")
+    g.add_kv("general.name", f"synthetic-{preset}")
+    g.add_kv("llama.block_count", s["n_layer"])
+    g.add_kv("llama.embedding_length", E)
+    g.add_kv("llama.feed_forward_length", s["n_ff"])
+    g.add_kv("llama.attention.head_count", H)
+    g.add_kv("llama.attention.head_count_kv", s["n_head_kv"])
+    g.add_kv("llama.attention.layer_norm_rms_epsilon", 1e-5)
+    g.add_kv("llama.context_length", s["n_ctx"])
+    g.add_kv("llama.rope.freq_base", float(s.get("rope_freq_base", 10000.0)))
+    g.add_kv("llama.rope.dimension_count", E // H)
+    if "n_expert" in s:
+        g.add_kv("llama.expert_count", s["n_expert"])
+        g.add_kv("llama.expert_used_count", s["n_expert_used"])
+    g.add_kv("llama.vocab_size", V)
+    g.add_kv("tokenizer.ggml.model", "llama")
+    g.add_kv("tokenizer.ggml.tokens", tokens)
+    g.add_kv("tokenizer.ggml.scores", scores)
+    g.add_kv("tokenizer.ggml.token_type", types)
+    g.add_kv("tokenizer.ggml.bos_token_id", 1)
+    g.add_kv("tokenizer.ggml.eos_token_id", 2)
+    g.add_kv("tokenizer.ggml.unknown_token_id", 0)
+    g.add_kv("tokenizer.ggml.add_bos_token", True)
+    return g
+
+
 def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
                           seed: int = 7, quant: GGMLType | str = GGMLType.Q4_K,
                           n_layer: int | None = None) -> dict:
@@ -255,40 +299,7 @@ def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
                           s["n_ff"], s["n_layer"], s["n_vocab"])
     D = E // H
     rng = np.random.default_rng(seed)
-
-    tokens = ["<unk>", "<s>", "</s>"]
-    types = [TT_UNKNOWN, TT_CONTROL, TT_CONTROL]
-    scores = [-1e9, 0.0, 0.0]
-    for b in range(256):
-        tokens.append(f"<0x{b:02X}>")
-        types.append(TT_BYTE)
-        scores.append(-1e6)
-    for i in range(V - len(tokens)):
-        tokens.append(f"▁tok{i}")
-        types.append(TT_NORMAL)
-        scores.append(-10.0)
-
-    g = GGUFWriter(path)
-    g.add_kv("general.architecture", "llama")
-    g.add_kv("general.name", f"synthetic-{preset}")
-    g.add_kv("llama.block_count", L)
-    g.add_kv("llama.embedding_length", E)
-    g.add_kv("llama.feed_forward_length", F)
-    g.add_kv("llama.attention.head_count", H)
-    g.add_kv("llama.attention.head_count_kv", HKV)
-    g.add_kv("llama.attention.layer_norm_rms_epsilon", 1e-5)
-    g.add_kv("llama.context_length", s["n_ctx"])
-    g.add_kv("llama.rope.freq_base", float(s.get("rope_freq_base", 10000.0)))
-    g.add_kv("llama.rope.dimension_count", D)
-    g.add_kv("llama.vocab_size", V)
-    g.add_kv("tokenizer.ggml.model", "llama")
-    g.add_kv("tokenizer.ggml.tokens", tokens)
-    g.add_kv("tokenizer.ggml.scores", scores)
-    g.add_kv("tokenizer.ggml.token_type", types)
-    g.add_kv("tokenizer.ggml.bos_token_id", 1)
-    g.add_kv("tokenizer.ggml.eos_token_id", 2)
-    g.add_kv("tokenizer.ggml.unknown_token_id", 0)
-    g.add_kv("tokenizer.ggml.add_bos_token", True)
+    g = _synthetic_header(path, preset, s)
 
     def q(name, n_out, n_in, sigma=None):
         sigma = sigma if sigma is not None else 1.0 / np.sqrt(n_in)
@@ -318,21 +329,161 @@ def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
     return s
 
 
+def _cached(name: str, write) -> str:
+    """Path `name` in the temp directory, written by write(path) once
+    (atomically) and reused by later runs."""
+    import os
+    import tempfile
+
+    path = os.path.join(tempfile.gettempdir(), name)
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        write(tmp)
+        os.replace(tmp, path)
+    return path
+
+
 def cached_llama_gguf(preset: str = "llama3-8b", seed: int = 7,
                       quant: GGMLType | str = GGMLType.Q4_K,
                       n_layer: int | None = None) -> str:
     """Path of synthesize_llama_gguf(preset, seed, quant, n_layer) in the temp
     directory, written once (atomically) and reused by later runs."""
-    import os
-    import tempfile
-
     tag = "" if quant == GGMLType.Q4_K else f"-{getattr(quant, 'name', quant)}"
     if n_layer is not None:
         tag += f"-L{n_layer}"
-    path = os.path.join(tempfile.gettempdir(),
-                        f"blama_tpu_torch-{preset}{tag}-seed{seed}.gguf")
-    if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        synthesize_llama_gguf(tmp, preset, seed=seed, quant=quant, n_layer=n_layer)
-        os.replace(tmp, path)
-    return path
+    return _cached(f"blama_tpu_torch-{preset}{tag}-seed{seed}.gguf",
+                   lambda p: synthesize_llama_gguf(p, preset, seed=seed, quant=quant,
+                                                   n_layer=n_layer))
+
+
+# ---------------------------------------------------------------------------
+# Mixtral-family (MoE) fixtures: llama architecture + 3-D expert banks
+# ---------------------------------------------------------------------------
+
+MOE_PRESETS = {
+    # tiny: the tests' fixture
+    "mixtral-debug": dict(n_layer=2, n_embd=256, n_head=4, n_head_kv=2,
+                          n_ff=512, n_ctx=512, n_vocab=512,
+                          n_expert=4, n_expert_used=2,
+                          rope_freq_base=10000.0),
+    # Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+    # config.json: hidden 4096, intermediate 14336, 32 layers, 32 / 8 heads,
+    # vocab 32000, 8 experts, 2 per token, rope_theta 1e6); a fixture geometry
+    # for the card, whose depth `n_layer=` cuts
+    "mixtral-8x7b": dict(n_layer=32, n_embd=4096, n_head=32, n_head_kv=8,
+                         n_ff=14336, n_ctx=32768, n_vocab=32000,
+                         n_expert=8, n_expert_used=2,
+                         rope_freq_base=1000000.0),
+}
+
+
+def synthesize_moe_gguf(path: str, preset: str = "mixtral-debug",
+                        seed: int = 11, n_layer: int | None = None) -> dict:
+    """Write a Mixtral-family GGUF of a preset's geometry with direct-packed
+    Q4_K expert banks (random codes, plausible scales: the load path depends on
+    the layout, not on the values). The JAX package's synthesizer writes the
+    same bytes for the same preset and seed; `n_layer` cuts the depth (the
+    layers kept are the uncut file's first ones)."""
+    s = dict(MOE_PRESETS[preset])
+    if n_layer is not None:
+        s["n_layer"] = n_layer
+    E, H, HKV, F, L, V = (s["n_embd"], s["n_head"], s["n_head_kv"],
+                          s["n_ff"], s["n_layer"], s["n_vocab"])
+    Ne = s["n_expert"]
+    D = E // H
+    rng = np.random.default_rng(seed)
+    g = _synthetic_header(path, preset, s)
+
+    def q(name, ne, sigma=None):
+        # ne is the ggml dim order (innermost first); rows = prod(ne[1:])
+        n_rows = int(np.prod(ne[1:]))
+        sigma = sigma if sigma is not None else 1.0 / np.sqrt(ne[0])
+        g.add_tensor(name, None, GGMLType.Q4_K,
+                     raw_bytes=_pack_q4_k_direct(rng, n_rows, ne[0], sigma),
+                     ne=tuple(ne))
+
+    def norm(name, n):
+        data, ne = _pack_f32_norm(n)
+        g.add_tensor(name, None, GGMLType.F32, raw_bytes=data, ne=ne)
+
+    q("token_embd.weight", (E, V), 0.02)
+    norm("output_norm.weight", E)
+    q("output.weight", (E, V))
+    for i in range(L):
+        norm(f"blk.{i}.attn_norm.weight", E)
+        q(f"blk.{i}.attn_q.weight", (E, H * D))
+        q(f"blk.{i}.attn_k.weight", (E, HKV * D))
+        q(f"blk.{i}.attn_v.weight", (E, HKV * D))
+        q(f"blk.{i}.attn_output.weight", (H * D, E))
+        norm(f"blk.{i}.ffn_norm.weight", E)
+        g.add_tensor(f"blk.{i}.ffn_gate_inp.weight",
+                     (rng.standard_normal((Ne, E)) / np.sqrt(E)).astype(np.float32))
+        q(f"blk.{i}.ffn_gate_exps.weight", (E, F, Ne))
+        q(f"blk.{i}.ffn_up_exps.weight", (E, F, Ne))
+        q(f"blk.{i}.ffn_down_exps.weight", (F, E, Ne))
+    g.write()
+    return s
+
+
+def cached_moe_gguf(preset: str = "mixtral-8x7b", seed: int = 11,
+                    n_layer: int | None = None) -> str:
+    """Path of synthesize_moe_gguf(preset, seed, n_layer) in the temp
+    directory, written once (atomically) and reused by later runs."""
+    tag = "" if n_layer is None else f"-L{n_layer}"
+    return _cached(f"blama_tpu_torch-{preset}{tag}-seed{seed}.gguf",
+                   lambda p: synthesize_moe_gguf(p, preset, seed=seed, n_layer=n_layer))
+
+
+def write_tiny_moe(path: str, seed: int = 77, n_expert: int = 4,
+                   n_expert_used: int = 2) -> None:
+    """Tiny Mixtral-architecture GGUF (llama arch + expert FFN tensors), every
+    tensor F32 as in the JAX package's fixture of the same name."""
+    E, H, HKV, F, L = 256, 4, 2, 512, 2
+    tokens, scores, types = tiny_spm_vocab()
+    n_vocab = len(tokens)
+    D = E // H
+    rng = np.random.default_rng(seed)
+
+    def w(shape, scale=None):
+        scale = scale if scale is not None else (1.0 / np.sqrt(shape[-1]))
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    g = GGUFWriter(path)
+    g.add_kv("general.architecture", "llama")
+    g.add_kv("general.name", "tiny-moe-fixture")
+    g.add_kv("llama.block_count", L)
+    g.add_kv("llama.embedding_length", E)
+    g.add_kv("llama.feed_forward_length", F)
+    g.add_kv("llama.attention.head_count", H)
+    g.add_kv("llama.attention.head_count_kv", HKV)
+    g.add_kv("llama.attention.layer_norm_rms_epsilon", 1e-5)
+    g.add_kv("llama.context_length", 512)
+    g.add_kv("llama.rope.freq_base", 10000.0)
+    g.add_kv("llama.rope.dimension_count", D)
+    g.add_kv("llama.expert_count", n_expert)
+    g.add_kv("llama.expert_used_count", n_expert_used)
+    g.add_kv("llama.vocab_size", n_vocab)
+    g.add_kv("tokenizer.ggml.model", "llama")
+    g.add_kv("tokenizer.ggml.tokens", tokens)
+    g.add_kv("tokenizer.ggml.scores", scores)
+    g.add_kv("tokenizer.ggml.token_type", types)
+    g.add_kv("tokenizer.ggml.bos_token_id", 1)
+    g.add_kv("tokenizer.ggml.eos_token_id", 2)
+    g.add_kv("tokenizer.ggml.unknown_token_id", 0)
+    g.add_kv("tokenizer.ggml.add_bos_token", True)
+
+    g.add_tensor("token_embd.weight", w((n_vocab, E), 0.05))
+    g.add_tensor("output_norm.weight", np.ones(E, np.float32))
+    g.add_tensor("output.weight", w((n_vocab, E)))
+    for i in range(L):
+        g.add_tensor(f"blk.{i}.attn_norm.weight", np.ones(E, np.float32))
+        g.add_tensor(f"blk.{i}.attn_q.weight", w((H * D, E)))
+        g.add_tensor(f"blk.{i}.attn_k.weight", w((HKV * D, E)))
+        g.add_tensor(f"blk.{i}.attn_v.weight", w((HKV * D, E)))
+        g.add_tensor(f"blk.{i}.attn_output.weight", w((E, H * D)))
+        g.add_tensor(f"blk.{i}.ffn_norm.weight", np.ones(E, np.float32))
+        g.add_tensor(f"blk.{i}.ffn_gate_inp.weight", w((n_expert, E)))
+        g.add_tensor(f"blk.{i}.ffn_gate_exps.weight", w((n_expert, F, E)))
+        g.add_tensor(f"blk.{i}.ffn_up_exps.weight", w((n_expert, F, E)))
+        g.add_tensor(f"blk.{i}.ffn_down_exps.weight", w((n_expert, E, F)))
+    g.write()

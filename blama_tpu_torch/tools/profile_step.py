@@ -1,11 +1,14 @@
 """Where a decode step's time goes on the card.
 
     python -m blama_tpu_torch.tools.profile_step [--steps 16] [--ctx 2048] [--scheduler]
-        [--dtype q4k_a8] [--quant Q4_K] [--layers N]
+        [--dtype q4k_a8] [--quant Q4_K] [--layers N] [--moe]
 
 Loads the synthesized llama3-8b GGUF (testing.cached_llama_gguf; `--quant`
 Q4_K, Q8_0 or Q4_K_M, `--layers` cuts its depth) as engine `--dtype` (any of
-runtime.model.ENGINES, e.g. `q4k_fused`, or `q8_0_fused` with `--quant Q8_0`),
+runtime.model.ENGINES, e.g. `q4k_fused`, or `q8_0_fused` with `--quant Q8_0`);
+with `--moe` the synthesized mixtral-8x7b GGUF (testing.cached_moe_gguf,
+Mixtral-8x7B's widths, `--layers` deep, default 8) as `q4k_a8` or
+`q4k_fused` with the two-pass attention chain (attn="xla"). It
 prefills a 128-token prompt, then times greedy decode steps
 (generate_loop.continue_greedy): wall time per step with the device
 synchronized, and one torch.profiler window over the same steps for the
@@ -13,9 +16,11 @@ device time per kernel. With `--scheduler` the step is the serving step: the
 continuous-batching scheduler with 8 rows on the paged bf16 pool, each row
 a greedy request over a 128-token prompt, driven one horizon of 8 batched
 decode steps at a time (ops.generate_loop.scheduler_loop, host bookkeeping
-included). Prints one JSON object: wall ms/step, device-busy
-ms/step (the sum of kernel times), the idle share 1 - busy/wall, the top
-kernels and host ops, and the card's name and power limit.
+included). Prints one JSON object: the seconds to synthesize (or
+find) the file and to load it, the GiB on the card after the load, wall
+ms/step, device-busy ms/step (the sum of kernel times), the idle share
+1 - busy/wall, the top kernels and host ops, and the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ def main() -> None:
     ap.add_argument("--quant", default="Q4_K", choices=["Q4_K", "Q8_0", "Q4_K_M"],
                     help="tensor types of the synthesized file")
     ap.add_argument("--layers", type=int, default=None, help="cut the file's depth")
+    ap.add_argument("--moe", action="store_true",
+                    help="the mixtral-8x7b MoE file (default depth 8 layers)")
     args = ap.parse_args()
 
     import numpy as np
@@ -43,21 +50,29 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ..models.llama import LlamaStatic
-    from ..ops.generate_loop import continue_greedy
+    from ..ops.generate_loop import continue_greedy, static_of
     from ..runtime.instance import Instance, InstanceInitParams
     from ..runtime.model import Model, ModelParams
     from ..gguf import GGMLType
-    from ..testing import Q4_K_M, cached_llama_gguf
+    from ..testing import Q4_K_M, cached_llama_gguf, cached_moe_gguf
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    quant = Q4_K_M if args.quant == Q4_K_M else GGMLType[args.quant]
-    model = Model(cached_llama_gguf("llama3-8b", seed=7, quant=quant, n_layer=args.layers),
-                  ModelParams(dtype=args.dtype, attn="fused"))
+    t0 = time.perf_counter()
+    if args.moe:
+        path = cached_moe_gguf("mixtral-8x7b", seed=11, n_layer=args.layers or 8)
+    else:
+        quant = Q4_K_M if args.quant == Q4_K_M else GGMLType[args.quant]
+        path = cached_llama_gguf("llama3-8b", seed=7, quant=quant, n_layer=args.layers)
+    file_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = Model(path, ModelParams(dtype=args.dtype))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
     rng = np.random.default_rng(7)
     rows, horizon = 1, 1
     if args.scheduler:
@@ -85,7 +100,7 @@ def main() -> None:
                                                   kv_dtype="int8"))
         prompt = [1] + rng.integers(259, model.config.n_vocab, 127).tolist()
         logits = inst.decode(prompt, np.arange(len(prompt)))
-        st = LlamaStatic.of(inst.step_config)
+        st = static_of(inst.step_config)
         n_past = len(prompt)
 
         def steps(n):
@@ -121,7 +136,8 @@ def main() -> None:
     busy = sum(r[1] for r in kern)
     print(json.dumps(dict(
         card=smi, mode="scheduler" if args.scheduler else "solo", rows=rows,
-        engine=args.dtype, file=args.quant, layers=model.config.n_layer,
+        engine=args.dtype, file="mixtral-8x7b" if args.moe else args.quant,
+        layers=model.config.n_layer, file_s=file_s, load_s=load_s, weights_gib=weights_gib,
         steps=args.steps, ctx=args.ctx, wall_ms_per_step=wall_ms,
         device_busy_ms_per_step=busy,
         idle_share=(1 - busy / wall_ms) if busy else None,

@@ -19,7 +19,14 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    kernels at the same shapes: B on f32 scales, G (int8 codes, scale group
    32 and 16) and H (native Q4_K) at 1, 8 and 128 rows, I (W4A8 on native
    Q4_K) at 1 and 8 rows, each with a row's result held equal at every row
-   count;
+   count; the MoE expert-bank kernels at Mixtral-8x7B's bank shapes (8
+   experts of gate/up 4096 -> 14336 and down 14336 -> 4096): J at 1 and 8
+   rows over 2 selected experts and at 4 and 8 rows over all 8, each expert
+   equal bit for bit to kernel A on it alone; K on f32 scales at 1 row over 2
+   experts and at 4, 8 and 128 rows over 8, on bf16 scales at 128 rows over
+   8, a row's result equal at 1, 4, 8 and 128 rows; and the MoE path's
+   other shapes: A and B on f32 scales at the projections' 4 rows, A at 1
+   and 4 rows and B on f32 scales at 1 row of Mixtral's lm head (N=32000);
 3. solo: synthesizes the llama3-8b Q4_K GGUF from a seed (reused from the
    temp directory when present), loads it as `q4k_a8` with fused attention,
    and on an INT8 cache (ctx 2048) one solo Session answers three
@@ -43,7 +50,15 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    phase's three request shapes each, every same-backend replay exactly 1.0,
    and each engine must have launched its own kernels and no other matmul
    kernel;
-6. small: the tiny llama fixture proven on the card and replayed by the port
+6. moe: the `mixtral-8x7b` preset (Mixtral-8x7B's widths, 8 experts, 2 per
+   token) synthesized from a seed and cut to MOE_FILE_LAYERS layers, loaded
+   as `q4k_a8` and then `q4k_fused` with the two-pass attention chain, INT8
+   KV, ctx 2048: the solo phase's three request shapes each, every replay
+   exactly 1.0, kernels J / K (and A, B for the projections) launched and no
+   attention kernel; `q4k_fused` replays `q4k_a8`'s records (printed); the
+   `q4k_a8` model behind the HTTP server on the paged pool answers four
+   concurrent requests, each verified at exactly 1.0;
+7. small: the tiny llama fixture proven on the card and replayed by the port
    on the CPU must meet the cross-backend thresholds, and so must, on the
    card, `q4k_a8` replayed by `q4k_fused` and `q4k_a8_xla` by `q4k_a8`.
 
@@ -56,6 +71,7 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX or blama_tpu.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -79,6 +95,14 @@ SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
 # depth of the synthesized Q8_0 and mixed files of the engines phase (the
 # all-Q4_K file has the full 32 layers); widths are not cut
 ENGINE_FILE_LAYERS = 8
+# Mixtral-8x7B's expert banks (K, N) per projection, 8 experts, 2 per token;
+# the MoE file is cut from 32 to MOE_FILE_LAYERS layers (a 32-layer Q4_K file
+# is ~26 GB, held whole in host memory by the writer); widths are not cut
+MOE_SHAPES = {"gate/up": (4096, 14336), "down": (14336, 4096)}
+MOE_EXPERTS = 8
+MOE_FILE_LAYERS = 8
+# the MoE path's attention projections and lm head (K, N) at Mixtral's widths
+MOE_DENSE_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "lm_head": (4096, 32000)}
 
 
 def log(msg: str) -> None:
@@ -345,6 +369,185 @@ def engine_kernel_phase(torch, timer, rng):
         if not torch.equal(outs[8][7:], outs[1]):
             raise AssertionError(f"kernel I {label}: row 7 of 8 differs from the row alone")
         del w, wb, outs, exact, native
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bank_kernel_phase(torch, timer, rng):
+    """Kernels J and K against their plain versions at Mixtral-8x7B's bank
+    shapes (8 experts): the routed decode step's one row over 2 selected
+    experts, the masked chunks' and serving steps' 4, 8 and 128 rows over all
+    8; gate/up share one input, down takes one input per expert, as the MoE
+    FFN feeds them. J is held equal bit for bit to kernel A on each selected
+    expert alone, and K's rows to themselves at 1, 4, 8 and 128 rows."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for label, (K, N) in MOE_SHAPES.items():
+        q4k = random_q4k(rng, MOE_EXPERTS * N, K, K ** -0.5)
+        per = label == "down"
+        x128 = torch.randn((MOE_EXPERTS, 128, K), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+
+        def inputs(M, eids):
+            """The last M rows: one input shared by the experts, or expert e's
+            own rows x128[e] (so an expert sees the same rows in every call)."""
+            return x128[eids.long(), 128 - M:].contiguous() if per \
+                else x128[0, 128 - M:].contiguous()
+
+        def library(bank, x, eids):
+            """bf16 torch.bmm over the gathered, dequantized experts."""
+            wb = torch.stack([qm.dequantize(bank.expert(e)) for e in eids.tolist()]) \
+                .to(torch.bfloat16)
+            xb = x if per else x.expand(len(eids), *x.shape).contiguous()
+            return lambda: torch.bmm(xb, wb.transpose(1, 2))
+
+        for a8 in (True, False):
+            bank = qm.repack_q4k_bank(q4k, MOE_EXPERTS, N, K, a8, "cuda")
+            sbytes = 2 if a8 else 4
+            wbytes = K * N // 2 + 2 * sbytes * (K // 32) * N      # one expert
+            all8 = torch.arange(MOE_EXPERTS, dtype=torch.int32, device="cuda")
+            two = torch.tensor([1, 6], dtype=torch.int32, device="cuda")
+            # 1 row over 2: the routed decode step; 4 and 8 rows over all 8:
+            # the 3- and 5-token prompts' masked chunks and the 4-row serving
+            # step; 128 rows: the 128-token prompt's chunk
+            cases = [(1, two), (4, all8), (8, all8), (128, all8)]
+            if a8:      # J: up to 16 rows; the 8-row chunk also over 2 experts
+                cases = [(1, two), (4, all8), (8, two), (8, all8)]
+            outs = {}
+            for M, eids in cases:
+                n_sel = len(eids)
+                x = inputs(M, eids)
+                nbytes = n_sel * wbytes + x.numel() * 2 + n_sel * M * N * 4
+                ops = 2 * M * K * N * n_sel
+                shape = f"{label} K={K} N={N} M={M} sel={n_sel} scales={'bf16' if a8 else 'f32'}"
+                lib_fn = library(bank, x, eids)
+                if a8:
+                    out, xq, xs, sxm = qm.w4a8_bank_launch(x, bank, eids)
+                    torch.cuda.synchronize()
+                    pxq, pxs, psxm = qm.quant_acts(x.reshape(-1, K))
+                    for a, b, what in ((xq, pxq, "codes"), (xs, pxs, "scales"),
+                                       (sxm, psxm, "scale*sum")):
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"kernel J {shape}: activation {what} differ")
+                    for j, e in enumerate(eids.tolist()):
+                        xj = x[j] if per else x
+                        if not torch.equal(out[j], qm.w4a8_launch(xj, bank.expert(e))[0]):
+                            raise AssertionError(f"kernel J {shape}: expert {e} differs from "
+                                                 "kernel A on that expert alone")
+                    err = check_close(f"kernel J {shape}", out, qm.w4a8_bank_plain(x, bank, eids),
+                                      MATMUL_TOL)
+                    rows.append(dict(
+                        kernel="w4a8_bank_gemv", shape=shape, max_abs_err=err,
+                        kernel_ms=timer(lambda: qm.w4a8_bank_launch(x, bank, eids)),
+                        plain_ms=timer(lambda: qm.w4a8_bank_plain(x, bank, eids), reps=3, warm=1),
+                        library_ms=timer(lib_fn), **_bound(nbytes, ops, INT8_OPS)))
+                    log(f"kernel J {rows[-1]}")
+                # K on every case of the exact bank, and above 16 rows of the
+                # W4A8 bank's (bf16 scales) at the 128-row chunk below
+                if not a8:
+                    out = qm.q4k_bank_matmul(x, bank, eids)
+                    torch.cuda.synchronize()
+                    outs[M] = out
+                    err = check_close(f"kernel K {shape}", out, qm.q4k_bank_plain(x, bank, eids),
+                                      MATMUL_TOL)
+                    rows.append(dict(
+                        kernel="q4k_bank_matmul", shape=shape, max_abs_err=err,
+                        kernel_ms=timer(lambda: qm.q4k_bank_matmul(x, bank, eids)),
+                        plain_ms=timer(lambda: qm.q4k_bank_plain(x, bank, eids), reps=3, warm=1),
+                        library_ms=timer(lib_fn),
+                        # as for kernel B: the products fit bf16 tensor cores
+                        **_bound(nbytes, ops, BF16_FLOPS)))
+                    log(f"kernel K {rows[-1]}")
+                del lib_fn
+            if a8:      # K on bf16 scales: the W4A8 engine's 128-row chunk
+                x = inputs(128, all8)
+                out = qm.q4k_bank_matmul(x, bank, all8)
+                torch.cuda.synchronize()
+                err = check_close(f"kernel K bf16 {label}", out,
+                                  qm.q4k_bank_plain(x, bank, all8), MATMUL_TOL)
+                lib_fn = library(bank, x, all8)
+                rows.append(dict(
+                    kernel="q4k_bank_matmul",
+                    shape=f"{label} K={K} N={N} M=128 sel={MOE_EXPERTS} scales=bf16",
+                    max_abs_err=err, kernel_ms=timer(lambda: qm.q4k_bank_matmul(x, bank, all8)),
+                    plain_ms=timer(lambda: qm.q4k_bank_plain(x, bank, all8), reps=3, warm=1),
+                    library_ms=timer(lib_fn),
+                    **_bound(MOE_EXPERTS * wbytes + x.numel() * 2 + MOE_EXPERTS * 128 * N * 4,
+                             2 * 128 * K * N * MOE_EXPERTS, BF16_FLOPS)))
+                log(f"kernel K {rows[-1]}")
+                one = qm.q4k_bank_matmul(inputs(1, all8), bank, all8)
+                if not torch.equal(out[:, -1:], one):
+                    raise AssertionError(f"kernel K bf16 {label}: the last row of 128 differs "
+                                         "from the row alone")
+                del lib_fn
+            else:       # a row's bits at 1, 4, 8 and 128 rows, over the same experts
+                one = qm.q4k_bank_matmul(inputs(1, all8), bank, all8)
+                for M in (4, 8, 128):
+                    if not torch.equal(outs[M][:, -1:], one):
+                        raise AssertionError(f"kernel K {label}: the last row of {M} differs "
+                                             "from the row alone")
+                if not torch.equal(outs[1], one[[1, 6]]):
+                    raise AssertionError(f"kernel K {label}: the routed row differs from the "
+                                         "same row among all experts")
+            del bank, outs
+            torch.cuda.empty_cache()
+    return rows
+
+
+def moe_dense_kernel_phase(torch, timer, rng):
+    """Kernels A and B (f32 scales) at the shapes the MoE path gives them
+    beyond the 8B phases': the projections at 4 rows (the 3-token prompt's
+    T=4 chunk, and A in the 4-row serving step) and Mixtral's lm head
+    (N=32000) through A at 1 and 4 rows and through B on f32 scales at one
+    row (the exact engine's decode step). Each against its plain version, a
+    row's bits held equal to the row alone."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for label, (K, N) in MOE_DENSE_SHAPES.items():
+        head = label == "lm_head"
+        q4k = random_q4k(rng, N, K, K ** -0.5)
+        x4 = torch.randn((4, K), generator=gen, device="cuda").to(torch.bfloat16)
+        if head:        # f32 input (bf16-valued), as forward feeds the lm head
+            x4 = x4.float()
+        wbytes = K * N // 2 + 4 * (K // 32) * N     # codes + bf16 sc/mn or f32 sc
+        a8 = qm.repack_q4k_a8s(q4k, N, K, "cuda")
+        exact = qm.repack_q4k_exact(q4k, N, K, "cuda")
+        # (row name, what, weight, kernel, plain version, row counts, rate)
+        for name, what, w, kernel, plain, counts, rate in (
+                ("w4a8_gemv", "kernel A", a8, lambda x, w: qm.w4a8_launch(x, w)[0],
+                 qm.w4a8_matmul_plain, (1, 4) if head else (4,), INT8_OPS),
+                ("q4k_dequant_matmul_f32", "kernel B (f32 scales)", exact, qm.q4k_pos,
+                 qm.q4k_pos_plain, (1,) if head else (4,), BF16_FLOPS)):
+            wd = qm.dequantize(w)       # the yardstick (for B its positive part)
+            if w is exact:
+                wd = wd + w.mins.repeat_interleave(32, dim=1)
+            wb = wd.to(torch.bfloat16)
+            del wd
+            one = kernel(x4[-1:].contiguous(), w)
+            for M in counts:
+                x = x4[4 - M:].contiguous()
+                out = kernel(x, w)
+                torch.cuda.synchronize()
+                shape = f"moe {label} K={K} N={N} M={M}"
+                err = check_close(f"{what} {shape}", out, plain(x, w), MATMUL_TOL)
+                if not torch.equal(out[-1:], one):
+                    raise AssertionError(f"{what} {shape}: the last row differs from the "
+                                         "row alone")
+                xb = x.to(torch.bfloat16)
+                rows.append(dict(
+                    kernel=name, shape=shape, max_abs_err=err,
+                    kernel_ms=timer(lambda: kernel(x, w)),
+                    plain_ms=timer(lambda: plain(x, w), reps=3, warm=1),
+                    library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                    **_bound(wbytes + x.numel() * x.element_size() + M * N * 4,
+                             2 * M * K * N, rate)))
+                log(f"{what} {rows[-1]}")
+            del wb
+        del a8, exact
         torch.cuda.empty_cache()
     return rows
 
@@ -664,6 +867,8 @@ def engines_phase(torch, kind, a8_record):
     out, tokens = {}, {}
     for dtype, quant, n_layer, needs in engines:
         name = dtype if quant is None else f"{dtype} on {getattr(quant, 'name', quant)}"
+        gc.collect()        # the previous model's arrays
+        torch.cuda.empty_cache()
         model, load_s = load_8b(torch, kind, dtype, quant, n_layer)
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -703,6 +908,120 @@ def engines_phase(torch, kind, a8_record):
     log(f"engines q4k_fused and q4k_fused_k4 give {'the same' if same else 'other'} tokens")
     out["fused_and_k4_same_tokens"] = same
     return out
+
+
+MOE_MATMUL_KERNELS = ("w4a8_gemv", "q4k_dequant_matmul", "w4a8_bank_gemv", "q4k_bank_matmul")
+
+
+def moe_phase(torch, kind):
+    """The fourth slice's main path: the `mixtral-8x7b` preset (Mixtral-8x7B's
+    widths, seed 11) cut to MOE_FILE_LAYERS layers, loaded as `q4k_a8` and
+    then `q4k_fused`, one model on the card at a time, attn="xla" (the two-pass
+    chain), INT8 KV, ctx 2048. Three solo prove-and-verify requests each
+    (prompts of 128, 5 and 3 tokens: the masked expert path at 128, 8 and 4
+    rows, the routed path at every decode step), every same-backend replay
+    exactly 1.0; `q4k_fused` replays `q4k_a8`'s records (printed). Then the
+    `q4k_a8` model behind the HTTP server on the scheduler's paged pool
+    answers concurrent /complete requests, each verified at exactly 1.0."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.testing import cached_moe_gguf
+
+    t0 = time.perf_counter()
+    path = Path(cached_moe_gguf("mixtral-8x7b", seed=11, n_layer=MOE_FILE_LAYERS))
+    synth_s = time.perf_counter() - t0
+    log(f"moe: mixtral-8x7b GGUF {path.name} ready in {synth_s:.1f} s "
+        f"({path.stat().st_size / 2**30:.2f} GiB, {MOE_FILE_LAYERS} of 32 layers)")
+    out = dict(file=path.name, file_gib=path.stat().st_size / 2 ** 30, synth_s=synth_s,
+               layers=MOE_FILE_LAYERS)
+    requests = [(128, 16), (5, 16), (3, 8)]
+    a8_record = []
+    # engine, the matmul kernels it must launch on the solo path
+    for dtype, needs in (("q4k_a8", ("w4a8_gemv", "q4k_dequant_matmul", "w4a8_bank_gemv",
+                                     "q4k_bank_matmul")),
+                         ("q4k_fused", ("q4k_dequant_matmul", "q4k_bank_matmul"))):
+        gc.collect()        # the previous model's arrays (the server's cycles)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(str(path), ModelParams(dtype=dtype, attn="xla"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        gib = torch.cuda.memory_allocated() / 2 ** 30
+        log(f"moe: {dtype} load {load_s:.1f} s, {gib:.2f} GiB on the card after load; "
+            f"{model.config.n_expert} experts, {model.config.n_expert_used} per token, "
+            f"width {model.config.n_embd}, FFN {model.config.n_ff}")
+        kernels.reset_launches()
+        inst = Instance(model, InstanceInitParams(ctx_size=2048, kv_dtype="int8"))
+        rng = np.random.default_rng(7)
+        record, results = [], []
+        for n_prompt, n_gen in requests:
+            prompt = [1] + rng.integers(259, model.config.n_vocab, n_prompt - 1).tolist()
+            r = prove_and_verify(inst, prompt, n_gen, record)
+            log(f"moe {dtype} request {r} on {kind}")
+            if r["score"] != 1.0:
+                raise AssertionError(f"moe {dtype}: same-backend replay scored {r['score']}, "
+                                     "not 1.0")
+            results.append(r)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        log(f"moe {dtype} solo launches {launches}")
+        require_launched(launches, needs, f"the MoE {dtype} solo path")
+        others = [k for k in MOE_MATMUL_KERNELS + MATMUL_KERNELS
+                  if k not in needs and launches[k]]
+        if others or any(launches[k] for k in ("decode_attention", "prefill_attention")):
+            raise AssertionError(f"moe {dtype} launched kernels off its path: {others}")
+        res = dict(load_s=load_s, gib_after_load=gib, requests=results, launches=launches)
+        if dtype == "q4k_a8":
+            a8_record = record
+            res["serving"], res["serving_launches"] = _moe_serving(torch, model, kind)
+        else:
+            # printed, not gated: the exact engine as verifier of the W4A8
+            # prover's records (random weights: flat logits)
+            res["replay_of_q4k_a8"] = [replay_score(inst, p, preds) for p, preds in a8_record]
+            log(f"moe q4k_fused replaying q4k_a8's records: {res['replay_of_q4k_a8']}")
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[dtype] = res
+        model.close()
+        del inst, model, record
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_serving(torch, model, kind):
+    """The MoE model behind the HTTP server over SchedulerServer(paged=True):
+    four concurrent /complete requests (every scheduler step runs the masked
+    expert path), each then verified over /verify_completion at exactly 1.0."""
+    from blama_tpu_torch.ops import kernels
+
+    srv = Served(model, max_batch=4, paged=True, horizon=8)
+    try:
+        bodies = [{"prompt": t, "max_tokens": 16, "temp": 0.0}
+                  for t in ("mixture of experts", "the quick brown fox jumps",
+                            "a" * 60, "verifiable inference on a card")]
+        kernels.reset_launches()
+        resps, wall = srv.post_all([("/complete", b) for b in bodies])
+        n_tok = sum(len(r["tokenData"]) for r in resps)
+        if any(len(r["tokenData"]) != 16 for r in resps):
+            raise AssertionError("moe serving: a short response")
+        scores, vwall = srv.post_all([("/verify_completion", {"request": b, "response": r})
+                                      for b, r in zip(bodies, resps, strict=True)])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        got = [sc["result"] for sc in scores]
+        log(f"moe serving (paged, 4 rows): {n_tok} tokens in {wall:.2f} s = "
+            f"{n_tok / wall:.1f} tok/s over all rows on {kind}; verify {got} in {vwall:.2f} s")
+        log(f"moe serving launches {launches}")
+        if got != [1.0] * len(bodies):
+            raise AssertionError(f"moe serving: scheduler replay scored {got}, not 1.0")
+        require_launched(launches, ("w4a8_bank_gemv", "q4k_bank_matmul"), "MoE serving")
+        return dict(requests=len(bodies), tokens=n_tok, wall_s=wall, verify_s=vwall,
+                    scores=got), launches
+    finally:
+        srv.close()
 
 
 class Served:
@@ -1082,6 +1401,18 @@ KERNELS = {
     "w4a8k4_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
                     "blama_tpu/ops/pallas/quant_matmul.py:1071",
                     "gate/up K=4096 N=14336 M=1"),
+    # the MoE phase's bank kernels at Mixtral-8x7B's widths: J and K at the
+    # routed decode step (one row, 2 selected experts), K on bf16 scales at the
+    # W4A8 engine's 128-row masked chunk (8 experts)
+    "w4a8_bank_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                       "blama_tpu/ops/pallas/quant_matmul.py:1792",
+                       "gate/up K=4096 N=14336 M=1 sel=2 scales=bf16"),
+    "q4k_bank_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                        "blama_tpu/ops/pallas/quant_matmul.py:1811",
+                        "gate/up K=4096 N=14336 M=1 sel=2 scales=f32"),
+    "q4k_bank_matmul_bf16": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                             "blama_tpu/ops/pallas/quant_matmul.py:1811",
+                             "gate/up K=4096 N=14336 M=128 sel=8 scales=bf16"),
 }
 
 
@@ -1116,6 +1447,8 @@ def main() -> int:
         rows = kernel_phase(torch, timer, np.random.default_rng(0))
         rows += engine_kernel_phase(torch, timer, np.random.default_rng(1))
         rows += attention_phase(torch, timer)
+        rows += bank_kernel_phase(torch, timer, np.random.default_rng(2))
+        rows += moe_dense_kernel_phase(torch, timer, np.random.default_rng(3))
         del timer
         torch.cuda.empty_cache()
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
@@ -1131,6 +1464,8 @@ def main() -> int:
         res["engines"] = engines_phase(torch, kind, a8_record)
         del a8_record
         log(f"engines phase done at {time.perf_counter() - t_start:.1f} s")
+        res["moe"] = moe_phase(torch, kind)
+        log(f"moe phase done at {time.perf_counter() - t_start:.1f} s")
         res["small"] = small_phase(torch)
 
     out_dir = ROOT / "chiprun_out"
@@ -1159,6 +1494,14 @@ def main() -> int:
         "q8_dequant_matmul_g16": eng["q4k_a8 on Q4_K_M"]["q8_dequant_matmul"],
         "q4k_native_matmul": eng["q4k_fused_k4"]["q4k_native_matmul"],
         "w4a8k4_gemv": eng["q4k_a8_k4"]["w4a8k4_gemv"],
+    })
+    # the MoE phase: J from the W4A8 model's solo path, K on f32 scales from
+    # the exact model's, K on bf16 scales from the W4A8 model's
+    moe_l = {k: res["moe"][k]["launches"] for k in ("q4k_a8", "q4k_fused")}
+    line_launches.update({
+        "w4a8_bank_gemv": moe_l["q4k_a8"]["w4a8_bank_gemv"],
+        "q4k_bank_matmul": moe_l["q4k_fused"]["q4k_bank_matmul"],
+        "q4k_bank_matmul_bf16": moe_l["q4k_a8"]["q4k_bank_matmul"],
     })
     kernels_line = []
     for name, (source, replaces, shape) in KERNELS.items():

@@ -10,8 +10,9 @@ the edges — row counts that are not powers of two, widths that do not fill
 a block, a K that ends inside a staging chunk, batch > 1, a head dim of 64,
 bf16 and INT8 stores, pages of 32 slots on a scrambled pool — and replay
 determinism (two launches give the same bits), for every kernel (A, B with
-bf16 and f32 scales, C to F, G, H, I). The last tests drive each engine and
-the scheduler on the card on the tiny fixture.
+bf16 and f32 scales, C to F, G, H, I, the expert-bank kernels J and K). The
+last tests drive each engine, the MoE fixture and the scheduler on the card
+on the tiny fixtures.
 """
 
 import numpy as np
@@ -144,6 +145,101 @@ def test_kernel_i(cuda, m, n, k, dtype):
     _close(out, qm.a8k4_matmul_plain(x, w), MATMUL_TOL)
     assert torch.equal(out, qm.a8k4_launch(x, w)[0])
     assert torch.equal(out[:1], qm.a8k4_launch(x[:1].contiguous(), w)[0])
+
+
+def _bank(ne, n, k, seed, a8, device):
+    """A stacked Q4_K bank of `ne` experts, each its own random weights."""
+    return qm.repack_q4k_bank(_bytes(ne * n, k, seed, "Q4_K"), ne, n, k, a8, device)
+
+
+@pytest.mark.parametrize("per_expert", [False, True], ids=["shared", "per_expert"])
+@pytest.mark.parametrize("m,n,k,dtype", [
+    (1, 320, 512, torch.bfloat16), (3, 72, 2560, torch.bfloat16),
+    (16, 200, 256, torch.float32), (8, 77, 4352, torch.bfloat16)])
+def test_kernel_j(cuda, m, n, k, dtype, per_expert):
+    """Kernel J: selected experts read in place, in the order the ids give,
+    each equal bit for bit to kernel A on that expert alone; its activation
+    codes are the plain quantizer's."""
+    bank = _bank(3, n, k, m, True, cuda)
+    eids = torch.tensor([2, 0], dtype=torch.int32, device=cuda)
+    x = torch.stack([_acts(m, k, dtype, cuda), _acts(m + 1, k, dtype, cuda)[:m]]) \
+        if per_expert else _acts(m, k, dtype, cuda)
+    out, xq, xs, sxm = qm.w4a8_bank_launch(x, bank, eids)
+    pxq, pxs, psxm = qm.quant_acts(x.reshape(-1, k))
+    assert torch.equal(xq, pxq) and torch.equal(xs, pxs) and torch.equal(sxm, psxm)
+    _close(out, qm.w4a8_bank_plain(x, bank, eids), MATMUL_TOL)
+    for j, e in enumerate((2, 0)):
+        xj = x[j] if per_expert else x
+        assert torch.equal(out[j], qm.w4a8_launch(xj.contiguous(), bank.expert(e))[0])
+    assert torch.equal(out, qm.w4a8_bank_launch(x, bank, eids)[0])
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["f32_scales", "bf16_scales"])
+@pytest.mark.parametrize("m,n,k", [(1, 320, 512), (17, 72, 768), (130, 1000, 256),
+                                   (8, 300, 2560)])
+def test_kernel_k(cuda, m, n, k, a8):
+    """Kernel K on both scale types, shared and per-expert inputs: within
+    the tolerance of its plain version, and a row gives the same bits at
+    every row count (one row alone, two rows, all m) and in either form."""
+    bank = _bank(4, n, k, m, a8, cuda)
+    eids = torch.tensor([3, 1, 2], dtype=torch.int32, device=cuda)
+    x = _acts(m, k, torch.bfloat16, cuda)
+    out = qm.q4k_bank_matmul(x, bank, eids)
+    _close(out, qm.q4k_bank_plain(x, bank, eids), MATMUL_TOL)
+    ref = x.float() @ torch.stack([qm.dequantize(bank.expert(e)) for e in (3, 1, 2)]) \
+        .transpose(1, 2)
+    _close(out, ref, MATMUL_TOL)
+    assert torch.equal(out, qm.q4k_bank_matmul(x, bank, eids))
+    assert torch.equal(out[:, -1:], qm.q4k_bank_matmul(x[-1:].contiguous(), bank, eids))
+    assert torch.equal(out[:, :2], qm.q4k_bank_matmul(x[:2].contiguous(), bank, eids)[:, :2])
+    per = qm.q4k_bank_matmul(x.expand(3, m, k).contiguous(), bank, eids)
+    assert torch.equal(per, out)
+
+
+def test_bank_id_outside_the_bank_gives_nan(cuda):
+    bank = _bank(2, 64, 256, 1, True, cuda)
+    eids = torch.tensor([1, 5], dtype=torch.int32, device=cuda)
+    for rows in (1, 4, 20):
+        x = _acts(rows, 256, torch.bfloat16, cuda)
+        out = qm.bank_matmul(x, bank, eids)
+        assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all(), rows
+
+
+@pytest.mark.parametrize("dtype", ["q4k_fused", "q4k_a8"])
+def test_moe_on_the_card(cuda, tmp_path, dtype):
+    """The Mixtral-family fixture on the card: a prover session replayed at
+    exactly 1.0 through kernels J / K, and the routed decode step equal to
+    the same token in a padded masked chunk where the kernels alone decide
+    (the FFN of one layer)."""
+    from blama_tpu_torch.models import moe
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
+    from blama_tpu_torch.testing import synthesize_moe_gguf
+
+    path = str(tmp_path / "m.gguf")
+    synthesize_moe_gguf(path, "mixtral-debug")
+    m = Model(path, ModelParams(dtype=dtype, attn="xla"))
+    assert isinstance(m.weights["layers"][0]["w_gate_exps"], qm.QuantExperts)
+    kernels.reset_launches()
+    inst = Instance(m, InstanceInitParams(ctx_size=64, kv_dtype="int8"))
+    runs = []
+    for replay in (False, True):
+        s = inst.start_session(SessionInitParams(seed=3, temperature=0.0))
+        s.set_initial_prompt([1, 300, 301, 302, 303, 304, 305])
+        runs.append(s.fill_ctx(runs[0]) if replay else s.complete(CompleteParams(max_tokens=8)))
+        inst.stop_session()
+    assert [[(t.token, t.logit) for t in p.logits] for p in runs[0]] == \
+        [[(t.token, t.logit) for t in p.logits] for p in runs[1]]
+    bank_kernels = ("w4a8_bank_gemv",) if dtype == "q4k_a8" else ("q4k_bank_matmul",)
+    assert all(kernels.LAUNCHES[k] > 0 for k in bank_kernels), kernels.LAUNCHES
+    st = moe.MoEStatic.of(m.config)
+    h = _acts(8, m.config.n_embd, torch.bfloat16, cuda)[None]
+    masked = moe.moe_ffn_quant(h, m.weights["layers"][1], st)
+    for t in range(8):
+        routed = moe.moe_ffn_quant(h[:, t:t + 1].contiguous(), m.weights["layers"][1], st)
+        assert torch.equal(routed, masked[:, t:t + 1]), t
 
 
 @pytest.mark.parametrize("dtype", ["q4k_fused", "q4k_fused_k4", "q4k_a8_k4", "q4k_a8_xla",

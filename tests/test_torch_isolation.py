@@ -35,7 +35,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for name in ("ops.paged_kv", "ops.paged_attention", "runtime.chat", "runtime.grammar",
                  "runtime.antiprompt", "server.scheduler", "server.scheduler_server",
                  "server.server", "server.http", "utils.logging", "utils.metrics",
-                 "tools.profile_step"):
+                 "tools.profile_step", "models.moe", "testing"):
         assert f"blama_tpu_torch.{name}" in res["modules"], name
 
 
@@ -48,8 +48,11 @@ assert not torch.cuda.is_available()
 from blama_tpu_torch.models.llama import params_from_jax
 from blama_tpu_torch.ops import quant_matmul as qm
 from blama_tpu_torch.runtime.model import Model, ModelParams
-from blama_tpu_torch.testing import write_tiny_llama
+from blama_tpu_torch.models.moe import params_from_jax as params_from_jax_moe
+from blama_tpu_torch.testing import synthesize_moe_gguf, write_tiny_llama
 write_tiny_llama({path!r})
+moe_path = {path!r} + ".moe.gguf"
+synthesize_moe_gguf(moe_path, "mixtral-debug")
 q4k = np.zeros(144, np.uint8)
 calls = {{
     "Model": lambda: Model({path!r}, ModelParams(dtype="q4k_a8", attn="fused")),
@@ -65,6 +68,10 @@ calls = {{
     "repack_q6_k_expanded": lambda: qm.repack_q6_k_expanded(np.zeros(210, np.uint8), 1, 256),
     "Model q4k_fused": lambda: Model({path!r}, ModelParams(dtype="q4k_fused")),
     "Model q4k_a8_k4": lambda: Model({path!r}, ModelParams(dtype="q4k_a8_k4")),
+    "repack_q4k_bank": lambda: qm.repack_q4k_bank(q4k, 1, 1, 256, True),
+    "Model MoE q4k_a8": lambda: Model(moe_path, ModelParams(dtype="q4k_a8", attn="xla")),
+    "Model MoE q4k_fused": lambda: Model(moe_path, ModelParams(dtype="q4k_fused", attn="xla")),
+    "moe.params_from_jax": lambda: params_from_jax_moe({{}}),
 }}
 for name, call in calls.items():
     try:
@@ -85,7 +92,7 @@ def test_model_without_cuda_raises(tmp_path):
                          text=True, check=True, cwd=ROOT,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     lines = out.stdout.strip().splitlines()
-    assert len(lines) == 13, out.stdout
+    assert len(lines) == 17, out.stdout
     for line in lines:
         assert " refused: no CUDA device" in line, line
 
