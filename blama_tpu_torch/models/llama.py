@@ -14,6 +14,8 @@ dict per layer], optional "rope_freqs"}. The forward keeps the reference's
 arithmetic order wherever the logits depend on it: the residual stream in
 bf16, rms_norm in f32 with f32 (bf16-rounded) weights, every matmul
 accumulated in f32 and cast to the activation dtype, the lm head fed f32.
+In the fixed-topology tp_blocks mode (LlamaStatic.tp_blocks > 0) the
+projections take the reference's qmm_nblocked / qmm_blocked at its sites.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..ops.kernels import resolve_device
 from ..ops.kv_cache import SlotStore, dequantize_kv
 from ..ops.norms import rms_norm
 from ..ops import quant_matmul as qm
-from ..ops.quant_matmul import QuantEmbedding, emb_lookup, qmm
+from ..ops.quant_matmul import QuantEmbedding, emb_lookup, qmm_blocked, qmm_nblocked
 from ..ops.rope import apply_rope, rope_angles
 from .config import ModelConfig
 
@@ -288,6 +290,10 @@ class LlamaStatic:
     act_fn: str
     causal: bool
     rope_scale: float = 1.0   # 1/factor for linear/yarn rope scaling
+    # fixed-topology blocks (tp_blocks mode, ops/quant_matmul qmm_blocked /
+    # qmm_nblocked): the logits of a prover sharded over tp | tp_blocks
+    # devices; 0 = the plain products
+    tp_blocks: int = 0
     # YaRN NTK-by-parts (None unless rope.scaling.type == "yarn"):
     # (ext_factor, attn_factor, beta_fast, beta_slow, orig_ctx)
     yarn: tuple | None = None
@@ -303,7 +309,7 @@ class LlamaStatic:
                     cfg.rope_orig_ctx or cfg.n_ctx_train)
         return cls(cfg.n_head, cfg.n_head_kv, cfg.head_dim_, cfg.rope_dim_,
                    cfg.rope_freq_base, cfg.rms_norm_eps, cfg.act_fn, cfg.causal,
-                   rope_scale, yarn=yarn)
+                   rope_scale, tp_blocks=cfg.tp_blocks, yarn=yarn)
 
     def step(self, params, tokens, positions, slots, cache, logits_index=None):
         """forward under this config (every loop calls its static's step)."""
@@ -345,17 +351,22 @@ def _place(params, tokens, positions, slots, cache):
     return emb_lookup(params["tok_emb"], tokens.to(dev).long()), positions, flat
 
 
-def _head(params, x, logits_index, eps):
+def _head(params, x, logits_index, eps, tpb=0):
     """The forward's epilogue: each row's logit token (the last when
-    logits_index is None), the final norm and the lm head → [B, V] f32."""
+    logits_index is None), the final norm and the lm head → [B, V] f32. A
+    packed head takes f32 rows (pinned under tp_blocks); a dense one bf16
+    operands and f32 sums, in tpb column blocks under tp_blocks."""
     B, T = x.shape[:2]
     if logits_index is None:
         logits_index = torch.full((B,), T - 1, dtype=torch.long, device=x.device)
     last_h = x[torch.arange(B, device=x.device), logits_index.to(x.device).long()]
     last_h = rms_norm(last_h, params["out_norm"], eps)                    # [B, E]
-    if isinstance(params["output"], torch.Tensor):
-        return _dense_head(last_h, params["output"])
-    return qmm(last_h.float(), params["output"])
+    out = params["output"]
+    if not isinstance(out, torch.Tensor):
+        return qmm_nblocked(last_h.float(), out, tpb)
+    if tpb:
+        return qmm_nblocked(last_h.to(out.dtype), out, tpb, out_dtype=torch.float32)
+    return _dense_head(last_h, out)
 
 
 @torch.no_grad()
@@ -418,11 +429,12 @@ def forward(
         kv_rope = rope_angles(torch.clamp(pos_view, min=0), rope_dim,
                               freq_base, rs, yarn=yarn, freq_factors=ff)
 
+    tpb = st.tp_blocks
     for li, p in enumerate(params["layers"]):
         h = rms_norm(x, p["attn_norm"], eps)
-        q = qmm(h, p["wq"])
-        k = qmm(h, p["wk"])
-        v = qmm(h, p["wv"])
+        q = qmm_nblocked(h, p["wq"], tpb)
+        k = qmm_nblocked(h, p["wk"], tpb)
+        v = qmm_nblocked(h, p["wv"], tpb)
         q = q.reshape(B, T, H, D)
         k = k.reshape(B, T, Hkv, D)
         v = v.reshape(B, T, Hkv, D)
@@ -458,13 +470,13 @@ def forward(
             attn = attention(q, k_l, v_l, positions, pos_view,
                              rope_dim=rope_dim, freq_base=freq_base,
                              interleaved=True, causal=st.causal, kv_rope=kv_rope)
-        x = x + qmm(attn.reshape(B, T, H * D), p["wo"])
+        x = x + qmm_blocked(attn.reshape(B, T, H * D), p["wo"], tpb)
 
         h2 = rms_norm(x, p["ffn_norm"], eps)
-        gate = _silu(qmm(h2, p["w_gate"]))
-        x = x + qmm(gate * qmm(h2, p["w_up"]), p["w_down"])
+        gate = _silu(qmm_nblocked(h2, p["w_gate"], tpb))
+        x = x + qmm_blocked(gate * qmm_nblocked(h2, p["w_up"], tpb), p["w_down"], tpb)
 
-    return _head(params, x, logits_index, eps), cache
+    return _head(params, x, logits_index, eps, tpb), cache
 
 
 def make_step_fn(cfg: ModelConfig):

@@ -24,10 +24,13 @@ same whether it was decoded routed or replayed inside a padded chunk
 
 Attention is always the two-pass chain (ops/attention.py) over the dense rows
 or the scheduler's paged pool, with plain rope; the attention projections and
-the lm head go through qmm (kernels A and B). Not ported: the dense engines
-(moe_ffn, moe_ffn_ragged), the fixed-topology mixture (_moe_ffn_tpb) and the
-expert-sharded mesh (moe_param_specs); MoE under the k4 / a8k4 / a8x engines;
-expert banks of another type than Q4_K (ROADMAP.md).
+the lm head go through qmm (kernels A and B), or under tp_blocks through
+qmm_nblocked / qmm_blocked (A, L and M) while the packed FFN stays as it is,
+as in the reference. Not ported: the dense engines (moe_ffn,
+moe_ffn_ragged), the fixed-topology dense mixture (_moe_ffn_tpb, which only
+the dense engines reach) and the expert-sharded mesh (moe_param_specs); MoE
+under the k4 / a8k4 / a8x engines; expert banks of another type than Q4_K
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from ..ops.attention import attention
 from ..ops.kernels import resolve_device
 from ..ops.kv_cache import SlotStore, dequantize_kv
 from ..ops.norms import rms_norm
-from ..ops.quant_matmul import QuantExperts, bank_matmul, qmm, rows_mm
+from ..ops.quant_matmul import QuantExperts, bank_matmul, qmm_blocked, qmm_nblocked, rows_mm
 from ..ops.rope import apply_rope, rope_angles
 from .config import ModelConfig
 from .llama import (_bf16_rounded, _cols, _head, _place, _q4k_elements, _silu, _to_torch,
@@ -180,12 +183,15 @@ class MoEStatic:
     act_fn: str
     n_expert: int
     n_expert_used: int
+    # fixed-topology blocks of the attention projections and the lm head
+    # (tp_blocks mode, as LlamaStatic); the packed expert FFN does not read it
+    tp_blocks: int = 0
 
     @classmethod
     def of(cls, cfg: ModelConfig) -> "MoEStatic":
         return cls(cfg.n_head, cfg.n_head_kv, cfg.head_dim_, cfg.rope_dim_,
                    cfg.rope_freq_base, cfg.rms_norm_eps, cfg.act_fn,
-                   cfg.n_expert, cfg.n_expert_used)
+                   cfg.n_expert, cfg.n_expert_used, cfg.tp_blocks)
 
     def step(self, params, tokens, positions, slots, cache, logits_index=None):
         """forward under this config (every loop calls its static's step)."""
@@ -267,11 +273,12 @@ def forward(
     q_rope = rope_angles(positions, rope_dim, freq_base)
     kv_rope = rope_angles(torch.clamp(pos_view, min=0), rope_dim, freq_base)
 
+    tpb = st.tp_blocks
     for li, p in enumerate(params["layers"]):
         h = rms_norm(x, p["attn_norm"], eps)
-        q = qmm(h, p["wq"]).reshape(B, T, H, D)
-        k = qmm(h, p["wk"]).reshape(B, T, Hkv, D)
-        v = qmm(h, p["wv"]).reshape(B, T, Hkv, D)
+        q = qmm_nblocked(h, p["wq"], tpb).reshape(B, T, H, D)
+        k = qmm_nblocked(h, p["wk"], tpb).reshape(B, T, Hkv, D)
+        v = qmm_nblocked(h, p["wv"], tpb).reshape(B, T, Hkv, D)
         q = apply_rope(q, positions, rope_dim, freq_base, True, cos_sin=q_rope)
         cache.write(li, flat, k, v)
         k_l, v_l = cache.k[li], cache.v[li]
@@ -285,10 +292,10 @@ def forward(
             v_l = dequantize_kv(v_l, vs_l, x.dtype)
         attn = attention(q, k_l, v_l, positions, pos_view, rope_dim=rope_dim,
                          freq_base=freq_base, kv_rope=kv_rope)
-        x = x + qmm(attn.reshape(B, T, H * D), p["wo"])
+        x = x + qmm_blocked(attn.reshape(B, T, H * D), p["wo"], tpb)
         x = x + moe_ffn_quant(rms_norm(x, p["ffn_norm"], eps), p, st)
 
-    return _head(params, x, logits_index, eps), cache
+    return _head(params, x, logits_index, eps, tpb), cache
 
 
 def make_step_fn(cfg: ModelConfig):

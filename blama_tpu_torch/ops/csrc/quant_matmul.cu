@@ -96,6 +96,25 @@
 // each); f32 operations for the masked all-expert chunks (8 experts x M rows).
 // An id outside the bank gives NaN outputs, not a stray read.
 //
+// Kernels L and M serve the fixed-topology tp_blocks mode, in which a solo
+// card must give the bits of a prover sharded over tp devices:
+//   L (q4k_parts_mm_launch) replaces
+//     blama_tpu/ops/pallas/quant_matmul.py:_q4k_parts_kernel and (nb = 1)
+//     blama_tpu/ops/pallas/quant_matmul.py:_q4k_pinned_kernel:
+//     kernel K's loader (min term inside) under the same tiles and one-row
+//     kernel, with a grid dimension over nb K-blocks: out [nb, M, N] f32,
+//     block i the sum over k in [i*K/nb, (i+1)*K/nb);
+//   M (w4a8_parts_launch) replaces
+//     blama_tpu/ops/pallas/quant_matmul.py:_a8s_parts_kernel:
+//     kernel A's quantizer once over x, then A's GEMV body per K-block.
+// (_a8s_pinned_kernel is kernel A itself: A sums each column alone with the
+// min term inside.) Every K offset of a block (the tiles' K steps, the
+// one-row kernel's group walk, A's staging chunks and a lane's groups) is
+// relative to the block's start, so block i equals the kernel on the
+// K-slice alone bit for bit: what a tp device holding that slice computes.
+// The caller combines the partials by a fixed halving tree. Bound: bytes at
+// the decode rows, f32 (L) operations at the prompt chunks, as for B and A.
+//
 // Determinism: every sum runs in a fixed order (per-lane or per-thread K
 // order, then a fixed xor-butterfly across the warp); no atomics, so a replay
 // on the same card gives the same bits, and an output element's sum does not
@@ -157,7 +176,11 @@ __device__ __forceinline__ void w4a8_gemv_body(const int8_t* __restrict__ xq,
                                                const uint8_t* __restrict__ codes,
                                                const __nv_bfloat16* __restrict__ scales,
                                                const __nv_bfloat16* __restrict__ mins,
-                                               float* __restrict__ out, int M, int K, int N) {
+                                               float* __restrict__ out, int M, int K, int N,
+                                               int kbeg, int klen) {
+  // K elements kbeg .. kbeg+klen-1 of rows of length K; every offset below
+  // (the staging chunks, a lane's groups) is relative to kbeg, so the sum
+  // equals this body's on that K-slice alone
   __shared__ __align__(16) int8_t s_x[MT * A_KC];
   __shared__ float s_xs[MT * (A_KC / GROUP)];
   __shared__ float s_sxm[MT * (A_KC / GROUP)];
@@ -169,24 +192,25 @@ __device__ __forceinline__ void w4a8_gemv_body(const int8_t* __restrict__ xq,
 #pragma unroll
   for (int r = 0; r < MT; ++r) acc[r] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += A_KC) {
-    const int kc = min(A_KC, K - k0);
+  for (int k0 = 0; k0 < klen; k0 += A_KC) {
+    const int kc = min(A_KC, klen - k0);
     const int gc = kc / GROUP;
+    const int kg = kbeg + k0;  // the chunk's first element in the rows of K
     __syncthreads();
     for (int i = threadIdx.x; i < M * (kc / 16); i += blockDim.x) {
       const int r = i / (kc / 16), c = i % (kc / 16);
       reinterpret_cast<int4*>(s_x + r * A_KC)[c] =
-          reinterpret_cast<const int4*>(xq + (size_t)r * K + k0)[c];
+          reinterpret_cast<const int4*>(xq + (size_t)r * K + kg)[c];
     }
     for (int i = threadIdx.x; i < M * gc; i += blockDim.x) {
       const int r = i / gc, c = i % gc;
-      s_xs[r * (A_KC / GROUP) + c] = xs[(size_t)r * G + k0 / GROUP + c];
-      s_sxm[r * (A_KC / GROUP) + c] = sxm[(size_t)r * G + k0 / GROUP + c];
+      s_xs[r * (A_KC / GROUP) + c] = xs[(size_t)r * G + kg / GROUP + c];
+      s_sxm[r * (A_KC / GROUP) + c] = sxm[(size_t)r * G + kg / GROUP + c];
     }
     __syncthreads();
     if (n < N) {
       for (int gl = lane; gl < gc; gl += 32) {
-        const int g = k0 / GROUP + gl;
+        const int g = kg / GROUP + gl;
         const uint4 w = __ldg(wrow + g);
         const float ws = __bfloat162float(scales[(size_t)n * G + g]);
         const float wm = __bfloat162float(mins[(size_t)n * G + g]);
@@ -226,6 +250,9 @@ __device__ __forceinline__ void w4a8_gemv_body(const int8_t* __restrict__ xq,
   }
 }
 
+// kernel A's GEMV, and kernel M's: K-block i = blockIdx.y (elements i*Kb ..
+// i*Kb+Kb-1) → partials out[i] of [nb, M, N]; block i equals the kernel on
+// (x[:, block i], w[:, block i]) alone bit for bit, and nb = 1 is kernel A
 template <int MT>
 __global__ void __launch_bounds__(A_WARPS * 32)
 w4a8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
@@ -233,8 +260,10 @@ w4a8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                  const uint8_t* __restrict__ codes,
                  const __nv_bfloat16* __restrict__ scales,
                  const __nv_bfloat16* __restrict__ mins,
-                 float* __restrict__ out, int M, int K, int N) {
-  w4a8_gemv_body<MT>(xq, xs, sxm, codes, scales, mins, out, M, K, N);
+                 float* __restrict__ out, int M, int K, int N, int Kb) {
+  const int i = blockIdx.y;
+  w4a8_gemv_body<MT>(xq, xs, sxm, codes, scales, mins, out + (size_t)i * M * N, M, K, N,
+                     i * Kb, Kb);
 }
 
 // kernel J: kernel A's body for selected expert j = blockIdx.y of a bank
@@ -263,7 +292,7 @@ w4a8_bank_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ x
   const size_t w0 = (size_t)e * N;                     // first weight row
   w4a8_gemv_body<MT>(xq + xr * K, xs + xr * (K / GROUP), sxm + xr * (K / GROUP),
                      codes + w0 * (K / 2), scales + w0 * (K / GROUP),
-                     mins + w0 * (K / GROUP), o, M, K, N);
+                     mins + w0 * (K / GROUP), o, M, K, N, 0, K);
 }
 
 template <int MT>
@@ -280,11 +309,11 @@ void launch_bank_gemv(const int8_t* xq, const float* xs, const float* sxm,
 template <int MT>
 void launch_gemv(const int8_t* xq, const float* xs, const float* sxm,
                  const uint8_t* codes, const __nv_bfloat16* scales,
-                 const __nv_bfloat16* mins, float* out, int M, int K, int N,
+                 const __nv_bfloat16* mins, int nb, float* out, int M, int K, int N,
                  cudaStream_t st) {
-  const int blocks = (N + A_WARPS - 1) / A_WARPS;
-  w4a8_gemv_kernel<MT><<<blocks, A_WARPS * 32, 0, st>>>(xq, xs, sxm, codes, scales,
-                                                        mins, out, M, K, N);
+  const dim3 grid((N + A_WARPS - 1) / A_WARPS, nb);
+  w4a8_gemv_kernel<MT><<<grid, A_WARPS * 32, 0, st>>>(xq, xs, sxm, codes, scales,
+                                                      mins, out, M, K, N, K / nb);
 }
 
 // ---------------------------------------------------------------------------
@@ -588,20 +617,21 @@ struct K4Loader {
 template <typename T, typename Loader>
 __device__ __forceinline__ void dequant_mm_body(const T* __restrict__ x, const Loader& w,
                                                 float* __restrict__ out, int M, int K,
-                                                int N) {
+                                                int N, int g0, int g1) {
+  // K steps (32-groups) g0 .. g1-1 of rows of length K, summed from zero:
+  // the same products in the same order as on that K-slice alone
   constexpr int ROWS = B_BK + (Loader::MIN_ROW ? 1 : 0);
   __shared__ __align__(16) float s_x[ROWS][B_BM + 4];
   __shared__ __align__(16) float s_w[ROWS][B_BN + 4];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * B_BM, n0 = blockIdx.x * B_BN;
-  const int G = K / GROUP;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  for (int g = 0; g < G; ++g) {
+  for (int g = g0; g < g1; ++g) {
     // each warp loads one row's 32 elements of the step per iteration
     for (int i = threadIdx.x; i < B_BM * B_BK; i += blockDim.x) {
       const int r = i / B_BK, k = i % B_BK;
@@ -642,11 +672,14 @@ __device__ __forceinline__ void dequant_mm_body(const T* __restrict__ x, const L
   }
 }
 
+// the tiles of B, G, H and L: K-block i = blockIdx.z (groups i*Gb ..
+// i*Gb+Gb-1) → partials out[i] of [nb, M, N]; one block is the whole product
 template <typename T, typename Loader>
 __global__ void __launch_bounds__(256)
 dequant_mm_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
-                  int M, int K, int N) {
-  dequant_mm_body<T, Loader>(x, w, out, M, K, N);
+                  int M, int K, int N, int Gb) {
+  const int i = blockIdx.z;
+  dequant_mm_body<T, Loader>(x, w, out + (size_t)i * M * N, M, K, N, i * Gb, (i + 1) * Gb);
 }
 
 // kernel K's tiles: selected expert j = blockIdx.z, e = eids[j]
@@ -666,7 +699,7 @@ dequant_bank_mm_kernel(const T* __restrict__ x, const Loader w,
     return;
   }
   dequant_mm_body<T, Loader>(x + (x_per_expert ? (size_t)j * M * K : 0),
-                             w.expert(e, K, N), o, M, K, N);
+                             w.expert(e, K, N), o, M, K, N, 0, K / GROUP);
 }
 
 // ---------------------------------------------------------------------------
@@ -709,12 +742,13 @@ __device__ __forceinline__ void load_x32(const __nv_bfloat16* p, float* xv) {
 
 template <typename T, typename Loader>
 __device__ __forceinline__ void dequant_row_body(const T* __restrict__ x, const Loader& w,
-                                                 float* __restrict__ out, int K, int N) {
+                                                 float* __restrict__ out, int K, int N,
+                                                 int g0, int g1) {
   const int n = blockIdx.x * R_THREADS + threadIdx.x;
   if (n >= N) return;
   float acc = 0.0f;
 #pragma unroll R_UNROLL
-  for (int g = 0; g < K / GROUP; ++g) {
+  for (int g = g0; g < g1; ++g) {
     float wv[GROUP], xv[GROUP];
     float negmin = 0.0f;
     w.row(wv, negmin, n, g, K);
@@ -740,11 +774,24 @@ __device__ __forceinline__ void dequant_row_body(const T* __restrict__ x, const 
   out[n] = acc;
 }
 
+// the one row of B, G, H and L at one block (the whole of K)
 template <typename T, typename Loader>
 __global__ void __launch_bounds__(R_THREADS)
 dequant_row_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
                    int K, int N) {
-  dequant_row_body<T, Loader>(x, w, out, K, N);
+  dequant_row_body<T, Loader>(x, w, out, K, N, 0, K / GROUP);
+}
+
+// L's one row over nb > 1 K-blocks: block i = blockIdx.y. (A kernel of its
+// own because the block's bounds as arguments made the one-block case ~1.4x
+// slower on the 8B lm head's one row, f32 x, on an NVIDIA H100; the bodies
+// are the same, so block i equals dequant_row_kernel on its K-slice alone.)
+template <typename T, typename Loader>
+__global__ void __launch_bounds__(R_THREADS)
+dequant_parts_row_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
+                         int K, int N, int Gb) {
+  const int i = blockIdx.y;
+  dequant_row_body<T, Loader>(x, w, out + (size_t)i * N, K, N, i * Gb, (i + 1) * Gb);
 }
 
 // kernel K's one row: selected expert j = blockIdx.y, e = eids[j]
@@ -761,21 +808,36 @@ dequant_bank_row_kernel(const T* __restrict__ x, const Loader w,
     return;
   }
   dequant_row_body<T, Loader>(x + (x_per_expert ? (size_t)j * K : 0), w.expert(e, K, N),
-                              o, K, N);
+                              o, K, N, 0, K / GROUP);
 }
 
 template <typename T, typename Loader>
-void launch_dequant_t(const void* x, const Loader& w, void* out, int M, int K, int N,
-                      cudaStream_t st) {
+void launch_dequant_t(const void* x, const Loader& w, int nb, void* out, int M, int K,
+                      int N, cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   float* o = static_cast<float*>(out);
-  if (M == 1) {
+  const int Gb = K / GROUP / nb;
+  if (M == 1 && nb == 1) {
     const int blocks = (N + R_THREADS - 1) / R_THREADS;
     dequant_row_kernel<T, Loader><<<blocks, R_THREADS, 0, st>>>(xp, w, o, K, N);
+  } else if (M == 1) {
+    const dim3 grid((N + R_THREADS - 1) / R_THREADS, nb);
+    dequant_parts_row_kernel<T, Loader><<<grid, R_THREADS, 0, st>>>(xp, w, o, K, N, Gb);
   } else {
-    dim3 grid((N + B_BN - 1) / B_BN, (M + B_BM - 1) / B_BM);
-    dequant_mm_kernel<T, Loader><<<grid, 256, 0, st>>>(xp, w, o, M, K, N);
+    const dim3 grid((N + B_BN - 1) / B_BN, (M + B_BM - 1) / B_BM, nb);
+    dequant_mm_kernel<T, Loader><<<grid, 256, 0, st>>>(xp, w, o, M, K, N, Gb);
   }
+}
+
+// one row goes to the column-per-thread kernel, more to the tiles; nb
+// K-blocks of K/nb elements (nb = 1: the whole product [M, N])
+template <typename Loader>
+int launch_dequant_mm(const void* x, int x_bf16, const Loader& w, int nb, void* out,
+                      int M, int K, int N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16) launch_dequant_t<__nv_bfloat16>(x, w, nb, out, M, K, N, st);
+  else launch_dequant_t<float>(x, w, nb, out, M, K, N, st);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename Loader>
@@ -806,25 +868,10 @@ int launch_bank_mm(const void* x, int x_bf16, const Loader& w, const void* eids,
   return (int)cudaGetLastError();
 }
 
-// one row goes to the column-per-thread kernel, more to the tiles
-template <typename Loader>
-int launch_dequant_mm(const void* x, int x_bf16, const Loader& w, void* out, int M,
-                      int K, int N, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) launch_dequant_t<__nv_bfloat16>(x, w, out, M, K, N, st);
-  else launch_dequant_t<float>(x, w, out, M, K, N, st);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// x: [M, K] bf16 (x_bf16 != 0) or f32; 1 <= M <= 16, K % 32 == 0.
-// xq [M, K] int8, xs / sxm [M, K/32] f32 and out [M, N] f32 are outputs.
-int w4a8_matmul_launch(const void* x, int x_bf16, const void* codes,
-                       const void* scales, const void* mins, void* xq, void* xs,
-                       void* sxm, void* out, int M, int K, int N, void* stream) {
+// kernel A's two launches, the GEMV over nb K-blocks (nb = 1: kernel A)
+int launch_w4a8(const void* x, int x_bf16, const void* codes, const void* scales,
+                const void* mins, int nb, void* xq, void* xs, void* sxm, void* out, int M,
+                int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16) launch_quant_acts<__nv_bfloat16>(x, M, K, xq, xs, sxm, st);
   else launch_quant_acts<float>(x, M, K, xq, xs, sxm, st);
@@ -837,12 +884,24 @@ int w4a8_matmul_launch(const void* x, int x_bf16, const void* codes,
   const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
   const __nv_bfloat16* mn = static_cast<const __nv_bfloat16*>(mins);
   float* o = static_cast<float*>(out);
-  if (M <= 1) launch_gemv<1>(q, s, sm, c, sc, mn, o, M, K, N, st);
-  else if (M <= 2) launch_gemv<2>(q, s, sm, c, sc, mn, o, M, K, N, st);
-  else if (M <= 4) launch_gemv<4>(q, s, sm, c, sc, mn, o, M, K, N, st);
-  else if (M <= 8) launch_gemv<8>(q, s, sm, c, sc, mn, o, M, K, N, st);
-  else launch_gemv<16>(q, s, sm, c, sc, mn, o, M, K, N, st);
+  if (M <= 1) launch_gemv<1>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
+  else if (M <= 2) launch_gemv<2>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
+  else if (M <= 4) launch_gemv<4>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
+  else if (M <= 8) launch_gemv<8>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
+  else launch_gemv<16>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: [M, K] bf16 (x_bf16 != 0) or f32; 1 <= M <= 16, K % 32 == 0.
+// xq [M, K] int8, xs / sxm [M, K/32] f32 and out [M, N] f32 are outputs.
+int w4a8_matmul_launch(const void* x, int x_bf16, const void* codes,
+                       const void* scales, const void* mins, void* xq, void* xs,
+                       void* sxm, void* out, int M, int K, int N, void* stream) {
+  return launch_w4a8(x, x_bf16, codes, scales, mins, 1, xq, xs, sxm, out, M, K, N, stream);
 }
 
 // The same on native Q4_K superblocks: blocks [N, K/256 * 144] bytes,
@@ -876,10 +935,10 @@ int q4k_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   if (scales_f32)
     return launch_dequant_mm(x, x_bf16, Q4KLoader<float>{c, static_cast<const float*>(scales)},
-                             out, M, K, N, stream);
+                             1, out, M, K, N, stream);
   return launch_dequant_mm(
       x, x_bf16, Q4KLoader<__nv_bfloat16>{c, static_cast<const __nv_bfloat16*>(scales)},
-      out, M, K, N, stream);
+      1, out, M, K, N, stream);
 }
 
 // codes: [N, K] int8; scales: [N, K/group] f32, group 32 or 16; K % 32 == 0.
@@ -889,9 +948,9 @@ int q8_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
   const int8_t* c = static_cast<const int8_t*>(codes);
   const float* s = static_cast<const float*>(scales);
   if (group == 32)
-    return launch_dequant_mm(x, x_bf16, Q8Loader<32>{c, s}, out, M, K, N, stream);
+    return launch_dequant_mm(x, x_bf16, Q8Loader<32>{c, s}, 1, out, M, K, N, stream);
   if (group == 16)
-    return launch_dequant_mm(x, x_bf16, Q8Loader<16>{c, s}, out, M, K, N, stream);
+    return launch_dequant_mm(x, x_bf16, Q8Loader<16>{c, s}, 1, out, M, K, N, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -899,7 +958,7 @@ int q8_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
 int q4k_native_mm_launch(const void* x, int x_bf16, const void* blocks, void* out,
                          int M, int K, int N, void* stream) {
   return launch_dequant_mm(x, x_bf16, K4Loader{static_cast<const uint8_t*>(blocks)},
-                           out, M, K, N, stream);
+                           1, out, M, K, N, stream);
 }
 
 // Kernel J: kernel A over selected experts of a bank. codes [Ne, N, K/2],
@@ -951,6 +1010,36 @@ int q4k_bank_mm_launch(const void* x, int x_bf16, int x_per_expert, const void* 
                                       static_cast<const __nv_bfloat16*>(mins)};
   return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, out, M, K, N,
                         stream);
+}
+
+// Kernel L: the exact dequant GEMM with the min term inside on nb K-blocks
+// of K/nb elements each (K % (32*nb) == 0), one launch: out [nb, M, N] f32,
+// out[i] the partial of block i, equal bit for bit to the same kernel on
+// (x[:, block i], w[:, block i]) alone; nb = 1 is the pinned product.
+// codes [N, K/2], scales / mins [N, K/32] f32 (scales_f32 != 0) or bf16.
+int q4k_parts_mm_launch(const void* x, int x_bf16, const void* codes, const void* scales,
+                        const void* mins, int scales_f32, int nb, void* out, int M, int K,
+                        int N, void* stream) {
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  if (nb < 1 || nb > 65535 || K % (GROUP * nb)) return (int)cudaErrorInvalidValue;
+  if (scales_f32) {
+    const Q4KMinLoader<float> w{{c, static_cast<const float*>(scales)},
+                                static_cast<const float*>(mins)};
+    return launch_dequant_mm(x, x_bf16, w, nb, out, M, K, N, stream);
+  }
+  const Q4KMinLoader<__nv_bfloat16> w{{c, static_cast<const __nv_bfloat16*>(scales)},
+                                      static_cast<const __nv_bfloat16*>(mins)};
+  return launch_dequant_mm(x, x_bf16, w, nb, out, M, K, N, stream);
+}
+
+// Kernel M: kernel A on nb K-blocks (K % (256*nb) == 0), one launch after one
+// activation quantization of all of x: out [nb, M, N] f32, out[i] equal bit
+// for bit to kernel A on (x[:, block i], w[:, block i]) alone; 1 <= M <= 16.
+int w4a8_parts_launch(const void* x, int x_bf16, const void* codes, const void* scales,
+                      const void* mins, int nb, void* xq, void* xs, void* sxm, void* out,
+                      int M, int K, int N, void* stream) {
+  if (nb < 1 || nb > 65535 || K % (256 * nb)) return (int)cudaErrorInvalidValue;
+  return launch_w4a8(x, x_bf16, codes, scales, mins, nb, xq, xs, sxm, out, M, K, N, stream);
 }
 
 }  // extern "C"

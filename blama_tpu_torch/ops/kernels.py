@@ -43,6 +43,9 @@ SIGNATURES = {
                              _I, _I, _I, _P],
         "q4k_bank_mm_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
                                _I, _I, _I, _P],
+        "q4k_parts_mm_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+        "w4a8_parts_launch": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                              _I, _I, _I, _P],
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
@@ -58,6 +61,7 @@ SIGNATURES = {
 LAUNCHES = {"w4a8_gemv": 0, "q4k_dequant_matmul": 0, "q8_dequant_matmul": 0,
             "q4k_native_matmul": 0, "w4a8k4_gemv": 0,
             "w4a8_bank_gemv": 0, "q4k_bank_matmul": 0,
+            "q4k_parts_matmul": 0, "w4a8_parts_gemv": 0,
             "decode_attention": 0, "prefill_attention": 0,
             "paged_decode_attention": 0, "paged_prefill_attention": 0}
 

@@ -47,8 +47,11 @@ reference), G (int8 codes, group 32 or 16) and H (native Q4_K, min term
 inside): 64 x 64 tiles, or a thread per output column for a single row, the
 same sum order per output element in both. MoE expert banks (QuantExperts,
 the stacked arrays of Ne QuantTensors) go through J (kernel A over selected
-experts) and K (B's loader with the min term inside, over selected experts). On a CPU tensor each wrapper runs its plain PyTorch version
-below; on a CUDA tensor it launches the kernel or raises.
+experts) and K (B's loader with the min term inside, over selected experts).
+The tp_blocks mode (qmm_blocked, qmm_nblocked) adds L (K's function per
+K-block, or pinned at one block) and M (kernel A per K-block). On a CPU
+tensor each wrapper runs its plain PyTorch version below; on a CUDA tensor
+it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -529,6 +532,20 @@ def _tile_launch(fn: str, name: str, x: torch.Tensor, N: int, *args) -> torch.Te
     return out
 
 
+def q4k_min_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
+    """x [M, K] @ (code·scale − min) → [M, N] f32 with the min term taken
+    with the product (the function of kernels K and L): x @ (code·scale)
+    minus (Σ x over each 32-group) @ min, every row alone (rows_mm). The
+    weights go in as contiguous [K, N]: the CPU's BLAS then gives a column
+    the same bits at any N (a transposed operand's column may not), so a
+    column shard of the weight computes its columns of the whole product."""
+    M, K = x.shape
+    xf = x.float()
+    xg = xf.reshape(M, K // GROUP, GROUP).sum(dim=-1)
+    return (rows_mm(xf, _q4k_values(w).t().contiguous())
+            - rows_mm(xg, w.mins.float().t().contiguous()))
+
+
 def q4k_pos(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
     """Kernel B (CUDA C++, replaces the TPU kernel _q4k_matmul_kernel):
     positive part x @ (code·scale) → [M, N] f32; bf16 scales
@@ -665,17 +682,11 @@ def w4a8_bank_plain(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> 
 
 
 def q4k_bank_plain(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel K: x @ (code·scale) minus (Σ x over each
-    32-group)·min against each selected expert → [n_sel, R, N] f32."""
+    """Plain version of kernel K: q4k_min_plain against each selected expert
+    → [n_sel, R, N] f32."""
     ids = eids.tolist()
-    _, R, K, xj = _bank_rows(x, len(ids))
-    outs = []
-    for j, e in enumerate(ids):
-        w = bank.expert(e)
-        xf = xj(j).float()
-        xg = xf.reshape(R, K // GROUP, GROUP).sum(dim=-1)
-        outs.append(rows_mm(xf, _q4k_values(w).t()) - rows_mm(xg, w.mins.float().t()))
-    return torch.stack(outs)
+    xj = _bank_rows(x, len(ids))[3]
+    return torch.stack([q4k_min_plain(xj(j), bank.expert(e)) for j, e in enumerate(ids)])
 
 
 def _check_bank(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor, scale_dtype):
@@ -741,6 +752,200 @@ def bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torc
     if bank.a8 and x.shape[-2] <= A8S_MAX_BATCH:
         return w4a8_bank_matmul(x, bank, eids)
     return q4k_bank_matmul(x, bank, eids)
+
+
+# ---------------------------------------------------------------------------
+# tp_blocks: kernels L and M, per-K-block partials and pinned products
+# ---------------------------------------------------------------------------
+#
+# The reference's fixed-topology mode: a prover sharded over tp devices and a
+# verifier on one card give the same logits when both run tp_blocks = nb.
+# Contraction-sharded projections (wo, w_down) take nb per-K-block partials
+# [nb, M, N] from one dispatch, combined by a balanced halving tree
+# (tree_combine): a tp device holds nb/tp contiguous blocks, so every side
+# adds the same partials in the same association. Output-sharded projections
+# (wq/wk/wv, gate/up, the lm head) take a pinned product: the min term
+# inside the kernel and each output column's arithmetic independent of the
+# columns computed beside it (the kernels here sum a column alone at any N,
+# so the reference's fixed lane block TPB_BLOCK_N has no counterpart).
+
+
+def _parts_supported(w, nb: int) -> bool:
+    """Whether w takes the K-blocked partials at nb blocks: the exact split
+    classes only (not a subclass of them), nb a power of two, K a multiple
+    of nb superblocks; anything else falls through to qmm."""
+    return (type(w) in (QuantTensor, QuantTensorA8S) and nb > 0 and nb & (nb - 1) == 0
+            and w.shape[0] % (nb * QK_K) == 0)
+
+
+def _pinned_supported(w) -> bool:
+    return type(w) in (QuantTensor, QuantTensorA8S)
+
+
+def tree_combine(parts: torch.Tensor) -> torch.Tensor:
+    """Balanced halving tree over the leading (block) axis, parts[0::2] +
+    parts[1::2] until one block is left: the association every engine
+    shares. Each level's input is released once the next is formed."""
+    while parts.shape[0] > 1:
+        parts = parts[0::2] + parts[1::2]
+    return parts[0]
+
+
+def _check_blocks(nb: int) -> None:
+    if not 1 <= nb <= 65535:
+        raise ValueError(f"the K-blocked kernels take 1..65535 blocks, got {nb}")
+
+
+def _sliced(w: QuantTensor, rows: slice, cols: slice, gcols: slice,
+            contiguous: bool) -> QuantTensor:
+    parts = (w.codes[rows, cols], w.scales[rows, gcols], w.mins[rows, gcols])
+    return type(w)(*(t.contiguous() if contiguous else t for t in parts))
+
+
+def k_slice(w: QuantTensor, i: int, nb: int, contiguous: bool = False) -> QuantTensor:
+    """K-block i of nb of a split Q4_K weight, as a weight of its own (views,
+    or with contiguous=True the arrays a tp device holding that K-slice
+    stores, which the kernels take)."""
+    cb, gb = w.codes.shape[1] // nb, w.scales.shape[1] // nb
+    return _sliced(w, slice(None), slice(i * cb, (i + 1) * cb), slice(i * gb, (i + 1) * gb),
+                   contiguous)
+
+
+def column_slice(w: QuantTensor, lo: int, hi: int) -> QuantTensor:
+    """Output columns lo .. hi-1 of a split Q4_K weight, contiguous: what a
+    tp device holding that column shard stores."""
+    return _sliced(w, slice(lo, hi), slice(None), slice(None), True)
+
+
+def _parts_plain(fn, x: torch.Tensor, w: QuantTensor, nb: int) -> torch.Tensor:
+    kb = x.shape[1] // nb
+    return torch.stack([fn(x[:, i * kb:(i + 1) * kb], k_slice(w, i, nb)) for i in range(nb)])
+
+
+def q4k_matmul_parts_plain(x: torch.Tensor, w: QuantTensor, nb: int) -> torch.Tensor:
+    """Plain version of kernel L: q4k_min_plain on each K-block's slice of x
+    and w → [nb, M, N] f32."""
+    return _parts_plain(q4k_min_plain, x, w, nb)
+
+
+def q4k_matmul_pinned_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
+    """Plain version of kernel L at nb = 1 → [M, N] f32."""
+    return q4k_matmul_parts_plain(x, w, 1)[0]
+
+
+def a8s_matmul_parts_plain(x: torch.Tensor, w: QuantTensorA8S, nb: int) -> torch.Tensor:
+    """Plain version of kernel M: kernel A's plain version on each K-block's
+    slice → [nb, M, N] f32 (the activation codes are per 32-group, so
+    quantizing a slice gives the codes of the whole row's)."""
+    return _parts_plain(w4a8_matmul_plain, x, w, nb)
+
+
+def q4k_matmul_parts(x: torch.Tensor, w: QuantTensor, nb: int) -> torch.Tensor:
+    """Kernel L (CUDA C++, replaces the TPU kernels _q4k_parts_kernel and, at
+    nb = 1, _q4k_pinned_kernel): x [M, K] @ packed W per K-block → [nb, M, N]
+    f32 partials, exact dequant with the min term inside; f32 scales
+    (QuantTensor) or bf16 (QuantTensorA8S above 16 rows)."""
+    if x.device.type == "cpu":
+        return q4k_matmul_parts_plain(x, w, nb)
+    _check_blocks(nb)
+    f32 = not isinstance(w, QuantTensorA8S)
+    M, K = _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.float32 if f32 else torch.bfloat16),
+                       nb * QK_K)
+    out = torch.empty((nb, M, w.n_out), dtype=torch.float32, device=x.device)
+    rc = kernels.lib("quant_matmul").q4k_parts_mm_launch(
+        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr(),
+        int(f32), nb, out.data_ptr(), M, K, w.n_out, kernels.stream_ptr(x.device))
+    kernels.check(rc, "q4k_parts_matmul")
+    kernels.count("q4k_parts_matmul")
+    return out
+
+
+def q4k_matmul_pinned(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
+    """Kernel L at nb = 1: the pinned exact product [M, N] f32, min term
+    inside (each column's bits independent of N and of the row count)."""
+    return q4k_matmul_parts(x, w, 1)[0]
+
+
+def a8s_parts_launch(x: torch.Tensor, w: QuantTensorA8S, nb: int):
+    """Launch kernel M on CUDA tensors. Returns (out [nb, M, N] f32, and the
+    prologue's xq, xs, sxm, as w4a8_launch does)."""
+    _check_blocks(nb)
+    M, K = _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.bfloat16), nb * QK_K)
+    _check_rows(M, "kernel M")
+    xq, xs, sxm, _ = _w4a8_buffers(M, K, 0, x.device)
+    out = torch.empty((nb, M, w.n_out), dtype=torch.float32, device=x.device)
+    rc = kernels.lib("quant_matmul").w4a8_parts_launch(
+        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr(),
+        nb, xq.data_ptr(), xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), M, K, w.n_out,
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, "w4a8_parts_gemv")
+    kernels.count("w4a8_parts_gemv")
+    return out, xq, xs, sxm
+
+
+def a8s_matmul_parts(x: torch.Tensor, w: QuantTensorA8S, nb: int) -> torch.Tensor:
+    """Kernel M (CUDA C++, replaces the TPU kernel _a8s_parts_kernel):
+    x [M <= 16, K] @ W per K-block → [nb, M, N] f32 partials (W4A8, min term
+    inside)."""
+    if x.device.type == "cpu":
+        return a8s_matmul_parts_plain(x, w, nb)
+    return a8s_parts_launch(x, w, nb)[0]
+
+
+def _quant_parts_call(flat: torch.Tensor, w, nb: int) -> torch.Tensor:
+    """The reference's routing of the partials by class and row count."""
+    if type(w) is QuantTensorA8S and flat.shape[0] <= A8S_MAX_BATCH:
+        return a8s_matmul_parts(flat, w, nb)
+    return q4k_matmul_parts(flat, w, nb)
+
+
+def _quant_kernel_call_pinned(flat: torch.Tensor, w) -> torch.Tensor:
+    if type(w) is QuantTensorA8S and flat.shape[0] <= A8S_MAX_BATCH:
+        # the reference's w4a8_swar_pinned (_a8s_pinned_kernel) is kernel A:
+        # A already sums each column alone with the min term inside
+        return w4a8_matmul(flat, w)
+    return q4k_matmul_pinned(flat, w)
+
+
+def qmm_blocked(x: torch.Tensor, w, nb: int) -> torch.Tensor:
+    """Contraction-sharded matmul of tp_blocks mode (wo, w_down): x [..., K]
+    @ W → [..., N] in x's dtype, the K axis in nb blocks whose f32 partials
+    tree_combine adds. An eligible packed weight takes kernel L or M (one
+    dispatch for all blocks); a dense [K, N] tensor nb products of K/nb
+    rows; nb = 0, a non-power-of-two nb, a K that does not split, or an
+    ineligible packed class: qmm."""
+    if nb and _parts_supported(w, nb):
+        lead = x.shape[:-1]
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        return tree_combine(_quant_parts_call(flat, w, nb)).reshape(*lead, -1).to(x.dtype)
+    if not nb or not isinstance(w, torch.Tensor) or x.shape[-1] % nb or nb & (nb - 1):
+        return qmm(x, w)
+    lead, K = x.shape[:-1], x.shape[-1]
+    xf, kb = x.reshape(-1, K).float(), K // nb
+    parts = torch.stack([rows_mm(xf[:, i * kb:(i + 1) * kb], w[i * kb:(i + 1) * kb].float())
+                         for i in range(nb)])
+    return tree_combine(parts).reshape(*lead, -1).to(x.dtype)
+
+
+def qmm_nblocked(x: torch.Tensor, w, nb: int, out_dtype=None) -> torch.Tensor:
+    """Output-sharded matmul of tp_blocks mode (wq/wk/wv, gate/up, the lm
+    head): x [..., K] @ W → [..., N] in out_dtype (default x's). An eligible
+    packed weight takes the pinned product (kernel A up to 16 rows of a
+    QuantTensorA8S, else kernel L at nb = 1); a dense [K, N] tensor nb
+    column blocks of N/nb, each its own product; nb = 0, an N that does not
+    split or an ineligible packed class: qmm (in x's dtype, as the
+    reference)."""
+    if nb and _pinned_supported(w):
+        lead = x.shape[:-1]
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        out = _quant_kernel_call_pinned(flat, w)
+        return out.reshape(*lead, -1).to(out_dtype or x.dtype)
+    if not nb or not isinstance(w, torch.Tensor) or w.shape[-1] % nb:
+        return qmm(x, w)
+    lead, (K, N) = x.shape[:-1], w.shape
+    xf, nw = x.reshape(-1, K).float(), N // nb
+    out = torch.cat([rows_mm(xf, w[:, i * nw:(i + 1) * nw].float()) for i in range(nb)], dim=1)
+    return out.reshape(*lead, N).to(out_dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------

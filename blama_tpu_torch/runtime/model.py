@@ -41,6 +41,9 @@ class ModelParams:
     dtype: str = "float32"
     mesh: object = None
     sharding_rules: object = None
+    # fixed-topology blocks (sharding-invariant logits): -1 resolves to 0
+    # (plain products) without a mesh, as in the reference; a solo verifier
+    # replaying a tp-sharded prover sets the prover's value (8 on its mesh)
     tp_blocks: int = -1
     moe_ragged: bool | None = None
     # "fused": the flash attention kernels (own numerics: prover and verifier
@@ -57,15 +60,17 @@ class Model:
         self.params = params or ModelParams()
         self.device = resolve_device(self.params.device)
         if (self.params.mesh is not None or self.params.sharding_rules is not None
-                or self.params.tp_blocks > 0 or self.params.moe_ragged is not None):
+                or self.params.moe_ragged is not None):
             raise NotImplementedError(
-                "meshes, sharding and tp_blocks are not ported "
+                "meshes, sharding and the ragged MoE mixture are not ported "
                 "(ROADMAP.md §1 item 13, multi-GPU)")
         if self.params.attn not in ("xla", "fused", None):
             raise ValueError(
                 f"ModelParams.attn must be 'xla' or 'fused', got {self.params.attn!r}")
         self.reader = GGUFReader(gguf_path)
         self.config = ModelConfig.from_gguf(self.reader)
+        tpb = self.params.tp_blocks
+        self.config.tp_blocks = 0 if tpb < 0 else tpb
         from ..models.llama import ARCHS
 
         if self.config.arch not in ARCHS:

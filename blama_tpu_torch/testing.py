@@ -83,6 +83,12 @@ TINY_LLAMA_SPEC = dict(
 )
 
 
+# a tiny geometry the tp_blocks mode takes at tp_blocks = 4 (the reference's
+# tests/test_parallel.py quant_gguf): every contraction width a multiple of
+# 4 · 256 (E 1024, F 2048), so wo and w_down split into 4 K-blocks
+TP_TINY_SPEC = dict(n_layer=2, n_embd=1024, n_ff=2048, n_head=8, n_head_kv=4)
+
+
 def write_tiny_llama(
     path: str,
     quant: GGMLType | str = GGMLType.Q4_K,

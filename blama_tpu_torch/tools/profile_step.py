@@ -1,14 +1,16 @@
 """Where a decode step's time goes on the card.
 
     python -m blama_tpu_torch.tools.profile_step [--steps 16] [--ctx 2048] [--scheduler]
-        [--dtype q4k_a8] [--quant Q4_K] [--layers N] [--moe]
+        [--dtype q4k_a8] [--quant Q4_K] [--layers N] [--moe] [--tp-blocks N]
 
 Loads the synthesized llama3-8b GGUF (testing.cached_llama_gguf; `--quant`
 Q4_K, Q8_0 or Q4_K_M, `--layers` cuts its depth) as engine `--dtype` (any of
 runtime.model.ENGINES, e.g. `q4k_fused`, or `q8_0_fused` with `--quant Q8_0`);
 with `--moe` the synthesized mixtral-8x7b GGUF (testing.cached_moe_gguf,
 Mixtral-8x7B's widths, `--layers` deep, default 8) as `q4k_a8` or
-`q4k_fused` with the two-pass attention chain (attn="xla"). It
+`q4k_fused` with the two-pass attention chain (attn="xla"). `--tp-blocks N`
+loads it in the fixed-topology tp_blocks mode (ModelParams.tp_blocks; the
+mode a solo verifier of a prover sharded over tp | N devices runs). It
 prefills a 128-token prompt, then times greedy decode steps
 (generate_loop.continue_greedy): wall time per step with the device
 synchronized, and one torch.profiler window over the same steps for the
@@ -43,6 +45,8 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=None, help="cut the file's depth")
     ap.add_argument("--moe", action="store_true",
                     help="the mixtral-8x7b MoE file (default depth 8 layers)")
+    ap.add_argument("--tp-blocks", type=int, default=-1,
+                    help="ModelParams.tp_blocks (fixed-topology blocks; -1: none)")
     args = ap.parse_args()
 
     import numpy as np
@@ -69,7 +73,7 @@ def main() -> None:
         path = cached_llama_gguf("llama3-8b", seed=7, quant=quant, n_layer=args.layers)
     file_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    model = Model(path, ModelParams(dtype=args.dtype))
+    model = Model(path, ModelParams(dtype=args.dtype, tp_blocks=args.tp_blocks))
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     weights_gib = torch.cuda.memory_allocated() / 2 ** 30
@@ -136,7 +140,8 @@ def main() -> None:
     busy = sum(r[1] for r in kern)
     print(json.dumps(dict(
         card=smi, mode="scheduler" if args.scheduler else "solo", rows=rows,
-        engine=args.dtype, file="mixtral-8x7b" if args.moe else args.quant,
+        engine=args.dtype, tp_blocks=model.config.tp_blocks,
+        file="mixtral-8x7b" if args.moe else args.quant,
         layers=model.config.n_layer, file_s=file_s, load_s=load_s, weights_gib=weights_gib,
         steps=args.steps, ctx=args.ctx, wall_ms_per_step=wall_ms,
         device_busy_ms_per_step=busy,

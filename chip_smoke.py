@@ -27,6 +27,13 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    8, a row's result equal at 1, 4, 8 and 128 rows; and the MoE path's
    other shapes: A and B on f32 scales at the projections' 4 rows, A at 1
    and 4 rows and B on f32 scales at 1 row of Mixtral's lm head (N=32000);
+   and the tp_blocks kernels at TP_BLOCKS = 8: L's per-K-block partials for
+   wo and down at 1, 8 and 128 rows (f32 scales; bf16 at 128), L at one
+   block for wq, wk, gate and the lm head, M for wo and down at 1 and 8
+   rows, each partial against its plain version, and bit for bit the
+   partials of tp = 2, 4, 8 K-slices computed alone equal to the
+   one-dispatch partials, each column shard of a pinned product equal to
+   its columns, a row's result equal at every row count;
 3. solo: synthesizes the llama3-8b Q4_K GGUF from a seed (reused from the
    temp directory when present), loads it as `q4k_a8` with fused attention,
    and on an INT8 cache (ctx 2048) one solo Session answers three
@@ -58,7 +65,15 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    attention kernel; `q4k_fused` replays `q4k_a8`'s records (printed); the
    `q4k_a8` model behind the HTTP server on the paged pool answers four
    concurrent requests, each verified at exactly 1.0;
-7. small: the tiny llama fixture proven on the card and replayed by the port
+7. tp_blocks: the fixed-topology mode a solo verifier of a prover sharded
+   over 8 cards runs (tp_blocks=8): the llama3-8b file at full depth as
+   `q4k_fused` (kernel L) and `q4k_a8` (A, M, L), the engines phase's three
+   requests each, every same-backend replay exactly 1.0, only the mode's
+   matmul kernels launched; each engine's verifier in this mode replays its
+   tp_blocks=0 records at the cross-engine thresholds (0.95 / 0.98);
+   `q4k_a8` behind the HTTP server on the paged scheduler, every verify
+   1.0; the Mixtral file as `q4k_fused` (L, K), one request, replay 1.0;
+8. small: the tiny llama fixture proven on the card and replayed by the port
    on the CPU must meet the cross-backend thresholds, and so must, on the
    card, `q4k_a8` replayed by `q4k_fused` and `q4k_a8_xla` by `q4k_a8`.
 
@@ -103,6 +118,8 @@ MOE_EXPERTS = 8
 MOE_FILE_LAYERS = 8
 # the MoE path's attention projections and lm head (K, N) at Mixtral's widths
 MOE_DENSE_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "lm_head": (4096, 32000)}
+# tp_blocks of the fixed-topology phase: the reference's value on any mesh
+TP_BLOCKS = 8
 
 
 def log(msg: str) -> None:
@@ -552,6 +569,137 @@ def moe_dense_kernel_phase(torch, timer, rng):
     return rows
 
 
+def _parts_equal_shards(torch, qm, fn, x, w, nb, parts, what):
+    """Bit for bit: the partials each of tp devices computes on its K-slice
+    alone, concatenated and combined by the tree, equal the one-dispatch
+    partials after the tree (and the concatenated partials equal them
+    before it)."""
+    K = x.shape[1]
+    whole = qm.tree_combine(parts)
+    for tp in (2, 4, 8):
+        kb = K // tp
+        shards = torch.cat([fn(x[:, d * kb:(d + 1) * kb].contiguous(),
+                               qm.k_slice(w, d, tp, contiguous=True), nb // tp)
+                            for d in range(tp)])
+        if not (torch.equal(shards, parts) and torch.equal(qm.tree_combine(shards), whole)):
+            raise AssertionError(f"{what}: partials of tp={tp} K-slices differ from the "
+                                 "one-dispatch partials")
+
+
+def _rows_alone(torch, fn, x, out, what):
+    """Bit for bit: each row of x computed alone gives that row of `out`
+    ([nb, M, N] partials of all of x), up to 8 rows and then the last."""
+    M = x.shape[0]
+    for r in sorted({*range(min(M, 8)), M - 1}):
+        if not torch.equal(fn(x[r:r + 1].contiguous()), out[:, r:r + 1]):
+            raise AssertionError(f"{what}: row {r} of {M} differs from the row alone")
+
+
+def tp_kernel_phase(torch, timer, rng):
+    """Kernels L and M against their plain versions at the 8B shapes of the
+    tp_blocks mode at TP_BLOCKS = 8: L's per-K-block partials for wo and down
+    (512- and 1792-wide blocks) at 1, 4, 8 and 128 rows on f32 scales and at
+    128 on bf16 (the W4A8 engine's prompt chunk), L at one block (the pinned
+    product) for wq, wk, gate and the lm head at 1, 4, 8 and 128 rows (head:
+    1, 4 and 8) and for Mixtral's lm head at one row, M for wo and down at 1,
+    4 and 8 rows (4: the instance's 3-token prompt chunk and the scheduler's
+    4-row decode, M's and A's 4-row build). Bit for bit: parts = shards
+    (tp = 2, 4, 8 K-slices computed alone), pinned = column shard (each of tp
+    column shards of the weight), and each row (up to 8, and the last) alone
+    against the same row among the others."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    nb = TP_BLOCKS
+    rows = []
+    # label, (K, N), parts (contraction-sharded) or pinned (output-sharded),
+    # row counts of L on f32 scales
+    cases = [("wq/wo", SHAPES["wq/wo"], True, (1, 4, 8, 128)),
+             ("down", SHAPES["down"], True, (1, 4, 8, 128)),
+             ("wq/wo", SHAPES["wq/wo"], False, (1, 4, 8, 128)),
+             ("wk/wv", SHAPES["wk/wv"], False, (1, 4, 8, 128)),
+             ("gate/up", SHAPES["gate/up"], False, (1, 4, 8, 128)),
+             ("lm_head", SHAPES["lm_head"], False, (1, 4, 8)),
+             ("moe lm_head", MOE_DENSE_SHAPES["lm_head"], False, (1,))]
+    for label, (K, N), parts, counts in cases:
+        q4k = random_q4k(rng, N, K, K ** -0.5)
+        x128 = torch.randn((128, K), generator=gen, device="cuda").to(torch.bfloat16)
+        if label.endswith("lm_head"):   # f32 input (bf16-valued), as forward feeds it
+            x128 = x128.float()
+        exact = qm.repack_q4k_exact(q4k, N, K, "cuda")
+        wb = qm.dequantize(exact).to(torch.bfloat16)   # the library yardstick
+        runs = [(exact, "f32", M) for M in counts]
+        if parts:
+            a8 = qm.repack_q4k_a8s(q4k, N, K, "cuda")
+            runs.append((a8, "bf16", 128))
+        for w, sc, M in runs:
+            x = x128[128 - M:].contiguous()
+            xb = x.to(torch.bfloat16)
+            wbytes = K * N // 2 + (8 if sc == "f32" else 4) * (K // 32) * N
+            blocks = nb if parts else 1
+            shape = f"{label} K={K} N={N} M={M} nb={blocks} scales={sc}"
+            out = qm.q4k_matmul_parts(x, w, blocks)
+            torch.cuda.synchronize()
+            ref = qm.q4k_matmul_parts_plain(x, w, blocks)
+            err = max(check_close(f"kernel L {shape} block {i}", out[i], ref[i], MATMUL_TOL)
+                      for i in range(blocks))
+            if parts:
+                _parts_equal_shards(torch, qm, qm.q4k_matmul_parts, x, w, nb, out,
+                                    f"kernel L {shape}")
+            else:
+                for tp in (2, 4, 8):
+                    n = N // tp
+                    for d in range(tp):
+                        cols = qm.column_slice(w, d * n, (d + 1) * n)
+                        if not torch.equal(qm.q4k_matmul_pinned(x, cols),
+                                           out[0][:, d * n:(d + 1) * n]):
+                            raise AssertionError(f"kernel L {shape}: column shard {d} of "
+                                                 f"{tp} differs from its columns")
+            _rows_alone(torch, lambda xr: qm.q4k_matmul_parts(xr, w, blocks), x, out,
+                        f"kernel L {shape}")
+            rows.append(dict(
+                kernel="q4k_parts_matmul", shape=shape, max_abs_err=err,
+                kernel_ms=timer(lambda: qm.q4k_matmul_parts(x, w, blocks)),
+                plain_ms=timer(lambda: qm.q4k_matmul_parts_plain(x, w, blocks), reps=3, warm=1),
+                library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                **_bound(wbytes + M * K * x.element_size() + blocks * M * N * 4,
+                         2 * M * K * N, BF16_FLOPS)))
+            log(f"kernel L {rows[-1]}")
+        if parts:
+            # kernel M: the W4A8 engine's partials up to 16 rows
+            for M in (1, 4, 8):
+                x = x128[128 - M:].contiguous()
+                xb = x.to(torch.bfloat16)
+                shape = f"{label} K={K} N={N} M={M} nb={nb}"
+                out, xq, xs, sxm = qm.a8s_parts_launch(x, a8, nb)
+                torch.cuda.synchronize()
+                pxq, pxs, psxm = qm.quant_acts(x)
+                for a, b, part in ((xq, pxq, "codes"), (xs, pxs, "scales"),
+                                   (sxm, psxm, "scale*sum")):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"kernel M {shape}: activation {part} differ")
+                ref = qm.a8s_matmul_parts_plain(x, a8, nb)
+                err = max(check_close(f"kernel M {shape} block {i}", out[i], ref[i],
+                                      MATMUL_TOL) for i in range(nb))
+                _parts_equal_shards(torch, qm, qm.a8s_matmul_parts, x, a8, nb, out,
+                                    f"kernel M {shape}")
+                _rows_alone(torch, lambda xr: qm.a8s_matmul_parts(xr, a8, nb), x, out,
+                            f"kernel M {shape}")
+                rows.append(dict(
+                    kernel="w4a8_parts_gemv", shape=shape, max_abs_err=err,
+                    kernel_ms=timer(lambda: qm.a8s_parts_launch(x, a8, nb)),
+                    plain_ms=timer(lambda: qm.a8s_matmul_parts_plain(x, a8, nb), reps=3,
+                                   warm=1),
+                    library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                    **_bound(K * N // 2 + 4 * (K // 32) * N + M * K * 2 + nb * M * N * 4,
+                             2 * M * K * N, INT8_OPS)))
+                log(f"kernel M {rows[-1]}")
+            del a8
+        del exact, wb
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H):
     """Dequantized, pre-rotated dense rows with GQA heads expanded, and the
     boolean visibility mask, for the library yardstick."""
@@ -731,8 +879,9 @@ def _gather(pkv, table, G, kp, vp, ksp, vsp):
     return out
 
 
-def replay_score(inst, prompt, preds):
-    """A fresh session of `inst` replays a record; returns the score."""
+def replay(inst, prompt, preds):
+    """A fresh session of `inst` replays a record; returns (the score, the
+    mean logit similarity)."""
     from blama_tpu_torch.runtime.session import SessionInitParams
     from blama_tpu_torch.runtime.verify import LogitComparer, MetricsAggregator
 
@@ -741,10 +890,11 @@ def replay_score(inst, prompt, preds):
     replayed = v.fill_ctx(preds)
     inst.stop_session()
     agg = MetricsAggregator()
-    score = 0.0
+    score, sims = 0.0, []
     for a, b in zip(preds, replayed, strict=True):
         score = agg.push_and_verify(LogitComparer.compare(a.logits, b.logits))
-    return score
+        sims.append(LogitComparer.logit_similarity(a.logits, b.logits))
+    return score, sum(sims) / len(sims)
 
 
 def prove_and_verify(inst, prompt, n, record=None):
@@ -774,12 +924,13 @@ def prove_and_verify(inst, prompt, n, record=None):
     if record is not None:
         record.append((prompt, preds))
     return dict(prompt=len(prompt), tokens=len(preds), ttft_s=ttft,
-                decode_tok_s=len(preds) / dt, score=replay_score(inst, prompt, preds))
+                decode_tok_s=len(preds) / dt, score=replay(inst, prompt, preds)[0])
 
 
-def load_8b(torch, kind, dtype="q4k_a8", quant=None, n_layer=None):
+def load_8b(torch, kind, dtype="q4k_a8", quant=None, n_layer=None, tp_blocks=-1):
     """Synthesize (or reuse) the llama3-8b GGUF of `quant` (default Q4_K) at
-    `n_layer` layers (default: all 32) and load it as engine `dtype`."""
+    `n_layer` layers (default: all 32) and load it as engine `dtype` (in the
+    tp_blocks mode when `tp_blocks` > 0)."""
     from blama_tpu_torch.gguf import GGMLType
     from blama_tpu_torch.runtime.model import Model, ModelParams
     from blama_tpu_torch.testing import cached_llama_gguf
@@ -790,10 +941,11 @@ def load_8b(torch, kind, dtype="q4k_a8", quant=None, n_layer=None):
     log(f"e2e: llama3-8b GGUF {path.name} ready in {time.perf_counter() - t0:.1f} s "
         f"({path.stat().st_size / 2**30:.2f} GiB)")
     t0 = time.perf_counter()
-    model = Model(str(path), ModelParams(dtype=dtype, attn="fused"))
+    model = Model(str(path), ModelParams(dtype=dtype, attn="fused", tp_blocks=tp_blocks))
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    log(f"e2e: {dtype} load {load_s:.1f} s on {kind}; depth {model.config.n_layer} layers "
+    log(f"e2e: {dtype} (tp_blocks {model.config.tp_blocks}) load {load_s:.1f} s on {kind}; "
+        f"depth {model.config.n_layer} layers "
         f"({'not cut' if n_layer is None else 'cut from 32'}), width {model.config.n_embd}")
     return model, load_s
 
@@ -838,15 +990,16 @@ def solo_phase(torch, model, kind, record):
 
 
 MATMUL_KERNELS = ("w4a8_gemv", "q4k_dequant_matmul", "q8_dequant_matmul",
-                  "q4k_native_matmul", "w4a8k4_gemv")
+                  "q4k_native_matmul", "w4a8k4_gemv", "q4k_parts_matmul", "w4a8_parts_gemv")
 
 
-def engines_phase(torch, kind, a8_record):
+def engines_phase(torch, kind, a8_record, records):
     """This slice's main path: every other engine at full 8B width, one model
     on the card at a time, through Model -> Instance -> Session: three solo
     prove-and-verify requests each (prompts of 128, 5 and 3 tokens, so the
     kernels run at 128, 8, 4 and 1 rows), every same-backend replay exactly
-    1.0, and each engine must launch its own matmul kernels and no other."""
+    1.0, and each engine must launch its own matmul kernels and no other.
+    `q4k_fused`'s records go to `records` (the tp_blocks phase replays them)."""
     import numpy as np
 
     from blama_tpu_torch.gguf import GGMLType
@@ -896,8 +1049,9 @@ def engines_phase(torch, kind, a8_record):
         if dtype == "q4k_fused":
             # printed, not gated (random 8B weights have flat logits): the
             # exact engine as verifier of the W4A8 prover's records
-            res["replay_of_q4k_a8"] = [replay_score(inst, p, preds) for p, preds in a8_record]
+            res["replay_of_q4k_a8"] = [replay(inst, p, preds)[0] for p, preds in a8_record]
             log(f"engine q4k_fused replaying q4k_a8's records: {res['replay_of_q4k_a8']}")
+            records["q4k_fused"] = record
         if quant is None:
             tokens[dtype] = [[p.token for p in preds] for _, preds in record]
         out[name] = res
@@ -977,11 +1131,11 @@ def moe_phase(torch, kind):
         res = dict(load_s=load_s, gib_after_load=gib, requests=results, launches=launches)
         if dtype == "q4k_a8":
             a8_record = record
-            res["serving"], res["serving_launches"] = _moe_serving(torch, model, kind)
+            res["serving"], res["serving_launches"] = _serve_and_verify(torch, model, kind)
         else:
             # printed, not gated: the exact engine as verifier of the W4A8
             # prover's records (random weights: flat logits)
-            res["replay_of_q4k_a8"] = [replay_score(inst, p, preds) for p, preds in a8_record]
+            res["replay_of_q4k_a8"] = [replay(inst, p, preds)[0] for p, preds in a8_record]
             log(f"moe q4k_fused replaying q4k_a8's records: {res['replay_of_q4k_a8']}")
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         out[dtype] = res
@@ -991,10 +1145,12 @@ def moe_phase(torch, kind):
     return out
 
 
-def _moe_serving(torch, model, kind):
-    """The MoE model behind the HTTP server over SchedulerServer(paged=True):
-    four concurrent /complete requests (every scheduler step runs the masked
-    expert path), each then verified over /verify_completion at exactly 1.0."""
+def _serve_and_verify(torch, model, kind, needs=("w4a8_bank_gemv", "q4k_bank_matmul"),
+                 where="moe serving"):
+    """The model behind the HTTP server over SchedulerServer(paged=True):
+    four concurrent /complete requests (for a MoE model every scheduler step
+    runs the masked expert path), each then verified over /verify_completion
+    at exactly 1.0; the kernels `needs` must have run."""
     from blama_tpu_torch.ops import kernels
 
     srv = Served(model, max_batch=4, paged=True, horizon=8)
@@ -1006,22 +1162,118 @@ def _moe_serving(torch, model, kind):
         resps, wall = srv.post_all([("/complete", b) for b in bodies])
         n_tok = sum(len(r["tokenData"]) for r in resps)
         if any(len(r["tokenData"]) != 16 for r in resps):
-            raise AssertionError("moe serving: a short response")
+            raise AssertionError(f"{where}: a short response")
         scores, vwall = srv.post_all([("/verify_completion", {"request": b, "response": r})
                                       for b, r in zip(bodies, resps, strict=True)])
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         got = [sc["result"] for sc in scores]
-        log(f"moe serving (paged, 4 rows): {n_tok} tokens in {wall:.2f} s = "
+        log(f"{where} (paged, 4 rows): {n_tok} tokens in {wall:.2f} s = "
             f"{n_tok / wall:.1f} tok/s over all rows on {kind}; verify {got} in {vwall:.2f} s")
-        log(f"moe serving launches {launches}")
+        log(f"{where} launches {launches}")
         if got != [1.0] * len(bodies):
-            raise AssertionError(f"moe serving: scheduler replay scored {got}, not 1.0")
-        require_launched(launches, ("w4a8_bank_gemv", "q4k_bank_matmul"), "MoE serving")
+            raise AssertionError(f"{where}: scheduler replay scored {got}, not 1.0")
+        require_launched(launches, needs, where)
         return dict(requests=len(bodies), tokens=n_tok, wall_s=wall, verify_s=vwall,
                     scores=got), launches
     finally:
         srv.close()
+
+
+def tp_blocks_phase(torch, kind, records):
+    """This slice's main path: the fixed-topology tp_blocks mode at
+    TP_BLOCKS = 8 (the mode a solo verifier of a prover sharded over 8 cards
+    runs), one model on the card at a time. The llama3-8b file at full depth
+    as `q4k_fused` (kernel L only) and `q4k_a8` (A and M up to 16 rows, L
+    above): the engines phase's three requests each, every same-backend
+    replay exactly 1.0; each engine's verifier in this mode scores its own
+    tp_blocks=0 records (`records`) at the cross-mode thresholds 0.95 / 0.98;
+    `q4k_a8` behind the HTTP server on the paged scheduler, every verify 1.0.
+    Then the Mixtral file (MOE_FILE_LAYERS of 32 layers) as `q4k_fused`: one
+    request, replay 1.0 (L for the attention projections and the head, K for
+    the expert banks)."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.testing import cached_moe_gguf
+
+    requests = [(128, 16), (5, 16), (3, 8)]
+    out = {}
+    for dtype, needs in (("q4k_fused", ("q4k_parts_matmul",)),
+                         ("q4k_a8", ("w4a8_gemv", "w4a8_parts_gemv", "q4k_parts_matmul"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, load_s = load_8b(torch, kind, dtype, tp_blocks=TP_BLOCKS)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        inst = Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True,
+                                                  kv_dtype="int8"))
+        rng = np.random.default_rng(7)
+        results = []
+        for n_prompt, n_gen in requests:
+            prompt = [1] + rng.integers(259, model.config.n_vocab, n_prompt - 1).tolist()
+            r = prove_and_verify(inst, prompt, n_gen)
+            log(f"tp_blocks={TP_BLOCKS} {dtype} request {r} on {kind}")
+            if r["score"] != 1.0:
+                raise AssertionError(f"tp_blocks {dtype}: same-backend replay scored "
+                                     f"{r['score']}, not 1.0")
+            results.append(r)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        log(f"tp_blocks={TP_BLOCKS} {dtype} launches {launches}")
+        require_launched(launches, needs + ("decode_attention", "prefill_attention"),
+                         f"the tp_blocks {dtype} path")
+        others = [k for k in MATMUL_KERNELS if k not in needs and launches[k]]
+        if others:
+            raise AssertionError(f"tp_blocks {dtype} launched kernels off its path: {others}")
+        # another numerics mode (the min term inside, the K-blocked sums):
+        # gated at the cross-engine thresholds, not at equality
+        cross = [replay(inst, p, preds) for p, preds in records[dtype]]
+        log(f"tp_blocks={TP_BLOCKS} {dtype} replaying its tp_blocks=0 records "
+            f"(score, mean similarity): {cross}")
+        if not all(sc >= 0.95 and sim >= 0.98 for sc, sim in cross):
+            raise AssertionError(f"tp_blocks {dtype}: cross-mode replay below thresholds")
+        res = dict(load_s=load_s, layers=model.config.n_layer, requests=results,
+                   launches=launches, replay_of_tp0=cross,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del inst
+        if dtype == "q4k_a8":
+            res["serving"], res["serving_launches"] = _serve_and_verify(
+                torch, model, kind, needs, f"tp_blocks={TP_BLOCKS} serving")
+        out[dtype] = res
+        model.close()
+        del model
+        torch.cuda.empty_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = cached_moe_gguf("mixtral-8x7b", seed=11, n_layer=MOE_FILE_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(path, ModelParams(dtype="q4k_fused", attn="xla", tp_blocks=TP_BLOCKS))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    inst = Instance(model, InstanceInitParams(ctx_size=2048, kv_dtype="int8"))
+    prompt = [1] + np.random.default_rng(7).integers(259, model.config.n_vocab, 127).tolist()
+    r = prove_and_verify(inst, prompt, 16)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"tp_blocks={TP_BLOCKS} moe q4k_fused ({MOE_FILE_LAYERS} layers) request {r}, load "
+        f"{load_s:.1f} s, launches {launches}")
+    if r["score"] != 1.0:
+        raise AssertionError(f"tp_blocks moe: same-backend replay scored {r['score']}, not 1.0")
+    require_launched(launches, ("q4k_parts_matmul", "q4k_bank_matmul"), "the tp_blocks MoE path")
+    others = [k for k in MATMUL_KERNELS + MOE_MATMUL_KERNELS
+              if k not in ("q4k_parts_matmul", "q4k_bank_matmul") and launches[k]]
+    if others:
+        raise AssertionError(f"tp_blocks moe launched kernels off its path: {others}")
+    out["moe q4k_fused"] = dict(load_s=load_s, layers=model.config.n_layer, requests=[r],
+                                launches=launches)
+    model.close()
+    del inst, model
+    torch.cuda.empty_cache()
+    return out
 
 
 class Served:
@@ -1413,6 +1665,18 @@ KERNELS = {
     "q4k_bank_matmul_bf16": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
                              "blama_tpu/ops/pallas/quant_matmul.py:1811",
                              "gate/up K=4096 N=14336 M=128 sel=8 scales=bf16"),
+    # the tp_blocks phase's kernels: L at the exact engine's decode step (the
+    # down projection's 8 partials of one row), L on bf16 scales at the W4A8
+    # engine's 128-row prompt chunk, M at the W4A8 decode step
+    "q4k_parts_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                         "blama_tpu/ops/pallas/quant_matmul.py:1391",
+                         "down K=14336 N=4096 M=1 nb=8 scales=f32"),
+    "q4k_parts_matmul_bf16": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                              "blama_tpu/ops/pallas/quant_matmul.py:1391",
+                              "down K=14336 N=4096 M=128 nb=8 scales=bf16"),
+    "w4a8_parts_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                        "blama_tpu/ops/pallas/quant_matmul.py:1419",
+                        "down K=14336 N=4096 M=1 nb=8"),
 }
 
 
@@ -1449,6 +1713,7 @@ def main() -> int:
         rows += attention_phase(torch, timer)
         rows += bank_kernel_phase(torch, timer, np.random.default_rng(2))
         rows += moe_dense_kernel_phase(torch, timer, np.random.default_rng(3))
+        rows += tp_kernel_phase(torch, timer, np.random.default_rng(4))
         del timer
         torch.cuda.empty_cache()
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
@@ -1461,11 +1726,15 @@ def main() -> int:
         model.close()
         del model
         torch.cuda.empty_cache()
-        res["engines"] = engines_phase(torch, kind, a8_record)
+        tp0_records = {"q4k_a8": a8_record}
+        res["engines"] = engines_phase(torch, kind, a8_record, tp0_records)
         del a8_record
         log(f"engines phase done at {time.perf_counter() - t_start:.1f} s")
         res["moe"] = moe_phase(torch, kind)
         log(f"moe phase done at {time.perf_counter() - t_start:.1f} s")
+        res["tp_blocks"] = tp_blocks_phase(torch, kind, tp0_records)
+        del tp0_records
+        log(f"tp_blocks phase done at {time.perf_counter() - t_start:.1f} s")
         res["small"] = small_phase(torch)
 
     out_dir = ROOT / "chiprun_out"
@@ -1502,6 +1771,14 @@ def main() -> int:
         "w4a8_bank_gemv": moe_l["q4k_a8"]["w4a8_bank_gemv"],
         "q4k_bank_matmul": moe_l["q4k_fused"]["q4k_bank_matmul"],
         "q4k_bank_matmul_bf16": moe_l["q4k_a8"]["q4k_bank_matmul"],
+    })
+    # the tp_blocks phase: L from the exact engine's solo path, L on bf16
+    # scales and M from the W4A8 engine's
+    tp_l = {k: res["tp_blocks"][k]["launches"] for k in ("q4k_fused", "q4k_a8")}
+    line_launches.update({
+        "q4k_parts_matmul": tp_l["q4k_fused"]["q4k_parts_matmul"],
+        "q4k_parts_matmul_bf16": tp_l["q4k_a8"]["q4k_parts_matmul"],
+        "w4a8_parts_gemv": tp_l["q4k_a8"]["w4a8_parts_gemv"],
     })
     kernels_line = []
     for name, (source, replaces, shape) in KERNELS.items():

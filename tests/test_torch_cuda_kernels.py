@@ -10,9 +10,10 @@ the edges — row counts that are not powers of two, widths that do not fill
 a block, a K that ends inside a staging chunk, batch > 1, a head dim of 64,
 bf16 and INT8 stores, pages of 32 slots on a scrambled pool — and replay
 determinism (two launches give the same bits), for every kernel (A, B with
-bf16 and f32 scales, C to F, G, H, I, the expert-bank kernels J and K). The
-last tests drive each engine, the MoE fixture and the scheduler on the card
-on the tiny fixtures.
+bf16 and f32 scales, C to F, G, H, I, the expert-bank kernels J and K, the
+tp_blocks kernels L and M with their invariances). The last tests drive each
+engine, the MoE fixture, the tp_blocks mode and the scheduler on the card on
+the tiny fixtures.
 """
 
 import numpy as np
@@ -194,6 +195,120 @@ def test_kernel_k(cuda, m, n, k, a8):
     assert torch.equal(out[:, :2], qm.q4k_bank_matmul(x[:2].contiguous(), bank, eids)[:, :2])
     per = qm.q4k_bank_matmul(x.expand(3, m, k).contiguous(), bank, eids)
     assert torch.equal(per, out)
+
+
+# (m, n, k, nb): blocks of 1792 elements (7 superblocks: neither a multiple
+# of kernel A's 2048-element staging chunk nor a power of two of groups),
+# ragged widths, one row and the tiles
+PARTS_SHAPES = [(1, 320, 3584, 2), (17, 72, 2048, 4), (130, 300, 2048, 8),
+                (8, 200, 7168, 4), (1, 96, 14336, 8), (4, 136, 14336, 8)]
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["f32_scales", "bf16_scales"])
+@pytest.mark.parametrize("m,n,k,nb", PARTS_SHAPES)
+def test_kernel_l(cuda, m, n, k, nb, a8):
+    """Kernel L: each K-block's partial within the tolerance of its plain
+    version; bit for bit, the partials equal those of the K-slices computed
+    alone (tp = 2, 4, 8 devices), a row's partials do not depend on the row
+    count (each of the first 16 rows and the last alone), and at one block a
+    column shard of the weight gives its columns of the whole product."""
+    repack = qm.repack_q4k_a8s if a8 else qm.repack_q4k_exact
+    w = repack(_bytes(n, k, m, "Q4_K"), n, k, cuda)
+    x = _acts(m, k, torch.bfloat16, cuda)
+    parts = qm.q4k_matmul_parts(x, w, nb)
+    ref = qm.q4k_matmul_parts_plain(x, w, nb)
+    for i in range(nb):
+        _close(parts[i], ref[i], MATMUL_TOL)
+    assert torch.equal(parts, qm.q4k_matmul_parts(x, w, nb))
+    for tp in (2, 4, 8):
+        if nb % tp:
+            continue
+        kb = k // tp
+        shards = torch.cat([qm.q4k_matmul_parts(x[:, d * kb:(d + 1) * kb].contiguous(),
+                                                qm.k_slice(w, d, tp, contiguous=True), nb // tp)
+                            for d in range(tp)])
+        assert torch.equal(shards, parts), tp
+    for r in list(range(min(m, 16))) + [m - 1]:
+        row = qm.q4k_matmul_parts(x[r:r + 1].contiguous(), w, nb)
+        assert torch.equal(row, parts[:, r:r + 1]), r
+    pinned = qm.q4k_matmul_pinned(x, w)
+    _close(pinned, x.float() @ qm.dequantize(w).t(), MATMUL_TOL)
+    half = n // 2
+    assert torch.equal(qm.q4k_matmul_pinned(x, qm.column_slice(w, half, n)), pinned[:, half:])
+    assert torch.equal(pinned[-1:], qm.q4k_matmul_pinned(x[-1:].contiguous(), w))
+
+
+@pytest.mark.parametrize("m,n,k,nb", [(1, 320, 3584, 2), (2, 96, 3584, 2), (4, 136, 14336, 8),
+                                      (5, 72, 2048, 4), (16, 300, 2048, 8),
+                                      (8, 200, 14336, 8)])
+def test_kernel_m(cuda, m, n, k, nb):
+    """Kernel M: the plain quantizer's activation codes, each partial within
+    the tolerance of its plain version, each equal bit for bit to kernel A
+    on its K-slice alone (so at one block M is A), and each row alone equal
+    to that row of m (the 1, 2, 4, 8 and 16-row builds)."""
+    w = _weights(n, k, seed=m, device=cuda)
+    x = _acts(m, k, torch.bfloat16, cuda)
+    parts, xq, xs, sxm = qm.a8s_parts_launch(x, w, nb)
+    pxq, pxs, psxm = qm.quant_acts(x)
+    assert torch.equal(xq, pxq) and torch.equal(xs, pxs) and torch.equal(sxm, psxm)
+    ref = qm.a8s_matmul_parts_plain(x, w, nb)
+    kb = k // nb
+    for i in range(nb):
+        _close(parts[i], ref[i], MATMUL_TOL)
+        xi = x[:, i * kb:(i + 1) * kb].contiguous()
+        wi = qm.k_slice(w, i, nb, contiguous=True)
+        assert torch.equal(parts[i], qm.w4a8_launch(xi, wi)[0]), i
+    assert torch.equal(qm.a8s_matmul_parts(x, w, 1)[0], qm.w4a8_launch(x, w)[0])
+    assert torch.equal(parts, qm.a8s_matmul_parts(x, w, nb))
+    for r in range(m):
+        assert torch.equal(qm.a8s_matmul_parts(x[r:r + 1].contiguous(), w, nb),
+                           parts[:, r:r + 1]), r
+
+
+@pytest.mark.parametrize("dtype", ["q4k_fused", "q4k_a8"])
+def test_tp_blocks_on_the_card(cuda, tmp_path, dtype):
+    """The tp-eligible tiny fixture at tp_blocks = 4 on the card: kernels L
+    (and M, A for q4k_a8) and no other matmul kernel, a same-backend replay
+    of exactly 1.0, and the port on the CPU verifying the card's record
+    within the cross-backend thresholds."""
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
+    from blama_tpu_torch.runtime.verify import LogitComparer, MetricsAggregator
+    from blama_tpu_torch.testing import TP_TINY_SPEC, write_tiny_llama
+
+    path = str(tmp_path / "tp.gguf")
+    write_tiny_llama(path, spec=TP_TINY_SPEC)
+    prompt = None
+
+    def run(dev, preds=None):
+        nonlocal prompt
+        m = Model(path, ModelParams(dtype=dtype, tp_blocks=4, device=dev))
+        inst = Instance(m, InstanceInitParams(ctx_size=64, flash_attn=True, kv_dtype="int8"))
+        s = inst.start_session(SessionInitParams(seed=11, temperature=0.0))
+        # 20 prompt tokens: a chunk of more than 16 rows (kernel L for q4k_a8)
+        prompt = prompt or m.vocab.tokenize("hello world the cat sat " * 4, True, True)[:20]
+        s.set_initial_prompt(prompt)
+        out = s.fill_ctx(preds) if preds else s.complete(CompleteParams(max_tokens=8))
+        m.close()
+        return out
+
+    kernels.reset_launches()
+    preds = run("cuda")
+    want = {"q4k_parts_matmul"} | ({"w4a8_parts_gemv", "w4a8_gemv"} if dtype == "q4k_a8"
+                                   else set())
+    matmuls = {k for k, v in kernels.LAUNCHES.items() if v and "attention" not in k}
+    assert matmuls == want, kernels.LAUNCHES
+    for dev, exact in (("cuda", True), ("cpu", False)):
+        agg, sims = MetricsAggregator(), []
+        for a, b in zip(preds, run(dev, preds), strict=True):
+            sc = agg.push_and_verify(LogitComparer.compare(a.logits, b.logits))
+            sims.append(LogitComparer.logit_similarity(a.logits, b.logits))
+        if exact:
+            assert (sc, min(sims)) == (1.0, 1.0)
+        else:
+            assert sc >= 0.95 and sum(sims) / len(sims) >= 0.98, (sc, sims)
 
 
 def test_bank_id_outside_the_bank_gives_nan(cuda):

@@ -68,6 +68,7 @@ calls = {{
     "repack_q6_k_expanded": lambda: qm.repack_q6_k_expanded(np.zeros(210, np.uint8), 1, 256),
     "Model q4k_fused": lambda: Model({path!r}, ModelParams(dtype="q4k_fused")),
     "Model q4k_a8_k4": lambda: Model({path!r}, ModelParams(dtype="q4k_a8_k4")),
+    "Model tp_blocks": lambda: Model({path!r}, ModelParams(dtype="q4k_fused", tp_blocks=8)),
     "repack_q4k_bank": lambda: qm.repack_q4k_bank(q4k, 1, 1, 256, True),
     "Model MoE q4k_a8": lambda: Model(moe_path, ModelParams(dtype="q4k_a8", attn="xla")),
     "Model MoE q4k_fused": lambda: Model(moe_path, ModelParams(dtype="q4k_fused", attn="xla")),
@@ -92,7 +93,7 @@ def test_model_without_cuda_raises(tmp_path):
                          text=True, check=True, cwd=ROOT,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     lines = out.stdout.strip().splitlines()
-    assert len(lines) == 17, out.stdout
+    assert len(lines) == 18, out.stdout
     for line in lines:
         assert " refused: no CUDA device" in line, line
 
