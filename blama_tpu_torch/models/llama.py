@@ -5,9 +5,10 @@ packed weight engines (`fused_quant` True, "k4", "a8", "a8k4", "a8x": Q4_K
 tensors packed as the engine says, Q8_0 and Q6_K tensors packed for the exact
 int8-code kernel under every engine, anything else a dense bf16 weight),
 unfused q/k/v and gate/up projections, dense KV rows or the scheduler's
-paged pool, INT8 or bf16 KV (f32 on the CPU) and fused attention (the
-two-pass chain serves the chunks and geometries the fused gates refuse, T in
-{2, 4}, as in the reference).
+paged pool, INT8, bf16 or f32 KV and fused attention (the two-pass chain
+serves the chunks and geometries the fused gates refuse, T in {2, 4}, as in
+the reference), with the reference's opt-in decode-attention modes on dense
+rows (LlamaStatic.attn_write / attn_fresh, set by ops/generate_loop).
 
 Weights are a plain dict: {"tok_emb", "out_norm", "output", "layers": [one
 dict per layer], optional "rope_freqs"}. The forward keeps the reference's
@@ -41,7 +42,7 @@ from ..ops.rope import apply_rope, rope_angles
 from .config import ModelConfig
 
 # llama-family architectures whose GGUFs the dense forward below serves
-ARCHS = ("llama", "mistral")
+ARCHS = ("llama", "mistral", "mixtral")
 
 _LAYER_TENSORS = {
     "attn_norm": "blk.{i}.attn_norm.weight",
@@ -297,6 +298,17 @@ class LlamaStatic:
     # YaRN NTK-by-parts (None unless rope.scaling.type == "yarn"):
     # (ext_factor, attn_factor, beta_fast, beta_slow, orig_ctx)
     yarn: tuple | None = None
+    # the reference's decode-attention modes (its models/llama.py:323-337),
+    # set by the loops (ops/generate_loop._mode_for) for dense rows only:
+    # attn_write: kernel P quantizes and stores the token's K/V row and
+    # attends in one launch, in place of the cache write and kernel C;
+    # attn_fresh (INT8 KV): kernel N attends with the fresh row as an
+    # operand, before the cache write; attn_scales_t: the reference's
+    # transposed scale carry (a TPU layout the port has no need of), which
+    # here only keeps the head-batched kernel O off, as it does there
+    attn_write: bool = False
+    attn_scales_t: bool = False
+    attn_fresh: bool = False
 
     @classmethod
     def of(cls, cfg: ModelConfig) -> "LlamaStatic":
@@ -416,6 +428,11 @@ def forward(
         S = cache.n_slots
         use_fused_attn = fused_ok and T == 1 and dattn.supports(S, D, kv_dtype, B)
         use_fused_prefill = fused_ok and dattn.prefill_supports(T, S, D, kv_dtype, B)
+    # the loops' modes (reference forward :477-482, layer_fn_stacked)
+    use_write = (use_fused_attn and not paged and st.attn_write
+                 and dattn.write_supports(S, D, kv_dtype, B))
+    use_fresh = use_fused_attn and not paged and st.attn_fresh and cache.quantized
+    row_slot = slots.to(dev, torch.int32)[:, 0] if use_write or use_fresh else None
     if use_fused_attn or use_fused_prefill:
         if ff is None:
             inv_freq_e, mscale = _inv_freq_on(rope_dim, D, freq_base, rs, yarn, dev)
@@ -440,36 +457,55 @@ def forward(
         v = v.reshape(B, T, Hkv, D)
         q = apply_rope(q, positions, rope_dim, freq_base, True, cos_sin=q_rope)
 
-        # write unrotated K and V into their store slots, in place
-        cache.write(li, flat, k, v)
         k_l, v_l = cache.k[li], cache.v[li]     # [B, S, Hkv, D] or [P, G, Hkv, D]
         ks_l = vs_l = None
         if cache.quantized:
             ks_l, vs_l = cache.k_scale[li], cache.v_scale[li]
-
-        if use_fused_attn or use_fused_prefill:
-            q_pos = positions[:, 0] if use_fused_attn else positions
-            if paged:
-                fn = (pattn.paged_decode_attention if use_fused_attn
-                      else pattn.paged_prefill_attention)
-                attn = fn(q, k_l, v_l, new_positions, cache.page_table, q_pos,
-                          inv_freq_e, k_scale=ks_l, v_scale=vs_l, mscale=mscale)
-            else:
-                fn = (dattn.decode_attention if use_fused_attn
-                      else dattn.prefill_attention)
-                attn = fn(q, k_l, v_l, q_pos, new_positions, inv_freq_e,
-                          k_scale=ks_l, v_scale=vs_l, mscale=mscale)
+        if use_write:
+            # kernel P: the token's K/V row stored and attended in one launch
+            attn = dattn.decode_attention_write(
+                q, cache.k_store[li], cache.v_store[li], positions[:, 0], new_positions,
+                inv_freq_e, k.reshape(B, Hkv, D), v.reshape(B, Hkv, D), row_slot,
+                k_scale=cache.k_scale_store[li] if cache.quantized else None,
+                v_scale=cache.v_scale_store[li] if cache.quantized else None,
+                mscale=mscale)
+        elif use_fresh:
+            # kernel N takes the fresh row as an operand, before the write:
+            # nothing in the step reads the stored row
+            attn = dattn.decode_attention(
+                q, k_l, v_l, positions[:, 0], new_positions, inv_freq_e, k_scale=ks_l,
+                v_scale=vs_l, mscale=mscale, scales_t=st.attn_scales_t,
+                k_new=k.reshape(B, Hkv, D), v_new=v.reshape(B, Hkv, D), slot=row_slot)
+            cache.write(li, flat, k, v)
         else:
-            if paged:
-                # gather the logical row view (element-identical to a dense
-                # row, ops/paged_kv.py) and run the dense chain
-                k_l, v_l, ks_l, vs_l = pkv.gather_view(cache, k_l, v_l, ks_l, vs_l)
-            if ks_l is not None:
-                k_l = dequantize_kv(k_l, ks_l, x.dtype)
-                v_l = dequantize_kv(v_l, vs_l, x.dtype)
-            attn = attention(q, k_l, v_l, positions, pos_view,
-                             rope_dim=rope_dim, freq_base=freq_base,
-                             interleaved=True, causal=st.causal, kv_rope=kv_rope)
+            # write unrotated K and V into their store slots, in place
+            cache.write(li, flat, k, v)
+            if use_fused_attn or use_fused_prefill:
+                q_pos = positions[:, 0] if use_fused_attn else positions
+                if paged:
+                    fn = (pattn.paged_decode_attention if use_fused_attn
+                          else pattn.paged_prefill_attention)
+                    attn = fn(q, k_l, v_l, new_positions, cache.page_table, q_pos,
+                              inv_freq_e, k_scale=ks_l, v_scale=vs_l, mscale=mscale)
+                elif use_fused_attn:
+                    attn = dattn.decode_attention(q, k_l, v_l, q_pos, new_positions,
+                                                  inv_freq_e, k_scale=ks_l, v_scale=vs_l,
+                                                  mscale=mscale, scales_t=st.attn_scales_t)
+                else:
+                    attn = dattn.prefill_attention(q, k_l, v_l, q_pos, new_positions,
+                                                   inv_freq_e, k_scale=ks_l, v_scale=vs_l,
+                                                   mscale=mscale)
+            else:
+                if paged:
+                    # gather the logical row view (element-identical to a dense
+                    # row, ops/paged_kv.py) and run the dense chain
+                    k_l, v_l, ks_l, vs_l = pkv.gather_view(cache, k_l, v_l, ks_l, vs_l)
+                if ks_l is not None:
+                    k_l = dequantize_kv(k_l, ks_l, x.dtype)
+                    v_l = dequantize_kv(v_l, vs_l, x.dtype)
+                attn = attention(q, k_l, v_l, positions, pos_view,
+                                 rope_dim=rope_dim, freq_base=freq_base,
+                                 interleaved=True, causal=st.causal, kv_rope=kv_rope)
         x = x + qmm_blocked(attn.reshape(B, T, H * D), p["wo"], tpb)
 
         h2 = rms_norm(x, p["ffn_norm"], eps)

@@ -1,14 +1,19 @@
-// Kernels C and D: flash attention over DENSE cache rows [B, S, Hkv, D].
+// Kernels C, D, N, O and P: flash attention over DENSE cache rows
+// [B, S, Hkv, D].
 //
 // Kernel C (decode_attention_launch) replaces
-//   blama_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel
-// and kernel D (prefill_attention_launch) replaces
-//   blama_tpu/ops/pallas/decode_attention.py:_prefill_attn_kernel.
+//   blama_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel,
+// kernel N (decode_attention_fresh_launch, write == 0) the same kernel with
+// its fresh-operand patch (`fresh=True`), kernel P (the same entry, write ==
+// 1) _decode_attn_write_kernel, kernel O (decode_attention_hb_launch)
+// _decode_attn_kernel_hb, and kernel D (prefill_attention_launch)
+// _prefill_attn_kernel.
 //
-// The cache is int8 codes with f32 scales [B, S, Hkv] (kv_type 0) or bf16
-// values with null scale pointers (kv_type 1); the slot position map is
-// [B, S] (-1 = empty). The device code, its bound and its design are in
-// attention_common.cuh; here a row's logical slot s is physical slot b*S + s.
+// The cache is int8 codes with f32 scales [B, S, Hkv] (kv_type 0), or bf16
+// (kv_type 1) or f32 (kv_type 2) values with null scale pointers; the slot
+// position map is [B, S] (-1 = empty). The device code, its bound and its
+// design are in attention_common.cuh; here a row's logical slot s is
+// physical slot b*S + s.
 
 #include "attention_common.cuh"
 
@@ -25,6 +30,39 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const attn::DenseAddr addr{S};
   ATTN_DISPATCH(attn::decode_impl, attn::DenseAddr, q, k, v, ks, vs, kv_pos,
+                q_pos, invf, part_m, part_l, part_acc, out, addr, B, H, Hkv, S,
+                chunk, scale, st);
+}
+
+// N and P: k_new / v_new [B, Hkv, D] bf16, slot [B] int32 (>= S: a pad
+// row). With write == 1 the cache pointers address the layer's whole store,
+// B*S slots and the spare slot after them, which P writes.
+int decode_attention_fresh_launch(const void* q, const void* k, const void* v,
+                                  const void* ks, const void* vs,
+                                  const void* kv_pos, const void* q_pos,
+                                  const void* invf, const void* k_new,
+                                  const void* v_new, const void* slot,
+                                  void* part_m, void* part_l, void* part_acc,
+                                  void* out, int B, int H, int Hkv, int D, int S,
+                                  int chunk, int kv_type, int write, float scale,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const attn::DenseAddr addr{S};
+  ATTN_DISPATCH(attn::decode_fresh_impl, attn::DenseAddr, q, k, v, ks, vs, kv_pos,
+                q_pos, invf, k_new, v_new, slot, part_m, part_l, part_acc, out,
+                addr, B, H, Hkv, S, chunk, write, scale, st);
+}
+
+// O: `chunk` is the head-batched split (slots per block).
+int decode_attention_hb_launch(const void* q, const void* k, const void* v,
+                               const void* ks, const void* vs, const void* kv_pos,
+                               const void* q_pos, const void* invf, void* part_m,
+                               void* part_l, void* part_acc, void* out, int B,
+                               int H, int Hkv, int D, int S, int chunk,
+                               int kv_type, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const attn::DenseAddr addr{S};
+  ATTN_DISPATCH(attn::decode_hb_impl, attn::DenseAddr, q, k, v, ks, vs, kv_pos,
                 q_pos, invf, part_m, part_l, part_acc, out, addr, B, H, Hkv, S,
                 chunk, scale, st);
 }

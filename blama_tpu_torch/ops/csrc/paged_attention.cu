@@ -6,8 +6,8 @@
 // in its decode (block_t == 0) and prefill forms.
 //
 // The pool is [P*G (+ spare), Hkv, D] slots in pages of G, int8 codes with
-// f32 scales (kv_type 0) or bf16 values with null scale pointers
-// (kv_type 1); pool_pos [P*G] holds each slot's position (-1 = empty) and
+// f32 scales (kv_type 0) or bf16 (kv_type 1) or f32 (kv_type 2) values with
+// null scale pointers; pool_pos [P*G] holds each slot's position (-1 = empty) and
 // page_table [B, MP] each row's physical page per logical page (-1 =
 // unmapped). A row's logical window is S = MP*G slots. The device code is
 // the dense kernels' (attention_common.cuh): the same fixed split of S, the

@@ -1,20 +1,35 @@
-"""Fused flash attention over the position-mapped KV cache (INT8 or bf16).
+"""Fused flash attention over the position-mapped KV cache (INT8, bf16 or
+f32 store).
 
 Counterpart of blama_tpu/ops/pallas/decode_attention.py: one streaming pass
 of the stored cache per layer and step replaces the two-pass chain
-(ops/attention.py). K stays as stored (int8 codes or bf16) until it is in
-fast memory, rope is applied to K inside the kernel from the slot position
-map, and in INT8 mode the scales fold into the score and probability rows:
+(ops/attention.py). K stays as stored (int8 codes, bf16 or f32) until it is
+in fast memory, rope is applied to K inside the kernel from the slot
+position map, and in INT8 mode the scales fold into the score and
+probability rows:
 
     q . rope(ks*codes_k) == ks * (q . rope(codes_k))
     p @ (vs*codes_v)     == (p*vs) @ codes_v
 
 Kernel C (`decode_attention`, T == 1) and kernel D (`prefill_attention`,
-T % 8 == 0 prompt chunks) are CUDA C++ (ops/csrc/decode_attention.cu). On
-a CPU tensor each wrapper runs the plain PyTorch version in this module; on
+T % 8 == 0 prompt chunks) are CUDA C++ (ops/csrc/decode_attention.cu), and
+so are the reference's opt-in decode modes, each its own kernel:
+
+  * N, fresh operand (`decode_attention(..., k_new=, v_new=, slot=)`,
+    BLAMA_ATTN_FRESH in ops/generate_loop): the step's K/V row is an operand,
+    quantized and patched over its slot inside the kernel, so the step reads
+    no stored copy of it; C's bits after the cache write;
+  * P, in-kernel write (`decode_attention_write`, BLAMA_ATTN_WRITE): N that
+    also stores the row (codes and scales) in the cache; C's bits and the
+    cache write's bytes;
+  * O, head-batched (BLAMA_ATTN_HB, read here at import): all kv heads of a
+    tile in one block over its own split, so its own numerics.
+
+On a CPU tensor each wrapper runs the plain PyTorch version in this module; on
 a CUDA tensor it launches the kernel or raises. The `supports` /
-`prefill_supports` gates mirror the reference's, so the same chunk length T
-takes the same route in both packages.
+`prefill_supports` / `write_supports` / `fresh_supports` gates and O's route
+mirror the reference's, so the same geometry takes the same route in both
+packages.
 
 Numerics differ from the two-pass chain (online vs two-pass softmax), so
 fused attention is an engine *mode*: prover and verifier pick the same mode.
@@ -23,15 +38,23 @@ fused attention is an engine *mode*: prover and verifier pick the same mode.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
 from . import kernels
+from .kv_cache import quantize_kv, write_rows
 from .rope import yarn_corr_dim
 
 NEG_INF = -1e30
 TILE_S = 32        # slots per kernel tile (ops/csrc/decode_attention.cu TS)
+
+# the reference's probe flags, read once at import as it reads them
+# (blama_tpu/ops/pallas/decode_attention.py:46-48); tests set the attributes
+_HB = os.environ.get("BLAMA_ATTN_HB", "0") == "1"
+# cap on kernel C's slots per split (the reference's int8 decode block cap)
+_BLOCK_CAP = int(os.environ.get("BLAMA_ATTN_BLOCK_CAP", "1024"))
 
 
 def effective_inv_freq(
@@ -103,6 +126,34 @@ def supports(S: int, head_dim: int, k_dtype, batch: int = 1) -> bool:
             and head_dim % 2 == 0 and head_dim <= 256)
 
 
+def write_supports(S: int, head_dim: int, k_dtype, batch: int = 1) -> bool:
+    """Whether the in-kernel write mode (kernel P) serves this geometry: the
+    reference's gate (`decode_attention.py:890`), argument for argument."""
+    if not (supports(S, head_dim, k_dtype, batch) and head_dim % 128 == 0
+            and S % 32 == 0):
+        return False
+    bs = _pick_block_s(S, _itemsize(k_dtype), batch)
+    return bs is not None and bs % 32 == 0
+
+
+def fresh_supports(S: int, head_dim: int, k_dtype, batch: int = 1) -> bool:
+    """Whether the fresh-operand mode (kernel N) serves this geometry: the
+    reference's gate (`decode_attention.py:901`), the same as write mode's."""
+    return write_supports(S, head_dim, k_dtype, batch)
+
+
+def hb_split(S: int, head_dim: int, n_kv_head: int, k_dtype, batch: int = 1,
+             scales_t: bool = False, fresh: bool = False) -> int | None:
+    """Slots per block of the head-batched kernel O, or None where the
+    reference's `_call` (`decode_attention.py:449-461`) keeps its per-head
+    kernel: BLAMA_ATTN_HB off, D % 128 != 0, the transposed-scale or
+    fresh-operand modes, or no block under O's cap of max(128, 4096 / Hkv)
+    slots."""
+    if not (_HB and head_dim % 128 == 0 and not scales_t and not fresh):
+        return None
+    return _pick_block_s(S, _itemsize(k_dtype), batch, cap=max(128, 4096 // n_kv_head))
+
+
 def _pick_block_t(T: int) -> int | None:
     for bt in (128, 64, 32, 16, 8):
         if T % bt == 0:
@@ -156,23 +207,62 @@ def flash_attention_plain(q, k_cache, v_cache, q_pos, kv_pos, inv_freq_e,
     return (acc / denom).reshape(B, T, H, D).to(q.dtype)
 
 
+def fresh_attention_plain(q, k_cache, v_cache, q_pos, kv_pos, inv_freq_e, k_new,
+                          v_new, slot, k_scale=None, v_scale=None, scale: float = 1.0):
+    """Kernel N's function: flash_attention_plain over the cache with each
+    row's fresh K/V row [B, Hkv, D] stored at its slot (slot >= S: a pad row,
+    nothing patched) the way the cache write stores it; the cache itself is
+    left as it is. q [B, 1, H, D], q_pos [B, 1]."""
+    B, S = kv_pos.shape
+    live = (slot < S).nonzero().flatten()
+    kc, vc = k_cache.clone(), v_cache.clone()
+    ksc = None if k_scale is None else k_scale.clone()
+    vsc = None if v_scale is None else v_scale.clone()
+    flat = live * S + slot[live].long()
+    write_rows(kc.view(B * S, *kc.shape[2:]), vc.view(B * S, *vc.shape[2:]),
+               None if ksc is None else ksc.view(B * S, -1),
+               None if vsc is None else vsc.view(B * S, -1),
+               flat, k_new[live], v_new[live])
+    return flash_attention_plain(q, kc, vc, q_pos, kv_pos, inv_freq_e, ksc, vsc, scale)
+
+
+def write_attention_plain(q, k_store, v_store, q_pos, kv_pos, inv_freq_e, k_new,
+                          v_new, slot, k_scale=None, v_scale=None, scale: float = 1.0):
+    """Kernel P's function: store each row's fresh K/V row [B, Hkv, D] in
+    the layer's store [B*S + 1, Hkv, D] at its flat slot (a pad row's at the
+    spare slot B*S), as the cache write does, then flash_attention_plain over
+    the rows. q [B, 1, H, D], q_pos [B, 1]."""
+    B, S = kv_pos.shape
+    rows = torch.arange(B, device=slot.device) * S
+    flat = torch.where(slot < S, rows + slot.long(), B * S)
+    write_rows(k_store, v_store, k_scale, v_scale, flat, k_new, v_new)
+
+    def rows_of(t):
+        return None if t is None else t[:B * S].view(B, S, *t.shape[1:])
+
+    return flash_attention_plain(q, rows_of(k_store), rows_of(v_store), q_pos, kv_pos,
+                                 inv_freq_e, rows_of(k_scale), rows_of(v_scale), scale)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+KV_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
 def kv_type_of(k_cache, v_cache, k_scale, v_scale) -> int:
-    """The kernels' store type: 0 = int8 codes with f32 scales, 1 = bf16
-    values with none. Anything else (an f32 cache) has no kernel."""
+    """The kernels' store type: 0 = int8 codes with f32 scales, 1 = bf16 or
+    2 = f32 values with none."""
     if k_cache.dtype != v_cache.dtype:
         raise TypeError("k and v caches must share a dtype")
-    if k_cache.dtype == torch.int8 and k_scale is not None and v_scale is not None:
-        return 0
-    if k_cache.dtype == torch.bfloat16 and k_scale is None and v_scale is None:
-        return 1
-    raise NotImplementedError(
-        "the CUDA attention kernels take an INT8 cache with scales or a bf16 "
-        f"cache without, got {k_cache.dtype} (an f32 cache runs the plain "
-        "version on the CPU only; ROADMAP.md §1 item 9)")
+    kv_type = KV_TYPES.get(k_cache.dtype)
+    if kv_type is None or (kv_type == 0) != (k_scale is not None and v_scale is not None):
+        raise NotImplementedError(
+            "the CUDA attention kernels take an INT8 cache with scales or a bf16 "
+            f"or f32 cache without, got {k_cache.dtype} "
+            f"{'with' if k_scale is not None else 'without'} scales")
+    return kv_type
 
 
 KERNEL_HEAD_DIMS = (64, 128, 256)   # the head sizes kernels C-F are instantiated for
@@ -195,11 +285,10 @@ def require_kernel_geometry(device, n_head: int, n_head_kv: int, head_dim: int,
             f"{KERNEL_HEAD_DIMS} and at most 32 query heads per KV head, got "
             f"n_head={n_head} n_head_kv={n_head_kv} head_dim={head_dim} "
             "(ROADMAP.md §1 item 9, other engines)")
-    if kv_dtype not in (torch.int8, torch.bfloat16):
+    if kv_dtype not in KV_TYPES:
         raise NotImplementedError(
-            f"the CUDA attention kernels read an INT8 or a bf16 cache, got "
-            f"{kv_dtype}; an f32 cache runs on the CPU only "
-            "(ROADMAP.md §1 item 9, other engines)")
+            f"the CUDA attention kernels read an INT8, a bf16 or an f32 cache, "
+            f"got {kv_dtype} (ROADMAP.md §1 item 9, other engines)")
 
 
 def check_cuda_common(q, inv_freq_e, q_pos, kv_pos, Hkv):
@@ -243,11 +332,13 @@ def _check_cuda(q, k_cache, v_cache, k_scale, v_scale, kv_pos, q_pos, inv_freq_e
 
 
 def decode_split(B: int, Hkv: int, S: int) -> int:
-    """Slots per block of kernel C: enough blocks to fill the card, fixed for
-    a given (B, Hkv, S) so a replay splits the same way."""
+    """Slots per block of kernel C (and of E, N and P): enough blocks to fill
+    the card, fixed for a given (B, Hkv, S) so a replay splits the same way,
+    and at most BLAMA_ATTN_BLOCK_CAP slots rounded down to whole tiles."""
     nsplit = max(1, min(-(-264 // (B * Hkv)), -(-S // TILE_S)))
     per_split = -(-S // nsplit)
-    return -(-per_split // TILE_S) * TILE_S
+    cap = max(TILE_S, _BLOCK_CAP // TILE_S * TILE_S)
+    return min(-(-per_split // TILE_S) * TILE_S, cap)
 
 
 def prefill_q_tile(H: int, Hkv: int) -> int:
@@ -255,9 +346,22 @@ def prefill_q_tile(H: int, Hkv: int) -> int:
     return max(1, 8 // (H // Hkv))
 
 
+def _partials(B, H, D, nsplit, dev):
+    part_m = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
+    return (part_m, torch.empty_like(part_m),
+            torch.empty((B, H, nsplit, D), dtype=torch.float32, device=dev))
+
+
+def _check_fresh(q, k_new, v_new, slot, Hkv):
+    B, _, H, D = q.shape
+    check_tensors(q.device, {"k_new": (k_new, (B, Hkv, D), torch.bfloat16),
+                             "v_new": (v_new, (B, Hkv, D), torch.bfloat16),
+                             "slot": (slot, (B,), torch.int32)})
+
+
 def decode_attention(
     q: torch.Tensor,          # [B, 1, H, D] rotated query (one decode token)
-    k_cache: torch.Tensor,    # [B, S, Hkv, D] unrotated; int8 codes or bf16
+    k_cache: torch.Tensor,    # [B, S, Hkv, D] unrotated; int8 codes, bf16 or f32
     v_cache: torch.Tensor,    # [B, S, Hkv, D]
     q_pos: torch.Tensor,      # [B] int32
     kv_pos: torch.Tensor,     # [B, S] int32, -1 = empty slot
@@ -266,40 +370,117 @@ def decode_attention(
     v_scale: torch.Tensor | None = None,
     logit_scale: float | None = None,
     mscale: float = 1.0,
+    scales_t: bool = False,   # the loops' transposed-scale mode: no kernel O
+    k_new: torch.Tensor | None = None,  # [B, Hkv, D] fresh-token K (kernel N)
+    v_new: torch.Tensor | None = None,
+    slot: torch.Tensor | None = None,   # [B] int32 slot of the fresh token
 ) -> torch.Tensor:
-    """Kernel C: fused single-token attention; returns [B, 1, H, D] in q.dtype."""
+    """Fused single-token attention; returns [B, 1, H, D] in q.dtype.
+
+    Kernel C; kernel N when the fresh row is given (the cache need not hold
+    it yet: it is patched over `slot`, a pad row's slot >= S patches
+    nothing); kernel O where `hb_split` takes the head-batched route (on the
+    CPU its plain version is C's function)."""
     B, T, H, D = q.shape
     if T != 1:
         raise ValueError(f"decode_attention is the T == 1 path, got T={T}")
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    fresh = k_new is not None
     scale = (logit_scale if logit_scale is not None else 1.0 / (D ** 0.5)) * mscale
     if q.device.type == "cpu":
+        if fresh:
+            return fresh_attention_plain(q, k_cache, v_cache, q_pos.reshape(B, 1), kv_pos,
+                                         inv_freq_e, k_new, v_new, slot.reshape(B),
+                                         k_scale, v_scale, scale)
         return flash_attention_plain(q, k_cache, v_cache, q_pos.reshape(B, 1),
                                      kv_pos, inv_freq_e, k_scale, v_scale, scale)
     q = q.contiguous()
     q_pos = q_pos.reshape(B).contiguous()
     B, T, H, D, S, Hkv, kv_type = _check_cuda(q, k_cache, v_cache, k_scale, v_scale,
-                                     kv_pos, q_pos, inv_freq_e)
+                                              kv_pos, q_pos, inv_freq_e)
+    hb = hb_split(S, D, Hkv, k_cache.dtype, B, scales_t, fresh)
+    chunk = hb or decode_split(B, Hkv, S)
+    parts = _partials(B, H, D, -(-S // chunk), q.device)
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    lib = kernels.lib("decode_attention")
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
+            ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr())
+    tail = (*(t.data_ptr() for t in parts), out.data_ptr(), B, H, Hkv, D, S, chunk,
+            kv_type)
+    if fresh:
+        slot = slot.reshape(B)
+        _check_fresh(q, k_new, v_new, slot, Hkv)
+        rc, name = lib.decode_attention_fresh_launch(
+            *args, k_new.data_ptr(), v_new.data_ptr(), slot.data_ptr(), *tail, 0,
+            float(scale), kernels.stream_ptr(q.device)), "decode_attention_fresh"
+    elif hb:
+        rc, name = lib.decode_attention_hb_launch(
+            *args, *tail, float(scale), kernels.stream_ptr(q.device)), "decode_attention_hb"
+    else:
+        rc, name = lib.decode_attention_launch(
+            *args, *tail, float(scale), kernels.stream_ptr(q.device)), "decode_attention"
+    kernels.check(rc, name)
+    kernels.count(name)
+    return out
+
+
+def decode_attention_write(
+    q: torch.Tensor,          # [B, 1, H, D] rotated query
+    k_store: torch.Tensor,    # [B*S + 1, Hkv, D] the layer's store, spare slot last
+    v_store: torch.Tensor,
+    q_pos: torch.Tensor,      # [B] int32
+    kv_pos: torch.Tensor,     # [B, S] int32 (already holds this token's position)
+    inv_freq_e: torch.Tensor,  # [head_dim] f32
+    k_new: torch.Tensor,      # [B, Hkv, D] fresh (unrotated) K
+    v_new: torch.Tensor,
+    slot: torch.Tensor,       # [B] int32 row slot to write (>= S: a pad row)
+    k_scale: torch.Tensor | None = None,  # [B*S + 1, Hkv] f32 (INT8-KV mode)
+    v_scale: torch.Tensor | None = None,
+    logit_scale: float | None = None,
+    mscale: float = 1.0,
+) -> torch.Tensor:
+    """Kernel P: fused single-token attention that also quantizes the fresh
+    K/V row and writes it (codes and scales, or the values) into the store,
+    in place, at the slot `KVCache.flat_slots` gives (a pad row's at the
+    spare slot). Returns [B, 1, H, D]; the output and the store equal C's
+    after `SlotStore.write`, bit for bit."""
+    B, T, H, D = q.shape
+    if T != 1:
+        raise ValueError(f"decode_attention_write is the T == 1 path, got T={T}")
+    S, Hkv = kv_pos.shape[1], k_store.shape[1]
+    scale = (logit_scale if logit_scale is not None else 1.0 / (D ** 0.5)) * mscale
+    slot = slot.reshape(B)
+    if q.device.type == "cpu":
+        return write_attention_plain(q, k_store, v_store, q_pos.reshape(B, 1), kv_pos,
+                                     inv_freq_e, k_new, v_new, slot, k_scale, v_scale,
+                                     scale)
+    q = q.contiguous()
+    q_pos = q_pos.reshape(B).contiguous()
+    kv_type = kv_type_of(k_store, v_store, k_scale, v_scale)
+    check_cuda_common(q, inv_freq_e, q_pos, kv_pos, Hkv)
+    n = B * S + 1
+    check_tensors(q.device, {
+        "k_store": (k_store, (n, Hkv, D), None), "v_store": (v_store, (n, Hkv, D), None),
+        "k_scale": (k_scale, (n, Hkv), torch.float32),
+        "v_scale": (v_scale, (n, Hkv), torch.float32),
+        "kv_pos": (kv_pos, (B, S), None), "inv_freq_e": (inv_freq_e, (D,), None)})
+    _check_fresh(q, k_new, v_new, slot, Hkv)
     chunk = decode_split(B, Hkv, S)
-    nsplit = -(-S // chunk)
-    dev = q.device
-    part_m = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32, device=dev)
-    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
-    rc = kernels.lib("decode_attention").decode_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
-        ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(),
-        inv_freq_e.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(), B, H, Hkv, D, S, chunk, kv_type,
-        float(scale), kernels.stream_ptr(dev))
-    kernels.check(rc, "decode_attention")
-    kernels.count("decode_attention")
+    parts = _partials(B, H, D, -(-S // chunk), q.device)
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    rc = kernels.lib("decode_attention").decode_attention_fresh_launch(
+        q.data_ptr(), k_store.data_ptr(), v_store.data_ptr(), ptr(k_scale), ptr(v_scale),
+        kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), slot.data_ptr(), *(t.data_ptr() for t in parts), out.data_ptr(),
+        B, H, Hkv, D, S, chunk, kv_type, 1, float(scale), kernels.stream_ptr(q.device))
+    kernels.check(rc, "decode_attention_write")
+    kernels.count("decode_attention_write")
     return out
 
 
 def prefill_attention(
     q: torch.Tensor,          # [B, T, H, D] rotated queries (prompt chunk)
-    k_cache: torch.Tensor,    # [B, S, Hkv, D] unrotated; int8 codes or bf16
+    k_cache: torch.Tensor,    # [B, S, Hkv, D] unrotated; int8 codes, bf16 or f32
     v_cache: torch.Tensor,    # [B, S, Hkv, D]
     q_pos: torch.Tensor,      # [B, T] int32
     kv_pos: torch.Tensor,     # [B, S] int32, -1 = empty slot

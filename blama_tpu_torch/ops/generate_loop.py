@@ -10,17 +10,54 @@ verifier's (teacher_forced) run the same per-step forward at the same
 shapes, so a same-backend replay reproduces the prover's logits bit for
 bit. Slots are sequential (slot = position), matching the SlotAllocator.
 Every loop serves llama and MoE models alike: it calls its static config's
-step (static_of, the reference's _forward_for).
+step (static_of, the reference's _forward_for), upgraded by `_mode_for` to
+the reference's opt-in decode-attention mode for the loop's cache.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import os
 
 import torch
 
 from ..models import llama as llama_mod
 from ..models import moe as moe_mod
+from . import decode_attention as dattn
 from . import paged_kv as pkv
 from .kv_cache import KVCache, SlotStore
+
+# the reference's opt-in decode-attention modes, read once at import as it
+# reads them (blama_tpu/ops/generate_loop.py:37, :49); tests set the
+# attributes. BLAMA_ATTN_WRITE=1: kernel P stores the token's K/V row and
+# attends in one launch; BLAMA_ATTN_FRESH=1 (INT8 KV): kernel N attends with
+# the fresh row as an operand, before the cache write. Both give the bits of
+# the cache write followed by kernel C; off by default, as in the reference.
+_WRITE_IN_KERNEL = os.environ.get("BLAMA_ATTN_WRITE", "0") == "1"
+_FRESH_OPERAND = os.environ.get("BLAMA_ATTN_FRESH", "0") == "1"
+
+
+def _mode_for(st, cache):
+    """The loop body's static for this cache: the reference's `_fused_merge`
+    + `_st_for` (its generate_loop.py:52-179) without their relayouts (the
+    merged, grouped and transposed carries are TPU layouts; the port's
+    stores stay [L, B*S, Hkv, D]). Dense rows of a llama model whose T == 1
+    steps take the fused kernel get write mode where `write_supports` passes
+    (any store type); else an INT8 store gets fresh mode where
+    `fresh_supports` passes, else the transposed-scale mode (which keeps the
+    head-batched kernel off, as there). Anything else keeps `st`."""
+    if not isinstance(st, llama_mod.LlamaStatic) or not isinstance(cache, KVCache):
+        return st
+    S, D, B, dtype = cache.n_slots, st.head_dim, cache.batch, cache.k_store.dtype
+    if (not st.causal or (st.yarn is not None and st.rope_dim < D)
+            or not dattn.supports(S, D, dtype, B)):
+        return st
+    if _WRITE_IN_KERNEL and dattn.write_supports(S, D, dtype, B):
+        return dataclasses.replace(st, attn_write=True)
+    if not cache.quantized:
+        return st
+    fresh = _FRESH_OPERAND and dattn.fresh_supports(S, D, dtype, B)
+    return dataclasses.replace(st, attn_scales_t=True, attn_fresh=fresh)
 
 
 def static_of(cfg):
@@ -58,6 +95,7 @@ def greedy_generate(
     positions = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
     li = torch.full((B,), n_prompt - 1, dtype=torch.long, device=dev)
     logits, cache = st.step(params, prompt_tokens, positions, positions, cache, li)
+    st = _mode_for(st, cache)
     pos = torch.full((B,), n_prompt, dtype=torch.int32, device=dev)
     toks, ids, vals = [], [], []
     for _ in range(n_steps):
@@ -84,6 +122,7 @@ def teacher_forced(
     with the argmax replaced by the claimed token. Returns
     (all_logits [B, n, V] f32, cache)."""
     dev = cache.k.device
+    st = _mode_for(st, cache)
     tokens = tokens.to(dev)
     pos = start_pos.to(dev, torch.int32)
     out = []
@@ -108,6 +147,7 @@ def continue_greedy(
     the new logits. Returns (tokens [B, n], full_logits [B, n, V] f32,
     cache)."""
     dev = cache.k.device
+    st = _mode_for(st, cache)
     logits = logits0.to(dev)
     pos = start_pos.to(dev, torch.int32)
     toks, out = [], []
@@ -137,13 +177,14 @@ def scheduler_loop(
     per step and returns only small per-step outputs: sampled tokens, the
     top-10 capture, and the logit values at each verify row's claimed top-10
     ids. Inactive rows (forced_toks == -2) pass a pad slot, so their writes
-    go to the store's spare slot.
+    go to the store's spare slot (kernel P's too, in write mode).
 
     Per-row arithmetic is the batched T == 1 step the per-token path runs,
     so greedy tokens match the per-token scheduler. Returns (toks [B, H],
     top_ids [B, H, 10], top_vals [B, H, 10], claimed_vals [B, H, 10],
     logits [B, V], cache)."""
     dev = cache.device
+    st = _mode_for(st, cache)
     logits = logits0.to(dev)
     pos = start_pos.to(dev, torch.int32)
     forced_toks = forced_toks.to(dev, torch.int32)

@@ -49,6 +49,8 @@ SIGNATURES = {
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
+        "decode_attention_fresh_launch": [_P] * 15 + [_I] * 8 + [_F, _P],
+        "decode_attention_hb_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
         "prefill_attention_launch": [_P] * 9 + [_I] * 8 + [_F, _P],
     },
     "paged_attention": {
@@ -63,6 +65,8 @@ LAUNCHES = {"w4a8_gemv": 0, "q4k_dequant_matmul": 0, "q8_dequant_matmul": 0,
             "w4a8_bank_gemv": 0, "q4k_bank_matmul": 0,
             "q4k_parts_matmul": 0, "w4a8_parts_gemv": 0,
             "decode_attention": 0, "prefill_attention": 0,
+            "decode_attention_fresh": 0, "decode_attention_hb": 0,
+            "decode_attention_write": 0,
             "paged_decode_attention": 0, "paged_prefill_attention": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}

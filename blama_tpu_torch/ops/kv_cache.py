@@ -86,13 +86,10 @@ class SlotStore:
         """Write K/V [B, T, H_kv, D] of layer `li` at flat slots [B*T]
         (quantizing on write in INT8 mode). Unique indices apart from the
         spare slot, whose content is never read."""
-        if self.quantized:
-            k, k_sc = quantize_kv(k)
-            v, v_sc = quantize_kv(v)
-            self.k_scale_store[li][flat] = k_sc.flatten(0, 1)
-            self.v_scale_store[li][flat] = v_sc.flatten(0, 1)
-        self.k_store[li][flat] = k.flatten(0, 1).to(self.k_store.dtype)
-        self.v_store[li][flat] = v.flatten(0, 1).to(self.v_store.dtype)
+        write_rows(self.k_store[li], self.v_store[li],
+                   self.k_scale_store[li] if self.quantized else None,
+                   self.v_scale_store[li] if self.quantized else None,
+                   flat, k.flatten(0, 1), v.flatten(0, 1))
 
 
 class KVCache(SlotStore):
@@ -162,9 +159,10 @@ class KVCache(SlotStore):
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[B, T, H, D] → (int8 codes, f32 scales [B, T, H]); max-abs symmetric.
-    Multiplies by the reciprocal scale and rounds half to even, as the
-    reference does."""
+    """[..., D] → (int8 codes, f32 scales [...]); max-abs symmetric over the
+    last dim. The scale is amax / 127 as an IEEE division, the codes the
+    rows times 1 / scale rounded half to even, as the reference does (and
+    kernels N and P, ops/csrc/attention_common.cuh stage_row)."""
     xf = x.float()
     amax = torch.amax(torch.abs(xf), dim=-1)
     # a tensor divisor: torch divides by a Python scalar on CUDA through its
@@ -173,6 +171,21 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     inv = torch.where(scale > 0, 1.0 / torch.where(scale > 0, scale, 1.0), 0.0)
     codes = torch.round(xf * inv[..., None]).to(torch.int8)
     return codes, scale
+
+
+def write_rows(k_store, v_store, k_scale_store, v_scale_store, flat: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor) -> None:
+    """Store K/V rows [N, H_kv, D] of one layer at flat slots [N]: quantized
+    by quantize_kv when the layer has scale stores, else cast to the store's
+    type. The cache write and the plain versions of the write and fresh
+    kernels (ops/decode_attention.py) all store a row through this."""
+    if k_scale_store is not None:
+        k, k_sc = quantize_kv(k)
+        v, v_sc = quantize_kv(v)
+        k_scale_store[flat] = k_sc
+        v_scale_store[flat] = v_sc
+    k_store[flat] = k.to(k_store.dtype)
+    v_store[flat] = v.to(v_store.dtype)
 
 
 def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,

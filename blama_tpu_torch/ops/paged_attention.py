@@ -43,9 +43,9 @@ def supports(page_size: int, head_dim: int, k_dtype) -> bool:
     reference's, argument for argument (pages of a multiple of 128 slots;
     `k_dtype` decides nothing there either), so the same pool takes the same
     route in both packages; kernels E and F need only whole 32-slot tiles per
-    page. What the gate admits but the kernels were not built for (a head
-    size outside 64/128/256, an f32 pool) is refused on a card where the pool
-    is created: decode_attention.require_kernel_geometry."""
+    page, over an INT8, bf16 or f32 pool. What the gate admits but the
+    kernels were not built for (a head size outside 64/128/256) is refused on
+    a card where the pool is created: decode_attention.require_kernel_geometry."""
     return (
         page_size % 128 == 0
         and head_dim % 2 == 0
@@ -105,7 +105,7 @@ def _check_cuda(q, k_pool, v_pool, pool_pos, page_table, q_pos, inv_freq_e,
 
 def paged_decode_attention(
     q: torch.Tensor,           # [B, 1, H, D] rotated query (one decode token)
-    k_pool: torch.Tensor,      # [P, G, Hkv, D] unrotated pool pages; int8 or bf16
+    k_pool: torch.Tensor,      # [P, G, Hkv, D] unrotated pool pages; int8, bf16 or f32
     v_pool: torch.Tensor,      # [P, G, Hkv, D]
     pool_pos: torch.Tensor,    # [P, G] int32, -1 = empty slot
     page_table: torch.Tensor,  # [B, MP] int32, -1 = unmapped

@@ -41,7 +41,7 @@ class InstanceInitParams:
     # fused attention kernels; the port's only attention mode, as the
     # reference's is whenever the model was loaded with attn="fused"
     flash_attn: bool = False
-    kv_dtype: str = "float32"    # float32 (CPU only) | bfloat16 | int8
+    kv_dtype: str = "float32"    # float32 | bfloat16 | int8
     fast_greedy: bool = True     # device-loop fast path for eligible complete()
     ring_mesh: object = None     # sequence-parallel prefill (not ported)
     ring_min_prompt: int = 32

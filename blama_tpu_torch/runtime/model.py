@@ -59,11 +59,9 @@ class Model:
                  progress_cb: ModelLoadProgressCb | None = None):
         self.params = params or ModelParams()
         self.device = resolve_device(self.params.device)
-        if (self.params.mesh is not None or self.params.sharding_rules is not None
-                or self.params.moe_ragged is not None):
+        if self.params.mesh is not None or self.params.sharding_rules is not None:
             raise NotImplementedError(
-                "meshes, sharding and the ragged MoE mixture are not ported "
-                "(ROADMAP.md §1 item 13, multi-GPU)")
+                "meshes and sharding are not ported (ROADMAP.md §1 item 13, multi-GPU)")
         if self.params.attn not in ("xla", "fused", None):
             raise ValueError(
                 f"ModelParams.attn must be 'xla' or 'fused', got {self.params.attn!r}")
@@ -88,6 +86,15 @@ class Model:
                 "attn='xla' (the two-pass chain for every chunk) is not ported for "
                 "llama files; the port serves attn='fused' (ROADMAP.md §1 item 9, "
                 "other engines)")
+        # moe_ragged picks the reference's mixture for DENSE expert banks only:
+        # packed Q4_K banks take moe_ffn_quant before it is read
+        # (blama_tpu/models/moe.py:374-377), and a llama file has no mixture
+        if (self.params.moe_ragged is not None and self.config.is_moe
+                and self.params.dtype not in MOE_ENGINES):
+            raise NotImplementedError(
+                f"moe_ragged with dtype={self.params.dtype!r}: the dense MoE "
+                "engines, whose mixture it picks, are not ported "
+                "(ROADMAP.md §1 item 10, the rest of MoE)")
         # the attention mode the model runs (Instance and the scheduler read it)
         self.config.attn_fused = not self.config.is_moe
         self.vocab = Vocab.from_gguf(self.reader)

@@ -278,9 +278,9 @@ def main() -> None:
                               device=os.environ.get("BLAMA_DEVICE", "cuda")),
                   progress_cb=progress)
     print()
-    # the attention kernels read a bf16 (or INT8) cache: the solo path uses
-    # bf16 rows, the scheduler's own choice for a quantized model
-    inst_params = InstanceInitParams(kv_dtype="bfloat16")
+    # the solo path keeps the reference's default f32 KV rows; the
+    # scheduler picks its own store type
+    inst_params = InstanceInitParams()
     sched_batch = int(os.environ.get("BLAMA_SCHEDULER", "0"))
     if sched_batch > 0:
         from .scheduler_server import SchedulerServer

@@ -241,10 +241,11 @@ def _pack_f32_norm(n: int) -> tuple[bytes, tuple[int, ...]]:
     return np.ones(n, np.float32).tobytes(), (n,)
 
 
-def _synthetic_header(path: str, preset: str, s: dict) -> GGUFWriter:
-    """A GGUFWriter holding the metadata of a synthesized preset `s`: llama
-    architecture keys (the expert counts when `s` has them) and a vocabulary
-    of specials, 256 byte tokens and numbered pieces."""
+def _synthetic_header(path: str, preset: str, s: dict,
+                      arch: str = "llama") -> GGUFWriter:
+    """A GGUFWriter holding the metadata of a synthesized preset `s`: the
+    architecture keys of `arch` (the expert counts when `s` has them) and a
+    vocabulary of specials, 256 byte tokens and numbered pieces."""
     E, H, V = s["n_embd"], s["n_head"], s["n_vocab"]
     tokens = ["<unk>", "<s>", "</s>"]
     types = [TT_UNKNOWN, TT_CONTROL, TT_CONTROL]
@@ -259,21 +260,21 @@ def _synthetic_header(path: str, preset: str, s: dict) -> GGUFWriter:
         scores.append(-10.0)
 
     g = GGUFWriter(path)
-    g.add_kv("general.architecture", "llama")
+    g.add_kv("general.architecture", arch)
     g.add_kv("general.name", f"synthetic-{preset}")
-    g.add_kv("llama.block_count", s["n_layer"])
-    g.add_kv("llama.embedding_length", E)
-    g.add_kv("llama.feed_forward_length", s["n_ff"])
-    g.add_kv("llama.attention.head_count", H)
-    g.add_kv("llama.attention.head_count_kv", s["n_head_kv"])
-    g.add_kv("llama.attention.layer_norm_rms_epsilon", 1e-5)
-    g.add_kv("llama.context_length", s["n_ctx"])
-    g.add_kv("llama.rope.freq_base", float(s.get("rope_freq_base", 10000.0)))
-    g.add_kv("llama.rope.dimension_count", E // H)
+    g.add_kv(f"{arch}.block_count", s["n_layer"])
+    g.add_kv(f"{arch}.embedding_length", E)
+    g.add_kv(f"{arch}.feed_forward_length", s["n_ff"])
+    g.add_kv(f"{arch}.attention.head_count", H)
+    g.add_kv(f"{arch}.attention.head_count_kv", s["n_head_kv"])
+    g.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", 1e-5)
+    g.add_kv(f"{arch}.context_length", s["n_ctx"])
+    g.add_kv(f"{arch}.rope.freq_base", float(s.get("rope_freq_base", 10000.0)))
+    g.add_kv(f"{arch}.rope.dimension_count", E // H)
     if "n_expert" in s:
-        g.add_kv("llama.expert_count", s["n_expert"])
-        g.add_kv("llama.expert_used_count", s["n_expert_used"])
-    g.add_kv("llama.vocab_size", V)
+        g.add_kv(f"{arch}.expert_count", s["n_expert"])
+        g.add_kv(f"{arch}.expert_used_count", s["n_expert_used"])
+    g.add_kv(f"{arch}.vocab_size", V)
     g.add_kv("tokenizer.ggml.model", "llama")
     g.add_kv("tokenizer.ggml.tokens", tokens)
     g.add_kv("tokenizer.ggml.scores", scores)
@@ -384,12 +385,16 @@ MOE_PRESETS = {
 
 
 def synthesize_moe_gguf(path: str, preset: str = "mixtral-debug",
-                        seed: int = 11, n_layer: int | None = None) -> dict:
+                        seed: int = 11, n_layer: int | None = None,
+                        arch: str = "llama") -> dict:
     """Write a Mixtral-family GGUF of a preset's geometry with direct-packed
     Q4_K expert banks (random codes, plausible scales: the load path depends on
     the layout, not on the values). The JAX package's synthesizer writes the
     same bytes for the same preset and seed; `n_layer` cuts the depth (the
-    layers kept are the uncut file's first ones)."""
+    layers kept are the uncut file's first ones). `arch` names the file's
+    `general.architecture` and its metadata keys' prefix: "llama" (the JAX
+    synthesizer's) or "mixtral", which llama.cpp's converter writes for
+    Mixtral checkpoints."""
     s = dict(MOE_PRESETS[preset])
     if n_layer is not None:
         s["n_layer"] = n_layer
@@ -398,7 +403,7 @@ def synthesize_moe_gguf(path: str, preset: str = "mixtral-debug",
     Ne = s["n_expert"]
     D = E // H
     rng = np.random.default_rng(seed)
-    g = _synthetic_header(path, preset, s)
+    g = _synthetic_header(path, preset, s, arch)
 
     def q(name, ne, sigma=None):
         # ne is the ggml dim order (innermost first); rows = prod(ne[1:])

@@ -2,6 +2,7 @@
 
     python -m blama_tpu_torch.tools.profile_step [--steps 16] [--ctx 2048] [--scheduler]
         [--dtype q4k_a8] [--quant Q4_K] [--layers N] [--moe] [--tp-blocks N]
+        [--kv int8|bf16|f32] [--attn-mode write|fresh|hb]
 
 Loads the synthesized llama3-8b GGUF (testing.cached_llama_gguf; `--quant`
 Q4_K, Q8_0 or Q4_K_M, `--layers` cuts its depth) as engine `--dtype` (any of
@@ -10,7 +11,10 @@ with `--moe` the synthesized mixtral-8x7b GGUF (testing.cached_moe_gguf,
 Mixtral-8x7B's widths, `--layers` deep, default 8) as `q4k_a8` or
 `q4k_fused` with the two-pass attention chain (attn="xla"). `--tp-blocks N`
 loads it in the fixed-topology tp_blocks mode (ModelParams.tp_blocks; the
-mode a solo verifier of a prover sharded over tp | N devices runs). It
+mode a solo verifier of a prover sharded over tp | N devices runs). `--kv`
+is the solo cache's store type (default INT8), `--attn-mode` turns on one of
+the reference's opt-in decode-attention modes (BLAMA_ATTN_WRITE: kernel P,
+BLAMA_ATTN_FRESH: N on an INT8 store, BLAMA_ATTN_HB: O). It
 prefills a 128-token prompt, then times greedy decode steps
 (generate_loop.continue_greedy): wall time per step with the device
 synchronized, and one torch.profiler window over the same steps for the
@@ -32,6 +36,8 @@ import json
 import subprocess
 import time
 
+KV_DTYPES = {"int8": "int8", "bf16": "bfloat16", "f32": "float32"}
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -47,6 +53,10 @@ def main() -> None:
                     help="the mixtral-8x7b MoE file (default depth 8 layers)")
     ap.add_argument("--tp-blocks", type=int, default=-1,
                     help="ModelParams.tp_blocks (fixed-topology blocks; -1: none)")
+    ap.add_argument("--kv", default="int8", choices=list(KV_DTYPES),
+                    help="the solo cache's store type")
+    ap.add_argument("--attn-mode", choices=["write", "fresh", "hb"], default=None,
+                    help="a decode-attention mode (BLAMA_ATTN_WRITE / _FRESH / _HB)")
     args = ap.parse_args()
 
     import numpy as np
@@ -54,6 +64,8 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ..ops import decode_attention as dattn
+    from ..ops import generate_loop as gl
     from ..ops.generate_loop import continue_greedy, static_of
     from ..runtime.instance import Instance, InstanceInitParams
     from ..runtime.model import Model, ModelParams
@@ -62,6 +74,10 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
+    # the modes' flags, as their env vars would set them at import
+    gl._WRITE_IN_KERNEL = args.attn_mode == "write"
+    gl._FRESH_OPERAND = args.attn_mode == "fresh"
+    dattn._HB = args.attn_mode == "hb"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -101,7 +117,7 @@ def main() -> None:
         steps(horizon)                         # admission, joint prefill, one horizon
     else:
         inst = Instance(model, InstanceInitParams(ctx_size=args.ctx, flash_attn=True,
-                                                  kv_dtype="int8"))
+                                                  kv_dtype=KV_DTYPES[args.kv]))
         prompt = [1] + rng.integers(259, model.config.n_vocab, 127).tolist()
         logits = inst.decode(prompt, np.arange(len(prompt)))
         st = static_of(inst.step_config)
@@ -141,6 +157,7 @@ def main() -> None:
     print(json.dumps(dict(
         card=smi, mode="scheduler" if args.scheduler else "solo", rows=rows,
         engine=args.dtype, tp_blocks=model.config.tp_blocks,
+        kv=args.kv if not args.scheduler else "bf16", attn_mode=args.attn_mode,
         file="mixtral-8x7b" if args.moe else args.quant,
         layers=model.config.n_layer, file_s=file_s, load_s=load_s, weights_gib=weights_gib,
         steps=args.steps, ctx=args.ctx, wall_ms_per_step=wall_ms,

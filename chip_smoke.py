@@ -13,7 +13,7 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    rows; attention at T = 1, 8, 128 and 256 on one row and on 8), and times
    it (median of CUDA event timings, L2 flushed before every launch) beside
    its bound, its plain version and one PyTorch library call computing the
-   same function. The attention kernels run on INT8 and bf16 stores; the
+   same function. The attention kernels run on INT8, bf16 and f32 stores; the
    paged kernels E and F must equal the dense C and D bit for bit over the
    same logical rows under scrambled page placement. The other engines'
    kernels at the same shapes: B on f32 scales, G (int8 codes, scale group
@@ -38,7 +38,18 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    temp directory when present), loads it as `q4k_a8` with fused attention,
    and on an INT8 cache (ctx 2048) one solo Session answers three
    prove-and-verify requests; every same-backend replay must score exactly
-   1.0 (kernels A, B, C, D);
+   1.0 (kernels A, B, C, D). Then the modes phase on the same model: the
+   decode-attention modes, write (kernel P; INT8 and f32 stores), fresh (N;
+   INT8) and head-batched (O; bf16 and f32), three shorter requests each,
+   every replay 1.0, the mode's kernel launched and C on no step; write and
+   fresh give the mode-off tokens and top-10 bit for bit, head-batched
+   replays the mode-off records at 0.95 / 0.98; the solo HTTP server on its
+   default f32 store verifies at 1.0; the dense scheduler in write mode gives
+   the mode-off tokens. Its kernels are held in the kernel phase at H32 /
+   Hkv8 / D128, S = 2048, 1 and 8 rows: N and P bit for bit equal to C after
+   the cache write on every store type (P's store equal to the write's, a
+   pad row's write in the spare slot), O within tolerance of its plain
+   version;
 4. serving: the port's HttpServer in-process on 127.0.0.1 over the
    continuous-batching scheduler (8 rows, paged bf16 pool, horizon 8,
    ctx 2048) answers 12 concurrent /complete and /chat/completions requests,
@@ -752,8 +763,8 @@ def _attn_row(torch, timer, name, label, kernel, plain, q, dense, q_pos, inv, ex
 
 def attention_phase(torch, timer):
     """Kernels C, D (dense rows) and E, F (paged pool) against their plain
-    versions at the 8B shapes, INT8 and bf16; E and F must equal C and D bit
-    for bit over the same logical rows under scrambled page placement."""
+    versions at the 8B shapes, INT8, bf16 and f32; E and F must equal C and D
+    bit for bit over the same logical rows under scrambled page placement."""
     from blama_tpu_torch.ops import decode_attention as da
     from blama_tpu_torch.ops import paged_attention as pa
     from blama_tpu_torch.ops import paged_kv as pkv
@@ -765,16 +776,8 @@ def attention_phase(torch, timer):
     inv = inv.cuda()
     scale = D ** -0.5
 
-    def rand_store(shape, int8):
-        if int8:
-            kv = [torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                                dtype=torch.int8) for _ in range(2)]
-            sc = [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 + 1e-3
-                  for _ in range(2)]
-            return kv[0], kv[1], sc[0], sc[1]
-        kv = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-              for _ in range(2)]
-        return kv[0], kv[1], None, None
+    def rand_store(shape, tag):
+        return _rand_store(torch, gen, shape, tag)
 
     # -- solo shape: one INT8 (then bf16) row at S=2048 with empty slots
     # and slots positioned past the queries ------------------------------------
@@ -783,9 +786,8 @@ def attention_phase(torch, timer):
     pos[0, ::37] = -1
     pos[0, 1900:] = -1
     pos[0, 1200:1260] = 4000
-    for int8 in (True, False):
-        tag = "int8" if int8 else "bf16"
-        k, v, ks, vs = rand_store((B, S, Hkv, D), int8)
+    for tag in STORES:
+        k, v, ks, vs = rand_store((B, S, Hkv, D), tag)
         dense = (k, v, ks, vs, pos)
         q_pos = torch.tensor([[1800]], dtype=torch.int32, device="cuda")
         q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
@@ -821,9 +823,8 @@ def attention_phase(torch, timer):
     pool_pos[table[2, 3], 5:40] = -1          # an edited position map: holes
     pool_pos[table[3, 7], 10:20] = 5000       # and slots past every query
     table, pool_pos = table.cuda(), pool_pos.cuda()
-    for int8 in (False, True):
-        tag = "int8" if int8 else "bf16"
-        kp, vp, ksp, vsp = rand_store((P, G, Hkv, D), int8)
+    for tag in ("bf16", "int8", "f32"):
+        kp, vp, ksp, vsp = rand_store((P, G, Hkv, D), tag)
         # the logical rows, gathered: what kernels C and D read
         mapped = torch.repeat_interleave(table >= 0, G, dim=1)
         pos_v = torch.where(mapped, pool_pos.reshape(-1)[pkv.view_slot_map(table, G)],
@@ -866,6 +867,126 @@ def attention_phase(torch, timer):
                 raise AssertionError(f"{names[0]} {tag} T={T}: idle row is not zero")
             log(f"{names[0]} {tag} T={T}: bit-identical to {names[1]} under scrambled pages")
             rows += [r_p, r_d]
+    return rows
+
+
+# the attention kernels' store types: int8 codes with f32 scales, bf16, f32
+STORES = ("int8", "bf16", "f32")
+
+
+def _rand_store(torch, gen, shape, tag):
+    """Random K and V of a store of type `tag` and their scales (int8)."""
+    if tag == "int8":
+        kv = [torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2)]
+        sc = [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 + 1e-3
+              for _ in range(2)]
+        return kv[0], kv[1], sc[0], sc[1]
+    dt = torch.bfloat16 if tag == "bf16" else torch.float32
+    kv = [torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(2)]
+    return kv[0], kv[1], None, None
+
+
+def modes_kernel_phase(torch, timer):
+    """Kernels N (fresh operand) and P (in-kernel write) against kernel C
+    after the cache write, bit for bit, on INT8, bf16 and f32 stores (P's
+    store against the write's, the spare slot included), and O (head-batched)
+    against its plain version, at H32 / Hkv8 / D128, S = 2048, one row and 8
+    rows (the last a pad row, whose write lands in the spare slot); each
+    timed beside its bound and SDPA."""
+    from blama_tpu_torch.ops import decode_attention as da
+    from blama_tpu_torch.ops import kv_cache as kvc
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    H, Hkv, D, S = 32, 8, 128, 2048
+    inv, mscale = da.effective_inv_freq(D, D, 500000.0)
+    inv = inv.cuda()
+    scale = D ** -0.5
+    rows = []
+    # each row's fresh slot (= its position; None: a pad row)
+    for lens in ([1694], [300, 1500, 2047, 129, 640, 256, 1000, None]):
+        B = len(lens)
+        slot = torch.tensor([S if n is None else n for n in lens], dtype=torch.int32,
+                            device="cuda")
+        q_pos = torch.where(slot < S, slot, 0)
+        pos = torch.full((B, S), -1, dtype=torch.int32)
+        for b, n in enumerate(lens):
+            if n:
+                pos[b, :n] = torch.arange(n, dtype=torch.int32)
+        pos[:, 7::37] = -1                  # holes in the position map
+        pos = pos.cuda()
+        for tag in STORES:
+            k, v, ks, vs = _rand_store(torch, gen, (1, B, S, Hkv, D), tag)
+            base = kvc.KVCache(k, v, pos, ks, vs)
+            base.pos_store[base.flat_slots(slot[:, None])] = q_pos
+            del k, v, ks, vs
+
+            def clone():
+                c = kvc.KVCache(base.k, base.v, base.positions, base.k_scale, base.v_scale)
+                c.pos_store.copy_(base.pos_store)
+                return c
+
+            kn, vn = (torch.randn((B, Hkv, D), generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(2))
+            q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            ref_c = clone()
+            ref_c.write(0, ref_c.flat_slots(slot[:, None].long()), kn[:, None], vn[:, None])
+            sc = (ref_c.k_scale[0], ref_c.v_scale[0]) if ref_c.quantized else (None, None)
+            dense = (ref_c.k[0], ref_c.v[0], *sc, ref_c.positions)
+            ref = da.decode_attention(q, ref_c.k[0], ref_c.v[0], q_pos, ref_c.positions, inv,
+                                      *sc, mscale=mscale)
+            n_c, p_c, pp_c = clone(), clone(), clone()
+            n_sc = (n_c.k_scale[0], n_c.v_scale[0]) if n_c.quantized else (None, None)
+
+            def stores(c):
+                return ((c.k_store[0], c.v_store[0], c.k_scale_store[0], c.v_scale_store[0])
+                        if c.quantized else (c.k_store[0], c.v_store[0], None, None))
+
+            fresh = lambda: da.decode_attention(          # noqa: E731
+                q, n_c.k[0], n_c.v[0], q_pos, n_c.positions, inv, *n_sc, mscale=mscale,
+                k_new=kn, v_new=vn, slot=slot)
+            pk, pv, pks, pvs = stores(p_c)
+            write = lambda: da.decode_attention_write(    # noqa: E731
+                q, pk, pv, q_pos, p_c.positions, inv, kn, vn, slot, pks, pvs, mscale=mscale)
+            for name, fn in (("N", fresh), ("P", write)):
+                out = fn()
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    raise AssertionError(
+                        f"kernel {name} {tag} B={B}: differs from C after the write (max "
+                        f"{(out.float() - ref.float()).abs().max().item()})")
+            for a, r in zip(stores(p_c), stores(ref_c), strict=True):
+                if a is not None and not torch.equal(a, r):
+                    raise AssertionError(f"kernel P {tag} B={B}: store differs from the write's")
+            log(f"kernels N and P {tag} B={B}: bit-identical to C after the cache write; "
+                "P's store (spare slot included) equal to the write's")
+            row_bytes = 2 * B * Hkv * D * 2
+            written = 2 * B * Hkv * (D * base.k_store.element_size() + (4 if base.quantized else 0))
+            rows.append(_attn_row(
+                torch, timer, "decode_attention_fresh", f"modes {tag}", fresh,
+                lambda: da.fresh_attention_plain(q, n_c.k[0], n_c.v[0], q_pos[:, None],
+                                                 n_c.positions, inv, kn, vn, slot, *n_sc,
+                                                 scale),
+                q, dense, q_pos[:, None], inv, row_bytes)[0])
+            ppk, ppv, ppks, ppvs = stores(pp_c)
+            rows.append(_attn_row(
+                torch, timer, "decode_attention_write", f"modes {tag}", write,
+                lambda: da.write_attention_plain(q, ppk, ppv, q_pos[:, None], pp_c.positions,
+                                                 inv, kn, vn, slot, ppks, ppvs, scale),
+                q, dense, q_pos[:, None], inv, row_bytes + written)[0])
+            da._HB = True
+            try:
+                rows.append(_attn_row(
+                    torch, timer, "decode_attention_hb", f"modes {tag}",
+                    lambda: da.decode_attention(q, ref_c.k[0], ref_c.v[0], q_pos,
+                                                ref_c.positions, inv, *sc, mscale=mscale),
+                    lambda: da.flash_attention_plain(q, ref_c.k[0], ref_c.v[0], q_pos[:, None],
+                                                     ref_c.positions, inv, *sc, scale),
+                    q, dense, q_pos[:, None], inv, 0)[0])
+            finally:
+                da._HB = False
+            del base, ref_c, n_c, p_c, pp_c
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -987,6 +1108,160 @@ def solo_phase(torch, model, kind, record):
     del inst
     torch.cuda.empty_cache()
     return dict(requests=results), launches
+
+
+# the decode-attention modes (BLAMA_ATTN_*), each with its kernel, and the
+# store types each runs on in the modes phase
+MODE_KERNEL = {"write": "decode_attention_write", "fresh": "decode_attention_fresh",
+               "hb": "decode_attention_hb"}
+MODE_RUNS = (("write", "int8"), ("write", "float32"), ("fresh", "int8"),
+             ("hb", "bfloat16"), ("hb", "float32"))
+MODE_REQUESTS = ((128, 12), (5, 12), (3, 8))
+
+
+def _set_mode(mode):
+    """Turn one decode-attention mode on (None: all off) through the module
+    attributes the reference's tests set, as its env vars would at import."""
+    from blama_tpu_torch.ops import decode_attention as da
+    from blama_tpu_torch.ops import generate_loop as gl
+
+    gl._WRITE_IN_KERNEL, gl._FRESH_OPERAND = mode == "write", mode == "fresh"
+    da._HB = mode == "hb"
+
+
+def _mode_run(torch, model, kv, mode):
+    """The modes phase's three requests on a solo Instance over a `kv` store
+    with `mode` on (None: off), each proven and replayed at exactly 1.0.
+    Returns (records, results, launches of the run)."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+
+    _set_mode(mode)
+    try:
+        kernels.reset_launches()
+        inst = Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True,
+                                                  kv_dtype=kv))
+        rng = np.random.default_rng(17)
+        record, results = [], []
+        for n_prompt, n_gen in MODE_REQUESTS:
+            prompt = [1] + rng.integers(259, model.config.n_vocab, n_prompt - 1).tolist()
+            r = prove_and_verify(inst, prompt, n_gen, record)
+            if r["score"] != 1.0:
+                raise AssertionError(f"mode {mode} on {kv}: replay scored {r['score']}")
+            results.append(r)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        _set_mode(None)
+    del inst
+    torch.cuda.empty_cache()
+    log(f"modes: {mode or 'off'} on {kv}: {results}; launches {launches}")
+    return record, results, launches
+
+
+def _top10(record):
+    return [[(p.token, [(t.token, t.logit) for t in p.logits]) for p in preds]
+            for _, preds in record]
+
+
+def modes_phase(torch, model, kind):
+    """This slice's main path, on the solo phase's model: the reference's
+    opt-in decode-attention modes through Model -> Instance -> Session, three
+    prove-and-verify requests each (replay exactly 1.0), the mode's kernel
+    launched and kernel C on no step: write (P) on INT8 and f32 stores and
+    fresh (N) on INT8 give the mode-off run's tokens and top-10 bit for bit;
+    head-batched (O) on bf16 and f32 replays the mode-off records at the
+    cross-mode thresholds (0.95 / 0.98). Then the solo HTTP server on its
+    default f32 store verifies a request at 1.0, and the dense-row scheduler
+    in write mode gives the mode-off tokens."""
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.sampler import SamplerParams
+    from blama_tpu_torch.server.scheduler import ContinuousBatchingScheduler, GenRequest
+    from blama_tpu_torch.server.server import Server
+
+    out = {}
+    off = {}
+    for kv in ("int8", "float32", "bfloat16"):
+        rec, res, launches = _mode_run(torch, model, kv, None)
+        require_launched(launches, ("decode_attention", "prefill_attention"),
+                         f"the mode-off run on {kv}")
+        off[kv] = rec
+        out[f"off {kv}"] = dict(requests=res, launches=launches)
+    for mode, kv in MODE_RUNS:
+        rec, res, launches = _mode_run(torch, model, kv, mode)
+        require_launched(launches, (MODE_KERNEL[mode],), f"mode {mode} on {kv}")
+        if launches["decode_attention"]:
+            raise AssertionError(f"mode {mode} on {kv}: kernel C ran on a decode step")
+        entry = dict(requests=res, launches=launches)
+        if mode == "hb":
+            _set_mode("hb")
+            try:
+                inst = Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True,
+                                                          kv_dtype=kv))
+                entry["replays_off"] = [replay(inst, prompt, preds) for prompt, preds in off[kv]]
+            finally:
+                _set_mode(None)
+            del inst
+            if not all(sc >= 0.95 and sim >= 0.98 for sc, sim in entry["replays_off"]):
+                raise AssertionError(f"mode hb on {kv}: replaying the mode-off records "
+                                     f"fell below 0.95 / 0.98: {entry['replays_off']}")
+        elif _top10(rec) != _top10(off[kv]):
+            raise AssertionError(f"mode {mode} on {kv}: tokens or top-10 differ from the "
+                                 "mode-off run")
+        log(f"modes: {mode} on {kv} holds ({entry.get('replays_off', 'bit-equal to off')})")
+        out[f"{mode} {kv}"] = entry
+    torch.cuda.empty_cache()
+
+    # the solo HTTP server as `python -m blama_tpu_torch.server.http` builds it
+    srv = Served(model, api=Server(model, InstanceInitParams()))
+    try:
+        store = srv.api._instance.cache.k_store.dtype
+        body = _request_body("plain", "the solo server keeps f32 rows", max_tokens=16,
+                             temp=0.0)
+        resp = srv.post(PATHS["plain"][0], body)
+        score = srv.post(PATHS["plain"][1], {"request": body, "response": resp})["result"]
+    finally:
+        srv.close()
+    del srv
+    torch.cuda.empty_cache()
+    log(f"modes: solo HTTP server, {store} KV: {len(resp['tokenData'])} tokens, verify {score}")
+    if store != torch.float32 or len(resp["tokenData"]) != 16 or score != 1.0:
+        raise AssertionError(f"solo HTTP server on {store}: verify scored {score}")
+    out["solo_http"] = dict(kv=str(store), score=score)
+
+    prompts = [[1] + list(range(300 + 7 * i, 300 + 7 * i + n)) for i, n in
+               enumerate((40, 9, 120))]
+    toks = {}
+    for mode in (None, "write"):
+        _set_mode(mode)
+        try:
+            kernels.reset_launches()
+            sched = ContinuousBatchingScheduler(model, max_batch=4, ctx_size=2048,
+                                                paged=False, horizon=8)
+            got = {}
+            for i, p in enumerate(prompts):
+                sched.submit(GenRequest(prompt=p, max_tokens=24,
+                                        sampler_params=SamplerParams(temp=0.0),
+                                        on_done=lambda g, i=i: got.__setitem__(
+                                            i, [x.token for x in g])))
+            sched.run_until_idle()
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            _set_mode(None)
+        del sched
+        toks[mode] = [got[i] for i in range(len(prompts))]
+        if mode:
+            require_launched(launches, (MODE_KERNEL[mode],), "the dense scheduler in write mode")
+            out["scheduler_write"] = dict(launches=launches)
+    if toks["write"] != toks[None]:
+        raise AssertionError("the dense scheduler in write mode gave other tokens")
+    log(f"modes: dense scheduler (4 rows, one idle), write mode: the mode-off tokens")
+    torch.cuda.empty_cache()
+    return out
 
 
 MATMUL_KERNELS = ("w4a8_gemv", "q4k_dequant_matmul", "q8_dequant_matmul",
@@ -1280,14 +1555,14 @@ class Served:
     """The port's HttpServer in-process on 127.0.0.1 (ephemeral port) over a
     SchedulerServer; `post`/`get` are plain HTTP clients."""
 
-    def __init__(self, model, **sched):
+    def __init__(self, model, api=None, **sched):
         import threading
 
         from blama_tpu_torch.runtime.instance import InstanceInitParams
         from blama_tpu_torch.server.http import HttpServer
         from blama_tpu_torch.server.scheduler_server import SchedulerServer
 
-        self.api = SchedulerServer(model, InstanceInitParams(ctx_size=2048), **sched)
+        self.api = api or SchedulerServer(model, InstanceInitParams(ctx_size=2048), **sched)
         self.srv = HttpServer(("127.0.0.1", 0), self.api, request_timeout=600.0)
         self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
         self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
@@ -1322,7 +1597,8 @@ class Served:
         self.thread.join(timeout=60)
         self.srv.server_close()
         self.api.close()
-        if self.thread.is_alive() or self.api.scheduler._thread.is_alive():
+        sched = getattr(self.api, "scheduler", None)
+        if self.thread.is_alive() or (sched is not None and sched._thread.is_alive()):
             raise AssertionError("server threads did not stop")
 
 
@@ -1631,6 +1907,24 @@ KERNELS = {
     "prefill_attention_bf16": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
                                "blama_tpu/ops/pallas/decode_attention.py:976",
                                "serving bf16 B=8 T=256 "),
+    # the modes phase's kernels at the solo step (one row, S=2048), and C and
+    # D on the f32 store (the solo phase's shapes; a 4th item names the row's
+    # kernel where the entry's name is not it)
+    "decode_attention_write": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
+                               "blama_tpu/ops/pallas/decode_attention.py:578",
+                               "modes int8 B=1 "),
+    "decode_attention_fresh": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
+                               "blama_tpu/ops/pallas/decode_attention.py:106",
+                               "modes int8 B=1 "),
+    "decode_attention_hb": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
+                            "blama_tpu/ops/pallas/decode_attention.py:279",
+                            "modes bf16 B=1 "),
+    "decode_attention_f32": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
+                             "blama_tpu/ops/pallas/decode_attention.py:106",
+                             "solo f32 ", "decode_attention"),
+    "prefill_attention_f32": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
+                              "blama_tpu/ops/pallas/decode_attention.py:976",
+                              "solo f32 ", "prefill_attention"),
     "paged_decode_attention": ("blama_tpu_torch/ops/csrc/paged_attention.cu",
                                "blama_tpu/ops/pallas/paged_attention.py:155",
                                "serving bf16 B=8 T=1 "),
@@ -1714,6 +2008,7 @@ def main() -> int:
         rows += bank_kernel_phase(torch, timer, np.random.default_rng(2))
         rows += moe_dense_kernel_phase(torch, timer, np.random.default_rng(3))
         rows += tp_kernel_phase(torch, timer, np.random.default_rng(4))
+        rows += modes_kernel_phase(torch, timer)
         del timer
         torch.cuda.empty_cache()
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
@@ -1721,6 +2016,8 @@ def main() -> int:
         a8_record = []
         res["solo"], solo_l = solo_phase(torch, model, kind, a8_record)
         log(f"solo phase done at {time.perf_counter() - t_start:.1f} s")
+        res["modes"] = modes_phase(torch, model, kind)
+        log(f"modes phase done at {time.perf_counter() - t_start:.1f} s")
         res["serving"], serve_l, dense_l = serving_phase(torch, model, kind)
         log(f"serving phase done at {time.perf_counter() - t_start:.1f} s")
         model.close()
@@ -1755,6 +2052,16 @@ def main() -> int:
         "paged_decode_attention": serve_l["paged_decode_attention"],
         "paged_prefill_attention": serve_l["paged_prefill_attention"],
     }
+    # the modes phase: each mode's kernel from its first run, C and D on f32
+    # from the mode-off f32 run
+    modes = res["modes"]
+    line_launches.update({
+        "decode_attention_write": modes["write int8"]["launches"]["decode_attention_write"],
+        "decode_attention_fresh": modes["fresh int8"]["launches"]["decode_attention_fresh"],
+        "decode_attention_hb": modes["hb bfloat16"]["launches"]["decode_attention_hb"],
+        "decode_attention_f32": modes["off float32"]["launches"]["decode_attention"],
+        "prefill_attention_f32": modes["off float32"]["launches"]["prefill_attention"],
+    })
     # the engines phase: each kernel's count from the engine that owns it
     eng = {k: v["launches"] for k, v in res["engines"].items() if isinstance(v, dict)}
     line_launches.update({
@@ -1781,8 +2088,8 @@ def main() -> int:
         "w4a8_parts_gemv": tp_l["q4k_a8"]["w4a8_parts_gemv"],
     })
     kernels_line = []
-    for name, (source, replaces, shape) in KERNELS.items():
-        base = name.removesuffix("_bf16")
+    for name, (source, replaces, shape, *row_kernel) in KERNELS.items():
+        base = row_kernel[0] if row_kernel else name.removesuffix("_bf16")
         r = next(c for c in rows if c["kernel"] == base
                  and (c["shape"] + " ").startswith(shape.rstrip() + " "))
         entry = dict(

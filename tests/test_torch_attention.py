@@ -193,11 +193,14 @@ def test_route_gates_match_jax_float_caches():
 
 
 def test_cuda_wrappers_refuse_f32_cache():
-    """An f32 cache has no kernel: the store-type check raises (it runs
-    before anything touches the card)."""
+    """The kernels' store types: an f32 cache is type 2 (it has kernels since
+    the f32 store type of attention_common.cuh); a store the kernels do not
+    read, an f16 cache, still raises in the store-type check (it runs before
+    anything touches the card)."""
     k = torch.zeros((1, 128, HKV, D))
+    assert pda.kv_type_of(k, k, None, None) == 2
     with pytest.raises(NotImplementedError):
-        pda.kv_type_of(k, k, None, None)
+        pda.kv_type_of(k.to(torch.float16), k.to(torch.float16), None, None)
     assert pda.kv_type_of(k.to(torch.bfloat16), k.to(torch.bfloat16), None, None) == 1
     assert pda.kv_type_of(k.to(torch.int8), k.to(torch.int8), k[..., 0], k[..., 0]) == 0
 
@@ -206,10 +209,11 @@ def test_cuda_wrappers_refuse_f32_cache():
     (("cuda", 32, 8, 128, torch.bfloat16), True),
     (("cuda", 32, 8, 64, torch.int8), True),
     (("cuda", 32, 8, 96, torch.bfloat16), False),    # the gates admit D=96
-    (("cuda", 32, 8, 128, torch.float32), False),    # and an f32 store
+    (("cuda", 32, 8, 128, torch.float32), True),     # the f32 store has kernels
     (("cuda", 66, 2, 128, torch.bfloat16), False),   # 33 query heads per KV head
     (("cpu", 4, 2, 16, torch.float32), True),        # the plain versions serve all
-], ids=["bf16", "int8", "d96", "f32", "g33", "cpu"])
+    (("cuda", 32, 8, 128, torch.float16), False),    # an f16 store has none
+], ids=["bf16", "int8", "d96", "f32", "g33", "cpu", "f16"])
 def test_kernel_geometry_refused_at_construction(case, ok):
     """What the route gates admit but kernels C-F were not built for is
     refused for a card where the cache is created, not inside a step."""

@@ -8,10 +8,11 @@ machine without one every test skips. On the card:
 Small, ragged shapes on purpose: the 8B shapes run in chip_smoke.py; here
 the edges — row counts that are not powers of two, widths that do not fill
 a block, a K that ends inside a staging chunk, batch > 1, a head dim of 64,
-bf16 and INT8 stores, pages of 32 slots on a scrambled pool — and replay
-determinism (two launches give the same bits), for every kernel (A, B with
-bf16 and f32 scales, C to F, G, H, I, the expert-bank kernels J and K, the
-tp_blocks kernels L and M with their invariances). The last tests drive each
+bf16, f32 and INT8 stores, pages of 32 slots on a scrambled pool — and
+replay determinism (two launches give the same bits), for every kernel (A, B
+with bf16 and f32 scales, C to F, G, H, I, the expert-bank kernels J and K,
+the tp_blocks kernels L and M with their invariances, the decode-attention
+modes' kernels N, O and P). The last tests drive each
 engine, the MoE fixture, the tp_blocks mode and the scheduler on the card on
 the tiny fixtures.
 """
@@ -514,6 +515,138 @@ def test_kernels_e_f_equal_dense(cuda, int8, t, g, d):
                                          d ** -0.5), ATTN_TOL)
     assert torch.equal(out, dense)
     assert (out[1] == 0).all()
+
+
+def _store(kv, b, s, hkv, d, seed, device):
+    """A KVCache of one layer on `device` holding random rows of store type
+    `kv` (int8 codes and scales, bf16 or f32 values) and _cache's positions."""
+    from blama_tpu_torch.ops import kv_cache as kvc
+
+    k, v, ks, vs, pos = _cache(b, s, hkv, d, seed, device)
+    if kv != "int8":
+        g = torch.Generator().manual_seed(seed + 1)
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}[kv]
+        k, v = (torch.randn(k.shape, generator=g).to(dt).to(device) for _ in range(2))
+        ks = vs = None
+    lift = lambda t: None if t is None else t[None]   # noqa: E731
+    return kvc.KVCache(k[None], v[None], pos, lift(ks), lift(vs))
+
+
+def _fresh_step(cache, slots, seed):
+    """This step's bf16 K/V rows [B, Hkv, D] and query, each row's position
+    written at its slot (a pad slot >= S writes the spare slot), and the
+    query positions."""
+    B, S, Hkv, D = cache.k.shape[1:]
+    dev = cache.device
+    g = torch.Generator().manual_seed(seed)
+    kn, vn = (torch.randn((B, Hkv, D), generator=g).to(torch.bfloat16).to(dev)
+              for _ in range(2))
+    slot = torch.tensor(slots, dtype=torch.int32, device=dev)
+    q_pos = torch.where(slot < S, slot, 0)
+    cache.pos_store[cache.flat_slots(slot[:, None])] = q_pos
+    return kn, vn, slot, q_pos
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("b,h,hkv,d,s,slots", [
+    (1, 32, 8, 128, 2048, [1700]), (3, 8, 2, 128, 96, [40, 96, 95]),
+    (2, 4, 2, 64, 64, [0, 63]), (2, 16, 4, 256, 128, [127, 31])])
+def test_kernels_n_p_equal_c_after_write(cuda, kv, b, h, hkv, d, s, slots):
+    """N on the unwritten cache (the slot holding garbage) and P on it give
+    kernel C's output after the cache write bit for bit, and P leaves the
+    store the write leaves (the spare slot too, with one pad row)."""
+    from blama_tpu_torch.ops import kernels
+
+    ref_c = _store(kv, b, s, hkv, d, seed=s + d, device=cuda)
+    kn, vn, slot, q_pos = _fresh_step(ref_c, slots, seed=b + d)
+    inv = da.effective_inv_freq(d, d, 10000.0)[0].to(cuda)
+    q = torch.randn((b, 1, h, d), generator=torch.Generator().manual_seed(4)) \
+        .to(torch.bfloat16).to(cuda)
+    n_c, p_c = _store(kv, b, s, hkv, d, seed=s + d, device=cuda), \
+        _store(kv, b, s, hkv, d, seed=s + d, device=cuda)
+    for c in (n_c, p_c):
+        c.pos_store.copy_(ref_c.pos_store)
+    ref_c.write(0, ref_c.flat_slots(slot[:, None].long()), kn[:, None], vn[:, None])
+    scales = lambda c: (c.k_scale[0], c.v_scale[0]) if c.quantized else (None, None)  # noqa
+    ref = da.decode_attention(q, ref_c.k[0], ref_c.v[0], q_pos, ref_c.positions, inv,
+                              *scales(ref_c))
+    kernels.reset_launches()
+    out_n = da.decode_attention(q, n_c.k[0], n_c.v[0], q_pos, n_c.positions, inv,
+                                *scales(n_c), k_new=kn, v_new=vn, slot=slot)
+    qs = lambda c: (c.k_scale_store[0], c.v_scale_store[0]) if c.quantized \
+        else (None, None)                                           # noqa: E731
+    out_p = da.decode_attention_write(q, p_c.k_store[0], p_c.v_store[0], q_pos,
+                                      p_c.positions, inv, kn, vn, slot, *qs(p_c))
+    assert kernels.LAUNCHES["decode_attention_fresh"] == 1
+    assert kernels.LAUNCHES["decode_attention_write"] == 1
+    assert kernels.LAUNCHES["decode_attention"] == 0
+    assert torch.equal(out_n, ref) and torch.equal(out_p, ref)
+    live = slice(None) if sum(x >= s for x in slots) <= 1 else slice(0, b * s)
+    for a, r in ((p_c.k_store, ref_c.k_store), (p_c.v_store, ref_c.v_store),
+                 (p_c.k_scale_store, ref_c.k_scale_store),
+                 (p_c.v_scale_store, ref_c.v_scale_store)):
+        assert a is None or torch.equal(a[:, live], r[:, live])
+    _close(out_n, da.fresh_attention_plain(q, n_c.k[0], n_c.v[0], q_pos[:, None],
+                                           n_c.positions, inv, kn, vn, slot, *scales(n_c),
+                                           d ** -0.5), ATTN_TOL)
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("b,h,hkv,d,s", [(1, 32, 8, 128, 2048), (2, 8, 2, 128, 256),
+                                         (1, 16, 4, 256, 512), (1, 64, 8, 128, 1024)])
+def test_kernel_o(cuda, monkeypatch, kv, b, h, hkv, d, s):
+    """Head-batched decode (H > 32 heads loop over the warps) within the
+    tolerance of its plain version; two launches give the same bits."""
+    from blama_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(da, "_HB", True)
+    c = _store(kv, b, s, hkv, d, seed=s + h, device=cuda)
+    inv = da.effective_inv_freq(d, d, 10000.0)[0].to(cuda)
+    q = torch.randn((b, 1, h, d), generator=torch.Generator().manual_seed(5)) \
+        .to(torch.bfloat16).to(cuda)
+    q_pos = torch.full((b,), s - 9, dtype=torch.int32, device=cuda)
+    sc = (c.k_scale[0], c.v_scale[0]) if c.quantized else (None, None)
+    kernels.reset_launches()
+    out = da.decode_attention(q, c.k[0], c.v[0], q_pos, c.positions, inv, *sc)
+    assert kernels.LAUNCHES["decode_attention_hb"] == 1
+    assert kernels.LAUNCHES["decode_attention"] == 0
+    _close(out, da.flash_attention_plain(q, c.k[0], c.v[0], q_pos[:, None], c.positions,
+                                         inv, *sc, d ** -0.5), ATTN_TOL)
+    assert torch.equal(out, da.decode_attention(q, c.k[0], c.v[0], q_pos, c.positions,
+                                                inv, *sc))
+
+
+@pytest.mark.parametrize("t,g,d", [(1, 32, 64), (1, 128, 128), (8, 64, 256), (16, 32, 128)])
+def test_kernels_c_to_f_on_f32(cuda, t, g, d):
+    """An f32 store: C and D within tolerance of the plain version, E and F
+    on a scrambled pool equal to C and D over the gathered rows."""
+    b, h, hkv, mp, p = 2, 8, 2, 4, 12
+    gen = torch.Generator().manual_seed(t * g + d)
+    kp, vp = (torch.randn((p, g, hkv, d), generator=gen).to(cuda) for _ in range(2))
+    table = torch.tensor([[7, 2, 9, -1], [4, 11, 0, 5]], dtype=torch.int32)
+    pool_pos = torch.full((p, g), -1, dtype=torch.int32)
+    lens = [2 * g + 3, 4 * g - 1]
+    for r, n in enumerate(lens):
+        for lp in range(-(-n // g)):
+            s = torch.arange(lp * g, (lp + 1) * g, dtype=torch.int32)
+            pool_pos[table[r, lp]] = torch.where(s < n, s, -1)
+    table, pool_pos = table.to(cuda), pool_pos.to(cuda)
+    inv = da.effective_inv_freq(d, d, 10000.0)[0].to(cuda)
+    q = torch.randn((b, t, h, d), generator=gen).to(torch.bfloat16).to(cuda)
+    qp = torch.stack([torch.arange(t, dtype=torch.int32) + n - t for n in lens]).to(cuda)
+    slot_map = pkv.view_slot_map(table, g)
+    mapped = torch.repeat_interleave(table >= 0, g, dim=1)
+    pos_v = torch.where(mapped, pool_pos.reshape(-1)[slot_map], -1).to(torch.int32).contiguous()
+    kd, vd = (a.reshape(-1, hkv, d)[slot_map].contiguous() for a in (kp, vp))
+    if t == 1:
+        out = pa.paged_decode_attention(q, kp, vp, pool_pos, table, qp[:, 0], inv)
+        dense = da.decode_attention(q, kd, vd, qp[:, 0], pos_v, inv)
+    else:
+        out = pa.paged_prefill_attention(q, kp, vp, pool_pos, table, qp, inv)
+        dense = da.prefill_attention(q, kd, vd, qp, pos_v, inv)
+    _close(dense, da.flash_attention_plain(q, kd, vd, qp, pos_v, inv, None, None, d ** -0.5),
+           ATTN_TOL)
+    assert torch.equal(out, dense)
 
 
 def test_scheduler_on_the_card(cuda, tmp_path):

@@ -64,10 +64,14 @@ def _stop(srv, t, api):
     assert not t.is_alive()
 
 
-@pytest.fixture(scope="module", params=["solo", "scheduler", "scheduler_paged"])
+@pytest.fixture(scope="module", params=["solo", "scheduler", "scheduler_paged", "solo_f32"])
 def server(request, model):
     params = InstanceInitParams(ctx_size=128, flash_attn=True, kv_dtype="bfloat16")
-    if request.param == "solo":
+    if request.param == "solo_f32":
+        # the solo server as `main` builds it: the reference's default f32 KV
+        api = Server(model, InstanceInitParams(ctx_size=128))
+        assert api._instance.cache.k_store.dtype == torch.float32
+    elif request.param == "solo":
         api = Server(model, params)
     else:
         api = SchedulerServer(model, params, max_batch=2, horizon=4,
@@ -237,6 +241,31 @@ def test_env_config(monkeypatch, gguf_path):
     monkeypatch.setenv("BLAMA_MODEL", gguf_path + ".bin")
     with pytest.raises(ValueError):
         phttp.env_config()
+
+
+def test_main_serves_solo_on_f32_kv(monkeypatch, gguf_path):
+    """`python -m blama_tpu_torch.server.http` without BLAMA_SCHEDULER keeps
+    the reference's solo Instance defaults: an f32 KV store."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def recording_server(model, params):
+        api = Server(model, params)
+        seen["kv"] = api._instance.cache.k_store.dtype
+        api.close()
+        model.close()
+        raise Stop
+
+    monkeypatch.setenv("BLAMA_MODEL", gguf_path)
+    monkeypatch.setenv("BLAMA_DEVICE", "cpu")
+    for var in ("BLAMA_SCHEDULER", "BLAMA_MULTIHOST", "BLAMA_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(phttp, "Server", recording_server)
+    with pytest.raises(Stop):
+        phttp.main()
+    assert seen["kv"] == torch.float32
 
 
 def test_main_refuses_multihost(monkeypatch, gguf_path):

@@ -397,6 +397,44 @@ def test_paged_forward_equals_dense(dt, kv, port_models):
     assert all(torch.equal(a, b) for a, b in zip(dense, paged, strict=True))
 
 
+def test_mixtral_arch_file_loads_in_both_packages(moe_file, port_models, tmp_path):
+    """llama.cpp writes Mixtral checkpoints as `general.architecture =
+    "mixtral"` with `mixtral.*` keys. Such a file (the fixture's tensors
+    under that name) loads in the port as in the JAX package, as the
+    llama file does, and the 8-token chunk's logits agree with the JAX
+    package's within the forward test's tolerance (GAP above)."""
+    path = str(tmp_path / "mixtral-arch.gguf")
+    testing.synthesize_moe_gguf(path, "mixtral-debug", arch="mixtral")
+    pm = Model(path, ModelParams(dtype="q4k_fused", device="cpu"))
+    jm = JModel(path, JModelParams(dtype="q4k_fused"))
+    assert pm.config.arch == jm.config.arch == "mixtral" and pm.config.is_moe
+    assert dataclasses.replace(pm.config, arch="llama") == port_models["q4k_fused"].config
+    jc, pc, _ = _caches(pm.config, "int8", False)
+    toks, pos, slots, li = next(_chunk_args(None))
+    out = _port_chunks(pm, pc, None)[0][0].numpy()[0]
+    jst = jmoe.MoEStatic.of(jm.config)
+    ref, _ = jax.jit(lambda p, t, q, s, c, i: jmoe.forward(p, jst, t, q, s, c, i))(
+        jm.weights, *map(jnp.asarray, (toks, pos, slots)), jc, jnp.asarray(li))
+    ref = np.asarray(ref)[0]
+    assert np.abs(out - ref).max() <= 1.5 * GAP["q4k_fused", "int8"][0] * np.abs(ref).max()
+    pm.close()
+    jm.close()
+
+
+@pytest.mark.parametrize("dt", ENGINE_NAMES)
+def test_moe_ragged_changes_nothing_on_packed_banks(dt, moe_file, port_models):
+    """The reference sends packed Q4_K banks to moe_ffn_quant before it reads
+    the ragged switch (blama_tpu/models/moe.py:374-377): with either value
+    the port loads, and the logits of the two chunks equal those without."""
+    ref = _port_chunks(port_models[dt], _caches(port_models[dt].config, "int8", False)[1],
+                       None)[0]
+    for ragged in (True, False):
+        m = Model(moe_file, ModelParams(dtype=dt, device="cpu", moe_ragged=ragged))
+        out = _port_chunks(m, _caches(m.config, "int8", False)[1], None)[0]
+        assert all(torch.equal(a, b) for a, b in zip(ref, out, strict=True))
+        m.close()
+
+
 # (engine, chunk length, torch threads): W4A8 keeps kernel A's rows up to 16
 # (above, B takes the projections: other numerics than the decode step's A);
 # the exact engine also at 32 rows on four threads, where the CPU's BLAS
@@ -590,6 +628,13 @@ def test_fused_attention_is_refused_for_moe(moe_file):
 def test_other_engines_are_refused_for_moe(moe_file, dtype):
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 9"):
         Model(moe_file, ModelParams(dtype=dtype, attn="xla", device="cpu"))
+
+
+def test_moe_ragged_is_refused_for_dense_moe_engines(moe_file):
+    """The switch picks the mixture of dense expert banks, which no engine of
+    the port loads yet: refused there, with the MoE item."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 10"):
+        Model(moe_file, ModelParams(dtype="float32", device="cpu", moe_ragged=True))
 
 
 def test_non_q4k_bank_is_refused(tmp_path):

@@ -314,16 +314,24 @@ def _verify(inst, vocab, sess_cls, preds, prompt=PROMPT):
 
 def test_model_mode_and_refusals(tp_file, port_models):
     """tp_blocks reaches the config and the forward's static; -1 resolves to
-    0; meshes, sharding rules and the ragged MoE mixture still raise."""
+    0; meshes and sharding rules still raise; the ragged MoE switch is taken
+    and changes nothing on a llama file, as in the reference, whose llama
+    forward never reads it: the logits of a prompt equal those without it."""
     from blama_tpu_torch.ops.generate_loop import static_of
 
     m = port_models("q4k_fused")
     assert m.config.tp_blocks == TPB and static_of(m.config).tp_blocks == TPB
     plain = Model(tp_file, ModelParams(dtype="q4k_fused", device="cpu", vocab_only=True))
     assert plain.config.tp_blocks == 0
-    for bad in (dict(mesh=object()), dict(sharding_rules=object()), dict(moe_ragged=True)):
+    for bad in (dict(mesh=object()), dict(sharding_rules=object())):
         with pytest.raises(NotImplementedError, match="item 13"):
             Model(tp_file, ModelParams(dtype="q4k_fused", tp_blocks=8, device="cpu", **bad))
+    ragged = Model(tp_file, ModelParams(dtype="q4k_fused", tp_blocks=8, device="cpu",
+                                        moe_ragged=True))
+    toks = m.vocab.tokenize(PROMPT, True, True)
+    pos = np.arange(len(toks))
+    assert np.array_equal(_inst(ragged).decode(toks, pos), _inst(m).decode(toks, pos))
+    ragged.close()
 
 
 # the port-vs-JAX logit gap of a 7-token prefill and a one-token decode step,
