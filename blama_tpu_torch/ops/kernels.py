@@ -46,12 +46,18 @@ SIGNATURES = {
         "q4k_parts_mm_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
         "w4a8_parts_launch": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                               _I, _I, _I, _P],
+        "w4a8_slab_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+        "w4a8k4_slab_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
         "decode_attention_fresh_launch": [_P] * 15 + [_I] * 8 + [_F, _P],
         "decode_attention_hb_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
         "prefill_attention_launch": [_P] * 9 + [_I] * 8 + [_F, _P],
+    },
+    "probes": {
+        "stream_rows_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
+        "add_one_launch": [_P, _P, _I, _P],
     },
     "paged_attention": {
         "paged_decode_attention_launch": [_P] * 13 + [_I] * 8 + [_F, _P],
@@ -64,6 +70,8 @@ LAUNCHES = {"w4a8_gemv": 0, "q4k_dequant_matmul": 0, "q8_dequant_matmul": 0,
             "q4k_native_matmul": 0, "w4a8k4_gemv": 0,
             "w4a8_bank_gemv": 0, "q4k_bank_matmul": 0,
             "q4k_parts_matmul": 0, "w4a8_parts_gemv": 0,
+            "w4a8_slab_gemv": 0, "w4a8k4_slab_gemv": 0,
+            "stream_rows": 0, "add_one": 0,
             "decode_attention": 0, "prefill_attention": 0,
             "decode_attention_fresh": 0, "decode_attention_hb": 0,
             "decode_attention_write": 0,

@@ -49,7 +49,10 @@ same sum order per output element in both. MoE expert banks (QuantExperts,
 the stacked arrays of Ne QuantTensors) go through J (kernel A over selected
 experts) and K (B's loader with the min term inside, over selected experts).
 The tp_blocks mode (qmm_blocked, qmm_nblocked) adds L (K's function per
-K-block, or pinned at one block) and M (kernel A per K-block). On a CPU
+K-block, or pinned at one block) and M (kernel A per K-block). The tools'
+W4A8 variants, which no engine reaches, are Q (w4a8_swar_matmul: A's terms
+summed per K-slab, the min term after it) and T (x2_matmul: I's terms in the
+same grouping). On a CPU
 tensor each wrapper runs its plain PyTorch version below; on a CUDA tensor
 it launches the kernel or raises.
 """
@@ -481,29 +484,209 @@ def w4a8_xla_matmul(x: torch.Tensor, w: QuantTensorA8) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# kernels Q and T: the tools' W4A8 variants, summed per K-slab
+# ---------------------------------------------------------------------------
+#
+# The reference's _a8s_kernel (w4a8_swar_matmul) and tools/ab_a8k4.py's
+# _x2_kernel (x2_matmul) take kernel A's and I's group terms in another
+# grouping: the K axis in slabs of kb superblocks, each slab's sum the sum of
+# its low-nibble group terms (groups 0-3 of each superblock, in superblock
+# order) plus the sum of its high-nibble ones (groups 4-7), the slabs added in
+# K order. So kb is a parameter of their numerics; block_n, the columns one
+# CTA owns, is launch geometry only. No engine reaches either: the tools do.
+
+def _col_tile(what: str, K: int, N: int, block_n: int, kb: int) -> int:
+    """The column tile both references clamp alike: block_n halved until it
+    divides N."""
+    if K % QK_K or kb < 1 or block_n < 1:
+        raise ValueError(f"kernel {what} takes K % {QK_K} == 0, kb >= 1, block_n >= 1; "
+                         f"got K={K}, kb={kb}, block_n={block_n}")
+    bn = min(block_n, N)
+    while N % bn:
+        bn //= 2
+    return bn
+
+
+# columns a CTA of kernel Q or T owns unless the caller says otherwise: one
+# column per warp, the fastest block_n of autotune_a8s's sweep on the card
+# (PERF.md §6, row 9); the reference's 2048 is a TPU VMEM tile
+SLAB_BLOCK_N = 8
+
+
+def a8s_clamp(K: int, N: int, block_n: int, kb: int) -> tuple[int, int]:
+    """The reference's clamping of w4a8_swar_matmul's tiles (_a8s_pos): the
+    column tile halves until it divides N, kb until its slab divides K."""
+    bn = _col_tile("Q", K, N, block_n, kb)
+    while K % (kb * QK_K):
+        kb //= 2
+    return bn, kb
+
+
+def x2_clamp(K: int, N: int, block_n: int, kb: int) -> tuple[int, int]:
+    """tools/ab_a8k4.py x2_matmul's clamping: kb at most the superblock
+    count, halved until it divides it, and the whole K as one slab when the
+    result is not a multiple of 8."""
+    bn = _col_tile("T", K, N, block_n, kb)
+    nsb = K // QK_K
+    kb = min(kb, nsb)
+    while kb > 1 and nsb % kb:
+        kb //= 2
+    if kb % 8 and kb != nsb:
+        kb = nsb
+    return bn, kb
+
+
+def _seq_sum(a: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis, left to right."""
+    s = a[..., 0]
+    for i in range(1, a.shape[-1]):
+        s = s + a[..., i]
+    return s
+
+
+def slab_sums(terms: torch.Tensor, kb: int) -> torch.Tensor:
+    """Group terms [M, N, K/32] in K order → [M, N]: per slab of kb
+    superblocks Σ lo + Σ hi (groups 0-3 and 4-7 of each superblock, each sum
+    left to right in superblock order), the slabs added in K order."""
+    M, N, G = terms.shape
+    t = terms.reshape(M, N, G // (8 * kb), kb, 8)
+    lo = t[..., :4].reshape(M, N, -1, 4 * kb)
+    hi = t[..., 4:].reshape(M, N, -1, 4 * kb)
+    return _seq_sum(_seq_sum(lo) + _seq_sum(hi))
+
+
+def _group_dots(xq: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """int8 codes [M, K] · element-order 4-bit codes [N, K] per 32-group →
+    [M, N, K/32] f32 (each dot below 2^24: exact)."""
+    M, K = xq.shape
+    G = K // GROUP
+    return torch.einsum("mgi,ngi->mng", xq.reshape(M, G, GROUP).float(),
+                        codes.reshape(-1, G, GROUP).float())
+
+
+def a8s_pos_plain(x: torch.Tensor, w: QuantTensorA8S, kb: int = 4) -> torch.Tensor:
+    """Plain version of kernel Q: the positive part Σ dot·(d·sc)·xscale in
+    slab grouping → [M, N] f32 (kb as the kernel clamps it)."""
+    kb = a8s_clamp(x.shape[1], w.n_out, 1, kb)[1]
+    xq, xs, _ = quant_acts(x)
+    terms = _group_dots(xq, unpair_codes(w.codes)) * w.scales.float()[None] * xs[:, None, :]
+    return slab_sums(terms, kb)
+
+
+def _a8s_min(w: QuantTensorA8S, sxm: torch.Tensor) -> torch.Tensor:
+    """The min correction (xscale·Σcodes) @ mins, an f32 product outside the
+    kernel as in the reference."""
+    return sxm @ w.mins.float().t()
+
+
+def w4a8_swar_matmul_plain(x: torch.Tensor, w: QuantTensorA8S,
+                           block_n: int = SLAB_BLOCK_N, kb: int = 4) -> torch.Tensor:
+    """Plain version of w4a8_swar_matmul (block_n does not enter it)."""
+    return a8s_pos_plain(x, w, kb) - _a8s_min(w, quant_acts(x)[2])
+
+
+def a8s_launch(x: torch.Tensor, w: QuantTensorA8S, block_n: int = SLAB_BLOCK_N,
+               kb: int = 4):
+    """Launch kernel Q on CUDA tensors. Returns (pos [M, N] f32, and the
+    prologue's xq, xs, sxm, as w4a8_launch does)."""
+    M, K = _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.bfloat16), QK_K)
+    _check_rows(M, "kernel Q")
+    bn, kb = a8s_clamp(K, w.n_out, block_n, kb)
+    if kb > 8:
+        raise ValueError(f"kernel Q takes slabs of at most 8 superblocks, got kb={kb}")
+    xq, xs, sxm, out = _w4a8_buffers(M, K, w.n_out, x.device)
+    rc = kernels.lib("quant_matmul").w4a8_slab_launch(
+        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), w.scales.data_ptr(), bn, kb,
+        xq.data_ptr(), xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), M, K, w.n_out,
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, "w4a8_slab_gemv")
+    kernels.count("w4a8_slab_gemv")
+    return out, xq, xs, sxm
+
+
+def w4a8_swar_matmul(x: torch.Tensor, w: QuantTensorA8S, block_n: int = SLAB_BLOCK_N,
+                     kb: int = 4) -> torch.Tensor:
+    """Kernel Q (CUDA C++, replaces the TPU kernel _a8s_kernel): x [M <= 16,
+    K] @ W → [M, N] f32, W4A8 summed per slab of kb superblocks, the min
+    term an f32 product after the kernel. block_n is the columns one CTA
+    owns (the reference's column tile, 2048 by default there: a TPU VMEM
+    tile, which leaves a card N/2048 CTAs for 132 SMs); it moves no bit."""
+    if x.device.type == "cpu":
+        return w4a8_swar_matmul_plain(x, w, block_n, kb)
+    pos, _, _, sxm = a8s_launch(x, w, block_n, kb)
+    return pos - _a8s_min(w, sxm)
+
+
+def x2_matmul_plain(x: torch.Tensor, w: QuantTensorA8K4, block_n: int = SLAB_BLOCK_N,
+                    kb: int = 8) -> torch.Tensor:
+    """Plain version of kernel T: kernel I's group terms dot·(d·sc)·xscale −
+    (xscale·Σcodes)·(dmin·mn) in slab grouping → [M, N] f32."""
+    K = x.shape[1]
+    kb = x2_clamp(K, w.n_out, block_n, kb)[1]
+    codes, ws, wm = decode_q4k_blocks(w.codes.view(-1, Q4K_BLOCK), w.n_out)
+    xq, xs, sxm = quant_acts(x)
+    terms = _group_dots(xq, codes) * ws[None] * xs[:, None, :] - sxm[:, None, :] * wm[None]
+    return slab_sums(terms, kb)
+
+
+def x2_launch(x: torch.Tensor, w: QuantTensorA8K4, block_n: int = SLAB_BLOCK_N,
+              kb: int = 8):
+    """Launch kernel T on CUDA tensors; returns (out, xq, xs, sxm)."""
+    M, K = _check_cuda(x, _k4_arrays(w, x.shape[1]), QK_K)
+    _check_rows(M, "kernel T")
+    bn, kb = x2_clamp(K, w.n_out, block_n, kb)
+    xq, xs, sxm, out = _w4a8_buffers(M, K, w.n_out, x.device)
+    rc = kernels.lib("quant_matmul").w4a8k4_slab_launch(
+        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), bn, kb, xq.data_ptr(),
+        xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), M, K, w.n_out,
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, "w4a8k4_slab_gemv")
+    kernels.count("w4a8k4_slab_gemv")
+    return out, xq, xs, sxm
+
+
+def x2_matmul(x: torch.Tensor, w: QuantTensorA8K4, block_n: int = SLAB_BLOCK_N,
+              kb: int = 8) -> torch.Tensor:
+    """Kernel T (CUDA C++, replaces tools/ab_a8k4.py's TPU kernel
+    _x2_kernel): kernel I's function on the native superblocks, x [M <= 16,
+    K] → [M, N] f32, the min term folded into each group term and the sum
+    taken per slab of kb superblocks (x2_clamp)."""
+    if x.device.type == "cpu":
+        return x2_matmul_plain(x, w, block_n, kb)
+    return x2_launch(x, w, block_n, kb)[0]
+
+
+# ---------------------------------------------------------------------------
 # kernels B, G, H: exact dequant matmuls
 # ---------------------------------------------------------------------------
 
-# rows of the zeroed block each row of an exact plain product goes through on
-# the CPU
-_CPU_ROW_BLOCK = 16
+# rows of the zeroed block each row of an exact product goes through
+_ROW_BLOCK = 16
 
 
 def rows_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [M, K] @ b [K, N], each row's bits independent of the rows beside
     it, as the exact kernels give them (a MoE decode step and its padded
-    replay rest on it). On the CPU the BLAS picks its kernel, and with it a
-    row's sum order, by the row count, the thread count and the operand's
-    alignment; so every row goes alone, as row 0 of a zeroed 16-row block in
-    a buffer of its own: the same call on the same operands at any M. (At 16
-    rows the BLAS takes its GEMM kernel, whose sum order the reference's CPU
-    dot shares.) On the card one product: the plain versions there only check
-    the kernels."""
+    replay rest on it). A BLAS picks its kernel, and with it a row's sum
+    order, by the row count (cuBLAS: a GEMV at one row, other GEMM tiles at
+    4, 8 or 128), and on the CPU also by the thread count and the operand's
+    alignment; so no row goes through a product whose shape follows M. On
+    the CPU every row goes alone, as row 0 of a zeroed 16-row block in a
+    buffer of its own (at 16 rows the BLAS takes its GEMM kernel, whose sum
+    order the reference's CPU dot shares). On the card the rows are padded
+    with zero rows to whole 16-row blocks and each block is one [16, K] @
+    [K, N] product: one cuBLAS kernel whatever M, and a GEMM sums each output
+    element in an order that does not depend on its row."""
+    M, K = a.shape
     if a.device.type != "cpu":
-        return a @ b
+        pad = torch.nn.functional.pad(a, (0, 0, 0, -M % _ROW_BLOCK))
+        outs = [pad[i:i + _ROW_BLOCK] @ b for i in range(0, pad.shape[0], _ROW_BLOCK)]
+        if len(outs) == 1:
+            return outs[0][:M]
+        return torch.cat(outs)[:M] if outs else a @ b
     rows = []
-    for i in range(a.shape[0]):
-        blk = a.new_zeros((_CPU_ROW_BLOCK, a.shape[1]))
+    for i in range(M):
+        blk = a.new_zeros((_ROW_BLOCK, K))
         blk[0] = a[i]
         rows.append((blk @ b)[:1])
     return torch.cat(rows) if rows else a @ b

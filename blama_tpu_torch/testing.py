@@ -200,6 +200,25 @@ def _pack_q4_k_direct(rng: np.random.Generator, n_rows: int, row_len: int,
     return out.tobytes()
 
 
+def random_q4k(rng: np.random.Generator, n_rows: int, row_len: int,
+               sigma: float) -> np.ndarray:
+    """Q4_K superblocks (uint8, flat) with random codes, d, dmin and 6-bit
+    sc/mn, so every group has its own scale and min (a scale indexing error
+    shows): the kernel checks' and the tools' weights."""
+    from .gguf.quants import _pack_scale_min_k4
+
+    nb = n_rows * row_len // 256
+    out = np.empty((nb, 144), np.uint8)
+    d = (sigma / (48 * 4.61) * rng.uniform(0.5, 1.5, nb)).astype(np.float16)
+    dmin = (d.astype(np.float32) * 7.5 * rng.uniform(0.5, 1.5, nb)).astype(np.float16)
+    out[:, 0:2] = d.view(np.uint8).reshape(-1, 2)
+    out[:, 2:4] = dmin.view(np.uint8).reshape(-1, 2)
+    out[:, 4:16] = _pack_scale_min_k4(rng.integers(16, 64, (nb, 8)),
+                                      rng.integers(16, 64, (nb, 8)))
+    out[:, 16:] = rng.integers(0, 256, (nb, 128), dtype=np.uint8)
+    return out.reshape(-1)
+
+
 def _pack_q8_0_direct(rng: np.random.Generator, n_rows: int, row_len: int,
                       sigma: float) -> bytes:
     """Directly synthesize packed Q8_0 blocks (34 B: f16 d + 32 int8 codes)

@@ -33,7 +33,12 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    rows, each partial against its plain version, and bit for bit the
    partials of tp = 2, 4, 8 K-slices computed alone equal to the
    one-dispatch partials, each column shard of a pinned product equal to
-   its columns, a row's result equal at every row count;
+   its columns, a row's result equal at every row count; and the tools'
+   kernels: Q (w4a8_swar_matmul's positive part) and T (X2) at the 8B
+   projections and lm head, 1 and 8 rows, two kb each, activation codes
+   bit for bit and bits equal across block_n; R on a 2048 x 14336 layer at
+   a block of the reference's and one of the card's size, exact, every byte
+   staged; S exact; and rows_mm's host cost at the decode step's shapes;
 3. solo: synthesizes the llama3-8b Q4_K GGUF from a seed (reused from the
    temp directory when present), loads it as `q4k_a8` with fused attention,
    and on an INT8 cache (ctx 2048) one solo Session answers three
@@ -73,7 +78,9 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    as `q4k_a8` and then `q4k_fused` with the two-pass attention chain, INT8
    KV, ctx 2048: the solo phase's three request shapes each, every replay
    exactly 1.0, kernels J / K (and A, B for the projections) launched and no
-   attention kernel; `q4k_fused` replays `q4k_a8`'s records (printed); the
+   attention kernel; a token's logits decoded routed at one row equal to its
+   row in a padded 4- and 8-row chunk bit for bit, on INT8 and bf16 stores,
+   empty and after a prefix; `q4k_fused` replays `q4k_a8`'s records (printed); the
    `q4k_a8` model behind the HTTP server on the paged pool answers four
    concurrent requests, each verified at exactly 1.0;
 7. tp_blocks: the fixed-topology mode a solo verifier of a prover sharded
@@ -86,7 +93,12 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    1.0; the Mixtral file as `q4k_fused` (L, K), one request, replay 1.0;
 8. small: the tiny llama fixture proven on the card and replayed by the port
    on the CPU must meet the cross-backend thresholds, and so must, on the
-   card, `q4k_a8` replayed by `q4k_fused` and `q4k_a8_xla` by `q4k_a8`.
+   card, `q4k_a8` replayed by `q4k_fused` and `q4k_a8_xla` by `q4k_a8`;
+9. tools: each tool of blama_tpu_torch/tools/ (probe_bw, probe_overhead,
+   probe_ceiling, autotune_a8s, ab_a8k4, bench_serving, profile_load,
+   trace_step) through its main once, at short settings on the 8B shapes and
+   file; kernels Q, T, R and S must have launched, ab_a8k4's "x2 vs a8k4"
+   within the matmul tolerance, probe_overhead's kernel S captured.
 
 Launch counts are set to 0 just before each path and read just after. Any
 failure raises and the script exits non-zero. The last line of standard
@@ -110,6 +122,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 INT8_OPS = 1979e12             # H100 SXM dense int8 tensor cores
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 # tolerances (reasons in PERF.md and at each check):
 MATMUL_TOL = 1e-4   # x max|ref|: f32 sums over groups (A) or K (B) in another order
 ATTN_TOL = 2.0 ** -7  # x max|ref|: bf16 outputs, one rounding flip is 2^-8 of an element
@@ -144,23 +157,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_q4k(rng, n_rows: int, row_len: int, sigma: float) -> bytes:
-    """Q4_K superblocks with random codes, d, dmin and 6-bit sc/mn, so every
-    group has its own scale and min (a scale indexing error shows)."""
-    import numpy as np
+def random_q4k(rng, n_rows: int, row_len: int, sigma: float):
+    """Q4_K superblocks with random codes, d, dmin and 6-bit sc/mn
+    (testing.random_q4k)."""
+    from blama_tpu_torch.testing import random_q4k as make
 
-    from blama_tpu_torch.gguf.quants import _pack_scale_min_k4
-
-    nb = n_rows * row_len // 256
-    out = np.empty((nb, 144), np.uint8)
-    d = (sigma / (48 * 4.61) * rng.uniform(0.5, 1.5, nb)).astype(np.float16)
-    dmin = (d.astype(np.float32) * 7.5 * rng.uniform(0.5, 1.5, nb)).astype(np.float16)
-    out[:, 0:2] = d.view(np.uint8).reshape(-1, 2)
-    out[:, 2:4] = dmin.view(np.uint8).reshape(-1, 2)
-    out[:, 4:16] = _pack_scale_min_k4(rng.integers(16, 64, (nb, 8)),
-                                      rng.integers(16, 64, (nb, 8)))
-    out[:, 16:] = rng.integers(0, 256, (nb, 128), dtype=np.uint8)
-    return out.reshape(-1)
+    return make(rng, n_rows, row_len, sigma)
 
 
 def random_q8_0(rng, n_rows: int, row_len: int, sigma: float):
@@ -709,6 +711,128 @@ def tp_kernel_phase(torch, timer, rng):
         del exact, wb
         torch.cuda.empty_cache()
     return rows
+
+
+# kernel R's blocks held in the kernel phase: one of the reference's (2 x 3
+# CTAs on a 2048 x 14336 layer) and one of the card's own size (224 CTAs)
+STREAM_BLOCKS = ((1024, 4096), (64, 2048))
+
+
+def tools_kernel_phase(torch, timer, rng):
+    """The tools' kernels against their plain versions at the tools' shapes:
+    Q (w4a8_swar_matmul's positive part) at the 8B projections and lm head,
+    1 and 8 rows, kb 4 and 8, its bits equal at every block_n; T (X2) at the
+    same shapes, kb 8 and 16; R on a 2048 x 14336 layer at two blocks,
+    exact, every byte staged; S on [8, 128], exact. And rows_mm (the exact
+    engines' min term, the MoE router) at the decode step's shapes: its
+    16-row blocks against one plain product, host ms per call."""
+    from blama_tpu_torch.ops import probes
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for label, (K, N) in SHAPES.items():
+        data = random_q4k(rng, N, K, K ** -0.5)
+        w, w4 = qm.repack_q4k_a8s(data, N, K, "cuda"), qm.repack_q4k_a8k4(data, N, K, "cuda")
+        wb = qm.dequantize(w).to(torch.bfloat16)
+        x8 = torch.randn((8, K), generator=gen, device="cuda").to(torch.bfloat16)
+        for M in (1, 8):
+            x = x8[8 - M:].contiguous()
+            xb = x.to(torch.bfloat16)
+            pxq = qm.quant_acts(x)[0]
+            for kind, kbs in (("Q", (4, 8)), ("T", (8, 16))):
+                for kb in kbs:
+                    if kind == "Q":
+                        launch = lambda bn=qm.SLAB_BLOCK_N, kb=kb: qm.a8s_launch(x, w, bn, kb)
+                        plain = lambda kb=kb: qm.a8s_pos_plain(x, w, kb)
+                        nbytes = K * N // 2 + 2 * (K // 32) * N
+                        name = "w4a8_slab_gemv"
+                    else:
+                        launch = lambda bn=qm.SLAB_BLOCK_N, kb=kb: qm.x2_launch(x, w4, bn, kb)
+                        plain = lambda kb=kb: qm.x2_matmul_plain(x, w4, kb=kb)
+                        nbytes = K * N // 256 * 144
+                        name = "w4a8k4_slab_gemv"
+                    out, xq = launch()[:2]
+                    if not torch.equal(xq, pxq):
+                        raise AssertionError(f"kernel {kind} {label} M={M}: activation codes "
+                                             "differ from the plain quantizer's")
+                    err = check_close(f"kernel {kind} {label} M={M} kb={kb}", out, plain(),
+                                      MATMUL_TOL)
+                    for bn in (1, 16, 64, 2048):
+                        if not torch.equal(launch(bn)[0], out):
+                            raise AssertionError(f"kernel {kind} {label} M={M} kb={kb}: "
+                                                 f"block_n={bn} moved a bit")
+                    nbytes += x.numel() * x.element_size() + M * N * 4
+                    rows.append(dict(
+                        kernel=name, shape=f"{label} K={K} N={N} M={M} kb={kb}",
+                        max_abs_err=err, kernel_ms=timer(launch),
+                        plain_ms=timer(plain, reps=3, warm=1),
+                        library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                        **_bound(nbytes, 2 * M * K * N, INT8_OPS)))
+                    log(f"kernel {kind} {rows[-1]}")
+        del w, w4, wb
+        torch.cuda.empty_cache()
+
+    R, N = 2048, 14336
+    codes = torch.randint(0, 256, (R, N), generator=gen, dtype=torch.uint8, device="cuda")
+    for bk, bn in STREAM_BLOCKS:
+        out, tot = probes.stream_launch(codes, bk, bn, total=True)
+        if not torch.equal(out, probes.stream_plain(codes, bk, bn)):
+            raise AssertionError(f"kernel R ({bk}, {bn}): sums differ from the plain version")
+        staged = torch.zeros_like(tot)
+        nn = N // bn * bn
+        staged[0, :nn] = codes[:R // bk * bk, :nn].to(torch.int32).sum(0).float()
+        if not torch.equal(tot, staged):
+            raise AssertionError(f"kernel R ({bk}, {bn}): a byte of a block was not staged")
+        nbytes = (R // bk * bk) * nn + N * 4
+        rows.append(dict(
+            kernel="stream_rows", shape=f"{R}x{N} bk={bk} bn={bn} CTAs={(R // bk) * (N // bn)}",
+            max_abs_err=0.0, kernel_ms=timer(lambda: probes.stream_launch(codes, bk, bn)),
+            plain_ms=timer(lambda: probes.stream_plain(codes, bk, bn), reps=3, warm=1),
+            library_ms=timer(lambda: torch.sum(codes, dtype=torch.int32)),
+            **_bound(nbytes, 8 * (R // bk) * nn, F32_FLOPS)))
+        log(f"kernel R {rows[-1]}")
+    del codes
+    x = torch.randn((8, 128), generator=gen, device="cuda")
+    if not torch.equal(probes.add_one(x), probes.add_one_plain(x)):
+        raise AssertionError("kernel S differs from x + 1")
+    rows.append(dict(kernel="add_one", shape="x [8, 128] f32", max_abs_err=0.0,
+                     kernel_ms=timer(lambda: probes.add_one(x)),
+                     plain_ms=timer(lambda: probes.add_one_plain(x), reps=3, warm=1),
+                     library_ms=timer(lambda: x + 1),
+                     **_bound(2 * x.numel() * 4, x.numel(), F32_FLOPS)))
+    log(f"kernel S {rows[-1]}")
+    return rows
+
+
+def rows_mm_cost(torch):
+    """Host ms per call of rows_mm (16-row blocks: a zeroed buffer, a copy,
+    one [16, K] @ [K, N] product) against one plain product, at the exact
+    engines' decode step shapes (the min term of each projection, M = 1)
+    and the MoE router; the device synchronized after each run of calls."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for label, (K, N) in (("wq/wo min", (128, 4096)), ("wk/wv min", (128, 1024)),
+                          ("gate/up min", (128, 14336)), ("down min", (448, 4096)),
+                          ("lm head min", (128, 128256)), ("MoE router", (4096, 8))):
+        a = torch.randn((1, K), generator=gen, device="cuda")
+        b = torch.randn((N, K), generator=gen, device="cuda").t()
+        row = {}
+        for name, fn in (("plain", lambda: a @ b), ("rows_mm", lambda: qm.rows_mm(a, b)),
+                         ("plain again", lambda: a @ b)):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            row[name] = 1e3 * (time.perf_counter() - t0) / 200
+        out[label] = row
+    log(f"rows_mm host ms per call at the decode step's shapes (plain a @ b beside): {out}")
+    return out
 
 
 def _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H):
@@ -1404,6 +1528,7 @@ def moe_phase(torch, kind):
         if others or any(launches[k] for k in ("decode_attention", "prefill_attention")):
             raise AssertionError(f"moe {dtype} launched kernels off its path: {others}")
         res = dict(load_s=load_s, gib_after_load=gib, requests=results, launches=launches)
+        res["routed_equals_padded"] = _moe_routed_equals_padded(torch, model, dtype)
         if dtype == "q4k_a8":
             a8_record = record
             res["serving"], res["serving_launches"] = _serve_and_verify(torch, model, kind)
@@ -1417,6 +1542,50 @@ def moe_phase(torch, kind):
         model.close()
         del inst, model, record
         torch.cuda.empty_cache()
+    return out
+
+
+def _moe_token_logits(torch, model, T, kv, prefix):
+    """Logits of token 7 at position `prefix` after `prefix` prompt tokens,
+    fed as row 0 of a T-row chunk whose other rows are pads (slot past the
+    cache: dropped): at T = 1 the routed decode step, above it the masked
+    chunk over every expert."""
+    from blama_tpu_torch.models import moe
+    from blama_tpu_torch.ops import kv_cache as kvc
+
+    cfg, S = model.config, 64
+    st = moe.MoEStatic.of(cfg)
+    cache = kvc.KVCache.create(cfg.n_layer, 1, S, cfg.n_head_kv, cfg.head_dim_, kv,
+                               device="cuda")
+    if prefix:
+        ids = torch.arange(prefix, dtype=torch.int32, device="cuda")[None]
+        moe.forward(model.weights, st, ids + 300, ids, ids, cache,
+                    torch.tensor([prefix - 1], device="cuda"))
+    toks = torch.zeros((1, T), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((1, T), dtype=torch.int32, device="cuda")
+    slots = torch.full((1, T), S, dtype=torch.int32, device="cuda")
+    toks[0, 0], pos[0, 0], slots[0, 0] = 7, prefix, prefix
+    return moe.forward(model.weights, st, toks, pos, slots, cache,
+                       torch.zeros(1, dtype=torch.long, device="cuda"))[0]
+
+
+def _moe_routed_equals_padded(torch, model, dtype):
+    """The whole layer stack: a token's logits decoded routed at one row equal
+    its row in a padded 4- and 8-row chunk bit for bit (rows_mm's fixed-shape
+    products, the row-invariant bank kernels), on an empty cache and after a
+    5-token prefix, on the INT8 and bf16 stores."""
+    out = {}
+    for kv in ("int8", "bfloat16"):
+        for prefix in (0, 5):
+            one = _moe_token_logits(torch, model, 1, kv, prefix)
+            for T in (4, 8):
+                if not torch.equal(_moe_token_logits(torch, model, T, kv, prefix), one):
+                    raise AssertionError(f"moe {dtype}: the routed step's logits differ from "
+                                         f"the token's row in a padded {T}-row chunk "
+                                         f"({kv}, prefix {prefix})")
+            out[f"{kv} prefix {prefix}"] = True
+    log(f"moe {dtype}: routed logits equal the padded 4- and 8-row chunks' bit for bit "
+        f"({sorted(out)})")
     return out
 
 
@@ -1887,6 +2056,62 @@ def small_phase(torch):
     return out
 
 
+# the tools phase: each tool's main at short settings (module, argv, env);
+# the widths are the tools' own, the repetitions cut
+TOOL_RUNS = (
+    ("probe_bw", ["--reps", "1"], {}),
+    ("probe_overhead", ["--reps", "2"], {}),
+    ("probe_ceiling", ["--gb", "2", "--shape-layers", "8", "--reps", "2"], {}),
+    ("autotune_a8s", ["--shapes", "wo,down,head", "--block-n", "16,64,2048", "--r-lo", "1",
+                      "--r-hi", "3", "--reps", "1"], {}),
+    ("ab_a8k4", ["--reps", "10"], {}),
+    ("bench_serving", ["llama3-8b", "q4k_a8"],
+     dict(BLAMA_SERVE_STREAMS="8", BLAMA_SERVE_TOKENS="16", BLAMA_SERVE_PROMPT="32")),
+    ("profile_load", ["llama3-8b"], {}),
+    ("trace_step", ["llama3-8b", "4", "--top", "12"], {}),
+)
+TOOL_KERNELS = ("w4a8_slab_gemv", "w4a8k4_slab_gemv", "stream_rows", "add_one")
+
+
+def tools_phase(torch):
+    """This slice's main path: the card's kernel tools (python -m
+    blama_tpu_torch.tools.<name>), each run once through its main at short
+    settings on the 8B shapes and file, the launch counts set to 0 before the
+    first and read after the last. Q runs in probe_ceiling, autotune_a8s and
+    ab_a8k4, T in ab_a8k4, R in probe_bw, S in probe_overhead (whose graph
+    run checks that a ctypes launch is captured)."""
+    import importlib
+    import os
+
+    from blama_tpu_torch.ops import kernels
+
+    out = {}
+    kernels.reset_launches()
+    for name, argv, env in TOOL_RUNS:
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            res = importlib.import_module(f"blama_tpu_torch.tools.{name}").main(argv)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        out[name] = dict(seconds=time.perf_counter() - t0, result=res)
+        log(f"tools: {name} {' '.join(argv)} ran in {out[name]['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"tools launches {launches}")
+    require_launched(launches, TOOL_KERNELS, "the tools phase")
+    if out["ab_a8k4"]["result"]["x2_vs_a8k4"] > MATMUL_TOL:
+        raise AssertionError(f"ab_a8k4: x2 vs a8k4 {out['ab_a8k4']['result']['x2_vs_a8k4']}")
+    return out, launches
+
+
 # per kernel of the line: source, the TPU kernel it replaces, and the shape
 # (a prefix of the row's label) that stands for it on the main path: the
 # serving step's 8 rows for A, and the heaviest serving chunk (8 rows x
@@ -1971,6 +2196,18 @@ KERNELS = {
     "w4a8_parts_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
                         "blama_tpu/ops/pallas/quant_matmul.py:1419",
                         "down K=14336 N=4096 M=1 nb=8"),
+    # the tools phase's kernels: Q at probe_ceiling's FFN shape (one row, the
+    # reference's kb), T at ab_a8k4's default shape, R at a block of the
+    # card's size, S at probe_overhead's [8, 128]
+    "w4a8_slab_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                       "blama_tpu/ops/pallas/quant_matmul.py:771",
+                       "gate/up K=4096 N=14336 M=1 kb=4"),
+    "w4a8k4_slab_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu", "tools/ab_a8k4.py:39",
+                         "gate/up K=4096 N=14336 M=1 kb=8"),
+    "stream_rows": ("blama_tpu_torch/ops/csrc/probes.cu", "blama_tpu/tools/probe_bw.py:21",
+                    "2048x14336 bk=64 bn=2048"),
+    "add_one": ("blama_tpu_torch/ops/csrc/probes.cu", "blama_tpu/tools/probe_overhead.py:105",
+                "x [8, 128] f32"),
 }
 
 
@@ -2009,7 +2246,9 @@ def main() -> int:
         rows += moe_dense_kernel_phase(torch, timer, np.random.default_rng(3))
         rows += tp_kernel_phase(torch, timer, np.random.default_rng(4))
         rows += modes_kernel_phase(torch, timer)
+        rows += tools_kernel_phase(torch, timer, np.random.default_rng(5))
         del timer
+        res["rows_mm_ms"] = rows_mm_cost(torch)
         torch.cuda.empty_cache()
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
         model, res["load_s"] = load_8b(torch, kind)
@@ -2033,12 +2272,16 @@ def main() -> int:
         del tp0_records
         log(f"tp_blocks phase done at {time.perf_counter() - t_start:.1f} s")
         res["small"] = small_phase(torch)
+        log(f"small phase done at {time.perf_counter() - t_start:.1f} s")
+        res["tools"], tools_l = tools_phase(torch)
+        log(f"tools phase done at {time.perf_counter() - t_start:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     report = dict(nvidia_smi=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
-                  launches=dict(solo=solo_l, serving=serve_l, dense_scheduler=dense_l), **res)
+                  launches=dict(solo=solo_l, serving=serve_l, dense_scheduler=dense_l,
+                                tools=tools_l), **res)
 
     # launches of the line: each kernel's count from the run of the path it
     # belongs to, counts set to 0 just before that path and read just after.
@@ -2087,6 +2330,7 @@ def main() -> int:
         "q4k_parts_matmul_bf16": tp_l["q4k_a8"]["q4k_parts_matmul"],
         "w4a8_parts_gemv": tp_l["q4k_a8"]["w4a8_parts_gemv"],
     })
+    line_launches.update({k: tools_l[k] for k in TOOL_KERNELS})
     kernels_line = []
     for name, (source, replaces, shape, *row_kernel) in KERNELS.items():
         base = row_kernel[0] if row_kernel else name.removesuffix("_bf16")

@@ -12,7 +12,7 @@ bf16, f32 and INT8 stores, pages of 32 slots on a scrambled pool — and
 replay determinism (two launches give the same bits), for every kernel (A, B
 with bf16 and f32 scales, C to F, G, H, I, the expert-bank kernels J and K,
 the tp_blocks kernels L and M with their invariances, the decode-attention
-modes' kernels N, O and P). The last tests drive each
+modes' kernels N, O and P, the tools' kernels Q, R, S and T, and rows_mm). The last tests drive each
 engine, the MoE fixture, the tp_blocks mode and the scheduler on the card on
 the tiny fixtures.
 """
@@ -266,6 +266,91 @@ def test_kernel_m(cuda, m, n, k, nb):
                            parts[:, r:r + 1]), r
 
 
+# kernels Q and T (the tools' W4A8 variants): ragged widths (a column tile
+# that halves down to 1..8 columns), K whose slab kb clamps (768, 4352: kb 1;
+# for T the whole K as one slab), every row-count template
+SLAB_SHAPES = [(1, 320, 512, torch.bfloat16), (3, 300, 768, torch.bfloat16),
+               (8, 72, 4352, torch.bfloat16), (16, 1000, 2048, torch.float32),
+               (5, 256, 4096, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("kb", [1, 3, 4, 8])
+@pytest.mark.parametrize("m,n,k,dtype", SLAB_SHAPES)
+def test_kernel_q(cuda, m, n, k, dtype, kb):
+    """Kernel Q: activation codes bit for bit, the positive part within
+    tolerance of its plain version and the whole product of kernel A's (the
+    same function in another grouping), two launches and row 0 alone equal."""
+    w = _weights(n, k, seed=m + kb, device=cuda)
+    x = _acts(m, k, dtype, cuda)
+    out, xq, xs, sxm = qm.a8s_launch(x, w, 16, kb)
+    pxq, pxs, psxm = qm.quant_acts(x)
+    assert torch.equal(xq, pxq) and torch.equal(xs, pxs) and torch.equal(sxm, psxm)
+    _close(out, qm.a8s_pos_plain(x, w, kb), MATMUL_TOL)
+    full = qm.w4a8_swar_matmul(x, w, 16, kb)
+    _close(full, qm.w4a8_swar_matmul_plain(x, w, 16, kb), MATMUL_TOL)
+    _close(full, qm.w4a8_matmul_plain(x, w), MATMUL_TOL)
+    assert torch.equal(out, qm.a8s_launch(x, w, 16, kb)[0])
+    assert torch.equal(out[:1], qm.a8s_launch(x[:1].contiguous(), w, 16, kb)[0])
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 4096, 1024), (8, 1000, 2048), (16, 384, 4352)])
+def test_kernel_q_block_n_moves_no_bit(cuda, m, n, k):
+    """block_n, the columns one CTA owns, is launch geometry only."""
+    w = _weights(n, k, seed=m, device=cuda)
+    x = _acts(m, k, torch.bfloat16, cuda)
+    for kb in (1, 4):
+        ref = qm.a8s_launch(x, w, 1, kb)[0]
+        for bn in (2, 8, 16, 64, 256, 2048):
+            assert torch.equal(qm.a8s_launch(x, w, bn, kb)[0], ref), (kb, bn)
+
+
+@pytest.mark.parametrize("kb", [8, 16])
+@pytest.mark.parametrize("m,n,k,dtype", SLAB_SHAPES)
+def test_kernel_t(cuda, m, n, k, dtype, kb):
+    """Kernel T: activation codes bit for bit, within tolerance of its plain
+    version and of kernel I's (another grouping), two launches equal, row 0
+    alone equal, bits equal across block_n."""
+    w = qm.repack_q4k_a8k4(_bytes(n, k, m, "Q4_K"), n, k, cuda)
+    x = _acts(m, k, dtype, cuda)
+    out, xq, xs, sxm = qm.x2_launch(x, w, 16, kb)
+    pxq, pxs, psxm = qm.quant_acts(x)
+    assert torch.equal(xq, pxq) and torch.equal(xs, pxs) and torch.equal(sxm, psxm)
+    _close(out, qm.x2_matmul_plain(x, w, 16, kb), MATMUL_TOL)
+    _close(out, qm.a8k4_matmul_plain(x, w), MATMUL_TOL)
+    assert torch.equal(out, qm.x2_launch(x, w, 16, kb)[0])
+    assert torch.equal(out[:1], qm.x2_launch(x[:1].contiguous(), w, 16, kb)[0])
+    for bn in (1, 8, 2048):
+        assert torch.equal(qm.x2_launch(x, w, bn, kb)[0], out), bn
+
+
+@pytest.mark.parametrize("r,n,bk,bn", [(64, 256, 16, 128), (100, 1024, 7, 48),
+                                       (33, 160, 3, 32), (2048, 14336, 256, 14336),
+                                       (512, 4096, 64, 16384 // 4)])
+def test_kernel_r_reads_every_byte(cuda, r, n, bk, bn):
+    """Kernel R: the first 8 rows of every block summed per column, exactly
+    the plain version (columns past the grid 0), and every byte of every
+    block staged: the per-column sum of what the CTAs brought on chip equals
+    the blocks' own."""
+    from blama_tpu_torch.ops import probes
+
+    g = torch.Generator(device=cuda).manual_seed(r)
+    codes = torch.randint(0, 256, (r, n), generator=g, dtype=torch.uint8, device=cuda)
+    out, tot = probes.stream_launch(codes, bk, bn, total=True)
+    assert torch.equal(out, probes.stream_plain(codes, bk, bn))
+    covered = codes[:r // bk * bk, :n // bn * bn].to(torch.int32).sum(0).float()
+    assert torch.equal(tot[0, :covered.shape[0]], covered)
+    assert not tot[0, covered.shape[0]:].any()
+    assert torch.equal(probes.stream(codes, bk, bn), out)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (1000,), (3, 5)])
+def test_kernel_s(cuda, shape):
+    from blama_tpu_torch.ops import probes
+
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    assert torch.equal(probes.add_one(x), probes.add_one_plain(x))
+
+
 @pytest.mark.parametrize("dtype", ["q4k_fused", "q4k_a8"])
 def test_tp_blocks_on_the_card(cuda, tmp_path, dtype):
     """The tp-eligible tiny fixture at tp_blocks = 4 on the card: kernels L
@@ -356,6 +441,57 @@ def test_moe_on_the_card(cuda, tmp_path, dtype):
     for t in range(8):
         routed = moe.moe_ffn_quant(h[:, t:t + 1].contiguous(), m.weights["layers"][1], st)
         assert torch.equal(routed, masked[:, t:t + 1]), t
+    # the whole layer stack: a token's logits decoded routed at one row equal
+    # its row in a padded 4- and 8-row chunk, on an empty cache and after a
+    # 5-token prefix, on bf16 and INT8 stores
+    for kv in ("bfloat16", "int8"):
+        for prefix in (0, 5):
+            one = moe_token_logits(m, 1, kv, prefix)
+            for T in (4, 8):
+                assert torch.equal(moe_token_logits(m, T, kv, prefix), one), (kv, prefix, T)
+
+
+def moe_token_logits(m, T, kv, prefix):
+    """Logits of token 7 at position `prefix` after `prefix` prompt tokens,
+    fed as row 0 of a T-row chunk whose other rows are pads (slot past the
+    cache: dropped): at T = 1 the routed decode step, above it the masked
+    chunk."""
+    from blama_tpu_torch.models import moe
+    from blama_tpu_torch.ops import kv_cache as kvc
+
+    cfg, dev = m.config, m.device
+    st = moe.MoEStatic.of(cfg)
+    S = 64
+    cache = kvc.KVCache.create(cfg.n_layer, 1, S, cfg.n_head_kv, cfg.head_dim_, kv, device=dev)
+    if prefix:
+        ids = torch.arange(prefix, dtype=torch.int32, device=dev)[None]
+        moe.forward(m.weights, st, ids + 300, ids, ids, cache,
+                    torch.tensor([prefix - 1], device=dev))
+    toks = torch.zeros((1, T), dtype=torch.int32, device=dev)
+    toks[0, 0] = 7
+    pos = torch.zeros((1, T), dtype=torch.int32, device=dev)
+    pos[0, 0] = prefix
+    slots = torch.full((1, T), S, dtype=torch.int32, device=dev)
+    slots[0, 0] = prefix
+    return moe.forward(m.weights, st, toks, pos, slots, cache,
+                       torch.zeros(1, dtype=torch.long, device=dev))[0]
+
+
+@pytest.mark.parametrize("k,n", [(128, 4096), (448, 4096), (4096, 8), (128, 32000),
+                                 (4096, 1024)])
+def test_rows_mm_gives_a_row_its_bits_on_the_card(cuda, k, n):
+    """rows_mm (the exact engines' min term, the MoE router): a row's bits do
+    not depend on the row count or on its place among the rows, for a
+    contiguous and a transposed weight."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    a = torch.randn((130, k), generator=g, device=cuda)
+    for b in (torch.randn((k, n), generator=g, device=cuda),
+              torch.randn((n, k), generator=g, device=cuda).t()):
+        full = qm.rows_mm(a, b)
+        for i in (0, 5, 16, 129):
+            assert torch.equal(qm.rows_mm(a[i:i + 1], b), full[i:i + 1]), i
+        for M in (1, 4, 8, 17):
+            assert torch.equal(qm.rows_mm(a[:M], b), full[:M]), M
 
 
 @pytest.mark.parametrize("dtype", ["q4k_fused", "q4k_fused_k4", "q4k_a8_k4", "q4k_a8_xla",

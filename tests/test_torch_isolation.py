@@ -35,7 +35,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for name in ("ops.paged_kv", "ops.paged_attention", "runtime.chat", "runtime.grammar",
                  "runtime.antiprompt", "server.scheduler", "server.scheduler_server",
                  "server.server", "server.http", "utils.logging", "utils.metrics",
-                 "tools.profile_step", "models.moe", "testing"):
+                 "tools.profile_step", "models.moe", "testing", "ops.probes",
+                 "tools.common", "tools.probe_bw", "tools.probe_overhead",
+                 "tools.probe_ceiling", "tools.autotune_a8s", "tools.ab_a8k4",
+                 "tools.bench_serving", "tools.profile_load", "tools.trace_step"):
         assert f"blama_tpu_torch.{name}" in res["modules"], name
 
 
@@ -191,3 +194,32 @@ def test_http_main_serves_on_the_cpu_when_asked(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
+
+
+_NO_CUDA_TOOLS = r"""
+import sys
+sys.path.insert(0, {root!r})
+import importlib
+import torch
+assert not torch.cuda.is_available()
+for name in ("probe_bw", "probe_overhead", "probe_ceiling", "autotune_a8s", "ab_a8k4",
+             "bench_serving", "profile_load", "trace_step"):
+    try:
+        importlib.import_module("blama_tpu_torch.tools." + name).main([])
+    except RuntimeError as e:
+        print(name, "refused:", e)
+    else:
+        print(name, "ran on the CPU")
+"""
+
+
+def test_tools_without_cuda_raise():
+    """Each tool runs on the card unless given --device cpu: without a card
+    its main raises before it builds anything."""
+    out = subprocess.run([sys.executable, "-c", _NO_CUDA_TOOLS.format(root=str(ROOT))],
+                         capture_output=True, text=True, check=True, cwd=ROOT, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 8, out.stdout
+    for line in lines:
+        assert " refused: no CUDA device" in line, line
