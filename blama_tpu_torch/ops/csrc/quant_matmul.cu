@@ -126,11 +126,29 @@
 //   T (w4a8k4_slab_launch) replaces tools/ab_a8k4.py:_x2_kernel: kernel I's
 //     group terms (native superblocks, the min term in each term) in the same
 //     slab grouping.
+// Kernels U and V serve blama_tpu/tools/ubench_q4k.py's variants (no engine
+// reaches them); both read ubench's tile-paired codes, uint8 [N, K/2] with
+// the 128 bytes of 256-element tile t at 128t, byte j = element 256t+j (low
+// nibble) and element 256t+128+j (high): the reference's pack_pairs, a
+// column contiguous along K:
+//   U (q4k_twodot_launch) replaces blama_tpu/tools/ubench_q4k.py:_v1_kernel:
+//     f32 x times f32 code*scale (scales [N, K/32] f32), the low and the
+//     high halves of each tile dotted apart and added per K-block of kb
+//     tiles, the blocks added in K order; the min term is outside, as in
+//     the reference;
+//   V (w4a8_plane_launch) replaces ubench_q4k.py:_v2_kernel (int8 codes
+//     [N, K]) and :_v3_kernel (tile-paired codes unpacked in the kernel):
+//     kernel A's quantizer, then per 32-group the int32 dot of the codes
+//     with the activation codes (the TPU's masked plane g of a tile is this
+//     dot for group g; no plane is materialised), each term dot * ws *
+//     xscale (bf16 ws), summed per slab of kb tiles, the slabs in K order;
+//     Q's body with a loader per layout, so both loaders give the same bits.
 // kb is a parameter of their numerics. The reference's column tile block_n is
 // the columns one CTA owns here (its warps walk them S_WARPS at a time), so
 // it sets only how much of the card is busy and moves no bit. Bound: bytes,
-// as A and I. Each warp takes one column with A's (Q) or I's (T) lanes; a slab
-// ends in a fixed xor butterfly over the lanes of each half, then lo + hi.
+// as A and I. Each warp takes one column with A's (Q, V) or I's (T) lanes; a
+// slab ends in a fixed xor butterfly over the lanes of each half, then lo +
+// hi (V: over all lanes). U's lane takes one 4-byte word of each tile.
 //
 // Determinism: every sum runs in a fixed order (per-lane or per-thread K
 // order, then a fixed xor-butterfly across the warp); no atomics, so a replay
@@ -894,25 +912,71 @@ constexpr int S_WARPS = 8;  // warps of a CTA (fewer when it owns fewer columns)
 // group terms (lane bit HB clear) or high-nibble ones (bit set); a fixed xor
 // butterfly over the other four lane bits sums each half, then every lane
 // takes lo + hi. The order is fixed, so a column's bits do not depend on the
-// CTA it ran in.
+// CTA it ran in. HB = 0: one xor butterfly over all 32 lanes (kernel V).
 template <int HB>
 __device__ __forceinline__ float slab_sum(float v) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1)
     if (o != HB) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if constexpr (HB == 0) return v;
   const float other = __shfl_xor_sync(0xffffffffu, v, HB);
   return (threadIdx.x & HB) ? other + v : v + other;  // lo + hi on every lane
 }
 
-// Kernel Q: per output column (one warp), per slab of sg = 8*kb groups, lane
-// l takes groups l, l+32, .. of the slab (group l % 8 of its superblock: lane
-// bit 2 says lo or hi), each term (float)dot * (d*sc) * xscale; the slabs are
-// added in K order. A CTA owns bn columns (launch geometry only) and walks
-// them S_WARPS at a time, staging x per K chunk of whole slabs.
-template <int MT>
+// Code loaders of the slab GEMV: load(n, K, g, q) gives the 32 4-bit codes
+// of group g of weight row n as 8 words of int8 codes in element order.
+// Q's layout (QuantTensorA8S): the group's 16 bytes, byte i = element i (low
+// nibble) and element 16+i (high).
+struct GroupPairedCodes {
+  const uint8_t* codes;
+  __device__ __forceinline__ void load(int n, int K, int g, int (&q)[8]) const {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(codes + (size_t)n * (K / 2)) + g);
+    q[0] = w.x & 0x0F0F0F0F, q[1] = w.y & 0x0F0F0F0F;
+    q[2] = w.z & 0x0F0F0F0F, q[3] = w.w & 0x0F0F0F0F;
+    q[4] = (w.x >> 4) & 0x0F0F0F0F, q[5] = (w.y >> 4) & 0x0F0F0F0F;
+    q[6] = (w.z >> 4) & 0x0F0F0F0F, q[7] = (w.w >> 4) & 0x0F0F0F0F;
+  }
+};
+
+// V's int8 loader (v2): int8 codes [N, K], the group's 32 bytes as they are.
+struct Int8Codes {
+  const int8_t* codes;
+  __device__ __forceinline__ void load(int n, int K, int g, int (&q)[8]) const {
+    const uint4* p = reinterpret_cast<const uint4*>(codes + (size_t)n * K + (size_t)g * GROUP);
+    const uint4 a = __ldg(p), b = __ldg(p + 1);
+    q[0] = a.x, q[1] = a.y, q[2] = a.z, q[3] = a.w;
+    q[4] = b.x, q[5] = b.y, q[6] = b.z, q[7] = b.w;
+  }
+};
+
+// V's packed loader (v3): tile-paired uint8 [N, K/2] (tile t's 128 bytes at
+// 128t; byte j = element 256t+j low, 256t+128+j high), so group c < 4 of a
+// tile is the low nibbles of its bytes 32c..32c+31 and group c+4 their high
+// nibbles, unpacked with the SWAR masks on 32-bit words (unsigned shifts).
+struct TilePairedCodes {
+  const uint8_t* codes;
+  __device__ __forceinline__ void load(int n, int K, int g, int (&q)[8]) const {
+    const int t = g >> 3, c = g & 7, sh = c & 4;   // sh: 4 for the high groups
+    const uint4* p = reinterpret_cast<const uint4*>(codes + (size_t)n * (K / 2) +
+                                                    (size_t)t * (QK_K / 2) + (c & 3) * GROUP);
+    const uint4 a = __ldg(p), b = __ldg(p + 1);
+    q[0] = (a.x >> sh) & 0x0F0F0F0F, q[1] = (a.y >> sh) & 0x0F0F0F0F;
+    q[2] = (a.z >> sh) & 0x0F0F0F0F, q[3] = (a.w >> sh) & 0x0F0F0F0F;
+    q[4] = (b.x >> sh) & 0x0F0F0F0F, q[5] = (b.y >> sh) & 0x0F0F0F0F;
+    q[6] = (b.z >> sh) & 0x0F0F0F0F, q[7] = (b.w >> sh) & 0x0F0F0F0F;
+  }
+};
+
+// Kernels Q and V: per output column (one warp), per slab of sg = 8*kb
+// groups, lane l takes groups l, l+32, .. of the slab, each term (float)dot *
+// ws * xscale with dot the int32 group dot of the loader's codes with the
+// activation codes (8 dp4a); a slab ends in slab_sum<HB> (Q: HB = 4, lane
+// bit 2 says lo or hi, as group l % 8 of its superblock; V: HB = 0), the
+// slabs are added in K order. A CTA owns bn columns (launch geometry only)
+// and walks them S_WARPS at a time, staging x per K chunk of whole slabs.
+template <int MT, typename L, int HB>
 __global__ void __launch_bounds__(S_WARPS * 32)
-w4a8_slab_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                 const uint8_t* __restrict__ codes,
+w4a8_slab_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs, const L w,
                  const __nv_bfloat16* __restrict__ scales,
                  float* __restrict__ out, int M, int K, int N, int bn, int kb) {
   __shared__ __align__(16) int8_t s_x[MT * A_KC];
@@ -925,7 +989,6 @@ w4a8_slab_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   for (int cg = 0; cg < bn; cg += nw) {
     const bool live = cg + warp < bn;             // uniform per warp
     const int n = blockIdx.x * bn + cg + warp;
-    const uint4* wrow = reinterpret_cast<const uint4*>(codes + (size_t)n * (K / 2));
     const __nv_bfloat16* srow = scales + (size_t)n * G;
     float run[MT];
 #pragma unroll
@@ -951,25 +1014,22 @@ w4a8_slab_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
         for (int r = 0; r < MT; ++r) part[r] = 0.0f;
         for (int gl = s0 + lane; gl < s0 + sg; gl += 32) {
           const int g = k0 / GROUP + gl;
-          const uint4 w = __ldg(wrow + g);
+          int q[8];
+          w.load(n, K, g, q);
           const float ws = __bfloat162float(srow[g]);
-          const int lo0 = w.x & 0x0F0F0F0F, hi0 = (w.x >> 4) & 0x0F0F0F0F;
-          const int lo1 = w.y & 0x0F0F0F0F, hi1 = (w.y >> 4) & 0x0F0F0F0F;
-          const int lo2 = w.z & 0x0F0F0F0F, hi2 = (w.z >> 4) & 0x0F0F0F0F;
-          const int lo3 = w.w & 0x0F0F0F0F, hi3 = (w.w >> 4) & 0x0F0F0F0F;
 #pragma unroll
           for (int r = 0; r < MT; ++r) {
             if (r < M) {
               const int4* xp = reinterpret_cast<const int4*>(s_x + r * A_KC + gl * GROUP);
               const int4 xa = xp[0], xb = xp[1];
-              int dot = __dp4a(lo0, xa.x, 0);
-              dot = __dp4a(lo1, xa.y, dot);
-              dot = __dp4a(lo2, xa.z, dot);
-              dot = __dp4a(lo3, xa.w, dot);
-              dot = __dp4a(hi0, xb.x, dot);
-              dot = __dp4a(hi1, xb.y, dot);
-              dot = __dp4a(hi2, xb.z, dot);
-              dot = __dp4a(hi3, xb.w, dot);
+              int dot = __dp4a(q[0], xa.x, 0);
+              dot = __dp4a(q[1], xa.y, dot);
+              dot = __dp4a(q[2], xa.z, dot);
+              dot = __dp4a(q[3], xa.w, dot);
+              dot = __dp4a(q[4], xb.x, dot);
+              dot = __dp4a(q[5], xb.y, dot);
+              dot = __dp4a(q[6], xb.z, dot);
+              dot = __dp4a(q[7], xb.w, dot);
               part[r] += (float)dot * ws * s_xs[r * (A_KC / GROUP) + gl];
             }
           }
@@ -977,7 +1037,7 @@ w4a8_slab_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
         const bool first = k0 == 0 && s0 == 0;
 #pragma unroll
         for (int r = 0; r < MT; ++r) {
-          const float acc = slab_sum<4>(part[r]);
+          const float acc = slab_sum<HB>(part[r]);
           run[r] = first ? acc : run[r] + acc;
         }
       }
@@ -1098,22 +1158,34 @@ w4a8k4_slab_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   }
 }
 
+// the codes of the slab GEMVs: Q's (0), V's int8 (1) and tile-paired (2)
+// layouts, and T's native superblocks (3)
+enum SlabCodes { SLAB_Q = 0, SLAB_V_INT8 = 1, SLAB_V_PAIRED = 2, SLAB_T = 3 };
+
 template <int MT>
 void launch_slab(const int8_t* xq, const float* xs, const float* sxm, const uint8_t* codes,
-                 const __nv_bfloat16* scales, int k4, float* out, int M, int K, int N,
+                 const __nv_bfloat16* scales, int kind, float* out, int M, int K, int N,
                  int bn, int kb_or_cps, cudaStream_t st) {
   const int threads = min(S_WARPS, bn) * 32;
-  if (k4)
-    w4a8k4_slab_kernel<MT><<<N / bn, threads, 0, st>>>(xq, xs, sxm, codes, out, M, K, N,
-                                                       bn, kb_or_cps);
-  else
-    w4a8_slab_kernel<MT><<<N / bn, threads, 0, st>>>(xq, xs, codes, scales, out, M, K, N,
+  const dim3 grid(N / bn);
+  if (kind == SLAB_T)
+    w4a8k4_slab_kernel<MT><<<grid, threads, 0, st>>>(xq, xs, sxm, codes, out, M, K, N,
                                                      bn, kb_or_cps);
+  else if (kind == SLAB_Q)
+    w4a8_slab_kernel<MT, GroupPairedCodes, 4><<<grid, threads, 0, st>>>(
+        xq, xs, GroupPairedCodes{codes}, scales, out, M, K, N, bn, kb_or_cps);
+  else if (kind == SLAB_V_INT8)
+    w4a8_slab_kernel<MT, Int8Codes, 0><<<grid, threads, 0, st>>>(
+        xq, xs, Int8Codes{reinterpret_cast<const int8_t*>(codes)}, scales, out, M, K, N, bn,
+        kb_or_cps);
+  else
+    w4a8_slab_kernel<MT, TilePairedCodes, 0><<<grid, threads, 0, st>>>(
+        xq, xs, TilePairedCodes{codes}, scales, out, M, K, N, bn, kb_or_cps);
 }
 
-// the activation prologue, then kernel Q (k4 = 0) or T (k4 = 1)
+// the activation prologue, then kernel Q, V or T (SlabCodes)
 int launch_slab_w4a8(const void* x, int x_bf16, const void* codes, const void* scales,
-                     int k4, int bn, int kb_or_cps, void* xq, void* xs, void* sxm,
+                     int kind, int bn, int kb_or_cps, void* xq, void* xs, void* sxm,
                      void* out, int M, int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16) launch_quant_acts<__nv_bfloat16>(x, M, K, xq, xs, sxm, st);
@@ -1126,11 +1198,115 @@ int launch_slab_w4a8(const void* x, int x_bf16, const void* codes, const void* s
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
   float* o = static_cast<float*>(out);
-  if (M <= 1) launch_slab<1>(q, s, sm, c, sc, k4, o, M, K, N, bn, kb_or_cps, st);
-  else if (M <= 2) launch_slab<2>(q, s, sm, c, sc, k4, o, M, K, N, bn, kb_or_cps, st);
-  else if (M <= 4) launch_slab<4>(q, s, sm, c, sc, k4, o, M, K, N, bn, kb_or_cps, st);
-  else if (M <= 8) launch_slab<8>(q, s, sm, c, sc, k4, o, M, K, N, bn, kb_or_cps, st);
-  else launch_slab<16>(q, s, sm, c, sc, k4, o, M, K, N, bn, kb_or_cps, st);
+  if (M <= 1) launch_slab<1>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
+  else if (M <= 2) launch_slab<2>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
+  else if (M <= 4) launch_slab<4>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
+  else if (M <= 8) launch_slab<8>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
+  else launch_slab<16>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// kernel U: ubench_q4k's v1, the f32 two-dot over tile-paired codes
+// ---------------------------------------------------------------------------
+constexpr int U_KC = 2048;  // K elements of x staged per chunk (whole K-blocks)
+
+// Per output column (one warp), per K-block of kb tiles: lane l takes byte
+// word l of each tile (its bytes 4l..4l+3: elements 256t+4l.. low, groups
+// 8t + l/8, and 256t+128+4l.. high, groups 8t+4 + l/8); lo += x * (code *
+// scale) over the low elements, hi over the high ones; at the block's end a
+// fixed xor butterfly sums each over the warp, and the block's lo + hi is
+// added to the column's sum in K order. x is staged per chunk of whole
+// blocks in dynamic shared memory ([M, kc] f32); a lane's float4 of x lies
+// beside its neighbours', so the reads are conflict-free.
+template <int MT>
+__global__ void __launch_bounds__(S_WARPS * 32)
+q4k_twodot_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
+                  const float* __restrict__ scales, float* __restrict__ out, int M, int K,
+                  int N, int bn, int kb) {
+  extern __shared__ __align__(16) float s_xf[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int G = K / GROUP;
+  const int blk = kb * QK_K;                      // elements of a K-block
+  const int kc_max = (U_KC / blk) * blk;          // whole blocks per chunk
+  for (int cg = 0; cg < bn; cg += nw) {
+    const bool live = cg + warp < bn;             // uniform per warp
+    const int n = blockIdx.x * bn + cg + warp;
+    const uint32_t* wrow = reinterpret_cast<const uint32_t*>(codes + (size_t)n * (K / 2));
+    const float* srow = scales + (size_t)n * G;
+    float run[MT];
+#pragma unroll
+    for (int r = 0; r < MT; ++r) run[r] = 0.0f;
+    for (int k0 = 0; k0 < K; k0 += kc_max) {
+      const int kc = min(kc_max, K - k0);
+      __syncthreads();
+      for (int i = threadIdx.x; i < M * (kc / 4); i += blockDim.x) {
+        const int r = i / (kc / 4), c = i % (kc / 4);
+        reinterpret_cast<float4*>(s_xf + (size_t)r * kc_max)[c] =
+            reinterpret_cast<const float4*>(x + (size_t)r * K + k0)[c];
+      }
+      __syncthreads();
+      if (!live) continue;
+      for (int b0 = 0; b0 < kc; b0 += blk) {      // blocks of the chunk, in K order
+        float lo[MT], hi[MT];
+#pragma unroll
+        for (int r = 0; r < MT; ++r) lo[r] = hi[r] = 0.0f;
+        for (int tl = b0 / QK_K; tl < (b0 + blk) / QK_K; ++tl) {
+          const int t = k0 / QK_K + tl;           // the tile's index in the row
+          const uint32_t w = __ldg(wrow + t * (QK_K / 8) + lane);
+          const float sl = __ldg(srow + t * 8 + (lane >> 3));
+          const float sh = __ldg(srow + t * 8 + 4 + (lane >> 3));
+          float wl[4], wh[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            wl[i] = (float)((w >> (8 * i)) & 0xFu) * sl;
+            wh[i] = (float)((w >> (8 * i + 4)) & 0xFu) * sh;
+          }
+#pragma unroll
+          for (int r = 0; r < MT; ++r) {
+            if (r < M) {
+              const float* xr = s_xf + (size_t)r * kc_max + tl * QK_K + 4 * lane;
+              const float4 xl = *reinterpret_cast<const float4*>(xr);
+              const float4 xh = *reinterpret_cast<const float4*>(xr + QK_K / 2);
+              lo[r] = fmaf(xl.x, wl[0], lo[r]);
+              lo[r] = fmaf(xl.y, wl[1], lo[r]);
+              lo[r] = fmaf(xl.z, wl[2], lo[r]);
+              lo[r] = fmaf(xl.w, wl[3], lo[r]);
+              hi[r] = fmaf(xh.x, wh[0], hi[r]);
+              hi[r] = fmaf(xh.y, wh[1], hi[r]);
+              hi[r] = fmaf(xh.z, wh[2], hi[r]);
+              hi[r] = fmaf(xh.w, wh[3], hi[r]);
+            }
+          }
+        }
+        const bool first = k0 == 0 && b0 == 0;
+#pragma unroll
+        for (int r = 0; r < MT; ++r) {
+          const float p = slab_sum<0>(lo[r]) + slab_sum<0>(hi[r]);
+          run[r] = first ? p : run[r] + p;
+        }
+      }
+    }
+    if (live && lane == 0) {
+#pragma unroll
+      for (int r = 0; r < MT; ++r)
+        if (r < M) out[(size_t)r * N + n] = run[r];
+    }
+  }
+}
+
+template <int MT>
+int launch_twodot(const float* x, const uint8_t* codes, const float* scales, float* out,
+                  int M, int K, int N, int bn, int kb, cudaStream_t st) {
+  const int blk = kb * QK_K;
+  const size_t smem = (size_t)M * (U_KC / blk) * blk * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(q4k_twodot_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  q4k_twodot_kernel<MT><<<N / bn, min(S_WARPS, bn) * 32, smem, st>>>(x, codes, scales, out,
+                                                                    M, K, N, bn, kb);
   return (int)cudaGetLastError();
 }
 
@@ -1317,8 +1493,8 @@ int w4a8_slab_launch(const void* x, int x_bf16, const void* codes, const void* s
                      int K, int N, void* stream) {
   if (M < 1 || M > 16 || bn < 1 || N % bn || kb < 1 || kb > 8 || K % (QK_K * kb))
     return (int)cudaErrorInvalidValue;
-  return launch_slab_w4a8(x, x_bf16, codes, scales, 0, bn, kb, xq, xs, sxm, out, M, K, N,
-                          stream);
+  return launch_slab_w4a8(x, x_bf16, codes, scales, SLAB_Q, bn, kb, xq, xs, sxm, out, M, K,
+                          N, stream);
 }
 
 // Kernel T: kernel I's function on native Q4_K superblocks ([N, K/256 * 144]
@@ -1332,8 +1508,42 @@ int w4a8k4_slab_launch(const void* x, int x_bf16, const void* blocks, int bn, in
       (kb % 8 && kb != nsb))
     return (int)cudaErrorInvalidValue;
   const int cps = kb % 8 ? (nsb + 7) / 8 : kb / 8;  // 8-superblock steps per slab
-  return launch_slab_w4a8(x, x_bf16, blocks, nullptr, 1, bn, cps, xq, xs, sxm, out, M, K,
-                          N, stream);
+  return launch_slab_w4a8(x, x_bf16, blocks, nullptr, SLAB_T, bn, cps, xq, xs, sxm, out, M,
+                          K, N, stream);
+}
+
+// Kernel V: x [M, K] bf16 or f32 (1 <= M <= 16, K % (256*kb) == 0, 1 <= kb
+// <= 8); codes int8 [N, K] (packed = 0) or tile-paired uint8 [N, K/2]
+// (packed = 1), scales [N, K/32] bf16; each CTA owns bn columns (N % bn ==
+// 0). out [M, N] f32 is the positive part summed per slab of kb tiles; xq /
+// xs / sxm are the prologue's outputs (kernel A's quantizer).
+int w4a8_plane_launch(const void* x, int x_bf16, const void* codes, int packed,
+                      const void* scales, int bn, int kb, void* xq, void* xs, void* sxm,
+                      void* out, int M, int K, int N, void* stream) {
+  if (M < 1 || M > 16 || bn < 1 || N % bn || kb < 1 || kb > 8 || K % (QK_K * kb))
+    return (int)cudaErrorInvalidValue;
+  return launch_slab_w4a8(x, x_bf16, codes, scales, packed ? SLAB_V_PAIRED : SLAB_V_INT8, bn,
+                          kb, xq, xs, sxm, out, M, K, N, stream);
+}
+
+// Kernel U: x [M, K] f32 (1 <= M <= 16, 16-byte aligned, K % (256*kb) == 0,
+// 1 <= kb <= 8); tile-paired codes uint8 [N, K/2], scales f32 [N, K/32]; each
+// CTA owns bn columns (N % bn == 0). out [M, N] f32 is the positive part
+// summed per K-block of kb tiles (the min term is the caller's).
+int q4k_twodot_launch(const void* x, const void* codes, const void* scales, int bn, int kb,
+                      void* out, int M, int K, int N, void* stream) {
+  if (M < 1 || M > 16 || bn < 1 || N % bn || kb < 1 || kb > 8 || K % (QK_K * kb))
+    return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  const float* s = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 1) return launch_twodot<1>(xf, c, s, o, M, K, N, bn, kb, st);
+  if (M <= 2) return launch_twodot<2>(xf, c, s, o, M, K, N, bn, kb, st);
+  if (M <= 4) return launch_twodot<4>(xf, c, s, o, M, K, N, bn, kb, st);
+  if (M <= 8) return launch_twodot<8>(xf, c, s, o, M, K, N, bn, kb, st);
+  return launch_twodot<16>(xf, c, s, o, M, K, N, bn, kb, st);
 }
 
 }  // extern "C"

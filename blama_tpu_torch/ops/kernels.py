@@ -48,6 +48,8 @@ SIGNATURES = {
                               _I, _I, _I, _P],
         "w4a8_slab_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "w4a8k4_slab_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+        "w4a8_plane_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+        "q4k_twodot_launch": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
@@ -58,6 +60,9 @@ SIGNATURES = {
     "probes": {
         "stream_rows_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
         "add_one_launch": [_P, _P, _I, _P],
+        "bytes_launch": [_I, _P, _P, _P, _I, _P],
+        "int8_dot_launch": [_I, _P, _P, _P, _I, _I, _I, _P],
+        "casts_launch": [_I, _P, _P, _P],
     },
     "paged_attention": {
         "paged_decode_attention_launch": [_P] * 13 + [_I] * 8 + [_F, _P],
@@ -71,7 +76,14 @@ LAUNCHES = {"w4a8_gemv": 0, "q4k_dequant_matmul": 0, "q8_dequant_matmul": 0,
             "w4a8_bank_gemv": 0, "q4k_bank_matmul": 0,
             "q4k_parts_matmul": 0, "w4a8_parts_gemv": 0,
             "w4a8_slab_gemv": 0, "w4a8k4_slab_gemv": 0,
+            "q4k_twodot_matmul": 0, "w4a8_plane_matmul": 0, "w4a8_packed_matmul": 0,
             "stream_rows": 0, "add_one": 0,
+            "swar_roundtrip": 0, "swar_lo_hi": 0, "swar_dot": 0,
+            "u8_bitops": 0, "i16_bitops": 0, "i8_dot": 0, "unpack_dot": 0,
+            **{f"casts_{p}": 0 for p in (
+                "reshape_8x128", "reshape_1x1024", "reshape_32x1", "lane_slice",
+                "lane_concat", "sublane_stride", "group_max", "reshape_4d", "reshape_3d",
+                "round_int8", "row_select_dot", "scratch_store")},
             "decode_attention": 0, "prefill_attention": 0,
             "decode_attention_fresh": 0, "decode_attention_hb": 0,
             "decode_attention_write": 0,

@@ -52,7 +52,9 @@ The tp_blocks mode (qmm_blocked, qmm_nblocked) adds L (K's function per
 K-block, or pinned at one block) and M (kernel A per K-block). The tools'
 W4A8 variants, which no engine reaches, are Q (w4a8_swar_matmul: A's terms
 summed per K-slab, the min term after it) and T (x2_matmul: I's terms in the
-same grouping). On a CPU
+same grouping), and ubench_q4k's U (q4k_matmul_v1: an f32 two-dot) and V
+(w4a8_plane_matmul / w4a8_packed_matmul: Q's body on two other code
+layouts). On a CPU
 tensor each wrapper runs its plain PyTorch version below; on a CUDA tensor
 it launches the kernel or raises.
 """
@@ -654,6 +656,156 @@ def x2_matmul(x: torch.Tensor, w: QuantTensorA8K4, block_n: int = SLAB_BLOCK_N,
     if x.device.type == "cpu":
         return x2_matmul_plain(x, w, block_n, kb)
     return x2_launch(x, w, block_n, kb)[0]
+
+
+# ---------------------------------------------------------------------------
+# kernels U and V: ubench_q4k's variants v1, v2 and v3
+# ---------------------------------------------------------------------------
+#
+# blama_tpu/tools/ubench_q4k.py times dequant-matmul designs on raw arrays,
+# and so do these, in the port's orientation ([N, ...], a column contiguous
+# along K). Their packed codes are ubench's tile pairing (pack_pairs): uint8
+# [N, K/2], the 128 bytes of 256-element tile t at 128t, byte j = element
+# 256t+j (low nibble) | element 256t+128+j (high). kb (tiles per K-block or
+# slab) is a parameter of their numerics; block_n, the columns one CTA owns,
+# moves no bit. The min terms are small f32 products outside the kernels, as
+# in the reference. No engine reaches U or V: the tools do.
+
+def unpair_tiles(codes: torch.Tensor) -> torch.Tensor:
+    """Tile-paired codes [N, K/2] → element-order codes u8 [N, K]."""
+    N = codes.shape[0]
+    c = codes.reshape(N, -1, 1, QK_K // 2)
+    return torch.cat([c & 0x0F, c >> 4], dim=2).reshape(N, -1)
+
+
+def _tile_clamp(what: str, K: int, N: int, block_n: int, kb: int) -> int:
+    """The references' column tile (block_n halved until it divides N); kb
+    is not clamped there, so a K that is not whole K-blocks is refused."""
+    bn = _col_tile(what, K, N, block_n, kb)
+    if K % (kb * QK_K):
+        raise ValueError(f"kernel {what}: K={K} is not a multiple of kb*256 = {kb * QK_K}")
+    return bn
+
+
+def _check_uv(what: str, x: torch.Tensor, arrays, kb: int) -> tuple[int, int]:
+    M, K = _check_cuda(x, arrays, QK_K)
+    _check_rows(M, f"kernel {what}")
+    if kb > 8:
+        raise ValueError(f"kernel {what} takes K-blocks of at most 8 tiles, got kb={kb}")
+    return M, K
+
+
+def twodot_pos_plain(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                     kb: int = 8) -> torch.Tensor:
+    """Plain version of kernel U: per K-block of kb tiles x_lo @ (lo·scale) +
+    x_hi @ (hi·scale) (the low / high halves of each tile), the blocks added
+    in K order → [M, N] f32."""
+    M, K = x.shape
+    N, T = codes.shape[0], K // QK_K
+    _tile_clamp("U", K, N, 1, kb)
+    c = codes.reshape(N, T, 4, GROUP)
+    s = scales.float().reshape(N, T, 8, 1)
+    w_lo = ((c & 0x0F).float() * s[:, :, :4]).reshape(N, T, QK_K // 2)
+    w_hi = ((c >> 4).float() * s[:, :, 4:]).reshape(N, T, QK_K // 2)
+    xt = x.float().reshape(M, T, 2, QK_K // 2)
+    out = None
+    for t0 in range(0, T, kb):
+        blk = slice(t0, t0 + kb)
+        p = (xt[:, blk, 0].reshape(M, -1) @ w_lo[:, blk].reshape(N, -1).t()
+             + xt[:, blk, 1].reshape(M, -1) @ w_hi[:, blk].reshape(N, -1).t())
+        out = p if out is None else out + p
+    return out
+
+
+def twodot_launch(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                  block_n: int = SLAB_BLOCK_N, kb: int = 8) -> torch.Tensor:
+    """Launch kernel U on CUDA tensors → the positive part [M, N] f32."""
+    N, K = codes.shape[0], x.shape[1]
+    if x.dtype != torch.float32:
+        raise TypeError(f"kernel U takes f32 activations, got {x.dtype}")
+    M, K = _check_uv("U", x, ((codes, torch.uint8, (N, K // 2)),
+                              (scales, torch.float32, (N, K // GROUP))), kb)
+    bn = _tile_clamp("U", K, N, block_n, kb)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    rc = kernels.lib("quant_matmul").q4k_twodot_launch(
+        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), bn, kb, out.data_ptr(), M, K, N,
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, "q4k_twodot_matmul")
+    kernels.count("q4k_twodot_matmul")
+    return out
+
+
+def q4k_matmul_v1(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                  mins: torch.Tensor, block_n: int = SLAB_BLOCK_N, kb: int = 8) -> torch.Tensor:
+    """Kernel U (CUDA C++, replaces blama_tpu/tools/ubench_q4k.py's TPU kernel
+    _v1_kernel): x [M <= 16, K] f32 @ tile-paired Q4_K codes with f32 scales
+    and mins [N, K/32] → [M, N] f32; the min term Σx_g @ mins after it."""
+    M, K = x.shape
+    pos = (twodot_pos_plain(x, codes, scales, kb) if x.device.type == "cpu"
+           else twodot_launch(x, codes, scales, block_n, kb))
+    xg_sum = x.float().reshape(M, K // GROUP, GROUP).sum(dim=-1)
+    return pos - xg_sum @ mins.float().t()
+
+
+def plane_pos_plain(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                    kb: int = 4) -> torch.Tensor:
+    """Plain version of kernel V on element-order codes [N, K] (int8, or
+    unpair_tiles' uint8): the int32 group dots of the activation codes, each
+    term dot·ws·xscale, summed per tile (its 8 groups in order), the tiles
+    of a slab of kb in order, the slabs in K order → [M, N] f32."""
+    M, K = x.shape
+    _tile_clamp("V", K, codes.shape[0], 1, kb)
+    xq, xs, _ = quant_acts(x)
+    terms = _group_dots(xq, codes) * scales.float()[None] * xs[:, None, :]
+    t = terms.reshape(M, codes.shape[0], K // (kb * QK_K), kb, 8)
+    return _seq_sum(_seq_sum(_seq_sum(t)))
+
+
+def plane_launch(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, packed: bool,
+                 block_n: int = SLAB_BLOCK_N, kb: int = 4):
+    """Launch kernel V on CUDA tensors, int8 codes [N, K] or (packed)
+    tile-paired uint8 [N, K/2]. Returns (pos [M, N] f32, xq, xs, sxm)."""
+    N, K = codes.shape[0], x.shape[1]
+    carr = (codes, torch.uint8, (N, K // 2)) if packed else (codes, torch.int8, (N, K))
+    M, K = _check_uv("V", x, (carr, (scales, torch.bfloat16, (N, K // GROUP))), kb)
+    bn = _tile_clamp("V", K, N, block_n, kb)
+    xq, xs, sxm, out = _w4a8_buffers(M, K, N, x.device)
+    name = "w4a8_packed_matmul" if packed else "w4a8_plane_matmul"
+    rc = kernels.lib("quant_matmul").w4a8_plane_launch(
+        x.data_ptr(), _is_bf16(x), codes.data_ptr(), int(packed), scales.data_ptr(), bn, kb,
+        xq.data_ptr(), xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), M, K, N,
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, name)
+    kernels.count(name)
+    return out, xq, xs, sxm
+
+
+def _plane_matmul(x, codes, scales, mins, packed, block_n, kb):
+    if x.device.type == "cpu":
+        elem = unpair_tiles(codes) if packed else codes
+        pos, sxm = plane_pos_plain(x, elem, scales, kb), quant_acts(x)[2]
+    else:
+        pos, _, _, sxm = plane_launch(x, codes, scales, packed, block_n, kb)
+    return pos - sxm @ mins.float().t()
+
+
+def w4a8_plane_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                      mins: torch.Tensor, block_n: int = SLAB_BLOCK_N,
+                      kb: int = 4) -> torch.Tensor:
+    """Kernel V on int8 codes [N, K] (CUDA C++, replaces
+    blama_tpu/tools/ubench_q4k.py's TPU kernel _v2_kernel): W4A8, x [M <= 16,
+    K] → [M, N] f32 with bf16 scales / mins [N, K/32]; the min term
+    (xscale·Σcodes) @ mins after the kernel."""
+    return _plane_matmul(x, codes, scales, mins, False, block_n, kb)
+
+
+def w4a8_packed_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                       mins: torch.Tensor, block_n: int = SLAB_BLOCK_N,
+                       kb: int = 8) -> torch.Tensor:
+    """Kernel V on tile-paired codes [N, K/2], unpacked in the kernel (CUDA
+    C++, replaces ubench_q4k.py's TPU kernel _v3_kernel): the numbers of
+    w4a8_plane_matmul on the same codes."""
+    return _plane_matmul(x, codes, scales, mins, True, block_n, kb)
 
 
 # ---------------------------------------------------------------------------

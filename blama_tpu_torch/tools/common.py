@@ -115,6 +115,31 @@ def reps_ms(run, dev: torch.device, r_lo: int, r_hi: int, reps: int = 3) -> floa
     return (t_hi - t_lo) / (r_hi - r_lo)
 
 
+def run_probe(label: str, fn, fails: list, fmt=None) -> None:
+    """One probe of the probe tools: fn() returns (equal, shown), equal
+    meaning the kernel's output equals its plain version exactly (on the CPU
+    the plain version runs on both sides). Prints the reference's line,
+    "OK   label: shown" (or fmt(label, shown)), and "FAIL label: why"
+    on a mismatch, a build or a launch failure, which goes into `fails`."""
+    try:
+        ok, shown = fn()
+        why = f"differs from the plain version ({shown})"
+    except Exception as e:  # noqa: BLE001 - a build or launch failure is a FAIL line
+        ok, why = False, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    if ok:
+        print(fmt(label, shown) if fmt else f"OK   {label}: {shown}", flush=True)
+    else:
+        fails.append(label)
+        print(f"FAIL {label}: {why}", flush=True)
+
+
+def exit_on_fail(fails: list) -> None:
+    """Exit non-zero after the probe lines when any probe failed (the
+    reference only prints FAIL: it probes a compiler, the port its kernels)."""
+    if fails:
+        raise SystemExit(f"{len(fails)} probe(s) failed: {', '.join(fails)}")
+
+
 def model_path(preset: str, layers: int | None = None) -> str:
     """The file a tool runs on: `tiny` (the tests' fixture) or a synthesized
     preset (random weights, the preset's widths, `layers` cuts the depth),

@@ -38,7 +38,11 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    projections and lm head, 1 and 8 rows, two kb each, activation codes
    bit for bit and bits equal across block_n; R on a 2048 x 14336 layer at
    a block of the reference's and one of the card's size, exact, every byte
-   staged; S exact; and rows_mm's host cost at the decode step's shapes;
+   staged; S exact; ubench_q4k's U (f32 two-dot) and V (int8 and
+   tile-paired codes, the loaders bit-equal) at the 8B projections and lm
+   head, 1 and 8 rows, two kb each, bits equal across block_n; the probes W
+   and X at [256, 512] and an 8B code plane (2048 x 14336), Y at its twelve
+   shapes, all exact; and rows_mm's host cost at the decode step's shapes;
 3. solo: synthesizes the llama3-8b Q4_K GGUF from a seed (reused from the
    temp directory when present), loads it as `q4k_a8` with fused attention,
    and on an INT8 cache (ctx 2048) one solo Session answers three
@@ -96,9 +100,13 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    card, `q4k_a8` replayed by `q4k_fused` and `q4k_a8_xla` by `q4k_a8`;
 9. tools: each tool of blama_tpu_torch/tools/ (probe_bw, probe_overhead,
    probe_ceiling, autotune_a8s, ab_a8k4, bench_serving, profile_load,
-   trace_step) through its main once, at short settings on the 8B shapes and
-   file; kernels Q, T, R and S must have launched, ab_a8k4's "x2 vs a8k4"
-   within the matmul tolerance, probe_overhead's kernel S captured.
+   trace_step, ubench_q4k, probe_swar, probe_mosaic, probe_casts,
+   ubench_attn, ubench_paged) through its main once, at short settings on
+   the 8B shapes and file (the probes at an 8B code plane); kernels Q to Y
+   must have launched, ab_a8k4's "x2 vs a8k4" within the matmul tolerance,
+   ubench_q4k's v1 within it of v0 and every variant within 2e-2, no probe
+   a FAIL (a probe tool exits non-zero on one), probe_overhead's kernel S
+   captured.
 
 Launch counts are set to 0 just before each path and read just after. Any
 failure raises and the script exits non-zero. The last line of standard
@@ -144,6 +152,16 @@ MOE_FILE_LAYERS = 8
 MOE_DENSE_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "lm_head": (4096, 32000)}
 # tp_blocks of the fixed-topology phase: the reference's value on any mesh
 TP_BLOCKS = 8
+# kernel Y's probes (ops/probes.CASTS): the line of tools/probe_casts.py that
+# holds each probe's TPU kernel, and the probe's shapes
+CAST_LINES = {
+    "reshape_8x128": (21, "(1, 1024) -> (8, 128)"), "reshape_1x1024": (25, "(8, 128) -> (1, 1024)"),
+    "reshape_32x1": (29, "(8, 4) -> (32, 1)"), "lane_slice": (32, "(1, 1024) -> (1, 128)"),
+    "lane_concat": (35, "(1, 1024) -> (1, 512)"), "sublane_stride": (38, "(8, 128) -> (4, 128)"),
+    "group_max": (41, "(8, 128) -> (8, 4)"), "reshape_4d": (47, "(1, 1024) -> (1, 4, 2, 128)"),
+    "reshape_3d": (51, "(16, 512) -> (16, 1, 512)"), "round_int8": (54, "(8, 128) -> (8, 128)"),
+    "row_select_dot": (58, "(8, 4) -> (4, 4)"), "scratch_store": (63, "(1, 1024) -> (1, 128)")}
+CAST_NAMES = tuple(CAST_LINES)
 
 
 def log(msg: str) -> None:
@@ -802,6 +820,172 @@ def tools_kernel_phase(torch, timer, rng):
                      library_ms=timer(lambda: x + 1),
                      **_bound(2 * x.numel() * 4, x.numel(), F32_FLOPS)))
     log(f"kernel S {rows[-1]}")
+    return rows
+
+
+def ubench_kernel_phase(torch, timer):
+    """ubench_q4k's kernels against their plain versions at the 8B
+    projections and lm head, 1 and 8 rows (f32 x, as the tool's): U at kb 8
+    (the reference's v1 default) and 4, V at kb 4 (v2) and 8 (v3) on both
+    code layouts, the two loaders bit-equal, block_n moving no bit."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+    from blama_tpu_torch.tools.ubench_q4k import pack_pairs
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for label, (K, N) in SHAPES.items():
+        codes = torch.randint(0, 16, (N, K), generator=gen, dtype=torch.uint8, device="cuda")
+        sc = torch.rand((N, K // 32), generator=gen, device="cuda") * 0.02 + 0.01
+        mn = torch.rand((N, K // 32), generator=gen, device="cuda") * 0.01
+        paired, i8 = pack_pairs(codes), codes.to(torch.int8)
+        sb = sc.to(torch.bfloat16)
+        wb = (codes.float().reshape(N, K // 32, 32) * sc[..., None]
+              - mn[..., None]).reshape(N, K).to(torch.bfloat16)
+        x8 = torch.randn((8, K), generator=gen, device="cuda")
+        for M in (1, 8):
+            x = x8[8 - M:].contiguous()
+            xb = x.to(torch.bfloat16)
+            lib_ms = timer(lambda: torch.matmul(xb, wb.t()))
+            pxq = qm.quant_acts(x)[0]
+            for kb in (8, 4):
+                out = qm.twodot_launch(x, paired, sc, qm.SLAB_BLOCK_N, kb)
+                err = check_close(f"kernel U {label} M={M} kb={kb}", out,
+                                  qm.twodot_pos_plain(x, paired, sc, kb), MATMUL_TOL)
+                for bn in (1, 16, 64, 2048):
+                    if not torch.equal(qm.twodot_launch(x, paired, sc, bn, kb), out):
+                        raise AssertionError(f"kernel U {label} M={M} kb={kb}: block_n={bn} "
+                                             "moved a bit")
+                nbytes = K * N // 2 + 4 * (K // 32) * N + 4 * M * K + 4 * M * N
+                rows.append(dict(
+                    kernel="q4k_twodot_matmul", shape=f"{label} K={K} N={N} M={M} kb={kb}",
+                    max_abs_err=err,
+                    kernel_ms=timer(lambda kb=kb: qm.twodot_launch(x, paired, sc,
+                                                                   qm.SLAB_BLOCK_N, kb)),
+                    plain_ms=timer(lambda kb=kb: qm.twodot_pos_plain(x, paired, sc, kb),
+                                   reps=3, warm=1),
+                    library_ms=lib_ms, **_bound(nbytes, 2 * M * K * N, F32_FLOPS)))
+                log(f"kernel U {rows[-1]}")
+            for kb in (4, 8):
+                ref = qm.plane_pos_plain(x, i8, sb, kb)
+                outs = {}
+                for packed, codes_v, name in ((False, i8, "w4a8_plane_matmul"),
+                                              (True, paired, "w4a8_packed_matmul")):
+                    out, xq = qm.plane_launch(x, codes_v, sb, packed, qm.SLAB_BLOCK_N, kb)[:2]
+                    if not torch.equal(xq, pxq):
+                        raise AssertionError(f"kernel V {label} M={M}: activation codes "
+                                             "differ from the plain quantizer's")
+                    err = check_close(f"kernel V {name} {label} M={M} kb={kb}", out, ref,
+                                      MATMUL_TOL)
+                    for bn in (1, 16, 64, 2048):
+                        if not torch.equal(qm.plane_launch(x, codes_v, sb, packed, bn, kb)[0],
+                                           out):
+                            raise AssertionError(f"kernel V {name} {label} M={M} kb={kb}: "
+                                                 f"block_n={bn} moved a bit")
+                    outs[packed] = out
+                    nbytes = ((K * N // 2 if packed else K * N) + 2 * (K // 32) * N
+                              + 4 * M * K + 4 * M * N)
+                    rows.append(dict(
+                        kernel=name, shape=f"{label} K={K} N={N} M={M} kb={kb}",
+                        max_abs_err=err,
+                        kernel_ms=timer(lambda c=codes_v, p=packed, kb=kb: qm.plane_launch(
+                            x, c, sb, p, qm.SLAB_BLOCK_N, kb)),
+                        plain_ms=timer(lambda kb=kb: qm.plane_pos_plain(x, i8, sb, kb),
+                                       reps=3, warm=1),
+                        library_ms=lib_ms, **_bound(nbytes, 2 * M * K * N, INT8_OPS)))
+                    log(f"kernel V {rows[-1]}")
+                if not torch.equal(outs[False], outs[True]):
+                    raise AssertionError(f"kernel V {label} M={M} kb={kb}: the int8 and the "
+                                         "tile-paired loaders differ")
+        del codes, paired, i8, wb
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the probes' shapes: the references' [256, 512] and one code plane of an 8B
+# FFN weight (2048 x 14336 uint8 with a [32, 2048] int8 operand)
+PROBE_SHAPES = ((256, 512), (2048, 14336))
+
+
+def probes_kernel_phase(torch, timer):
+    """Kernels W and X at PROBE_SHAPES and Y at its twelve shapes, each
+    exactly equal to its plain version, with the reference tools' inputs."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import probes
+    from blama_tpu_torch.tools.probe_casts import probe_input
+
+    rows = []
+
+    def row(name, shape, out, plain, kernel, plain_fn, library, nbytes, ops, rate):
+        if isinstance(out, tuple):
+            same = all(torch.equal(o, p) for o, p in zip(out, plain))
+        else:
+            same = torch.equal(out, plain)
+        if not same:
+            raise AssertionError(f"{name} {shape}: differs from its plain version")
+        lib_ms = None
+        if library:
+            try:
+                lib_ms = timer(library)
+            except RuntimeError as e:   # a yardstick the library refuses is left out
+                log(f"probe {name} {shape}: library call refused: {e}")
+        rows.append(dict(kernel=name, shape=shape, max_abs_err=0.0, kernel_ms=timer(kernel),
+                         plain_ms=timer(plain_fn, reps=3, warm=1), library_ms=lib_ms,
+                         **_bound(nbytes, ops, rate)))
+        log(f"probe {rows[-1]}")
+
+    for R, N in PROBE_SHAPES:
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.integers(0, 255, (R, N), dtype=np.uint8)).cuda()
+        a = torch.from_numpy(rng.integers(-127, 127, (32, R), dtype=np.int8)).cuda()
+        b8 = torch.from_numpy(rng.integers(-8, 8, (R, N), dtype=np.int8)).cuda()
+        c8 = x[:R // 2]
+        lohi = (x & 0x0F) + (x >> 4)          # the swar dot's operand, unpacked
+        q8 = torch.cat([c8 & 0x0F, c8 >> 4]).to(torch.int8)
+        tag = f"x {R}x{N}"
+        for name, fn, plain, lib, nbytes in (
+                ("swar_roundtrip", probes.swar_roundtrip, probes.swar_roundtrip_plain,
+                 lambda: x.clone(), 2 * R * N),
+                ("swar_lo_hi", probes.swar_lo_hi, probes.swar_lo_hi_plain, None, 3 * R * N),
+                ("u8_bitops", probes.u8_bitops, probes.u8_bitops_plain, None, 2 * R * N),
+                ("i16_bitops", probes.i16_bitops, probes.i16_bitops_plain, None, 2 * R * N)):
+            row(name, tag, fn(x), plain(x), lambda fn=fn: fn(x), lambda p=plain: p(x), lib,
+                nbytes, 3 * R * N, F32_FLOPS)
+        M = 32
+        for name, fn, plain, lhs, rhs, lib, K, n_dots in (
+                ("swar_dot", probes.swar_dot, probes.swar_dot_plain, a, x,
+                 lambda: torch._int_mm(a, lohi.to(torch.int8)), R, 2),
+                ("i8_dot", probes.i8_dot, probes.i8_dot_plain, a, b8,
+                 lambda: torch._int_mm(a, b8), R, 1),
+                ("unpack_dot", probes.unpack_dot, probes.unpack_dot_plain, a, c8,
+                 lambda: torch._int_mm(a, q8), R // 2, 2)):
+            shape = f"a {M}x{lhs.shape[1]} b {K}x{N}"
+            row(name, shape, fn(lhs, rhs), plain(lhs, rhs),
+                lambda fn=fn, l=lhs, r=rhs: fn(l, r), lambda p=plain, l=lhs, r=rhs: p(l, r),
+                lib, lhs.numel() + rhs.numel() + 4 * M * N, 2 * M * K * N * n_dots, INT8_OPS)
+        del x, a, b8, c8, lohi, q8
+    # kernel Y: the library call is the one torch op that does the probe's
+    # copy (or cat, norm, matmul), where there is one; it must give the
+    # probe's result. E is built beforehand, as lohi and q8 are above, and
+    # f32 matmul runs without TF32 here, so E @ x is exact.
+    sel = torch.arange(8, device="cuda")[None, :] == 2 * torch.arange(4, device="cuda")[:, None]
+    E = sel.float()
+    libs = {"lane_concat": lambda x: torch.cat([x[:, i * 128:(i + 1) * 128] for i in range(4)],
+                                               dim=1),
+            "group_max": lambda x: torch.linalg.vector_norm(x.view(8, 4, 32), ord=float("inf"),
+                                                            dim=-1),
+            "row_select_dot": lambda x: torch.matmul(E, x),
+            "round_int8": None}
+    for name, shape_in, shape_out, plain in probes.CASTS:
+        x = torch.from_numpy(probe_input(name, shape_in)).cuda()
+        lib = libs.get(name, lambda x, p=plain: p(x).clone())
+        if lib is not None and not torch.equal(lib(x), probes.cast_plain(name, x)):
+            raise AssertionError(f"casts_{name}: the library yardstick differs from the probe")
+        n_in, n_out = x.numel(), int(np.prod(shape_out))
+        row(f"casts_{name}", f"{shape_in} -> {shape_out}", probes.cast(name, x),
+            probes.cast_plain(name, x), lambda n=name, x=x: probes.cast(n, x),
+            lambda n=name, x=x: probes.cast_plain(n, x), lib and (lambda f=lib, x=x: f(x)),
+            4 * (n_in + n_out), n_out, F32_FLOPS)
     return rows
 
 
@@ -2069,17 +2253,28 @@ TOOL_RUNS = (
      dict(BLAMA_SERVE_STREAMS="8", BLAMA_SERVE_TOKENS="16", BLAMA_SERVE_PROMPT="32")),
     ("profile_load", ["llama3-8b"], {}),
     ("trace_step", ["llama3-8b", "4", "--top", "12"], {}),
+    ("ubench_q4k", ["--layers", "4", "--reps", "1"], {}),
+    ("probe_swar", ["--rows", "2048", "--cols", "14336"], {}),
+    ("probe_mosaic", ["--rows", "2048", "--cols", "14336"], {}),
+    ("probe_casts", [], {}),
+    ("ubench_attn", ["--reps", "1"], {}),
+    ("ubench_paged", ["--reps", "1"], {}),
 )
-TOOL_KERNELS = ("w4a8_slab_gemv", "w4a8k4_slab_gemv", "stream_rows", "add_one")
+PROBE_KERNELS = ("swar_roundtrip", "swar_lo_hi", "swar_dot", "u8_bitops", "i16_bitops",
+                 "i8_dot", "unpack_dot")
+TOOL_KERNELS = ("w4a8_slab_gemv", "w4a8k4_slab_gemv", "stream_rows", "add_one",
+                "q4k_twodot_matmul", "w4a8_plane_matmul", "w4a8_packed_matmul",
+                *PROBE_KERNELS, *(f"casts_{c}" for c in CAST_NAMES))
 
 
 def tools_phase(torch):
-    """This slice's main path: the card's kernel tools (python -m
+    """The tools slices' main path: the card's kernel tools (python -m
     blama_tpu_torch.tools.<name>), each run once through its main at short
     settings on the 8B shapes and file, the launch counts set to 0 before the
-    first and read after the last. Q runs in probe_ceiling, autotune_a8s and
-    ab_a8k4, T in ab_a8k4, R in probe_bw, S in probe_overhead (whose graph
-    run checks that a ctypes launch is captured)."""
+    first and read after the last. Q runs in probe_ceiling, autotune_a8s,
+    ab_a8k4 and ubench_q4k, T in ab_a8k4, R in probe_bw, S in probe_overhead
+    (whose graph run checks that a ctypes launch is captured), U and V in
+    ubench_q4k, W in probe_swar, X in probe_mosaic, Y in probe_casts."""
     import importlib
     import os
 
@@ -2109,6 +2304,11 @@ def tools_phase(torch):
     require_launched(launches, TOOL_KERNELS, "the tools phase")
     if out["ab_a8k4"]["result"]["x2_vs_a8k4"] > MATMUL_TOL:
         raise AssertionError(f"ab_a8k4: x2 vs a8k4 {out['ab_a8k4']['result']['x2_vs_a8k4']}")
+    # ubench_q4k's check against v0: U is the exact function in f32; the W4A8
+    # variants and bf16 carry their quantization (the CPU tests: 4.4e-3)
+    rel = out["ubench_q4k"]["result"]["rel_err"]
+    if rel["v1"] > MATMUL_TOL or max(rel.values()) > 2e-2:
+        raise AssertionError(f"ubench_q4k: max rel err vs v0 {rel}")
     return out, launches
 
 
@@ -2208,6 +2408,26 @@ KERNELS = {
                     "2048x14336 bk=64 bn=2048"),
     "add_one": ("blama_tpu_torch/ops/csrc/probes.cu", "blama_tpu/tools/probe_overhead.py:105",
                 "x [8, 128] f32"),
+    # ubench_q4k's kernels at its default FFN shape, one row, the reference's
+    # kb; the probes at a code plane of an 8B FFN weight, Y at its own shapes
+    "q4k_twodot_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                          "blama_tpu/tools/ubench_q4k.py:44", "gate/up K=4096 N=14336 M=1 kb=8"),
+    "w4a8_plane_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                          "blama_tpu/tools/ubench_q4k.py:111", "gate/up K=4096 N=14336 M=1 kb=4"),
+    "w4a8_packed_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+                           "blama_tpu/tools/ubench_q4k.py:137",
+                           "gate/up K=4096 N=14336 M=1 kb=8"),
+    **{name: ("blama_tpu_torch/ops/csrc/probes.cu", f"blama_tpu/tools/{tool}.py:{line}", shape)
+       for name, tool, line, shape in (
+           ("swar_roundtrip", "probe_swar", 12, "x 2048x14336"),
+           ("swar_lo_hi", "probe_swar", 17, "x 2048x14336"),
+           ("swar_dot", "probe_swar", 25, "a 32x2048 b 2048x14336"),
+           ("u8_bitops", "probe_mosaic", 22, "x 2048x14336"),
+           ("i16_bitops", "probe_mosaic", 29, "x 2048x14336"),
+           ("i8_dot", "probe_mosaic", 36, "a 32x2048 b 2048x14336"),
+           ("unpack_dot", "probe_mosaic", 42, "a 32x2048 b 1024x14336"))},
+    **{f"casts_{name}": ("blama_tpu_torch/ops/csrc/probes.cu", f"tools/probe_casts.py:{line}",
+                         shape) for name, (line, shape) in CAST_LINES.items()},
 }
 
 
@@ -2247,6 +2467,10 @@ def main() -> int:
         rows += tp_kernel_phase(torch, timer, np.random.default_rng(4))
         rows += modes_kernel_phase(torch, timer)
         rows += tools_kernel_phase(torch, timer, np.random.default_rng(5))
+        t_new = time.perf_counter()
+        rows += ubench_kernel_phase(torch, timer)
+        rows += probes_kernel_phase(torch, timer)
+        log(f"U-Y kernel phases took {time.perf_counter() - t_new:.1f} s")
         del timer
         res["rows_mm_ms"] = rows_mm_cost(torch)
         torch.cuda.empty_cache()

@@ -12,7 +12,7 @@ bf16, f32 and INT8 stores, pages of 32 slots on a scrambled pool — and
 replay determinism (two launches give the same bits), for every kernel (A, B
 with bf16 and f32 scales, C to F, G, H, I, the expert-bank kernels J and K,
 the tp_blocks kernels L and M with their invariances, the decode-attention
-modes' kernels N, O and P, the tools' kernels Q, R, S and T, and rows_mm). The last tests drive each
+modes' kernels N, O and P, the tools' kernels Q, R, S, T and U to Y, and rows_mm). The last tests drive each
 engine, the MoE fixture, the tp_blocks mode and the scheduler on the card on
 the tiny fixtures.
 """
@@ -349,6 +349,126 @@ def test_kernel_s(cuda, shape):
 
     x = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(cuda)
     assert torch.equal(probes.add_one(x), probes.add_one_plain(x))
+
+
+def _ubench_weights(n, k, seed, device):
+    """Random element-order codes u8 [N, K], f32 scales and mins [N, K/32]."""
+    g = torch.Generator().manual_seed(seed)
+    codes = torch.randint(0, 16, (n, k), generator=g, dtype=torch.uint8)
+    scales = torch.rand((n, k // 32), generator=g) * 0.02 + 0.01
+    mins = torch.rand((n, k // 32), generator=g) * 0.01
+    return codes.to(device), scales.to(device), mins.to(device)
+
+
+# ragged: N not a multiple of block_n (300, 1000: the clamp halves it), B =
+# 3, an odd number of K-blocks (K = 3 or 5 blocks of kb tiles)
+UV_SHAPES = [(1, 320, 3, 1), (3, 300, 3, 2), (8, 1000, 5, 1), (16, 72, 3, 4),
+             (3, 256, 1, 8)]
+
+
+@pytest.mark.parametrize("m,n,blocks,kb", UV_SHAPES)
+def test_kernel_u(cuda, m, n, blocks, kb):
+    """Kernel U: within tolerance of its plain version (positive part and the
+    product with the min term), two launches equal, row 0 alone equal, bits
+    equal across block_n."""
+    from blama_tpu_torch.tools.ubench_q4k import pack_pairs
+
+    k = blocks * kb * 256
+    codes, scales, mins = _ubench_weights(n, k, m + kb, cuda)
+    paired = pack_pairs(codes)
+    x = _acts(m, k, torch.float32, cuda)
+    out = qm.twodot_launch(x, paired, scales, 16, kb)
+    _close(out, qm.twodot_pos_plain(x, paired, scales, kb), MATMUL_TOL)
+    full = qm.q4k_matmul_v1(x, paired, scales, mins, 16, kb)
+    _close(full, qm.q4k_matmul_v1(x.cpu(), paired.cpu(), scales.cpu(), mins.cpu(), 16, kb)
+           .to(cuda), MATMUL_TOL)
+    assert torch.equal(out, qm.twodot_launch(x, paired, scales, 16, kb))
+    assert torch.equal(out[:1], qm.twodot_launch(x[:1].contiguous(), paired, scales, 16, kb))
+    for bn in (1, 8, 64, 4096):
+        assert torch.equal(qm.twodot_launch(x, paired, scales, bn, kb), out), bn
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n,blocks,kb", UV_SHAPES)
+def test_kernel_v(cuda, m, n, blocks, kb, dtype):
+    """Kernel V: kernel A's activation codes bit for bit, within tolerance of
+    its plain version, the int8 and the tile-paired loaders bit-equal, row 0
+    alone equal, bits equal across block_n."""
+    from blama_tpu_torch.tools.ubench_q4k import pack_pairs
+
+    k = blocks * kb * 256
+    codes, scales, mins = _ubench_weights(n, k, m + kb + 1, cuda)
+    i8, paired = codes.to(torch.int8), pack_pairs(codes)
+    sb, mb = scales.to(torch.bfloat16), mins.to(torch.bfloat16)
+    x = _acts(m, k, dtype, cuda)
+    out, xq, xs, sxm = qm.plane_launch(x, i8, sb, False, 16, kb)
+    pxq, pxs, psxm = qm.quant_acts(x)
+    assert torch.equal(xq, pxq) and torch.equal(xs, pxs) and torch.equal(sxm, psxm)
+    _close(out, qm.plane_pos_plain(x, i8, sb, kb), MATMUL_TOL)
+    _close(qm.w4a8_plane_matmul(x, i8, sb, mb, 16, kb),
+           qm.w4a8_matmul_plain(x, qm.pack_a8s(codes, scales, mins)), MATMUL_TOL)
+    assert torch.equal(qm.plane_launch(x, paired, sb, True, 16, kb)[0], out)
+    assert torch.equal(out[:1], qm.plane_launch(x[:1].contiguous(), i8, sb, False, 16, kb)[0])
+    for bn in (1, 8, 64, 2048):
+        assert torch.equal(qm.plane_launch(x, i8, sb, False, bn, kb)[0], out), bn
+        assert torch.equal(qm.plane_launch(x, paired, sb, True, bn, kb)[0], out), bn
+
+
+# ragged byte arrays: rows and words that fill no CTA, N % 4 == 0 (whole words)
+BYTE_SHAPES = [(256, 512), (100, 68), (33, 260), (1, 4)]
+
+
+@pytest.mark.parametrize("r,n", BYTE_SHAPES)
+def test_kernels_w_x_bytes(cuda, r, n):
+    """Kernels W and X's byte ops equal their plain versions exactly."""
+    from blama_tpu_torch.ops import probes
+
+    g = torch.Generator(device=cuda).manual_seed(r + n)
+    x = torch.randint(0, 256, (r, n), generator=g, dtype=torch.uint8, device=cuda)
+    assert torch.equal(probes.swar_roundtrip(x), x)
+    lo, hi = probes.swar_lo_hi(x)
+    plo, phi = probes.swar_lo_hi_plain(x)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+    assert torch.equal(probes.u8_bitops(x), probes.u8_bitops_plain(x))
+    assert torch.equal(probes.i16_bitops(x), probes.i16_bitops_plain(x))
+    with pytest.raises(ValueError):
+        probes.swar_lo_hi(x[:, :n - 1] if n > 4 else x.t().contiguous()[:, :1])
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 256, 512), (5, 100, 68), (1, 33, 260), (32, 2048, 1024),
+                                   (17, 64, 132)])
+def test_kernels_w_x_int8_dots(cuda, m, k, n):
+    """The three int8 dots equal their plain versions exactly (K not a whole
+    staging tile, N not a whole CTA, M below 32), and the swar dot equals
+    the int8 dot on the unpacked operand."""
+    from blama_tpu_torch.ops import probes
+
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randint(-127, 127, (m, k), generator=g, dtype=torch.int8, device=cuda)
+    a2 = torch.randint(-127, 127, (m, 2 * k), generator=g, dtype=torch.int8, device=cuda)
+    b = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8, device=cuda)
+    c = torch.randint(0, 256, (k, n), generator=g, dtype=torch.uint8, device=cuda)
+    assert torch.equal(probes.i8_dot(a, b), probes.i8_dot_plain(a, b))
+    sw = probes.swar_dot(a, c)
+    assert torch.equal(sw, probes.swar_dot_plain(a, c))
+    lo, hi = probes.swar_lo_hi_plain(c)
+    assert torch.equal(sw, probes.i8_dot(a, (lo + hi).contiguous()))
+    assert torch.equal(probes.unpack_dot(a2, c), probes.unpack_dot_plain(a2, c))
+    assert torch.equal(probes.i8_dot(a, b), probes.i8_dot(a, b))
+
+
+def test_kernel_y(cuda):
+    """Every probe of kernel Y equals its plain version exactly on the
+    probe's input (random normal, ones for the scratch store)."""
+    from blama_tpu_torch.ops import probes
+    from blama_tpu_torch.tools.probe_casts import probe_input
+
+    for name, shape_in, shape_out, _ in probes.CASTS:
+        x = torch.from_numpy(probe_input(name, shape_in)).to(cuda)
+        out = probes.cast(name, x)
+        assert tuple(out.shape) == shape_out
+        assert torch.equal(out, probes.cast_plain(name, x)), name
+        assert torch.equal(out.cpu(), probes.cast_plain(name, x.cpu())), name
 
 
 @pytest.mark.parametrize("dtype", ["q4k_fused", "q4k_a8"])

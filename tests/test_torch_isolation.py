@@ -38,7 +38,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tools.profile_step", "models.moe", "testing", "ops.probes",
                  "tools.common", "tools.probe_bw", "tools.probe_overhead",
                  "tools.probe_ceiling", "tools.autotune_a8s", "tools.ab_a8k4",
-                 "tools.bench_serving", "tools.profile_load", "tools.trace_step"):
+                 "tools.bench_serving", "tools.profile_load", "tools.trace_step",
+                 "tools.ubench_q4k", "tools.probe_swar", "tools.probe_mosaic",
+                 "tools.probe_casts", "tools.ubench_attn", "tools.ubench_paged"):
         assert f"blama_tpu_torch.{name}" in res["modules"], name
 
 
@@ -203,7 +205,8 @@ import importlib
 import torch
 assert not torch.cuda.is_available()
 for name in ("probe_bw", "probe_overhead", "probe_ceiling", "autotune_a8s", "ab_a8k4",
-             "bench_serving", "profile_load", "trace_step"):
+             "bench_serving", "profile_load", "trace_step", "ubench_q4k", "probe_swar",
+             "probe_mosaic", "probe_casts", "ubench_attn", "ubench_paged"):
     try:
         importlib.import_module("blama_tpu_torch.tools." + name).main([])
     except RuntimeError as e:
@@ -220,6 +223,6 @@ def test_tools_without_cuda_raise():
                          capture_output=True, text=True, check=True, cwd=ROOT, timeout=300,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     lines = out.stdout.strip().splitlines()
-    assert len(lines) == 8, out.stdout
+    assert len(lines) == 14, out.stdout
     for line in lines:
         assert " refused: no CUDA device" in line, line
