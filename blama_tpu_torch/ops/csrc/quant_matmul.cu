@@ -46,34 +46,63 @@
 // warp step, the same staging of the int8 activations. Bound: bytes, 0.5625
 // per weight.
 //
-// The tiled exact dequant GEMM (dequant_mm_kernel, CUDA C++) serves three
-// kernels that differ only in how a 32-element K step of 64 weight rows is
-// dequantized into shared memory (the loader):
+// The exact dequant GEMM (CUDA C++) serves kernels B, G, H, K and L, which
+// differ only in the loader that stages and dequantizes a column's weights:
 //   B (q4k_dequant_mm_launch) replaces
-//     blama_tpu/ops/pallas/quant_matmul.py:_q4k_matmul_kernel:
+//     blama_tpu/ops/pallas/quant_matmul.py:221 _q4k_matmul_kernel:
 //     out[m, n] = sum_k x[m, k] * code[n, k] * scale[n, k/32] in f32 (the min
 //     term is applied by the caller, as q4k_matmul does outside its kernel),
 //     scales bf16 or f32;
 //   G (q8_dequant_mm_launch) replaces
-//     blama_tpu/ops/pallas/quant_matmul.py:_q8_matmul_kernel:
+//     blama_tpu/ops/pallas/quant_matmul.py:2056 _q8_matmul_kernel:
 //     out[m, n] = sum_k x[m, k] * (float(code[n, k]) * scale[n, k/group]);
 //   H (q4k_native_mm_launch) replaces
-//     blama_tpu/ops/pallas/quant_matmul.py:_q4k_native_kernel:
+//     blama_tpu/ops/pallas/quant_matmul.py:938 _q4k_native_kernel:
 //     per 32-group the positive dot as in B with scale = f32(d)*sc decoded in
 //     the kernel, then minus (sum of the group's x) * (f32(dmin)*mn): the min
-//     term is inside, as a 33rd step of the group's K loop.
-// Bound on this card: at the prompt chunks (M = 32..512) the f32 products,
-// 2*M*K*N operations against the weight bytes, bind (M=128 is ~400 f32 ops
-// per Q4_K weight byte); at the decode rows the exact engines send here
-// (M = 1..16) the weight bytes bind. Design, two rows or more: a tiled f32
-// SIMT GEMM (dequant_mm_kernel: 64x64 output tile per 256-thread block, 4x4
-// outputs per thread) that dequantizes one 32-group of 64 weight rows into
-// shared memory per K step. One row (a solo decode step): dequant_row_kernel,
-// one thread per output column, which streams the column's weights with
-// 16-byte loads (a tile with one live row wastes the tile). Both take the
-// same products in the same order for every output element, so a row's bits
-// do not depend on which of the two ran. f32 FMA keeps the products exact to
-// the f32 dot the reference takes; tensor cores (wgmma) are later work.
+//     term is inside, as a 33rd step of the group's K loop;
+//   K and L (below) replace :1811 _q4k_bank_kernel, :1391 _q4k_parts_kernel
+//     and :1378 _q4k_pinned_kernel with B's loader and H's min term.
+// The chain contract: every output element is one f32 chain, acc =
+// fmaf(x[m,k], f32(code)*scale, acc) with k ascending from the first group of
+// its K-block, and with a min row after each group's 32 steps acc =
+// fmaf(xsum_g, -min_g, acc), xsum_g lane 0's value of the xor butterfly (16,
+// 8, 4, 2, 1) over the group's 32 x, as an explicit tree. Two kernels take
+// that chain: the one-row kernel (dequant_row_kernel, a thread per column
+// streaming its weights: every solo decode step) and the tiles (two rows or
+// more), so a row's bits depend neither on the rows beside it nor on the
+// tile; parallelism is over (m, n) only, never over K (no split-K, no
+// atomics). No tensor core: an mma sums its products in its own order.
+// Bound on this card, for a design that keeps the chain, the largest of
+// three terms: the bytes (weights, x, out) at 3.35 TB/s; 2*M*K*N f32
+// operations at 67 TFLOP/s (above ~400 operations a Q4_K weight byte: every
+// prompt chunk); and the chain's latency, K (+ K/32) dependent FMAs of ~4
+// cycles each (8.3 us at K = 4096, 29 us at K = 14336, which bind the
+// exact engines' 8-row decode). Design of the tiles:
+//   - the ring: STAGES slots in shared memory filled by 16-byte cp.async
+//     (4-byte ones for runs of scales and mins at any 2-byte alignment), so
+//     stages s+1 .. s+STAGES-1 are in flight while s is converted; cp.async
+//     rather than TMA because a stage is a gather of BN column pieces of a
+//     few dozen bytes each (plus BM rows of x), which cp.async issues from
+//     any thread, and the 4-byte copies place bf16 scales at odd offsets;
+//   - warp specialization: PW producer warps stage the ring and convert a
+//     landed stage once per CTA into one of two buffers (x widened to f32,
+//     the group sums of x, the weights dequantized from shared memory: a
+//     byte permute and an add make each code an f32 exactly); the consumer
+//     threads only run their chains on the other buffer; named barriers
+//     (full / empty per buffer) hand the buffers over, one handshake a stage;
+//   - the register tile: a consumer owns TM x TN outputs; the tall tiles read
+//     a k-major stage (an outer product per k: TM/4 + TN/4 float4 reads for
+//     TM*TN FMAs, a warp 4 x 8 consumers so its reads of a k are 384
+//     distinct bytes, not the 576 of 2 x 16); the 8- and 16-row tiles read [row][k] float4s along
+//     k (their weights are used by few rows, so a column's four k in one
+//     read beat a k's columns);
+//   - the tile plan (ops/quant_matmul.py tile_plan): the tile shape per
+//     (M, N, products), so that the grid fills the 132 SMs at every row
+//     count the system sends (a wave of CTAs wherever the output allows
+//     one) with the tile that leaves the busiest SM the fewest outputs,
+//     weighted by each tile's measured rate; no tile is taller than the
+//     rows need (8 or 16 rows at 2..16). The shape moves no bit.
 //
 // Kernels J and K replace the MoE expert-bank kernels
 //   blama_tpu/ops/pallas/quant_matmul.py:_a8s_bank_kernel (J) and
@@ -89,9 +118,10 @@
 //   J (w4a8_bank_launch): kernel A's quantizer and kernel A's GEMV body, so
 //     J(x, bank, eids)[j] equals A(x, bank[eids[j]]) bit for bit; M <= 16.
 //   K (q4k_bank_mm_launch): kernel B's loader with the min term inside (the
-//     33rd step of each group, as H), under the same tiled GEMM and one-row
+//     33rd step of each group, as H), under the same tiles and one-row
 //     kernel, so a row's bits do not depend on the row count; f32 scales
-//     (exact engine) or bf16 (W4A8 engine above 16 rows).
+//     (exact engine) or bf16 (W4A8 engine above 16 rows); the plan counts
+//     the selected experts' CTAs together.
 // Bound: bytes at the routed decode step (two experts' weights, 5 or 6 bits
 // each); f32 operations for the masked all-expert chunks (8 experts x M rows).
 // An id outside the bank gives NaN outputs, not a stray read.
@@ -491,14 +521,64 @@ void launch_quant_acts(const void* x, int M, int K, void* xq, void* xs, void* sx
 }
 
 // ---------------------------------------------------------------------------
-// kernels B, G, H: exact dequant GEMM, f32 SIMT tiles, one loader each
+// kernels B, G, H, K, L: exact dequant GEMM, pipelined f32 SIMT tiles
 // ---------------------------------------------------------------------------
-constexpr int B_BM = 64, B_BN = 64, B_BK = GROUP;
 
-// A loader dequantizes K step g (32 elements) of weight rows n0..n0+63 into
-// s_w[k][column]; rows past N give zeros. With MIN_ROW it also writes
-// s_w[32][column] = -(the group's min), which the tile loop multiplies with
-// the sum of the group's x.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async of the 4-byte words that hold bytes [p, p + nbytes) of device
+// memory (a run of scales or mins, any 2-byte alignment) to dst; byte p
+// lands at dst + (p & 3)
+__device__ __forceinline__ void stage_words(uint8_t* dst, const void* p, int nbytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t w0 = a & ~uintptr_t(3), w1 = (a + nbytes - 1) & ~uintptr_t(3);
+  for (uintptr_t w = w0; w <= w1; w += 4)
+    cp_async4(dst + (w - w0), reinterpret_cast<const void*>(w));
+}
+
+template <typename S>
+__device__ __forceinline__ float staged(const uint8_t* words, const S* p, int i) {
+  return to_f32(*reinterpret_cast<const S*>(words + (reinterpret_cast<uintptr_t>(p) & 3) +
+                                            i * sizeof(S)));
+}
+
+// byte i of v as f32, exactly: one byte permute forms the float 2^23 + byte,
+// an add takes 2^23 off (where I2F runs at a quarter of the FMA rate)
+__device__ __forceinline__ float small_f32_byte(uint32_t v, int i) {
+  return __uint_as_float(__byte_perm(v, 0x4Bu, 0x4550u + i)) - 8388608.0f;
+}
+
+__host__ __device__ constexpr int round16(int b) { return (b + 15) / 16 * 16; }
+
+// A loader stages and dequantizes the weights of one output column for a
+// K stage of SG 32-groups (gs .. gs+SG-1; fewer, ng, at a ragged end of K):
+//   chunks<SG>(), raw_bytes<SG>()  16-byte code chunks a column stages, and
+//                                  the bytes they and the column's scale /
+//                                  min words take in the ring (16-multiple);
+//   live_chunks<SG>(ng), chunk()   the chunks that exist, and where chunk i
+//                                  lies in device memory;
+//   stage_small<SG>()              cp.async of the column's scales (mins);
+//   dequant<SG>()                  group gl of the stage from the ring to 32
+//                                  f32 weights and -min (MIN_ROW), the
+//                                  products row() takes, bit for bit.
+// row() is the one-row kernel's: the same weights from device memory.
 
 // kernel B: split Q4_K codes with scales of type S; no min term
 template <typename S>
@@ -506,20 +586,38 @@ struct Q4KLoader {
   static constexpr bool MIN_ROW = false;
   const uint8_t* codes;
   const S* scales;
-  __device__ __forceinline__ void load(float (*s_w)[B_BN + 4], int g, int n0,
-                                       int K, int N) const {
-    const int G = K / GROUP;
-    for (int i = threadIdx.x; i < B_BN * 16; i += blockDim.x) {
-      const int c = i / 16, b = i % 16;
-      const int n = n0 + c;
-      float s = 0.0f;
-      int byte = 0;
-      if (n < N) {
-        byte = codes[(size_t)n * (K / 2) + (size_t)g * 16 + b];
-        s = to_f32(scales[(size_t)n * G + g]);
+  template <int SG>
+  static __host__ __device__ constexpr int words() { return sizeof(S) == 4 ? SG : SG / 2 + 1; }
+  template <int SG>
+  static __host__ __device__ constexpr int chunks() { return SG; }
+  template <int SG>
+  static __host__ __device__ constexpr int raw_bytes() { return round16(16 * SG + 4 * words<SG>()); }
+  template <int SG>
+  __device__ __forceinline__ int live_chunks(int ng) const { return ng; }
+  __device__ __forceinline__ const void* chunk(int n, int gs, int i, int K) const {
+    return codes + (size_t)n * (K / 2) + (size_t)(gs + i) * 16;
+  }
+  __device__ __forceinline__ const S* scale_at(int n, int gs, int K) const {
+    return scales + (size_t)n * (K / GROUP) + gs;
+  }
+  template <int SG>
+  __device__ __forceinline__ void stage_small(uint8_t* raw, int n, int gs, int ng, int K) const {
+    stage_words(raw + 16 * SG, scale_at(n, gs, K), ng * (int)sizeof(S));
+  }
+  template <int SG>
+  __device__ __forceinline__ void dequant(const uint8_t* raw, float (&wv)[GROUP], float& negmin,
+                                          int n, int gs, int gl, int K) const {
+    const uint4 q = *reinterpret_cast<const uint4*>(raw + 16 * gl);
+    const float s = staged(raw + 16 * SG, scale_at(n, gs, K), gl);
+    const uint32_t wd[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {  // byte b = 4t+i: element b (low nibble), 16+b (high)
+      const uint32_t lo = wd[t] & 0x0F0F0F0Fu, hi = (wd[t] >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wv[4 * t + i] = small_f32_byte(lo, i) * s;
+        wv[16 + 4 * t + i] = small_f32_byte(hi, i) * s;
       }
-      s_w[b][c] = (float)(byte & 15) * s;
-      s_w[b + 16][c] = (float)(byte >> 4) * s;
     }
   }
   __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
@@ -542,18 +640,30 @@ template <typename S>
 struct Q4KMinLoader : Q4KLoader<S> {
   static constexpr bool MIN_ROW = true;
   const S* mins;
+  template <int SG>
+  static __host__ __device__ constexpr int raw_bytes() {
+    return round16(16 * SG + 8 * Q4KLoader<S>::template words<SG>());
+  }
   __device__ __forceinline__ Q4KMinLoader expert(int e, int K, int N) const {
     const size_t w0 = (size_t)e * N;
     return {{this->codes + w0 * (K / 2), this->scales + w0 * (K / GROUP)},
             mins + w0 * (K / GROUP)};
   }
-  __device__ __forceinline__ void load(float (*s_w)[B_BN + 4], int g, int n0,
-                                       int K, int N) const {
-    Q4KLoader<S>::load(s_w, g, n0, K, N);
-    for (int c = threadIdx.x; c < B_BN; c += blockDim.x) {
-      const int n = n0 + c;
-      s_w[B_BK][c] = n < N ? -to_f32(mins[(size_t)n * (K / GROUP) + g]) : 0.0f;
-    }
+  __device__ __forceinline__ const S* min_at(int n, int gs, int K) const {
+    return mins + (size_t)n * (K / GROUP) + gs;
+  }
+  template <int SG>
+  __device__ __forceinline__ void stage_small(uint8_t* raw, int n, int gs, int ng, int K) const {
+    Q4KLoader<S>::template stage_small<SG>(raw, n, gs, ng, K);
+    stage_words(raw + 16 * SG + 4 * Q4KLoader<S>::template words<SG>(), min_at(n, gs, K),
+                ng * (int)sizeof(S));
+  }
+  template <int SG>
+  __device__ __forceinline__ void dequant(const uint8_t* raw, float (&wv)[GROUP], float& negmin,
+                                          int n, int gs, int gl, int K) const {
+    Q4KLoader<S>::template dequant<SG>(raw, wv, negmin, n, gs, gl, K);
+    negmin = -staged(raw + 16 * SG + 4 * Q4KLoader<S>::template words<SG>(),
+                     min_at(n, gs, K), gl);
   }
   __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
                                       int K) const {
@@ -562,27 +672,44 @@ struct Q4KMinLoader : Q4KLoader<S> {
   }
 };
 
-// kernel G: int8 codes, one f32 scale per SG (32 or 16) elements
+// kernel G: int8 codes, one f32 scale per SG (32 or 16) elements (NG: the
+// groups of a stage)
 template <int SG>
 struct Q8Loader {
   static constexpr bool MIN_ROW = false;
+  static constexpr int SPG = GROUP / SG;  // scales per 32-group
   const int8_t* codes;
   const float* scales;
-  __device__ __forceinline__ void load(float (*s_w)[B_BN + 4], int g, int n0,
-                                       int K, int N) const {
-    for (int i = threadIdx.x; i < B_BN * 8; i += blockDim.x) {
-      const int c = i / 8, p = i % 8;  // 4 codes at k = 4p..4p+3
-      const int n = n0 + c;
-      float s = 0.0f;
-      char4 q = make_char4(0, 0, 0, 0);
-      if (n < N) {
-        q = *reinterpret_cast<const char4*>(codes + (size_t)n * K + (size_t)g * GROUP + 4 * p);
-        s = scales[(size_t)n * (K / SG) + ((size_t)g * GROUP + 4 * p) / SG];
-      }
-      s_w[4 * p + 0][c] = (float)q.x * s;
-      s_w[4 * p + 1][c] = (float)q.y * s;
-      s_w[4 * p + 2][c] = (float)q.z * s;
-      s_w[4 * p + 3][c] = (float)q.w * s;
+  template <int NG>
+  static __host__ __device__ constexpr int chunks() { return 2 * NG; }
+  template <int NG>
+  static __host__ __device__ constexpr int raw_bytes() { return round16(32 * NG + 4 * SPG * NG); }
+  template <int NG>
+  __device__ __forceinline__ int live_chunks(int ng) const { return 2 * ng; }
+  __device__ __forceinline__ const void* chunk(int n, int gs, int i, int K) const {
+    return codes + (size_t)n * K + (size_t)gs * GROUP + 16 * i;
+  }
+  __device__ __forceinline__ const float* scale_at(int n, int gs, int K) const {
+    return scales + (size_t)n * (K / SG) + (size_t)gs * SPG;
+  }
+  template <int NG>
+  __device__ __forceinline__ void stage_small(uint8_t* raw, int n, int gs, int ng, int K) const {
+    stage_words(raw + 32 * NG, scale_at(n, gs, K), ng * SPG * 4);
+  }
+  template <int NG>
+  __device__ __forceinline__ void dequant(const uint8_t* raw, float (&wv)[GROUP], float& negmin,
+                                          int n, int gs, int gl, int K) const {
+    const uint4* cp = reinterpret_cast<const uint4*>(raw + 32 * gl);
+    const uint4 a = cp[0], b = cp[1];
+    const float* sp = reinterpret_cast<const float*>(raw + 32 * NG) + gl * SPG;
+    const float s0 = sp[0], s1 = sp[SPG - 1];  // the same scale when SG == 32
+    const uint32_t wd[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {  // int8 q: the byte q + 128 as f32, minus 128 (exact)
+      const uint32_t u = wd[t] ^ 0x80808080u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wv[4 * t + i] = (small_f32_byte(u, i) - 128.0f) * (t < 4 ? s0 : s1);
     }
   }
   __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
@@ -601,34 +728,42 @@ struct Q8Loader {
   }
 };
 
-// kernel H: native Q4_K superblocks; scale and min decoded here
+// kernel H: native Q4_K superblocks; scale and min decoded here. A stage
+// (SG of 1, 2, 4 or 8 groups, starting at a multiple of SG) stages its
+// superblock's 16-byte header and the 32-byte chunks that hold its groups
+// (chunk c: group 2c in the low nibbles, 2c+1 in the high ones).
 struct K4Loader {
   static constexpr bool MIN_ROW = true;
   const uint8_t* blocks;
-  __device__ __forceinline__ void load(float (*s_w)[B_BN + 4], int g, int n0,
-                                       int K, int N) const {
-    const int nsb = K / QK_K;
-    const int t = g / 8, j = g % 8;  // superblock, group within it
-    for (int i = threadIdx.x; i < B_BN * 8; i += blockDim.x) {
-      const int c = i / 8, p = i % 8;  // 4 code bytes: elements 4p..4p+3
-      const int n = n0 + c;
-      float s = 0.0f, m = 0.0f;
-      uint32_t q = 0;
-      if (n < N) {
-        const uint32_t* blk = reinterpret_cast<const uint32_t*>(
-            blocks + ((size_t)n * nsb + t) * Q4K_BLOCK);
-        const uint32_t dd = blk[0];
-        int sc, mn;
-        scale_min_k4(j, blk[1], blk[2], blk[3], sc, mn);
-        s = half_bits_to_f32(dd) * (float)sc;
-        m = half_bits_to_f32(dd >> 16) * (float)mn;
-        q = blk[4 + 8 * (j / 2) + p] >> (4 * (j & 1));
-      }
-      s_w[4 * p + 0][c] = (float)(q & 15) * s;
-      s_w[4 * p + 1][c] = (float)((q >> 8) & 15) * s;
-      s_w[4 * p + 2][c] = (float)((q >> 16) & 15) * s;
-      s_w[4 * p + 3][c] = (float)((q >> 24) & 15) * s;
-      if (p == 0) s_w[B_BK][c] = -m;
+  template <int SG>
+  static __host__ __device__ constexpr int chunks() { return 1 + 2 * ((SG + 1) / 2); }
+  template <int SG>
+  static __host__ __device__ constexpr int raw_bytes() { return 16 * chunks<SG>(); }
+  template <int SG>
+  __device__ __forceinline__ int live_chunks(int ng) const { return chunks<SG>(); }
+  __device__ __forceinline__ const void* chunk(int n, int gs, int i, int K) const {
+    const uint8_t* blk = blocks + ((size_t)n * (K / QK_K) + gs / 8) * Q4K_BLOCK;
+    return i == 0 ? blk : blk + 16 + 32 * ((gs % 8) / 2) + 16 * (i - 1);
+  }
+  template <int SG>
+  __device__ __forceinline__ void stage_small(uint8_t*, int, int, int, int) const {}
+  template <int SG>
+  __device__ __forceinline__ void dequant(const uint8_t* raw, float (&wv)[GROUP], float& negmin,
+                                          int n, int gs, int gl, int K) const {
+    const int j = gs % 8 + gl;  // group within the superblock
+    const uint4 hdr = *reinterpret_cast<const uint4*>(raw);
+    const uint4* cp = reinterpret_cast<const uint4*>(raw + 16 + 32 * (j / 2 - (gs % 8) / 2));
+    const uint4 a = cp[0], b = cp[1];
+    int sc, mn;
+    scale_min_k4(j, hdr.y, hdr.z, hdr.w, sc, mn);
+    const float s = half_bits_to_f32(hdr.x) * (float)sc;
+    negmin = -(half_bits_to_f32(hdr.x >> 16) * (float)mn);
+    const uint32_t wd[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {  // element 4t+i: byte i of word t, nibble j & 1
+      const uint32_t q = (wd[t] >> (4 * (j & 1))) & 0x0F0F0F0Fu;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wv[4 * t + i] = small_f32_byte(q, i) * s;
     }
   }
   __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
@@ -649,59 +784,345 @@ struct K4Loader {
   }
 };
 
-template <typename T, typename Loader>
-__device__ __forceinline__ void dequant_mm_body(const T* __restrict__ x, const Loader& w,
-                                                float* __restrict__ out, int M, int K,
-                                                int N, int g0, int g1) {
-  // K steps (32-groups) g0 .. g1-1 of rows of length K, summed from zero:
-  // the same products in the same order as on that K-slice alone
-  constexpr int ROWS = B_BK + (Loader::MIN_ROW ? 1 : 0);
-  __shared__ __align__(16) float s_x[ROWS][B_BM + 4];
-  __shared__ __align__(16) float s_w[ROWS][B_BN + 4];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * B_BM, n0 = blockIdx.x * B_BN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+// A tile shape of the plan: BM x BN outputs per CTA, TM x TN per consumer
+// thread, SG groups per K stage, STAGES slots in the ring, PW producer warps,
+// and the layout of the converted stage the consumers read: k-major ([k][m],
+// [k][n]: an outer product per k, for the tall tiles) or row-major ([m][k],
+// [n][k]: float4 reads along k, for the 8- and 16-row tiles, whose weights
+// are read by few rows). ops/quant_matmul.py TILES lists the same shapes in
+// the same order (tile_plan picks one per call); the shape moves no bit.
+template <int BM_, int BN_, int TM_, int TN_, int SG_, int STAGES_, int PW_, bool KMAJOR_,
+          int MINB_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, SG = SG_, STAGES = STAGES_;
+  static constexpr int PW = PW_, MINB = MINB_;  // MINB: CTAs an SM should hold (registers)
+  static constexpr bool KMAJOR = KMAJOR_;
+  static constexpr int CONSUMERS = (BM / TM) * (BN / TN);
+  static constexpr int THREADS = CONSUMERS + 32 * PW;
+  static constexpr int KS = SG * GROUP;  // K elements of a stage
+  static constexpr int XS = KS + 4;      // row stride of the row-major buffers
+};
+using Tile0 = Tile<128, 128, 8, 8, 1, 3, 4, true, 1>;
+using Tile1 = Tile<128, 64, 8, 8, 1, 3, 4, true, 2>;
+using Tile2 = Tile<64, 112, 4, 8, 1, 3, 4, true, 2>;
+using Tile3 = Tile<64, 64, 8, 4, 1, 3, 2, true, 2>;
+using Tile4 = Tile<64, 32, 4, 4, 1, 3, 2, true, 2>;
+using Tile5 = Tile<32, 32, 4, 2, 1, 3, 2, true, 2>;
+using Tile6 = Tile<16, 32, 4, 1, 4, 3, 4, false, 1>;
+using Tile7 = Tile<8, 32, 2, 1, 4, 3, 4, false, 1>;
+constexpr int CONVERTED = 2;  // converted stages: one filled while one is multiplied
 
-  for (int g = g0; g < g1; ++g) {
-    // each warp loads one row's 32 elements of the step per iteration
-    for (int i = threadIdx.x; i < B_BM * B_BK; i += blockDim.x) {
-      const int r = i / B_BK, k = i % B_BK;
-      const int m = m0 + r;
-      const float v = m < M ? to_f32(x[(size_t)m * K + (size_t)g * GROUP + k]) : 0.0f;
-      s_x[k][r] = v;
-      if constexpr (Loader::MIN_ROW) {
-        float sum = v;  // the group's sum of x, fixed butterfly order
+// dynamic shared memory: the ring (per slot the x rows as in device memory,
+// KS elements of xsz bytes and 16 of padding a row and 16 more every four
+// rows, so the four-row quads the k-major transpose reads fall in distinct
+// banks; then BN columns of raw weights), then CONVERTED buffers of a converted stage: x as f32 and the
+// dequantized weights (in the tile's layout), with the min term the group
+// sums of x [SG][BM] and the -mins [SG][BN]
+template <class Tl, typename Loader>
+__host__ __device__ constexpr int tile_slot_bytes(int xsz) {
+  return Tl::BM * (Tl::KS * xsz + 16) + Tl::BM / 4 * 16 +
+         Tl::BN * Loader::template raw_bytes<Tl::SG>();
+}
+template <class Tl, typename Loader>
+__host__ __device__ constexpr int tile_buf_floats() {
+  return (Tl::BM + Tl::BN) * (Tl::KMAJOR ? Tl::KS : Tl::XS) +
+         (Loader::MIN_ROW ? (Tl::BM + Tl::BN) * Tl::SG : 0);
+}
+template <class Tl, typename Loader>
+__host__ __device__ constexpr int tile_smem_bytes(int xsz) {
+  return Tl::STAGES * tile_slot_bytes<Tl, Loader>(xsz) +
+         CONVERTED * 4 * tile_buf_floats<Tl, Loader>();
+}
+
+// named barriers of the tiles (0 is __syncthreads'): the producers among
+// themselves, and per converted buffer b "full" (producers arrive,
+// consumers wait) and "empty" (consumers arrive, producers wait)
+constexpr int BAR_PRODUCERS = 1, BAR_FULL = 2, BAR_EMPTY = 2 + CONVERTED;
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// value q (of T) of consumer t (of R along an axis of R*T): in the k-major
+// layout blocks of four at t*4 and, for T = 8, the same in the second half
+// of the axis (a warp's float4 reads are then contiguous); T <= 2 values
+// at t*T; in the row-major layout value q at t + q*R
+template <int T, int R, bool KMAJOR>
+__device__ __forceinline__ int val_idx(int t, int q) {
+  if constexpr (!KMAJOR) return t + q * R;
+  return T >= 4 ? (q / 4) * (R * 4) + t * 4 + (q % 4) : t * T + q;
+}
+template <int T, int R>
+__device__ __forceinline__ void load_kmajor(const float* p, int t, float (&v)[T]) {
+  if constexpr (T >= 4) {
 #pragma unroll
-        for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        if (k == 0) s_x[B_BK][r] = sum;
+    for (int h = 0; h < T / 4; ++h) {
+      const float4 u = *reinterpret_cast<const float4*>(p + h * R * 4 + t * 4);
+      v[4 * h] = u.x, v[4 * h + 1] = u.y, v[4 * h + 2] = u.z, v[4 * h + 3] = u.w;
+    }
+  } else if constexpr (T == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p + t * 2);
+    v[0] = u.x, v[1] = u.y;
+  } else {
+    v[0] = p[t];
+  }
+}
+
+// K groups g0 .. g1-1 of rows of length K, each output summed from zero in
+// the chain of the contract (file note); every K offset is absolute, so a
+// K-block's sum equals the same tiles on that K-slice alone.
+//
+// Warp-specialized: the PW producer warps stage the ring with cp.async
+// (stages s+1 .. s+STAGES-1 in flight while s is converted) and convert a
+// stage into a free buffer (x to f32, the group sums of x, the weights
+// dequantized once per CTA); the consumer threads only multiply, each its
+// TM x TN chains, one converted stage while the next is filled. Named
+// barriers hand a buffer over: "full" once converted, "empty" once used.
+template <class Tl, typename Loader>
+__device__ __forceinline__ void dequant_tile_body(const void* __restrict__ x, int xb,
+                                                  const Loader& w, float* __restrict__ out,
+                                                  int M, int K, int N, int g0, int g1,
+                                                  uint8_t* smem) {
+  constexpr int BM = Tl::BM, BN = Tl::BN, TM = Tl::TM, TN = Tl::TN, SG = Tl::SG;
+  constexpr int ST = Tl::STAGES, NC = Tl::CONSUMERS, NP = 32 * Tl::PW, NT = Tl::THREADS;
+  constexpr int XS = Tl::XS, KS = Tl::KS;
+  constexpr bool KM = Tl::KMAJOR;
+  constexpr int LD = KM ? KS : XS;  // the x buffer holds BM * LD floats, the weights BN * LD
+  constexpr int RX = BN / TN, RY = BM / TM;  // consumers along n and along m
+  constexpr int RAW = Loader::template raw_bytes<SG>();
+  constexpr int CH = Loader::template chunks<SG>();
+  constexpr int BUF = tile_buf_floats<Tl, Loader>();
+  const int xsz = xb ? 2 : 4;
+  const int XR = KS * xsz + 16, XB = BM * XR + BM / 4 * 16;  // a ring row of x, a slot's x
+  auto xrow = [&](int r) { return r * XR + (r >> 2) * 16; };  // byte offset of row r
+  const int SLOT = tile_slot_bytes<Tl, Loader>(xsz);
+  float* bufs = reinterpret_cast<float*>(smem + ST * SLOT);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int mv = min(BM, M - m0), nv = min(BN, N - n0);  // live rows and columns
+  const int nst = (g1 - g0 + SG - 1) / SG;
+
+  if (threadIdx.x >= NC) {  // ---------------- producers
+    const int tid = threadIdx.x - NC;
+    const uint8_t* xg = static_cast<const uint8_t*>(x) + (size_t)m0 * K * xsz;
+    // cp.async of stage s into its slot: the live rows' x, the live
+    // columns' code chunks, scales and mins
+    auto stage = [&](int s) {
+      uint8_t* slot = smem + (s % ST) * SLOT;
+      const int gs = g0 + s * SG, ng = min(SG, g1 - gs);
+      const int xc = ng * GROUP * xsz / 16;  // 16-byte chunks of a row
+      for (int i = tid; i < mv * xc; i += NP) {
+        const int r = i / xc, c = i - r * xc;
+        cp_async16(slot + xrow(r) + c * 16,
+                   xg + ((size_t)r * K + (size_t)gs * GROUP) * xsz + c * 16);
+      }
+      const int lc = w.template live_chunks<SG>(ng);
+      for (int i = tid; i < nv * CH; i += NP) {
+        const int c = i / CH, q = i - c * CH;
+        if (q < lc) cp_async16(slot + XB + c * RAW + q * 16, w.chunk(n0 + c, gs, q, K));
+      }
+      for (int c = tid; c < nv; c += NP)
+        w.template stage_small<SG>(slot + XB + c * RAW, n0 + c, gs, ng, K);
+    };
+#pragma unroll 1
+    for (int s = 0; s < ST - 1; ++s) {
+      if (s < nst) stage(s);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<ST - 2>();      // this thread's copies of stage s have landed
+      bar_sync(BAR_PRODUCERS, NP);  // everyone's have; stage s-1 is converted
+      if (s + ST - 1 < nst) stage(s + ST - 1);  // into the slot stage s-1 held
+      cp_async_commit();
+      const int b = s % CONVERTED;
+      if (s >= CONVERTED) bar_sync(BAR_EMPTY + b, NT);  // stage s-2 multiplied
+      const uint8_t* slot = smem + (s % ST) * SLOT;
+      float* s_x = bufs + b * BUF;
+      float* s_w = s_x + BM * LD;
+      float* s_xs = s_w + BN * LD;  // MIN_ROW only
+      float* s_nm = s_xs + BM * SG;
+      const int gs = g0 + s * SG, ng = min(SG, g1 - gs);
+      // x as f32 (a bf16 widens exactly: it is the high half of its f32)
+      constexpr int XU = KM ? 4 : 1;  // rows a unit takes: a 4 x 4 transpose (k-major)
+      for (int i = tid; i < (BM / XU) * (KS / 4); i += NP) {
+        const int rq = KM ? i % (BM / XU) : i / (KS / 4), c = KM ? i / (BM / XU) : i % (KS / 4);
+        if (rq * XU >= mv) continue;
+        float v[XU][4];
+#pragma unroll
+        for (int e = 0; e < XU; ++e) {
+          const int r = rq * XU + e;
+          if (xb) {
+            const uint2 u = *reinterpret_cast<const uint2*>(slot + xrow(r) + c * 8);
+            v[e][0] = __uint_as_float(u.x << 16), v[e][1] = __uint_as_float(u.x & 0xFFFF0000u);
+            v[e][2] = __uint_as_float(u.y << 16), v[e][3] = __uint_as_float(u.y & 0xFFFF0000u);
+          } else {
+            const float4 u = *reinterpret_cast<const float4*>(slot + xrow(r) + c * 16);
+            v[e][0] = u.x, v[e][1] = u.y, v[e][2] = u.z, v[e][3] = u.w;
+          }
+        }
+        if constexpr (KM) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            *reinterpret_cast<float4*>(s_x + (4 * c + q) * BM + 4 * rq) =
+                make_float4(v[0][q], v[1][q], v[2][q], v[3][q]);
+        } else {
+          *reinterpret_cast<float4*>(s_x + rq * XS + 4 * c) =
+              make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
+        }
+      }
+      if constexpr (Loader::MIN_ROW) {
+        // the group's sum of x: lane 0's value of the xor butterfly (16, 8,
+        // .., 1) over its 32 elements, as an explicit tree (the one-row
+        // kernel's), once per (row, group)
+        for (int i = tid; i < BM * SG; i += NP) {
+          const int r = i % BM, gl = i / BM;
+          if (r >= mv || gl >= ng) continue;
+          const uint8_t* p = slot + xrow(r) + gl * GROUP * xsz;
+          float v[GROUP];
+          if (xb) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const uint4 u = reinterpret_cast<const uint4*>(p)[q];
+              const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+              for (int h = 0; h < 4; ++h) {
+                v[8 * q + 2 * h] = __uint_as_float(wd[h] << 16);
+                v[8 * q + 2 * h + 1] = __uint_as_float(wd[h] & 0xFFFF0000u);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              const float4 u = reinterpret_cast<const float4*>(p)[q];
+              v[4 * q] = u.x, v[4 * q + 1] = u.y, v[4 * q + 2] = u.z, v[4 * q + 3] = u.w;
+            }
+          }
+          float t[16];
+#pragma unroll
+          for (int h = 0; h < 16; ++h) t[h] = v[h] + v[h + 16];
+#pragma unroll
+          for (int h = 0; h < 8; ++h) t[h] = t[h] + t[h + 8];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) t[h] = t[h] + t[h + 4];
+          t[0] = t[0] + t[2];
+          t[1] = t[1] + t[3];
+          s_xs[gl * BM + r] = t[0] + t[1];
+        }
+      }
+      // the weights, dequantized once per CTA from the ring (neighbouring
+      // threads take neighbouring columns: their stores fall in distinct banks)
+      for (int i = tid; i < BN * SG; i += NP) {
+        const int c = i % BN, gl = i / BN;
+        if (c >= nv || gl >= ng) continue;
+        float wv[GROUP];
+        float negmin = 0.0f;
+        w.template dequant<SG>(slot + XB + c * RAW, wv, negmin, n0 + c, gs, gl, K);
+        if constexpr (KM) {
+#pragma unroll
+          for (int q = 0; q < GROUP; ++q) s_w[(gl * GROUP + q) * BN + c] = wv[q];
+        } else {
+          float4* d = reinterpret_cast<float4*>(s_w + c * XS + gl * GROUP);
+#pragma unroll
+          for (int q = 0; q < GROUP / 4; ++q)
+            d[q] = make_float4(wv[4 * q], wv[4 * q + 1], wv[4 * q + 2], wv[4 * q + 3]);
+        }
+        if constexpr (Loader::MIN_ROW) s_nm[gl * BN + c] = negmin;
+      }
+      bar_arrive(BAR_FULL + b, NT);  // stage s is converted into buffer b
+    }
+    cp_async_wait<0>();  // no copy outlives the CTA (the tail groups are empty)
+    return;
+  }
+
+  // ---------------- consumers
+  // k-major: a warp takes 4 x 8 consumers (rows x columns) where the tile
+  // allows, so each float4 read of a k touches 64 distinct bytes of x or 128
+  // of the weights; else consumers in row order
+  constexpr bool WARP48 = KM && RY % 4 == 0 && RX % 8 == 0;
+  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+  const int tx = WARP48 ? (wid % (RX / 8)) * 8 + lane % 8 : threadIdx.x % RX;
+  const int ty = WARP48 ? (wid / (RX / 8)) * 4 + lane / 8 : threadIdx.x / RX;
+  const bool live = val_idx<TM, RY, KM>(ty, 0) < mv;  // a consumer wholly past M only waits
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+#pragma unroll 1
+  for (int s = 0; s < nst; ++s) {
+    const int b = s % CONVERTED;
+    bar_sync(BAR_FULL + b, NT);
+    const float* s_x = bufs + b * BUF;
+    const float* s_w = s_x + BM * LD;
+    const float* s_xs = s_w + BN * LD;
+    const float* s_nm = s_xs + BM * SG;
+    const int ng = min(SG, g1 - (g0 + s * SG));
+    if (live) {
+#pragma unroll 1
+      for (int gl = 0; gl < ng; ++gl) {
+        if constexpr (KM) {  // an outer product per k
+#pragma unroll 8
+          for (int kk = 0; kk < GROUP; ++kk) {
+            const int k = gl * GROUP + kk;
+            float a[TM], bv[TN];
+            load_kmajor<TM, RY>(s_x + k * BM, ty, a);
+            load_kmajor<TN, RX>(s_w + k * BN, tx, bv);
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+              for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+          }
+        } else {  // four k a step, float4 reads along k
+#pragma unroll
+          for (int k4 = 0; k4 < GROUP / 4; ++k4) {
+            const int k = gl * GROUP + 4 * k4;
+            float4 a[TM], bv[TN];
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+              a[i] = *reinterpret_cast<const float4*>(s_x + (ty + i * RY) * XS + k);
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              bv[j] = *reinterpret_cast<const float4*>(s_w + (tx + j * RX) * XS + k);
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+              for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].x, bv[j].x, acc[i][j]);
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+              for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].y, bv[j].y, acc[i][j]);
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+              for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].z, bv[j].z, acc[i][j]);
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+              for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].w, bv[j].w, acc[i][j]);
+          }
+        }
+        if constexpr (Loader::MIN_ROW) {
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float sx = s_xs[gl * BM + val_idx<TM, RY, KM>(ty, i)];
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] = fmaf(sx, s_nm[gl * BN + val_idx<TN, RX, KM>(tx, j)], acc[i][j]);
+          }
+        }
       }
     }
-    w.load(s_w, g, n0, K, N);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < ROWS; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&s_x[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&s_w[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    bar_arrive(BAR_EMPTY + b, NT);  // buffer b may be refilled
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + val_idx<TM, RY, KM>(ty, i);
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + val_idx<TN, RX, KM>(tx, j);
       if (n < N) out[(size_t)m * N + n] = acc[i][j];
     }
   }
@@ -709,32 +1130,36 @@ __device__ __forceinline__ void dequant_mm_body(const T* __restrict__ x, const L
 
 // the tiles of B, G, H and L: K-block i = blockIdx.z (groups i*Gb ..
 // i*Gb+Gb-1) → partials out[i] of [nb, M, N]; one block is the whole product
-template <typename T, typename Loader>
-__global__ void __launch_bounds__(256)
-dequant_mm_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
-                  int M, int K, int N, int Gb) {
+template <class Tl, typename Loader>
+__global__ void __launch_bounds__(Tl::THREADS, Tl::MINB)
+dequant_tile_kernel(const void* __restrict__ x, int xb, const Loader w,
+                    float* __restrict__ out, int M, int K, int N, int Gb) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int i = blockIdx.z;
-  dequant_mm_body<T, Loader>(x, w, out + (size_t)i * M * N, M, K, N, i * Gb, (i + 1) * Gb);
+  dequant_tile_body<Tl, Loader>(x, xb, w, out + (size_t)i * M * N, M, K, N, i * Gb,
+                                (i + 1) * Gb, smem);
 }
 
 // kernel K's tiles: selected expert j = blockIdx.z, e = eids[j]
-template <typename T, typename Loader>
-__global__ void __launch_bounds__(256)
-dequant_bank_mm_kernel(const T* __restrict__ x, const Loader w,
-                       const int* __restrict__ eids, int n_expert, int x_per_expert,
-                       float* __restrict__ out, int M, int K, int N) {
+template <class Tl, typename Loader>
+__global__ void __launch_bounds__(Tl::THREADS, Tl::MINB)
+dequant_bank_tile_kernel(const void* __restrict__ x, int xb, const Loader w,
+                         const int* __restrict__ eids, int n_expert, int x_per_expert,
+                         float* __restrict__ out, int M, int K, int N) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int j = blockIdx.z, e = eids[j];
   float* o = out + (size_t)j * M * N;
   if (e < 0 || e >= n_expert) {  // an id outside the bank: NaN, loudly
-    const int m0 = blockIdx.y * B_BM, n0 = blockIdx.x * B_BN;
-    for (int i = threadIdx.x; i < B_BM * B_BN; i += blockDim.x) {
-      const int m = m0 + i / B_BN, n = n0 + i % B_BN;
+    const int m0 = blockIdx.y * Tl::BM, n0 = blockIdx.x * Tl::BN;
+    for (int i = threadIdx.x; i < Tl::BM * Tl::BN; i += blockDim.x) {
+      const int m = m0 + i / Tl::BN, n = n0 + i % Tl::BN;
       if (m < M && n < N) o[(size_t)m * N + n] = quiet_nan();
     }
     return;
   }
-  dequant_mm_body<T, Loader>(x + (x_per_expert ? (size_t)j * M * K : 0),
-                             w.expert(e, K, N), o, M, K, N, 0, K / GROUP);
+  const size_t x0 = x_per_expert ? (size_t)j * M * K * (xb ? 2 : 4) : 0;
+  dequant_tile_body<Tl, Loader>(static_cast<const uint8_t*>(x) + x0, xb, w.expert(e, K, N), o,
+                                M, K, N, 0, K / GROUP, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -846,61 +1271,114 @@ dequant_bank_row_kernel(const T* __restrict__ x, const Loader w,
                               o, K, N, 0, K / GROUP);
 }
 
+// one row of B, G, H, L: the column-per-thread kernels
 template <typename T, typename Loader>
-void launch_dequant_t(const void* x, const Loader& w, int nb, void* out, int M, int K,
-                      int N, cudaStream_t st) {
+void launch_row_t(const void* x, const Loader& w, int nb, void* out, int K, int N,
+                  cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   float* o = static_cast<float*>(out);
-  const int Gb = K / GROUP / nb;
-  if (M == 1 && nb == 1) {
+  if (nb == 1) {
     const int blocks = (N + R_THREADS - 1) / R_THREADS;
     dequant_row_kernel<T, Loader><<<blocks, R_THREADS, 0, st>>>(xp, w, o, K, N);
-  } else if (M == 1) {
-    const dim3 grid((N + R_THREADS - 1) / R_THREADS, nb);
-    dequant_parts_row_kernel<T, Loader><<<grid, R_THREADS, 0, st>>>(xp, w, o, K, N, Gb);
   } else {
-    const dim3 grid((N + B_BN - 1) / B_BN, (M + B_BM - 1) / B_BM, nb);
-    dequant_mm_kernel<T, Loader><<<grid, 256, 0, st>>>(xp, w, o, M, K, N, Gb);
+    const dim3 grid((N + R_THREADS - 1) / R_THREADS, nb);
+    dequant_parts_row_kernel<T, Loader><<<grid, R_THREADS, 0, st>>>(xp, w, o, K, N,
+                                                                    K / GROUP / nb);
   }
 }
 
-// one row goes to the column-per-thread kernel, more to the tiles; nb
-// K-blocks of K/nb elements (nb = 1: the whole product [M, N])
+template <class Tl, typename Loader>
+cudaError_t launch_tile(const void* x, int xb, const Loader& w, int nb, void* out, int M, int K,
+                        int N, cudaStream_t st) {
+  const int smem = tile_smem_bytes<Tl, Loader>(xb ? 2 : 4);
+  // above 48 KB only once allowed; the call is cheap and a CUDA graph captures it
+  const cudaError_t err = cudaFuncSetAttribute(
+      dequant_tile_kernel<Tl, Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + Tl::BN - 1) / Tl::BN, (M + Tl::BM - 1) / Tl::BM, nb);
+  dequant_tile_kernel<Tl, Loader><<<grid, Tl::THREADS, smem, st>>>(
+      x, xb, w, static_cast<float*>(out), M, K, N, K / GROUP / nb);
+  return cudaGetLastError();
+}
+
+template <class Tl, typename Loader>
+cudaError_t launch_bank_tile(const void* x, int xb, const Loader& w, const int* eids, int n_sel,
+                             int n_expert, int x_per_expert, void* out, int M, int K, int N,
+                             cudaStream_t st) {
+  const int smem = tile_smem_bytes<Tl, Loader>(xb ? 2 : 4);
+  const cudaError_t err = cudaFuncSetAttribute(
+      dequant_bank_tile_kernel<Tl, Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + Tl::BN - 1) / Tl::BN, (M + Tl::BM - 1) / Tl::BM, n_sel);
+  dequant_bank_tile_kernel<Tl, Loader><<<grid, Tl::THREADS, smem, st>>>(
+      x, xb, w, eids, n_expert, x_per_expert, static_cast<float*>(out), M, K, N);
+  return cudaGetLastError();
+}
+
+// tile index t of the plan (ops/quant_matmul.py tile_plan) → f<Tile t>()
+template <typename F>
+cudaError_t with_tile(int t, F f) {
+  switch (t) {
+    case 0: return f(Tile0{});
+    case 1: return f(Tile1{});
+    case 2: return f(Tile2{});
+    case 3: return f(Tile3{});
+    case 4: return f(Tile4{});
+    case 5: return f(Tile5{});
+    case 6: return f(Tile6{});
+    case 7: return f(Tile7{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// bm_bn[0..1] = tile t's rows and columns (ops/quant_matmul.py TILES must
+// list the same)
+int tile_shape(int t, int* bm_bn) {
+  return (int)with_tile(t, [&](auto tl) {
+    bm_bn[0] = decltype(tl)::BM;
+    bm_bn[1] = decltype(tl)::BN;
+    return cudaSuccess;
+  });
+}
+
+// one row goes to the column-per-thread kernel, more to the tiles of shape
+// `tile`; nb K-blocks of K/nb elements (nb = 1: the whole product [M, N])
 template <typename Loader>
-int launch_dequant_mm(const void* x, int x_bf16, const Loader& w, int nb, void* out,
+int launch_dequant_mm(const void* x, int x_bf16, const Loader& w, int nb, int tile, void* out,
                       int M, int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) launch_dequant_t<__nv_bfloat16>(x, w, nb, out, M, K, N, st);
-  else launch_dequant_t<float>(x, w, nb, out, M, K, N, st);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, typename Loader>
-void launch_bank_t(const void* x, const Loader& w, const int* eids, int n_sel,
-                   int n_expert, int x_per_expert, void* out, int M, int K, int N,
-                   cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  float* o = static_cast<float*>(out);
   if (M == 1) {
-    const dim3 grid((N + R_THREADS - 1) / R_THREADS, n_sel);
-    dequant_bank_row_kernel<T, Loader><<<grid, R_THREADS, 0, st>>>(
-        xp, w, eids, n_expert, x_per_expert, o, K, N);
-  } else {
-    const dim3 grid((N + B_BN - 1) / B_BN, (M + B_BM - 1) / B_BM, n_sel);
-    dequant_bank_mm_kernel<T, Loader><<<grid, 256, 0, st>>>(
-        xp, w, eids, n_expert, x_per_expert, o, M, K, N);
+    if (x_bf16) launch_row_t<__nv_bfloat16>(x, w, nb, out, K, N, st);
+    else launch_row_t<float>(x, w, nb, out, K, N, st);
+    return (int)cudaGetLastError();
   }
+  return (int)with_tile(tile, [&](auto tl) {
+    return launch_tile<decltype(tl)>(x, x_bf16, w, nb, out, M, K, N, st);
+  });
 }
 
 template <typename Loader>
 int launch_bank_mm(const void* x, int x_bf16, const Loader& w, const void* eids,
-                   int n_sel, int n_expert, int x_per_expert, void* out, int M, int K,
-                   int N, void* stream) {
+                   int n_sel, int n_expert, int x_per_expert, int tile, void* out, int M,
+                   int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ei = static_cast<const int*>(eids);
-  if (x_bf16) launch_bank_t<__nv_bfloat16>(x, w, ei, n_sel, n_expert, x_per_expert, out, M, K, N, st);
-  else launch_bank_t<float>(x, w, ei, n_sel, n_expert, x_per_expert, out, M, K, N, st);
-  return (int)cudaGetLastError();
+  if (M == 1) {
+    const dim3 grid((N + R_THREADS - 1) / R_THREADS, n_sel);
+    if (x_bf16)
+      dequant_bank_row_kernel<__nv_bfloat16, Loader><<<grid, R_THREADS, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(x), w, ei, n_expert, x_per_expert,
+          static_cast<float*>(out), K, N);
+    else
+      dequant_bank_row_kernel<float, Loader><<<grid, R_THREADS, 0, st>>>(
+          static_cast<const float*>(x), w, ei, n_expert, x_per_expert,
+          static_cast<float*>(out), K, N);
+    return (int)cudaGetLastError();
+  }
+  return (int)with_tile(tile, [&](auto tl) {
+    return launch_bank_tile<decltype(tl)>(x, x_bf16, w, ei, n_sel, n_expert, x_per_expert, out,
+                                          M, K, N, st);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -1338,6 +1816,10 @@ int launch_w4a8(const void* x, int x_bf16, const void* codes, const void* scales
 
 extern "C" {
 
+// The tile shapes of the exact dequant GEMM: bm_bn (host memory) receives
+// tile t's rows and columns; an unknown t gives cudaErrorInvalidValue.
+int dequant_tile_shape(int t, void* bm_bn) { return tile_shape(t, static_cast<int*>(bm_bn)); }
+
 // x: [M, K] bf16 (x_bf16 != 0) or f32; 1 <= M <= 16, K % 32 == 0.
 // xq [M, K] int8, xs / sxm [M, K/32] f32 and out [M, N] f32 are outputs.
 int w4a8_matmul_launch(const void* x, int x_bf16, const void* codes,
@@ -1369,38 +1851,40 @@ int w4a8k4_matmul_launch(const void* x, int x_bf16, const void* blocks, void* xq
   return (int)cudaGetLastError();
 }
 
-// x: [M, K] bf16 (x_bf16 != 0) or f32, K % 32 == 0; out: [M, N] f32.
-// scales: [N, K/32] f32 (scales_f32 != 0) or bf16.
+// x: [M, K] bf16 (x_bf16 != 0) or f32, K % 32 == 0, 16-byte aligned; out:
+// [M, N] f32. scales: [N, K/32] f32 (scales_f32 != 0) or bf16. tile: the
+// plan's tile shape for M > 1 (0 .. N_TILES-1; ops/quant_matmul.py
+// tile_plan); codes 16-byte aligned.
 int q4k_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
-                          const void* scales, int scales_f32, void* out, int M,
+                          const void* scales, int scales_f32, int tile, void* out, int M,
                           int K, int N, void* stream) {
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   if (scales_f32)
     return launch_dequant_mm(x, x_bf16, Q4KLoader<float>{c, static_cast<const float*>(scales)},
-                             1, out, M, K, N, stream);
+                             1, tile, out, M, K, N, stream);
   return launch_dequant_mm(
       x, x_bf16, Q4KLoader<__nv_bfloat16>{c, static_cast<const __nv_bfloat16*>(scales)},
-      1, out, M, K, N, stream);
+      1, tile, out, M, K, N, stream);
 }
 
 // codes: [N, K] int8; scales: [N, K/group] f32, group 32 or 16; K % 32 == 0.
 int q8_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
-                         const void* scales, int group, void* out, int M, int K,
+                         const void* scales, int group, int tile, void* out, int M, int K,
                          int N, void* stream) {
   const int8_t* c = static_cast<const int8_t*>(codes);
   const float* s = static_cast<const float*>(scales);
   if (group == 32)
-    return launch_dequant_mm(x, x_bf16, Q8Loader<32>{c, s}, 1, out, M, K, N, stream);
+    return launch_dequant_mm(x, x_bf16, Q8Loader<32>{c, s}, 1, tile, out, M, K, N, stream);
   if (group == 16)
-    return launch_dequant_mm(x, x_bf16, Q8Loader<16>{c, s}, 1, out, M, K, N, stream);
+    return launch_dequant_mm(x, x_bf16, Q8Loader<16>{c, s}, 1, tile, out, M, K, N, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // blocks: [N, K/256 * 144] bytes of Q4_K superblocks; K % 256 == 0.
-int q4k_native_mm_launch(const void* x, int x_bf16, const void* blocks, void* out,
+int q4k_native_mm_launch(const void* x, int x_bf16, const void* blocks, int tile, void* out,
                          int M, int K, int N, void* stream) {
   return launch_dequant_mm(x, x_bf16, K4Loader{static_cast<const uint8_t*>(blocks)},
-                           1, out, M, K, N, stream);
+                           1, tile, out, M, K, N, stream);
 }
 
 // Kernel J: kernel A over selected experts of a bank. codes [Ne, N, K/2],
@@ -1436,42 +1920,44 @@ int w4a8_bank_launch(const void* x, int x_bf16, int x_per_expert, const void* co
 
 // Kernel K: the exact dequant GEMM over selected experts of a bank, min term
 // inside. codes [Ne, N, K/2], scales / mins [Ne, N, K/32] f32 (scales_f32 !=
-// 0) or bf16; eids and x as for kernel J (any M >= 1); out [n_sel, M, N] f32.
+// 0) or bf16; eids and x as for kernel J (any M >= 1); out [n_sel, M, N] f32;
+// tile as for kernel B.
 int q4k_bank_mm_launch(const void* x, int x_bf16, int x_per_expert, const void* codes,
                        const void* scales, const void* mins, int scales_f32,
-                       const void* eids, int n_sel, int n_expert, void* out, int M,
+                       const void* eids, int n_sel, int n_expert, int tile, void* out, int M,
                        int K, int N, void* stream) {
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   if (scales_f32) {
     const Q4KMinLoader<float> w{{c, static_cast<const float*>(scales)},
                                 static_cast<const float*>(mins)};
-    return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, out, M, K,
-                          N, stream);
+    return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, tile, out, M,
+                          K, N, stream);
   }
   const Q4KMinLoader<__nv_bfloat16> w{{c, static_cast<const __nv_bfloat16*>(scales)},
                                       static_cast<const __nv_bfloat16*>(mins)};
-  return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, out, M, K, N,
-                        stream);
+  return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, tile, out, M, K,
+                        N, stream);
 }
 
 // Kernel L: the exact dequant GEMM with the min term inside on nb K-blocks
 // of K/nb elements each (K % (32*nb) == 0), one launch: out [nb, M, N] f32,
 // out[i] the partial of block i, equal bit for bit to the same kernel on
 // (x[:, block i], w[:, block i]) alone; nb = 1 is the pinned product.
-// codes [N, K/2], scales / mins [N, K/32] f32 (scales_f32 != 0) or bf16.
+// codes [N, K/2], scales / mins [N, K/32] f32 (scales_f32 != 0) or bf16;
+// tile as for kernel B.
 int q4k_parts_mm_launch(const void* x, int x_bf16, const void* codes, const void* scales,
-                        const void* mins, int scales_f32, int nb, void* out, int M, int K,
-                        int N, void* stream) {
+                        const void* mins, int scales_f32, int nb, int tile, void* out, int M,
+                        int K, int N, void* stream) {
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   if (nb < 1 || nb > 65535 || K % (GROUP * nb)) return (int)cudaErrorInvalidValue;
   if (scales_f32) {
     const Q4KMinLoader<float> w{{c, static_cast<const float*>(scales)},
                                 static_cast<const float*>(mins)};
-    return launch_dequant_mm(x, x_bf16, w, nb, out, M, K, N, stream);
+    return launch_dequant_mm(x, x_bf16, w, nb, tile, out, M, K, N, stream);
   }
   const Q4KMinLoader<__nv_bfloat16> w{{c, static_cast<const __nv_bfloat16*>(scales)},
                                       static_cast<const __nv_bfloat16*>(mins)};
-  return launch_dequant_mm(x, x_bf16, w, nb, out, M, K, N, stream);
+  return launch_dequant_mm(x, x_bf16, w, nb, tile, out, M, K, N, stream);
 }
 
 // Kernel M: kernel A on nb K-blocks (K % (256*nb) == 0), one launch after one

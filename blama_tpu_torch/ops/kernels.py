@@ -36,20 +36,21 @@ SIGNATURES = {
         "w4a8_matmul_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _P],
         "w4a8k4_matmul_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "q4k_dequant_mm_launch": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _P],
-        "q8_dequant_mm_launch": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _P],
-        "q4k_native_mm_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+        "q4k_dequant_mm_launch": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+        "q8_dequant_mm_launch": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+        "q4k_native_mm_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _P],
         "w4a8_bank_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                              _I, _I, _I, _P],
-        "q4k_bank_mm_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
+        "q4k_bank_mm_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P,
                                _I, _I, _I, _P],
-        "q4k_parts_mm_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+        "q4k_parts_mm_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
         "w4a8_parts_launch": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                               _I, _I, _I, _P],
         "w4a8_slab_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "w4a8k4_slab_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "w4a8_plane_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "q4k_twodot_launch": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+        "dequant_tile_shape": [_I, _P],
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 12 + [_I] * 7 + [_F, _P],

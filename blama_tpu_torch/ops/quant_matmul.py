@@ -44,8 +44,9 @@ A (W4A8 GEMV, 1..16 rows, QuantTensorA8S), I (the same on QuantTensorA8K4),
 and one exact dequant GEMM with a weight loader each for B (Q4_K positive
 part, bf16 or f32 scales; the min term is a small product outside, as in the
 reference), G (int8 codes, group 32 or 16) and H (native Q4_K, min term
-inside): 64 x 64 tiles, or a thread per output column for a single row, the
-same sum order per output element in both. MoE expert banks (QuantExperts,
+inside): pipelined, warp-specialized f32 tiles of the shape tile_plan picks,
+or a thread per output column for a single row, one f32 chain per output
+element in both. MoE expert banks (QuantExperts,
 the stacked arrays of Ne QuantTensors) go through J (kernel A over selected
 experts) and K (B's loader with the min term inside, over selected experts).
 The tp_blocks mode (qmm_blocked, qmm_nblocked) adds L (K's function per
@@ -346,6 +347,8 @@ def _check_cuda(x: torch.Tensor, arrays, k_multiple: int = GROUP) -> tuple[int, 
         raise ValueError(f"K={K} is not a multiple of {k_multiple}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("activations must be contiguous and 16-byte aligned")
+    if arrays[0][0].data_ptr() % 16:
+        raise ValueError("weight codes must be 16-byte aligned")
     for t, dt, shape in arrays:
         if tuple(t.shape) != shape:
             raise ValueError(f"x {tuple(x.shape)} does not match weight array "
@@ -856,11 +859,68 @@ def q4k_pos_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
     return rows_mm(x.float(), _q4k_values(w).t())
 
 
-def _tile_launch(fn: str, name: str, x: torch.Tensor, N: int, *args) -> torch.Tensor:
+# The exact dequant GEMM's tile shapes, output rows x columns per CTA, in the
+# order of ops/csrc/quant_matmul.cu's Tile0 .. Tile7 (8 x 8, 8 x 8, 4 x 8,
+# 8 x 4, 4 x 4, 4 x 2, 4 x 1 and 2 x 1 outputs per consumer thread), and each
+# tile's rate: its outputs' throughput relative to the 128 x 128 tile's, as
+# chip_smoke.py's tile sweep measures it at 2048 rows of the 8B projections
+# on an H100 (the larger a thread's register tile, the more FMAs per
+# shared-memory read).
+# Every output element is one f32 chain whatever the tile: the shape moves
+# no bit.
+TILES = ((128, 128), (128, 64), (64, 112), (64, 64), (64, 32), (32, 32), (16, 32), (8, 32))
+TILE_RATE = (1.0, 0.9, 0.78, 0.77, 0.53, 0.435, 0.38, 0.255)
+N_SMS = 132   # an H100 SXM's streaming multiprocessors: one wave of CTAs
+
+
+def tile_ctas(t: int, M: int, N: int, n_mat: int = 1) -> int:
+    """CTAs tile t launches for n_mat products of [M, N] outputs."""
+    bm, bn = TILES[t]
+    return -(-M // bm) * -(-N // bn) * n_mat
+
+
+def tile_fits(M: int) -> list[int]:
+    """The tiles tile_plan considers at M rows: no taller than M rounded up
+    to a power of two (at least 8), largest first."""
+    cap = max(8, 1 << (M - 1).bit_length())
+    return [t for t, (bm, _) in enumerate(TILES) if bm <= cap]
+
+
+def tile_cost(t: int, M: int, N: int, n_mat: int = 1) -> float:
+    """The plan's estimate of tile t's time: the outputs the busiest SM
+    computes (whole waves of N_SMS CTAs) over the tile's rate."""
+    bm, bn = TILES[t]
+    return -(-tile_ctas(t, M, N, n_mat) // N_SMS) * bm * bn / TILE_RATE[t]
+
+
+def tile_plan(M: int, N: int, n_mat: int = 1) -> int:
+    """The tile (index into TILES) for n_mat products (K-blocks or selected
+    experts) of [M, N] outputs, M > 1: among the tiles no taller than M
+    needs (tile_fits) that launch a wave of N_SMS CTAs, the cheapest by
+    tile_cost; where none does, the one that launches the most. Each CTA
+    covers its own outputs over the whole K (or K-block): no K split."""
+    fits = tile_fits(M)
+    full = [t for t in fits if tile_ctas(t, M, N, n_mat) >= N_SMS]
+    if not full:
+        return max(fits, key=lambda t: (tile_ctas(t, M, N, n_mat), -t))
+    return min(full, key=lambda t: (tile_cost(t, M, N, n_mat), t))
+
+
+def _tile(tile, M: int, N: int, n_mat: int = 1) -> int:
+    """The plan's tile, or the one a test forces (any shape gives the same
+    bits, which the card tests hold)."""
+    if tile is None:
+        return tile_plan(M, N, n_mat)
+    if not 0 <= tile < len(TILES):
+        raise ValueError(f"tile must be 0..{len(TILES) - 1}, got {tile}")
+    return tile
+
+
+def _tile_launch(fn: str, name: str, x: torch.Tensor, N: int, tile, *args) -> torch.Tensor:
     M, K = x.shape
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = getattr(kernels.lib("quant_matmul"), fn)(
-        x.data_ptr(), _is_bf16(x), *args, out.data_ptr(), M, K, N,
+        x.data_ptr(), _is_bf16(x), *args, _tile(tile, M, N), out.data_ptr(), M, K, N,
         kernels.stream_ptr(x.device))
     kernels.check(rc, name)
     kernels.count(name)
@@ -881,15 +941,16 @@ def q4k_min_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
             - rows_mm(xg, w.mins.float().t().contiguous()))
 
 
-def q4k_pos(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
+def q4k_pos(x: torch.Tensor, w: QuantTensor, tile: int | None = None) -> torch.Tensor:
     """Kernel B (CUDA C++, replaces the TPU kernel _q4k_matmul_kernel):
     positive part x @ (code·scale) → [M, N] f32; bf16 scales
-    (QuantTensorA8S) or f32 scales (QuantTensor)."""
+    (QuantTensorA8S) or f32 scales (QuantTensor). `tile` forces a shape of
+    TILES on more than one row (tests); the default is tile_plan's."""
     if x.device.type == "cpu":
         return q4k_pos_plain(x, w)
     f32 = not isinstance(w, QuantTensorA8S)
     _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.float32 if f32 else torch.bfloat16))
-    return _tile_launch("q4k_dequant_mm_launch", "q4k_dequant_matmul", x, w.n_out,
+    return _tile_launch("q4k_dequant_mm_launch", "q4k_dequant_matmul", x, w.n_out, tile,
                         w.codes.data_ptr(), w.scales.data_ptr(), int(f32))
 
 
@@ -908,9 +969,10 @@ def q8_0_matmul_plain(x: torch.Tensor, w: QuantTensorQ8) -> torch.Tensor:
     return x.float() @ dequantize(w).t()
 
 
-def q8_0_matmul(x: torch.Tensor, w: QuantTensorQ8) -> torch.Tensor:
+def q8_0_matmul(x: torch.Tensor, w: QuantTensorQ8, tile: int | None = None) -> torch.Tensor:
     """Kernel G (CUDA C++, replaces the TPU kernel _q8_matmul_kernel):
-    x [M, K] @ int8-code W → [M, N] f32, scale group 32 or 16."""
+    x [M, K] @ int8-code W → [M, N] f32, scale group 32 or 16 (`tile` as
+    for q4k_pos)."""
     if x.device.type == "cpu":
         return q8_0_matmul_plain(x, w)
     if w.group not in (16, 32):
@@ -918,7 +980,7 @@ def q8_0_matmul(x: torch.Tensor, w: QuantTensorQ8) -> torch.Tensor:
     K = x.shape[1]
     _check_cuda(x, ((w.codes, torch.int8, (w.n_out, K)),
                     (w.scales, torch.float32, (w.n_out, K // w.group))))
-    return _tile_launch("q8_dequant_mm_launch", "q8_dequant_matmul", x, w.n_out,
+    return _tile_launch("q8_dequant_mm_launch", "q8_dequant_matmul", x, w.n_out, tile,
                         w.codes.data_ptr(), w.scales.data_ptr(), w.group)
 
 
@@ -934,14 +996,16 @@ def q4k_native_matmul_plain(x: torch.Tensor, w: QuantTensorK4) -> torch.Tensor:
     return (pos - xg.sum(dim=-1)[:, None, :] * mins[None]).sum(dim=-1)
 
 
-def q4k_native_matmul(x: torch.Tensor, w: QuantTensorK4) -> torch.Tensor:
+def q4k_native_matmul(x: torch.Tensor, w: QuantTensorK4,
+                      tile: int | None = None) -> torch.Tensor:
     """Kernel H (CUDA C++, replaces the TPU kernel _q4k_native_kernel):
     x [M, K] @ native-layout W → [M, N] f32, exact dequant numerics, scales
-    decoded and min term applied inside the kernel."""
+    decoded and min term applied inside the kernel (`tile` as for
+    q4k_pos)."""
     if x.device.type == "cpu":
         return q4k_native_matmul_plain(x, w)
     _check_cuda(x, _k4_arrays(w, x.shape[1]), QK_K)
-    return _tile_launch("q4k_native_mm_launch", "q4k_native_matmul", x, w.n_out,
+    return _tile_launch("q4k_native_mm_launch", "q4k_native_matmul", x, w.n_out, tile,
                         w.codes.data_ptr())
 
 
@@ -1061,10 +1125,12 @@ def w4a8_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) ->
     return w4a8_bank_launch(x, bank, eids)[0]
 
 
-def q4k_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
+def q4k_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor,
+                    tile: int | None = None) -> torch.Tensor:
     """Kernel K (CUDA C++, replaces the TPU kernel _q4k_bank_kernel): x [R, K]
     or [n_sel, R, K] @ bank[eids[j]] → [n_sel, R, N] f32, exact dequant with
-    the min term inside; the bank's own scale dtype (f32 or bf16)."""
+    the min term inside; the bank's own scale dtype (f32 or bf16); `tile` as
+    for q4k_pos."""
     if x.device.type == "cpu":
         return q4k_bank_plain(x, bank, eids)
     f32 = not bank.a8
@@ -1072,8 +1138,8 @@ def q4k_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> 
     out = torch.empty((n_sel, R, N), dtype=torch.float32, device=x.device)
     rc = kernels.lib("quant_matmul").q4k_bank_mm_launch(
         x.data_ptr(), _is_bf16(x), int(per), bank.codes.data_ptr(), bank.scales.data_ptr(),
-        bank.mins.data_ptr(), int(f32), eids.data_ptr(), n_sel, bank.n_expert, out.data_ptr(),
-        R, K, N, kernels.stream_ptr(x.device))
+        bank.mins.data_ptr(), int(f32), eids.data_ptr(), n_sel, bank.n_expert,
+        _tile(tile, R, N, n_sel), out.data_ptr(), R, K, N, kernels.stream_ptr(x.device))
     kernels.check(rc, "q4k_bank_matmul")
     kernels.count("q4k_bank_matmul")
     return out
@@ -1175,11 +1241,13 @@ def a8s_matmul_parts_plain(x: torch.Tensor, w: QuantTensorA8S, nb: int) -> torch
     return _parts_plain(w4a8_matmul_plain, x, w, nb)
 
 
-def q4k_matmul_parts(x: torch.Tensor, w: QuantTensor, nb: int) -> torch.Tensor:
+def q4k_matmul_parts(x: torch.Tensor, w: QuantTensor, nb: int,
+                     tile: int | None = None) -> torch.Tensor:
     """Kernel L (CUDA C++, replaces the TPU kernels _q4k_parts_kernel and, at
     nb = 1, _q4k_pinned_kernel): x [M, K] @ packed W per K-block → [nb, M, N]
     f32 partials, exact dequant with the min term inside; f32 scales
-    (QuantTensor) or bf16 (QuantTensorA8S above 16 rows)."""
+    (QuantTensor) or bf16 (QuantTensorA8S above 16 rows); `tile` as for
+    q4k_pos."""
     if x.device.type == "cpu":
         return q4k_matmul_parts_plain(x, w, nb)
     _check_blocks(nb)
@@ -1189,7 +1257,8 @@ def q4k_matmul_parts(x: torch.Tensor, w: QuantTensor, nb: int) -> torch.Tensor:
     out = torch.empty((nb, M, w.n_out), dtype=torch.float32, device=x.device)
     rc = kernels.lib("quant_matmul").q4k_parts_mm_launch(
         x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr(),
-        int(f32), nb, out.data_ptr(), M, K, w.n_out, kernels.stream_ptr(x.device))
+        int(f32), nb, _tile(tile, M, w.n_out, nb), out.data_ptr(), M, K, w.n_out,
+        kernels.stream_ptr(x.device))
     kernels.check(rc, "q4k_parts_matmul")
     kernels.count("q4k_parts_matmul")
     return out

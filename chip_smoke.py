@@ -15,16 +15,23 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    its bound, its plain version and one PyTorch library call computing the
    same function. The attention kernels run on INT8, bf16 and f32 stores; the
    paged kernels E and F must equal the dense C and D bit for bit over the
-   same logical rows under scrambled page placement. The other engines'
+   same logical rows under scrambled page placement. Kernel B also at 8 and
+   16 rows, every row of its 8- to 128-row outputs equal bit for bit to the
+   one-row kernel's, and every tile shape of the plan forced at 8 to 2048
+   rows (the tile sweep: the evidence for tile_plan, each shape's bits equal
+   to the plan's). The exact tiles (B, G, H, K, L) also carry library_f32_ms
+   (one f32 torch.matmul over the f32 weights, TF32 off) and bound_f32_ms
+   (the floor of a design that keeps their f32 chain: bytes, f32 operations
+   or the chain's latency). The other engines'
    kernels at the same shapes: B on f32 scales, G (int8 codes, scale group
    32 and 16) and H (native Q4_K) at 1, 8 and 128 rows, I (W4A8 on native
-   Q4_K) at 1 and 8 rows, each with a row's result held equal at every row
-   count; the MoE expert-bank kernels at Mixtral-8x7B's bank shapes (8
+   Q4_K) at 1 and 8 rows, every row of 8 and 128 equal to the one-row
+   kernel's; the MoE expert-bank kernels at Mixtral-8x7B's bank shapes (8
    experts of gate/up 4096 -> 14336 and down 14336 -> 4096): J at 1 and 8
    rows over 2 selected experts and at 4 and 8 rows over all 8, each expert
    equal bit for bit to kernel A on it alone; K on f32 scales at 1 row over 2
    experts and at 4, 8 and 128 rows over 8, on bf16 scales at 128 rows over
-   8, a row's result equal at 1, 4, 8 and 128 rows; and the MoE path's
+   8, every row of 4, 8 and 128 equal to the one-row kernel's; and the MoE path's
    other shapes: A and B on f32 scales at the projections' 4 rows, A at 1
    and 4 rows and B on f32 scales at 1 row of Mixtral's lm head (N=32000);
    and the tp_blocks kernels at TP_BLOCKS = 8: L's per-K-block partials for
@@ -33,7 +40,7 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    rows, each partial against its plain version, and bit for bit the
    partials of tp = 2, 4, 8 K-slices computed alone equal to the
    one-dispatch partials, each column shard of a pinned product equal to
-   its columns, a row's result equal at every row count; and the tools'
+   its columns, every row equal to the row alone; and the tools'
    kernels: Q (w4a8_swar_matmul's positive part) and T (X2) at the 8B
    projections and lm head, 1 and 8 rows, two kb each, activation codes
    bit for bit and bits equal across block_n; R on a 2048 x 14336 layer at
@@ -131,6 +138,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 INT8_OPS = 1979e12             # H100 SXM dense int8 tensor cores
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+SM_CLOCK_HZ = 1.98e9           # H100 SXM boost clock
+FMA_CYCLES = 4                 # latency of a dependent f32 FMA
 # tolerances (reasons in PERF.md and at each check):
 MATMUL_TOL = 1e-4   # x max|ref|: f32 sums over groups (A) or K (B) in another order
 ATTN_TOL = 2.0 ** -7  # x max|ref|: bf16 outputs, one rounding flip is 2^-8 of an element
@@ -287,32 +296,75 @@ def kernel_phase(torch, timer, rng):
             raise AssertionError(f"kernel A {label}: row 7 of 8 differs from the row alone")
         # kernel B takes every chunk of more than 16 flattened rows: a solo
         # T=128 chunk, and the scheduler's joint prefill of 8 rows x T=8..256
-        # (64 to 2048 rows); the lm head only ever sees the rows' last tokens
+        # (64 to 2048 rows); on bf16 scales it also serves 8 and 16 rows of
+        # the W4A8 engine's tp_blocks prompt and MoE chunks; the lm head only
+        # ever sees the rows' last tokens
         x2048 = torch.randn((2048, K), generator=gen, device="cuda").to(torch.bfloat16)
-        for M in (64, 128, 2048) if label != "lm_head" else ():
+        wf = qm._q4k_values(w)      # code x scale, f32: kernel B's weights
+        # the one-row kernel on each of the last 128 rows: the chain every
+        # row of the tiles must give bit for bit
+        alone = torch.cat([qm.q4k_pos(x2048[r:r + 1].contiguous(), w)
+                           for r in range(1920, 2048)]) if label != "lm_head" else None
+        for M in (8, 16, 64, 128, 2048) if label != "lm_head" else ():
             x = x2048[2048 - M:].contiguous()
             out = qm.q4k_pos(x, w)
             outs[M] = out
             ref = qm.q4k_pos_plain(x, w)
             err = check_close(f"kernel B {label} M={M}", out, ref, MATMUL_TOL)
+            if M <= 128 and not torch.equal(out, alone[128 - M:]):
+                raise AssertionError(f"kernel B {label} M={M}: a row differs from the "
+                                     "one-row kernel's")
             nbytes = K * N // 2 + 2 * (K // 32) * N + M * K * 2 + M * N * 4
-            # the same products fit bf16 tensor cores (4-bit code x bf16 x,
-            # f32 accumulate per group), so their rate is the floor
-            t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * M * K * N / BF16_FLOPS
+            # bf16 tensor cores would take these products (4-bit code x bf16
+            # x), but only in a design that gives up the f32 chain; the floor
+            # of one that keeps it is bound_f32_ms
             rows.append(dict(
                 kernel="q4k_dequant_matmul", shape=f"{label} K={K} N={N} M={M}",
                 max_abs_err=err, kernel_ms=timer(lambda: qm.q4k_pos(x, w)),
                 plain_ms=timer(lambda: qm.q4k_pos_plain(x, w), reps=3, warm=1),
                 library_ms=timer(lambda: torch.matmul(x, wb.t())),
-                bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations"))
+                **_f32_yardstick(torch, timer, x, wf, nbytes, K, N),
+                **_bound(nbytes, 2 * M * K * N, BF16_FLOPS)))
             log(f"kernel B {rows[-1]}")
         if label != "lm_head" and not (torch.equal(outs[2048][-64:], outs[64])
                                        and torch.equal(outs[2048][-128:], outs[128])):
             raise AssertionError(f"kernel B {label}: rows of 2048 differ from the same rows "
                                  "in a chunk of 64 or 128")
-        del w, wb, outs
+        del w, wb, wf, outs, alone
         torch.cuda.empty_cache()
 
+    return rows
+
+
+def tile_sweep(torch, timer, rng):
+    """Kernel B (bf16 scales) at the 8B projections under every tile shape
+    tile_plan weighs at each row count, forced, beside the plan's pick: the
+    evidence for the plan. Every shape must give the plan's bits."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for label, (K, N) in SHAPES.items():
+        if label == "lm_head":
+            continue
+        w = qm.repack_q4k_a8s(random_q4k(rng, N, K, K ** -0.5), N, K, "cuda")
+        x2048 = torch.randn((2048, K), generator=gen, device="cuda").to(torch.bfloat16)
+        for M in (8, 16, 64, 128, 2048):
+            x = x2048[:M].contiguous()
+            plan = qm.tile_plan(M, N)
+            ref = qm.q4k_pos(x, w)
+            ms = {}
+            for t in qm.tile_fits(M):
+                if not torch.equal(qm.q4k_pos(x, w, tile=t), ref):
+                    raise AssertionError(f"tile sweep {label} M={M}: tile {qm.TILES[t]} "
+                                         "differs from the plan's")
+                ms["x".join(map(str, qm.TILES[t]))] = timer(
+                    lambda: qm.q4k_pos(x, w, tile=t), reps=7, warm=1)
+            rows.append(dict(shape=f"{label} K={K} N={N} M={M}",
+                             plan="x".join(map(str, qm.TILES[plan])), ms=ms))
+            log(f"tile sweep {rows[-1]}")
+        del w, x2048
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -321,13 +373,40 @@ def _bound(nbytes, ops, rate):
     return dict(bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
 
 
+def _bound_f32(nbytes, ops, chain):
+    """The floor of a design that keeps the exact tiles' chain (one f32 FMA
+    chain of `chain` dependent steps per output): the largest of the bytes
+    at the memory rate, the operations at the f32 rate, the chain's latency."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / F32_FLOPS,
+             "chain": chain * FMA_CYCLES / SM_CLOCK_HZ}
+    by = max(terms, key=terms.get)
+    return dict(bound_f32_ms=1e3 * terms[by], bound_f32_by=by)
+
+
+def _f32_yardstick(torch, timer, x, wf, nbytes, K, N, min_row=False, n_mat=1, kb=None):
+    """library_f32_ms (one f32 torch.matmul over the f32-dequantized weights
+    wf [N, K] or [n_mat, N, K], TF32 off: the one call that computes the
+    tiles' function) and bound_f32_ms (_bound_f32; chain over a K-block of
+    kb elements, the min term a 33rd step of each group)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 yardstick needs TF32 off")
+    xf = x.float()
+    lib = (lambda: torch.matmul(xf, wf.t())) if wf.dim() == 2 else \
+        (lambda: torch.matmul(xf, wf.transpose(1, 2)))
+    kb = kb or K
+    M = x.shape[-2]
+    return dict(library_f32_ms=timer(lib),
+                **_bound_f32(nbytes, 2 * M * K * N * n_mat, kb + (kb // 32 if min_row else 0)))
+
+
 def engine_kernel_phase(torch, timer, rng):
     """The other engines' kernels against their plain versions at the 8B
     shapes: B on f32 scales, G with scale groups 32 and 16, H at 1, 8 and 128
     rows (the lm head at 1 and 8: forward takes the logits of the rows' last
     tokens only), I at 1 and 8 rows. The exact engines send every row count
     through one kernel, so a row's result must not depend on the rows beside
-    it: row 7 of 8 and the last row of 128 are held equal to the row alone."""
+    it: every row of 8 and of 128 is held equal to the one-row kernel's
+    (I: row 7 of 8 to the row alone)."""
     from blama_tpu_torch.ops import quant_matmul as qm
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -354,34 +433,38 @@ def engine_kernel_phase(torch, timer, rng):
              (K // 256) * 144 * N, "kernel H"),
         ]
         for name, w, kernel, plain, wbytes, what in tiles:
-            # the yardstick: bf16 matmul over the dequantized weights (for B
-            # the positive part alone, which is what the kernel computes)
-            wd = qm.dequantize(w)
-            if name == "q4k_dequant_matmul_f32":
-                wd = wd + w.mins.repeat_interleave(32, dim=1)
-            wb = wd.to(torch.bfloat16)
-            del wd
+            # the yardsticks: bf16 and f32 matmul over the dequantized weights
+            # (for B the positive part alone, which is what the kernel computes)
+            wf = qm._q4k_values(w) if name == "q4k_dequant_matmul_f32" else qm.dequantize(w)
+            wb = wf.to(torch.bfloat16)
             outs = {}
-            for M in (1, 8, 128) if label != "lm_head" else (1, 8):
+            counts = (1, 8, 128) if label != "lm_head" else (1, 8)
+            # the one-row kernel on each of the last rows: the chain every row
+            # of the tiles must give bit for bit
+            alone = torch.cat([kernel(x128[r:r + 1].contiguous(), w)
+                               for r in range(128 - max(counts), 128)])
+            for M in counts:
                 x = x128[128 - M:].contiguous()
                 out = kernel(x, w)
                 torch.cuda.synchronize()
                 outs[M] = out
                 err = check_close(f"{what} {label} M={M}", out, plain(x, w), MATMUL_TOL)
+                if not torch.equal(out, alone[len(alone) - M:]):
+                    raise AssertionError(f"{what} {label}: a row of {M} differs from the "
+                                         "one-row kernel's")
                 xb = x.to(torch.bfloat16)
+                nbytes = wbytes + M * K * xsz + M * N * 4
                 rows.append(dict(
                     kernel=name, shape=f"{label} K={K} N={N} M={M}", max_abs_err=err,
                     kernel_ms=timer(lambda: kernel(x, w)),
                     plain_ms=timer(lambda: plain(x, w), reps=3, warm=1),
                     library_ms=timer(lambda: torch.matmul(xb, wb.t())),
-                    # as for kernel B: the products fit bf16 tensor cores
-                    **_bound(wbytes + M * K * xsz + M * N * 4, 2 * M * K * N, BF16_FLOPS)))
+                    **_f32_yardstick(torch, timer, x, wf, nbytes, K, N,
+                                     min_row=name == "q4k_native_matmul"),
+                    # as for kernel B: bf16 tensor cores only without the chain
+                    **_bound(nbytes, 2 * M * K * N, BF16_FLOPS)))
                 log(f"{what} {rows[-1]}")
-            for M in outs:
-                if not torch.equal(outs[M][-1:], outs[1]):
-                    raise AssertionError(f"{what} {label}: the last row of {M} differs from "
-                                         "the row alone")
-            del w, wb, outs
+            del w, wb, wf, outs, alone
             torch.cuda.empty_cache()
         # printed, not gated: the exact engine's min term is a library product
         # outside kernel B, whose sum order may depend on the row count
@@ -444,12 +527,20 @@ def bank_kernel_phase(torch, timer, rng):
             return x128[eids.long(), 128 - M:].contiguous() if per \
                 else x128[0, 128 - M:].contiguous()
 
-        def library(bank, x, eids):
-            """bf16 torch.bmm over the gathered, dequantized experts."""
-            wb = torch.stack([qm.dequantize(bank.expert(e)) for e in eids.tolist()]) \
-                .to(torch.bfloat16)
-            xb = x if per else x.expand(len(eids), *x.shape).contiguous()
+        def library(bank, x, eids, f32=False):
+            """bf16 (or f32) torch.bmm over the gathered, dequantized experts."""
+            dt = torch.float32 if f32 else torch.bfloat16
+            wb = torch.stack([qm.dequantize(bank.expert(e)) for e in eids.tolist()]).to(dt)
+            xb = (x if per else x.expand(len(eids), *x.shape)).to(dt).contiguous()
             return lambda: torch.bmm(xb, wb.transpose(1, 2))
+
+        def f32_yardstick(bank, x, eids, nbytes):
+            """library_f32_ms (TF32 off) and the chain-keeping floor of kernel K."""
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("the f32 yardstick needs TF32 off")
+            M, n_sel = x.shape[-2], len(eids)
+            return dict(library_f32_ms=timer(library(bank, x, eids, f32=True)),
+                        **_bound_f32(nbytes, 2 * M * K * N * n_sel, K + K // 32))
 
         for a8 in (True, False):
             bank = qm.repack_q4k_bank(q4k, MOE_EXPERTS, N, K, a8, "cuda")
@@ -504,8 +595,8 @@ def bank_kernel_phase(torch, timer, rng):
                         kernel="q4k_bank_matmul", shape=shape, max_abs_err=err,
                         kernel_ms=timer(lambda: qm.q4k_bank_matmul(x, bank, eids)),
                         plain_ms=timer(lambda: qm.q4k_bank_plain(x, bank, eids), reps=3, warm=1),
-                        library_ms=timer(lib_fn),
-                        # as for kernel B: the products fit bf16 tensor cores
+                        library_ms=timer(lib_fn), **f32_yardstick(bank, x, eids, nbytes),
+                        # as for kernel B: bf16 tensor cores only without the chain
                         **_bound(nbytes, ops, BF16_FLOPS)))
                     log(f"kernel K {rows[-1]}")
                 del lib_fn
@@ -516,26 +607,30 @@ def bank_kernel_phase(torch, timer, rng):
                 err = check_close(f"kernel K bf16 {label}", out,
                                   qm.q4k_bank_plain(x, bank, all8), MATMUL_TOL)
                 lib_fn = library(bank, x, all8)
+                nbytes = MOE_EXPERTS * wbytes + x.numel() * 2 + MOE_EXPERTS * 128 * N * 4
                 rows.append(dict(
                     kernel="q4k_bank_matmul",
                     shape=f"{label} K={K} N={N} M=128 sel={MOE_EXPERTS} scales=bf16",
                     max_abs_err=err, kernel_ms=timer(lambda: qm.q4k_bank_matmul(x, bank, all8)),
                     plain_ms=timer(lambda: qm.q4k_bank_plain(x, bank, all8), reps=3, warm=1),
-                    library_ms=timer(lib_fn),
-                    **_bound(MOE_EXPERTS * wbytes + x.numel() * 2 + MOE_EXPERTS * 128 * N * 4,
-                             2 * 128 * K * N * MOE_EXPERTS, BF16_FLOPS)))
+                    library_ms=timer(lib_fn), **f32_yardstick(bank, x, all8, nbytes),
+                    **_bound(nbytes, 2 * 128 * K * N * MOE_EXPERTS, BF16_FLOPS)))
                 log(f"kernel K {rows[-1]}")
                 one = qm.q4k_bank_matmul(inputs(1, all8), bank, all8)
                 if not torch.equal(out[:, -1:], one):
                     raise AssertionError(f"kernel K bf16 {label}: the last row of 128 differs "
                                          "from the row alone")
                 del lib_fn
-            else:       # a row's bits at 1, 4, 8 and 128 rows, over the same experts
-                one = qm.q4k_bank_matmul(inputs(1, all8), bank, all8)
+            else:       # every row of 4, 8 and 128 equals the one-row kernel's
+                def row(r):
+                    return (x128[all8.long(), r:r + 1] if per else x128[0, r:r + 1]).contiguous()
+                alone = torch.cat([qm.q4k_bank_matmul(row(r), bank, all8) for r in range(128)],
+                                  dim=1)
+                one = alone[:, -1:]
                 for M in (4, 8, 128):
-                    if not torch.equal(outs[M][:, -1:], one):
-                        raise AssertionError(f"kernel K {label}: the last row of {M} differs "
-                                             "from the row alone")
+                    if not torch.equal(outs[M], alone[:, 128 - M:]):
+                        raise AssertionError(f"kernel K {label}: a row of {M} differs from "
+                                             "the one-row kernel's")
                 if not torch.equal(outs[1], one[[1, 6]]):
                     raise AssertionError(f"kernel K {label}: the routed row differs from the "
                                          "same row among all experts")
@@ -618,12 +713,12 @@ def _parts_equal_shards(torch, qm, fn, x, w, nb, parts, what):
 
 
 def _rows_alone(torch, fn, x, out, what):
-    """Bit for bit: each row of x computed alone gives that row of `out`
-    ([nb, M, N] partials of all of x), up to 8 rows and then the last."""
-    M = x.shape[0]
-    for r in sorted({*range(min(M, 8)), M - 1}):
-        if not torch.equal(fn(x[r:r + 1].contiguous()), out[:, r:r + 1]):
-            raise AssertionError(f"{what}: row {r} of {M} differs from the row alone")
+    """Bit for bit: each row of x computed alone (L: the one-row kernel)
+    gives that row of `out` ([nb, M, N] partials of all of x), every row."""
+    alone = torch.cat([fn(x[r:r + 1].contiguous()) for r in range(x.shape[0])], dim=1)
+    for r in range(x.shape[0]):
+        if not torch.equal(alone[:, r], out[:, r]):
+            raise AssertionError(f"{what}: row {r} of {x.shape[0]} differs from the row alone")
 
 
 def tp_kernel_phase(torch, timer, rng):
@@ -658,7 +753,8 @@ def tp_kernel_phase(torch, timer, rng):
         if label.endswith("lm_head"):   # f32 input (bf16-valued), as forward feeds it
             x128 = x128.float()
         exact = qm.repack_q4k_exact(q4k, N, K, "cuda")
-        wb = qm.dequantize(exact).to(torch.bfloat16)   # the library yardstick
+        wf = qm.dequantize(exact)                      # the library yardsticks' weights
+        wb = wf.to(torch.bfloat16)
         runs = [(exact, "f32", M) for M in counts]
         if parts:
             a8 = qm.repack_q4k_a8s(q4k, N, K, "cuda")
@@ -688,13 +784,15 @@ def tp_kernel_phase(torch, timer, rng):
                                                  f"{tp} differs from its columns")
             _rows_alone(torch, lambda xr: qm.q4k_matmul_parts(xr, w, blocks), x, out,
                         f"kernel L {shape}")
+            nbytes = wbytes + M * K * x.element_size() + blocks * M * N * 4
             rows.append(dict(
                 kernel="q4k_parts_matmul", shape=shape, max_abs_err=err,
                 kernel_ms=timer(lambda: qm.q4k_matmul_parts(x, w, blocks)),
                 plain_ms=timer(lambda: qm.q4k_matmul_parts_plain(x, w, blocks), reps=3, warm=1),
                 library_ms=timer(lambda: torch.matmul(xb, wb.t())),
-                **_bound(wbytes + M * K * x.element_size() + blocks * M * N * 4,
-                         2 * M * K * N, BF16_FLOPS)))
+                **_f32_yardstick(torch, timer, x, wf, nbytes, K, N, min_row=True,
+                                 kb=K // blocks),
+                **_bound(nbytes, 2 * M * K * N, BF16_FLOPS)))
             log(f"kernel L {rows[-1]}")
         if parts:
             # kernel M: the W4A8 engine's partials up to 16 rows
@@ -726,7 +824,7 @@ def tp_kernel_phase(torch, timer, rng):
                              2 * M * K * N, INT8_OPS)))
                 log(f"kernel M {rows[-1]}")
             del a8
-        del exact, wb
+        del exact, wb, wf
         torch.cuda.empty_cache()
     return rows
 
@@ -2460,6 +2558,9 @@ def main() -> int:
     with torch.no_grad():
         timer = Timer(torch)
         rows = kernel_phase(torch, timer, np.random.default_rng(0))
+        t_sweep = time.perf_counter()
+        res["tile_sweep"] = tile_sweep(torch, timer, np.random.default_rng(6))
+        log(f"tile sweep took {time.perf_counter() - t_sweep:.1f} s")
         rows += engine_kernel_phase(torch, timer, np.random.default_rng(1))
         rows += attention_phase(torch, timer)
         rows += bank_kernel_phase(torch, timer, np.random.default_rng(2))
@@ -2565,6 +2666,9 @@ def main() -> int:
             launches=line_launches[name], max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"])
+        for key in ("library_f32_ms", "bound_f32_ms", "bound_f32_by"):  # the exact tiles'
+            if key in r:
+                entry[key] = r[key]
         if name == base and solo_l.get(base):
             entry["solo_launches"] = solo_l[base]
         if entry["launches"] == 0:

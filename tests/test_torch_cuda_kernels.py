@@ -266,6 +266,126 @@ def test_kernel_m(cuda, m, n, k, nb):
                            parts[:, r:r + 1]), r
 
 
+# The tiles of B, G, H, K and L against the one-row kernel, which takes each
+# output's f32 chain (k ascending from the block's first group, the min term
+# after each group) and is unchanged: row by row, bit for bit, at every row
+# count, ragged and 8B widths, bf16 and f32 x, every tile shape the plan can
+# pick (forced). K = 288 (9 groups) ends in a stage of one group and puts the
+# bf16 scales of odd columns at 2-byte offsets.
+CHAIN_ROWS = (2, 3, 8, 15, 16, 17, 64, 65, 128, 300)
+CHAIN_WIDTHS = (72, 1000, 1024, 4096)
+CHAIN_LOADERS = ("b_bf16", "b_f32", "g32", "g16", "h", "k_shared", "k_per_expert",
+                 "l1", "l2", "l8")
+
+
+def _random_split(n, k, a8, seed, device, experts=0):
+    """A split Q4_K weight (or a bank of `experts`) from random codes, scales
+    and mins, at any K % 32 == 0."""
+    g = torch.Generator().manual_seed(seed)
+    lead = (experts,) if experts else ()
+    codes = torch.randint(0, 256, (*lead, n, k // 2), generator=g, dtype=torch.uint8)
+    dt = torch.bfloat16 if a8 else torch.float32
+    scales = (torch.rand((*lead, n, k // 32), generator=g) * 0.02 + 1e-3).to(dt)
+    mins = (torch.rand((*lead, n, k // 32), generator=g) * 0.02).to(dt)
+    arrays = (codes.to(device), scales.to(device), mins.to(device))
+    if experts:
+        return qm.QuantExperts(*arrays, a8)
+    return (qm.QuantTensorA8S if a8 else qm.QuantTensor)(*arrays)
+
+
+def _random_q8(n, k, group, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    codes = torch.randint(-128, 128, (n, k), generator=g, dtype=torch.int8)
+    scales = torch.rand((n, k // group), generator=g) * 0.01 + 1e-3
+    return qm.QuantTensorQ8(codes.to(device), scales.to(device), group)
+
+
+def _chain_case(name, n, device):
+    """(K, fn(x, tile) → [n_mat, M, N], bank ids or None) of a loader."""
+    if name in ("b_bf16", "b_f32"):
+        w = _random_split(n, 288, name == "b_bf16", n, device)
+        return 288, lambda x, t: qm.q4k_pos(x, w, tile=t)[None], None
+    if name in ("g32", "g16"):
+        w = _random_q8(n, 288, 32 if name == "g32" else 16, n, device)
+        return 288, lambda x, t: qm.q8_0_matmul(x, w, tile=t)[None], None
+    if name == "h":
+        w = qm.repack_q4k_native(_bytes(n, 768, n, "Q4_K"), n, 768, device)
+        return 768, lambda x, t: qm.q4k_native_matmul(x, w, tile=t)[None], None
+    if name.startswith("k_"):
+        per = name == "k_per_expert"
+        bank = _random_split(n, 288, per, n, device, experts=4)
+        eids = torch.tensor([3, 1, 7, 0], dtype=torch.int32, device=device)  # 7: outside
+
+        def bank_fn(x, t):
+            # per expert: expert j's own rows, x rolled by j along K
+            xs = torch.stack([torch.roll(x, j, dims=1) for j in range(4)]) if per else x
+            return qm.q4k_bank_matmul(xs, bank, eids, tile=t)
+        return 288, bank_fn, eids
+    nb = int(name[1:])
+    k = {1: 768, 2: 1024, 8: 2048}[nb]
+    w = _random_split(n, k, False, n, device)
+    return k, lambda x, t: qm.q4k_matmul_parts(x, w, nb, tile=t), None
+
+
+@pytest.mark.parametrize("n", CHAIN_WIDTHS)
+@pytest.mark.parametrize("name", CHAIN_LOADERS)
+def test_tiles_keep_the_one_row_chain(cuda, name, n):
+    k, fn, eids = _chain_case(name, n, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _acts(max(CHAIN_ROWS), k, dtype, cuda)
+        rows = torch.cat([fn(x[r:r + 1].contiguous(), None) for r in range(x.shape[0])], dim=1)
+        if eids is not None:    # the id outside the bank gives NaN, tiles and row alike
+            assert torch.isnan(rows[2]).all()
+            rows = rows[[0, 1, 3]]
+        for m in CHAIN_ROWS:
+            for t in range(len(qm.TILES)):
+                out = fn(x[:m].contiguous(), t)
+                if eids is not None:
+                    assert torch.isnan(out[2]).all(), (m, t)
+                    out = out[[0, 1, 3]]
+                assert torch.equal(out, rows[:, :m]), (dtype, m, t)
+
+
+@pytest.mark.parametrize("nb", [2, 8])
+@pytest.mark.parametrize("n", [72, 1000])
+def test_tile_parts_equal_shards(cuda, nb, n):
+    """Kernel L's tiles: every K-block's partial equals the tiles on that
+    K-slice alone (what a tp device holding it computes), at every tile."""
+    k = 256 * nb
+    w = _random_split(n, k, False, nb, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in (2, 17, 130):
+            x = _acts(m, k, dtype, cuda)
+            kb = k // nb
+            for t in range(len(qm.TILES)):
+                parts = qm.q4k_matmul_parts(x, w, nb, tile=t)
+                shards = torch.cat([qm.q4k_matmul_parts(
+                    x[:, d * kb:(d + 1) * kb].contiguous(),
+                    qm.k_slice(w, d, nb, contiguous=True), 1, tile=t) for d in range(nb)])
+                assert torch.equal(shards, parts), (dtype, m, t)
+
+
+def test_tile_shapes_match_the_plan(cuda):
+    """The kernel's tile list and the plan's are one list."""
+    import ctypes
+
+    from blama_tpu_torch.ops import kernels
+
+    lib = kernels.lib("quant_matmul")
+    for t, shape in enumerate(qm.TILES):
+        out = (ctypes.c_int * 2)()
+        assert lib.dequant_tile_shape(t, ctypes.addressof(out)) == 0
+        assert tuple(out) == shape, t
+    assert lib.dequant_tile_shape(len(qm.TILES), ctypes.addressof((ctypes.c_int * 2)())) != 0
+
+
+def test_tile_out_of_range_raises(cuda):
+    w = _random_split(64, 256, False, 0, cuda)
+    x = _acts(4, 256, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        qm.q4k_pos(x, w, tile=len(qm.TILES))
+
+
 # kernels Q and T (the tools' W4A8 variants): ragged widths (a column tile
 # that halves down to 1..8 columns), K whose slab kb clamps (768, 4352: kb 1;
 # for T the whole K as one slab), every row-count template
