@@ -18,41 +18,41 @@
 //     the max(l, 1e-30) finalize.
 //
 // Addressing is the only difference between dense and paged: a kernel walks
-// the LOGICAL slots of a row in 32-slot tiles, and an address functor maps a
-// tile's first logical slot to its physical slot in the store (dense:
-// b*S + s; paged: page_table[b][s / G] * G + s % G, or "unmapped"). A tile
-// never straddles a page (G % 32 == 0). Everything after the address — the
-// loads, the rope, the per-warp update, the split and the combine — is the
-// same code, so a paged row gives the same bits as the dense row with the
-// same logical content, wherever its pages lie.
+// the LOGICAL slots of a row in tiles, and an address functor maps a
+// logical slot to its physical slot in the store (dense: b*S + s; paged:
+// page_table[b][s / G] * G + s % G, or "unmapped"). Everything after the
+// address is the same code, so a paged row gives the same bits as the dense
+// row with the same logical content, wherever its pages lie.
 //
-// Bound on this card: bytes for decode (each visible slot's K and V read
-// once, ~2 flops per byte), operations for long prefill chunks. Design: the
-// store is streamed once per block in 32-slot tiles staged in shared memory;
-// a tile that is unmapped, or whose slots no query of the block can see, is
-// skipped without reading its K and V. Decode has a single query token per
-// row, so the slot range is split across blocks (fixed split for a given S,
-// B and Hkv) and a second pass combines the splits in a fixed order; no
-// atomics, so a replay on the same card gives the same bits.
+// Decode (kernels C, E, N, O, P): bound by bytes (each visible slot's K and
+// V read once, ~2 flops per byte). The store is streamed once per block in
+// 32-slot tiles staged in shared memory (a tile never straddles a page: G %
+// 32 == 0); a tile that is unmapped, or whose slots no query of the block
+// can see, is skipped without reading its K and V. One query token per row,
+// so the slot range is split across blocks (fixed split for a given S, B
+// and Hkv) and a second pass combines the splits in a fixed order; no
+// atomics, so a replay on the same card gives the same bits. Per tile: one
+// thread block loads the slots of one kv head, rotates K in f32 into shared
+// memory (one sincosf per pair, shared by the group's query heads), then
+// each warp owns one query row: lane j scores slot j, the warp reduces max
+// and sum with a fixed xor-butterfly, and each lane accumulates D/32 output
+// dims. Two variants of that body (kernels N and P): the step's fresh K/V
+// row rides in as an operand, the block whose split holds its slot
+// quantizes it exactly as the cache write does and patches it into the
+// staged tile, so nothing in the step reads the stored row; P also stores
+// the row (codes and scales) to the cache. The head-batched body (kernel
+// O) is a different walk: one block per (row, split) over all kv heads of a
+// tile, one warp per query head.
 //
-// Per tile: one thread block loads the slots of one kv head, rotates K in
-// f32 into shared memory (one sincosf per pair, shared by the group's query
-// heads), then each warp owns one query row: lane j scores slot j, the warp
-// reduces max and sum with a fixed xor-butterfly, and each lane accumulates
-// D/32 output dims.
-//
-// Two variants of the decode body share that loop (kernels N and P): the
-// step's fresh K/V row rides in as an operand, the block whose split holds
-// its slot quantizes it exactly as the cache write does and patches it into
-// the staged tile, so nothing in the step reads the stored row; P also
-// stores the row (codes and scales) to the cache. The head-batched body
-// (kernel O) is a different walk: one block per (row, split) over all kv
-// heads of a tile, one warp per query head.
+// Prefill (kernels D and F): bound by operations at the bf16 tensor rate
+// for chunks of 128 tokens or more; a tensor-core body of its own, in its
+// section below.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -390,7 +390,10 @@ __global__ void decode_attn_kernel(
   for (int i = 0; i < D / 32; ++i) part_acc[row * D + lane + 32 * i] = acc[i];
 }
 
-// Combine the splits of one (row, head) in split order.
+// Combine the splits of one (row, head) in split order. SKIP_UNSEEN (the
+// prefill's, whose kernel writes no accumulator for a split a query cannot
+// see) passes over a split with l == 0: its weight is 0 and it adds nothing.
+template <bool SKIP_UNSEEN = false>
 static __global__ void decode_combine_kernel(const float* __restrict__ part_m,
                                              const float* __restrict__ part_l,
                                              const float* __restrict__ part_acc,
@@ -404,6 +407,7 @@ static __global__ void decode_combine_kernel(const float* __restrict__ part_m,
   for (int p = 0; p < nsplit; ++p) mx = fmaxf(mx, pm[p]);
   float lsum = 0.0f, a = 0.0f;
   for (int p = 0; p < nsplit; ++p) {
+    if (SKIP_UNSEEN && !(plv[p] > 0.0f)) continue;
     const float w = expf(pm[p] - mx);
     lsum += plv[p] * w;
     a += part_acc[(row * nsplit + p) * D + d] * w;
@@ -582,50 +586,565 @@ __global__ void decode_attn_hb_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// causal prefill of a T-token chunk over the same store
+// causal prefill of a T-token chunk: kernels D and F on the tensor cores
 // ---------------------------------------------------------------------------
+// Replaces blama_tpu/ops/pallas/decode_attention.py:976 _prefill_attn_kernel
+// (kernel D, dense rows) and blama_tpu/ops/pallas/paged_attention.py:155
+// _paged_attn_kernel in its prefill form (kernel F, the paged pool). Two
+// passes and, when a row's slots span more than one split, the combine.
+//
+// Stage (prefill_stage_kernel): one CTA per (row, kv head, TS-slot tile of
+// the row's logical window) reads the tile's positions through the address
+// functor. For the slots some query of the row can see (0 <= pos <= the
+// row's largest query position) it rotates K in f32 (two sincosf per 4
+// elements, the decode kernels' formula) and writes it as a high and a low
+// bf16 half (hi = bf16(k), lo = bf16(k - hi)), and V as bf16 (int8 codes and
+// bf16 values exactly; f32 values as a high and a low half the same way),
+// into a dense scratch [B, Hkv, Sp, ...];
+// the tile's other slots are zeros. A tile no query of the row sees is not
+// written; each tile's least visible position (INT_MAX: none) lets a CTA of
+// the second pass pick its tiles with one load each. So rope runs once per
+// slot and kv head per call, not once per query tile (T / 2 times at g = 4
+// in the body this replaces), and the pool's page table ends here: the
+// second pass reads the same scratch for D and F, so F equals D bit for bit.
+//
+// Attention (prefill_mma_kernel): a CTA owns up to PF_ROWS MMA rows, `tq`
+// tokens of the chunk times the g query heads of one kv head (GQA packing:
+// row r = token tq0 + r / g, head hk*g + r % g; 16 rows a warp), over one
+// split of the row's slots, so each staged tile serves 64 rows. A cp.async
+// ring brings the next tile (K halves, V, positions, scales) while the
+// current one is multiplied on the tensor cores, where the operations that
+// bound long chunks run (mma.sync m16n8k16, bf16 in, f32 sums; ldmatrix,
+// .trans for V): S = Q K_hi + Q K_lo, then the scale
+// and the K scale per column in f32, online softmax per row (the row's max
+// and sum over its quad of lanes in a fixed order), and O += P_hi V + P_lo V
+// with P = p * vs split the same way (the f32 store adds P_hi V_lo, so its
+// V keeps f32 grade too). The halves keep the products f32-grade: with one
+// bf16 K and P the error comes near the tolerance (2^-7 of the largest
+// output) at the 8B test shapes and passes it at sharper scores
+// (tests/test_torch_prefill_plan.py's emulation).
+//
+// Splits: the slots of a row are cut at multiples of one width (the host's
+// PREFILL_SPLIT, for every B, T and S); a split's rows write m, l and (when
+// they saw a slot) their f32 accumulators, and decode_combine_kernel folds
+// the splits in split order, passing over the splits a query did not see.
+// (Zero accumulators for those, combined as decode's are, took 8% longer on
+// an H100 at 8 rows x T >= 128: the writes and reads of the partials.) A split fills the card at short chunks (one
+// row at T = 128 gives 64 CTAs unsplit, 256 split at 512 slots).
+//
+// The contract: a query's output depends only on its own q and position and
+// its row's logical store. Tiles and splits are fixed in logical slots, the
+// splits combine in split order, an output element's mma sum reads only its
+// own row of Q (of P) and column of K (of V), and a tile a row cannot see
+// leaves its state exactly as it was (alpha = 1, p = 0 against finite or
+// zeroed V). So T, B, the place in the chunk, the rows sharing a CTA, the
+// tiles the CTA skips and empty slots past the last visible one move no
+// bit, and no atomics are used.
+//
+// Bound on this card: operations at the bf16 tensor rate for chunks of 128
+// tokens or more (4*H*D flops per visible (query, slot) pair), bytes below.
+
+template <int D>
+struct PfShape {
+  static constexpr int RS = D + 8;                // bf16 row pitch in smem (ldmatrix w/o conflicts)
+  static constexpr bool QREG = D <= 128;          // Q fragments kept in registers
+};
+constexpr int PF_TS = 32;        // slots per staged tile (the host's PREFILL_TILE)
+constexpr int PF_ROWS = 64;      // MMA rows per CTA (at most 4 warps)
+constexpr int PF_STAGES = 2;     // cp.async ring depth
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// c += a (16x16, row) * b (16x8, col), bf16 operands, f32 sums
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two f32 rounded to bf16 (round to nearest even), `lo` in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+// the two bf16 of a packed pair, as f32 (exact)
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+constexpr int PF_STAGE_THREADS = 128;
+// bf16 halves the scratch keeps of a V element: an f32 store two, else one
+// (int8 codes and bf16 values are exact in bf16)
+template <class KV>
+struct PfV {
+  static constexpr int NV = std::is_same<KV, float>::value ? 2 : 1;
+};
+
 template <int D, class KV, class Addr>
-__global__ void prefill_attn_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, T, H, D] rotated queries
+__global__ void __launch_bounds__(PF_STAGE_THREADS) prefill_stage_kernel(
     const KV* __restrict__ k, const KV* __restrict__ v,
     const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ kv_pos,       // position map of the store
     const int* __restrict__ q_pos,        // [B, T]
     const float* __restrict__ invf,       // [D]
-    __nv_bfloat16* __restrict__ out,      // [B, T, H, D]
-    Addr addr, int T, int H, int Hkv, int S, int qt, float scale) {
-  extern __shared__ __align__(16) float smem_raw[];
-  const int g = H / Hkv;
-  const int W = qt * g;
-  const Smem<D, KV> sm(smem_raw, W);
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int tq0 = blockIdx.y * qt;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tok = tq0 + warp / g, h = hk * g + warp % g;
-  const bool active = tok < T;
-  for (int e = threadIdx.x; e < W * D; e += blockDim.x) {
-    const int w = e / D, d = e % D;
-    const int t = tq0 + w / g, hh = hk * g + w % g;
-    sm.q[e] = t < T ? __bfloat162float(q[(((size_t)b * T + t) * H + hh) * D + d]) : 0.0f;
-  }
+    __nv_bfloat16* __restrict__ kr,       // [B, Hkv, Sp, 2, D] rotated K: high, low half
+    __nv_bfloat16* __restrict__ vr,       // [B, Hkv, Sp, NV, D] V (f32 store: high, low half)
+    int* __restrict__ spos,               // [B, Sp] visible position or -1
+    int* __restrict__ tmin,               // [B, Sp / TS] least visible position of a tile
+    float* __restrict__ sks, float* __restrict__ svs,   // [B, Hkv, Sp] (int8 store)
+    Addr addr, int T, int Hkv, int S, int Sp) {
+  constexpr int TS = PF_TS, C4 = D / 4, NT = PF_STAGE_THREADS, NV = PfV<KV>::NV;
+  constexpr int PER = TS * C4 / NT;     // 4-element pieces a thread
+  __shared__ int red[NT / 32], least[NT / 32];
+  __shared__ int pos_t[TS];
+  __shared__ long long ph_t[TS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, t0 = blockIdx.y * TS;
+  // the row's largest query position
   int qmax = -1;
-  for (int t = tq0; t < min(T, tq0 + qt); ++t) qmax = max(qmax, q_pos[(size_t)b * T + t]);
-  const int qpos = active ? q_pos[(size_t)b * T + tok] : -1;
-  __syncthreads();
-  float m = NEG_INF, l = 0.0f, acc[D / 32];
+  for (int t = tid; t < T; t += NT) qmax = max(qmax, q_pos[(size_t)b * T + t]);
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] = 0.0f;
-  for (int t0 = 0; t0 < S; t0 += TS) {
-    if (load_tile<D, KV, Addr>(sm, k, v, ks, vs, kv_pos, invf, addr, b, hk, Hkv,
-                               t0, S, qmax))
-      attend_tile<D, KV>(sm, sm.q + warp * D, qpos, scale, m, l, acc);
+  for (int o = 16; o; o >>= 1) qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, o));
+  if (lane == 0) red[warp] = qmax;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) qmax = max(qmax, red[w]);
+  bool vis = false;
+  int mn = INT_MAX;
+  if (tid < TS) {
+    const int s = t0 + tid;
+    const long long ph = s < S ? addr.tile_base(b, s) : -1;
+    const int p = ph >= 0 ? kv_pos[ph] : -1;
+    vis = p >= 0 && p <= qmax;
+    mn = vis ? p : INT_MAX;
+    pos_t[tid] = vis ? p : -1;
+    ph_t[tid] = ph;
+    if (hk == 0) spos[(size_t)b * Sp + s] = vis ? p : -1;
+    if (ks) {
+      const size_t dst = ((size_t)b * Hkv + hk) * Sp + s;
+      sks[dst] = vis ? ks[(size_t)ph * Hkv + hk] : 0.0f;
+      svs[dst] = vis ? vs[(size_t)ph * Hkv + hk] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+  if (lane == 0) least[warp] = mn;
+  const bool any = __syncthreads_or(vis);
+  if (hk == 0 && tid == 0) {
+#pragma unroll
+    for (int w = 1; w < NT / 32; ++w) mn = min(mn, least[w]);
+    tmin[(size_t)b * (Sp / TS) + blockIdx.y] = mn;
+  }
+  if (!any) return;
+  __nv_bfloat16* kd = kr + (((size_t)b * Hkv + hk) * Sp + t0) * 2 * D;
+  __nv_bfloat16* vd = vr + (((size_t)b * Hkv + hk) * Sp + t0) * NV * D;
+#pragma unroll 4
+  for (int i = 0; i < PER; ++i) {
+    const int e = tid + i * NT, j = e / C4, c = e % C4;
+    const int p = pos_t[j];
+    uint2 kw = make_uint2(0u, 0u), kl = make_uint2(0u, 0u), vw = make_uint2(0u, 0u),
+          vl = make_uint2(0u, 0u);
+    if (p >= 0) {
+      const size_t off = ((size_t)ph_t[j] * Hkv + hk) * D + 4 * c;
+      float kf[4], vf[4], s0, c0, s1, c1;
+      load4(k + off, kf);
+      load4(v + off, vf);
+      sincosf((float)p * invf[4 * c], &s0, &c0);
+      sincosf((float)p * invf[4 * c + 2], &s1, &c1);
+      const float r[4] = {kf[0] * c0 + kf[1] * (-s0), kf[1] * c0 + kf[0] * s0,
+                          kf[2] * c1 + kf[3] * (-s1), kf[3] * c1 + kf[2] * s1};
+      kw.x = pack_bf16(r[0], r[1]);
+      kw.y = pack_bf16(r[2], r[3]);
+      kl.x = pack_bf16(r[0] - bf16_lo(kw.x), r[1] - bf16_hi(kw.x));
+      kl.y = pack_bf16(r[2] - bf16_lo(kw.y), r[3] - bf16_hi(kw.y));
+      vw.x = pack_bf16(vf[0], vf[1]);
+      vw.y = pack_bf16(vf[2], vf[3]);
+      if constexpr (NV == 2) {
+        vl.x = pack_bf16(vf[0] - bf16_lo(vw.x), vf[1] - bf16_hi(vw.x));
+        vl.y = pack_bf16(vf[2] - bf16_lo(vw.y), vf[3] - bf16_hi(vw.y));
+      }
+    }
+    *reinterpret_cast<uint2*>(kd + (size_t)j * 2 * D + 4 * c) = kw;
+    *reinterpret_cast<uint2*>(kd + (size_t)j * 2 * D + D + 4 * c) = kl;
+    *reinterpret_cast<uint2*>(vd + (size_t)j * NV * D + 4 * c) = vw;
+    if constexpr (NV == 2) *reinterpret_cast<uint2*>(vd + (size_t)j * 2 * D + D + 4 * c) = vl;
+  }
+}
+
+// Shared memory of one attention CTA; every section 16-byte aligned.
+template <int D, int NV>
+struct PfSmem {
+  static constexpr int TS = PF_TS, RS = PfShape<D>::RS;
+  __nv_bfloat16* q;    // [nw*16][RS] the CTA's query rows
+  __nv_bfloat16* kb;   // [STAGES][TS][RS] staged rotated K, high half
+  __nv_bfloat16* kl;   // [STAGES][TS][RS] its low half
+  __nv_bfloat16* vb;   // [STAGES][TS][RS] staged V (its high half)
+  __nv_bfloat16* vl;   // [STAGES][TS][RS] its low half (NV == 2; else empty)
+  int* pos;            // [STAGES][TS] positions (-1: no query of the row sees the slot)
+  float* ks;           // [STAGES][TS] K scales (int8 store)
+  float* vs;           // [STAGES][TS] V scales
+  int* tiles;          // [ntiles] the split's tiles the CTA sees, in slot order
+  // byte offsets of the sections (o[9] is the total)
+  __host__ __device__ static size_t offsets(int nw, int ntiles, size_t (&o)[10]) {
+    const size_t size[9] = {sizeof(__nv_bfloat16) * nw * 16 * RS,
+                            sizeof(__nv_bfloat16) * PF_STAGES * TS * RS,
+                            sizeof(__nv_bfloat16) * PF_STAGES * TS * RS,
+                            sizeof(__nv_bfloat16) * PF_STAGES * TS * RS,
+                            sizeof(__nv_bfloat16) * PF_STAGES * TS * RS * (NV - 1),
+                            sizeof(int) * PF_STAGES * TS,
+                            sizeof(float) * PF_STAGES * TS,
+                            sizeof(float) * PF_STAGES * TS,
+                            sizeof(int) * (ntiles + 1)};
+    size_t n = 0;
+    for (int i = 0; i < 9; ++i) {
+      o[i] = n;
+      n += (size[i] + 15) / 16 * 16;
+    }
+    o[9] = n;
+    return n;
+  }
+  static size_t bytes(int nw, int ntiles) {
+    size_t o[10];
+    return offsets(nw, ntiles, o);
+  }
+  __device__ PfSmem(unsigned char* base, int nw, int ntiles) {
+    size_t o[10];
+    offsets(nw, ntiles, o);
+    q = reinterpret_cast<__nv_bfloat16*>(base + o[0]);
+    kb = reinterpret_cast<__nv_bfloat16*>(base + o[1]);
+    kl = reinterpret_cast<__nv_bfloat16*>(base + o[2]);
+    vb = reinterpret_cast<__nv_bfloat16*>(base + o[3]);
+    vl = reinterpret_cast<__nv_bfloat16*>(base + o[4]);
+    pos = reinterpret_cast<int*>(base + o[5]);
+    ks = reinterpret_cast<float*>(base + o[6]);
+    vs = reinterpret_cast<float*>(base + o[7]);
+    tiles = reinterpret_cast<int*>(base + o[8]);
+  }
+};
+
+template <int D, int NV>
+__global__ void __launch_bounds__(128) prefill_mma_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [B, T, H, D] rotated queries
+    const __nv_bfloat16* __restrict__ kr, const __nv_bfloat16* __restrict__ vr,
+    const int* __restrict__ spos,         // [B, Sp]
+    const int* __restrict__ tmin,         // [B, Sp / TS]
+    const float* __restrict__ sks, const float* __restrict__ svs,   // [B, Hkv, Sp] or null
+    const int* __restrict__ q_pos,        // [B, T]
+    float* __restrict__ part_m, float* __restrict__ part_l,
+    float* __restrict__ part_acc,         // [B, T, H, nsplit(, D)] (nsplit > 1)
+    __nv_bfloat16* __restrict__ out,      // [B, T, H, D]
+    int T, int H, int Hkv, int S, int Sp, int tq, int split, float scale) {
+  using Sh = PfShape<D>;
+  constexpr int TS = PF_TS, RS = Sh::RS;
+  extern __shared__ __align__(16) unsigned char pf_raw[];
+  __shared__ int red[4];
+  const int tid = threadIdx.x, nthr = blockDim.x, nw = nthr >> 5;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = H / Hkv;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int tq0 = blockIdx.y * tq;
+  const int sp = blockIdx.z, nsplit = gridDim.z;
+  const int s0 = sp * split, s1 = min(S, s0 + split);
+  const int ntiles = (s1 - s0 + TS - 1) / TS;
+  const int nrows = min(tq, T - tq0) * g;            // live rows of the CTA
+  const PfSmem<D, NV> sm(pf_raw, nw, ((split < S ? split : S) + TS - 1) / TS);
+
+  // the CTA's query rows, its largest query position, each warp's
+  constexpr int C8 = D / 8;
+  for (int e = tid; e < nw * 16 * C8; e += nthr) {
+    const int r = e / C8, c = e % C8;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nrows)
+      w = *reinterpret_cast<const uint4*>(
+          q + (((size_t)b * T + tq0 + r / g) * H + hk * g + r % g) * D + 8 * c);
+    *reinterpret_cast<uint4*>(sm.q + r * RS + 8 * c) = w;
+  }
+  int qmax = tid < tq && tq0 + tid < T ? q_pos[(size_t)b * T + tq0 + tid] : -1;
+#pragma unroll
+  for (int o = 16; o; o >>= 1) qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, o));
+  if (lane == 0) red[warp] = qmax;
+  // this thread's two rows of the MMA fragments (r and r + 8)
+  const int ra = warp * 16 + (lane >> 2), rb = ra + 8;
+  const int qpa = ra < nrows ? q_pos[(size_t)b * T + tq0 + ra / g] : -1;
+  const int qpb = rb < nrows ? q_pos[(size_t)b * T + tq0 + rb / g] : -1;
+  int wmax = max(qpa, qpb);
+#pragma unroll
+  for (int o = 16; o; o >>= 1) wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
+  __syncthreads();
+  for (int w = 0; w < nw; ++w) qmax = max(qmax, red[w]);
+
+  // the split's tiles that some row of the CTA sees, in slot order
+  const int* rpos = spos + (size_t)b * Sp;
+  if (warp == 0) {
+    const int* least = tmin + (size_t)b * (Sp / TS) + s0 / TS;
+    int n = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      const bool f = base + lane < ntiles && least[base + lane] <= qmax;
+      const unsigned bal = __ballot_sync(0xffffffffu, f);
+      if (f) sm.tiles[n + __popc(bal & ((1u << lane) - 1u))] = base + lane;
+      n += __popc(bal);
+    }
+    if (lane == 0) sm.tiles[ntiles] = n;
+  }
+  __syncthreads();
+  const int nvis = sm.tiles[ntiles];
+
+  // cp.async of visible tile n into ring stage st: its rows of the scratch
+  // (16-byte pieces), positions and scales
+  const size_t head = (size_t)b * Hkv + hk;
+  auto fetch = [&](int n, int st) {
+    if (n < nvis) {
+      const int t0 = s0 + sm.tiles[n] * TS;
+      const __nv_bfloat16* ksrc = kr + (head * Sp + t0) * 2 * D;
+      const __nv_bfloat16* vsrc = vr + (head * Sp + t0) * NV * D;
+      __nv_bfloat16* kd = sm.kb + (size_t)st * TS * RS;
+      __nv_bfloat16* kld = sm.kl + (size_t)st * TS * RS;
+      __nv_bfloat16* vd = sm.vb + (size_t)st * TS * RS;
+      __nv_bfloat16* vld = sm.vl + (size_t)st * TS * RS;
+      for (int e = tid; e < TS * C8; e += nthr) {
+        const int j = e / C8, c = e % C8;
+        cp16(kd + j * RS + 8 * c, ksrc + (size_t)j * 2 * D + 8 * c);
+        cp16(kld + j * RS + 8 * c, ksrc + (size_t)j * 2 * D + D + 8 * c);
+        cp16(vd + j * RS + 8 * c, vsrc + (size_t)j * NV * D + 8 * c);
+        if constexpr (NV == 2) cp16(vld + j * RS + 8 * c, vsrc + (size_t)j * 2 * D + D + 8 * c);
+      }
+      for (int e = tid; e < TS / 4; e += nthr) {
+        cp16(sm.pos + st * TS + 4 * e, rpos + t0 + 4 * e);
+        if (sks) {
+          cp16(sm.ks + st * TS + 4 * e, sks + head * Sp + t0 + 4 * e);
+          cp16(sm.vs + st * TS + 4 * e, svs + head * Sp + t0 + 4 * e);
+        }
+      }
+    }
+    cp_commit();
+  };
+
+  // Q fragments (A operand of S = Q K^T), per 16-wide k step
+  constexpr int KQ = D / 16;
+  unsigned qf[Sh::QREG ? KQ : 1][4];
+  if constexpr (Sh::QREG) {
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk)
+      ldsm4(qf[kk], sm.q + (warp * 16 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
+  }
+
+  constexpr int NB = TS / 8;     // n8 blocks of the score tile
+  constexpr int ND = D / 8;      // n8 blocks of the output
+  constexpr int KP = TS / 16;    // 16-slot k steps of O += P V
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  float o[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
+
+  fetch(0, 0);
+  for (int n = 0; n < nvis; ++n) {
+    const int st = n % PF_STAGES;
+    fetch(n + 1, (n + 1) % PF_STAGES);
+    cp_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* kb = sm.kb + (size_t)st * TS * RS;
+    const __nv_bfloat16* klo = sm.kl + (size_t)st * TS * RS;
+    const __nv_bfloat16* vb = sm.vb + (size_t)st * TS * RS;
+    const __nv_bfloat16* vlo = sm.vl + (size_t)st * TS * RS;
+    const int* cpos = sm.pos + st * TS;
+    const float* cks = sm.ks + st * TS;
+    const float* cvs = sm.vs + st * TS;
+
+    // does any row of this warp see any slot of the tile?
+    bool any = false;
+#pragma unroll
+    for (int j = lane; j < TS; j += 32) {
+      const int p = cpos[j];
+      any |= p >= 0 && p <= wmax;
+    }
+    if (__any_sync(0xffffffffu, any)) {
+      // S = Q K^T: per k step, the tile's K fragments, then the products
+      float s[NB][4];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+      // S = Q K_hi + Q K_lo: per k step the tile's K fragments (both
+      // halves, the next step's loaded ahead), then the products
+      const int koff = ((lane & 7) + (lane >> 4) * 8) * RS + ((lane >> 3) & 1) * 8;
+      unsigned bk[2][2][NB / 2][4];
+#pragma unroll
+      for (int np = 0; np < NB / 2; ++np) {
+        ldsm4(bk[0][0][np], kb + koff + np * 16 * RS);
+        ldsm4(bk[0][1][np], klo + koff + np * 16 * RS);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+        unsigned a[4];
+        if (kk + 1 < KQ) {
+#pragma unroll
+          for (int np = 0; np < NB / 2; ++np) {
+            ldsm4(bk[(kk + 1) & 1][0][np], kb + koff + np * 16 * RS + (kk + 1) * 16);
+            ldsm4(bk[(kk + 1) & 1][1][np], klo + koff + np * 16 * RS + (kk + 1) * 16);
+          }
+        }
+        if constexpr (Sh::QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+        } else {
+          ldsm4(a, sm.q + (warp * 16 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int np = 0; np < NB / 2; ++np) {
+            const unsigned(&f)[4] = bk[kk & 1][half][np];
+            mma16816(s[2 * np], a, f[0], f[1]);
+            mma16816(s[2 * np + 1], a, f[2], f[3]);
+          }
+        }
+      }
+      // scale, K scale and mask per column; the row max over its quad
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int col = nb * 8 + 2 * (lane & 3);
+        const int2 p = *reinterpret_cast<const int2*>(cpos + col);
+        const float2 ksc =
+            sks ? *reinterpret_cast<const float2*>(cks + col) : make_float2(1.0f, 1.0f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int pi = i & 1 ? p.y : p.x;
+          const bool ok = pi >= 0 && pi <= (i < 2 ? qpa : qpb);
+          s[nb][i] = ok ? s[nb][i] * scale * (i & 1 ? ksc.y : ksc.x) : NEG_INF;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[nb][i]);
+        }
+      }
+      // the running max, and the one the exponents subtract: 0 while a row
+      // has seen nothing, so a masked score (NEG_INF) gives exactly 0
+      // without a branch
+      float alpha[2], msub[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = expf(m[h] - m_new);
+        m[h] = m_new;
+        msub[h] = m_new > NEG_INF ? m_new : 0.0f;
+      }
+      // probabilities (exact 0 where masked), their row sums, P x V scale
+      // as a high and a low bf16 half
+      unsigned pa[KP][4], pl[KP][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const float2 vsc = svs ? *reinterpret_cast<const float2*>(cvs + nb * 8 + 2 * (lane & 3))
+                               : make_float2(1.0f, 1.0f);
+        float pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float e = expf(s[nb][i] - msub[i >> 1]);
+          sum[i >> 1] += e;
+          pv[i] = e * (i & 1 ? vsc.y : vsc.x);
+        }
+        unsigned& h0 = pa[nb >> 1][(nb & 1) * 2 + 0];
+        unsigned& h1 = pa[nb >> 1][(nb & 1) * 2 + 1];
+        h0 = pack_bf16(pv[0], pv[1]);
+        h1 = pack_bf16(pv[2], pv[3]);
+        pl[nb >> 1][(nb & 1) * 2 + 0] = pack_bf16(pv[0] - bf16_lo(h0), pv[1] - bf16_hi(h0));
+        pl[nb >> 1][(nb & 1) * 2 + 1] = pack_bf16(pv[2] - bf16_lo(h1), pv[3] - bf16_hi(h1));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l[h] = alpha[h] * l[h] + sum[h];
+      }
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        o[i][0] *= alpha[0];
+        o[i][1] *= alpha[0];
+        o[i][2] *= alpha[1];
+        o[i][3] *= alpha[1];
+      }
+      // O += P_hi V + P_lo V (+ P_hi V_lo on the f32 store): per k step, the
+      // tile's V fragments, then the products
+      const int voff = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk) {
+        unsigned bv[ND / 2][4];
+#pragma unroll
+        for (int dp = 0; dp < ND / 2; ++dp)
+          ldsm4_t(bv[dp], vb + (kk * 16 + voff) * RS + dp * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int dp = 0; dp < ND / 2; ++dp) {
+          mma16816(o[2 * dp], pa[kk], bv[dp][0], bv[dp][1]);
+          mma16816(o[2 * dp + 1], pa[kk], bv[dp][2], bv[dp][3]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < ND / 2; ++dp) {
+          mma16816(o[2 * dp], pl[kk], bv[dp][0], bv[dp][1]);
+          mma16816(o[2 * dp + 1], pl[kk], bv[dp][2], bv[dp][3]);
+        }
+        if constexpr (NV == 2) {
+#pragma unroll
+          for (int dp = 0; dp < ND / 2; ++dp)
+            ldsm4_t(bv[dp], vlo + (kk * 16 + voff) * RS + dp * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int dp = 0; dp < ND / 2; ++dp) {
+            mma16816(o[2 * dp], pa[kk], bv[dp][0], bv[dp][1]);
+            mma16816(o[2 * dp + 1], pa[kk], bv[dp][2], bv[dp][3]);
+          }
+        }
+      }
+    }
     __syncthreads();
   }
-  if (active) {
-    const float denom = fmaxf(l, 1e-30f);
-    __nv_bfloat16* o = out + (((size_t)b * T + tok) * H + h) * D;
+  cp_wait<0>();
+
+  // the rows' outputs, or their partials when the slot range is split
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) o[lane + 32 * i] = __float2bfloat16(acc[i] / denom);
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? rb : ra;
+    if (r >= nrows) continue;
+    const size_t row = ((size_t)b * T + tq0 + r / g) * H + hk * g + r % g;
+    const int c0 = 2 * (lane & 3);
+    if (nsplit == 1) {
+      const float den = fmaxf(l[h], 1e-30f);
+      __nv_bfloat16* dst = out + row * D + c0;
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+            __floats2bfloat162_rn(o[i][2 * h] / den, o[i][2 * h + 1] / den);
+    } else {
+      const size_t pr = row * nsplit + sp;
+      if ((lane & 3) == 0) {
+        part_m[pr] = m[h];
+        part_l[pr] = l[h];
+      }
+      if (l[h] > 0.0f) {
+        float* dst = part_acc + pr * D + c0;
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+          *reinterpret_cast<float2*>(dst + 8 * i) = make_float2(o[i][2 * h], o[i][2 * h + 1]);
+      }
+    }
   }
 }
 
@@ -719,22 +1238,56 @@ int decode_hb_impl(const void* q, const void* k, const void* v, const void* ks,
   return (int)cudaGetLastError();
 }
 
+// Kernels D and F: the stage pass into the scratch (kr [B, Hkv, Sp, 2, D],
+// vr [B, Hkv, Sp, NV, D] bf16, spos [B, Sp], tmin [B, Sp / TS], sks / svs
+// [B, Hkv, Sp] for an int8 store; Sp = S rounded up to whole tiles), then
+// `tq` tokens a CTA (tq * H / Hkv <= PF_ROWS rows) over splits of `split`
+// slots (a multiple of the tile; one split: no partials, no combine).
+// Partials are [B, T, H, nsplit(, D)], folded by decode's combine.
 template <int D, class KV, class Addr>
 int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
                  const void* vs, const void* kv_pos, const void* q_pos,
-                 const void* invf, void* out, Addr addr, int B, int T, int H,
-                 int Hkv, int S, int qt, float scale, cudaStream_t st) {
-  const int g = H / Hkv;
-  const size_t smem = Smem<D, KV>::bytes(qt * g);
-  cudaFuncSetAttribute(prefill_attn_kernel<D, KV, Addr>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid(B * Hkv, (T + qt - 1) / qt);
-  prefill_attn_kernel<D, KV, Addr><<<grid, 32 * qt * g, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const float*>(ks),
+                 const void* invf, void* kr, void* vr, void* spos, void* tmin, void* sks,
+                 void* svs, void* part_m, void* part_l, void* part_acc, void* out, Addr addr, int B,
+                 int T, int H, int Hkv, int S, int tq, int split, float scale,
+                 cudaStream_t st) {
+  constexpr int TS = PF_TS, NV = PfV<KV>::NV;
+  constexpr size_t kMaxSmem = 227 * 1024;
+  const int rows = tq * (H / Hkv);
+  if (tq < 1 || rows > PF_ROWS || split < 1 || ((ks != nullptr) != (sks != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int nsplit = (S + split - 1) / split;
+  if (nsplit > 1 && (split % TS || !part_m || !part_l || !part_acc))
+    return (int)cudaErrorInvalidValue;
+  const int Sp = (S + TS - 1) / TS * TS;
+  prefill_stage_kernel<D, KV, Addr><<<dim3(B * Hkv, Sp / TS), PF_STAGE_THREADS, 0, st>>>(
+      static_cast<const KV*>(k), static_cast<const KV*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
       static_cast<const int*>(q_pos), static_cast<const float*>(invf),
-      static_cast<__nv_bfloat16*>(out), addr, T, H, Hkv, S, qt, scale);
+      static_cast<__nv_bfloat16*>(kr), static_cast<__nv_bfloat16*>(vr),
+      static_cast<int*>(spos), static_cast<int*>(tmin), static_cast<float*>(sks),
+      static_cast<float*>(svs), addr, T, Hkv, S, Sp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nw = (rows + 15) / 16;
+  const size_t smem = PfSmem<D, NV>::bytes(nw, ((split < S ? split : S) + TS - 1) / TS);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  cudaFuncSetAttribute(prefill_mma_kernel<D, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  dim3 grid(B * Hkv, (T + tq - 1) / tq, nsplit);
+  prefill_mma_kernel<D, NV><<<grid, 32 * nw, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kr),
+      static_cast<const __nv_bfloat16*>(vr), static_cast<const int*>(spos),
+      static_cast<const int*>(tmin), static_cast<const float*>(sks),
+      static_cast<const float*>(svs),
+      static_cast<const int*>(q_pos), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), static_cast<float*>(part_acc),
+      static_cast<__nv_bfloat16*>(out), T, H, Hkv, S, Sp, tq, split, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return (int)err;
+  decode_combine_kernel<true><<<B * T * H, D, 0, st>>>(
+      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out), nsplit, D);
   return (int)cudaGetLastError();
 }
 

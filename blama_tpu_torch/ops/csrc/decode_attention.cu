@@ -13,7 +13,10 @@
 // (kv_type 1) or f32 (kv_type 2) values with null scale pointers; the slot
 // position map is [B, S] (-1 = empty). The device code, its bound and its
 // design are in attention_common.cuh; here a row's logical slot s is
-// physical slot b*S + s.
+// physical slot b*S + s. Kernel D is two passes there (the stage pass that
+// rotates K once per slot into a bf16 scratch, then GQA-packed query tiles
+// on the tensor cores) and a combine when a row's slots span more than one
+// split.
 
 #include "attention_common.cuh"
 
@@ -67,15 +70,23 @@ int decode_attention_hb_launch(const void* q, const void* k, const void* v,
                 chunk, scale, st);
 }
 
+// D: the scratch kr [B, Hkv, Sp, 2, D] and vr [B, Hkv, Sp, 1 or 2 (f32 store), D]
+// bf16, spos [B, Sp] and tmin [B, Sp / tile] int32, sks / svs [B, Hkv, Sp]
+// f32 (int8 store; else null), Sp = S in whole tiles; `tq`
+// query tokens a CTA and `split` slots a split (ops/decode_attention
+// .prefill_plan); part_* [B, T, H, nsplit(, D)] f32 when S > split, else null.
 int prefill_attention_launch(const void* q, const void* k, const void* v,
                              const void* ks, const void* vs, const void* kv_pos,
-                             const void* q_pos, const void* invf, void* out,
-                             int B, int T, int H, int Hkv, int D, int S, int qt,
+                             const void* q_pos, const void* invf, void* kr, void* vr,
+                             void* spos, void* tmin, void* sks, void* svs, void* part_m,
+                             void* part_l, void* part_acc, void* out, int B, int T,
+                             int H, int Hkv, int D, int S, int tq, int split,
                              int kv_type, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const attn::DenseAddr addr{S};
   ATTN_DISPATCH(attn::prefill_impl, attn::DenseAddr, q, k, v, ks, vs, kv_pos,
-                q_pos, invf, out, addr, B, T, H, Hkv, S, qt, scale, st);
+                q_pos, invf, kr, vr, spos, tmin, sks, svs, part_m, part_l, part_acc, out,
+                addr, B, T, H, Hkv, S, tq, split, scale, st);
 }
 
 }  // extern "C"

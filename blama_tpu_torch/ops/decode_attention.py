@@ -341,9 +341,58 @@ def decode_split(B: int, Hkv: int, S: int) -> int:
     return min(-(-per_split // TILE_S) * TILE_S, cap)
 
 
-def prefill_q_tile(H: int, Hkv: int) -> int:
-    """Query tokens per block of kernels D and F (8 warps at g <= 8)."""
-    return max(1, 8 // (H // Hkv))
+PREFILL_ROWS = 64     # MMA rows (query token x head) per CTA of D and F (PF_ROWS)
+PREFILL_SPLIT = 512   # slots per split of a row's slot range, for every B, T and S
+PREFILL_TILE = 32     # slots per staged tile of D and F (PF_TS)
+
+
+def prefill_plan(B: int, T: int, H: int, Hkv: int, S: int,
+                 split: int = PREFILL_SPLIT) -> tuple[int, int, tuple]:
+    """The launch of kernels D and F: (query tokens per CTA, slots per
+    split, grid). A CTA packs `tq` tokens times the H / Hkv query heads of
+    one kv head into at most PREFILL_ROWS MMA rows; the split width is
+    fixed, so split boundaries sit at the same logical slots whatever B, T
+    and S are, and a query's bits do not depend on them. The token blocking
+    moves no bit (each MMA row is its own). `split` other than
+    PREFILL_SPLIT (a multiple of PREFILL_TILE) is for measuring only: it
+    moves the boundaries, and with them the bits."""
+    if split < 1 or split % PREFILL_TILE:
+        raise ValueError(f"split must be a positive multiple of {PREFILL_TILE}, not {split}")
+    tq = max(1, min(PREFILL_ROWS // (H // Hkv), T))
+    return tq, split, (B * Hkv, -(-T // tq), -(-S // split))
+
+
+def require_aligned(**tensors) -> None:
+    """Kernels D and F stage 16-byte pieces with cp.async."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def prefill_buffers(B: int, T: int, H: int, Hkv: int, D: int, S: int, nsplit: int,
+                    kv_type: int, dev) -> tuple[torch.Tensor, list[int]]:
+    """Kernels D and F's device scratch, one allocation per call, and the
+    pointers into it (0 for a part not needed): the staged rows (rotated K
+    as a high and a low bf16 half [B, Hkv, Sp, 2, D], V in bf16 [B, Hkv,
+    Sp, 1, D], or [.., 2, D] as two halves from an f32 store, positions
+    [B, Sp], each tile's least visible position [B, Sp / tile], the int8
+    store's scales [B, Hkv, Sp]; Sp = S in whole tiles) and
+    the split partials (m, l [B, T, H, nsplit], acc [.., D]; none for one
+    split). The stream orders the kernel before any later use of the
+    memory, so the caching allocator may hand it out again on return."""
+    ts = PREFILL_TILE
+    sp = -(-S // ts) * ts
+    rows, parts = B * Hkv * sp, B * T * H * nsplit
+    quantized, nv = kv_type == 0, 2 if kv_type == 2 else 1
+    sizes = [4 * rows * D, 2 * nv * rows * D, 4 * B * sp, 4 * B * (sp // ts),
+             4 * rows * quantized, 4 * rows * quantized,
+             4 * parts * (nsplit > 1), 4 * parts * (nsplit > 1), 4 * parts * D * (nsplit > 1)]
+    offs, n = [], 0
+    for size in sizes:
+        offs.append(n if size else None)
+        n += -(-size // 256) * 256
+    buf = torch.empty(n, dtype=torch.uint8, device=dev)
+    return buf, [0 if o is None else buf.data_ptr() + o for o in offs]
 
 
 def _partials(B, H, D, nsplit, dev):
@@ -489,8 +538,10 @@ def prefill_attention(
     v_scale: torch.Tensor | None = None,
     logit_scale: float | None = None,
     mscale: float = 1.0,
+    split: int = PREFILL_SPLIT,
 ) -> torch.Tensor:
-    """Kernel D: fused causal chunk attention; returns [B, T, H, D] in q.dtype."""
+    """Kernel D: fused causal chunk attention; returns [B, T, H, D] in
+    q.dtype. `split` is for measuring only (prefill_plan)."""
     B, T, H, D = q.shape
     scale = (logit_scale if logit_scale is not None else 1.0 / (D ** 0.5)) * mscale
     if q.device.type == "cpu":
@@ -502,13 +553,16 @@ def prefill_attention(
                                      kv_pos, q_pos, inv_freq_e)
     if tuple(q_pos.shape) != (B, T):
         raise ValueError(f"q_pos must be [B, T] = {(B, T)}")
-    qt = prefill_q_tile(H, Hkv)
+    require_aligned(q=q, k_cache=k_cache, v_cache=v_cache)
+    tq, split, grid = prefill_plan(B, T, H, Hkv, S, split)
+    # the scratch tensor owns the memory the pointers address until the launch
+    scratch, bufs = prefill_buffers(B, T, H, Hkv, D, S, grid[2], kv_type, q.device)
     out = torch.empty_like(q)
     rc = kernels.lib("decode_attention").prefill_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
-        ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(),
-        inv_freq_e.data_ptr(), out.data_ptr(), B, T, H, Hkv, D, S, qt, kv_type,
-        float(scale), kernels.stream_ptr(q.device))
+        ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(),
+        *bufs, out.data_ptr(), B, T, H, Hkv, D, S, tq, split,
+        kv_type, float(scale), kernels.stream_ptr(q.device))
     kernels.check(rc, "prefill_attention")
     kernels.count("prefill_attention")
     return out

@@ -56,7 +56,7 @@ SIGNATURES = {
         "decode_attention_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
         "decode_attention_fresh_launch": [_P] * 15 + [_I] * 8 + [_F, _P],
         "decode_attention_hb_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
-        "prefill_attention_launch": [_P] * 9 + [_I] * 8 + [_F, _P],
+        "prefill_attention_launch": [_P] * 18 + [_I] * 9 + [_F, _P],
     },
     "probes": {
         "stream_rows_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
@@ -67,7 +67,7 @@ SIGNATURES = {
     },
     "paged_attention": {
         "paged_decode_attention_launch": [_P] * 13 + [_I] * 8 + [_F, _P],
-        "paged_prefill_attention_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
+        "paged_prefill_attention_launch": [_P] * 19 + [_I] * 10 + [_F, _P],
     },
 }
 

@@ -173,13 +173,17 @@ def paged_prefill_attention(
         q, k_pool, v_pool, pool_pos, page_table, q_pos, inv_freq_e, k_scale, v_scale)
     if tuple(q_pos.shape) != (B, T):
         raise ValueError(f"q_pos must be [B, T] = {(B, T)}")
-    qt = dattn.prefill_q_tile(H, Hkv)
+    dattn.require_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
+    tq, split, grid = dattn.prefill_plan(B, T, H, Hkv, MP * G)
+    # the scratch tensor owns the memory the pointers address until the launch
+    scratch, bufs = dattn.prefill_buffers(B, T, H, Hkv, D, MP * G, grid[2], kv_type, q.device)
     out = torch.empty_like(q)
     rc = kernels.lib("paged_attention").paged_prefill_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), dattn.ptr(k_scale),
         dattn.ptr(v_scale), pool_pos.data_ptr(), page_table.data_ptr(),
-        q_pos.data_ptr(), inv_freq_e.data_ptr(), out.data_ptr(), B, T, H, Hkv,
-        D, MP, G, qt, kv_type, float(scale), kernels.stream_ptr(q.device))
+        q_pos.data_ptr(), inv_freq_e.data_ptr(), *bufs,
+        out.data_ptr(), B, T, H, Hkv, D, MP, G, tq, split, kv_type, float(scale),
+        kernels.stream_ptr(q.device))
     kernels.check(rc, "paged_prefill_attention")
     kernels.count("paged_prefill_attention")
     return out

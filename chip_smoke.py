@@ -15,7 +15,10 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    its bound, its plain version and one PyTorch library call computing the
    same function. The attention kernels run on INT8, bf16 and f32 stores; the
    paged kernels E and F must equal the dense C and D bit for bit over the
-   same logical rows under scrambled page placement. Kernel B also at 8 and
+   same logical rows under scrambled page placement; D's solo INT8 chunk of
+   128 must equal the same queries in 16 chunks of 8, and every serving
+   chunk's row 3 run alone its row of the 8-row batch; D also at T = 512
+   (one row), and under each fixed split width of the prefill sweep. Kernel B also at 8 and
    16 rows, every row of its 8- to 128-row outputs equal bit for bit to the
    one-row kernel's, and every tile shape of the plan forced at 8 to 2048
    rows (the tile sweep: the evidence for tile_plan, each shape's bits equal
@@ -74,7 +77,10 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    F). On a pool of 3 pages the server must preempt, resume and finish every
    request, each with the uncontended run's tokens up to its preemption;
    the same pool driven synchronously (one fixed admission order) must give
-   the uncontended tokens throughout; dense rows (kernels C and D on bf16)
+   those tokens, after each resume the tokens and top-10 logits of its
+   re-prefill served alone, and, driven twice, the same tokens and logits
+   bit for bit (where a resumed row first leaves the uncontended tokens, the
+   margin and the drift there are logged); dense rows (kernels C and D on bf16)
    must give the paged run's tokens;
 5. engines: at full 8B width, `q4k_fused` (kernel B on f32 scales),
    `q4k_fused_k4` (H) and `q4k_a8_k4` (I, H) load the same Q4_K file at full
@@ -1147,7 +1153,8 @@ def _attn_row(torch, timer, name, label, kernel, plain, q, dense, q_pos, inv, ex
     Hkv = k.shape[2]
     out = kernel()
     torch.cuda.synchronize()
-    err = check_close(f"{name} {label}", out, plain(), ATTN_TOL)
+    ref = plain()
+    err = check_close(f"{name} {label}", out, ref, ATTN_TOL)
     seen = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_pos[:, :, None])    # [B, T, S]
     pairs, slots = int(seen.sum()), int(seen.any(1).sum())
     per_slot = Hkv * (2 * D * k.element_size() + (8 if ks is not None else 0))
@@ -1160,7 +1167,8 @@ def _attn_row(torch, timer, name, label, kernel, plain, q, dense, q_pos, inv, ex
     row = dict(
         kernel=name, shape=f"{label} B={B} T={T} H={H} Hkv={Hkv} D={D} S={k.shape[1]} "
                            f"slots={slots} pairs={pairs}",
-        max_abs_err=err, kernel_ms=timer(kernel), plain_ms=timer(plain, reps=5, warm=1),
+        max_abs_err=err, differ_share=(out != ref).float().mean().item(),
+        kernel_ms=timer(kernel), plain_ms=timer(plain, reps=5, warm=1),
         library_ms=timer(lambda: sdpa(qh, kd, vd, attn_mask=mask)),
         bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
     log(f"{name} {row}")
@@ -1205,11 +1213,30 @@ def attention_phase(torch, timer):
         T = 128
         qp = torch.arange(1672, 1672 + T, dtype=torch.int32, device="cuda")[None]
         q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
-        rows.append(_attn_row(
+        row, out = _attn_row(
             torch, timer, "prefill_attention", f"solo {tag}",
             lambda: da.prefill_attention(q, k, v, qp, pos, inv, ks, vs, mscale=mscale),
             lambda: da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, scale),
-            q, dense, qp, inv, 0)[0])
+            q, dense, qp, inv, 0)
+        rows.append(row)
+        if tag == "int8":
+            # a query's bits do not depend on its chunk: 16 chunks of 8
+            chunks = [da.prefill_attention(q[:, i:i + 8].contiguous(), k, v,
+                                           qp[:, i:i + 8].contiguous(), pos, inv, ks, vs,
+                                           mscale=mscale) for i in range(0, T, 8)]
+            if not torch.equal(torch.cat(chunks, dim=1), out):
+                raise AssertionError("prefill_attention solo int8: T=128 differs from the "
+                                     "same queries in 16 chunks of 8")
+            log("prefill_attention solo int8: T=128 bit-identical to 16 chunks of 8")
+            # the first TTFT-scale chunk: 512 tokens ending at the same place
+            T = 512
+            qp = torch.arange(1288, 1288 + T, dtype=torch.int32, device="cuda")[None]
+            q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            rows.append(_attn_row(
+                torch, timer, "prefill_attention", f"long {tag}",
+                lambda: da.prefill_attention(q, k, v, qp, pos, inv, ks, vs, mscale=mscale),
+                lambda: da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, scale),
+                q, dense, qp, inv, 0)[0])
 
     # -- serving shape: 8 rows on a scrambled pool, G=128, MP=16 ----------------
     B, G, MP, P = 8, 128, 16, 160
@@ -1272,12 +1299,83 @@ def attention_phase(torch, timer):
             if not (out_p[1] == 0).all():
                 raise AssertionError(f"{names[0]} {tag} T={T}: idle row is not zero")
             log(f"{names[0]} {tag} T={T}: bit-identical to {names[1]} under scrambled pages")
+            if T > 1:
+                # a row's bits do not depend on the batch: row 3 alone
+                one = [None if a is None else a[3:4].contiguous()
+                       for a in (q, kd, vd, qp, pos_v, ksd, vsd)]
+                alone = da.prefill_attention(*one[:5], inv, *one[5:], mscale=mscale)
+                if not torch.equal(alone, out_d[3:4]):
+                    raise AssertionError(f"prefill_attention {tag} T={T}: row 3 alone differs "
+                                         "from row 3 of the 8-row batch")
+                log(f"prefill_attention {tag} T={T}: row 3 alone bit-identical to the batch's")
+            if tag == "f32" and T > 1:
+                # the f32 store stages V as two bf16 halves: against the
+                # same store with V rounded to bf16 first (one bf16 V), its
+                # outputs must leave the plain version's bits less often
+                ref = da.flash_attention_plain(q, kd, vd, qp, pos_v, inv, ksd, vsd, scale)
+                one_v = da.prefill_attention(q, kd, vd.to(torch.bfloat16).float(), qp, pos_v,
+                                             inv, ksd, vsd, mscale=mscale)
+                r_d.update(v_bf16_differ_share=(one_v != ref).float().mean().item(),
+                           v_bf16_max_abs_err=(one_v.float() - ref.float()).abs().max().item())
+                log(f"prefill_attention f32 T={T}: outputs off the plain version's bits "
+                    f"{r_d['differ_share']:.5f} with V's two halves, "
+                    f"{r_d['v_bf16_differ_share']:.5f} with V in bf16 (max error "
+                    f"{r_d['max_abs_err']} / {r_d['v_bf16_max_abs_err']})")
+                if not r_d["differ_share"] < r_d["v_bf16_differ_share"]:
+                    raise AssertionError(f"prefill_attention f32 T={T}: V's low half did not "
+                                         "bring the outputs closer to the plain version")
             rows += [r_p, r_d]
     return rows
 
 
 # the attention kernels' store types: int8 codes with f32 scales, bf16, f32
 STORES = ("int8", "bf16", "f32")
+# the fixed split widths the prefill sweep weighs (None: one pass over S)
+PREFILL_SPLITS = (512, 1024, None)
+
+
+def prefill_split_sweep(torch, timer):
+    """Kernel D at the attention phase's prefill shapes under each fixed
+    split width (a split changes a query's bits, so the width is one
+    constant, ops/decode_attention.PREFILL_SPLIT; the wrapper's `split=`
+    is for this measurement): the evidence for it. Every width within
+    ATTN_TOL of the plain version."""
+    from blama_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    H, Hkv, D, S = 32, 8, 128, 2048
+    inv = da.effective_inv_freq(D, D, 500000.0)[0].cuda()
+    lens = [300, 0, 1500, 2047, 129, 640, 256, 1000]
+    cases = []
+    pos1 = torch.arange(S, dtype=torch.int32, device="cuda")[None].clone()
+    pos1[0, 1900:] = -1
+    for T in (8, 128, 512):
+        cases.append(("solo int8", T, [1800], pos1))
+    pos8 = torch.full((8, S), -1, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        pos8[b, :n] = torch.arange(n, dtype=torch.int32)
+    pos8 = pos8.cuda()
+    for T in (8, 128, 256):
+        cases.append(("serving bf16", T, lens, pos8))
+    rows = []
+    for label, T, ends, pos in cases:
+        B = len(ends)
+        k, v, ks, vs = _rand_store(torch, gen, (B, S, Hkv, D), label.split()[1])
+        q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        qp = torch.stack([torch.arange(T, dtype=torch.int32) + max(n - T, 0)
+                          for n in ends]).cuda()
+        ref = da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, D ** -0.5)
+        ms = {}
+        for split in PREFILL_SPLITS:
+            w = split or S
+            check_close(f"prefill split {split} {label} T={T}",
+                        da.prefill_attention(q, k, v, qp, pos, inv, ks, vs, split=w), ref,
+                        ATTN_TOL)
+            ms[str(split)] = timer(lambda: da.prefill_attention(q, k, v, qp, pos, inv, ks, vs,
+                                                                split=w), reps=9, warm=1)
+        rows.append(dict(shape=f"{label} B={B} T={T} S={S}", plan=str(da.PREFILL_SPLIT), ms=ms))
+        log(f"prefill split sweep {rows[-1]}")
+    return rows
 
 
 def _rand_store(torch, gen, shape, tag):
@@ -2225,47 +2323,95 @@ def serving_phase(torch, model, kind):
 
     # -- the same pool driven synchronously through the scheduler's own API,
     # 32 tokens each: all three requests are queued before the first
-    # iteration, so the admission order, and with it the whole run, is fixed.
+    # iteration, so the admission order, and with it the whole run, is fixed:
+    # a second drive must give the same tokens and top-10 logits bit for bit.
     # Two rows reach their page boundary together after 24 tokens; one takes
     # the last free page, the other is preempted, requeues behind the third
-    # request and resumes. In this order the tokens after the resume equal
-    # the uncontended run's too (their argmax margins exceed the drift) ------
+    # request and resumes by re-prefilling its prompt and the tokens it had
+    # generated. Its tokens up to the preemption equal the uncontended run's;
+    # those after it are held exactly against a request whose prompt is that
+    # re-prefill, served alone on an ample pool: kernels B and F give a row
+    # its bits whatever the chunk, the batch and the page placement, so the
+    # two caches and every later token and logit must be the same. (Against
+    # the uncontended run the tokens after the resume hold only where the
+    # argmax margin exceeds the drift between the decoded and the
+    # re-prefilled cache; where the first one does not is logged.) --------
     from blama_tpu_torch.runtime.sampler import SamplerParams
     from blama_tpu_torch.server.scheduler import ContinuousBatchingScheduler, GenRequest
 
-    sched = ContinuousBatchingScheduler(model, max_batch=8, ctx_size=2048, paged=True,
-                                        horizon=8, n_pages=3)
-    t_out = {}
-    t_reqs = [GenRequest(prompt=p, max_tokens=n_gen,
-                         sampler_params=SamplerParams(rng_seed=0, temp=0.0, top_p=0.95),
-                         on_done=lambda preds, i=i: t_out.__setitem__(
-                             i, [x.token for x in preds]))
-              for i, p in zip(tight, prompts, strict=True)]
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    for r in t_reqs:
-        sched.submit(r)
-    sched.run_until_idle()
-    torch.cuda.synchronize()
-    t_wall = time.perf_counter() - t0
-    snap = sched.metrics.snapshot()
-    del sched
-    torch.cuda.empty_cache()
+    def drive(jobs, n_pages):
+        """Queue (key, prompt, max_tokens) jobs, greedy, and run the
+        scheduler until idle; n_pages 0 is the default (ample) pool."""
+        sched = ContinuousBatchingScheduler(model, max_batch=8, ctx_size=2048, paged=True,
+                                            horizon=8, n_pages=n_pages)
+        out = {}
+        t_reqs = [GenRequest(prompt=p, max_tokens=n,
+                             sampler_params=SamplerParams(rng_seed=0, temp=0.0, top_p=0.95),
+                             on_done=lambda preds, i=i: out.__setitem__(i, preds))
+                  for i, p, n in jobs]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for r in t_reqs:
+            sched.submit(r)
+        sched.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = sched.metrics.snapshot()
+        del sched
+        torch.cuda.empty_cache()
+        return t_reqs, out, wall, snap
+
+    tight_jobs = [(i, p, n_gen) for i, p in zip(tight, prompts, strict=True)]
+    t_reqs, t_preds, t_wall, snap = drive(tight_jobs, 3)
+    again_reqs, again, _, _ = drive(tight_jobs, 3)
     log(f"tight pool (3 pages): {len(tight)} requests ({[len(p) for p in prompts]} prompt "
         f"tokens) in {t_wall:.2f} s, prefilled {snap['tokens_prefilled']} tokens for "
         f"{n_prompt} prompt tokens")
     if snap["tokens_prefilled"] <= n_prompt:
         raise AssertionError("the tight pool forced no preemption (nothing was re-prefilled)")
-    for i, r in zip(tight, t_reqs, strict=True):
-        same = sum(1 for a, b in zip(t_out[i], tokens_of(resps[i])) if a == b)
-        log(f"tight pool request {i}: {r.finish_reason}, {len(t_out[i])} tokens, "
+    resumed, n_held = [], 0
+    for i, p, r, r2 in zip(tight, prompts, t_reqs, again_reqs, strict=True):
+        got, ref = [x.token for x in t_preds[i]], tokens_of(resps[i])
+        cut = r.preempted_at[0] if r.preempted_at else len(ref)
+        same = sum(1 for a, b in zip(got, ref) if a == b)
+        log(f"tight pool request {i}: {r.finish_reason}, {len(got)} tokens, "
             f"preempted at {r.preempted_at}, {same} equal to the uncontended run's")
-        if r.finish_reason != "length" or t_out[i] != tokens_of(resps[i]):
+        if r.finish_reason != "length" or len(got) != n_gen or got[:cut] != ref[:cut]:
             raise AssertionError(
-                f"request {i}: tight-pool run gave {r.finish_reason} "
-                f"{t_out[i]} vs {tokens_of(resps[i])}")
+                f"request {i}: tight-pool run gave {r.finish_reason} {got} vs {ref} "
+                f"(preempted at {r.preempted_at})")
+        if r2.preempted_at != r.preempted_at or \
+                [(x.token, x.logits) for x in again[i]] != [(x.token, x.logits) for x in t_preds[i]]:
+            raise AssertionError(f"request {i}: a second drive of the tight pool differs")
+        # every resume against its re-prefill served alone, up to the next cut
+        for c, e in zip(r.preempted_at, r.preempted_at[1:] + [n_gen]):
+            _, alone, _, _ = drive([(i, p + got[:c], e - c)], 0)
+            mine = [(x.token, x.logits) for x in t_preds[i][c:e]]
+            if [(x.token, x.logits) for x in alone[i]] != mine:
+                raise AssertionError(
+                    f"request {i}: after the resume at {c} the tokens or logits differ from "
+                    f"its re-prefill served alone: {got[c:e]} vs {[x.token for x in alone[i]]}")
+            n_held += e - c
+            log(f"tight pool request {i}: tokens {c}..{e - 1} after the resume equal, with "
+                f"their top-10 logits, those of its re-prefill served alone")
+        first = next((k for k, (a, b) in enumerate(zip(got, ref)) if a != b), None)
+        if first is not None:
+            # the step whose logits chose token `first`: the same input token
+            # in both runs, logits apart only by the re-prefilled cache
+            mine = {t.token: t.logit for t in t_preds[i][first - 1].logits}
+            theirs = sorted(resps[i]["tokenData"][first - 1]["logits"], key=lambda t: -t["logit"])
+            margin = theirs[0]["logit"] - theirs[1]["logit"]
+            drift = max(abs(mine[t["id"]] - t["logit"]) for t in theirs if t["id"] in mine)
+            resumed.append(dict(request=i, first_differing=first, margin=margin, drift=drift))
+            log(f"tight pool request {i}: first differs from the uncontended run at token "
+                f"{first}, after the resume at {cut}; the uncontended top-1 margin there "
+                f"{margin:.5f}, the logit drift {drift:.5f}")
+    if not n_held:
+        raise AssertionError("the tight pool resumed no request")
+    log("tight pool: a second drive gave the same tokens and top-10 logits bit for bit")
     result["tight_pool"] = dict(requests=len(tight), wall_s=t_wall, prompt_tokens=n_prompt,
-                                tokens_prefilled=snap["tokens_prefilled"])
+                                tokens_prefilled=snap["tokens_prefilled"], resumed=resumed,
+                                tokens_held_after_resume=n_held)
 
     # -- dense rows: kernels C and D on the bf16 cache ------------------------
     some = greedy[:6]
@@ -2563,6 +2709,7 @@ def main() -> int:
         log(f"tile sweep took {time.perf_counter() - t_sweep:.1f} s")
         rows += engine_kernel_phase(torch, timer, np.random.default_rng(1))
         rows += attention_phase(torch, timer)
+        res["prefill_split_sweep"] = prefill_split_sweep(torch, timer)
         rows += bank_kernel_phase(torch, timer, np.random.default_rng(2))
         rows += moe_dense_kernel_phase(torch, timer, np.random.default_rng(3))
         rows += tp_kernel_phase(torch, timer, np.random.default_rng(4))

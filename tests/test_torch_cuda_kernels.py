@@ -1025,6 +1025,118 @@ def test_kernels_c_to_f_on_f32(cuda, t, g, d):
     assert torch.equal(out, dense)
 
 
+def _prefill_store(kv, b, s, hkv, d, lens, seed, device):
+    """Rows of a store of type `kv` at the given lengths, with holes, a run
+    of empty slots wider than a tile between visible ones, and slots placed
+    past every query; random K / V in the empty slots too."""
+    g = torch.Generator().manual_seed(seed)
+    if kv == "int8":
+        k, v = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = ((torch.rand((b, s, hkv), generator=g) * 0.02 + 1e-3) for _ in range(2))
+    else:
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}[kv]
+        k, v = (torch.randn((b, s, hkv, d), generator=g).to(dt) for _ in range(2))
+        ks = vs = None
+    pos = torch.full((b, s), -1, dtype=torch.int32)
+    for r, n in enumerate(lens):
+        pos[r, :n] = torch.arange(n, dtype=torch.int32)
+    pos[:, 5::29] = -1
+    pos[:, 300:450] = -1
+    pos[:, 700:720] = 10 * s
+    return [None if t is None else t.to(device) for t in (k, v, ks, vs, pos)]
+
+
+def _prefill_queries(b, t, h, d, lens, seed, device):
+    q = torch.randn((b, t, h, d), generator=torch.Generator().manual_seed(seed)) \
+        .to(torch.bfloat16).to(device)
+    qp = torch.stack([torch.arange(t, dtype=torch.int32) + max(n - t, 0) for n in lens])
+    return q, qp.to(device)
+
+
+PREFILL_LENS = [300, 0, 1500, 2047, 129, 1700, 256, 1000]
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_prefill_chunk_batch_and_length_invariance(cuda, kv, d):
+    """Kernel D's contract at the 8B head geometry (H 32, Hkv 8, S 2048): a
+    T = 128 chunk equals the same queries as 16 chunks of 8; a row alone
+    equals the same row at place 5 of the 8-row batch; a row at S = 2048
+    equals it padded to S = 4096 with empty (random) slots; two runs give the
+    same bits; within ATTN_TOL of the plain version."""
+    h, hkv, s, t = 32, 8, 2048, 128
+    k, v, ks, vs, pos = _prefill_store(kv, 8, s, hkv, d, PREFILL_LENS, seed=d, device=cuda)
+    inv = da.effective_inv_freq(d, d, 500000.0)[0].to(cuda)
+    q, qp = _prefill_queries(8, t, h, d, PREFILL_LENS, seed=d + 1, device=cuda)
+    out = da.prefill_attention(q, k, v, qp, pos, inv, ks, vs)
+    torch.cuda.synchronize()
+    _close(out, da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, d ** -0.5), ATTN_TOL)
+    assert torch.equal(out, da.prefill_attention(q, k, v, qp, pos, inv, ks, vs))
+    chunks = [da.prefill_attention(q[:, i:i + 8].contiguous(), k, v,
+                                   qp[:, i:i + 8].contiguous(), pos, inv, ks, vs)
+              for i in range(0, t, 8)]
+    assert torch.equal(torch.cat(chunks, dim=1), out)
+    row = lambda a: None if a is None else a[5:6].contiguous()   # noqa: E731
+    alone = da.prefill_attention(row(q), row(k), row(v), row(qp), row(pos), inv,
+                                 row(ks), row(vs))
+    assert torch.equal(alone, out[5:6])
+
+    def padded(a, fill):
+        if a is None:
+            return None
+        extra = fill(a[5:6]) if a.dtype != torch.int32 else torch.full_like(a[5:6], -1)
+        return torch.cat([a[5:6], extra], dim=1).contiguous()
+
+    rnd = lambda a: (torch.rand_like(a.float()) * 100).to(a.dtype)   # noqa: E731
+    long = da.prefill_attention(row(q), padded(k, rnd), padded(v, rnd), row(qp),
+                                padded(pos, None), inv, padded(ks, rnd), padded(vs, rnd))
+    assert torch.equal(long, out[5:6])
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_prefill_paged_equals_dense(cuda, kv, d):
+    """Kernel F on a scrambled pool of 128-slot pages equals kernel D over
+    the gathered rows bit for bit at T = 8 and 128 (the idle row zero), and
+    both stay within ATTN_TOL of the plain version."""
+    h, hkv, gsz, mp = 32, 8, 128, 16
+    s = mp * gsz
+    lens = PREFILL_LENS
+    kd, vd, ksd, vsd, pos = _prefill_store(kv, 8, s, hkv, d, lens, seed=d + 7, device=cuda)
+    n_pages = 8 * mp + 8
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(d)).tolist()
+    table = torch.full((8, mp), -1, dtype=torch.int32)
+    kp, vp = (torch.zeros((n_pages, gsz, hkv, d), dtype=kd.dtype, device=cuda)
+              for _ in range(2))
+    ksp = vsp = None
+    if ksd is not None:
+        ksp, vsp = (torch.zeros((n_pages, gsz, hkv), device=cuda) for _ in range(2))
+    pool_pos = torch.randint(0, s, (n_pages, gsz), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1)).to(cuda)
+    for r, n in enumerate(lens):
+        for lp in range(-(-n // gsz)):
+            page = perm.pop()
+            table[r, lp] = page
+            sl = slice(lp * gsz, (lp + 1) * gsz)
+            kp[page], vp[page], pool_pos[page] = kd[r, sl], vd[r, sl], pos[r, sl]
+            if ksp is not None:
+                ksp[page], vsp[page] = ksd[r, sl], vsd[r, sl]
+    table = table.to(cuda)
+    mapped = torch.repeat_interleave(table >= 0, gsz, dim=1)
+    pos_v = torch.where(mapped, pos, -1).to(torch.int32).contiguous()
+    inv = da.effective_inv_freq(d, d, 500000.0)[0].to(cuda)
+    for t in (8, 128):
+        q, qp = _prefill_queries(8, t, h, d, lens, seed=t + d, device=cuda)
+        out = pa.paged_prefill_attention(q, kp, vp, pool_pos, table, qp, inv, ksp, vsp)
+        dense = da.prefill_attention(q, kd, vd, qp, pos_v, inv, ksd, vsd)
+        torch.cuda.synchronize()
+        assert torch.equal(out, dense)
+        assert (out[1] == 0).all()
+        _close(out, pa.paged_attention_plain(q, kp, vp, pool_pos, table, qp, inv, ksp, vsp,
+                                             d ** -0.5), ATTN_TOL)
+
+
 def test_scheduler_on_the_card(cuda, tmp_path):
     """The tiny fixture through the paged horizon scheduler on the card: a
     row's tokens do not depend on its neighbours or on the layout, and a
