@@ -1,5 +1,5 @@
 // Flash attention over the position-mapped KV store, for Hopper (sm_90a),
-// CUDA C++: the device code shared by the dense kernels C and D
+// CUDA C++: the device code shared by the dense kernels C, D, N, O and P
 // (decode_attention.cu) and the paged kernels E and F (paged_attention.cu).
 //
 // The store holds UNROTATED keys and the values per slot, [slots, Hkv, D],
@@ -17,32 +17,22 @@
 //   * online softmax over the slots in a fixed order, NEG_INF = -1e30 and
 //     the max(l, 1e-30) finalize.
 //
-// Addressing is the only difference between dense and paged: a kernel walks
-// the LOGICAL slots of a row in tiles, and an address functor maps a
-// logical slot to its physical slot in the store (dense: b*S + s; paged:
-// page_table[b][s / G] * G + s % G, or "unmapped"). Everything after the
-// address is the same code, so a paged row gives the same bits as the dense
-// row with the same logical content, wherever its pages lie.
+// Head dims: any even D <= 256. Each body is built at a padded width DP of
+// 64, 128 or 256 (the smallest that holds D) and takes the true D at run
+// time: q, K, V and the frequencies read zeros past D, so the padded dims
+// add exact zeros to every dot and rotate zeros, and only the first D
+// outputs are written. Any number of query heads per kv head.
 //
-// Decode (kernels C, E, N, O, P): bound by bytes (each visible slot's K and
-// V read once, ~2 flops per byte). The store is streamed once per block in
-// 32-slot tiles staged in shared memory (a tile never straddles a page: G %
-// 32 == 0); a tile that is unmapped, or whose slots no query of the block
-// can see, is skipped without reading its K and V. One query token per row,
-// so the slot range is split across blocks (fixed split for a given S, B
-// and Hkv) and a second pass combines the splits in a fixed order; no
-// atomics, so a replay on the same card gives the same bits. Per tile: one
-// thread block loads the slots of one kv head, rotates K in f32 into shared
-// memory (one sincosf per pair, shared by the group's query heads), then
-// each warp owns one query row: lane j scores slot j, the warp reduces max
-// and sum with a fixed xor-butterfly, and each lane accumulates D/32 output
-// dims. Two variants of that body (kernels N and P): the step's fresh K/V
-// row rides in as an operand, the block whose split holds its slot
-// quantizes it exactly as the cache write does and patches it into the
-// staged tile, so nothing in the step reads the stored row; P also stores
-// the row (codes and scales) to the cache. The head-batched body (kernel
-// O) is a different walk: one block per (row, split) over all kv heads of a
-// tile, one warp per query head.
+// Addressing is the only difference between dense and paged: a kernel walks
+// the LOGICAL slots of a row, and an address functor maps a logical slot to
+// its physical slot in the store (dense: b*S + s; paged: page_table[b][s /
+// G] * G + s % G, or "unmapped"). Everything after the address is the same
+// code, so a paged row gives the same bits as the dense row with the same
+// logical content, wherever its pages lie.
+//
+// Decode (kernels C, E, N, P): its own section below. Head-batched decode
+// (kernel O) is a different walk with its own split: one block per (row,
+// split) over all kv heads of a tile, one warp per query head.
 //
 // Prefill (kernels D and F): bound by operations at the bf16 tensor rate
 // for chunks of 128 tokens or more; a tensor-core body of its own, in its
@@ -59,28 +49,26 @@
 
 namespace attn {
 
-constexpr int TS = 32;            // store slots per tile (one per lane)
+constexpr int TS = 32;            // slots per tile of kernel O (one per lane)
+constexpr int MAX_SMEM = 227 * 1024;   // dynamic shared memory a block can take
 constexpr float NEG_INF = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
 // --- element types of the store ---------------------------------------------
 
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-// four consecutive elements: as floats (K), or copied raw (V tile)
+// four consecutive elements as floats
 __device__ __forceinline__ void load4(const int8_t* p, float (&o)[4]) {
   const int w = *reinterpret_cast<const int*>(p);
   o[0] = (float)(int8_t)(w & 0xff);
@@ -102,16 +90,86 @@ __device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
   o[2] = w.z;
   o[3] = w.w;
 }
-__device__ __forceinline__ void copy4(int8_t* dst, const int8_t* src) {
-  *reinterpret_cast<int*>(dst) = src ? *reinterpret_cast<const int*>(src) : 0;
+// two consecutive elements (a rope pair) as floats: a head dim that is not
+// a multiple of 4 leaves rows aligned to a pair only
+__device__ __forceinline__ void load2(const int8_t* p, float (&o)[4], int at) {
+  const int w = *reinterpret_cast<const short*>(p);
+  o[at] = (float)(int8_t)(w & 0xff);
+  o[at + 1] = (float)(int8_t)((w >> 8) & 0xff);
 }
-__device__ __forceinline__ void copy4(__nv_bfloat16* dst, const __nv_bfloat16* src) {
-  *reinterpret_cast<uint2*>(dst) =
-      src ? *reinterpret_cast<const uint2*>(src) : make_uint2(0u, 0u);
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float (&o)[4], int at) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(p);
+  o[at] = __uint_as_float(w << 16);
+  o[at + 1] = __uint_as_float(w & 0xffff0000u);
 }
-__device__ __forceinline__ void copy4(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) =
-      src ? *reinterpret_cast<const float4*>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+__device__ __forceinline__ void load2(const float* p, float (&o)[4], int at) {
+  const float2 w = *reinterpret_cast<const float2*>(p);
+  o[at] = w.x;
+  o[at + 1] = w.y;
+}
+
+// N consecutive elements of type KV at shared address p (N * sizeof(KV)
+// bytes, aligned to that size or to 16), as floats
+template <int N, class KV>
+__device__ __forceinline__ void load_elems(const unsigned char* p, float (&x)[N]) {
+  constexpr int NB = N * (int)sizeof(KV);
+  static_assert(NB == 2 || NB % 4 == 0, "whole 32-bit words or one pair of int8");
+  unsigned w[NB >= 4 ? NB / 4 : 1];
+  if constexpr (NB == 2) {
+    w[0] = *reinterpret_cast<const unsigned short*>(p);
+  } else if constexpr (NB == 4) {
+    w[0] = *reinterpret_cast<const unsigned*>(p);
+  } else if constexpr (NB == 8) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    w[0] = t.x;
+    w[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < NB / 16; ++i) {
+      const uint4 t = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = t.x;
+      w[4 * i + 1] = t.y;
+      w[4 * i + 2] = t.z;
+      w[4 * i + 3] = t.w;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if constexpr (std::is_same<KV, int8_t>::value)
+      x[k] = (float)(int8_t)((w[k >> 2] >> (8 * (k & 3))) & 0xffu);
+    else if constexpr (std::is_same<KV, __nv_bfloat16>::value)
+      x[k] = __uint_as_float(k & 1 ? (w[k >> 1] & 0xffff0000u) : (w[k >> 1] << 16));
+    else
+      x[k] = __uint_as_float(w[k]);
+  }
+}
+
+// --- cp.async ------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+// N bytes from global to shared memory, or N zero bytes when !full (a
+// source size of 0 reads nothing)
+template <int N>
+__device__ __forceinline__ void cp_zfill(void* dst, const void* src, bool full) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(full ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "n"(N), "r"(full ? N : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --- addressing ---------------------------------------------------------------
@@ -138,9 +196,10 @@ struct PagedAddr {
 // --- the step's fresh K/V row (kernels N and P) --------------------------------
 
 // Kernels N and P take this step's unrotated K and V rows as operands; P
-// also writes them to the store. `k`/`v` alias the store the kernel reads:
-// the only slot P writes is one no block reads through the input pointers
-// (the patched slot comes from shared memory, the spare slot is never read).
+// (write != 0) also writes them to the store. `k`/`v` alias the store the
+// kernel reads: the only slot P writes is one no block reads (the patched
+// slot comes from shared memory, the spare slot is never read). slot ==
+// nullptr: kernel C or E.
 template <class KV>
 struct Fresh {
   const __nv_bfloat16* k_new;   // [B, Hkv, D]
@@ -151,19 +210,20 @@ struct Fresh {
   float* ks;                    // [slots(+1), Hkv] (int8 store), else null
   float* vs;
   long long pad_slot;           // the store's spare slot (pad rows' writes)
+  int write;
 };
 
 // the stored form of an f32 value in a float store type
 __device__ __forceinline__ void from_f(float x, __nv_bfloat16& o) { o = __float2bfloat16_rn(x); }
 __device__ __forceinline__ void from_f(float x, float& o) { o = x; }
 
-// One block stages a [D] row as the store holds it: for int8, codes and
-// the scale by ops/kv_cache.quantize_kv's formula (max-abs over the row,
-// amax / 127 and 1 / scale as IEEE divisions, round half to even); for a
-// float store the values in its type and the scale 1. Every thread returns
-// the scale; `red` holds one float per warp.
-template <int D, class KV>
-__device__ float stage_row(const __nv_bfloat16* __restrict__ src, KV* dst, float* red) {
+// One block stages a [D] row as the store holds it, zeros up to DP: for
+// int8, codes and the scale by ops/kv_cache.quantize_kv's formula (max-abs
+// over the row, amax / 127 and 1 / scale as IEEE divisions, round half to
+// even); for a float store the values in its type and the scale 1. Every
+// thread returns the scale; `red` holds one float per warp.
+template <int DP, class KV>
+__device__ float stage_row(const __nv_bfloat16* __restrict__ src, KV* dst, float* red, int D) {
   if constexpr (std::is_same<KV, int8_t>::value) {
     float amax = 0.0f;
     for (int d = threadIdx.x; d < D; d += blockDim.x)
@@ -176,223 +236,580 @@ __device__ float stage_row(const __nv_bfloat16* __restrict__ src, KV* dst, float
     __syncthreads();
     const float sc = amax / 127.0f;
     const float inv = sc > 0.0f ? 1.0f / sc : 0.0f;
-    for (int d = threadIdx.x; d < D; d += blockDim.x)
-      dst[d] = (int8_t)__float2int_rn(__bfloat162float(src[d]) * inv);
+    for (int d = threadIdx.x; d < DP; d += blockDim.x)
+      dst[d] = d < D ? (int8_t)__float2int_rn(__bfloat162float(src[d]) * inv) : (int8_t)0;
     return sc;
   } else {
-    for (int d = threadIdx.x; d < D; d += blockDim.x)
-      from_f(__bfloat162float(src[d]), dst[d]);
+    for (int d = threadIdx.x; d < DP; d += blockDim.x) {
+      if (d < D)
+        from_f(__bfloat162float(src[d]), dst[d]);
+      else
+        from_f(0.0f, dst[d]);
+    }
     return 1.0f;
   }
 }
 
-// --- shared memory of one block -------------------------------------------------
-// W query rows, one rotated K tile (padded rows: lane j reads row j without
-// bank conflicts), the tile's scales and positions, one V tile as stored.
-template <int D, class KV>
-struct Smem {
-  float* q;       // [W][D]
-  float* krot;    // [TS][D + 1]
-  float* ksc;     // [TS]
-  float* vsc;     // [TS]
-  int* pos;       // [TS]
-  KV* v;          // [TS][D]
-  __device__ Smem(float* base, int W) {
-    q = base;
-    krot = q + W * D;
-    ksc = krot + TS * (D + 1);
-    vsc = ksc + TS;
-    pos = reinterpret_cast<int*>(vsc + TS);
-    v = reinterpret_cast<KV*>(pos + TS);
-  }
-  static size_t bytes(int W) {
-    return sizeof(float) * ((size_t)W * D + TS * (D + 1) + 3 * TS) +
-           sizeof(KV) * (size_t)TS * D;
-  }
+// ---------------------------------------------------------------------------
+// decode (one query token per row): kernels C, E, N and P
+// ---------------------------------------------------------------------------
+// Replaces blama_tpu/ops/pallas/decode_attention.py:106 _decode_attn_kernel
+// (kernel C, dense rows; with `fresh=True` kernel N), :578
+// _decode_attn_write_kernel (kernel P) and paged_attention.py:155
+// _paged_attn_kernel in its decode form (kernel E, the paged pool).
+//
+// Bound by bytes: each visible slot's K and V are read once, ~2 flops a
+// byte, so the design is about bytes in flight and latency. One CTA of four
+// warps per (row, kv head, chunk of GC = 4 or 8 of its query heads, split):
+//   * splits are cut at fixed logical slots, every `split` slots from 0 (a
+//     constant of the host's, ops/decode_attention.DECODE_SPLIT), and tiles
+//     of TS slots at fixed places inside a split, so a row's output depends
+//     only on its own q, position and logical store: not on B, the other
+//     rows, the head chunk or empty slots past its last visible one;
+//   * a prologue reads the split's positions (and scales) once, through the
+//     address functor, and lists the tiles some slot of which the query
+//     sees; only those are staged. A `cp.async` ring of STAGES tiles (K and
+//     V rows as stored, 16-byte pieces where the row allows) brings the next
+//     tiles while this one is scored; a slot the query cannot see is staged
+//     as zeros without reading it;
+//   * scoring spreads the dims over lanes: L = DP / 32 lanes own a slot,
+//     each 32 of its dims; a lane rotates its piece of K in registers (one
+//     sincosf per pair, the formula of the TPU kernels), dots it with every
+//     query head of the chunk (the heads reuse each staged K), and the L
+//     partial dots end in a fixed xor-butterfly. A warp scores SP = 32 / L
+//     slots of a tile at once and keeps its own online-softmax state per
+//     head; P.V runs with the lanes over the dims (DP / 32 each), the
+//     tile's probabilities x V scale shared through shared memory;
+//   * at the end the four warps' states fold in warp order, and the split's
+//     (m, l, acc) is written; the last CTA of a (row, kv head, chunk) to
+//     finish (an atomic ticket, which adds nothing to any sum) folds all
+//     splits in split order, passing over the splits the query did not see,
+//     and writes the output: one launch a call, no atomics in any sum, so a
+//     replay on the same card gives the same bits. One split: the output at
+//     once.
+// Kernels N and P: the row's fresh K/V row (an operand) is quantized exactly
+// as the cache write does into shared memory and read in place of its slot
+// by the CTAs whose split holds it; P also stores it (codes and scales) at
+// the slot, a pad row's (slot >= S) at the spare slot, from split 0. The
+// slot then holds what a cache write would have left, and everything else is
+// C's code, so N and P give C's bits after that write.
+
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+constexpr int DEC_GRAIN = 64;    // a split is a multiple of it (of every tile)
+
+template <int DP, class KV, int GC_ = 4>
+struct DecShape {
+  static constexpr int ES = sizeof(KV);
+  static constexpr int L = DP / 32;             // lanes scoring one slot
+  static constexpr int SP = 32 / L;             // slots a warp scores at once
+  static constexpr int TS = DEC_WARPS * SP;     // slots per tile
+  static constexpr int CE = 16 / ES;            // elements per 16-byte piece
+  static constexpr int LCH = DP * ES / 16 / L;  // pieces a lane scores
+  static constexpr int KE = LCH * CE;           // dims a lane scores (32)
+  static constexpr int VW = DP / 32;            // dims a lane owns in P.V
+  static constexpr int GC = GC_;                // query heads per CTA
+  static constexpr int STAGES = ES == 4 ? 2 : 3;
+  // bytes per staged row; the pad puts the slots a quarter-warp reads at once
+  // on distinct banks
+  static constexpr int PITCH = DP * ES + (L < 8 ? 16 * L : 16);
+  static constexpr int TPR = DEC_THREADS / (2 * TS);   // threads staging a row
+  static_assert(KE == 32 && TS % 4 == 0 && DEC_GRAIN % TS == 0, "decode tile shape");
 };
 
-// The fresh row staged in shared memory, patched over logical slot `s`
-// (-1: no patch) of the tile that holds it.
 template <class KV>
-struct Patch {
-  int s;
-  const KV* k;     // [D] as stored
+struct DecArgs {
+  const __nv_bfloat16* q;    // [B, H, D] rotated queries
+  const KV* k;               // the store
   const KV* v;
-  float ks, vs;    // its scales (1 for a float store)
+  const float* ks;           // its scales (int8), else null
+  const float* vs;
+  const int* kv_pos;         // position map of the store
+  const int* q_pos;          // [B]
+  const float* invf;         // [D]
+  float* part_m;             // [B, H, nsplit] (nsplit > 1)
+  float* part_l;
+  float* part_acc;           // [B, H, nsplit, D]
+  int* tickets;              // [B * Hkv * chunks], 0 between calls
+  __nv_bfloat16* out;        // [B, H, D]
+  int H, Hkv, D, S, split, piece;   // piece: bytes a cp.async moves (16, 8, 4; 2: plain copies)
+  float scale;
+  Fresh<KV> fresh;
 };
 
-// Stage logical slots [t0, min(t0 + TS, t_end)) of kv head hk of row b into
-// shared memory. An unmapped tile, and slots that no query of the block can
-// see (pos < 0 or pos > qmax), are not read. With PATCH, slot patch.s takes
-// the fresh row and its scales instead of what the store holds there.
-// Returns (block-uniform) whether any slot is visible.
-template <int D, class KV, class Addr, bool PATCH = false>
-__device__ bool load_tile(const Smem<D, KV>& sm, const KV* __restrict__ k,
-                          const KV* __restrict__ v,
-                          const float* __restrict__ ks,
-                          const float* __restrict__ vs,
-                          const int* __restrict__ kv_pos,
-                          const float* __restrict__ invf, const Addr& addr,
-                          int b, int hk, int Hkv, int t0, int t_end, int qmax,
-                          const Patch<KV>& patch = Patch<KV>{-1}) {
-  const int tid = threadIdx.x;
-  const long long base = addr.tile_base(b, t0);   // block-uniform
-  if (base < 0) return false;
-  bool vis = false;
-  if (tid < TS) {
-    const int p = t0 + tid < t_end ? kv_pos[base + tid] : -1;
-    vis = p >= 0 && p <= qmax;
-    sm.pos[tid] = p;
-    const size_t si = (size_t)(base + tid) * Hkv + hk;
-    const bool hit = PATCH && t0 + tid == patch.s;
-    sm.ksc[tid] = vis ? (hit ? patch.ks : ks ? ks[si] : 1.0f) : 0.0f;
-    sm.vsc[tid] = vis ? (hit ? patch.vs : vs ? vs[si] : 1.0f) : 0.0f;
-  }
-  if (!__syncthreads_or(vis)) return false;
-  constexpr int C4 = D / 4;
-  for (int e = tid; e < TS * C4; e += blockDim.x) {
-    const int j = e / C4, c = e % C4;
-    const int p = sm.pos[j];
-    float* kr = sm.krot + j * (D + 1) + 4 * c;
-    const KV* vsrc = nullptr;
-    if (p >= 0 && p <= qmax) {
-      const size_t off = ((size_t)(base + j) * Hkv + hk) * D + 4 * c;
-      const bool hit = PATCH && t0 + j == patch.s;
-      float kf[4];
-      load4(hit ? patch.k + 4 * c : k + off, kf);
-      vsrc = hit ? patch.v + 4 * c : v + off;
-      float s0, c0, s1, c1;
-      sincosf((float)p * invf[4 * c], &s0, &c0);
-      sincosf((float)p * invf[4 * c + 2], &s1, &c1);
-      kr[0] = kf[0] * c0 + kf[1] * (-s0);
-      kr[1] = kf[1] * c0 + kf[0] * s0;
-      kr[2] = kf[2] * c1 + kf[3] * (-s1);
-      kr[3] = kf[3] * c1 + kf[2] * s1;
-    } else {
-      kr[0] = kr[1] = kr[2] = kr[3] = 0.0f;
+// Shared memory of one CTA; every section 16-byte aligned. After the tile
+// loop the warps' states (m, l [WARPS][GC], acc [WARPS][GC][DP]) lie over
+// the ring.
+template <int DP, class KV, int GC>
+struct DecSmem {
+  using Sh = DecShape<DP, KV, GC>;
+  unsigned char* ring;   // [STAGES][2][TS][PITCH]: K rows, then V rows, as stored
+  float* q;              // [GC][DP] the chunk's queries, in the scoring lanes' order
+  float* invf;           // [DP]
+  KV* fk;                // [DP] the fresh row as stored (kernels N and P)
+  KV* fv;
+  int* pos;              // [split] a slot's position if the query sees it, else -1
+  int* phys;             // [split] its physical slot, -1 when it is not staged
+  float* ks;             // [split] its scales (0 where not seen)
+  float* vs;
+  int* tiles;            // [split / TS + 1] the seen tiles in slot order, then their count
+  float* pv;             // [WARPS][GC][SP] a tile's probabilities x V scale
+  float* red;            // [33] stage_row's reduction; red[32]: the last-CTA flag
+  float* fold;           // [2][GC][nsplit] the last CTA's m then weights, l; [GC] sums
+  __host__ __device__ static size_t offsets(int split, int nsplit, size_t (&o)[14]) {
+    const size_t size[13] = {(size_t)Sh::STAGES * 2 * Sh::TS * Sh::PITCH,
+                             sizeof(float) * Sh::GC * DP,
+                             sizeof(float) * DP,
+                             sizeof(KV) * DP,
+                             sizeof(KV) * DP,
+                             sizeof(int) * split,
+                             sizeof(int) * split,
+                             sizeof(float) * split,
+                             sizeof(float) * split,
+                             sizeof(int) * (split / Sh::TS + 1),
+                             sizeof(float) * DEC_WARPS * Sh::GC * Sh::SP,
+                             sizeof(float) * 33,
+                             sizeof(float) * Sh::GC * (2 * (size_t)nsplit + 1)};
+    size_t n = 0;
+    for (int i = 0; i < 13; ++i) {
+      o[i] = n;
+      n += (size[i] + 15) / 16 * 16;
     }
-    copy4(sm.v + j * D + 4 * c, vsrc);
+    o[13] = n;
+    return n;
   }
-  __syncthreads();
-  return true;
+  static size_t bytes(int split, int nsplit) {
+    size_t o[14];
+    return offsets(split, nsplit, o);
+  }
+  __device__ DecSmem(unsigned char* base, int split, int nsplit) {
+    size_t o[14];
+    offsets(split, nsplit, o);
+    ring = base + o[0];
+    q = reinterpret_cast<float*>(base + o[1]);
+    invf = reinterpret_cast<float*>(base + o[2]);
+    fk = reinterpret_cast<KV*>(base + o[3]);
+    fv = reinterpret_cast<KV*>(base + o[4]);
+    pos = reinterpret_cast<int*>(base + o[5]);
+    phys = reinterpret_cast<int*>(base + o[6]);
+    ks = reinterpret_cast<float*>(base + o[7]);
+    vs = reinterpret_cast<float*>(base + o[8]);
+    tiles = reinterpret_cast<int*>(base + o[9]);
+    pv = reinterpret_cast<float*>(base + o[10]);
+    red = reinterpret_cast<float*>(base + o[11]);
+    fold = reinterpret_cast<float*>(base + o[12]);
+  }
+  static_assert(sizeof(float) * DEC_WARPS * Sh::GC * (DP + 2) <=
+                    (size_t)Sh::STAGES * 2 * Sh::TS * Sh::PITCH,
+                "the warps' states fit over the ring");
+};
+
+// where dim d of query head g lies in shared memory: in the order the
+// scoring lanes read it, so the L lanes of a slot read 16 consecutive bytes
+// each (no bank conflict) and the slots of a warp share them
+template <int DP, class KV>
+__device__ __forceinline__ int dec_qidx(int g, int d) {
+  using Sh = DecShape<DP, KV>;   // the lanes' order does not depend on GC
+  const int c = d / Sh::CE, e = d % Sh::CE;
+  return g * DP + (((c / Sh::L) * (Sh::CE / 4) + e / 4) * Sh::L + c % Sh::L) * 4 + e % 4;
 }
 
-// One warp folds the staged tile into its query row's online-softmax state.
-template <int D, class KV>
-__device__ void attend_tile(const Smem<D, KV>& sm, const float* qrow, int qpos,
-                            float scale, float& m, float& l,
-                            float (&acc)[D / 32]) {
-  const int lane = threadIdx.x & 31;
-  const int p = sm.pos[lane];
-  const bool valid = p >= 0 && p <= qpos;
-  if (!__any_sync(0xffffffffu, valid)) return;
-  float s = NEG_INF;
-  if (valid) {
-    const float* kr = sm.krot + lane * (D + 1);
-    float dot = 0.0f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) dot += qrow[d] * kr[d];
-    s = dot * scale * sm.ksc[lane];
-  }
-  const float m_new = fmaxf(m, warp_max(s));
-  const float alpha = expf(m - m_new);
-  const float e = valid ? expf(s - m_new) : 0.0f;
-  l = alpha * l + warp_sum(e);
-  const float pv = e * sm.vsc[lane];
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] *= alpha;
-  for (int j = 0; j < TS; ++j) {
-    const float pj = __shfl_sync(0xffffffffu, pv, j);
-    const KV* vr = sm.v + j * D + lane;
-#pragma unroll
-    for (int i = 0; i < D / 32; ++i) acc[i] += pj * to_f(vr[32 * i]);
-  }
-  m = m_new;
+// sincosf out of line: the calls run one after another anyway (its slow-path
+// branch keeps them from overlapping), and one copy of its code instead of
+// sixteen a tile leaves the kernel small enough to fetch quickly from a
+// cold L2 (8% of a one-row call on an H100)
+static __device__ __noinline__ float2 dec_sincos(float x) {
+  float s, c;
+  sincosf(x, &s, &c);
+  return make_float2(s, c);
 }
 
-// ---------------------------------------------------------------------------
-// decode (one query token per row), logical slot range split over blocks
-// ---------------------------------------------------------------------------
-// MODE 0: kernel C, the store as it is. MODE 1 (kernel N) and MODE 2
-// (kernel P): the row's fresh K/V row is patched over its slot in the block
-// whose split holds that slot; P also stores it (codes and scales) at the
-// slot, and a pad row's (slot >= S) at the spare slot, from split 0. The
-// patch gives the tile the values a cache write would have left there, and
-// everything after it is C's code, so N and P give C's bits after that
-// write.
-template <int D, class KV, class Addr, int MODE = 0>
-__global__ void decode_attn_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, H, D] rotated queries
-    const KV* __restrict__ k, const KV* __restrict__ v,
-    const float* __restrict__ ks, const float* __restrict__ vs,
-    const int* __restrict__ kv_pos,       // position map of the store
-    const int* __restrict__ q_pos,        // [B]
-    const float* __restrict__ invf,       // [D]
-    float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc,         // [B, H, nsplit(, D)]
-    Addr addr, int H, int Hkv, int S, int chunk, float scale,
-    Fresh<KV> fresh) {
-  extern __shared__ __align__(16) float smem_raw[];
-  const int g = H / Hkv;
-  const Smem<D, KV> sm(smem_raw, g);
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = hk * g + warp;
-  for (int e = threadIdx.x; e < g * D; e += blockDim.x)
-    sm.q[e] = __bfloat162float(q[((size_t)b * H + hk * g) * D + e]);
-  const int s0 = split * chunk, s1 = min(S, s0 + chunk);
-  Patch<KV> patch{-1};
-  if constexpr (MODE != 0) {
-    __shared__ __align__(16) KV fk[D];
-    __shared__ __align__(16) KV fv[D];
-    __shared__ float red[32];
-    const int sl = fresh.slot[b];
-    const bool here = sl >= s0 && sl < s1;
-    const bool writer = MODE == 2 && (here || (sl >= S && split == 0));
+template <int DP, class KV, class Addr, int GCT>
+__global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecArgs<KV> a, const Addr addr) {
+  using Sh = DecShape<DP, KV, GCT>;
+  constexpr int L = Sh::L, SP = Sh::SP, TS = Sh::TS, CE = Sh::CE, LCH = Sh::LCH, KE = Sh::KE;
+  constexpr int VW = Sh::VW, GC = Sh::GC, ST = Sh::STAGES, PITCH = Sh::PITCH, ES = Sh::ES;
+  constexpr int TPR = Sh::TPR;
+  extern __shared__ __align__(16) unsigned char dec_raw[];
+  const DecSmem<DP, KV, GC> sm(dec_raw, a.split, gridDim.y);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = a.H / a.Hkv, nhc = (G + GC - 1) / GC;
+  const int b = blockIdx.x / (a.Hkv * nhc), hk = blockIdx.x / nhc % a.Hkv;
+  const int hc = blockIdx.x % nhc;
+  const int h0 = hk * G + hc * GC, gn = min(GC, G - hc * GC);
+  const int sp = blockIdx.y, nsplit = gridDim.y;
+  const int s0 = sp * a.split, nslots = min(a.S, s0 + a.split) - s0;
+  const int ntiles = (nslots + TS - 1) / TS;
+  const int D = a.D, qpos = a.q_pos[b];
+
+  // the chunk's queries and the frequencies (zeros past D and past gn),
+  // loaded here and stored after the split's positions are read, so the
+  // loads are in flight together
+  constexpr int QPER = GC * DP / DEC_THREADS;
+  float qv[QPER];
+#pragma unroll
+  for (int i = 0; i < QPER; ++i) {
+    const int e = tid + i * DEC_THREADS, g = e / DP, d = e % DP;
+    qv[i] = g < gn && d < D ? __bfloat162float(a.q[((size_t)b * a.H + h0 + g) * D + d]) : 0.0f;
+  }
+  constexpr int FPER = (DP + DEC_THREADS - 1) / DEC_THREADS;
+  float fq[FPER];
+#pragma unroll
+  for (int i = 0; i < FPER; ++i) {
+    const int d = tid + i * DEC_THREADS;
+    fq[i] = d < D ? a.invf[d] : 0.0f;
+  }
+  if (D < DP) {   // the ring's dims past D stay zero: the copies write [0, D)
+    constexpr int n16 = ST * 2 * TS * PITCH / 16;
+    for (int e = tid; e < n16; e += DEC_THREADS)
+      reinterpret_cast<uint4*>(sm.ring)[e] = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // kernels N and P: the fresh row, staged where its slot lies (and stored)
+  int sl = -1;
+  float fks = 0.0f, fvs = 0.0f;
+  if (a.fresh.slot) {
+    sl = a.fresh.slot[b];
+    const bool here = sl >= s0 && sl < s0 + nslots;
+    const bool writer = a.fresh.write && hc == 0 && (here || (sl >= a.S && sp == 0));
     if (here || writer) {                   // block-uniform
-      const size_t src = ((size_t)b * Hkv + hk) * D;
-      const float ksc = stage_row<D, KV>(fresh.k_new + src, fk, red);
-      const float vsc = stage_row<D, KV>(fresh.v_new + src, fv, red);
+      const size_t src = ((size_t)b * a.Hkv + hk) * D;
+      fks = stage_row<DP, KV>(a.fresh.k_new + src, sm.fk, sm.red, D);
+      fvs = stage_row<DP, KV>(a.fresh.v_new + src, sm.fv, sm.red, D);
       __syncthreads();
-      if (here) patch = Patch<KV>{sl, fk, fv, ksc, vsc};
       if (writer) {
-        const long long slot = sl < S ? (long long)b * S + sl : fresh.pad_slot;
-        const size_t dst = ((size_t)slot * Hkv + hk) * D;
-        for (int d = threadIdx.x; d < D; d += blockDim.x) {
-          fresh.k[dst + d] = fk[d];
-          fresh.v[dst + d] = fv[d];
+        const long long slot = sl < a.S ? (long long)b * a.S + sl : a.fresh.pad_slot;
+        const size_t dst = ((size_t)slot * a.Hkv + hk) * D;
+        for (int d = tid; d < D; d += DEC_THREADS) {
+          a.fresh.k[dst + d] = sm.fk[d];
+          a.fresh.v[dst + d] = sm.fv[d];
         }
-        if (fresh.ks && threadIdx.x == 0) {
-          fresh.ks[(size_t)slot * Hkv + hk] = ksc;
-          fresh.vs[(size_t)slot * Hkv + hk] = vsc;
+        if (a.fresh.ks && tid == 0) {
+          a.fresh.ks[(size_t)slot * a.Hkv + hk] = fks;
+          a.fresh.vs[(size_t)slot * a.Hkv + hk] = fvs;
         }
       }
     }
+    if (!here) sl = -1;
+  }
+
+  // the split's positions and scales; the fresh slot is seen but not staged
+#pragma unroll 2
+  for (int j = tid; j < ntiles * TS; j += DEC_THREADS) {
+    int p = -1, ph = -1;
+    float ksc = 0.0f, vsc = 0.0f;
+    const long long base = j < nslots ? addr.tile_base(b, s0 + j) : -1;
+    if (base >= 0) {   // the position and the scales load side by side
+      const int pp = a.kv_pos[base];
+      const float kq = a.ks ? a.ks[(size_t)base * a.Hkv + hk] : 1.0f;
+      const float vq = a.vs ? a.vs[(size_t)base * a.Hkv + hk] : 1.0f;
+      if (pp >= 0 && pp <= qpos) {
+        p = pp;
+        const bool fresh = s0 + j == sl;
+        ph = fresh ? -1 : (int)base;
+        ksc = fresh ? fks : kq;
+        vsc = fresh ? fvs : vq;
+      }
+    }
+    sm.pos[j] = p;
+    sm.phys[j] = ph;
+    sm.ks[j] = ksc;
+    sm.vs[j] = vsc;
+  }
+#pragma unroll
+  for (int i = 0; i < QPER; ++i) {
+    const int e = tid + i * DEC_THREADS;
+    sm.q[dec_qidx<DP, KV>(e / DP, e % DP)] = qv[i];
+  }
+#pragma unroll
+  for (int i = 0; i < FPER; ++i)
+    if (tid + i * DEC_THREADS < DP) sm.invf[tid + i * DEC_THREADS] = fq[i];
+  __syncthreads();
+  if (warp == 0) {     // the tiles the query sees, in slot order
+    int n = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      bool f = false;
+      if (base + lane < ntiles) {
+        const int4* pt = reinterpret_cast<const int4*>(sm.pos + (base + lane) * TS);
+#pragma unroll 4
+        for (int i = 0; i < TS / 4; ++i) {
+          const int4 p = pt[i];
+          f |= p.x >= 0 || p.y >= 0 || p.z >= 0 || p.w >= 0;
+        }
+      }
+      const unsigned bal = __ballot_sync(FULL, f);
+      if (f) sm.tiles[n + __popc(bal & ((1u << lane) - 1u))] = base + lane;
+      n += __popc(bal);
+    }
+    if (lane == 0) sm.tiles[ntiles] = n;
   }
   __syncthreads();
-  const int qpos = q_pos[b];
-  float m = NEG_INF, l = 0.0f, acc[D / 32];
+  const int nvis = sm.tiles[ntiles];
+
+  // cp.async of seen tile n into ring stage st: K rows, then V rows, TPR
+  // threads a row; slots not staged become zeros
+  const int rowb = D * ES, npc = rowb / a.piece;
+  auto fetch = [&](int n, int st) {
+    if (n < nvis) {
+      const int jb = sm.tiles[n] * TS;
+      unsigned char* dst0 = sm.ring + (size_t)st * 2 * TS * PITCH;
+      for (int r = tid / TPR; r < 2 * TS; r += DEC_THREADS / TPR) {
+        const int j = r % TS;
+        const int ph = sm.phys[jb + j];
+        const unsigned char* src =
+            reinterpret_cast<const unsigned char*>(r < TS ? a.k : a.v) +
+            (ph >= 0 ? ((size_t)ph * a.Hkv + hk) * rowb : 0);
+        unsigned char* dst = dst0 + (size_t)r * PITCH;
+        const bool full = ph >= 0;
+        for (int c = tid % TPR; c < npc; c += TPR) {
+          const int off = c * a.piece;
+          switch (a.piece) {
+            case 16: cp_zfill<16>(dst + off, src + off, full); break;
+            case 8: cp_zfill<8>(dst + off, src + off, full); break;
+            case 4: cp_zfill<4>(dst + off, src + off, full); break;
+            default:
+              *reinterpret_cast<unsigned short*>(dst + off) =
+                  full ? *reinterpret_cast<const unsigned short*>(src + off) : (unsigned short)0;
+          }
+        }
+      }
+    }
+    cp_commit();
+  };
+
+  // this lane's slot in a warp's pass, its pieces' column, their frequencies
+  const int qd = lane % L, sj = lane / L;
+  float fr[KE / 2];
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] = 0.0f;
-  for (int t0 = s0; t0 < s1; t0 += TS) {
-    if (load_tile<D, KV, Addr, MODE != 0>(sm, k, v, ks, vs, kv_pos, invf, addr, b,
-                                          hk, Hkv, t0, s1, qpos, patch))
-      attend_tile<D, KV>(sm, sm.q + warp * D, qpos, scale, m, l, acc);
+  for (int i = 0; i < LCH; ++i)
+#pragma unroll
+    for (int e = 0; e < CE / 2; ++e) fr[i * CE / 2 + e] = sm.invf[(qd + L * i) * CE + 2 * e];
+  float m[GC], l[GC], acc[GC][VW];
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < VW; ++u) acc[g][u] = 0.0f;
+  }
+  float* pv = sm.pv + warp * GC * SP;
+
+#pragma unroll
+  for (int f = 0; f < ST - 1; ++f) fetch(f, f);
+  for (int n = 0; n < nvis; ++n) {
+    cp_wait<ST - 2>();
     __syncthreads();
-  }
-  const size_t row = ((size_t)b * H + h) * nsplit + split;
-  if (lane == 0) {
-    part_m[row] = m;
-    part_l[row] = l;
-  }
+    fetch(n + ST - 1, (n + ST - 1) % ST);
+    const int jt = sm.tiles[n] * TS + warp * SP;    // the warp's first slot in the split
+    const int p = sm.pos[jt + sj];
+    if (!__any_sync(FULL, p >= 0)) continue;        // nothing of this warp's is seen
+    const unsigned char* kt = sm.ring + (size_t)(n % ST) * 2 * TS * PITCH + warp * SP * PITCH;
+    const unsigned char* vt = kt + TS * PITCH;
+    const unsigned char* krow = s0 + jt + sj == sl
+                                    ? reinterpret_cast<const unsigned char*>(sm.fk)
+                                    : kt + sj * PITCH;
+    // the lane's piece of K, rotated in registers
+    float kr[KE];
+    if (p >= 0) {
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) part_acc[row * D + lane + 32 * i] = acc[i];
+      for (int i = 0; i < LCH; ++i) {
+        float x[CE];
+        load_elems<CE, KV>(krow + (qd + L * i) * 16, x);
+#pragma unroll
+        for (int e = 0; e < CE / 2; ++e) {
+          const float2 sc = dec_sincos((float)p * fr[i * CE / 2 + e]);
+          const float sn = sc.x, cs = sc.y;
+          kr[i * CE + 2 * e] = x[2 * e] * cs + x[2 * e + 1] * (-sn);
+          kr[i * CE + 2 * e + 1] = x[2 * e + 1] * cs + x[2 * e] * sn;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < KE; ++e) kr[e] = 0.0f;
+    }
+    // its dots with every head of the chunk (a head past gn has a zero
+    // query), then the slot's butterfly; each step runs over all heads at
+    // once, so the heads' chains overlap
+    float dot[GC];
+#pragma unroll
+    for (int g = 0; g < GC; ++g) dot[g] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < LCH; ++i)
+#pragma unroll
+      for (int mm = 0; mm < CE / 4; ++mm) {
+        const float* kk = kr + i * CE + 4 * mm;
+        const int qo = ((i * (CE / 4) + mm) * L + qd) * 4;
+#pragma unroll
+        for (int g = 0; g < GC; ++g) {
+          const float4 qv = *reinterpret_cast<const float4*>(sm.q + g * DP + qo);
+          dot[g] = fmaf(kk[0], qv.x, dot[g]);
+          dot[g] = fmaf(kk[1], qv.y, dot[g]);
+          dot[g] = fmaf(kk[2], qv.z, dot[g]);
+          dot[g] = fmaf(kk[3], qv.w, dot[g]);
+        }
+      }
+#pragma unroll
+    for (int o = 1; o < L; o <<= 1)
+#pragma unroll
+      for (int g = 0; g < GC; ++g) dot[g] += __shfl_xor_sync(FULL, dot[g], o);
+    const float ksc = sm.ks[jt + sj], vsc = sm.vs[jt + sj];
+    float mx[GC];
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      dot[g] = p >= 0 ? dot[g] * a.scale * ksc : NEG_INF;   // the score
+      mx[g] = dot[g];
+    }
+#pragma unroll
+    for (int o = L; o < 32; o <<= 1)
+#pragma unroll
+      for (int g = 0; g < GC; ++g) mx[g] = fmaxf(mx[g], __shfl_xor_sync(FULL, mx[g], o));
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      // the running max, and the one the exponent subtracts: 0 while the
+      // warp has seen nothing, so a masked score (NEG_INF) gives exactly 0
+      const float mn = fmaxf(m[g], mx[g]);
+      const float alpha = expf(m[g] - mn);
+      const float e = expf(dot[g] - (mn > NEG_INF ? mn : 0.0f));
+      l[g] = alpha * l[g] + e;
+#pragma unroll
+      for (int u = 0; u < VW; ++u) acc[g][u] *= alpha;
+      m[g] = mn;
+      if (qd == 0) pv[g * SP + sj] = e * vsc;
+    }
+    __syncwarp();
+    // P.V: the lanes over the dims, four slots at a time
+#pragma unroll
+    for (int j4 = 0; j4 < SP; j4 += 4) {
+      float vv[4][VW];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j4 + jj;
+        const unsigned char* vrow = s0 + jt + j == sl
+                                        ? reinterpret_cast<const unsigned char*>(sm.fv)
+                                        : vt + j * PITCH;
+        load_elems<VW, KV>(vrow + lane * VW * ES, vv[jj]);
+      }
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        const float4 p4 = *reinterpret_cast<const float4*>(pv + g * SP + j4);
+        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int u = 0; u < VW; ++u) acc[g][u] = fmaf(pj[jj], vv[jj][u], acc[g][u]);
+      }
+    }
+    __syncwarp();
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // fold the four warps' states in warp order: the split's (m, l, acc)
+  float* wm = reinterpret_cast<float*>(sm.ring);   // [WARPS][GC]
+  float* wl = wm + DEC_WARPS * GC;                  // [WARPS][GC]
+  float* wacc = wl + DEC_WARPS * GC;                // [WARPS][GC][DP]
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+#pragma unroll
+    for (int o = L; o < 32; o <<= 1) l[g] += __shfl_xor_sync(FULL, l[g], o);
+    if (lane == 0) {
+      wm[warp * GC + g] = m[g];
+      wl[warp * GC + g] = l[g];
+    }
+#pragma unroll
+    for (int u = 0; u < VW; ++u) wacc[(warp * GC + g) * DP + lane * VW + u] = acc[g][u];
+  }
+  __syncthreads();
+  const size_t row0 = (size_t)b * a.H + h0;
+  for (int e = tid; e < gn * D; e += DEC_THREADS) {
+    const int g = e / D, d = e % D;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) mx = fmaxf(mx, wm[w * GC + g]);
+    float ls = 0.0f, ac = 0.0f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float wt = expf(wm[w * GC + g] - mx);
+      ls += wl[w * GC + g] * wt;
+      ac += wacc[(w * GC + g) * DP + d] * wt;
+    }
+    const size_t row = row0 + g;
+    if (nsplit == 1) {
+      a.out[row * D + d] = __float2bfloat16(ac / fmaxf(ls, 1e-30f));
+    } else {
+      const size_t pr = row * nsplit + sp;
+      if (d == 0) {
+        a.part_m[pr] = mx;
+        a.part_l[pr] = ls;
+      }
+      if (ls > 0.0f) a.part_acc[pr * D + d] = ac;   // none where the split saw nothing
+    }
+  }
+  if (nsplit == 1) return;
+
+  // the last CTA of this (row, kv head, chunk) folds the splits in split
+  // order, passing over a split the query did not see (l == 0)
+  __syncthreads();
+  int* last = reinterpret_cast<int*>(sm.red + 32);
+  if (tid == 0) {
+    __threadfence();   // the CTA's partials (ordered before it by the barrier) first
+    const int t = atomicAdd(a.tickets + blockIdx.x, 1);
+    *last = t == nsplit - 1;
+    if (*last) a.tickets[blockIdx.x] = 0;   // ready for the next call
+  }
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  float* fw = sm.fold;                    // [GC][nsplit] m, then the weights
+  float* fl = fw + GC * nsplit;           // [GC][nsplit] l
+  float* fs = fl + GC * nsplit;           // [GC] the sums
+  for (int e = tid; e < gn * nsplit; e += DEC_THREADS) {
+    fw[e] = __ldcg(a.part_m + row0 * nsplit + e);
+    fl[e] = __ldcg(a.part_l + row0 * nsplit + e);
+  }
+  __syncthreads();
+  if (tid < gn) {   // a head's max over the splits, its weights and sum in split order
+    float* w = fw + tid * nsplit;
+    const float* lq = fl + tid * nsplit;
+    float mx = NEG_INF;
+    for (int q = 0; q < nsplit; ++q) mx = fmaxf(mx, w[q]);
+    float ls = 0.0f;
+    for (int q = 0; q < nsplit; ++q) {
+      w[q] = lq[q] > 0.0f ? expf(w[q] - mx) : 0.0f;
+      ls += lq[q] * w[q];
+    }
+    fs[tid] = ls;
+  }
+  __syncthreads();
+  // four outputs a thread at a time, their loads in flight together
+  for (int e0 = tid; e0 < gn * D; e0 += 4 * DEC_THREADS) {
+    float ac[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* src[4];
+    const float* w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = min(e0 + k * DEC_THREADS, gn * D - 1), g = e / D;
+      src[k] = a.part_acc + (row0 + g) * nsplit * D + e % D;
+      w[k] = fw + g * nsplit;
+    }
+#pragma unroll 4
+    for (int q = 0; q < nsplit; ++q)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (w[k][q] != 0.0f) ac[k] += __ldcg(src[k] + (size_t)q * D) * w[k][q];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * DEC_THREADS;
+      if (e < gn * D)
+        a.out[(row0 + e / D) * D + e % D] = __float2bfloat16(ac[k] / fmaxf(fs[e / D], 1e-30f));
+    }
+  }
 }
 
-// Combine the splits of one (row, head) in split order. SKIP_UNSEEN (the
-// prefill's, whose kernel writes no accumulator for a split a query cannot
-// see) passes over a split with l == 0: its weight is 0 and it adds nothing.
+// Combine the splits of one (row, head) in split order (kernel O's and the
+// prefill's). SKIP_UNSEEN (the prefill's, whose kernel writes no
+// accumulator for a split a query cannot see) passes over a split with l ==
+// 0: its weight is 0 and it adds nothing.
 template <bool SKIP_UNSEEN = false>
 static __global__ void decode_combine_kernel(const float* __restrict__ part_m,
                                              const float* __restrict__ part_l,
@@ -611,7 +1028,13 @@ __global__ void decode_attn_hb_kernel(
 // Attention (prefill_mma_kernel): a CTA owns up to PF_ROWS MMA rows, `tq`
 // tokens of the chunk times the g query heads of one kv head (GQA packing:
 // row r = token tq0 + r / g, head hk*g + r % g; 16 rows a warp), over one
-// split of the row's slots, so each staged tile serves 64 rows. A cp.async
+// split of the row's slots, so each staged tile serves 64 rows. A group of
+// more than PF_ROWS heads is cut into slices of PF_ROWS heads, one token a
+// CTA (row r = head hk*g + slice start + r); each MMA row is its own, so
+// the cut moves no bit. At a padded width (DP > D) Q, the staged K and V
+// read zeros past D and only the first D outputs are written. Both take
+// the PAD instances, so a D that is a width with at most PF_ROWS heads a
+// group runs the body without their guards. A cp.async
 // ring brings the next tile (K halves, V, positions, scales) while the
 // current one is multiplied on the tensor cores, where the operations that
 // bound long chunks run (mma.sync m16n8k16, bf16 in, f32 sums; ldmatrix,
@@ -644,27 +1067,15 @@ __global__ void decode_attn_hb_kernel(
 // Bound on this card: operations at the bf16 tensor rate for chunks of 128
 // tokens or more (4*H*D flops per visible (query, slot) pair), bytes below.
 
-template <int D>
+template <int DP>
 struct PfShape {
-  static constexpr int RS = D + 8;                // bf16 row pitch in smem (ldmatrix w/o conflicts)
-  static constexpr bool QREG = D <= 128;          // Q fragments kept in registers
+  static constexpr int RS = DP + 8;                // bf16 row pitch in smem (ldmatrix w/o conflicts)
+  static constexpr bool QREG = DP <= 128;          // Q fragments kept in registers
 };
 constexpr int PF_TS = 32;        // slots per staged tile (the host's PREFILL_TILE)
 constexpr int PF_ROWS = 64;      // MMA rows per CTA (at most 4 warps)
 constexpr int PF_STAGES = 2;     // cp.async ring depth
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 __device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -703,20 +1114,20 @@ struct PfV {
   static constexpr int NV = std::is_same<KV, float>::value ? 2 : 1;
 };
 
-template <int D, class KV, class Addr>
+template <int DP, class KV, class Addr, bool PAD>
 __global__ void __launch_bounds__(PF_STAGE_THREADS) prefill_stage_kernel(
     const KV* __restrict__ k, const KV* __restrict__ v,
     const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ kv_pos,       // position map of the store
     const int* __restrict__ q_pos,        // [B, T]
     const float* __restrict__ invf,       // [D]
-    __nv_bfloat16* __restrict__ kr,       // [B, Hkv, Sp, 2, D] rotated K: high, low half
-    __nv_bfloat16* __restrict__ vr,       // [B, Hkv, Sp, NV, D] V (f32 store: high, low half)
+    __nv_bfloat16* __restrict__ kr,       // [B, Hkv, Sp, 2, DP] rotated K: high, low half
+    __nv_bfloat16* __restrict__ vr,       // [B, Hkv, Sp, NV, DP] V (f32 store: high, low half)
     int* __restrict__ spos,               // [B, Sp] visible position or -1
     int* __restrict__ tmin,               // [B, Sp / TS] least visible position of a tile
     float* __restrict__ sks, float* __restrict__ svs,   // [B, Hkv, Sp] (int8 store)
-    Addr addr, int T, int Hkv, int S, int Sp) {
-  constexpr int TS = PF_TS, C4 = D / 4, NT = PF_STAGE_THREADS, NV = PfV<KV>::NV;
+    Addr addr, int T, int Hkv, int S, int Sp, int D) {
+  constexpr int TS = PF_TS, C4 = DP / 4, NT = PF_STAGE_THREADS, NV = PfV<KV>::NV;
   constexpr int PER = TS * C4 / NT;     // 4-element pieces a thread
   __shared__ int red[NT / 32], least[NT / 32];
   __shared__ int pos_t[TS];
@@ -759,21 +1170,33 @@ __global__ void __launch_bounds__(PF_STAGE_THREADS) prefill_stage_kernel(
     tmin[(size_t)b * (Sp / TS) + blockIdx.y] = mn;
   }
   if (!any) return;
-  __nv_bfloat16* kd = kr + (((size_t)b * Hkv + hk) * Sp + t0) * 2 * D;
-  __nv_bfloat16* vd = vr + (((size_t)b * Hkv + hk) * Sp + t0) * NV * D;
+  __nv_bfloat16* kd = kr + (((size_t)b * Hkv + hk) * Sp + t0) * 2 * DP;
+  __nv_bfloat16* vd = vr + (((size_t)b * Hkv + hk) * Sp + t0) * NV * DP;
 #pragma unroll 4
   for (int i = 0; i < PER; ++i) {
     const int e = tid + i * NT, j = e / C4, c = e % C4;
     const int p = pos_t[j];
     uint2 kw = make_uint2(0u, 0u), kl = make_uint2(0u, 0u), vw = make_uint2(0u, 0u),
           vl = make_uint2(0u, 0u);
-    if (p >= 0) {
-      const size_t off = ((size_t)ph_t[j] * Hkv + hk) * D + 4 * c;
-      float kf[4], vf[4], s0, c0, s1, c1;
-      load4(k + off, kf);
-      load4(v + off, vf);
-      sincosf((float)p * invf[4 * c], &s0, &c0);
-      sincosf((float)p * invf[4 * c + 2], &s1, &c1);
+    if (p >= 0 && (!PAD || 4 * c < D)) {   // dims past D stay zero (a padded width)
+      const size_t off = ((size_t)ph_t[j] * Hkv + hk) * (PAD ? D : DP) + 4 * c;
+      float kf[4], vf[4], s0, c0, s1 = 0.0f, c1 = 1.0f;
+      if (!PAD || D % 4 == 0) {
+        load4(k + off, kf);
+        load4(v + off, vf);
+        sincosf((float)p * invf[4 * c], &s0, &c0);
+        sincosf((float)p * invf[4 * c + 2], &s1, &c1);
+      } else {   // rows aligned to a pair only; the last piece may hold one pair
+        load2(k + off, kf, 0);
+        load2(v + off, vf, 0);
+        sincosf((float)p * invf[4 * c], &s0, &c0);
+        kf[2] = kf[3] = vf[2] = vf[3] = 0.0f;
+        if (4 * c + 2 < D) {
+          load2(k + off + 2, kf, 2);
+          load2(v + off + 2, vf, 2);
+          sincosf((float)p * invf[4 * c + 2], &s1, &c1);
+        }
+      }
       const float r[4] = {kf[0] * c0 + kf[1] * (-s0), kf[1] * c0 + kf[0] * s0,
                           kf[2] * c1 + kf[3] * (-s1), kf[3] * c1 + kf[2] * s1};
       kw.x = pack_bf16(r[0], r[1]);
@@ -787,17 +1210,17 @@ __global__ void __launch_bounds__(PF_STAGE_THREADS) prefill_stage_kernel(
         vl.y = pack_bf16(vf[2] - bf16_lo(vw.y), vf[3] - bf16_hi(vw.y));
       }
     }
-    *reinterpret_cast<uint2*>(kd + (size_t)j * 2 * D + 4 * c) = kw;
-    *reinterpret_cast<uint2*>(kd + (size_t)j * 2 * D + D + 4 * c) = kl;
-    *reinterpret_cast<uint2*>(vd + (size_t)j * NV * D + 4 * c) = vw;
-    if constexpr (NV == 2) *reinterpret_cast<uint2*>(vd + (size_t)j * 2 * D + D + 4 * c) = vl;
+    *reinterpret_cast<uint2*>(kd + (size_t)j * 2 * DP + 4 * c) = kw;
+    *reinterpret_cast<uint2*>(kd + (size_t)j * 2 * DP + DP + 4 * c) = kl;
+    *reinterpret_cast<uint2*>(vd + (size_t)j * NV * DP + 4 * c) = vw;
+    if constexpr (NV == 2) *reinterpret_cast<uint2*>(vd + (size_t)j * 2 * DP + DP + 4 * c) = vl;
   }
 }
 
 // Shared memory of one attention CTA; every section 16-byte aligned.
-template <int D, int NV>
+template <int DP, int NV>
 struct PfSmem {
-  static constexpr int TS = PF_TS, RS = PfShape<D>::RS;
+  static constexpr int TS = PF_TS, RS = PfShape<DP>::RS;
   __nv_bfloat16* q;    // [nw*16][RS] the CTA's query rows
   __nv_bfloat16* kb;   // [STAGES][TS][RS] staged rotated K, high half
   __nv_bfloat16* kl;   // [STAGES][TS][RS] its low half
@@ -845,7 +1268,7 @@ struct PfSmem {
   }
 };
 
-template <int D, int NV>
+template <int DP, int NV, bool PAD>
 __global__ void __launch_bounds__(128) prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B, T, H, D] rotated queries
     const __nv_bfloat16* __restrict__ kr, const __nv_bfloat16* __restrict__ vr,
@@ -856,8 +1279,8 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
     float* __restrict__ part_m, float* __restrict__ part_l,
     float* __restrict__ part_acc,         // [B, T, H, nsplit(, D)] (nsplit > 1)
     __nv_bfloat16* __restrict__ out,      // [B, T, H, D]
-    int T, int H, int Hkv, int S, int Sp, int tq, int split, float scale) {
-  using Sh = PfShape<D>;
+    int T, int H, int Hkv, int S, int Sp, int tq, int split, float scale, int D) {
+  using Sh = PfShape<DP>;
   constexpr int TS = PF_TS, RS = Sh::RS;
   extern __shared__ __align__(16) unsigned char pf_raw[];
   __shared__ int red[4];
@@ -865,22 +1288,40 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
   const int warp = tid >> 5, lane = tid & 31;
   const int g = H / Hkv;
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int tq0 = blockIdx.y * tq;
+  // a group of more than PF_ROWS heads is cut into slices of PF_ROWS heads
+  // (one token a CTA); the slice's first head and its head count
+  // (the unpadded instance takes groups of at most PF_ROWS heads: one slice)
+  const int nsl = PAD ? (g + PF_ROWS - 1) / PF_ROWS : 1;
+  const int tq0 = (PAD ? blockIdx.y / nsl : blockIdx.y) * tq;
+  const int hs = PAD ? blockIdx.y % nsl * PF_ROWS : 0;
+  const int gs = PAD ? min(g - hs, PF_ROWS) : g;
+  const int hq = hk * g + hs;                        // the CTA's first query head
   const int sp = blockIdx.z, nsplit = gridDim.z;
   const int s0 = sp * split, s1 = min(S, s0 + split);
   const int ntiles = (s1 - s0 + TS - 1) / TS;
-  const int nrows = min(tq, T - tq0) * g;            // live rows of the CTA
-  const PfSmem<D, NV> sm(pf_raw, nw, ((split < S ? split : S) + TS - 1) / TS);
+  const int nrows = min(tq, T - tq0) * gs;           // live rows of the CTA
+  const PfSmem<DP, NV> sm(pf_raw, nw, ((split < S ? split : S) + TS - 1) / TS);
 
   // the CTA's query rows, its largest query position, each warp's
-  constexpr int C8 = D / 8;
-  for (int e = tid; e < nw * 16 * C8; e += nthr) {
-    const int r = e / C8, c = e % C8;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows)
-      w = *reinterpret_cast<const uint4*>(
-          q + (((size_t)b * T + tq0 + r / g) * H + hk * g + r % g) * D + 8 * c);
-    *reinterpret_cast<uint4*>(sm.q + r * RS + 8 * c) = w;
+  constexpr int C8 = DP / 8;
+  if constexpr (!PAD) {
+    for (int e = tid; e < nw * 16 * C8; e += nthr) {
+      const int r = e / C8, c = e % C8;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows)
+        w = *reinterpret_cast<const uint4*>(
+            q + (((size_t)b * T + tq0 + r / gs) * H + hq + r % gs) * DP + 8 * c);
+      *reinterpret_cast<uint4*>(sm.q + r * RS + 8 * c) = w;
+    }
+  } else {   // rows of D (even) elements, zeros to DP: pairs of bf16
+    for (int e = tid; e < nw * 16 * (DP / 2); e += nthr) {
+      const int r = e / (DP / 2), c = e % (DP / 2);
+      unsigned w = 0u;
+      if (r < nrows && 2 * c < D)
+        w = *reinterpret_cast<const unsigned*>(
+            q + (((size_t)b * T + tq0 + r / gs) * H + hq + r % gs) * D + 2 * c);
+      *reinterpret_cast<unsigned*>(sm.q + r * RS + 2 * c) = w;
+    }
   }
   int qmax = tid < tq && tq0 + tid < T ? q_pos[(size_t)b * T + tq0 + tid] : -1;
 #pragma unroll
@@ -888,8 +1329,8 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
   if (lane == 0) red[warp] = qmax;
   // this thread's two rows of the MMA fragments (r and r + 8)
   const int ra = warp * 16 + (lane >> 2), rb = ra + 8;
-  const int qpa = ra < nrows ? q_pos[(size_t)b * T + tq0 + ra / g] : -1;
-  const int qpb = rb < nrows ? q_pos[(size_t)b * T + tq0 + rb / g] : -1;
+  const int qpa = ra < nrows ? q_pos[(size_t)b * T + tq0 + ra / gs] : -1;
+  const int qpb = rb < nrows ? q_pos[(size_t)b * T + tq0 + rb / gs] : -1;
   int wmax = max(qpa, qpb);
 #pragma unroll
   for (int o = 16; o; o >>= 1) wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
@@ -918,18 +1359,18 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
   auto fetch = [&](int n, int st) {
     if (n < nvis) {
       const int t0 = s0 + sm.tiles[n] * TS;
-      const __nv_bfloat16* ksrc = kr + (head * Sp + t0) * 2 * D;
-      const __nv_bfloat16* vsrc = vr + (head * Sp + t0) * NV * D;
+      const __nv_bfloat16* ksrc = kr + (head * Sp + t0) * 2 * DP;
+      const __nv_bfloat16* vsrc = vr + (head * Sp + t0) * NV * DP;
       __nv_bfloat16* kd = sm.kb + (size_t)st * TS * RS;
       __nv_bfloat16* kld = sm.kl + (size_t)st * TS * RS;
       __nv_bfloat16* vd = sm.vb + (size_t)st * TS * RS;
       __nv_bfloat16* vld = sm.vl + (size_t)st * TS * RS;
       for (int e = tid; e < TS * C8; e += nthr) {
         const int j = e / C8, c = e % C8;
-        cp16(kd + j * RS + 8 * c, ksrc + (size_t)j * 2 * D + 8 * c);
-        cp16(kld + j * RS + 8 * c, ksrc + (size_t)j * 2 * D + D + 8 * c);
-        cp16(vd + j * RS + 8 * c, vsrc + (size_t)j * NV * D + 8 * c);
-        if constexpr (NV == 2) cp16(vld + j * RS + 8 * c, vsrc + (size_t)j * 2 * D + D + 8 * c);
+        cp16(kd + j * RS + 8 * c, ksrc + (size_t)j * 2 * DP + 8 * c);
+        cp16(kld + j * RS + 8 * c, ksrc + (size_t)j * 2 * DP + DP + 8 * c);
+        cp16(vd + j * RS + 8 * c, vsrc + (size_t)j * NV * DP + 8 * c);
+        if constexpr (NV == 2) cp16(vld + j * RS + 8 * c, vsrc + (size_t)j * 2 * DP + DP + 8 * c);
       }
       for (int e = tid; e < TS / 4; e += nthr) {
         cp16(sm.pos + st * TS + 4 * e, rpos + t0 + 4 * e);
@@ -943,7 +1384,7 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
   };
 
   // Q fragments (A operand of S = Q K^T), per 16-wide k step
-  constexpr int KQ = D / 16;
+  constexpr int KQ = DP / 16;
   unsigned qf[Sh::QREG ? KQ : 1][4];
   if constexpr (Sh::QREG) {
 #pragma unroll
@@ -952,7 +1393,7 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
   }
 
   constexpr int NB = TS / 8;     // n8 blocks of the score tile
-  constexpr int ND = D / 8;      // n8 blocks of the output
+  constexpr int ND = DP / 8;      // n8 blocks of the output
   constexpr int KP = TS / 16;    // 16-slot k steps of O += P V
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
   float o[ND][4];
@@ -1123,15 +1564,16 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
   for (int h = 0; h < 2; ++h) {
     const int r = h ? rb : ra;
     if (r >= nrows) continue;
-    const size_t row = ((size_t)b * T + tq0 + r / g) * H + hk * g + r % g;
+    const size_t row = ((size_t)b * T + tq0 + r / gs) * H + hq + r % gs;
     const int c0 = 2 * (lane & 3);
     if (nsplit == 1) {
       const float den = fmaxf(l[h], 1e-30f);
-      __nv_bfloat16* dst = out + row * D + c0;
+      __nv_bfloat16* dst = out + row * (PAD ? D : DP) + c0;
 #pragma unroll
       for (int i = 0; i < ND; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
-            __floats2bfloat162_rn(o[i][2 * h] / den, o[i][2 * h + 1] / den);
+        if (!PAD || c0 + 8 * i < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+              __floats2bfloat162_rn(o[i][2 * h] / den, o[i][2 * h + 1] / den);
     } else {
       const size_t pr = row * nsplit + sp;
       if ((lane & 3) == 0) {
@@ -1139,10 +1581,11 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
         part_l[pr] = l[h];
       }
       if (l[h] > 0.0f) {
-        float* dst = part_acc + pr * D + c0;
+        float* dst = part_acc + pr * (PAD ? D : DP) + c0;
 #pragma unroll
         for (int i = 0; i < ND; ++i)
-          *reinterpret_cast<float2*>(dst + 8 * i) = make_float2(o[i][2 * h], o[i][2 * h + 1]);
+          if (!PAD || c0 + 8 * i < D)
+            *reinterpret_cast<float2*>(dst + 8 * i) = make_float2(o[i][2 * h], o[i][2 * h + 1]);
       }
     }
   }
@@ -1150,59 +1593,63 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
 
 // --- host launchers ---------------------------------------------------------------
 
-template <int D, class KV, class Addr, int MODE = 0>
-int decode_impl(const void* q, const void* k, const void* v, const void* ks,
-                const void* vs, const void* kv_pos, const void* q_pos,
-                const void* invf, void* part_m, void* part_l, void* part_acc,
-                void* out, Addr addr, int B, int H, int Hkv, int S, int chunk,
-                float scale, cudaStream_t st, Fresh<KV> fresh = Fresh<KV>{}) {
-  const int g = H / Hkv;
-  const size_t smem = Smem<D, KV>::bytes(g);
-  cudaFuncSetAttribute(decode_attn_kernel<D, KV, Addr, MODE>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const int nsplit = (S + chunk - 1) / chunk;
-  dim3 grid(B * Hkv, nsplit);
-  decode_attn_kernel<D, KV, Addr, MODE><<<grid, 32 * g, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
-      static_cast<const int*>(q_pos), static_cast<const float*>(invf),
-      static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), addr, H, Hkv, S, chunk, scale, fresh);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<<<B * H, D, 0, st>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out),
-      nsplit, D);
+// one launch of the decode body with GC query heads a CTA
+template <int DP, class KV, class Addr, int GC>
+int decode_launch(const DecArgs<KV>& a, const Addr& addr, int B, cudaStream_t st) {
+  const int nsplit = (a.S + a.split - 1) / a.split;
+  const size_t smem = DecSmem<DP, KV, GC>::bytes(a.split, nsplit);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_kernel<DP, KV, Addr, GC>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int nhc = (a.H / a.Hkv + GC - 1) / GC;
+  decode_kernel<DP, KV, Addr, GC>
+      <<<dim3(B * a.Hkv * nhc, nsplit), DEC_THREADS, smem, st>>>(a, addr);
   return (int)cudaGetLastError();
 }
 
-// Kernels N (write == 0) and P (write == 1) over dense rows: C's launch
-// with the fresh rows. In write mode k/v/ks/vs are the layer's whole store,
-// slots [B*S + 1] with the spare slot pad_slot = B*S.
-template <int D, class KV, class Addr>
-int decode_fresh_impl(const void* q, const void* k, const void* v, const void* ks,
-                      const void* vs, const void* kv_pos, const void* q_pos,
-                      const void* invf, const void* k_new, const void* v_new,
-                      const void* slot, void* part_m, void* part_l, void* part_acc,
-                      void* out, Addr addr, int B, int H, int Hkv, int S, int chunk,
-                      int write, float scale, cudaStream_t st) {
-  Fresh<KV> fresh{static_cast<const __nv_bfloat16*>(k_new),
-                  static_cast<const __nv_bfloat16*>(v_new),
-                  static_cast<const int*>(slot),
-                  const_cast<KV*>(static_cast<const KV*>(k)),
-                  const_cast<KV*>(static_cast<const KV*>(v)),
-                  const_cast<float*>(static_cast<const float*>(ks)),
-                  const_cast<float*>(static_cast<const float*>(vs)),
-                  (long long)B * S};
-  if (write)
-    return decode_impl<D, KV, Addr, 2>(q, k, v, ks, vs, kv_pos, q_pos, invf, part_m,
-                                       part_l, part_acc, out, addr, B, H, Hkv, S,
-                                       chunk, scale, st, fresh);
-  return decode_impl<D, KV, Addr, 1>(q, k, v, ks, vs, kv_pos, q_pos, invf, part_m,
-                                     part_l, part_acc, out, addr, B, H, Hkv, S, chunk,
-                                     scale, st, fresh);
+// Kernels C and E (k_new == nullptr), N (write == 0) and P (write == 1,
+// dense rows only: k/v/ks/vs are the layer's whole store, slots [B*S + 1]
+// with the spare slot pad_slot = B*S), one launch. `work` holds the
+// partials when a row spans more than one split (f32: m and l [B, H,
+// nsplit], acc [B, H, nsplit, D]); `tickets` [B * Hkv * chunks] are zero
+// between calls (the last CTA of each group leaves its ticket at zero).
+// `heads` is the host's head chunk: 4, or 8 at DP <= 128.
+template <int DP, class KV, class Addr>
+int decode_impl(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                const void* kv_pos, const void* q_pos, const void* invf, const void* k_new,
+                const void* v_new, const void* slot, void* work, void* tickets, void* out,
+                Addr addr, int B, int H, int Hkv, int D, int S, int split, int heads, int write,
+                float scale, cudaStream_t st) {
+  if (!(heads == 4 || (heads == 8 && DP <= 128)) || split < DEC_GRAIN || split % DEC_GRAIN ||
+      H % Hkv || D > DP)
+    return (int)cudaErrorInvalidValue;
+  const int nsplit = (S + split - 1) / split;
+  if (nsplit > 1 && (!work || !tickets)) return (int)cudaErrorInvalidValue;
+  // the widest piece one cp.async moves: both stores and every row aligned to it
+  const uintptr_t al = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                       (uintptr_t)(D * sizeof(KV));
+  const int piece = al % 16 == 0 ? 16 : al % 8 == 0 ? 8 : al % 4 == 0 ? 4 : 2;
+  float* part = static_cast<float*>(work);
+  const size_t nparts = (size_t)B * H * nsplit;
+  const Fresh<KV> fresh{static_cast<const __nv_bfloat16*>(k_new),
+                        static_cast<const __nv_bfloat16*>(v_new),
+                        static_cast<const int*>(slot),
+                        const_cast<KV*>(static_cast<const KV*>(k)),
+                        const_cast<KV*>(static_cast<const KV*>(v)),
+                        const_cast<float*>(static_cast<const float*>(ks)),
+                        const_cast<float*>(static_cast<const float*>(vs)),
+                        (long long)B * S, write};
+  const DecArgs<KV> a{static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+                      static_cast<const KV*>(v), static_cast<const float*>(ks),
+                      static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
+                      static_cast<const int*>(q_pos), static_cast<const float*>(invf),
+                      part, part ? part + nparts : nullptr, part ? part + 2 * nparts : nullptr,
+                      static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out),
+                      H, Hkv, D, S, split, piece, scale, fresh};
+  if constexpr (DP <= 128)
+    if (heads == 8) return decode_launch<DP, KV, Addr, 8>(a, addr, B, st);
+  return decode_launch<DP, KV, Addr, 4>(a, addr, B, st);
 }
 
 // Kernel O over dense rows: the largest tile of 32, 16, ... slots whose
@@ -1238,51 +1685,57 @@ int decode_hb_impl(const void* q, const void* k, const void* v, const void* ks,
   return (int)cudaGetLastError();
 }
 
-// Kernels D and F: the stage pass into the scratch (kr [B, Hkv, Sp, 2, D],
-// vr [B, Hkv, Sp, NV, D] bf16, spos [B, Sp], tmin [B, Sp / TS], sks / svs
+// Kernels D and F: the stage pass into the scratch (kr [B, Hkv, Sp, 2, DP],
+// vr [B, Hkv, Sp, NV, DP] bf16, spos [B, Sp], tmin [B, Sp / TS], sks / svs
 // [B, Hkv, Sp] for an int8 store; Sp = S rounded up to whole tiles), then
-// `tq` tokens a CTA (tq * H / Hkv <= PF_ROWS rows) over splits of `split`
-// slots (a multiple of the tile; one split: no partials, no combine).
-// Partials are [B, T, H, nsplit(, D)], folded by decode's combine.
-template <int D, class KV, class Addr>
+// `tq` tokens a CTA (tq * min(H / Hkv, PF_ROWS) <= PF_ROWS rows; tq = 1 where
+// a group has more heads) over splits of `split` slots (a multiple of the
+// tile; one split: no partials, no combine). Partials are [B, T, H,
+// nsplit(, D)], folded by the combine.
+template <int DP, class KV, class Addr>
 int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
                  const void* vs, const void* kv_pos, const void* q_pos,
                  const void* invf, void* kr, void* vr, void* spos, void* tmin, void* sks,
                  void* svs, void* part_m, void* part_l, void* part_acc, void* out, Addr addr, int B,
-                 int T, int H, int Hkv, int S, int tq, int split, float scale,
+                 int T, int H, int Hkv, int D, int S, int tq, int split, float scale,
                  cudaStream_t st) {
   constexpr int TS = PF_TS, NV = PfV<KV>::NV;
-  constexpr size_t kMaxSmem = 227 * 1024;
-  const int rows = tq * (H / Hkv);
-  if (tq < 1 || rows > PF_ROWS || split < 1 || ((ks != nullptr) != (sks != nullptr)))
+  const int g = H / Hkv, nsl = (g + PF_ROWS - 1) / PF_ROWS;
+  const int rows = tq * (g < PF_ROWS ? g : PF_ROWS);
+  if (tq < 1 || rows > PF_ROWS || split < 1 || ((ks != nullptr) != (sks != nullptr)) || D > DP)
     return (int)cudaErrorInvalidValue;
   const int nsplit = (S + split - 1) / split;
   if (nsplit > 1 && (split % TS || !part_m || !part_l || !part_acc))
     return (int)cudaErrorInvalidValue;
   const int Sp = (S + TS - 1) / TS * TS;
-  prefill_stage_kernel<D, KV, Addr><<<dim3(B * Hkv, Sp / TS), PF_STAGE_THREADS, 0, st>>>(
+  // the bodies with the guards of a padded width and of head slices only
+  // where D is not the width or a group has more than PF_ROWS heads
+  const bool pad = D != DP || nsl > 1;
+  auto stage = pad ? prefill_stage_kernel<DP, KV, Addr, true>
+                   : prefill_stage_kernel<DP, KV, Addr, false>;
+  auto mma = pad ? prefill_mma_kernel<DP, NV, true> : prefill_mma_kernel<DP, NV, false>;
+  stage<<<dim3(B * Hkv, Sp / TS), PF_STAGE_THREADS, 0, st>>>(
       static_cast<const KV*>(k), static_cast<const KV*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
       static_cast<const int*>(q_pos), static_cast<const float*>(invf),
       static_cast<__nv_bfloat16*>(kr), static_cast<__nv_bfloat16*>(vr),
       static_cast<int*>(spos), static_cast<int*>(tmin), static_cast<float*>(sks),
-      static_cast<float*>(svs), addr, T, Hkv, S, Sp);
+      static_cast<float*>(svs), addr, T, Hkv, S, Sp, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nw = (rows + 15) / 16;
-  const size_t smem = PfSmem<D, NV>::bytes(nw, ((split < S ? split : S) + TS - 1) / TS);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  cudaFuncSetAttribute(prefill_mma_kernel<D, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid(B * Hkv, (T + tq - 1) / tq, nsplit);
-  prefill_mma_kernel<D, NV><<<grid, 32 * nw, smem, st>>>(
+  const size_t smem = PfSmem<DP, NV>::bytes(nw, ((split < S ? split : S) + TS - 1) / TS);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
+  cudaFuncSetAttribute(mma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  dim3 grid(B * Hkv, (T + tq - 1) / tq * nsl, nsplit);
+  mma<<<grid, 32 * nw, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kr),
       static_cast<const __nv_bfloat16*>(vr), static_cast<const int*>(spos),
       static_cast<const int*>(tmin), static_cast<const float*>(sks),
       static_cast<const float*>(svs),
       static_cast<const int*>(q_pos), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_acc),
-      static_cast<__nv_bfloat16*>(out), T, H, Hkv, S, Sp, tq, split, scale);
+      static_cast<__nv_bfloat16*>(out), T, H, Hkv, S, Sp, tq, split, scale, D);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
   decode_combine_kernel<true><<<B * T * H, D, 0, st>>>(
@@ -1292,8 +1745,8 @@ int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
 }
 
 // Pick the instantiation for head dim D and store type kv_type (0 = int8
-// codes with scales, 1 = bf16, 2 = f32); -1 for a combination the kernels
-// are not built for.
+// codes with scales, 1 = bf16, 2 = f32): kernel O's at D itself (64, 128 or
+// 256), -1 for any other combination.
 #define ATTN_DISPATCH(IMPL, ADDR, ...)                                          \
   do {                                                                          \
     if (kv_type == 0) {                                                         \
@@ -1310,6 +1763,34 @@ int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
       }                                                                         \
     } else if (kv_type == 2) {                                                  \
       switch (D) {                                                              \
+        case 64: return IMPL<64, float, ADDR>(__VA_ARGS__);                     \
+        case 128: return IMPL<128, float, ADDR>(__VA_ARGS__);                   \
+        case 256: return IMPL<256, float, ADDR>(__VA_ARGS__);                   \
+      }                                                                         \
+    }                                                                           \
+    return -1;                                                                  \
+  } while (0)
+
+// The bodies of C-F and N, P at the padded width for an even D <= 256 (the
+// smallest of 64, 128, 256 that holds it), which take D at run time.
+#define ATTN_DISPATCH_PADDED(IMPL, ADDR, ...)                                   \
+  do {                                                                          \
+    if (D < 2 || D > 256 || D % 2) return -1;                                   \
+    const int DPAD = D <= 64 ? 64 : D <= 128 ? 128 : 256;                       \
+    if (kv_type == 0) {                                                         \
+      switch (DPAD) {                                                           \
+        case 64: return IMPL<64, int8_t, ADDR>(__VA_ARGS__);                    \
+        case 128: return IMPL<128, int8_t, ADDR>(__VA_ARGS__);                  \
+        case 256: return IMPL<256, int8_t, ADDR>(__VA_ARGS__);                  \
+      }                                                                         \
+    } else if (kv_type == 1) {                                                  \
+      switch (DPAD) {                                                           \
+        case 64: return IMPL<64, __nv_bfloat16, ADDR>(__VA_ARGS__);             \
+        case 128: return IMPL<128, __nv_bfloat16, ADDR>(__VA_ARGS__);           \
+        case 256: return IMPL<256, __nv_bfloat16, ADDR>(__VA_ARGS__);           \
+      }                                                                         \
+    } else if (kv_type == 2) {                                                  \
+      switch (DPAD) {                                                           \
         case 64: return IMPL<64, float, ADDR>(__VA_ARGS__);                     \
         case 128: return IMPL<128, float, ADDR>(__VA_ARGS__);                   \
         case 256: return IMPL<256, float, ADDR>(__VA_ARGS__);                   \

@@ -29,7 +29,15 @@ On a CPU tensor each wrapper runs the plain PyTorch version in this module; on
 a CUDA tensor it launches the kernel or raises. The `supports` /
 `prefill_supports` / `write_supports` / `fresh_supports` gates and O's route
 mirror the reference's, so the same geometry takes the same route in both
-packages.
+packages, and the kernels take every geometry the gates admit: any even
+head dim up to 256 (the bodies are built at a padded width, `padded_head_dim`)
+and any number of query heads per kv head.
+
+Decode (C, N, P and the paged E) cuts a row's slots into splits at fixed
+logical slots (`decode_plan`: every DECODE_SPLIT slots, for every B and S),
+so a row's output depends only on its own q, position and logical store:
+a row decoded alone and in a batch, or with empty slots appended, gives the
+same bits.
 
 Numerics differ from the two-pass chain (online vs two-pass softmax), so
 fused attention is an engine *mode*: prover and verifier pick the same mode.
@@ -48,12 +56,14 @@ from .kv_cache import quantize_kv, write_rows
 from .rope import yarn_corr_dim
 
 NEG_INF = -1e30
-TILE_S = 32        # slots per kernel tile (ops/csrc/decode_attention.cu TS)
+TILE_S = 32        # slots per page tile of kernels E and F (pages are whole tiles)
 
 # the reference's probe flags, read once at import as it reads them
 # (blama_tpu/ops/pallas/decode_attention.py:46-48); tests set the attributes
 _HB = os.environ.get("BLAMA_ATTN_HB", "0") == "1"
-# cap on kernel C's slots per split (the reference's int8 decode block cap)
+# cap on the decode kernels' slots per split (the reference's int8 decode
+# block cap), rounded down to whole DECODE_GRAIN; at its default it leaves
+# DECODE_SPLIT as it is
 _BLOCK_CAP = int(os.environ.get("BLAMA_ATTN_BLOCK_CAP", "1024"))
 
 
@@ -265,26 +275,36 @@ def kv_type_of(k_cache, v_cache, k_scale, v_scale) -> int:
     return kv_type
 
 
-KERNEL_HEAD_DIMS = (64, 128, 256)   # the head sizes kernels C-F are instantiated for
+PADDED_HEAD_DIMS = (64, 128, 256)   # the widths the kernels' bodies are built at
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The width whose body serves `head_dim` (an even D <= 256): the
+    smallest of PADDED_HEAD_DIMS that holds it; the body reads zeros past D
+    and writes the first D outputs."""
+    if head_dim < 2 or head_dim % 2 or head_dim > PADDED_HEAD_DIMS[-1]:
+        raise ValueError(f"the attention kernels take an even head dim <= 256, not {head_dim}")
+    return next(dp for dp in PADDED_HEAD_DIMS if head_dim <= dp)
 
 
 def require_kernel_geometry(device, n_head: int, n_head_kv: int, head_dim: int,
                             kv_dtype) -> None:
-    """Refuse, where a cache is created for a card, what the route gates
-    admit but kernels C-F were not built for. The gates (`supports`,
-    `prefill_supports`, and ops/paged_attention.py's) are the reference's, so
-    a geometry takes the same route in both packages; on the CPU the plain
-    versions serve all of it. On a card the owner of the cache calls this at
-    construction, so no step fails in the middle of `forward`."""
+    """Refuse, where a cache is created for a card, what no attention kernel
+    takes: a head dim the fused gates refuse (odd or above 256; the
+    reference runs those through its two-pass chain), query heads that are
+    not a whole multiple of the kv heads, or a store type other than INT8,
+    bf16 and f32. Every geometry the gates admit runs on the card; on the
+    CPU the plain versions serve all of it. On a card the owner of the cache
+    calls this at construction, so no step fails in the middle of
+    `forward`."""
     if torch.device(device).type == "cpu":
         return
-    if (head_dim not in KERNEL_HEAD_DIMS or n_head % n_head_kv
-            or n_head // n_head_kv > 32):
+    if head_dim % 2 or head_dim > PADDED_HEAD_DIMS[-1] or n_head % n_head_kv:
         raise NotImplementedError(
-            f"the CUDA attention kernels are built for head_dim in "
-            f"{KERNEL_HEAD_DIMS} and at most 32 query heads per KV head, got "
-            f"n_head={n_head} n_head_kv={n_head_kv} head_dim={head_dim} "
-            "(ROADMAP.md §1 item 9, other engines)")
+            f"the CUDA attention kernels take an even head_dim <= 256 and a whole "
+            f"number of query heads per KV head, got n_head={n_head} "
+            f"n_head_kv={n_head_kv} head_dim={head_dim} (the two-pass chain, "
+            "attn=\"xla\": ROADMAP.md §1 item 9)")
     if kv_dtype not in KV_TYPES:
         raise NotImplementedError(
             f"the CUDA attention kernels read an INT8, a bf16 or an f32 cache, "
@@ -295,7 +315,7 @@ def check_cuda_common(q, inv_freq_e, q_pos, kv_pos, Hkv):
     B, T, H, D = q.shape
     if q.dtype != torch.bfloat16:
         raise TypeError(f"queries must be bf16, got {q.dtype}")
-    if D not in KERNEL_HEAD_DIMS or H % Hkv or H // Hkv > 32:
+    if D % 2 or D > PADDED_HEAD_DIMS[-1] or H % Hkv:
         raise ValueError(f"unsupported head geometry H={H} Hkv={Hkv} D={D}")
     if kv_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
         raise TypeError("positions must be int32")
@@ -331,14 +351,89 @@ def _check_cuda(q, k_cache, v_cache, k_scale, v_scale, kv_pos, q_pos, inv_freq_e
     return B, T, H, D, S, Hkv, kv_type
 
 
-def decode_split(B: int, Hkv: int, S: int) -> int:
-    """Slots per block of kernel C (and of E, N and P): enough blocks to fill
-    the card, fixed for a given (B, Hkv, S) so a replay splits the same way,
-    and at most BLAMA_ATTN_BLOCK_CAP slots rounded down to whole tiles."""
-    nsplit = max(1, min(-(-264 // (B * Hkv)), -(-S // TILE_S)))
-    per_split = -(-S // nsplit)
-    cap = max(TILE_S, _BLOCK_CAP // TILE_S * TILE_S)
-    return min(-(-per_split // TILE_S) * TILE_S, cap)
+DECODE_SPLIT = 128   # slots per split of a row's slot range, for every B and S
+DECODE_GRAIN = 64    # a split is whole grains (every body's tile divides it)
+
+
+def decode_heads(head_dim: int, group: int) -> int:
+    """Query heads of one kv head a CTA of the decode body takes (its GC,
+    attention_common.cuh): 4, or 8 for a group of more than 4 at a padded
+    width of at most 128 (registers bound the 256-wide body to 4)."""
+    return 8 if group > 4 and padded_head_dim(head_dim) <= 128 else 4
+
+
+def decode_plan(B: int, H: int, Hkv: int, S: int, D: int,
+                split: int | None = None) -> tuple[int, int, tuple]:
+    """The launch of the decode body (kernels C, E, N, P): (slots per split,
+    query heads per CTA, grid). The split width is one constant,
+    DECODE_SPLIT, capped by BLAMA_ATTN_BLOCK_CAP in whole DECODE_GRAIN, so
+    split boundaries sit at the same logical slots whatever B and S are and
+    a row's bits do not depend on them; empty slots appended past the row's
+    last visible one only add splits the query does not see. A CTA takes one
+    (row, kv head, split) and up to `decode_heads` query heads of the kv
+    head (each head its own sums, so the chunking moves no bit). `split` (a
+    multiple of DECODE_GRAIN) is for measuring only: it moves the
+    boundaries, and with them the bits."""
+    if split is None:
+        split = min(DECODE_SPLIT, max(DECODE_GRAIN, _BLOCK_CAP // DECODE_GRAIN * DECODE_GRAIN))
+    if split < 1 or split % DECODE_GRAIN:
+        raise ValueError(f"split must be a positive multiple of {DECODE_GRAIN}, not {split}")
+    heads = decode_heads(D, H // Hkv)
+    chunks = -(-(H // Hkv) // heads)
+    return split, heads, (B * Hkv * chunks, -(-S // split))
+
+
+_TICKETS: dict = {}
+
+
+def tickets(device, n: int) -> torch.Tensor:
+    """The decode body's arrival tickets on `device`: int32, zero between
+    calls (the last CTA of each group leaves its ticket at zero), at least
+    `n` of them. A larger set replaces a smaller one; the old set stays
+    alive, so a CUDA graph captured with it stays valid."""
+    key = torch.device(device)
+    held = _TICKETS.setdefault(key, [])
+    if not held or held[-1].numel() < n:
+        held.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=key))
+    return held[-1]
+
+
+def decode_work(B: int, H: int, D: int, nsplit: int, dev) -> torch.Tensor | None:
+    """The decode body's partials for a row that spans more than one split,
+    one allocation: f32 m and l [B, H, nsplit], acc [B, H, nsplit, D]. The
+    stream orders the kernel before any later use of the memory."""
+    if nsplit == 1:
+        return None
+    return torch.empty(B * H * nsplit * (2 + D), dtype=torch.float32, device=dev)
+
+
+def decode_launch(lib, name, q, k, v, k_scale, v_scale, kv_pos, q_pos, inv_freq_e, out,
+                  S, kv_type, scale, split=None, fresh=None, write=0, paged=None):
+    """Launch kernel C, N or P (dense; `fresh` = (k_new, v_new, slot)) or E
+    (`paged` = (page_table, MP, G)) through the decode plan and count it."""
+    B, _, H, D = q.shape
+    Hkv = k.shape[-2]
+    split, heads, grid = decode_plan(B, H, Hkv, S, D, split)
+    work = decode_work(B, H, D, grid[1], q.device)
+    tk = tickets(q.device, grid[0]) if grid[1] > 1 else None
+    stream = kernels.stream_ptr(q.device)
+    if paged is not None:
+        table, MP, G = paged
+        rc = lib.paged_decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
+            kv_pos.data_ptr(), table.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(),
+            ptr(work), ptr(tk), out.data_ptr(), B, H, Hkv, D, MP, G, split, heads, kv_type,
+            float(scale), stream)
+    else:
+        k_new, v_new, slot = fresh or (None, None, None)
+        rc = lib.decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
+            kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(), ptr(k_new),
+            ptr(v_new), ptr(slot), ptr(work), ptr(tk), out.data_ptr(), B, H, Hkv, D, S,
+            split, heads, kv_type, write, float(scale), stream)
+    kernels.check(rc, name)
+    kernels.count(name)
+    return out
 
 
 PREFILL_ROWS = 64     # MMA rows (query token x head) per CTA of D and F (PF_ROWS)
@@ -350,16 +445,19 @@ def prefill_plan(B: int, T: int, H: int, Hkv: int, S: int,
                  split: int = PREFILL_SPLIT) -> tuple[int, int, tuple]:
     """The launch of kernels D and F: (query tokens per CTA, slots per
     split, grid). A CTA packs `tq` tokens times the H / Hkv query heads of
-    one kv head into at most PREFILL_ROWS MMA rows; the split width is
-    fixed, so split boundaries sit at the same logical slots whatever B, T
-    and S are, and a query's bits do not depend on them. The token blocking
-    moves no bit (each MMA row is its own). `split` other than
-    PREFILL_SPLIT (a multiple of PREFILL_TILE) is for measuring only: it
-    moves the boundaries, and with them the bits."""
+    one kv head into at most PREFILL_ROWS MMA rows; a group of more heads
+    is cut into slices of PREFILL_ROWS heads, one token a CTA. The split
+    width is fixed, so split boundaries sit at the same logical slots
+    whatever B, T and S are, and a query's bits do not depend on them. The
+    token blocking and the head slices move no bit (each MMA row is its
+    own). `split` other than PREFILL_SPLIT (a multiple of PREFILL_TILE) is
+    for measuring only: it moves the boundaries, and with them the bits."""
     if split < 1 or split % PREFILL_TILE:
         raise ValueError(f"split must be a positive multiple of {PREFILL_TILE}, not {split}")
-    tq = max(1, min(PREFILL_ROWS // (H // Hkv), T))
-    return tq, split, (B * Hkv, -(-T // tq), -(-S // split))
+    g = H // Hkv
+    tq = max(1, min(PREFILL_ROWS // g, T))
+    slices = -(-g // PREFILL_ROWS)
+    return tq, split, (B * Hkv, -(-T // tq) * slices, -(-S // split))
 
 
 def require_aligned(**tensors) -> None:
@@ -372,19 +470,21 @@ def require_aligned(**tensors) -> None:
 def prefill_buffers(B: int, T: int, H: int, Hkv: int, D: int, S: int, nsplit: int,
                     kv_type: int, dev) -> tuple[torch.Tensor, list[int]]:
     """Kernels D and F's device scratch, one allocation per call, and the
-    pointers into it (0 for a part not needed): the staged rows (rotated K
-    as a high and a low bf16 half [B, Hkv, Sp, 2, D], V in bf16 [B, Hkv,
-    Sp, 1, D], or [.., 2, D] as two halves from an f32 store, positions
-    [B, Sp], each tile's least visible position [B, Sp / tile], the int8
-    store's scales [B, Hkv, Sp]; Sp = S in whole tiles) and
-    the split partials (m, l [B, T, H, nsplit], acc [.., D]; none for one
-    split). The stream orders the kernel before any later use of the
-    memory, so the caching allocator may hand it out again on return."""
+    pointers into it (0 for a part not needed): the staged rows at the
+    padded width DP = padded_head_dim(D) (rotated K as a high and a low bf16
+    half [B, Hkv, Sp, 2, DP], V in bf16 [B, Hkv, Sp, 1, DP], or [.., 2, DP]
+    as two halves from an f32 store, positions [B, Sp], each tile's least
+    visible position [B, Sp / tile], the int8 store's scales [B, Hkv, Sp];
+    Sp = S in whole tiles) and the split partials (m, l [B, T, H, nsplit],
+    acc [.., D]; none for one split). The stream orders the kernel before
+    any later use of the memory, so the caching allocator may hand it out
+    again on return."""
     ts = PREFILL_TILE
     sp = -(-S // ts) * ts
+    dp = padded_head_dim(D)
     rows, parts = B * Hkv * sp, B * T * H * nsplit
     quantized, nv = kv_type == 0, 2 if kv_type == 2 else 1
-    sizes = [4 * rows * D, 2 * nv * rows * D, 4 * B * sp, 4 * B * (sp // ts),
+    sizes = [4 * rows * dp, 2 * nv * rows * dp, 4 * B * sp, 4 * B * (sp // ts),
              4 * rows * quantized, 4 * rows * quantized,
              4 * parts * (nsplit > 1), 4 * parts * (nsplit > 1), 4 * parts * D * (nsplit > 1)]
     offs, n = [], 0
@@ -393,12 +493,6 @@ def prefill_buffers(B: int, T: int, H: int, Hkv: int, D: int, S: int, nsplit: in
         n += -(-size // 256) * 256
     buf = torch.empty(n, dtype=torch.uint8, device=dev)
     return buf, [0 if o is None else buf.data_ptr() + o for o in offs]
-
-
-def _partials(B, H, D, nsplit, dev):
-    part_m = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
-    return (part_m, torch.empty_like(part_m),
-            torch.empty((B, H, nsplit, D), dtype=torch.float32, device=dev))
 
 
 def _check_fresh(q, k_new, v_new, slot, Hkv):
@@ -423,6 +517,7 @@ def decode_attention(
     k_new: torch.Tensor | None = None,  # [B, Hkv, D] fresh-token K (kernel N)
     v_new: torch.Tensor | None = None,
     slot: torch.Tensor | None = None,   # [B] int32 slot of the fresh token
+    split: int | None = None,  # slots per split, for measuring only (decode_plan)
 ) -> torch.Tensor:
     """Fused single-token attention; returns [B, 1, H, D] in q.dtype.
 
@@ -447,30 +542,28 @@ def decode_attention(
     q_pos = q_pos.reshape(B).contiguous()
     B, T, H, D, S, Hkv, kv_type = _check_cuda(q, k_cache, v_cache, k_scale, v_scale,
                                               kv_pos, q_pos, inv_freq_e)
-    hb = hb_split(S, D, Hkv, k_cache.dtype, B, scales_t, fresh)
-    chunk = hb or decode_split(B, Hkv, S)
-    parts = _partials(B, H, D, -(-S // chunk), q.device)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     lib = kernels.lib("decode_attention")
-    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
-            ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr())
-    tail = (*(t.data_ptr() for t in parts), out.data_ptr(), B, H, Hkv, D, S, chunk,
-            kv_type)
+    hb = hb_split(S, D, Hkv, k_cache.dtype, B, scales_t, fresh)
+    if hb:
+        nsplit = -(-S // hb)
+        part_m = torch.empty((B, H, nsplit), dtype=torch.float32, device=q.device)
+        part_l = torch.empty_like(part_m)
+        part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32, device=q.device)
+        rc = lib.decode_attention_hb_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
+            ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, H,
+            Hkv, D, S, hb, kv_type, float(scale), kernels.stream_ptr(q.device))
+        kernels.check(rc, "decode_attention_hb")
+        kernels.count("decode_attention_hb")
+        return out
     if fresh:
         slot = slot.reshape(B)
         _check_fresh(q, k_new, v_new, slot, Hkv)
-        rc, name = lib.decode_attention_fresh_launch(
-            *args, k_new.data_ptr(), v_new.data_ptr(), slot.data_ptr(), *tail, 0,
-            float(scale), kernels.stream_ptr(q.device)), "decode_attention_fresh"
-    elif hb:
-        rc, name = lib.decode_attention_hb_launch(
-            *args, *tail, float(scale), kernels.stream_ptr(q.device)), "decode_attention_hb"
-    else:
-        rc, name = lib.decode_attention_launch(
-            *args, *tail, float(scale), kernels.stream_ptr(q.device)), "decode_attention"
-    kernels.check(rc, name)
-    kernels.count(name)
-    return out
+    return decode_launch(lib, "decode_attention_fresh" if fresh else "decode_attention", q,
+                         k_cache, v_cache, k_scale, v_scale, kv_pos, q_pos, inv_freq_e, out,
+                         S, kv_type, scale, split, (k_new, v_new, slot) if fresh else None)
 
 
 def decode_attention_write(
@@ -487,6 +580,7 @@ def decode_attention_write(
     v_scale: torch.Tensor | None = None,
     logit_scale: float | None = None,
     mscale: float = 1.0,
+    split: int | None = None,  # slots per split, for measuring only (decode_plan)
 ) -> torch.Tensor:
     """Kernel P: fused single-token attention that also quantizes the fresh
     K/V row and writes it (codes and scales, or the values) into the store,
@@ -514,17 +608,10 @@ def decode_attention_write(
         "v_scale": (v_scale, (n, Hkv), torch.float32),
         "kv_pos": (kv_pos, (B, S), None), "inv_freq_e": (inv_freq_e, (D,), None)})
     _check_fresh(q, k_new, v_new, slot, Hkv)
-    chunk = decode_split(B, Hkv, S)
-    parts = _partials(B, H, D, -(-S // chunk), q.device)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
-    rc = kernels.lib("decode_attention").decode_attention_fresh_launch(
-        q.data_ptr(), k_store.data_ptr(), v_store.data_ptr(), ptr(k_scale), ptr(v_scale),
-        kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), slot.data_ptr(), *(t.data_ptr() for t in parts), out.data_ptr(),
-        B, H, Hkv, D, S, chunk, kv_type, 1, float(scale), kernels.stream_ptr(q.device))
-    kernels.check(rc, "decode_attention_write")
-    kernels.count("decode_attention_write")
-    return out
+    return decode_launch(kernels.lib("decode_attention"), "decode_attention_write", q,
+                         k_store, v_store, k_scale, v_scale, kv_pos, q_pos, inv_freq_e, out,
+                         S, kv_type, scale, split, (k_new, v_new, slot), write=1)
 
 
 def prefill_attention(

@@ -53,8 +53,7 @@ SIGNATURES = {
         "dequant_tile_shape": [_I, _P],
     },
     "decode_attention": {
-        "decode_attention_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
-        "decode_attention_fresh_launch": [_P] * 15 + [_I] * 8 + [_F, _P],
+        "decode_attention_launch": [_P] * 14 + [_I] * 9 + [_F, _P],
         "decode_attention_hb_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
         "prefill_attention_launch": [_P] * 18 + [_I] * 9 + [_F, _P],
     },
@@ -66,7 +65,7 @@ SIGNATURES = {
         "casts_launch": [_I, _P, _P, _P],
     },
     "paged_attention": {
-        "paged_decode_attention_launch": [_P] * 13 + [_I] * 8 + [_F, _P],
+        "paged_decode_attention_launch": [_P] * 12 + [_I] * 9 + [_F, _P],
         "paged_prefill_attention_launch": [_P] * 19 + [_I] * 10 + [_F, _P],
     },
 }

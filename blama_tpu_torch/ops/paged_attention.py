@@ -14,10 +14,10 @@ pass over the row's LIVE pages per step, and pages the row does not own are
 never read.
 
 Numerics/determinism: the device code is the dense kernels' with a paged
-address. E splits the logical row MP*G by the same `decode_split` as kernel
-C, walks slots in the same order and combines the splits in the same order;
-F relates to D the same way. Unmapped pages are skipped, an exact no-op under
-the online softmax. So the output is bit-identical to the dense fused kernel
+address. E splits the logical row MP*G by the same `decode_plan` as kernel
+C, walks slots in the same order and folds the splits in the same order;
+F relates to D the same way. Unmapped pages are not read, an exact no-op
+under the online softmax. So the output is bit-identical to the dense fused kernel
 over the same logical row: physical page placement cannot affect logits
 (verification contract; held by chip_smoke.py on the card, and on the CPU
 the plain version below equals the dense plain version exactly).
@@ -42,10 +42,9 @@ def supports(page_size: int, head_dim: int, k_dtype) -> bool:
     """Whether the paged route serves this pool geometry. The gate is the
     reference's, argument for argument (pages of a multiple of 128 slots;
     `k_dtype` decides nothing there either), so the same pool takes the same
-    route in both packages; kernels E and F need only whole 32-slot tiles per
-    page, over an INT8, bf16 or f32 pool. What the gate admits but the
-    kernels were not built for (a head size outside 64/128/256) is refused on
-    a card where the pool is created: decode_attention.require_kernel_geometry."""
+    route in both packages; kernels E and F take every head dim it admits,
+    over an INT8, bf16 or f32 pool (a store of another type is refused on a
+    card where the pool is created: decode_attention.require_kernel_geometry)."""
     return (
         page_size % 128 == 0
         and head_dim % 2 == 0
@@ -115,6 +114,7 @@ def paged_decode_attention(
     v_scale: torch.Tensor | None = None,
     logit_scale: float | None = None,
     mscale: float = 1.0,
+    split: int | None = None,  # slots per split, for measuring only (decode_plan)
 ) -> torch.Tensor:
     """Kernel E: fused single-token paged attention; [B, 1, H, D] in q.dtype."""
     B, T, H, D = q.shape
@@ -129,23 +129,12 @@ def paged_decode_attention(
     q_pos = q_pos.reshape(B).contiguous()
     B, T, H, D, Hkv, MP, G, kv_type = _check_cuda(
         q, k_pool, v_pool, pool_pos, page_table, q_pos, inv_freq_e, k_scale, v_scale)
-    S = MP * G
-    chunk = dattn.decode_split(B, Hkv, S)     # kernel C's split of the same row
-    nsplit = -(-S // chunk)
-    dev = q.device
-    part_m = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32, device=dev)
-    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
-    rc = kernels.lib("paged_attention").paged_decode_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), dattn.ptr(k_scale),
-        dattn.ptr(v_scale), pool_pos.data_ptr(), page_table.data_ptr(),
-        q_pos.data_ptr(), inv_freq_e.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, H, Hkv, D,
-        MP, G, chunk, kv_type, float(scale), kernels.stream_ptr(dev))
-    kernels.check(rc, "paged_decode_attention")
-    kernels.count("paged_decode_attention")
-    return out
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    # kernel C's plan of the same logical row
+    return dattn.decode_launch(kernels.lib("paged_attention"), "paged_decode_attention", q,
+                               k_pool, v_pool, k_scale, v_scale, pool_pos, q_pos, inv_freq_e,
+                               out, MP * G, kv_type, scale, split,
+                               paged=(page_table, MP, G))
 
 
 def paged_prefill_attention(

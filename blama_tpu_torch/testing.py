@@ -177,6 +177,12 @@ MODEL_PRESETS = {
     # ~0.3B debug size
     "debug-0.3b": dict(n_layer=8, n_embd=1024, n_head=16, n_head_kv=4,
                        n_ff=2816, n_ctx=2048, n_vocab=32000),
+    # a llama-architecture file at Phi-3-mini's widths
+    # (microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072, 32 heads,
+    # 32 KV heads, FFN 8192, vocab 32064, rope theta 10000, 4k context):
+    # head dim 96, one query head per KV head
+    "phi3-mini": dict(n_layer=32, n_embd=3072, n_head=32, n_head_kv=32,
+                      n_ff=8192, n_ctx=4096, n_vocab=32064, rope_freq_base=10000.0),
 }
 
 

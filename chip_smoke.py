@@ -11,14 +11,21 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    the card, at the Llama-3-8B shapes the main paths give it (kernel A at 1
    and 8 rows, the lm head included; kernel B at 64, 128 and 2048 flattened
    rows; attention at T = 1, 8, 128 and 256 on one row and on 8), and times
-   it (median of CUDA event timings, L2 flushed before every launch) beside
-   its bound, its plain version and one PyTorch library call computing the
-   same function. The attention kernels run on INT8, bf16 and f32 stores; the
-   paged kernels E and F must equal the dense C and D bit for bit over the
-   same logical rows under scrambled page placement; D's solo INT8 chunk of
-   128 must equal the same queries in 16 chunks of 8, and every serving
-   chunk's row 3 run alone its row of the 8-row batch; D also at T = 512
-   (one row), and under each fixed split width of the prefill sweep. Kernel B also at 8 and
+   it (median of CUDA event timings, L2 flushed before every launch; the
+   decode kernels C, E, N, O and P, whose single launch is short enough for
+   host gaps to dominate it, in a CUDA graph, GraphTimer, with the event
+   figure beside) beside its bound, its plain version and one PyTorch
+   library call computing the same function. The attention kernels run on
+   INT8, bf16 and f32 stores; the paged kernels E and F must equal the dense
+   C and D bit for bit over the same logical rows under scrambled page
+   placement; D's solo INT8 chunk of 128 must equal the same queries in 16
+   chunks of 8, and every serving chunk's row 3 run alone its row of the
+   8-row batch; a decode row (C and E) run alone, and alone with S padded
+   from 2048 to 4096, must equal its row of the 8-row step; C at one row
+   and the preset's full context, S = 8192; C-F at head dims 80, 96 and 100
+   and at 64 and 33 query heads over one KV head (the geometry phase); D
+   also at T = 512 (one row), and under each fixed split width of the
+   prefill sweep, C under each of the decode sweep. Kernel B also at 8 and
    16 rows, every row of its 8- to 128-row outputs equal bit for bit to the
    one-row kernel's, and every tile shape of the plan forced at 8 to 2048
    rows (the tile sweep: the evidence for tile_plan, each shape's bits equal
@@ -82,6 +89,11 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    bit for bit (where a resumed row first leaves the uncontended tokens, the
    margin and the drift there are logged); dense rows (kernels C and D on bf16)
    must give the paged run's tokens;
+   then the head-dim-96 phase: a llama-architecture file at Phi-3-mini's
+   widths (head dim 96, 32 / 32 heads; testing.MODEL_PRESETS["phi3-mini"])
+   cut to HD96_LAYERS layers, `q4k_a8`, two solo requests on an INT8 cache
+   replayed at exactly 1.0 (C, D) and four behind the HTTP server on the
+   paged scheduler verified at 1.0 (E, F);
 5. engines: at full 8B width, `q4k_fused` (kernel B on f32 scales),
    `q4k_fused_k4` (H) and `q4k_a8_k4` (I, H) load the same Q4_K file at full
    depth, `q8_0_fused` (G) a synthesized Q8_0 file and `q4k_a8` a mixed Q4_K
@@ -122,7 +134,10 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    captured.
 
 Launch counts are set to 0 just before each path and read just after. Any
-failure raises and the script exits non-zero. The last line of standard
+failure raises and the script exits non-zero. `python3 chip_smoke.py
+--decode-timing DIR` runs only decode_timing, on the kernels of the tree at
+DIR (C, E, N, P and D timed at the 8B shapes, for a before / after in one
+call). The last line of standard
 output is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its launches, error and times. Detailed results also go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX or blama_tpu.
@@ -232,6 +247,7 @@ class Timer:
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.graph = GraphTimer(torch)
 
     def __call__(self, fn, reps: int = 15, warm: int = 2) -> float:
         torch = self.torch
@@ -248,6 +264,47 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+class GraphTimer:
+    """Median device time per call for kernels whose single launch is short
+    enough that host gaps inside an event pair dominate (kernels C, E, N,
+    P): the calls captured in one CUDA graph, an external event on each side
+    of each call, so no host gap lies inside a pair; the median over the
+    calls of `replays` replays. Either one call per copy of the inputs (the
+    copies together outrun the 50 MB L2, so each call finds its bytes in
+    device memory), or `reps` calls of one function with the L2 flushed
+    before each by a read of 256 MB (a read leaves no dirty lines to write
+    back during the call)."""
+
+    def __init__(self, torch, reps: int = 24, replays: int = 3):
+        self.torch, self.reps, self.replays = torch, reps, replays
+        self.flush = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
+
+    def __call__(self, calls, flush: bool) -> float:
+        torch = self.torch
+        if callable(calls):
+            calls = [calls] * self.reps
+        for fn in calls:            # libraries loaded, persistent buffers made
+            fn()
+        torch.cuda.synchronize()
+        pairs = [(torch.cuda.Event(enable_timing=True, external=True),
+                  torch.cuda.Event(enable_timing=True, external=True)) for _ in calls]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for (s, e), fn in zip(pairs, calls, strict=True):
+                if flush:
+                    self.flush.sum()
+                s.record()
+                fn()
+                e.record()
+        per = []
+        for _ in range(self.replays):
+            graph.replay()
+            torch.cuda.synchronize()
+            per += [s.elapsed_time(e) for s, e in pairs]
+        del graph
+        return statistics.median(per)
 
 
 def check_close(name, out, ref, tol):
@@ -1155,22 +1212,24 @@ def _attn_row(torch, timer, name, label, kernel, plain, q, dense, q_pos, inv, ex
     torch.cuda.synchronize()
     ref = plain()
     err = check_close(f"{name} {label}", out, ref, ATTN_TOL)
-    seen = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_pos[:, :, None])    # [B, T, S]
-    pairs, slots = int(seen.sum()), int(seen.any(1).sum())
-    per_slot = Hkv * (2 * D * k.element_size() + (8 if ks is not None else 0))
-    nbytes = slots * per_slot + pos.numel() * 4 + 2 * q.numel() * 2 + q_pos.numel() * 4 \
-        + D * 4 + extra_bytes
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * H * D * pairs / BF16_FLOPS
+    bound, bound_by, slots, pairs = _attn_bound_ms(q, k, ks, pos, q_pos, extra_bytes)
     kd, vd, mask = _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H)
     qh = q.permute(0, 2, 1, 3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = lambda: sdpa(qh, kd, vd, attn_mask=mask)   # noqa: E731
     row = dict(
         kernel=name, shape=f"{label} B={B} T={T} H={H} Hkv={Hkv} D={D} S={k.shape[1]} "
                            f"slots={slots} pairs={pairs}",
         max_abs_err=err, differ_share=(out != ref).float().mean().item(),
         kernel_ms=timer(kernel), plain_ms=timer(plain, reps=5, warm=1),
-        library_ms=timer(lambda: sdpa(qh, kd, vd, attn_mask=mask)),
-        bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+        library_ms=timer(library), bound_ms=bound, bound_by=bound_by)
+    if T == 1:
+        # a decode call is short: the single launch's event pair holds host
+        # gaps, so the line carries the graph-timed figures (GraphTimer, the
+        # L2 flushed before each call); the single-launch ones stay beside
+        row.update(event_ms=row["kernel_ms"], library_event_ms=row["library_ms"],
+                   kernel_ms=timer.graph(kernel, flush=True),
+                   library_ms=timer.graph(library, flush=True))
     log(f"{name} {row}")
     return row, out
 
@@ -1201,6 +1260,19 @@ def attention_phase(torch, timer):
     pos[0, 1900:] = -1
     pos[0, 1200:1260] = 4000
     for tag in STORES:
+        # one row at the 8B preset's full context, S = 8192
+        pos_l = torch.arange(8192, dtype=torch.int32, device="cuda")[None].clone()
+        pos_l[0, ::37] = -1
+        kl, vl, ksl, vsl = rand_store((1, 8192, Hkv, D), tag)
+        qp_l = torch.tensor([[8191]], dtype=torch.int32, device="cuda")
+        q = torch.randn((1, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        rows.append(_attn_row(
+            torch, timer, "decode_attention", f"full-context {tag}",
+            lambda: da.decode_attention(q, kl, vl, qp_l[:, 0], pos_l, inv, ksl, vsl,
+                                        mscale=mscale),
+            lambda: da.flash_attention_plain(q, kl, vl, qp_l, pos_l, inv, ksl, vsl, scale),
+            q, (kl, vl, ksl, vsl, pos_l), qp_l, inv, 0)[0])
+        del kl, vl, ksl, vsl
         k, v, ks, vs = rand_store((B, S, Hkv, D), tag)
         dense = (k, v, ks, vs, pos)
         q_pos = torch.tensor([[1800]], dtype=torch.int32, device="cuda")
@@ -1299,6 +1371,10 @@ def attention_phase(torch, timer):
             if not (out_p[1] == 0).all():
                 raise AssertionError(f"{names[0]} {tag} T={T}: idle row is not zero")
             log(f"{names[0]} {tag} T={T}: bit-identical to {names[1]} under scrambled pages")
+            if T == 1:
+                _decode_row_invariance(torch, da, pa, tag, q, kd, vd, ksd, vsd, pos_v, qp,
+                                       inv, mscale, out_d, (kp, vp, ksp, vsp, pool_pos, table),
+                                       out_p)
             if T > 1:
                 # a row's bits do not depend on the batch: row 3 alone
                 one = [None if a is None else a[3:4].contiguous()
@@ -1326,6 +1402,399 @@ def attention_phase(torch, timer):
                                          "bring the outputs closer to the plain version")
             rows += [r_p, r_d]
     return rows
+
+
+def _decode_row_invariance(torch, da, pa, tag, q, kd, vd, ksd, vsd, pos, qp, inv, mscale,
+                           out_d, pool, out_p):
+    """Kernels C and E give a row the bits it has alone: row 3 of the 8-row
+    decode step run alone, and alone with S padded from 2048 to 4096 by
+    empty slots holding random K / V, equal its row of the batch; E's row 3
+    alone (its page-table row) equals E's batch row."""
+    one = [None if a is None else a[3:4].contiguous() for a in (q, kd, vd, qp, pos, ksd, vsd)]
+    alone = da.decode_attention(one[0], one[1], one[2], one[3][:, 0], one[4], inv, *one[5:],
+                                mscale=mscale)
+
+    def padded(a):
+        if a is None:
+            return None
+        extra = torch.full_like(a, -1) if a.dtype == torch.int32 else \
+            (torch.rand_like(a.float()) * 100).to(a.dtype)
+        return torch.cat([a, extra], dim=1).contiguous()
+
+    long = da.decode_attention(one[0], padded(one[1]), padded(one[2]), one[3][:, 0],
+                               padded(one[4]), inv, padded(one[5]), padded(one[6]),
+                               mscale=mscale)
+    kp, vp, ksp, vsp, pool_pos, table = pool
+    paged = pa.paged_decode_attention(one[0], kp, vp, pool_pos, table[3:4].contiguous(),
+                                      one[3][:, 0], inv, ksp, vsp, mscale=mscale)
+    for what, got, want in (("C alone", alone, out_d[3:4]), ("C alone at S=4096", long, out_d[3:4]),
+                            ("E alone", paged, out_p[3:4])):
+        if not torch.equal(got, want):
+            raise AssertionError(f"decode {tag}: row 3 {what} differs from its row of the "
+                                 "8-row batch")
+    log(f"decode {tag}: row 3 alone, alone at S=4096 and E's row alone bit-identical to "
+        "the 8-row batch's")
+
+
+# head geometries the reference's fused gates admit beyond the 8B one: head
+# dims that are not a padded width (Phi-2's 80, Phi-3's 96, open_llama_3b's
+# 100) at 32 / 8 heads, and more than 32 query heads per kv head at D = 128
+GEOMETRIES = ((32, 8, 80), (32, 8, 96), (32, 8, 100), (64, 1, 128), (33, 1, 128))
+
+
+def geometry_phase(torch, timer):
+    """Kernels C, D, E and F at GEOMETRIES on INT8, bf16 and f32 stores: the
+    serving shape's 8 rows (S = 2048) on a scrambled pool of 128-slot pages,
+    decode (T = 1) and a 128-token chunk, each within ATTN_TOL of its plain
+    version, E equal to C and F to D bit for bit over the same logical rows."""
+    from blama_tpu_torch.ops import decode_attention as da
+    from blama_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows = []
+    for H, Hkv, D in GEOMETRIES:
+        inv, mscale = da.effective_inv_freq(D, D, 10000.0)
+        inv = inv.cuda()
+        scale = D ** -0.5
+        for tag in STORES:
+            lens, G, (kp, vp, ksp, vsp, pool_pos, table), (kd, vd, ksd, vsd, pos_v) = \
+                _serving_pool(torch, gen, tag, Hkv, D)
+            dense = (kd, vd, ksd, vsd, pos_v)
+            label = f"geometry {tag}"
+            for T in (1, 128):
+                qp = torch.stack([torch.arange(T, dtype=torch.int32) + max(n - T, 0)
+                                  for n in lens]).cuda()
+                q = torch.randn((8, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+                if T == 1:
+                    paged = lambda: pa.paged_decode_attention(          # noqa: E731
+                        q, kp, vp, pool_pos, table, qp[:, 0], inv, ksp, vsp, mscale=mscale)
+                    dense_fn = lambda: da.decode_attention(             # noqa: E731
+                        q, kd, vd, qp[:, 0], pos_v, inv, ksd, vsd, mscale=mscale)
+                    names = ("paged_decode_attention", "decode_attention")
+                else:
+                    paged = lambda: pa.paged_prefill_attention(         # noqa: E731
+                        q, kp, vp, pool_pos, table, qp, inv, ksp, vsp, mscale=mscale)
+                    dense_fn = lambda: da.prefill_attention(            # noqa: E731
+                        q, kd, vd, qp, pos_v, inv, ksd, vsd, mscale=mscale)
+                    names = ("paged_prefill_attention", "prefill_attention")
+                r_p, out_p = _attn_row(
+                    torch, timer, names[0], label, paged,
+                    lambda: pa.paged_attention_plain(q, kp, vp, pool_pos, table, qp, inv, ksp,
+                                                     vsp, scale),
+                    q, dense, qp, inv, table.numel() * 4)
+                r_d, out_d = _attn_row(
+                    torch, timer, names[1], label, dense_fn,
+                    lambda: da.flash_attention_plain(q, kd, vd, qp, pos_v, inv, ksd, vsd, scale),
+                    q, dense, qp, inv, 0)
+                if not torch.equal(out_p, out_d):
+                    raise AssertionError(f"{names[0]} {label} T={T}: differs from {names[1]}")
+                rows += [r_p, r_d]
+            log(f"{label} H={H} Hkv={Hkv} D={D}: C, D within ATTN_TOL; E = C and F = D bit "
+                "for bit")
+            del kp, vp, ksp, vsp, kd, vd, ksd, vsd
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _serving_pool(torch, gen, tag, Hkv, D):
+    """The serving shape's 8 rows (lengths `lens`, row 1 idle, holes and
+    slots past every query) on a scrambled pool of 128-slot pages (16 a row)
+    of store type `tag`, and the same logical rows gathered dense:
+    (lens, G, pool (k, v, ks, vs, pool_pos, table), dense (k, v, ks, vs, pos))."""
+    from blama_tpu_torch.ops import paged_kv as pkv
+
+    B, G, MP, P = 8, 128, 16, 160
+    lens = [300, 0, 1500, 2047, 129, 640, 256, 1000]
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(3)).tolist()
+    table = torch.full((B, MP), -1, dtype=torch.int32)
+    pool_pos = torch.randint(0, 2048, (P, G), generator=torch.Generator().manual_seed(4),
+                             dtype=torch.int32)
+    for b, n in enumerate(lens):
+        for lp in range(-(-n // G)):
+            page = perm.pop()
+            table[b, lp] = page
+            p = torch.arange(lp * G, (lp + 1) * G, dtype=torch.int32)
+            pool_pos[page] = torch.where(p < n, p, -1)
+    pool_pos[table[2, 3], 5:40] = -1
+    pool_pos[table[3, 7], 10:20] = 5000
+    table, pool_pos = table.cuda(), pool_pos.cuda()
+    kp, vp, ksp, vsp = _rand_store(torch, gen, (P, G, Hkv, D), tag)
+    mapped = torch.repeat_interleave(table >= 0, G, dim=1)
+    pos_v = torch.where(mapped, pool_pos.reshape(-1)[pkv.view_slot_map(table, G)],
+                        -1).to(torch.int32).contiguous()
+    kd, vd, ksd, vsd = _gather(pkv, table, G, kp, vp, ksp, vsp)
+    return lens, G, (kp, vp, ksp, vsp, pool_pos, table), (kd, vd, ksd, vsd, pos_v)
+
+
+# the fixed split widths the decode sweep weighs
+DECODE_SPLITS = (64, 128, 256, 512, 1024)
+
+
+def decode_split_sweep(torch, timer):
+    """Kernel C under each fixed split width (the split moves a row's bits,
+    so the width is one constant, ops/decode_attention.DECODE_SPLIT; the
+    wrapper's `split=` is for this measurement): one row at S = 2048 and
+    8192 (INT8) and the serving step's 8 rows (bf16), graph-timed with the
+    L2 flushed; every width within ATTN_TOL of the plain version."""
+    from blama_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    H, Hkv, D = 32, 8, 128
+    inv = da.effective_inv_freq(D, D, 500000.0)[0].cuda()
+    lens = [300, 0, 1500, 2047, 129, 640, 256, 1000]
+    cases = []
+    for S in (2048, 8192):
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].clone()
+        pos[0, ::37] = -1
+        cases.append(("solo int8", [S - 1], pos))
+    pos8 = torch.full((8, 2048), -1, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        pos8[b, :n] = torch.arange(n, dtype=torch.int32)
+    cases.append(("serving bf16", [max(n - 1, 0) for n in lens], pos8.cuda()))
+    rows = []
+    for label, ends, pos in cases:
+        B, S = pos.shape
+        k, v, ks, vs = _rand_store(torch, gen, (B, S, Hkv, D), label.split()[1])
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        qp = torch.tensor(ends, dtype=torch.int32, device="cuda")
+        ref = da.flash_attention_plain(q, k, v, qp[:, None], pos, inv, ks, vs, D ** -0.5)
+        ms = {}
+        for split in DECODE_SPLITS:
+            run = lambda w=split: da.decode_attention(q, k, v, qp, pos, inv, ks, vs,  # noqa
+                                                      split=w)
+            check_close(f"decode split {split} {label} S={S}", run(), ref, ATTN_TOL)
+            ms[str(split)] = timer.graph(run, flush=True)
+        rows.append(dict(shape=f"{label} B={B} S={S}", plan=str(da.DECODE_SPLIT), ms=ms))
+        log(f"decode split sweep {rows[-1]}")
+    return rows
+
+
+def _attn_bound_ms(q, k, ks, pos, q_pos, extra_bytes=0):
+    """The least time for one attention call: each visible slot's K and V
+    (and scales) read once, the positions, q and the output, against the
+    bf16 tensor rate for 4 H D flops a visible pair. Returns (ms, what
+    bounds it, visible slots, visible pairs)."""
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    seen = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_pos[:, :, None])
+    pairs, slots = int(seen.sum()), int(seen.any(1).sum())
+    per_slot = Hkv * (2 * D * k.element_size() + (8 if ks is not None else 0))
+    nbytes = slots * per_slot + pos.numel() * 4 + 2 * q.numel() * 2 + q_pos.numel() * 4 \
+        + D * 4 + extra_bytes
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * H * D * pairs / BF16_FLOPS
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", slots, pairs
+
+
+def decode_timing(torch, da, pa, copies: int = 24):
+    """Kernels C, E, N and P at the 8B decode shapes (H32 / Hkv8 / D128) on
+    INT8, bf16 and f32 stores, each timed four ways: `event_ms` (Timer: one
+    host call between two events, L2 flushed before it), `graph_ms`
+    (GraphTimer over `copies` copies of the store: device time per call, no
+    host gap, cold L2), `graph_flushed_ms` (GraphTimer over one copy, the L2
+    flushed before each call: the figure the kernel line carries) and
+    `graph_warm_ms` (one copy, no flush: L2 warm), beside the bound and SDPA
+    over the dequantized rows (graph-timed over four copies, and
+    event-timed); and kernel D at one row x T = 128 and 8 rows x T = 128 /
+    256, event-timed as its kernel rows are. `da` and `pa` are the dense and
+    paged attention modules, so the same timing runs on another tree's
+    kernels. Shapes: one row at S = 2048 (1694 visible) and S = 8192; 8 rows
+    (5827 visible) dense (C) and on a scrambled pool of 128-slot pages (E);
+    N and P at the modes phase's one row and 8 rows (one a pad row)."""
+    from blama_tpu_torch.ops import paged_kv as pkv
+
+    timer = Timer(torch)
+    gtimer = timer.graph
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    H, Hkv, D = 32, 8, 128
+    inv, mscale = da.effective_inv_freq(D, D, 500000.0)
+    inv = inv.cuda()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+
+    def one_row(S):
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].clone()
+        if S == 2048:
+            pos[0, ::37] = -1
+            pos[0, 1900:] = -1
+            pos[0, 1200:1260] = 4000
+            return pos, torch.tensor([1800], dtype=torch.int32, device="cuda")
+        pos[0, ::37] = -1
+        return pos, torch.tensor([S - 1], dtype=torch.int32, device="cuda")
+
+    lens = [300, 0, 1500, 2047, 129, 640, 256, 1000]
+
+    def eight_rows():
+        pos = torch.full((8, 2048), -1, dtype=torch.int32)
+        for b, n in enumerate(lens):
+            pos[b, :n] = torch.arange(n, dtype=torch.int32)
+        pos[2, 3 * 128 + 5:3 * 128 + 40] = -1       # holes
+        pos[3, 7 * 128 + 10:7 * 128 + 20] = 5000    # slots past every query
+        return pos.cuda(), torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32,
+                                        device="cuda")
+
+    def record(label, kernel_name, run, q, store, pos, q_pos, extra_bytes=0, sdpa_rows=None):
+        """`run(i)` calls the kernel on copy i; `store` = (k, ks) of copy 0."""
+        calls = [lambda i=i: run(i) for i in range(copies)]
+        bound, by, slots, _ = _attn_bound_ms(q, store[0], store[1], pos, q_pos[:, None],
+                                             extra_bytes)
+        row = dict(kernel=kernel_name, shape=f"{label} B={q.shape[0]} S={pos.shape[1]} "
+                                             f"slots={slots}",
+                   event_ms=timer(lambda: run(0)), graph_ms=gtimer(calls, flush=False),
+                   graph_flushed_ms=gtimer(lambda: run(0), flush=True),
+                   graph_warm_ms=gtimer([lambda: run(0)] * copies, flush=False),
+                   bound_ms=bound, bound_by=by)
+        if sdpa_rows is not None:
+            qh = q.permute(0, 2, 1, 3)
+            row["library_event_ms"] = timer(lambda: sdpa(qh, *sdpa_rows[0]))
+            row["library_graph_ms"] = gtimer(
+                [lambda i=i: sdpa(qh, *sdpa_rows[i % len(sdpa_rows)]) for i in range(copies)],
+                flush=False)
+        log(f"decode timing {row}")
+        rows.append(row)
+
+    def sdpa_of(k, v, ks, vs, pos, q_pos):
+        return _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos[:, None], inv, H)
+
+    for tag in STORES:
+        # C, one row at S = 2048 and at the preset's full context, S = 8192
+        for S in (2048, 8192):
+            pos, q_pos = one_row(S)
+            stores = [_rand_store(torch, gen, (1, S, Hkv, D), tag) for _ in range(copies)]
+            q = torch.randn((1, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            run = lambda i, q=q, pos=pos, q_pos=q_pos, st=stores: da.decode_attention(  # noqa
+                q, st[i][0], st[i][1], q_pos, pos, inv, st[i][2], st[i][3], mscale=mscale)
+            lib = [sdpa_of(*st, pos, q_pos) for st in stores[:4]]
+            record(f"solo {tag}", "decode_attention", run, q, (stores[0][0], stores[0][2]),
+                   pos, q_pos, sdpa_rows=lib)
+            del stores, lib
+        # C (dense rows) and E (the same logical rows on a scrambled pool), 8 rows
+        pos, q_pos = eight_rows()
+        q = torch.randn((8, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        dense = [_rand_store(torch, gen, (8, 2048, Hkv, D), tag) for _ in range(copies)]
+        run = lambda i, q=q, pos=pos, q_pos=q_pos, st=dense: da.decode_attention(  # noqa
+            q, st[i][0], st[i][1], q_pos, pos, inv, st[i][2], st[i][3], mscale=mscale)
+        lib = [sdpa_of(*st, pos, q_pos) for st in dense[:4]]
+        record(f"serving {tag}", "decode_attention", run, q, (dense[0][0], dense[0][2]), pos,
+               q_pos, sdpa_rows=lib)
+        del lib
+        G, MP, P = 128, 16, 160
+        perm = torch.randperm(P, generator=torch.Generator().manual_seed(3)).tolist()
+        table = torch.full((8, MP), -1, dtype=torch.int32)
+        for b, n in enumerate(lens):
+            for lp in range(-(-n // G)):
+                table[b, lp] = perm.pop()
+        table = table.cuda()
+        slot_map = pkv.view_slot_map(table, G).reshape(-1)
+        mapped = torch.repeat_interleave(table >= 0, G, dim=1).reshape(-1)
+        pool_pos = torch.full((P * G,), -1, dtype=torch.int32, device="cuda")
+        pool_pos[slot_map[mapped]] = pos.reshape(-1)[mapped]
+        pool_pos = pool_pos.view(P, G)
+        pools = []
+        for k, v, ks, vs in dense:
+            out = []
+            for t in (k, v, ks, vs):
+                if t is None:
+                    out.append(None)
+                    continue
+                flat = torch.zeros((P * G, *t.shape[2:]), dtype=t.dtype, device="cuda")
+                flat[slot_map[mapped]] = t.reshape(-1, *t.shape[2:])[mapped]
+                out.append(flat.view(P, G, *t.shape[2:]))
+            pools.append(out)
+        del dense
+        run = lambda i, q=q, q_pos=q_pos, pl=pools, tb=table, pp=pool_pos: (  # noqa: E731
+            pa.paged_decode_attention(q, pl[i][0], pl[i][1], pp, tb, q_pos, inv, pl[i][2],
+                                      pl[i][3], mscale=mscale))
+        record(f"serving {tag}", "paged_decode_attention", run, q, (pools[0][0], pools[0][2]),
+               pos, q_pos, extra_bytes=table.numel() * 4)
+        del pools
+        # N and P at the modes phase's shapes: the fresh row at its slot
+        for mlens in ([1694], [300, 1500, 2047, 129, 640, 256, 1000, None]):
+            B, S = len(mlens), 2048
+            slot = torch.tensor([S if n is None else n for n in mlens], dtype=torch.int32,
+                                device="cuda")
+            q_pos = torch.where(slot < S, slot, 0)
+            pos = torch.full((B, S), -1, dtype=torch.int32)
+            for b, n in enumerate(mlens):
+                if n:
+                    pos[b, :n + 1] = torch.arange(n + 1, dtype=torch.int32)
+            pos[:, 7::37] = -1
+            pos = pos.cuda()
+            stores = [_rand_store(torch, gen, (B * S + 1, Hkv, D), tag) for _ in range(copies)]
+            kn, vn = (torch.randn((B, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+                      for _ in range(2))
+            q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+
+            def rows_of(t):
+                return None if t is None else t[:B * S].view(B, S, *t.shape[1:])
+
+            fresh = lambda i, q=q, pos=pos, q_pos=q_pos, st=stores, kn=kn, vn=vn, sl=slot: (  # noqa
+                da.decode_attention(q, rows_of(st[i][0]), rows_of(st[i][1]), q_pos, pos, inv,
+                                    rows_of(st[i][2]), rows_of(st[i][3]), mscale=mscale,
+                                    k_new=kn, v_new=vn, slot=sl))
+            write = lambda i, q=q, pos=pos, q_pos=q_pos, st=stores, kn=kn, vn=vn, sl=slot: (  # noqa
+                da.decode_attention_write(q, st[i][0], st[i][1], q_pos, pos, inv, kn, vn, sl,
+                                          st[i][2], st[i][3], mscale=mscale))
+            row_bytes = 2 * B * Hkv * D * 2
+            k0, ks0 = rows_of(stores[0][0]), rows_of(stores[0][2])
+            record(f"modes {tag}", "decode_attention_fresh", fresh, q, (k0, ks0), pos, q_pos,
+                   extra_bytes=row_bytes)
+            written = 2 * B * Hkv * (D * k0.element_size() + (4 if ks0 is not None else 0))
+            record(f"modes {tag}", "decode_attention_write", write, q, (k0, ks0), pos, q_pos,
+                   extra_bytes=row_bytes + written)
+            del stores
+        torch.cuda.empty_cache()
+    # D (dense prefill) at the kernel phase's shapes, event-timed as its
+    # kernel rows are: the same measurement on another tree's kernels
+    for tag in STORES:
+        for B, T in ((1, 128), (8, 128), (8, 256)):
+            pos, _ = eight_rows() if B == 8 else one_row(2048)
+            k, v, ks, vs = _rand_store(torch, gen, (B, 2048, Hkv, D), tag)
+            ends = lens if B == 8 else [1800]
+            qp = torch.stack([torch.arange(T, dtype=torch.int32) + max(n - T, 0)
+                              for n in ends]).cuda()
+            q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            row = dict(kernel="prefill_attention", shape=f"{tag} B={B} T={T} S=2048",
+                       event_ms=timer(lambda: da.prefill_attention(q, k, v, qp, pos, inv, ks, vs,
+                                                                   mscale=mscale)))
+            log(f"decode timing {row}")
+            rows.append(row)
+    return rows
+
+
+def decode_timing_main(root: str) -> int:
+    """`python3 chip_smoke.py --decode-timing ROOT`: decode_timing on the
+    kernels of the tree at ROOT (this tree: `.`), results printed and written
+    to chiprun_out/decode_timing-<name of ROOT>.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from blama_tpu_torch.ops import decode_attention as da
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.ops import paged_attention as pa
+
+    if not Path(da.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {da.__file__}, not the tree at {root}")
+    smi = nvidia_smi()
+    log(smi)
+    build_s = kernels.build_all()
+    log(f"kernels of {root} built in {build_s:.1f} s")
+    clocks = lambda: subprocess.run(  # noqa: E731
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
+    before = clocks()
+    with torch.no_grad():
+        rows = decode_timing(torch, da, pa)
+    out = dict(nvidia_smi=smi, tree=str(root), build_s=build_s,
+               clocks_before=before, clocks_after=clocks(), rows=rows)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"decode_timing-{root.name}.json").write_text(json.dumps(out, indent=1))
+    log(f"clocks (sm, mem, power, temperature) before / after: {before} / {out['clocks_after']}")
+    return 0
 
 
 # the attention kernels' store types: int8 codes with f32 scales, bf16, f32
@@ -1612,6 +2081,64 @@ def solo_phase(torch, model, kind, record):
     del inst
     torch.cuda.empty_cache()
     return dict(requests=results), launches
+
+
+# the head-dim-96 phase: a llama-architecture file at Phi-3-mini's widths
+# (testing.MODEL_PRESETS), its depth cut to HD96_LAYERS layers
+HD96_PRESET, HD96_LAYERS = "phi3-mini", 4
+
+
+def head_dim_96_phase(torch, kind):
+    """Every head geometry the gates admit runs on the card, end to end: the
+    HD96_PRESET file (hidden 3072, 32 query and 32 KV heads, so head dim 96
+    and one query head per KV head; FFN 8192, vocab 32064), synthesized at
+    Q4_K from a seed and cut to HD96_LAYERS layers, loaded as `q4k_a8` with
+    fused attention. A solo Session on an INT8 cache proves and replays two
+    requests (128 and 5 prompt tokens, 16 tokens each) at exactly 1.0
+    (kernels C, D), then the model behind the HTTP server on the paged
+    scheduler verifies every response at exactly 1.0 (E, F)."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.testing import cached_llama_gguf
+
+    t0 = time.perf_counter()
+    path = cached_llama_gguf(HD96_PRESET, seed=7, n_layer=HD96_LAYERS)
+    model = Model(path, ModelParams(dtype="q4k_a8", attn="fused"))
+    cfg = model.config
+    log(f"head-dim-96: {HD96_PRESET} file at {cfg.n_layer} layers (cut), width {cfg.n_embd}, "
+        f"{cfg.n_head} / {cfg.n_head_kv} heads, head dim {cfg.head_dim_}, ready in "
+        f"{time.perf_counter() - t0:.1f} s on {kind}")
+    if cfg.head_dim_ != 96:
+        raise AssertionError(f"head-dim-96: the file's head dim is {cfg.head_dim_}")
+    try:
+        kernels.reset_launches()
+        inst = Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True,
+                                                  kv_dtype="int8"))
+        rng = np.random.default_rng(96)
+        results = []
+        for n_prompt, n_gen in ((128, 16), (5, 16)):
+            prompt = [1] + rng.integers(259, cfg.n_vocab, n_prompt - 1).tolist()
+            r = prove_and_verify(inst, prompt, n_gen)
+            log(f"head-dim-96 solo request {r}")
+            if r["score"] != 1.0:
+                raise AssertionError(f"head-dim-96: replay scored {r['score']}, not 1.0")
+            results.append(r)
+        del inst
+        torch.cuda.synchronize()
+        solo_l = dict(kernels.LAUNCHES)
+        require_launched(solo_l, ("decode_attention", "prefill_attention"),
+                         "the head-dim-96 solo path")
+        served, serve_l = _serve_and_verify(
+            torch, model, kind, needs=("paged_decode_attention", "paged_prefill_attention"),
+            where="head-dim-96 serving")
+    finally:
+        model.close()
+        del model
+        torch.cuda.empty_cache()
+    return dict(solo=results, serving=served, launches=dict(solo=solo_l, serving=serve_l))
 
 
 # the decode-attention modes (BLAMA_ATTN_*), each with its kernel, and the
@@ -2709,7 +3236,11 @@ def main() -> int:
         log(f"tile sweep took {time.perf_counter() - t_sweep:.1f} s")
         rows += engine_kernel_phase(torch, timer, np.random.default_rng(1))
         rows += attention_phase(torch, timer)
+        t_geo = time.perf_counter()
+        rows += geometry_phase(torch, timer)
+        log(f"geometry phase took {time.perf_counter() - t_geo:.1f} s")
         res["prefill_split_sweep"] = prefill_split_sweep(torch, timer)
+        res["decode_split_sweep"] = decode_split_sweep(torch, timer)
         rows += bank_kernel_phase(torch, timer, np.random.default_rng(2))
         rows += moe_dense_kernel_phase(torch, timer, np.random.default_rng(3))
         rows += tp_kernel_phase(torch, timer, np.random.default_rng(4))
@@ -2734,6 +3265,8 @@ def main() -> int:
         model.close()
         del model
         torch.cuda.empty_cache()
+        res["head_dim_96"] = head_dim_96_phase(torch, kind)
+        log(f"head-dim-96 phase done at {time.perf_counter() - t_start:.1f} s")
         tp0_records = {"q4k_a8": a8_record}
         res["engines"] = engines_phase(torch, kind, a8_record, tp0_records)
         del a8_record
@@ -2813,7 +3346,9 @@ def main() -> int:
             launches=line_launches[name], max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"])
-        for key in ("library_f32_ms", "bound_f32_ms", "bound_f32_by"):  # the exact tiles'
+        # the exact tiles' f32 yardsticks; the decode kernels' single-launch times
+        for key in ("library_f32_ms", "bound_f32_ms", "bound_f32_by", "event_ms",
+                    "library_event_ms"):
             if key in r:
                 entry[key] = r[key]
         if name == base and solo_l.get(base):
@@ -2833,4 +3368,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--decode-timing"]:
+        sys.exit(decode_timing_main(sys.argv[2] if len(sys.argv) > 2 else str(ROOT)))
     sys.exit(main())

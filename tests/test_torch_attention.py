@@ -126,10 +126,79 @@ def test_route_gates_match_jax():
 
 
 def test_decode_split_is_fixed_and_covers_cache():
-    for b, hkv, s in [(1, 8, 2048), (1, 2, 64), (4, 8, 4096), (1, 1, 32)]:
-        chunk = pda.decode_split(b, hkv, s)
-        assert chunk % pda.TILE_S == 0 and chunk * -(-s // chunk) >= s
-        assert chunk == pda.decode_split(b, hkv, s)
+    """The decode body's split is one width for every B, S and head
+    geometry: its boundaries sit at the same logical slots (multiples of
+    DECODE_SPLIT), whole grains, and the splits cover the cache."""
+    for b, hkv, s in [(1, 8, 2048), (1, 2, 64), (4, 8, 4096), (1, 1, 32), (8, 8, 8192),
+                      (3, 2, 1000)]:
+        split, heads, grid = pda.decode_plan(b, 4 * hkv, hkv, s, 128)
+        assert split == pda.DECODE_SPLIT and split % pda.DECODE_GRAIN == 0
+        assert grid[1] == -(-s // split) and split * grid[1] >= s > split * (grid[1] - 1)
+        assert (split, heads, grid) == pda.decode_plan(b, 4 * hkv, hkv, s, 128)
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 64])
+def test_decode_split_boundaries_are_fixed_logical_slots(b):
+    """A row's split boundaries do not move with the batch or with empty
+    slots appended: every S cuts at the same multiples of the width, so a
+    longer S only adds splits past the shorter one's last slot."""
+    bounds = {}
+    for s in (64, 96, 2048, 2050, 4096, 8192):
+        split, _, grid = pda.decode_plan(b, 32, 8, s, 128)
+        assert grid[0] == b * 8   # one CTA per (row, kv head): 4 heads fit a chunk
+        bounds[s] = [min(i * split, s) for i in range(grid[1] + 1)]
+    for short, long in [(2048, 4096), (2048, 8192), (64, 2048), (96, 2050)]:
+        cut = [x for x in bounds[long] if x < short] + [short]
+        assert bounds[short] == cut, (short, long)
+
+
+@pytest.mark.parametrize("h,hkv,d", [(32, 8, 128), (66, 2, 96), (64, 1, 128), (33, 1, 80),
+                                     (8, 8, 100), (16, 2, 256), (4, 1, 2)])
+def test_decode_plan_chunks_every_head_group(h, hkv, d):
+    """Any number of query heads per kv head: the group is cut into chunks of
+    at most `decode_heads` heads (one CTA each), which cover the group."""
+    split, heads, grid = pda.decode_plan(2, h, hkv, 512, d)
+    assert heads == pda.decode_heads(d, h // hkv) and heads in (4, 8)
+    assert heads == 4 or (h // hkv > 4 and pda.padded_head_dim(d) <= 128)
+    chunks = grid[0] // (2 * hkv)
+    assert chunks * heads >= h // hkv > (chunks - 1) * heads
+
+
+def test_padded_head_dims_cover_every_even_d():
+    """Every head dim the fused gates admit (even, <= 256) has a body whose
+    padded width holds it; the widths are the ones the bodies are built at,
+    and nothing else is accepted."""
+    for d in range(2, 257, 2):
+        dp = pda.padded_head_dim(d)
+        assert dp in pda.PADDED_HEAD_DIMS and d <= dp
+        assert all(w < d for w in pda.PADDED_HEAD_DIMS if w < dp)
+        assert pda.supports(2048, d, torch.int8)
+    for d in (0, 3, 97, 258, 320):
+        with pytest.raises(ValueError):
+            pda.padded_head_dim(d)
+
+
+def test_block_cap_rounds_to_whole_grains(monkeypatch):
+    """A BLAMA_ATTN_BLOCK_CAP below one grain still leaves a grain;
+    `split=` (measuring only) must be whole grains."""
+    monkeypatch.setattr(pda, "_BLOCK_CAP", 10)
+    assert pda.decode_plan(1, 32, 8, 2048, 128)[0] == pda.DECODE_GRAIN
+    assert pda.decode_plan(1, 32, 8, 2048, 128, split=512)[0] == 512
+    with pytest.raises(ValueError):
+        pda.decode_plan(1, 32, 8, 2048, 128, split=100)
+
+
+@pytest.mark.parametrize("g", [1, 4, 33, 64, 65, 130])
+def test_prefill_plan_slices_large_head_groups(g):
+    """Prefill packs tokens x heads into at most PREFILL_ROWS MMA rows; a
+    group of more heads runs one token a CTA over slices of PREFILL_ROWS
+    heads, and the grid covers every (token, head)."""
+    T = 24
+    tq, _, grid = pda.prefill_plan(2, T, 2 * g, 2, 2048)
+    slices = -(-g // pda.PREFILL_ROWS)
+    assert tq * min(g, pda.PREFILL_ROWS) <= pda.PREFILL_ROWS
+    assert (g <= pda.PREFILL_ROWS) or tq == 1
+    assert grid[1] == -(-T // tq) * slices and slices * pda.PREFILL_ROWS >= g
 
 
 # -- bf16 cache (the scheduler's store): kernels C and D read values, no scales
@@ -208,18 +277,20 @@ def test_cuda_wrappers_refuse_f32_cache():
 @pytest.mark.parametrize("case,ok", [
     (("cuda", 32, 8, 128, torch.bfloat16), True),
     (("cuda", 32, 8, 64, torch.int8), True),
-    (("cuda", 32, 8, 96, torch.bfloat16), False),    # the gates admit D=96
+    (("cuda", 32, 8, 96, torch.bfloat16), True),     # the gates admit D=96: served
     (("cuda", 32, 8, 128, torch.float32), True),     # the f32 store has kernels
-    (("cuda", 66, 2, 128, torch.bfloat16), False),   # 33 query heads per KV head
+    (("cuda", 66, 2, 128, torch.bfloat16), True),    # 33 query heads per KV head: served
     (("cpu", 4, 2, 16, torch.float32), True),        # the plain versions serve all
     (("cuda", 32, 8, 128, torch.float16), False),    # an f16 store has none
 ], ids=["bf16", "int8", "d96", "f32", "g33", "cpu", "f16"])
 def test_kernel_geometry_refused_at_construction(case, ok):
-    """What the route gates admit but kernels C-F were not built for is
-    refused for a card where the cache is created, not inside a step."""
+    """Every geometry the route gates admit is served by kernels C-F on a
+    card (D = 96 and 33 query heads per KV head among them); what no kernel
+    takes, an f16 store, is refused where the cache is created, not inside a
+    step."""
+    assert ppa.supports(128, case[3], case[4]) and pda.supports(2048, case[3], case[4])
     if ok:
         pda.require_kernel_geometry(*case)
     else:
-        assert ppa.supports(128, case[3], case[4]) and pda.supports(2048, case[3], case[4])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pda.require_kernel_geometry(*case)

@@ -234,13 +234,13 @@ def test_gates_match_jax(monkeypatch):
 
 
 def test_block_cap_caps_the_split(monkeypatch):
-    """BLAMA_ATTN_BLOCK_CAP caps kernel C's slots per split in whole tiles;
-    at its default no split of the repo's shapes moves."""
-    assert pda.decode_split(1, 8, 2048) == 64
-    assert pda.decode_split(64, 8, 2048) == 1024           # capped from 2048
+    """BLAMA_ATTN_BLOCK_CAP caps the decode kernels' slots per split in
+    whole grains; at its default the split is DECODE_SPLIT at every batch."""
+    assert pda.decode_plan(1, 32, 8, 2048, 128)[0] == pda.DECODE_SPLIT
+    assert pda.decode_plan(64, 32, 8, 2048, 128)[0] == pda.DECODE_SPLIT
     monkeypatch.setattr(pda, "_BLOCK_CAP", 100)
-    assert pda.decode_split(64, 8, 2048) == 96
-    assert pda.decode_split(1, 8, 2048) == 64
+    assert pda.decode_plan(64, 32, 8, 2048, 128)[0] == 64
+    assert pda.decode_plan(1, 32, 8, 2048, 128)[0] == 64
 
 
 # -- the slice: the modes through the port's entry points ----------------------

@@ -844,7 +844,8 @@ def test_kernels_c_d_bf16(cuda, b, t, h, hkv, d, s):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("t,g,d", [(1, 32, 64), (1, 128, 128), (8, 32, 128), (16, 64, 64)])
+@pytest.mark.parametrize("t,g,d", [(1, 32, 64), (1, 128, 128), (8, 32, 128), (16, 64, 64),
+                                   (1, 128, 96), (1, 128, 100), (8, 128, 80)])
 def test_kernels_e_f_equal_dense(cuda, int8, t, g, d):
     """Paged kernels on a scrambled pool: within tolerance of the plain
     version and bit-identical to the dense kernels over the gathered rows;
@@ -926,7 +927,8 @@ def _fresh_step(cache, slots, seed):
 @pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
 @pytest.mark.parametrize("b,h,hkv,d,s,slots", [
     (1, 32, 8, 128, 2048, [1700]), (3, 8, 2, 128, 96, [40, 96, 95]),
-    (2, 4, 2, 64, 64, [0, 63]), (2, 16, 4, 256, 128, [127, 31])])
+    (2, 4, 2, 64, 64, [0, 63]), (2, 16, 4, 256, 128, [127, 31]),
+    (2, 66, 2, 128, 640, [300, 639]), (2, 64, 1, 256, 512, [511, 512])])
 def test_kernels_n_p_equal_c_after_write(cuda, kv, b, h, hkv, d, s, slots):
     """N on the unwritten cache (the slot holding garbage) and P on it give
     kernel C's output after the cache write bit for bit, and P leaves the
@@ -1023,6 +1025,134 @@ def test_kernels_c_to_f_on_f32(cuda, t, g, d):
     _close(dense, da.flash_attention_plain(q, kd, vd, qp, pos_v, inv, None, None, d ** -0.5),
            ATTN_TOL)
     assert torch.equal(out, dense)
+
+
+# the head geometries the reference's fused gates admit beyond the 8B one:
+# head dims that are not a padded width (Phi-2's 80, Phi-3's 96,
+# open_llama_3b's 100; and 98, whose int8 rows are aligned to a pair only)
+# and more than 32 query heads per kv head (65: two head slices in prefill)
+NEW_GEOMETRIES = [(32, 8, 80), (32, 8, 96), (32, 8, 100), (8, 2, 98), (33, 1, 128),
+                  (64, 1, 128), (66, 2, 64), (65, 1, 64)]
+
+
+def _pool_of(kd, vd, ksd, vsd, pos, gsz, seed):
+    """The dense rows [B, S, ...] scattered over a pool of `gsz`-slot pages
+    in a random order (unmapped pages past each row's length; the spare pages
+    hold live-looking positions): (k, v, ks, vs, pool_pos, table) and the
+    logical positions the pool gives."""
+    b, s = pos.shape
+    mp = s // gsz
+    dev = kd.device
+    n_pages = b * mp + 4
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(seed)).tolist()
+    table = torch.full((b, mp), -1, dtype=torch.int32)
+    kp, vp = (torch.zeros((n_pages, gsz, *kd.shape[2:]), dtype=kd.dtype, device=dev)
+              for _ in range(2))
+    ksp = vsp = None
+    if ksd is not None:
+        ksp, vsp = (torch.zeros((n_pages, gsz, kd.shape[2]), device=dev) for _ in range(2))
+    pool_pos = torch.randint(0, s, (n_pages, gsz), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+    for r in range(b):
+        last = int((pos[r] >= 0).nonzero().max()) if (pos[r] >= 0).any() else -1
+        for lp in range(last // gsz + 1):
+            page = perm.pop()
+            table[r, lp] = page
+            sl = slice(lp * gsz, (lp + 1) * gsz)
+            kp[page], vp[page], pool_pos[page] = kd[r, sl], vd[r, sl], pos[r, sl]
+            if ksp is not None:
+                ksp[page], vsp[page] = ksd[r, sl], vsd[r, sl]
+    table = table.to(dev)
+    mapped = torch.repeat_interleave(table >= 0, gsz, dim=1)
+    return (kp, vp, ksp, vsp, pool_pos, table), torch.where(mapped, pos, -1).contiguous()
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("h,hkv,d", NEW_GEOMETRIES)
+def test_kernels_c_to_f_at_new_head_geometries(cuda, kv, h, hkv, d):
+    """C and D within ATTN_TOL of the plain version at every new head
+    geometry, on each store; E and F on a scrambled pool equal C and D over
+    the same logical rows bit for bit; two runs give the same bits."""
+    b, s, gsz = 3, 768, 128
+    lens = [700, 0, 300]
+    k, v, ks, vs, pos = _prefill_store(kv, b, s, hkv, d, lens, seed=d + h, device=cuda)
+    pool, pos = _pool_of(k, v, ks, vs, pos, gsz, seed=h)
+    inv = da.effective_inv_freq(d, d, 10000.0)[0].to(cuda)
+    for t in (1, 16):
+        q, qp = _prefill_queries(b, t, h, d, lens, seed=t + d, device=cuda)
+        ref = da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, d ** -0.5)
+        if t == 1:
+            out = da.decode_attention(q, k, v, qp[:, 0], pos, inv, ks, vs)
+            paged = pa.paged_decode_attention(q, *pool[:2], pool[4], pool[5], qp[:, 0], inv,
+                                              *pool[2:4])
+            again = da.decode_attention(q, k, v, qp[:, 0], pos, inv, ks, vs)
+        else:
+            out = da.prefill_attention(q, k, v, qp, pos, inv, ks, vs)
+            paged = pa.paged_prefill_attention(q, *pool[:2], pool[4], pool[5], qp, inv,
+                                               *pool[2:4])
+            again = da.prefill_attention(q, k, v, qp, pos, inv, ks, vs)
+        torch.cuda.synchronize()
+        _close(out, ref, ATTN_TOL)
+        assert torch.equal(out, paged) and torch.equal(out, again)
+        assert (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("h,hkv,d", [(32, 8, 128), (32, 8, 64), (16, 4, 256), (32, 8, 100),
+                                     (66, 2, 128)])
+def test_decode_row_invariance(cuda, kv, h, hkv, d):
+    """Kernels C and E: a row decoded alone equals the same row among 8 rows
+    bit for bit, and equals itself with S padded from 2048 to 4096 with empty
+    (random) slots; within ATTN_TOL of the plain version."""
+    s = 2048
+    k, v, ks, vs, pos = _prefill_store(kv, 8, s, hkv, d, PREFILL_LENS, seed=d + 3, device=cuda)
+    inv = da.effective_inv_freq(d, d, 500000.0)[0].to(cuda)
+    q, qp = _prefill_queries(8, 1, h, d, PREFILL_LENS, seed=d + 4, device=cuda)
+    qp = qp[:, 0].contiguous()
+    out = da.decode_attention(q, k, v, qp, pos, inv, ks, vs)
+    torch.cuda.synchronize()
+    _close(out, da.flash_attention_plain(q, k, v, qp[:, None], pos, inv, ks, vs, d ** -0.5),
+           ATTN_TOL)
+    row = lambda a: None if a is None else a[5:6].contiguous()   # noqa: E731
+    assert torch.equal(da.decode_attention(row(q), row(k), row(v), row(qp), row(pos), inv,
+                                           row(ks), row(vs)), out[5:6])
+
+    def padded(a):
+        if a is None:
+            return None
+        extra = torch.full_like(a[5:6], -1) if a.dtype == torch.int32 else \
+            (torch.rand_like(a[5:6].float()) * 100).to(a.dtype)
+        return torch.cat([a[5:6], extra], dim=1).contiguous()
+
+    assert torch.equal(da.decode_attention(row(q), padded(k), padded(v), row(qp), padded(pos),
+                                           inv, padded(ks), padded(vs)), out[5:6])
+    pool, pos_v = _pool_of(k, v, ks, vs, pos, 128, seed=d)
+    paged = pa.paged_decode_attention(q, *pool[:2], pool[4], pool[5], qp, inv, *pool[2:4])
+    assert torch.equal(paged, da.decode_attention(q, k, v, qp, pos_v, inv, ks, vs))
+    one = pa.paged_decode_attention(row(q), *pool[:2], pool[4], row(pool[5]), row(qp), inv,
+                                    *pool[2:4])
+    assert torch.equal(one, paged[5:6])
+
+
+@pytest.mark.parametrize("split", [64, 128, 512, 1024, 2048])
+def test_decode_split_width_for_measuring(cuda, split):
+    """The wrappers' `split=` (the split sweep's): every width within
+    ATTN_TOL of the plain version and replayed bit for bit; E equals C at
+    each width."""
+    h, hkv, d, s = 32, 8, 128, 2048
+    k, v, ks, vs, pos = _prefill_store("int8", 8, s, hkv, d, PREFILL_LENS, seed=9, device=cuda)
+    inv = da.effective_inv_freq(d, d, 500000.0)[0].to(cuda)
+    q, qp = _prefill_queries(8, 1, h, d, PREFILL_LENS, seed=10, device=cuda)
+    qp = qp[:, 0].contiguous()
+    out = da.decode_attention(q, k, v, qp, pos, inv, ks, vs, split=split)
+    _close(out, da.flash_attention_plain(q, k, v, qp[:, None], pos, inv, ks, vs, d ** -0.5),
+           ATTN_TOL)
+    assert torch.equal(out, da.decode_attention(q, k, v, qp, pos, inv, ks, vs, split=split))
+    pool, pos_v = _pool_of(k, v, ks, vs, pos, 128, seed=split)
+    assert torch.equal(
+        pa.paged_decode_attention(q, *pool[:2], pool[4], pool[5], qp, inv, *pool[2:4],
+                                  split=split),
+        da.decode_attention(q, k, v, qp, pos_v, inv, ks, vs, split=split))
 
 
 def _prefill_store(kv, b, s, hkv, d, lens, seed, device):
