@@ -19,32 +19,55 @@
 // Kernel A (w4a8_matmul_launch, CUDA C++) replaces the TPU kernels
 //   blama_tpu/ops/pallas/quant_matmul.py:_a8s_xin_kernel (one row) and
 //   blama_tpu/ops/pallas/quant_matmul.py:_a8s_pinned_kernel (2..16 rows),
-// which compute the same function. Two launches:
-//   1. quant_acts_kernel: per (row, 32-group) of x, scale = amax/127,
-//      inv = 1/scale (0 when scale is 0), q = rint(x*inv) as int8
-//      (round half to even, like jnp.round), xsum = sum(q); it writes the
-//      codes, the scales and scale*xsum.
-//   2. w4a8_gemv_kernel: per output column n and group g the int32 dot of
-//      the int8 codes with the 4-bit codes (8 dp4a), then
-//      acc += dot*(d*sc)*xscale - (xscale*xsum)*(dmin*mn).
-// Bound on this card: bytes. At one row the weights are K*N/2 code bytes
-// plus 4*(K/32)*N bytes of bf16 scales and mins, about 0.625 bytes per
-// weight, against 2 int ops per weight: far below the ~600 ops/byte where
-// the int8 rate would bind. Design: each warp streams one weight row with
-// 16-byte loads (one load = one group per lane, the whole warp reads 512
-// contiguous bytes), reads each weight byte once for all M <= 16 rows, and
-// keeps the activations of a K chunk in shared memory, so device memory
-// sees each weight byte once per call.
+// which compute the same function: per (row, 32-group) of x, scale =
+// amax/127 (IEEE division), inv = 1/scale (0 when scale is 0), q = rint(x*inv)
+// as int8 (round half to even, like jnp.round), xsum = sum(q); then per
+// output column n and group g the int32 dot of the activation codes with the
+// 4-bit codes and acc += dot*(d*sc)*xscale - (xscale*xsum)*(dmin*mn).
+// Bound on this card: bytes. The weights are K*N/2 code bytes plus
+// 4*(K/32)*N bytes of bf16 scales and mins, about 0.625 bytes per weight,
+// against 2*M int8 operations per weight: far below the ~600 operations a
+// byte where the int8 tensor rate would bind, at every M <= 16.
+// Design (w4a8_gemv_kernel, below; kernels I, J and M run the same body):
+//   - one launch per call: each CTA quantizes the x it needs in the kernel,
+//     with quant_acts_kernel's arithmetic, so every CTA holds the same codes
+//     (the tiles of column block 0 also write them out when the caller asks;
+//     the engines do not), and a call allocates only its output;
+//   - wide CTAs, x staged once: a CTA owns tiles of 64/rw columns (the plan,
+//     ops/quant_matmul.py gemv_plan, picks rw so that the grid is one wave of
+//     the 132 SMs: 224 tiles of 64 at gate/up, 128 of 8 at wk/wv), walks
+//     them in turn and keeps x's codes (up to 4096 K elements) while the next
+//     tile needs the same rows; at gate/up and 8 rows, x leaves L2 132 times
+//     (8 x 4096 bf16, 64 KB, ~8.4 MB in all) where the one-warp-per-column
+//     kernel restaged it in each of 1792 CTAs (73 MB);
+//   - the weight stream: each warp loads its 8 columns' next stage (1024 K
+//     elements: codes, scales, mins) with 16-byte loads into registers while
+//     it computes the current one from its own shared memory, where ldmatrix
+//     hands out the mma fragments; no CTA-wide barrier per stage (only when
+//     x's phase changes, and at a tile's end to add the residue splits). A
+//     CTA-wide cp.async ring of 3-8 stages streamed at ~1.9-2.1 TB/s on the
+//     card with its compute switched off and cost ~0.9 us a stage, so it went;
+//   - int8 tensor cores: each group dot is one mma.m16n8k32 s8 (A: the
+//     rows' codes, rows past M zero; B: 8 weight columns as the split layout
+//     lies, low nibbles the first 16 k, high the last), the f32 term chain
+//     on the CUDA cores; at one row x's row fills all 8 A rows, so a lane
+//     holds its columns' dots of every group and takes one term per 4
+//     groups (of the 8 a lane computes at 2-8 rows, only one row's are real
+//     at one): the solo decode step's calls;
+//   - the sum order of the one-warp-per-column kernel this replaced, kept
+//     bit for bit: the terms of residue l = g mod 32 summed in group order,
+//     the 32 partials added as the xor butterfly 16, 8, 4, 2, 1 adds them.
+// The plan's rw (residue splits over warps) and grid move no bit.
 //
 // Kernel I (w4a8k4_matmul_launch, CUDA C++) replaces
 //   blama_tpu/ops/pallas/quant_matmul.py:_a8k4_kernel:
 // kernel A's function on the native superblocks, with f32 d*sc and dmin*mn
 // decoded in the kernel (__half2float is exact for subnormals too), not
-// bf16-rounded. The same quant_acts_kernel, then w4a8k4_gemv_kernel: one warp
-// per output column, a lane per 64-element chunk (two groups: 32 code bytes in
-// two 16-byte loads plus the block's 16-byte header), eight superblocks per
-// warp step, the same staging of the int8 activations. Bound: bytes, 0.5625
-// per weight.
+// bf16-rounded. The same body: a stage carries four whole 144-byte blocks of
+// each column, the headers decode in the warp's shared memory, and ldmatrix of a
+// 32-byte chunk's halves gives the B fragments of group 2c (low nibbles) and
+// 2c+1 (high nibbles). Its order: residue l = (g mod 64) / 2, group 2l
+// before 2l+1. Bound: bytes, 0.5625 per weight.
 //
 // The exact dequant GEMM (CUDA C++) serves kernels B, G, H, K and L, which
 // differ only in the loader that stages and dequantizes a column's weights:
@@ -115,8 +138,9 @@
 // weight pointers by eids[j]*N rows. x is one [M, K] shared by every selected
 // expert (gate and up) or one [M, K] per selected expert (down: the routed
 // decode step feeds each expert its own row). out [n_sel, M, N] f32.
-//   J (w4a8_bank_launch): kernel A's quantizer and kernel A's GEMV body, so
-//     J(x, bank, eids)[j] equals A(x, bank[eids[j]]) bit for bit; M <= 16.
+//   J (w4a8_bank_launch): kernel A's body with a matrix per selected expert
+//     (tiles of every selected expert in one grid), so J(x, bank, eids)[j]
+//     equals A(x, bank[eids[j]]) bit for bit; M <= 16.
 //   K (q4k_bank_mm_launch): kernel B's loader with the min term inside (the
 //     33rd step of each group, as H), under the same tiles and one-row
 //     kernel, so a row's bits do not depend on the row count; f32 scales
@@ -134,9 +158,9 @@
 //     kernel K's loader (min term inside) under the same tiles and one-row
 //     kernel, with a grid dimension over nb K-blocks: out [nb, M, N] f32,
 //     block i the sum over k in [i*K/nb, (i+1)*K/nb);
-//   M (w4a8_parts_launch) replaces
+//   M (w4a8_matmul_launch with nb > 1) replaces
 //     blama_tpu/ops/pallas/quant_matmul.py:_a8s_parts_kernel:
-//     kernel A's quantizer once over x, then A's GEMV body per K-block.
+//     kernel A's body with a matrix per K-block, x quantized per block.
 // (_a8s_pinned_kernel is kernel A itself: A sums each column alone with the
 // min term inside.) Every K offset of a block (the tiles' K steps, the
 // one-row kernel's group walk, A's staging chunks and a lane's groups) is
@@ -198,7 +222,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // ---------------------------------------------------------------------------
-// kernel A, part 1: activation quantization, one warp per (row, group)
+// the tools' W4A8 kernels (Q, T, V): activation quantization, one warp per (row, group)
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void quant_acts_kernel(const T* __restrict__ x, int M, int K,
@@ -228,161 +252,12 @@ __global__ void quant_acts_kernel(const T* __restrict__ x, int M, int K,
   }
 }
 
-// ---------------------------------------------------------------------------
-// kernel A, part 2: the W4A8 GEMV, one warp per output column
-// ---------------------------------------------------------------------------
-constexpr int A_WARPS = 8;     // output columns per block
-constexpr int A_KC = 2048;     // K elements of x staged per chunk
+constexpr int A_KC = 2048;     // K elements of x the slab kernels stage per chunk
 
-template <int MT>
-__device__ __forceinline__ void w4a8_gemv_body(const int8_t* __restrict__ xq,
-                                               const float* __restrict__ xs,
-                                               const float* __restrict__ sxm,
-                                               const uint8_t* __restrict__ codes,
-                                               const __nv_bfloat16* __restrict__ scales,
-                                               const __nv_bfloat16* __restrict__ mins,
-                                               float* __restrict__ out, int M, int K, int N,
-                                               int kbeg, int klen) {
-  // K elements kbeg .. kbeg+klen-1 of rows of length K; every offset below
-  // (the staging chunks, a lane's groups) is relative to kbeg, so the sum
-  // equals this body's on that K-slice alone
-  __shared__ __align__(16) int8_t s_x[MT * A_KC];
-  __shared__ float s_xs[MT * (A_KC / GROUP)];
-  __shared__ float s_sxm[MT * (A_KC / GROUP)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * A_WARPS + warp;
-  const int G = K / GROUP;
-  const uint4* wrow = reinterpret_cast<const uint4*>(codes + (size_t)n * (K / 2));
-  float acc[MT];
-#pragma unroll
-  for (int r = 0; r < MT; ++r) acc[r] = 0.0f;
-
-  for (int k0 = 0; k0 < klen; k0 += A_KC) {
-    const int kc = min(A_KC, klen - k0);
-    const int gc = kc / GROUP;
-    const int kg = kbeg + k0;  // the chunk's first element in the rows of K
-    __syncthreads();
-    for (int i = threadIdx.x; i < M * (kc / 16); i += blockDim.x) {
-      const int r = i / (kc / 16), c = i % (kc / 16);
-      reinterpret_cast<int4*>(s_x + r * A_KC)[c] =
-          reinterpret_cast<const int4*>(xq + (size_t)r * K + kg)[c];
-    }
-    for (int i = threadIdx.x; i < M * gc; i += blockDim.x) {
-      const int r = i / gc, c = i % gc;
-      s_xs[r * (A_KC / GROUP) + c] = xs[(size_t)r * G + kg / GROUP + c];
-      s_sxm[r * (A_KC / GROUP) + c] = sxm[(size_t)r * G + kg / GROUP + c];
-    }
-    __syncthreads();
-    if (n < N) {
-      for (int gl = lane; gl < gc; gl += 32) {
-        const int g = kg / GROUP + gl;
-        const uint4 w = __ldg(wrow + g);
-        const float ws = __bfloat162float(scales[(size_t)n * G + g]);
-        const float wm = __bfloat162float(mins[(size_t)n * G + g]);
-        const int lo0 = w.x & 0x0F0F0F0F, hi0 = (w.x >> 4) & 0x0F0F0F0F;
-        const int lo1 = w.y & 0x0F0F0F0F, hi1 = (w.y >> 4) & 0x0F0F0F0F;
-        const int lo2 = w.z & 0x0F0F0F0F, hi2 = (w.z >> 4) & 0x0F0F0F0F;
-        const int lo3 = w.w & 0x0F0F0F0F, hi3 = (w.w >> 4) & 0x0F0F0F0F;
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          if (r < M) {
-            const int4* xp = reinterpret_cast<const int4*>(s_x + r * A_KC + gl * GROUP);
-            const int4 xa = xp[0];  // group elements 0..15
-            const int4 xb = xp[1];  // group elements 16..31
-            int dot = __dp4a(lo0, xa.x, 0);
-            dot = __dp4a(lo1, xa.y, dot);
-            dot = __dp4a(lo2, xa.z, dot);
-            dot = __dp4a(lo3, xa.w, dot);
-            dot = __dp4a(hi0, xb.x, dot);
-            dot = __dp4a(hi1, xb.y, dot);
-            dot = __dp4a(hi2, xb.z, dot);
-            dot = __dp4a(hi3, xb.w, dot);
-            const int si = r * (A_KC / GROUP) + gl;
-            acc[r] += (float)dot * ws * s_xs[si] - s_sxm[si] * wm;
-          }
-        }
-      }
-    }
-  }
-  if (n < N) {
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      float v = acc[r];
-#pragma unroll
-      for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0 && r < M) out[(size_t)r * N + n] = v;
-    }
-  }
-}
-
-// kernel A's GEMV, and kernel M's: K-block i = blockIdx.y (elements i*Kb ..
-// i*Kb+Kb-1) → partials out[i] of [nb, M, N]; block i equals the kernel on
-// (x[:, block i], w[:, block i]) alone bit for bit, and nb = 1 is kernel A
-template <int MT>
-__global__ void __launch_bounds__(A_WARPS * 32)
-w4a8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                 const float* __restrict__ sxm,
-                 const uint8_t* __restrict__ codes,
-                 const __nv_bfloat16* __restrict__ scales,
-                 const __nv_bfloat16* __restrict__ mins,
-                 float* __restrict__ out, int M, int K, int N, int Kb) {
-  const int i = blockIdx.y;
-  w4a8_gemv_body<MT>(xq, xs, sxm, codes, scales, mins, out + (size_t)i * M * N, M, K, N,
-                     i * Kb, Kb);
-}
-
-// kernel J: kernel A's body for selected expert j = blockIdx.y of a bank
-// (expert e = eids[j] owns rows e*N..e*N+N-1 of the stacked arrays); the
-// activations are shared by every expert, or expert j's own M rows
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
 
-template <int MT>
-__global__ void __launch_bounds__(A_WARPS * 32)
-w4a8_bank_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                      const float* __restrict__ sxm,
-                      const uint8_t* __restrict__ codes,
-                      const __nv_bfloat16* __restrict__ scales,
-                      const __nv_bfloat16* __restrict__ mins,
-                      const int* __restrict__ eids, int n_expert, int x_per_expert,
-                      float* __restrict__ out, int M, int K, int N) {
-  const int j = blockIdx.y, e = eids[j];
-  float* o = out + (size_t)j * M * N;
-  if (e < 0 || e >= n_expert) {  // an id outside the bank: NaN, loudly
-    const int n = blockIdx.x * A_WARPS + (threadIdx.x >> 5);
-    if ((threadIdx.x & 31) == 0 && n < N)
-      for (int r = 0; r < M; ++r) o[(size_t)r * N + n] = quiet_nan();
-    return;
-  }
-  const size_t xr = x_per_expert ? (size_t)j * M : 0;  // first activation row
-  const size_t w0 = (size_t)e * N;                     // first weight row
-  w4a8_gemv_body<MT>(xq + xr * K, xs + xr * (K / GROUP), sxm + xr * (K / GROUP),
-                     codes + w0 * (K / 2), scales + w0 * (K / GROUP),
-                     mins + w0 * (K / GROUP), o, M, K, N, 0, K);
-}
-
-template <int MT>
-void launch_bank_gemv(const int8_t* xq, const float* xs, const float* sxm,
-                      const uint8_t* codes, const __nv_bfloat16* scales,
-                      const __nv_bfloat16* mins, const int* eids, int n_sel,
-                      int n_expert, int x_per_expert, float* out, int M, int K,
-                      int N, cudaStream_t st) {
-  const dim3 grid((N + A_WARPS - 1) / A_WARPS, n_sel);
-  w4a8_bank_gemv_kernel<MT><<<grid, A_WARPS * 32, 0, st>>>(
-      xq, xs, sxm, codes, scales, mins, eids, n_expert, x_per_expert, out, M, K, N);
-}
-
-template <int MT>
-void launch_gemv(const int8_t* xq, const float* xs, const float* sxm,
-                 const uint8_t* codes, const __nv_bfloat16* scales,
-                 const __nv_bfloat16* mins, int nb, float* out, int M, int K, int N,
-                 cudaStream_t st) {
-  const dim3 grid((N + A_WARPS - 1) / A_WARPS, nb);
-  w4a8_gemv_kernel<MT><<<grid, A_WARPS * 32, 0, st>>>(xq, xs, sxm, codes, scales,
-                                                      mins, out, M, K, N, K / nb);
-}
-
 // ---------------------------------------------------------------------------
-// kernel I: the W4A8 GEMV on native Q4_K superblocks, one warp per column
+// Q4_K superblocks: the 6-bit scales and f16 d / dmin
 // ---------------------------------------------------------------------------
 constexpr int QK_K = 256;       // Q4_K superblock
 constexpr int Q4K_BLOCK = 144;  // its bytes
@@ -405,111 +280,6 @@ __device__ __forceinline__ float half_bits_to_f32(uint32_t bits) {
   return __half2float(__ushort_as_half((unsigned short)(bits & 0xFFFFu)));
 }
 
-template <int MT>
-__global__ void __launch_bounds__(A_WARPS * 32)
-w4a8k4_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                   const float* __restrict__ sxm,
-                   const uint8_t* __restrict__ blocks,
-                   float* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) int8_t s_x[MT * A_KC];
-  __shared__ float s_xs[MT * (A_KC / GROUP)];
-  __shared__ float s_sxm[MT * (A_KC / GROUP)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * A_WARPS + warp;
-  const int G = K / GROUP;
-  const int nsb = K / QK_K;
-  const uint8_t* wrow = blocks + (size_t)n * nsb * Q4K_BLOCK;
-  const int tl = lane >> 2, c = lane & 3;  // superblock of the step, chunk
-  float acc[MT];
-#pragma unroll
-  for (int r = 0; r < MT; ++r) acc[r] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += A_KC) {
-    const int kc = min(A_KC, K - k0);
-    const int gc = kc / GROUP;
-    __syncthreads();
-    for (int i = threadIdx.x; i < M * (kc / 16); i += blockDim.x) {
-      const int r = i / (kc / 16), cc = i % (kc / 16);
-      reinterpret_cast<int4*>(s_x + r * A_KC)[cc] =
-          reinterpret_cast<const int4*>(xq + (size_t)r * K + k0)[cc];
-    }
-    for (int i = threadIdx.x; i < M * gc; i += blockDim.x) {
-      const int r = i / gc, cc = i % gc;
-      s_xs[r * (A_KC / GROUP) + cc] = xs[(size_t)r * G + k0 / GROUP + cc];
-      s_sxm[r * (A_KC / GROUP) + cc] = sxm[(size_t)r * G + k0 / GROUP + cc];
-    }
-    __syncthreads();
-    const int t = k0 / QK_K + tl;
-    if (n < N && t < nsb) {
-      const uint4* blk = reinterpret_cast<const uint4*>(wrow + (size_t)t * Q4K_BLOCK);
-      const uint4 hdr = __ldg(blk);
-      const uint4 a = __ldg(blk + 1 + 2 * c);  // chunk bytes 0..15
-      const uint4 b = __ldg(blk + 2 + 2 * c);  // chunk bytes 16..31
-      const float d = half_bits_to_f32(hdr.x), dmin = half_bits_to_f32(hdr.x >> 16);
-      int sc1, mn1, sc2, mn2;
-      scale_min_k4(2 * c, hdr.y, hdr.z, hdr.w, sc1, mn1);
-      scale_min_k4(2 * c + 1, hdr.y, hdr.z, hdr.w, sc2, mn2);
-      const float ws1 = d * (float)sc1, wm1 = dmin * (float)mn1;
-      const float ws2 = d * (float)sc2, wm2 = dmin * (float)mn2;
-      // group 2c: the low nibbles of the 32 bytes; group 2c+1: the high ones
-      const int l0 = a.x & 0x0F0F0F0F, h0 = (a.x >> 4) & 0x0F0F0F0F;
-      const int l1 = a.y & 0x0F0F0F0F, h1 = (a.y >> 4) & 0x0F0F0F0F;
-      const int l2 = a.z & 0x0F0F0F0F, h2 = (a.z >> 4) & 0x0F0F0F0F;
-      const int l3 = a.w & 0x0F0F0F0F, h3 = (a.w >> 4) & 0x0F0F0F0F;
-      const int l4 = b.x & 0x0F0F0F0F, h4 = (b.x >> 4) & 0x0F0F0F0F;
-      const int l5 = b.y & 0x0F0F0F0F, h5 = (b.y >> 4) & 0x0F0F0F0F;
-      const int l6 = b.z & 0x0F0F0F0F, h6 = (b.z >> 4) & 0x0F0F0F0F;
-      const int l7 = b.w & 0x0F0F0F0F, h7 = (b.w >> 4) & 0x0F0F0F0F;
-#pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        if (r < M) {
-          const int4* xp =
-              reinterpret_cast<const int4*>(s_x + r * A_KC + tl * QK_K + c * 64);
-          const int4 x0 = xp[0], x1 = xp[1];  // group 2c
-          const int4 x2 = xp[2], x3 = xp[3];  // group 2c+1
-          int dot1 = __dp4a(l0, x0.x, 0);
-          dot1 = __dp4a(l1, x0.y, dot1);
-          dot1 = __dp4a(l2, x0.z, dot1);
-          dot1 = __dp4a(l3, x0.w, dot1);
-          dot1 = __dp4a(l4, x1.x, dot1);
-          dot1 = __dp4a(l5, x1.y, dot1);
-          dot1 = __dp4a(l6, x1.z, dot1);
-          dot1 = __dp4a(l7, x1.w, dot1);
-          int dot2 = __dp4a(h0, x2.x, 0);
-          dot2 = __dp4a(h1, x2.y, dot2);
-          dot2 = __dp4a(h2, x2.z, dot2);
-          dot2 = __dp4a(h3, x2.w, dot2);
-          dot2 = __dp4a(h4, x3.x, dot2);
-          dot2 = __dp4a(h5, x3.y, dot2);
-          dot2 = __dp4a(h6, x3.z, dot2);
-          dot2 = __dp4a(h7, x3.w, dot2);
-          const int si = r * (A_KC / GROUP) + tl * 8 + 2 * c;
-          acc[r] += (float)dot1 * ws1 * s_xs[si] - s_sxm[si] * wm1;
-          acc[r] += (float)dot2 * ws2 * s_xs[si + 1] - s_sxm[si + 1] * wm2;
-        }
-      }
-    }
-  }
-  if (n < N) {
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      float v = acc[r];
-#pragma unroll
-      for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0 && r < M) out[(size_t)r * N + n] = v;
-    }
-  }
-}
-
-template <int MT>
-void launch_gemv_k4(const int8_t* xq, const float* xs, const float* sxm,
-                    const uint8_t* blocks, float* out, int M, int K, int N,
-                    cudaStream_t st) {
-  const int nblocks = (N + A_WARPS - 1) / A_WARPS;
-  w4a8k4_gemv_kernel<MT><<<nblocks, A_WARPS * 32, 0, st>>>(xq, xs, sxm, blocks, out,
-                                                           M, K, N);
-}
-
 template <typename T>
 void launch_quant_acts(const void* x, int M, int K, void* xq, void* xs, void* sxm,
                        cudaStream_t st) {
@@ -521,7 +291,7 @@ void launch_quant_acts(const void* x, int M, int K, void* xq, void* xs, void* sx
 }
 
 // ---------------------------------------------------------------------------
-// kernels B, G, H, K, L: exact dequant GEMM, pipelined f32 SIMT tiles
+// cp.async helpers (the exact tiles' ring)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -542,6 +312,689 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// kernels A, I, J, M: the W4A8 GEMV, one launch per call
+// ---------------------------------------------------------------------------
+//
+// One CTA of GV_THREADS threads owns tiles of BN = 64 / RW output columns of
+// one matrix (kernel A: the weight; M: a K-block of it; J: a selected
+// expert) and walks them in turn (tile blockIdx.x, + gridDim.x, ...). Warp w
+// owns 8 columns (cw = w % CW) and the residues rw = w / CW (mod RW) of the
+// sum order below; it streams its columns' weights in stages of GV_SG groups
+// (1024 K elements: a 32-group round of A, four superblocks of I), the next
+// stage in its registers while the current one, in its own shared memory,
+// is computed. x is quantized in the kernel, GV_XK elements at a time, into
+// shared memory as the mma's A fragments, and kept while the next tile
+// needs the same rows and K range.
+//
+// The group dot runs on mma.m16n8k32 s8: A = 16 rows of activation codes
+// (rows past M zero), B = 8 weight columns of one group. The split layout is
+// B's fragment as it lies: lane (g, t) takes word t of column g's 16 bytes,
+// whose low nibbles are the elements 4t..4t+3 (b0) and high nibbles
+// 16+4t..16+4t+3 (b1); one ldmatrix.x4 gives a lane its word of four
+// groups. I's chunk of 32 bytes holds group 2c in its low and 2c+1 in its
+// high nibbles: ldmatrix.x2 of the chunk's two halves gives b0 / b1 of both.
+// The accumulator starts at GV_MAGIC, so D read as a float is 1.5 * 2^23 +
+// dot, exact (|dot| <= 32 * 127 * 15), and one subtraction gives (float)dot.
+//
+// The sum order is the one-warp-per-column kernel's that A had before: an
+// output's terms dot*ws*xs - sxm*wm go to residue partial l in ascending
+// group order (A: l = g mod 32; I: l = (g mod 64) / 2, group 2l before
+// 2l+1; g relative to the K-block's start), and the 32 partials are added
+// as the xor butterfly 16, 8, 4, 2, 1 adds them (partial l + partial l + o).
+// A lane holds residues rw + RW*j of its outputs (rows g, g+8; columns 2t,
+// 2t+1): the butterfly's levels over j in registers, the last log2(RW)
+// across the warps through shared memory. Every output's bits are those of
+// the old kernel, at every M, RW, tile and grid.
+
+constexpr int GV_THREADS = 256;
+constexpr int GV_WARPS = GV_THREADS / 32;
+constexpr int GV_SG = 32;          // groups a stage carries
+constexpr int GV_XK = 4096;        // K elements of quantized x held at once
+constexpr int GV_XG = GV_XK / GROUP;
+constexpr int GV_SMEM_MAX = 232448;
+constexpr uint32_t GV_MAGIC = 0x4B400000u;
+constexpr uint32_t NIB = 0x0F0F0F0Fu;
+constexpr int GV_KIND_A = 0, GV_KIND_I = 1;
+
+// bytes a column of kernel I's stage takes in a warp's shared memory: four
+// superblocks of 144 bytes and 16 bytes of pad (so the 8 rows an ldmatrix
+// reads fall in 8 bank quads)
+constexpr int GV_I_COL = 4 * Q4K_BLOCK + 16;
+
+struct GvArgs {
+  const void* x;          // [rows, K] bf16 (x_bf16) or f32
+  const uint8_t* codes;   // A: [rows, K/2] split codes; I: [rows, K/256*144] superblocks
+  const __nv_bfloat16* scales;  // A: [rows, K/32]
+  const __nv_bfloat16* mins;
+  const int* eids;        // J: the selected experts (weight rows e*N ..), else null
+  float* out;             // [n_mat, M, N]
+  int8_t* xq;             // optional [x rows, K] codes, [x rows, K/32] scales and
+  float* xs;              // scale*sum: written by the tiles of column block 0
+  float* sxm;
+  int x_bf16, M, K, N;
+  int n_mat;              // matrices: K-blocks (A: 1; M: nb) or selected experts (J)
+  int klen;               // K elements a matrix sums over: K / nb, or K
+  int n_expert, x_per_mat;  // J: the bank's experts; x rows j*M .. for matrix j
+  int tiles_per_mat, n_tiles;
+};
+
+template <int R>
+__device__ __forceinline__ float gv_term(float acc, float dot, float ws, float wm, float xs,
+                                         float sxm) {
+  // acc += dot*ws*xs - sxm*wm, with the roundings the old kernel's compiled
+  // expression took: one product dot*ws, an fma with the min product
+  return __fadd_rn(acc, __fmaf_rn(__fmul_rn(dot, ws), xs, -__fmul_rn(sxm, wm)));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// d = A B + GV_MAGIC in every element (one register as the whole C operand)
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%10,%10,%10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "r"(GV_MAGIC));
+}
+
+__host__ __device__ constexpr int ilog2(int v) { return v > 1 ? 1 + ilog2(v / 2) : 0; }
+
+// f(Idx<i>{}) for i = 0 .. N-1, expanded at compile time: every index into
+// the partials is a constant, so they stay in registers (a loop the
+// compiler does not unroll early enough leaves an array in local memory,
+// which misses to L2 when shared memory takes the L1)
+template <int V>
+struct Idx {
+  static constexpr int value = V;
+  __host__ __device__ constexpr operator int() const { return V; }
+};
+template <int I, int N>
+struct StaticFor {
+  template <class F>
+  __device__ __forceinline__ static void run(F& f) {
+    f(Idx<I>{});
+    StaticFor<I + 1, N>::run(f);
+  }
+};
+template <int N>
+struct StaticFor<N, N> {
+  template <class F>
+  __device__ __forceinline__ static void run(F&) {}
+};
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  StaticFor<0, N>::run(f);
+}
+
+__device__ __forceinline__ float gv_dot(int d) { return __int_as_float(d) - 12582912.0f; }
+
+// where tile t's matrix lies: weight rows from wrow, x rows from xrow, its
+// K-range from kbeg; ok is false for an expert id outside the bank
+struct GvTile {
+  int mat, col0, wrow, xrow, kbeg;
+  bool ok;
+};
+
+template <int BN>
+__device__ __forceinline__ GvTile gv_tile(const GvArgs& a, int t) {
+  GvTile r;
+  r.mat = t / a.tiles_per_mat;
+  r.col0 = (t % a.tiles_per_mat) * BN;
+  if (a.eids) {
+    const int e = a.eids[r.mat];
+    r.ok = e >= 0 && e < a.n_expert;
+    r.wrow = r.ok ? e * a.N : 0;
+    r.xrow = a.x_per_mat ? r.mat * a.M : 0;
+    r.kbeg = 0;
+  } else {
+    r.ok = true;
+    r.wrow = 0;
+    r.xrow = 0;
+    r.kbeg = r.mat * a.klen;
+  }
+  return r;
+}
+
+// quantize x rows xrow .. xrow+M-1, elements ka .. ka+len-1, into the A
+// fragments xa ([group][lane][2R words]) and (scale, scale*sum) xsm
+// ([group][8R rows]) with quant_acts_kernel's arithmetic (the amax and the
+// int sum are exact in any order): 4 threads a (row, group), 8 elements
+// each, GV_QROWS rows' loads in flight together; the codes also to a.xq /
+// a.xs / a.sxm when asked
+constexpr int GV_QROWS = 4;
+
+template <int R>
+__device__ void gv_quantize(const GvArgs& a, int xrow, int ka, int len, uint32_t* xa,
+                            float2* xsm, bool to_global) {
+  const int F = len / 8;  // (group, quarter) items a row; a multiple of 32
+  const int KG = a.K / GROUP;
+  for (int f0 = 0; f0 < F; f0 += GV_THREADS) {  // whole warps in every pass
+    const int f = f0 + threadIdx.x;
+    const bool ok = f < F;
+    const int gl = f >> 2, h = f & 3;
+    for (int r0 = 0; r0 < a.M; r0 += GV_QROWS) {
+      float v[GV_QROWS][8];
+      static_for<GV_QROWS>([&](auto rc) {
+        const int r = r0 + rc;
+        const size_t e = (size_t)(xrow + r) * a.K + ka + gl * GROUP + 8 * h;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[rc][i] = 0.0f;
+        if (ok && r < a.M) {
+          if (a.x_bf16) {
+            const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+                static_cast<const __nv_bfloat16*>(a.x) + e));
+            const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              v[rc][2 * i] = __uint_as_float(w[i] << 16);
+              v[rc][2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+            }
+          } else {
+            const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(a.x) + e);
+            const float4 f0v = __ldg(src), f1v = __ldg(src + 1);
+            v[rc][0] = f0v.x; v[rc][1] = f0v.y; v[rc][2] = f0v.z; v[rc][3] = f0v.w;
+            v[rc][4] = f1v.x; v[rc][5] = f1v.y; v[rc][6] = f1v.z; v[rc][7] = f1v.w;
+          }
+        }
+      });
+      static_for<GV_QROWS>([&](auto rc) {
+        const int r = r0 + rc;
+        if (r < a.M) {  // uniform
+          float am = 0.0f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) am = fmaxf(am, fabsf(v[rc][i]));
+          am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, 2));
+          am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, 1));
+          const float scale = am / 127.0f;
+          const float inv = scale > 0.0f ? 1.0f / scale : 0.0f;
+          uint32_t word[2] = {0u, 0u};
+          int sum = 0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int q = __float2int_rn(v[rc][i] * inv);
+            sum += q;
+            word[i >> 2] |= (uint32_t)(q & 255) << (8 * (i & 3));
+          }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          if (ok) {
+            const float sm = scale * (float)sum;
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+              // word wd (elements 4wd..4wd+3) of row r: lane (r % 8, wd % 4) of
+              // the fragment, low (wd < 4) or high half, row half r / 8
+              const int wd = 2 * h + k;
+              const int lane = (r & 7) * 4 + (wd & 3);
+              const int reg = R == 2 ? (r >> 3) + 2 * (wd >> 2) : (wd >> 2);
+              xa[(gl * 32 + lane) * 2 * R + reg] = word[k];
+            }
+            if (h == 0) xsm[gl * 8 * R + r] = make_float2(scale, sm);
+            if (to_global) {
+              const size_t e = (size_t)(xrow + r) * a.K + ka + gl * GROUP + 8 * h;
+              *reinterpret_cast<uint2*>(a.xq + e) = make_uint2(word[0], word[1]);
+              if (h == 0) {
+                a.xs[(size_t)(xrow + r) * KG + ka / GROUP + gl] = scale;
+                a.sxm[(size_t)(xrow + r) * KG + ka / GROUP + gl] = sm;
+              }
+            }
+          }
+        }
+      });
+    }
+  }
+}
+
+// the mma and the terms of one group: stage group gi, x phase group pg,
+// B fragment b0 / b1, into partials p (2R outputs)
+template <int R>
+__device__ __forceinline__ void gv_group(float* p, const uint32_t* xa, const float2* xsm,
+                                         const float2* wsm, int pg, int gi, uint32_t b0,
+                                         uint32_t b1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t a0, a1 = 0, a2, a3 = 0;
+  if (R == 2) {
+    const uint4 u = reinterpret_cast<const uint4*>(xa)[pg * 32 + lane];
+    a0 = u.x; a1 = u.y; a2 = u.z; a3 = u.w;
+  } else {
+    const uint2 u = reinterpret_cast<const uint2*>(xa)[pg * 32 + lane];
+    a0 = u.x; a2 = u.y;
+  }
+  int d[4];
+  mma_s8(d, a0, a1, a2, a3, b0, b1);
+  const float4 sc = reinterpret_cast<const float4*>(wsm + gi * 8)[t];
+  const float2 x0 = xsm[pg * 8 * R + g];
+  p[0] = gv_term<R>(p[0], gv_dot(d[0]), sc.x, sc.y, x0.x, x0.y);
+  p[1] = gv_term<R>(p[1], gv_dot(d[1]), sc.z, sc.w, x0.x, x0.y);
+  if (R == 2) {
+    const float2 x1 = xsm[pg * 8 * R + g + 8];
+    p[2] = gv_term<R>(p[2], gv_dot(d[2]), sc.x, sc.y, x1.x, x1.y);
+    p[3] = gv_term<R>(p[3], gv_dot(d[3]), sc.z, sc.w, x1.x, x1.y);
+  }
+}
+
+// one stage of kernel A for warp (cw, rw): groups rw + RW*j (j < 32/RW) of
+// the round, each into partial j
+template <int R, int RW, bool FULL>
+__device__ __forceinline__ void gv_stage_a_body(float* p, const uint8_t* st, const uint32_t* xa,
+                                                const float2* xsm, const float2* wsm, int rw,
+                                                int pg0, int ng) {
+  constexpr int NJ = 32 / RW;
+  const int lane = threadIdx.x & 31;
+  // lane L addresses row L % 8 (the warp's column L % 8) of matrix L / 8
+  // (the warp's group j + L/8)
+  const unsigned base = smem_addr(st + (lane & 7) * (NJ + 1) * 16);
+  static_for<NJ / 4>([&](auto jc) {
+    constexpr int j = 4 * decltype(jc)::value;
+    if (FULL || rw + RW * j < ng) {
+      uint32_t r[4];
+      ldsm_x4(base + (j + (lane >> 3)) * 16, r[0], r[1], r[2], r[3]);
+      static_for<4>([&](auto qc) {
+        constexpr int q = decltype(qc)::value;
+        const int gi = rw + RW * (j + q);
+        if (FULL || gi < ng)
+          gv_group<R>(p + (j + q) * 2 * R, xa, xsm, wsm, pg0 + gi, gi, r[q] & NIB,
+                      (r[q] >> 4) & NIB);
+      });
+    }
+  });
+}
+
+// one row (M = 1): x's row goes into all 8 A rows, so lane (g, t) holds the
+// row's dots of columns 2t, 2t+1 for every group of a block of 4, and takes
+// the one term of column 2t + (g & 1), group g >> 1 of the block: a term a
+// lane per 4 groups instead of 8 (only one row's of them real), its
+// residues rw + RW*(4j' + (g >> 1)) in partial j'
+template <int RW, bool FULL>
+__device__ __forceinline__ void gv_stage_a1_body(float* p, const uint8_t* st, const uint32_t* xa,
+                                                 const float2* xsm, const float2* wsm, int rw,
+                                                 int pg0, int ng) {
+  constexpr int NJ = 32 / RW;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int c = 2 * t + (g & 1), q = g >> 1;
+  const unsigned base = smem_addr(st + (lane & 7) * (NJ + 1) * 16);
+  static_for<NJ / 4>([&](auto jc) {
+    constexpr int j = 4 * decltype(jc)::value;
+    if (FULL || rw + RW * j < ng) {
+      uint32_t r[4];
+      ldsm_x4(base + (j + (lane >> 3)) * 16, r[0], r[1], r[2], r[3]);
+      int dot = 0;
+      static_for<4>([&](auto qc) {
+        constexpr int qq = decltype(qc)::value;
+        const uint2 u = reinterpret_cast<const uint2*>(xa)[(pg0 + rw + RW * (j + qq)) * 32 + t];
+        int d[4];
+        mma_s8(d, u.x, 0u, u.y, 0u, r[qq] & NIB, (r[qq] >> 4) & NIB);
+        if (qq == q) dot = (g & 1) ? d[1] : d[0];
+      });
+      const int gi = rw + RW * (j + q);
+      if (FULL || gi < ng) {
+        const float2 sc = wsm[gi * 8 + c];
+        const float2 x0 = xsm[(pg0 + gi) * 8];
+        p[j / 4] = gv_term<1>(p[j / 4], gv_dot(dot), sc.x, sc.y, x0.x, x0.y);
+      }
+    }
+  });
+}
+
+// a full stage (the common case) takes no guard, so its groups' loads, mmas
+// and terms interleave in one basic block
+template <int R, int RW>
+__device__ __forceinline__ void gv_stage_a(float* p, const uint8_t* st, const uint32_t* xa,
+                                           const float2* xsm, const float2* wsm, int rw,
+                                           int pg0, int ng) {
+  if constexpr (R == 0) {
+    if (ng == GV_SG)
+      gv_stage_a1_body<RW, true>(p, st, xa, xsm, wsm, rw, pg0, ng);
+    else
+      gv_stage_a1_body<RW, false>(p, st, xa, xsm, wsm, rw, pg0, ng);
+  } else {
+    if (ng == GV_SG)
+      gv_stage_a_body<R, RW, true>(p, st, xa, xsm, wsm, rw, pg0, ng);
+    else
+      gv_stage_a_body<R, RW, false>(p, st, xa, xsm, wsm, rw, pg0, ng);
+  }
+}
+
+// one stage of kernel I (four superblocks: residues 16h .. 16h+15 of the
+// 64-group round) for warp (cw, rw): chunk pairs u = rw + RW*i (superblock
+// u / 4, chunk u % 4), groups 2u then 2u+1 into partial 16h/RW + i
+template <int R, int RW, int H, bool FULL>
+__device__ __forceinline__ void gv_stage_i_body(float* p, const uint8_t* st, const uint32_t* xa,
+                                                const float2* xsm, const float2* wsm, int rw,
+                                                int pg0, int ng) {
+  constexpr int NU = 16 / RW, CB = GV_I_COL;
+  const int lane = threadIdx.x & 31;
+  const unsigned base = smem_addr(st + (lane & 7) * CB + 16);
+  static_for<NU / 2>([&](auto ic) {
+    constexpr int i = 2 * decltype(ic)::value;
+    if (FULL || 2 * (rw + RW * i) < ng) {
+      // matrices: chunk pair i (bytes 0-15, 16-31), chunk pair i + 1 (the same)
+      const int u = rw + RW * (i + (lane >> 4));
+      uint32_t r[4];
+      ldsm_x4(base + (u >> 2) * Q4K_BLOCK + (u & 3) * 32 + ((lane >> 3) & 1) * 16, r[0], r[1],
+              r[2], r[3]);
+      static_for<2>([&](auto hc) {
+        constexpr int h = decltype(hc)::value;
+        const int uu = rw + RW * (i + h);
+        if (FULL || 2 * uu < ng) {
+          float* pp = p + (H * NU + i + h) * 2 * R;
+          gv_group<R>(pp, xa, xsm, wsm, pg0 + 2 * uu, 2 * uu, r[2 * h] & NIB,
+                      r[2 * h + 1] & NIB);
+          gv_group<R>(pp, xa, xsm, wsm, pg0 + 2 * uu + 1, 2 * uu + 1, (r[2 * h] >> 4) & NIB,
+                      (r[2 * h + 1] >> 4) & NIB);
+        }
+      });
+    }
+  });
+}
+
+template <int R, int RW, int H>
+__device__ __forceinline__ void gv_stage_i(float* p, const uint8_t* st, const uint32_t* xa,
+                                           const float2* xsm, const float2* wsm, int rw,
+                                           int pg0, int ng) {
+  if (ng == GV_SG)
+    gv_stage_i_body<R, RW, H, true>(p, st, xa, xsm, wsm, rw, pg0, ng);
+  else
+    gv_stage_i_body<R, RW, H, false>(p, st, xa, xsm, wsm, rw, pg0, ng);
+}
+
+// bytes of a warp's shared memory: its codes (A: 8 columns of NJ 16-byte
+// groups and a pad unit, so the 8 rows an ldmatrix reads fall in 8 bank
+// quads; I: 8 columns of four 144-byte superblocks and 16 bytes of pad) and
+// its f32 scale / min pairs [32 groups][8 columns]
+template <int KIND, int RW>
+__host__ __device__ constexpr int gv_warp_bytes() {
+  return (KIND == GV_KIND_A ? 8 * (32 / RW + 1) * 16 : 8 * GV_I_COL) +
+         GV_SG * 8 * 8;
+}
+
+// one stage of a warp's weights in flight in its registers: A's codes of its
+// groups (NJ / 4 pieces of 16 bytes a lane) and a 16-byte run of scales and
+// of mins; I's four superblocks of its 8 columns (9 pieces a lane)
+struct GvRegs {
+  uint4 w[10];
+};
+
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// load stage ks of tile tl for warp (cw, rw) into registers: plain 16-byte
+// loads, each warp's own, none waited for until gv_store
+template <int KIND, int RW>
+__device__ __forceinline__ void gv_load(GvRegs& r, const GvArgs& a, const GvTile& tl, int ks,
+                                        int cw, int rw) {
+  constexpr int NJ = 32 / RW;
+  const int lane = threadIdx.x & 31;
+  const int k0 = tl.kbeg + ks * GV_SG * GROUP;
+  const int ng = min(GV_SG, (a.klen - ks * GV_SG * GROUP) / GROUP);
+  const int c0 = tl.col0 + cw * 8;  // the warp's first column
+  if (KIND == GV_KIND_A) {
+    // codes: lane (g, t) takes column g's groups rw + RW*(4k + t); scales /
+    // mins: lane L the 8 groups 8(L&3) .. of column L >> 2
+    const int g = lane >> 2, t = lane & 3;
+    const bool col_ok = tl.ok && c0 + g < a.N;
+    const size_t row = (size_t)tl.wrow + c0 + g;
+    const uint8_t* cb = a.codes + row * (a.K / 2) + k0 / 2;
+#pragma unroll
+    for (int k = 0; k < NJ / 4; ++k) {
+      const int gi = rw + RW * (4 * k + t);
+      r.w[k] = col_ok && gi < ng ? ldg16(cb + gi * 16) : make_uint4(0, 0, 0, 0);
+    }
+    const size_t so = row * (a.K / GROUP) + k0 / GROUP + 8 * t;
+    const bool s_ok = col_ok && 8 * t < ng;
+    r.w[8] = s_ok ? ldg16(a.scales + so) : make_uint4(0, 0, 0, 0);
+    r.w[9] = s_ok ? ldg16(a.mins + so) : make_uint4(0, 0, 0, 0);
+  } else {
+    // the 8 columns' 576-byte runs (four superblocks) as 288 pieces, lane
+    // L piece L + 32k
+    const int nsb = ng / 8;
+    const size_t rb = (size_t)(a.K / QK_K) * Q4K_BLOCK;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int u = lane + 32 * k, c = u / 36, off = u % 36;
+      const bool ok = tl.ok && c0 + c < a.N && off < 9 * nsb;
+      r.w[k] = ok ? ldg16(a.codes + ((size_t)tl.wrow + c0 + c) * rb +
+                          (size_t)(k0 / QK_K) * Q4K_BLOCK + off * 16)
+                  : make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+// the registers of a stage into the warp's shared memory: codes (A: [8
+// columns][NJ groups + a pad unit]; I: [8 columns][592 bytes]) and the f32
+// scale / min pairs [32 groups][8 columns]
+template <int KIND, int RW>
+__device__ __forceinline__ void gv_store(const GvRegs& r, uint8_t* sw, float2* wsm, int ng) {
+  constexpr int NJ = 32 / RW;
+  const int lane = threadIdx.x & 31;
+  if (KIND == GV_KIND_A) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < NJ / 4; ++k)
+      *reinterpret_cast<uint4*>(sw + (g * (NJ + 1) + 4 * k + t) * 16) = r.w[k];
+    const uint32_t s4[4] = {r.w[8].x, r.w[8].y, r.w[8].z, r.w[8].w};
+    const uint32_t m4[4] = {r.w[9].x, r.w[9].y, r.w[9].z, r.w[9].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wsm[(8 * t + 2 * i) * 8 + g] =
+          make_float2(__uint_as_float(s4[i] << 16), __uint_as_float(m4[i] << 16));
+      wsm[(8 * t + 2 * i + 1) * 8 + g] = make_float2(__uint_as_float(s4[i] & 0xFFFF0000u),
+                                                     __uint_as_float(m4[i] & 0xFFFF0000u));
+    }
+  } else {
+    constexpr int CB = GV_I_COL;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int u = lane + 32 * k;
+      *reinterpret_cast<uint4*>(sw + (u / 36) * CB + (u % 36) * 16) = r.w[k];
+    }
+    __syncwarp();
+    // the headers: lane (superblock lane / 8, column lane % 8)
+    const int c = lane & 7, sb = lane >> 3;
+    if (sb * 8 < ng) {
+      const uint4 hdr = *reinterpret_cast<const uint4*>(sw + c * CB + sb * Q4K_BLOCK);
+      const float d = half_bits_to_f32(hdr.x), dmin = half_bits_to_f32(hdr.x >> 16);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        int sc, mn;
+        scale_min_k4(jj, hdr.y, hdr.z, hdr.w, sc, mn);
+        wsm[(sb * 8 + jj) * 8 + c] = make_float2(d * (float)sc, dmin * (float)mn);
+      }
+    }
+  }
+}
+
+template <int KIND, int R0, int RW>
+__global__ void __launch_bounds__(GV_THREADS, 1) w4a8_gemv_kernel(const GvArgs a) {
+  // R0 = 0: kernel A at one row (gv_stage_a1_body), in R = 1's layouts
+  constexpr int R = R0 ? R0 : 1;
+  constexpr int BN = 64 / RW, CW = GV_WARPS / RW, NJ = 32 / RW;
+  constexpr int NP = R0 ? NJ * 2 * R : NJ / 4;  // partials a lane
+  constexpr int WB = gv_warp_bytes<KIND, RW>();
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cw = warp % CW, rw = warp / CW;
+  const int g = lane >> 2, t = lane & 3;
+  uint8_t* sw = smem + warp * WB;                                        // the warp's codes
+  float2* wsm = reinterpret_cast<float2*>(sw + WB - GV_SG * 8 * 8);      // [32][8]
+  uint32_t* xa = reinterpret_cast<uint32_t*>(smem + GV_WARPS * WB);      // [GV_XG][32][2R]
+  float2* xsm = reinterpret_cast<float2*>(xa + GV_XG * 32 * 2 * R);      // [GV_XG][8R]
+  float* red = reinterpret_cast<float*>(xsm + GV_XG * 8 * R);            // [RW][8R][BN]
+
+  // rows past M hold zero codes and zero scales for good
+  for (int i = threadIdx.x; i < GV_XG * 32 * 2 * R; i += GV_THREADS) xa[i] = 0u;
+  for (int i = threadIdx.x; i < GV_XG * 8 * R; i += GV_THREADS) xsm[i] = make_float2(0.f, 0.f);
+
+  const int spt = (a.klen + GV_SG * GROUP - 1) / (GV_SG * GROUP);  // stages a tile
+  const int my_tiles = (a.n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = my_tiles * spt;
+  // every warp walks the same stages: tile blockIdx.x + i*gridDim.x, stage ks
+  // of it, the next stage in flight in its registers (two in flight measured
+  // slower at one row: gate/up 0.030 ms against 0.026)
+  GvTile tl = gv_tile<BN>(a, blockIdx.x);
+  GvTile nx = tl;  // the tile of the stage in flight
+  int ks = 0, nks = 0, nti = 0;
+  GvRegs regs;
+  gv_load<KIND, RW>(regs, a, nx, 0, cw, rw);
+  int cur_xrow = -1, cur_ka = -1;
+  float p[NP];  // partial j of output k at p[j * 2R + k] (one row: partial j)
+  for (int s = 0; s < total; ++s) {
+    if (ks == 0) {
+      tl = nx;
+      static_for<NP>([&](auto i) { p[i] = 0.0f; });
+    }
+    const int k0 = ks * GV_SG * GROUP;  // relative to the matrix's K-range
+    const int ng = min(GV_SG, (a.klen - k0) / GROUP);
+    // a new x phase (uniform) is quantized while this stage's loads are
+    // still in flight (3-5% off a one-row call against after them)
+    const int kp = k0 / GV_XK * GV_XK;
+    if (tl.xrow != cur_xrow || tl.kbeg + kp != cur_ka) {
+      cur_xrow = tl.xrow;
+      cur_ka = tl.kbeg + kp;
+      const bool to_global =
+          a.xq != nullptr && tl.col0 == 0 && (a.eids == nullptr || a.x_per_mat || tl.mat == 0);
+      __syncthreads();  // every warp is done with the previous phase's codes
+      gv_quantize<R>(a, tl.xrow, cur_ka, min(GV_XK, a.klen - kp), xa, xsm, to_global);
+      __syncthreads();
+    }
+    __syncwarp();  // the warp is done with the previous stage's shared memory
+    gv_store<KIND, RW>(regs, sw, wsm, ng);
+    // the next stage's loads go out before this one is computed
+    if (++nks == spt) {
+      nks = 0;
+      ++nti;
+      if (s + 1 < total) nx = gv_tile<BN>(a, blockIdx.x + nti * gridDim.x);
+    }
+    if (s + 1 < total) gv_load<KIND, RW>(regs, a, nx, nks, cw, rw);
+    __syncwarp();
+    if (tl.ok) {
+      const int pg0 = (k0 % GV_XK) / GROUP;
+      if (KIND == GV_KIND_A) {
+        gv_stage_a<R0, RW>(p, sw, xa, xsm, wsm, rw, pg0, ng);
+      } else if (ks & 1) {
+        gv_stage_i<R, RW, 1>(p, sw, xa, xsm, wsm, rw, pg0, ng);
+      } else {
+        gv_stage_i<R, RW, 0>(p, sw, xa, xsm, wsm, rw, pg0, ng);
+      }
+    }
+    if (++ks != spt) continue;
+    ks = 0;
+    // the tile's last stage: the butterfly's levels over j, (one row: over
+    // the lanes' block groups, xor 16 and 8), then over warps
+    float* out = a.out + (size_t)tl.mat * a.M * a.N;
+    if constexpr (R0 == 0) {
+      static_for<ilog2(NJ / 4)>([&](auto lc) {
+        constexpr int o = (NJ / 4) >> (decltype(lc)::value + 1);
+        static_for<o>([&](auto i) { p[i] = p[i] + p[i + o]; });
+      });
+      float v = p[0];
+      v = v + __shfl_xor_sync(0xffffffffu, v, 16);
+      v = v + __shfl_xor_sync(0xffffffffu, v, 8);
+      const int n = tl.col0 + cw * 8 + 2 * t + (g & 1);
+      if (lane < 8) {
+        if (RW > 1) red[rw * 8 * R * BN + cw * 8 + 2 * t + g] = v;
+        else if (tl.ok && n < a.N) out[n] = v;
+      }
+    } else {
+      static_for<ilog2(NJ)>([&](auto lc) {
+        constexpr int o = NJ >> (decltype(lc)::value + 1);
+        static_for<o * 2 * R>([&](auto i) { p[i] = p[i] + p[i + o * 2 * R]; });
+      });
+    }
+    if (R0 == 0) {
+    } else if (RW == 1) {
+      if (tl.ok) {
+#pragma unroll
+        for (int k = 0; k < 2 * R; ++k) {
+          const int row = g + 8 * (k >> 1), n = tl.col0 + cw * 8 + 2 * t + (k & 1);
+          if (row < a.M && n < a.N) out[(size_t)row * a.N + n] = p[k];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2 * R; ++k)
+        red[(rw * 8 * R + g + 8 * (k >> 1)) * BN + cw * 8 + 2 * t + (k & 1)] = p[k];
+    }
+    if (RW > 1 || !tl.ok) {
+      __syncthreads();
+      for (int it = threadIdx.x; it < a.M * BN; it += GV_THREADS) {
+        const int row = it / BN, c = it % BN, n = tl.col0 + c;
+        if (n >= a.N) continue;
+        float v[RW];
+        v[0] = quiet_nan();  // an expert id outside the bank: NaN, loudly
+        if (RW > 1 && tl.ok) {
+          static_for<RW>([&](auto r) { v[r] = red[(r * 8 * R + row) * BN + c]; });
+          static_for<ilog2(RW)>([&](auto lc) {
+            constexpr int o = RW >> (decltype(lc)::value + 1);
+            static_for<o>([&](auto r) { v[r] = v[r] + v[r + o]; });
+          });
+        }
+        out[(size_t)row * a.N + n] = v[0];
+      }
+      __syncthreads();  // red is free for the next tile
+    }
+  }
+}
+
+template <int KIND, int R0, int RW>
+int launch_gv_t(GvArgs a, int grid, cudaStream_t st) {
+  constexpr int R = R0 ? R0 : 1;
+  constexpr int BN = 64 / RW;
+  constexpr int SMEM = GV_WARPS * gv_warp_bytes<KIND, RW>() + GV_XG * 32 * 2 * R * 4 +
+                       GV_XG * 8 * R * 8 + (RW > 1 ? RW * 8 * R * BN * 4 : 0);
+  static_assert(SMEM <= GV_SMEM_MAX, "the GEMV's shared memory");
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err = cudaFuncSetAttribute(w4a8_gemv_kernel<KIND, R0, RW>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  a.tiles_per_mat = (a.N + BN - 1) / BN;
+  a.n_tiles = a.tiles_per_mat * a.n_mat;
+  w4a8_gemv_kernel<KIND, R0, RW><<<min(grid, a.n_tiles), GV_THREADS, SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int KIND, int R>
+int launch_gv_r(const GvArgs& a, int rw, int grid, cudaStream_t st) {
+  switch (rw) {
+    case 1:
+      if constexpr (R != 2) return launch_gv_t<KIND, R, 1>(a, grid, st);
+      return (int)cudaErrorInvalidValue;
+    case 2: return launch_gv_t<KIND, R, 2>(a, grid, st);
+    case 4: return launch_gv_t<KIND, R, 4>(a, grid, st);
+    case 8: return launch_gv_t<KIND, R, 8>(a, grid, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the checks every entry point shares; rw and grid from ops/quant_matmul.py
+// gemv_plan (rw: residue splits, 64 / rw columns a tile)
+template <int KIND>
+int launch_gv(GvArgs a, int rw, int grid, void* stream) {
+  if (a.M < 1 || a.M > 16 || a.N < 1 || a.K % QK_K || a.klen % QK_K || a.klen < QK_K ||
+      grid < 1 || a.n_mat < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 9-16 rows hold twice the partials a lane: at least two residue splits
+  // keep them (and the quantizer's loads) in registers; rw moves no bit
+  if (KIND == GV_KIND_A && a.M == 1) return launch_gv_r<KIND, 0>(a, rw, grid, st);
+  return a.M <= 8 ? launch_gv_r<KIND, 1>(a, rw, grid, st)
+                  : launch_gv_r<KIND, 2>(a, rw < 2 ? 2 : rw, grid, st);
+}
+
+// ---------------------------------------------------------------------------
+// kernels B, G, H, K, L: exact dequant GEMM, pipelined f32 SIMT tiles
+// ---------------------------------------------------------------------------
 
 // cp.async of the 4-byte words that hold bytes [p, p + nbytes) of device
 // memory (a run of scales or mins, any 2-byte alignment) to dst; byte p
@@ -1788,30 +2241,6 @@ int launch_twodot(const float* x, const uint8_t* codes, const float* scales, flo
   return (int)cudaGetLastError();
 }
 
-// kernel A's two launches, the GEMV over nb K-blocks (nb = 1: kernel A)
-int launch_w4a8(const void* x, int x_bf16, const void* codes, const void* scales,
-                const void* mins, int nb, void* xq, void* xs, void* sxm, void* out, int M,
-                int K, int N, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) launch_quant_acts<__nv_bfloat16>(x, M, K, xq, xs, sxm, st);
-  else launch_quant_acts<float>(x, M, K, xq, xs, sxm, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int8_t* q = static_cast<const int8_t*>(xq);
-  const float* s = static_cast<const float*>(xs);
-  const float* sm = static_cast<const float*>(sxm);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
-  const __nv_bfloat16* mn = static_cast<const __nv_bfloat16*>(mins);
-  float* o = static_cast<float*>(out);
-  if (M <= 1) launch_gemv<1>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
-  else if (M <= 2) launch_gemv<2>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
-  else if (M <= 4) launch_gemv<4>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
-  else if (M <= 8) launch_gemv<8>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
-  else launch_gemv<16>(q, s, sm, c, sc, mn, nb, o, M, K, N, st);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -1820,35 +2249,42 @@ extern "C" {
 // tile t's rows and columns; an unknown t gives cudaErrorInvalidValue.
 int dequant_tile_shape(int t, void* bm_bn) { return tile_shape(t, static_cast<int*>(bm_bn)); }
 
-// x: [M, K] bf16 (x_bf16 != 0) or f32; 1 <= M <= 16, K % 32 == 0.
-// xq [M, K] int8, xs / sxm [M, K/32] f32 and out [M, N] f32 are outputs.
-int w4a8_matmul_launch(const void* x, int x_bf16, const void* codes,
-                       const void* scales, const void* mins, void* xq, void* xs,
-                       void* sxm, void* out, int M, int K, int N, void* stream) {
-  return launch_w4a8(x, x_bf16, codes, scales, mins, 1, xq, xs, sxm, out, M, K, N, stream);
+// Kernel A (nb = 1) and kernel M (nb K-blocks of K/nb elements), one
+// launch: x [M, K] bf16 (x_bf16 != 0) or f32, 1 <= M <= 16, 16-byte
+// aligned, K % (256*nb) == 0; codes [N, K/2], scales / mins [N, K/32] bf16;
+// out [nb, M, N] f32, out[i] equal bit for bit to kernel A on (x[:, block
+// i], w[:, block i]) alone. When xq is not null, xq [M, K] int8 and xs / sxm
+// [M, K/32] f32 receive x's codes, scales and scale*sum. rw (1, 2, 4, 8)
+// and grid: ops/quant_matmul.py gemv_plan; they move no bit.
+int w4a8_matmul_launch(const void* x, int x_bf16, const void* codes, const void* scales,
+                       const void* mins, int nb, void* xq, void* xs, void* sxm, void* out,
+                       int M, int K, int N, int rw, int grid, void* stream) {
+  if (nb < 1 || nb > 65535 || K % (QK_K * nb)) return (int)cudaErrorInvalidValue;
+  GvArgs a{};
+  a.x = x; a.x_bf16 = x_bf16;
+  a.codes = static_cast<const uint8_t*>(codes);
+  a.scales = static_cast<const __nv_bfloat16*>(scales);
+  a.mins = static_cast<const __nv_bfloat16*>(mins);
+  a.out = static_cast<float*>(out);
+  a.xq = static_cast<int8_t*>(xq); a.xs = static_cast<float*>(xs);
+  a.sxm = static_cast<float*>(sxm);
+  a.M = M; a.K = K; a.N = N; a.n_mat = nb; a.klen = K / nb;
+  return launch_gv<GV_KIND_A>(a, rw, grid, stream);
 }
 
-// The same on native Q4_K superblocks: blocks [N, K/256 * 144] bytes,
-// 16-byte aligned; K % 256 == 0.
-int w4a8k4_matmul_launch(const void* x, int x_bf16, const void* blocks, void* xq,
-                         void* xs, void* sxm, void* out, int M, int K, int N,
+// Kernel I: the same on native Q4_K superblocks, blocks [N, K/256 * 144]
+// bytes, 16-byte aligned; K % 256 == 0; out [M, N] f32.
+int w4a8k4_matmul_launch(const void* x, int x_bf16, const void* blocks, void* xq, void* xs,
+                         void* sxm, void* out, int M, int K, int N, int rw, int grid,
                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) launch_quant_acts<__nv_bfloat16>(x, M, K, xq, xs, sxm, st);
-  else launch_quant_acts<float>(x, M, K, xq, xs, sxm, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int8_t* q = static_cast<const int8_t*>(xq);
-  const float* s = static_cast<const float*>(xs);
-  const float* sm = static_cast<const float*>(sxm);
-  const uint8_t* b = static_cast<const uint8_t*>(blocks);
-  float* o = static_cast<float*>(out);
-  if (M <= 1) launch_gemv_k4<1>(q, s, sm, b, o, M, K, N, st);
-  else if (M <= 2) launch_gemv_k4<2>(q, s, sm, b, o, M, K, N, st);
-  else if (M <= 4) launch_gemv_k4<4>(q, s, sm, b, o, M, K, N, st);
-  else if (M <= 8) launch_gemv_k4<8>(q, s, sm, b, o, M, K, N, st);
-  else launch_gemv_k4<16>(q, s, sm, b, o, M, K, N, st);
-  return (int)cudaGetLastError();
+  GvArgs a{};
+  a.x = x; a.x_bf16 = x_bf16;
+  a.codes = static_cast<const uint8_t*>(blocks);
+  a.out = static_cast<float*>(out);
+  a.xq = static_cast<int8_t*>(xq); a.xs = static_cast<float*>(xs);
+  a.sxm = static_cast<float*>(sxm);
+  a.M = M; a.K = K; a.N = N; a.n_mat = 1; a.klen = K;
+  return launch_gv<GV_KIND_I>(a, rw, grid, stream);
 }
 
 // x: [M, K] bf16 (x_bf16 != 0) or f32, K % 32 == 0, 16-byte aligned; out:
@@ -1887,35 +2323,30 @@ int q4k_native_mm_launch(const void* x, int x_bf16, const void* blocks, int tile
                            1, tile, out, M, K, N, stream);
 }
 
-// Kernel J: kernel A over selected experts of a bank. codes [Ne, N, K/2],
-// scales / mins [Ne, N, K/32] bf16; eids [n_sel] int32 on the card; x is [M, K]
-// shared by every selected expert, or [n_sel, M, K] (x_per_expert != 0),
-// 1 <= M <= 16. xq / xs / sxm hold the quantized rows of x (M or n_sel*M);
-// out [n_sel, M, N] f32.
+// Kernel J: kernel A over selected experts of a bank, one launch. codes
+// [Ne, N, K/2], scales / mins [Ne, N, K/32] bf16; eids [n_sel] int32 on the
+// card; x is [M, K] shared by every selected expert, or [n_sel, M, K]
+// (x_per_expert != 0), 1 <= M <= 16, K % 256 == 0. xq / xs / sxm (M or
+// n_sel*M rows), when not null, receive x's quantization; out [n_sel, M, N]
+// f32, out[j] equal bit for bit to kernel A on expert eids[j] alone, NaN for
+// an id outside the bank. rw and grid as for kernel A.
 int w4a8_bank_launch(const void* x, int x_bf16, int x_per_expert, const void* codes,
                      const void* scales, const void* mins, const void* eids, int n_sel,
                      int n_expert, void* xq, void* xs, void* sxm, void* out, int M,
-                     int K, int N, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = (x_per_expert ? n_sel : 1) * M;
-  if (x_bf16) launch_quant_acts<__nv_bfloat16>(x, rows, K, xq, xs, sxm, st);
-  else launch_quant_acts<float>(x, rows, K, xq, xs, sxm, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int8_t* q = static_cast<const int8_t*>(xq);
-  const float* s = static_cast<const float*>(xs);
-  const float* sm = static_cast<const float*>(sxm);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
-  const __nv_bfloat16* mn = static_cast<const __nv_bfloat16*>(mins);
-  const int* ei = static_cast<const int*>(eids);
-  float* o = static_cast<float*>(out);
-  if (M <= 1) launch_bank_gemv<1>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
-  else if (M <= 2) launch_bank_gemv<2>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
-  else if (M <= 4) launch_bank_gemv<4>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
-  else if (M <= 8) launch_bank_gemv<8>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
-  else launch_bank_gemv<16>(q, s, sm, c, sc, mn, ei, n_sel, n_expert, x_per_expert, o, M, K, N, st);
-  return (int)cudaGetLastError();
+                     int K, int N, int rw, int grid, void* stream) {
+  if (n_sel < 1) return (int)cudaErrorInvalidValue;
+  GvArgs a{};
+  a.x = x; a.x_bf16 = x_bf16;
+  a.codes = static_cast<const uint8_t*>(codes);
+  a.scales = static_cast<const __nv_bfloat16*>(scales);
+  a.mins = static_cast<const __nv_bfloat16*>(mins);
+  a.eids = static_cast<const int*>(eids);
+  a.n_expert = n_expert; a.x_per_mat = x_per_expert;
+  a.out = static_cast<float*>(out);
+  a.xq = static_cast<int8_t*>(xq); a.xs = static_cast<float*>(xs);
+  a.sxm = static_cast<float*>(sxm);
+  a.M = M; a.K = K; a.N = N; a.n_mat = n_sel; a.klen = K;
+  return launch_gv<GV_KIND_A>(a, rw, grid, stream);
 }
 
 // Kernel K: the exact dequant GEMM over selected experts of a bank, min term
@@ -1958,16 +2389,6 @@ int q4k_parts_mm_launch(const void* x, int x_bf16, const void* codes, const void
   const Q4KMinLoader<__nv_bfloat16> w{{c, static_cast<const __nv_bfloat16*>(scales)},
                                       static_cast<const __nv_bfloat16*>(mins)};
   return launch_dequant_mm(x, x_bf16, w, nb, tile, out, M, K, N, stream);
-}
-
-// Kernel M: kernel A on nb K-blocks (K % (256*nb) == 0), one launch after one
-// activation quantization of all of x: out [nb, M, N] f32, out[i] equal bit
-// for bit to kernel A on (x[:, block i], w[:, block i]) alone; 1 <= M <= 16.
-int w4a8_parts_launch(const void* x, int x_bf16, const void* codes, const void* scales,
-                      const void* mins, int nb, void* xq, void* xs, void* sxm, void* out,
-                      int M, int K, int N, void* stream) {
-  if (nb < 1 || nb > 65535 || K % (256 * nb)) return (int)cudaErrorInvalidValue;
-  return launch_w4a8(x, x_bf16, codes, scales, mins, nb, xq, xs, sxm, out, M, K, N, stream);
 }
 
 // Kernel Q: x [M, K] bf16 or f32 (1 <= M <= 16, K % (256*kb) == 0, 1 <= kb

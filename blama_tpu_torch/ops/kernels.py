@@ -33,19 +33,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each source, with their argument types
 SIGNATURES = {
     "quant_matmul": {
-        "w4a8_matmul_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _P],
-        "w4a8k4_matmul_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "w4a8_matmul_launch": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P],
+        "w4a8k4_matmul_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "q4k_dequant_mm_launch": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P],
         "q8_dequant_mm_launch": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P],
         "q4k_native_mm_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _P],
         "w4a8_bank_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                             _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _P],
         "q4k_bank_mm_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P,
                                _I, _I, _I, _P],
         "q4k_parts_mm_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
-        "w4a8_parts_launch": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                              _I, _I, _I, _P],
         "w4a8_slab_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "w4a8k4_slab_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "w4a8_plane_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -39,25 +39,26 @@ the arrays' own first dimension.
   torch.Tensor     any other tensor type: dense bf16 [K, N] through matmul.
 
 `qmm` dispatches on the class and the number of flat rows as the reference's
-_quant_kernel_call does. The kernels are CUDA C++ (ops/csrc/quant_matmul.cu):
-A (W4A8 GEMV, 1..16 rows, QuantTensorA8S), I (the same on QuantTensorA8K4),
-and one exact dequant GEMM with a weight loader each for B (Q4_K positive
-part, bf16 or f32 scales; the min term is a small product outside, as in the
+_quant_kernel_call does. The kernels are CUDA C++
+(ops/csrc/quant_matmul.cu): A (W4A8 GEMV, 1..16 rows, QuantTensorA8S; one
+launch that quantizes x in the kernel, its group dots on int8 tensor cores,
+columns planned by gemv_plan), I (the same on QuantTensorA8K4), and one
+exact dequant GEMM with a weight loader each for B (Q4_K positive part, bf16
+or f32 scales; the min term is a small product outside, as in the
 reference), G (int8 codes, group 32 or 16) and H (native Q4_K, min term
 inside): pipelined, warp-specialized f32 tiles of the shape tile_plan picks,
 or a thread per output column for a single row, one f32 chain per output
-element in both. MoE expert banks (QuantExperts,
-the stacked arrays of Ne QuantTensors) go through J (kernel A over selected
-experts) and K (B's loader with the min term inside, over selected experts).
-The tp_blocks mode (qmm_blocked, qmm_nblocked) adds L (K's function per
-K-block, or pinned at one block) and M (kernel A per K-block). The tools'
+element in both. MoE expert banks (QuantExperts, the stacked arrays of Ne
+QuantTensors) go through J (kernel A over selected experts, one launch) and
+K (B's loader with the min term inside, over selected experts). The
+tp_blocks mode (qmm_blocked, qmm_nblocked) adds L (K's function per K-block,
+or pinned at one block) and M (kernel A per K-block, one launch). The tools'
 W4A8 variants, which no engine reaches, are Q (w4a8_swar_matmul: A's terms
 summed per K-slab, the min term after it) and T (x2_matmul: I's terms in the
 same grouping), and ubench_q4k's U (q4k_matmul_v1: an f32 two-dot) and V
 (w4a8_plane_matmul / w4a8_packed_matmul: Q's body on two other code
-layouts). On a CPU
-tensor each wrapper runs its plain PyTorch version below; on a CUDA tensor
-it launches the kernel or raises.
+layouts). On a CPU tensor each wrapper runs its plain PyTorch version below;
+on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -378,6 +379,21 @@ def _w4a8_buffers(M: int, K: int, N: int, dev):
     return xq, xs, torch.empty_like(xs), torch.empty((M, N), dtype=torch.float32, device=dev)
 
 
+def _act_buffers(rows: int, K: int, dev, codes: bool):
+    """The W4A8 GEMV's optional outputs of x's quantization (xq, xs, sxm),
+    and the pointers it takes (0: not written)."""
+    if not codes:
+        return (None, None, None), (0, 0, 0)
+    bufs = _w4a8_buffers(rows, K, 0, dev)[:3]
+    return bufs, tuple(t.data_ptr() for t in bufs)
+
+
+def _check_aligned(*arrays) -> None:
+    """The W4A8 GEMV stages scales and mins with 16-byte copies."""
+    if any(t.data_ptr() % 16 for t in arrays):
+        raise ValueError("weight scales and mins must be 16-byte aligned")
+
+
 def _check_rows(M: int, what: str) -> None:
     if not 1 <= M <= A8S_MAX_BATCH:
         raise ValueError(f"{what} takes 1..{A8S_MAX_BATCH} rows, got {M}")
@@ -423,27 +439,82 @@ def w4a8_matmul_plain(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
     return _w4a8_plain(x, unpair_codes(w.codes), w.scales.float(), w.mins.float())
 
 
-def w4a8_launch(x: torch.Tensor, w: QuantTensorA8S):
-    """Launch kernel A on CUDA tensors. Returns (out [M, N] f32, and the
-    prologue's xq, xs, sxm, so a check can compare the activation codes)."""
-    M, K = _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.bfloat16))
+# The W4A8 GEMV's column plan (kernels A, I, J, M). A CTA owns tiles of 64 /
+# rw columns of one matrix (the weight, a K-block or a selected expert); its
+# 8 warps split a tile's columns 8 apiece and the sum's 32 residues rw ways.
+# rw and the grid move no bit: every output keeps its one sum order.
+GEMV_SPLITS = (1, 2, 4, 8)
+# per-tile cost beyond its columns (the epilogue, the residue tree), in
+# columns, and how many times its share of the card's bytes one SM streams
+GEMV_TILE_OVERHEAD = 8
+GEMV_SM_RATE = 2.0
+
+
+def gemv_tiles(rw: int, N: int, n_mat: int = 1) -> int:
+    """Tiles of 64 / rw columns for n_mat matrices of N columns."""
+    return -(-N // (64 // rw)) * n_mat
+
+
+def gemv_cost(rw: int, N: int, n_mat: int = 1) -> float:
+    """The plan's estimate, in columns an SM streams: the card's bytes
+    spread over every SM, or the busiest SM's tiles (one CTA an SM walks
+    ceil(tiles / N_SMS) of them) at GEMV_SM_RATE times its share."""
+    busiest = -(-gemv_tiles(rw, N, n_mat) // N_SMS) * (64 // rw + GEMV_TILE_OVERHEAD)
+    return max(N * n_mat / N_SMS, busiest / GEMV_SM_RATE)
+
+
+def gemv_plan(N: int, n_mat: int = 1, rw: int | None = None) -> tuple[int, int]:
+    """(rw, grid) for n_mat matrices of N columns: the cheapest split by
+    gemv_cost (the fewest residue splits among equals), and one CTA an SM at
+    most, each walking its tiles. `rw` forces a split (tests: any split gives
+    the same bits)."""
+    if rw is None:
+        rw = min(GEMV_SPLITS, key=lambda r: (gemv_cost(r, N, n_mat), r))
+    elif rw not in GEMV_SPLITS:
+        raise ValueError(f"rw must be one of {GEMV_SPLITS}, got {rw}")
+    return rw, min(gemv_tiles(rw, N, n_mat), N_SMS)
+
+
+def _gemv_launch(fn: str, name: str, x: torch.Tensor, weights, out: torch.Tensor,
+                 rows: int, N: int, n_mat: int, codes: bool, rw: int | None):
+    """One launch of the W4A8 GEMV: `weights` are the arguments between x's
+    and the activation buffers (weight arrays, a K-block count, expert ids);
+    `rows` x's rows in all. Returns (xq, xs, sxm) when `codes`, else
+    Nones."""
+    M, K = x.shape[-2], x.shape[-1]
+    bufs, ptrs = _act_buffers(rows, K, x.device, codes)
+    rw, grid = gemv_plan(N, n_mat, rw)
+    rc = getattr(kernels.lib("quant_matmul"), fn)(
+        x.data_ptr(), _is_bf16(x), *weights, *ptrs, out.data_ptr(), M, K, N, rw, grid,
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, name)
+    kernels.count(name)
+    return bufs
+
+
+def w4a8_launch(x: torch.Tensor, w: QuantTensorA8S, codes: bool = True,
+                rw: int | None = None):
+    """Launch kernel A on CUDA tensors (K % 256 == 0). Returns (out [M, N]
+    f32, and x's codes xq, scales xs and scale·sum sxm, written by the
+    kernel when `codes`, so a check can compare them; else Nones). `rw`
+    forces a column split (tests)."""
+    M, K = _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.bfloat16), QK_K)
     _check_rows(M, "kernel A")
-    xq, xs, sxm, out = _w4a8_buffers(M, K, w.n_out, x.device)
-    rc = kernels.lib("quant_matmul").w4a8_matmul_launch(
-        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(),
-        w.scales.data_ptr(), w.mins.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-        sxm.data_ptr(), out.data_ptr(), M, K, w.n_out, kernels.stream_ptr(x.device))
-    kernels.check(rc, "w4a8_gemv")
-    kernels.count("w4a8_gemv")
-    return out, xq, xs, sxm
+    _check_aligned(w.scales, w.mins)
+    out = torch.empty((M, w.n_out), dtype=torch.float32, device=x.device)
+    bufs = _gemv_launch("w4a8_matmul_launch", "w4a8_gemv", x,
+                        (w.codes.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr(), 1),
+                        out, M, w.n_out, 1, codes, rw)
+    return (out, *bufs)
 
 
 def w4a8_matmul(x: torch.Tensor, w: QuantTensorA8S) -> torch.Tensor:
     """Kernel A (CUDA C++, replaces the TPU kernels _a8s_xin_kernel and
-    _a8s_pinned_kernel): x [M <= 16, K] @ W → [M, N] f32."""
+    _a8s_pinned_kernel): x [M <= 16, K] @ W → [M, N] f32, one launch that
+    quantizes x in the kernel."""
     if x.device.type == "cpu":
         return w4a8_matmul_plain(x, w)
-    return w4a8_launch(x, w)[0]
+    return w4a8_launch(x, w, codes=False)[0]
 
 
 def a8k4_matmul_plain(x: torch.Tensor, w: QuantTensorA8K4) -> torch.Tensor:
@@ -452,26 +523,24 @@ def a8k4_matmul_plain(x: torch.Tensor, w: QuantTensorA8K4) -> torch.Tensor:
     return _w4a8_plain(x, *decode_q4k_blocks(w.codes.view(-1, Q4K_BLOCK), w.n_out))
 
 
-def a8k4_launch(x: torch.Tensor, w: QuantTensorA8K4):
+def a8k4_launch(x: torch.Tensor, w: QuantTensorA8K4, codes: bool = True,
+                rw: int | None = None):
     """Launch kernel I on CUDA tensors; returns (out, xq, xs, sxm) as
     w4a8_launch does."""
     M, K = _check_cuda(x, _k4_arrays(w, x.shape[1]), QK_K)
     _check_rows(M, "kernel I")
-    xq, xs, sxm, out = _w4a8_buffers(M, K, w.n_out, x.device)
-    rc = kernels.lib("quant_matmul").w4a8k4_matmul_launch(
-        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-        sxm.data_ptr(), out.data_ptr(), M, K, w.n_out, kernels.stream_ptr(x.device))
-    kernels.check(rc, "w4a8k4_gemv")
-    kernels.count("w4a8k4_gemv")
-    return out, xq, xs, sxm
+    out = torch.empty((M, w.n_out), dtype=torch.float32, device=x.device)
+    bufs = _gemv_launch("w4a8k4_matmul_launch", "w4a8k4_gemv", x, (w.codes.data_ptr(),),
+                        out, M, w.n_out, 1, codes, rw)
+    return (out, *bufs)
 
 
 def a8k4_matmul(x: torch.Tensor, w: QuantTensorA8K4) -> torch.Tensor:
     """Kernel I (CUDA C++, replaces the TPU kernel _a8k4_kernel):
-    x [M <= 16, K] @ native-layout W → [M, N] f32 (W4A8)."""
+    x [M <= 16, K] @ native-layout W → [M, N] f32 (W4A8), one launch."""
     if x.device.type == "cpu":
         return a8k4_matmul_plain(x, w)
-    return a8k4_launch(x, w)[0]
+    return a8k4_launch(x, w, codes=False)[0]
 
 
 def w4a8_xla_matmul(x: torch.Tensor, w: QuantTensorA8) -> torch.Tensor:
@@ -1101,28 +1170,30 @@ def _check_bank(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor, scale_d
     return per, R, K, N, n_sel
 
 
-def w4a8_bank_launch(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor):
+def w4a8_bank_launch(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor,
+                     codes: bool = True, rw: int | None = None):
     """Launch kernel J on CUDA tensors. Returns (out [n_sel, R, N] f32, and
-    the prologue's xq, xs, sxm of every quantized input row)."""
+    x's xq, xs, sxm of every quantized input row when `codes`, else Nones)."""
     per, R, K, N, n_sel = _check_bank(x, bank, eids, torch.bfloat16)
     _check_rows(R, "kernel J")
-    xq, xs, sxm, _ = _w4a8_buffers((n_sel if per else 1) * R, K, 0, x.device)
+    if K % QK_K:
+        raise ValueError(f"kernel J takes K % {QK_K} == 0, got K={K}")
+    _check_aligned(bank.scales, bank.mins)
     out = torch.empty((n_sel, R, N), dtype=torch.float32, device=x.device)
-    rc = kernels.lib("quant_matmul").w4a8_bank_launch(
-        x.data_ptr(), _is_bf16(x), int(per), bank.codes.data_ptr(), bank.scales.data_ptr(),
-        bank.mins.data_ptr(), eids.data_ptr(), n_sel, bank.n_expert, xq.data_ptr(),
-        xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), R, K, N, kernels.stream_ptr(x.device))
-    kernels.check(rc, "w4a8_bank_gemv")
-    kernels.count("w4a8_bank_gemv")
-    return out, xq, xs, sxm
+    bufs = _gemv_launch("w4a8_bank_launch", "w4a8_bank_gemv", x,
+                        (int(per), bank.codes.data_ptr(), bank.scales.data_ptr(),
+                         bank.mins.data_ptr(), eids.data_ptr(), n_sel, bank.n_expert),
+                        out, (n_sel if per else 1) * R, N, n_sel, codes, rw)
+    return (out, *bufs)
 
 
 def w4a8_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
     """Kernel J (CUDA C++, replaces the TPU kernel _a8s_bank_kernel): x [R <= 16,
-    K] or [n_sel, R, K] @ bank[eids[j]] → [n_sel, R, N] f32 (W4A8)."""
+    K] or [n_sel, R, K] @ bank[eids[j]] → [n_sel, R, N] f32 (W4A8), one
+    launch."""
     if x.device.type == "cpu":
         return w4a8_bank_plain(x, bank, eids)
-    return w4a8_bank_launch(x, bank, eids)[0]
+    return w4a8_bank_launch(x, bank, eids, codes=False)[0]
 
 
 def q4k_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor,
@@ -1270,30 +1341,28 @@ def q4k_matmul_pinned(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
     return q4k_matmul_parts(x, w, 1)[0]
 
 
-def a8s_parts_launch(x: torch.Tensor, w: QuantTensorA8S, nb: int):
-    """Launch kernel M on CUDA tensors. Returns (out [nb, M, N] f32, and the
-    prologue's xq, xs, sxm, as w4a8_launch does)."""
+def a8s_parts_launch(x: torch.Tensor, w: QuantTensorA8S, nb: int, codes: bool = True,
+                     rw: int | None = None):
+    """Launch kernel M on CUDA tensors. Returns (out [nb, M, N] f32, and
+    x's xq, xs, sxm when `codes`, as w4a8_launch does)."""
     _check_blocks(nb)
     M, K = _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.bfloat16), nb * QK_K)
     _check_rows(M, "kernel M")
-    xq, xs, sxm, _ = _w4a8_buffers(M, K, 0, x.device)
+    _check_aligned(w.scales, w.mins)
     out = torch.empty((nb, M, w.n_out), dtype=torch.float32, device=x.device)
-    rc = kernels.lib("quant_matmul").w4a8_parts_launch(
-        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr(),
-        nb, xq.data_ptr(), xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), M, K, w.n_out,
-        kernels.stream_ptr(x.device))
-    kernels.check(rc, "w4a8_parts_gemv")
-    kernels.count("w4a8_parts_gemv")
-    return out, xq, xs, sxm
+    bufs = _gemv_launch("w4a8_matmul_launch", "w4a8_parts_gemv", x,
+                        (w.codes.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr(), nb),
+                        out, M, w.n_out, nb, codes, rw)
+    return (out, *bufs)
 
 
 def a8s_matmul_parts(x: torch.Tensor, w: QuantTensorA8S, nb: int) -> torch.Tensor:
     """Kernel M (CUDA C++, replaces the TPU kernel _a8s_parts_kernel):
     x [M <= 16, K] @ W per K-block → [nb, M, N] f32 partials (W4A8, min term
-    inside)."""
+    inside), one launch."""
     if x.device.type == "cpu":
         return a8s_matmul_parts_plain(x, w, nb)
-    return a8s_parts_launch(x, w, nb)[0]
+    return a8s_parts_launch(x, w, nb, codes=False)[0]
 
 
 def _quant_parts_call(flat: torch.Tensor, w, nb: int) -> torch.Tensor:

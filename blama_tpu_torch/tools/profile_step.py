@@ -24,9 +24,9 @@ a greedy request over a 128-token prompt, driven one horizon of 8 batched
 decode steps at a time (ops.generate_loop.scheduler_loop, host bookkeeping
 included). Prints one JSON object: the seconds to synthesize (or
 find) the file and to load it, the GiB on the card after the load, wall
-ms/step, device-busy ms/step (the sum of kernel times), the idle share
-1 - busy/wall, the top kernels and host ops, and the card's name and power
-limit.
+ms/step, device-busy ms/step (the sum of kernel times), the device
+activities a step (kernels, copies, sets), the idle share 1 - busy/wall,
+the top kernels and host ops, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -154,6 +154,10 @@ def main() -> None:
     host = sorted(((e.key, e.self_cpu_time_total / args.steps / 1e3, e.count // args.steps)
                    for e in ev if e.self_cpu_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in kern)
+    # device activities a step (kernels, copies, sets): the launches the host
+    # issues for the card
+    launches = sum(e.count for e in ev
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0) / args.steps
     print(json.dumps(dict(
         card=smi, mode="scheduler" if args.scheduler else "solo", rows=rows,
         engine=args.dtype, tp_blocks=model.config.tp_blocks,
@@ -161,7 +165,7 @@ def main() -> None:
         file="mixtral-8x7b" if args.moe else args.quant,
         layers=model.config.n_layer, file_s=file_s, load_s=load_s, weights_gib=weights_gib,
         steps=args.steps, ctx=args.ctx, wall_ms_per_step=wall_ms,
-        device_busy_ms_per_step=busy,
+        device_busy_ms_per_step=busy, device_launches_per_step=launches,
         idle_share=(1 - busy / wall_ms) if busy else None,
         top_kernels=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in kern[:16]],
         top_host_ops=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in host[:12]],

@@ -134,10 +134,13 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    captured.
 
 Launch counts are set to 0 just before each path and read just after. Any
-failure raises and the script exits non-zero. `python3 chip_smoke.py
---decode-timing DIR` runs only decode_timing, on the kernels of the tree at
-DIR (C, E, N, P and D timed at the 8B shapes, for a before / after in one
-call). The last line of standard
+failure raises and the script exits non-zero. The W4A8 GEMV (A, I, J, M) is
+graph-timed as the decode kernels are, each row of 1-16 held equal to the
+row alone. `python3 chip_smoke.py --decode-timing DIR` runs only
+decode_timing, on the kernels of the tree at DIR (C, E, N, P and D timed at
+the 8B shapes, for a before / after in one call); `--matmul-timing DIR`
+runs only matmul_timing (A, I, J, M, graph-timed, their outputs compared
+with another tree's). The last line of standard
 output is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its launches, error and times. Detailed results also go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX or blama_tpu.
@@ -315,6 +318,33 @@ def check_close(name, out, ref, tol):
     return err
 
 
+def _graph_row(timer, kernel, library):
+    """Times of a W4A8 GEMV call (kernels A, I, J, M), short enough that
+    host gaps inside one launch's event pair dominate it: the graph-timed
+    figures (GraphTimer, the L2 flushed before each call) for the line, the
+    single launch's event figures beside them."""
+    return dict(kernel_ms=timer.graph(kernel, flush=True), event_ms=timer(kernel),
+                library_ms=timer.graph(library, flush=True), library_event_ms=timer(library))
+
+
+def _rows_alone_in_batches(torch, fn, x16, what):
+    """Bit for bit: each row of a batch of m = 1 .. 16 rows equals the same
+    row computed alone (the W4A8 GEMV's sum order does not depend on M)."""
+    alone = torch.cat([fn(x16[r:r + 1].contiguous()) for r in range(16)], dim=-2)
+    for m in range(1, 17):
+        if not torch.equal(fn(x16[:m].contiguous()), alone[..., :m, :]):
+            raise AssertionError(f"{what}: a row of {m} differs from the row alone")
+
+
+def _codes_equal(torch, qm, x, xq, xs, sxm, what):
+    """The kernel's activation codes, scales and scale*sum equal the plain
+    quantizer's bit for bit."""
+    pxq, pxs, psxm = qm.quant_acts(x)
+    for a, b, part in ((xq, pxq, "codes"), (xs, pxs, "scales"), (sxm, psxm, "scale*sum")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: activation {part} differ")
+
+
 def kernel_phase(torch, timer, rng):
     """Each kernel against its plain version at the 8B shapes."""
     from blama_tpu_torch.ops import quant_matmul as qm
@@ -336,27 +366,27 @@ def kernel_phase(torch, timer, rng):
             x = x8[8 - M:].contiguous()
             out, xq, xs, sxm = qm.w4a8_launch(x, w)
             outs[M] = out
-            pxq, pxs, psxm = qm.quant_acts(x)
-            for a, b, what in ((xq, pxq, "codes"), (xs, pxs, "scales"),
-                               (sxm, psxm, "scale*sum")):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"kernel A {label} M={M}: activation {what} differ")
+            _codes_equal(torch, qm, x, xq, xs, sxm, f"kernel A {label} M={M}")
+            if not torch.equal(qm.w4a8_matmul(x, w), out):
+                raise AssertionError(f"kernel A {label} M={M}: the main path's call (no codes "
+                                     "written) differs from the checked one")
             ref = qm.w4a8_matmul_plain(x, w)
             err = check_close(f"kernel A {label} M={M}", out, ref, MATMUL_TOL)
             xb = x.to(torch.bfloat16)
             nbytes = K * N // 2 + 4 * (K // 32) * N + x.numel() * x.element_size() + M * N * 4
-            t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * M * K * N / INT8_OPS
             rows.append(dict(
-                kernel="w4a8_gemv", shape=f"{label} K={K} N={N} M={M}",
-                max_abs_err=err, kernel_ms=timer(lambda: qm.w4a8_launch(x, w)),
+                kernel="w4a8_gemv", shape=f"{label} K={K} N={N} M={M}", max_abs_err=err,
                 plain_ms=timer(lambda: qm.w4a8_matmul_plain(x, w), reps=3, warm=1),
-                library_ms=timer(lambda: torch.matmul(xb, wb.t())),
-                bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations"))
+                **_graph_row(timer, lambda: qm.w4a8_matmul(x, w),
+                             lambda: torch.matmul(xb, wb.t())),
+                **_bound(nbytes, 2 * M * K * N, INT8_OPS)))
             log(f"kernel A {rows[-1]}")
         # batch invariance, which the scheduler's exact replay rests on: a
         # row's result depends neither on the row count nor on its index
         if not torch.equal(outs[8][7:], outs[1]):
             raise AssertionError(f"kernel A {label}: row 7 of 8 differs from the row alone")
+        x16 = torch.randn((16, K), generator=gen, device="cuda").to(x8.dtype)
+        _rows_alone_in_batches(torch, lambda x: qm.w4a8_matmul(x, w), x16, f"kernel A {label}")
         # kernel B takes every chunk of more than 16 flattened rows: a solo
         # T=128 chunk, and the scheduler's joint prefill of 8 rows x T=8..256
         # (64 to 2048 rows); on bf16 scales it also serves 8 and 16 rows of
@@ -546,22 +576,21 @@ def engine_kernel_phase(torch, timer, rng):
             out, xq, xs, sxm = qm.a8k4_launch(x, w)
             torch.cuda.synchronize()
             outs[M] = out
-            pxq, pxs, psxm = qm.quant_acts(x)
-            for a, b, part in ((xq, pxq, "codes"), (xs, pxs, "scales"), (sxm, psxm, "scale*sum")):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"kernel I {label} M={M}: activation {part} differ")
+            _codes_equal(torch, qm, x, xq, xs, sxm, f"kernel I {label} M={M}")
             err = check_close(f"kernel I {label} M={M}", out, qm.a8k4_matmul_plain(x, w),
                               MATMUL_TOL)
             xb = x.to(torch.bfloat16)
             rows.append(dict(
                 kernel="w4a8k4_gemv", shape=f"{label} K={K} N={N} M={M}", max_abs_err=err,
-                kernel_ms=timer(lambda: qm.a8k4_launch(x, w)),
                 plain_ms=timer(lambda: qm.a8k4_matmul_plain(x, w), reps=3, warm=1),
-                library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                **_graph_row(timer, lambda: qm.a8k4_matmul(x, w),
+                             lambda: torch.matmul(xb, wb.t())),
                 **_bound((K // 256) * 144 * N + M * K * xsz + M * N * 4, 2 * M * K * N, INT8_OPS)))
             log(f"kernel I {rows[-1]}")
         if not torch.equal(outs[8][7:], outs[1]):
             raise AssertionError(f"kernel I {label}: row 7 of 8 differs from the row alone")
+        _rows_alone_in_batches(torch, lambda x: qm.a8k4_matmul(x, w), x128[:16],
+                               f"kernel I {label}")
         del w, wb, outs, exact, native
         torch.cuda.empty_cache()
     return rows
@@ -628,23 +657,19 @@ def bank_kernel_phase(torch, timer, rng):
                 if a8:
                     out, xq, xs, sxm = qm.w4a8_bank_launch(x, bank, eids)
                     torch.cuda.synchronize()
-                    pxq, pxs, psxm = qm.quant_acts(x.reshape(-1, K))
-                    for a, b, what in ((xq, pxq, "codes"), (xs, pxs, "scales"),
-                                       (sxm, psxm, "scale*sum")):
-                        if not torch.equal(a, b):
-                            raise AssertionError(f"kernel J {shape}: activation {what} differ")
+                    _codes_equal(torch, qm, x.reshape(-1, K), xq, xs, sxm, f"kernel J {shape}")
                     for j, e in enumerate(eids.tolist()):
                         xj = x[j] if per else x
-                        if not torch.equal(out[j], qm.w4a8_launch(xj, bank.expert(e))[0]):
+                        if not torch.equal(out[j], qm.w4a8_matmul(xj, bank.expert(e))):
                             raise AssertionError(f"kernel J {shape}: expert {e} differs from "
                                                  "kernel A on that expert alone")
                     err = check_close(f"kernel J {shape}", out, qm.w4a8_bank_plain(x, bank, eids),
                                       MATMUL_TOL)
                     rows.append(dict(
                         kernel="w4a8_bank_gemv", shape=shape, max_abs_err=err,
-                        kernel_ms=timer(lambda: qm.w4a8_bank_launch(x, bank, eids)),
                         plain_ms=timer(lambda: qm.w4a8_bank_plain(x, bank, eids), reps=3, warm=1),
-                        library_ms=timer(lib_fn), **_bound(nbytes, ops, INT8_OPS)))
+                        **_graph_row(timer, lambda: qm.w4a8_bank_matmul(x, bank, eids), lib_fn),
+                        **_bound(nbytes, ops, INT8_OPS)))
                     log(f"kernel J {rows[-1]}")
                 # K on every case of the exact bank, and above 16 rows of the
                 # W4A8 bank's (bf16 scales) at the 128-row chunk below
@@ -724,7 +749,7 @@ def moe_dense_kernel_phase(torch, timer, rng):
         exact = qm.repack_q4k_exact(q4k, N, K, "cuda")
         # (row name, what, weight, kernel, plain version, row counts, rate)
         for name, what, w, kernel, plain, counts, rate in (
-                ("w4a8_gemv", "kernel A", a8, lambda x, w: qm.w4a8_launch(x, w)[0],
+                ("w4a8_gemv", "kernel A", a8, qm.w4a8_matmul,
                  qm.w4a8_matmul_plain, (1, 4) if head else (4,), INT8_OPS),
                 ("q4k_dequant_matmul_f32", "kernel B (f32 scales)", exact, qm.q4k_pos,
                  qm.q4k_pos_plain, (1,) if head else (4,), BF16_FLOPS)):
@@ -744,11 +769,13 @@ def moe_dense_kernel_phase(torch, timer, rng):
                     raise AssertionError(f"{what} {shape}: the last row differs from the "
                                          "row alone")
                 xb = x.to(torch.bfloat16)
+                library = lambda: torch.matmul(xb, wb.t())  # noqa: E731
+                times = _graph_row(timer, lambda: kernel(x, w), library) \
+                    if name == "w4a8_gemv" else \
+                    dict(kernel_ms=timer(lambda: kernel(x, w)), library_ms=timer(library))
                 rows.append(dict(
                     kernel=name, shape=shape, max_abs_err=err,
-                    kernel_ms=timer(lambda: kernel(x, w)),
-                    plain_ms=timer(lambda: plain(x, w), reps=3, warm=1),
-                    library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                    plain_ms=timer(lambda: plain(x, w), reps=3, warm=1), **times,
                     **_bound(wbytes + x.numel() * x.element_size() + M * N * 4,
                              2 * M * K * N, rate)))
                 log(f"{what} {rows[-1]}")
@@ -865,11 +892,13 @@ def tp_kernel_phase(torch, timer, rng):
                 shape = f"{label} K={K} N={N} M={M} nb={nb}"
                 out, xq, xs, sxm = qm.a8s_parts_launch(x, a8, nb)
                 torch.cuda.synchronize()
-                pxq, pxs, psxm = qm.quant_acts(x)
-                for a, b, part in ((xq, pxq, "codes"), (xs, pxs, "scales"),
-                                   (sxm, psxm, "scale*sum")):
-                    if not torch.equal(a, b):
-                        raise AssertionError(f"kernel M {shape}: activation {part} differ")
+                _codes_equal(torch, qm, x, xq, xs, sxm, f"kernel M {shape}")
+                kb = K // nb
+                for i in range(nb):
+                    xi = x[:, i * kb:(i + 1) * kb].contiguous()
+                    if not torch.equal(out[i], qm.w4a8_matmul(xi, qm.k_slice(a8, i, nb, True))):
+                        raise AssertionError(f"kernel M {shape}: block {i} differs from kernel "
+                                             "A on its K-slice alone")
                 ref = qm.a8s_matmul_parts_plain(x, a8, nb)
                 err = max(check_close(f"kernel M {shape} block {i}", out[i], ref[i],
                                       MATMUL_TOL) for i in range(nb))
@@ -879,10 +908,10 @@ def tp_kernel_phase(torch, timer, rng):
                             f"kernel M {shape}")
                 rows.append(dict(
                     kernel="w4a8_parts_gemv", shape=shape, max_abs_err=err,
-                    kernel_ms=timer(lambda: qm.a8s_parts_launch(x, a8, nb)),
                     plain_ms=timer(lambda: qm.a8s_matmul_parts_plain(x, a8, nb), reps=3,
                                    warm=1),
-                    library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                    **_graph_row(timer, lambda: qm.a8s_matmul_parts(x, a8, nb),
+                                 lambda: torch.matmul(xb, wb.t())),
                     **_bound(K * N // 2 + 4 * (K // 32) * N + M * K * 2 + nb * M * N * 4,
                              2 * M * K * N, INT8_OPS)))
                 log(f"kernel M {rows[-1]}")
@@ -1794,6 +1823,149 @@ def decode_timing_main(root: str) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"decode_timing-{root.name}.json").write_text(json.dumps(out, indent=1))
     log(f"clocks (sm, mem, power, temperature) before / after: {before} / {out['clocks_after']}")
+    return 0
+
+
+# --matmul-timing: the row counts of the 8B shapes, Mixtral's bank cases
+# (rows, selected experts) and kernel M's row counts at TP_BLOCKS K-blocks
+MATMUL_ROWS = (1, 2, 4, 8, 16)
+BANK_CASES = ((1, 2), (8, 2), (4, 8), (8, 8))
+PARTS_ROWS = (1, 4, 8)
+
+
+def matmul_timing(torch, qm):
+    """Kernels A, I, J and M of the tree whose quant_matmul module is `qm`,
+    through the calls every tree since PR 5 has (w4a8_matmul, a8k4_matmul,
+    w4a8_bank_matmul, a8s_matmul_parts): A and I at the five 8B shapes and
+    MATMUL_ROWS rows (the lm head on f32 x, as forward feeds it), J at
+    Mixtral-8x7B's banks (BANK_CASES; down with one input per expert), M on
+    wo and down at TP_BLOCKS K-blocks. Each graph-timed (GraphTimer: the
+    calls in one CUDA graph, the L2 flushed before each, median per call)
+    beside the graph-timed bf16 library call over the dequantized weights
+    (torch.bmm over the selected experts for J) and the byte bound (the
+    weights as the kernel reads them, x and out). Inputs come from fixed
+    seeds, so two trees' outputs can be compared: returns (rows, {label:
+    output on the host})."""
+    import hashlib
+
+    import numpy as np
+
+    timer = Timer(torch)
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows, outs = [], {}
+
+    def record(kernel, shape, fn, library, nbytes, ops):
+        out = fn()
+        torch.cuda.synchronize()
+        host = out.cpu()
+        outs[f"{kernel} {shape}"] = host
+        rows.append(dict(kernel=kernel, shape=shape,
+                         kernel_ms=timer.graph(fn, flush=True),
+                         library_ms=timer.graph(library, flush=True),
+                         **_bound(nbytes, ops, INT8_OPS),
+                         sha256=hashlib.sha256(host.numpy().tobytes()).hexdigest()))
+        log(f"matmul timing {rows[-1]}")
+
+    for label, (K, N) in SHAPES.items():
+        q4k = random_q4k(rng, N, K, K ** -0.5)
+        a8 = qm.repack_q4k_a8s(q4k, N, K, "cuda")
+        k4 = qm.repack_q4k_a8k4(q4k, N, K, "cuda")
+        wb = qm.dequantize(a8).to(torch.bfloat16)
+        wk = qm.dequantize(k4).to(torch.bfloat16)
+        x16 = torch.randn((16, K), generator=gen, device="cuda").to(torch.bfloat16)
+        if label == "lm_head":
+            x16 = x16.float()
+        for M in MATMUL_ROWS:
+            x = x16[:M].contiguous()
+            xb = x.to(torch.bfloat16)
+            io = M * K * x.element_size() + M * N * 4
+            shape = f"{label} K={K} N={N} M={M}"
+            record("w4a8_gemv", shape, lambda: qm.w4a8_matmul(x, a8),
+                   lambda: torch.matmul(xb, wb.t()), K * N // 2 + 4 * (K // 32) * N + io,
+                   2 * M * K * N)
+            record("w4a8k4_gemv", shape, lambda: qm.a8k4_matmul(x, k4),
+                   lambda: torch.matmul(xb, wk.t()), (K // 256) * 144 * N + io, 2 * M * K * N)
+        del a8, k4, wb, wk
+        torch.cuda.empty_cache()
+    for label, (K, N) in MOE_SHAPES.items():
+        bank = qm.repack_q4k_bank(random_q4k(rng, MOE_EXPERTS * N, K, K ** -0.5),
+                                  MOE_EXPERTS, N, K, True, "cuda")
+        per = label == "down"
+        x8 = torch.randn((MOE_EXPERTS, 8, K), generator=gen, device="cuda").to(torch.bfloat16)
+        for M, n_sel in BANK_CASES:
+            sel = [1, 6] if n_sel == 2 else list(range(MOE_EXPERTS))
+            eids = torch.tensor(sel, dtype=torch.int32, device="cuda")
+            x = x8[sel, :M].contiguous() if per else x8[0, :M].contiguous()
+            xl = x if per else x.expand(n_sel, M, K).contiguous()
+            wsel = torch.stack([qm.dequantize(bank.expert(e)) for e in sel]).to(torch.bfloat16)
+            record("w4a8_bank_gemv", f"{label} K={K} N={N} M={M} sel={n_sel}",
+                   lambda: qm.w4a8_bank_matmul(x, bank, eids),
+                   lambda: torch.bmm(xl, wsel.transpose(1, 2)),
+                   n_sel * (K * N // 2 + 4 * (K // 32) * N) + x.numel() * 2 + n_sel * M * N * 4,
+                   2 * M * K * N * n_sel)
+            del wsel
+        del bank
+        torch.cuda.empty_cache()
+    for label in ("wq/wo", "down"):
+        K, N = SHAPES[label]
+        a8 = qm.repack_q4k_a8s(random_q4k(rng, N, K, K ** -0.5), N, K, "cuda")
+        wb = qm.dequantize(a8).to(torch.bfloat16)
+        x8 = torch.randn((8, K), generator=gen, device="cuda").to(torch.bfloat16)
+        for M in PARTS_ROWS:
+            x = x8[:M].contiguous()
+            record("w4a8_parts_gemv", f"{label} K={K} N={N} M={M} nb={TP_BLOCKS}",
+                   lambda: qm.a8s_matmul_parts(x, a8, TP_BLOCKS), lambda: torch.matmul(x, wb.t()),
+                   K * N // 2 + 4 * (K // 32) * N + M * K * 2 + TP_BLOCKS * M * N * 4,
+                   2 * M * K * N)
+        del a8, wb
+        torch.cuda.empty_cache()
+    return rows, outs
+
+
+def matmul_timing_main(root: str) -> int:
+    """`python3 chip_smoke.py --matmul-timing ROOT`: matmul_timing on the
+    kernels of the tree at ROOT (this tree: `.`), results written to
+    chiprun_out/matmul_timing-<name of ROOT>.json; the outputs are kept in
+    build/matmul_outputs/<name>.pt beside this script, and held with
+    torch.equal against every other tree's kept there (run the trees in one
+    call: parent, change, change, parent)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    if not Path(qm.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {qm.__file__}, not the tree at {root}")
+    smi = nvidia_smi()
+    log(smi)
+    build_s = kernels.build_all()
+    log(f"kernels of {root} built in {build_s:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        rows, outs = matmul_timing(torch, qm)
+    keep = ROOT / "build" / "matmul_outputs"
+    keep.mkdir(parents=True, exist_ok=True)
+    torch.save(outs, keep / f"{root.name}.pt")
+    equal_to = {}
+    for other in sorted(keep.glob("*.pt")):
+        if other.stem == root.name:
+            continue
+        theirs = torch.load(other)
+        differ = [k for k in outs if k in theirs and not torch.equal(outs[k], theirs[k])]
+        same = sum(1 for k in outs if k in theirs) - len(differ)
+        equal_to[other.stem] = dict(equal=same, of=len(outs), differ=differ)
+        log(f"outputs equal to tree {other.stem}'s: {same} of {len(outs)}; differ: {differ}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"matmul_timing-{root.name}.json").write_text(json.dumps(
+        dict(nvidia_smi=smi, tree=str(root), build_s=build_s, rows=rows, equal_to=equal_to),
+        indent=1))
     return 0
 
 
@@ -3370,4 +3542,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-timing"]:
         sys.exit(decode_timing_main(sys.argv[2] if len(sys.argv) > 2 else str(ROOT)))
+    if sys.argv[1:2] == ["--matmul-timing"]:
+        sys.exit(matmul_timing_main(sys.argv[2] if len(sys.argv) > 2 else str(ROOT)))
     sys.exit(main())

@@ -25,6 +25,7 @@ from blama_tpu_torch.ops import decode_attention as da
 from blama_tpu_torch.ops import paged_attention as pa
 from blama_tpu_torch.ops import paged_kv as pkv
 from blama_tpu_torch.ops import quant_matmul as qm
+from blama_tpu_torch.testing import random_q4k
 
 # tolerances as in chip_smoke.py: f32 sums in another order (matmuls);
 # one bf16 rounding flip of the largest output (attention)
@@ -63,6 +64,88 @@ def test_kernel_a(cuda, m, n, k, dtype):
     assert torch.equal(xq, pxq) and torch.equal(xs, pxs) and torch.equal(sxm, psxm)
     _close(out, qm.w4a8_matmul_plain(x, w), MATMUL_TOL)
     assert torch.equal(out, qm.w4a8_launch(x, w)[0])
+
+
+# The W4A8 GEMV (A, I, J, M): one launch, x quantized in the kernel, the
+# group dots on int8 tensor cores, one fixed sum order per output. K = 2560
+# and 768 end inside a 1024-element stage and a 4096-element x phase, 14336
+# takes four phases, N = 300 and 72 end inside a column tile of every split.
+def _gemv_weights(kind, n, k, seed, device):
+    if kind == "a":
+        return _weights(n, k, seed, device)
+    return qm.repack_q4k_a8k4(_bytes(n, k, seed, "Q4_K"), n, k, device)
+
+
+@pytest.mark.parametrize("kind", ["a", "i"])
+@pytest.mark.parametrize("n,k,dtype", [(300, 2560, torch.bfloat16), (72, 768, torch.float32)])
+def test_w4a8_rows_alone_equal_the_batch(cuda, kind, n, k, dtype):
+    """For every M from 1 to 16 each row of the batch equals the row alone
+    bit for bit, and the codes the kernel writes when asked equal
+    quant_acts' exactly; the main path's call (no codes) gives the same."""
+    w = _gemv_weights(kind, n, k, 3, cuda)
+    launch = qm.w4a8_launch if kind == "a" else qm.a8k4_launch
+    main = qm.w4a8_matmul if kind == "a" else qm.a8k4_matmul
+    x = torch.cat([_acts(r + 1, k, dtype, cuda)[-1:] for r in range(16)])
+    alone = torch.cat([main(x[r:r + 1].contiguous(), w) for r in range(16)])
+    for m in range(1, 17):
+        out, xq, xs, sxm = launch(x[:m].contiguous(), w)
+        assert torch.equal(out, alone[:m]), m
+        assert torch.equal(main(x[:m].contiguous(), w), out), m
+        pxq, pxs, psxm = qm.quant_acts(x[:m])
+        assert torch.equal(xq, pxq) and torch.equal(xs, pxs) and torch.equal(sxm, psxm), m
+    plain = qm.w4a8_matmul_plain if kind == "a" else qm.a8k4_matmul_plain
+    _close(alone, plain(x, w), MATMUL_TOL)
+
+
+@pytest.mark.parametrize("m,n,k,dtype", [(1, 300, 768, torch.bfloat16),
+                                         (5, 72, 2560, torch.bfloat16),
+                                         (9, 300, 14336, torch.bfloat16),
+                                         (16, 1000, 4352, torch.float32)])
+def test_w4a8_split_moves_no_bit(cuda, m, n, k, dtype):
+    """Every residue split of the column plan (gemv_plan's rw) gives A's,
+    I's, J's and M's outputs bit for bit, each within the tolerance of its
+    plain version; J equals A per expert and M's blocks A on their slices."""
+    x = _acts(m, k, dtype, cuda)
+    w = _weights(n, k, seed=m, device=cuda)
+    k4 = qm.repack_q4k_a8k4(_bytes(n, k, m, "Q4_K"), n, k, cuda)
+    bank = _bank(3, n, k, m, True, cuda)
+    eids = torch.tensor([2, 0], dtype=torch.int32, device=cuda)
+    nb = 2 if k % 512 == 0 else 1
+    ref_a = qm.w4a8_matmul(x, w)
+    ref_i = qm.a8k4_matmul(x, k4)
+    ref_j = qm.w4a8_bank_matmul(x, bank, eids)
+    ref_m = qm.a8s_matmul_parts(x, w, nb)
+    _close(ref_a, qm.w4a8_matmul_plain(x, w), MATMUL_TOL)
+    _close(ref_i, qm.a8k4_matmul_plain(x, k4), MATMUL_TOL)
+    _close(ref_j, qm.w4a8_bank_plain(x, bank, eids), MATMUL_TOL)
+    for j, e in enumerate((2, 0)):
+        assert torch.equal(ref_j[j], qm.w4a8_matmul(x, bank.expert(e)))
+    kb = k // nb
+    for i in range(nb):
+        xi = x[:, i * kb:(i + 1) * kb].contiguous()
+        assert torch.equal(ref_m[i], qm.w4a8_matmul(xi, qm.k_slice(w, i, nb, True))), i
+    for rw in qm.GEMV_SPLITS:
+        assert torch.equal(qm.w4a8_launch(x, w, codes=False, rw=rw)[0], ref_a), rw
+        assert torch.equal(qm.a8k4_launch(x, k4, codes=False, rw=rw)[0], ref_i), rw
+        assert torch.equal(qm.w4a8_bank_launch(x, bank, eids, codes=False, rw=rw)[0],
+                           ref_j), rw
+        assert torch.equal(qm.a8s_parts_launch(x, w, nb, codes=False, rw=rw)[0], ref_m), rw
+
+
+def test_w4a8_lm_head_width(cuda):
+    """The 8B lm head's width on f32 x (a CTA walks ~16 column tiles with x
+    kept): A and I within the tolerance of their plain versions, each row
+    alone equal to its row of 8."""
+    n, k = 128256, 4096
+    data = random_q4k(np.random.default_rng(5), n, k, k ** -0.5)
+    x = _acts(8, k, torch.float32, cuda)
+    for w, main, plain in ((qm.repack_q4k_a8s(data, n, k, cuda), qm.w4a8_matmul,
+                            qm.w4a8_matmul_plain),
+                           (qm.repack_q4k_a8k4(data, n, k, cuda), qm.a8k4_matmul,
+                            qm.a8k4_matmul_plain)):
+        out = main(x, w)
+        _close(out, plain(x, w), MATMUL_TOL)
+        assert torch.equal(out[3:4], main(x[3:4].contiguous(), w))
 
 
 @pytest.mark.parametrize("m,n,k", [(17, 320, 512), (40, 72, 768), (130, 1000, 256)])
