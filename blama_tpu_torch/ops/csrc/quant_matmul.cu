@@ -90,12 +90,12 @@
 // fmaf(x[m,k], f32(code)*scale, acc) with k ascending from the first group of
 // its K-block, and with a min row after each group's 32 steps acc =
 // fmaf(xsum_g, -min_g, acc), xsum_g lane 0's value of the xor butterfly (16,
-// 8, 4, 2, 1) over the group's 32 x, as an explicit tree. Two kernels take
-// that chain: the one-row kernel (dequant_row_kernel, a thread per column
-// streaming its weights: every solo decode step) and the tiles (two rows or
-// more), so a row's bits depend neither on the rows beside it nor on the
-// tile; parallelism is over (m, n) only, never over K (no split-K, no
-// atomics). No tensor core: an mma sums its products in its own order.
+// 8, 4, 2, 1) over the group's 32 x, as an explicit tree. One body takes
+// that chain at every row count: the tiles below, with one-row shapes for a
+// single row (every solo decode step), so a row's bits depend neither on the
+// rows beside it nor on the shape; parallelism is over (m, n) only, never
+// over K (no split-K, no atomics). No tensor core: an mma sums its products
+// in its own order.
 // Bound on this card, for a design that keeps the chain, the largest of
 // three terms: the bytes (weights, x, out) at 3.35 TB/s; 2*M*K*N f32
 // operations at 67 TFLOP/s (above ~400 operations a Q4_K weight byte: every
@@ -125,7 +125,21 @@
 //     count the system sends (a wave of CTAs wherever the output allows
 //     one) with the tile that leaves the busiest SM the fewest outputs,
 //     weighted by each tile's measured rate; no tile is taller than the
-//     rows need (8 or 16 rows at 2..16). The shape moves no bit.
+//     rows need (8 or 16 rows at 2..16). The shape moves no bit;
+//   - one row (the one-row shapes, RowTile0 / RowTile1, picked by
+//     ops/quant_matmul.py row_plan per (K, N, loader)): one consumer warp of
+//     32 chains a CTA, so a warp's instruction stream is only its chains'
+//     FMAs and shared-memory reads (2 float4 reads per 4 FMAs; the x read a
+//     broadcast; a group's loop unrolled twice), while producer warps on
+//     the other schedulers stage, widen and dequantize (a thread's items
+//     unrolled); 32-column CTAs, the most the columns allow (128 at wq/wo
+//     and down, 32 at wk/wv), three 8-group stages in flight where the
+//     CTAs are few. The consumer still waits ~2x its chain a stage (PERF.md
+//     §7). A thread per
+//     column that also dequantized its own weights (a warp's ring each, no
+//     producers) measured 3.7-9x the chain floor at wq/wo, wk/wv and down
+//     on an H100: one warp a scheduler, issuing in order, cannot fill the
+//     FMA latency with its own dequant.
 //
 // Kernels J and K replace the MoE expert-bank kernels
 //   blama_tpu/ops/pallas/quant_matmul.py:_a8s_bank_kernel (J) and
@@ -163,7 +177,7 @@
 //     kernel A's body with a matrix per K-block, x quantized per block.
 // (_a8s_pinned_kernel is kernel A itself: A sums each column alone with the
 // min term inside.) Every K offset of a block (the tiles' K steps, the
-// one-row kernel's group walk, A's staging chunks and a lane's groups) is
+// one-row shapes' stages, A's staging chunks and a lane's groups) is
 // relative to the block's start, so block i equals the kernel on the
 // K-slice alone bit for bit: what a tp device holding that slice computes.
 // The caller combines the partials by a fixed halving tree. Bound: bytes at
@@ -1017,6 +1031,11 @@ __device__ __forceinline__ float staged(const uint8_t* words, const S* p, int i)
 __device__ __forceinline__ float small_f32_byte(uint32_t v, int i) {
   return __uint_as_float(__byte_perm(v, 0x4Bu, 0x4550u + i)) - 8388608.0f;
 }
+// the same for byte i of v holding q + 128 (an int8 q with its top bit
+// flipped): 2^23 + q + 128 less 2^23 + 128 in one exact add gives q
+__device__ __forceinline__ float small_f32_sbyte(uint32_t v, int i) {
+  return __uint_as_float(__byte_perm(v, 0x4Bu, 0x4550u + i)) - 8388736.0f;
+}
 
 __host__ __device__ constexpr int round16(int b) { return (b + 15) / 16 * 16; }
 
@@ -1029,9 +1048,9 @@ __host__ __device__ constexpr int round16(int b) { return (b + 15) / 16 * 16; }
 //                                  lies in device memory;
 //   stage_small<SG>()              cp.async of the column's scales (mins);
 //   dequant<SG>()                  group gl of the stage from the ring to 32
-//                                  f32 weights and -min (MIN_ROW), the
-//                                  products row() takes, bit for bit.
-// row() is the one-row kernel's: the same weights from device memory.
+//                                  f32 weights and -min (MIN_ROW): code*scale
+//                                  with the code made an f32 by a byte
+//                                  permute and an add (exact), one rounding.
 
 // kernel B: split Q4_K codes with scales of type S; no min term
 template <typename S>
@@ -1073,18 +1092,6 @@ struct Q4KLoader {
       }
     }
   }
-  __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
-                                      int K) const {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(codes + (size_t)n * (K / 2)) + g);
-    const float s = to_f32(scales[(size_t)n * (K / GROUP) + g]);
-    const uint32_t wd[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int b = 0; b < 16; ++b) {
-      const uint32_t byte = (wd[b / 4] >> (8 * (b % 4))) & 0xFFu;
-      wv[b] = (float)(byte & 15u) * s;
-      wv[b + 16] = (float)(byte >> 4) * s;
-    }
-  }
 };
 
 // kernel K: kernel B's loader with the min term inside, as H folds it (a
@@ -1117,11 +1124,6 @@ struct Q4KMinLoader : Q4KLoader<S> {
     Q4KLoader<S>::template dequant<SG>(raw, wv, negmin, n, gs, gl, K);
     negmin = -staged(raw + 16 * SG + 4 * Q4KLoader<S>::template words<SG>(),
                      min_at(n, gs, K), gl);
-  }
-  __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
-                                      int K) const {
-    Q4KLoader<S>::row(wv, negmin, n, g, K);
-    negmin = -to_f32(mins[(size_t)n * (K / GROUP) + g]);
   }
 };
 
@@ -1162,21 +1164,7 @@ struct Q8Loader {
       const uint32_t u = wd[t] ^ 0x80808080u;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        wv[4 * t + i] = (small_f32_byte(u, i) - 128.0f) * (t < 4 ? s0 : s1);
-    }
-  }
-  __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
-                                      int K) const {
-    const uint4* cp =
-        reinterpret_cast<const uint4*>(codes + (size_t)n * K + (size_t)g * GROUP);
-    const uint4 a = __ldg(cp), b = __ldg(cp + 1);
-    const float* sp = scales + (size_t)n * (K / SG) + (size_t)g * (GROUP / SG);
-    const float s0 = sp[0], s1 = sp[GROUP / SG - 1];  // the same scale when SG == 32
-    const uint32_t wd[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int k = 0; k < GROUP; ++k) {
-      const int8_t q = (int8_t)((wd[k / 4] >> (8 * (k % 4))) & 0xFFu);
-      wv[k] = (float)q * (k < 16 ? s0 : s1);
+        wv[4 * t + i] = small_f32_sbyte(u, i) * (t < 4 ? s0 : s1);
     }
   }
 };
@@ -1219,22 +1207,6 @@ struct K4Loader {
       for (int i = 0; i < 4; ++i) wv[4 * t + i] = small_f32_byte(q, i) * s;
     }
   }
-  __device__ __forceinline__ void row(float* wv, float& negmin, int n, int g,
-                                      int K) const {
-    const int t = g / 8, j = g % 8;
-    const uint4* blk = reinterpret_cast<const uint4*>(
-        blocks + ((size_t)n * (K / QK_K) + t) * Q4K_BLOCK);
-    const uint4 hdr = __ldg(blk);
-    const uint4 a = __ldg(blk + 1 + 2 * (j / 2)), b = __ldg(blk + 2 + 2 * (j / 2));
-    int sc, mn;
-    scale_min_k4(j, hdr.y, hdr.z, hdr.w, sc, mn);
-    const float s = half_bits_to_f32(hdr.x) * (float)sc;
-    negmin = -(half_bits_to_f32(hdr.x >> 16) * (float)mn);
-    const uint32_t wd[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int k = 0; k < GROUP; ++k)
-      wv[k] = (float)((wd[k / 4] >> (8 * (k % 4) + 4 * (j & 1))) & 15u) * s;
-  }
 };
 
 // A tile shape of the plan: BM x BN outputs per CTA, TM x TN per consumer
@@ -1263,6 +1235,20 @@ using Tile4 = Tile<64, 32, 4, 4, 1, 3, 2, true, 2>;
 using Tile5 = Tile<32, 32, 4, 2, 1, 3, 2, true, 2>;
 using Tile6 = Tile<16, 32, 4, 1, 4, 3, 4, false, 1>;
 using Tile7 = Tile<8, 32, 2, 1, 4, 3, 4, false, 1>;
+// The one-row shapes (M = 1: every solo decode step of the exact engines):
+// one consumer warp runs 32 columns' chains, a thread each, from the
+// converted buffers, while PW producer warps stage and dequantize; the ring
+// holds three stages in flight. RowTile0 (8-group stages, four producer
+// warps) where the CTAs are few and each one's pace is its chain's (wq/wo,
+// wk/wv, down: at most two CTAs an SM); RowTile1 (4-group stages, two
+// producer warps, half the shared memory, four CTAs an SM) where the
+// columns are many (gate/up, the lm head, the banks, L's partials). Swept on
+// an H100 against 8-group stages with two or six producer warps, a ring of
+// six, and 64- and 128-column CTAs of two and four chains a thread
+// (chip_smoke.py row_sweep; PERF.md). ops/quant_matmul.py ROW_TILES lists
+// the same shapes in the same order (row_plan picks one).
+using RowTile0 = Tile<1, 32, 1, 1, 8, 4, 4, false, 2>;
+using RowTile1 = Tile<1, 32, 1, 1, 4, 4, 2, false, 4>;
 constexpr int CONVERTED = 2;  // converted stages: one filled while one is multiplied
 
 // dynamic shared memory: the ring (per slot the x rows as in device memory,
@@ -1465,10 +1451,12 @@ __device__ __forceinline__ void dequant_tile_body(const void* __restrict__ x, in
         }
       }
       // the weights, dequantized once per CTA from the ring (neighbouring
-      // threads take neighbouring columns: their stores fall in distinct banks)
-      for (int i = tid; i < BN * SG; i += NP) {
-        const int c = i % BN, gl = i / BN;
-        if (c >= nv || gl >= ng) continue;
+      // threads take neighbouring columns: their stores fall in distinct
+      // banks; a thread's items unrolled, so their dequants overlap)
+#pragma unroll
+      for (int it = 0; it < (BN * SG + NP - 1) / NP; ++it) {
+        const int i = tid + it * NP, c = i % BN, gl = i / BN;
+        if (i >= BN * SG || c >= nv || gl >= ng) continue;
         float wv[GROUP];
         float negmin = 0.0f;
         w.template dequant<SG>(slot + XB + c * RAW, wv, negmin, n0 + c, gs, gl, K);
@@ -1513,7 +1501,7 @@ __device__ __forceinline__ void dequant_tile_body(const void* __restrict__ x, in
     const float* s_nm = s_xs + BM * SG;
     const int ng = min(SG, g1 - (g0 + s * SG));
     if (live) {
-#pragma unroll 1
+#pragma unroll(BM == 1 ? 2 : 1)  // one row: the next group's reads overlap this one's chain
       for (int gl = 0; gl < ng; ++gl) {
         if constexpr (KM) {  // an outer product per k
 #pragma unroll 8
@@ -1615,131 +1603,6 @@ dequant_bank_tile_kernel(const void* __restrict__ x, int xb, const Loader w,
                                 M, K, N, 0, K / GROUP, smem);
 }
 
-// ---------------------------------------------------------------------------
-// the same function for one row: one thread per output column
-// ---------------------------------------------------------------------------
-// A 64-row tile with one live row wastes the tile, and one row is every solo
-// decode step of the exact engines. Here a thread owns a column and streams
-// its weights group by group (Loader::row). The output keeps the tile
-// kernel's sum bit for bit: the same dequantized products, fma over k
-// ascending, and for MIN_ROW the group's x summed in the butterfly's order
-// before its fma; so a row gives the same bits alone and among other rows.
-// (With 2..16 rows an accumulator per row in this kernel measured slower
-// than the tiles: its loads are not hidden with one warp per scheduler.)
-// one warp per block and four groups' loads in flight measured fastest for
-// the Q4_K loader at the 8B shapes on an NVIDIA H100 (blocks of 32, 64, 128
-// threads x unroll 1, 2, 4, 8)
-constexpr int R_THREADS = 32;
-constexpr int R_UNROLL = 4;
-
-__device__ __forceinline__ void load_x32(const float* p, float* xv) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
-    xv[4 * i] = v.x, xv[4 * i + 1] = v.y, xv[4 * i + 2] = v.z, xv[4 * i + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void load_x32(const __nv_bfloat16* p, float* xv) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
-    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // a bf16 is the high half of its f32
-      xv[8 * i + 2 * j] = __uint_as_float(wd[j] << 16);
-      xv[8 * i + 2 * j + 1] = __uint_as_float(wd[j] & 0xFFFF0000u);
-    }
-  }
-}
-
-template <typename T, typename Loader>
-__device__ __forceinline__ void dequant_row_body(const T* __restrict__ x, const Loader& w,
-                                                 float* __restrict__ out, int K, int N,
-                                                 int g0, int g1) {
-  const int n = blockIdx.x * R_THREADS + threadIdx.x;
-  if (n >= N) return;
-  float acc = 0.0f;
-#pragma unroll R_UNROLL
-  for (int g = g0; g < g1; ++g) {
-    float wv[GROUP], xv[GROUP];
-    float negmin = 0.0f;
-    w.row(wv, negmin, n, g, K);
-    load_x32(x + (size_t)g * GROUP, xv);
-#pragma unroll
-    for (int k = 0; k < GROUP; ++k) acc = fmaf(xv[k], wv[k], acc);
-    if constexpr (Loader::MIN_ROW) {
-      // lane 0's value of the tile kernel's xor butterfly (16, 8, .., 1),
-      // each level a loop of fixed trip count so that it unrolls and the
-      // sums stay in registers (a loop over the level put xv in local memory)
-      float t[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) t[i] = xv[i] + xv[i + 16];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) t[i] = t[i] + t[i + 8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) t[i] = t[i] + t[i + 4];
-      t[0] = t[0] + t[2];
-      t[1] = t[1] + t[3];
-      acc = fmaf(t[0] + t[1], negmin, acc);
-    }
-  }
-  out[n] = acc;
-}
-
-// the one row of B, G, H and L at one block (the whole of K)
-template <typename T, typename Loader>
-__global__ void __launch_bounds__(R_THREADS)
-dequant_row_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
-                   int K, int N) {
-  dequant_row_body<T, Loader>(x, w, out, K, N, 0, K / GROUP);
-}
-
-// L's one row over nb > 1 K-blocks: block i = blockIdx.y. (A kernel of its
-// own because the block's bounds as arguments made the one-block case ~1.4x
-// slower on the 8B lm head's one row, f32 x, on an NVIDIA H100; the bodies
-// are the same, so block i equals dequant_row_kernel on its K-slice alone.)
-template <typename T, typename Loader>
-__global__ void __launch_bounds__(R_THREADS)
-dequant_parts_row_kernel(const T* __restrict__ x, const Loader w, float* __restrict__ out,
-                         int K, int N, int Gb) {
-  const int i = blockIdx.y;
-  dequant_row_body<T, Loader>(x, w, out + (size_t)i * N, K, N, i * Gb, (i + 1) * Gb);
-}
-
-// kernel K's one row: selected expert j = blockIdx.y, e = eids[j]
-template <typename T, typename Loader>
-__global__ void __launch_bounds__(R_THREADS)
-dequant_bank_row_kernel(const T* __restrict__ x, const Loader w,
-                        const int* __restrict__ eids, int n_expert, int x_per_expert,
-                        float* __restrict__ out, int K, int N) {
-  const int j = blockIdx.y, e = eids[j];
-  float* o = out + (size_t)j * N;
-  if (e < 0 || e >= n_expert) {  // an id outside the bank: NaN, loudly
-    const int n = blockIdx.x * R_THREADS + threadIdx.x;
-    if (n < N) o[n] = quiet_nan();
-    return;
-  }
-  dequant_row_body<T, Loader>(x + (x_per_expert ? (size_t)j * K : 0), w.expert(e, K, N),
-                              o, K, N, 0, K / GROUP);
-}
-
-// one row of B, G, H, L: the column-per-thread kernels
-template <typename T, typename Loader>
-void launch_row_t(const void* x, const Loader& w, int nb, void* out, int K, int N,
-                  cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  float* o = static_cast<float*>(out);
-  if (nb == 1) {
-    const int blocks = (N + R_THREADS - 1) / R_THREADS;
-    dequant_row_kernel<T, Loader><<<blocks, R_THREADS, 0, st>>>(xp, w, o, K, N);
-  } else {
-    const dim3 grid((N + R_THREADS - 1) / R_THREADS, nb);
-    dequant_parts_row_kernel<T, Loader><<<grid, R_THREADS, 0, st>>>(xp, w, o, K, N,
-                                                                    K / GROUP / nb);
-  }
-}
-
 template <class Tl, typename Loader>
 cudaError_t launch_tile(const void* x, int xb, const Loader& w, int nb, void* out, int M, int K,
                         int N, cudaStream_t st) {
@@ -1784,6 +1647,16 @@ cudaError_t with_tile(int t, F f) {
   }
 }
 
+// one-row tile t of the plan (ops/quant_matmul.py row_plan) → f<RowTile t>()
+template <typename F>
+cudaError_t with_row_tile(int t, F f) {
+  switch (t) {
+    case 0: return f(RowTile0{});
+    case 1: return f(RowTile1{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // bm_bn[0..1] = tile t's rows and columns (ops/quant_matmul.py TILES must
 // list the same)
 int tile_shape(int t, int* bm_bn) {
@@ -1794,44 +1667,30 @@ int tile_shape(int t, int* bm_bn) {
   });
 }
 
-// one row goes to the column-per-thread kernel, more to the tiles of shape
-// `tile`; nb K-blocks of K/nb elements (nb = 1: the whole product [M, N])
+// one row goes to the one-row tile `plan` (row_plan), more rows to the tile
+// `plan` (tile_plan); nb K-blocks of K/nb elements (nb = 1: the whole
+// product [M, N])
 template <typename Loader>
-int launch_dequant_mm(const void* x, int x_bf16, const Loader& w, int nb, int tile, void* out,
+int launch_dequant_mm(const void* x, int x_bf16, const Loader& w, int nb, int plan, void* out,
                       int M, int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M == 1) {
-    if (x_bf16) launch_row_t<__nv_bfloat16>(x, w, nb, out, K, N, st);
-    else launch_row_t<float>(x, w, nb, out, K, N, st);
-    return (int)cudaGetLastError();
-  }
-  return (int)with_tile(tile, [&](auto tl) {
+  auto launch = [&](auto tl) {
     return launch_tile<decltype(tl)>(x, x_bf16, w, nb, out, M, K, N, st);
-  });
+  };
+  return (int)(M == 1 ? with_row_tile(plan, launch) : with_tile(plan, launch));
 }
 
 template <typename Loader>
 int launch_bank_mm(const void* x, int x_bf16, const Loader& w, const void* eids,
-                   int n_sel, int n_expert, int x_per_expert, int tile, void* out, int M,
+                   int n_sel, int n_expert, int x_per_expert, int plan, void* out, int M,
                    int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ei = static_cast<const int*>(eids);
-  if (M == 1) {
-    const dim3 grid((N + R_THREADS - 1) / R_THREADS, n_sel);
-    if (x_bf16)
-      dequant_bank_row_kernel<__nv_bfloat16, Loader><<<grid, R_THREADS, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x), w, ei, n_expert, x_per_expert,
-          static_cast<float*>(out), K, N);
-    else
-      dequant_bank_row_kernel<float, Loader><<<grid, R_THREADS, 0, st>>>(
-          static_cast<const float*>(x), w, ei, n_expert, x_per_expert,
-          static_cast<float*>(out), K, N);
-    return (int)cudaGetLastError();
-  }
-  return (int)with_tile(tile, [&](auto tl) {
+  auto launch = [&](auto tl) {
     return launch_bank_tile<decltype(tl)>(x, x_bf16, w, ei, n_sel, n_expert, x_per_expert, out,
                                           M, K, N, st);
-  });
+  };
+  return (int)(M == 1 ? with_row_tile(plan, launch) : with_tile(plan, launch));
 }
 
 // ---------------------------------------------------------------------------
@@ -2249,6 +2108,33 @@ extern "C" {
 // tile t's rows and columns; an unknown t gives cudaErrorInvalidValue.
 int dequant_tile_shape(int t, void* bm_bn) { return tile_shape(t, static_cast<int*>(bm_bn)); }
 
+// The one-row tiles of the exact dequant GEMM: for one-row tile t and
+// loader l of ops/quant_matmul.py ROW_LOADERS (0 B f32 scales, 1 B bf16, 2
+// K / L f32, 3 K / L bf16, 4 G group 32, 5 G group 16, 6 H) with bf16
+// (x_bf16) or f32 x, out5 (host memory) receives the columns a CTA owns,
+// the groups a stage carries, the ring's stages, the producer warps and the
+// dynamic shared memory bytes; an unknown t or l gives cudaErrorInvalidValue.
+int dequant_row_shape(int t, int loader, int x_bf16, void* out5) {
+  int* o = static_cast<int*>(out5);
+  const int xsz = x_bf16 ? 2 : 4;
+  return (int)with_row_tile(t, [&](auto tl) {
+    using Tl = decltype(tl);
+    int smem;
+    switch (loader) {
+      case 0: smem = tile_smem_bytes<Tl, Q4KLoader<float>>(xsz); break;
+      case 1: smem = tile_smem_bytes<Tl, Q4KLoader<__nv_bfloat16>>(xsz); break;
+      case 2: smem = tile_smem_bytes<Tl, Q4KMinLoader<float>>(xsz); break;
+      case 3: smem = tile_smem_bytes<Tl, Q4KMinLoader<__nv_bfloat16>>(xsz); break;
+      case 4: smem = tile_smem_bytes<Tl, Q8Loader<32>>(xsz); break;
+      case 5: smem = tile_smem_bytes<Tl, Q8Loader<16>>(xsz); break;
+      case 6: smem = tile_smem_bytes<Tl, K4Loader>(xsz); break;
+      default: return cudaErrorInvalidValue;
+    }
+    o[0] = Tl::BN, o[1] = Tl::SG, o[2] = Tl::STAGES, o[3] = Tl::PW, o[4] = smem;
+    return cudaSuccess;
+  });
+}
+
 // Kernel A (nb = 1) and kernel M (nb K-blocks of K/nb elements), one
 // launch: x [M, K] bf16 (x_bf16 != 0) or f32, 1 <= M <= 16, 16-byte
 // aligned, K % (256*nb) == 0; codes [N, K/2], scales / mins [N, K/32] bf16;
@@ -2288,39 +2174,42 @@ int w4a8k4_matmul_launch(const void* x, int x_bf16, const void* blocks, void* xq
 }
 
 // x: [M, K] bf16 (x_bf16 != 0) or f32, K % 32 == 0, 16-byte aligned; out:
-// [M, N] f32. scales: [N, K/32] f32 (scales_f32 != 0) or bf16. tile: the
-// plan's tile shape for M > 1 (0 .. N_TILES-1; ops/quant_matmul.py
-// tile_plan); codes 16-byte aligned.
+// [M, N] f32. scales: [N, K/32] f32 (scales_f32 != 0) or bf16. plan: for M
+// > 1 the tile shape (0 .. N_TILES-1; ops/quant_matmul.py tile_plan), for M
+// = 1 the one-row shape (0 .. N_ROW_TILES-1; row_plan); codes 16-byte
+// aligned.
 int q4k_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
-                          const void* scales, int scales_f32, int tile, void* out, int M,
+                          const void* scales, int scales_f32, int plan, void* out, int M,
                           int K, int N, void* stream) {
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   if (scales_f32)
     return launch_dequant_mm(x, x_bf16, Q4KLoader<float>{c, static_cast<const float*>(scales)},
-                             1, tile, out, M, K, N, stream);
+                             1, plan, out, M, K, N, stream);
   return launch_dequant_mm(
       x, x_bf16, Q4KLoader<__nv_bfloat16>{c, static_cast<const __nv_bfloat16*>(scales)},
-      1, tile, out, M, K, N, stream);
+      1, plan, out, M, K, N, stream);
 }
 
-// codes: [N, K] int8; scales: [N, K/group] f32, group 32 or 16; K % 32 == 0.
+// codes: [N, K] int8; scales: [N, K/group] f32, group 32 or 16; K % 32 == 0;
+// plan as for kernel B.
 int q8_dequant_mm_launch(const void* x, int x_bf16, const void* codes,
-                         const void* scales, int group, int tile, void* out, int M, int K,
+                         const void* scales, int group, int plan, void* out, int M, int K,
                          int N, void* stream) {
   const int8_t* c = static_cast<const int8_t*>(codes);
   const float* s = static_cast<const float*>(scales);
   if (group == 32)
-    return launch_dequant_mm(x, x_bf16, Q8Loader<32>{c, s}, 1, tile, out, M, K, N, stream);
+    return launch_dequant_mm(x, x_bf16, Q8Loader<32>{c, s}, 1, plan, out, M, K, N, stream);
   if (group == 16)
-    return launch_dequant_mm(x, x_bf16, Q8Loader<16>{c, s}, 1, tile, out, M, K, N, stream);
+    return launch_dequant_mm(x, x_bf16, Q8Loader<16>{c, s}, 1, plan, out, M, K, N, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// blocks: [N, K/256 * 144] bytes of Q4_K superblocks; K % 256 == 0.
-int q4k_native_mm_launch(const void* x, int x_bf16, const void* blocks, int tile, void* out,
+// blocks: [N, K/256 * 144] bytes of Q4_K superblocks; K % 256 == 0; plan as
+// for kernel B.
+int q4k_native_mm_launch(const void* x, int x_bf16, const void* blocks, int plan, void* out,
                          int M, int K, int N, void* stream) {
   return launch_dequant_mm(x, x_bf16, K4Loader{static_cast<const uint8_t*>(blocks)},
-                           1, tile, out, M, K, N, stream);
+                           1, plan, out, M, K, N, stream);
 }
 
 // Kernel J: kernel A over selected experts of a bank, one launch. codes
@@ -2352,21 +2241,21 @@ int w4a8_bank_launch(const void* x, int x_bf16, int x_per_expert, const void* co
 // Kernel K: the exact dequant GEMM over selected experts of a bank, min term
 // inside. codes [Ne, N, K/2], scales / mins [Ne, N, K/32] f32 (scales_f32 !=
 // 0) or bf16; eids and x as for kernel J (any M >= 1); out [n_sel, M, N] f32;
-// tile as for kernel B.
+// plan as for kernel B.
 int q4k_bank_mm_launch(const void* x, int x_bf16, int x_per_expert, const void* codes,
                        const void* scales, const void* mins, int scales_f32,
-                       const void* eids, int n_sel, int n_expert, int tile, void* out, int M,
+                       const void* eids, int n_sel, int n_expert, int plan, void* out, int M,
                        int K, int N, void* stream) {
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   if (scales_f32) {
     const Q4KMinLoader<float> w{{c, static_cast<const float*>(scales)},
                                 static_cast<const float*>(mins)};
-    return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, tile, out, M,
+    return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, plan, out, M,
                           K, N, stream);
   }
   const Q4KMinLoader<__nv_bfloat16> w{{c, static_cast<const __nv_bfloat16*>(scales)},
                                       static_cast<const __nv_bfloat16*>(mins)};
-  return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, tile, out, M, K,
+  return launch_bank_mm(x, x_bf16, w, eids, n_sel, n_expert, x_per_expert, plan, out, M, K,
                         N, stream);
 }
 
@@ -2375,20 +2264,20 @@ int q4k_bank_mm_launch(const void* x, int x_bf16, int x_per_expert, const void* 
 // out[i] the partial of block i, equal bit for bit to the same kernel on
 // (x[:, block i], w[:, block i]) alone; nb = 1 is the pinned product.
 // codes [N, K/2], scales / mins [N, K/32] f32 (scales_f32 != 0) or bf16;
-// tile as for kernel B.
+// plan as for kernel B (row_plan over a K-block's K/nb elements).
 int q4k_parts_mm_launch(const void* x, int x_bf16, const void* codes, const void* scales,
-                        const void* mins, int scales_f32, int nb, int tile, void* out, int M,
+                        const void* mins, int scales_f32, int nb, int plan, void* out, int M,
                         int K, int N, void* stream) {
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   if (nb < 1 || nb > 65535 || K % (GROUP * nb)) return (int)cudaErrorInvalidValue;
   if (scales_f32) {
     const Q4KMinLoader<float> w{{c, static_cast<const float*>(scales)},
                                 static_cast<const float*>(mins)};
-    return launch_dequant_mm(x, x_bf16, w, nb, tile, out, M, K, N, stream);
+    return launch_dequant_mm(x, x_bf16, w, nb, plan, out, M, K, N, stream);
   }
   const Q4KMinLoader<__nv_bfloat16> w{{c, static_cast<const __nv_bfloat16*>(scales)},
                                       static_cast<const __nv_bfloat16*>(mins)};
-  return launch_dequant_mm(x, x_bf16, w, nb, tile, out, M, K, N, stream);
+  return launch_dequant_mm(x, x_bf16, w, nb, plan, out, M, K, N, stream);
 }
 
 // Kernel Q: x [M, K] bf16 or f32 (1 <= M <= 16, K % (256*kb) == 0, 1 <= kb

@@ -49,6 +49,7 @@ SIGNATURES = {
         "w4a8_plane_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "q4k_twodot_launch": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
         "dequant_tile_shape": [_I, _P],
+        "dequant_row_shape": [_I, _I, _I, _P],
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 14 + [_I] * 9 + [_F, _P],

@@ -47,8 +47,9 @@ exact dequant GEMM with a weight loader each for B (Q4_K positive part, bf16
 or f32 scales; the min term is a small product outside, as in the
 reference), G (int8 codes, group 32 or 16) and H (native Q4_K, min term
 inside): pipelined, warp-specialized f32 tiles of the shape tile_plan picks,
-or a thread per output column for a single row, one f32 chain per output
-element in both. MoE expert banks (QuantExperts, the stacked arrays of Ne
+and at one row the same body at a one-row shape (one consumer warp of 32
+chains; row_plan picks it), one f32 chain per output element at every row
+count. MoE expert banks (QuantExperts, the stacked arrays of Ne
 QuantTensors) go through J (kernel A over selected experts, one launch) and
 K (B's loader with the min term inside, over selected experts). The
 tp_blocks mode (qmm_blocked, qmm_nblocked) adds L (K's function per K-block,
@@ -985,12 +986,88 @@ def _tile(tile, M: int, N: int, n_mat: int = 1) -> int:
     return tile
 
 
-def _tile_launch(fn: str, name: str, x: torch.Tensor, N: int, tile, *args) -> torch.Tensor:
+# The one-row shapes of the exact GEMM (M = 1: every solo decode step of
+# the exact engines): the tiles' body with one row, one consumer warp
+# running 32 columns' chains (a thread each) from the converted buffers and
+# PW producer warps staging the weights with cp.async and dequantizing them.
+# (BN columns, SG groups a stage, ring stages, producer warps) per shape, in
+# the kernel's order (quant_matmul.cu RowTile0, RowTile1); chip_smoke.py's
+# row sweep times each at the 8B shapes.
+ROW_TILES = ((32, 8, 4, 4), (32, 4, 4, 2))
+# the loaders, in the order the kernel numbers them (dequant_row_shape), and
+# the bytes one column of a stage of SG groups takes in the ring (the
+# loaders' raw_bytes<SG>: codes, then the scale and min words)
+ROW_LOADERS = ("b_f32", "b_bf16", "min_f32", "min_bf16", "g32", "g16", "h")
+ROW_MIN_TERM = ("min_f32", "min_bf16", "h")   # the group sums of x and the -mins staged
+SMEM_MAX = 232448   # an H100's shared memory for one CTA
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def row_raw_bytes(loader: str, sg: int) -> int:
+    """quant_matmul.cu's raw_bytes<SG>() of a loader."""
+    if loader == "h":
+        return 16 * (1 + 2 * ((sg + 1) // 2))
+    if loader in ("g32", "g16"):
+        return _round16(32 * sg + 4 * (32 // int(loader[1:])) * sg)
+    words = sg if loader.endswith("f32") else sg // 2 + 1
+    return _round16(16 * sg + (8 if loader.startswith("min") else 4) * words)
+
+
+def row_smem(t: int, loader: str, x_bf16: bool) -> int:
+    """Dynamic shared memory of one-row tile t (quant_matmul.cu
+    tile_smem_bytes at BM = 1): the ring (per stage x's row, 16 bytes of
+    padding, BN columns of raw weights), then two converted buffers (x and
+    the weights as f32, rows of SG·32 + 4 floats; the group sums and -mins
+    beside them with the min term). It does not depend on K: x is staged
+    with the weights."""
+    bn, sg, stages, _ = ROW_TILES[t]
+    ks, xsz = sg * GROUP, 2 if x_bf16 else 4
+    slot = ks * xsz + 16 + bn * row_raw_bytes(loader, sg)
+    buf = (1 + bn) * (ks + 4) + ((1 + bn) * sg if loader in ROW_MIN_TERM else 0)
+    return stages * slot + 2 * 4 * buf
+
+
+def row_ctas(t: int, N: int, n_mat: int = 1) -> int:
+    """CTAs one-row tile t launches for n_mat products of N columns."""
+    return -(-N // ROW_TILES[t][0]) * n_mat
+
+
+def row_plan(kb: int, N: int, loader: str, n_mat: int = 1) -> int:
+    """The one-row tile (index into ROW_TILES) for n_mat products (K-blocks
+    of kb elements, or selected experts) of N columns through `loader`: the
+    8-group stages with four producer warps while the CTAs fit two an SM in
+    one wave (the chain-bound shapes: wq/wo, wk/wv, down), the 4-group
+    stages with two (four CTAs an SM) beyond. Every shape has 32-column
+    CTAs, the most the columns allow; each column keeps its one chain
+    whatever the shape, so the plan moves no bit, and it reads no row
+    count."""
+    if loader not in ROW_LOADERS or kb % GROUP:
+        raise ValueError(f"no one-row plan for loader {loader!r} at K-blocks of {kb}")
+    return 0 if row_ctas(0, N, n_mat) <= 2 * N_SMS else 1
+
+
+def _plan(tile, row_tile, M: int, kb: int, N: int, loader: str, n_mat: int = 1) -> int:
+    """The launch's plan argument: at one row the one-row tile (row_plan, or
+    `row_tile` forced by a test), else the tile (_tile)."""
+    if M != 1:
+        return _tile(tile, M, N, n_mat)
+    if row_tile is None:
+        return row_plan(kb, N, loader, n_mat)
+    if not 0 <= row_tile < len(ROW_TILES):
+        raise ValueError(f"row_tile must be 0..{len(ROW_TILES) - 1}, got {row_tile}")
+    return row_tile
+
+
+def _tile_launch(fn: str, name: str, x: torch.Tensor, N: int, tile, row_tile, loader: str,
+                 *args) -> torch.Tensor:
     M, K = x.shape
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = getattr(kernels.lib("quant_matmul"), fn)(
-        x.data_ptr(), _is_bf16(x), *args, _tile(tile, M, N), out.data_ptr(), M, K, N,
-        kernels.stream_ptr(x.device))
+        x.data_ptr(), _is_bf16(x), *args, _plan(tile, row_tile, M, K, N, loader),
+        out.data_ptr(), M, K, N, kernels.stream_ptr(x.device))
     kernels.check(rc, name)
     kernels.count(name)
     return out
@@ -1010,16 +1087,19 @@ def q4k_min_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
             - rows_mm(xg, w.mins.float().t().contiguous()))
 
 
-def q4k_pos(x: torch.Tensor, w: QuantTensor, tile: int | None = None) -> torch.Tensor:
+def q4k_pos(x: torch.Tensor, w: QuantTensor, tile: int | None = None,
+            row_tile: int | None = None) -> torch.Tensor:
     """Kernel B (CUDA C++, replaces the TPU kernel _q4k_matmul_kernel):
     positive part x @ (code·scale) → [M, N] f32; bf16 scales
     (QuantTensorA8S) or f32 scales (QuantTensor). `tile` forces a shape of
-    TILES on more than one row (tests); the default is tile_plan's."""
+    TILES on more than one row, `row_tile` a shape of ROW_TILES on one row
+    (tests); the defaults are tile_plan's and row_plan's."""
     if x.device.type == "cpu":
         return q4k_pos_plain(x, w)
     f32 = not isinstance(w, QuantTensorA8S)
     _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.float32 if f32 else torch.bfloat16))
     return _tile_launch("q4k_dequant_mm_launch", "q4k_dequant_matmul", x, w.n_out, tile,
+                        row_tile, "b_f32" if f32 else "b_bf16",
                         w.codes.data_ptr(), w.scales.data_ptr(), int(f32))
 
 
@@ -1038,10 +1118,11 @@ def q8_0_matmul_plain(x: torch.Tensor, w: QuantTensorQ8) -> torch.Tensor:
     return x.float() @ dequantize(w).t()
 
 
-def q8_0_matmul(x: torch.Tensor, w: QuantTensorQ8, tile: int | None = None) -> torch.Tensor:
+def q8_0_matmul(x: torch.Tensor, w: QuantTensorQ8, tile: int | None = None,
+                row_tile: int | None = None) -> torch.Tensor:
     """Kernel G (CUDA C++, replaces the TPU kernel _q8_matmul_kernel):
-    x [M, K] @ int8-code W → [M, N] f32, scale group 32 or 16 (`tile` as
-    for q4k_pos)."""
+    x [M, K] @ int8-code W → [M, N] f32, scale group 32 or 16 (`tile` and
+    `row_tile` as for q4k_pos)."""
     if x.device.type == "cpu":
         return q8_0_matmul_plain(x, w)
     if w.group not in (16, 32):
@@ -1050,7 +1131,8 @@ def q8_0_matmul(x: torch.Tensor, w: QuantTensorQ8, tile: int | None = None) -> t
     _check_cuda(x, ((w.codes, torch.int8, (w.n_out, K)),
                     (w.scales, torch.float32, (w.n_out, K // w.group))))
     return _tile_launch("q8_dequant_mm_launch", "q8_dequant_matmul", x, w.n_out, tile,
-                        w.codes.data_ptr(), w.scales.data_ptr(), w.group)
+                        row_tile, f"g{w.group}", w.codes.data_ptr(), w.scales.data_ptr(),
+                        w.group)
 
 
 def q4k_native_matmul_plain(x: torch.Tensor, w: QuantTensorK4) -> torch.Tensor:
@@ -1065,17 +1147,17 @@ def q4k_native_matmul_plain(x: torch.Tensor, w: QuantTensorK4) -> torch.Tensor:
     return (pos - xg.sum(dim=-1)[:, None, :] * mins[None]).sum(dim=-1)
 
 
-def q4k_native_matmul(x: torch.Tensor, w: QuantTensorK4,
-                      tile: int | None = None) -> torch.Tensor:
+def q4k_native_matmul(x: torch.Tensor, w: QuantTensorK4, tile: int | None = None,
+                      row_tile: int | None = None) -> torch.Tensor:
     """Kernel H (CUDA C++, replaces the TPU kernel _q4k_native_kernel):
     x [M, K] @ native-layout W → [M, N] f32, exact dequant numerics, scales
-    decoded and min term applied inside the kernel (`tile` as for
-    q4k_pos)."""
+    decoded and min term applied inside the kernel (`tile` and `row_tile`
+    as for q4k_pos)."""
     if x.device.type == "cpu":
         return q4k_native_matmul_plain(x, w)
     _check_cuda(x, _k4_arrays(w, x.shape[1]), QK_K)
     return _tile_launch("q4k_native_mm_launch", "q4k_native_matmul", x, w.n_out, tile,
-                        w.codes.data_ptr())
+                        row_tile, "h", w.codes.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -1197,11 +1279,11 @@ def w4a8_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) ->
 
 
 def q4k_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor,
-                    tile: int | None = None) -> torch.Tensor:
+                    tile: int | None = None, row_tile: int | None = None) -> torch.Tensor:
     """Kernel K (CUDA C++, replaces the TPU kernel _q4k_bank_kernel): x [R, K]
     or [n_sel, R, K] @ bank[eids[j]] → [n_sel, R, N] f32, exact dequant with
-    the min term inside; the bank's own scale dtype (f32 or bf16); `tile` as
-    for q4k_pos."""
+    the min term inside; the bank's own scale dtype (f32 or bf16); `tile`
+    and `row_tile` as for q4k_pos."""
     if x.device.type == "cpu":
         return q4k_bank_plain(x, bank, eids)
     f32 = not bank.a8
@@ -1210,7 +1292,8 @@ def q4k_bank_matmul(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor,
     rc = kernels.lib("quant_matmul").q4k_bank_mm_launch(
         x.data_ptr(), _is_bf16(x), int(per), bank.codes.data_ptr(), bank.scales.data_ptr(),
         bank.mins.data_ptr(), int(f32), eids.data_ptr(), n_sel, bank.n_expert,
-        _tile(tile, R, N, n_sel), out.data_ptr(), R, K, N, kernels.stream_ptr(x.device))
+        _plan(tile, row_tile, R, K, N, "min_f32" if f32 else "min_bf16", n_sel),
+        out.data_ptr(), R, K, N, kernels.stream_ptr(x.device))
     kernels.check(rc, "q4k_bank_matmul")
     kernels.count("q4k_bank_matmul")
     return out
@@ -1312,13 +1395,13 @@ def a8s_matmul_parts_plain(x: torch.Tensor, w: QuantTensorA8S, nb: int) -> torch
     return _parts_plain(w4a8_matmul_plain, x, w, nb)
 
 
-def q4k_matmul_parts(x: torch.Tensor, w: QuantTensor, nb: int,
-                     tile: int | None = None) -> torch.Tensor:
+def q4k_matmul_parts(x: torch.Tensor, w: QuantTensor, nb: int, tile: int | None = None,
+                     row_tile: int | None = None) -> torch.Tensor:
     """Kernel L (CUDA C++, replaces the TPU kernels _q4k_parts_kernel and, at
     nb = 1, _q4k_pinned_kernel): x [M, K] @ packed W per K-block → [nb, M, N]
     f32 partials, exact dequant with the min term inside; f32 scales
-    (QuantTensor) or bf16 (QuantTensorA8S above 16 rows); `tile` as for
-    q4k_pos."""
+    (QuantTensor) or bf16 (QuantTensorA8S above 16 rows); `tile` and
+    `row_tile` as for q4k_pos."""
     if x.device.type == "cpu":
         return q4k_matmul_parts_plain(x, w, nb)
     _check_blocks(nb)
@@ -1326,10 +1409,10 @@ def q4k_matmul_parts(x: torch.Tensor, w: QuantTensor, nb: int,
     M, K = _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.float32 if f32 else torch.bfloat16),
                        nb * QK_K)
     out = torch.empty((nb, M, w.n_out), dtype=torch.float32, device=x.device)
+    plan = _plan(tile, row_tile, M, K // nb, w.n_out, "min_f32" if f32 else "min_bf16", nb)
     rc = kernels.lib("quant_matmul").q4k_parts_mm_launch(
         x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), w.scales.data_ptr(), w.mins.data_ptr(),
-        int(f32), nb, _tile(tile, M, w.n_out, nb), out.data_ptr(), M, K, w.n_out,
-        kernels.stream_ptr(x.device))
+        int(f32), nb, plan, out.data_ptr(), M, K, w.n_out, kernels.stream_ptr(x.device))
     kernels.check(rc, "q4k_parts_matmul")
     kernels.count("q4k_parts_matmul")
     return out

@@ -26,17 +26,27 @@ included). Prints one JSON object: the seconds to synthesize (or
 find) the file and to load it, the GiB on the card after the load, wall
 ms/step, device-busy ms/step (the sum of kernel times), the device
 activities a step (kernels, copies, sets), the idle share 1 - busy/wall,
-the top kernels and host ops, and the card's name and power limit.
+the top kernels and host ops, the one-row exact kernels' device time and
+calls a step (B, G, H, K and L at one row), and the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
 KV_DTYPES = {"int8": "int8", "bf16": "bfloat16", "f32": "float32"}
+# the one-row calls of B, G, H, K and L by kernel name: the exact tiles at a
+# one-row shape (Tile<1, ...>),
+# and the column-per-thread kernels they replaced (dequant_row_kernel,
+# dequant_parts_row_kernel, dequant_bank_row_kernel), so the tool reads a
+# tree of either
+ONE_ROW_KERNELS = re.compile(
+    r"\bdequant_(parts_|bank_)?row_kernel\b|\bdequant_(bank_)?tile_kernel<[^,]*::Tile<1, ")
 
 
 def main() -> None:
@@ -154,6 +164,7 @@ def main() -> None:
     host = sorted(((e.key, e.self_cpu_time_total / args.steps / 1e3, e.count // args.steps)
                    for e in ev if e.self_cpu_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in kern)
+    one_row = [r for r in kern if ONE_ROW_KERNELS.search(r[0])]
     # device activities a step (kernels, copies, sets): the launches the host
     # issues for the card
     launches = sum(e.count for e in ev
@@ -167,6 +178,8 @@ def main() -> None:
         steps=args.steps, ctx=args.ctx, wall_ms_per_step=wall_ms,
         device_busy_ms_per_step=busy, device_launches_per_step=launches,
         idle_share=(1 - busy / wall_ms) if busy else None,
+        one_row_kernels=dict(ms_per_step=sum(r[1] for r in one_row),
+                             calls_per_step=sum(r[2] for r in one_row)),
         top_kernels=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in kern[:16]],
         top_host_ops=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in host[:12]],
     ), indent=1))

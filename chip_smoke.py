@@ -29,7 +29,13 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    16 rows, every row of its 8- to 128-row outputs equal bit for bit to the
    one-row kernel's, and every tile shape of the plan forced at 8 to 2048
    rows (the tile sweep: the evidence for tile_plan, each shape's bits equal
-   to the plan's). The exact tiles (B, G, H, K, L) also carry library_f32_ms
+   to the plan's), and the one-row calls of B, G, H and L at the five 8B
+   shapes (L's partials on wo and down too) and of K over two Mixtral
+   experts under every one-row shape (the row sweep: the evidence for
+   row_plan, each shape's bits equal to the plan's). The one-row calls of
+   B, G, H, K and L are graph-timed (GraphTimer), their kernel and library
+   times alike, the single launch's event figure beside them. The exact
+   tiles (B, G, H, K, L) also carry library_f32_ms
    (one f32 torch.matmul over the f32 weights, TF32 off) and bound_f32_ms
    (the floor of a design that keeps their f32 chain: bytes, f32 operations
    or the chain's latency). The other engines'
@@ -139,8 +145,9 @@ graph-timed as the decode kernels are, each row of 1-16 held equal to the
 row alone. `python3 chip_smoke.py --decode-timing DIR` runs only
 decode_timing, on the kernels of the tree at DIR (C, E, N, P and D timed at
 the 8B shapes, for a before / after in one call); `--matmul-timing DIR`
-runs only matmul_timing (A, I, J, M, graph-timed, their outputs compared
-with another tree's). The last line of standard
+runs only matmul_timing (A, I, J, M, and the one-row calls of B, G, H, K
+and L, graph-timed beside the f32 and bf16 library calls, their outputs
+compared with another tree's). The last line of standard
 output is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its launches, error and times. Detailed results also go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX or blama_tpu.
@@ -461,6 +468,65 @@ def tile_sweep(torch, timer, rng):
     return rows
 
 
+def row_sweep(torch, timer, rng):
+    """The one-row calls of B (f32 scales), L (pinned, and its partials at
+    TP_BLOCKS on wo and down), H and G (groups 32 and 16) at the five 8B
+    shapes, and of K over two of Mixtral-8x7B's experts, under every shape of
+    ROW_TILES, forced, beside row_plan's pick, graph-timed (GraphTimer, the
+    L2 flushed before each call): the evidence for the plan. Every shape
+    must give the plan's bits."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+
+    def sweep(loader, shape, plan, fn):
+        ref = fn(None)
+        ms = {}
+        for r in range(len(qm.ROW_TILES)):
+            if not torch.equal(fn(r), ref):
+                raise AssertionError(f"row sweep {loader} {shape}: one-row shape {r} differs "
+                                     "from the plan's")
+            ms[r] = timer.graph(lambda: fn(r), flush=True)
+        rows.append(dict(loader=loader, shape=shape, plan=plan, ms=ms))
+        log(f"row sweep {rows[-1]}")
+
+    for label, (K, N) in SHAPES.items():
+        sigma = K ** -0.5
+        x = torch.randn((1, K), generator=gen, device="cuda").to(torch.bfloat16)
+        if label == "lm_head":
+            x = x.float()
+        q4k = random_q4k(rng, N, K, sigma)
+        exact = qm.repack_q4k_exact(q4k, N, K, "cuda")
+        native = qm.repack_q4k_native(q4k, N, K, "cuda")
+        q8 = qm.repack_q8_0(random_q8_0(rng, N, K, sigma), N, K, "cuda")
+        q6 = qm.repack_q6_k_expanded(random_q6_k(rng, N, K, sigma), N, K, "cuda")
+        cases = (("b_f32", lambda r: qm.q4k_pos(x, exact, row_tile=r)),
+                 ("min_f32", lambda r: qm.q4k_matmul_parts(x, exact, 1, row_tile=r)),
+                 ("h", lambda r: qm.q4k_native_matmul(x, native, row_tile=r)),
+                 ("g32", lambda r: qm.q8_0_matmul(x, q8, row_tile=r)),
+                 ("g16", lambda r: qm.q8_0_matmul(x, q6, row_tile=r)))
+        for loader, fn in cases:
+            sweep(loader, f"{label} K={K} N={N} M=1", qm.row_plan(K, N, loader), fn)
+        if label in ("wq/wo", "down"):   # L's partials, the tp_blocks mode's wo and w_down
+            sweep("min_f32", f"{label} K={K} N={N} M=1 nb={TP_BLOCKS}",
+                  qm.row_plan(K // TP_BLOCKS, N, "min_f32", TP_BLOCKS),
+                  lambda r: qm.q4k_matmul_parts(x, exact, TP_BLOCKS, row_tile=r))
+        del exact, native, q8, q6, cases
+        torch.cuda.empty_cache()
+    two = torch.tensor([1, 6], dtype=torch.int32, device="cuda")
+    for label, (K, N) in MOE_SHAPES.items():   # K at the routed decode step
+        bank = qm.repack_q4k_bank(random_q4k(rng, MOE_EXPERTS * N, K, K ** -0.5), MOE_EXPERTS,
+                                  N, K, False, "cuda")
+        x = torch.randn((2, 1, K) if label == "down" else (1, K), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        sweep("min_f32", f"{label} K={K} N={N} M=1 sel=2", qm.row_plan(K, N, "min_f32", 2),
+              lambda r: qm.q4k_bank_matmul(x, bank, two, row_tile=r))
+        del bank
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _bound(nbytes, ops, rate):
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
     return dict(bound_ms=1e3 * max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
@@ -476,11 +542,29 @@ def _bound_f32(nbytes, ops, chain):
     return dict(bound_f32_ms=1e3 * terms[by], bound_f32_by=by)
 
 
+def _exact_time(timer, fn, one_row):
+    """Time of an exact kernel's call (B, G, H, K, L) or of its yardstick: at
+    one row graph-timed (GraphTimer, the L2 flushed before each call), since
+    a single launch's event pair there holds host gaps of its size; above it
+    the median single launch between events."""
+    return timer.graph(fn, flush=True) if one_row else timer(fn)
+
+
+def _exact_row(timer, M, kernel, library):
+    """kernel_ms and library_ms of an exact kernel's line (_exact_time), and
+    at one row the single launch's event figure beside them (event_ms)."""
+    times = dict(kernel_ms=_exact_time(timer, kernel, M == 1),
+                 library_ms=_exact_time(timer, library, M == 1))
+    if M == 1:
+        times["event_ms"] = timer(kernel)
+    return times
+
+
 def _f32_yardstick(torch, timer, x, wf, nbytes, K, N, min_row=False, n_mat=1, kb=None):
     """library_f32_ms (one f32 torch.matmul over the f32-dequantized weights
     wf [N, K] or [n_mat, N, K], TF32 off: the one call that computes the
-    tiles' function) and bound_f32_ms (_bound_f32; chain over a K-block of
-    kb elements, the min term a 33rd step of each group)."""
+    tiles' function; _exact_time) and bound_f32_ms (_bound_f32; chain over a
+    K-block of kb elements, the min term a 33rd step of each group)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the f32 yardstick needs TF32 off")
     xf = x.float()
@@ -488,7 +572,7 @@ def _f32_yardstick(torch, timer, x, wf, nbytes, K, N, min_row=False, n_mat=1, kb
         (lambda: torch.matmul(xf, wf.transpose(1, 2)))
     kb = kb or K
     M = x.shape[-2]
-    return dict(library_f32_ms=timer(lib),
+    return dict(library_f32_ms=_exact_time(timer, lib, M == 1),
                 **_bound_f32(nbytes, 2 * M * K * N * n_mat, kb + (kb // 32 if min_row else 0)))
 
 
@@ -549,9 +633,9 @@ def engine_kernel_phase(torch, timer, rng):
                 nbytes = wbytes + M * K * xsz + M * N * 4
                 rows.append(dict(
                     kernel=name, shape=f"{label} K={K} N={N} M={M}", max_abs_err=err,
-                    kernel_ms=timer(lambda: kernel(x, w)),
                     plain_ms=timer(lambda: plain(x, w), reps=3, warm=1),
-                    library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                    **_exact_row(timer, M, lambda: kernel(x, w),
+                                 lambda: torch.matmul(xb, wb.t())),
                     **_f32_yardstick(torch, timer, x, wf, nbytes, K, N,
                                      min_row=name == "q4k_native_matmul"),
                     # as for kernel B: bf16 tensor cores only without the chain
@@ -631,7 +715,8 @@ def bank_kernel_phase(torch, timer, rng):
             if torch.backends.cuda.matmul.allow_tf32:
                 raise AssertionError("the f32 yardstick needs TF32 off")
             M, n_sel = x.shape[-2], len(eids)
-            return dict(library_f32_ms=timer(library(bank, x, eids, f32=True)),
+            return dict(library_f32_ms=_exact_time(timer, library(bank, x, eids, f32=True),
+                                                   M == 1),
                         **_bound_f32(nbytes, 2 * M * K * N * n_sel, K + K // 32))
 
         for a8 in (True, False):
@@ -681,9 +766,9 @@ def bank_kernel_phase(torch, timer, rng):
                                       MATMUL_TOL)
                     rows.append(dict(
                         kernel="q4k_bank_matmul", shape=shape, max_abs_err=err,
-                        kernel_ms=timer(lambda: qm.q4k_bank_matmul(x, bank, eids)),
                         plain_ms=timer(lambda: qm.q4k_bank_plain(x, bank, eids), reps=3, warm=1),
-                        library_ms=timer(lib_fn), **f32_yardstick(bank, x, eids, nbytes),
+                        **_exact_row(timer, M, lambda: qm.q4k_bank_matmul(x, bank, eids), lib_fn),
+                        **f32_yardstick(bank, x, eids, nbytes),
                         # as for kernel B: bf16 tensor cores only without the chain
                         **_bound(nbytes, ops, BF16_FLOPS)))
                     log(f"kernel K {rows[-1]}")
@@ -771,8 +856,7 @@ def moe_dense_kernel_phase(torch, timer, rng):
                 xb = x.to(torch.bfloat16)
                 library = lambda: torch.matmul(xb, wb.t())  # noqa: E731
                 times = _graph_row(timer, lambda: kernel(x, w), library) \
-                    if name == "w4a8_gemv" else \
-                    dict(kernel_ms=timer(lambda: kernel(x, w)), library_ms=timer(library))
+                    if name == "w4a8_gemv" else _exact_row(timer, M, lambda: kernel(x, w), library)
                 rows.append(dict(
                     kernel=name, shape=shape, max_abs_err=err,
                     plain_ms=timer(lambda: plain(x, w), reps=3, warm=1), **times,
@@ -877,9 +961,9 @@ def tp_kernel_phase(torch, timer, rng):
             nbytes = wbytes + M * K * x.element_size() + blocks * M * N * 4
             rows.append(dict(
                 kernel="q4k_parts_matmul", shape=shape, max_abs_err=err,
-                kernel_ms=timer(lambda: qm.q4k_matmul_parts(x, w, blocks)),
                 plain_ms=timer(lambda: qm.q4k_matmul_parts_plain(x, w, blocks), reps=3, warm=1),
-                library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                **_exact_row(timer, M, lambda: qm.q4k_matmul_parts(x, w, blocks),
+                             lambda: torch.matmul(xb, wb.t())),
                 **_f32_yardstick(torch, timer, x, wf, nbytes, K, N, min_row=True,
                                  kb=K // blocks),
                 **_bound(nbytes, 2 * M * K * N, BF16_FLOPS)))
@@ -1835,7 +1919,8 @@ PARTS_ROWS = (1, 4, 8)
 
 def matmul_timing(torch, qm):
     """Kernels A, I, J and M of the tree whose quant_matmul module is `qm`,
-    through the calls every tree since PR 5 has (w4a8_matmul, a8k4_matmul,
+    then the one-row calls of B, G, H, K and L (one_row_timing), through the
+    calls every tree with kernels L and M has (w4a8_matmul, a8k4_matmul,
     w4a8_bank_matmul, a8s_matmul_parts): A and I at the five 8B shapes and
     MATMUL_ROWS rows (the lm head on f32 x, as forward feeds it), J at
     Mixtral-8x7B's banks (BANK_CASES; down with one input per expert), M on
@@ -1920,7 +2005,117 @@ def matmul_timing(torch, qm):
                    2 * M * K * N)
         del a8, wb
         torch.cuda.empty_cache()
+    one_row_timing(torch, qm, timer, outs, rows)
     return rows, outs
+
+
+def one_row_timing(torch, qm, timer, outs, rows):
+    """The one-row calls of kernels B, G, H, K and L (matmul_timing's one-row
+    lines), through entry points every tree with kernel L has: B (q4k_pos) on
+    f32 scales at the five 8B shapes and on bf16 scales at the lm head, G
+    (q8_0_matmul) at scale groups 32 and 16, H (q4k_native_matmul), L
+    (q4k_matmul_pinned at the five shapes, q4k_matmul_parts at TP_BLOCKS on
+    wo and down), K (q4k_bank_matmul, f32 scales, Mixtral-8x7B's banks over
+    two selected experts, down with one input per expert). x bf16, the lm
+    head's f32, as forward feeds them. Each line: the kernel, the f32
+    library call that computes the same function (torch.matmul over the f32
+    weights, TF32 off; torch.bmm over the K-blocks or the selected experts)
+    and the bf16 one, all graph-timed (GraphTimer, the L2 flushed before each
+    call, median per call); bound_f32_ms (bytes, f32 operations or the
+    chain); the output's sha256, the output kept in `outs`."""
+    import hashlib
+
+    import numpy as np
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 yardstick needs TF32 off")
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def record(kernel, shape, fn, wf, xf, nbytes, ops, chain):
+        """wf: the f32 weights [N, K] or [n, N, K] (then xf [n, 1, K])."""
+        out = fn()
+        torch.cuda.synchronize()
+        host = out.cpu()
+        outs[f"{kernel} {shape}"] = host
+        wbf, xbf = wf.to(torch.bfloat16), xf.to(torch.bfloat16)
+        if wf.dim() == 2:
+            lib32, lib16 = (lambda: torch.matmul(xf, wf.t())), (lambda: torch.matmul(xbf, wbf.t()))
+        else:
+            lib32 = lambda: torch.bmm(xf, wf.transpose(1, 2))  # noqa: E731
+            lib16 = lambda: torch.bmm(xbf, wbf.transpose(1, 2))  # noqa: E731
+        rows.append(dict(kernel=kernel, shape=shape, kernel_ms=timer.graph(fn, flush=True),
+                         library_f32_ms=timer.graph(lib32, flush=True),
+                         library_ms=timer.graph(lib16, flush=True),
+                         **_bound_f32(nbytes, ops, chain),
+                         sha256=hashlib.sha256(host.numpy().tobytes()).hexdigest()))
+        del wbf
+        log(f"matmul timing {rows[-1]}")
+
+    for label, (K, N) in SHAPES.items():
+        sigma = K ** -0.5
+        head = label == "lm_head"
+        x = torch.randn((1, K), generator=gen, device="cuda").to(torch.bfloat16)
+        if head:
+            x = x.float()
+        xf, io = x.float(), K * x.element_size() + N * 4
+        shape = f"{label} K={K} N={N} M=1"
+        q4k = random_q4k(rng, N, K, sigma)
+        exact = qm.repack_q4k_exact(q4k, N, K, "cuda")
+        wf = qm._q4k_values(exact)
+        record("q4k_dequant_matmul_f32", shape, lambda: qm.q4k_pos(x, exact), wf, xf,
+               K * N // 2 + 4 * (K // 32) * N + io, 2 * K * N, K)
+        if head:
+            a8 = qm.repack_q4k_a8s(q4k, N, K, "cuda")
+            record("q4k_dequant_matmul", shape, lambda: qm.q4k_pos(x, a8), qm._q4k_values(a8),
+                   xf, K * N // 2 + 2 * (K // 32) * N + io, 2 * K * N, K)
+            del a8
+        del wf
+        wf = qm.dequantize(exact)
+        record("q4k_parts_matmul", f"{shape} nb=1", lambda: qm.q4k_matmul_pinned(x, exact), wf,
+               xf, K * N // 2 + 8 * (K // 32) * N + io, 2 * K * N, K + K // 32)
+        del wf
+        native = qm.repack_q4k_native(q4k, N, K, "cuda")
+        wf = qm.dequantize(native)
+        record("q4k_native_matmul", shape, lambda: qm.q4k_native_matmul(x, native), wf, xf,
+               (K // 256) * 144 * N + io, 2 * K * N, K + K // 32)
+        del native, wf, exact, q4k
+        for group, w in ((32, qm.repack_q8_0(random_q8_0(rng, N, K, sigma), N, K, "cuda")),
+                         (16, qm.repack_q6_k_expanded(random_q6_k(rng, N, K, sigma), N, K,
+                                                      "cuda"))):
+            wf = qm.dequantize(w)
+            record(f"q8_dequant_matmul_g{group}", shape, lambda: qm.q8_0_matmul(x, w), wf, xf,
+                   K * N + 4 * (K // group) * N + io, 2 * K * N, K)
+            del wf, w
+        torch.cuda.empty_cache()
+    for label in ("wq/wo", "down"):   # L's partials: the tp_blocks mode's wo and w_down
+        K, N = SHAPES[label]
+        nb, kb = TP_BLOCKS, K // TP_BLOCKS
+        exact = qm.repack_q4k_exact(random_q4k(rng, N, K, K ** -0.5), N, K, "cuda")
+        x = torch.randn((1, K), generator=gen, device="cuda").to(torch.bfloat16)
+        wf = qm.dequantize(exact).reshape(N, nb, kb).transpose(0, 1).contiguous()
+        xf = x.float().reshape(1, nb, kb).transpose(0, 1).contiguous()
+        record("q4k_parts_matmul", f"{label} K={K} N={N} M=1 nb={nb}",
+               lambda: qm.q4k_matmul_parts(x, exact, nb), wf, xf,
+               K * N // 2 + 8 * (K // 32) * N + K * 2 + nb * N * 4, 2 * K * N, kb + kb // 32)
+        del exact, wf
+        torch.cuda.empty_cache()
+    two = [1, 6]
+    eids = torch.tensor(two, dtype=torch.int32, device="cuda")
+    for label, (K, N) in MOE_SHAPES.items():   # K: the routed decode step
+        per = label == "down"
+        bank = qm.repack_q4k_bank(random_q4k(rng, MOE_EXPERTS * N, K, K ** -0.5),
+                                  MOE_EXPERTS, N, K, False, "cuda")
+        x = torch.randn((2, 1, K) if per else (1, K), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        wf = torch.stack([qm.dequantize(bank.expert(e)) for e in two])
+        xf = (x if per else x.expand(2, 1, K)).float().contiguous()
+        record("q4k_bank_matmul", f"{label} K={K} N={N} M=1 sel=2 scales=f32",
+               lambda: qm.q4k_bank_matmul(x, bank, eids), wf, xf,
+               2 * (K * N // 2 + 8 * (K // 32) * N) + x.numel() * 2 + 2 * N * 4,
+               2 * 2 * K * N, K + K // 32)
+        del bank, wf
+        torch.cuda.empty_cache()
 
 
 def matmul_timing_main(root: str) -> int:
@@ -3406,6 +3601,9 @@ def main() -> int:
         t_sweep = time.perf_counter()
         res["tile_sweep"] = tile_sweep(torch, timer, np.random.default_rng(6))
         log(f"tile sweep took {time.perf_counter() - t_sweep:.1f} s")
+        t_sweep = time.perf_counter()
+        res["row_sweep"] = row_sweep(torch, timer, np.random.default_rng(7))
+        log(f"row sweep took {time.perf_counter() - t_sweep:.1f} s")
         rows += engine_kernel_phase(torch, timer, np.random.default_rng(1))
         rows += attention_phase(torch, timer)
         t_geo = time.perf_counter()

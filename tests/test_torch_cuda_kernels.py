@@ -349,14 +349,15 @@ def test_kernel_m(cuda, m, n, k, nb):
                            parts[:, r:r + 1]), r
 
 
-# The tiles of B, G, H, K and L against the one-row kernel, which takes each
-# output's f32 chain (k ascending from the block's first group, the min term
-# after each group) and is unchanged: row by row, bit for bit, at every row
+# The tiles of B, G, H, K and L against each row computed alone (a one-row
+# shape), which takes each output's f32 chain (k ascending from the block's
+# first group, the min term after each group): row by row, bit for bit, at every row
 # count, ragged and 8B widths, bf16 and f32 x, every tile shape the plan can
 # pick (forced). K = 288 (9 groups) ends in a stage of one group and puts the
 # bf16 scales of odd columns at 2-byte offsets.
 CHAIN_ROWS = (2, 3, 8, 15, 16, 17, 64, 65, 128, 300)
-CHAIN_WIDTHS = (72, 1000, 1024, 4096)
+# N = 1, and widths just under, at and over a one-row CTA (32 columns)
+CHAIN_WIDTHS = (1, 31, 32, 33, 72, 1000, 1024, 4096)
 CHAIN_LOADERS = ("b_bf16", "b_f32", "g32", "g16", "h", "k_shared", "k_per_expert",
                  "l1", "l2", "l8")
 
@@ -460,6 +461,144 @@ def test_tile_shapes_match_the_plan(cuda):
         assert lib.dequant_tile_shape(t, ctypes.addressof(out)) == 0
         assert tuple(out) == shape, t
     assert lib.dequant_tile_shape(len(qm.TILES), ctypes.addressof((ctypes.c_int * 2)())) != 0
+
+
+# The one-row shapes (ROW_TILES: the tiles' body at one row, a consumer
+# warp of 32 chains) on their own: against the plain versions, at the full
+# 8B down's K = 14336, with every shape forced (the shape moves no bit), and
+# the K-block and expert invariances of L and K at one row.
+ROW_CASES = ("b_bf16", "b_f32", "g32", "g16", "h", "k_shared", "k_per_expert", "l1", "l2",
+             "l8")
+
+
+def _row_case(name, n, k, device):
+    """(fn(x, row_tile) → [n_mat, 1, N], plain(x) → the same, eids or
+    None) of a loader at one row of K = k."""
+    if name in ("b_bf16", "b_f32"):
+        w = _random_split(n, k, name == "b_bf16", n, device)
+        return (lambda x, r: qm.q4k_pos(x, w, row_tile=r)[None],
+                lambda x: qm.q4k_pos_plain(x, w)[None], None)
+    if name in ("g32", "g16"):
+        w = _random_q8(n, k, 32 if name == "g32" else 16, n, device)
+        return (lambda x, r: qm.q8_0_matmul(x, w, row_tile=r)[None],
+                lambda x: qm.q8_0_matmul_plain(x, w)[None], None)
+    if name == "h":
+        w = qm.repack_q4k_native(_bytes(n, k, n, "Q4_K"), n, k, device)
+        return (lambda x, r: qm.q4k_native_matmul(x, w, row_tile=r)[None],
+                lambda x: qm.q4k_native_matmul_plain(x, w)[None], None)
+    if name.startswith("k_"):
+        per = name == "k_per_expert"
+        bank = _random_split(n, k, per, n, device, experts=4)
+        eids = torch.tensor([3, 1, 7, 0], dtype=torch.int32, device=device)  # 7: outside
+
+        def xs(x):
+            return torch.stack([torch.roll(x, j, dims=1) for j in range(4)]) if per else x
+        live = [0, 1, 3]    # the plain version's experts: the ids inside the bank
+        return (lambda x, r: qm.q4k_bank_matmul(xs(x), bank, eids, row_tile=r),
+                lambda x: qm.q4k_bank_plain(xs(x)[live] if per else x, bank, eids[live]), eids)
+    nb = int(name[1:])
+    w = _random_split(n, k, False, n, device)
+    return (lambda x, r: qm.q4k_matmul_parts(x, w, nb, row_tile=r),
+            lambda x: qm.q4k_matmul_parts_plain(x, w, nb), None)
+
+
+@pytest.mark.parametrize("k", [2048, 14336])
+@pytest.mark.parametrize("name", ROW_CASES)
+def test_one_row_against_plain(cuda, name, k):
+    """Each loader's one row within MATMUL_TOL of its plain version, bf16 and
+    f32 x, at K = 2048 and the 8B down's 14336 (the whole chain of a decode
+    step's longest product); the id outside the bank gives NaN."""
+    fn, plain, eids = _row_case(name, 300, k, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _acts(1, k, dtype, cuda)
+        out = fn(x, None)
+        if eids is not None:
+            assert torch.isnan(out[2]).all()
+            out = out[[0, 1, 3]]
+        _close(out, plain(x), MATMUL_TOL)
+        again = fn(x, None)     # a replay gives the same bits
+        assert torch.equal(out, again[[0, 1, 3]] if eids is not None else again)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 33, 255, 257, 1000])
+@pytest.mark.parametrize("name", ROW_CASES)
+def test_one_row_shape_moves_no_bit(cuda, name, n, ragged):
+    """Every one-row shape of ROW_TILES gives the plan's bits, at widths
+    under and over a CTA's 32 columns and over several CTAs, on stages that
+    K fills (K = 2048) and ragged ones (K = 288: a last stage of one group,
+    bf16 scales at 2-byte offsets; H and L at their smallest K)."""
+    k = {"h": 768, "l1": 768, "l2": 1024, "l8": 2048}.get(name, 288) if ragged else 2048
+    fn, _, eids = _row_case(name, n, k, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _acts(1, k, dtype, cuda)
+        ref = fn(x, None)
+        for r in range(len(qm.ROW_TILES)):
+            out = fn(x, r)
+            if eids is not None:
+                assert torch.isnan(out[2]).all(), r
+                out = out[[0, 1, 3]]
+            assert torch.equal(out, ref[[0, 1, 3]] if eids is not None else ref), (dtype, r)
+
+
+@pytest.mark.parametrize("nb", [2, 8])
+@pytest.mark.parametrize("n", [72, 1000])
+def test_row_parts_equal_shards(cuda, nb, n):
+    """Kernel L at one row: every K-block's partial equals the one-row kernel
+    on that K-slice alone (what a tp device holding it computes)."""
+    k = 256 * nb * 2
+    w = _random_split(n, k, False, nb + 1, cuda)
+    kb = k // nb
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _acts(1, k, dtype, cuda)
+        parts = qm.q4k_matmul_parts(x, w, nb)
+        shards = torch.cat([qm.q4k_matmul_parts(
+            x[:, d * kb:(d + 1) * kb].contiguous(), qm.k_slice(w, d, nb, contiguous=True), 1)
+            for d in range(nb)])
+        assert torch.equal(shards, parts), dtype
+
+
+@pytest.mark.parametrize("per", [False, True])
+def test_row_bank_equals_each_expert_alone(cuda, per):
+    """Kernel K at one row: each selected expert's output equals B with the
+    min term inside (kernel L at one block) on that expert alone."""
+    n, k = 1000, 2048
+    bank = _random_split(n, k, False, 5, cuda, experts=4)
+    eids = torch.tensor([2, 0, 3], dtype=torch.int32, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _acts(3, k, dtype, cuda)[:, None] if per else _acts(1, k, dtype, cuda)
+        out = qm.q4k_bank_matmul(x, bank, eids)
+        for j, e in enumerate(eids.tolist()):
+            xj = x[j] if per else x
+            assert torch.equal(out[j], qm.q4k_matmul_pinned(xj.contiguous(), bank.expert(e))), \
+                (dtype, j)
+
+
+def test_row_shapes_match_the_plan(cuda):
+    """The kernel's one-row shapes (columns, groups a stage, stages,
+    producer warps, shared memory for each loader and x type) are the
+    plan's; an unknown shape or loader is refused."""
+    import ctypes
+
+    from blama_tpu_torch.ops import kernels
+
+    lib = kernels.lib("quant_matmul")
+    for t, (bn, sg, stages, pw) in enumerate(qm.ROW_TILES):
+        for li, loader in enumerate(qm.ROW_LOADERS):
+            for xb in (0, 1):
+                out = (ctypes.c_int * 5)()
+                assert lib.dequant_row_shape(t, li, xb, ctypes.addressof(out)) == 0
+                assert tuple(out) == (bn, sg, stages, pw, qm.row_smem(t, loader, bool(xb))), \
+                    (t, loader, xb)
+    bad = (ctypes.c_int * 5)()
+    assert lib.dequant_row_shape(len(qm.ROW_TILES), 0, 1, ctypes.addressof(bad)) != 0
+    assert lib.dequant_row_shape(0, len(qm.ROW_LOADERS), 1, ctypes.addressof(bad)) != 0
+
+
+def test_row_tile_out_of_range_raises(cuda):
+    w = _random_split(64, 256, False, 0, cuda)
+    with pytest.raises(ValueError):
+        qm.q4k_pos(_acts(1, 256, torch.bfloat16, cuda), w, row_tile=len(qm.ROW_TILES))
 
 
 def test_tile_out_of_range_raises(cuda):
