@@ -329,9 +329,12 @@ class LlamaStatic:
 
 
 @functools.lru_cache(maxsize=16)
-def _inv_freq_on(rope_dim, head_dim, freq_base, scale, yarn, device):
+def _inv_freq_on(rope_dim, head_dim, freq_base, scale, yarn, device, freq_factors=None):
+    """The kernels' per-lane inverse frequencies on `device`, made once per
+    model (keyed by the `rope_freqs` tensor itself where the file has one):
+    a step makes no host copy, so it can be captured in a graph."""
     inv, mscale = dattn.effective_inv_freq(rope_dim, head_dim, freq_base, scale,
-                                           yarn=yarn)
+                                           yarn=yarn, freq_factors=freq_factors)
     return inv.to(device), mscale
 
 
@@ -434,12 +437,7 @@ def forward(
     use_fresh = use_fused_attn and not paged and st.attn_fresh and cache.quantized
     row_slot = slots.to(dev, torch.int32)[:, 0] if use_write or use_fresh else None
     if use_fused_attn or use_fused_prefill:
-        if ff is None:
-            inv_freq_e, mscale = _inv_freq_on(rope_dim, D, freq_base, rs, yarn, dev)
-        else:
-            inv_freq_e, mscale = dattn.effective_inv_freq(
-                rope_dim, D, freq_base, rs, yarn=yarn, freq_factors=ff)
-            inv_freq_e = inv_freq_e.to(dev)
+        inv_freq_e, mscale = _inv_freq_on(rope_dim, D, freq_base, rs, yarn, dev, ff)
         kv_rope = pos_view = None
     else:
         pos_view = pkv.view_positions(cache) if paged else new_positions

@@ -12,6 +12,11 @@ bit. Slots are sequential (slot = position), matching the SlotAllocator.
 Every loop serves llama and MoE models alike: it calls its static config's
 step (static_of, the reference's _forward_for), upgraded by `_mode_for` to
 the reference's opt-in decode-attention mode for the loop's cache.
+
+On the card each loop runs its decode steps as replays of one captured
+graph (ops/step_graph.py, the counterpart of the reference's lax.scan):
+`graphs` is the owner's StepGraphs, None (a new one for the call) or False
+(eager launches, for comparison). On the CPU the loops run eagerly.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from ..models import moe as moe_mod
 from . import decode_attention as dattn
 from . import paged_kv as pkv
 from .kv_cache import KVCache, SlotStore
+from .step_graph import graphs_for
 
 # the reference's opt-in decode-attention modes, read once at import as it
 # reads them (blama_tpu/ops/generate_loop.py:37, :49); tests set the
@@ -82,6 +88,7 @@ def greedy_generate(
     cache: KVCache,
     n_prompt: int,                 # true prompt length (P)
     n_steps: int,                  # number of tokens to generate
+    graphs=None,
 ):
     """Prefill the prompt then generate n_steps greedily.
 
@@ -97,6 +104,10 @@ def greedy_generate(
     logits, cache = st.step(params, prompt_tokens, positions, positions, cache, li)
     st = _mode_for(st, cache)
     pos = torch.full((B,), n_prompt, dtype=torch.int32, device=dev)
+    sg = graphs_for(graphs, dev)
+    if sg is not None:
+        o = sg.loop(st, params, cache, logits, pos, n_steps, top=True)
+        return o["toks"], o["top_ids"], o["top_vals"], cache
     toks, ids, vals = [], [], []
     for _ in range(n_steps):
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -116,6 +127,7 @@ def teacher_forced(
     cache: KVCache,
     tokens: torch.Tensor,     # [B, n] claimed tokens to force
     start_pos: torch.Tensor,  # [B] next position (= slot) per row
+    graphs=None,
 ):
     """Teacher-forced decode loop (fillCtx): feed the given tokens one per
     step and capture each step's full logits. The step is continue_greedy's
@@ -125,6 +137,13 @@ def teacher_forced(
     st = _mode_for(st, cache)
     tokens = tokens.to(dev)
     pos = start_pos.to(dev, torch.int32)
+    sg = graphs_for(graphs, dev)
+    if sg is not None:
+        # every token is forced, so the carried logits' argmax is never read
+        logits0 = torch.zeros((tokens.shape[0], 1), dtype=torch.float32, device=dev)
+        o = sg.loop(st, params, cache, logits0, pos, tokens.shape[1],
+                    forced=tokens.to(torch.int32), full=True)
+        return o["full"], cache
     out = []
     for i in range(tokens.shape[1]):
         logits, cache = _step(st, params, cache, tokens[:, i].to(torch.int32), pos)
@@ -141,6 +160,7 @@ def continue_greedy(
     logits0: torch.Tensor,    # [B, V] current logits
     start_pos: torch.Tensor,  # [B] next position (= slot) per row
     n_steps: int,
+    graphs=None,
 ):
     """Continue greedy generation from an existing session state: argmax the
     current logits, decode that token at the next sequential slot, capture
@@ -150,6 +170,10 @@ def continue_greedy(
     st = _mode_for(st, cache)
     logits = logits0.to(dev)
     pos = start_pos.to(dev, torch.int32)
+    sg = graphs_for(graphs, dev)
+    if sg is not None:
+        o = sg.loop(st, params, cache, logits, pos, n_steps, full=True)
+        return o["toks"], o["full"], cache
     toks, out = [], []
     for _ in range(n_steps):
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -170,6 +194,7 @@ def scheduler_loop(
     forced_toks: torch.Tensor,  # [B, H] int32; -1 = greedy-argmax this row/step
     claimed_ids: torch.Tensor,  # [B, H, 10] int32 ids to gather (verify rows)
     n_steps: int,
+    graphs=None,
 ):
     """H decode steps for the continuous-batching scheduler with the logits
     kept ON the device (carried in and out as a device tensor). Mixes greedy
@@ -189,6 +214,12 @@ def scheduler_loop(
     pos = start_pos.to(dev, torch.int32)
     forced_toks = forced_toks.to(dev, torch.int32)
     claimed_ids = claimed_ids.to(dev).long()
+    sg = graphs_for(graphs, dev)
+    if sg is not None:
+        o = sg.loop(st, params, cache, logits, pos, n_steps, forced=forced_toks,
+                    claimed=claimed_ids, top=True)
+        return (o["toks"], o["top_ids"], o["top_vals"], o["claimed_vals"], o["logits"],
+                cache)
     B = logits.shape[0]
     paged = isinstance(cache, pkv.PagedKVCache)
     n_slots = cache.n_slots      # a slot >= n_slots is a pad

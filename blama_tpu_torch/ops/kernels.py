@@ -9,16 +9,24 @@ All sources build in parallel, one ``nvcc`` per source.
 
 Each wrapper that launches a kernel adds one to its entry in ``LAUNCHES``
 at the launch and nowhere else, so a run can show which kernels it went
-through (``reset_launches`` before, read ``LAUNCHES`` after).
+through (``reset_launches`` before, read ``LAUNCHES`` after). Under a CUDA
+graph's capture (``ops/step_graph.py``) a launch only records itself in the
+capture's ``recording``; each replay of the graph adds what its capture
+recorded (``add_launches``), so a graphed run counts what the same run
+counts eagerly. The capture's warm-up run, whose results are dropped, counts
+nothing (``uncounted``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -89,6 +97,8 @@ LAUNCHES = {"w4a8_gemv": 0, "q4k_dequant_matmul": 0, "q8_dequant_matmul": 0,
             "paged_decode_attention": 0, "paged_prefill_attention": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
+# where count() adds: LAUNCHES, a capture's record, or nowhere (a warm-up)
+_sink: dict | None = LAUNCHES
 
 
 def reset_launches() -> None:
@@ -97,7 +107,57 @@ def reset_launches() -> None:
 
 
 def count(name: str) -> None:
-    LAUNCHES[name] += 1
+    if _sink is not None:
+        _sink[name] = _sink.get(name, 0) + 1
+
+
+def add_launches(counts: dict) -> None:
+    """A graph's replay: the launches its capture recorded, once more."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
+
+
+@contextlib.contextmanager
+def _counting_into(sink):
+    global _sink
+    held, _sink = _sink, sink
+    try:
+        yield sink
+    finally:
+        _sink = held
+
+
+_plain = threading.local()
+
+
+def plain_version(fn):
+    """Marks a kernel's plain version: it stands in for the kernel on the
+    CPU, so the host-read guard of a captured step
+    (ops/step_graph.capture_guard) does not reach into it; on the card the
+    kernel runs in its place."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        _plain.depth = getattr(_plain, "depth", 0) + 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _plain.depth -= 1
+    return run
+
+
+def in_plain_version() -> bool:
+    return getattr(_plain, "depth", 0) > 0
+
+
+def recording():
+    """Within it, launches are recorded into the dict it yields, not
+    counted: the capture of a graph, whose kernels run at its replays."""
+    return _counting_into({})
+
+
+def uncounted():
+    """Within it, launches count nowhere: a capture's warm-up run."""
+    return _counting_into(None)
 
 
 def _nvcc() -> str:

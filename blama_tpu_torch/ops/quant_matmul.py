@@ -1223,6 +1223,7 @@ def _bank_rows(x: torch.Tensor, n_sel: int):
     return True, x.shape[1], x.shape[2], lambda j: x[j]
 
 
+@kernels.plain_version
 def w4a8_bank_plain(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel J: kernel A's sum against each selected expert
     → [n_sel, R, N] f32."""
@@ -1231,6 +1232,7 @@ def w4a8_bank_plain(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> 
     return torch.stack([w4a8_matmul_plain(xj(j), bank.expert(e)) for j, e in enumerate(ids)])
 
 
+@kernels.plain_version
 def q4k_bank_plain(x: torch.Tensor, bank: QuantExperts, eids: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel K: q4k_min_plain against each selected expert
     → [n_sel, R, N] f32."""

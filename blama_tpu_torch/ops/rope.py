@@ -12,6 +12,7 @@ Self-Extend) are metadata updates, not KV rewrites.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -21,6 +22,14 @@ def yarn_corr_dim(rope_dim: int, orig_ctx: int, beta: float, freq_base: float) -
     """Dimension index below which rotations exceed `beta` full turns over the
     original context (ggml_rope_yarn_corr_dim semantics)."""
     return rope_dim * math.log(orig_ctx / (beta * 2.0 * math.pi)) / (2.0 * math.log(freq_base))
+
+
+@functools.lru_cache(maxsize=16)
+def _inv_freq(rope_dim: int, freq_base: float, device: torch.device) -> torch.Tensor:
+    """freq_base^(-2i/rope_dim) [rope_dim//2] f32 on `device`, made once: a
+    step makes no host-to-device copy, so it can be captured in a graph."""
+    exponents = torch.arange(rope_dim // 2, dtype=torch.float32, device=device) * (2.0 / rope_dim)
+    return torch.pow(torch.tensor(freq_base, dtype=torch.float32, device=device), -exponents)
 
 
 def rope_angles(
@@ -38,8 +47,7 @@ def rope_angles(
     cos/sin; `freq_factors` divides the inverse frequencies per dim."""
     dev = positions.device
     half = rope_dim // 2
-    exponents = torch.arange(half, dtype=torch.float32, device=dev) * (2.0 / rope_dim)
-    inv_freq = torch.pow(torch.tensor(freq_base, dtype=torch.float32, device=dev), -exponents)
+    inv_freq = _inv_freq(rope_dim, freq_base, dev)
     if freq_factors is not None:
         inv_freq = inv_freq / freq_factors.float()
     theta_extrap = positions.float()[..., None] * inv_freq

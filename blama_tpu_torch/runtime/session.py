@@ -262,7 +262,7 @@ class Session:
         tokens, all_logits, cache = continue_greedy(
             st, inst.model.weights, inst.cache,
             torch.from_numpy(self._last_logits[None, :]),
-            torch.tensor([self._num_past], dtype=torch.int32), n,
+            torch.tensor([self._num_past], dtype=torch.int32), n, graphs=inst.graphs,
         )
         toks = tokens[0].cpu().numpy()
         lg = all_logits[0].float().cpu().numpy()  # [n, V]
@@ -361,7 +361,7 @@ class Session:
         claim = torch.tensor([[tp.token for tp in tokens]], dtype=torch.int32)
         all_logits, cache = teacher_forced(
             st, inst.model.weights, inst.cache, claim,
-            torch.tensor([self._num_past], dtype=torch.int32))
+            torch.tensor([self._num_past], dtype=torch.int32), graphs=inst.graphs)
         lg = all_logits[0].float().cpu().numpy()  # [n, V]
         inst.cache = cache
         new_past = self._num_past + n

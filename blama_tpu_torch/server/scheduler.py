@@ -24,6 +24,7 @@ import torch
 
 from ..ops import decode_attention as dattn
 from ..ops import kv_cache as kvc
+from ..ops.step_graph import StepGraphs
 from ..runtime.sampler import Sampler, SamplerParams
 from ..runtime.token_data import TokenData, TokenPrediction
 from ..utils.metrics import Metrics
@@ -112,7 +113,7 @@ class ContinuousBatchingScheduler:
 
     def __init__(self, model, max_batch: int = 8, ctx_size: int = 0,
                  paged: bool = False, page_size: int = 128, n_pages: int = 0,
-                 horizon: int = 0):
+                 horizon: int = 0, graphs: bool = True):
         self.model = model
         cfg = model.config
         self.B = max_batch
@@ -162,6 +163,12 @@ class ContinuousBatchingScheduler:
         # llama or MoE; every decode step has B·T > 1 rows, so a MoE model
         # takes its masked all-expert path throughout (rows batch-invariant)
         self._st = static_of(cfg)
+        # on the card, the per-token step (T = 1) and the horizon loop replay
+        # captured CUDA graphs (ops/step_graph.py); the joint prefill chunks,
+        # whose [B, T] follows each admission, launch eagerly. graphs=False:
+        # every step eager (for comparison)
+        self._graphs = (StepGraphs(self.device)
+                        if graphs and self.device.type == "cuda" else False)
         self._slots = [_Slot() for _ in range(self.B)]
         self._queue: queue.Queue[GenRequest] = queue.Queue()
         self.metrics = Metrics()
@@ -192,9 +199,13 @@ class ContinuousBatchingScheduler:
         (horizon mode)."""
         if table is not None:
             self.cache.with_table(table)
-        logits, self.cache = self._st.step(
-            self.model.weights, self._put(toks), self._put(pos), self._put(sl),
-            self.cache, self._put(li))
+        if self._graphs and toks.shape[1] == 1:
+            logits = self._graphs.step(self._st, self.model.weights, self.cache,
+                                       *map(torch.from_numpy, (toks, pos, sl, li)))
+        else:
+            logits, self.cache = self._st.step(
+                self.model.weights, self._put(toks), self._put(pos), self._put(sl),
+                self.cache, self._put(li))
         if len(capture):
             if self._dev_logits is None:
                 self._dev_logits = torch.zeros_like(logits)
@@ -228,7 +239,7 @@ class ContinuousBatchingScheduler:
             scheduler_loop(
                 self._st, self.model.weights, self.cache,
                 self._dev_logits, self._put(start_pos),
-                self._put(forced), self._put(cids), H)
+                self._put(forced), self._put(cids), H, graphs=self._graphs)
         return (self._host(toks), self._host(tids),
                 self._host(tvals).astype(np.float32),
                 self._host(cvals).astype(np.float32))

@@ -523,3 +523,72 @@ def write_tiny_moe(path: str, seed: int = 77, n_expert: int = 4,
         g.add_tensor(f"blk.{i}.ffn_up_exps.weight", w((n_expert, F, E)))
         g.add_tensor(f"blk.{i}.ffn_down_exps.weight", w((n_expert, E, F)))
     g.write()
+
+
+# ---------------------------------------------------------------------------
+# graphed against eager launches (ops/step_graph.py)
+# ---------------------------------------------------------------------------
+
+def store_bits(cache) -> list:
+    """A store's tensors on the host but its spare slot (the target of pad
+    writes, which nothing reads: graph warm-ups and captures write there)."""
+    out = [cache.k_store[:, :-1], cache.v_store[:, :-1], cache.pos_store[:-1]]
+    if cache.quantized:
+        out += [cache.k_scale_store[:, :-1], cache.v_scale_store[:, :-1]]
+    return [t.cpu() for t in out]
+
+
+def step_and_loop_outputs(model, kv: str, graphs: bool, prompt: list[int], n: int,
+                          ctx: int = 2048) -> tuple[list, dict]:
+    """What a solo Instance and the loops give on `model`, through graphs
+    or eager launches: the prompt's logits (its bucket's step), a T = 1
+    step's and a T = 4 chunk's, continue_greedy's tokens and full logits
+    over n steps, teacher_forced's full logits over those tokens (all on
+    the Instance's store), greedy_generate's tokens and top-10 over the
+    prompt on a fresh store, and both stores' bits, as host tensors; and
+    the kernels' launch counts over the run."""
+    import torch
+
+    from .ops import generate_loop as gl
+    from .ops import kernels
+    from .ops import kv_cache as kvc
+    from .runtime.instance import Instance, InstanceInitParams
+
+    kernels.reset_launches()
+    inst = Instance(model, InstanceInitParams(ctx_size=ctx, kv_dtype=kv, graphs=graphs))
+    inst.warmup()
+    P = len(prompt)
+    logits = [inst.decode(prompt, np.arange(P)), inst.decode([77], np.array([P])),
+              inst.decode([78, 79, 80], np.arange(P + 1, P + 4))]
+    st = gl.static_of(inst.step_config)
+    toks, full, cache = gl.continue_greedy(st, model.weights, inst.cache,
+                                           torch.from_numpy(logits[-1][None]),
+                                           torch.tensor([P + 4], dtype=torch.int32), n,
+                                           graphs=inst.graphs)
+    forced, cache = gl.teacher_forced(st, model.weights, cache, toks,
+                                      torch.tensor([P + 4 + n], dtype=torch.int32),
+                                      graphs=inst.graphs)
+    c = model.config
+    fresh = kvc.KVCache.create(c.n_layer, 1, ctx, c.n_head_kv, c.head_dim_, kv,
+                               device=model.device)
+    gen = gl.greedy_generate(st, model.weights, torch.tensor([prompt], dtype=torch.int32),
+                             fresh, P, n, graphs=None if graphs else False)
+    outs = [torch.from_numpy(a) for a in logits]
+    outs += [t.cpu() for t in (toks, full, forced, *gen[:3])]
+    return outs + store_bits(cache) + store_bits(gen[3]), dict(kernels.LAUNCHES)
+
+
+def graphs_equal_eager(model, kv: str, prompt: list[int], n: int, ctx: int = 2048) -> dict:
+    """Raise unless step_and_loop_outputs through graphs equals the eager
+    run's with torch.equal, output by output, and its launch counts are
+    the eager run's. Returns the launch counts."""
+    import torch
+
+    eager, e_launches = step_and_loop_outputs(model, kv, False, prompt, n, ctx)
+    graphed, g_launches = step_and_loop_outputs(model, kv, True, prompt, n, ctx)
+    for i, (a, b) in enumerate(zip(eager, graphed, strict=True)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"graphed output {i} differs from the eager one")
+    if g_launches != e_launches:
+        raise AssertionError(f"launches graphed {g_launches} != eager {e_launches}")
+    return g_launches

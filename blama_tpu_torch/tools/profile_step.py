@@ -1,8 +1,8 @@
-"""Where a decode step's time goes on the card.
+"""Where a decode step's time goes on the card, graphed and eager.
 
     python -m blama_tpu_torch.tools.profile_step [--steps 16] [--ctx 2048] [--scheduler]
         [--dtype q4k_a8] [--quant Q4_K] [--layers N] [--moe] [--tp-blocks N]
-        [--kv int8|bf16|f32] [--attn-mode write|fresh|hb]
+        [--kv int8|bf16|f32] [--attn-mode write|fresh|hb] [--eager]
 
 Loads the synthesized llama3-8b GGUF (testing.cached_llama_gguf; `--quant`
 Q4_K, Q8_0 or Q4_K_M, `--layers` cuts its depth) as engine `--dtype` (any of
@@ -16,19 +16,27 @@ is the solo cache's store type (default INT8), `--attn-mode` turns on one of
 the reference's opt-in decode-attention modes (BLAMA_ATTN_WRITE: kernel P,
 BLAMA_ATTN_FRESH: N on an INT8 store, BLAMA_ATTN_HB: O). It
 prefills a 128-token prompt, then times greedy decode steps
-(generate_loop.continue_greedy): wall time per step with the device
-synchronized, and one torch.profiler window over the same steps for the
-device time per kernel. With `--scheduler` the step is the serving step: the
-continuous-batching scheduler with 8 rows on the paged bf16 pool, each row
-a greedy request over a 128-token prompt, driven one horizon of 8 batched
-decode steps at a time (ops.generate_loop.scheduler_loop, host bookkeeping
-included). Prints one JSON object: the seconds to synthesize (or
-find) the file and to load it, the GiB on the card after the load, wall
-ms/step, device-busy ms/step (the sum of kernel times), the device
-activities a step (kernels, copies, sets), the idle share 1 - busy/wall,
-the top kernels and host ops, the one-row exact kernels' device time and
-calls a step (B, G, H, K and L at one row), and the card's name and power
-limit.
+(generate_loop.continue_greedy) as the loops run them on the card: replays
+of the captured step graph (ops/step_graph.py). `--eager` also times the
+same steps with every kernel launched from Python (graphs=False), in the
+same process, and prints the ratios. With `--scheduler` the step is the
+serving step: the continuous-batching scheduler with 8 rows on the paged
+bf16 pool, each row a greedy request over a 128-token prompt, driven one
+horizon of 8 batched decode steps at a time (ops.generate_loop.scheduler_loop,
+host bookkeeping included).
+
+For each way it prints: wall ms/step with the device synchronized; the
+device span ms/step (CUDA events around the timed steps: device time from
+the first kernel to the last, gaps between kernels included); one
+torch.profiler window over the same steps for the device time per kernel
+(device-busy ms/step, the sum of kernel times, and the device activities a
+step), the idle share 1 - busy/wall, the top kernels and host ops, and the
+one-row exact kernels' device time and calls a step (B, G, H, K and L at one
+row). Where the profiler attributes no kernel to a graph's replays, busy and
+the kernel list read null and the span stands in for busy (printed as
+`busy_from`). Also: the seconds to synthesize (or find) the file and to load
+it, the GiB on the card after the load, the graphs' captures (seconds, GiB
+the reserved memory grew by), and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -49,6 +57,109 @@ ONE_ROW_KERNELS = re.compile(
     r"\bdequant_(parts_|bank_)?row_kernel\b|\bdequant_(bank_)?tile_kernel<[^,]*::Tile<1, ")
 
 
+def solo_steps(model, kv="int8", ctx=2048, graphs=True, seed=7):
+    """(steps(n), graphs): n greedy decode steps of one solo Instance after
+    a 128-token prompt, through the Instance's graphs (False: eager)."""
+    import numpy as np
+    import torch
+
+    from ..ops.generate_loop import continue_greedy, static_of
+    from ..runtime.instance import Instance, InstanceInitParams
+
+    inst = Instance(model, InstanceInitParams(ctx_size=ctx, flash_attn=True, kv_dtype=kv,
+                                              graphs=graphs))
+    rng = np.random.default_rng(seed)
+    prompt = [1] + rng.integers(259, model.config.n_vocab, 127).tolist()
+    logits = inst.decode(prompt, np.arange(len(prompt)))
+    st = static_of(inst.step_config)
+    n_past = len(prompt)
+
+    def steps(n):
+        nonlocal n_past
+        _, lg, inst.cache = continue_greedy(
+            st, model.weights, inst.cache, torch.from_numpy(logits[None]),
+            torch.tensor([n_past], dtype=torch.int32), n, graphs=inst.graphs)
+        n_past += n
+        return lg
+    return steps, inst.graphs
+
+
+def scheduler_steps(model, n_steps, ctx=2048, graphs=True, rows=8, horizon=8, seed=7):
+    """(steps(n), graphs): batched decode steps of the paged scheduler, a
+    horizon at a time, after admitting `rows` greedy 128-token requests and
+    one horizon; the rows last n_steps steps and three more horizons."""
+    import numpy as np
+
+    from ..runtime.sampler import SamplerParams
+    from ..server.scheduler import ContinuousBatchingScheduler, GenRequest
+
+    rng = np.random.default_rng(seed)
+    sched = ContinuousBatchingScheduler(model, max_batch=rows, ctx_size=ctx, paged=True,
+                                        horizon=horizon, graphs=graphs)
+    for _ in range(rows):
+        sched.submit(GenRequest(
+            prompt=[1] + rng.integers(259, model.config.n_vocab, 127).tolist(),
+            max_tokens=n_steps + 4 * horizon, sampler_params=SamplerParams(temp=0.0)))
+
+    def steps(n):
+        for _ in range(n // horizon):
+            sched._iteration()
+
+    steps(horizon)                     # admission, joint prefill, one horizon
+    return steps, sched._graphs
+
+
+def measure(steps, n_steps, warm_steps, host_ops=True):
+    """Wall, device span and the profiler's view of n_steps steps (the host
+    ops too unless `host_ops` is false: a device-only trace is cheaper)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps(warm_steps)                          # warm (and capture, graphed)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.record()
+    steps(n_steps)
+    e.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    span_ms = s.elapsed_time(e) / n_steps
+
+    acts = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=acts, acc_events=True) as prof:
+        steps(n_steps)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    # device-side events only (the aten ops also carry their kernels' time)
+    kern = sorted(((e.key, dev_us(e) / n_steps / 1e3, e.count // n_steps)
+                   for e in ev if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  key=lambda r: -r[1])
+    host = sorted(((e.key, e.self_cpu_time_total / n_steps / 1e3, e.count // n_steps)
+                   for e in ev if e.self_cpu_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in kern) or None
+    one_row = [r for r in kern if ONE_ROW_KERNELS.search(r[0])]
+    # device activities a step (kernels, copies, sets)
+    launches = sum(e.count for e in ev
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0) / n_steps
+    idle_of = busy or span_ms
+    return dict(
+        wall_ms_per_step=wall_ms, device_span_ms_per_step=span_ms,
+        device_busy_ms_per_step=busy, busy_from="profiler" if busy else "span",
+        device_launches_per_step=launches if busy else None,
+        idle_share=1 - idle_of / wall_ms,
+        one_row_kernels=dict(ms_per_step=sum(r[1] for r in one_row),
+                             calls_per_step=sum(r[2] for r in one_row)),
+        top_kernels=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in kern[:16]],
+        top_host_ops=[dict(name=k[:80], ms_per_step=t, calls_per_step=c)
+                      for k, t, c in host[:12]])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=16)
@@ -67,19 +178,16 @@ def main() -> None:
                     help="the solo cache's store type")
     ap.add_argument("--attn-mode", choices=["write", "fresh", "hb"], default=None,
                     help="a decode-attention mode (BLAMA_ATTN_WRITE / _FRESH / _HB)")
+    ap.add_argument("--eager", action="store_true",
+                    help="also time the steps with eager launches (graphs=False)")
     args = ap.parse_args()
 
-    import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    from ..gguf import GGMLType
     from ..ops import decode_attention as dattn
     from ..ops import generate_loop as gl
-    from ..ops.generate_loop import continue_greedy, static_of
-    from ..runtime.instance import Instance, InstanceInitParams
     from ..runtime.model import Model, ModelParams
-    from ..gguf import GGMLType
     from ..testing import Q4_K_M, cached_llama_gguf, cached_moe_gguf
 
     if not torch.cuda.is_available():
@@ -103,86 +211,35 @@ def main() -> None:
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     weights_gib = torch.cuda.memory_allocated() / 2 ** 30
-    rng = np.random.default_rng(7)
-    rows, horizon = 1, 1
-    if args.scheduler:
-        from ..runtime.sampler import SamplerParams
-        from ..server.scheduler import ContinuousBatchingScheduler, GenRequest
+    rows, horizon = (8, 8) if args.scheduler else (1, 1)
+    if args.steps % horizon:
+        raise SystemExit(f"--steps must be a multiple of the horizon ({horizon})")
 
-        rows, horizon = 8, 8
-        if args.steps % horizon:
-            raise SystemExit(f"--steps must be a multiple of the horizon ({horizon})")
-        sched = ContinuousBatchingScheduler(model, max_batch=rows, ctx_size=args.ctx,
-                                            paged=True, horizon=horizon)
-        for _ in range(rows):
-            sched.submit(GenRequest(
-                prompt=[1] + rng.integers(259, model.config.n_vocab, 127).tolist(),
-                max_tokens=3 * args.steps + 2 * horizon,
-                sampler_params=SamplerParams(temp=0.0)))
-
-        def steps(n):
-            for _ in range(n // horizon):
-                sched._iteration()
-
-        steps(horizon)                         # admission, joint prefill, one horizon
-    else:
-        inst = Instance(model, InstanceInitParams(ctx_size=args.ctx, flash_attn=True,
-                                                  kv_dtype=KV_DTYPES[args.kv]))
-        prompt = [1] + rng.integers(259, model.config.n_vocab, 127).tolist()
-        logits = inst.decode(prompt, np.arange(len(prompt)))
-        st = static_of(inst.step_config)
-        n_past = len(prompt)
-
-        def steps(n):
-            nonlocal n_past
-            _, lg, inst.cache = continue_greedy(
-                st, model.weights, inst.cache, torch.from_numpy(logits[None]),
-                torch.tensor([n_past], dtype=torch.int32), n)
-            n_past += n
-            return lg
-
-    steps(2 * horizon)                         # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps(args.steps)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        steps(args.steps)
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-
-    # device-side events only (the aten ops also carry their kernels' time)
-    kern = sorted(((e.key, dev_us(e) / args.steps / 1e3, e.count // args.steps)
-                   for e in ev if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                  key=lambda r: -r[1])
-    host = sorted(((e.key, e.self_cpu_time_total / args.steps / 1e3, e.count // args.steps)
-                   for e in ev if e.self_cpu_time_total > 0), key=lambda r: -r[1])
-    busy = sum(r[1] for r in kern)
-    one_row = [r for r in kern if ONE_ROW_KERNELS.search(r[0])]
-    # device activities a step (kernels, copies, sets): the launches the host
-    # issues for the card
-    launches = sum(e.count for e in ev
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0) / args.steps
-    print(json.dumps(dict(
-        card=smi, mode="scheduler" if args.scheduler else "solo", rows=rows,
-        engine=args.dtype, tp_blocks=model.config.tp_blocks,
-        kv=args.kv if not args.scheduler else "bf16", attn_mode=args.attn_mode,
-        file="mixtral-8x7b" if args.moe else args.quant,
-        layers=model.config.n_layer, file_s=file_s, load_s=load_s, weights_gib=weights_gib,
-        steps=args.steps, ctx=args.ctx, wall_ms_per_step=wall_ms,
-        device_busy_ms_per_step=busy, device_launches_per_step=launches,
-        idle_share=(1 - busy / wall_ms) if busy else None,
-        one_row_kernels=dict(ms_per_step=sum(r[1] for r in one_row),
-                             calls_per_step=sum(r[2] for r in one_row)),
-        top_kernels=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in kern[:16]],
-        top_host_ops=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in host[:12]],
-    ), indent=1))
+    out = dict(card=smi, mode="scheduler" if args.scheduler else "solo", rows=rows,
+               engine=args.dtype, tp_blocks=model.config.tp_blocks,
+               kv=args.kv if not args.scheduler else "bf16", attn_mode=args.attn_mode,
+               file="mixtral-8x7b" if args.moe else args.quant,
+               layers=model.config.n_layer, file_s=file_s, load_s=load_s,
+               weights_gib=weights_gib, steps=args.steps, ctx=args.ctx)
+    for way in ("graphed", "eager") if args.eager else ("graphed",):
+        graphs = way == "graphed"
+        if args.scheduler:
+            steps, held = scheduler_steps(model, 2 * args.steps, args.ctx, graphs)
+        else:
+            steps, held = solo_steps(model, KV_DTYPES[args.kv], args.ctx, graphs)
+        out[way] = measure(steps, args.steps, 2 * horizon)
+        if graphs:
+            out[way]["captures"] = held.captures
+            out[way]["graphs_gib"] = held.pool_gib()
+        del steps, held
+        torch.cuda.empty_cache()
+    if args.eager:
+        g, e = out["graphed"], out["eager"]
+        out["graphed_over_eager"] = dict(
+            wall=g["wall_ms_per_step"] / e["wall_ms_per_step"],
+            busy=(g["device_busy_ms_per_step"] / e["device_busy_ms_per_step"]
+                  if g["device_busy_ms_per_step"] and e["device_busy_ms_per_step"] else None))
+    print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":

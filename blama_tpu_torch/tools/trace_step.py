@@ -7,8 +7,10 @@ blama_tpu/tools/trace_step.py).
 
 Loads the preset's file (a synthesized one, or `tiny`, as bench_serving),
 prefills an 8-token prompt on a solo Instance, runs n_steps greedy decode
-steps (ops/generate_loop.continue_greedy) to warm up, then the same number
-again inside one torch.profiler window (CPU and CUDA activity). Prints the
+steps (ops/generate_loop.continue_greedy) to warm up (on the card: the
+capture of the Instance's loop graph, replayed in the window), then the
+same number again inside one torch.profiler window (CPU and CUDA
+activity). Prints the
 device time per kernel name over the window (the host's op times on the
 CPU), each also per step, and writes the window's Chrome trace to
 build/traces/ at the repository root (not tracked), which chrome://tracing
@@ -61,7 +63,7 @@ def main(argv=None) -> dict:
         nonlocal n_past
         _, lg, inst.cache = continue_greedy(
             st, model.weights, inst.cache, torch.from_numpy(logits[None]),
-            torch.tensor([n_past], dtype=torch.int32), n)
+            torch.tensor([n_past], dtype=torch.int32), n, graphs=inst.graphs)
         n_past += n
 
     steps()                                            # warm

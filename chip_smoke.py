@@ -2358,10 +2358,9 @@ def replay(inst, prompt, preds):
     return score, sum(sims) / len(sims)
 
 
-def prove_and_verify(inst, prompt, n, record=None):
-    """One request: a prover session generates n greedy tokens with top-10
-    capture, a fresh session replays them; returns the replay score. The
-    prompt and the predictions are appended to `record` when given."""
+def prove(inst, prompt, n):
+    """A prover session generates n greedy tokens with top-10 capture;
+    returns (its TTFT and decode tok/s, the predictions)."""
     import torch
 
     from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
@@ -2382,10 +2381,153 @@ def prove_and_verify(inst, prompt, n, record=None):
         for td in p.logits:
             if not (td.logit == td.logit and abs(td.logit) < float("inf")):
                 raise AssertionError("non-finite logit captured")
+    return dict(prompt=len(prompt), tokens=len(preds), ttft_s=ttft,
+                decode_tok_s=len(preds) / dt), preds
+
+
+def prove_and_verify(inst, prompt, n, record=None):
+    """One request: a prover session generates n greedy tokens with top-10
+    capture, a fresh session replays them; returns the replay score. The
+    prompt and the predictions are appended to `record` when given."""
+    r, preds = prove(inst, prompt, n)
     if record is not None:
         record.append((prompt, preds))
-    return dict(prompt=len(prompt), tokens=len(preds), ttft_s=ttft,
-                decode_tok_s=len(preds) / dt, score=replay(inst, prompt, preds)[0])
+    return dict(r, score=replay(inst, prompt, preds)[0])
+
+
+# -- the step and the loops as CUDA graphs against eager launches --------------
+# Every path of this script runs graphed (the card's default: ops/step_graph.py).
+# Where a path's model is on the card, the checks below hold its graphs against
+# the same work launched from Python (graphs=False).
+
+GRAPH_LOOP_STEPS = 4           # steps of each loop in loops_equal
+GRAPH_PROMPT_LENS = (128, 5, 3)   # the TTFT prompts of step_report
+GRAPH_REPORT_STEPS = 8         # timed decode steps a way in step_report
+
+
+def _record_bits(record):
+    """Tokens and top-10 (id, f32 bits of the logit) of a record."""
+    import numpy as np
+
+    return [[(p.token, [(t.token, int(np.float32(t.logit).view(np.uint32))) for t in p.logits])
+             for p in preds] for _, preds in record]
+
+
+def eager_twin(torch, model, name, graphed, n_gens, record, launches, kv="int8",
+               warmup=False):
+    """The graphed run's requests again on an Instance that launches every
+    kernel from Python: its predictions must be the graphed prover's, token
+    and top-10 logit bit for bit, and its launch counts the graphed run's
+    (each request proven, then replayed: here the eager verifier replays the
+    graphed prover's record, at exactly 1.0); the graphed verifier replays
+    the eager prover's records at exactly 1.0. Returns the eager requests."""
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    eager = Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True, kv_dtype=kv,
+                                               graphs=False))
+    if warmup:
+        eager.warmup()
+    e_record, results = [], []
+    for (prompt, preds), n in zip(record, n_gens, strict=True):
+        r, e_preds = prove(eager, prompt, n)
+        r["graphed_to_eager"] = replay(eager, prompt, preds)[0]
+        e_record.append((prompt, e_preds))
+        results.append(r)
+    torch.cuda.synchronize()
+    e_launches = dict(kernels.LAUNCHES)
+    if _record_bits(e_record) != _record_bits(record):
+        raise AssertionError(f"{name}: the eager prover's tokens or top-10 differ from the "
+                             "graphed prover's")
+    if e_launches != launches:
+        raise AssertionError(f"{name}: launches eager {e_launches} != graphed {launches}")
+    cross = [replay(graphed, p, preds)[0] for p, preds in e_record]
+    if cross != [1.0] * len(cross) or any(r["graphed_to_eager"] != 1.0 for r in results):
+        raise AssertionError(f"{name}: cross replays {cross}, "
+                             f"{[r['graphed_to_eager'] for r in results]}")
+    for r, c in zip(results, cross):
+        r["eager_to_graphed"] = c
+    del eager
+    torch.cuda.empty_cache()
+    log(f"graphs: {name}: eager records = graphed bit for bit, launches equal, "
+        f"cross replays 1.0 both ways ({time.perf_counter() - t0:.1f} s)")
+    return results
+
+
+def loops_equal(torch, model, name, kv="int8"):
+    """testing.graphs_equal_eager at the 8B shapes: a 128-token prompt, a
+    T = 1 step, a T = 4 chunk, GRAPH_LOOP_STEPS steps of continue_greedy,
+    teacher_forced and greedy_generate, every output and both stores'
+    bits equal with torch.equal and the launch counts equal; each loop's
+    replays under torch.cuda.set_sync_debug_mode("error")."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import step_graph
+    from blama_tpu_torch.testing import graphs_equal_eager
+
+    t0 = time.perf_counter()
+    prompt = [1] + np.random.default_rng(29).integers(
+        259, model.config.n_vocab, 127).tolist()
+    step_graph.CHECK_SYNC = True
+    try:
+        graphs_equal_eager(model, kv, prompt, GRAPH_LOOP_STEPS)
+    finally:
+        step_graph.CHECK_SYNC = False
+    torch.cuda.empty_cache()
+    log(f"graphs: {name} on {kv}: steps and loops graphed = eager (torch.equal), "
+        f"no sync between replays ({time.perf_counter() - t0:.1f} s)")
+    return True
+
+
+def step_report(torch, model, name, kv="int8"):
+    """Graphed against eager on one model: the decode step's wall, device
+    busy and idle share (tools/profile_step.py's measure over
+    GRAPH_REPORT_STEPS steps after a 128-token prompt), decode tok/s, and
+    the TTFT of GRAPH_PROMPT_LENS prompts on a fresh Instance, at first use
+    (graphed: with its bucket's capture) and warm."""
+    import numpy as np
+
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.tools import profile_step as ps
+
+    out, t_report = {}, time.perf_counter()
+    for way in ("graphed", "eager"):
+        graphs = way == "graphed"
+        steps, held = ps.solo_steps(model, kv, 2048, graphs)
+        m = ps.measure(steps, GRAPH_REPORT_STEPS, 2, host_ops=False)
+        row = {k: m[k] for k in ("wall_ms_per_step", "device_span_ms_per_step",
+                                 "device_busy_ms_per_step", "busy_from",
+                                 "device_launches_per_step", "idle_share")}
+        row["decode_tok_s"] = 1e3 / m["wall_ms_per_step"]
+        del steps
+        inst = Instance(model, InstanceInitParams(ctx_size=2048, kv_dtype=kv, graphs=graphs))
+        rng = np.random.default_rng(31)
+        for n in GRAPH_PROMPT_LENS:
+            prompt = [1] + rng.integers(259, model.config.n_vocab, n - 1).tolist()
+            for when in ("first", "warm"):
+                inst.clear_cache()
+                t0 = time.perf_counter()
+                inst.decode(prompt, np.arange(n))
+                row[f"ttft_{n}_{when}_s"] = time.perf_counter() - t0
+        if graphs:
+            row["captures"] = held.captures + inst.graphs.captures
+            row["graphs_gib"] = held.pool_gib() + inst.graphs.pool_gib()
+        del inst, held
+        torch.cuda.empty_cache()
+        out[way] = row
+    g, e = out["graphed"], out["eager"]
+    busy = (f"{g['device_busy_ms_per_step']:.2f} / {e['device_busy_ms_per_step']:.2f}"
+            if g["device_busy_ms_per_step"] and e["device_busy_ms_per_step"] else
+            f"span {g['device_span_ms_per_step']:.2f} / {e['device_busy_ms_per_step']}")
+    log(f"graphs: {name} on {kv}, graphed / eager: step wall {g['wall_ms_per_step']:.2f} / "
+        f"{e['wall_ms_per_step']:.2f} ms, busy {busy} ms, idle {g['idle_share']:.3f} / "
+        f"{e['idle_share']:.3f}, decode {g['decode_tok_s']:.1f} / {e['decode_tok_s']:.1f} tok/s, "
+        f"TTFT 128 warm {g['ttft_128_warm_s']:.3f} / {e['ttft_128_warm_s']:.3f} s "
+        f"(first use {g['ttft_128_first_s']:.3f} / {e['ttft_128_first_s']:.3f}); "
+        f"graphs {g['graphs_gib']:.3f} GiB ({time.perf_counter() - t_report:.1f} s)")
+    return out
 
 
 def load_8b(torch, kind, dtype="q4k_a8", quant=None, n_layer=None, tp_blocks=-1):
@@ -2445,9 +2587,15 @@ def solo_phase(torch, model, kind, record):
     log(f"solo launches {launches}")
     require_launched(launches, ("w4a8_gemv", "q4k_dequant_matmul", "decode_attention",
                                 "prefill_attention"), "the solo path")
+    out = dict(requests=results, captures=inst.graphs.captures,
+               graphs_gib=inst.graphs.pool_gib())
+    out["eager"] = eager_twin(torch, model, "solo q4k_a8", inst, [n for _, n in requests],
+                              record, launches, warmup=True)
     del inst
     torch.cuda.empty_cache()
-    return dict(requests=results), launches
+    out["loops_equal"] = loops_equal(torch, model, "solo q4k_a8")
+    out["report"] = step_report(torch, model, "solo q4k_a8")
+    return out, launches
 
 
 # the head-dim-96 phase: a llama-architecture file at Phi-3-mini's widths
@@ -2529,8 +2677,9 @@ def _set_mode(mode):
 
 def _mode_run(torch, model, kv, mode):
     """The modes phase's three requests on a solo Instance over a `kv` store
-    with `mode` on (None: off), each proven and replayed at exactly 1.0.
-    Returns (records, results, launches of the run)."""
+    with `mode` on (None: off), each proven and replayed at exactly 1.0, and
+    the mode's steps and loops held against eager launches (loops_equal).
+    Returns (records, results, launches of the run, the graphs check)."""
     import numpy as np
 
     from blama_tpu_torch.ops import kernels
@@ -2551,12 +2700,13 @@ def _mode_run(torch, model, kv, mode):
             results.append(r)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
+        graphs = dict(loops_equal=loops_equal(torch, model, f"mode {mode or 'off'}", kv))
     finally:
         _set_mode(None)
     del inst
     torch.cuda.empty_cache()
     log(f"modes: {mode or 'off'} on {kv}: {results}; launches {launches}")
-    return record, results, launches
+    return record, results, launches, graphs
 
 
 def _top10(record):
@@ -2583,17 +2733,17 @@ def modes_phase(torch, model, kind):
     out = {}
     off = {}
     for kv in ("int8", "float32", "bfloat16"):
-        rec, res, launches = _mode_run(torch, model, kv, None)
+        rec, res, launches, graphs = _mode_run(torch, model, kv, None)
         require_launched(launches, ("decode_attention", "prefill_attention"),
                          f"the mode-off run on {kv}")
         off[kv] = rec
-        out[f"off {kv}"] = dict(requests=res, launches=launches)
+        out[f"off {kv}"] = dict(requests=res, launches=launches, graphs=graphs)
     for mode, kv in MODE_RUNS:
-        rec, res, launches = _mode_run(torch, model, kv, mode)
+        rec, res, launches, graphs = _mode_run(torch, model, kv, mode)
         require_launched(launches, (MODE_KERNEL[mode],), f"mode {mode} on {kv}")
         if launches["decode_attention"]:
             raise AssertionError(f"mode {mode} on {kv}: kernel C ran on a decode step")
-        entry = dict(requests=res, launches=launches)
+        entry = dict(requests=res, launches=launches, graphs=graphs)
         if mode == "hb":
             _set_mode("hb")
             try:
@@ -2719,6 +2869,11 @@ def engines_phase(torch, kind, a8_record, records):
             raise AssertionError(f"{name} launched another engine's kernels: {others}")
         res = dict(load_s=load_s, layers=model.config.n_layer, requests=results,
                    launches=launches, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if dtype == "q4k_fused":       # the verifier's engine: its records against eager
+            res["eager"] = eager_twin(torch, model, name, inst, [n for _, n in requests],
+                                      record, launches)
+        res["loops_equal"] = loops_equal(torch, model, name)
+        res["report"] = step_report(torch, model, name)
         if dtype == "q4k_fused":
             # printed, not gated (random 8B weights have flat logits): the
             # exact engine as verifier of the W4A8 prover's records
@@ -2802,6 +2957,8 @@ def moe_phase(torch, kind):
         if others or any(launches[k] for k in ("decode_attention", "prefill_attention")):
             raise AssertionError(f"moe {dtype} launched kernels off its path: {others}")
         res = dict(load_s=load_s, gib_after_load=gib, requests=results, launches=launches)
+        res["loops_equal"] = loops_equal(torch, model, f"moe {dtype}")
+        res["report"] = step_report(torch, model, f"moe {dtype}")
         res["routed_equals_padded"] = _moe_routed_equals_padded(torch, model, dtype)
         if dtype == "q4k_a8":
             a8_record = record
@@ -2956,6 +3113,9 @@ def tp_blocks_phase(torch, kind, records):
         res = dict(load_s=load_s, layers=model.config.n_layer, requests=results,
                    launches=launches, replay_of_tp0=cross,
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        name = f"tp_blocks={TP_BLOCKS} {dtype}"
+        res["loops_equal"] = loops_equal(torch, model, name)
+        res["report"] = step_report(torch, model, name)
         del inst
         if dtype == "q4k_a8":
             res["serving"], res["serving_launches"] = _serve_and_verify(
@@ -3326,7 +3486,86 @@ def serving_phase(torch, model, kind):
         if tokens_of(r) != tokens_of(resps[i]):
             raise AssertionError(f"request {i}: dense rows gave other tokens than the paged pool")
     result["dense"] = dict(requests=len(some), wall_s=d_wall)
+    result["graphs"] = scheduler_graphs(torch, model)
     return result, launches, dense_launches
+
+
+def scheduler_graphs(torch, model):
+    """The serving step graphed against eager launches: the paged scheduler,
+    8 rows, horizon 8, drives the same 8 requests (six greedy; two sampled
+    from a seed, which hold the batch on the per-token step, a graph at
+    (8, 1)), then verifies the greedy ones: the graphed run's tokens and
+    top-10 logits must be the eager run's bit for bit, its launch counts the
+    same, every verify 1.0 (dense rows: the card tests, on the tiny
+    fixture). Then the 8-row paged serving step's wall, device busy and
+    idle share, graphed and eager (tools/profile_step.py's scheduler_steps
+    and measure, 16 steps)."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.sampler import SamplerParams
+    from blama_tpu_torch.server.scheduler import (ContinuousBatchingScheduler, GenRequest,
+                                                  VerifyRequest)
+    from blama_tpu_torch.tools import profile_step as ps
+
+    rng = np.random.default_rng(37)
+    prompts = [[1] + rng.integers(259, model.config.n_vocab, n - 1).tolist()
+               for n in (5, 40, 128, 17, 30, 64, 9, 100)]
+    sampled = (3, 6)
+    runs = {}
+    for graphs in (True, False):
+        kernels.reset_launches()
+        sched = ContinuousBatchingScheduler(model, max_batch=8, ctx_size=2048, paged=True,
+                                            horizon=8, graphs=graphs)
+        got, scores = {}, {}
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            sp = (SamplerParams(rng_seed=100 + i, temp=0.8) if i in sampled
+                  else SamplerParams(temp=0.0))
+            sched.submit(GenRequest(prompt=p, max_tokens=16, sampler_params=sp,
+                                    on_done=lambda g, i=i: got.__setitem__(i, g)))
+        sched.run_until_idle()
+        for i, p in enumerate(prompts):
+            if i not in sampled:
+                sched.submit(VerifyRequest(prompt=p, predictions=got[i],
+                                           on_done=lambda sc, i=i: scores.__setitem__(i, sc)))
+        sched.run_until_idle()
+        torch.cuda.synchronize()
+        runs[graphs] = dict(bits=_record_bits([(p, got[i]) for i, p in enumerate(prompts)]),
+                            scores=scores, launches=dict(kernels.LAUNCHES),
+                            wall_s=time.perf_counter() - t0,
+                            captures=sched._graphs.captures if graphs else None)
+        del sched
+        torch.cuda.empty_cache()
+    g, e = runs[True], runs[False]
+    if g["bits"] != e["bits"]:
+        raise AssertionError("paged scheduler: graphed tokens or top-10 differ from eager")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"paged scheduler: launches graphed {g['launches']} != "
+                             f"eager {e['launches']}")
+    if set(g["scores"].values()) != {1.0} or g["scores"] != e["scores"]:
+        raise AssertionError(f"paged scheduler: verify {g['scores']} / {e['scores']}")
+    out = dict(paged=dict(wall_s_graphed=g["wall_s"], wall_s_eager=e["wall_s"],
+                          captures=g["captures"], launches=g["launches"]))
+    log(f"graphs: paged scheduler, 8 requests + 6 verifies: graphed = eager bit for bit, "
+        f"launches equal, verify 1.0; {g['wall_s']:.2f} s graphed, {e['wall_s']:.2f} s eager")
+    for way in ("graphed", "eager"):
+        steps, held = ps.scheduler_steps(model, 48, 2048, way == "graphed")
+        m = ps.measure(steps, 16, 16, host_ops=False)
+        out[f"step_{way}"] = {k: m[k] for k in (
+            "wall_ms_per_step", "device_span_ms_per_step", "device_busy_ms_per_step",
+            "busy_from", "device_launches_per_step", "idle_share")}
+        if held:
+            out[f"step_{way}"].update(captures=held.captures, graphs_gib=held.pool_gib())
+        del steps, held
+        torch.cuda.empty_cache()
+    g, e = out["step_graphed"], out["step_eager"]
+    log(f"graphs: the 8-row paged serving step, graphed / eager: wall "
+        f"{g['wall_ms_per_step']:.2f} / {e['wall_ms_per_step']:.2f} ms, busy "
+        f"{g['device_busy_ms_per_step']} / {e['device_busy_ms_per_step']} ms (span "
+        f"{g['device_span_ms_per_step']:.2f} / {e['device_span_ms_per_step']:.2f}), idle "
+        f"{g['idle_share']:.3f} / {e['idle_share']:.3f}")
+    return out
 
 
 def _tiny_replay(path, prover, verifier):
@@ -3569,6 +3808,45 @@ KERNELS = {
 }
 
 
+def graphs_summary(res):
+    """Per engine, graphed and eager: decode tok/s, TTFT (warm, and at its
+    bucket's first use) of the GRAPH_PROMPT_LENS prompts, step wall, device
+    busy and idle share; the 8-row paged serving step's. Logged as a table."""
+    reports = {"solo q4k_a8": res["solo"]["report"]}
+    reports.update({k: v["report"] for k, v in res["engines"].items() if isinstance(v, dict)})
+    reports.update({f"moe {k}": v["report"] for k, v in res["moe"].items()
+                    if isinstance(v, dict) and "report" in v})
+    reports.update({f"tp_blocks {k}": v["report"] for k, v in res["tp_blocks"].items()
+                    if "report" in v})
+    rows = []
+    for name, rep in reports.items():
+        for way in ("graphed", "eager"):
+            r = rep[way]
+            rows.append(dict(
+                engine=name, way=way, decode_tok_s=r["decode_tok_s"],
+                wall_ms=r["wall_ms_per_step"], busy_ms=r["device_busy_ms_per_step"],
+                span_ms=r["device_span_ms_per_step"], idle=r["idle_share"],
+                ttft_warm_s=[r[f"ttft_{n}_warm_s"] for n in GRAPH_PROMPT_LENS],
+                ttft_first_s=[r[f"ttft_{n}_first_s"] for n in GRAPH_PROMPT_LENS],
+                graphs_gib=r.get("graphs_gib")))
+    sched = res["serving"]["graphs"]
+    for way in ("graphed", "eager"):
+        r = sched[f"step_{way}"]
+        rows.append(dict(engine="serving step, 8 rows paged (q4k_a8)", way=way,
+                         wall_ms=r["wall_ms_per_step"], busy_ms=r["device_busy_ms_per_step"],
+                         span_ms=r["device_span_ms_per_step"], idle=r["idle_share"],
+                         graphs_gib=r.get("graphs_gib")))
+    for r in rows:
+        busy = f"{r['busy_ms']:.2f}" if r["busy_ms"] else "-"
+        ttft = ("" if "ttft_warm_s" not in r else " TTFT warm " + " / ".join(
+            f"{t:.3f}" for t in r["ttft_warm_s"]) + " s (first use " + " / ".join(
+            f"{t:.3f}" for t in r["ttft_first_s"]) + ")")
+        tok = f" {r['decode_tok_s']:.1f} tok/s" if "decode_tok_s" in r else ""
+        log(f"graphs summary: {r['engine']:36s} {r['way']:7s} wall {r['wall_ms']:7.2f} ms "
+            f"busy {busy} span {r['span_ms']:.2f} idle {r['idle']:.3f}{tok}{ttft}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3726,6 +4004,7 @@ def main() -> int:
         if entry["launches"] == 0:
             raise AssertionError(f"{name}: not launched on its path")
         kernels_line.append(entry)
+    report["graphs_summary"] = graphs_summary(res)
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"total {report['seconds']:.1f} s")

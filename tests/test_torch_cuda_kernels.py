@@ -1525,3 +1525,182 @@ def test_scheduler_on_the_card(cuda, tmp_path):
     sched.run_until_idle()
     assert got["s"] == 1.0
     m.close()
+
+
+# -- the step and the loops as CUDA graphs (ops/step_graph.py) ---------------------
+
+GRAPH_PROMPT = [1, 77, 205, 219, 149, 164, 91, 162]
+GRAPH_ENGINES = {"q4k_a8": "Q4_K", "q4k_fused": "Q4_K", "q4k_fused_k4": "Q4_K",
+                 "q4k_a8_k4": "Q4_K", "q4k_a8_xla": "Q4_K", "q8_0_fused": "Q8_0",
+                 "q6_k_fused": "Q6_K"}
+
+
+@pytest.fixture(scope="module")
+def graph_files(tmp_path_factory):
+    from blama_tpu_torch.gguf import GGMLType
+    from blama_tpu_torch.testing import TP_TINY_SPEC, synthesize_moe_gguf, write_tiny_llama
+
+    d = tmp_path_factory.mktemp("graphs")
+    out = {}
+    for q in ("Q4_K", "Q8_0", "Q6_K"):
+        out[q] = str(d / f"{q}.gguf")
+        write_tiny_llama(out[q], GGMLType[q])
+    out["d128"] = str(d / "d128.gguf")
+    write_tiny_llama(out["d128"], GGMLType.Q4_K, spec=TP_TINY_SPEC)
+    out["moe"] = str(d / "moe.gguf")
+    synthesize_moe_gguf(out["moe"], "mixtral-debug")
+    return out
+
+
+@pytest.fixture
+def graph_checks(monkeypatch):
+    """Every loop's replays run under torch.cuda.set_sync_debug_mode("error"),
+    in chunks of 4 steps (so a loop crosses the copy-out of a chunk)."""
+    from blama_tpu_torch.ops import step_graph as sg
+
+    monkeypatch.setattr(sg, "CHECK_SYNC", True)
+    monkeypatch.setattr(sg, "LOOP_CHUNK", 4)
+
+
+def _set_attn_mode(monkeypatch, mode):
+    from blama_tpu_torch.ops import generate_loop as gl
+
+    monkeypatch.setattr(gl, "_WRITE_IN_KERNEL", mode == "write")
+    monkeypatch.setattr(gl, "_FRESH_OPERAND", mode == "fresh")
+    monkeypatch.setattr(da, "_HB", mode == "hb")
+
+
+def _graphs_equal_eager(m, kv):
+    """Every logit, token, top-10 entry and stored bit of the graphed steps
+    and loops equals the eager launches', with torch.equal, and the launch
+    counters read the same (testing.graphs_equal_eager)."""
+    from blama_tpu_torch.testing import graphs_equal_eager
+
+    launches = graphs_equal_eager(m, kv, GRAPH_PROMPT, 6, ctx=64)
+    assert sum(launches.values()) > 0
+
+
+@pytest.mark.parametrize("kv", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", list(GRAPH_ENGINES))
+def test_graphs_equal_eager_on_every_engine(cuda, graph_files, graph_checks, dtype, kv):
+    """Every logit, token, top-10 entry and stored bit of the graphed step
+    and loops equals the eager launches', with torch.equal, and the launch
+    counters read the same."""
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+
+    m = Model(graph_files[GRAPH_ENGINES[dtype]], ModelParams(dtype=dtype))
+    _graphs_equal_eager(m, kv)
+    m.close()
+
+
+@pytest.mark.parametrize("kv", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("mode", ["write", "fresh", "hb"])
+def test_graphs_equal_eager_in_every_mode(cuda, graph_files, graph_checks, monkeypatch, mode, kv):
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+
+    if mode == "fresh" and kv != "int8":
+        pytest.skip("fresh mode reads an INT8 store only (the reference's gate)")
+    _set_attn_mode(monkeypatch, mode)
+    m = Model(graph_files["d128"], ModelParams(dtype="q4k_a8"))
+    _graphs_equal_eager(m, kv)
+    m.close()
+
+
+@pytest.mark.parametrize("which", ["moe q4k_a8", "moe q4k_fused", "tp q4k_a8", "tp q4k_fused"])
+def test_graphs_equal_eager_on_moe_and_tp_blocks(cuda, graph_files, graph_checks, which):
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+
+    kind, dtype = which.split()
+    if kind == "moe":
+        m = Model(graph_files["moe"], ModelParams(dtype=dtype))
+    else:
+        m = Model(graph_files["d128"], ModelParams(dtype=dtype, tp_blocks=4))
+    _graphs_equal_eager(m, "int8")
+    m.close()
+
+
+@pytest.mark.parametrize("horizon", [0, 4])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("which", ["llama", "moe"])
+def test_graphed_scheduler_equals_eager(cuda, graph_files, graph_checks, which, paged, horizon):
+    """The scheduler's per-token step (a graph at (max_batch, 1)) and its
+    horizon loop, on the llama and the MoE fixture: the eager scheduler's
+    tokens and top-10 logits, and its launch counts; its verify rows score
+    1.0."""
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.runtime.sampler import SamplerParams
+    from blama_tpu_torch.server.scheduler import (ContinuousBatchingScheduler, GenRequest,
+                                                  VerifyRequest)
+
+    m = Model(graph_files["Q4_K" if which == "llama" else "moe"], ModelParams(dtype="q4k_a8"))
+    prompts = [GRAPH_PROMPT, [1, 230, 17, 44, 231], [1, 9, 200, 280, 12, 13, 14, 15, 16, 17]]
+
+    def run(graphs):
+        kernels.reset_launches()
+        sched = ContinuousBatchingScheduler(m, max_batch=4, ctx_size=128, paged=paged,
+                                            page_size=16, horizon=horizon, graphs=graphs)
+        outs, scores = {}, {}
+        for i, p in enumerate(prompts):
+            sched.submit(GenRequest(prompt=p, max_tokens=9, sampler_params=SamplerParams(temp=0.0),
+                                    on_done=lambda g, i=i: outs.__setitem__(i, g)))
+        sched.run_until_idle()
+        for i, p in enumerate(prompts):
+            sched.submit(VerifyRequest(prompt=p, predictions=outs[i],
+                                       on_done=lambda s, i=i: scores.__setitem__(i, s)))
+        sched.run_until_idle()
+        torch.cuda.synchronize()
+        recs = [[(q.token, [(t.token, t.logit) for t in q.logits]) for q in outs[i]]
+                for i in range(len(prompts))]
+        return recs, scores, dict(kernels.LAUNCHES)
+
+    eager, graphed = run(False), run(True)
+    assert eager[0] == graphed[0] and eager[2] == graphed[2]
+    assert set(graphed[1].values()) == {1.0}
+    m.close()
+
+
+@pytest.mark.parametrize("edit", ["context-shift", "self-extend", "restore"])
+def test_graphed_replays_after_cache_edits(cuda, graph_files, edit):
+    """Context shift (kv_seq_rm / kv_seq_add) and Self-Extend (kv_seq_add /
+    kv_seq_div) edit the positions in place between replays; restore_cache
+    builds new stores, captured anew. Each run equals its eager twin."""
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
+
+    m = Model(graph_files["Q4_K"], ModelParams(dtype="q4k_a8"))
+
+    def run(graphs):
+        ctx, ga = (32, 1) if edit == "context-shift" else (64, 2 if edit == "self-extend" else 1)
+        inst = Instance(m, InstanceInitParams(ctx_size=ctx, kv_dtype="int8", graphs=graphs,
+                                              fast_greedy=edit == "restore"))
+        s = inst.start_session(SessionInitParams(seed=3, temperature=0.0, ga_factor=ga,
+                                                 ga_width=16))
+        s.set_initial_prompt(GRAPH_PROMPT)
+        preds = s.complete(CompleteParams(max_tokens=12))
+        if edit == "restore":
+            state = s.get_state()
+            inst.stop_session()
+            s = inst.start_session(SessionInitParams(seed=3, temperature=0.0))
+            s.set_state(state)
+            if graphs:
+                assert inst.graphs.keys() == []     # the old stores' graphs dropped
+        preds += s.complete(CompleteParams(max_tokens=30 if edit != "restore" else 8))
+        inst.stop_session()
+        return [(p.token, [(t.token, t.logit) for t in p.logits]) for p in preds]
+
+    assert run(True) == run(False)
+    m.close()
+
+
+def test_sync_between_replays_raises(cuda, graph_checks):
+    """The check the loops run their replays under does catch a host sync
+    on this machine."""
+    from blama_tpu_torch.ops import step_graph as sg
+
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        with sg._no_sync(cuda):
+            x.sum().item()
+    x.sum().item()
