@@ -31,8 +31,8 @@
 // logical content, wherever its pages lie.
 //
 // Decode (kernels C, E, N, P): its own section below. Head-batched decode
-// (kernel O) is a different walk with its own split: one block per (row,
-// split) over all kv heads of a tile, one warp per query head.
+// (kernel O) is a different walk with its own split and tile, numerics of
+// its own: its section below.
 //
 // Prefill (kernels D and F): bound by operations at the bf16 tensor rate
 // for chunks of 128 tokens or more; a tensor-core body of its own, in its
@@ -49,7 +49,6 @@
 
 namespace attn {
 
-constexpr int TS = 32;            // slots per tile of kernel O (one per lane)
 constexpr int MAX_SMEM = 227 * 1024;   // dynamic shared memory a block can take
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -806,11 +805,9 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecArgs<KV> a
   }
 }
 
-// Combine the splits of one (row, head) in split order (kernel O's and the
-// prefill's). SKIP_UNSEEN (the prefill's, whose kernel writes no
-// accumulator for a split a query cannot see) passes over a split with l ==
-// 0: its weight is 0 and it adds nothing.
-template <bool SKIP_UNSEEN = false>
+// Combine the splits of one (row, head) of the prefill in split order,
+// passing over a split with l == 0 (the prefill body writes no accumulator
+// for a split a query cannot see): its weight is 0 and it adds nothing.
 static __global__ void decode_combine_kernel(const float* __restrict__ part_m,
                                              const float* __restrict__ part_l,
                                              const float* __restrict__ part_acc,
@@ -824,7 +821,7 @@ static __global__ void decode_combine_kernel(const float* __restrict__ part_m,
   for (int p = 0; p < nsplit; ++p) mx = fmaxf(mx, pm[p]);
   float lsum = 0.0f, a = 0.0f;
   for (int p = 0; p < nsplit; ++p) {
-    if (SKIP_UNSEEN && !(plv[p] > 0.0f)) continue;
+    if (!(plv[p] > 0.0f)) continue;
     const float w = expf(pm[p] - mx);
     lsum += plv[p] * w;
     a += part_acc[(row * nsplit + p) * D + d] * w;
@@ -833,172 +830,443 @@ static __global__ void decode_combine_kernel(const float* __restrict__ part_m,
 }
 
 // ---------------------------------------------------------------------------
-// head-batched decode (kernel O): one block per (row, split) over all kv heads
+// head-batched decode (kernel O)
 // ---------------------------------------------------------------------------
-// A tile is `ts` consecutive slots of the row with all Hkv heads: each
-// slot's contiguous Hkv*D row of K (then of V) is read once for the whole
-// block. Warp w owns query heads w, w + 32, ...: lane j scores slot j of
-// the head's kv head, then the warp folds the tile into that head's
-// online-softmax state, which lives in shared memory (any H). K is rotated
-// into a head-major buffer that V reuses, as f32, after the scores. The
-// split is the reference's head-batched one (a block cap of
-// max(128, 4096 / Hkv) slots), so the numerics are this kernel's own, fixed
-// for a given (B, S, Hkv): the same combine and a fixed order everywhere.
-template <int D>
+// Replaces blama_tpu/ops/pallas/decode_attention.py:279 _decode_attn_kernel_hb
+// (the reference's BLAMA_ATTN_HB mode, with numerics of its own). What sets
+// O's bits, kept from the port's first O (one block per (row, split) over
+// all kv heads):
+//   * the split: `chunk` slots a block, the reference's head-batched one (a
+//     cap of max(128, 4096 / Hkv) slots; ops/decode_attention.hb_split);
+//   * tiles of `ts` slots from the split's first slot (the host's hb_tile:
+//     32, halved while the first O's buffers outgrew a block), each seen
+//     tile in slot order; a tile no slot of which the query sees is passed
+//     over;
+//   * per query head and tile: lane j scores slot j, q . rope(K) as one FMA
+//     chain over d in order, times the scale, times the K scale; m' =
+//     max(m, warp_max), alpha = exp(m - m'), e = exp(s - m'), l = alpha * l
+//     + warp_sum(e) (the 32-lane butterfly, lanes past ts adding 0); acc =
+//     acc * alpha, then + e_j * vscale_j * V_j for j = 0 .. ts-1 in order;
+//   * rope from the slot's position: K rotated by sin and cos of
+//     (float)pos * invf[2i], sincosf, per pair;
+//   * the splits' (m, l, acc) folded in split order, every split (one the
+//     query did not see adds a weight of 0): the first O's combine.
+//
+// A query head's state never meets another's, so the work spreads over many
+// CTAs without moving a bit: one CTA per (row, kv head, chunk of up to
+// HB_HEADS of its query heads, split). The angles come first, from a launch
+// of their own over every (slot, pair) of the rows (hb_angles_kernel): a
+// slot's sines and cosines serve all its kv heads. A split's tiles then
+// pass a pipeline with one CTA barrier a step; in step n (`pipe`)
+//   * six staging warps issue the `cp.async` of a later tile's K and V rows
+//     of the kv head into a ring of `stages` tiles (rows as stored; a slot
+//     the query cannot see is staged as zeros without being read), rotate
+//     tile n + 1's K once for all the CTA's heads (an f32 store's in its
+//     ring row, else into one of two f32 buffers) with the angles they
+//     loaded a step before, and load tile n + 2's;
+//   * two scoring warps score tile n, each for two of the CTA's heads (lane
+//     j the heads' FMA chains of slot j side by side, so each rotated K row
+//     is read once for both);
+//   * a folding warp a head folds tile n - 1's scores into the head's
+//     state (m, l, D / 32 dims of acc a lane, in registers) with its V rows.
+// Where a ring of 4 tiles does not fit (an f32 store at D = 256 and 32-slot
+// tiles: 66 KB a tile), one warp a head scores and folds each tile in the
+// same step and eight warps stage, over a ring of 3 (`pipe` 0). The last
+// CTA of a (row, kv head, head chunk) to finish folds its splits, as the
+// decode body does: two launches a call, the angles and this one.
+
+constexpr int HB_HEADS = 4;                   // query heads a CTA at most
+constexpr int HB_WARPS = 12;
+constexpr int HB_THREADS = 32 * HB_WARPS;
+constexpr int HB_MAX_TS = 32;                 // slots a tile at most: one a lane
+
+template <int D, class KV>
+struct HbShape {
+  static constexpr int ES = sizeof(KV);
+  static constexpr int RP = D * ES + 16;      // bytes of a staged row; the pad puts
+                                              // the rows a quarter-warp reads on
+                                              // distinct banks
+  static constexpr int KP = D + 4;            // floats of a rotated K row
+  static constexpr int VW = D / 32;           // dims a lane owns in P.V
+  static constexpr bool IN_PLACE = ES == 4;   // an f32 row is rotated where it is staged
+  static_assert(RP == KP * 4 || !IN_PLACE, "an f32 ring row is a rotated row");
+};
+
+template <class KV>
+struct HbArgs {
+  const __nv_bfloat16* q;    // [B, H, D] rotated queries
+  const KV* k;               // [B*S(+1), Hkv, D] the store
+  const KV* v;
+  const float* ks;           // [B*S(+1), Hkv] its scales (int8), else null
+  const float* vs;
+  const int* kv_pos;         // [B, S]
+  const int* q_pos;          // [B]
+  const float* ang;          // [B*S, D] (sin, cos) of each seen slot's pairs
+  float* part_m;             // [B, H, nsplit]
+  float* part_l;
+  float* part_acc;           // [B, H, nsplit, D]
+  int* tickets;              // [B * Hkv * head chunks], 0 between calls
+  __nv_bfloat16* out;        // [B, H, D]
+  int H, Hkv, S, chunk, ts, heads, stages, pipe;
+  float scale;
+};
+
+// Shared memory of one CTA; every section 16-byte aligned. `ntl`: tiles of
+// the widest split.
+template <int D, class KV>
 struct HbSmem {
-  float* q;      // [H][D]
-  float* acc;    // [H][D]
-  float* buf;    // [Hkv][ts][D + 1]: rotated K, then V
-  float* pv;     // [H][32] probabilities x V scale of the tile
-  float* m;      // [H]
-  float* l;      // [H]
-  float* alpha;  // [H]
-  float* ksc;    // [Hkv][ts]
-  float* vsc;    // [Hkv][ts]
-  int* pos;      // [ts]
-  __device__ HbSmem(float* base, int H, int Hkv, int ts) {
-    q = base;
-    acc = q + H * D;
-    buf = acc + H * D;
-    pv = buf + (size_t)Hkv * ts * (D + 1);
-    m = pv + H * 32;
-    l = m + H;
-    alpha = l + H;
-    ksc = alpha + H;
-    vsc = ksc + Hkv * ts;
-    pos = reinterpret_cast<int*>(vsc + Hkv * ts);
+  using Sh = HbShape<D, KV>;
+  unsigned char* ring;   // [stages][2][ts][RP]: K rows, then V rows
+  float* kbuf;           // [2][ts][KP] rotated K (not for an f32 store)
+  float* q;              // [HB_HEADS][D]
+  int* pos;              // [ntl * ts] a slot's position if the query sees it, else -1
+  float* ks;             // [ntl * ts] its scales (0 where not seen)
+  float* vs;
+  int* tiles;            // [ntl + 1] the seen tiles in slot order, then their count
+  float* pv;             // [HB_WARPS][32] a tile's probabilities x V scale
+  float* sb;             // [2][HB_HEADS][32] a tile's scores, scoring to folding warps
+  __host__ __device__ static size_t offsets(int ts, int stages, int ntl, size_t (&o)[10]) {
+    const size_t size[9] = {(size_t)stages * 2 * ts * Sh::RP,
+                            Sh::IN_PLACE ? 0 : sizeof(float) * 2 * ts * Sh::KP,
+                            sizeof(float) * HB_HEADS * D,
+                            sizeof(int) * ntl * ts,
+                            sizeof(float) * ntl * ts,
+                            sizeof(float) * ntl * ts,
+                            sizeof(int) * (ntl + 1),
+                            sizeof(float) * HB_WARPS * 32,
+                            sizeof(float) * 2 * HB_HEADS * 32};
+    size_t n = 0;
+    for (int i = 0; i < 9; ++i) {
+      o[i] = n;
+      n += (size[i] + 15) / 16 * 16;
+    }
+    o[9] = n;
+    return n;
   }
-  static size_t bytes(int H, int Hkv, int ts) {
-    return sizeof(float) * ((size_t)2 * H * D + (size_t)Hkv * ts * (D + 1) + H * 32 +
-                            3 * H + 2 * Hkv * ts + ts);
+  static size_t bytes(int ts, int stages, int ntl) {
+    size_t o[10];
+    return offsets(ts, stages, ntl, o);
+  }
+  __device__ HbSmem(unsigned char* base, int ts, int stages, int ntl) {
+    size_t o[10];
+    offsets(ts, stages, ntl, o);
+    ring = base + o[0];
+    kbuf = reinterpret_cast<float*>(base + o[1]);
+    q = reinterpret_cast<float*>(base + o[2]);
+    pos = reinterpret_cast<int*>(base + o[3]);
+    ks = reinterpret_cast<float*>(base + o[4]);
+    vs = reinterpret_cast<float*>(base + o[5]);
+    tiles = reinterpret_cast<int*>(base + o[6]);
+    pv = reinterpret_cast<float*>(base + o[7]);
+    sb = reinterpret_cast<float*>(base + o[8]);
   }
 };
 
+// Kernel O's rope angles: sin and cos of (float)pos * invf[2i] (sincosf,
+// the first O's expression) for every pair i of every slot of row b
+// (blockIdx.y) its query sees, into ang [B*S, D] (pair i at 2i, 2i + 1); a
+// slot the query cannot see is left as it is. A thread a (slot, pair).
+template <int D>
+__global__ void hb_angles_kernel(const int* __restrict__ kv_pos, const int* __restrict__ q_pos,
+                                 const float* __restrict__ invf, float* __restrict__ ang,
+                                 int S) {
+  constexpr int P = D / 2;
+  const int b = blockIdx.y, e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= S * P) return;
+  const int s = e / P, i = e % P;
+  const int p = kv_pos[(size_t)b * S + s];
+  if (p < 0 || p > q_pos[b]) return;
+  float sn, cs;
+  sincosf((float)p * invf[2 * i], &sn, &cs);
+  reinterpret_cast<float2*>(ang)[((size_t)b * S + s) * P + i] = make_float2(sn, cs);
+}
+
+// wait until at most n of this thread's cp.async groups are pending (n < 4)
+__device__ __forceinline__ void cp_wait_upto(int n) {
+  if (n <= 0)
+    cp_wait<0>();
+  else if (n == 1)
+    cp_wait<1>();
+  else if (n == 2)
+    cp_wait<2>();
+  else
+    cp_wait<3>();
+}
+
 template <int D, class KV>
-__global__ void decode_attn_hb_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, H, D] rotated queries
-    const KV* __restrict__ k, const KV* __restrict__ v,   // [B*S(+1), Hkv, D]
-    const float* __restrict__ ks, const float* __restrict__ vs,
-    const int* __restrict__ kv_pos,       // [B, S]
-    const int* __restrict__ q_pos,        // [B]
-    const float* __restrict__ invf,       // [D]
-    float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc,         // [B, H, nsplit(, D)]
-    int H, int Hkv, int S, int chunk, int ts, float scale) {
-  extern __shared__ __align__(16) float smem_raw[];
-  const HbSmem<D> sm(smem_raw, H, Hkv, ts);
-  const int b = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nw = nthr >> 5;
-  const int g = H / Hkv;
-  for (int e = tid; e < H * D; e += nthr) {
-    sm.q[e] = __bfloat162float(q[(size_t)b * H * D + e]);
-    sm.acc[e] = 0.0f;
+__global__ void __launch_bounds__(HB_THREADS) decode_hb_kernel(const HbArgs<KV> a) {
+  using Sh = HbShape<D, KV>;
+  constexpr int ES = Sh::ES, RP = Sh::RP, KP = Sh::KP, VW = Sh::VW, C4 = D / 4;
+  constexpr int NPC = D * ES / 16;                 // 16-byte pieces a row
+  constexpr int MIN_ST = 32 * (HB_WARPS - 2 - HB_HEADS);   // the fewest staging threads
+  constexpr int FU = (2 * HB_MAX_TS * NPC + MIN_ST - 1) / MIN_ST;  // pieces a thread at most
+  constexpr int RU = (HB_MAX_TS * C4 + MIN_ST - 1) / MIN_ST;       // rope steps a thread at most
+  extern __shared__ __align__(16) unsigned char hb_raw[];
+  const int ts = a.ts, ST = a.stages;
+  const int ntl = (min(a.chunk, a.S) + ts - 1) / ts;
+  const HbSmem<D, KV> sm(hb_raw, ts, ST, ntl);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = a.H / a.Hkv, nhc = (G + a.heads - 1) / a.heads;
+  const int b = blockIdx.x / (a.Hkv * nhc), hk = blockIdx.x / nhc % a.Hkv;
+  const int h0 = hk * G + blockIdx.x % nhc * a.heads;      // the CTA's first query head
+  const int gn = min(a.heads, hk * G + G - h0);             // its query heads
+  const int sp = blockIdx.y, nsplit = gridDim.y;
+  const int s0 = sp * a.chunk, nslots = min(a.S, s0 + a.chunk) - s0;
+  const int ntiles = (nslots + ts - 1) / ts;
+  const int qpos = a.q_pos[b];
+  const size_t row0 = (size_t)b * a.S + s0;                // the split's first slot
+
+  // the warps' roles: pipelined, warps 0 and 1 score (two heads each),
+  // [2, 6) fold, [6, 12) stage; else warps [0, 4) score and fold, [4, 12)
+  // stage
+  const int lag = a.pipe ? 1 : 0;                  // steps from a tile's score to its fold
+  const int fw = a.pipe ? 2 : 0;                   // the first folding warp
+  const int st0 = 32 * (a.pipe ? 2 + HB_HEADS : HB_HEADS), nst = HB_THREADS - st0;
+  const bool stager = tid >= st0, scores = a.pipe ? warp < 2 : warp < gn;
+  const bool folds = warp >= fw && warp < fw + gn;
+
+  // the heads' queries, the split's positions and scales (a position and
+  // its scales load side by side)
+  for (int e = tid; e < gn * D; e += HB_THREADS)
+    sm.q[e] = __bfloat162float(a.q[((size_t)b * a.H + h0) * D + e]);
+  for (int j = tid; j < ntiles * ts; j += HB_THREADS) {
+    int p = -1;
+    float kq = 1.0f, vq = 1.0f;
+    if (j < nslots) {
+      p = a.kv_pos[row0 + j];
+      if (a.ks) {
+        kq = a.ks[(row0 + j) * a.Hkv + hk];
+        vq = a.vs[(row0 + j) * a.Hkv + hk];
+      }
+    }
+    const bool seen = p >= 0 && p <= qpos;
+    sm.pos[j] = seen ? p : -1;
+    sm.ks[j] = seen ? kq : 0.0f;
+    sm.vs[j] = seen ? vq : 0.0f;
   }
-  for (int h = tid; h < H; h += nthr) {
-    sm.m[h] = NEG_INF;
-    sm.l[h] = 0.0f;
-  }
-  const int qpos = q_pos[b];
-  const int s0 = split * chunk, s1 = min(S, s0 + chunk);
-  constexpr int C4 = D / 4;
-  const int rowlen = Hkv * C4;               // float4 chunks per slot
   __syncthreads();
-  for (int t0 = s0; t0 < s1; t0 += ts) {
-    const long long base = (long long)b * S + t0;
-    bool vis = false;
-    if (tid < ts) {
-      const int p = t0 + tid < s1 ? kv_pos[base + tid] : -1;
-      vis = p >= 0 && p <= qpos;
-      sm.pos[tid] = vis ? p : -1;
+  if (warp == 0) {     // the tiles the query sees, in slot order
+    int n = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      bool f = false;
+      if (base + lane < ntiles)
+        for (int j = 0; j < ts && !f; ++j) f = sm.pos[(base + lane) * ts + j] >= 0;
+      const unsigned bal = __ballot_sync(FULL, f);
+      if (f) sm.tiles[n + __popc(bal & ((1u << lane) - 1u))] = base + lane;
+      n += __popc(bal);
     }
-    if (!__syncthreads_or(vis)) continue;
-    for (int e = tid; e < ts * Hkv; e += nthr) {
-      const int j = e / Hkv, hh = e % Hkv;
-      const bool ok = sm.pos[j] >= 0;
-      sm.ksc[hh * ts + j] = ok ? (ks ? ks[(base + j) * Hkv + hh] : 1.0f) : 0.0f;
-      sm.vsc[hh * ts + j] = ok ? (vs ? vs[(base + j) * Hkv + hh] : 1.0f) : 0.0f;
-    }
-    // K: each slot's Hkv*D row once, rotated into [hh][j][D + 1]
-    for (int e = tid; e < ts * rowlen; e += nthr) {
-      const int j = e / rowlen, r = e % rowlen, hh = r / C4, c = r % C4;
-      const int p = sm.pos[j];
-      float* kr = sm.buf + ((size_t)hh * ts + j) * (D + 1) + 4 * c;
-      if (p >= 0) {
-        float kf[4];
-        load4(k + ((size_t)(base + j) * Hkv + hh) * D + 4 * c, kf);
-        float sn0, cs0, sn1, cs1;
-        sincosf((float)p * invf[4 * c], &sn0, &cs0);
-        sincosf((float)p * invf[4 * c + 2], &sn1, &cs1);
-        kr[0] = kf[0] * cs0 + kf[1] * (-sn0);
-        kr[1] = kf[1] * cs0 + kf[0] * sn0;
-        kr[2] = kf[2] * cs1 + kf[3] * (-sn1);
-        kr[3] = kf[3] * cs1 + kf[2] * sn1;
-      } else {
-        kr[0] = kr[1] = kr[2] = kr[3] = 0.0f;
-      }
-    }
-    __syncthreads();
-    for (int h = warp; h < H; h += nw) {
-      const int hh = h / g;
-      const bool valid = lane < ts && sm.pos[lane] >= 0;
-      float s = NEG_INF;
-      if (valid) {
-        const float* kr = sm.buf + ((size_t)hh * ts + lane) * (D + 1);
-        const float* qh = sm.q + h * D;
-        float dot = 0.0f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot += qh[d] * kr[d];
-        s = dot * scale * sm.ksc[hh * ts + lane];
-      }
-      const float m_old = sm.m[h];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      const float alpha = expf(m_old - m_new);
-      const float e = valid ? expf(s - m_new) : 0.0f;
-      const float lsum = warp_sum(e);
-      sm.pv[h * 32 + lane] = valid ? e * sm.vsc[hh * ts + lane] : 0.0f;
-      __syncwarp();
-      if (lane == 0) {
-        sm.l[h] = alpha * sm.l[h] + lsum;
-        sm.m[h] = m_new;
-        sm.alpha[h] = alpha;
-      }
-    }
-    __syncthreads();
-    // V: the same rows, as f32, into the same buffer
-    for (int e = tid; e < ts * rowlen; e += nthr) {
-      const int j = e / rowlen, r = e % rowlen, hh = r / C4, c = r % C4;
-      float* vr = sm.buf + ((size_t)hh * ts + j) * (D + 1) + 4 * c;
-      float vf[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (sm.pos[j] >= 0) load4(v + ((size_t)(base + j) * Hkv + hh) * D + 4 * c, vf);
-      vr[0] = vf[0];
-      vr[1] = vf[1];
-      vr[2] = vf[2];
-      vr[3] = vf[3];
-    }
-    __syncthreads();
-    for (int h = warp; h < H; h += nw) {
-      const int hh = h / g;
-      const float alpha = sm.alpha[h];
-      float* ah = sm.acc + h * D;
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) {
-        float a = ah[lane + 32 * i] * alpha;
-        for (int j = 0; j < ts; ++j)
-          a += sm.pv[h * 32 + j] * sm.buf[((size_t)hh * ts + j) * (D + 1) + lane + 32 * i];
-        ah[lane + 32 * i] = a;
-      }
-    }
-    __syncthreads();
+    if (lane == 0) sm.tiles[ntiles] = n;
   }
-  for (int h = warp; h < H; h += nw) {
-    const size_t row = ((size_t)b * H + h) * nsplit + split;
+  __syncthreads();
+  const int nvis = sm.tiles[ntiles];
+
+  // cp.async of seen tile n into ring stage n % ST by the staging threads:
+  // its K rows, then its V rows, 16-byte pieces, FU a thread (the slots'
+  // positions read first, so the copies issue back to back); a slot not
+  // seen becomes zeros. One group a call, empty past the last seen tile,
+  // so the group count stays the tile count.
+  auto fetch = [&](int n) {
+    if (n < nvis) {
+      const int jb = sm.tiles[n] * ts;
+      unsigned char* dst0 = sm.ring + (size_t)(n % ST) * 2 * ts * RP;
+      bool full[FU];
+#pragma unroll
+      for (int u = 0; u < FU; ++u) {
+        const int e = tid - st0 + u * nst, r = e / NPC;
+        full[u] = e < 2 * ts * NPC && sm.pos[jb + (r < ts ? r : r - ts)] >= 0;
+      }
+#pragma unroll
+      for (int u = 0; u < FU; ++u) {
+        const int e = tid - st0 + u * nst, r = e / NPC, c = e % NPC, j = r < ts ? r : r - ts;
+        if (e >= 2 * ts * NPC) break;
+        const unsigned char* src =
+            reinterpret_cast<const unsigned char*>(r < ts ? a.k : a.v) +
+            (full[u] ? ((row0 + jb + j) * a.Hkv + hk) * (size_t)(D * ES) : 0) + 16 * c;
+        cp_zfill<16>(dst0 + (size_t)r * RP + 16 * c, src, full[u]);
+      }
+    }
+    cp_commit();
+  };
+
+  // the rope of seen tile n: its K rows rotated into f32 [ts][KP], 4 dims
+  // (two pairs) a step, RU steps a staging thread; the angles come from
+  // registers the thread loaded a step before (angles(n))
+  float4 sc[RU];
+  auto angles = [&](int n) {
+    if (n >= nvis) return;
+    const int jb = sm.tiles[n] * ts, ne = min(ts, nslots - jb) * C4;   // the tile's slots
+    const float4* ang = reinterpret_cast<const float4*>(a.ang + (row0 + jb) * D);
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+      const int e = tid - st0 + u * nst;   // slot e / C4, pairs 2 (e % C4), + 1
+      if (e < ne) sc[u] = __ldcg(ang + e);
+    }
+  };
+  auto rotated = [&](int n) {
+    unsigned char* st = sm.ring + (size_t)(n % ST) * 2 * ts * RP;
+    return Sh::IN_PLACE ? reinterpret_cast<float*>(st) : sm.kbuf + (size_t)(n & 1) * ts * KP;
+  };
+  auto rope = [&](int n) {
+    if (n >= nvis) return;
+    const unsigned char* kin = sm.ring + (size_t)(n % ST) * 2 * ts * RP;
+    float* kout = rotated(n);
+    const int jb = sm.tiles[n] * ts;
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+      const int e = tid - st0 + u * nst, j = e / C4, c = e % C4;
+      if (e >= ts * C4 || sm.pos[jb + j] < 0) continue;
+      float kf[4];
+      load_elems<4, KV>(kin + (size_t)j * RP + 4 * c * ES, kf);
+      const float sn0 = sc[u].x, cs0 = sc[u].y, sn1 = sc[u].z, cs1 = sc[u].w;
+      float4 kr;
+      kr.x = kf[0] * cs0 + kf[1] * (-sn0);
+      kr.y = kf[1] * cs0 + kf[0] * sn0;
+      kr.z = kf[2] * cs1 + kf[3] * (-sn1);
+      kr.w = kf[3] * cs1 + kf[2] * sn1;
+      *reinterpret_cast<float4*>(kout + (size_t)j * KP + 4 * c) = kr;
+    }
+  };
+
+  // tile n's scores of this lane's slot for NG heads from g0: the heads'
+  // FMA chains over d side by side, each times the scale, times the K
+  // scale; NEG_INF where the slot is not seen
+  auto score = [&](int n, int g0, auto ng, float* s) {
+    constexpr int NG = decltype(ng)::value;
+    const int jb = sm.tiles[n] * ts;
+    const bool valid = lane < ts && sm.pos[jb + lane] >= 0;
+    float dot[NG];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) dot[g] = 0.0f;
+    if (valid) {
+      const float* kr = rotated(n) + (size_t)lane * KP;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float4 q4 = *reinterpret_cast<const float4*>(sm.q + (g0 + g) * D + d);
+          dot[g] = fmaf(q4.x, k4.x, dot[g]);
+          dot[g] = fmaf(q4.y, k4.y, dot[g]);
+          dot[g] = fmaf(q4.z, k4.z, dot[g]);
+          dot[g] = fmaf(q4.w, k4.w, dot[g]);
+        }
+      }
+    }
+    const float ksc = valid ? sm.ks[jb + lane] : 0.0f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) s[g] = valid ? dot[g] * a.scale * ksc : NEG_INF;
+  };
+
+  // this warp's query head's online-softmax state, and the fold of tile
+  // n's scores and V rows into it
+  float m = NEG_INF, l = 0.0f, acc[VW];
+#pragma unroll
+  for (int u = 0; u < VW; ++u) acc[u] = 0.0f;
+  float* pv = sm.pv + warp * 32;
+  auto fold = [&](int n, float s) {
+    const int jb = sm.tiles[n] * ts;
+    const bool valid = lane < ts && sm.pos[jb + lane] >= 0;
+    const float m_new = fmaxf(m, warp_max(s));
+    const float alpha = expf(m - m_new);
+    const float e = valid ? expf(s - m_new) : 0.0f;
+    const float lsum = warp_sum(e);
+    pv[lane] = valid ? e * sm.vs[jb + lane] : 0.0f;
+    l = fmaf(alpha, l, lsum);
+    m = m_new;
+#pragma unroll
+    for (int u = 0; u < VW; ++u) acc[u] = __fmul_rn(acc[u], alpha);
+    __syncwarp();
+    const unsigned char* vl =
+        sm.ring + (size_t)(n % ST) * 2 * ts * RP + (size_t)ts * RP + lane * VW * ES;
+#pragma unroll 4
+    for (int j = 0; j < ts; ++j) {
+      float vv[VW];
+      load_elems<VW, KV>(vl + (size_t)j * RP, vv);
+      const float p = pv[j];
+#pragma unroll
+      for (int u = 0; u < VW; ++u) acc[u] = fmaf(p, vv[u], acc[u]);
+    }
+    __syncwarp();
+  };
+
+  // step n: the staging threads wait for tile n + 1, issue tile n + ST - 1
+  // - lag (the stage of tile n - 1 - lag, done with), rotate tile n + 1
+  // and load tile n + 2's angles; tile n is scored, tile n - lag folded
+  if (stager) {
+    for (int f = 0; f < ST - 1 - lag; ++f) fetch(f);
+    angles(0);
+    cp_wait_upto(ST - 2 - lag);   // tile 0
+  }
+  __syncthreads();
+  if (stager) {
+    rope(0);
+    angles(1);
+  }
+  for (int n = 0; n < nvis + lag; ++n) {
+    if (stager) cp_wait_upto(ST - 3 - lag);   // tile n + 1
+    __syncthreads();
+    if (stager) {
+      fetch(n + ST - 1 - lag);
+      rope(n + 1);
+      angles(n + 2);
+    } else if (!a.pipe) {
+      if (scores) {
+        float s[1];
+        score(n, warp, std::integral_constant<int, 1>(), s);
+        fold(n, s[0]);
+      }
+    } else if (scores) {
+      if (n < nvis) {
+        float s[2];
+        score(n, 2 * warp, std::integral_constant<int, 2>(), s);
+        float* sbn = sm.sb + (n & 1) * HB_HEADS * 32 + lane;
+#pragma unroll
+        for (int g = 0; g < 2; ++g)
+          if (2 * warp + g < gn) sbn[(2 * warp + g) * 32] = s[g];
+      }
+    } else if (folds && n > 0) {
+      fold(n - 1, sm.sb[(((n - 1) & 1) * HB_HEADS + warp - fw) * 32 + lane]);
+    }
+  }
+  if (stager) cp_wait<0>();
+
+  if (folds) {   // the split's state of this warp's head
+    const size_t row = ((size_t)b * a.H + h0 + warp - fw) * nsplit + sp;
     if (lane == 0) {
-      part_m[row] = sm.m[h];
-      part_l[row] = sm.l[h];
+      a.part_m[row] = m;
+      a.part_l[row] = l;
     }
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) part_acc[row * D + lane + 32 * i] = sm.acc[h * D + lane + 32 * i];
+    for (int u = 0; u < VW; ++u) a.part_acc[row * D + lane * VW + u] = acc[u];
+  }
+
+  // the last CTA of this (row, kv head, head chunk) to finish (an atomic
+  // ticket, which adds nothing to any sum) folds the splits in split order,
+  // the first O's combine (its expressions; a split the query did not see
+  // is folded with a weight of 0, as there)
+  __syncthreads();
+  int* last = reinterpret_cast<int*>(sm.pv);
+  if (tid == 0) {
+    __threadfence();   // the CTA's partials (ordered before it by the barrier) first
+    const int t = atomicAdd(a.tickets + blockIdx.x, 1);
+    *last = t == nsplit - 1;
+    if (*last) a.tickets[blockIdx.x] = 0;   // ready for the next call
+  }
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int e = tid; e < gn * D; e += HB_THREADS) {
+    const size_t row = ((size_t)b * a.H + h0 + e / D) * nsplit;
+    const int d = e % D;
+    float mx = NEG_INF;
+    for (int p = 0; p < nsplit; ++p) mx = fmaxf(mx, __ldcg(a.part_m + row + p));
+    float lsum = 0.0f, ac = 0.0f;
+    for (int p = 0; p < nsplit; ++p) {
+      const float w = expf(__ldcg(a.part_m + row + p) - mx);
+      lsum = fmaf(__ldcg(a.part_l + row + p), w, lsum);
+      ac = fmaf(__ldcg(a.part_acc + (row + p) * D + d), w, ac);
+    }
+    a.out[((size_t)b * a.H + h0) * D + e] = __float2bfloat16(ac / fmaxf(lsum, 1e-30f));
   }
 }
 
@@ -1652,36 +1920,48 @@ int decode_impl(const void* q, const void* k, const void* v, const void* ks, con
   return decode_launch<DP, KV, Addr, 4>(a, addr, B, st);
 }
 
-// Kernel O over dense rows: the largest tile of 32, 16, ... slots whose
-// buffers fit the block's shared memory, then C's combine.
+// Kernel O over dense rows: the angles, then the body (its last CTAs fold
+// the splits). The host's plan (ops/decode_attention.hb_plan) gives `ts`
+// slots a tile (hb_tile) and `heads` query heads a CTA (up to HB_HEADS);
+// the CTA takes the pipelined steps over a ring of 4 tiles where they fit a
+// block, else the single steps over a ring of 4 or 3 (neither moves a bit).
+// `ang` is the angles' scratch, [B*S, D] f32; `tickets` [B * Hkv * head
+// chunks] are zero between calls. The stores and the scratch lie on 16-byte
+// boundaries (the copies move 16-byte pieces).
 template <int D, class KV, class Addr>
 int decode_hb_impl(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const void* kv_pos, const void* q_pos,
-                   const void* invf, void* part_m, void* part_l, void* part_acc,
-                   void* out, Addr, int B, int H, int Hkv, int S, int chunk,
-                   float scale, cudaStream_t st) {
-  constexpr size_t kMaxSmem = 227 * 1024;
-  int ts = TS;
-  while (ts > 1 && HbSmem<D>::bytes(H, Hkv, ts) > kMaxSmem) ts /= 2;
-  const size_t smem = HbSmem<D>::bytes(H, Hkv, ts);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  cudaFuncSetAttribute(decode_attn_hb_kernel<D, KV>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const int nsplit = (S + chunk - 1) / chunk;
-  dim3 grid(B, nsplit);
-  decode_attn_hb_kernel<D, KV><<<grid, 32 * min(H, 32), smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
-      static_cast<const int*>(q_pos), static_cast<const float*>(invf),
-      static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), H, Hkv, S, chunk, ts, scale);
+                   const void* invf, void* ang, void* part_m, void* part_l, void* part_acc,
+                   void* tickets, void* out, Addr, int B, int H, int Hkv, int S, int chunk,
+                   int ts, int heads, float scale, cudaStream_t st) {
+  if (ts < 1 || ts > HB_MAX_TS || heads < 1 || heads > HB_HEADS || chunk < 1 || H % Hkv ||
+      (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+       reinterpret_cast<uintptr_t>(ang)) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int ntl = ((chunk < S ? chunk : S) + ts - 1) / ts;
+  int stages = 4, pipe = 1;
+  if (HbSmem<D, KV>::bytes(ts, stages, ntl) > (size_t)MAX_SMEM) pipe = 0;
+  if (!pipe && HbSmem<D, KV>::bytes(ts, stages, ntl) > (size_t)MAX_SMEM) stages = 3;
+  const size_t smem = HbSmem<D, KV>::bytes(ts, stages, ntl);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_hb_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const HbArgs<KV> a{static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+                     static_cast<const KV*>(v), static_cast<const float*>(ks),
+                     static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
+                     static_cast<const int*>(q_pos), static_cast<const float*>(ang),
+                     static_cast<float*>(part_m), static_cast<float*>(part_l),
+                     static_cast<float*>(part_acc), static_cast<int*>(tickets),
+                     static_cast<__nv_bfloat16*>(out), H, Hkv, S, chunk, ts, heads, stages,
+                     pipe, scale};
+  hb_angles_kernel<D><<<dim3((S * (D / 2) + 255) / 256, B), 256, 0, st>>>(
+      static_cast<const int*>(kv_pos), static_cast<const int*>(q_pos),
+      static_cast<const float*>(invf), static_cast<float*>(ang), S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<<<B * H, D, 0, st>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out),
-      nsplit, D);
+  const int nhc = (H / Hkv + heads - 1) / heads, nsplit = (S + chunk - 1) / chunk;
+  decode_hb_kernel<D, KV><<<dim3(B * Hkv * nhc, nsplit), HB_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1738,7 +2018,7 @@ int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
       static_cast<__nv_bfloat16*>(out), T, H, Hkv, S, Sp, tq, split, scale, D);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
-  decode_combine_kernel<true><<<B * T * H, D, 0, st>>>(
+  decode_combine_kernel<<<B * T * H, D, 0, st>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
       static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out), nsplit, D);
   return (int)cudaGetLastError();

@@ -17,8 +17,10 @@
 // fixed splits of the row's slots; kernel D is two passes there (the stage
 // pass that rotates K once per slot into a bf16 scratch, then GQA-packed
 // query tiles on the tensor cores) and a combine when a row's slots span
-// more than one split. C, D, N and P take any even D <= 256; O the D its
-// gate admits (128, 256; built at 64 too).
+// more than one split; kernel O is its rope angles' launch, then one launch
+// over (row, kv head, chunk of query heads, split) that stages with the
+// bulk copy and whose last CTAs fold the splits. C, D, N and P take any even D <=
+// 256; O the D its gate admits (128, 256; built at 64 too).
 
 #include "attention_common.cuh"
 
@@ -48,18 +50,22 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                        split, heads, write, scale, st);
 }
 
-// O: `chunk` is the head-batched split (slots per block).
+// O: `chunk` is the head-batched split (slots per block), `ts` the slots
+// of a tile and `heads` the query heads of a CTA (ops/decode_attention.
+// hb_plan); `ang` the angles' scratch [B*S, D] f32; part_* the f32
+// partials, m and l [B, H, nsplit], acc [B, H, nsplit, D]; `tickets` [B *
+// Hkv * head chunks] int32, zero between calls.
 int decode_attention_hb_launch(const void* q, const void* k, const void* v,
                                const void* ks, const void* vs, const void* kv_pos,
-                               const void* q_pos, const void* invf, void* part_m,
-                               void* part_l, void* part_acc, void* out, int B,
-                               int H, int Hkv, int D, int S, int chunk,
-                               int kv_type, float scale, void* stream) {
+                               const void* q_pos, const void* invf, void* ang, void* part_m,
+                               void* part_l, void* part_acc, void* tickets, void* out,
+                               int B, int H, int Hkv, int D, int S, int chunk, int ts,
+                               int heads, int kv_type, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const attn::DenseAddr addr{S};
   ATTN_DISPATCH(attn::decode_hb_impl, attn::DenseAddr, q, k, v, ks, vs, kv_pos,
-                q_pos, invf, part_m, part_l, part_acc, out, addr, B, H, Hkv, S,
-                chunk, scale, st);
+                q_pos, invf, ang, part_m, part_l, part_acc, tickets, out, addr, B, H, Hkv,
+                S, chunk, ts, heads, scale, st);
 }
 
 // D: the scratch kr [B, Hkv, Sp, 2, DP] and vr [B, Hkv, Sp, 1 or 2 (f32 store),

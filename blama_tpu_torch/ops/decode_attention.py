@@ -22,8 +22,9 @@ so are the reference's opt-in decode modes, each its own kernel:
   * P, in-kernel write (`decode_attention_write`, BLAMA_ATTN_WRITE): N that
     also stores the row (codes and scales) in the cache; C's bits and the
     cache write's bytes;
-  * O, head-batched (BLAMA_ATTN_HB, read here at import): all kv heads of a
-    tile in one block over its own split, so its own numerics.
+  * O, head-batched (BLAMA_ATTN_HB, read here at import): its own split and
+    tile (`hb_split`, `hb_tile`), so its own numerics; a CTA per (row, kv
+    head, chunk of query heads, split) (`hb_plan`).
 
 On a CPU tensor each wrapper runs the plain PyTorch version in this module; on
 a CUDA tensor it launches the kernel or raises. The `supports` /
@@ -47,6 +48,7 @@ from __future__ import annotations
 
 import math
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -162,6 +164,47 @@ def hb_split(S: int, head_dim: int, n_kv_head: int, k_dtype, batch: int = 1,
     if not (_HB and head_dim % 128 == 0 and not scales_t and not fresh):
         return None
     return _pick_block_s(S, _itemsize(k_dtype), batch, cap=max(128, 4096 // n_kv_head))
+
+
+HB_TILE = 32          # slots a tile of kernel O at most (one a lane)
+HB_SMEM = 227 * 1024  # dynamic shared memory a block can take (MAX_SMEM)
+HB_HEADS = 4          # query heads a CTA of kernel O at most (HB_HEADS there)
+
+
+def hb_tile(H: int, Hkv: int, D: int) -> int:
+    """Slots per tile of kernel O: HB_TILE, halved while the buffers of the
+    port's first O (one block per (row, split) over all kv heads: q and acc
+    [H, D], a rotated tile [Hkv, ts, D + 1], probabilities [H, 32], m, l,
+    alpha [H], scales [Hkv, ts], positions [ts], all 4 bytes) outgrew
+    HB_SMEM. The tile sets where O's online softmax folds and so its bits;
+    it stays the first O's for every geometry, whatever the kernel needs
+    now. Raises where no tile fits, as that kernel did."""
+    def nbytes(ts):
+        return 4 * (2 * H * D + Hkv * ts * (D + 1) + H * 32 + 3 * H + 2 * Hkv * ts + ts)
+
+    ts = HB_TILE
+    while ts > 1 and nbytes(ts) > HB_SMEM:
+        ts //= 2
+    if nbytes(ts) > HB_SMEM:
+        raise ValueError(f"kernel O takes no tile at H={H} Hkv={Hkv} D={D}")
+    return ts
+
+
+class HbPlan(NamedTuple):
+    ts: int        # slots a tile (hb_tile)
+    heads: int     # query heads a CTA
+    grid: tuple    # (rows x kv heads x head chunks, splits)
+
+
+def hb_plan(B: int, H: int, Hkv: int, D: int, S: int, chunk: int) -> HbPlan:
+    """The launch of kernel O: a CTA per (row, kv head, chunk of up to
+    HB_HEADS of its query heads, split of `chunk` slots), tiles of hb_tile
+    slots. Each head's sums are its own, so the head chunks move no bit;
+    the kernel picks its ring and steps from its shared memory, which move
+    none either."""
+    g = H // Hkv
+    heads = min(g, HB_HEADS)
+    return HbPlan(hb_tile(H, Hkv, D), heads, (B * Hkv * -(-g // heads), -(-S // chunk)))
 
 
 def _pick_block_t(T: int) -> int | None:
@@ -546,15 +589,19 @@ def decode_attention(
     lib = kernels.lib("decode_attention")
     hb = hb_split(S, D, Hkv, k_cache.dtype, B, scales_t, fresh)
     if hb:
-        nsplit = -(-S // hb)
-        part_m = torch.empty((B, H, nsplit), dtype=torch.float32, device=q.device)
-        part_l = torch.empty_like(part_m)
-        part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32, device=q.device)
+        plan = hb_plan(B, H, Hkv, D, S, hb)
+        groups, nsplit = plan.grid
+        # one scratch: the rope angles [B*S, D], the partials m, l [B, H,
+        # nsplit] and acc [B, H, nsplit, D], all f32
+        n_ang, n_ml = B * S * D, B * H * nsplit
+        work = torch.empty(n_ang + n_ml * (2 + D), dtype=torch.float32, device=q.device)
+        at = work.data_ptr()
         rc = lib.decode_attention_hb_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
-            ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, H,
-            Hkv, D, S, hb, kv_type, float(scale), kernels.stream_ptr(q.device))
+            ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(), at,
+            at + 4 * n_ang, at + 4 * (n_ang + n_ml), at + 4 * (n_ang + 2 * n_ml),
+            tickets(q.device, groups).data_ptr(), out.data_ptr(), B, H, Hkv, D, S, hb, plan.ts,
+            plan.heads, kv_type, float(scale), kernels.stream_ptr(q.device))
         kernels.check(rc, "decode_attention_hb")
         kernels.count("decode_attention_hb")
         return out

@@ -61,7 +61,7 @@ SIGNATURES = {
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 14 + [_I] * 9 + [_F, _P],
-        "decode_attention_hb_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
+        "decode_attention_hb_launch": [_P] * 14 + [_I] * 9 + [_F, _P],
         "prefill_attention_launch": [_P] * 18 + [_I] * 9 + [_F, _P],
     },
     "probes": {

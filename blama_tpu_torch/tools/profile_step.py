@@ -2,7 +2,7 @@
 
     python -m blama_tpu_torch.tools.profile_step [--steps 16] [--ctx 2048] [--scheduler]
         [--dtype q4k_a8] [--quant Q4_K] [--layers N] [--moe] [--tp-blocks N]
-        [--kv int8|bf16|f32] [--attn-mode write|fresh|hb] [--eager]
+        [--kv int8|bf16|f32] [--attn-mode write|fresh|hb] [--prompt 128] [--eager]
 
 Loads the synthesized llama3-8b GGUF (testing.cached_llama_gguf; `--quant`
 Q4_K, Q8_0 or Q4_K_M, `--layers` cuts its depth) as engine `--dtype` (any of
@@ -15,7 +15,8 @@ mode a solo verifier of a prover sharded over tp | N devices runs). `--kv`
 is the solo cache's store type (default INT8), `--attn-mode` turns on one of
 the reference's opt-in decode-attention modes (BLAMA_ATTN_WRITE: kernel P,
 BLAMA_ATTN_FRESH: N on an INT8 store, BLAMA_ATTN_HB: O). It
-prefills a 128-token prompt, then times greedy decode steps
+prefills a `--prompt`-token prompt (default 128; near `--ctx` the decode
+attention reads a filled context), then times greedy decode steps
 (generate_loop.continue_greedy) as the loops run them on the card: replays
 of the captured step graph (ops/step_graph.py). `--eager` also times the
 same steps with every kernel launched from Python (graphs=False), in the
@@ -30,9 +31,9 @@ device span ms/step (CUDA events around the timed steps: device time from
 the first kernel to the last, gaps between kernels included); one
 torch.profiler window over the same steps for the device time per kernel
 (device-busy ms/step, the sum of kernel times, and the device activities a
-step), the idle share 1 - busy/wall, the top kernels and host ops, and the
+step), the idle share 1 - busy/wall, the top kernels and host ops, the
 one-row exact kernels' device time and calls a step (B, G, H, K and L at one
-row). Where the profiler attributes no kernel to a graph's replays, busy and
+row) and the decode attention kernels' (C, N, O, P and O's combine). Where the profiler attributes no kernel to a graph's replays, busy and
 the kernel list read null and the span stands in for busy (printed as
 `busy_from`). Also: the seconds to synthesize (or find) the file and to load
 it, the GiB on the card after the load, the graphs' captures (seconds, GiB
@@ -55,11 +56,19 @@ KV_DTYPES = {"int8": "int8", "bf16": "bfloat16", "f32": "float32"}
 # tree of either
 ONE_ROW_KERNELS = re.compile(
     r"\bdequant_(parts_|bank_)?row_kernel\b|\bdequant_(bank_)?tile_kernel<[^,]*::Tile<1, ")
+# the decode step's attention kernels by name: the body of C, E, N and P
+# (decode_kernel), O's (hb_angles_kernel and decode_hb_kernel; its first
+# form decode_attn_hb_kernel and the combine launched after it, so the tool
+# reads a tree of either)
+DECODE_ATTENTION_KERNELS = re.compile(
+    r"\b(decode_kernel|hb_angles_kernel|decode_hb_kernel|decode_attn_hb_kernel)<"
+    r"|\bdecode_combine_kernel\b")
 
 
-def solo_steps(model, kv="int8", ctx=2048, graphs=True, seed=7):
+def solo_steps(model, kv="int8", ctx=2048, graphs=True, prompt_len=128, seed=7):
     """(steps(n), graphs): n greedy decode steps of one solo Instance after
-    a 128-token prompt, through the Instance's graphs (False: eager)."""
+    a `prompt_len`-token prompt, through the Instance's graphs (False:
+    eager)."""
     import numpy as np
     import torch
 
@@ -69,7 +78,7 @@ def solo_steps(model, kv="int8", ctx=2048, graphs=True, seed=7):
     inst = Instance(model, InstanceInitParams(ctx_size=ctx, flash_attn=True, kv_dtype=kv,
                                               graphs=graphs))
     rng = np.random.default_rng(seed)
-    prompt = [1] + rng.integers(259, model.config.n_vocab, 127).tolist()
+    prompt = [1] + rng.integers(259, model.config.n_vocab, prompt_len - 1).tolist()
     logits = inst.decode(prompt, np.arange(len(prompt)))
     st = static_of(inst.step_config)
     n_past = len(prompt)
@@ -144,6 +153,7 @@ def measure(steps, n_steps, warm_steps, host_ops=True):
                    for e in ev if e.self_cpu_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in kern) or None
     one_row = [r for r in kern if ONE_ROW_KERNELS.search(r[0])]
+    attn = [r for r in kern if DECODE_ATTENTION_KERNELS.search(r[0])]
     # device activities a step (kernels, copies, sets)
     launches = sum(e.count for e in ev
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0) / n_steps
@@ -155,6 +165,9 @@ def measure(steps, n_steps, warm_steps, host_ops=True):
         idle_share=1 - idle_of / wall_ms,
         one_row_kernels=dict(ms_per_step=sum(r[1] for r in one_row),
                              calls_per_step=sum(r[2] for r in one_row)),
+        decode_attention_kernels=dict(
+            ms_per_step=sum(r[1] for r in attn), calls_per_step=sum(r[2] for r in attn),
+            each=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in attn]),
         top_kernels=[dict(name=k[:80], ms_per_step=t, calls_per_step=c) for k, t, c in kern[:16]],
         top_host_ops=[dict(name=k[:80], ms_per_step=t, calls_per_step=c)
                       for k, t, c in host[:12]])
@@ -178,6 +191,8 @@ def main() -> None:
                     help="the solo cache's store type")
     ap.add_argument("--attn-mode", choices=["write", "fresh", "hb"], default=None,
                     help="a decode-attention mode (BLAMA_ATTN_WRITE / _FRESH / _HB)")
+    ap.add_argument("--prompt", type=int, default=128,
+                    help="the solo prompt's tokens (the context the steps read)")
     ap.add_argument("--eager", action="store_true",
                     help="also time the steps with eager launches (graphs=False)")
     args = ap.parse_args()
@@ -214,19 +229,22 @@ def main() -> None:
     rows, horizon = (8, 8) if args.scheduler else (1, 1)
     if args.steps % horizon:
         raise SystemExit(f"--steps must be a multiple of the horizon ({horizon})")
+    if not args.scheduler and args.prompt + 2 * args.steps + 2 > args.ctx:
+        raise SystemExit("--prompt and twice --steps (and 2 warm steps) must fit --ctx")
 
     out = dict(card=smi, mode="scheduler" if args.scheduler else "solo", rows=rows,
                engine=args.dtype, tp_blocks=model.config.tp_blocks,
                kv=args.kv if not args.scheduler else "bf16", attn_mode=args.attn_mode,
                file="mixtral-8x7b" if args.moe else args.quant,
                layers=model.config.n_layer, file_s=file_s, load_s=load_s,
-               weights_gib=weights_gib, steps=args.steps, ctx=args.ctx)
+               weights_gib=weights_gib, steps=args.steps, ctx=args.ctx,
+               prompt=None if args.scheduler else args.prompt)
     for way in ("graphed", "eager") if args.eager else ("graphed",):
         graphs = way == "graphed"
         if args.scheduler:
             steps, held = scheduler_steps(model, 2 * args.steps, args.ctx, graphs)
         else:
-            steps, held = solo_steps(model, KV_DTYPES[args.kv], args.ctx, graphs)
+            steps, held = solo_steps(model, KV_DTYPES[args.kv], args.ctx, graphs, args.prompt)
         out[way] = measure(steps, args.steps, 2 * horizon)
         if graphs:
             out[way]["captures"] = held.captures

@@ -155,6 +155,7 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX or blama_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -326,12 +327,15 @@ def check_close(name, out, ref, tol):
 
 
 def _graph_row(timer, kernel, library):
-    """Times of a W4A8 GEMV call (kernels A, I, J, M), short enough that
-    host gaps inside one launch's event pair dominate it: the graph-timed
-    figures (GraphTimer, the L2 flushed before each call) for the line, the
-    single launch's event figures beside them."""
-    return dict(kernel_ms=timer.graph(kernel, flush=True), event_ms=timer(kernel),
-                library_ms=timer.graph(library, flush=True), library_event_ms=timer(library))
+    """Times of a call short enough that host gaps inside one launch's event
+    pair dominate it (the W4A8 GEMV A, I, J, M; the tools' kernels Q-Y):
+    the graph-timed figures (GraphTimer, the L2 flushed before each call)
+    for the line, the single launch's event figures beside them; `library`
+    None: the kernel's alone."""
+    row = dict(kernel_ms=timer.graph(kernel, flush=True), event_ms=timer(kernel))
+    if library is not None:
+        row.update(library_ms=timer.graph(library, flush=True), library_event_ms=timer(library))
+    return row
 
 
 def _rows_alone_in_batches(torch, fn, x16, what):
@@ -1057,9 +1061,8 @@ def tools_kernel_phase(torch, timer, rng):
                     nbytes += x.numel() * x.element_size() + M * N * 4
                     rows.append(dict(
                         kernel=name, shape=f"{label} K={K} N={N} M={M} kb={kb}",
-                        max_abs_err=err, kernel_ms=timer(launch),
-                        plain_ms=timer(plain, reps=3, warm=1),
-                        library_ms=timer(lambda: torch.matmul(xb, wb.t())),
+                        max_abs_err=err, plain_ms=timer(plain, reps=3, warm=1),
+                        **_graph_row(timer, launch, lambda: torch.matmul(xb, wb.t())),
                         **_bound(nbytes, 2 * M * K * N, INT8_OPS)))
                     log(f"kernel {kind} {rows[-1]}")
         del w, w4, wb
@@ -1079,9 +1082,10 @@ def tools_kernel_phase(torch, timer, rng):
         nbytes = (R // bk * bk) * nn + N * 4
         rows.append(dict(
             kernel="stream_rows", shape=f"{R}x{N} bk={bk} bn={bn} CTAs={(R // bk) * (N // bn)}",
-            max_abs_err=0.0, kernel_ms=timer(lambda: probes.stream_launch(codes, bk, bn)),
+            max_abs_err=0.0,
             plain_ms=timer(lambda: probes.stream_plain(codes, bk, bn), reps=3, warm=1),
-            library_ms=timer(lambda: torch.sum(codes, dtype=torch.int32)),
+            **_graph_row(timer, lambda: probes.stream_launch(codes, bk, bn),
+                         lambda: torch.sum(codes, dtype=torch.int32)),
             **_bound(nbytes, 8 * (R // bk) * nn, F32_FLOPS)))
         log(f"kernel R {rows[-1]}")
     del codes
@@ -1089,9 +1093,8 @@ def tools_kernel_phase(torch, timer, rng):
     if not torch.equal(probes.add_one(x), probes.add_one_plain(x)):
         raise AssertionError("kernel S differs from x + 1")
     rows.append(dict(kernel="add_one", shape="x [8, 128] f32", max_abs_err=0.0,
-                     kernel_ms=timer(lambda: probes.add_one(x)),
                      plain_ms=timer(lambda: probes.add_one_plain(x), reps=3, warm=1),
-                     library_ms=timer(lambda: x + 1),
+                     **_graph_row(timer, lambda: probes.add_one(x), lambda: x + 1),
                      **_bound(2 * x.numel() * 4, x.numel(), F32_FLOPS)))
     log(f"kernel S {rows[-1]}")
     return rows
@@ -1119,7 +1122,8 @@ def ubench_kernel_phase(torch, timer):
         for M in (1, 8):
             x = x8[8 - M:].contiguous()
             xb = x.to(torch.bfloat16)
-            lib_ms = timer(lambda: torch.matmul(xb, wb.t()))
+            lib = _graph_row(timer, lambda: torch.matmul(xb, wb.t()), None)
+            lib = dict(library_ms=lib["kernel_ms"], library_event_ms=lib["event_ms"])
             pxq = qm.quant_acts(x)[0]
             for kb in (8, 4):
                 out = qm.twodot_launch(x, paired, sc, qm.SLAB_BLOCK_N, kb)
@@ -1133,11 +1137,12 @@ def ubench_kernel_phase(torch, timer):
                 rows.append(dict(
                     kernel="q4k_twodot_matmul", shape=f"{label} K={K} N={N} M={M} kb={kb}",
                     max_abs_err=err,
-                    kernel_ms=timer(lambda kb=kb: qm.twodot_launch(x, paired, sc,
-                                                                   qm.SLAB_BLOCK_N, kb)),
+                    **_graph_row(timer, lambda kb=kb: qm.twodot_launch(x, paired, sc,
+                                                                       qm.SLAB_BLOCK_N, kb),
+                                 None),
                     plain_ms=timer(lambda kb=kb: qm.twodot_pos_plain(x, paired, sc, kb),
                                    reps=3, warm=1),
-                    library_ms=lib_ms, **_bound(nbytes, 2 * M * K * N, F32_FLOPS)))
+                    **lib, **_bound(nbytes, 2 * M * K * N, F32_FLOPS)))
                 log(f"kernel U {rows[-1]}")
             for kb in (4, 8):
                 ref = qm.plane_pos_plain(x, i8, sb, kb)
@@ -1161,11 +1166,11 @@ def ubench_kernel_phase(torch, timer):
                     rows.append(dict(
                         kernel=name, shape=f"{label} K={K} N={N} M={M} kb={kb}",
                         max_abs_err=err,
-                        kernel_ms=timer(lambda c=codes_v, p=packed, kb=kb: qm.plane_launch(
-                            x, c, sb, p, qm.SLAB_BLOCK_N, kb)),
+                        **_graph_row(timer, lambda c=codes_v, p=packed, kb=kb: qm.plane_launch(
+                            x, c, sb, p, qm.SLAB_BLOCK_N, kb), None),
                         plain_ms=timer(lambda kb=kb: qm.plane_pos_plain(x, i8, sb, kb),
                                        reps=3, warm=1),
-                        library_ms=lib_ms, **_bound(nbytes, 2 * M * K * N, INT8_OPS)))
+                        **lib, **_bound(nbytes, 2 * M * K * N, INT8_OPS)))
                     log(f"kernel V {rows[-1]}")
                 if not torch.equal(outs[False], outs[True]):
                     raise AssertionError(f"kernel V {label} M={M} kb={kb}: the int8 and the "
@@ -1197,14 +1202,16 @@ def probes_kernel_phase(torch, timer):
             same = torch.equal(out, plain)
         if not same:
             raise AssertionError(f"{name} {shape}: differs from its plain version")
-        lib_ms = None
+        lib = dict(library_ms=None)
         if library:
             try:
-                lib_ms = timer(library)
+                lib = _graph_row(timer, library, None)
+                lib = dict(library_ms=lib["kernel_ms"], library_event_ms=lib["event_ms"])
             except RuntimeError as e:   # a yardstick the library refuses is left out
                 log(f"probe {name} {shape}: library call refused: {e}")
-        rows.append(dict(kernel=name, shape=shape, max_abs_err=0.0, kernel_ms=timer(kernel),
-                         plain_ms=timer(plain_fn, reps=3, warm=1), library_ms=lib_ms,
+        rows.append(dict(kernel=name, shape=shape, max_abs_err=0.0,
+                         **_graph_row(timer, kernel, None),
+                         plain_ms=timer(plain_fn, reps=3, warm=1), **lib,
                          **_bound(nbytes, ops, rate)))
         log(f"probe {rows[-1]}")
 
@@ -1698,9 +1705,55 @@ def _attn_bound_ms(q, k, ks, pos, q_pos, extra_bytes=0):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", slots, pairs
 
 
+@contextlib.contextmanager
+def _hb_mode(da):
+    """Within it, `da` (a tree's decode_attention module) routes to kernel
+    O as BLAMA_ATTN_HB would; on leaving, its mode is what it was."""
+    was, da._HB = da._HB, True
+    try:
+        yield
+    finally:
+        da._HB = was
+
+
+def _hb_partials(torch, da, q, k, v, ks, vs, pos, q_pos, inv, mscale):
+    """Kernel O's split partials, f32 m and l [B, H, nsplit] and acc [B, H,
+    nsplit, D] (the state its bf16 output rounds away), from the tree's own
+    entry point: where the tree's module has no hb_plan (its first O picks
+    the tile itself) the launch takes the split alone, else the split and
+    hb_plan's tile and heads, its angles' scratch and its tickets. Returns
+    them on the host."""
+    import importlib
+
+    kernels = importlib.import_module(da.__package__ + ".kernels")
+    B, _, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    chunk = da.hb_split(S, D, Hkv, k.dtype, B)
+    nsplit = -(-S // chunk)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    pm, pl, pacc = (torch.full((B, H, nsplit), float("nan"), **f32),
+                    torch.full((B, H, nsplit), float("nan"), **f32),
+                    torch.full((B, H, nsplit, D), float("nan"), **f32))
+    out = torch.empty_like(q)
+    plan, ang, tickets = [chunk], [], []
+    if hasattr(da, "hb_plan"):
+        hp = da.hb_plan(B, H, Hkv, D, S, chunk)
+        plan += [hp.ts, hp.heads]
+        ang, tickets = [torch.empty(B * S * D, **f32)], [da.tickets(q.device, hp.grid[0])]
+    rc = kernels.lib("decode_attention").decode_attention_hb_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), da.ptr(ks), da.ptr(vs), pos.data_ptr(),
+        q_pos.data_ptr(), inv.data_ptr(), *[t.data_ptr() for t in ang], pm.data_ptr(),
+        pl.data_ptr(), pacc.data_ptr(), *[t.data_ptr() for t in tickets], out.data_ptr(), B,
+        H, Hkv, D, S, *plan, da.KV_TYPES[k.dtype], float((1.0 / (D ** 0.5)) * mscale),
+        kernels.stream_ptr(q.device))
+    kernels.check(rc, "decode_attention_hb partials")
+    torch.cuda.synchronize()
+    return pm.cpu(), pl.cpu(), pacc.cpu()
+
+
 def decode_timing(torch, da, pa, copies: int = 24):
-    """Kernels C, E, N and P at the 8B decode shapes (H32 / Hkv8 / D128) on
-    INT8, bf16 and f32 stores, each timed four ways: `event_ms` (Timer: one
+    """Kernels C, E, N, P and O at the 8B decode shapes (H32 / Hkv8 / D128)
+    on INT8, bf16 and f32 stores, each timed four ways: `event_ms` (Timer: one
     host call between two events, L2 flushed before it), `graph_ms`
     (GraphTimer over `copies` copies of the store: device time per call, no
     host gap, cold L2), `graph_flushed_ms` (GraphTimer over one copy, the L2
@@ -1711,8 +1764,11 @@ def decode_timing(torch, da, pa, copies: int = 24):
     256, event-timed as its kernel rows are. `da` and `pa` are the dense and
     paged attention modules, so the same timing runs on another tree's
     kernels. Shapes: one row at S = 2048 (1694 visible) and S = 8192; 8 rows
-    (5827 visible) dense (C) and on a scrambled pool of 128-slot pages (E);
-    N and P at the modes phase's one row and 8 rows (one a pad row)."""
+    (5827 visible) dense (C and O) and on a scrambled pool of 128-slot pages
+    (E); N and P at the modes phase's one row and 8 rows (one a pad row); O
+    (head-batched, BLAMA_ATTN_HB) on C's inputs. Inputs come from fixed
+    seeds, so two trees' outputs can be compared: returns (rows, {label:
+    output on the host}), O's split partials (f32) beside its outputs."""
     from blama_tpu_torch.ops import paged_kv as pkv
 
     timer = Timer(torch)
@@ -1722,7 +1778,7 @@ def decode_timing(torch, da, pa, copies: int = 24):
     inv, mscale = da.effective_inv_freq(D, D, 500000.0)
     inv = inv.cuda()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = []
+    rows, outs = [], {}
 
     def one_row(S):
         pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].clone()
@@ -1745,13 +1801,20 @@ def decode_timing(torch, da, pa, copies: int = 24):
         return pos.cuda(), torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32,
                                         device="cuda")
 
-    def record(label, kernel_name, run, q, store, pos, q_pos, extra_bytes=0, sdpa_rows=None):
-        """`run(i)` calls the kernel on copy i; `store` = (k, ks) of copy 0."""
+    def record(label, kernel_name, run, q, store, pos, q_pos, extra_bytes=0, sdpa_rows=None,
+               parts=None):
+        """`run(i)` calls the kernel on copy i; `store` = (k, ks) of copy 0;
+        `parts()` gives kernel O's partials on copy 0."""
         calls = [lambda i=i: run(i) for i in range(copies)]
         bound, by, slots, _ = _attn_bound_ms(q, store[0], store[1], pos, q_pos[:, None],
                                              extra_bytes)
-        row = dict(kernel=kernel_name, shape=f"{label} B={q.shape[0]} S={pos.shape[1]} "
-                                             f"slots={slots}",
+        shape = f"{label} B={q.shape[0]} S={pos.shape[1]} slots={slots}"
+        out = run(0)
+        torch.cuda.synchronize()
+        outs[f"{kernel_name} {shape}"] = out.cpu()
+        if parts is not None:
+            outs[f"{kernel_name} {shape} partials"] = parts()
+        row = dict(kernel=kernel_name, shape=shape,
                    event_ms=timer(lambda: run(0)), graph_ms=gtimer(calls, flush=False),
                    graph_flushed_ms=gtimer(lambda: run(0), flush=True),
                    graph_warm_ms=gtimer([lambda: run(0)] * copies, flush=False),
@@ -1779,6 +1842,11 @@ def decode_timing(torch, da, pa, copies: int = 24):
             lib = [sdpa_of(*st, pos, q_pos) for st in stores[:4]]
             record(f"solo {tag}", "decode_attention", run, q, (stores[0][0], stores[0][2]),
                    pos, q_pos, sdpa_rows=lib)
+            with _hb_mode(da):
+                record(f"solo {tag}", "decode_attention_hb", run, q,
+                       (stores[0][0], stores[0][2]), pos, q_pos, sdpa_rows=lib,
+                       parts=lambda q=q, pos=pos, q_pos=q_pos, st=stores[0]: _hb_partials(
+                           torch, da, q, st[0], st[1], st[2], st[3], pos, q_pos, inv, mscale))
             del stores, lib
         # C (dense rows) and E (the same logical rows on a scrambled pool), 8 rows
         pos, q_pos = eight_rows()
@@ -1789,6 +1857,11 @@ def decode_timing(torch, da, pa, copies: int = 24):
         lib = [sdpa_of(*st, pos, q_pos) for st in dense[:4]]
         record(f"serving {tag}", "decode_attention", run, q, (dense[0][0], dense[0][2]), pos,
                q_pos, sdpa_rows=lib)
+        with _hb_mode(da):
+            record(f"serving {tag}", "decode_attention_hb", run, q, (dense[0][0], dense[0][2]),
+                   pos, q_pos, sdpa_rows=lib,
+                   parts=lambda q=q, pos=pos, q_pos=q_pos, st=dense[0]: _hb_partials(
+                       torch, da, q, st[0], st[1], st[2], st[3], pos, q_pos, inv, mscale))
         del lib
         G, MP, P = 128, 16, 160
         perm = torch.randperm(P, generator=torch.Generator().manual_seed(3)).tolist()
@@ -1871,13 +1944,42 @@ def decode_timing(torch, da, pa, copies: int = 24):
                                                                    mscale=mscale)))
             log(f"decode timing {row}")
             rows.append(row)
-    return rows
+    return rows, outs
+
+
+def _equal_to_kept(torch, outs, keep: Path, name: str) -> dict:
+    """Keep `outs` (label -> a tensor or a tuple of them, on the host) as
+    keep/<name>.pt, and hold them with torch.equal against every other
+    tree's kept there: {tree: {equal, of, differ}}."""
+    keep.mkdir(parents=True, exist_ok=True)
+    torch.save(outs, keep / f"{name}.pt")
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    equal_to = {}
+    for other in sorted(keep.glob("*.pt")):
+        if other.stem == name:
+            continue
+        theirs = torch.load(other)
+        shared = [k for k in outs if k in theirs]
+        differ = [k for k in shared if not same(outs[k], theirs[k])]
+        equal_to[other.stem] = dict(equal=len(shared) - len(differ), of=len(outs),
+                                    differ=differ)
+        log(f"outputs equal to tree {other.stem}'s: {len(shared) - len(differ)} of "
+            f"{len(outs)} ({len(shared)} in both); differ: {differ}")
+    return equal_to
 
 
 def decode_timing_main(root: str) -> int:
     """`python3 chip_smoke.py --decode-timing ROOT`: decode_timing on the
     kernels of the tree at ROOT (this tree: `.`), results printed and written
-    to chiprun_out/decode_timing-<name of ROOT>.json."""
+    to chiprun_out/decode_timing-<name of ROOT>.json; the outputs (and O's
+    partials) are kept in build/decode_outputs/<name>.pt beside this script,
+    and held with torch.equal against every other tree's kept there (run
+    the trees in one call: parent, change, change, parent)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1900,9 +2002,10 @@ def decode_timing_main(root: str) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
     before = clocks()
     with torch.no_grad():
-        rows = decode_timing(torch, da, pa)
+        rows, outs = decode_timing(torch, da, pa)
+    equal_to = _equal_to_kept(torch, outs, ROOT / "build" / "decode_outputs", root.name)
     out = dict(nvidia_smi=smi, tree=str(root), build_s=build_s,
-               clocks_before=before, clocks_after=clocks(), rows=rows)
+               clocks_before=before, clocks_after=clocks(), rows=rows, equal_to=equal_to)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"decode_timing-{root.name}.json").write_text(json.dumps(out, indent=1))
@@ -2144,18 +2247,7 @@ def matmul_timing_main(root: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
         rows, outs = matmul_timing(torch, qm)
-    keep = ROOT / "build" / "matmul_outputs"
-    keep.mkdir(parents=True, exist_ok=True)
-    torch.save(outs, keep / f"{root.name}.pt")
-    equal_to = {}
-    for other in sorted(keep.glob("*.pt")):
-        if other.stem == root.name:
-            continue
-        theirs = torch.load(other)
-        differ = [k for k in outs if k in theirs and not torch.equal(outs[k], theirs[k])]
-        same = sum(1 for k in outs if k in theirs) - len(differ)
-        equal_to[other.stem] = dict(equal=same, of=len(outs), differ=differ)
-        log(f"outputs equal to tree {other.stem}'s: {same} of {len(outs)}; differ: {differ}")
+    equal_to = _equal_to_kept(torch, outs, ROOT / "build" / "matmul_outputs", root.name)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"matmul_timing-{root.name}.json").write_text(json.dumps(

@@ -1191,12 +1191,19 @@ def test_kernels_n_p_equal_c_after_write(cuda, kv, b, h, hkv, d, s, slots):
                                            d ** -0.5), ATTN_TOL)
 
 
+# kernel O's geometries: the 8B shape; D = 256 at H32 / Hkv8, where the
+# first O's buffers cut the tile to 16 slots (hb_tile); 64 query heads over
+# one kv head (sixteen CTAs of 4 heads); an int8 store at Hkv 1 takes
+# 2048-slot blocks (64 tiles in series); 16 slots, a split shorter than a
+# tile
 @pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
 @pytest.mark.parametrize("b,h,hkv,d,s", [(1, 32, 8, 128, 2048), (2, 8, 2, 128, 256),
-                                         (1, 16, 4, 256, 512), (1, 64, 8, 128, 1024)])
+                                         (1, 16, 4, 256, 512), (1, 64, 8, 128, 1024),
+                                         (1, 32, 8, 256, 1024), (1, 64, 1, 128, 4096),
+                                         (1, 32, 8, 128, 16)])
 def test_kernel_o(cuda, monkeypatch, kv, b, h, hkv, d, s):
-    """Head-batched decode (H > 32 heads loop over the warps) within the
-    tolerance of its plain version; two launches give the same bits."""
+    """Head-batched decode within the tolerance of its plain version; two
+    launches give the same bits."""
     from blama_tpu_torch.ops import kernels
 
     monkeypatch.setattr(da, "_HB", True)
@@ -1214,6 +1221,62 @@ def test_kernel_o(cuda, monkeypatch, kv, b, h, hkv, d, s):
                                          inv, *sc, d ** -0.5), ATTN_TOL)
     assert torch.equal(out, da.decode_attention(q, c.k[0], c.v[0], q_pos, c.positions,
                                                 inv, *sc))
+
+
+def _o_inputs(kv, b, h, hkv, d, s, cuda):
+    c = _store(kv, b, s, hkv, d, seed=s + h + d, device=cuda)
+    inv = da.effective_inv_freq(d, d, 10000.0)[0].to(cuda)
+    q = torch.randn((b, 1, h, d), generator=torch.Generator().manual_seed(6)) \
+        .to(torch.bfloat16).to(cuda)
+    q_pos = torch.tensor([s - 9 - 37 * r for r in range(b)], dtype=torch.int32, device=cuda)
+    k, v = c.k[0], c.v[0]
+    ks, vs = (c.k_scale[0], c.v_scale[0]) if c.quantized else (None, None)
+    return q, k, v, ks, vs, c.positions, q_pos, inv
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("h,hkv,d,s", [(32, 8, 128, 2048), (32, 8, 256, 1024),
+                                       (64, 1, 128, 1024), (64, 8, 128, 1024)])
+def test_kernel_o_row_alone_equals_the_batch(cuda, monkeypatch, kv, h, hkv, d, s):
+    """Kernel O's bits of a row depend on the row alone: each row of a batch
+    of 4 equals the same row decoded alone, with torch.equal (at 64 query
+    heads, a kv head's heads over 2 or 16 CTAs)."""
+    monkeypatch.setattr(da, "_HB", True)
+    q, k, v, ks, vs, pos, q_pos, inv = _o_inputs(kv, 4, h, hkv, d, s, cuda)
+    out = da.decode_attention(q, k, v, q_pos, pos, inv, ks, vs)
+    for r in range(4):
+        one = slice(r, r + 1)
+        alone = da.decode_attention(q[one], k[one], v[one], q_pos[one], pos[one].contiguous(),
+                                    inv, None if ks is None else ks[one],
+                                    None if vs is None else vs[one])
+        assert torch.equal(alone, out[one]), r
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("h,hkv,d,s", [(32, 8, 128, 2048), (32, 8, 256, 1024)])
+def test_kernel_o_unseen_slots_are_not_read(cuda, monkeypatch, kv, h, hkv, d, s):
+    """A block (split) with no visible slot, a tile with none and single
+    slots the query cannot see: O within the tolerance of its plain version,
+    and the same bits when every unseen slot holds NaN (values and
+    scales), since such a slot is staged as zeros without being read."""
+    monkeypatch.setattr(da, "_HB", True)
+    q, k, v, ks, vs, pos, q_pos, inv = _o_inputs(kv, 2, h, hkv, d, s, cuda)
+    chunk = da.hb_split(s, d, hkv, k.dtype, 2)
+    ts = da.hb_tile(h, hkv, d)
+    pos = pos.clone()
+    pos[0, chunk:2 * chunk] = -1                   # row 0: its second block unseen
+    pos[1, 3 * ts:5 * ts] = 10 * s                 # row 1: two tiles past the query
+    out = da.decode_attention(q, k, v, q_pos, pos, inv, ks, vs)
+    _close(out, da.flash_attention_plain(q, k, v, q_pos[:, None], pos, inv, ks, vs,
+                                         d ** -0.5), ATTN_TOL)
+    unseen = (pos < 0) | (pos > q_pos[:, None])
+    nan_of = lambda t: t.masked_fill(unseen[..., None, None], float("nan"))  # noqa: E731
+    if kv == "int8":
+        k2, v2 = k, v
+        ks2, vs2 = (t.masked_fill(unseen[..., None], float("nan")) for t in (ks, vs))
+    else:
+        k2, v2, ks2, vs2 = nan_of(k), nan_of(v), None, None
+    assert torch.equal(da.decode_attention(q, k2, v2, q_pos, pos, inv, ks2, vs2), out)
 
 
 @pytest.mark.parametrize("t,g,d", [(1, 32, 64), (1, 128, 128), (8, 64, 256), (16, 32, 128)])
