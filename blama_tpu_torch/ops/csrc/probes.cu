@@ -39,13 +39,34 @@
 //   i8 dot     b int8 [K, N];
 //   unpack dot a [M, 2K] with concat([c & 0xF, c >> 4]) for c uint8 [K, N]:
 //              a's first K columns meet the low nibbles, the last K the high.
-// A CTA owns 128 columns and all M rows; per K tile of 64 it stages a's
-// tile and b's [64, 128] bytes (words along N, unpacked with the SWAR masks),
-// transposed into [n][k] in shared memory, so each thread takes __dp4a of
-// four K-consecutive int8 of a and of b: the products are the kernel's own
-// (no tensor-core library). Bound on this card: bytes (the uint8 operand;
-// 2*M ops a byte at M = 32, far below the int8 rate's ~600). Integer sums
-// are exact in any order.
+// The reference's dots run on the TPU's matrix unit; here they run on the
+// int8 tensor cores (mma.sync m16n8k32 s8, the unit the W4A8 GEMV's group
+// dots use). Bound on this card: bytes (b is read once; 2*M ops a byte at
+// M = 32, far below the int8 rate). So the design keeps the stream full:
+//   - a CTA owns 64 columns of b and all of K; 224 CTAs at the 8B FFN
+//     plane's 14336 columns, all resident at once (two an SM at most);
+//   - b and a's rows reach shared memory through a cp.async ring of
+//     D_STAGES stages of 64 K rows (4 KB of b a stage, seven stages in
+//     flight), one CTA barrier a stage, the ring's own;
+//   - four warps: two column halves of 32 times the stage's two k32 steps,
+//     whose sums are added once at the end through shared memory;
+//   - the B fragment wants four K-consecutive bytes of one column a lane,
+//     and b lies [K][N]: lane (g, t) reads the word of columns 4g..4g+3 in
+//     rows 4t..4t+3 (and 16+4t..) and transposes the 4x4 bytes with eight
+//     prmt, so n8 tile j holds the columns 4g + j; a lane's outputs are then
+//     8 consecutive columns, stored as two 16-byte words. b's rows are
+//     XOR-swizzled in 16-byte chunks so these reads hit 32 banks;
+//   - a's rows fill two m16 tiles (zeros past M), staged as they lie,
+//     swizzled so that one ldmatrix.x4 a tile reads the A fragment without
+//     a bank conflict;
+//   - the SWAR masks act per byte, so they apply to the words before the
+//     transpose; the swar dot adds lo + hi per byte (<= 30, no carry) and
+//     runs one product, the unpack dot two.
+// What is left above the stream: every CTA copies all of a from L2 (64 KB at
+// the 8B plane, 14.7 MB over the grid beside b's 29.4), and the ring's fill
+// and drain. Where every row of a and b is 16-byte aligned the copies are
+// 16 bytes wide; else b goes in 4-byte copies and a byte by byte (another
+// instance of the kernel). Integer sums are exact in any order.
 //
 // Kernel Y (casts_launch) replaces the twelve layout and cast probes of
 // tools/probe_casts.py:20-76, each on the probe's own f32 shapes: eight
@@ -58,10 +79,17 @@
 // rint(x * 3.7f) through int8 (k10, round half to even as jnp.round); the
 // even-row selector E[4, 8] @ x[8, 4] as an f32 dot in the kernel (k11);
 // and a store into a __shared__ scratch at lane offset 128 read back (k12).
-// One CTA each: the probes' arrays are at most 32 KB.
+// One CTA each, as the reference's grid-less calls: the arrays are at most
+// 32 KB, so a probe's time is its launch and one memory round trip. Bound:
+// that latency. The copies, the group max and the round therefore take a
+// compile-time thread and trip count and issue all of a thread's loads
+// (16-byte vectors where both pointers allow) before its first store, so
+// the loads wait together and not one after another.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -178,68 +206,246 @@ __global__ void bytes_kernel(const uint32_t* __restrict__ x, uint32_t* __restric
 // kernels W and X: the int8 dots
 // ---------------------------------------------------------------------------
 enum DotMode { SWAR_DOT = 0, I8_DOT = 1, UNPACK_DOT = 2 };
-constexpr int D_BN = 128, D_KT = 64, D_THREADS = 256, D_MAXM = 32;
-constexpr int D_RPT = D_MAXM / (D_THREADS / D_BN);  // rows a thread accumulates
+constexpr int D_BN = 64;                   // columns a CTA owns
+constexpr int D_KT = 64;                   // K rows a stage carries: two k32 steps
+constexpr int D_THREADS = 128;             // 2 column halves x 2 k32 steps
+constexpr int D_STAGES = 8;                // the ring
+constexpr int D_MAXM = 32;                // two m16 tiles of a's rows
+constexpr int D_BSTAGE = D_KT * D_BN;      // bytes of b a stage
+constexpr uint32_t D_NIB = 0x0F0F0F0Fu;
 
 template <int MODE>
+struct DotShape {
+  static constexpr int NA = MODE == UNPACK_DOT ? 2 : 1;   // a halves: a[:, k], a[:, K + k]
+  static constexpr int AHALF = D_MAXM * D_KT;              // bytes of a half's rows a stage
+  static constexpr int STAGE = D_BSTAGE + NA * AHALF;
+  static constexpr int SMEM = D_STAGES * STAGE;
+};
+
+// byte offset of 16-byte chunk c (0..3) of b's row r in a stage: two rows a
+// 128-byte line, the chunk XORed with 2 * ((r >> 2) & 3), so the rows
+// 4t + r' (t = 0..3) a warp reads at once fall in four bank groups
+__device__ __forceinline__ int d_boff(int r, int c) {
+  return (r >> 1) * 128 + (((((r & 1) << 2) | c) ^ (((r >> 2) & 3) << 1)) << 4);
+}
+
+// byte offset of 16-byte chunk c (0..3) of a's row r in a stage: two rows a
+// line, the chunk XORed with (r >> 1) & 3, so the 8 rows an ldmatrix reads
+// at one chunk fall in eight bank groups
+__device__ __forceinline__ int d_aoff(int r, int c) {
+  return (r >> 1) * 128 + (((((r & 1) << 2) | c) ^ ((r >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16z(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4z(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+
+// the A fragment of a 16 x 32 s8 tile: ldmatrix.x4 of its four 8 x 16-byte
+// quarters (rows 0-7 / 8-15 at k 0-15, then at k 16-31); lane l gives the
+// address of row l % 8 of quarter l / 8
+__device__ __forceinline__ uint4 d_ldsm4(const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  uint4 r;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "r"(s));
+  return r;
+}
+
+// d += A B: A the 16 x 32 s8 fragment of a lane (a.x..a.w), B 32 x 8 (b0, b1)
+__device__ __forceinline__ void d_mma(int (&d)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// 4 x 4 bytes: v[r] holds byte j of row r; f[j] gets byte r of column j
+__device__ __forceinline__ void d_transpose(const uint32_t (&v)[4], uint32_t (&f)[4]) {
+  const uint32_t lo01 = __byte_perm(v[0], v[1], 0x5140), hi01 = __byte_perm(v[0], v[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(v[2], v[3], 0x5140), hi23 = __byte_perm(v[2], v[3], 0x7362);
+  f[0] = __byte_perm(lo01, lo23, 0x5410);
+  f[1] = __byte_perm(lo01, lo23, 0x7632);
+  f[2] = __byte_perm(hi01, hi23, 0x5410);
+  f[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// One stage of the ring: b's rows k0..k0+63 of the CTA's 64 columns and a's
+// rows 0..31 at k0..k0+63 (each half h at h * AHALF), both swizzled, zeros
+// past M, K and N. ALIGNED (every row of a and b 16-byte aligned): 16-byte
+// copies only; else b in 4-byte copies and a byte by byte.
+template <int MODE, bool ALIGNED>
+__device__ __forceinline__ void dot_issue(uint8_t* slot, const int8_t* __restrict__ a,
+                                          const uint8_t* __restrict__ b, int M, int K, int N,
+                                          int k0, int n0) {
+  using S = DotShape<MODE>;
+#pragma unroll
+  for (int j = 0; j < D_KT * 4 / D_THREADS; ++j) {
+    const int i = threadIdx.x + j * D_THREADS, r = i >> 2, c = i & 3;
+    const int k = k0 + r, n = n0 + 16 * c;
+    uint8_t* dst = slot + d_boff(r, c);
+    const uint8_t* src = b + (size_t)k * N + n;
+    if constexpr (ALIGNED) {
+      const bool ok = k < K && n < N;
+      cp_async16z(dst, ok ? src : b, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = k < K && n + 4 * q < N;
+        cp_async4z(dst + 4 * q, ok ? src + 4 * q : b, ok ? 4 : 0);
+      }
+    }
+  }
+  constexpr int ACHUNKS = S::NA * D_MAXM * 4;
+#pragma unroll
+  for (int j = 0; j < (ACHUNKS + D_THREADS - 1) / D_THREADS; ++j) {
+    const int i = threadIdx.x + j * D_THREADS;
+    if (ACHUNKS % D_THREADS && i >= ACHUNKS) break;
+    const int h = i / (D_MAXM * 4), row = (i >> 2) % D_MAXM, c = i & 3;
+    const int k = k0 + 16 * c;
+    uint8_t* dst = slot + D_BSTAGE + h * S::AHALF + d_aoff(row, c);
+    const int8_t* src = a + (size_t)row * S::NA * K + h * K + k;
+    if constexpr (ALIGNED) {
+      const bool ok = row < M && k < K;
+      cp_async16z(dst, ok ? src : a, ok ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0, 0, 0, 0};
+      if (row < M)
+        for (int e = 0; e < 16; ++e)
+          if (k + e < K) w[e >> 2] |= (uint32_t)(uint8_t)src[e] << (8 * (e & 3));
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <int MODE, bool ALIGNED>
 __global__ void __launch_bounds__(D_THREADS)
 int8_dot_kernel(const int8_t* __restrict__ a, const uint8_t* __restrict__ b,
                 int32_t* __restrict__ out, int M, int K, int N) {
-  constexpr int NB = MODE == I8_DOT ? 1 : 2;        // b planes: codes, or lo and hi
-  constexpr int NA = MODE == UNPACK_DOT ? 2 : 1;    // a tiles: a[:, k], a[:, K + k]
-  __shared__ __align__(16) int8_t s_a[NA][D_MAXM][D_KT];
-  __shared__ __align__(16) int8_t s_b[NB][D_BN][D_KT + 4];   // [n][k], padded rows
-  const int lda = NA * K;
+  using S = DotShape<MODE>;
+  constexpr int MT = D_MAXM / 16;            // m16 tiles of a's rows
+  extern __shared__ __align__(128) uint8_t dsm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int cg = warp & 1, kh = warp >> 1;   // column half, k32 step of a stage
   const int n0 = blockIdx.x * D_BN;
-  const int col = threadIdx.x % D_BN, rg = threadIdx.x / D_BN;
-  int acc[D_RPT];
+  const int nst = (K + D_KT - 1) / D_KT;
+  // this lane's words of b in a stage: rows 32 kh + 16 h + 4 t + r, columns
+  // 32 cg + 4g .. + 3 (chunk 2 cg + g / 4, word g % 4); its ldmatrix rows of
+  // a: 16 mt + 8 (q % 2) + l % 8 at chunk 2 kh + q / 2 (q = l / 8)
+  int boff[2][4], aoff[MT];
 #pragma unroll
-  for (int r = 0; r < D_RPT; ++r) acc[r] = 0;
-  for (int k0 = 0; k0 < K; k0 += D_KT) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < NA * D_MAXM * D_KT; i += D_THREADS) {
-      const int h = i / (D_MAXM * D_KT), r = (i / D_KT) % D_MAXM, k = i % D_KT;
-      s_a[h][r][k] = (r < M && k0 + k < K) ? a[(size_t)r * lda + h * K + k0 + k] : (int8_t)0;
-    }
-    for (int i = threadIdx.x; i < D_KT * (D_BN / 4); i += D_THREADS) {
-      const int k = i / (D_BN / 4), nw = (i % (D_BN / 4)) * 4;
-      uint32_t w = 0;
-      if (k0 + k < K && n0 + nw < N)
-        w = *reinterpret_cast<const uint32_t*>(b + (size_t)(k0 + k) * N + n0 + nw);
-      const uint32_t p0 = MODE == I8_DOT ? w : (w & 0x0F0F0F0Fu);
-      const uint32_t p1 = (w >> 4) & 0x0F0F0F0Fu;
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s_b[0][nw + j][k] = (int8_t)(p0 >> (8 * j));
-        if constexpr (NB == 2) s_b[NB - 1][nw + j][k] = (int8_t)(p1 >> (8 * j));
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < D_KT; kk += 4) {
-      const int b0 = *reinterpret_cast<const int*>(&s_b[0][col][kk]);
-      const int b1 = *reinterpret_cast<const int*>(&s_b[NB - 1][col][kk]);
+    for (int r = 0; r < 4; ++r)
+      boff[h][r] = d_boff(32 * kh + 16 * h + 4 * t + r, 2 * cg + (g >> 2)) + 4 * (g & 3);
 #pragma unroll
-      for (int r = 0; r < D_RPT; ++r) {
-        const int row = rg * D_RPT + r;
-        const int a0 = *reinterpret_cast<const int*>(&s_a[0][row][kk]);
-        if constexpr (MODE == I8_DOT) {
-          acc[r] = __dp4a(a0, b0, acc[r]);
-        } else {
-          const int a1 = *reinterpret_cast<const int*>(&s_a[NA - 1][row][kk]);
-          acc[r] = __dp4a(a0, b0, acc[r]);
-          acc[r] = __dp4a(a1, b1, acc[r]);
+  for (int mt = 0; mt < MT; ++mt)
+    aoff[mt] = D_BSTAGE + d_aoff(16 * mt + 8 * ((lane >> 3) & 1) + (lane & 7),
+                                 2 * kh + (lane >> 4));
+  int acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0;
+
+#pragma unroll
+  for (int s = 0; s < D_STAGES - 1; ++s) {
+    if (s < nst)
+      dot_issue<MODE, ALIGNED>(dsm + s * S::STAGE, a, b, M, K, N, s * D_KT, n0);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<D_STAGES - 2>();           // stage s has landed (this thread's part)
+    __syncthreads();                         // everyone's part; slot s - 1 is free
+    const int sn = s + D_STAGES - 1;
+    if (sn < nst)
+      dot_issue<MODE, ALIGNED>(dsm + (sn % D_STAGES) * S::STAGE, a, b, M, K, N, sn * D_KT,
+                               n0);
+    cp_async_commit();
+    const uint8_t* slot = dsm + (s % D_STAGES) * S::STAGE;
+    uint32_t v[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[h][r] = *reinterpret_cast<const uint32_t*>(slot + boff[h][r]);
+    uint4 af[S::NA][MT];
+#pragma unroll
+    for (int h = 0; h < S::NA; ++h)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) af[h][mt] = d_ldsm4(slot + h * S::AHALF + aoff[mt]);
+    if constexpr (MODE == UNPACK_DOT) {
+      uint32_t lo[2][4], hi[2][4], flo[2][4], fhi[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          lo[h][r] = v[h][r] & D_NIB;
+          hi[h][r] = (v[h][r] >> 4) & D_NIB;
         }
+        d_transpose(lo[h], flo[h]);
+        d_transpose(hi[h], fhi[h]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          d_mma(acc[mt][j], af[0][mt], flo[0][j], flo[1][j]);
+          d_mma(acc[mt][j], af[1][mt], fhi[0][j], fhi[1][j]);
+        }
+    } else {
+      uint32_t f[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (MODE == SWAR_DOT) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) v[h][r] = (v[h][r] & D_NIB) + ((v[h][r] >> 4) & D_NIB);
+        }
+        d_transpose(v[h], f[h]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) d_mma(acc[mt][j], af[0][mt], f[0][j], f[1][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                           // the ring is free: fold the k32 steps there
+  int* red = reinterpret_cast<int*>(dsm) + cg * (MT * 16 * 32) + lane;
+  if (kh == 1) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) red[((mt * 4 + j) * 4 + q) * 32] = acc[mt][j][q];
+  }
+  __syncthreads();
+  if (kh == 1) return;
+  // acc[mt][j][q]: row 16 mt + g + 8 (q >> 1), column 32 cg + 8 t + 4 (q & 1) + j
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int row = 16 * mt + g + 8 * rh;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int q = 2 * rh + p, col = n0 + 32 * cg + 8 * t + 4 * p;
+        int o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[j] = acc[mt][j][q] + red[((mt * 4 + j) * 4 + q) * 32];
+        if (row >= M || col >= N) continue;
+        *reinterpret_cast<int4*>(out + (size_t)row * N + col) = make_int4(o[0], o[1], o[2], o[3]);
       }
     }
-  }
-  if (n0 + col < N) {
-#pragma unroll
-    for (int r = 0; r < D_RPT; ++r) {
-      const int row = rg * D_RPT + r;
-      if (row < M) out[(size_t)row * N + n0 + col] = acc[r];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -263,26 +469,68 @@ struct SublaneStride {  // (8,128)[0::2] -> (4,128): out (r, c) = in (2r, c)
   __device__ static int src(int i) { return 2 * (i / 128) * 128 + i % 128; }
 };
 
-template <typename Map>
-__global__ void map_copy_kernel(const float* __restrict__ x, float* __restrict__ o) {
-  for (int i = threadIdx.x; i < Map::n; i += blockDim.x) o[i] = x[Map::src(i)];
+// Four floats at p: one 16-byte load (VEC = 4, p 16-byte aligned) or four
+// single ones (VEC = 1); and the store the same way.
+template <int VEC>
+__device__ __forceinline__ float4 ld4(const float* p) {
+  if constexpr (VEC == 4) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+template <int VEC>
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
+  }
+}
+
+// A copy through Map on THREADS threads, four elements a unit (every Map
+// maps a run of 4 aligned outputs to 4 contiguous, aligned inputs): every
+// thread issues all of its loads before its first store.
+template <typename Map, int VEC, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+map_copy_kernel(const float* __restrict__ x, float* __restrict__ o) {
+  constexpr int NU = Map::n / 4, PER = (NU + THREADS - 1) / THREADS;
+  float4 v[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    if (NU % THREADS == 0 || i < NU) v[j] = ld4<VEC>(x + Map::src(4 * i));
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    if (NU % THREADS == 0 || i < NU) st4<VEC>(o + 4 * i, v[j]);
+  }
 }
 
 // k7: (8,128) -> (8,4), out (r, g) = max over lanes 32g..32g+31 of |x[r, lane]|
-// (the reference's masked max takes 0 for the other groups: the same floor)
-__global__ void group_max_kernel(const float* __restrict__ x, float* __restrict__ o) {
-  const int t = threadIdx.x;
-  if (t >= 32) return;
-  const int r = t / 4, g = t % 4;
-  float m = 0.0f;
-  for (int c = 0; c < 32; ++c) m = fmaxf(m, fabsf(x[r * 128 + 32 * g + c]));
-  o[t] = m;
+// (the reference's masked max takes 0 for the other groups: the same floor).
+// 256 threads, four elements each; a group is 8 neighbouring lanes, folded
+// by shuffles (max is exact in any order).
+template <int VEC>
+__global__ void __launch_bounds__(256) group_max_kernel(const float* __restrict__ x,
+                                                        float* __restrict__ o) {
+  const int i = threadIdx.x;
+  const float4 v = ld4<VEC>(x + 4 * i);
+  float m = fmaxf(fmaxf(fmaxf(fmaxf(0.0f, fabsf(v.x)), fabsf(v.y)), fabsf(v.z)), fabsf(v.w));
+#pragma unroll
+  for (int d = 4; d; d >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+  if ((i & 7) == 0) o[i >> 3] = m;           // (r, g) = (i / 32, i / 8 % 4)
 }
 
-// k10: (8,128), rint(x * 3.7f) to int8 and back to f32
-__global__ void round_int8_kernel(const float* __restrict__ x, float* __restrict__ o) {
-  for (int i = threadIdx.x; i < 1024; i += blockDim.x)
-    o[i] = (float)(int8_t)__float2int_rn(x[i] * 3.7f);
+// k10: (8,128), rint(x * 3.7f) to int8 and back to f32; 256 threads, four each
+template <int VEC>
+__global__ void __launch_bounds__(256) round_int8_kernel(const float* __restrict__ x,
+                                                         float* __restrict__ o) {
+  const float4 v = ld4<VEC>(x + 4 * threadIdx.x);
+  float4 r;
+  r.x = (float)(int8_t)__float2int_rn(v.x * 3.7f);
+  r.y = (float)(int8_t)__float2int_rn(v.y * 3.7f);
+  r.z = (float)(int8_t)__float2int_rn(v.z * 3.7f);
+  r.w = (float)(int8_t)__float2int_rn(v.w * 3.7f);
+  st4<VEC>(o + 4 * threadIdx.x, r);
 }
 
 // k11: E[4,8] @ x[8,4], E[i, k] = (k == 2i), the f32 products and sums here
@@ -353,45 +601,85 @@ int bytes_launch(int op, const void* x, void* o0, void* o1, int nwords, void* st
 
 // Kernels W and X, int8 dots (DotMode): a int8 [M, K] ([M, 2K] for
 // UNPACK_DOT), b [K, N] (uint8, int8 for I8_DOT; N % 4 == 0, 4-byte aligned),
-// out int32 [M, N]; 1 <= M <= 32.
+// out int32 [M, N] (16-byte aligned); 1 <= M <= 32. One CTA a 64-column
+// tile, over all of K.
 int int8_dot_launch(int mode, const void* a, const void* b, void* out, int M, int K, int N,
                     void* stream) {
-  if (M < 1 || M > D_MAXM || K < 1 || N < 4 || N % 4) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || M > D_MAXM || K < 1 || N < 4 || N % 4 ||
+      reinterpret_cast<uintptr_t>(out) % 16 || reinterpret_cast<uintptr_t>(b) % 4)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (N + D_BN - 1) / D_BN;
+  const bool aligned = K % 16 == 0 && N % 16 == 0 &&
+                       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 == 0;
   const int8_t* ai = static_cast<const int8_t*>(a);
   const uint8_t* bi = static_cast<const uint8_t*>(b);
   int32_t* o = static_cast<int32_t*>(out);
-  const dim3 grid((N + D_BN - 1) / D_BN);
-  if (mode == SWAR_DOT) int8_dot_kernel<SWAR_DOT><<<grid, D_THREADS, 0, st>>>(ai, bi, o, M, K, N);
-  else if (mode == I8_DOT) int8_dot_kernel<I8_DOT><<<grid, D_THREADS, 0, st>>>(ai, bi, o, M, K, N);
-  else if (mode == UNPACK_DOT)
-    int8_dot_kernel<UNPACK_DOT><<<grid, D_THREADS, 0, st>>>(ai, bi, o, M, K, N);
-  else return (int)cudaErrorInvalidValue;
+  auto run = [&](auto kernel, int smem) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, D_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(ai, bi, o, M, K, N);
+    return (int)cudaGetLastError();
+  };
+  // the copies' width
+  auto by_width = [&](auto mode_c) {
+    constexpr int MODE = decltype(mode_c)::value;
+    return aligned ? run(int8_dot_kernel<MODE, true>, DotShape<MODE>::SMEM)
+                   : run(int8_dot_kernel<MODE, false>, DotShape<MODE>::SMEM);
+  };
+  switch (mode) {
+    case SWAR_DOT: return by_width(std::integral_constant<int, SWAR_DOT>{});
+    case I8_DOT: return by_width(std::integral_constant<int, I8_DOT>{});
+    case UNPACK_DOT: return by_width(std::integral_constant<int, UNPACK_DOT>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"
+
+namespace {
+
+// one CTA for the copy through Map: a thread a unit of four up to 256 units
+template <typename Map, int VEC>
+void copy_launch(const float* x, float* o, cudaStream_t st) {
+  constexpr int NU = Map::n / 4, T = NU >= 256 ? 256 : (NU + 31) / 32 * 32;
+  map_copy_kernel<Map, VEC, T><<<1, T, 0, st>>>(x, o);
+}
+
+template <int VEC>
+int casts_run(int probe, const float* x, float* o, cudaStream_t st) {
+  switch (probe) {
+    case 1: copy_launch<FlatCopy<1024>, VEC>(x, o, st); break;
+    case 2: copy_launch<FlatCopy<1024>, VEC>(x, o, st); break;
+    case 3: copy_launch<FlatCopy<32>, VEC>(x, o, st); break;
+    case 4: copy_launch<LaneSlice, VEC>(x, o, st); break;
+    case 5: copy_launch<FlatCopy<512>, VEC>(x, o, st); break;
+    case 6: copy_launch<SublaneStride, VEC>(x, o, st); break;
+    case 7: group_max_kernel<VEC><<<1, 256, 0, st>>>(x, o); break;
+    case 8: copy_launch<FlatCopy<1024>, VEC>(x, o, st); break;
+    case 9: copy_launch<FlatCopy<8192>, VEC>(x, o, st); break;
+    case 10: round_int8_kernel<VEC><<<1, 256, 0, st>>>(x, o); break;
+    case 11: row_select_dot_kernel<<<1, 256, 0, st>>>(x, o); break;
+    case 12: scratch_store_kernel<<<1, 256, 0, st>>>(x, o); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" {
+
 // Kernel Y: probe 1..12 of tools/probe_casts.py on its own shapes (x and o
-// f32, contiguous, the probe's sizes), one CTA of 256 threads.
+// f32, contiguous, the probe's sizes), one CTA; 16-byte vectors where both
+// pointers are 16-byte aligned.
 int casts_launch(int probe, const void* x, void* o, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   float* of = static_cast<float*>(o);
-  switch (probe) {
-    case 1: map_copy_kernel<FlatCopy<1024>> <<<1, 256, 0, st>>>(xf, of); break;
-    case 2: map_copy_kernel<FlatCopy<1024>> <<<1, 256, 0, st>>>(xf, of); break;
-    case 3: map_copy_kernel<FlatCopy<32>> <<<1, 256, 0, st>>>(xf, of); break;
-    case 4: map_copy_kernel<LaneSlice><<<1, 256, 0, st>>>(xf, of); break;
-    case 5: map_copy_kernel<FlatCopy<512>> <<<1, 256, 0, st>>>(xf, of); break;
-    case 6: map_copy_kernel<SublaneStride><<<1, 256, 0, st>>>(xf, of); break;
-    case 7: group_max_kernel<<<1, 256, 0, st>>>(xf, of); break;
-    case 8: map_copy_kernel<FlatCopy<1024>> <<<1, 256, 0, st>>>(xf, of); break;
-    case 9: map_copy_kernel<FlatCopy<8192>> <<<1, 256, 0, st>>>(xf, of); break;
-    case 10: round_int8_kernel<<<1, 256, 0, st>>>(xf, of); break;
-    case 11: row_select_dot_kernel<<<1, 256, 0, st>>>(xf, of); break;
-    case 12: scratch_store_kernel<<<1, 256, 0, st>>>(xf, of); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) % 16 == 0)
+    return casts_run<4>(probe, xf, of, st);
+  return casts_run<1>(probe, xf, of, st);
 }
 
 }  // extern "C"

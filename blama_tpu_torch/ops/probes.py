@@ -1,6 +1,7 @@
 """The tools' card microbenchmark kernels, their wrappers and plain versions.
 
-Both kernels are CUDA C++ for sm_90a (ops/csrc/probes.cu):
+Every kernel is CUDA C++ for sm_90a (ops/csrc/probes.cu); its header says
+what bounds each on the card and what the design does about it:
 
   R  stream (replaces the TPU kernel _stream_kernel of
      blama_tpu/tools/probe_bw.py): codes uint8 [R, N] in [bk, bn] blocks,
@@ -18,14 +19,18 @@ Both kernels are CUDA C++ for sm_90a (ops/csrc/probes.cu):
   X  the Mosaic probes of blama_tpu/tools/probe_mosaic.py: u8_bitops
      ((x & 0xF) + (x >> 4) in uint8), i16_bitops (the same through int16),
      i8_dot (int8 @ int8 → int32), unpack_dot (a @ concat([c & 0xF, c >> 4])).
-  Y  the twelve layout and cast probes of tools/probe_casts.py (casts, CASTS).
+  Y  the twelve layout and cast probes of tools/probe_casts.py (casts, CASTS),
+     one CTA each, every load of a thread issued before its first store.
 
 W and X take uint8 arrays as 32-bit words of four bytes along the last axis,
 so they want a contiguous array whose rows are whole words (N % 4 == 0,
-4-byte aligned) and raise otherwise. The int8 dots do their products in the
-kernel (__dp4a); their plain versions multiply in float64, exact for these
-integers. On a CPU tensor each wrapper runs its plain version; on a CUDA
-tensor it launches the kernel or raises.
+4-byte aligned) and raise otherwise. The three int8 dots are one kernel: the
+reference's dots run on the TPU's matrix unit, these on the card's int8
+tensor cores (mma.sync m16n8k32 s8), one CTA a 64-column tile over all of
+K, with b streamed through a cp.async ring and its bytes transposed into B
+fragments in registers; the plain versions multiply in float64, exact for
+these integers. On a CPU tensor each wrapper runs its plain version; on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations

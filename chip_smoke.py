@@ -63,9 +63,10 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    a block of the reference's and one of the card's size, exact, every byte
    staged; S exact; ubench_q4k's U (f32 two-dot) and V (int8 and
    tile-paired codes, the loaders bit-equal) at the 8B projections and lm
-   head, 1 and 8 rows, two kb each, bits equal across block_n; the probes W
-   and X at [256, 512] and an 8B code plane (2048 x 14336), Y at its twelve
-   shapes, all exact; and rows_mm's host cost at the decode step's shapes;
+   head, 1 and 8 rows, two kb each, bits equal across block_n, U beside
+   the f32 torch.matmul that computes its function; the probes W and X at
+   [256, 512] and an 8B code plane (2048 x 14336), Y at its twelve shapes,
+   all exact; and rows_mm's host cost at the decode step's shapes;
 3. solo: synthesizes the llama3-8b Q4_K GGUF from a seed (reused from the
    temp directory when present), loads it as `q4k_a8` with fused attention,
    and on an INT8 cache (ctx 2048) one solo Session answers three
@@ -147,7 +148,9 @@ decode_timing, on the kernels of the tree at DIR (C, E, N, P and D timed at
 the 8B shapes, for a before / after in one call); `--matmul-timing DIR`
 runs only matmul_timing (A, I, J, M, and the one-row calls of B, G, H, K
 and L, graph-timed beside the f32 and bf16 library calls, their outputs
-compared with another tree's). The last line of standard
+compared with another tree's); `--tools-timing DIR` runs only the tools'
+kernel phases (Q to Y, graph-timed, U beside its f32 library call, their
+outputs compared with another tree's). The last line of standard
 output is {"ok": true, "device": {...}}; the line before it lists every
 kernel with its launches, error and times. Detailed results also go to
 chiprun_out/chip_smoke.json. Imports nothing of JAX or blama_tpu.
@@ -1014,14 +1017,23 @@ def tp_kernel_phase(torch, timer, rng):
 STREAM_BLOCKS = ((1024, 4096), (64, 2048))
 
 
-def tools_kernel_phase(torch, timer, rng):
+def _keep(keep, kernel, shape, out):
+    """Into `keep` (when given): `out` (a tensor or a tuple of them) on the
+    host under "<kernel> <shape>", for --tools-timing's comparison of trees."""
+    if keep is not None:
+        keep[f"{kernel} {shape}"] = (tuple(o.cpu() for o in out) if isinstance(out, tuple)
+                                     else out.cpu())
+
+
+def tools_kernel_phase(torch, timer, rng, keep=None):
     """The tools' kernels against their plain versions at the tools' shapes:
     Q (w4a8_swar_matmul's positive part) at the 8B projections and lm head,
     1 and 8 rows, kb 4 and 8, its bits equal at every block_n; T (X2) at the
     same shapes, kb 8 and 16; R on a 2048 x 14336 layer at two blocks,
     exact, every byte staged; S on [8, 128], exact. And rows_mm (the exact
     engines' min term, the MoE router) at the decode step's shapes: its
-    16-row blocks against one plain product, host ms per call."""
+    16-row blocks against one plain product, host ms per call. Each output
+    goes into `keep` (_keep)."""
     from blama_tpu_torch.ops import probes
     from blama_tpu_torch.ops import quant_matmul as qm
 
@@ -1059,6 +1071,7 @@ def tools_kernel_phase(torch, timer, rng):
                             raise AssertionError(f"kernel {kind} {label} M={M} kb={kb}: "
                                                  f"block_n={bn} moved a bit")
                     nbytes += x.numel() * x.element_size() + M * N * 4
+                    _keep(keep, name, f"{label} K={K} N={N} M={M} kb={kb}", out)
                     rows.append(dict(
                         kernel=name, shape=f"{label} K={K} N={N} M={M} kb={kb}",
                         max_abs_err=err, plain_ms=timer(plain, reps=3, warm=1),
@@ -1080,6 +1093,7 @@ def tools_kernel_phase(torch, timer, rng):
         if not torch.equal(tot, staged):
             raise AssertionError(f"kernel R ({bk}, {bn}): a byte of a block was not staged")
         nbytes = (R // bk * bk) * nn + N * 4
+        _keep(keep, "stream_rows", f"{R}x{N} bk={bk} bn={bn}", (out, tot))
         rows.append(dict(
             kernel="stream_rows", shape=f"{R}x{N} bk={bk} bn={bn} CTAs={(R // bk) * (N // bn)}",
             max_abs_err=0.0,
@@ -1092,6 +1106,7 @@ def tools_kernel_phase(torch, timer, rng):
     x = torch.randn((8, 128), generator=gen, device="cuda")
     if not torch.equal(probes.add_one(x), probes.add_one_plain(x)):
         raise AssertionError("kernel S differs from x + 1")
+    _keep(keep, "add_one", "x [8, 128] f32", probes.add_one(x))
     rows.append(dict(kernel="add_one", shape="x [8, 128] f32", max_abs_err=0.0,
                      plain_ms=timer(lambda: probes.add_one_plain(x), reps=3, warm=1),
                      **_graph_row(timer, lambda: probes.add_one(x), lambda: x + 1),
@@ -1100,14 +1115,20 @@ def tools_kernel_phase(torch, timer, rng):
     return rows
 
 
-def ubench_kernel_phase(torch, timer):
+def ubench_kernel_phase(torch, timer, keep=None):
     """ubench_q4k's kernels against their plain versions at the 8B
     projections and lm head, 1 and 8 rows (f32 x, as the tool's): U at kb 8
     (the reference's v1 default) and 4, V at kb 4 (v2) and 8 (v3) on both
-    code layouts, the two loaders bit-equal, block_n moving no bit."""
+    code layouts, the two loaders bit-equal, block_n moving no bit. Beside
+    the bf16 library call over the dequantized weights, U's rows carry the
+    one call that computes U's function, f32 `torch.matmul` over the f32
+    weights (codes times scales, TF32 off): `library_f32_ms`. Each output
+    goes into `keep` (_keep)."""
     from blama_tpu_torch.ops import quant_matmul as qm
     from blama_tpu_torch.tools.ubench_q4k import pack_pairs
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("U's f32 yardstick needs TF32 off")
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
     for label, (K, N) in SHAPES.items():
@@ -1118,12 +1139,14 @@ def ubench_kernel_phase(torch, timer):
         sb = sc.to(torch.bfloat16)
         wb = (codes.float().reshape(N, K // 32, 32) * sc[..., None]
               - mn[..., None]).reshape(N, K).to(torch.bfloat16)
+        wf = (codes.float().reshape(N, K // 32, 32) * sc[..., None]).reshape(N, K)
         x8 = torch.randn((8, K), generator=gen, device="cuda")
         for M in (1, 8):
             x = x8[8 - M:].contiguous()
             xb = x.to(torch.bfloat16)
             lib = _graph_row(timer, lambda: torch.matmul(xb, wb.t()), None)
             lib = dict(library_ms=lib["kernel_ms"], library_event_ms=lib["event_ms"])
+            lib_f32 = timer.graph(lambda: torch.matmul(x, wf.t()), flush=True)
             pxq = qm.quant_acts(x)[0]
             for kb in (8, 4):
                 out = qm.twodot_launch(x, paired, sc, qm.SLAB_BLOCK_N, kb)
@@ -1134,9 +1157,10 @@ def ubench_kernel_phase(torch, timer):
                         raise AssertionError(f"kernel U {label} M={M} kb={kb}: block_n={bn} "
                                              "moved a bit")
                 nbytes = K * N // 2 + 4 * (K // 32) * N + 4 * M * K + 4 * M * N
+                _keep(keep, "q4k_twodot_matmul", f"{label} K={K} N={N} M={M} kb={kb}", out)
                 rows.append(dict(
                     kernel="q4k_twodot_matmul", shape=f"{label} K={K} N={N} M={M} kb={kb}",
-                    max_abs_err=err,
+                    max_abs_err=err, library_f32_ms=lib_f32,
                     **_graph_row(timer, lambda kb=kb: qm.twodot_launch(x, paired, sc,
                                                                        qm.SLAB_BLOCK_N, kb),
                                  None),
@@ -1161,6 +1185,7 @@ def ubench_kernel_phase(torch, timer):
                             raise AssertionError(f"kernel V {name} {label} M={M} kb={kb}: "
                                                  f"block_n={bn} moved a bit")
                     outs[packed] = out
+                    _keep(keep, name, f"{label} K={K} N={N} M={M} kb={kb}", out)
                     nbytes = ((K * N // 2 if packed else K * N) + 2 * (K // 32) * N
                               + 4 * M * K + 4 * M * N)
                     rows.append(dict(
@@ -1175,7 +1200,7 @@ def ubench_kernel_phase(torch, timer):
                 if not torch.equal(outs[False], outs[True]):
                     raise AssertionError(f"kernel V {label} M={M} kb={kb}: the int8 and the "
                                          "tile-paired loaders differ")
-        del codes, paired, i8, wb
+        del codes, paired, i8, wb, wf
         torch.cuda.empty_cache()
     return rows
 
@@ -1185,9 +1210,10 @@ def ubench_kernel_phase(torch, timer):
 PROBE_SHAPES = ((256, 512), (2048, 14336))
 
 
-def probes_kernel_phase(torch, timer):
+def probes_kernel_phase(torch, timer, keep=None):
     """Kernels W and X at PROBE_SHAPES and Y at its twelve shapes, each
-    exactly equal to its plain version, with the reference tools' inputs."""
+    exactly equal to its plain version, with the reference tools' inputs.
+    Each output goes into `keep` (_keep)."""
     import numpy as np
 
     from blama_tpu_torch.ops import probes
@@ -1202,6 +1228,7 @@ def probes_kernel_phase(torch, timer):
             same = torch.equal(out, plain)
         if not same:
             raise AssertionError(f"{name} {shape}: differs from its plain version")
+        _keep(keep, name, shape, out)
         lib = dict(library_ms=None)
         if library:
             try:
@@ -2251,6 +2278,49 @@ def matmul_timing_main(root: str) -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"matmul_timing-{root.name}.json").write_text(json.dumps(
+        dict(nvidia_smi=smi, tree=str(root), build_s=build_s, rows=rows, equal_to=equal_to),
+        indent=1))
+    return 0
+
+
+def tools_timing_main(root: str) -> int:
+    """`python3 chip_smoke.py --tools-timing ROOT`: the tools' kernels Q-Y of
+    the tree at ROOT (this tree: `.`) through tools_kernel_phase,
+    ubench_kernel_phase and probes_kernel_phase (the kernel phase's shapes,
+    inputs from fixed seeds, each output held equal to its plain version,
+    kernel and library graph-timed with the L2 flushed; U beside the f32
+    `torch.matmul` that computes its function), results written to
+    chiprun_out/tools_timing-<name of ROOT>.json; the outputs are kept in
+    build/tools_outputs/<name>.pt beside this script, and held with
+    torch.equal against every other tree's kept there (run the trees in one
+    call: parent, change, change, parent)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from blama_tpu_torch.ops import kernels, probes
+
+    if not Path(probes.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {probes.__file__}, not the tree at {root}")
+    smi = nvidia_smi()
+    log(smi)
+    build_s = kernels.build_all()
+    log(f"kernels of {root} built in {build_s:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs = {}
+    with torch.no_grad():
+        timer = Timer(torch)
+        rows = tools_kernel_phase(torch, timer, np.random.default_rng(5), outs)
+        rows += ubench_kernel_phase(torch, timer, outs)
+        rows += probes_kernel_phase(torch, timer, outs)
+    equal_to = _equal_to_kept(torch, outs, ROOT / "build" / "tools_outputs", root.name)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"tools_timing-{root.name}.json").write_text(json.dumps(
         dict(nvidia_smi=smi, tree=str(root), build_s=build_s, rows=rows, equal_to=equal_to),
         indent=1))
     return 0
@@ -4113,4 +4183,6 @@ if __name__ == "__main__":
         sys.exit(decode_timing_main(sys.argv[2] if len(sys.argv) > 2 else str(ROOT)))
     if sys.argv[1:2] == ["--matmul-timing"]:
         sys.exit(matmul_timing_main(sys.argv[2] if len(sys.argv) > 2 else str(ROOT)))
+    if sys.argv[1:2] == ["--tools-timing"]:
+        sys.exit(tools_timing_main(sys.argv[2] if len(sys.argv) > 2 else str(ROOT)))
     sys.exit(main())

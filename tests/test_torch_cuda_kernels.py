@@ -778,11 +778,15 @@ def test_kernels_w_x_bytes(cuda, r, n):
 
 
 @pytest.mark.parametrize("m,k,n", [(32, 256, 512), (5, 100, 68), (1, 33, 260), (32, 2048, 1024),
-                                   (17, 64, 132)])
+                                   (17, 64, 132), (32, 2048, 14336), (16, 2048, 1024),
+                                   (17, 2048, 1024), (16, 161, 4), (32, 161, 4), (3, 257, 260)])
 def test_kernels_w_x_int8_dots(cuda, m, k, n):
-    """The three int8 dots equal their plain versions exactly (K not a whole
-    staging tile, N not a whole CTA, M below 32), and the swar dot equals
-    the int8 dot on the unpacked operand."""
+    """The three int8 dots equal their plain versions exactly: the 8B code
+    plane (2048 x 14336), M = 16 (the second m16 tile all zero rows) and M
+    = 17 and 32 (rows in both tiles), K = 32n + 1 (inside a k32 step and a
+    stage), N = 4 and N not a whole CTA;
+    the swar dot equals the int8 dot on the unpacked operand, and a second
+    launch gives the same bits."""
     from blama_tpu_torch.ops import probes
 
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
@@ -799,18 +803,33 @@ def test_kernels_w_x_int8_dots(cuda, m, k, n):
     assert torch.equal(probes.i8_dot(a, b), probes.i8_dot(a, b))
 
 
-def test_kernel_y(cuda):
+@pytest.mark.parametrize("where", ["fresh", "reused", "unaligned"])
+def test_kernel_y(cuda, where):
     """Every probe of kernel Y equals its plain version exactly on the
-    probe's input (random normal, ones for the scratch store)."""
-    from blama_tpu_torch.ops import probes
+    probe's input (random normal, ones for the scratch store): through the
+    wrapper into a fresh output, and through the launch itself into a reused
+    output full of NaN (every element is written) and on input and output
+    that are not 16-byte aligned (single-float loads)."""
+    from blama_tpu_torch.ops import kernels, probes
     from blama_tpu_torch.tools.probe_casts import probe_input
 
-    for name, shape_in, shape_out, _ in probes.CASTS:
+    for probe, (name, shape_in, shape_out, _) in enumerate(probes.CASTS, start=1):
         x = torch.from_numpy(probe_input(name, shape_in)).to(cuda)
-        out = probes.cast(name, x)
-        assert tuple(out.shape) == shape_out
-        assert torch.equal(out, probes.cast_plain(name, x)), name
-        assert torch.equal(out.cpu(), probes.cast_plain(name, x.cpu())), name
+        if where == "fresh":
+            got = probes.cast(name, x)
+        else:
+            n_out, pad = int(np.prod(shape_out)), int(where == "unaligned")
+            if pad:
+                xb = torch.empty(x.numel() + 1, device=cuda)
+                xb[1:] = x.reshape(-1)
+                x = xb[1:].view(shape_in)
+            got = torch.full((n_out + pad,), float("nan"), device=cuda)[pad:].view(shape_out)
+            rc = kernels.lib("probes").casts_launch(probe, x.data_ptr(), got.data_ptr(),
+                                                    kernels.stream_ptr(x.device))
+            kernels.check(rc, f"casts_{name}")
+        assert tuple(got.shape) == shape_out
+        assert torch.equal(got, probes.cast_plain(name, x)), name
+        assert torch.equal(got.cpu(), probes.cast_plain(name, x.cpu())), name
 
 
 @pytest.mark.parametrize("dtype", ["q4k_fused", "q4k_a8"])
