@@ -6,15 +6,23 @@
 // out[0, n] = sum over the blocks of column n of the block's first 8 rows
 // (fewer when bk < 8), as exact f32 integers. The TPU kernel's BlockSpec DMA
 // brings the whole block into VMEM and sums 8 rows of it, so it measures the
-// memory pipeline alone. Here one CTA owns one block and brings every byte of
-// it into shared memory with cp.async (16 bytes a thread, neighbouring threads
-// on neighbouring addresses), in pieces of at most R_PIECE bytes, two pieces
-// in flight, and sums the first 8 rows from there. Bound on this card: bytes
-// (each block's bk * bn bytes, at most 8 adds a column). The sums are integers
-// below 2^24, exact in f32 in any order, so the CTAs of a column add theirs to
-// the output with atomicAdd (zeroed by the caller) and the bits do not depend
-// on the order. With a `total` output the CTA also sums every byte it staged,
-// per column: the proof that every byte reached the SM.
+// memory pipeline alone. Here one CTA owns one block and every byte of it
+// lands in shared memory. Bound on this card: bytes (each block's bk * bn
+// bytes, at most 8 adds a column). With at most a CTA an SM (the
+// reference's blocks give 6) what bounds a block is the bytes its SM keeps
+// in flight: one producer thread issues a TMA box a slot (rows of bn
+// contiguous bytes) into a ring of slots of whole rows (probes.stream_plan:
+// 32 KB slots, up to 8, as many as fit: six at the reference's blocks),
+// each with a "full" and an "empty" mbarrier; the consumer warps wait for
+// the pieces that hold the first 8 rows, sum them and release the slots,
+// and the producer retires the other pieces, with no CTA barrier in the
+// loop. A grid with more CTAs than SMs is bound by the card's memory, where
+// every thread's 16-byte cp.async, two pieces in flight, reaches more of it
+// (stream_rows_cp_kernel). The sums are integers below 2^24, exact in f32
+// in any order, so the CTAs of a column add theirs to the output with
+// atomicAdd (zeroed by the caller) and the bits do not depend on the order.
+// With a `total` output the CTA also sums every byte it staged, per column:
+// the proof that every byte reached the SM.
 //
 // Kernel S (add_one_launch) replaces
 //   blama_tpu/tools/probe_overhead.py:_tiny_kernel:
@@ -91,11 +99,17 @@
 
 #include <type_traits>
 
+#include "tma_ring.cuh"
+
 namespace {
 
-constexpr int R_THREADS = 256;
-constexpr int R_PIECE = 32 * 1024;   // bytes of one staged piece
-constexpr int R_MAX_BN = 16384;      // widest block a CTA takes
+constexpr int R_WARPS = 8;         // consumer warps of a CTA, beside one producer warp
+constexpr int R_THREADS = 256;     // threads of the cp.async form's CTA
+constexpr int R_PIECE = 32 * 1024; // bytes of one of its pieces
+constexpr int R_MAX_BN = 16384;    // widest block a CTA takes
+constexpr int R_MAX_SLOTS = 8;     // slots of the ring at most
+constexpr int R_BAR_BYTES = 128;   // the ring's barriers, before the sums
+constexpr int R_SMEM_MAX = 232448; // an H100's shared memory for one CTA
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -111,9 +125,103 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+__host__ __device__ constexpr size_t r_round128(size_t b) { return (b + 127) / 128 * 128; }
+
+// One CTA a [bk, bn] block: the producer thread brings the block into a ring
+// of `slots` slots of `rps` rows, one box of the map a slot (the block's
+// rows past bk come as zeros and are not summed). The consumer warps take
+// the pieces that hold any of the first 8 rows (all of them with `total`):
+// wait for each, add its rows into their columns' sums in shared memory (a
+// thread owns 4-column words, so no barrier) and release the slot. The
+// producer retires every other piece itself: it waits for the piece to land
+// before it reuses the slot, and for the last ones before it exits, so
+// every byte of the block lands in shared memory before the CTA ends while
+// no consumer waits on a piece it does not read.
+__global__ void __launch_bounds__((R_WARPS + 1) * 32)
+stream_rows_kernel(const __grid_constant__ CUtensorMap map, int bk, int bn, int inner, int rps,
+                   int slots, float* __restrict__ out, float* __restrict__ total) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + slots;
+  float* s_acc = reinterpret_cast<float*>(smem + R_BAR_BYTES);  // [bn]: the first 8 rows
+  float* s_tot = s_acc + bn;                                     // [bn]: every row (total)
+  uint8_t* ring = smem + R_BAR_BYTES + r_round128((size_t)(total ? 2 : 1) * bn * sizeof(float));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int npieces = (bk + rps - 1) / rps;
+  const int read = total ? npieces : min(npieces, (8 + rps - 1) / rps);  // pieces consumed
+  const size_t slot = r_round128((size_t)rps * bn);
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < slots; ++d) {
+      tma::bar_init(full + d, 1);
+      tma::bar_init(empty + d, R_WARPS);
+    }
+    tma::fence_init();
+  }
+  __syncthreads();
+
+  if (warp == R_WARPS) {  // the producer
+    if (lane == 0) {
+      for (int p = 0; p < npieces; ++p) {
+        const int d = p % slots, q = p - slots;  // q: the slot's last piece
+        if (q >= 0) tma::wait((q < read ? empty : full) + d, (q / slots) & 1);
+        tma::arrive_expect(full + d, (uint32_t)rps * bn);
+        tma::copy4d(ring + d * slot, &map, 0, blockIdx.x * (bn / inner), p * rps, blockIdx.y,
+                    full + d);
+      }
+      for (int q = max(read, npieces - slots); q < npieces; ++q)
+        tma::wait(full + q % slots, (q / slots) & 1);
+    }
+    return;
+  }
+
+  const int nw = bn / 4;  // 4-column words of a row
+  float4* acc = reinterpret_cast<float4*>(s_acc);
+  float4* tot = reinterpret_cast<float4*>(s_tot);
+  for (int c = threadIdx.x; c < nw; c += R_WARPS * 32) {
+    acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (total) tot[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  for (int p = 0; p < read; ++p) {
+    const int d = p % slots, r0 = p * rps, rows = min(rps, bk - r0);
+    const int r8 = min(rows, 8 - r0);      // rows of the first 8 in this piece
+    const int nr = total ? rows : r8;      // rows read here
+    tma::wait(full + d, (p / slots) & 1);
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(ring + d * slot);
+    for (int c = threadIdx.x; c < nw; c += R_WARPS * 32) {
+      float4 a = acc[c], t = total ? tot[c] : a;
+      for (int r = 0; r < nr; ++r) {
+        const uint32_t w = src[(size_t)r * nw + c];
+        const float b0 = (float)(w & 0xFFu), b1 = (float)((w >> 8) & 0xFFu);
+        const float b2 = (float)((w >> 16) & 0xFFu), b3 = (float)(w >> 24);
+        if (r < r8) a.x += b0, a.y += b1, a.z += b2, a.w += b3;
+        t.x += b0, t.y += b1, t.z += b2, t.w += b3;
+      }
+      acc[c] = a;
+      if (total) tot[c] = t;
+    }
+    __syncwarp();
+    if (lane == 0) tma::arrive(empty + d);
+  }
+  const size_t n0 = (size_t)blockIdx.x * bn;
+  for (int c = threadIdx.x; c < nw; c += R_WARPS * 32) {  // the thread's own words
+    const float4 a = acc[c];
+    float* o = out + n0 + 4 * c;
+    atomicAdd(o, a.x), atomicAdd(o + 1, a.y), atomicAdd(o + 2, a.z), atomicAdd(o + 3, a.w);
+    if (total) {
+      const float4 t = tot[c];
+      float* u = total + n0 + 4 * c;
+      atomicAdd(u, t.x), atomicAdd(u + 1, t.y), atomicAdd(u + 2, t.z), atomicAdd(u + 3, t.w);
+    }
+  }
+}
+
+// A grid with more CTAs than SMs: every thread's 16-byte cp.async, two
+// pieces of at most R_PIECE bytes in flight, the CTA synchronised on each.
+// There the card's memory is the bound, and this fill reaches more of it
+// than the TMA ring (PERF.md, PR 17).
 __global__ void __launch_bounds__(R_THREADS)
-stream_rows_kernel(const uint8_t* __restrict__ codes, int N, int bk, int bn,
-                   float* __restrict__ out, float* __restrict__ total) {
+stream_rows_cp_kernel(const uint8_t* __restrict__ codes, int N, int bk, int bn,
+                      float* __restrict__ out, float* __restrict__ total) {
   extern __shared__ __align__(16) uint8_t smem[];
   float* s_acc = reinterpret_cast<float*>(smem);   // [bn]: the first 8 rows
   float* s_tot = s_acc + bn;                       // [bn]: every row (total)
@@ -557,22 +665,50 @@ extern "C" {
 
 // Kernel R: codes [R, N] uint8 (16-byte aligned rows: N % 16 == 0), blocks of
 // [bk, bn] (bn % 16 == 0, bn <= 16384), grid (N / bn, R / bk); out [N] f32 and
-// total [N] f32 (or null) zeroed by the caller.
-int stream_rows_launch(const void* codes, int R, int N, int bk, int bn, void* out,
-                       void* total, void* stream) {
+// total [N] f32 (or null) zeroed by the caller. The fill (probes.stream_plan):
+// slots = 0, every thread's cp.async (stream_rows_cp_kernel); else the TMA
+// ring of `slots` slots of `rps` rows (at most 256).
+int stream_rows_launch(const void* codes, int R, int N, int bk, int bn, int rps, int slots,
+                       void* out, void* total, void* stream) {
   if (bk < 1 || bn < 16 || bn % 16 || bn > R_MAX_BN || N % 16 || R / bk < 1 || N / bn < 1 ||
-      R / bk > 65535)
+      R / bk > 65535 || slots < 0 || slots > R_MAX_SLOTS ||
+      (slots && (rps < 1 || rps > bk || rps > 256)))
     return (int)cudaErrorInvalidValue;
-  const int rpp = R_PIECE / bn;                 // as the kernel computes it
-  const size_t smem = (size_t)(total ? 2 : 1) * bn * sizeof(float) + 2 * (size_t)rpp * bn;
+  const dim3 grid(N / bn, R / bk);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  float* o = static_cast<float*>(out);
+  float* t = static_cast<float*>(total);
+  if (!slots) {
+    const size_t smem =
+        (size_t)(total ? 2 : 1) * bn * sizeof(float) + 2 * (size_t)(R_PIECE / bn) * bn;
+    cudaError_t err = cudaFuncSetAttribute(stream_rows_cp_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    stream_rows_cp_kernel<<<grid, R_THREADS, smem, st>>>(c, N, bk, bn, o, t);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = R_BAR_BYTES + r_round128((size_t)(total ? 2 : 1) * bn * sizeof(float)) +
+                      (size_t)slots * r_round128((size_t)rps * bn);
+  if (smem > (size_t)R_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  // codes as [R / bk][bk][N / inner][inner]: a box is `rps` rows of one
+  // block's bn columns, inner the widest multiple of 16 up to 256 dividing bn
+  int inner = 256;
+  while (bn % inner) inner -= 16;
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {(cuuint64_t)inner, (cuuint64_t)(N / inner), (cuuint64_t)bk,
+                              (cuuint64_t)(R / bk)};
+  const cuuint64_t strides[3] = {(cuuint64_t)inner, (cuuint64_t)N, (cuuint64_t)bk * N};
+  const cuuint32_t box[4] = {(cuuint32_t)inner, (cuuint32_t)(bn / inner), (cuuint32_t)rps, 1};
+  const int rc = tma::encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, codes, dims, strides, box);
+  if (rc) return rc;
   cudaError_t err = cudaFuncSetAttribute(stream_rows_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / bn, R / bk);
-  stream_rows_kernel<<<grid, R_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), N, bk, bn, static_cast<float*>(out),
-      static_cast<float*>(total));
+  stream_rows_kernel<<<grid, (R_WARPS + 1) * 32, smem, st>>>(map, bk, bn, inner, rps, slots, o,
+                                                              t);
   return (int)cudaGetLastError();
 }
 

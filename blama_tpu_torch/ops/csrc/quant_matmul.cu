@@ -198,12 +198,7 @@
 // reaches them); both read ubench's tile-paired codes, uint8 [N, K/2] with
 // the 128 bytes of 256-element tile t at 128t, byte j = element 256t+j (low
 // nibble) and element 256t+128+j (high): the reference's pack_pairs, a
-// column contiguous along K:
-//   U (q4k_twodot_launch) replaces blama_tpu/tools/ubench_q4k.py:_v1_kernel:
-//     f32 x times f32 code*scale (scales [N, K/32] f32), the low and the
-//     high halves of each tile dotted apart and added per K-block of kb
-//     tiles, the blocks added in K order; the min term is outside, as in
-//     the reference;
+// column contiguous along K. U, the f32 two-dot, is in twodot.cu:
 //   V (w4a8_plane_launch) replaces ubench_q4k.py:_v2_kernel (int8 codes
 //     [N, K]) and :_v3_kernel (tile-paired codes unpacked in the kernel):
 //     kernel A's quantizer, then per 32-group the int32 dot of the codes
@@ -216,7 +211,7 @@
 // it sets only how much of the card is busy and moves no bit. Bound: bytes,
 // as A and I. Each warp takes one column with A's (Q, V) or I's (T) lanes; a
 // slab ends in a fixed xor butterfly over the lanes of each half, then lo +
-// hi (V: over all lanes). U's lane takes one 4-byte word of each tile.
+// hi (V: over all lanes).
 //
 // Determinism: every sum runs in a fixed order (per-lane or per-thread K
 // order, then a fixed xor-butterfly across the warp); no atomics, so a replay
@@ -1996,110 +1991,6 @@ int launch_slab_w4a8(const void* x, int x_bf16, const void* codes, const void* s
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// kernel U: ubench_q4k's v1, the f32 two-dot over tile-paired codes
-// ---------------------------------------------------------------------------
-constexpr int U_KC = 2048;  // K elements of x staged per chunk (whole K-blocks)
-
-// Per output column (one warp), per K-block of kb tiles: lane l takes byte
-// word l of each tile (its bytes 4l..4l+3: elements 256t+4l.. low, groups
-// 8t + l/8, and 256t+128+4l.. high, groups 8t+4 + l/8); lo += x * (code *
-// scale) over the low elements, hi over the high ones; at the block's end a
-// fixed xor butterfly sums each over the warp, and the block's lo + hi is
-// added to the column's sum in K order. x is staged per chunk of whole
-// blocks in dynamic shared memory ([M, kc] f32); a lane's float4 of x lies
-// beside its neighbours', so the reads are conflict-free.
-template <int MT>
-__global__ void __launch_bounds__(S_WARPS * 32)
-q4k_twodot_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
-                  const float* __restrict__ scales, float* __restrict__ out, int M, int K,
-                  int N, int bn, int kb) {
-  extern __shared__ __align__(16) float s_xf[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  const int G = K / GROUP;
-  const int blk = kb * QK_K;                      // elements of a K-block
-  const int kc_max = (U_KC / blk) * blk;          // whole blocks per chunk
-  for (int cg = 0; cg < bn; cg += nw) {
-    const bool live = cg + warp < bn;             // uniform per warp
-    const int n = blockIdx.x * bn + cg + warp;
-    const uint32_t* wrow = reinterpret_cast<const uint32_t*>(codes + (size_t)n * (K / 2));
-    const float* srow = scales + (size_t)n * G;
-    float run[MT];
-#pragma unroll
-    for (int r = 0; r < MT; ++r) run[r] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += kc_max) {
-      const int kc = min(kc_max, K - k0);
-      __syncthreads();
-      for (int i = threadIdx.x; i < M * (kc / 4); i += blockDim.x) {
-        const int r = i / (kc / 4), c = i % (kc / 4);
-        reinterpret_cast<float4*>(s_xf + (size_t)r * kc_max)[c] =
-            reinterpret_cast<const float4*>(x + (size_t)r * K + k0)[c];
-      }
-      __syncthreads();
-      if (!live) continue;
-      for (int b0 = 0; b0 < kc; b0 += blk) {      // blocks of the chunk, in K order
-        float lo[MT], hi[MT];
-#pragma unroll
-        for (int r = 0; r < MT; ++r) lo[r] = hi[r] = 0.0f;
-        for (int tl = b0 / QK_K; tl < (b0 + blk) / QK_K; ++tl) {
-          const int t = k0 / QK_K + tl;           // the tile's index in the row
-          const uint32_t w = __ldg(wrow + t * (QK_K / 8) + lane);
-          const float sl = __ldg(srow + t * 8 + (lane >> 3));
-          const float sh = __ldg(srow + t * 8 + 4 + (lane >> 3));
-          float wl[4], wh[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            wl[i] = (float)((w >> (8 * i)) & 0xFu) * sl;
-            wh[i] = (float)((w >> (8 * i + 4)) & 0xFu) * sh;
-          }
-#pragma unroll
-          for (int r = 0; r < MT; ++r) {
-            if (r < M) {
-              const float* xr = s_xf + (size_t)r * kc_max + tl * QK_K + 4 * lane;
-              const float4 xl = *reinterpret_cast<const float4*>(xr);
-              const float4 xh = *reinterpret_cast<const float4*>(xr + QK_K / 2);
-              lo[r] = fmaf(xl.x, wl[0], lo[r]);
-              lo[r] = fmaf(xl.y, wl[1], lo[r]);
-              lo[r] = fmaf(xl.z, wl[2], lo[r]);
-              lo[r] = fmaf(xl.w, wl[3], lo[r]);
-              hi[r] = fmaf(xh.x, wh[0], hi[r]);
-              hi[r] = fmaf(xh.y, wh[1], hi[r]);
-              hi[r] = fmaf(xh.z, wh[2], hi[r]);
-              hi[r] = fmaf(xh.w, wh[3], hi[r]);
-            }
-          }
-        }
-        const bool first = k0 == 0 && b0 == 0;
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const float p = slab_sum<0>(lo[r]) + slab_sum<0>(hi[r]);
-          run[r] = first ? p : run[r] + p;
-        }
-      }
-    }
-    if (live && lane == 0) {
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-        if (r < M) out[(size_t)r * N + n] = run[r];
-    }
-  }
-}
-
-template <int MT>
-int launch_twodot(const float* x, const uint8_t* codes, const float* scales, float* out,
-                  int M, int K, int N, int bn, int kb, cudaStream_t st) {
-  const int blk = kb * QK_K;
-  const size_t smem = (size_t)M * (U_KC / blk) * blk * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(q4k_twodot_kernel<MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  q4k_twodot_kernel<MT><<<N / bn, min(S_WARPS, bn) * 32, smem, st>>>(x, codes, scales, out,
-                                                                    M, K, N, bn, kb);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -2320,26 +2211,6 @@ int w4a8_plane_launch(const void* x, int x_bf16, const void* codes, int packed,
     return (int)cudaErrorInvalidValue;
   return launch_slab_w4a8(x, x_bf16, codes, scales, packed ? SLAB_V_PAIRED : SLAB_V_INT8, bn,
                           kb, xq, xs, sxm, out, M, K, N, stream);
-}
-
-// Kernel U: x [M, K] f32 (1 <= M <= 16, 16-byte aligned, K % (256*kb) == 0,
-// 1 <= kb <= 8); tile-paired codes uint8 [N, K/2], scales f32 [N, K/32]; each
-// CTA owns bn columns (N % bn == 0). out [M, N] f32 is the positive part
-// summed per K-block of kb tiles (the min term is the caller's).
-int q4k_twodot_launch(const void* x, const void* codes, const void* scales, int bn, int kb,
-                      void* out, int M, int K, int N, void* stream) {
-  if (M < 1 || M > 16 || bn < 1 || N % bn || kb < 1 || kb > 8 || K % (QK_K * kb))
-    return (int)cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const float* s = static_cast<const float*>(scales);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 1) return launch_twodot<1>(xf, c, s, o, M, K, N, bn, kb, st);
-  if (M <= 2) return launch_twodot<2>(xf, c, s, o, M, K, N, bn, kb, st);
-  if (M <= 4) return launch_twodot<4>(xf, c, s, o, M, K, N, bn, kb, st);
-  if (M <= 8) return launch_twodot<8>(xf, c, s, o, M, K, N, bn, kb, st);
-  return launch_twodot<16>(xf, c, s, o, M, K, N, bn, kb, st);
 }
 
 }  // extern "C"

@@ -55,9 +55,11 @@ SIGNATURES = {
         "w4a8_slab_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "w4a8k4_slab_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "w4a8_plane_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-        "q4k_twodot_launch": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
         "dequant_tile_shape": [_I, _P],
         "dequant_row_shape": [_I, _I, _I, _P],
+    },
+    "twodot": {
+        "q4k_twodot_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 14 + [_I] * 9 + [_F, _P],
@@ -65,7 +67,7 @@ SIGNATURES = {
         "prefill_attention_launch": [_P] * 18 + [_I] * 9 + [_F, _P],
     },
     "probes": {
-        "stream_rows_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
+        "stream_rows_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
         "add_one_launch": [_P, _P, _I, _P],
         "bytes_launch": [_I, _P, _P, _P, _I, _P],
         "int8_dot_launch": [_I, _P, _P, _P, _I, _I, _I, _P],

@@ -7,8 +7,10 @@ what bounds each on the card and what the design does about it:
      blama_tpu/tools/probe_bw.py): codes uint8 [R, N] in [bk, bn] blocks,
      grid (N // bn, R // bk); out [1, N] f32 is, per column, the sum over its
      blocks of each block's first 8 rows. One CTA brings every byte of its
-     block into shared memory (cp.async) and sums those rows there, as the TPU
-     kernel sums them in VMEM, so its time is the time to stream the blocks.
+     block into shared memory (a TMA ring, or every thread's cp.async where
+     the grid has more CTAs than SMs: stream_plan) and sums those rows
+     there, as the TPU kernel sums them in VMEM, so its time is the time to
+     stream the blocks.
      Columns past (N // bn)·bn are 0 (the TPU kernel leaves them unwritten).
   S  add_one (replaces the TPU kernel _tiny_kernel of
      blama_tpu/tools/probe_overhead.py): o = x + 1.0 on a small f32 array, one
@@ -38,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .quant_matmul import N_SMS, SMEM_MAX
 
 
 def stream_plain(codes: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
@@ -50,21 +53,67 @@ def stream_plain(codes: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
     return out
 
 
-def stream_launch(codes: torch.Tensor, bk: int, bn: int, total: bool = False):
+# kernel R's fill: where the grid has at most a CTA an SM, a TMA ring of
+# slots of whole rows, one box each (at most 256 rows), R_SLOT bytes or the
+# one row that is wider, as many (up to R_MAX_SLOTS) as fit beside the
+# column sums; where it has more, every thread's cp.async, two pieces of
+# R_PIECE bytes in flight (slots = 0)
+R_SLOT = 32 * 1024
+R_PIECE = 32 * 1024
+R_MAX_SLOTS = 8
+R_BAR_BYTES = 128       # the ring's barriers (probes.cu)
+
+
+def _round128(b: int) -> int:
+    return -(-b // 128) * 128
+
+
+def stream_smem(bn: int, rps: int, slots: int, total: bool = False) -> int:
+    """Dynamic shared memory of kernel R (probes.cu stream_rows_launch): the
+    column sums (two rows of them with `total`), then two pieces of rps
+    rows (slots = 0) or the barriers and `slots` slots, each part on 128
+    bytes."""
+    sums = (2 if total else 1) * bn * 4
+    if not slots:
+        return sums + 2 * rps * bn
+    return R_BAR_BYTES + _round128(sums) + slots * _round128(rps * bn)
+
+
+def stream_plan(R: int, N: int, bk: int, bn: int, total: bool = False) -> tuple[int, int]:
+    """(rows a slot or piece, slots) of kernel R for [bk, bn] blocks of an
+    [R, N] array. A grid of at most N_SMS CTAs streams each block from one
+    SM, bound by the bytes that SM keeps in flight: a TMA ring, a slot
+    R_SLOT bytes of whole rows (one row where bn is wider; at most bk, at
+    most 256, a box's limit), as many slots as the block has pieces, up to
+    R_MAX_SLOTS, that fit (six at the reference's 1024 x 4096 blocks).
+    A larger grid is bound by the card's memory, where every thread's
+    cp.async reaches more of it (PERF.md, PR 17): slots 0, pieces of
+    R_PIECE bytes."""
+    if (R // bk) * (N // bn) > N_SMS:
+        return max(1, R_PIECE // bn), 0
+    rps = min(bk, 256, max(1, R_SLOT // bn))
+    pieces = -(-bk // rps)
+    room = SMEM_MAX - stream_smem(bn, 0, 1, total)
+    return rps, max(1, min(R_MAX_SLOTS, pieces, room // _round128(rps * bn)))
+
+
+def stream_launch(codes: torch.Tensor, bk: int, bn: int, total: bool = False, plan=None):
     """Launch kernel R on a CUDA tensor. Returns (out [1, N] f32, and with
     total=True the per-column sum of every byte the CTAs staged, [1, N] f32,
-    else None)."""
+    else None). `plan` (rows, slots) forces a fill in place of stream_plan's:
+    for tests and measuring; it moves no bit."""
     R, N = codes.shape
     if codes.dtype != torch.uint8 or not codes.is_contiguous() or codes.data_ptr() % 16:
         raise ValueError("codes must be a contiguous, 16-byte aligned uint8 [R, N] array")
     if bk < 1 or bn < 16 or bn % 16 or bn > 16384 or N % 16 or R // bk < 1 or N // bn < 1:
         raise ValueError(f"kernel R takes bn % 16 == 0, 16 <= bn <= 16384, N % 16 == 0 "
                          f"and at least one block; got R={R}, N={N}, bk={bk}, bn={bn}")
+    rps, slots = stream_plan(R, N, bk, bn, total) if plan is None else plan
     out = torch.zeros((1, N), dtype=torch.float32, device=codes.device)
     tot = torch.zeros((1, N), dtype=torch.float32, device=codes.device) if total else None
     rc = kernels.lib("probes").stream_rows_launch(
-        codes.data_ptr(), R, N, bk, bn, out.data_ptr(), tot.data_ptr() if total else None,
-        kernels.stream_ptr(codes.device))
+        codes.data_ptr(), R, N, bk, bn, rps, slots, out.data_ptr(),
+        tot.data_ptr() if total else None, kernels.stream_ptr(codes.device))
     kernels.check(rc, "stream_rows")
     kernels.count("stream_rows")
     return out, tot

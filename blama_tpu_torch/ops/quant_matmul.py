@@ -56,10 +56,11 @@ tp_blocks mode (qmm_blocked, qmm_nblocked) adds L (K's function per K-block,
 or pinned at one block) and M (kernel A per K-block, one launch). The tools'
 W4A8 variants, which no engine reaches, are Q (w4a8_swar_matmul: A's terms
 summed per K-slab, the min term after it) and T (x2_matmul: I's terms in the
-same grouping), and ubench_q4k's U (q4k_matmul_v1: an f32 two-dot) and V
-(w4a8_plane_matmul / w4a8_packed_matmul: Q's body on two other code
-layouts). On a CPU tensor each wrapper runs its plain PyTorch version below;
-on a CUDA tensor it launches the kernel or raises.
+same grouping), and ubench_q4k's U (q4k_matmul_v1: an f32 two-dot, in
+ops/csrc/twodot.cu, its CTA from twodot_plan) and V (w4a8_plane_matmul /
+w4a8_packed_matmul: Q's body on two other code layouts). On a CPU tensor
+each wrapper runs its plain PyTorch version below; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -790,19 +791,69 @@ def twodot_pos_plain(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+# kernel U's CTA (twodot.cu q4k_twodot_kernel): U_PAIRS pairs of consumer
+# warps (the low and the high chains of C columns) beside one producer warp
+# that keeps a ring of D slots full, S tiles of x's rows and of the CTA's
+# codes and scales a slot
+U_PAIRS = 8
+U_MAX_SLOTS = 8
+U_RING = 128 + 2 * U_PAIRS * 64 * 4   # the ring's barriers and the pairs' block sums
+U_MIN_CTAS = 128     # the CTAs that make up (most of) a wave
+SMEM_SM = 233472     # an H100 SM's shared memory; each CTA holds 1 KB of it beside its own
+
+
+def _row_tile(M: int) -> int:
+    """The rows kernel U's instance holds (its template MT)."""
+    return next(mt for mt in (1, 2, 4, 8, 16) if M <= mt)
+
+
+def twodot_slot_bytes(mt: int, c: int, s: int) -> int:
+    """Bytes of one slot of U's ring (twodot.cu u_slot_bytes): S tiles of
+    x's mt rows (f32), then of the CTA's U_PAIRS * c columns their codes
+    (128 bytes a tile) and scales (8 f32 a tile)."""
+    return mt * s * QK_K * 4 + U_PAIRS * c * s * (QK_K // 2 + 8 * 4)
+
+
+def twodot_smem(M: int, plan: tuple[int, int, int]) -> int:
+    """Dynamic shared memory of kernel U under plan (C, S, D)."""
+    c, s, d = plan
+    return U_RING + d * twodot_slot_bytes(_row_tile(M), c, s)
+
+
+def twodot_plan(M: int, N: int, kb: int = 8) -> tuple[int, int, int]:
+    """Kernel U's plan (C columns a warp pair, S tiles a slot, D slots) for M
+    rows, N columns and K-blocks of kb tiles. C: 4 while those CTAs still
+    make up a wave (one float4 of x read from shared memory feeds 4
+    columns' FMAs), else 1 (wk/wv's 1024 columns: 128 CTAs). S: 4, 2 or 1,
+    the most that divides kb, so a K-block ends with a slot. D: as many
+    slots as fit, up to U_MAX_SLOTS, in two CTAs an SM at 1..2 rows and in
+    one beyond. Each column keeps the parent's chains whatever the plan, so
+    the plan moves no bit."""
+    mt = _row_tile(M)
+    c = 4 if -(-N // (U_PAIRS * 4)) >= U_MIN_CTAS else 1
+    s = next(t for t in (4, 2, 1) if kb % t == 0)
+    room = (SMEM_MAX if mt > 2 else SMEM_SM // 2 - 1024) - U_RING
+    return c, s, min(U_MAX_SLOTS, room // twodot_slot_bytes(mt, c, s))
+
+
 def twodot_launch(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
-                  block_n: int = SLAB_BLOCK_N, kb: int = 8) -> torch.Tensor:
-    """Launch kernel U on CUDA tensors → the positive part [M, N] f32."""
+                  block_n: int = SLAB_BLOCK_N, kb: int = 8, plan=None) -> torch.Tensor:
+    """Launch kernel U on CUDA tensors → the positive part [M, N] f32.
+    block_n is the reference's column tile, checked as the reference clamps
+    it; the CTA's columns come from twodot_plan (`plan`, a (C, S, D), forces
+    one: for tests and measuring; it moves no bit)."""
     N, K = codes.shape[0], x.shape[1]
     if x.dtype != torch.float32:
         raise TypeError(f"kernel U takes f32 activations, got {x.dtype}")
     M, K = _check_uv("U", x, ((codes, torch.uint8, (N, K // 2)),
                               (scales, torch.float32, (N, K // GROUP))), kb)
-    bn = _tile_clamp("U", K, N, block_n, kb)
+    _check_aligned(scales)
+    _tile_clamp("U", K, N, block_n, kb)
+    c, s, d = twodot_plan(M, N, kb) if plan is None else plan
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    rc = kernels.lib("quant_matmul").q4k_twodot_launch(
-        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), bn, kb, out.data_ptr(), M, K, N,
-        kernels.stream_ptr(x.device))
+    rc = kernels.lib("twodot").q4k_twodot_launch(
+        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), c, s, d, kb, out.data_ptr(), M, K,
+        N, kernels.stream_ptr(x.device))
     kernels.check(rc, "q4k_twodot_matmul")
     kernels.count("q4k_twodot_matmul")
     return out

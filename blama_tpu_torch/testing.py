@@ -592,3 +592,58 @@ def graphs_equal_eager(model, kv: str, prompt: list[int], n: int, ctx: int = 204
     if g_launches != e_launches:
         raise AssertionError(f"launches graphed {g_launches} != eager {e_launches}")
     return g_launches
+
+
+def fma_f32(a, b, c):
+    """fmaf on f32 tensors, rounded once as the card rounds it: a*b is exact
+    in f64, the f64 sum s rounds to nearest, and its error e (TwoSum) breaks
+    the one case where rounding s again to f32 differs from rounding the
+    exact a*b + c: s exactly halfway between two floats while e != 0.
+    Infinities and NaNs come out as fmaf gives them."""
+    import torch
+
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.float()
+    d = s - r.double()
+    nb = torch.nextafter(r, torch.where(d > 0, torch.inf, -torch.inf).float())
+    tie = torch.isfinite(s) & (d != 0) & ((r.double() + nb.double()) * 0.5 == s) & (e != 0)
+    return torch.where(tie & ((e > 0) == (d > 0)), nb, r)
+
+
+def twodot_lane_order(x, codes, scales, kb: int):
+    """Kernel U's positive part in the order of its lane chains, bit for bit:
+    lane l of a column takes byte word l of each 256-element tile (elements
+    4l..4l+3 of the low half and of the high half, scales 8t + l/8 and
+    8t + 4 + l/8), lo = fmaf(x, code * scale, lo) over the low elements, hi
+    over the high ones, from 0 at each K-block of kb tiles; at the block's
+    end each is summed over the 32 lanes by the xor butterfly (o = 1, 2, 4,
+    8, 16), and lo + hi goes into the column's sum in K order, the first
+    block assigned. x [M, K] f32, tile-paired codes u8 [N, K/2], scales f32
+    [N, K/32] → [M, N] f32, on x's device."""
+    import torch
+
+    M, K = x.shape
+    N, T = codes.shape[0], K // 256
+    c = codes.reshape(N, T, 32, 4)
+    lane = torch.arange(32, device=x.device)
+    sc = scales.float().reshape(N, T, 8)
+    wl = (c & 0x0F).float() * sc[:, :, lane // 8, None]
+    wh = (c >> 4).float() * sc[:, :, 4 + lane // 8, None]
+    xv = x.float().reshape(M, T, 2, 32, 4)
+    run = None
+    for b0 in range(0, T, kb):
+        lo = torch.zeros((M, N, 32), dtype=torch.float32, device=x.device)
+        hi = torch.zeros_like(lo)
+        for t in range(b0, b0 + kb):
+            for i in range(4):
+                lo = fma_f32(xv[:, None, t, 0, :, i], wl[None, :, t, :, i], lo)
+                hi = fma_f32(xv[:, None, t, 1, :, i], wh[None, :, t, :, i], hi)
+        for o in (1, 2, 4, 8, 16):
+            lo = lo + lo[..., lane ^ o]
+            hi = hi + hi[..., lane ^ o]
+        p = lo[..., 0] + hi[..., 0]
+        run = p if run is None else run + p
+    return run

@@ -3949,7 +3949,7 @@ KERNELS = {
                 "x [8, 128] f32"),
     # ubench_q4k's kernels at its default FFN shape, one row, the reference's
     # kb; the probes at a code plane of an 8B FFN weight, Y at its own shapes
-    "q4k_twodot_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+    "q4k_twodot_matmul": ("blama_tpu_torch/ops/csrc/twodot.cu",
                           "blama_tpu/tools/ubench_q4k.py:44", "gate/up K=4096 N=14336 M=1 kb=8"),
     "w4a8_plane_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
                           "blama_tpu/tools/ubench_q4k.py:111", "gate/up K=4096 N=14336 M=1 kb=4"),

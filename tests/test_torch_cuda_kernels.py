@@ -665,24 +665,35 @@ def test_kernel_t(cuda, m, n, k, dtype, kb):
         assert torch.equal(qm.x2_launch(x, w, bn, kb)[0], out), bn
 
 
+# and the ring's edges: more pieces than slots (the reference's 1024-row
+# blocks, 128 pieces), bk below 8 and of 1, bn 16 (256-row slots) and 16384
 @pytest.mark.parametrize("r,n,bk,bn", [(64, 256, 16, 128), (100, 1024, 7, 48),
                                        (33, 160, 3, 32), (2048, 14336, 256, 14336),
-                                       (512, 4096, 64, 16384 // 4)])
+                                       (512, 4096, 64, 16384 // 4),
+                                       (2048, 14336, 1024, 4096), (1024, 4096, 1024, 1024),
+                                       (40, 256, 5, 32), (24, 64, 1, 16), (8192, 32, 4096, 16),
+                                       (64, 16384, 16, 16384)])
 def test_kernel_r_reads_every_byte(cuda, r, n, bk, bn):
     """Kernel R: the first 8 rows of every block summed per column, exactly
     the plain version (columns past the grid 0), and every byte of every
     block staged: the per-column sum of what the CTAs brought on chip equals
-    the blocks' own."""
+    the blocks' own. Under the plan's fill and under each forced one (the
+    TMA ring of two slots, which comes round many times, and every thread's
+    cp.async), with and without the total."""
     from blama_tpu_torch.ops import probes
 
     g = torch.Generator(device=cuda).manual_seed(r)
     codes = torch.randint(0, 256, (r, n), generator=g, dtype=torch.uint8, device=cuda)
-    out, tot = probes.stream_launch(codes, bk, bn, total=True)
-    assert torch.equal(out, probes.stream_plain(codes, bk, bn))
+    ref = probes.stream_plain(codes, bk, bn)
     covered = codes[:r // bk * bk, :n // bn * bn].to(torch.int32).sum(0).float()
-    assert torch.equal(tot[0, :covered.shape[0]], covered)
-    assert not tot[0, covered.shape[0]:].any()
-    assert torch.equal(probes.stream(codes, bk, bn), out)
+    ring = (min(bk, 256, max(1, probes.R_SLOT // bn)), 2)
+    for plan in (None, ring, (max(1, probes.R_PIECE // bn), 0)):
+        out, tot = probes.stream_launch(codes, bk, bn, total=True, plan=plan)
+        assert torch.equal(out, ref), plan
+        assert torch.equal(tot[0, :covered.shape[0]], covered), plan
+        assert not tot[0, covered.shape[0]:].any()
+        assert torch.equal(probes.stream_launch(codes, bk, bn, plan=plan)[0], ref), plan
+    assert torch.equal(probes.stream(codes, bk, bn), ref)
 
 
 @pytest.mark.parametrize("shape", [(8, 128), (1000,), (3, 5)])
@@ -728,6 +739,67 @@ def test_kernel_u(cuda, m, n, blocks, kb):
     assert torch.equal(out[:1], qm.twodot_launch(x[:1].contiguous(), paired, scales, 16, kb))
     for bn in (1, 8, 64, 4096):
         assert torch.equal(qm.twodot_launch(x, paired, scales, bn, kb), out), bn
+
+
+@pytest.fixture(scope="module")
+def u_weights(cuda):
+    """Kernel U's operands at K = 14336 for each width of the lane-order test."""
+    from blama_tpu_torch.tools.ubench_q4k import pack_pairs
+
+    k, held = 14336, {}
+    for n in (1024, 4096, 1000):
+        codes, scales, _ = _ubench_weights(n, k, n, cuda)
+        held[n] = pack_pairs(codes), scales
+    return k, held
+
+
+# widths: a wave of CTAs at four columns a warp pair, wk/wv's one column a
+# pair, and a width that fills no CTA at either
+@pytest.mark.parametrize("n", [1024, 4096, 1000])
+@pytest.mark.parametrize("kb", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", range(1, 17))
+def test_kernel_u_keeps_the_lane_order(cuda, u_weights, m, kb, n):
+    """Kernel U at K = 14336 (56 tiles) equals its lane chains bit for bit
+    (testing.twodot_lane_order: lane l of a column takes word l of each
+    tile, each FMA rounded once, the xor butterfly, the blocks in K order);
+    a forced plan (either column count a pair, every slot size that
+    divides kb, a two-slot ring that comes round many times) moves no bit."""
+    from blama_tpu_torch import testing
+
+    k, held = u_weights
+    paired, scales = held[n]
+    x = _acts(m, k, torch.float32, cuda)
+    out = qm.twodot_launch(x, paired, scales, 8, kb)
+    assert torch.equal(out, testing.twodot_lane_order(x, paired, scales, kb))
+    for c in (1, 4):
+        for s in (t for t in (1, 2, 4) if kb % t == 0):
+            assert torch.equal(qm.twodot_launch(x, paired, scales, 8, kb, plan=(c, s, 2)),
+                               out), (c, s)
+
+
+@pytest.mark.parametrize("kb", [4, 8])
+def test_kernel_u_keeps_the_lane_order_at_extreme_scales(cuda, kb):
+    """Scales of 2^100 and 2^110, inf, NaN, subnormal and -0: U equals its
+    lane chains bit for bit (NaN where they are NaN)."""
+    from blama_tpu_torch import testing
+    from blama_tpu_torch.tools.ubench_q4k import pack_pairs
+
+    m, n, k = 3, 96, 2048
+    codes, scales, _ = _ubench_weights(n, k, kb, cuda)
+    scales[3, 5] = 2.0 ** 110
+    scales[17, 0] = float("inf")
+    scales[40, 9] = float("nan")
+    scales[41, 2:6] = 1e-40
+    scales[70, 1] = -0.0
+    scales[90] = 2.0 ** 100
+    paired = pack_pairs(codes)
+    x = _acts(m, k, torch.float32, cuda)
+    out = qm.twodot_launch(x, paired, scales, 8, kb)
+    ref = testing.twodot_lane_order(x, paired, scales, kb)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert torch.equal(out.nan_to_num(0.0, float("inf"), float("-inf")),
+                       ref.nan_to_num(0.0, float("inf"), float("-inf")))
+    assert out[:, 40].isnan().all() and not out[:, 17].isfinite().any()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
