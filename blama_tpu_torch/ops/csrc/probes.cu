@@ -26,9 +26,15 @@
 //
 // Kernel S (add_one_launch) replaces
 //   blama_tpu/tools/probe_overhead.py:_tiny_kernel:
-// o = x + 1.0f on a small f32 array (the probe's [8, 128]), one CTA: the
+// o = x + 1.0f on a small f32 array (the probe's [8, 128], one CTA): the
 // least work a launch can carry, so a chain of them measures the cost of a
-// launch (eager, or replayed from a CUDA graph).
+// launch (eager, or replayed from a CUDA graph). Bound on this card: one
+// round trip to memory (4 KB at the probe). Each thread issues all its
+// loads before its stores: one 16-byte vector where both pointers are
+// aligned, and the n % 4 tail as one scalar on the first threads (else one
+// scalar a thread), so the CTA waits on memory once; a grid-stride loop of
+// scalar loads waited once per trip (PERF.md §6, row 16b). The grid covers n, one
+// CTA up to 1024 elements.
 //
 // Kernels W and X (bytes_launch, int8_dot_launch) replace the SWAR and
 // Mosaic capability probes of blama_tpu/tools/probe_swar.py (W:
@@ -269,8 +275,27 @@ stream_rows_cp_kernel(const uint8_t* __restrict__ codes, int N, int bk, int bn,
   }
 }
 
-__global__ void add_one_kernel(const float* __restrict__ x, float* __restrict__ o, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = x[i] + 1.0f;
+constexpr int S_THREADS = 256;
+
+// VEC: thread i takes float4 i and, below n % 4, the tail's element i;
+// else element i
+template <bool VEC>
+__global__ void __launch_bounds__(S_THREADS)
+add_one_kernel(const float* __restrict__ x, float* __restrict__ o, int n) {
+  const int i = blockIdx.x * S_THREADS + threadIdx.x;
+  if constexpr (VEC) {
+    const int nv = n >> 2, t = (nv << 2) + i;
+    const bool body = i < nv, tail = t < n;
+    float4 v;
+    float w;
+    if (body) v = __ldg(reinterpret_cast<const float4*>(x) + i);
+    if (tail) w = __ldg(x + t);
+    if (body) reinterpret_cast<float4*>(o)[i] = make_float4(v.x + 1.0f, v.y + 1.0f,
+                                                            v.z + 1.0f, v.w + 1.0f);
+    if (tail) o[t] = w + 1.0f;
+  } else if (i < n) {
+    o[i] = __ldg(x + i) + 1.0f;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -712,10 +737,20 @@ int stream_rows_launch(const void* codes, int R, int N, int bk, int bn, int rps,
   return (int)cudaGetLastError();
 }
 
-// Kernel S: o[i] = x[i] + 1 for i < n, one CTA of 256 threads.
+// Kernel S: o[i] = x[i] + 1 for i < n (0 <= n <= 2^20), a float4 a thread
+// where x and o are 16-byte aligned, else a float a thread; one CTA at least.
 int add_one_launch(const void* x, void* o, int n, void* stream) {
-  add_one_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(o), n);
+  if (n < 0 || n > (1 << 20)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(o);
+  if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) & 15) == 0) {
+    const int items = max(max(n >> 2, n & 3), 1);
+    add_one_kernel<true><<<(items + S_THREADS - 1) / S_THREADS, S_THREADS, 0, st>>>(xf, of, n);
+  } else {
+    add_one_kernel<false><<<(max(n, 1) + S_THREADS - 1) / S_THREADS, S_THREADS, 0, st>>>(xf, of,
+                                                                                      n);
+  }
   return (int)cudaGetLastError();
 }
 

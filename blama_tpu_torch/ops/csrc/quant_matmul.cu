@@ -183,35 +183,19 @@
 // The caller combines the partials by a fixed halving tree. Bound: bytes at
 // the decode rows, f32 (L) operations at the prompt chunks, as for B and A.
 //
-// Kernels Q and T serve the tools (no engine reaches them):
-//   Q (w4a8_slab_launch) replaces
-//     blama_tpu/ops/pallas/quant_matmul.py:_a8s_kernel (w4a8_swar_matmul's
-//     positive part): kernel A's quantizer, then per output column the group
-//     terms dot*(d*sc)*xscale summed per slab of kb superblocks (the slab's
-//     low-nibble groups 0-3 of each superblock plus its high-nibble groups
-//     4-7), the slabs added in K order; the min term is an f32 product after
-//     it, as in the reference;
-//   T (w4a8k4_slab_launch) replaces tools/ab_a8k4.py:_x2_kernel: kernel I's
-//     group terms (native superblocks, the min term in each term) in the same
-//     slab grouping.
-// Kernels U and V serve blama_tpu/tools/ubench_q4k.py's variants (no engine
-// reaches them); both read ubench's tile-paired codes, uint8 [N, K/2] with
-// the 128 bytes of 256-element tile t at 128t, byte j = element 256t+j (low
-// nibble) and element 256t+128+j (high): the reference's pack_pairs, a
-// column contiguous along K. U, the f32 two-dot, is in twodot.cu:
-//   V (w4a8_plane_launch) replaces ubench_q4k.py:_v2_kernel (int8 codes
-//     [N, K]) and :_v3_kernel (tile-paired codes unpacked in the kernel):
-//     kernel A's quantizer, then per 32-group the int32 dot of the codes
-//     with the activation codes (the TPU's masked plane g of a tile is this
-//     dot for group g; no plane is materialised), each term dot * ws *
-//     xscale (bf16 ws), summed per slab of kb tiles, the slabs in K order;
-//     Q's body with a loader per layout, so both loaders give the same bits.
-// kb is a parameter of their numerics. The reference's column tile block_n is
-// the columns one CTA owns here (its warps walk them S_WARPS at a time), so
-// it sets only how much of the card is busy and moves no bit. Bound: bytes,
-// as A and I. Each warp takes one column with A's (Q, V) or I's (T) lanes; a
-// slab ends in a fixed xor butterfly over the lanes of each half, then lo +
-// hi (V: over all lanes).
+// Kernel T serves the tools (no engine reaches it):
+//   T (w4a8k4_slab_launch) replaces tools/ab_a8k4.py:_x2_kernel: kernel A's
+//     quantizer (quant_acts.cuh), then kernel I's group terms (native
+//     superblocks, the min term in each term) summed per slab of kb
+//     superblocks (the slab's low-nibble groups plus its high-nibble ones),
+//     the slabs added in K order. kb is a parameter of its numerics; the
+//     reference's column tile block_n is the columns one CTA owns here (its
+//     warps walk them S_WARPS at a time) and moves no bit. Bound: bytes, as
+//     I. Each warp takes one column with I's lanes; a slab ends in a fixed
+//     xor butterfly over the lanes of each half, then lo + hi.
+// The same grouping on A's layout (kernel Q) and ubench_q4k's two layouts
+// (kernel V) is in slab_gemv.cu, ubench's f32 two-dot (kernel U) in
+// twodot.cu.
 //
 // Determinism: every sum runs in a fixed order (per-lane or per-thread K
 // order, then a fixed xor-butterfly across the warp); no atomics, so a replay
@@ -223,6 +207,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_acts.cuh"
+
 namespace {
 
 constexpr int GROUP = 32;
@@ -230,38 +216,7 @@ constexpr int GROUP = 32;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// ---------------------------------------------------------------------------
-// the tools' W4A8 kernels (Q, T, V): activation quantization, one warp per (row, group)
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void quant_acts_kernel(const T* __restrict__ x, int M, int K,
-                                  int8_t* __restrict__ xq,
-                                  float* __restrict__ xs,
-                                  float* __restrict__ sxm) {
-  const int G = K / GROUP;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= M * G) return;  // uniform per warp
-  const int m = warp / G, g = warp % G;
-  const size_t idx = (size_t)m * K + (size_t)g * GROUP + lane;
-  const float v = to_f32(x[idx]);
-  float a = fabsf(v);
-#pragma unroll
-  for (int o = 16; o; o >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
-  const float scale = a / 127.0f;
-  const float inv = scale > 0.0f ? 1.0f / scale : 0.0f;
-  const int q = __float2int_rn(v * inv);
-  int s = q;
-#pragma unroll
-  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  xq[idx] = (int8_t)q;
-  if (lane == 0) {
-    xs[(size_t)m * G + g] = scale;
-    sxm[(size_t)m * G + g] = scale * (float)s;
-  }
-}
-
-constexpr int A_KC = 2048;     // K elements of x the slab kernels stage per chunk
+constexpr int A_KC = 2048;     // K elements of x kernel T stages per chunk
 
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
 
@@ -289,15 +244,6 @@ __device__ __forceinline__ float half_bits_to_f32(uint32_t bits) {
   return __half2float(__ushort_as_half((unsigned short)(bits & 0xFFFFu)));
 }
 
-template <typename T>
-void launch_quant_acts(const void* x, int M, int K, void* xq, void* xs, void* sxm,
-                       cudaStream_t st) {
-  const int warps = M * (K / GROUP);
-  const int qblocks = (warps * 32 + 255) / 256;
-  quant_acts_kernel<T><<<qblocks, 256, 0, st>>>(
-      static_cast<const T*>(x), M, K, static_cast<int8_t*>(xq),
-      static_cast<float*>(xs), static_cast<float*>(sxm));
-}
 
 // ---------------------------------------------------------------------------
 // cp.async helpers (the exact tiles' ring)
@@ -1689,7 +1635,7 @@ int launch_bank_mm(const void* x, int x_bf16, const Loader& w, const void* eids,
 }
 
 // ---------------------------------------------------------------------------
-// kernels Q and T: the W4A8 GEMV summed per K-slab of kb superblocks
+// kernel T: the W4A8 GEMV on native superblocks summed per K-slab
 // ---------------------------------------------------------------------------
 constexpr int S_WARPS = 8;  // warps of a CTA (fewer when it owns fewer columns)
 
@@ -1697,142 +1643,14 @@ constexpr int S_WARPS = 8;  // warps of a CTA (fewer when it owns fewer columns)
 // group terms (lane bit HB clear) or high-nibble ones (bit set); a fixed xor
 // butterfly over the other four lane bits sums each half, then every lane
 // takes lo + hi. The order is fixed, so a column's bits do not depend on the
-// CTA it ran in. HB = 0: one xor butterfly over all 32 lanes (kernel V).
+// CTA it ran in.
 template <int HB>
 __device__ __forceinline__ float slab_sum(float v) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1)
     if (o != HB) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if constexpr (HB == 0) return v;
   const float other = __shfl_xor_sync(0xffffffffu, v, HB);
   return (threadIdx.x & HB) ? other + v : v + other;  // lo + hi on every lane
-}
-
-// Code loaders of the slab GEMV: load(n, K, g, q) gives the 32 4-bit codes
-// of group g of weight row n as 8 words of int8 codes in element order.
-// Q's layout (QuantTensorA8S): the group's 16 bytes, byte i = element i (low
-// nibble) and element 16+i (high).
-struct GroupPairedCodes {
-  const uint8_t* codes;
-  __device__ __forceinline__ void load(int n, int K, int g, int (&q)[8]) const {
-    const uint4 w = __ldg(reinterpret_cast<const uint4*>(codes + (size_t)n * (K / 2)) + g);
-    q[0] = w.x & 0x0F0F0F0F, q[1] = w.y & 0x0F0F0F0F;
-    q[2] = w.z & 0x0F0F0F0F, q[3] = w.w & 0x0F0F0F0F;
-    q[4] = (w.x >> 4) & 0x0F0F0F0F, q[5] = (w.y >> 4) & 0x0F0F0F0F;
-    q[6] = (w.z >> 4) & 0x0F0F0F0F, q[7] = (w.w >> 4) & 0x0F0F0F0F;
-  }
-};
-
-// V's int8 loader (v2): int8 codes [N, K], the group's 32 bytes as they are.
-struct Int8Codes {
-  const int8_t* codes;
-  __device__ __forceinline__ void load(int n, int K, int g, int (&q)[8]) const {
-    const uint4* p = reinterpret_cast<const uint4*>(codes + (size_t)n * K + (size_t)g * GROUP);
-    const uint4 a = __ldg(p), b = __ldg(p + 1);
-    q[0] = a.x, q[1] = a.y, q[2] = a.z, q[3] = a.w;
-    q[4] = b.x, q[5] = b.y, q[6] = b.z, q[7] = b.w;
-  }
-};
-
-// V's packed loader (v3): tile-paired uint8 [N, K/2] (tile t's 128 bytes at
-// 128t; byte j = element 256t+j low, 256t+128+j high), so group c < 4 of a
-// tile is the low nibbles of its bytes 32c..32c+31 and group c+4 their high
-// nibbles, unpacked with the SWAR masks on 32-bit words (unsigned shifts).
-struct TilePairedCodes {
-  const uint8_t* codes;
-  __device__ __forceinline__ void load(int n, int K, int g, int (&q)[8]) const {
-    const int t = g >> 3, c = g & 7, sh = c & 4;   // sh: 4 for the high groups
-    const uint4* p = reinterpret_cast<const uint4*>(codes + (size_t)n * (K / 2) +
-                                                    (size_t)t * (QK_K / 2) + (c & 3) * GROUP);
-    const uint4 a = __ldg(p), b = __ldg(p + 1);
-    q[0] = (a.x >> sh) & 0x0F0F0F0F, q[1] = (a.y >> sh) & 0x0F0F0F0F;
-    q[2] = (a.z >> sh) & 0x0F0F0F0F, q[3] = (a.w >> sh) & 0x0F0F0F0F;
-    q[4] = (b.x >> sh) & 0x0F0F0F0F, q[5] = (b.y >> sh) & 0x0F0F0F0F;
-    q[6] = (b.z >> sh) & 0x0F0F0F0F, q[7] = (b.w >> sh) & 0x0F0F0F0F;
-  }
-};
-
-// Kernels Q and V: per output column (one warp), per slab of sg = 8*kb
-// groups, lane l takes groups l, l+32, .. of the slab, each term (float)dot *
-// ws * xscale with dot the int32 group dot of the loader's codes with the
-// activation codes (8 dp4a); a slab ends in slab_sum<HB> (Q: HB = 4, lane
-// bit 2 says lo or hi, as group l % 8 of its superblock; V: HB = 0), the
-// slabs are added in K order. A CTA owns bn columns (launch geometry only)
-// and walks them S_WARPS at a time, staging x per K chunk of whole slabs.
-template <int MT, typename L, int HB>
-__global__ void __launch_bounds__(S_WARPS * 32)
-w4a8_slab_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs, const L w,
-                 const __nv_bfloat16* __restrict__ scales,
-                 float* __restrict__ out, int M, int K, int N, int bn, int kb) {
-  __shared__ __align__(16) int8_t s_x[MT * A_KC];
-  __shared__ float s_xs[MT * (A_KC / GROUP)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  const int G = K / GROUP;
-  const int sg = kb * 8;                          // groups per slab
-  const int kc_max = (A_KC / (sg * GROUP)) * sg * GROUP;  // whole slabs per chunk
-  for (int cg = 0; cg < bn; cg += nw) {
-    const bool live = cg + warp < bn;             // uniform per warp
-    const int n = blockIdx.x * bn + cg + warp;
-    const __nv_bfloat16* srow = scales + (size_t)n * G;
-    float run[MT];
-#pragma unroll
-    for (int r = 0; r < MT; ++r) run[r] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += kc_max) {
-      const int kc = min(kc_max, K - k0);
-      const int gc = kc / GROUP;
-      __syncthreads();
-      for (int i = threadIdx.x; i < M * (kc / 16); i += blockDim.x) {
-        const int r = i / (kc / 16), c = i % (kc / 16);
-        reinterpret_cast<int4*>(s_x + r * A_KC)[c] =
-            reinterpret_cast<const int4*>(xq + (size_t)r * K + k0)[c];
-      }
-      for (int i = threadIdx.x; i < M * gc; i += blockDim.x) {
-        const int r = i / gc, c = i % gc;
-        s_xs[r * (A_KC / GROUP) + c] = xs[(size_t)r * G + k0 / GROUP + c];
-      }
-      __syncthreads();
-      if (!live) continue;
-      for (int s0 = 0; s0 < gc; s0 += sg) {       // slabs of the chunk, in K order
-        float part[MT];
-#pragma unroll
-        for (int r = 0; r < MT; ++r) part[r] = 0.0f;
-        for (int gl = s0 + lane; gl < s0 + sg; gl += 32) {
-          const int g = k0 / GROUP + gl;
-          int q[8];
-          w.load(n, K, g, q);
-          const float ws = __bfloat162float(srow[g]);
-#pragma unroll
-          for (int r = 0; r < MT; ++r) {
-            if (r < M) {
-              const int4* xp = reinterpret_cast<const int4*>(s_x + r * A_KC + gl * GROUP);
-              const int4 xa = xp[0], xb = xp[1];
-              int dot = __dp4a(q[0], xa.x, 0);
-              dot = __dp4a(q[1], xa.y, dot);
-              dot = __dp4a(q[2], xa.z, dot);
-              dot = __dp4a(q[3], xa.w, dot);
-              dot = __dp4a(q[4], xb.x, dot);
-              dot = __dp4a(q[5], xb.y, dot);
-              dot = __dp4a(q[6], xb.z, dot);
-              dot = __dp4a(q[7], xb.w, dot);
-              part[r] += (float)dot * ws * s_xs[r * (A_KC / GROUP) + gl];
-            }
-          }
-        }
-        const bool first = k0 == 0 && s0 == 0;
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const float acc = slab_sum<HB>(part[r]);
-          run[r] = first ? acc : run[r] + acc;
-        }
-      }
-    }
-    if (live && lane == 0) {
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-        if (r < M) out[(size_t)r * N + n] = run[r];
-    }
-  }
 }
 
 // Kernel T: kernel I's lanes (lane = superblock tl of an 8-superblock step,
@@ -1943,51 +1761,31 @@ w4a8k4_slab_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   }
 }
 
-// the codes of the slab GEMVs: Q's (0), V's int8 (1) and tile-paired (2)
-// layouts, and T's native superblocks (3)
-enum SlabCodes { SLAB_Q = 0, SLAB_V_INT8 = 1, SLAB_V_PAIRED = 2, SLAB_T = 3 };
-
 template <int MT>
-void launch_slab(const int8_t* xq, const float* xs, const float* sxm, const uint8_t* codes,
-                 const __nv_bfloat16* scales, int kind, float* out, int M, int K, int N,
-                 int bn, int kb_or_cps, cudaStream_t st) {
-  const int threads = min(S_WARPS, bn) * 32;
-  const dim3 grid(N / bn);
-  if (kind == SLAB_T)
-    w4a8k4_slab_kernel<MT><<<grid, threads, 0, st>>>(xq, xs, sxm, codes, out, M, K, N,
-                                                     bn, kb_or_cps);
-  else if (kind == SLAB_Q)
-    w4a8_slab_kernel<MT, GroupPairedCodes, 4><<<grid, threads, 0, st>>>(
-        xq, xs, GroupPairedCodes{codes}, scales, out, M, K, N, bn, kb_or_cps);
-  else if (kind == SLAB_V_INT8)
-    w4a8_slab_kernel<MT, Int8Codes, 0><<<grid, threads, 0, st>>>(
-        xq, xs, Int8Codes{reinterpret_cast<const int8_t*>(codes)}, scales, out, M, K, N, bn,
-        kb_or_cps);
-  else
-    w4a8_slab_kernel<MT, TilePairedCodes, 0><<<grid, threads, 0, st>>>(
-        xq, xs, TilePairedCodes{codes}, scales, out, M, K, N, bn, kb_or_cps);
+void launch_x2(const int8_t* xq, const float* xs, const float* sxm, const uint8_t* blocks,
+               float* out, int M, int K, int N, int bn, int cps, cudaStream_t st) {
+  w4a8k4_slab_kernel<MT><<<N / bn, min(S_WARPS, bn) * 32, 0, st>>>(xq, xs, sxm, blocks, out, M,
+                                                                    K, N, bn, cps);
 }
 
-// the activation prologue, then kernel Q, V or T (SlabCodes)
-int launch_slab_w4a8(const void* x, int x_bf16, const void* codes, const void* scales,
-                     int kind, int bn, int kb_or_cps, void* xq, void* xs, void* sxm,
-                     void* out, int M, int K, int N, void* stream) {
+// the activation prologue, then kernel T
+int launch_slab_w4a8k4(const void* x, int x_bf16, const void* blocks, int bn, int cps,
+                       void* xq, void* xs, void* sxm, void* out, int M, int K, int N,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) launch_quant_acts<__nv_bfloat16>(x, M, K, xq, xs, sxm, st);
-  else launch_quant_acts<float>(x, M, K, xq, xs, sxm, st);
+  acts::launch_quant_acts(x, x_bf16, M, K, xq, xs, sxm, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int8_t* q = static_cast<const int8_t*>(xq);
   const float* s = static_cast<const float*>(xs);
   const float* sm = static_cast<const float*>(sxm);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
+  const uint8_t* c = static_cast<const uint8_t*>(blocks);
   float* o = static_cast<float*>(out);
-  if (M <= 1) launch_slab<1>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
-  else if (M <= 2) launch_slab<2>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
-  else if (M <= 4) launch_slab<4>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
-  else if (M <= 8) launch_slab<8>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
-  else launch_slab<16>(q, s, sm, c, sc, kind, o, M, K, N, bn, kb_or_cps, st);
+  if (M <= 1) launch_x2<1>(q, s, sm, c, o, M, K, N, bn, cps, st);
+  else if (M <= 2) launch_x2<2>(q, s, sm, c, o, M, K, N, bn, cps, st);
+  else if (M <= 4) launch_x2<4>(q, s, sm, c, o, M, K, N, bn, cps, st);
+  else if (M <= 8) launch_x2<8>(q, s, sm, c, o, M, K, N, bn, cps, st);
+  else launch_x2<16>(q, s, sm, c, o, M, K, N, bn, cps, st);
   return (int)cudaGetLastError();
 }
 
@@ -2171,19 +1969,6 @@ int q4k_parts_mm_launch(const void* x, int x_bf16, const void* codes, const void
   return launch_dequant_mm(x, x_bf16, w, nb, plan, out, M, K, N, stream);
 }
 
-// Kernel Q: x [M, K] bf16 or f32 (1 <= M <= 16, K % (256*kb) == 0, 1 <= kb
-// <= 8); codes [N, K/2], scales [N, K/32] bf16; each CTA owns bn columns (N %
-// bn == 0). out [M, N] f32 is the positive part summed per slab of kb
-// superblocks; xq / xs / sxm are the prologue's outputs.
-int w4a8_slab_launch(const void* x, int x_bf16, const void* codes, const void* scales,
-                     int bn, int kb, void* xq, void* xs, void* sxm, void* out, int M,
-                     int K, int N, void* stream) {
-  if (M < 1 || M > 16 || bn < 1 || N % bn || kb < 1 || kb > 8 || K % (QK_K * kb))
-    return (int)cudaErrorInvalidValue;
-  return launch_slab_w4a8(x, x_bf16, codes, scales, SLAB_Q, bn, kb, xq, xs, sxm, out, M, K,
-                          N, stream);
-}
-
 // Kernel T: kernel I's function on native Q4_K superblocks ([N, K/256 * 144]
 // bytes) summed per slab of kb superblocks, kb a multiple of 8 or K/256 (the
 // whole K as one slab); each CTA owns bn columns (N % bn == 0).
@@ -2195,22 +1980,7 @@ int w4a8k4_slab_launch(const void* x, int x_bf16, const void* blocks, int bn, in
       (kb % 8 && kb != nsb))
     return (int)cudaErrorInvalidValue;
   const int cps = kb % 8 ? (nsb + 7) / 8 : kb / 8;  // 8-superblock steps per slab
-  return launch_slab_w4a8(x, x_bf16, blocks, nullptr, SLAB_T, bn, cps, xq, xs, sxm, out, M,
-                          K, N, stream);
-}
-
-// Kernel V: x [M, K] bf16 or f32 (1 <= M <= 16, K % (256*kb) == 0, 1 <= kb
-// <= 8); codes int8 [N, K] (packed = 0) or tile-paired uint8 [N, K/2]
-// (packed = 1), scales [N, K/32] bf16; each CTA owns bn columns (N % bn ==
-// 0). out [M, N] f32 is the positive part summed per slab of kb tiles; xq /
-// xs / sxm are the prologue's outputs (kernel A's quantizer).
-int w4a8_plane_launch(const void* x, int x_bf16, const void* codes, int packed,
-                      const void* scales, int bn, int kb, void* xq, void* xs, void* sxm,
-                      void* out, int M, int K, int N, void* stream) {
-  if (M < 1 || M > 16 || bn < 1 || N % bn || kb < 1 || kb > 8 || K % (QK_K * kb))
-    return (int)cudaErrorInvalidValue;
-  return launch_slab_w4a8(x, x_bf16, codes, scales, packed ? SLAB_V_PAIRED : SLAB_V_INT8, bn,
-                          kb, xq, xs, sxm, out, M, K, N, stream);
+  return launch_slab_w4a8k4(x, x_bf16, blocks, bn, cps, xq, xs, sxm, out, M, K, N, stream);
 }
 
 }  // extern "C"

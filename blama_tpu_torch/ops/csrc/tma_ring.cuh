@@ -1,4 +1,5 @@
-// The TMA rings of kernels R (probes.cu) and U (quant_matmul.cu): one
+// The TMA rings of kernels R (probes.cu), U (twodot.cu), Q and V
+// (slab_gemv.cu): one
 // producer thread fills a ring of shared-memory slots with tensor copies
 // (cp.async.bulk.tensor: one request brings a whole box of a tiled tensor
 // map, the elements outside the tensor as zeros, and completes the box's
@@ -20,9 +21,12 @@ namespace tma {
 // host: a tiled tensor map of `rank` dims at `base` (dims and box innermost
 // first; strides in bytes of dims 1 .. rank-1), zeros outside the tensor.
 // cuTensorMapEncodeTiled is a driver call: found through the runtime, so the
-// library links no driver.
+// library links no driver. With CU_TENSOR_MAP_SWIZZLE_128B (a box row of at
+// most 128 bytes) the 16-byte chunk c of the box's 128-byte row r lands at
+// chunk c ^ (r % 8) of a destination aligned to 1024 bytes (swz128).
 inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                  const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                  const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   using Fn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                           const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                           const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -43,7 +47,7 @@ inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const vo
   }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
-                        ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -86,8 +90,23 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
         : "memory");
 }
 
+// where byte `col` of row `row` of a 128-byte-swizzled box lies, relative to
+// its 1024-byte-aligned destination
+__host__ __device__ __forceinline__ uint32_t swz128(uint32_t row, uint32_t col) {
+  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+
 // the box of `map` at coordinates c (innermost first) into shared dst
 // (128-byte aligned), completing its bytes on bar
+__device__ __forceinline__ void copy2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void copy3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
                                        uint64_t* bar) {
   asm volatile(

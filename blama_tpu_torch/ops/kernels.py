@@ -52,11 +52,15 @@ SIGNATURES = {
         "q4k_bank_mm_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P,
                                _I, _I, _I, _P],
         "q4k_parts_mm_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
-        "w4a8_slab_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "w4a8k4_slab_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-        "w4a8_plane_launch": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "dequant_tile_shape": [_I, _P],
         "dequant_row_shape": [_I, _I, _I, _P],
+    },
+    "slab_gemv": {
+        "w4a8_slab_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                             _P],
+        "w4a8_plane_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
+                              _I, _P],
     },
     "twodot": {
         "q4k_twodot_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],

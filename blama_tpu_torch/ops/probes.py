@@ -13,8 +13,10 @@ what bounds each on the card and what the design does about it:
      stream the blocks.
      Columns past (N // bn)·bn are 0 (the TPU kernel leaves them unwritten).
   S  add_one (replaces the TPU kernel _tiny_kernel of
-     blama_tpu/tools/probe_overhead.py): o = x + 1.0 on a small f32 array, one
-     CTA, the least work a launch carries.
+     blama_tpu/tools/probe_overhead.py): o = x + 1.0 on a small f32 array,
+     the least work a launch carries: one CTA at the probe's [8, 128], each
+     thread's loads (a float4 where both arrays are aligned) issued before
+     its stores.
   W  the SWAR probes of blama_tpu/tools/probe_swar.py: swar_roundtrip (u8 →
      32-bit words → u8, the identity), swar_lo_hi (x & 0xF and x >> 4 by
      0x0F0F0F0F masks on words), swar_dot (a @ lo + a @ hi, int32).
@@ -134,7 +136,8 @@ def add_one_plain(x: torch.Tensor) -> torch.Tensor:
 
 def add_one(x: torch.Tensor) -> torch.Tensor:
     """Kernel S (CUDA C++, replaces the TPU kernel _tiny_kernel): x + 1.0 on
-    a contiguous f32 array of at most 2^20 elements, one CTA."""
+    a contiguous f32 array of at most 2^20 elements; one launch, one CTA up
+    to 1024 elements (the probe's [8, 128])."""
     if x.device.type == "cpu":
         return add_one_plain(x)
     if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() > 1 << 20:

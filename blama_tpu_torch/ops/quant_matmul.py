@@ -55,10 +55,11 @@ K (B's loader with the min term inside, over selected experts). The
 tp_blocks mode (qmm_blocked, qmm_nblocked) adds L (K's function per K-block,
 or pinned at one block) and M (kernel A per K-block, one launch). The tools'
 W4A8 variants, which no engine reaches, are Q (w4a8_swar_matmul: A's terms
-summed per K-slab, the min term after it) and T (x2_matmul: I's terms in the
-same grouping), and ubench_q4k's U (q4k_matmul_v1: an f32 two-dot, in
-ops/csrc/twodot.cu, its CTA from twodot_plan) and V (w4a8_plane_matmul /
-w4a8_packed_matmul: Q's body on two other code layouts). On a CPU tensor
+summed per K-slab, the min term after it; in ops/csrc/slab_gemv.cu, its CTA
+from slab_plan) and T (x2_matmul: I's terms in the same grouping), and
+ubench_q4k's U (q4k_matmul_v1: an f32 two-dot, in ops/csrc/twodot.cu, its
+CTA from twodot_plan) and V (w4a8_plane_matmul / w4a8_packed_matmul: Q's
+body on two other code layouts). On a CPU tensor
 each wrapper runs its plain PyTorch version below; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -568,8 +569,10 @@ def w4a8_xla_matmul(x: torch.Tensor, w: QuantTensorA8) -> torch.Tensor:
 # grouping: the K axis in slabs of kb superblocks, each slab's sum the sum of
 # its low-nibble group terms (groups 0-3 of each superblock, in superblock
 # order) plus the sum of its high-nibble ones (groups 4-7), the slabs added in
-# K order. So kb is a parameter of their numerics; block_n, the columns one
-# CTA owns, is launch geometry only. No engine reaches either: the tools do.
+# K order. So kb is a parameter of their numerics; block_n, the reference's
+# column tile, moves no bit (T: the columns one CTA owns; Q: it only passes
+# the reference's clamp, Q's CTA comes from slab_plan). No engine reaches
+# either: the tools do.
 
 def _col_tile(what: str, K: int, N: int, block_n: int, kb: int) -> int:
     """The column tile both references clamp alike: block_n halved until it
@@ -583,10 +586,72 @@ def _col_tile(what: str, K: int, N: int, block_n: int, kb: int) -> int:
     return bn
 
 
-# columns a CTA of kernel Q or T owns unless the caller says otherwise: one
-# column per warp, the fastest block_n of autotune_a8s's sweep on the card
-# (PERF.md §6, row 9); the reference's 2048 is a TPU VMEM tile
+# the tools' block_n unless the caller says otherwise: the columns a CTA of
+# kernel T owns, one column per warp (the fastest of autotune_a8s's sweep on
+# the card, PERF.md §6, row 9; the reference's 2048 is a TPU VMEM tile);
+# kernels Q, U and V only pass it through the reference's clamp
 SLAB_BLOCK_N = 8
+
+# kernels Q and V's CTA (slab_gemv.cu): T tiles of 16 columns, R consumer
+# warps a tile (T·R <= SG_MAX_WARPS), beside one producer thread that keeps
+# a ring of D slots full; a slot is one superblock of K (8 groups): x's
+# codes and scales, the CTA's codes and scales
+SG_MAX_WARPS = 8
+SG_MAX_SLOTS = 32
+SG_WAVE = 128        # column groups that make up (most of) a wave of 132 SMs
+SG_INFLIGHT = 64 << 10   # bytes a CTA's ring aims to keep in flight
+
+
+def slab_slot_bytes(M: int, cols: int, int8: bool = False) -> int:
+    """Bytes of one slot of Q's or V's ring (slab_gemv.cu sg_slot_bytes):
+    x's codes (8 rows at M <= 8, else 16; two 128-byte halves), the cols
+    columns' codes (128 bytes each, 256 as int8), x's scales (8 f32 a row)
+    and the columns' scales (8 bf16 each), on 1024 bytes; at one row no x
+    (the CTA holds x's row whole)."""
+    xr = 0 if M == 1 else 8 if M <= 8 else 16
+    tx = 256 * xr + (256 if int8 else 128) * cols + 32 * xr + 16 * cols
+    return -(-tx // 1024) * 1024
+
+
+def _slab_outs(M: int) -> int:
+    """Outputs a lane of Q or V holds (slab_gemv.cu Outs::NO)."""
+    return 2 if M == 1 else 4 if M <= 8 else 8
+
+
+def slab_smem(M: int, plan: tuple[int, int, int], int8: bool = False, K: int = 0) -> int:
+    """Dynamic shared memory of kernel Q or V under plan (T, R, D): 1024
+    bytes to align the ring, the ring, its 2·D barriers, where R > 1 the
+    partial sums a tile's warps hand each other (two buffers), and at one
+    row x's row quantized (K codes and K/32 f32 scales)."""
+    t, r, d = plan
+    xch = 512 * t * r * _slab_outs(M) if r > 1 else 0
+    row = K + 4 * (K // GROUP) if M == 1 else 0
+    return 1024 + d * slab_slot_bytes(M, 16 * t, int8) + 16 * d + xch + row
+
+
+def slab_plan(M: int, N: int, kb: int, int8: bool = False,
+              K: int = 0) -> tuple[int, int, int]:
+    """Kernel Q's or V's plan (T tiles of 16 columns a CTA, R warps a tile,
+    D ring slots) for M rows, N columns and slabs of kb superblocks (int8:
+    V's int8 codes, twice the bytes a slot; K: x's width, which one row
+    keeps whole in shared memory). T: the most tiles (up to 8)
+    that still leave SG_WAVE column groups, so the groups fill a wave of
+    CTAs, one an SM; R: the warps left (8 // T), which take a tile's
+    superblocks in turn, so a narrow N (wk/wv's 64 tiles) or a long K
+    (down's 56 superblocks on 2 tiles an SM) still keeps 8 warps an SM
+    busy. D: enough slots for SG_INFLIGHT bytes, at least 4 and a round of
+    the tile's warps (2R: a warp's step takes two superblocks), within one
+    CTA's shared memory and SG_MAX_SLOTS. A deeper ring was slower on the
+    card (PERF.md §6): with every slot of every CTA requested at once, a
+    CTA's first slots arrive later. Each output keeps the parent's lane
+    order whatever the plan, so the plan moves no bit."""
+    if not 1 <= kb <= 8:
+        raise ValueError(f"kernels Q and V take slabs of 1..8 superblocks, got kb={kb}")
+    t = min(SG_MAX_WARPS, max(1, -(-N // 16) // SG_WAVE))
+    r = SG_MAX_WARPS // t
+    slot = slab_slot_bytes(M, 16 * t, int8)
+    fit = min(SG_MAX_SLOTS, (SMEM_MAX - slab_smem(M, (t, r, 0), int8, K)) // (slot + 16))
+    return t, r, min(fit, max(2 * r, 4, -(-SG_INFLIGHT // slot)))
 
 
 def a8s_clamp(K: int, N: int, block_n: int, kb: int) -> tuple[int, int]:
@@ -664,15 +729,19 @@ def w4a8_swar_matmul_plain(x: torch.Tensor, w: QuantTensorA8S,
 def a8s_launch(x: torch.Tensor, w: QuantTensorA8S, block_n: int = SLAB_BLOCK_N,
                kb: int = 4):
     """Launch kernel Q on CUDA tensors. Returns (pos [M, N] f32, and the
-    prologue's xq, xs, sxm, as w4a8_launch does)."""
+    prologue's xq, xs, sxm, as w4a8_launch does). block_n is the
+    reference's column tile, checked as the reference clamps it; the CTA
+    comes from slab_plan."""
     M, K = _check_cuda(x, _q4k_arrays(w, x.shape[1], torch.bfloat16), QK_K)
     _check_rows(M, "kernel Q")
-    bn, kb = a8s_clamp(K, w.n_out, block_n, kb)
+    _check_aligned(w.scales)
+    kb = a8s_clamp(K, w.n_out, block_n, kb)[1]
     if kb > 8:
         raise ValueError(f"kernel Q takes slabs of at most 8 superblocks, got kb={kb}")
+    nt, nr, nd = slab_plan(M, w.n_out, kb, K=K)
     xq, xs, sxm, out = _w4a8_buffers(M, K, w.n_out, x.device)
-    rc = kernels.lib("quant_matmul").w4a8_slab_launch(
-        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), w.scales.data_ptr(), bn, kb,
+    rc = kernels.lib("slab_gemv").w4a8_slab_launch(
+        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), w.scales.data_ptr(), nt, nr, nd, kb,
         xq.data_ptr(), xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), M, K, w.n_out,
         kernels.stream_ptr(x.device))
     kernels.check(rc, "w4a8_slab_gemv")
@@ -684,9 +753,9 @@ def w4a8_swar_matmul(x: torch.Tensor, w: QuantTensorA8S, block_n: int = SLAB_BLO
                      kb: int = 4) -> torch.Tensor:
     """Kernel Q (CUDA C++, replaces the TPU kernel _a8s_kernel): x [M <= 16,
     K] @ W → [M, N] f32, W4A8 summed per slab of kb superblocks, the min
-    term an f32 product after the kernel. block_n is the columns one CTA
-    owns (the reference's column tile, 2048 by default there: a TPU VMEM
-    tile, which leaves a card N/2048 CTAs for 132 SMs); it moves no bit."""
+    term an f32 product after the kernel. block_n is the reference's column
+    tile (2048 by default there: a TPU VMEM tile); here it only passes the
+    reference's clamp and moves no bit."""
     if x.device.type == "cpu":
         return w4a8_swar_matmul_plain(x, w, block_n, kb)
     pos, _, _, sxm = a8s_launch(x, w, block_n, kb)
@@ -888,15 +957,19 @@ def plane_pos_plain(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
 def plane_launch(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, packed: bool,
                  block_n: int = SLAB_BLOCK_N, kb: int = 4):
     """Launch kernel V on CUDA tensors, int8 codes [N, K] or (packed)
-    tile-paired uint8 [N, K/2]. Returns (pos [M, N] f32, xq, xs, sxm)."""
+    tile-paired uint8 [N, K/2]. Returns (pos [M, N] f32, xq, xs, sxm).
+    block_n passes the reference's clamp; the CTA comes from slab_plan."""
     N, K = codes.shape[0], x.shape[1]
     carr = (codes, torch.uint8, (N, K // 2)) if packed else (codes, torch.int8, (N, K))
     M, K = _check_uv("V", x, (carr, (scales, torch.bfloat16, (N, K // GROUP))), kb)
-    bn = _tile_clamp("V", K, N, block_n, kb)
+    _check_aligned(scales)
+    _tile_clamp("V", K, N, block_n, kb)
+    nt, nr, nd = slab_plan(M, N, kb, int8=not packed, K=K)
     xq, xs, sxm, out = _w4a8_buffers(M, K, N, x.device)
     name = "w4a8_packed_matmul" if packed else "w4a8_plane_matmul"
-    rc = kernels.lib("quant_matmul").w4a8_plane_launch(
-        x.data_ptr(), _is_bf16(x), codes.data_ptr(), int(packed), scales.data_ptr(), bn, kb,
+    rc = kernels.lib("slab_gemv").w4a8_plane_launch(
+        x.data_ptr(), _is_bf16(x), codes.data_ptr(), int(packed), scales.data_ptr(), nt, nr, nd,
+        kb,
         xq.data_ptr(), xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), M, K, N,
         kernels.stream_ptr(x.device))
     kernels.check(rc, name)

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import logging
 import threading
 import time
@@ -147,10 +148,21 @@ class CudaBackend:
         cur.wait_stream(self.stream)
 
     def capture(self, fn):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            fn()
+        # A dropped owner's graphs wait in reference cycles (their closures
+        # hold the owner) until Python's collector frees them, and a graph
+        # freed while this thread captures breaks the capture (its
+        # destructor is not permitted then). So the collector waits until
+        # the capture ends.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
         return graph
 
 

@@ -647,3 +647,45 @@ def twodot_lane_order(x, codes, scales, kb: int):
         p = lo[..., 0] + hi[..., 0]
         run = p if run is None else run + p
     return run
+
+
+def slab_lane_order(xq, xs, codes, scales, kb: int, hb: int, fused: bool = True):
+    """Kernels Q and V's positive part in the order of the parent's lanes,
+    bit for bit: per output column, per slab of 8·kb groups, lane l takes
+    groups l and l + 32 of the slab (where they exist), each term
+    (float)dot · ws · xs with dot the exact int32 group dot, t = dot · ws
+    rounded once, and the lane's part, from +0, takes the terms in group
+    order as fmaf(t, xs, part) (`fused`: each term rounded once into part,
+    testing.fma_f32; False: part + t · xs, two roundings). The slab's sum
+    is slab_sum<hb>: hb = 4 (Q) an xor butterfly over lane bits 0, 1, 3, 4,
+    then lo + hi (lanes with bit 2 clear and set); hb = 0 (V) over all five
+    bits. The slabs go into the column's sum in K order, the first one
+    assigned. xq int8 [M, K], xs f32 [M, K/32], element-order codes [N, K]
+    (int8, or uint8 0..15), bf16 scales [N, K/32] → [M, N] f32, on xq's
+    device."""
+    import torch
+
+    M, K = xq.shape
+    N, G = codes.shape[0], K // 32
+    sg = 8 * kb
+    if xq.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("slab_lane_order needs TF32 off: its group dots are f32 products")
+    # exact in f32: every product and partial sum is an integer below 2^24
+    dots = torch.einsum("mgi,ngi->mng", xq.reshape(M, G, 32).float(),
+                        codes.reshape(N, G, 32).float())
+    t = dots * scales.float()[None]               # one rounding
+    x = xs.float()[:, None, :].expand(M, N, G)
+    lane = torch.arange(32, device=xq.device)
+    run = None
+    for s0 in range(0, G, sg):
+        part = torch.zeros((M, N, 32), dtype=torch.float32, device=xq.device)
+        for j0 in range(s0, s0 + sg, 32):
+            n = min(32, s0 + sg - j0)
+            tj, xj, pj = t[..., j0:j0 + n], x[..., j0:j0 + n], part[..., :n]
+            part[..., :n] = fma_f32(tj, xj, pj) if fused else pj + tj * xj
+        for o in (1, 2, 4, 8, 16):
+            if o != hb:
+                part = part + part[..., lane ^ o]
+        acc = part[..., 0] + part[..., hb] if hb else part[..., 0]
+        run = acc if run is None else run + acc
+    return run

@@ -14,8 +14,11 @@ count one CUDA graph (the reference's one jitted scan), so the fixed cost of
 a pass cancels, as in the reference. Configurations: kernel
 Q (w4a8_swar_matmul: the min term an f32 product after it) at each block_n
 and kb, and kernel A (w4a8_matmul), which folds the min term into its group
-terms (the reference's fold=1 variant). block_n is the columns one CTA owns;
-the reference's values (1024-4096) are TPU tiles, listed beside the card's.
+terms (the reference's fold=1 variant). block_n is the reference's column
+tile (its values, 1024-4096, are TPU tiles, listed beside small ones): here
+it only passes the reference's clamp, and Q's CTA comes from
+quant_matmul.slab_plan, so every block_n of a kb runs the same launch and
+gives the same bits; the flag stays, as the reference's tool has it.
 `--scale` shrinks every width for a dry run on the CPU.
 """
 

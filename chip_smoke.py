@@ -1029,14 +1029,18 @@ def tools_kernel_phase(torch, timer, rng, keep=None):
     """The tools' kernels against their plain versions at the tools' shapes:
     Q (w4a8_swar_matmul's positive part) at the 8B projections and lm head,
     1 and 8 rows, kb 4 and 8, its bits equal at every block_n; T (X2) at the
-    same shapes, kb 8 and 16; R on a 2048 x 14336 layer at two blocks,
-    exact, every byte staged; S on [8, 128], exact. And rows_mm (the exact
+    same shapes, kb 8 and 16; Q at gate/up, 8 rows, kb 4 equal bit for bit to
+    its lane order (testing.slab_lane_order); R on a 2048 x 14336 layer at
+    two blocks, exact, every byte staged; S on [8, 128], exact. And rows_mm (the exact
     engines' min term, the MoE router) at the decode step's shapes: its
     16-row blocks against one plain product, host ms per call. Each output
     goes into `keep` (_keep)."""
+    from blama_tpu_torch import testing
     from blama_tpu_torch.ops import probes
     from blama_tpu_torch.ops import quant_matmul as qm
 
+    # the lane order Q and V keep (a tree timed by --tools-timing may be older)
+    lane_order = getattr(testing, "slab_lane_order", None)
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
     for label, (K, N) in SHAPES.items():
@@ -1070,6 +1074,12 @@ def tools_kernel_phase(torch, timer, rng, keep=None):
                         if not torch.equal(launch(bn)[0], out):
                             raise AssertionError(f"kernel {kind} {label} M={M} kb={kb}: "
                                                  f"block_n={bn} moved a bit")
+                    if lane_order and kind == "Q" and (label, M, kb) == ("gate/up", 8, 4):
+                        _, xq, xs, _ = launch()
+                        order = lane_order(xq, xs, qm.unpair_codes(w.codes), w.scales, kb, 4)
+                        if not torch.equal(out, order):
+                            raise AssertionError(f"kernel Q {label} M={M} kb={kb}: not its "
+                                                 "lane order")
                     nbytes += x.numel() * x.element_size() + M * N * 4
                     _keep(keep, name, f"{label} K={K} N={N} M={M} kb={kb}", out)
                     rows.append(dict(
@@ -1119,16 +1129,19 @@ def ubench_kernel_phase(torch, timer, keep=None):
     """ubench_q4k's kernels against their plain versions at the 8B
     projections and lm head, 1 and 8 rows (f32 x, as the tool's): U at kb 8
     (the reference's v1 default) and 4, V at kb 4 (v2) and 8 (v3) on both
-    code layouts, the two loaders bit-equal, block_n moving no bit. Beside
+    code layouts, the two loaders bit-equal, block_n moving no bit, and at
+    gate/up, 8 rows, kb 4 equal to its lane order (testing.slab_lane_order). Beside
     the bf16 library call over the dequantized weights, U's rows carry the
     one call that computes U's function, f32 `torch.matmul` over the f32
     weights (codes times scales, TF32 off): `library_f32_ms`. Each output
     goes into `keep` (_keep)."""
+    from blama_tpu_torch import testing
     from blama_tpu_torch.ops import quant_matmul as qm
     from blama_tpu_torch.tools.ubench_q4k import pack_pairs
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("U's f32 yardstick needs TF32 off")
+    lane_order = getattr(testing, "slab_lane_order", None)   # as in tools_kernel_phase
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
     for label, (K, N) in SHAPES.items():
@@ -1200,6 +1213,11 @@ def ubench_kernel_phase(torch, timer, keep=None):
                 if not torch.equal(outs[False], outs[True]):
                     raise AssertionError(f"kernel V {label} M={M} kb={kb}: the int8 and the "
                                          "tile-paired loaders differ")
+                if lane_order and (label, M, kb) == ("gate/up", 8, 4):
+                    _, xq, xs, _ = qm.plane_launch(x, i8, sb, False, qm.SLAB_BLOCK_N, kb)
+                    if not torch.equal(outs[False], lane_order(xq, xs, codes, sb, kb, 0)):
+                        raise AssertionError(f"kernel V {label} M={M} kb={kb}: not its lane "
+                                             "order")
         del codes, paired, i8, wb, wf
         torch.cuda.empty_cache()
     return rows
@@ -3938,7 +3956,7 @@ KERNELS = {
     # the tools phase's kernels: Q at probe_ceiling's FFN shape (one row, the
     # reference's kb), T at ab_a8k4's default shape, R at a block of the
     # card's size, S at probe_overhead's [8, 128]
-    "w4a8_slab_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+    "w4a8_slab_gemv": ("blama_tpu_torch/ops/csrc/slab_gemv.cu",
                        "blama_tpu/ops/pallas/quant_matmul.py:771",
                        "gate/up K=4096 N=14336 M=1 kb=4"),
     "w4a8k4_slab_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu", "tools/ab_a8k4.py:39",
@@ -3951,9 +3969,9 @@ KERNELS = {
     # kb; the probes at a code plane of an 8B FFN weight, Y at its own shapes
     "q4k_twodot_matmul": ("blama_tpu_torch/ops/csrc/twodot.cu",
                           "blama_tpu/tools/ubench_q4k.py:44", "gate/up K=4096 N=14336 M=1 kb=8"),
-    "w4a8_plane_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+    "w4a8_plane_matmul": ("blama_tpu_torch/ops/csrc/slab_gemv.cu",
                           "blama_tpu/tools/ubench_q4k.py:111", "gate/up K=4096 N=14336 M=1 kb=4"),
-    "w4a8_packed_matmul": ("blama_tpu_torch/ops/csrc/quant_matmul.cu",
+    "w4a8_packed_matmul": ("blama_tpu_torch/ops/csrc/slab_gemv.cu",
                            "blama_tpu/tools/ubench_q4k.py:137",
                            "gate/up K=4096 N=14336 M=1 kb=8"),
     **{name: ("blama_tpu_torch/ops/csrc/probes.cu", f"blama_tpu/tools/{tool}.py:{line}", shape)

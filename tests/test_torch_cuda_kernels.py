@@ -696,11 +696,22 @@ def test_kernel_r_reads_every_byte(cuda, r, n, bk, bn):
     assert torch.equal(probes.stream(codes, bk, bn), ref)
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (1000,), (3, 5)])
+@pytest.mark.parametrize("shape", [(8, 128), (1000,), (3, 5), (1,), (3,), (1024,), (1025,),
+                                   (1 << 20,)])
 def test_kernel_s(cuda, shape):
     from blama_tpu_torch.ops import probes
 
     x = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    assert torch.equal(probes.add_one(x), probes.add_one_plain(x))
+
+
+@pytest.mark.parametrize("n", [1, 3, 1024, 1025])
+def test_kernel_s_unaligned(cuda, n):
+    """A view that starts 4 bytes into its storage: the scalar path."""
+    from blama_tpu_torch.ops import probes
+
+    x = torch.randn(n + 1, generator=torch.Generator().manual_seed(n)).to(cuda)[1:]
+    assert x.data_ptr() % 16
     assert torch.equal(probes.add_one(x), probes.add_one_plain(x))
 
 
@@ -826,6 +837,92 @@ def test_kernel_v(cuda, m, n, blocks, kb, dtype):
     for bn in (1, 8, 64, 2048):
         assert torch.equal(qm.plane_launch(x, i8, sb, False, bn, kb)[0], out), bn
         assert torch.equal(qm.plane_launch(x, paired, sb, True, bn, kb)[0], out), bn
+
+
+@pytest.fixture(scope="module")
+def slab_weights(cuda):
+    """Kernels Q's and V's operands for each (N, K) of the lane-order test:
+    element-order codes, Q's group-paired pack, V's int8 and tile-paired
+    codes, bf16 scales (a third of them negative)."""
+    from blama_tpu_torch.tools.ubench_q4k import pack_pairs
+
+    held = {}
+    for n in (1024, 4096, 1000):
+        for k in (4096, 14336):
+            g = torch.Generator(device=cuda).manual_seed(n + k)
+            codes = torch.randint(0, 16, (n, k), generator=g, dtype=torch.uint8, device=cuda)
+            sc = torch.rand((n, k // 32), generator=g, device=cuda) * 0.02 + 0.01
+            sc = torch.where(torch.rand(sc.shape, generator=g, device=cuda) < 0.3, -sc, sc)
+            w = qm.pack_a8s(codes, sc, torch.zeros_like(sc))
+            held[n, k] = codes, w, codes.to(torch.int8), pack_pairs(codes), w.scales
+    return held
+
+
+def _forced(monkeypatch, plan):
+    """Kernels Q and V launched under `plan` (T, R, D) in place of
+    slab_plan's."""
+    monkeypatch.setattr(qm, "slab_plan", lambda *args, **kwargs: plan)
+
+
+# widths: a wave of column groups, wk/wv's 64 tiles of 16 (one CTA of eight
+# warps each), and a width that fills no tile
+@pytest.mark.parametrize("k", [4096, 14336])
+@pytest.mark.parametrize("n", [1024, 4096, 1000])
+@pytest.mark.parametrize("kb", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", range(1, 17))
+def test_kernels_q_v_keep_the_lane_order(cuda, slab_weights, monkeypatch, m, kb, n, k):
+    """Kernel Q and both of V's loaders equal their lane order bit for bit
+    (testing.slab_lane_order: lane l of a column takes groups l, l+32 of a
+    slab, part = fmaf(dot * ws, xs, part), the xor butterfly, Q's lo + hi,
+    the slabs in K order), under slab_plan's plan and forced ones (one warp,
+    tiles of eight warps, four of two, eight of one; the fewest slots each
+    takes, so the ring comes round many times)."""
+    from blama_tpu_torch import testing
+
+    codes, w, i8, paired, sb = slab_weights[n, k]
+    x = _acts(m, k, torch.bfloat16 if m % 2 else torch.float32, cuda)
+    out, xq, xs, _ = qm.a8s_launch(x, w, 8, kb)
+    assert torch.equal(out, testing.slab_lane_order(xq, xs, codes, sb, kb, 4))
+    v = qm.plane_launch(x, i8, sb, False, 8, kb)[0]
+    assert torch.equal(v, testing.slab_lane_order(xq, xs, codes, sb, kb, 0))
+    assert torch.equal(qm.plane_launch(x, paired, sb, True, 8, kb)[0], v)
+    for plan in ((1, 1, 2), (1, 8, 16), (4, 2, 4), (8, 1, 2)):
+        _forced(monkeypatch, plan)
+        assert torch.equal(qm.a8s_launch(x, w, 8, kb)[0], out), plan
+        assert torch.equal(qm.plane_launch(x, i8, sb, False, 8, kb)[0], v), plan
+        assert torch.equal(qm.plane_launch(x, paired, sb, True, 8, kb)[0], v), plan
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_kernels_q_v_every_plan(cuda, monkeypatch, m):
+    """Every plan slab_plan can return (1..8 tiles a CTA with the warps
+    left, its slot count, and two slots) and one warp a tile give the same
+    bits, kb 3 (three of four quads) and 6 (pairs and singles in one slab)
+    included."""
+    from blama_tpu_torch import testing
+    from blama_tpu_torch.tools.ubench_q4k import pack_pairs
+
+    n, k = 1000, 6144
+    g = torch.Generator(device=cuda).manual_seed(m)
+    codes = torch.randint(0, 16, (n, k), generator=g, dtype=torch.uint8, device=cuda)
+    sc = torch.rand((n, k // 32), generator=g, device=cuda) * 0.02 + 0.01
+    w = qm.pack_a8s(codes, sc, torch.zeros_like(sc))
+    x = _acts(m, k, torch.bfloat16, cuda)
+    for kb in (3, 6):
+        out, xq, xs, _ = qm.a8s_launch(x, w, 8, kb)
+        assert torch.equal(out, testing.slab_lane_order(xq, xs, codes, w.scales, kb, 4)), kb
+        v = qm.plane_launch(x, pack_pairs(codes), w.scales, True, 8, kb)[0]
+        assert torch.equal(v, testing.slab_lane_order(xq, xs, codes, w.scales, kb, 0)), kb
+        for int8 in (False, True):
+            plans = [qm.slab_plan(m, 128 * 16 * nt, kb, int8, k)
+                     for nt in range(1, qm.SG_MAX_WARPS + 1)]
+            plans += [(t, r, 2 * r) for t, r, _ in plans] + [(t, 1, 3) for t, _, _ in plans]
+            for plan in plans:
+                _forced(monkeypatch, plan)
+                got = (qm.plane_launch(x, codes.to(torch.int8), w.scales, False, 8, kb)[0]
+                       if int8 else qm.a8s_launch(x, w, 8, kb)[0])
+                assert torch.equal(got, v if int8 else out), (kb, plan)
+            monkeypatch.undo()
 
 
 # ragged byte arrays: rows and words that fill no CTA, N % 4 == 0 (whole words)
@@ -1846,6 +1943,42 @@ def test_graphed_replays_after_cache_edits(cuda, graph_files, edit):
 
     assert run(True) == run(False)
     m.close()
+
+
+def test_capture_outlives_a_dropped_graph(cuda):
+    """A capture while a dropped graph waits in a reference cycle, as a
+    dropped Instance's StepGraphs does: a collection that frees that graph
+    inside the capture breaks the capture, so none runs inside one. Inside
+    the capture the collector's threshold is 1, so a collection of the
+    young cycle comes due at once."""
+    import gc
+
+    from blama_tpu_torch.ops.step_graph import CudaBackend
+
+    be = CudaBackend(cuda)
+    x = torch.zeros(1024, device=cuda)
+    dropped = be.capture(lambda: x.add_(1))
+    gc.collect()
+    cycle = {"graph": dropped}
+    cycle["self"] = cycle
+    del cycle, dropped
+    out, inside = [], []
+    threshold = gc.get_threshold()
+
+    def fn():
+        inside.append(gc.isenabled())
+        gc.set_threshold(1)
+        out.append([[] for _ in range(100)])
+        out.append(x + 1)
+
+    try:
+        graph = be.capture(fn)
+    finally:
+        gc.set_threshold(*threshold)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert inside == [False] and gc.isenabled()
+    assert torch.equal(out[1], torch.ones_like(x))
 
 
 def test_sync_between_replays_raises(cuda, graph_checks):
