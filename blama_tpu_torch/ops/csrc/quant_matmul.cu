@@ -183,19 +183,10 @@
 // The caller combines the partials by a fixed halving tree. Bound: bytes at
 // the decode rows, f32 (L) operations at the prompt chunks, as for B and A.
 //
-// Kernel T serves the tools (no engine reaches it):
-//   T (w4a8k4_slab_launch) replaces tools/ab_a8k4.py:_x2_kernel: kernel A's
-//     quantizer (quant_acts.cuh), then kernel I's group terms (native
-//     superblocks, the min term in each term) summed per slab of kb
-//     superblocks (the slab's low-nibble groups plus its high-nibble ones),
-//     the slabs added in K order. kb is a parameter of its numerics; the
-//     reference's column tile block_n is the columns one CTA owns here (its
-//     warps walk them S_WARPS at a time) and moves no bit. Bound: bytes, as
-//     I. Each warp takes one column with I's lanes; a slab ends in a fixed
-//     xor butterfly over the lanes of each half, then lo + hi.
-// The same grouping on A's layout (kernel Q) and ubench_q4k's two layouts
-// (kernel V) is in slab_gemv.cu, ubench's f32 two-dot (kernel U) in
-// twodot.cu.
+// The tools' slab GEMVs are in slab_gemv.cu: kernel A's group terms in the
+// reference's slab grouping on A's layout (kernel Q), ubench_q4k's two
+// layouts (kernel V) and kernel I's on the native superblocks (kernel T,
+// tools/ab_a8k4.py's X2); ubench's f32 two-dot (kernel U) is in twodot.cu.
 //
 // Determinism: every sum runs in a fixed order (per-lane or per-thread K
 // order, then a fixed xor-butterfly across the warp); no atomics, so a replay
@@ -207,16 +198,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "quant_acts.cuh"
-
 namespace {
 
 constexpr int GROUP = 32;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-constexpr int A_KC = 2048;     // K elements of x kernel T stages per chunk
 
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
 
@@ -1634,161 +1621,6 @@ int launch_bank_mm(const void* x, int x_bf16, const Loader& w, const void* eids,
   return (int)(M == 1 ? with_row_tile(plan, launch) : with_tile(plan, launch));
 }
 
-// ---------------------------------------------------------------------------
-// kernel T: the W4A8 GEMV on native superblocks summed per K-slab
-// ---------------------------------------------------------------------------
-constexpr int S_WARPS = 8;  // warps of a CTA (fewer when it owns fewer columns)
-
-// One slab's sum across a warp. Each lane holds a partial sum of low-nibble
-// group terms (lane bit HB clear) or high-nibble ones (bit set); a fixed xor
-// butterfly over the other four lane bits sums each half, then every lane
-// takes lo + hi. The order is fixed, so a column's bits do not depend on the
-// CTA it ran in.
-template <int HB>
-__device__ __forceinline__ float slab_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1)
-    if (o != HB) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const float other = __shfl_xor_sync(0xffffffffu, v, HB);
-  return (threadIdx.x & HB) ? other + v : v + other;  // lo + hi on every lane
-}
-
-// Kernel T: kernel I's lanes (lane = superblock tl of an 8-superblock step,
-// 64-element chunk c: groups 2c, 2c+1; lane bit 1 says lo or hi), each term
-// (float)dot * (d*sc) * xscale - (xscale*xsum) * (dmin*mn), summed per slab of
-// cps steps (kb = 8*cps superblocks, or the whole K as one slab).
-template <int MT>
-__global__ void __launch_bounds__(S_WARPS * 32)
-w4a8k4_slab_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                   const float* __restrict__ sxm, const uint8_t* __restrict__ blocks,
-                   float* __restrict__ out, int M, int K, int N, int bn, int cps) {
-  __shared__ __align__(16) int8_t s_x[MT * A_KC];
-  __shared__ float s_xs[MT * (A_KC / GROUP)];
-  __shared__ float s_sxm[MT * (A_KC / GROUP)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  const int G = K / GROUP;
-  const int nsb = K / QK_K;
-  const int nsteps = (K + A_KC - 1) / A_KC;
-  const int tl = lane >> 2, c = lane & 3;
-  for (int cg = 0; cg < bn; cg += nw) {
-    const bool live = cg + warp < bn;
-    const int n = blockIdx.x * bn + cg + warp;
-    const uint8_t* wrow = blocks + (size_t)n * nsb * Q4K_BLOCK;
-    float run[MT], part[MT];
-#pragma unroll
-    for (int r = 0; r < MT; ++r) run[r] = part[r] = 0.0f;
-    for (int step = 0; step < nsteps; ++step) {
-      const int k0 = step * A_KC;
-      const int kc = min(A_KC, K - k0);
-      const int gc = kc / GROUP;
-      __syncthreads();
-      for (int i = threadIdx.x; i < M * (kc / 16); i += blockDim.x) {
-        const int r = i / (kc / 16), cc = i % (kc / 16);
-        reinterpret_cast<int4*>(s_x + r * A_KC)[cc] =
-            reinterpret_cast<const int4*>(xq + (size_t)r * K + k0)[cc];
-      }
-      for (int i = threadIdx.x; i < M * gc; i += blockDim.x) {
-        const int r = i / gc, cc = i % gc;
-        s_xs[r * (A_KC / GROUP) + cc] = xs[(size_t)r * G + k0 / GROUP + cc];
-        s_sxm[r * (A_KC / GROUP) + cc] = sxm[(size_t)r * G + k0 / GROUP + cc];
-      }
-      __syncthreads();
-      if (!live) continue;
-      const int t = k0 / QK_K + tl;
-      if (t < nsb) {
-        const uint4* blk = reinterpret_cast<const uint4*>(wrow + (size_t)t * Q4K_BLOCK);
-        const uint4 hdr = __ldg(blk);
-        const uint4 a = __ldg(blk + 1 + 2 * c);
-        const uint4 b = __ldg(blk + 2 + 2 * c);
-        const float d = half_bits_to_f32(hdr.x), dmin = half_bits_to_f32(hdr.x >> 16);
-        int sc1, mn1, sc2, mn2;
-        scale_min_k4(2 * c, hdr.y, hdr.z, hdr.w, sc1, mn1);
-        scale_min_k4(2 * c + 1, hdr.y, hdr.z, hdr.w, sc2, mn2);
-        const float ws1 = d * (float)sc1, wm1 = dmin * (float)mn1;
-        const float ws2 = d * (float)sc2, wm2 = dmin * (float)mn2;
-        const int l0 = a.x & 0x0F0F0F0F, h0 = (a.x >> 4) & 0x0F0F0F0F;
-        const int l1 = a.y & 0x0F0F0F0F, h1 = (a.y >> 4) & 0x0F0F0F0F;
-        const int l2 = a.z & 0x0F0F0F0F, h2 = (a.z >> 4) & 0x0F0F0F0F;
-        const int l3 = a.w & 0x0F0F0F0F, h3 = (a.w >> 4) & 0x0F0F0F0F;
-        const int l4 = b.x & 0x0F0F0F0F, h4 = (b.x >> 4) & 0x0F0F0F0F;
-        const int l5 = b.y & 0x0F0F0F0F, h5 = (b.y >> 4) & 0x0F0F0F0F;
-        const int l6 = b.z & 0x0F0F0F0F, h6 = (b.z >> 4) & 0x0F0F0F0F;
-        const int l7 = b.w & 0x0F0F0F0F, h7 = (b.w >> 4) & 0x0F0F0F0F;
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          if (r < M) {
-            const int4* xp =
-                reinterpret_cast<const int4*>(s_x + r * A_KC + tl * QK_K + c * 64);
-            const int4 x0 = xp[0], x1 = xp[1], x2 = xp[2], x3 = xp[3];
-            int dot1 = __dp4a(l0, x0.x, 0);
-            dot1 = __dp4a(l1, x0.y, dot1);
-            dot1 = __dp4a(l2, x0.z, dot1);
-            dot1 = __dp4a(l3, x0.w, dot1);
-            dot1 = __dp4a(l4, x1.x, dot1);
-            dot1 = __dp4a(l5, x1.y, dot1);
-            dot1 = __dp4a(l6, x1.z, dot1);
-            dot1 = __dp4a(l7, x1.w, dot1);
-            int dot2 = __dp4a(h0, x2.x, 0);
-            dot2 = __dp4a(h1, x2.y, dot2);
-            dot2 = __dp4a(h2, x2.z, dot2);
-            dot2 = __dp4a(h3, x2.w, dot2);
-            dot2 = __dp4a(h4, x3.x, dot2);
-            dot2 = __dp4a(h5, x3.y, dot2);
-            dot2 = __dp4a(h6, x3.z, dot2);
-            dot2 = __dp4a(h7, x3.w, dot2);
-            const int si = r * (A_KC / GROUP) + tl * 8 + 2 * c;
-            part[r] += (float)dot1 * ws1 * s_xs[si] - s_sxm[si] * wm1;
-            part[r] += (float)dot2 * ws2 * s_xs[si + 1] - s_sxm[si + 1] * wm2;
-          }
-        }
-      }
-      if ((step + 1) % cps == 0 || step + 1 == nsteps) {  // a slab ends here
-        const bool first = step + 1 <= cps;
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const float acc = slab_sum<2>(part[r]);
-          run[r] = first ? acc : run[r] + acc;
-          part[r] = 0.0f;
-        }
-      }
-    }
-    if (live && lane == 0) {
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-        if (r < M) out[(size_t)r * N + n] = run[r];
-    }
-  }
-}
-
-template <int MT>
-void launch_x2(const int8_t* xq, const float* xs, const float* sxm, const uint8_t* blocks,
-               float* out, int M, int K, int N, int bn, int cps, cudaStream_t st) {
-  w4a8k4_slab_kernel<MT><<<N / bn, min(S_WARPS, bn) * 32, 0, st>>>(xq, xs, sxm, blocks, out, M,
-                                                                    K, N, bn, cps);
-}
-
-// the activation prologue, then kernel T
-int launch_slab_w4a8k4(const void* x, int x_bf16, const void* blocks, int bn, int cps,
-                       void* xq, void* xs, void* sxm, void* out, int M, int K, int N,
-                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  acts::launch_quant_acts(x, x_bf16, M, K, xq, xs, sxm, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int8_t* q = static_cast<const int8_t*>(xq);
-  const float* s = static_cast<const float*>(xs);
-  const float* sm = static_cast<const float*>(sxm);
-  const uint8_t* c = static_cast<const uint8_t*>(blocks);
-  float* o = static_cast<float*>(out);
-  if (M <= 1) launch_x2<1>(q, s, sm, c, o, M, K, N, bn, cps, st);
-  else if (M <= 2) launch_x2<2>(q, s, sm, c, o, M, K, N, bn, cps, st);
-  else if (M <= 4) launch_x2<4>(q, s, sm, c, o, M, K, N, bn, cps, st);
-  else if (M <= 8) launch_x2<8>(q, s, sm, c, o, M, K, N, bn, cps, st);
-  else launch_x2<16>(q, s, sm, c, o, M, K, N, bn, cps, st);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -1967,20 +1799,6 @@ int q4k_parts_mm_launch(const void* x, int x_bf16, const void* codes, const void
   const Q4KMinLoader<__nv_bfloat16> w{{c, static_cast<const __nv_bfloat16*>(scales)},
                                       static_cast<const __nv_bfloat16*>(mins)};
   return launch_dequant_mm(x, x_bf16, w, nb, plan, out, M, K, N, stream);
-}
-
-// Kernel T: kernel I's function on native Q4_K superblocks ([N, K/256 * 144]
-// bytes) summed per slab of kb superblocks, kb a multiple of 8 or K/256 (the
-// whole K as one slab); each CTA owns bn columns (N % bn == 0).
-int w4a8k4_slab_launch(const void* x, int x_bf16, const void* blocks, int bn, int kb,
-                       void* xq, void* xs, void* sxm, void* out, int M, int K, int N,
-                       void* stream) {
-  const int nsb = K / QK_K;
-  if (M < 1 || M > 16 || bn < 1 || N % bn || K % QK_K || kb < 1 || nsb % kb ||
-      (kb % 8 && kb != nsb))
-    return (int)cudaErrorInvalidValue;
-  const int cps = kb % 8 ? (nsb + 7) / 8 : kb / 8;  // 8-superblock steps per slab
-  return launch_slab_w4a8k4(x, x_bf16, blocks, bn, cps, xq, xs, sxm, out, M, K, N, stream);
 }
 
 }  // extern "C"

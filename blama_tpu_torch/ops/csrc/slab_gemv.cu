@@ -1,4 +1,4 @@
-// Kernels Q and V, CUDA C++ for Hopper (sm_90a): the tools' W4A8 GEMV
+// Kernels Q, V and T, CUDA C++ for Hopper (sm_90a): the tools' W4A8 GEMV
 // summed per K-slab.
 //
 // Q (w4a8_slab_launch) replaces blama_tpu/ops/pallas/quant_matmul.py:
@@ -7,27 +7,38 @@
 // (w4a8_plane_launch) replaces blama_tpu/tools/ubench_q4k.py:_v2_kernel
 // (int8 codes [N, K]) and :_v3_kernel (ubench's tile-paired codes, uint8
 // [N, K/2]: tile t's 128 bytes at 128t, byte j = element 256t+j low and
-// 256t+128+j high). No engine reaches them; the tools do. Both: kernel A's
-// quantizer (at 2-16 rows a launch of its own, quant_acts.cuh; at one row
-// inside this kernel, the same arithmetic), then per output column
-// and 32-group the int32 dot of the codes with the activation codes, each
-// term (float)dot * ws * xscale (ws the group's bf16 scale), summed per
-// slab of kb superblocks (8*kb groups), the slabs added in K order, the
-// first assigned; the min term is the caller's, as in the references. kb is
-// a parameter of their numerics; the references' column tile block_n only
-// passes their clamp.
+// 256t+128+j high); T (w4a8k4_slab_launch) replaces tools/ab_a8k4.py:
+// _x2_kernel (native Q4_K superblocks [N, K/256 * 144] bytes, kernel I's
+// group terms with the min term in each). No engine reaches them; the tools
+// do. All three: kernel A's quantizer (at 2-16 rows a launch of its own,
+// acts::quant_acts_kernel; at one row inside this kernel, the same
+// arithmetic), then
+// per output column and 32-group the int32 dot of the codes with the
+// activation codes, each term (float)dot * ws * xscale (ws the group's bf16
+// scale; T: d * sc, and minus (xscale * xsum) * (dmin * mn)), summed per slab
+// of kb superblocks (8*kb groups), the slabs added in K order, the first
+// assigned; Q's and V's min term is the caller's, as in the references. kb
+// is a parameter of their numerics; the references' column tile block_n
+// only passes their clamp.
 //
-// The sum order is the one-warp-per-column kernel's that Q and V had before,
-// bit for bit (testing.slab_lane_order): lane l took groups l and l+32 of a
-// slab, part = fmaf(dot * ws, xscale, part) from 0 (the product dot * ws
-// rounded, the fma rounded once: what that kernel's compiled term did,
-// PERF.md §6), then slab_sum<HB>: Q (HB = 4) an xor butterfly over lane
+// The sum order is the one-warp-per-column kernel's that each had before,
+// bit for bit. Q and V (testing.slab_lane_order): lane l took groups l and
+// l+32 of a slab, part = fmaf(dot * ws, xscale, part) from 0 (the product
+// dot * ws rounded, the fma rounded once: what that kernel's compiled term
+// did, PERF.md §6), then slab_sum<HB>: Q (HB = 4) an xor butterfly over lane
 // bits 0, 1, 3, 4 (each half: the slab's low-nibble groups 0-3 of each
 // superblock, or its high ones), then lo + hi; V (HB = 0) over all five
 // bits. A warp here rebuilds that tree for each output it holds: the lane
 // terms of groups 4q..4q+3 of a superblock (and of the superblock four
 // later, fused in) give quad q's sum, and the quads of the slab meet as the
-// butterfly's last levels meet them.
+// butterfly's last levels meet them. T (testing.x2_lane_order): K in steps
+// of 8 superblocks, lane (tl, c) took superblock tl of each step of a slab
+// and groups 2c, 2c+1 of it, part = part + term; a slab ended in an xor
+// butterfly over lane bits 0, 2, 3, 4, then lo + hi (bit 1: groups 4-7);
+// its term was fma(dot * ws, xscale, -(sxm * wm)) (PERF.md §6). A warp here
+// runs each emulated lane's chains over its superblocks (the slab's
+// superblocks stream tl-major: 0, 8, .., 1, 9, ..) and folds them as the
+// butterfly's levels did (x2_chunk, X2Tree).
 //
 // Bound on this card: bytes (the codes and scales, ~0.56 bytes a weight,
 // against 2*M int8 operations a weight: far below the int8 tensor rate). So:
@@ -39,14 +50,22 @@
 //   - a CTA of T tiles of 16 columns, R consumer warps a tile, and one
 //     producer thread that keeps a ring of D slots full with TMA boxes
 //     (tma_ring.cuh): a slot is one superblock of K (8 groups) of x's codes
-//     and scales and of the CTA's codes and scales, the code boxes swizzled
-//     by 128 bytes so each ldmatrix reads 8 rows from 8 bank groups. x is
-//     staged once per CTA and slot, overlapped with compute, with no CTA
-//     barrier in the K loop;
+//     and scales (T: and x's sxm) and of the CTA's codes and scales, the
+//     code boxes swizzled by 128 bytes so each ldmatrix reads 8 rows from 8
+//     bank groups (T: one box of the CTA's 144-byte superblocks, header and
+//     codes, unswizzled: a 144-byte row stride already spreads 8 rows over
+//     8 bank groups). x is staged once per CTA and slot, overlapped with
+//     compute, with no CTA barrier in the K loop;
+//   - T decodes each header once per warp (a lane two groups of two
+//     columns, handed to the quad's other lanes by shuffles), and takes the
+//     high nibbles' dot 16-fold (unsigned A, the nibbles masked in place)
+//     with the ws of those groups divided by 16: the same floats;
 //   - a warp's step is two neighbouring slots: where kb > 4 a superblock and
 //     the one four later, whose terms a lane fuses (the slab's superblocks
 //     stream in the order 0, 4, 1, 5, 2, 6, 3, 7), else two superblocks of a
-//     slab, one half of its tree; fewer steps, fewer waits and folds;
+//     slab, one half of its tree; fewer steps, fewer waits and folds. T's
+//     step is whole chains of emulated lanes, a slot at a time: two (tl, tl
+//     + 1) of one superblock each where kb <= 8, else one of ceil(kb / 8);
 //   - where the tiles are few (wk/wv's 64) or K long (down), one warp a tile
 //     would leave an SM one or two warps of latency-bound chains: the R
 //     warps of a tile take its steps in turn, hand each round's partial sums
@@ -66,29 +85,93 @@
 // same bits, and a row's outputs do not depend on M or on the row's index.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "quant_acts.cuh"
 #include "tma_ring.cuh"
 
 namespace {
 
-constexpr int QK_K = 256;               // a superblock (Q) or tile (V): a slot's K
+// Kernel A's activation quantizer as a launch of its own: the prologue of
+// the slab GEMVs at 2-16 rows. Per (row, 32-group) of x: scale = amax / 127
+// (IEEE division), inv = 1 / scale (0 when scale is 0), q = rint(x * inv)
+// as int8 (round half to even), xs = scale, sxm = scale * sum(q); one warp
+// per (row, group). Each CTA lets a programmatic dependent launch (the
+// GEMV) start at once: the GEMV waits for this grid's outputs itself
+// (griddepcontrol.wait), and streams its weights meanwhile.
+namespace acts {
+
+constexpr int GROUP = 32;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__global__ void quant_acts_kernel(const T* __restrict__ x, int M, int K,
+                                  int8_t* __restrict__ xq,
+                                  float* __restrict__ xs,
+                                  float* __restrict__ sxm) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int G = K / GROUP;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= M * G) return;  // uniform per warp
+  const int m = warp / G, g = warp % G;
+  const size_t idx = (size_t)m * K + (size_t)g * GROUP + lane;
+  const float v = to_f32(x[idx]);
+  float a = fabsf(v);
+#pragma unroll
+  for (int o = 16; o; o >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+  const float scale = a / 127.0f;
+  const float inv = scale > 0.0f ? 1.0f / scale : 0.0f;
+  const int q = __float2int_rn(v * inv);
+  int s = q;
+#pragma unroll
+  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  xq[idx] = (int8_t)q;
+  if (lane == 0) {
+    xs[(size_t)m * G + g] = scale;
+    sxm[(size_t)m * G + g] = scale * (float)s;
+  }
+}
+
+// x [M, K] bf16 (x_bf16) or f32 → xq int8 [M, K], xs and sxm f32 [M, K/32]
+void launch_quant_acts(const void* x, int x_bf16, int M, int K, void* xq, void* xs, void* sxm,
+                       cudaStream_t st) {
+  const int warps = M * (K / GROUP);
+  const int qblocks = (warps * 32 + 255) / 256;
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* s = static_cast<float*>(xs);
+  float* sm = static_cast<float*>(sxm);
+  if (x_bf16)
+    quant_acts_kernel<__nv_bfloat16><<<qblocks, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), M, K, q, s, sm);
+  else
+    quant_acts_kernel<float><<<qblocks, 256, 0, st>>>(static_cast<const float*>(x), M, K, q, s,
+                                                       sm);
+}
+
+}  // namespace acts
+
+constexpr int QK_K = 256;               // a superblock (Q, T) or tile (V): a slot's K
+constexpr int Q4K_BLOCK = 144;          // T's superblock bytes: a 16-byte header, 128 of codes
 constexpr int SG_MAX_WARPS = 8;         // consumer warps of a CTA, 16 columns each
 constexpr int SG_MAX_SLOTS = 32;
 constexpr int SG_SMEM_MAX = 232448;     // an H100's shared memory for one CTA
 constexpr uint32_t SG_MAGIC = 0x4B400000u;  // the mma's C: D as a float is 1.5*2^23 + dot
 constexpr uint32_t NIB = 0x0F0F0F0Fu;
 
-enum SlabCodes { GROUP_PAIRED = 0, INT8_CODES = 1, TILE_PAIRED = 2 };
+enum SlabCodes { GROUP_PAIRED = 0, INT8_CODES = 1, TILE_PAIRED = 2, Q4K_NATIVE = 3 };
 
 // A slot: x's codes ([2 halves][XR rows][128 bytes], each half swizzled),
 // the CTA's codes ([cols][128 bytes] swizzled; int8 codes [2][cols][128]),
 // x's scales ([XR][8] f32), the CTA's scales ([cols][8] bf16), on 1024
-// bytes; at one row x's parts are not in the slot (the CTA quantizes x's
-// row into shared memory once). quant_matmul.slab_slot_bytes computes the
-// same sizes.
+// bytes; T: x's codes, the CTA's superblocks ([cols][144 bytes]
+// unswizzled: a column's header, then its codes), x's scales, x's sxm
+// ([XR][8] f32); at one row x's parts are not in the slot (the CTA
+// quantizes x's row into shared memory once). quant_matmul.slab_slot_bytes
+// computes the same sizes, and slab_slot_size gives these to it.
 __host__ __device__ constexpr int sg_xr(int MT) { return MT <= 8 ? 8 : 16; }
 __host__ __device__ constexpr int sg_x_bytes(int MT) { return MT == 1 ? 0 : 2 * sg_xr(MT) * 128; }
 __host__ __device__ constexpr int sg_xs_bytes(int MT) { return MT == 1 ? 0 : 32 * sg_xr(MT); }
@@ -96,7 +179,8 @@ __host__ __device__ constexpr int sg_code_bytes(int L, int cols) {
   return (L == INT8_CODES ? 256 : 128) * cols;
 }
 __host__ __device__ constexpr int sg_tx_bytes(int MT, int L, int cols) {
-  return sg_x_bytes(MT) + sg_code_bytes(L, cols) + sg_xs_bytes(MT) + 16 * cols;
+  return sg_x_bytes(MT) + sg_code_bytes(L, cols) + (L == Q4K_NATIVE ? 2 : 1) * sg_xs_bytes(MT) +
+         16 * cols;
 }
 __host__ __device__ constexpr int sg_slot_bytes(int MT, int L, int cols) {
   return (sg_tx_bytes(MT, L, cols) + 1023) / 1024 * 1024;
@@ -133,14 +217,26 @@ __device__ __forceinline__ float bf16_at(const uint4& v, int k) {
 // What a lane holds: NO outputs, output o at column gq + 8 * col_hi(o) of
 // the warp's 16 and x row 2t + row_of(o) (d register dreg(o) of product
 // o / 4's); at one row only the rows-0 outputs (d0, d2) of lanes t = 0.
+__host__ __device__ constexpr int sg_outs(int MT) { return MT == 1 ? 2 : MT <= 8 ? 4 : 8; }
+
 template <int MT>
 struct Outs {
-  static constexpr int NO = MT == 1 ? 2 : MT <= 8 ? 4 : 8;
+  static constexpr int NO = sg_outs(MT);
   static constexpr int NP = MT <= 8 ? 1 : 2;   // products a group (8 rows each)
   __device__ static constexpr int col_hi(int o) { return NO == 2 ? o : (o >> 1) & 1; }
   __device__ static constexpr int row_of(int o) { return NO == 2 ? 0 : (o & 1) + 8 * (o >> 2); }
   __device__ static constexpr int dreg(int o) { return NO == 2 ? 2 * o : o & 3; }
 };
+
+// A CTA's dynamic shared memory (quant_matmul.slab_smem, and slab_smem_size
+// gives it): 1024 bytes to align the ring, the ring, its 2·D barriers, where
+// R > 1 the partial sums a tile's warps hand each other (two buffers), and
+// at one row x's row quantized (K codes, K/32 f32 scales; T: and K/32 sxm).
+__host__ __device__ constexpr size_t sg_smem_bytes(int MT, int L, int T, int R, int D, int K) {
+  return 1024 + (size_t)D * sg_slot_bytes(MT, L, 16 * T) + 16 * (size_t)D +
+         (R > 1 ? (size_t)512 * T * R * sg_outs(MT) : 0) +
+         (MT == 1 ? (size_t)K + (L == Q4K_NATIVE ? 8 : 4) * (size_t)(K / 32) : 0);
+}
 
 // The A fragments of groups k and k+4 of a slot's superblock, for the 16
 // columns at c0 (ldmatrix.x4: lane 8m + r gives row r of matrix m).
@@ -333,6 +429,76 @@ struct SlabTree {
   }
 };
 
+// x's row (one row) quantized as quant_acts_kernel does it (per 32-group:
+// amax / 127, codes rint(x * (1 / scale)), scale * their sum) into shared
+// memory: its codes (x_row), scales (xs_row) and, where sxm_row is given,
+// scale * sum; by the W consumer warps (warp 0 .. W-1) while the producer
+// streams the first slots: a thread takes 8 elements, four threads a group.
+// CTA 0 also writes xq, xs, sxm out.
+__device__ __forceinline__ void quant_row(const void* x, int x_bf16, int K, int warp, int W,
+                                          int lane, int8_t* x_row, float* xs_row, float* sxm_row,
+                                          int8_t* xq_out, float* xs_out, float* sxm_out) {
+  const int G = K / 32;
+  constexpr int QB = 8;  // chunks a thread loads before it quantizes one: one round trip
+  for (int e0 = warp * 32; e0 < 4 * G; e0 += QB * W * 32) {
+    uint4 raw[QB][2];
+#pragma unroll
+    for (int j = 0; j < QB; ++j) {
+      const int e = e0 + j * W * 32 + lane;
+      raw[j][0] = raw[j][1] = make_uint4(0, 0, 0, 0);
+      if (e < 4 * G) {
+        if (x_bf16) {
+          raw[j][0] = __ldg(reinterpret_cast<const uint4*>(x) + e);
+        } else {
+          raw[j][0] = __ldg(reinterpret_cast<const uint4*>(x) + 2 * e);
+          raw[j][1] = __ldg(reinterpret_cast<const uint4*>(x) + 2 * e + 1);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < QB; ++j) {
+      const int e = e0 + j * W * 32 + lane, g = e >> 2;
+      if (e0 + j * W * 32 >= 4 * G) break;  // uniform: the warp's chunks are done
+      const bool live = e < 4 * G;        // the same for the four lanes of a group
+      float v[8];
+      const uint32_t w[8] = {raw[j][0].x, raw[j][0].y, raw[j][0].z, raw[j][0].w,
+                             raw[j][1].x, raw[j][1].y, raw[j][1].z, raw[j][1].w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = x_bf16 ? __uint_as_float((i & 1) ? (w[i >> 1] & 0xFFFF0000u) : (w[i >> 1] << 16))
+                      : __uint_as_float(w[i]);
+      float a = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a = fmaxf(a, fabsf(v[i]));
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
+      const float scale = a / 127.0f;
+      const float inv = scale > 0.0f ? 1.0f / scale : 0.0f;
+      uint32_t packed[2] = {0, 0};
+      int sum = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = __float2int_rn(v[i] * inv);
+        sum += q;
+        packed[i >> 2] |= (uint32_t)(q & 0xFF) << (8 * (i & 3));
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (live) {
+        reinterpret_cast<uint2*>(x_row)[e] = make_uint2(packed[0], packed[1]);
+        if ((e & 3) == 0) {
+          xs_row[g] = scale;
+          if (sxm_row) sxm_row[g] = scale * (float)sum;
+        }
+        if (blockIdx.x == 0) {
+          reinterpret_cast<uint2*>(xq_out)[e] = make_uint2(packed[0], packed[1]);
+          if ((e & 3) == 0) xs_out[g] = scale, sxm_out[g] = scale * (float)sum;
+        }
+      }
+    }
+  }
+}
+
 // Kernels Q (L = GROUP_PAIRED, HB = 4) and V (INT8_CODES, TILE_PAIRED; HB =
 // 0). A CTA owns T tiles of 16 columns and runs R consumer warps on each
 // (warp = tile * R + r), beside a producer warp. The producer (one thread)
@@ -415,66 +581,7 @@ slab_gemv_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 
   if constexpr (MT == 1) {
-    // x's row quantized as quant_acts_kernel does it (per 32-group: amax /
-    // 127, codes rint(x * (1 / scale)), scale * their sum), by the consumer
-    // warps while the producer streams the first slots: a thread takes 8
-    // elements, four threads a group; CTA 0 also writes xq, xs, sxm out
-    const int G = K / 32;
-    constexpr int QB = 8;  // chunks a thread loads before it quantizes one: one round trip
-    for (int e0 = warp * 32; e0 < 4 * G; e0 += QB * W * 32) {
-      uint4 raw[QB][2];
-#pragma unroll
-      for (int j = 0; j < QB; ++j) {
-        const int e = e0 + j * W * 32 + lane;
-        raw[j][0] = raw[j][1] = make_uint4(0, 0, 0, 0);
-        if (e < 4 * G) {
-          if (x_bf16) {
-            raw[j][0] = __ldg(reinterpret_cast<const uint4*>(x) + e);
-          } else {
-            raw[j][0] = __ldg(reinterpret_cast<const uint4*>(x) + 2 * e);
-            raw[j][1] = __ldg(reinterpret_cast<const uint4*>(x) + 2 * e + 1);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < QB; ++j) {
-        const int e = e0 + j * W * 32 + lane, g = e >> 2;
-        if (e0 + j * W * 32 >= 4 * G) break;  // uniform: the warp's chunks are done
-        const bool live = e < 4 * G;        // the same for the four lanes of a group
-        float v[8];
-        const uint32_t w[8] = {raw[j][0].x, raw[j][0].y, raw[j][0].z, raw[j][0].w,
-                               raw[j][1].x, raw[j][1].y, raw[j][1].z, raw[j][1].w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          v[i] = x_bf16 ? __uint_as_float((i & 1) ? (w[i >> 1] & 0xFFFF0000u) : (w[i >> 1] << 16))
-                        : __uint_as_float(w[i]);
-        float a = 0.0f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a = fmaxf(a, fabsf(v[i]));
-        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
-        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
-        const float scale = a / 127.0f;
-        const float inv = scale > 0.0f ? 1.0f / scale : 0.0f;
-        uint32_t packed[2] = {0, 0};
-        int sum = 0;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int q = __float2int_rn(v[i] * inv);
-          sum += q;
-          packed[i >> 2] |= (uint32_t)(q & 0xFF) << (8 * (i & 3));
-        }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        if (live) {
-          reinterpret_cast<uint2*>(x_row)[e] = make_uint2(packed[0], packed[1]);
-          if ((e & 3) == 0) xs_row[g] = scale;
-          if (blockIdx.x == 0) {
-            reinterpret_cast<uint2*>(xq_out)[e] = make_uint2(packed[0], packed[1]);
-            if ((e & 3) == 0) xs_out[g] = scale, sxm_out[g] = scale * (float)sum;
-          }
-        }
-      }
-    }
+    quant_row(x, x_bf16, K, warp, W, lane, x_row, xs_row, nullptr, xq_out, xs_out, sxm_out);
     asm volatile("bar.sync 15, %0;\n" ::"r"(W * 32) : "memory");  // the consumer warps
   }
 
@@ -581,9 +688,7 @@ int launch_slab(const void* x, int x_bf16, const void* codes, const void* scales
                 int D, cudaStream_t st) {
   constexpr int XR = sg_xr(MT);
   const int cols = 16 * T;
-  const size_t smem = 1024 + (size_t)D * sg_slot_bytes(MT, L, cols) + 16 * D +
-                      (R > 1 ? 512 * T * R * Outs<MT>::NO : 0) +
-                      (MT == 1 ? (size_t)K + 4 * (K / 32) : 0);
+  const size_t smem = sg_smem_bytes(MT, L, T, R, D, K);
   if (smem > (size_t)SG_SMEM_MAX) return (int)cudaErrorInvalidValue;
   // x's codes [M][K] and the codes [N][K or K/2] bytes in 128-byte boxes
   // (128-byte swizzle); x's scales [M][K/32] f32 and the scales [N][K/32]
@@ -623,7 +728,7 @@ int launch_slab(const void* x, int x_bf16, const void* codes, const void* scales
   if (MT > 1) {
     // the quantizer, then this launch as its programmatic dependent: it may
     // start while the quantizer runs, and waits for its outputs itself
-    acts::launch_quant_acts<true>(x, x_bf16, M, K, xq, xs, sxm, st);
+    acts::launch_quant_acts(x, x_bf16, M, K, xq, xs, sxm, st);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -675,6 +780,443 @@ int launch_w4a8_slab(const void* x, int x_bf16, const void* codes, const void* s
                                        D, st);
 }
 
+// ---------------------------------------------------------------------------
+// kernel T: native Q4_K superblocks, the min term in each group term
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float half_bits_to_f32(uint32_t bits) {
+  return __half2float(__ushort_as_half((unsigned short)(bits & 0xFFFFu)));
+}
+
+// 6-bit scale and min of group j from the 12 scale bytes, as three
+// little-endian words (ggml get_scale_min_k4)
+__device__ __forceinline__ void scale_min_k4(int j, uint32_t w0, uint32_t w1, uint32_t w2,
+                                             int& sc, int& mn) {
+  if (j < 4) {
+    sc = (w0 >> (8 * j)) & 63;
+    mn = (w1 >> (8 * j)) & 63;
+  } else {
+    const int i = j - 4;
+    sc = ((w2 >> (8 * i)) & 0xF) | (((w0 >> (8 * i + 6)) & 3) << 4);
+    mn = ((w2 >> (8 * i + 4)) & 0xF) | (((w1 >> (8 * i + 6)) & 3) << 4);
+  }
+}
+
+// v * f for a 6-bit v, exact (an f16 by a 6-bit integer): 2^23 + v, less
+// 2^23, inside one fma
+__device__ __forceinline__ float times6(int v, float f) {
+  return __fmaf_rn(__int_as_float(0x4B000000 | v), f, __fmul_rn(-8388608.0f, f));
+}
+
+// T's weights of groups 2c and 2c + 1 from a superblock's 16-byte header:
+// (ws, wm, ws', wm') = (d * sc, dmin * mn) of each, group 2c + 1's ws
+// divided by 16 (exact) for its high nibbles' 16-fold dot (mma_u8)
+__device__ __forceinline__ float4 x2_decode(const uint4& h, int c) {
+  const float d = half_bits_to_f32(h.x), dmin = half_bits_to_f32(h.x >> 16);
+  int sc0, mn0, sc1, mn1;
+  scale_min_k4(2 * c, h.y, h.z, h.w, sc0, mn0);
+  scale_min_k4(2 * c + 1, h.y, h.z, h.w, sc1, mn1);
+  return make_float4(times6(sc0, d), times6(mn0, dmin), times6(sc1, __fmul_rn(d, 0.0625f)),
+                     times6(mn1, dmin));
+}
+
+// the same of groups t and t + 4 (lane t of a quad: one path for every
+// lane), both ws divided by 16 where t is odd (odd groups: high nibbles)
+__device__ __forceinline__ float4 x2_decode_t(const uint4& h, int t) {
+  const float d = half_bits_to_f32(h.x), dmin = half_bits_to_f32(h.x >> 16);
+  const float dd = (t & 1) ? __fmul_rn(d, 0.0625f) : d;
+  const uint32_t w0 = h.y >> (8 * t), w1 = h.z >> (8 * t), w2 = h.w >> (8 * t);
+  return make_float4(times6(w0 & 63, dd), times6(w1 & 63, dmin),
+                     times6((w2 & 0xF) | ((w0 >> 2) & 0x30), dd),
+                     times6(((w2 >> 4) & 0xF) | ((w1 >> 2) & 0x30), dmin));
+}
+
+// T's group term as the parent kernel's compiled code rounds it
+// (testing.x2_lane_order, form "fma_xs"): dot * ws rounded, then one fma
+// with x's scale and the rounded min product, -(sxm * wm). D is the mma's
+// output (1.5 * 2^23 + k * dot, k = 1 or 16, ws already divided by k), so
+// dot * ws = fma(D, ws, -(1.5 * 2^23) * ws): the product and the constant
+// term exact, one rounding, the same float.
+__device__ __forceinline__ float x2_term(int d, float ws, float wm, float xs, float sxm) {
+  const float t = __fmaf_rn(__int_as_float(d), ws, __fmul_rn(-12582912.0f, ws));
+  return __fmaf_rn(t, xs, -__fmul_rn(sxm, wm));
+}
+
+// d = A B + SG_MAGIC as mma_s8, A's codes unsigned: T's high nibbles
+// masked in place (16 * code), so that group's dot comes out 16 times over
+__device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%10,%10,%10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(SG_MAGIC));
+}
+
+// The A fragments of chunk c (32 code bytes) of a slot's superblocks for
+// the 16 columns at c0 (a column's 144 bytes at 144 * column: its header,
+// then its codes; 144 = 9 * 16, so ldmatrix's 8 rows fall in 8 bank
+// groups): the low nibbles (group 2c) and the high ones in place (group 2c
+// + 1, 16 * code)
+__device__ __forceinline__ void x2_a_frags(uint32_t wbase, int c0, int c, int lane,
+                                           uint32_t (&lo)[4], uint32_t (&hi)[4]) {
+  const int r8 = lane & 7, m = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4(wbase + (c0 + r8 + 8 * (m & 1)) * Q4K_BLOCK + 16 + 32 * c + 16 * (m >> 1), r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) lo[i] = r[i] & NIB, hi[i] = r[i] & ~NIB;
+}
+
+// One slot's superblock for the warp's 16 columns at c0, 2-16 rows: each
+// output's four emulated-lane chains, P[o][c] = (P + term(2c)) + term(2c +
+// 1). Each header is decoded once per warp: lane (gq, t) decodes groups t
+// and t + 4 of columns gq and gq + 8, and chunk c takes groups 2c and 2c +
+// 1 from the quad's lanes 2(c & 1) and 2(c & 1) + 1.
+template <int MT>
+__device__ __forceinline__ void x2_chunk(const uint8_t* sl, int cols, int c0, int lane,
+                                         float (&P)[Outs<MT>::NO][4]) {
+  using O = Outs<MT>;
+  constexpr int NO = O::NO, NP = O::NP, XB = sg_x_bytes(MT), XR = sg_xr(MT);
+  const int gq = lane >> 2, t = lane & 3, r8 = lane & 7, m = lane >> 3;
+  const int xso = XB + Q4K_BLOCK * cols, sxo = xso + sg_xs_bytes(MT);
+  const uint32_t base = tma::smem_addr(sl);
+  float4 own[2];  // [column half]: (ws, wm) of groups t, t + 4
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    own[h] = x2_decode_t(
+        *reinterpret_cast<const uint4*>(sl + XB + (c0 + gq + 8 * h) * Q4K_BLOCK), t);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int src = (lane & ~3) | (2 * (c & 1));
+    float4 w[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float a0 = c < 2 ? own[h].x : own[h].z, a1 = c < 2 ? own[h].y : own[h].w;
+      w[h] = make_float4(__shfl_sync(0xffffffffu, a0, src), __shfl_sync(0xffffffffu, a1, src),
+                         __shfl_sync(0xffffffffu, a0, src + 1),
+                         __shfl_sync(0xffffffffu, a1, src + 1));
+    }
+    uint32_t lo[4], hi[4];
+    x2_a_frags(base + XB, c0, c, lane, lo, hi);
+    int dl[NP][4], dh[NP][4];
+#pragma unroll
+    for (int h = 0; h < NP; ++h) {
+      uint32_t b[4];  // x's elements 64c .. 64c + 63 of rows 8h ..: groups 2c (b0, b1), 2c + 1
+      ldsm_x4(base + (c >> 1) * XR * 128 + tma::swz128(8 * h + r8, 64 * (c & 1) + 16 * m), b);
+      mma_u8(dl[h], lo, b[0], b[1]);
+      mma_u8(dh[h], hi, b[2], b[3]);
+    }
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      const int h = o >> 2, row = 2 * t + O::row_of(o);
+      const float4 wc = w[O::col_hi(o)];
+      const float2 xv = *reinterpret_cast<const float2*>(sl + xso + row * 32 + 8 * c);
+      const float2 sv = *reinterpret_cast<const float2*>(sl + sxo + row * 32 + 8 * c);
+      const float tl = x2_term(dl[h][O::dreg(o)], wc.x, wc.y, xv.x, sv.x);
+      P[o][c] = __fadd_rn(__fadd_rn(P[o][c], tl), x2_term(dh[h][O::dreg(o)], wc.z, wc.w, xv.y,
+                                                          sv.y));
+    }
+  }
+}
+
+// x2_chunk at one row: every B row is x's row 0, so every lane of a quad
+// holds its two columns' dots of every group, and lane t runs emulated lane
+// c = t's chain alone (P[o]: column gq + 8o), decoding only its own groups
+__device__ __forceinline__ void x2_chunk_row(const uint8_t* sl, int c0, int lane, uint32_t xq,
+                                             const float* xs, const float* sx, float (&P)[2]) {
+  const int gq = lane >> 2, t = lane & 3, m = lane >> 3;
+  const uint32_t base = tma::smem_addr(sl);
+  int dl[2][4], dh[2][4];  // [column half][chunk]
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint32_t lo[4], hi[4], b[4];
+    x2_a_frags(base, c0, c, lane, lo, hi);
+    ldsm_x4(xq + 64 * c + 16 * m, b);
+    int d[4];
+    mma_u8(d, lo, b[0], b[1]);
+    dl[0][c] = d[0], dl[1][c] = d[2];
+    mma_u8(d, hi, b[2], b[3]);
+    dh[0][c] = d[0], dh[1][c] = d[2];
+  }
+  const float2 xv = *reinterpret_cast<const float2*>(xs + 2 * t);
+  const float2 sv = *reinterpret_cast<const float2*>(sx + 2 * t);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 w =
+        x2_decode(*reinterpret_cast<const uint4*>(sl + (c0 + gq + 8 * h) * Q4K_BLOCK), t);
+    P[h] = __fadd_rn(P[h], x2_term(sel4(t, dl[h]), w.x, w.y, xv.x, sv.x));
+    P[h] = __fadd_rn(P[h], x2_term(sel4(t, dh[h]), w.z, w.w, xv.y, sv.y));
+  }
+}
+
+// The slab tree of one output: the butterfly's levels o = 4, 8, 16 over the
+// emulated lanes tl = 0..7 of each half (l: lo, the low-nibble groups 0-3;
+// h: hi, 4-7), ((v0 + v1) + (v2 + v3)) + ((v4 + v5) + (v6 + v7)), then lo +
+// hi; the slabs into run in K order, the first assigned. A leaf is a step's
+// partials (x: lo, y: hi) over tl0 (one) or tl0, tl0 + 1 (a pair, already
+// summed). Lanes without superblocks are the +0 chains they were.
+struct X2Tree {
+  float l0, l1, l2, h0, h1, h2, run;
+  __device__ __forceinline__ void leaf(int tl0, bool pair, bool first, float x, float y) {
+    if (!pair) {
+      if (!(tl0 & 1)) {
+        l0 = x, h0 = y;
+        return;
+      }
+      x = __fadd_rn(l0, x), y = __fadd_rn(h0, y);
+    }
+    if (!(tl0 & 2)) {
+      l1 = x, h1 = y;
+      return;
+    }
+    x = __fadd_rn(l1, x), y = __fadd_rn(h1, y);
+    if (!(tl0 & 4)) {
+      l2 = x, h2 = y;
+      return;
+    }
+    x = __fadd_rn(l2, x), y = __fadd_rn(h2, y);
+    const float acc = __fadd_rn(x, y);
+    run = first ? acc : __fadd_rn(run, acc);
+  }
+};
+
+// Kernel T. A CTA owns T tiles of 16 columns and runs R consumer warps on
+// each (warp = tile * R + r), beside a producer warp. The producer (one
+// thread) pushes, per column group and slab, the slab's superblocks
+// tl-major: for tl = 0..7 the superblocks tl, tl + 8, .. below kb (an
+// emulated lane's chain): slot seq of the CTA's stream. A tile's steps go in
+// K order: per slab, where kb <= 8 the pairs of lanes (0, 1), .., (6, 7),
+// each a step of at most two slots, else each lane's chain of up to
+// ceil(kb / 8) slots. Warp r of a tile takes steps r, r + R, ..., and each
+// round of R steps the tile's warps hand their partials to each other and
+// fold them as kernel Q's do (a warp waits for a slot by the parity of its
+// use, sound while the ring holds a round's slots: D >= R * the slots of a
+// step). CTA b takes column groups b, b + gridDim.x, ...
+template <int MT>
+__global__ void __launch_bounds__((SG_MAX_WARPS + 1) * 32, 1)
+x2_gemv_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+               const __grid_constant__ CUtensorMap xsmap, const __grid_constant__ CUtensorMap sxmap,
+               float* __restrict__ out, int M, int K, int N, int kb, int T, int R, int D,
+               const void* __restrict__ x, int x_bf16, int8_t* __restrict__ xq_out,
+               float* __restrict__ xs_out, float* __restrict__ sxm_out) {
+  using O = Outs<MT>;
+  constexpr int NO = O::NO, XR = sg_xr(MT), XB = sg_x_bytes(MT);
+  const int W = T * R, cols = 16 * T, slot = sg_slot_bytes(MT, Q4K_NATIVE, cols);
+  const int xso = XB + Q4K_BLOCK * cols;
+  extern __shared__ __align__(1024) uint8_t sg_smem[];
+  uint8_t* ring = sg_smem + ((1024 - (tma::smem_addr(sg_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)D * slot);
+  uint64_t* empty = full + D;
+  float* xch = reinterpret_cast<float*>(empty + D);  // [2][W][2][NO][32] where R > 1
+  // at one row: x's row quantized, its codes [K], scales and sxm [K/32]
+  int8_t* x_row = reinterpret_cast<int8_t*>(xch + (R > 1 ? 2 * W * 2 * NO * 32 : 0));
+  float* xs_row = reinterpret_cast<float*>(x_row + K);
+  float* sxm_row = xs_row + K / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nslab = K / (QK_K * kb), kq = kb >> 3, kr = kb & 7;
+  const bool pair = kb <= 8;  // a step: two lanes of one superblock each, else one lane's chain
+  const int groups = (N + cols - 1) / cols;
+  if (warp == 0) {
+    for (int d = lane; d < D; d += 32) {
+      tma::bar_init(full + d, 1);
+      tma::bar_init(empty + d, T);
+    }
+    tma::fence_init();
+  }
+  __syncthreads();
+
+  if (warp == W) {  // the producer: 5 boxes a slot (1 at one row), zeros past M and N
+    if (lane == 0) {
+      const uint32_t tx = sg_tx_bytes(MT, Q4K_NATIVE, cols);
+      if constexpr (MT > 1) asm volatile("griddepcontrol.wait;\n" ::: "memory");  // x's codes
+      int d = 0, u = 0;
+      for (int g = blockIdx.x; g < groups; g += gridDim.x)
+        for (int s = 0; s < nslab; ++s)
+          for (int tl = 0; tl < 8; ++tl)
+            for (int sb = s * kb + tl; sb < s * kb + kb; sb += 8) {
+              if (u) tma::wait(empty + d, (u - 1) & 1);
+              uint8_t* sl = ring + (size_t)d * slot;
+              tma::arrive_expect(full + d, tx);
+              if constexpr (MT > 1) {
+                tma::copy2d(sl, &xmap, sb * QK_K, 0, full + d);
+                tma::copy2d(sl + XR * 128, &xmap, sb * QK_K + 128, 0, full + d);
+                tma::copy2d(sl + xso, &xsmap, sb * 8, 0, full + d);
+                tma::copy2d(sl + xso + sg_xs_bytes(MT), &sxmap, sb * 8, 0, full + d);
+              }
+              tma::copy2d(sl + XB, &wmap, sb * Q4K_BLOCK, g * cols, full + d);
+              if (++d == D) d = 0, ++u;
+            }
+    }
+    return;
+  }
+
+  if constexpr (MT == 1) {
+    quant_row(x, x_bf16, K, warp, W, lane, x_row, xs_row, sxm_row, xq_out, xs_out, sxm_out);
+    asm volatile("bar.sync 15, %0;\n" ::"r"(W * 32) : "memory");  // the consumer warps
+  }
+
+  const int tile = warp / R, r = warp - tile * R;
+  const int gq = lane >> 2, t = lane & 3, c0 = 16 * tile;
+  const uint32_t x_row_a = tma::smem_addr(x_row);
+  const int per_slab = pair ? 4 : 8, nstep = nslab * per_slab, per_group = nslab * kb;
+  const int ds = R / per_slab, di = R - ds * per_slab;  // a round's step in (slab, step)
+  unsigned own = 0;                                      // the outputs this warp folds and stores
+#pragma unroll
+  for (int o = 0; o < NO; ++o) own |= (o % R == r) << o;
+  int gbase = 0, buf = 0;
+  int seq = 0, d = 0, u = 0;  // a slot of the CTA's stream: seq = u * D + d
+  for (int g = blockIdx.x; g < groups; g += gridDim.x, gbase += per_group) {
+    X2Tree tr[NO];
+    int s = r / per_slab, i = r - (r / per_slab) * per_slab;  // this warp's step: slab s, i
+    int sr = 0, ir = 0;                                          // the round's first step
+    for (int p0 = 0; p0 < nstep; p0 += R) {
+      float x[NO], y[NO];
+      if (p0 + r < nstep) {
+        const int tl0 = pair ? 2 * i : i;
+        int next = gbase + s * kb + tl0 * kq + min(tl0, kr);  // the step's first slot
+#pragma unroll 1
+        for (int a = 0; a < 1 + pair; ++a) {
+          const int tl = tl0 + a, n = (kb - tl + 7) >> 3;  // the lane's superblocks in the slab
+          float P[NO][4], P1[2] = {0.0f, 0.0f};
+#pragma unroll
+          for (int o = 0; o < NO; ++o)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) P[o][c] = 0.0f;
+#pragma unroll 1
+          for (int j = 0; j < n; ++j, ++next) {
+            for (d += next - seq, seq = next; d >= D; d -= D) ++u;
+            tma::wait(full + d, u & 1);
+            const uint8_t* sl = ring + (size_t)d * slot;
+            if constexpr (MT == 1) {
+              const int sb = s * kb + 8 * j + tl;
+              x2_chunk_row(sl, c0, lane, x_row_a + sb * QK_K, xs_row + sb * 8, sxm_row + sb * 8,
+                           P1);
+            } else {
+              x2_chunk<MT>(sl, cols, c0, lane, P);
+            }
+            __syncwarp();
+            if (lane == 0) tma::arrive(empty + d);
+          }
+#pragma unroll
+          for (int o = 0; o < NO; ++o) {
+            float vl, vh;  // the lane's butterfly level o = 1: P(c = 0) + P(1), P(2) + P(3)
+            if constexpr (MT == 1) {
+              // lane t holds chain c = t: lanes 0, 1 give lo, lanes 2, 3 hi
+              vl = vh = __fadd_rn(P1[o], __shfl_xor_sync(0xffffffffu, P1[o], 1));
+            } else {
+              vl = __fadd_rn(P[o][0], P[o][1]), vh = __fadd_rn(P[o][2], P[o][3]);
+            }
+            x[o] = a ? __fadd_rn(x[o], vl) : vl;
+            y[o] = a ? __fadd_rn(y[o], vh) : vh;
+          }
+        }
+        if constexpr (MT == 1) {  // each lane's half: lo into x on every lane, hi into y
+#pragma unroll
+          for (int o = 0; o < NO; ++o) {
+            const float other = __shfl_xor_sync(0xffffffffu, x[o], 2), mine = x[o];
+            x[o] = t < 2 ? mine : other;
+            y[o] = t < 2 ? other : mine;
+          }
+        }
+        if (R == 1) {
+#pragma unroll
+          for (int o = 0; o < NO; ++o) tr[o].leaf(tl0, pair, s == 0, x[o], y[o]);
+        }
+      }
+      if (R > 1) {  // the round's partials to every warp of the tile; each folds its outputs'
+        float* mine = xch + ((size_t)(buf * W + warp) * 2 * NO) * 32 + lane;
+        if (p0 + r < nstep) {
+#pragma unroll
+          for (int o = 0; o < NO; ++o) mine[o * 32] = x[o], mine[(NO + o) * 32] = y[o];
+        }
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + tile), "r"(R * 32) : "memory");
+        int sj = sr, ij = ir;  // steps p0 .. p0 + R - 1: warps tile * R + j
+        for (int j = 0; j < R && p0 + j < nstep; ++j) {
+          const float* th = xch + ((size_t)(buf * W + tile * R + j) * 2 * NO) * 32 + lane;
+#pragma unroll
+          for (int o = 0; o < NO; ++o)
+            if (own >> o & 1)
+              tr[o].leaf(pair ? 2 * ij : ij, pair, sj == 0, th[o * 32], th[(NO + o) * 32]);
+          if (++ij == per_slab) ij = 0, ++sj;
+        }
+        buf ^= 1;
+      }
+      sr += ds, ir += di;
+      if (ir >= per_slab) ir -= per_slab, ++sr;
+      s += ds, i += di;
+      if (i >= per_slab) i -= per_slab, ++s;
+    }
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      const int row = 2 * t + O::row_of(o), n = g * cols + c0 + gq + 8 * O::col_hi(o);
+      if ((own >> o & 1) && row < M && n < N) out[(size_t)row * N + n] = tr[o].run;
+    }
+  }
+}
+
+// the activation prologue (a launch of its own at 2..16 rows; at one row
+// the kernel quantizes x itself), then kernel T
+template <int MT>
+int launch_x2(const void* x, int x_bf16, const void* blocks, int8_t* xq, float* xs, float* sxm,
+              float* out, int M, int K, int N, int kb, int T, int R, int D, cudaStream_t st) {
+  constexpr int XR = sg_xr(MT);
+  const int cols = 16 * T;
+  const size_t smem = sg_smem_bytes(MT, Q4K_NATIVE, T, R, D, K);
+  if (smem > (size_t)SG_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  // the superblocks [N][K/256 * 144] bytes in boxes of one superblock of
+  // the CTA's columns (unswizzled: a column's 144 bytes, header and codes);
+  // x's codes [M][K] in 128-byte boxes (128-byte swizzle), its scales and
+  // sxm [M][K/32] f32 in boxes of 8 groups
+  const cuuint64_t G = K / 32, rb = (cuuint64_t)(K / QK_K) * Q4K_BLOCK;
+  const cuuint64_t wd[2] = {rb, (cuuint64_t)N}, wst[1] = {rb};
+  const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)M}, xst[1] = {(cuuint64_t)K};
+  const cuuint64_t xsd[2] = {G, (cuuint64_t)M}, xsst[1] = {G * 4};
+  const cuuint32_t wbox[2] = {Q4K_BLOCK, (cuuint32_t)cols};
+  const cuuint32_t xbox[2] = {128, XR}, xsbox[2] = {8, XR};
+  CUtensorMap xmap{}, wmap{}, xsmap{}, sxmap{};
+  int rc = tma::encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, blocks, wd, wst, wbox);
+  if (MT > 1) {
+    if (!rc) rc = tma::encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, xd, xst, xbox,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!rc) rc = tma::encode(&xsmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, xs, xsd, xsst, xsbox);
+    if (!rc) rc = tma::encode(&sxmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sxm, xsd, xsst, xsbox);
+  }
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(x2_gemv_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (N + cols - 1) / cols;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(min(groups, sms));
+  cfg.blockDim = dim3((T * R + 1) * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  if (MT > 1) {  // the quantizer, then this launch as its programmatic dependent
+    acts::launch_quant_acts(x, x_bf16, M, K, xq, xs, sxm, st);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  err = cudaLaunchKernelEx(&cfg, x2_gemv_kernel<MT>, xmap, wmap, xsmap, sxmap, out, M, K, N, kb,
+                           T, R, D, x, x_bf16, xq, xs, sxm);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the slots of one of T's steps at most: two where kb <= 8, else ceil(kb / 8)
+__host__ __device__ constexpr int x2_step_slots(int kb) { return kb <= 8 ? 2 : (kb + 7) / 8; }
+
+// the row template of M rows (1, 2, 4, 8 or 16)
+constexpr int sg_mt(int M) { return M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : M <= 8 ? 8 : 16; }
+
 }  // namespace
 
 extern "C" {
@@ -691,6 +1233,48 @@ int w4a8_slab_launch(const void* x, int x_bf16, const void* codes, const void* s
                      int K, int N, void* stream) {
   return launch_w4a8_slab(x, x_bf16, codes, scales, GROUP_PAIRED, T, R, D, kb, xq, xs, sxm,
                           out, M, K, N, stream);
+}
+
+// Kernel T: x [M, K] bf16 or f32 (1 <= M <= 16, K % 256 == 0); blocks [N,
+// K/256 * 144] the native Q4_K superblocks (16-byte aligned), summed per
+// slab of kb superblocks (a multiple of 8 that divides K/256, or K/256: the
+// whole K as one slab); the plan (T, R, D) as kernel Q's, but a round of a
+// tile's warps takes up to R * x2_step_slots(kb) slots (D at least that
+// where R > 1). out [M, N] f32 holds the whole product, the min term in each
+// group term; xq / xs / sxm are the prologue's outputs. The plan moves no
+// bit.
+int w4a8k4_slab_launch(const void* x, int x_bf16, const void* blocks, int T, int R, int D,
+                       int kb, void* xq, void* xs, void* sxm, void* out, int M, int K, int N,
+                       void* stream) {
+  const int nsb = K / QK_K;
+  if (M < 1 || M > 16 || N < 1 || K < QK_K || K % QK_K || kb < 1 || nsb % kb ||
+      (kb % 8 && kb != nsb) || T < 1 || R < 1 || T * R > SG_MAX_WARPS || D < 2 ||
+      (R > 1 && D < R * x2_step_slots(kb)) || D > SG_MAX_SLOTS ||
+      ((reinterpret_cast<uintptr_t>(blocks) | reinterpret_cast<uintptr_t>(x)) & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* s = static_cast<float*>(xs);
+  float* sm = static_cast<float*>(sxm);
+  float* o = static_cast<float*>(out);
+#define X2_ROWS(MT) launch_x2<MT>(x, x_bf16, blocks, q, s, sm, o, M, K, N, kb, T, R, D, st)
+  if (M <= 1) return X2_ROWS(1);
+  if (M <= 2) return X2_ROWS(2);
+  if (M <= 4) return X2_ROWS(4);
+  if (M <= 8) return X2_ROWS(8);
+  return X2_ROWS(16);
+#undef X2_ROWS
+}
+
+// The sizes the launches use, for quant_matmul.slab_slot_bytes and
+// slab_smem to be held to: the bytes of a slot of M rows, codes of layout L
+// (0 Q's group-paired, 1 V's int8, 2 V's tile-paired, 3 T's superblocks)
+// and cols columns; a CTA's dynamic shared memory under plan (T, R, D) for
+// x's width K.
+int slab_slot_size(int M, int L, int cols) { return sg_slot_bytes(sg_mt(M), L, cols); }
+
+int slab_smem_size(int M, int L, int T, int R, int D, int K) {
+  return (int)sg_smem_bytes(sg_mt(M), L, T, R, D, K);
 }
 
 // Kernel V: as kernel Q on int8 codes [N, K] (packed = 0) or tile-paired

@@ -1,13 +1,12 @@
-// The TMA rings of kernels R (probes.cu), U (twodot.cu), Q and V
-// (slab_gemv.cu): one
-// producer thread fills a ring of shared-memory slots with tensor copies
-// (cp.async.bulk.tensor: one request brings a whole box of a tiled tensor
-// map, the elements outside the tensor as zeros, and completes the box's
-// bytes, zeros included, on an mbarrier), each slot with a "full" mbarrier
-// that the copies complete and an "empty" mbarrier that the consumer warps
-// arrive at once they are done with the slot. Use u of slot d (the u-th time
-// the ring comes round to it) completes phase u of both barriers; a wait on
-// parity u & 1 returns once phase u has completed. Few large requests: with
+// The TMA rings of kernels R (probes.cu), U (twodot.cu), Q, V and T
+// (slab_gemv.cu): one producer thread fills a ring of shared-memory slots
+// with tensor copies (cp.async.bulk.tensor: one request brings a whole box
+// of a tiled tensor map, the elements outside the tensor as zeros, and
+// completes the box's bytes, zeros included, on an mbarrier), each slot
+// with a "full" mbarrier that the copies complete and an "empty" mbarrier
+// that the consumer warps arrive at once they are done with the slot. Use u
+// of slot d (the u-th time the ring comes round to it) completes phase u of
+// both barriers; a wait on parity u & 1 returns once phase u has completed. Few large requests: with
 // a bulk copy a row or a column both kernels were bound by the TMA unit's
 // rate of requests (PERF.md, PR 17; an H100 SXM at 700 W).
 #pragma once

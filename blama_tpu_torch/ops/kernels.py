@@ -52,7 +52,6 @@ SIGNATURES = {
         "q4k_bank_mm_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P,
                                _I, _I, _I, _P],
         "q4k_parts_mm_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
-        "w4a8k4_slab_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
         "dequant_tile_shape": [_I, _P],
         "dequant_row_shape": [_I, _I, _I, _P],
     },
@@ -61,6 +60,9 @@ SIGNATURES = {
                              _P],
         "w4a8_plane_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                               _I, _P],
+        "w4a8k4_slab_launch": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+        "slab_slot_size": [_I, _I, _I],
+        "slab_smem_size": [_I] * 6,
     },
     "twodot": {
         "q4k_twodot_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P],

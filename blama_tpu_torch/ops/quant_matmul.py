@@ -570,8 +570,8 @@ def w4a8_xla_matmul(x: torch.Tensor, w: QuantTensorA8) -> torch.Tensor:
 # its low-nibble group terms (groups 0-3 of each superblock, in superblock
 # order) plus the sum of its high-nibble ones (groups 4-7), the slabs added in
 # K order. So kb is a parameter of their numerics; block_n, the reference's
-# column tile, moves no bit (T: the columns one CTA owns; Q: it only passes
-# the reference's clamp, Q's CTA comes from slab_plan). No engine reaches
+# column tile, moves no bit: it only passes the reference's clamp, and both
+# kernels' CTAs (slab_gemv.cu) come from slab_plan. No engine reaches
 # either: the tools do.
 
 def _col_tile(what: str, K: int, N: int, block_n: int, kb: int) -> int:
@@ -586,72 +586,93 @@ def _col_tile(what: str, K: int, N: int, block_n: int, kb: int) -> int:
     return bn
 
 
-# the tools' block_n unless the caller says otherwise: the columns a CTA of
-# kernel T owns, one column per warp (the fastest of autotune_a8s's sweep on
-# the card, PERF.md §6, row 9; the reference's 2048 is a TPU VMEM tile);
-# kernels Q, U and V only pass it through the reference's clamp
+# the tools' block_n unless the caller says otherwise (the reference's 2048
+# is a TPU VMEM tile); kernels Q, T, U and V only pass it through the
+# reference's clamp
 SLAB_BLOCK_N = 8
 
-# kernels Q and V's CTA (slab_gemv.cu): T tiles of 16 columns, R consumer
+# kernels Q, V and T's CTA (slab_gemv.cu): T tiles of 16 columns, R consumer
 # warps a tile (T·R <= SG_MAX_WARPS), beside one producer thread that keeps
 # a ring of D slots full; a slot is one superblock of K (8 groups): x's
-# codes and scales, the CTA's codes and scales
+# codes and scales (T: and sxm), the CTA's codes and scales (T: its native
+# superblocks, header and codes)
 SG_MAX_WARPS = 8
 SG_MAX_SLOTS = 32
 SG_WAVE = 128        # column groups that make up (most of) a wave of 132 SMs
 SG_INFLIGHT = 64 << 10   # bytes a CTA's ring aims to keep in flight
 
 
-def slab_slot_bytes(M: int, cols: int, int8: bool = False) -> int:
-    """Bytes of one slot of Q's or V's ring (slab_gemv.cu sg_slot_bytes):
-    x's codes (8 rows at M <= 8, else 16; two 128-byte halves), the cols
-    columns' codes (128 bytes each, 256 as int8), x's scales (8 f32 a row)
-    and the columns' scales (8 bf16 each), on 1024 bytes; at one row no x
-    (the CTA holds x's row whole)."""
+def slab_slot_bytes(M: int, cols: int, int8: bool = False, x2: bool = False) -> int:
+    """Bytes of one slot of Q's, V's (int8: V's int8 codes) or T's (x2)
+    ring (slab_gemv.cu sg_slot_bytes, which slab_slot_size gives): x's
+    codes (8 rows at M <= 8, else 16; two 128-byte halves), the cols
+    columns' codes (128 bytes each, 256 as int8), x's scales (8 f32 a row;
+    T: and as many of x's sxm) and the columns' scales (8 bf16 each; T: the
+    16-byte headers of its 144-byte superblocks), on 1024 bytes; at one row
+    no x (the CTA holds x's row whole)."""
     xr = 0 if M == 1 else 8 if M <= 8 else 16
-    tx = 256 * xr + (256 if int8 else 128) * cols + 32 * xr + 16 * cols
+    tx = 256 * xr + (256 if int8 else 128) * cols + (2 if x2 else 1) * 32 * xr + 16 * cols
     return -(-tx // 1024) * 1024
 
 
 def _slab_outs(M: int) -> int:
-    """Outputs a lane of Q or V holds (slab_gemv.cu Outs::NO)."""
+    """Outputs a lane of Q, V or T holds (slab_gemv.cu Outs::NO)."""
     return 2 if M == 1 else 4 if M <= 8 else 8
 
 
-def slab_smem(M: int, plan: tuple[int, int, int], int8: bool = False, K: int = 0) -> int:
-    """Dynamic shared memory of kernel Q or V under plan (T, R, D): 1024
-    bytes to align the ring, the ring, its 2·D barriers, where R > 1 the
-    partial sums a tile's warps hand each other (two buffers), and at one
-    row x's row quantized (K codes and K/32 f32 scales)."""
+def slab_smem(M: int, plan: tuple[int, int, int], int8: bool = False, K: int = 0,
+              x2: bool = False) -> int:
+    """Dynamic shared memory of kernel Q, V or T (x2) under plan (T, R, D)
+    (slab_gemv.cu sg_smem_bytes, which slab_smem_size gives): 1024 bytes to
+    align the ring, the ring, its 2·D barriers, where R > 1 the partial sums
+    a tile's warps hand each other (two buffers), and at one row x's row
+    quantized (K codes and K/32 f32 scales; T: and K/32 sxm)."""
     t, r, d = plan
     xch = 512 * t * r * _slab_outs(M) if r > 1 else 0
-    row = K + 4 * (K // GROUP) if M == 1 else 0
-    return 1024 + d * slab_slot_bytes(M, 16 * t, int8) + 16 * d + xch + row
+    row = K + (8 if x2 else 4) * (K // GROUP) if M == 1 else 0
+    return 1024 + d * slab_slot_bytes(M, 16 * t, int8, x2) + 16 * d + xch + row
 
 
-def slab_plan(M: int, N: int, kb: int, int8: bool = False,
-              K: int = 0) -> tuple[int, int, int]:
-    """Kernel Q's or V's plan (T tiles of 16 columns a CTA, R warps a tile,
-    D ring slots) for M rows, N columns and slabs of kb superblocks (int8:
-    V's int8 codes, twice the bytes a slot; K: x's width, which one row
-    keeps whole in shared memory). T: the most tiles (up to 8)
-    that still leave SG_WAVE column groups, so the groups fill a wave of
-    CTAs, one an SM; R: the warps left (8 // T), which take a tile's
-    superblocks in turn, so a narrow N (wk/wv's 64 tiles) or a long K
-    (down's 56 superblocks on 2 tiles an SM) still keeps 8 warps an SM
+def x2_step_slots(kb: int) -> int:
+    """Slots one step of kernel T's takes at most (slab_gemv.cu
+    x2_step_slots): where kb <= 8 two emulated lanes of one superblock each,
+    else one lane's chain of ceil(kb / 8)."""
+    return 2 if kb <= 8 else -(-kb // 8)
+
+
+def slab_plan(M: int, N: int, kb: int, int8: bool = False, K: int = 0,
+              x2: bool = False) -> tuple[int, int, int]:
+    """Kernel Q's, V's or T's (x2) plan (T tiles of 16 columns a CTA, R
+    warps a tile, D ring slots) for M rows, N columns and slabs of kb
+    superblocks (int8: V's int8 codes, twice the bytes a slot; K: x's
+    width, which one row keeps whole in shared memory). T: the most tiles
+    (up to 8) that still leave SG_WAVE column groups, so the groups fill a
+    wave of CTAs, one an SM; R: the warps left (8 // T), which take a
+    tile's superblocks in turn, so a narrow N (wk/wv's 64 tiles) or a long
+    K (down's 56 superblocks on 2 tiles an SM) still keeps 8 warps an SM
     busy. D: enough slots for SG_INFLIGHT bytes, at least 4 and a round of
-    the tile's warps (2R: a warp's step takes two superblocks), within one
-    CTA's shared memory and SG_MAX_SLOTS. A deeper ring was slower on the
-    card (PERF.md §6): with every slot of every CTA requested at once, a
-    CTA's first slots arrive later. Each output keeps the parent's lane
-    order whatever the plan, so the plan moves no bit."""
-    if not 1 <= kb <= 8:
+    the tile's warps (R steps: two slots each, kernel T's x2_step_slots),
+    within one CTA's shared memory and SG_MAX_SLOTS; R shrinks until a
+    round fits (T's long chains). A deeper ring was slower on the card (PERF.md §6):
+    with every slot of every CTA requested at once, a CTA's first slots
+    arrive later. Each output keeps the parent's lane order whatever the
+    plan, so the plan moves no bit."""
+    if not x2 and not 1 <= kb <= 8:
         raise ValueError(f"kernels Q and V take slabs of 1..8 superblocks, got kb={kb}")
+    if x2 and kb < 1:
+        raise ValueError(f"kernel T takes slabs of kb >= 1 superblocks, got kb={kb}")
     t = min(SG_MAX_WARPS, max(1, -(-N // 16) // SG_WAVE))
     r = SG_MAX_WARPS // t
-    slot = slab_slot_bytes(M, 16 * t, int8)
-    fit = min(SG_MAX_SLOTS, (SMEM_MAX - slab_smem(M, (t, r, 0), int8, K)) // (slot + 16))
-    return t, r, min(fit, max(2 * r, 4, -(-SG_INFLIGHT // slot)))
+    step = x2_step_slots(kb) if x2 else 2
+    slot = slab_slot_bytes(M, 16 * t, int8, x2)
+
+    def fit(r):
+        room = (SMEM_MAX - slab_smem(M, (t, r, 0), int8, K, x2)) // (slot + 16)
+        return min(SG_MAX_SLOTS, room)
+
+    while r > 1 and fit(r) < r * step:
+        r -= 1
+    return t, r, min(fit(r), max(step * r, 4, -(-SG_INFLIGHT // slot)))
 
 
 def a8s_clamp(K: int, N: int, block_n: int, kb: int) -> tuple[int, int]:
@@ -776,13 +797,16 @@ def x2_matmul_plain(x: torch.Tensor, w: QuantTensorA8K4, block_n: int = SLAB_BLO
 
 def x2_launch(x: torch.Tensor, w: QuantTensorA8K4, block_n: int = SLAB_BLOCK_N,
               kb: int = 8):
-    """Launch kernel T on CUDA tensors; returns (out, xq, xs, sxm)."""
+    """Launch kernel T on CUDA tensors; returns (out, xq, xs, sxm). block_n
+    is the reference's column tile, checked as the reference clamps it; the
+    CTA comes from slab_plan."""
     M, K = _check_cuda(x, _k4_arrays(w, x.shape[1]), QK_K)
     _check_rows(M, "kernel T")
-    bn, kb = x2_clamp(K, w.n_out, block_n, kb)
+    kb = x2_clamp(K, w.n_out, block_n, kb)[1]
+    nt, nr, nd = slab_plan(M, w.n_out, kb, K=K, x2=True)
     xq, xs, sxm, out = _w4a8_buffers(M, K, w.n_out, x.device)
-    rc = kernels.lib("quant_matmul").w4a8k4_slab_launch(
-        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), bn, kb, xq.data_ptr(),
+    rc = kernels.lib("slab_gemv").w4a8k4_slab_launch(
+        x.data_ptr(), _is_bf16(x), w.codes.data_ptr(), nt, nr, nd, kb, xq.data_ptr(),
         xs.data_ptr(), sxm.data_ptr(), out.data_ptr(), M, K, w.n_out,
         kernels.stream_ptr(x.device))
     kernels.check(rc, "w4a8k4_slab_gemv")

@@ -689,3 +689,64 @@ def slab_lane_order(xq, xs, codes, scales, kb: int, hb: int, fused: bool = True)
         acc = part[..., 0] + part[..., hb] if hb else part[..., 0]
         run = acc if run is None else run + acc
     return run
+
+
+# kernel T's compiled group term, t = dot·ws: fma(t, xs, −(sxm·wm)), fma(−sxm,
+# wm, t·xs), or neither (t·xs − sxm·wm, three roundings)
+X2_FORMS = ("fma_xs", "fma_min", "unfused")
+
+
+def x2_lane_order(xq, xs, sxm, codes, ws, wm, kb: int, form: str = "fma_xs"):
+    """Kernel T's output in the order of the one-warp-per-column kernel's
+    lanes, bit for bit: per output column, K in steps of 8 superblocks;
+    in step j of a slab, lane (tl, c) = 4·tl + c takes superblock 8j + tl
+    of the slab (where it exists) and from it groups 2c, then 2c + 1 (the
+    low and high nibbles of the superblock's 32-byte chunk c); each term is
+    (float)dot · ws · xs − sxm · wm in `form` (X2_FORMS; dot the exact int32
+    group dot, dot · ws rounded once), and the lane's part, from +0 at each
+    slab, adds the terms in that order. A slab (kb superblocks: a multiple
+    of 8, or K/256, the whole K) ends in slab_sum<2>: an xor butterfly over
+    lane bits 0, 2, 3, 4, then lo + hi (lanes with bit 1 clear and set:
+    groups 0-3 and 4-7 of each superblock). The slabs go into the column's
+    sum in K order, the first assigned. xq int8 [M, K], xs and sxm f32
+    [M, K/32], element-order codes uint8 [N, K], ws = d·sc and wm = dmin·mn
+    f32 [N, K/32] (quant_matmul.decode_q4k_blocks) → [M, N] f32, on xq's
+    device."""
+    import torch
+
+    if form not in X2_FORMS:
+        raise ValueError(f"form must be one of {X2_FORMS}, got {form!r}")
+    M, K = xq.shape
+    N, G, nsb = codes.shape[0], K // 32, K // 256
+    if nsb % kb or (kb % 8 and kb != nsb):
+        raise ValueError(f"kb={kb}: kernel T's slabs are a multiple of 8 superblocks "
+                         f"that divides K/256={nsb}, or the whole K")
+    if xq.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("x2_lane_order needs TF32 off: its group dots are f32 products")
+    dots = torch.einsum("mgi,ngi->mng", xq.reshape(M, G, 32).float(),
+                        codes.reshape(N, G, 32).float())
+    t = dots * ws.float()[None]                   # one rounding
+    x = xs.float()[:, None, :]
+    q = sxm.float()[:, None, :] * wm.float()[None]
+    if form == "fma_xs":
+        term = fma_f32(t, x.expand_as(t), -q)
+    elif form == "fma_min":
+        term = fma_f32(-sxm.float()[:, None, :].expand_as(t), wm.float()[None].expand_as(t),
+                       t * x)
+    else:
+        term = t * x - q
+    term = term.reshape(M, N, nsb, 4, 2)          # [.., superblock, chunk c, nibble]
+    lane = torch.arange(32, device=xq.device)
+    run = None
+    for s0 in range(0, nsb, kb):
+        part = torch.zeros((M, N, 8, 4), dtype=torch.float32, device=xq.device)
+        for j0 in range(s0, s0 + kb, 8):          # a step: lanes tl take superblock j0 + tl
+            n = min(8, s0 + kb - j0)
+            for h in range(2):
+                part[:, :, :n] = part[:, :, :n] + term[:, :, j0:j0 + n, :, h]
+        part = part.reshape(M, N, 32)
+        for o in (1, 4, 8, 16):
+            part = part + part[..., lane ^ o]
+        acc = part[..., 0] + part[..., 2]
+        run = acc if run is None else run + acc
+    return run

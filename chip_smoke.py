@@ -1030,7 +1030,8 @@ def tools_kernel_phase(torch, timer, rng, keep=None):
     Q (w4a8_swar_matmul's positive part) at the 8B projections and lm head,
     1 and 8 rows, kb 4 and 8, its bits equal at every block_n; T (X2) at the
     same shapes, kb 8 and 16; Q at gate/up, 8 rows, kb 4 equal bit for bit to
-    its lane order (testing.slab_lane_order); R on a 2048 x 14336 layer at
+    its lane order (testing.slab_lane_order), T there at kb 8 and 16 to its
+    own (testing.x2_lane_order); R on a 2048 x 14336 layer at
     two blocks, exact, every byte staged; S on [8, 128], exact. And rows_mm (the exact
     engines' min term, the MoE router) at the decode step's shapes: its
     16-row blocks against one plain product, host ms per call. Each output
@@ -1039,8 +1040,9 @@ def tools_kernel_phase(torch, timer, rng, keep=None):
     from blama_tpu_torch.ops import probes
     from blama_tpu_torch.ops import quant_matmul as qm
 
-    # the lane order Q and V keep (a tree timed by --tools-timing may be older)
+    # the lane orders Q, V and T keep (a tree timed by --tools-timing may be older)
     lane_order = getattr(testing, "slab_lane_order", None)
+    x2_order = getattr(testing, "x2_lane_order", None)
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
     for label, (K, N) in SHAPES.items():
@@ -1079,6 +1081,14 @@ def tools_kernel_phase(torch, timer, rng, keep=None):
                         order = lane_order(xq, xs, qm.unpair_codes(w.codes), w.scales, kb, 4)
                         if not torch.equal(out, order):
                             raise AssertionError(f"kernel Q {label} M={M} kb={kb}: not its "
+                                                 "lane order")
+                    if x2_order and kind == "T" and (label, M) == ("gate/up", 8):
+                        _, xq, xs, sxm = launch()
+                        codes, ws, wm = qm.decode_q4k_blocks(w4.codes.view(-1, 144), N)
+                        order = x2_order(xq, xs, sxm, codes, ws, wm, qm.x2_clamp(K, N, 8, kb)[1])
+                        del codes
+                        if not torch.equal(out, order):
+                            raise AssertionError(f"kernel T {label} M={M} kb={kb}: not its "
                                                  "lane order")
                     nbytes += x.numel() * x.element_size() + M * N * 4
                     _keep(keep, name, f"{label} K={K} N={N} M={M} kb={kb}", out)
@@ -3959,7 +3969,7 @@ KERNELS = {
     "w4a8_slab_gemv": ("blama_tpu_torch/ops/csrc/slab_gemv.cu",
                        "blama_tpu/ops/pallas/quant_matmul.py:771",
                        "gate/up K=4096 N=14336 M=1 kb=4"),
-    "w4a8k4_slab_gemv": ("blama_tpu_torch/ops/csrc/quant_matmul.cu", "tools/ab_a8k4.py:39",
+    "w4a8k4_slab_gemv": ("blama_tpu_torch/ops/csrc/slab_gemv.cu", "tools/ab_a8k4.py:39",
                          "gate/up K=4096 N=14336 M=1 kb=8"),
     "stream_rows": ("blama_tpu_torch/ops/csrc/probes.cu", "blama_tpu/tools/probe_bw.py:21",
                     "2048x14336 bk=64 bn=2048"),

@@ -649,14 +649,20 @@ def test_kernel_q_block_n_moves_no_bit(cuda, m, n, k):
 @pytest.mark.parametrize("kb", [8, 16])
 @pytest.mark.parametrize("m,n,k,dtype", SLAB_SHAPES)
 def test_kernel_t(cuda, m, n, k, dtype, kb):
-    """Kernel T: activation codes bit for bit, within tolerance of its plain
-    version and of kernel I's (another grouping), two launches equal, row 0
-    alone equal, bits equal across block_n."""
+    """Kernel T: activation codes bit for bit, its lane order bit for bit,
+    within tolerance of its plain version and of kernel I's (another
+    grouping), two launches equal, row 0 alone equal, bits equal across
+    block_n."""
+    from blama_tpu_torch import testing
+
     w = qm.repack_q4k_a8k4(_bytes(n, k, m, "Q4_K"), n, k, cuda)
     x = _acts(m, k, dtype, cuda)
     out, xq, xs, sxm = qm.x2_launch(x, w, 16, kb)
     pxq, pxs, psxm = qm.quant_acts(x)
     assert torch.equal(xq, pxq) and torch.equal(xs, pxs) and torch.equal(sxm, psxm)
+    codes, ws, wm = qm.decode_q4k_blocks(w.codes.view(-1, 144), n)
+    order = testing.x2_lane_order(xq, xs, sxm, codes, ws, wm, qm.x2_clamp(k, n, 16, kb)[1])
+    assert torch.equal(out, order)
     _close(out, qm.x2_matmul_plain(x, w, 16, kb), MATMUL_TOL)
     _close(out, qm.a8k4_matmul_plain(x, w), MATMUL_TOL)
     assert torch.equal(out, qm.x2_launch(x, w, 16, kb)[0])
@@ -923,6 +929,84 @@ def test_kernels_q_v_every_plan(cuda, monkeypatch, m):
                        if int8 else qm.a8s_launch(x, w, 8, kb)[0])
                 assert torch.equal(got, v if int8 else out), (kb, plan)
             monkeypatch.undo()
+
+
+@pytest.fixture(scope="module")
+def x2_weights(cuda):
+    """Kernel T's operands for each (N, K) of its lane-order test: the
+    native superblocks (random codes, d, dmin and 6-bit scales and mins, a
+    third of the d and dmin negative) and their decoded arrays."""
+    from blama_tpu_torch.testing import random_q4k
+
+    held = {}
+    for n in (72, 300, 1000):
+        for k in (4096, 768, 3072, 14336):
+            rng = np.random.default_rng(n + k)
+            data = random_q4k(rng, n, k, k ** -0.5).reshape(-1, 144)
+            data[rng.random(data.shape[0]) < 0.3, 1] ^= 0x80
+            data[rng.random(data.shape[0]) < 0.3, 3] ^= 0x80
+            w = qm.repack_q4k_a8k4(data.reshape(-1), n, k, cuda)
+            held[n, k] = (w, *qm.decode_q4k_blocks(w.codes.view(-1, 144), n))
+    return held
+
+
+# slabs of 8 and 16 superblocks, whole-K slabs of 3 and 12 (kb clamps to
+# them) and a long K; widths that end inside a tile, a CTA and a wave
+@pytest.mark.parametrize("k,kb", [(4096, 8), (4096, 16), (768, 8), (3072, 8), (14336, 8)])
+@pytest.mark.parametrize("n", [72, 300, 1000])
+@pytest.mark.parametrize("m", range(1, 17))
+def test_kernel_t_keeps_the_lane_order(cuda, x2_weights, monkeypatch, m, n, k, kb):
+    """Kernel T equals its lane order bit for bit (testing.x2_lane_order:
+    the parent's lanes (tl, c), part += fma(dot * ws, xs, -(sxm * wm)), the
+    xor butterfly over bits 0, 2, 3, 4, lo + hi, the slabs in K order),
+    under slab_plan's plan and forced ones (one warp with two slots, a tile
+    of eight warps, four of two, eight of one); its one-row output equals
+    row 0 of a two-row call."""
+    from blama_tpu_torch import testing
+
+    w, codes, ws, wm = x2_weights[n, k]
+    kbc = qm.x2_clamp(k, n, 8, kb)[1]
+    x = _acts(m, k, torch.bfloat16 if m % 2 else torch.float32, cuda)
+    out, xq, xs, sxm = qm.x2_launch(x, w, 8, kb)
+    assert torch.equal(out, testing.x2_lane_order(xq, xs, sxm, codes, ws, wm, kbc))
+    if m == 2:
+        assert torch.equal(qm.x2_launch(x[:1].contiguous(), w, 8, kb)[0], out[:1])
+    step = qm.x2_step_slots(kbc)
+    for plan in ((1, 1, 2), (1, 8, 8 * step), (4, 2, 2 * step), (8, 1, 2)):
+        _forced(monkeypatch, plan)
+        assert torch.equal(qm.x2_launch(x, w, 8, kb)[0], out), plan
+
+
+def test_kernel_t_refuses_a_ring_shorter_than_a_round(cuda, x2_weights, monkeypatch):
+    w = x2_weights[300, 4096][0]
+    x = _acts(4, 4096, torch.bfloat16, cuda)
+    _forced(monkeypatch, (1, 4, 7))     # four warps take two slots each: 8 in a round
+    with pytest.raises(RuntimeError):
+        qm.x2_launch(x, w, 8, 8)
+
+
+@pytest.mark.parametrize("m", range(1, 17))
+def test_slab_sizes_are_the_kernels(cuda, m):
+    """quant_matmul's slot and shared-memory sizes equal slab_gemv.cu's
+    (slab_slot_size, slab_smem_size) for each layout (Q's group-paired
+    codes, V's int8 and tile-paired ones, T's superblocks), every column
+    count of a plan and every plan slab_plan returns at the tools' widths."""
+    from blama_tpu_torch.ops import kernels
+
+    lib = kernels.lib("slab_gemv")
+    layouts = ((0, False, False), (1, True, False), (2, False, False), (3, False, True))
+    for code, int8, x2 in layouts:
+        for t in range(1, qm.SG_MAX_WARPS + 1):
+            assert lib.slab_slot_size(m, code, 16 * t) == qm.slab_slot_bytes(m, 16 * t, int8, x2)
+        for n in (72, 1000, 1024, 4096, 14336, 128256):
+            for k, kbs in ((4096, (1, 4, 8, 16)), (14336, (8, 56)), (3072, (3, 12))):
+                for kb in kbs:
+                    if (x2 and (k // 256 % kb or kb % 8 and kb != k // 256)) or (
+                            not x2 and kb > 8):
+                        continue
+                    plan = qm.slab_plan(m, n, kb, int8, k, x2)
+                    assert lib.slab_smem_size(m, code, *plan, k) == qm.slab_smem(
+                        m, plan, int8, k, x2), (code, n, k, kb, plan)
 
 
 # ragged byte arrays: rows and words that fill no CTA, N % 4 == 0 (whole words)
