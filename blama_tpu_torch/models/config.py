@@ -51,8 +51,10 @@ class ModelConfig:
     # from ModelParams, not from GGUF metadata.
     tp_blocks: int = 0
     # fused flash attention over the KV cache (in-kernel rope/INT8
-    # dequant). Set by Model from ModelParams.
-    attn_fused: bool = False
+    # dequant); False: the two-pass chain at every chunk (attn="xla"). Set
+    # by Model from ModelParams (False for a MoE file) and by Instance where
+    # the fused gates refuse its geometry.
+    attn_fused: bool = True
     # extra raw metadata for model-specific needs
     extra: dict[str, Any] = field(default_factory=dict)
 

@@ -1,22 +1,28 @@
 """Llama-family transformer: GGUF weight loading and the forward pass.
 
 Counterpart of blama_tpu/models/llama.py for the slice the port serves: the
-packed weight engines (`fused_quant` True, "k4", "a8", "a8k4", "a8x": Q4_K
-tensors packed as the engine says, Q8_0 and Q6_K tensors packed for the exact
-int8-code kernel under every engine, anything else a dense bf16 weight),
-unfused q/k/v and gate/up projections, dense KV rows or the scheduler's
-paged pool, INT8, bf16 or f32 KV and fused attention (the two-pass chain
-serves the chunks and geometries the fused gates refuse, T in {2, 4}, as in
-the reference), with the reference's opt-in decode-attention modes on dense
-rows (LlamaStatic.attn_write / attn_fresh, set by ops/generate_loop).
+dense engines (`fused_quant=False`: every tensor dequantized to float32 or
+bfloat16, the reference's defaults) and the packed weight engines
+(`fused_quant` True, "k4", "a8", "a8k4", "a8x": Q4_K tensors packed as the
+engine says, Q8_0 and Q6_K tensors packed for the exact int8-code kernel
+under every engine, anything else a dense bf16 weight), unfused q/k/v and
+gate/up projections, dense KV rows or the scheduler's paged pool, INT8,
+bf16 or f32 KV, and either attention mode: fused (LlamaStatic.attn_fused;
+the two-pass chain still serves the chunks and geometries the fused gates
+refuse, T in {2, 4}, as in the reference) or the two-pass chain at every
+chunk (attn="xla"), with the reference's opt-in decode-attention modes on
+dense rows (LlamaStatic.attn_write / attn_fresh, set by ops/generate_loop).
 
 Weights are a plain dict: {"tok_emb", "out_norm", "output", "layers": [one
 dict per layer], optional "rope_freqs"}. The forward keeps the reference's
 arithmetic order wherever the logits depend on it: the residual stream in
-bf16, rms_norm in f32 with f32 (bf16-rounded) weights, every matmul
-accumulated in f32 and cast to the activation dtype, the lm head fed f32.
-In the fixed-topology tp_blocks mode (LlamaStatic.tp_blocks > 0) the
-projections take the reference's qmm_nblocked / qmm_blocked at its sites.
+the activation dtype (the embedding table's: bf16 for the packed engines
+and the bfloat16 engine, f32 for the float32 engine), rms_norm in f32 with
+f32 (dtype-rounded) weights, every matmul accumulated in f32 and cast to
+the activation dtype, a packed lm head fed f32 and a dense one the weight's
+dtype with f32 sums. In the fixed-topology tp_blocks mode
+(LlamaStatic.tp_blocks > 0) the projections take the reference's
+qmm_nblocked / qmm_blocked at its sites.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from ..ops import decode_attention as dattn
+from ..ops import dequant
 from ..ops import paged_attention as pattn
 from ..ops import kv_cache as kvc
 from ..ops import paged_kv as pkv
@@ -37,7 +44,8 @@ from ..ops.kernels import resolve_device
 from ..ops.kv_cache import SlotStore, dequantize_kv
 from ..ops.norms import rms_norm
 from ..ops import quant_matmul as qm
-from ..ops.quant_matmul import QuantEmbedding, emb_lookup, qmm_blocked, qmm_nblocked
+from ..ops.quant_matmul import (QuantEmbedding, emb_lookup, qmm_blocked, qmm_nblocked,
+                                rows_mm)
 from ..ops.rope import apply_rope, rope_angles
 from .config import ModelConfig
 
@@ -73,34 +81,85 @@ Q4K_REPACKS = {True: qm.repack_q4k_exact, "k4": qm.repack_q4k_native,
                "a8x": qm.repack_q4k_w4a8}
 
 
-def load_llama_params(reader, cfg: ModelConfig, fused_quant: bool | str = "a8",
-                      device="cuda", progress_cb=None) -> dict[str, Any]:
-    """Load llama-family weights for a packed engine onto `device`.
+def tensor_values(reader, name: str, device, dtype=torch.float32) -> torch.Tensor:
+    """reader.tensor_float(name) on `device` in `dtype`: the GGUF bytes go to
+    the device and are dequantized there (ops/dequant, bit-equal to the
+    host's numpy functions), so host memory holds one tensor's bytes at a
+    time."""
+    info = reader.tensors[name]
+    return dequant.dequantize(reader.tensor_bytes(name), info.ggml_type, info.shape,
+                              device, dtype)
 
-    Per tensor, as in the reference: a Q8_0 or Q6_K tensor is packed for the
-    exact int8-code kernel whatever the engine, a Q4_K tensor is packed as
-    `fused_quant` says, any other type becomes a dense bf16 (n_in, n_out)
-    weight. Every tensor is repacked on the device and uploaded as soon as it
-    is read, so host memory holds one tensor's GGUF bytes at a time.
+
+def load_dense_params(reader, cfg: ModelConfig, dtype: torch.dtype,
+                      device="cuda", progress_cb=None) -> dict[str, Any]:
+    """The reference's load_llama_params with fused_quant=False: every
+    tensor `reader.tensor_float(...)` converted to `dtype` (float32 or
+    bfloat16), matmul weights transposed to (n_in, n_out), the norms (and
+    rope_freqs) kept as f32 of their `dtype`-rounded values, a tied head the
+    embedding's transpose. Each tensor is dequantized on `device`
+    (tensor_values) and converted as soon as it is read."""
+    device = resolve_device(device)
+
+    def get_t(name: str) -> torch.Tensor:
+        return tensor_values(reader, name, device).to(dtype).t().contiguous()
+
+    def get_v(name: str) -> torch.Tensor:
+        return tensor_values(reader, name, device).to(dtype).float()
+
+    n_total = cfg.n_layer + 2
+    layers = []
+    for i in range(cfg.n_layer):
+        layers.append({key: get_v(pat.format(i=i)) if key.endswith("_norm")
+                       else get_t(pat.format(i=i)) for key, pat in _LAYER_TENSORS.items()})
+        if progress_cb:
+            progress_cb((i + 1) / n_total)
+    tok_emb = tensor_values(reader, "token_embd.weight", device).to(dtype)   # (V, E)
+    params = {
+        "tok_emb": tok_emb,
+        "out_norm": get_v("output_norm.weight"),
+        "layers": layers,
+        "output": (get_t("output.weight") if "output.weight" in reader.tensors
+                   else tok_emb.t().contiguous()),                          # (E, V)
+    }
+    if "rope_freqs.weight" in reader.tensors:
+        params["rope_freqs"] = get_v("rope_freqs.weight")
+    return params
+
+
+def load_llama_params(reader, cfg: ModelConfig, fused_quant: bool | str = "a8",
+                      device="cuda", progress_cb=None,
+                      dtype: torch.dtype = torch.bfloat16) -> dict[str, Any]:
+    """Load llama-family weights onto `device`.
+
+    `fused_quant=False`: the dense engine of `dtype` (load_dense_params).
+    Else per tensor, as in the reference: a Q8_0 or Q6_K tensor is packed
+    for the exact int8-code kernel whatever the engine, a Q4_K tensor is
+    packed as `fused_quant` says, any other type becomes a dense bf16
+    (n_in, n_out) weight. Every tensor is repacked on the device and
+    uploaded as soon as it is read, so host memory holds one tensor's GGUF
+    bytes at a time.
     """
     from ..gguf.constants import GGMLType
 
     device = resolve_device(device)
-    if fused_quant not in Q4K_REPACKS:
-        raise NotImplementedError(
-            f"fused_quant={fused_quant!r}: the dense engines are not ported "
-            "(ROADMAP.md §1 item 9, other engines)")
     if cfg.n_layer and ("blk.0.attn_qkv.weight" in reader.tensors
                         or "blk.0.ffn_gate.weight" not in reader.tensors
                         or "blk.0.attn_q.bias" in reader.tensors):
         raise NotImplementedError(
             "fused qkv / gate-up tensors (phi3) and q/k/v biases (qwen2) are "
             "not ported (ROADMAP.md §1 item 12, other families)")
+    if fused_quant is False:
+        return load_dense_params(reader, cfg, dtype, device, progress_cb)
+    if fused_quant not in Q4K_REPACKS:
+        raise NotImplementedError(
+            f"fused_quant={fused_quant!r} is not an engine of the port "
+            "(ROADMAP.md §1 item 9, other engines)")
     repacks = {GGMLType.Q4_K: Q4K_REPACKS[fused_quant], GGMLType.Q8_0: qm.repack_q8_0,
                GGMLType.Q6_K: qm.repack_q6_k_expanded}
 
     def dense(name: str) -> torch.Tensor:
-        return torch.from_numpy(reader.tensor_float(name)).to(device).to(torch.bfloat16)
+        return tensor_values(reader, name, device).to(torch.bfloat16)
 
     def get_t(name: str):
         info = reader.tensors[name]
@@ -309,6 +368,10 @@ class LlamaStatic:
     attn_write: bool = False
     attn_scales_t: bool = False
     attn_fresh: bool = False
+    # the attention mode (ModelParams.attn): True, the fused kernels where
+    # their gates admit the chunk (the port's default for a llama file);
+    # False, the reference's attn="xla", the two-pass chain at every chunk
+    attn_fused: bool = True
 
     @classmethod
     def of(cls, cfg: ModelConfig) -> "LlamaStatic":
@@ -321,7 +384,8 @@ class LlamaStatic:
                     cfg.rope_orig_ctx or cfg.n_ctx_train)
         return cls(cfg.n_head, cfg.n_head_kv, cfg.head_dim_, cfg.rope_dim_,
                    cfg.rope_freq_base, cfg.rms_norm_eps, cfg.act_fn, cfg.causal,
-                   rope_scale, tp_blocks=cfg.tp_blocks, yarn=yarn)
+                   rope_scale, tp_blocks=cfg.tp_blocks, yarn=yarn,
+                   attn_fused=cfg.attn_fused)
 
     def step(self, params, tokens, positions, slots, cache, logits_index=None):
         """forward under this config (every loop calls its static's step)."""
@@ -342,21 +406,17 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)   # x·sigmoid(x) in x's dtype, as jax.nn.silu
 
 
-# columns of a dense lm head upcast at a time (1 GiB of f32 at E = 4096)
-_HEAD_CHUNK = 65536
-
-
 def _dense_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Logits through a dense bf16 lm head [E, V]: operands in the weight's
+    """Logits through a dense lm head [E, V]: operands in the weight's
     dtype, products and sums in f32, as the reference's dot with
-    preferred_element_type=float32."""
-    hb = h.to(w.dtype).float()
-    return torch.cat([hb @ w[:, i:i + _HEAD_CHUNK].float()
-                      for i in range(0, w.shape[1], _HEAD_CHUNK)], dim=1)
+    preferred_element_type=float32 (quant_matmul.rows_mm: no upcast copy
+    of the head, each row's bits its own)."""
+    return rows_mm(h.to(w.dtype), w, out_dtype=torch.float32)
 
 
 def _place(params, tokens, positions, slots, cache):
-    """The forward's prologue: the tokens embedded ([B, T, E] bf16) and each
+    """The forward's prologue: the tokens embedded ([B, T, E] in the
+    activation dtype: a dense table's own, bf16 for a packed one) and each
     token's position written to its store slot (pads to the spare slot).
     Returns (x, positions int32 on the store's device, flat slots [B*T])."""
     dev = cache.device
@@ -366,17 +426,24 @@ def _place(params, tokens, positions, slots, cache):
     return emb_lookup(params["tok_emb"], tokens.to(dev).long()), positions, flat
 
 
-def _head(params, x, logits_index, eps, tpb=0):
+def _head(params, x, logits_index, eps, tpb=0, all_positions=False):
     """The forward's epilogue: each row's logit token (the last when
-    logits_index is None), the final norm and the lm head → [B, V] f32. A
-    packed head takes f32 rows (pinned under tp_blocks); a dense one bf16
-    operands and f32 sums, in tpb column blocks under tp_blocks."""
+    logits_index is None; every position with `all_positions`), the final
+    norm and the lm head → [B, V] (or [B, T, V]) f32. A packed head takes
+    f32 rows (pinned under tp_blocks); a dense one operands in its dtype and
+    f32 sums, in tpb column blocks under tp_blocks."""
     B, T = x.shape[:2]
+    if all_positions:
+        last_h = rms_norm(x, params["out_norm"], eps).reshape(B * T, -1)
+        return _head_product(params["output"], last_h, tpb).reshape(B, T, -1)
     if logits_index is None:
         logits_index = torch.full((B,), T - 1, dtype=torch.long, device=x.device)
     last_h = x[torch.arange(B, device=x.device), logits_index.to(x.device).long()]
     last_h = rms_norm(last_h, params["out_norm"], eps)                    # [B, E]
-    out = params["output"]
+    return _head_product(params["output"], last_h, tpb)
+
+
+def _head_product(out, last_h: torch.Tensor, tpb: int) -> torch.Tensor:
     if not isinstance(out, torch.Tensor):
         return qmm_nblocked(last_h.float(), out, tpb)
     if tpb:
@@ -393,8 +460,10 @@ def forward(
     slots: torch.Tensor,       # [B, T] int32 cache slot; >= n_slots → dropped (pad)
     cache: SlotStore,
     logits_index: torch.Tensor | None = None,  # [B] index into T of the logit token
+    all_positions: bool = False,  # logits for every position (perplexity path)
 ) -> tuple[torch.Tensor, SlotStore]:
-    """One decode/prefill step. Returns (logits [B, V] f32, cache); the cache
+    """One decode/prefill step. Returns (logits [B, V] f32, or [B, T, V]
+    with `all_positions`, cache); the cache
     (dense KVCache rows, or the scheduler's PagedKVCache pool, where `slots`
     are FLAT pool indices and reads go through the row's page table) is
     updated in place. A pad token (slot >= n_slots) writes to the store's
@@ -422,7 +491,7 @@ def forward(
     # the reference's routes (its attn="fused" mode): kernel C/E at T == 1,
     # kernel D/F for T % 8 == 0 chunks, the two-pass chain for the rest
     # (T in {2, 4} buckets) and for geometries the gates refuse
-    fused_ok = st.causal and not (yarn is not None and rope_dim < D)
+    fused_ok = st.attn_fused and st.causal and not (yarn is not None and rope_dim < D)
     if paged:
         G = cache.page_size
         use_fused_attn = fused_ok and T == 1 and pattn.supports(G, D, kv_dtype)
@@ -510,7 +579,13 @@ def forward(
         gate = _silu(qmm_nblocked(h2, p["w_gate"], tpb))
         x = x + qmm_blocked(gate * qmm_nblocked(h2, p["w_up"], tpb), p["w_down"], tpb)
 
-    return _head(params, x, logits_index, eps, tpb), cache
+    return _head(params, x, logits_index, eps, tpb, all_positions), cache
+
+
+def all_logits(st: LlamaStatic, params, tokens, positions, slots, cache) -> torch.Tensor:
+    """Logits at every position, [B, T, V] f32 (the perplexity path; the
+    reference's all_logits). The cache is updated in place, as by a step."""
+    return forward(params, st, tokens, positions, slots, cache, all_positions=True)[0]
 
 
 def make_step_fn(cfg: ModelConfig):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .quant_matmul import require_ieee_f32
 from .rope import apply_rope
 
 NEG_INF = -1e30
@@ -39,6 +40,7 @@ def attention(
 
     qf = q.float().reshape(B, T, Hkv, group, D)
     kf = k.float()
+    require_ieee_f32(kf)
     scores = torch.einsum("bthgd,bshd->bhgts", qf, kf) * scale
 
     valid = kv_pos[:, None, None, None, :] >= 0

@@ -212,9 +212,12 @@ struct Fresh {
   int write;
 };
 
-// the stored form of an f32 value in a float store type
+// the stored form of an f32 value in a float store type (and in the query /
+// output type QT of the attention bodies: bf16, or f32 for an f32 model)
 __device__ __forceinline__ void from_f(float x, __nv_bfloat16& o) { o = __float2bfloat16_rn(x); }
 __device__ __forceinline__ void from_f(float x, float& o) { o = x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
 
 // One block stages a [D] row as the store holds it, zeros up to DP: for
 // int8, codes and the scale by ops/kv_cache.quantize_kv's formula (max-abs
@@ -316,9 +319,9 @@ struct DecShape {
   static_assert(KE == 32 && TS % 4 == 0 && DEC_GRAIN % TS == 0, "decode tile shape");
 };
 
-template <class KV>
+template <class KV, class QT = __nv_bfloat16>
 struct DecArgs {
-  const __nv_bfloat16* q;    // [B, H, D] rotated queries
+  const QT* q;               // [B, H, D] rotated queries (bf16, or f32)
   const KV* k;               // the store
   const KV* v;
   const float* ks;           // its scales (int8), else null
@@ -330,7 +333,7 @@ struct DecArgs {
   float* part_l;
   float* part_acc;           // [B, H, nsplit, D]
   int* tickets;              // [B * Hkv * chunks], 0 between calls
-  __nv_bfloat16* out;        // [B, H, D]
+  QT* out;                   // [B, H, D] in the queries' type
   int H, Hkv, D, S, split, piece;   // piece: bytes a cp.async moves (16, 8, 4; 2: plain copies)
   float scale;
   Fresh<KV> fresh;
@@ -423,8 +426,9 @@ static __device__ __noinline__ float2 dec_sincos(float x) {
   return make_float2(s, c);
 }
 
-template <int DP, class KV, class Addr, int GCT>
-__global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecArgs<KV> a, const Addr addr) {
+template <int DP, class KV, class Addr, int GCT, class QT>
+__global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecArgs<KV, QT> a,
+                                                             const Addr addr) {
   using Sh = DecShape<DP, KV, GCT>;
   constexpr int L = Sh::L, SP = Sh::SP, TS = Sh::TS, CE = Sh::CE, LCH = Sh::LCH, KE = Sh::KE;
   constexpr int VW = Sh::VW, GC = Sh::GC, ST = Sh::STAGES, PITCH = Sh::PITCH, ES = Sh::ES;
@@ -449,7 +453,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecArgs<KV> a
 #pragma unroll
   for (int i = 0; i < QPER; ++i) {
     const int e = tid + i * DEC_THREADS, g = e / DP, d = e % DP;
-    qv[i] = g < gn && d < D ? __bfloat162float(a.q[((size_t)b * a.H + h0 + g) * D + d]) : 0.0f;
+    qv[i] = g < gn && d < D ? to_f(a.q[((size_t)b * a.H + h0 + g) * D + d]) : 0.0f;
   }
   constexpr int FPER = (DP + DEC_THREADS - 1) / DEC_THREADS;
   float fq[FPER];
@@ -734,7 +738,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecArgs<KV> a
     }
     const size_t row = row0 + g;
     if (nsplit == 1) {
-      a.out[row * D + d] = __float2bfloat16(ac / fmaxf(ls, 1e-30f));
+      from_f(ac / fmaxf(ls, 1e-30f), a.out[row * D + d]);
     } else {
       const size_t pr = row * nsplit + sp;
       if (d == 0) {
@@ -800,7 +804,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecArgs<KV> a
     for (int k = 0; k < 4; ++k) {
       const int e = e0 + k * DEC_THREADS;
       if (e < gn * D)
-        a.out[(row0 + e / D) * D + e % D] = __float2bfloat16(ac[k] / fmaxf(fs[e / D], 1e-30f));
+        from_f(ac[k] / fmaxf(fs[e / D], 1e-30f), a.out[(row0 + e / D) * D + e % D]);
     }
   }
 }
@@ -808,11 +812,11 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecArgs<KV> a
 // Combine the splits of one (row, head) of the prefill in split order,
 // passing over a split with l == 0 (the prefill body writes no accumulator
 // for a split a query cannot see): its weight is 0 and it adds nothing.
-static __global__ void decode_combine_kernel(const float* __restrict__ part_m,
-                                             const float* __restrict__ part_l,
-                                             const float* __restrict__ part_acc,
-                                             __nv_bfloat16* __restrict__ out,
-                                             int nsplit, int D) {
+template <class QT>
+__global__ void decode_combine_kernel(const float* __restrict__ part_m,
+                                      const float* __restrict__ part_l,
+                                      const float* __restrict__ part_acc,
+                                      QT* __restrict__ out, int nsplit, int D) {
   const size_t row = blockIdx.x;
   const int d = threadIdx.x;
   const float* pm = part_m + row * nsplit;
@@ -826,7 +830,7 @@ static __global__ void decode_combine_kernel(const float* __restrict__ part_m,
     lsum += plv[p] * w;
     a += part_acc[(row * nsplit + p) * D + d] * w;
   }
-  out[row * D + d] = __float2bfloat16(a / fmaxf(lsum, 1e-30f));
+  from_f(a / fmaxf(lsum, 1e-30f), out[row * D + d]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1486,10 +1490,10 @@ __global__ void __launch_bounds__(PF_STAGE_THREADS) prefill_stage_kernel(
 }
 
 // Shared memory of one attention CTA; every section 16-byte aligned.
-template <int DP, int NV>
+template <int DP, int NV, bool QF = false>
 struct PfSmem {
   static constexpr int TS = PF_TS, RS = PfShape<DP>::RS;
-  __nv_bfloat16* q;    // [nw*16][RS] the CTA's query rows
+  __nv_bfloat16* q;    // [nw*16][RS] the CTA's query rows (an f32 query's high half)
   __nv_bfloat16* kb;   // [STAGES][TS][RS] staged rotated K, high half
   __nv_bfloat16* kl;   // [STAGES][TS][RS] its low half
   __nv_bfloat16* vb;   // [STAGES][TS][RS] staged V (its high half)
@@ -1498,9 +1502,10 @@ struct PfSmem {
   float* ks;           // [STAGES][TS] K scales (int8 store)
   float* vs;           // [STAGES][TS] V scales
   int* tiles;          // [ntiles] the split's tiles the CTA sees, in slot order
-  // byte offsets of the sections (o[9] is the total)
-  __host__ __device__ static size_t offsets(int nw, int ntiles, size_t (&o)[10]) {
-    const size_t size[9] = {sizeof(__nv_bfloat16) * nw * 16 * RS,
+  __nv_bfloat16* ql;   // [nw*16][RS] an f32 query's low half (QF; else empty)
+  // byte offsets of the sections (o[10] is the total)
+  __host__ __device__ static size_t offsets(int nw, int ntiles, size_t (&o)[11]) {
+    const size_t size[10] = {sizeof(__nv_bfloat16) * nw * 16 * RS,
                             sizeof(__nv_bfloat16) * PF_STAGES * TS * RS,
                             sizeof(__nv_bfloat16) * PF_STAGES * TS * RS,
                             sizeof(__nv_bfloat16) * PF_STAGES * TS * RS,
@@ -1508,21 +1513,22 @@ struct PfSmem {
                             sizeof(int) * PF_STAGES * TS,
                             sizeof(float) * PF_STAGES * TS,
                             sizeof(float) * PF_STAGES * TS,
-                            sizeof(int) * (ntiles + 1)};
+                            sizeof(int) * (ntiles + 1),
+                            sizeof(__nv_bfloat16) * nw * 16 * RS * QF};
     size_t n = 0;
-    for (int i = 0; i < 9; ++i) {
+    for (int i = 0; i < 10; ++i) {
       o[i] = n;
       n += (size[i] + 15) / 16 * 16;
     }
-    o[9] = n;
+    o[10] = n;
     return n;
   }
   static size_t bytes(int nw, int ntiles) {
-    size_t o[10];
+    size_t o[11];
     return offsets(nw, ntiles, o);
   }
   __device__ PfSmem(unsigned char* base, int nw, int ntiles) {
-    size_t o[10];
+    size_t o[11];
     offsets(nw, ntiles, o);
     q = reinterpret_cast<__nv_bfloat16*>(base + o[0]);
     kb = reinterpret_cast<__nv_bfloat16*>(base + o[1]);
@@ -1533,12 +1539,13 @@ struct PfSmem {
     ks = reinterpret_cast<float*>(base + o[6]);
     vs = reinterpret_cast<float*>(base + o[7]);
     tiles = reinterpret_cast<int*>(base + o[8]);
+    ql = reinterpret_cast<__nv_bfloat16*>(base + o[9]);
   }
 };
 
-template <int DP, int NV, bool PAD>
+template <int DP, int NV, bool PAD, class QT>
 __global__ void __launch_bounds__(128) prefill_mma_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, T, H, D] rotated queries
+    const QT* __restrict__ q,             // [B, T, H, D] rotated queries (bf16, or f32)
     const __nv_bfloat16* __restrict__ kr, const __nv_bfloat16* __restrict__ vr,
     const int* __restrict__ spos,         // [B, Sp]
     const int* __restrict__ tmin,         // [B, Sp / TS]
@@ -1546,9 +1553,12 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
     const int* __restrict__ q_pos,        // [B, T]
     float* __restrict__ part_m, float* __restrict__ part_l,
     float* __restrict__ part_acc,         // [B, T, H, nsplit(, D)] (nsplit > 1)
-    __nv_bfloat16* __restrict__ out,      // [B, T, H, D]
+    QT* __restrict__ out,                 // [B, T, H, D] in the queries' type
     int T, int H, int Hkv, int S, int Sp, int tq, int split, float scale, int D) {
   using Sh = PfShape<DP>;
+  // an f32 query enters the products as a high and a low bf16 half, as the
+  // f32 store's K does: S = Q_hi K_hi + Q_hi K_lo + Q_lo K_hi
+  constexpr bool QF = std::is_same<QT, float>::value;
   constexpr int TS = PF_TS, RS = Sh::RS;
   extern __shared__ __align__(16) unsigned char pf_raw[];
   __shared__ int red[4];
@@ -1568,11 +1578,23 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
   const int s0 = sp * split, s1 = min(S, s0 + split);
   const int ntiles = (s1 - s0 + TS - 1) / TS;
   const int nrows = min(tq, T - tq0) * gs;           // live rows of the CTA
-  const PfSmem<DP, NV> sm(pf_raw, nw, ((split < S ? split : S) + TS - 1) / TS);
+  const PfSmem<DP, NV, QF> sm(pf_raw, nw, ((split < S ? split : S) + TS - 1) / TS);
 
   // the CTA's query rows, its largest query position, each warp's
   constexpr int C8 = DP / 8;
-  if constexpr (!PAD) {
+  if constexpr (QF) {   // f32 rows: high and low halves, zeros past D
+    for (int e = tid; e < nw * 16 * (DP / 2); e += nthr) {
+      const int r = e / (DP / 2), c = e % (DP / 2);
+      float2 w = make_float2(0.0f, 0.0f);
+      if (r < nrows && 2 * c < D)
+        w = *reinterpret_cast<const float2*>(
+            q + (((size_t)b * T + tq0 + r / gs) * H + hq + r % gs) * D + 2 * c);
+      const unsigned hi = pack_bf16(w.x, w.y);
+      *reinterpret_cast<unsigned*>(sm.q + r * RS + 2 * c) = hi;
+      *reinterpret_cast<unsigned*>(sm.ql + r * RS + 2 * c) =
+          pack_bf16(w.x - bf16_lo(hi), w.y - bf16_hi(hi));
+    }
+  } else if constexpr (!PAD) {
     for (int e = tid; e < nw * 16 * C8; e += nthr) {
       const int r = e / C8, c = e % C8;
       uint4 w = make_uint4(0u, 0u, 0u, 0u);
@@ -1728,6 +1750,15 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
             mma16816(s[2 * np + 1], a, f[2], f[3]);
           }
         }
+        if constexpr (QF) {   // + Q_lo K_hi
+          ldsm4(a, sm.ql + (warp * 16 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < NB / 2; ++np) {
+            const unsigned(&f)[4] = bk[kk & 1][0][np];
+            mma16816(s[2 * np], a, f[0], f[1]);
+            mma16816(s[2 * np + 1], a, f[2], f[3]);
+          }
+        }
       }
       // scale, K scale and mask per column; the row max over its quad
       float mx[2] = {NEG_INF, NEG_INF};
@@ -1836,12 +1867,17 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
     const int c0 = 2 * (lane & 3);
     if (nsplit == 1) {
       const float den = fmaxf(l[h], 1e-30f);
-      __nv_bfloat16* dst = out + row * (PAD ? D : DP) + c0;
+      QT* dst = out + row * (PAD ? D : DP) + c0;
 #pragma unroll
       for (int i = 0; i < ND; ++i)
-        if (!PAD || c0 + 8 * i < D)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
-              __floats2bfloat162_rn(o[i][2 * h] / den, o[i][2 * h + 1] / den);
+        if (!PAD || c0 + 8 * i < D) {
+          if constexpr (QF)
+            *reinterpret_cast<float2*>(dst + 8 * i) =
+                make_float2(o[i][2 * h] / den, o[i][2 * h + 1] / den);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+                __floats2bfloat162_rn(o[i][2 * h] / den, o[i][2 * h + 1] / den);
+        }
     } else {
       const size_t pr = row * nsplit + sp;
       if ((lane & 3) == 0) {
@@ -1862,16 +1898,16 @@ __global__ void __launch_bounds__(128) prefill_mma_kernel(
 // --- host launchers ---------------------------------------------------------------
 
 // one launch of the decode body with GC query heads a CTA
-template <int DP, class KV, class Addr, int GC>
-int decode_launch(const DecArgs<KV>& a, const Addr& addr, int B, cudaStream_t st) {
+template <int DP, class KV, class Addr, int GC, class QT>
+int decode_launch(const DecArgs<KV, QT>& a, const Addr& addr, int B, cudaStream_t st) {
   const int nsplit = (a.S + a.split - 1) / a.split;
   const size_t smem = DecSmem<DP, KV, GC>::bytes(a.split, nsplit);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_kernel<DP, KV, Addr, GC>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+      decode_kernel<DP, KV, Addr, GC, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const int nhc = (a.H / a.Hkv + GC - 1) / GC;
-  decode_kernel<DP, KV, Addr, GC>
+  decode_kernel<DP, KV, Addr, GC, QT>
       <<<dim3(B * a.Hkv * nhc, nsplit), DEC_THREADS, smem, st>>>(a, addr);
   return (int)cudaGetLastError();
 }
@@ -1882,8 +1918,9 @@ int decode_launch(const DecArgs<KV>& a, const Addr& addr, int B, cudaStream_t st
 // partials when a row spans more than one split (f32: m and l [B, H,
 // nsplit], acc [B, H, nsplit, D]); `tickets` [B * Hkv * chunks] are zero
 // between calls (the last CTA of each group leaves its ticket at zero).
-// `heads` is the host's head chunk: 4, or 8 at DP <= 128.
-template <int DP, class KV, class Addr>
+// `heads` is the host's head chunk: 4, or 8 at DP <= 128. QT is the query
+// and output type: bf16, or f32 (C and E of an f32 model; no fresh row).
+template <int DP, class KV, class Addr, class QT = __nv_bfloat16>
 int decode_impl(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                 const void* kv_pos, const void* q_pos, const void* invf, const void* k_new,
                 const void* v_new, const void* slot, void* work, void* tickets, void* out,
@@ -1908,16 +1945,16 @@ int decode_impl(const void* q, const void* k, const void* v, const void* ks, con
                         const_cast<float*>(static_cast<const float*>(ks)),
                         const_cast<float*>(static_cast<const float*>(vs)),
                         (long long)B * S, write};
-  const DecArgs<KV> a{static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+  const DecArgs<KV, QT> a{static_cast<const QT*>(q), static_cast<const KV*>(k),
                       static_cast<const KV*>(v), static_cast<const float*>(ks),
                       static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
                       static_cast<const int*>(q_pos), static_cast<const float*>(invf),
                       part, part ? part + nparts : nullptr, part ? part + 2 * nparts : nullptr,
-                      static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out),
+                      static_cast<int*>(tickets), static_cast<QT*>(out),
                       H, Hkv, D, S, split, piece, scale, fresh};
   if constexpr (DP <= 128)
-    if (heads == 8) return decode_launch<DP, KV, Addr, 8>(a, addr, B, st);
-  return decode_launch<DP, KV, Addr, 4>(a, addr, B, st);
+    if (heads == 8) return decode_launch<DP, KV, Addr, 8, QT>(a, addr, B, st);
+  return decode_launch<DP, KV, Addr, 4, QT>(a, addr, B, st);
 }
 
 // Kernel O over dense rows: the angles, then the body (its last CTAs fold
@@ -1971,8 +2008,9 @@ int decode_hb_impl(const void* q, const void* k, const void* v, const void* ks,
 // `tq` tokens a CTA (tq * min(H / Hkv, PF_ROWS) <= PF_ROWS rows; tq = 1 where
 // a group has more heads) over splits of `split` slots (a multiple of the
 // tile; one split: no partials, no combine). Partials are [B, T, H,
-// nsplit(, D)], folded by the combine.
-template <int DP, class KV, class Addr>
+// nsplit(, D)], folded by the combine. QT is the query and output type:
+// bf16, or f32 (D and F of an f32 model).
+template <int DP, class KV, class Addr, class QT = __nv_bfloat16>
 int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
                  const void* vs, const void* kv_pos, const void* q_pos,
                  const void* invf, void* kr, void* vr, void* spos, void* tmin, void* sks,
@@ -1993,7 +2031,7 @@ int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
   const bool pad = D != DP || nsl > 1;
   auto stage = pad ? prefill_stage_kernel<DP, KV, Addr, true>
                    : prefill_stage_kernel<DP, KV, Addr, false>;
-  auto mma = pad ? prefill_mma_kernel<DP, NV, true> : prefill_mma_kernel<DP, NV, false>;
+  auto mma = pad ? prefill_mma_kernel<DP, NV, true, QT> : prefill_mma_kernel<DP, NV, false, QT>;
   stage<<<dim3(B * Hkv, Sp / TS), PF_STAGE_THREADS, 0, st>>>(
       static_cast<const KV*>(k), static_cast<const KV*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
@@ -2004,23 +2042,24 @@ int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nw = (rows + 15) / 16;
-  const size_t smem = PfSmem<DP, NV>::bytes(nw, ((split < S ? split : S) + TS - 1) / TS);
+  const size_t smem = PfSmem<DP, NV, std::is_same<QT, float>::value>::bytes(
+      nw, ((split < S ? split : S) + TS - 1) / TS);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
   cudaFuncSetAttribute(mma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid(B * Hkv, (T + tq - 1) / tq * nsl, nsplit);
   mma<<<grid, 32 * nw, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kr),
+      static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(kr),
       static_cast<const __nv_bfloat16*>(vr), static_cast<const int*>(spos),
       static_cast<const int*>(tmin), static_cast<const float*>(sks),
       static_cast<const float*>(svs),
       static_cast<const int*>(q_pos), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_acc),
-      static_cast<__nv_bfloat16*>(out), T, H, Hkv, S, Sp, tq, split, scale, D);
+      static_cast<QT*>(out), T, H, Hkv, S, Sp, tq, split, scale, D);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
-  decode_combine_kernel<<<B * T * H, D, 0, st>>>(
+  decode_combine_kernel<QT><<<B * T * H, D, 0, st>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out), nsplit, D);
+      static_cast<const float*>(part_acc), static_cast<QT*>(out), nsplit, D);
   return (int)cudaGetLastError();
 }
 
@@ -2052,31 +2091,34 @@ int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
   } while (0)
 
 // The bodies of C-F and N, P at the padded width for an even D <= 256 (the
-// smallest of 64, 128, 256 that holds it), which take D at run time.
-#define ATTN_DISPATCH_PADDED(IMPL, ADDR, ...)                                   \
+// smallest of 64, 128, 256 that holds it), which take D at run time; QT is
+// the query and output type (ATTN_DISPATCH_PADDED: bf16).
+#define ATTN_DISPATCH_PADDED_Q(IMPL, ADDR, QT, ...)                             \
   do {                                                                          \
     if (D < 2 || D > 256 || D % 2) return -1;                                   \
     const int DPAD = D <= 64 ? 64 : D <= 128 ? 128 : 256;                       \
     if (kv_type == 0) {                                                         \
       switch (DPAD) {                                                           \
-        case 64: return IMPL<64, int8_t, ADDR>(__VA_ARGS__);                    \
-        case 128: return IMPL<128, int8_t, ADDR>(__VA_ARGS__);                  \
-        case 256: return IMPL<256, int8_t, ADDR>(__VA_ARGS__);                  \
+        case 64: return IMPL<64, int8_t, ADDR, QT>(__VA_ARGS__);                \
+        case 128: return IMPL<128, int8_t, ADDR, QT>(__VA_ARGS__);              \
+        case 256: return IMPL<256, int8_t, ADDR, QT>(__VA_ARGS__);              \
       }                                                                         \
     } else if (kv_type == 1) {                                                  \
       switch (DPAD) {                                                           \
-        case 64: return IMPL<64, __nv_bfloat16, ADDR>(__VA_ARGS__);             \
-        case 128: return IMPL<128, __nv_bfloat16, ADDR>(__VA_ARGS__);           \
-        case 256: return IMPL<256, __nv_bfloat16, ADDR>(__VA_ARGS__);           \
+        case 64: return IMPL<64, __nv_bfloat16, ADDR, QT>(__VA_ARGS__);         \
+        case 128: return IMPL<128, __nv_bfloat16, ADDR, QT>(__VA_ARGS__);       \
+        case 256: return IMPL<256, __nv_bfloat16, ADDR, QT>(__VA_ARGS__);       \
       }                                                                         \
     } else if (kv_type == 2) {                                                  \
       switch (DPAD) {                                                           \
-        case 64: return IMPL<64, float, ADDR>(__VA_ARGS__);                     \
-        case 128: return IMPL<128, float, ADDR>(__VA_ARGS__);                   \
-        case 256: return IMPL<256, float, ADDR>(__VA_ARGS__);                   \
+        case 64: return IMPL<64, float, ADDR, QT>(__VA_ARGS__);                 \
+        case 128: return IMPL<128, float, ADDR, QT>(__VA_ARGS__);               \
+        case 256: return IMPL<256, float, ADDR, QT>(__VA_ARGS__);               \
       }                                                                         \
     }                                                                           \
     return -1;                                                                  \
   } while (0)
+#define ATTN_DISPATCH_PADDED(IMPL, ADDR, ...) \
+  ATTN_DISPATCH_PADDED_Q(IMPL, ADDR, __nv_bfloat16, __VA_ARGS__)
 
 }  // namespace attn

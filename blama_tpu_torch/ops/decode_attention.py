@@ -354,10 +354,16 @@ def require_kernel_geometry(device, n_head: int, n_head_kv: int, head_dim: int,
             f"got {kv_dtype} (ROADMAP.md §1 item 9, other engines)")
 
 
+# the query (and output) types the kernels take: bf16 (the packed engines and
+# the bfloat16 engine) and f32 (the float32 engine; kernels C, D, E and F
+# only, ops/csrc/attention_f32.cu)
+Q_TYPES = (torch.bfloat16, torch.float32)
+
+
 def check_cuda_common(q, inv_freq_e, q_pos, kv_pos, Hkv):
     B, T, H, D = q.shape
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"queries must be bf16, got {q.dtype}")
+    if q.dtype not in Q_TYPES:
+        raise TypeError(f"queries must be bf16 or f32, got {q.dtype}")
     if D % 2 or D > PADDED_HEAD_DIMS[-1] or H % Hkv:
         raise ValueError(f"unsupported head geometry H={H} Hkv={Hkv} D={D}")
     if kv_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
@@ -450,11 +456,26 @@ def decode_work(B: int, H: int, D: int, nsplit: int, dev) -> torch.Tensor | None
     return torch.empty(B * H * nsplit * (2 + D), dtype=torch.float32, device=dev)
 
 
+def require_bf16_query(q, kernel: str) -> None:
+    """Kernels N, P and O have bf16-query instances only."""
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"kernel {kernel} takes bf16 queries only, got {q.dtype}: the float32 "
+            "engine runs C, D, E and F (ROADMAP.md §1 item 9, the rest of it)")
+
+
 def decode_launch(lib, name, q, k, v, k_scale, v_scale, kv_pos, q_pos, inv_freq_e, out,
                   S, kv_type, scale, split=None, fresh=None, write=0, paged=None):
     """Launch kernel C, N or P (dense; `fresh` = (k_new, v_new, slot)) or E
-    (`paged` = (page_table, MP, G)) through the decode plan and count it."""
+    (`paged` = (page_table, MP, G)) through the decode plan and count it; at
+    f32 queries C or E from the f32 library (attention_f32.cu), counted
+    under `name` + "_f32q"."""
     B, _, H, D = q.shape
+    f32 = q.dtype == torch.float32
+    if f32:
+        if fresh is not None:
+            require_bf16_query(q, "P" if write else "N")
+        lib, name = kernels.lib("attention_f32"), name + "_f32q"
     Hkv = k.shape[-2]
     split, heads, grid = decode_plan(B, H, Hkv, S, D, split)
     work = decode_work(B, H, D, grid[1], q.device)
@@ -462,11 +483,16 @@ def decode_launch(lib, name, q, k, v, k_scale, v_scale, kv_pos, q_pos, inv_freq_
     stream = kernels.stream_ptr(q.device)
     if paged is not None:
         table, MP, G = paged
-        rc = lib.paged_decode_attention_launch(
+        fn = lib.paged_decode_attention_f32_launch if f32 else lib.paged_decode_attention_launch
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
+                kv_pos.data_ptr(), table.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(),
+                ptr(work), ptr(tk), out.data_ptr(), B, H, Hkv, D, MP, G, split, heads, kv_type,
+                float(scale), stream)
+    elif f32:
+        rc = lib.decode_attention_f32_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
-            kv_pos.data_ptr(), table.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(),
-            ptr(work), ptr(tk), out.data_ptr(), B, H, Hkv, D, MP, G, split, heads, kv_type,
-            float(scale), stream)
+            kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(), ptr(work), ptr(tk),
+            out.data_ptr(), B, H, Hkv, D, S, split, heads, kv_type, float(scale), stream)
     else:
         k_new, v_new, slot = fresh or (None, None, None)
         rc = lib.decode_attention_launch(
@@ -562,7 +588,8 @@ def decode_attention(
     slot: torch.Tensor | None = None,   # [B] int32 slot of the fresh token
     split: int | None = None,  # slots per split, for measuring only (decode_plan)
 ) -> torch.Tensor:
-    """Fused single-token attention; returns [B, 1, H, D] in q.dtype.
+    """Fused single-token attention; returns [B, 1, H, D] in q.dtype (bf16,
+    or f32: C's f32-query instance; N, P and O take bf16 only).
 
     Kernel C; kernel N when the fresh row is given (the cache need not hold
     it yet: it is patched over `slot`, a pad row's slot >= S patches
@@ -589,6 +616,7 @@ def decode_attention(
     lib = kernels.lib("decode_attention")
     hb = hb_split(S, D, Hkv, k_cache.dtype, B, scales_t, fresh)
     if hb:
+        require_bf16_query(q, "O")
         plan = hb_plan(B, H, Hkv, D, S, hb)
         groups, nsplit = plan.grid
         # one scratch: the rope angles [B*S, D], the partials m, l [B, H,
@@ -606,6 +634,7 @@ def decode_attention(
         kernels.count("decode_attention_hb")
         return out
     if fresh:
+        require_bf16_query(q, "N")
         slot = slot.reshape(B)
         _check_fresh(q, k_new, v_new, slot, Hkv)
     return decode_launch(lib, "decode_attention_fresh" if fresh else "decode_attention", q,
@@ -654,6 +683,7 @@ def decode_attention_write(
         "k_scale": (k_scale, (n, Hkv), torch.float32),
         "v_scale": (v_scale, (n, Hkv), torch.float32),
         "kv_pos": (kv_pos, (B, S), None), "inv_freq_e": (inv_freq_e, (D,), None)})
+    require_bf16_query(q, "P")
     _check_fresh(q, k_new, v_new, slot, Hkv)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     return decode_launch(kernels.lib("decode_attention"), "decode_attention_write", q,
@@ -675,7 +705,8 @@ def prefill_attention(
     split: int = PREFILL_SPLIT,
 ) -> torch.Tensor:
     """Kernel D: fused causal chunk attention; returns [B, T, H, D] in
-    q.dtype. `split` is for measuring only (prefill_plan)."""
+    q.dtype (bf16, or f32: the f32-query instance). `split` is for
+    measuring only (prefill_plan)."""
     B, T, H, D = q.shape
     scale = (logit_scale if logit_scale is not None else 1.0 / (D ** 0.5)) * mscale
     if q.device.type == "cpu":
@@ -692,11 +723,15 @@ def prefill_attention(
     # the scratch tensor owns the memory the pointers address until the launch
     scratch, bufs = prefill_buffers(B, T, H, Hkv, D, S, grid[2], kv_type, q.device)
     out = torch.empty_like(q)
-    rc = kernels.lib("decode_attention").prefill_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
-        ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(),
-        *bufs, out.data_ptr(), B, T, H, Hkv, D, S, tq, split,
-        kv_type, float(scale), kernels.stream_ptr(q.device))
-    kernels.check(rc, "prefill_attention")
-    kernels.count("prefill_attention")
+    if q.dtype == torch.float32:
+        name = "prefill_attention_f32q"
+        fn = kernels.lib("attention_f32").prefill_attention_f32_launch
+    else:
+        name, fn = "prefill_attention", kernels.lib("decode_attention").prefill_attention_launch
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
+            ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(),
+            *bufs, out.data_ptr(), B, T, H, Hkv, D, S, tq, split,
+            kv_type, float(scale), kernels.stream_ptr(q.device))
+    kernels.check(rc, name)
+    kernels.count(name)
     return out

@@ -51,11 +51,12 @@ def _mode_for(st, cache):
     steps take the fused kernel get write mode where `write_supports` passes
     (any store type); else an INT8 store gets fresh mode where
     `fresh_supports` passes, else the transposed-scale mode (which keeps the
-    head-batched kernel off, as there). Anything else keeps `st`."""
+    head-batched kernel off, as there). Anything else (the two-pass mode,
+    attn_fused=False, among it) keeps `st`."""
     if not isinstance(st, llama_mod.LlamaStatic) or not isinstance(cache, KVCache):
         return st
     S, D, B, dtype = cache.n_slots, st.head_dim, cache.batch, cache.k_store.dtype
-    if (not st.causal or (st.yarn is not None and st.rope_dim < D)
+    if (not st.attn_fused or not st.causal or (st.yarn is not None and st.rope_dim < D)
             or not dattn.supports(S, D, dtype, B)):
         return st
     if _WRITE_IN_KERNEL and dattn.write_supports(S, D, dtype, B):

@@ -83,6 +83,12 @@ SIGNATURES = {
         "paged_decode_attention_launch": [_P] * 12 + [_I] * 9 + [_F, _P],
         "paged_prefill_attention_launch": [_P] * 19 + [_I] * 10 + [_F, _P],
     },
+    "attention_f32": {
+        "decode_attention_f32_launch": [_P] * 11 + [_I] * 8 + [_F, _P],
+        "prefill_attention_f32_launch": [_P] * 18 + [_I] * 9 + [_F, _P],
+        "paged_decode_attention_f32_launch": [_P] * 12 + [_I] * 9 + [_F, _P],
+        "paged_prefill_attention_f32_launch": [_P] * 19 + [_I] * 10 + [_F, _P],
+    },
 }
 
 # launch counts per kernel (see module docstring)
@@ -102,7 +108,9 @@ LAUNCHES = {"w4a8_gemv": 0, "q4k_dequant_matmul": 0, "q8_dequant_matmul": 0,
             "decode_attention": 0, "prefill_attention": 0,
             "decode_attention_fresh": 0, "decode_attention_hb": 0,
             "decode_attention_write": 0,
-            "paged_decode_attention": 0, "paged_prefill_attention": 0}
+            "paged_decode_attention": 0, "paged_prefill_attention": 0,
+            "decode_attention_f32q": 0, "prefill_attention_f32q": 0,
+            "paged_decode_attention_f32q": 0, "paged_prefill_attention_f32q": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # where count() adds: LAUNCHES, a capture's record, or nowhere (a warm-up)

@@ -23,7 +23,9 @@ over the same logical row: physical page placement cannot affect logits
 the plain version below equals the dense plain version exactly).
 
 On a CPU tensor each wrapper runs `paged_attention_plain`; on a CUDA tensor
-it launches its kernel or raises.
+it launches its kernel or raises. bf16 queries take the bf16 instances
+(ops/csrc/paged_attention.cu), f32 queries the f32 ones (the float32
+engine; ops/csrc/attention_f32.cu), each counted under its own name.
 """
 
 from __future__ import annotations
@@ -167,12 +169,17 @@ def paged_prefill_attention(
     # the scratch tensor owns the memory the pointers address until the launch
     scratch, bufs = dattn.prefill_buffers(B, T, H, Hkv, D, MP * G, grid[2], kv_type, q.device)
     out = torch.empty_like(q)
-    rc = kernels.lib("paged_attention").paged_prefill_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), dattn.ptr(k_scale),
-        dattn.ptr(v_scale), pool_pos.data_ptr(), page_table.data_ptr(),
-        q_pos.data_ptr(), inv_freq_e.data_ptr(), *bufs,
-        out.data_ptr(), B, T, H, Hkv, D, MP, G, tq, split, kv_type, float(scale),
-        kernels.stream_ptr(q.device))
-    kernels.check(rc, "paged_prefill_attention")
-    kernels.count("paged_prefill_attention")
+    if q.dtype == torch.float32:
+        name = "paged_prefill_attention_f32q"
+        fn = kernels.lib("attention_f32").paged_prefill_attention_f32_launch
+    else:
+        name = "paged_prefill_attention"
+        fn = kernels.lib("paged_attention").paged_prefill_attention_launch
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), dattn.ptr(k_scale),
+            dattn.ptr(v_scale), pool_pos.data_ptr(), page_table.data_ptr(),
+            q_pos.data_ptr(), inv_freq_e.data_ptr(), *bufs,
+            out.data_ptr(), B, T, H, Hkv, D, MP, G, tq, split, kv_type, float(scale),
+            kernels.stream_ptr(q.device))
+    kernels.check(rc, name)
+    kernels.count(name)
     return out

@@ -1037,32 +1037,57 @@ def w4a8_packed_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tenso
 _ROW_BLOCK = 16
 
 
-def rows_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def require_ieee_f32(t: torch.Tensor) -> None:
+    """Refuse an f32 product on the card while the caller allows TF32
+    (torch.backends.cuda.matmul.allow_tf32, a process-wide setting): cuBLAS
+    would then round the operands to TF32, and the product would no longer
+    be the reference's f32 dot. The setting is read, never changed."""
+    if t.is_cuda and t.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("f32 products need TF32 off "
+                           "(torch.backends.cuda.matmul.allow_tf32 = False)")
+
+
+def rows_mm(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """a [M, K] @ b [K, N], each row's bits independent of the rows beside
     it, as the exact kernels give them (a MoE decode step and its padded
-    replay rest on it). A BLAS picks its kernel, and with it a row's sum
-    order, by the row count (cuBLAS: a GEMV at one row, other GEMM tiles at
-    4, 8 or 128), and on the CPU also by the thread count and the operand's
-    alignment; so no row goes through a product whose shape follows M. On
-    the CPU every row goes alone, as row 0 of a zeroed 16-row block in a
-    buffer of its own (at 16 rows the BLAS takes its GEMM kernel, whose sum
-    order the reference's CPU dot shares). On the card the rows are padded
+    replay rest on it, and so does a dense engine's replay). A BLAS picks
+    its kernel, and with it a row's sum order, by the row count (cuBLAS: a
+    GEMV at one row, other GEMM tiles at 4, 8 or 128), and on the CPU also
+    by the thread count and the operand's alignment; so no row goes through
+    a product whose shape follows M. On the CPU every row goes alone, as row
+    0 of a zeroed 16-row block in a buffer of its own (at 16 rows the BLAS
+    takes its GEMM kernel, whose sum order the reference's CPU dot shares),
+    in f32 (bf16 products are exact there). On the card the rows are padded
     with zero rows to whole 16-row blocks and each block is one [16, K] @
     [K, N] product: one cuBLAS kernel whatever M, and a GEMM sums each output
-    element in an order that does not depend on its row."""
+    element in an order that does not depend on its row.
+
+    The operands are taken in b's dtype (f32, or bf16: a dense engine's
+    weight) and summed in f32, as the reference's dot: bf16 blocks through
+    `torch.mm(..., out_dtype=float32)` (split-K partials never reduced in
+    bf16), f32 blocks never through TF32 (require_ieee_f32: a call with TF32
+    allowed raises). The result is in `out_dtype`, a's dtype by default."""
+    out_dtype = out_dtype or a.dtype
+    a = a.to(b.dtype)
     M, K = a.shape
-    if a.device.type != "cpu":
-        pad = torch.nn.functional.pad(a, (0, 0, 0, -M % _ROW_BLOCK))
+    if a.device.type == "cpu":
+        bf = b.float()
+        rows = []
+        for i in range(M):
+            blk = a.new_zeros((_ROW_BLOCK, K), dtype=torch.float32)
+            blk[0] = a[i]
+            rows.append((blk @ bf)[:1])
+        return (torch.cat(rows) if rows else a.float() @ bf).to(out_dtype)
+    pad = torch.nn.functional.pad(a, (0, 0, 0, -M % _ROW_BLOCK))
+    if b.dtype == torch.bfloat16:
+        outs = [torch.mm(pad[i:i + _ROW_BLOCK], b, out_dtype=torch.float32)
+                for i in range(0, pad.shape[0], _ROW_BLOCK)]
+    else:
+        require_ieee_f32(b)
         outs = [pad[i:i + _ROW_BLOCK] @ b for i in range(0, pad.shape[0], _ROW_BLOCK)]
-        if len(outs) == 1:
-            return outs[0][:M]
-        return torch.cat(outs)[:M] if outs else a @ b
-    rows = []
-    for i in range(M):
-        blk = a.new_zeros((_ROW_BLOCK, K))
-        blk[0] = a[i]
-        rows.append((blk @ b)[:1])
-    return torch.cat(rows) if rows else a @ b
+    if not outs:
+        return (a.float() @ b.float()).to(out_dtype)
+    return (outs[0] if len(outs) == 1 else torch.cat(outs))[:M].to(out_dtype)
 
 
 def _q4k_values(w: QuantTensor) -> torch.Tensor:
@@ -1676,10 +1701,11 @@ def _quant_kernel_call(flat: torch.Tensor, w) -> torch.Tensor:
 
 def qmm(x: torch.Tensor, w) -> torch.Tensor:
     """x [..., K] @ W → [..., N] in x's dtype: a packed weight through its
-    kernel (f32 accumulation inside), a dense [K, N] tensor through matmul."""
-    if isinstance(w, torch.Tensor):
-        return x @ w
+    kernel (f32 accumulation inside), a dense [K, N] tensor through rows_mm
+    (f32 sums, each row's bits its own)."""
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1]).contiguous()
+    if isinstance(w, torch.Tensor):
+        return rows_mm(flat, w).reshape(*lead, -1)
     out = _quant_kernel_call(flat, w)
     return out.reshape(*lead, -1).to(x.dtype)

@@ -19,6 +19,7 @@ eagerly, for comparison; on the CPU the step runs eagerly.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from dataclasses import dataclass
 
@@ -45,8 +46,9 @@ class InstanceInitParams:
     ctx_size: int = 0            # 0 = train context length
     batch_size: int = 2048
     ubatch_size: int = 512
-    # fused attention kernels; the port's only attention mode, as the
-    # reference's is whenever the model was loaded with attn="fused"
+    # the fused attention kernels for this instance even where the model
+    # was loaded with attn="xla" (Instance.hpp:24); a model loaded with
+    # attn="fused" takes them without it
     flash_attn: bool = False
     kv_dtype: str = "float32"    # float32 | bfloat16 | int8
     fast_greedy: bool = True     # device-loop fast path for eligible complete()
@@ -63,11 +65,6 @@ class Instance:
         self.params = params or InstanceInitParams()
         cfg = model.config
         kv_dtype = kvc.resolve_kv_dtype(self.params.kv_dtype)
-        # the fused attention kernels' gates; a model loaded with attn="xla"
-        # (a MoE model) runs the two-pass chain, which takes any geometry
-        if cfg.attn_fused:
-            dattn.require_kernel_geometry(model.device, cfg.n_head, cfg.n_head_kv,
-                                          cfg.head_dim_, kv_dtype)
         if self.params.ring_mesh is not None:
             raise NotImplementedError(
                 "ring (sequence-parallel) prefill is not ported "
@@ -87,18 +84,40 @@ class Instance:
 
         from ..ops.generate_loop import static_of
 
-        if cfg.attn_fused and not dattn.supports(self.ctx_len, cfg.head_dim_,
-                                                 self.cache.k.dtype):
-            raise NotImplementedError(
-                f"the fused attention kernels reject ctx_size={self.ctx_len} "
-                f"head_dim={cfg.head_dim_}, and the two-pass mode for such "
-                "geometries is not ported (ROADMAP.md §1 item 9, other engines)")
-        self.step_config = cfg  # session fast paths derive statics from this
-        self._st = static_of(cfg)
+        # session fast paths derive statics from this; its attn_fused is the
+        # mode the session's records are made in
+        self.step_config = self._attention_mode(cfg, kv_dtype)
+        self._st = static_of(self.step_config)
         # the step's and the loops' graphs (False: eager launches)
         self.graphs = (StepGraphs(self.device)
                        if self.params.graphs and self.device.type == "cuda" else False)
         self._session: Session | None = None
+
+    def _attention_mode(self, cfg, kv_dtype):
+        """The step config's attention mode, as the reference's Instance
+        picks it (blama_tpu/runtime/instance.py:118-150): the fused kernels
+        when the model was loaded with attn="fused" or flash_attn asks for
+        them, unless the model is a MoE or the fused gates reject the
+        geometry (ctx_size, head dim, store type); then a warning says so,
+        and the step config records attn_fused=False: the two-pass chain,
+        a mode of its own numerics, never a quiet substitute. A geometry the
+        gates admit is checked against the kernels where the cache lives on
+        a card (decode_attention.require_kernel_geometry)."""
+        if not (self.params.flash_attn or cfg.attn_fused):
+            return cfg
+        log = logging.getLogger("blama_tpu_torch")
+        if cfg.is_moe:
+            log.warning("flash_attn requested but unsupported with MoE; using XLA attention")
+        elif not dattn.supports(self.ctx_len, cfg.head_dim_, self.cache.k.dtype):
+            log.warning(
+                "flash_attn requested but the fused kernel rejects this geometry "
+                "(ctx_size=%d head_dim=%d kv_dtype=%s); using XLA attention",
+                self.ctx_len, cfg.head_dim_, self.params.kv_dtype)
+        else:
+            dattn.require_kernel_geometry(self.device, cfg.n_head, cfg.n_head_kv,
+                                          cfg.head_dim_, kv_dtype)
+            return dataclasses.replace(cfg, attn_fused=True)
+        return dataclasses.replace(cfg, attn_fused=False)
 
     # -- session lifecycle (single active session, Instance.cpp:121-131) -----
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import torch
+
 from ..gguf.reader import GGUFReader
 from ..models.config import ModelConfig
 from ..ops.kernels import resolve_device
@@ -25,6 +27,10 @@ ModelLoadProgressCb = Callable[[float], None]
 ENGINES = {"q4k_fused": True, "q4k_fused_k4": "k4", "q4k_a8": "a8",
            "q4k_a8_k4": "a8k4", "q4k_a8_xla": "a8x",
            "q8_0_fused": True, "q6_k_fused": True}
+# the dense engines of a llama file (the reference's `dtype` for anything not
+# in its fused map): every tensor dequantized to this dtype
+# (models/llama.load_dense_params)
+DENSE_ENGINES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the engines that serve a MoE (Mixtral-family) file: packed Q4_K expert banks
 # for the exact engine and for W4A8 (models/moe.load_moe_params)
 MOE_ENGINES = {"q4k_fused": True, "q4k_a8": "a8"}
@@ -33,8 +39,9 @@ MOE_ENGINES = {"q4k_fused": True, "q4k_a8": "a8"}
 @dataclass
 class ModelParams:
     """Reference: Model::Params (Model.hpp:28-34). `dtype` selects the
-    weight engine; the port serves the packed engines of ENGINES (of
-    MOE_ENGINES for a MoE file)."""
+    weight engine; the port serves the dense engines of DENSE_ENGINES (the
+    reference's default, "float32", among them) and the packed engines of
+    ENGINES on a llama file, those of MOE_ENGINES on a MoE file."""
 
     vocab_only: bool = False
     prefix_inputs_with_bos: bool = False
@@ -47,9 +54,9 @@ class ModelParams:
     tp_blocks: int = -1
     moe_ragged: bool | None = None
     # "fused": the flash attention kernels (own numerics: prover and verifier
-    # pick the same mode), the only mode of a llama file; "xla": the two-pass
-    # chain at every chunk, the only mode of a MoE file (as in the reference);
-    # None: the file's own mode
+    # pick the same mode); "xla": the two-pass chain at every chunk (the
+    # reference's default, and the only mode of a MoE file, as there); None:
+    # "fused" on a llama file, "xla" on a MoE file
     attn: str | None = None
     device: str = "cuda"
 
@@ -81,11 +88,6 @@ class Model:
             raise ValueError(
                 "attn='fused' is unsupported with a MoE model; "
                 "use attn='xla' (the MoE forward is XLA-attention only)")
-        if not self.config.is_moe and self.params.attn == "xla":
-            raise NotImplementedError(
-                "attn='xla' (the two-pass chain for every chunk) is not ported for "
-                "llama files; the port serves attn='fused' (ROADMAP.md §1 item 9, "
-                "other engines)")
         # moe_ragged picks the reference's mixture for DENSE expert banks only:
         # packed Q4_K banks take moe_ffn_quant before it is read
         # (blama_tpu/models/moe.py:374-377), and a llama file has no mixture
@@ -96,28 +98,36 @@ class Model:
                 "engines, whose mixture it picks, are not ported "
                 "(ROADMAP.md §1 item 10, the rest of MoE)")
         # the attention mode the model runs (Instance and the scheduler read it)
-        self.config.attn_fused = not self.config.is_moe
+        self.config.attn_fused = (self.params.attn or
+                                  ("xla" if self.config.is_moe else "fused")) == "fused"
         self.vocab = Vocab.from_gguf(self.reader)
         self.weights = None
         if not self.params.vocab_only:
             self.weights = self._load_weights(progress_cb)
 
     def _load_weights(self, progress_cb: ModelLoadProgressCb | None):
-        engines = MOE_ENGINES if self.config.is_moe else ENGINES
+        engines = MOE_ENGINES if self.config.is_moe else {**ENGINES, **DENSE_ENGINES}
         if self.params.dtype not in engines:
             raise NotImplementedError(
                 f"dtype={self.params.dtype!r} is not ported for "
                 f"{'MoE' if self.config.is_moe else 'llama'} files; the port serves "
-                f"{sorted(engines)} (ROADMAP.md §1 item 9, other engines)")
-        if self.config.is_moe:
-            from ..models.moe import load_moe_params as load
-        else:
-            from ..models.llama import load_llama_params as load
-
+                f"{sorted(engines)} (ROADMAP.md §1 item 9, other engines"
+                f"{'; item 10, dense MoE banks' if self.config.is_moe else ''})")
         if progress_cb:
             progress_cb(0.0)
-        w = load(self.reader, self.config, fused_quant=engines[self.params.dtype],
-                 device=self.device, progress_cb=progress_cb)
+        if self.config.is_moe:
+            from ..models.moe import load_moe_params
+
+            w = load_moe_params(self.reader, self.config, fused_quant=engines[self.params.dtype],
+                                device=self.device, progress_cb=progress_cb)
+        else:
+            from ..models.llama import load_llama_params
+
+            dense = DENSE_ENGINES.get(self.params.dtype)
+            w = load_llama_params(self.reader, self.config,
+                                  fused_quant=False if dense else engines[self.params.dtype],
+                                  device=self.device, progress_cb=progress_cb,
+                                  dtype=dense or torch.bfloat16)
         if progress_cb:
             progress_cb(1.0)
         return w

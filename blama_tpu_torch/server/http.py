@@ -251,9 +251,10 @@ def main() -> None:
     8, 0 disables) is the number of decode steps per scheduler iteration
     with the logits kept on the device; it engages only when every active
     row is greedy or a verification row and gives way to per-token steps
-    otherwise. BLAMA_DTYPE names the weight engine (default `q4k_a8`; one
-    the port does not serve fails here with Model's NotImplementedError; a
-    MoE file takes `q4k_a8` or `q4k_fused`, and runs attn="xla").
+    otherwise. BLAMA_DTYPE names the weight engine (default `bfloat16`, the
+    reference server's; one the port does not serve fails here with Model's
+    NotImplementedError; a MoE file takes `q4k_a8` or `q4k_fused`, and runs
+    attn="xla").
     """
     import logging
 
@@ -274,7 +275,7 @@ def main() -> None:
 
     # attn is left to the file: fused kernels for llama, the chain for MoE
     model = Model(model_path,
-                  ModelParams(dtype=os.environ.get("BLAMA_DTYPE", "q4k_a8"),
+                  ModelParams(dtype=os.environ.get("BLAMA_DTYPE", "bfloat16"),
                               device=os.environ.get("BLAMA_DEVICE", "cuda")),
                   progress_cb=progress)
     print()

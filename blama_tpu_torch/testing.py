@@ -5,7 +5,8 @@ vocab with byte fallback) with seeded weights, and a direct-packed synthesizer
 for full-size geometries. A copy of the JAX package's fixtures, so the port
 and its smoke script never import that package; `write_tiny_llama` writes the
 same file from the same seed. Beyond the copy: the mixed-type layout of
-llama.cpp's Q4_K_M files (`quant=Q4_K_M`), a direct Q6_K packer, a
+llama.cpp's Q4_K_M, Q5_K_M and Q3_K_M files (`quant=Q4_K_M` ...), direct
+Q6_K, Q5_K and Q3_K packers, a
 `n_layer` cut of the presets, and the Mixtral-8x7B widths as a MoE preset.
 """
 
@@ -52,23 +53,47 @@ def tiny_spm_vocab() -> tuple[list[str], list[float], list[int]]:
     return tokens, scores, types
 
 
-# `quant` value selecting llama.cpp's LLAMA_FTYPE_MOSTLY_Q4_K_M tensor types
+# `quant` values selecting llama.cpp's LLAMA_FTYPE_MOSTLY_Q4_K_M,
+# _Q5_K_M and _Q3_K_M tensor types (mixed_type)
 Q4_K_M = "Q4_K_M"
+Q5_K_M = "Q5_K_M"
+Q3_K_M = "Q3_K_M"
+MIXED = (Q4_K_M, Q5_K_M, Q3_K_M)
+
+
+def _use_more_bits(i: int, n_layer: int) -> bool:
+    """llama.cpp's use_more_bits: the first and last eighth of the layers
+    and every third layer between."""
+    return i < n_layer // 8 or i >= 7 * n_layer // 8 or (i - n_layer // 8) % 3 == 2
+
+
+def mixed_type(recipe: str, name: str, n_layer: int) -> GGMLType:
+    """The type llama.cpp's recipe (llama_tensor_get_type) gives a matmul
+    tensor of a llama file. Q4_K_M / Q5_K_M: output.weight Q6_K; attn_v and
+    ffn_down Q6_K where use_more_bits says so; everything else, token_embd
+    included, Q4_K / Q5_K. Q3_K_M: output.weight Q6_K; attn_v Q5_K in the
+    first two layers, else Q4_K; attn_output Q4_K; ffn_down Q5_K in the
+    first sixteenth of the layers, else Q4_K; everything else Q3_K."""
+    if name == "output.weight":
+        return GGMLType.Q6_K
+    i = int(name.split(".")[1]) if name.startswith("blk.") else -1
+    if recipe == Q3_K_M:
+        if name.endswith(".attn_v.weight"):
+            return GGMLType.Q5_K if i < 2 else GGMLType.Q4_K
+        if name.endswith(".attn_output.weight"):
+            return GGMLType.Q4_K
+        if name.endswith(".ffn_down.weight"):
+            return GGMLType.Q5_K if i < n_layer // 16 else GGMLType.Q4_K
+        return GGMLType.Q3_K
+    if name.endswith((".attn_v.weight", ".ffn_down.weight")) and _use_more_bits(i, n_layer):
+        return GGMLType.Q6_K
+    return {Q4_K_M: GGMLType.Q4_K, Q5_K_M: GGMLType.Q5_K}[recipe]
 
 
 def q4_k_m_type(name: str, n_layer: int) -> GGMLType:
-    """The type llama.cpp's Q4_K_M recipe (llama_tensor_get_type) gives a
-    matmul tensor: output.weight is Q6_K; attn_v and ffn_down are Q6_K in the
-    first and last eighth of the layers and every third layer between
-    (use_more_bits); everything else, token_embd included, is Q4_K."""
-    if name == "output.weight":
-        return GGMLType.Q6_K
-    if name.endswith((".attn_v.weight", ".ffn_down.weight")):
-        i = int(name.split(".")[1])
-        if (i < n_layer // 8 or i >= 7 * n_layer // 8
-                or (i - n_layer // 8) % 3 == 2):
-            return GGMLType.Q6_K
-    return GGMLType.Q4_K
+    """The type llama.cpp's Q4_K_M recipe gives a matmul tensor
+    (mixed_type)."""
+    return mixed_type(Q4_K_M, name, n_layer)
 
 
 TINY_LLAMA_SPEC = dict(
@@ -97,7 +122,8 @@ def write_tiny_llama(
     spec: dict | None = None,
 ) -> None:
     """Write a deterministic tiny llama-architecture GGUF model. `quant` is
-    one GGML type for every matmul tensor, or Q4_K_M for the mixed layout."""
+    one GGML type for every matmul tensor, or Q4_K_M, Q5_K_M or Q3_K_M for
+    llama.cpp's mixed layouts (mixed_type)."""
     s = dict(TINY_LLAMA_SPEC)
     if spec:
         s.update(spec)
@@ -115,7 +141,7 @@ def write_tiny_llama(
     g = GGUFWriter(path)
 
     def add(name, data):
-        g.add_tensor(name, data, q4_k_m_type(name, L) if quant == Q4_K_M else quant)
+        g.add_tensor(name, data, mixed_type(quant, name, L) if quant in MIXED else quant)
 
     g.add_kv("general.architecture", "llama")
     g.add_kv("general.name", "tiny-llama-fixture")
@@ -258,8 +284,50 @@ def _pack_q6_k_direct(rng: np.random.Generator, n_rows: int, row_len: int,
     return out.tobytes()
 
 
+def _pack_q5_k_direct(rng: np.random.Generator, n_rows: int, row_len: int,
+                      sigma: float) -> bytes:
+    """Directly synthesize packed Q5_K superblocks (176 B: f16 d, f16 dmin,
+    12 B of 6-bit scales and mins, 32 B high bits, 128 B low nibbles):
+    random 5-bit codes, fixed mid scales, d chosen so dequantized values
+    have std ≈ sigma and dmin so they centre on 0."""
+    from .gguf.quants import _pack_scale_min_k4
+
+    n_blocks = (n_rows * row_len) // 256
+    out = np.empty((n_blocks, 176), dtype=np.uint8)
+    # std of uniform q in [0, 31] is ~9.23; effective scale = d*sc with sc=32
+    d = np.float16(sigma / (32 * 9.23))
+    dmin = np.float16(float(d) * 15.5)             # centres E[q] = 15.5
+    out[:, 0:2] = np.frombuffer(d.tobytes(), dtype=np.uint8)
+    out[:, 2:4] = np.frombuffer(dmin.tobytes(), dtype=np.uint8)
+    sc = np.full((1, 8), 32, np.int64)
+    out[:, 4:16] = _pack_scale_min_k4(sc, sc)[0]
+    out[:, 16:] = rng.integers(0, 256, size=(n_blocks, 160), dtype=np.uint8)
+    return out.tobytes()
+
+
+def _pack_q3_k_direct(rng: np.random.Generator, n_rows: int, row_len: int,
+                      sigma: float) -> bytes:
+    """Directly synthesize packed Q3_K superblocks (110 B: 32 B high-bit
+    mask, 64 B low 2-bit codes, 12 B of 6-bit scales, f16 d): random 3-bit
+    codes in [-4, 3], signed scales of magnitude 8..31, d chosen so
+    dequantized values have std ≈ sigma."""
+    from .gguf.quants import _q3k_pack_scales
+
+    n_blocks = (n_rows * row_len) // 256
+    out = np.empty((n_blocks, 110), dtype=np.uint8)
+    out[:, :96] = rng.integers(0, 256, size=(n_blocks, 96), dtype=np.uint8)
+    sc = rng.integers(8, 32, size=(n_blocks, 16), dtype=np.int8)
+    sc *= rng.integers(0, 2, size=(n_blocks, 16), dtype=np.int8) * 2 - 1
+    out[:, 96:108] = _q3k_pack_scales(sc.astype(np.int32) + 32)
+    # rms of the scales is ~20.6; std of uniform q in [-4, 3] is ~2.29
+    d = np.float16(sigma / (20.6 * 2.29))
+    out[:, 108:110] = np.frombuffer(d.tobytes(), dtype=np.uint8)
+    return out.tobytes()
+
+
 _DIRECT_PACKERS = {GGMLType.Q4_K: _pack_q4_k_direct, GGMLType.Q8_0: _pack_q8_0_direct,
-                   GGMLType.Q6_K: _pack_q6_k_direct}
+                   GGMLType.Q6_K: _pack_q6_k_direct, GGMLType.Q5_K: _pack_q5_k_direct,
+                   GGMLType.Q3_K: _pack_q3_k_direct}
 
 
 def _pack_f32_norm(n: int) -> tuple[bytes, tuple[int, ...]]:
@@ -319,11 +387,13 @@ def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
     Weight *values* are random (throughput benchmarking does not depend on
     them) but every byte layout, metadata key, and tensor name is real, so the
     full load path (parse → dequant/repack → upload) is exercised. `quant`
-    is Q4_K, Q8_0, Q6_K or Q4_K_M (the mixed layout); `n_layer` cuts the
+    is Q4_K, Q5_K, Q3_K, Q8_0, Q6_K or one of llama.cpp's mixed layouts
+    (Q4_K_M, Q5_K_M, Q3_K_M: mixed_type); `n_layer` cuts the
     preset's depth (its widths stay).
     """
-    if quant != Q4_K_M and quant not in _DIRECT_PACKERS:
-        raise NotImplementedError("direct synthesis packs Q4_K, Q8_0, Q6_K or Q4_K_M")
+    if quant not in MIXED and quant not in _DIRECT_PACKERS:
+        raise NotImplementedError(
+            "direct synthesis packs Q4_K, Q5_K, Q3_K, Q8_0, Q6_K, Q4_K_M, Q5_K_M or Q3_K_M")
     s = dict(MODEL_PRESETS[preset])
     if n_layer is not None:
         s["n_layer"] = n_layer
@@ -335,7 +405,7 @@ def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
 
     def q(name, n_out, n_in, sigma=None):
         sigma = sigma if sigma is not None else 1.0 / np.sqrt(n_in)
-        t = q4_k_m_type(name, L) if quant == Q4_K_M else quant
+        t = mixed_type(quant, name, L) if quant in MIXED else quant
         g.add_tensor(name, None, t,
                      raw_bytes=_DIRECT_PACKERS[t](rng, n_out, n_in, sigma),
                      ne=(n_in, n_out))

@@ -138,7 +138,23 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    must have launched, ab_a8k4's "x2 vs a8k4" within the matmul tolerance,
    ubench_q4k's v1 within it of v0 and every variant within 2e-2, no probe
    a FAIL (a probe tool exits non-zero on one), probe_overhead's kernel S
-   captured.
+   captured;
+10. dense: the reference's defaults (dense_phase): the `bfloat16` engine on
+   the llama3-8b Q4_K file at full depth (every tensor dequantized on the
+   card at load), the solo phase's three request shapes under attn="fused"
+   (bf16 C, D) and attn="xla" (the two-pass chain, no attention kernel),
+   every replay exactly 1.0, then `python -m blama_tpu_torch.server.http`
+   with BLAMA_DTYPE unset (bfloat16) on the paged scheduler, four requests
+   verified at 1.0; the `float32` engine at full width cut to
+   ENGINE_FILE_LAYERS layers on f32 KV, the same requests in both modes
+   (C and D at f32 queries) and four requests through the paged scheduler
+   (E and F at f32 queries), verified at 1.0; Q5_K_M- and Q3_K_M-pattern
+   files at ENGINE_FILE_LAYERS layers, each GGML type's values dequantized
+   on the card equal to the numpy function's, loaded as `bfloat16` and
+   replayed at 1.0. The kernel phase holds C, D, E and F at f32 queries
+   against their plain versions at the bf16 rows' shapes on every store
+   (f32_query_attention_phase), and prices the dense engines' row-invariant
+   16-row-block product on 128- and 512-token prompts (dense_prompt_cost).
 
 Launch counts are set to 0 just before each path and read just after. Any
 failure raises and the script exits non-zero. The W4A8 GEMV (A, I, J, M) is
@@ -178,6 +194,9 @@ FMA_CYCLES = 4                 # latency of a dependent f32 FMA
 # tolerances (reasons in PERF.md and at each check):
 MATMUL_TOL = 1e-4   # x max|ref|: f32 sums over groups (A) or K (B) in another order
 ATTN_TOL = 2.0 ** -7  # x max|ref|: bf16 outputs, one rounding flip is 2^-8 of an element
+# x max|ref|: the f32-query instances (f32 q and output, D and F's products on
+# both halves of q): far below ATTN_TOL, which a bf16-grade answer would meet
+F32Q_TOL = 1e-4
 
 # 8B (K, N) of the main path's matmuls
 SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
@@ -253,6 +272,63 @@ def random_q6_k(rng, n_rows: int, row_len: int, sigma: float):
     d = (sigma / (78.0 * 18.5) * rng.uniform(0.5, 1.5, nb)).astype(np.float16)
     out[:, 208:210] = d.view(np.uint8).reshape(-1, 2)
     return out.reshape(-1)
+
+
+# rows of the prompts dense_prompt_cost prices
+DENSE_PROMPTS = (128, 512)
+
+
+def dense_prompt_cost(torch, timer):
+    """What the dense engines' row-invariant product (quant_matmul.rows_mm:
+    whole zero-padded 16-row blocks, one [16, K] @ [K, N] bf16 product each,
+    f32 sums) costs a prompt at 8B against one product of all its rows: the
+    device ms of the seven projections of a layer at 128 and 512 rows,
+    times 32 layers. Also holds a row's bits equal at 1, 4, 8, 16 and 128
+    rows at each shape, and the f32 operands' product within f32 rounding
+    of an f64 one (no TF32)."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    per_layer = {"wq": SHAPES["wq/wo"], "wk": SHAPES["wk/wv"], "wv": SHAPES["wk/wv"],
+                 "wo": SHAPES["wq/wo"], "gate": SHAPES["gate/up"], "up": SHAPES["gate/up"],
+                 "down": SHAPES["down"]}
+    out = {}
+    for M in DENSE_PROMPTS:
+        blocks = one = 0.0
+        for name, (K, N) in per_layer.items():
+            w = (torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5).to(torch.bfloat16)
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            blocks += timer(lambda: qm.rows_mm(x, w), reps=5)
+            one += timer(lambda: torch.mm(x, w, out_dtype=torch.float32).to(torch.bfloat16),
+                         reps=5)
+            if M == DENSE_PROMPTS[0]:
+                full = qm.rows_mm(x, w)
+                for m in (1, 4, 8, 16):
+                    if not torch.equal(qm.rows_mm(x[:m], w), full[:m]):
+                        raise AssertionError(f"rows_mm {name}: {m} rows differ from the "
+                                             "same rows of 128")
+        out[f"prompt_{M}"] = dict(blocks_ms=32 * blocks, one_product_ms=32 * one,
+                                  ratio=blocks / one)
+    a = torch.randn((16, 14336), generator=gen, device="cuda")
+    w = torch.randn((14336, 4096), generator=gen, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = True     # a caller's TF32 is refused, not changed
+    try:
+        qm.rows_mm(a, w)
+    except RuntimeError as e:
+        if not torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("rows_mm f32 changed the caller's TF32 setting") from e
+    else:
+        raise AssertionError("rows_mm f32 ran with TF32 allowed")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    got = qm.rows_mm(a, w)
+    ref = a.double() @ w.double()
+    out["f32_rel_err"] = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    if not out["f32_rel_err"] < 1e-5:
+        raise AssertionError(f"rows_mm f32: {out['f32_rel_err']} off an f64 product (TF32?)")
+    log(f"rows_mm at 8B, 32 layers' projections (device ms, bf16): {out}; rows 1/4/8/16 "
+        "equal their rows of 128")
+    return out
 
 
 class Timer:
@@ -1355,9 +1431,11 @@ def rows_mm_cost(torch):
     return out
 
 
-def _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H):
-    """Dequantized, pre-rotated dense rows with GQA heads expanded, and the
+def _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H, dtype=None):
+    """Dequantized, pre-rotated dense rows with GQA heads expanded, in
+    `dtype` (the queries': bf16, or f32 for the f32-query instances), and the
     boolean visibility mask, for the library yardstick."""
+    dtype = dtype or torch.bfloat16
     B, S, Hkv, D = k.shape
     theta = pos.float()[:, :, None] * inv                       # [B, S, D]
     kf = k.float()
@@ -1368,8 +1446,8 @@ def _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H):
     vf = v.float()
     if ks is not None:
         krot, vf = krot * ks[..., None], vf * vs[..., None]
-    kd = krot.to(torch.bfloat16).permute(0, 2, 1, 3)
-    vd = vf.to(torch.bfloat16).permute(0, 2, 1, 3)
+    kd = krot.to(dtype).permute(0, 2, 1, 3)
+    vd = vf.to(dtype).permute(0, 2, 1, 3)
     kd = kd.repeat_interleave(H // Hkv, dim=1).contiguous()
     vd = vd.repeat_interleave(H // Hkv, dim=1).contiguous()
     mask = (pos[:, None, None, :] >= 0) & (pos[:, None, None, :] <= q_pos[:, None, :, None])
@@ -1386,16 +1464,18 @@ def _attn_row(torch, timer, name, label, kernel, plain, q, dense, q_pos, inv, ex
     out = kernel()
     torch.cuda.synchronize()
     ref = plain()
-    err = check_close(f"{name} {label}", out, ref, ATTN_TOL)
+    tol = F32Q_TOL if q.dtype == torch.float32 else ATTN_TOL
+    err = check_close(f"{name} {label}", out, ref, tol)
     bound, bound_by, slots, pairs = _attn_bound_ms(q, k, ks, pos, q_pos, extra_bytes)
-    kd, vd, mask = _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H)
+    kd, vd, mask = _sdpa_inputs(torch, k, v, ks, vs, pos, q_pos, inv, H, q.dtype)
     qh = q.permute(0, 2, 1, 3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = lambda: sdpa(qh, kd, vd, attn_mask=mask)   # noqa: E731
     row = dict(
         kernel=name, shape=f"{label} B={B} T={T} H={H} Hkv={Hkv} D={D} S={k.shape[1]} "
                            f"slots={slots} pairs={pairs}",
-        max_abs_err=err, differ_share=(out != ref).float().mean().item(),
+        max_abs_err=err, rel_err=err / ref.float().abs().max().item(), tol=tol,
+        differ_share=(out != ref).float().mean().item(),
         kernel_ms=timer(kernel), plain_ms=timer(plain, reps=5, warm=1),
         library_ms=timer(library), bound_ms=bound, bound_by=bound_by)
     if T == 1:
@@ -1611,6 +1691,145 @@ def _decode_row_invariance(torch, da, pa, tag, q, kd, vd, ksd, vsd, pos, qp, inv
         "the 8-row batch's")
 
 
+def f32_query_attention_phase(torch, timer):
+    """Kernels C, D, E and F at f32 queries (the float32 engine's
+    instances, ops/csrc/attention_f32.cu) against their plain versions at
+    the bf16 rows' 8B shapes on INT8, bf16 and f32 stores: one row at S =
+    2048 (C at T = 1, D at T = 128), 8 rows on a scrambled pool of 128-slot
+    pages (E at T = 1, F at T = 256), each beside f32 SDPA over the
+    dequantized rows. E and F must equal C and D over the same logical rows
+    bit for bit, a decode row (C and E) and a prefill row (D) alone their
+    row of the 8-row batch, and the T = 128 chunk 16 chunks of 8; each
+    wrapper must count its launches under its f32q name and launch no bf16
+    instance."""
+    from blama_tpu_torch.ops import decode_attention as da
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    H, Hkv, D = 32, 8, 128
+    inv, mscale = da.effective_inv_freq(D, D, 500000.0)
+    inv = inv.cuda()
+    scale = D ** -0.5
+    pos = torch.arange(2048, dtype=torch.int32, device="cuda")[None].clone()
+    pos[0, ::37] = -1
+    pos[0, 1900:] = -1
+    pos[0, 1200:1260] = 4000
+    B = 8
+    kernels.reset_launches()
+    for tag in STORES:
+        # -- one row at S = 2048: C (T = 1) and D (T = 128) ---------------------
+        k, v, ks, vs = _rand_store(torch, gen, (1, 2048, Hkv, D), tag)
+        dense = (k, v, ks, vs, pos)
+        qp1 = torch.tensor([[1800]], dtype=torch.int32, device="cuda")
+        q = torch.randn((1, 1, H, D), generator=gen, device="cuda")
+        rows.append(_attn_row(
+            torch, timer, "decode_attention_f32q", f"solo {tag}",
+            lambda: da.decode_attention(q, k, v, qp1[:, 0], pos, inv, ks, vs, mscale=mscale),
+            lambda: da.flash_attention_plain(q, k, v, qp1, pos, inv, ks, vs, scale),
+            q, dense, qp1, inv, 0)[0])
+        T = 128
+        qp = torch.arange(1672, 1672 + T, dtype=torch.int32, device="cuda")[None]
+        q = torch.randn((1, T, H, D), generator=gen, device="cuda")
+        row, out = _attn_row(
+            torch, timer, "prefill_attention_f32q", f"solo {tag}",
+            lambda: da.prefill_attention(q, k, v, qp, pos, inv, ks, vs, mscale=mscale),
+            lambda: da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, scale),
+            q, dense, qp, inv, 0)
+        rows.append(row)
+        chunks = [da.prefill_attention(q[:, i:i + 8].contiguous(), k, v,
+                                       qp[:, i:i + 8].contiguous(), pos, inv, ks, vs,
+                                       mscale=mscale) for i in range(0, T, 8)]
+        if out.dtype != torch.float32 or not torch.equal(torch.cat(chunks, dim=1), out):
+            raise AssertionError(f"prefill_attention_f32q solo {tag}: T=128 differs from "
+                                 "the same queries in 16 chunks of 8")
+        del k, v, ks, vs, dense
+        # -- 8 rows on a scrambled pool: E (T = 1) and F (T = 256) -------------
+        lens, _, pool, dense = _serving_pool(torch, gen, tag, Hkv, D)
+        kp, vp, ksp, vsp, pool_pos, table = pool
+        kd, vd, ksd, vsd, pos_v = dense
+        for T in (1, 256):
+            if T == 1:
+                qp = torch.tensor([[max(n - 1, 0)] for n in lens], dtype=torch.int32,
+                                  device="cuda")
+            else:
+                qp = torch.stack([torch.arange(T, dtype=torch.int32) + max(n - T, 0)
+                                  for n in lens]).cuda()
+            q = torch.randn((B, T, H, D), generator=gen, device="cuda")
+            if T == 1:
+                paged = lambda: pa.paged_decode_attention(          # noqa: E731
+                    q, kp, vp, pool_pos, table, qp[:, 0], inv, ksp, vsp, mscale=mscale)
+                dense_fn = lambda: da.decode_attention(             # noqa: E731
+                    q, kd, vd, qp[:, 0], pos_v, inv, ksd, vsd, mscale=mscale)
+                name = "paged_decode_attention_f32q"
+            else:
+                paged = lambda: pa.paged_prefill_attention(         # noqa: E731
+                    q, kp, vp, pool_pos, table, qp, inv, ksp, vsp, mscale=mscale)
+                dense_fn = lambda: da.prefill_attention(            # noqa: E731
+                    q, kd, vd, qp, pos_v, inv, ksd, vsd, mscale=mscale)
+                name = "paged_prefill_attention_f32q"
+            r_p, out_p = _attn_row(
+                torch, timer, name, f"serving {tag}", paged,
+                lambda: pa.paged_attention_plain(q, kp, vp, pool_pos, table, qp, inv,
+                                                 ksp, vsp, scale),
+                q, dense, qp, inv, table.numel() * 4)
+            rows.append(r_p)
+            out_d = dense_fn()
+            if out_p.dtype != torch.float32 or not torch.equal(out_p, out_d):
+                raise AssertionError(f"{name} {tag} T={T}: differs from the dense kernel "
+                                     "over the same logical rows")
+            if not (out_p[1] == 0).all():
+                raise AssertionError(f"{name} {tag} T={T}: idle row is not zero")
+            if T == 1:
+                _decode_row_invariance(torch, da, pa, f"f32q {tag}", q, kd, vd, ksd, vsd,
+                                       pos_v, qp, inv, mscale, out_d,
+                                       pool, out_p)
+            else:
+                one = [None if a is None else a[3:4].contiguous()
+                       for a in (q, kd, vd, qp, pos_v, ksd, vsd)]
+                alone = da.prefill_attention(*one[:5], inv, *one[5:], mscale=mscale)
+                if not torch.equal(alone, out_d[3:4]):
+                    raise AssertionError(f"prefill_attention_f32q {tag} T={T}: row 3 alone "
+                                         "differs from row 3 of the 8-row batch")
+            log(f"{name} {tag} T={T}: bit-identical to the dense f32q kernel, row 3 alone "
+                "equal to the batch's")
+        del kp, vp, ksp, vsp, kd, vd, ksd, vsd, dense, pool
+    torch.cuda.synchronize()
+    launched = {n: kernels.LAUNCHES[n] for n in ("decode_attention_f32q",
+                                                 "prefill_attention_f32q",
+                                                 "paged_decode_attention_f32q",
+                                                 "paged_prefill_attention_f32q",
+                                                 "decode_attention", "prefill_attention",
+                                                 "paged_decode_attention",
+                                                 "paged_prefill_attention")}
+    if any(launched[n] for n in launched if not n.endswith("_f32q")) or \
+            not all(launched[n] for n in launched if n.endswith("_f32q")):
+        raise AssertionError(f"f32-query phase launched {launched}")
+    log(f"f32-query attention phase launches {launched}")
+    _f32q_control(torch, gen, da, Hkv, H, D, pos, inv, mscale, scale)
+    return rows
+
+
+def _f32q_control(torch, gen, da, Hkv, H, D, pos, inv, mscale, scale):
+    """F32Q_TOL tells an f32-grade answer from a bf16-grade one: the bf16
+    instances of C and D on the f32 store, given the same f32 queries
+    rounded to bf16, fall outside it against the f32 plain version."""
+    k, v, _, _ = _rand_store(torch, gen, (1, 2048, Hkv, D), "f32")
+    for T, fn in ((1, da.decode_attention), (128, da.prefill_attention)):
+        qp = torch.arange(1672, 1672 + T, dtype=torch.int32, device="cuda")[None]
+        q = torch.randn((1, T, H, D), generator=gen, device="cuda")
+        ref = da.flash_attention_plain(q, k, v, qp, pos, inv, None, None, scale)
+        out = fn(q.to(torch.bfloat16), k, v, qp[:, 0] if T == 1 else qp, pos, inv,
+                 mscale=mscale).float()
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        if not rel > F32Q_TOL:
+            raise AssertionError(f"f32-query control T={T}: the bf16 instance on bf16-rounded "
+                                 f"queries is within F32Q_TOL ({rel})")
+        log(f"f32-query control T={T}: the bf16 instance on rounded queries is {rel:.3g} "
+            f"x max|ref| off, outside F32Q_TOL {F32Q_TOL}")
+
+
 # head geometries the reference's fused gates admit beyond the 8B one: head
 # dims that are not a padded width (Phi-2's 80, Phi-3's 96, open_llama_3b's
 # 100) at 32 / 8 heads, and more than 32 query heads per kv head at D = 128
@@ -1747,16 +1966,20 @@ def decode_split_sweep(torch, timer):
 def _attn_bound_ms(q, k, ks, pos, q_pos, extra_bytes=0):
     """The least time for one attention call: each visible slot's K and V
     (and scales) read once, the positions, q and the output, against the
-    bf16 tensor rate for 4 H D flops a visible pair. Returns (ms, what
+    bf16 tensor rate for 4 H D flops a visible pair. An f32 query's products
+    are f32-grade only on bf16 halves: Q K in three bf16 products (Q_hi K_hi,
+    Q_hi K_lo, Q_lo K_hi) and P V in two (P_hi V, P_lo V; three with an f32
+    store's V_lo), 2 H D flops each, at the same rate. Returns (ms, what
     bounds it, visible slots, visible pairs)."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     seen = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_pos[:, :, None])
     pairs, slots = int(seen.sum()), int(seen.any(1).sum())
     per_slot = Hkv * (2 * D * k.element_size() + (8 if ks is not None else 0))
-    nbytes = slots * per_slot + pos.numel() * 4 + 2 * q.numel() * 2 + q_pos.numel() * 4 \
-        + D * 4 + extra_bytes
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, 4 * H * D * pairs / BF16_FLOPS
+    nbytes = slots * per_slot + pos.numel() * 4 + 2 * q.numel() * q.element_size() \
+        + q_pos.numel() * 4 + D * 4 + extra_bytes
+    products = (3 + 2 + (k.element_size() == 4)) if q.element_size() == 4 else 2
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * products * H * D * pairs / BF16_FLOPS
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", slots, pairs
 
 
@@ -1984,8 +2207,9 @@ def decode_timing(torch, da, pa, copies: int = 24):
                    extra_bytes=row_bytes + written)
             del stores
         torch.cuda.empty_cache()
-    # D (dense prefill) at the kernel phase's shapes, event-timed as its
-    # kernel rows are: the same measurement on another tree's kernels
+    # D (dense prefill) at the kernel phase's shapes and F on the serving
+    # pool, event-timed as their kernel rows are, their outputs kept: the
+    # same measurement and outputs on another tree's kernels
     for tag in STORES:
         for B, T in ((1, 128), (8, 128), (8, 256)):
             pos, _ = eight_rows() if B == 8 else one_row(2048)
@@ -1994,9 +2218,23 @@ def decode_timing(torch, da, pa, copies: int = 24):
             qp = torch.stack([torch.arange(T, dtype=torch.int32) + max(n - T, 0)
                               for n in ends]).cuda()
             q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            fn = lambda: da.prefill_attention(q, k, v, qp, pos, inv, ks, vs,  # noqa: E731
+                                              mscale=mscale)
             row = dict(kernel="prefill_attention", shape=f"{tag} B={B} T={T} S=2048",
-                       event_ms=timer(lambda: da.prefill_attention(q, k, v, qp, pos, inv, ks, vs,
-                                                                   mscale=mscale)))
+                       event_ms=timer(fn))
+            outs[f"prefill_attention {row['shape']}"] = fn().cpu()
+            log(f"decode timing {row}")
+            rows.append(row)
+        ends, _, (kp, vp, ksp, vsp, pool_pos, table), _ = _serving_pool(torch, gen, tag, Hkv, D)
+        for T in (128, 256):
+            qp = torch.stack([torch.arange(T, dtype=torch.int32) + max(n - T, 0)
+                              for n in ends]).cuda()
+            q = torch.randn((8, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            fn = lambda: pa.paged_prefill_attention(q, kp, vp, pool_pos, table, qp,  # noqa: E731
+                                                    inv, ksp, vsp, mscale=mscale)
+            row = dict(kernel="paged_prefill_attention", shape=f"{tag} B=8 T={T} G=128",
+                       event_ms=timer(fn))
+            outs[f"paged_prefill_attention {row['shape']}"] = fn().cpu()
             log(f"decode timing {row}")
             rows.append(row)
     return rows, outs
@@ -2786,6 +3024,242 @@ def solo_phase(torch, model, kind, record):
     out["loops_equal"] = loops_equal(torch, model, "solo q4k_a8")
     out["report"] = step_report(torch, model, "solo q4k_a8")
     return out, launches
+
+
+# the dense phase: the solo phase's request shapes (prompt, generated)
+DENSE_REQUESTS = ((128, 16), (5, 16), (3, 8))
+
+
+def _dense_solo(torch, model, kind, where, needs, requests=DENSE_REQUESTS):
+    """One solo Instance at the reference's defaults (InstanceInitParams():
+    f32 KV rows) proves and replays `requests`, each replay exactly 1.0; the
+    attention kernels `needs` must have launched (none at all under
+    attn="xla"). Returns (results, launches)."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+
+    kernels.reset_launches()
+    inst = Instance(model, InstanceInitParams(ctx_size=2048))
+    if inst.step_config.attn_fused != model.config.attn_fused:
+        raise AssertionError(f"{where}: the instance switched its attention mode")
+    inst.warmup()
+    rng = np.random.default_rng(7)
+    results = []
+    for n_prompt, n_gen in requests:
+        prompt = [1] + rng.integers(259, model.config.n_vocab, n_prompt - 1).tolist()
+        r = prove_and_verify(inst, prompt, n_gen)
+        log(f"{where} request {r} on {kind}")
+        if r["score"] != 1.0:
+            raise AssertionError(f"{where}: same-backend replay scored {r['score']}, not 1.0")
+        results.append(r)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"{where} launches {launches}")
+    require_launched(launches, needs, where)
+    if not model.config.attn_fused:
+        fused = {k: n for k, n in launches.items() if "attention" in k and n}
+        if fused:
+            raise AssertionError(f"{where}: attn='xla' launched {fused}")
+    del inst
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def _dense_model(torch, path, dtype, attn, kind):
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+
+    t0 = time.perf_counter()
+    model = Model(str(path), ModelParams(dtype=dtype, attn=attn))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"dense: {Path(path).name} as {dtype} attn={attn} loaded in {load_s:.1f} s on {kind} "
+        f"({model.config.n_layer} layers, width {model.config.n_embd}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card)")
+    return model, load_s
+
+
+def _free(torch, model):
+    """Close `model` and give its memory back; returns None for the caller
+    to hold in its place (the caller's name is the last reference)."""
+    model.close()
+    model.weights = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _default_http_server(torch, path, kind):
+    """The reference server's default, as a user starts it: `python -m
+    blama_tpu_torch.server.http` with BLAMA_DTYPE unset (the `bfloat16`
+    engine, attn fused on a llama file) on the paged scheduler, in a
+    process of its own; four concurrent /complete requests, each verified
+    over /verify_completion at exactly 1.0; the process stopped with
+    SIGTERM."""
+    import os
+    import signal
+    import socket
+    import urllib.request
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != "BLAMA_DTYPE"}
+    env.update(BLAMA_MODEL=str(path), BLAMA_HOST="127.0.0.1", BLAMA_PORT=str(port),
+               BLAMA_SCHEDULER="4", BLAMA_PAGED_KV="1", PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "blama_tpu_torch.server.http"], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    url = f"http://127.0.0.1:{port}"
+
+    def post(route, body):
+        req = urllib.request.Request(url + route, json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    try:
+        deadline = time.time() + 300
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"default server exited: {proc.stdout.read()[-4000:]}")
+            try:
+                urllib.request.urlopen(url + "/metrics", timeout=5).read()
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise AssertionError("default server did not start in 300 s") from None
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        from concurrent.futures import ThreadPoolExecutor
+
+        bodies = [{"prompt": t, "max_tokens": 16, "temp": 0.0}
+                  for t in ("the default engine", "the quick brown fox jumps", "b" * 60,
+                            "verifiable inference on a card")]
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(4) as ex:
+            resps = list(ex.map(lambda b: post("/complete", b), bodies))
+        wall = time.perf_counter() - t1
+        with ThreadPoolExecutor(4) as ex:
+            scores = list(ex.map(lambda br: post("/verify_completion",
+                                                 {"request": br[0], "response": br[1]}),
+                                 zip(bodies, resps, strict=True)))
+        got = [sc["result"] for sc in scores]
+        n_tok = sum(len(r["tokenData"]) for r in resps)
+        log(f"dense default server (bfloat16, paged, 4 rows): ready in {ready_s:.1f} s, "
+            f"{n_tok} tokens in {wall:.2f} s on {kind}; verify {got}")
+        if got != [1.0] * len(bodies) or n_tok != 16 * len(bodies):
+            raise AssertionError(f"default server: verify {got}, {n_tok} tokens")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        text = proc.stdout.read()
+        if rc != 0 or "continuous batching enabled (max_batch=4, paged KV)" not in text:
+            raise AssertionError(f"default server exit {rc}: {text[-4000:]}")
+        return dict(ready_s=ready_s, tokens=n_tok, wall_s=wall, scores=got)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def _dequant_on_card(torch, path):
+    """ops/dequant on the card against gguf/quants' numpy function, bit for
+    bit: for every GGML type in the file, its smallest matmul tensor (a type
+    held only by a tensor of more than 64 M values, the numpy side's minutes,
+    is left to the other file)."""
+    import numpy as np
+
+    from blama_tpu_torch.gguf import quants
+    from blama_tpu_torch.gguf.reader import GGUFReader
+    from blama_tpu_torch.ops import dequant
+
+    r = GGUFReader(str(path))
+    pick = {}
+    for name in r.tensor_names():
+        info = r.tensors[name]
+        if name.endswith("norm.weight"):
+            continue
+        if info.ggml_type not in pick or info.n_elements < r.tensors[pick[info.ggml_type]].n_elements:
+            pick[info.ggml_type] = name
+
+    def check(t, name):
+        info = r.tensors[name]
+        data = r.tensor_bytes(name)           # a view of the file's map
+        ref = quants.dequantize(data, t, info.shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dequant.dequantize(data, t, info.shape, "cuda")
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if not np.array_equal(got.cpu().numpy().view(np.uint32), ref.view(np.uint32)):
+            raise AssertionError(f"dequant {t.name} {name}: differs from the numpy function")
+        return dict(tensor=name, elements=int(info.n_elements), host_to_values_ms=ms)
+
+    out = {t.name: check(t, name) for t, name in sorted(pick.items(), key=lambda kv: kv[0].value)
+           if r.tensors[name].n_elements <= 64 << 20}
+    r.close()
+    log(f"dequant on the card equals numpy, {Path(path).name}: {out}")
+    return out
+
+
+def dense_phase(torch, kind):
+    """The reference's defaults on the card: the `bfloat16` engine on the
+    llama3-8b all-Q4_K file (seed 7, dequantized at load) at full depth,
+    the solo phase's three request shapes under attn="fused" (bf16 C and D)
+    and attn="xla" (no attention kernel), each replayed at exactly 1.0, and
+    the HTTP server with BLAMA_DTYPE unset on the paged scheduler (E, F),
+    verified at 1.0; the `float32` engine on the same file's widths cut to
+    ENGINE_FILE_LAYERS layers, f32 KV (the reference's default store), the
+    same requests under attn="fused" (the f32-query C and D) and "xla", and
+    four requests through the paged scheduler (the f32-query E and F),
+    verified at 1.0; a Q5_K_M-pattern and a Q3_K_M-pattern file at
+    ENGINE_FILE_LAYERS layers, each type's dequantized values on the card
+    equal to the numpy function's, loaded as `bfloat16` and replayed at
+    1.0. Decode tok/s and TTFT of each engine graphed and eager
+    (step_report)."""
+    from blama_tpu_torch.testing import Q3_K_M, Q5_K_M, cached_llama_gguf
+
+    out, t_phase = {}, time.perf_counter()
+    path = cached_llama_gguf("llama3-8b", seed=7)
+    for attn in ("fused", "xla"):
+        model, load_s = _dense_model(torch, path, "bfloat16", attn, kind)
+        needs = ("decode_attention", "prefill_attention") if attn == "fused" else ()
+        res, launches = _dense_solo(torch, model, kind, f"dense bfloat16 {attn}", needs)
+        out[f"bfloat16 {attn}"] = dict(load_s=load_s, requests=res, launches=launches)
+        if attn == "fused":
+            out["bfloat16 fused"]["report"] = step_report(torch, model, "dense bfloat16",
+                                                          kv="float32")
+        model = _free(torch, model)
+    out["default server"] = _default_http_server(torch, path, kind)
+    log(f"dense bfloat16 done in {time.perf_counter() - t_phase:.1f} s")
+    path8 = cached_llama_gguf("llama3-8b", seed=7, n_layer=ENGINE_FILE_LAYERS)
+    for attn in ("fused", "xla"):
+        model, load_s = _dense_model(torch, path8, "float32", attn, kind)
+        needs = ("decode_attention_f32q", "prefill_attention_f32q") if attn == "fused" else ()
+        res, launches = _dense_solo(torch, model, kind, f"dense float32 {attn}", needs)
+        out[f"float32 {attn}"] = dict(load_s=load_s, requests=res, launches=launches)
+        if attn == "fused":
+            out["float32 fused"]["report"] = step_report(torch, model, "dense float32",
+                                                         kv="float32")
+            out["float32 serving"], out["float32 serving launches"] = _serve_and_verify(
+                torch, model, kind, needs=("paged_decode_attention_f32q",
+                                           "paged_prefill_attention_f32q"),
+                where="dense float32 serving")
+        model = _free(torch, model)
+    log(f"dense float32 done in {time.perf_counter() - t_phase:.1f} s")
+    for recipe in (Q5_K_M, Q3_K_M):
+        p = cached_llama_gguf("llama3-8b", seed=7, quant=recipe, n_layer=ENGINE_FILE_LAYERS)
+        dq = _dequant_on_card(torch, p)
+        model, load_s = _dense_model(torch, p, "bfloat16", "fused", kind)
+        res, launches = _dense_solo(torch, model, kind, f"dense bfloat16 {recipe}",
+                                    ("decode_attention", "prefill_attention"),
+                                    DENSE_REQUESTS[:2])
+        out[f"bfloat16 {recipe}"] = dict(load_s=load_s, dequant=dq, requests=res,
+                                         launches=launches)
+        model = _free(torch, model)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"dense phase took {out['seconds']:.1f} s")
+    return out
 
 
 # the head-dim-96 phase: a llama-architecture file at Phi-3-mini's widths
@@ -3834,6 +4308,46 @@ TOOL_KERNELS = ("w4a8_slab_gemv", "w4a8k4_slab_gemv", "stream_rows", "add_one",
                 *PROBE_KERNELS, *(f"casts_{c}" for c in CAST_NAMES))
 
 
+# the perplexity tools' run: the llama3-8b file cut to PPL_LAYERS layers,
+# windows of PPL_CTX tokens
+PPL_LAYERS, PPL_CTX = 2, 128
+PPL_TEXT = " ".join(f"Line {i}: the quick brown fox jumps over the lazy dog, {i * 7} times."
+                    for i in range(3))
+
+
+def _ppl_tools(torch):
+    """tools/ppl_compare through its main (two windows of PPL_CTX tokens
+    under bfloat16, q4k_fused and q4k_a8 on the llama3-8b file cut to
+    PPL_LAYERS layers), then tools/perplexity's main on the same file as
+    bfloat16 over a text file: each perplexity finite, and perplexity() on
+    ppl_compare's corpus under bfloat16 equal to its bfloat16 line."""
+    import math
+
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.testing import cached_llama_gguf
+    from blama_tpu_torch.tools import perplexity as pp
+    from blama_tpu_torch.tools import ppl_compare as pc
+
+    cmp = pc.main(["llama3-8b", str(PPL_CTX), "2", "--layers", str(PPL_LAYERS)])
+    path = cached_llama_gguf("llama3-8b", n_layer=PPL_LAYERS)
+    with tempfile.TemporaryDirectory() as d:
+        text = Path(d) / "text.txt"
+        text.write_text(PPL_TEXT, encoding="utf-8")
+        res = pp.main([path, str(text), "--ctx", str(PPL_CTX)])
+    m = Model(path, ModelParams(dtype="bfloat16"))
+    try:
+        again = pp.perplexity(m, pc.corpus(m.config.n_vocab, PPL_CTX, 2), PPL_CTX)
+    finally:
+        m.close()
+    ppls = [*cmp["ppl"].values(), res["ppl"], again["ppl"]]
+    if not all(math.isfinite(v) and v > 1.0 for v in ppls):
+        raise AssertionError(f"perplexity tools: {cmp['ppl']}, text {res}, corpus {again}")
+    if round(again["ppl"], 4) != cmp["ppl"]["bfloat16"]:
+        raise AssertionError(f"perplexity {again['ppl']} on ppl_compare's corpus differs from "
+                             f"its bfloat16 line {cmp['ppl']['bfloat16']}")
+    return dict(ppl_compare=cmp, perplexity=res, perplexity_on_corpus=again)
+
+
 def tools_phase(torch):
     """The tools slices' main path: the card's kernel tools (python -m
     blama_tpu_torch.tools.<name>), each run once through its main at short
@@ -3841,7 +4355,8 @@ def tools_phase(torch):
     first and read after the last. Q runs in probe_ceiling, autotune_a8s,
     ab_a8k4 and ubench_q4k, T in ab_a8k4, R in probe_bw, S in probe_overhead
     (whose graph run checks that a ctypes launch is captured), U and V in
-    ubench_q4k, W in probe_swar, X in probe_mosaic, Y in probe_casts."""
+    ubench_q4k, W in probe_swar, X in probe_mosaic, Y in probe_casts; then
+    the perplexity tools (_ppl_tools) on the dense and packed engines."""
     import importlib
     import os
 
@@ -3865,6 +4380,12 @@ def tools_phase(torch):
         log(f"tools: {name} {' '.join(argv)} ran in {out[name]['seconds']:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["perplexity tools"] = dict(_ppl_tools(torch), seconds=time.perf_counter() - t0)
+    log(f"tools: perplexity and ppl_compare ran in {out['perplexity tools']['seconds']:.1f} s: "
+        f"{out['perplexity tools']}")
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     log(f"tools launches {launches}")
@@ -3917,6 +4438,18 @@ KERNELS = {
     "prefill_attention_f32": ("blama_tpu_torch/ops/csrc/decode_attention.cu",
                               "blama_tpu/ops/pallas/decode_attention.py:976",
                               "solo f32 ", "prefill_attention"),
+    # C, D, E and F at f32 queries (the float32 engine; the f32 store, its
+    # default): C and D at the solo shapes, E and F at the serving ones
+    "decode_attention_f32q": ("blama_tpu_torch/ops/csrc/attention_f32.cu",
+                              "blama_tpu/ops/pallas/decode_attention.py:106", "solo f32 "),
+    "prefill_attention_f32q": ("blama_tpu_torch/ops/csrc/attention_f32.cu",
+                               "blama_tpu/ops/pallas/decode_attention.py:976", "solo f32 "),
+    "paged_decode_attention_f32q": ("blama_tpu_torch/ops/csrc/attention_f32.cu",
+                                    "blama_tpu/ops/pallas/paged_attention.py:155",
+                                    "serving f32 B=8 T=1 "),
+    "paged_prefill_attention_f32q": ("blama_tpu_torch/ops/csrc/attention_f32.cu",
+                                     "blama_tpu/ops/pallas/paged_attention.py:155",
+                                     "serving f32 B=8 T=256 "),
     "paged_decode_attention": ("blama_tpu_torch/ops/csrc/paged_attention.cu",
                                "blama_tpu/ops/pallas/paged_attention.py:155",
                                "serving bf16 B=8 T=1 "),
@@ -4074,6 +4607,7 @@ def main() -> int:
         log(f"row sweep took {time.perf_counter() - t_sweep:.1f} s")
         rows += engine_kernel_phase(torch, timer, np.random.default_rng(1))
         rows += attention_phase(torch, timer)
+        rows += f32_query_attention_phase(torch, timer)
         t_geo = time.perf_counter()
         rows += geometry_phase(torch, timer)
         log(f"geometry phase took {time.perf_counter() - t_geo:.1f} s")
@@ -4090,6 +4624,7 @@ def main() -> int:
         log(f"U-Y kernel phases took {time.perf_counter() - t_new:.1f} s")
         del timer
         res["rows_mm_ms"] = rows_mm_cost(torch)
+        res["dense_prompt_cost"] = dense_prompt_cost(torch, Timer(torch))
         torch.cuda.empty_cache()
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
         model, res["load_s"] = load_8b(torch, kind)
@@ -4118,6 +4653,8 @@ def main() -> int:
         log(f"small phase done at {time.perf_counter() - t_start:.1f} s")
         res["tools"], tools_l = tools_phase(torch)
         log(f"tools phase done at {time.perf_counter() - t_start:.1f} s")
+        res["dense"] = dense_phase(torch, kind)
+        log(f"dense phase done at {time.perf_counter() - t_start:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4174,6 +4711,17 @@ def main() -> int:
         "w4a8_parts_gemv": tp_l["q4k_a8"]["w4a8_parts_gemv"],
     })
     line_launches.update({k: tools_l[k] for k in TOOL_KERNELS})
+    # the dense phase: C and D at f32 queries from the float32 engine's solo
+    # path, E and F from its scheduler
+    dense = res["dense"]
+    line_launches.update({
+        "decode_attention_f32q": dense["float32 fused"]["launches"]["decode_attention_f32q"],
+        "prefill_attention_f32q": dense["float32 fused"]["launches"]["prefill_attention_f32q"],
+        "paged_decode_attention_f32q":
+            dense["float32 serving launches"]["paged_decode_attention_f32q"],
+        "paged_prefill_attention_f32q":
+            dense["float32 serving launches"]["paged_prefill_attention_f32q"],
+    })
     kernels_line = []
     for name, (source, replaces, shape, *row_kernel) in KERNELS.items():
         base = row_kernel[0] if row_kernel else name.removesuffix("_bf16")

@@ -12,9 +12,11 @@ bf16, f32 and INT8 stores, pages of 32 slots on a scrambled pool — and
 replay determinism (two launches give the same bits), for every kernel (A, B
 with bf16 and f32 scales, C to F, G, H, I, the expert-bank kernels J and K,
 the tp_blocks kernels L and M with their invariances, the decode-attention
-modes' kernels N, O and P, the tools' kernels Q, R, S, T and U to Y, and rows_mm). The last tests drive each
-engine, the MoE fixture, the tp_blocks mode and the scheduler on the card on
-the tiny fixtures.
+modes' kernels N, O and P, the tools' kernels Q, R, S, T and U to Y, rows_mm,
+C to F at f32 queries and the dense engines' products). The last tests drive
+each engine (the dense float32 / bfloat16 ones in both attention modes), the
+MoE fixture, the tp_blocks mode and the scheduler on the card on the tiny
+fixtures.
 """
 
 import numpy as np
@@ -31,6 +33,10 @@ from blama_tpu_torch.testing import random_q4k
 # one bf16 rounding flip of the largest output (attention)
 MATMUL_TOL = 1e-4
 ATTN_TOL = 2.0 ** -7
+# x max|ref|: the f32-query instances (f32 q, f32 out, D and F's products on
+# both halves of q), far below the bf16 instances' ATTN_TOL, which a kernel
+# that rounded q or its output to bf16 would still meet
+F32Q_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -1734,9 +1740,9 @@ def _prefill_store(kv, b, s, hkv, d, lens, seed, device):
     return [None if t is None else t.to(device) for t in (k, v, ks, vs, pos)]
 
 
-def _prefill_queries(b, t, h, d, lens, seed, device):
+def _prefill_queries(b, t, h, d, lens, seed, device, dtype=torch.bfloat16):
     q = torch.randn((b, t, h, d), generator=torch.Generator().manual_seed(seed)) \
-        .to(torch.bfloat16).to(device)
+        .to(dtype).to(device)
     qp = torch.stack([torch.arange(t, dtype=torch.int32) + max(n - t, 0) for n in lens])
     return q, qp.to(device)
 
@@ -2075,3 +2081,169 @@ def test_sync_between_replays_raises(cuda, graph_checks):
         with sg._no_sync(cuda):
             x.sum().item()
     x.sum().item()
+
+
+# ---------------------------------------------------------------------------
+# the float32 engine: C, D, E and F at f32 queries, the dense products
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_f32_query_kernels_c_to_f(cuda, kv, d):
+    """The f32-query instances at the 8B head geometry (H 32, Hkv 8, S 2048):
+    f32 in, f32 out, within F32Q_TOL of the plain version (f32 queries keep
+    their low half in D and F's products), where the bf16 instance on the
+    same queries rounded to bf16 falls outside it; a row alone equals the
+    row in the 8-row batch (C and D), a T = 128 chunk equals 16 chunks of 8
+    (D), E and F on a scrambled pool equal C and D bit for bit; each launch
+    counts under its f32 name."""
+    from blama_tpu_torch.ops import kernels
+
+    h, hkv, s = 32, 8, 2048
+    k, v, ks, vs, pos = _prefill_store(kv, 8, s, hkv, d, PREFILL_LENS, seed=d + 7, device=cuda)
+    inv = da.effective_inv_freq(d, d, 500000.0)[0].to(cuda)
+    row = lambda a: None if a is None else a[5:6].contiguous()   # noqa: E731
+    pool, pos_v = _pool_of(k, v, ks, vs, pos, 128, seed=d + 1)
+    kernels.reset_launches()
+    refs = []
+    for t in (1, 128):
+        q, qp = _prefill_queries(8, t, h, d, PREFILL_LENS, seed=d + t, device=cuda,
+                                 dtype=torch.float32)
+        if t == 1:
+            run = lambda q_, k_, v_, p_, pos_, ks_, vs_: da.decode_attention(  # noqa: E731
+                q_, k_, v_, p_[:, 0].contiguous(), pos_, inv, ks_, vs_)
+            paged = pa.paged_decode_attention(q, *pool[:2], pool[4], pool[5],
+                                              qp[:, 0].contiguous(), inv, *pool[2:4])
+        else:
+            run = lambda q_, k_, v_, p_, pos_, ks_, vs_: da.prefill_attention(  # noqa: E731
+                q_, k_, v_, p_, pos_, inv, ks_, vs_)
+            paged = pa.paged_prefill_attention(q, *pool[:2], pool[4], pool[5], qp, inv,
+                                               *pool[2:4])
+        out = run(q, k, v, qp, pos, ks, vs)
+        assert out.dtype == torch.float32 and paged.dtype == torch.float32
+        ref = da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, d ** -0.5)
+        _close(out, ref, F32Q_TOL)
+        refs.append((run, q, qp, ref))
+        assert torch.equal(out, run(q, k, v, qp, pos, ks, vs))
+        assert torch.equal(run(row(q), row(k), row(v), row(qp), row(pos), row(ks), row(vs)),
+                           out[5:6])
+        assert torch.equal(paged, run(q, k, v, qp, pos_v, ks, vs))
+        if t > 1:
+            chunks = [run(q[:, i:i + 8].contiguous(), k, v, qp[:, i:i + 8].contiguous(),
+                          pos, ks, vs) for i in range(0, t, 8)]
+            assert torch.equal(torch.cat(chunks, dim=1), out)
+    counts = {n: kernels.LAUNCHES[n] for n in ("decode_attention_f32q", "prefill_attention_f32q",
+                                               "paged_decode_attention_f32q",
+                                               "paged_prefill_attention_f32q",
+                                               "decode_attention", "prefill_attention")}
+    assert counts["decode_attention"] == counts["prefill_attention"] == 0, counts
+    assert all(counts[n] > 0 for n in counts if n.endswith("_f32q")), counts
+    for run, q, qp, ref in refs:   # the control: a bf16-grade answer fails F32Q_TOL
+        rounded = run(q.to(torch.bfloat16), k, v, qp, pos, ks, vs).float()
+        assert (rounded - ref).abs().max().item() > F32Q_TOL * ref.abs().max().item()
+
+
+def test_f32_queries_refused_by_n_p_o(cuda):
+    """N, P and O have no f32-query instance: they raise, naming the item."""
+    kv = _store("f32", 1, 128, 2, 128, seed=3, device=cuda)
+    q = torch.randn((1, 1, 4, 128), device=cuda)
+    inv = da.effective_inv_freq(128, 128, 10000.0)[0].to(cuda)
+    kn = torch.zeros((1, 2, 128), dtype=torch.bfloat16, device=cuda)
+    slot = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    qp = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        da.decode_attention(q, kv.k[0], kv.v[0], qp, kv.positions, inv, k_new=kn, v_new=kn,
+                            slot=slot)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        da.decode_attention_write(q, kv.k_store[0], kv.v_store[0], qp, kv.positions, inv, kn,
+                                  kn, slot)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 14336), (14336, 4096), (4096, 1000)])
+def test_dense_products_row_count_invariance(cuda, dtype, k, n):
+    """The dense engines' product (quant_matmul.rows_mm): a row's bits are
+    the same at 1, 4, 8, 16 and 128 rows, so a decode step and the same
+    row in a prompt chunk give the same logits."""
+    g = torch.Generator().manual_seed(k + n)
+    a = torch.randn((128, k), generator=g).to(dtype).to(cuda)
+    w = (torch.randn((k, n), generator=g) / k ** 0.5).to(dtype).to(cuda)
+    full = qm.rows_mm(a, w)
+    for m in (1, 4, 8, 16):
+        assert torch.equal(qm.rows_mm(a[:m], w), full[:m]), m
+    assert torch.equal(qm.rows_mm(a[5:6], w), full[5:6])
+    _close(full, a.double() @ w.double(), 1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_dense_products_sum_in_f32(cuda):
+    """No TF32 for f32 operands: where the caller allows it, an f32 product
+    (and the attention chain's) raises and leaves the setting as it was; and
+    no bf16 reduction of split-K partials for bf16 operands, with cuBLAS
+    allowed one (torch's default): both within f32 rounding of an f64
+    product of the same operands, where TF32 or a bf16 reduction would be
+    off by orders of magnitude more."""
+    from blama_tpu_torch.ops.attention import attention
+
+    g = torch.Generator().manual_seed(0)
+    matmul = torch.backends.cuda.matmul
+    held = matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn((16, 14336), generator=g).to(dtype).to(cuda)
+        w = torch.randn((14336, 64), generator=g).to(dtype).to(cuda)
+        ref = a.double() @ w.double()
+        matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = True, True
+        try:
+            if dtype == torch.float32:
+                with pytest.raises(RuntimeError, match="TF32"):
+                    qm.rows_mm(a, w, out_dtype=torch.float32)
+                kv = torch.zeros((1, 4, 1, 64), device=cuda)
+                with pytest.raises(RuntimeError, match="TF32"):
+                    attention(torch.zeros((1, 1, 1, 64), device=cuda), kv, kv,
+                              torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+                              torch.zeros((1, 4), dtype=torch.int32, device=cuda), 64, 1e4)
+                assert matmul.allow_tf32
+                matmul.allow_tf32 = False
+            out = qm.rows_mm(a, w, out_dtype=torch.float32)
+        finally:
+            matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = held
+        err = (out.double() - ref).abs().max().item() / ref.abs().max().item()
+        assert err < 1e-5, (dtype, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attn", ["fused", "xla"])
+def test_dense_engines_on_the_card(cuda, tmp_path, dtype, attn):
+    """The dense engines on the tiny fixture at the reference's defaults
+    (f32 KV rows): a prove and a same-backend replay at exactly 1.0; under
+    attn="fused" the float32 engine runs the f32-query C and D and the
+    bfloat16 engine the bf16 ones; under attn="xla" no attention kernel."""
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
+    from blama_tpu_torch.runtime.verify import LogitComparer, MetricsAggregator
+    from blama_tpu_torch.testing import write_tiny_llama
+
+    path = str(tmp_path / "tiny.gguf")
+    write_tiny_llama(path)
+    m = Model(path, ModelParams(dtype=dtype, attn=attn))
+    inst = Instance(m, InstanceInitParams(ctx_size=256))
+    kernels.reset_launches()
+    runs = []
+    for replay in (False, True):
+        s = inst.start_session(SessionInitParams(seed=3, temperature=0.0))
+        s.set_initial_prompt(list(range(1, 21)))
+        runs.append(s.fill_ctx(runs[0]) if replay else s.complete(CompleteParams(max_tokens=8)))
+        inst.stop_session()
+    agg = MetricsAggregator()
+    for o, r in zip(*runs, strict=True):
+        score = agg.push_and_verify(LogitComparer.compare(o.logits, r.logits))
+    assert score == 1.0
+    sfx = "_f32q" if dtype == "float32" else ""
+    names = (f"decode_attention{sfx}", f"prefill_attention{sfx}")
+    launched = {n: kernels.LAUNCHES[n] for n in names}
+    if attn == "fused":
+        assert all(launched.values()), launched
+    else:
+        assert not any(kernels.LAUNCHES[n] for n in kernels.LAUNCHES if "attention" in n)
+    m.close()

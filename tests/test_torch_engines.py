@@ -355,19 +355,21 @@ def test_unpacked_tensors_are_dense_bf16(files):
     pm.close()
 
 
-def test_dense_head_sums_in_f32_whatever_the_chunk(monkeypatch):
-    """The dense lm head upcasts a block of columns at a time; the block size
-    changes no logit, and the operands are bf16-rounded as in the reference."""
+def test_dense_head_sums_in_f32_whatever_the_chunk():
+    """The dense lm head keeps bf16 operands (no upcast copy of the head)
+    and sums in f32, each row through its own block (quant_matmul.rows_mm):
+    the rows beside a row change none of its logits, and the operands are
+    bf16-rounded as in the reference."""
     from blama_tpu_torch.models import llama
 
     rng = np.random.default_rng(0)
     h = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((64, 250)).astype(np.float32)).to(torch.bfloat16)
     whole = llama._dense_head(h, w)
-    monkeypatch.setattr(llama, "_HEAD_CHUNK", 96)
-    assert torch.equal(llama._dense_head(h, w), whole)
+    assert torch.equal(llama._dense_head(h[1:2], w), whole[1:2])
     assert whole.dtype == torch.float32 and whole.shape == (3, 250)
-    assert torch.equal(whole, h.to(torch.bfloat16).float() @ w.float())
+    ref = h.to(torch.bfloat16).double() @ w.double()
+    assert (whole.double() - ref).abs().max() <= 1e-6 * ref.abs().max()
 
 
 def test_engine_map_is_the_references():
@@ -382,8 +384,23 @@ def test_engine_map_is_the_references():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "q5k_fused"])
 def test_dense_engines_still_raise(files, dtype):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 9"):
-        Model(files["q4k"], ModelParams(dtype=dtype, device="cpu"))
+    """The dense engines load since they were ported: every matmul weight a
+    dense (n_in, n_out) tensor of the engine's dtype, a run and its replay
+    exact (tests/test_torch_dense.py holds them to the JAX package); a name
+    that is no engine of the reference's, `q5k_fused`, still raises."""
+    if dtype == "q5k_fused":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 9"):
+            Model(files["q4k"], ModelParams(dtype=dtype, device="cpu"))
+        return
+    pm = Model(files["q4k"], ModelParams(dtype=dtype, device="cpu"))
+    want = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    assert all(isinstance(w, torch.Tensor) and w.dtype == want
+               for p in pm.weights["layers"] for k, w in p.items() if not k.endswith("_norm"))
+    assert pm.weights["output"].dtype == pm.weights["tok_emb"].dtype == want
+    pi = Instance(pm, InstanceInitParams(ctx_size=64))
+    preds = _generate(pi, pm.vocab, SessionInitParams, CompleteParams, 4)
+    assert _verify(pi, pm.vocab, SessionInitParams, preds)[0] == 1.0
+    pm.close()
 
 
 def test_every_engine_wants_the_card_by_default(files):
@@ -393,7 +410,8 @@ def test_every_engine_wants_the_card_by_default(files):
 
 
 def test_http_main_reads_the_engine_name(files, monkeypatch):
-    """BLAMA_DTYPE reaches ModelParams; an unported name fails at start-up."""
+    """BLAMA_DTYPE reaches ModelParams (unset: `bfloat16`, the reference
+    server's default); an unported name fails at start-up."""
     seen = {}
 
     class Stop(Exception):
@@ -409,7 +427,8 @@ def test_http_main_reads_the_engine_name(files, monkeypatch):
     monkeypatch.setenv("BLAMA_DEVICE", "cpu")
     monkeypatch.delenv("BLAMA_MULTIHOST", raising=False)
     monkeypatch.setattr(pmodel, "Model", fake_model)
-    for env, want in ((None, "q4k_a8"), ("q4k_fused", "q4k_fused"), ("q8_0_fused", "q8_0_fused")):
+    for env, want in ((None, "bfloat16"), ("q4k_a8", "q4k_a8"), ("q4k_fused", "q4k_fused"),
+                      ("q8_0_fused", "q8_0_fused")):
         if env is None:
             monkeypatch.delenv("BLAMA_DTYPE", raising=False)
         else:
@@ -420,6 +439,6 @@ def test_http_main_reads_the_engine_name(files, monkeypatch):
     monkeypatch.undo()
     monkeypatch.setenv("BLAMA_MODEL", files["q4k"])
     monkeypatch.setenv("BLAMA_DEVICE", "cpu")
-    monkeypatch.setenv("BLAMA_DTYPE", "bfloat16")
+    monkeypatch.setenv("BLAMA_DTYPE", "q5k_fused")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         phttp.main()

@@ -40,7 +40,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tools.probe_ceiling", "tools.autotune_a8s", "tools.ab_a8k4",
                  "tools.bench_serving", "tools.profile_load", "tools.trace_step",
                  "tools.ubench_q4k", "tools.probe_swar", "tools.probe_mosaic",
-                 "tools.probe_casts", "tools.ubench_attn", "tools.ubench_paged"):
+                 "tools.probe_casts", "tools.ubench_attn", "tools.ubench_paged",
+                 "ops.dequant", "tools.perplexity", "tools.ppl_compare"):
         assert f"blama_tpu_torch.{name}" in res["modules"], name
 
 
@@ -78,6 +79,8 @@ calls = {{
     "Model MoE q4k_a8": lambda: Model(moe_path, ModelParams(dtype="q4k_a8", attn="xla")),
     "Model MoE q4k_fused": lambda: Model(moe_path, ModelParams(dtype="q4k_fused", attn="xla")),
     "moe.params_from_jax": lambda: params_from_jax_moe({{}}),
+    "Model float32": lambda: Model({path!r}),
+    "Model bfloat16 xla": lambda: Model({path!r}, ModelParams(dtype="bfloat16", attn="xla")),
 }}
 for name, call in calls.items():
     try:
@@ -98,7 +101,7 @@ def test_model_without_cuda_raises(tmp_path):
                          text=True, check=True, cwd=ROOT,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     lines = out.stdout.strip().splitlines()
-    assert len(lines) == 18, out.stdout
+    assert len(lines) == 20, out.stdout
     for line in lines:
         assert " refused: no CUDA device" in line, line
 
@@ -204,11 +207,13 @@ sys.path.insert(0, {root!r})
 import importlib
 import torch
 assert not torch.cuda.is_available()
+args = {{"perplexity": ["model.gguf", "text.txt"]}}
 for name in ("probe_bw", "probe_overhead", "probe_ceiling", "autotune_a8s", "ab_a8k4",
              "bench_serving", "profile_load", "trace_step", "ubench_q4k", "probe_swar",
-             "probe_mosaic", "probe_casts", "ubench_attn", "ubench_paged"):
+             "probe_mosaic", "probe_casts", "ubench_attn", "ubench_paged", "perplexity",
+             "ppl_compare"):
     try:
-        importlib.import_module("blama_tpu_torch.tools." + name).main([])
+        importlib.import_module("blama_tpu_torch.tools." + name).main(args.get(name, []))
     except RuntimeError as e:
         print(name, "refused:", e)
     else:
@@ -223,6 +228,6 @@ def test_tools_without_cuda_raise():
                          capture_output=True, text=True, check=True, cwd=ROOT, timeout=300,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     lines = out.stdout.strip().splitlines()
-    assert len(lines) == 14, out.stdout
+    assert len(lines) == 16, out.stdout
     for line in lines:
         assert " refused: no CUDA device" in line, line

@@ -295,7 +295,8 @@ def test_a8k4_activation_codes_exact(m):
 @pytest.mark.parametrize("name", list(CLASSES) + ["a8s", "dense"])
 def test_quant_kernel_call_routes_by_class_and_rows(gguf_bytes, monkeypatch, name, m):
     """_quant_kernel_call's routing (the reference's, by class and by the 16
-    row cap of the W4A8 kernels), and qmm's cast to x's dtype."""
+    row cap of the W4A8 kernels), and qmm's cast to x's dtype; a dense
+    weight takes rows_mm (each row alone, f32 sums), no kernel."""
     few = m <= 16
     expect = {"exact": "q4k_matmul", "native": "q4k_native_matmul",
               "a8k4": "a8k4_matmul" if few else "q4k_native_matmul",
@@ -323,7 +324,10 @@ def test_quant_kernel_call_routes_by_class_and_rows(gguf_bytes, monkeypatch, nam
         direct = getattr(pqm, expect)(x[0], w)
         assert torch.equal(out[0], direct.to(torch.bfloat16))
     else:
-        assert torch.equal(out, x @ w)
+        assert torch.equal(out[0], pqm.rows_mm(x[0], w))
+        assert torch.equal(out[0, -1:], pqm.rows_mm(x[0, -1:], w))
+        ref = x[0].double() @ w.double()
+        assert (out[0].double() - ref).abs().max() <= 2 ** -7 * ref.abs().max()
 
 
 def test_dense_embedding_is_gathered(q4k_bytes):

@@ -1,4 +1,4 @@
-"""The port's Q8_0 / Q6_K codecs and fixtures against the JAX package.
+"""The port's GGML codecs and fixtures against the JAX package.
 
 The port keeps its own copy of the numpy (de)quantizers and fixture writers;
 the same seeded inputs must give the same bytes and values, exactly.
@@ -46,10 +46,20 @@ def test_dequantize_values_equal_jax(name):
 
 @pytest.mark.parametrize("name", ["Q5_K", "Q4_0", "Q2_K"])
 def test_other_types_still_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quants.quantize(_weights(3), GGMLType[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quants.dequantize(np.zeros(210, np.uint8), GGMLType[name], (1, 256))
+    """These types were refused until the dense engines came; now their
+    codecs are the JAX package's, bit for bit (test_new_types_equal_jax has
+    every one), and only the types the JAX package refuses too (IQ2_XXS
+    here) still raise, in both."""
+    w = _weights(3)
+    data = quants.quantize(w, GGMLType[name])
+    np.testing.assert_array_equal(data, jquants.quantize(w, JType[name]))
+    np.testing.assert_array_equal(quants.dequantize(data, GGMLType[name], w.shape),
+                                  jquants.dequantize(data, JType[name], w.shape))
+    for pkg, t in ((quants, GGMLType), (jquants, JType)):
+        with pytest.raises(NotImplementedError):
+            pkg.quantize(w, t.IQ2_XXS)
+        with pytest.raises(NotImplementedError):
+            pkg.dequantize(np.zeros(66, np.uint8), t.IQ2_XXS, (1, 256))
 
 
 @pytest.mark.parametrize("name", ["Q8_0", "Q6_K"])
@@ -112,3 +122,59 @@ def test_direct_synthesis(tmp_path, quant, name):
         del blk
         assert (sc < 0).any() and (sc > 0).any() and (np.abs(sc) >= 32).all()
     r.close()
+
+
+# every type the JAX package's gguf/quants.py reads beyond Q4_K / Q8_0 / Q6_K
+NEW_TYPES = ["Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K", "Q5_K", "Q8_K", "IQ4_NL",
+             "IQ4_XS", "BF16"]
+
+
+@pytest.mark.parametrize("name", NEW_TYPES)
+def test_new_types_equal_jax(name):
+    """Quantize bytes and dequantized values bit-equal to the JAX package's
+    numpy codecs (its C++ fast path is bit-equal to them too), on weights
+    with an all-zero superblock and an outlier, and on random bytes."""
+    w = _weights(11)
+    data = quants.quantize(w, GGMLType[name])
+    np.testing.assert_array_equal(data, jquants.quantize(w, JType[name]))
+    out = quants.dequantize(data, GGMLType[name], w.shape)
+    np.testing.assert_array_equal(out.view(np.uint32),
+                                  jquants.dequantize(data, JType[name], w.shape).view(np.uint32))
+    raw = np.random.default_rng(5).integers(0, 256, data.size, dtype=np.uint8)
+    if name in ("BF16",):
+        raw = quants.quantize(np.random.default_rng(5).standard_normal(w.shape), GGMLType[name])
+    with np.errstate(all="ignore"):
+        a = quants.dequantize(raw, GGMLType[name], w.shape)
+        b = jquants.dequantize(raw, JType[name], w.shape)
+    np.testing.assert_array_equal(np.nan_to_num(a).view(np.uint32),
+                                  np.nan_to_num(b).view(np.uint32))
+
+
+@pytest.mark.parametrize("name", ["F32", "F16", "BF16", "Q8_0", "Q4_0", "Q4_1", "Q5_0",
+                                  "Q5_1", "Q2_K", "Q3_K", "Q4_K", "Q5_K", "Q6_K", "Q8_K",
+                                  "IQ4_NL", "IQ4_XS"])
+def test_device_dequant_equals_numpy(name):
+    """ops/dequant (the dense engines' loader, on the tensor's device)
+    gives the numpy function's values bit for bit for every type the numpy
+    functions read, on quantized weights and on random bytes (every code,
+    scale and min pattern); a type they refuse it refuses too."""
+    import torch
+
+    from blama_tpu_torch.ops import dequant
+
+    w = _weights(13)
+    t = GGMLType[name]
+    datas = [quants.quantize(w, t)]
+    if name not in ("F32", "F16", "BF16"):   # random bytes: every code, scale and min
+        datas.append(np.random.default_rng(7).integers(0, 256, datas[0].size, dtype=np.uint8))
+    for data in datas:
+        with np.errstate(all="ignore"):
+            ref = quants.dequantize(data, t, w.shape)
+        out = dequant.dequantize(data, t, w.shape, "cpu").numpy()
+        np.testing.assert_array_equal(np.nan_to_num(out).view(np.uint32),
+                                      np.nan_to_num(ref).view(np.uint32))
+    bf = dequant.dequantize(datas[0], t, w.shape, "cpu", torch.bfloat16)
+    ref = torch.from_numpy(quants.dequantize(datas[0], t, w.shape))
+    assert bf.dtype == torch.bfloat16 and torch.equal(bf, ref.to(torch.bfloat16))
+    with pytest.raises(NotImplementedError):
+        dequant.dequantize(datas[0], GGMLType.IQ2_XXS, w.shape, "cpu")

@@ -100,14 +100,23 @@ def test_forward_logits_match_jax(gguf_path):
     pm.close()
 
 
-def test_only_fused_attention_is_served(gguf_path):
-    """The reference's two-pass attention mode, and a context the fused
-    kernels reject, raise instead of running the plain chain."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(gguf_path, ModelParams(dtype="q4k_a8", attn="xla", device="cpu"))
+def test_only_fused_attention_is_served(gguf_path, caplog):
+    """Both of the reference's attention modes are served now: attn="xla"
+    loads and runs the two-pass chain at every chunk, and a context the
+    fused kernels reject switches the instance to that chain with a
+    warning, recorded on its step config (attn_fused=False), as the
+    reference does; neither raises any more."""
+    import logging
+
+    xm = Model(gguf_path, ModelParams(dtype="q4k_a8", attn="xla", device="cpu"))
+    assert xm.config.attn_fused is False
+    assert Instance(xm, InstanceInitParams(ctx_size=64)).step_config.attn_fused is False
+    xm.close()
     pm = Model(gguf_path, ModelParams(dtype="q4k_a8", device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Instance(pm, InstanceInitParams(ctx_size=60, kv_dtype="int8"))
+    with caplog.at_level(logging.WARNING, logger="blama_tpu_torch"):
+        inst = Instance(pm, InstanceInitParams(ctx_size=60, kv_dtype="int8"))
+    assert "using XLA attention" in caplog.text
+    assert inst.step_config.attn_fused is False
     pm.close()
 
 
