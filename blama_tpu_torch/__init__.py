@@ -12,9 +12,27 @@ Layers:
   ops/       quantized matmul, attention, rope, KV cache, decode loops;
              ops/csrc/ holds the CUDA kernels, ops/kernels.py builds them
   runtime/   Model / Instance / Session, sampler, verification
+  server/    HTTP server, continuous-batching scheduler
+  examples/  the reference's four example programs
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
 on the CPU every kernel wrapper runs its plain PyTorch version.
 """
 
 __version__ = "0.1.0"
+
+
+def init_library() -> None:
+    """One-time library init (the reference's initLibrary(), Init.cpp:34-38).
+
+    PyTorch sets its devices up lazily; this exists for API parity and logs
+    the platform: the torch version and the CUDA cards (none: the CPU).
+    """
+    import logging
+
+    import torch
+
+    cards = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+    logging.getLogger("blama_tpu_torch").info(
+        "blama_tpu_torch %s: torch %s, devices: %s", __version__, torch.__version__,
+        cards or ["cpu"])

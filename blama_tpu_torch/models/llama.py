@@ -5,9 +5,10 @@ dense engines (`fused_quant=False`: every tensor dequantized to float32 or
 bfloat16, the reference's defaults) and the packed weight engines
 (`fused_quant` True, "k4", "a8", "a8k4", "a8x": Q4_K tensors packed as the
 engine says, Q8_0 and Q6_K tensors packed for the exact int8-code kernel
-under every engine, anything else a dense bf16 weight), unfused q/k/v and
-gate/up projections, dense KV rows or the scheduler's paged pool, INT8,
-bf16 or f32 KV, and either attention mode: fused (LlamaStatic.attn_fused;
+under every engine, anything else a dense bf16 weight), q/k/v and gate/up
+projections unfused or, under the reference's BLAMA_FUSE_PROJ /
+BLAMA_FUSE_KV, fused into one wide product (fuse_projections), dense KV
+rows or the scheduler's paged pool, INT8, bf16 or f32 KV, and either attention mode: fused (LlamaStatic.attn_fused;
 the two-pass chain still serves the chunks and geometries the fused gates
 refuse, T in {2, 4}, as in the reference) or the two-pass chain at every
 chunk (attn="xla"), with the reference's opt-in decode-attention modes on
@@ -127,18 +128,36 @@ def load_dense_params(reader, cfg: ModelConfig, dtype: torch.dtype,
     return params
 
 
+def fuse_projections(p: dict, fuse_proj: bool | str) -> None:
+    """The reference's BLAMA_FUSE_PROJ / BLAMA_FUSE_KV layouts of one layer,
+    in place: fuse_proj=True concatenates wq|wk|wv into "wqkv" and
+    w_gate|w_up into "wgu", "kv" only wk|wv into "wkv", each where the parts
+    fuse (quant_matmul.fusable: one packed class, as the reference's
+    `_fusable`; so a Q4_K_M file's Q6_K wv stays apart)."""
+    if fuse_proj == "kv":
+        if qm.fusable([p["wk"], p["wv"]]):
+            p["wkv"] = qm.concat_quant([p.pop("wk"), p.pop("wv")])
+        return
+    if qm.fusable([p["wq"], p["wk"], p["wv"]]):
+        p["wqkv"] = qm.concat_quant([p.pop("wq"), p.pop("wk"), p.pop("wv")])
+    if qm.fusable([p["w_gate"], p["w_up"]]):
+        p["wgu"] = qm.concat_quant([p.pop("w_gate"), p.pop("w_up")])
+
+
 def load_llama_params(reader, cfg: ModelConfig, fused_quant: bool | str = "a8",
                       device="cuda", progress_cb=None,
-                      dtype: torch.dtype = torch.bfloat16) -> dict[str, Any]:
+                      dtype: torch.dtype = torch.bfloat16,
+                      fuse_proj: bool | str = False) -> dict[str, Any]:
     """Load llama-family weights onto `device`.
 
     `fused_quant=False`: the dense engine of `dtype` (load_dense_params).
     Else per tensor, as in the reference: a Q8_0 or Q6_K tensor is packed
     for the exact int8-code kernel whatever the engine, a Q4_K tensor is
     packed as `fused_quant` says, any other type becomes a dense bf16
-    (n_in, n_out) weight. Every tensor is repacked on the device and
-    uploaded as soon as it is read, so host memory holds one tensor's GGUF
-    bytes at a time.
+    (n_in, n_out) weight; `fuse_proj` (True or "kv") then fuses the
+    projections as fuse_projections says. Every tensor is repacked on the
+    device and uploaded as soon as it is read, so host memory holds one
+    tensor's GGUF bytes at a time.
     """
     from ..gguf.constants import GGMLType
 
@@ -181,6 +200,8 @@ def load_llama_params(reader, cfg: ModelConfig, fused_quant: bool | str = "a8",
                 p[key] = _bf16_rounded(get_v(name), device)
             else:
                 p[key] = get_t(name)
+        if fuse_proj:
+            fuse_projections(p, fuse_proj)
         layers.append(p)
         if progress_cb:
             progress_cb((i + 1) / n_total)
@@ -287,9 +308,9 @@ def params_from_jax(tree: dict, device="cuda") -> dict[str, Any]:
     else:
         tok_emb = _to_torch(emb, device)
     layers = []
-    for p in tree["layers"]:
-        layers.append({k: _to_torch(p[k], device).float() if k.endswith("_norm")
-                       else _weight_from_jax(p[k], device) for k in _LAYER_TENSORS})
+    for p in tree["layers"]:   # the fused layouts' wqkv / wkv / wgu as they come
+        layers.append({k: _to_torch(v, device).float() if k.endswith("_norm")
+                       else _weight_from_jax(v, device) for k, v in p.items()})
     out = {"tok_emb": tok_emb, "out_norm": _to_torch(tree["out_norm"], device).float(),
            "layers": layers,
            "output": _weight_from_jax(tree["output"], device, tok_emb.shape[0])}
@@ -368,9 +389,9 @@ class LlamaStatic:
     attn_write: bool = False
     attn_scales_t: bool = False
     attn_fresh: bool = False
-    # the attention mode (ModelParams.attn): True, the fused kernels where
-    # their gates admit the chunk (the port's default for a llama file);
-    # False, the reference's attn="xla", the two-pass chain at every chunk
+    # the attention mode (ModelParams.attn): True, attn="fused", the fused
+    # kernels where their gates admit the chunk; False, attn="xla" (the
+    # reference's default), the two-pass chain at every chunk
     attn_fused: bool = True
 
     @classmethod
@@ -516,9 +537,19 @@ def forward(
     tpb = st.tp_blocks
     for li, p in enumerate(params["layers"]):
         h = rms_norm(x, p["attn_norm"], eps)
-        q = qmm_nblocked(h, p["wq"], tpb)
-        k = qmm_nblocked(h, p["wk"], tpb)
-        v = qmm_nblocked(h, p["wv"], tpb)
+        if "wqkv" in p:
+            # the fused layout (BLAMA_FUSE_PROJ): one wide product, split
+            # after; each column's bits are its part's
+            q, k, v = (t.contiguous() for t in torch.split(
+                qmm_nblocked(h, p["wqkv"], tpb), [H * D, Hkv * D, Hkv * D], dim=-1))
+        elif "wkv" in p:
+            # k and v fused only (BLAMA_FUSE_KV)
+            q = qmm_nblocked(h, p["wq"], tpb)
+            k, v = (t.contiguous() for t in qmm_nblocked(h, p["wkv"], tpb).chunk(2, dim=-1))
+        else:
+            q = qmm_nblocked(h, p["wq"], tpb)
+            k = qmm_nblocked(h, p["wk"], tpb)
+            v = qmm_nblocked(h, p["wv"], tpb)
         q = q.reshape(B, T, H, D)
         k = k.reshape(B, T, Hkv, D)
         v = v.reshape(B, T, Hkv, D)
@@ -576,8 +607,12 @@ def forward(
         x = x + qmm_blocked(attn.reshape(B, T, H * D), p["wo"], tpb)
 
         h2 = rms_norm(x, p["ffn_norm"], eps)
-        gate = _silu(qmm_nblocked(h2, p["w_gate"], tpb))
-        x = x + qmm_blocked(gate * qmm_nblocked(h2, p["w_up"], tpb), p["w_down"], tpb)
+        if "wgu" in p:
+            gate, up = qmm_nblocked(h2, p["wgu"], tpb).chunk(2, dim=-1)
+            x = x + qmm_blocked(_silu(gate) * up, p["w_down"], tpb)
+        else:
+            gate = _silu(qmm_nblocked(h2, p["w_gate"], tpb))
+            x = x + qmm_blocked(gate * qmm_nblocked(h2, p["w_up"], tpb), p["w_down"], tpb)
 
     return _head(params, x, logits_index, eps, tpb, all_positions), cache
 

@@ -198,11 +198,12 @@ struct PagedAddr {
 // (write != 0) also writes them to the store. `k`/`v` alias the store the
 // kernel reads: the only slot P writes is one no block reads (the patched
 // slot comes from shared memory, the spare slot is never read). slot ==
-// nullptr: kernel C or E.
-template <class KV>
+// nullptr: kernel C or E. RT is the rows' type, the model's activation type
+// (the queries'): bf16, or f32 for an f32 model.
+template <class KV, class RT = __nv_bfloat16>
 struct Fresh {
-  const __nv_bfloat16* k_new;   // [B, Hkv, D]
-  const __nv_bfloat16* v_new;
+  const RT* k_new;              // [B, Hkv, D]
+  const RT* v_new;
   const int* slot;              // [B] the row's slot (>= S: a pad row)
   KV* k;                        // write mode: the store, [slots(+1), Hkv, D]
   KV* v;
@@ -219,17 +220,19 @@ __device__ __forceinline__ void from_f(float x, float& o) { o = x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(float x) { return x; }
 
-// One block stages a [D] row as the store holds it, zeros up to DP: for
-// int8, codes and the scale by ops/kv_cache.quantize_kv's formula (max-abs
-// over the row, amax / 127 and 1 / scale as IEEE divisions, round half to
-// even); for a float store the values in its type and the scale 1. Every
+// One block stages a [D] row of type RT (bf16 or f32) as the store holds
+// it, zeros up to DP: for int8, codes and the scale by
+// ops/kv_cache.quantize_kv's formula on the row's f32 values (max-abs over
+// the row, amax / 127 and 1 / scale as IEEE divisions, round half to even);
+// for a float store the values in its type (an f32 value into a bf16 store
+// rounded to nearest even, anything else exact) and the scale 1. Every
 // thread returns the scale; `red` holds one float per warp.
-template <int DP, class KV>
-__device__ float stage_row(const __nv_bfloat16* __restrict__ src, KV* dst, float* red, int D) {
+template <int DP, class KV, class RT>
+__device__ float stage_row(const RT* __restrict__ src, KV* dst, float* red, int D) {
   if constexpr (std::is_same<KV, int8_t>::value) {
     float amax = 0.0f;
     for (int d = threadIdx.x; d < D; d += blockDim.x)
-      amax = fmaxf(amax, fabsf(__bfloat162float(src[d])));
+      amax = fmaxf(amax, fabsf(to_f(src[d])));
     amax = warp_max(amax);
     if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
     __syncthreads();
@@ -239,12 +242,12 @@ __device__ float stage_row(const __nv_bfloat16* __restrict__ src, KV* dst, float
     const float sc = amax / 127.0f;
     const float inv = sc > 0.0f ? 1.0f / sc : 0.0f;
     for (int d = threadIdx.x; d < DP; d += blockDim.x)
-      dst[d] = d < D ? (int8_t)__float2int_rn(__bfloat162float(src[d]) * inv) : (int8_t)0;
+      dst[d] = d < D ? (int8_t)__float2int_rn(to_f(src[d]) * inv) : (int8_t)0;
     return sc;
   } else {
     for (int d = threadIdx.x; d < DP; d += blockDim.x) {
       if (d < D)
-        from_f(__bfloat162float(src[d]), dst[d]);
+        from_f(to_f(src[d]), dst[d]);
       else
         from_f(0.0f, dst[d]);
     }
@@ -336,7 +339,7 @@ struct DecArgs {
   QT* out;                   // [B, H, D] in the queries' type
   int H, Hkv, D, S, split, piece;   // piece: bytes a cp.async moves (16, 8, 4; 2: plain copies)
   float scale;
-  Fresh<KV> fresh;
+  Fresh<KV, QT> fresh;       // the fresh rows are in the queries' type
 };
 
 // Shared memory of one CTA; every section 16-byte aligned. After the tile
@@ -477,8 +480,8 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecArgs<KV, Q
     const bool writer = a.fresh.write && hc == 0 && (here || (sl >= a.S && sp == 0));
     if (here || writer) {                   // block-uniform
       const size_t src = ((size_t)b * a.Hkv + hk) * D;
-      fks = stage_row<DP, KV>(a.fresh.k_new + src, sm.fk, sm.red, D);
-      fvs = stage_row<DP, KV>(a.fresh.v_new + src, sm.fv, sm.red, D);
+      fks = stage_row<DP, KV, QT>(a.fresh.k_new + src, sm.fk, sm.red, D);
+      fvs = stage_row<DP, KV, QT>(a.fresh.v_new + src, sm.fv, sm.red, D);
       __syncthreads();
       if (writer) {
         const long long slot = sl < a.S ? (long long)b * a.S + sl : a.fresh.pad_slot;
@@ -896,9 +899,9 @@ struct HbShape {
   static_assert(RP == KP * 4 || !IN_PLACE, "an f32 ring row is a rotated row");
 };
 
-template <class KV>
+template <class KV, class QT = __nv_bfloat16>
 struct HbArgs {
-  const __nv_bfloat16* q;    // [B, H, D] rotated queries
+  const QT* q;               // [B, H, D] rotated queries (bf16, or f32)
   const KV* k;               // [B*S(+1), Hkv, D] the store
   const KV* v;
   const float* ks;           // [B*S(+1), Hkv] its scales (int8), else null
@@ -910,7 +913,7 @@ struct HbArgs {
   float* part_l;
   float* part_acc;           // [B, H, nsplit, D]
   int* tickets;              // [B * Hkv * head chunks], 0 between calls
-  __nv_bfloat16* out;        // [B, H, D]
+  QT* out;                   // [B, H, D] in the queries' type
   int H, Hkv, S, chunk, ts, heads, stages, pipe;
   float scale;
 };
@@ -997,8 +1000,8 @@ __device__ __forceinline__ void cp_wait_upto(int n) {
     cp_wait<3>();
 }
 
-template <int D, class KV>
-__global__ void __launch_bounds__(HB_THREADS) decode_hb_kernel(const HbArgs<KV> a) {
+template <int D, class KV, class QT>
+__global__ void __launch_bounds__(HB_THREADS) decode_hb_kernel(const HbArgs<KV, QT> a) {
   using Sh = HbShape<D, KV>;
   constexpr int ES = Sh::ES, RP = Sh::RP, KP = Sh::KP, VW = Sh::VW, C4 = D / 4;
   constexpr int NPC = D * ES / 16;                 // 16-byte pieces a row
@@ -1032,7 +1035,7 @@ __global__ void __launch_bounds__(HB_THREADS) decode_hb_kernel(const HbArgs<KV> 
   // the heads' queries, the split's positions and scales (a position and
   // its scales load side by side)
   for (int e = tid; e < gn * D; e += HB_THREADS)
-    sm.q[e] = __bfloat162float(a.q[((size_t)b * a.H + h0) * D + e]);
+    sm.q[e] = to_f(a.q[((size_t)b * a.H + h0) * D + e]);
   for (int j = tid; j < ntiles * ts; j += HB_THREADS) {
     int p = -1;
     float kq = 1.0f, vq = 1.0f;
@@ -1270,7 +1273,7 @@ __global__ void __launch_bounds__(HB_THREADS) decode_hb_kernel(const HbArgs<KV> 
       lsum = fmaf(__ldcg(a.part_l + row + p), w, lsum);
       ac = fmaf(__ldcg(a.part_acc + (row + p) * D + d), w, ac);
     }
-    a.out[((size_t)b * a.H + h0) * D + e] = __float2bfloat16(ac / fmaxf(lsum, 1e-30f));
+    from_f(ac / fmaxf(lsum, 1e-30f), a.out[((size_t)b * a.H + h0) * D + e]);
   }
 }
 
@@ -1918,8 +1921,8 @@ int decode_launch(const DecArgs<KV, QT>& a, const Addr& addr, int B, cudaStream_
 // partials when a row spans more than one split (f32: m and l [B, H,
 // nsplit], acc [B, H, nsplit, D]); `tickets` [B * Hkv * chunks] are zero
 // between calls (the last CTA of each group leaves its ticket at zero).
-// `heads` is the host's head chunk: 4, or 8 at DP <= 128. QT is the query
-// and output type: bf16, or f32 (C and E of an f32 model; no fresh row).
+// `heads` is the host's head chunk: 4, or 8 at DP <= 128. QT is the query,
+// output and fresh-row type: bf16, or f32 (C, E, N and P of an f32 model).
 template <int DP, class KV, class Addr, class QT = __nv_bfloat16>
 int decode_impl(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                 const void* kv_pos, const void* q_pos, const void* invf, const void* k_new,
@@ -1937,14 +1940,13 @@ int decode_impl(const void* q, const void* k, const void* v, const void* ks, con
   const int piece = al % 16 == 0 ? 16 : al % 8 == 0 ? 8 : al % 4 == 0 ? 4 : 2;
   float* part = static_cast<float*>(work);
   const size_t nparts = (size_t)B * H * nsplit;
-  const Fresh<KV> fresh{static_cast<const __nv_bfloat16*>(k_new),
-                        static_cast<const __nv_bfloat16*>(v_new),
-                        static_cast<const int*>(slot),
-                        const_cast<KV*>(static_cast<const KV*>(k)),
-                        const_cast<KV*>(static_cast<const KV*>(v)),
-                        const_cast<float*>(static_cast<const float*>(ks)),
-                        const_cast<float*>(static_cast<const float*>(vs)),
-                        (long long)B * S, write};
+  const Fresh<KV, QT> fresh{static_cast<const QT*>(k_new), static_cast<const QT*>(v_new),
+                            static_cast<const int*>(slot),
+                            const_cast<KV*>(static_cast<const KV*>(k)),
+                            const_cast<KV*>(static_cast<const KV*>(v)),
+                            const_cast<float*>(static_cast<const float*>(ks)),
+                            const_cast<float*>(static_cast<const float*>(vs)),
+                            (long long)B * S, write};
   const DecArgs<KV, QT> a{static_cast<const QT*>(q), static_cast<const KV*>(k),
                       static_cast<const KV*>(v), static_cast<const float*>(ks),
                       static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
@@ -1964,8 +1966,9 @@ int decode_impl(const void* q, const void* k, const void* v, const void* ks, con
 // block, else the single steps over a ring of 4 or 3 (neither moves a bit).
 // `ang` is the angles' scratch, [B*S, D] f32; `tickets` [B * Hkv * head
 // chunks] are zero between calls. The stores and the scratch lie on 16-byte
-// boundaries (the copies move 16-byte pieces).
-template <int D, class KV, class Addr>
+// boundaries (the copies move 16-byte pieces). QT is the query and output
+// type: bf16, or f32 (O of an f32 model).
+template <int D, class KV, class Addr, class QT = __nv_bfloat16>
 int decode_hb_impl(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const void* kv_pos, const void* q_pos,
                    const void* invf, void* ang, void* part_m, void* part_l, void* part_acc,
@@ -1982,23 +1985,23 @@ int decode_hb_impl(const void* q, const void* k, const void* v, const void* ks,
   const size_t smem = HbSmem<D, KV>::bytes(ts, stages, ntl);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_hb_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+      decode_hb_kernel<D, KV, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const HbArgs<KV> a{static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
-                     static_cast<const KV*>(v), static_cast<const float*>(ks),
-                     static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
-                     static_cast<const int*>(q_pos), static_cast<const float*>(ang),
-                     static_cast<float*>(part_m), static_cast<float*>(part_l),
-                     static_cast<float*>(part_acc), static_cast<int*>(tickets),
-                     static_cast<__nv_bfloat16*>(out), H, Hkv, S, chunk, ts, heads, stages,
-                     pipe, scale};
+  const HbArgs<KV, QT> a{static_cast<const QT*>(q), static_cast<const KV*>(k),
+                         static_cast<const KV*>(v), static_cast<const float*>(ks),
+                         static_cast<const float*>(vs), static_cast<const int*>(kv_pos),
+                         static_cast<const int*>(q_pos), static_cast<const float*>(ang),
+                         static_cast<float*>(part_m), static_cast<float*>(part_l),
+                         static_cast<float*>(part_acc), static_cast<int*>(tickets),
+                         static_cast<QT*>(out), H, Hkv, S, chunk, ts, heads, stages, pipe,
+                         scale};
   hb_angles_kernel<D><<<dim3((S * (D / 2) + 255) / 256, B), 256, 0, st>>>(
       static_cast<const int*>(kv_pos), static_cast<const int*>(q_pos),
       static_cast<const float*>(invf), static_cast<float*>(ang), S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nhc = (H / Hkv + heads - 1) / heads, nsplit = (S + chunk - 1) / chunk;
-  decode_hb_kernel<D, KV><<<dim3(B * Hkv * nhc, nsplit), HB_THREADS, smem, st>>>(a);
+  decode_hb_kernel<D, KV, QT><<<dim3(B * Hkv * nhc, nsplit), HB_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -2065,30 +2068,32 @@ int prefill_impl(const void* q, const void* k, const void* v, const void* ks,
 
 // Pick the instantiation for head dim D and store type kv_type (0 = int8
 // codes with scales, 1 = bf16, 2 = f32): kernel O's at D itself (64, 128 or
-// 256), -1 for any other combination.
-#define ATTN_DISPATCH(IMPL, ADDR, ...)                                          \
+// 256), -1 for any other combination; QT is the query and output type
+// (ATTN_DISPATCH: bf16).
+#define ATTN_DISPATCH_Q(IMPL, ADDR, QT, ...)                                    \
   do {                                                                          \
     if (kv_type == 0) {                                                         \
       switch (D) {                                                              \
-        case 64: return IMPL<64, int8_t, ADDR>(__VA_ARGS__);                    \
-        case 128: return IMPL<128, int8_t, ADDR>(__VA_ARGS__);                  \
-        case 256: return IMPL<256, int8_t, ADDR>(__VA_ARGS__);                  \
+        case 64: return IMPL<64, int8_t, ADDR, QT>(__VA_ARGS__);                \
+        case 128: return IMPL<128, int8_t, ADDR, QT>(__VA_ARGS__);              \
+        case 256: return IMPL<256, int8_t, ADDR, QT>(__VA_ARGS__);              \
       }                                                                         \
     } else if (kv_type == 1) {                                                  \
       switch (D) {                                                              \
-        case 64: return IMPL<64, __nv_bfloat16, ADDR>(__VA_ARGS__);             \
-        case 128: return IMPL<128, __nv_bfloat16, ADDR>(__VA_ARGS__);           \
-        case 256: return IMPL<256, __nv_bfloat16, ADDR>(__VA_ARGS__);           \
+        case 64: return IMPL<64, __nv_bfloat16, ADDR, QT>(__VA_ARGS__);         \
+        case 128: return IMPL<128, __nv_bfloat16, ADDR, QT>(__VA_ARGS__);       \
+        case 256: return IMPL<256, __nv_bfloat16, ADDR, QT>(__VA_ARGS__);       \
       }                                                                         \
     } else if (kv_type == 2) {                                                  \
       switch (D) {                                                              \
-        case 64: return IMPL<64, float, ADDR>(__VA_ARGS__);                     \
-        case 128: return IMPL<128, float, ADDR>(__VA_ARGS__);                   \
-        case 256: return IMPL<256, float, ADDR>(__VA_ARGS__);                   \
+        case 64: return IMPL<64, float, ADDR, QT>(__VA_ARGS__);                 \
+        case 128: return IMPL<128, float, ADDR, QT>(__VA_ARGS__);               \
+        case 256: return IMPL<256, float, ADDR, QT>(__VA_ARGS__);               \
       }                                                                         \
     }                                                                           \
     return -1;                                                                  \
   } while (0)
+#define ATTN_DISPATCH(IMPL, ADDR, ...) ATTN_DISPATCH_Q(IMPL, ADDR, __nv_bfloat16, __VA_ARGS__)
 
 // The bodies of C-F and N, P at the padded width for an even D <= 256 (the
 // smallest of 64, 128, 256 that holds it), which take D at run time; QT is

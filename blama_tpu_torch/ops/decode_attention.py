@@ -26,6 +26,11 @@ so are the reference's opt-in decode modes, each its own kernel:
     tile (`hb_split`, `hb_tile`), so its own numerics; a CTA per (row, kv
     head, chunk of query heads, split) (`hb_plan`).
 
+Each kernel takes queries in the model's activation type, as the
+reference's do: bf16 (the instances above) or f32, the float32 engine's,
+from ops/csrc/attention_f32.cu (counted under the kernel's name + "_f32q";
+N and P then take f32 fresh rows and quantize or store their f32 values).
+
 On a CPU tensor each wrapper runs the plain PyTorch version in this module; on
 a CUDA tensor it launches the kernel or raises. The `supports` /
 `prefill_supports` / `write_supports` / `fresh_supports` gates and O's route
@@ -355,8 +360,8 @@ def require_kernel_geometry(device, n_head: int, n_head_kv: int, head_dim: int,
 
 
 # the query (and output) types the kernels take: bf16 (the packed engines and
-# the bfloat16 engine) and f32 (the float32 engine; kernels C, D, E and F
-# only, ops/csrc/attention_f32.cu)
+# the bfloat16 engine) and f32 (the float32 engine: every kernel's f32
+# instance, ops/csrc/attention_f32.cu)
 Q_TYPES = (torch.bfloat16, torch.float32)
 
 
@@ -456,25 +461,15 @@ def decode_work(B: int, H: int, D: int, nsplit: int, dev) -> torch.Tensor | None
     return torch.empty(B * H * nsplit * (2 + D), dtype=torch.float32, device=dev)
 
 
-def require_bf16_query(q, kernel: str) -> None:
-    """Kernels N, P and O have bf16-query instances only."""
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"kernel {kernel} takes bf16 queries only, got {q.dtype}: the float32 "
-            "engine runs C, D, E and F (ROADMAP.md §1 item 9, the rest of it)")
-
-
 def decode_launch(lib, name, q, k, v, k_scale, v_scale, kv_pos, q_pos, inv_freq_e, out,
                   S, kv_type, scale, split=None, fresh=None, write=0, paged=None):
     """Launch kernel C, N or P (dense; `fresh` = (k_new, v_new, slot)) or E
     (`paged` = (page_table, MP, G)) through the decode plan and count it; at
-    f32 queries C or E from the f32 library (attention_f32.cu), counted
-    under `name` + "_f32q"."""
+    f32 queries the f32 library's instance (attention_f32.cu), counted under
+    `name` + "_f32q"."""
     B, _, H, D = q.shape
     f32 = q.dtype == torch.float32
     if f32:
-        if fresh is not None:
-            require_bf16_query(q, "P" if write else "N")
         lib, name = kernels.lib("attention_f32"), name + "_f32q"
     Hkv = k.shape[-2]
     split, heads, grid = decode_plan(B, H, Hkv, S, D, split)
@@ -488,14 +483,10 @@ def decode_launch(lib, name, q, k, v, k_scale, v_scale, kv_pos, q_pos, inv_freq_
                 kv_pos.data_ptr(), table.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(),
                 ptr(work), ptr(tk), out.data_ptr(), B, H, Hkv, D, MP, G, split, heads, kv_type,
                 float(scale), stream)
-    elif f32:
-        rc = lib.decode_attention_f32_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
-            kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(), ptr(work), ptr(tk),
-            out.data_ptr(), B, H, Hkv, D, S, split, heads, kv_type, float(scale), stream)
     else:
         k_new, v_new, slot = fresh or (None, None, None)
-        rc = lib.decode_attention_launch(
+        fn = lib.decode_attention_f32_launch if f32 else lib.decode_attention_launch
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
             kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(), ptr(k_new),
             ptr(v_new), ptr(slot), ptr(work), ptr(tk), out.data_ptr(), B, H, Hkv, D, S,
@@ -565,9 +556,10 @@ def prefill_buffers(B: int, T: int, H: int, Hkv: int, D: int, S: int, nsplit: in
 
 
 def _check_fresh(q, k_new, v_new, slot, Hkv):
+    """The fresh rows are in the queries' type (the model's activations)."""
     B, _, H, D = q.shape
-    check_tensors(q.device, {"k_new": (k_new, (B, Hkv, D), torch.bfloat16),
-                             "v_new": (v_new, (B, Hkv, D), torch.bfloat16),
+    check_tensors(q.device, {"k_new": (k_new, (B, Hkv, D), q.dtype),
+                             "v_new": (v_new, (B, Hkv, D), q.dtype),
                              "slot": (slot, (B,), torch.int32)})
 
 
@@ -589,7 +581,8 @@ def decode_attention(
     split: int | None = None,  # slots per split, for measuring only (decode_plan)
 ) -> torch.Tensor:
     """Fused single-token attention; returns [B, 1, H, D] in q.dtype (bf16,
-    or f32: C's f32-query instance; N, P and O take bf16 only).
+    or f32: the f32-query instances of C, N and O; N's fresh rows in the
+    same type).
 
     Kernel C; kernel N when the fresh row is given (the cache need not hold
     it yet: it is patched over `slot`, a pad row's slot >= S patches
@@ -616,7 +609,9 @@ def decode_attention(
     lib = kernels.lib("decode_attention")
     hb = hb_split(S, D, Hkv, k_cache.dtype, B, scales_t, fresh)
     if hb:
-        require_bf16_query(q, "O")
+        name, fn = "decode_attention_hb", lib.decode_attention_hb_launch
+        if q.dtype == torch.float32:
+            name, fn = name + "_f32q", kernels.lib("attention_f32").decode_attention_hb_f32_launch
         plan = hb_plan(B, H, Hkv, D, S, hb)
         groups, nsplit = plan.grid
         # one scratch: the rope angles [B*S, D], the partials m, l [B, H,
@@ -624,17 +619,16 @@ def decode_attention(
         n_ang, n_ml = B * S * D, B * H * nsplit
         work = torch.empty(n_ang + n_ml * (2 + D), dtype=torch.float32, device=q.device)
         at = work.data_ptr()
-        rc = lib.decode_attention_hb_launch(
+        rc = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
             ptr(v_scale), kv_pos.data_ptr(), q_pos.data_ptr(), inv_freq_e.data_ptr(), at,
             at + 4 * n_ang, at + 4 * (n_ang + n_ml), at + 4 * (n_ang + 2 * n_ml),
             tickets(q.device, groups).data_ptr(), out.data_ptr(), B, H, Hkv, D, S, hb, plan.ts,
             plan.heads, kv_type, float(scale), kernels.stream_ptr(q.device))
-        kernels.check(rc, "decode_attention_hb")
-        kernels.count("decode_attention_hb")
+        kernels.check(rc, name)
+        kernels.count(name)
         return out
     if fresh:
-        require_bf16_query(q, "N")
         slot = slot.reshape(B)
         _check_fresh(q, k_new, v_new, slot, Hkv)
     return decode_launch(lib, "decode_attention_fresh" if fresh else "decode_attention", q,
@@ -661,8 +655,9 @@ def decode_attention_write(
     """Kernel P: fused single-token attention that also quantizes the fresh
     K/V row and writes it (codes and scales, or the values) into the store,
     in place, at the slot `KVCache.flat_slots` gives (a pad row's at the
-    spare slot). Returns [B, 1, H, D]; the output and the store equal C's
-    after `SlotStore.write`, bit for bit."""
+    spare slot). Returns [B, 1, H, D] in q.dtype (bf16, or f32: the f32
+    instance, whose fresh rows are f32 too); the output and the store equal
+    C's after `SlotStore.write`, bit for bit."""
     B, T, H, D = q.shape
     if T != 1:
         raise ValueError(f"decode_attention_write is the T == 1 path, got T={T}")
@@ -683,7 +678,6 @@ def decode_attention_write(
         "k_scale": (k_scale, (n, Hkv), torch.float32),
         "v_scale": (v_scale, (n, Hkv), torch.float32),
         "kv_pos": (kv_pos, (B, S), None), "inv_freq_e": (inv_freq_e, (D,), None)})
-    require_bf16_query(q, "P")
     _check_fresh(q, k_new, v_new, slot, Hkv)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     return decode_launch(kernels.lib("decode_attention"), "decode_attention_write", q,

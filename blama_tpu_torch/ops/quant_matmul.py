@@ -66,7 +66,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -297,6 +297,52 @@ def repack_q4k_embedding(data, n_rows: int, row_len: int, device="cuda") -> Quan
     half = row_len // 2
     packed = codes[:, :half] | (codes[:, half:] << 4)
     return QuantEmbedding(packed.contiguous(), scales.contiguous(), mins.contiguous())
+
+
+def reference_lane_width(N: int) -> int:
+    """The width the reference pads a packed tensor of N output columns to:
+    a multiple of 256, then (past 4096) a multiple of 4096 or 2048 where
+    that wastes at most 5% (its _widen_target). The port pads nothing; it
+    reads this only to fuse where the reference fuses (fusable)."""
+    N = -(-N // 256) * 256
+    if N <= 4096:
+        return N
+    for t in (4096, 2048):
+        if N % t == 0:
+            return N
+        wide = -(-N // t) * t
+        if (wide - N) / N <= 0.05:
+            return wide
+    return N
+
+
+def fusable(ws: list) -> bool:
+    """Whether packed weights fuse into one wide product (the reference's
+    load_llama_params `_fusable`): all of one packed class, none padded in
+    the reference's layout (reference_lane_width), and Q8 parts of one scale
+    group (the reference asserts that; a mix stays apart here)."""
+    cls = type(ws[0])
+    return (all(type(w) is cls for w in ws)
+            and isinstance(ws[0], (QuantTensor, QuantTensorA8, QuantTensorK4, QuantTensorQ8))
+            and all(reference_lane_width(w.n_out) == w.n_out for w in ws)
+            and len({getattr(w, "group", None) for w in ws}) == 1)
+
+
+def concat_quant(ws: list):
+    """Packed weights of one class concatenated along the output columns,
+    the reference's concat_quant (BLAMA_FUSE_PROJ / BLAMA_FUSE_KV): every
+    layout here is [N, ...] with a column's weights its own row, so the
+    result is each array's rows one part after another, and a Q8 tensor
+    keeps its scale group. Every kernel sums each column alone, so a column
+    of the wide product has the bits of the same column of its part."""
+    cls = type(ws[0])
+    if not fusable(ws):
+        raise ValueError(f"cannot fuse {[type(w).__name__ for w in ws]}")
+    out = {f.name: torch.cat([getattr(w, f.name) for w in ws]).contiguous()
+           for f in fields(cls) if f.name != "group"}
+    if cls is QuantTensorQ8:
+        out["group"] = ws[0].group
+    return cls(**out)
 
 
 def unpair_codes(codes: torch.Tensor) -> torch.Tensor:

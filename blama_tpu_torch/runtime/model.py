@@ -8,6 +8,7 @@ missing card is an error, never a silent fall back to the CPU.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable
 
@@ -53,11 +54,10 @@ class ModelParams:
     # replaying a tp-sharded prover sets the prover's value (8 on its mesh)
     tp_blocks: int = -1
     moe_ragged: bool | None = None
-    # "fused": the flash attention kernels (own numerics: prover and verifier
-    # pick the same mode); "xla": the two-pass chain at every chunk (the
-    # reference's default, and the only mode of a MoE file, as there); None:
-    # "fused" on a llama file, "xla" on a MoE file
-    attn: str | None = None
+    # "xla", the reference's default: the two-pass chain at every chunk
+    # (the only mode of a MoE file, as there); "fused": the flash attention
+    # kernels (own numerics: prover and verifier pick the same mode)
+    attn: str = "xla"
     device: str = "cuda"
 
 
@@ -69,7 +69,7 @@ class Model:
         if self.params.mesh is not None or self.params.sharding_rules is not None:
             raise NotImplementedError(
                 "meshes and sharding are not ported (ROADMAP.md §1 item 13, multi-GPU)")
-        if self.params.attn not in ("xla", "fused", None):
+        if self.params.attn not in ("xla", "fused"):
             raise ValueError(
                 f"ModelParams.attn must be 'xla' or 'fused', got {self.params.attn!r}")
         self.reader = GGUFReader(gguf_path)
@@ -98,8 +98,7 @@ class Model:
                 "engines, whose mixture it picks, are not ported "
                 "(ROADMAP.md §1 item 10, the rest of MoE)")
         # the attention mode the model runs (Instance and the scheduler read it)
-        self.config.attn_fused = (self.params.attn or
-                                  ("xla" if self.config.is_moe else "fused")) == "fused"
+        self.config.attn_fused = self.params.attn == "fused"
         self.vocab = Vocab.from_gguf(self.reader)
         self.weights = None
         if not self.params.vocab_only:
@@ -127,10 +126,22 @@ class Model:
             w = load_llama_params(self.reader, self.config,
                                   fused_quant=False if dense else engines[self.params.dtype],
                                   device=self.device, progress_cb=progress_cb,
-                                  dtype=dense or torch.bfloat16)
+                                  dtype=dense or torch.bfloat16,
+                                  fuse_proj=False if dense else self._fuse_proj())
         if progress_cb:
             progress_cb(1.0)
         return w
+
+    def _fuse_proj(self) -> bool | str:
+        """The reference's switches, read at load (so one process can load
+        both layouts): BLAMA_FUSE_PROJ=1 fuses wq|wk|wv and w_gate|w_up,
+        else BLAMA_FUSE_KV=1 wk|wv only; a packed engine without tp_blocks
+        only, off by default (models/llama.fuse_projections)."""
+        if self.config.tp_blocks:
+            return False
+        if os.environ.get("BLAMA_FUSE_PROJ", "0") == "1":
+            return True
+        return "kv" if os.environ.get("BLAMA_FUSE_KV", "0") == "1" else False
 
     # -- reference Model API -------------------------------------------------
 

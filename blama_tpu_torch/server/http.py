@@ -253,8 +253,9 @@ def main() -> None:
     row is greedy or a verification row and gives way to per-token steps
     otherwise. BLAMA_DTYPE names the weight engine (default `bfloat16`, the
     reference server's; one the port does not serve fails here with Model's
-    NotImplementedError; a MoE file takes `q4k_a8` or `q4k_fused`, and runs
-    attn="xla").
+    NotImplementedError; a MoE file takes `q4k_a8` or `q4k_fused`). The
+    model takes ModelParams' default attention, attn="xla" (the two-pass
+    chain), as the reference server's does.
     """
     import logging
 
@@ -273,7 +274,7 @@ def main() -> None:
     def progress(p: float) -> None:
         print(f"\rloading model: {p * 100:5.1f}%", end="", flush=True)
 
-    # attn is left to the file: fused kernels for llama, the chain for MoE
+    # as the reference server builds it: attn at its default, "xla"
     model = Model(model_path,
                   ModelParams(dtype=os.environ.get("BLAMA_DTYPE", "bfloat16"),
                               device=os.environ.get("BLAMA_DEVICE", "cuda")),

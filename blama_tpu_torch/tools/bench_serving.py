@@ -30,7 +30,7 @@ import time
 
 import numpy as np
 
-from .common import add_device, model_path, setup, sync
+from .common import add_device, attn_for, model_path, setup, sync
 
 
 def main(argv=None) -> dict:
@@ -53,7 +53,8 @@ def main(argv=None) -> dict:
 
     path = model_path(args.preset, args.layers)
     t0 = time.perf_counter()
-    model = Model(path, ModelParams(dtype=args.dtype, device=str(dev)))
+    model = Model(path, ModelParams(dtype=args.dtype, attn=attn_for(args.preset),
+                                    device=str(dev)))
     sync(dev)
     load_s = time.perf_counter() - t0
     sched = ContinuousBatchingScheduler(model, max_batch=max_batch, ctx_size=ctx, paged=paged,

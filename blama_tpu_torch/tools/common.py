@@ -140,6 +140,15 @@ def exit_on_fail(fails: list) -> None:
         raise SystemExit(f"{len(fails)} probe(s) failed: {', '.join(fails)}")
 
 
+def attn_for(preset: str) -> str:
+    """The attention mode a tool measures on `preset`: the fused kernels
+    (attn="fused") on a llama-family file, the two-pass chain, the only mode
+    a MoE file takes, on a MoE preset."""
+    from ..testing import MOE_PRESETS
+
+    return "xla" if preset in MOE_PRESETS else "fused"
+
+
 def model_path(preset: str, layers: int | None = None) -> str:
     """The file a tool runs on: `tiny` (the tests' fixture) or a synthesized
     preset (random weights, the preset's widths, `layers` cuts the depth),

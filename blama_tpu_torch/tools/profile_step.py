@@ -222,7 +222,8 @@ def main() -> None:
         path = cached_llama_gguf("llama3-8b", seed=7, quant=quant, n_layer=args.layers)
     file_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    model = Model(path, ModelParams(dtype=args.dtype, tp_blocks=args.tp_blocks))
+    model = Model(path, ModelParams(dtype=args.dtype, tp_blocks=args.tp_blocks,
+                                    attn="xla" if args.moe else "fused"))
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     weights_gib = torch.cuda.memory_allocated() / 2 ** 30

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import BUILD_DIR
-from .common import add_device, model_path, setup, sync
+from .common import add_device, attn_for, model_path, setup, sync
 
 KV = {"int8": "int8", "bf16": "bfloat16", "f32": "float32"}
 TRACE_DIR = BUILD_DIR.parent / "traces"
@@ -51,7 +51,7 @@ def main(argv=None) -> dict:
     from ..runtime.model import Model, ModelParams
 
     model = Model(model_path(args.preset, args.layers),
-                  ModelParams(dtype=args.dtype, device=str(dev)))
+                  ModelParams(dtype=args.dtype, attn=attn_for(args.preset), device=str(dev)))
     inst = Instance(model, InstanceInitParams(ctx_size=args.ctx, flash_attn=True,
                                               kv_dtype=KV[args.kv]))
     prompt = [1] + np.random.default_rng(0).integers(3, model.config.n_vocab - 1, 7).tolist()

@@ -82,7 +82,10 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    Hkv8 / D128, S = 2048, 1 and 8 rows: N and P bit for bit equal to C after
    the cache write on every store type (P's store equal to the write's, a
    pad row's write in the spare slot), O within tolerance of its plain
-   version;
+   version; and again at f32 queries and f32 fresh rows (the float32
+   engine's instances of N, P and O, within F32Q_TOL, N and P bit-equal to
+   the f32-query C after the write), where the bf16 instances on the same
+   inputs rounded to bf16 must fall outside F32Q_TOL;
 4. serving: the port's HttpServer in-process on 127.0.0.1 over the
    continuous-batching scheduler (8 rows, paged bf16 pool, horizon 8,
    ctx 2048) answers 12 concurrent /complete and /chat/completions requests,
@@ -96,6 +99,11 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    bit for bit (where a resumed row first leaves the uncontended tokens, the
    margin and the drift there are logged); dense rows (kernels C and D on bf16)
    must give the paged run's tokens;
+   then the fuse phase: the solo model's graphed decode timed, and the same
+   file loaded under BLAMA_FUSE_PROJ=1 (wqkv, wgu) and BLAMA_FUSE_KV=1
+   (wkv), each proving the solo requests' prompts with the unfused records'
+   tokens and top-10 bit for bit, replaying them at 1.0, its graphed decode
+   timed;
    then the head-dim-96 phase: a llama-architecture file at Phi-3-mini's
    widths (head dim 96, 32 / 32 heads; testing.MODEL_PRESETS["phi3-mini"])
    cut to HD96_LAYERS layers, `q4k_a8`, two solo requests on an INT8 cache
@@ -130,6 +138,8 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
 8. small: the tiny llama fixture proven on the card and replayed by the port
    on the CPU must meet the cross-backend thresholds, and so must, on the
    card, `q4k_a8` replayed by `q4k_fused` and `q4k_a8_xla` by `q4k_a8`;
+   then the four example programs (blama_tpu_torch/examples/) on the card,
+   each with the reference's printed marker;
 9. tools: each tool of blama_tpu_torch/tools/ (probe_bw, probe_overhead,
    probe_ceiling, autotune_a8s, ab_a8k4, bench_serving, profile_load,
    trace_step, ubench_q4k, probe_swar, probe_mosaic, probe_casts,
@@ -148,7 +158,11 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    verified at 1.0; the `float32` engine at full width cut to
    ENGINE_FILE_LAYERS layers on f32 KV, the same requests in both modes
    (C and D at f32 queries) and four requests through the paged scheduler
-   (E and F at f32 queries), verified at 1.0; Q5_K_M- and Q3_K_M-pattern
+   (E and F at f32 queries), verified at 1.0, and the decode-attention
+   modes on that model (write on INT8, bf16 and f32 stores, fresh on INT8,
+   head-batched on bf16 and f32: N, P and O at f32 queries, the modes
+   phase's checks, and the dense scheduler in write mode); Q5_K_M- and
+   Q3_K_M-pattern
    files at ENGINE_FILE_LAYERS layers, each GGML type's values dequantized
    on the card equal to the numpy function's, loaded as `bfloat16` and
    replayed at 1.0. The kernel phase holds C, D, E and F at f32 queries
@@ -2655,17 +2669,23 @@ def _rand_store(torch, gen, shape, tag):
     return kv[0], kv[1], None, None
 
 
-def modes_kernel_phase(torch, timer):
+def modes_kernel_phase(torch, timer, qdt=None):
     """Kernels N (fresh operand) and P (in-kernel write) against kernel C
     after the cache write, bit for bit, on INT8, bf16 and f32 stores (P's
     store against the write's, the spare slot included), and O (head-batched)
     against its plain version, at H32 / Hkv8 / D128, S = 2048, one row and 8
     rows (the last a pad row, whose write lands in the spare slot); each
-    timed beside its bound and SDPA."""
+    timed beside its bound and SDPA. `qdt` is the query and fresh-row type:
+    bf16 (the packed engines), or f32 (the float32 engine's instances, rows
+    named with "_f32q", held to F32Q_TOL; there the bf16 instances on the
+    queries and fresh rows rounded to bf16 must fall outside it, the
+    control)."""
     from blama_tpu_torch.ops import decode_attention as da
     from blama_tpu_torch.ops import kv_cache as kvc
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    qdt = qdt or torch.bfloat16
+    sfx = "_f32q" if qdt == torch.float32 else ""
+    gen = torch.Generator(device="cuda").manual_seed(5 if qdt == torch.bfloat16 else 15)
     H, Hkv, D, S = 32, 8, 128, 2048
     inv, mscale = da.effective_inv_freq(D, D, 500000.0)
     inv = inv.cuda()
@@ -2694,9 +2714,9 @@ def modes_kernel_phase(torch, timer):
                 c.pos_store.copy_(base.pos_store)
                 return c
 
-            kn, vn = (torch.randn((B, Hkv, D), generator=gen, device="cuda")
-                      .to(torch.bfloat16) for _ in range(2))
-            q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            kn, vn = (torch.randn((B, Hkv, D), generator=gen, device="cuda").to(qdt)
+                      for _ in range(2))
+            q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(qdt)
             ref_c = clone()
             ref_c.write(0, ref_c.flat_slots(slot[:, None].long()), kn[:, None], vn[:, None])
             sc = (ref_c.k_scale[0], ref_c.v_scale[0]) if ref_c.quantized else (None, None)
@@ -2719,43 +2739,69 @@ def modes_kernel_phase(torch, timer):
             for name, fn in (("N", fresh), ("P", write)):
                 out = fn()
                 torch.cuda.synchronize()
-                if not torch.equal(out, ref):
+                if out.dtype != qdt or not torch.equal(out, ref):
                     raise AssertionError(
-                        f"kernel {name} {tag} B={B}: differs from C after the write (max "
+                        f"kernel {name}{sfx} {tag} B={B}: differs from C after the write (max "
                         f"{(out.float() - ref.float()).abs().max().item()})")
             for a, r in zip(stores(p_c), stores(ref_c), strict=True):
                 if a is not None and not torch.equal(a, r):
-                    raise AssertionError(f"kernel P {tag} B={B}: store differs from the write's")
-            log(f"kernels N and P {tag} B={B}: bit-identical to C after the cache write; "
+                    raise AssertionError(f"kernel P{sfx} {tag} B={B}: store differs from the "
+                                         "write's")
+            log(f"kernels N and P{sfx} {tag} B={B}: bit-identical to C after the cache write; "
                 "P's store (spare slot included) equal to the write's")
-            row_bytes = 2 * B * Hkv * D * 2
+            row_bytes = 2 * B * Hkv * D * kn.element_size()
             written = 2 * B * Hkv * (D * base.k_store.element_size() + (4 if base.quantized else 0))
-            rows.append(_attn_row(
-                torch, timer, "decode_attention_fresh", f"modes {tag}", fresh,
-                lambda: da.fresh_attention_plain(q, n_c.k[0], n_c.v[0], q_pos[:, None],
-                                                 n_c.positions, inv, kn, vn, slot, *n_sc,
-                                                 scale),
-                q, dense, q_pos[:, None], inv, row_bytes)[0])
+            plain_n = lambda: da.fresh_attention_plain(   # noqa: E731
+                q, n_c.k[0], n_c.v[0], q_pos[:, None], n_c.positions, inv, kn, vn, slot,
+                *n_sc, scale)
+            rows.append(_attn_row(torch, timer, "decode_attention_fresh" + sfx, f"modes {tag}",
+                                  fresh, plain_n, q, dense, q_pos[:, None], inv, row_bytes)[0])
             ppk, ppv, ppks, ppvs = stores(pp_c)
-            rows.append(_attn_row(
-                torch, timer, "decode_attention_write", f"modes {tag}", write,
-                lambda: da.write_attention_plain(q, ppk, ppv, q_pos[:, None], pp_c.positions,
-                                                 inv, kn, vn, slot, ppks, ppvs, scale),
-                q, dense, q_pos[:, None], inv, row_bytes + written)[0])
-            da._HB = True
-            try:
-                rows.append(_attn_row(
-                    torch, timer, "decode_attention_hb", f"modes {tag}",
-                    lambda: da.decode_attention(q, ref_c.k[0], ref_c.v[0], q_pos,
-                                                ref_c.positions, inv, *sc, mscale=mscale),
-                    lambda: da.flash_attention_plain(q, ref_c.k[0], ref_c.v[0], q_pos[:, None],
-                                                     ref_c.positions, inv, *sc, scale),
-                    q, dense, q_pos[:, None], inv, 0)[0])
-            finally:
-                da._HB = False
+            plain_p = lambda: da.write_attention_plain(   # noqa: E731
+                q, ppk, ppv, q_pos[:, None], pp_c.positions, inv, kn, vn, slot, ppks, ppvs,
+                scale)
+            rows.append(_attn_row(torch, timer, "decode_attention_write" + sfx, f"modes {tag}",
+                                  write, plain_p, q, dense, q_pos[:, None], inv,
+                                  row_bytes + written)[0])
+            hb = lambda: da.decode_attention(q, ref_c.k[0], ref_c.v[0], q_pos,  # noqa: E731
+                                             ref_c.positions, inv, *sc, mscale=mscale)
+            plain_o = lambda: da.flash_attention_plain(   # noqa: E731
+                q, ref_c.k[0], ref_c.v[0], q_pos[:, None], ref_c.positions, inv, *sc, scale)
+            with _hb_mode(da):
+                rows.append(_attn_row(torch, timer, "decode_attention_hb" + sfx, f"modes {tag}",
+                                      hb, plain_o, q, dense, q_pos[:, None], inv, 0)[0])
+            if sfx:
+                _f32q_modes_control(torch, da, rows[-3:], q, kn, vn, slot, q_pos, inv, mscale,
+                                    clone, stores, ref_c, sc, plain_n(), plain_p(), plain_o())
             del base, ref_c, n_c, p_c, pp_c
             torch.cuda.empty_cache()
     return rows
+
+
+def _f32q_modes_control(torch, da, rows, q, kn, vn, slot, q_pos, inv, mscale, clone,
+                        stores, ref_c, sc, ref_n, ref_p, ref_o):
+    """F32Q_TOL tells the f32 instances of N, P and O from a bf16-grade
+    answer: the bf16 instances, given the same queries and fresh rows
+    rounded to bf16, fall outside it against the f32 plain versions. Each
+    row gains the control's error (`control_rel`)."""
+    qb, knb, vnb = (t.to(torch.bfloat16) for t in (q, kn, vn))
+    c_n, c_p = clone(), clone()
+    n_sc = (c_n.k_scale[0], c_n.v_scale[0]) if c_n.quantized else (None, None)
+    outs = (da.decode_attention(qb, c_n.k[0], c_n.v[0], q_pos, c_n.positions, inv, *n_sc,
+                                mscale=mscale, k_new=knb, v_new=vnb, slot=slot),
+            da.decode_attention_write(qb, *stores(c_p)[:2], q_pos, c_p.positions, inv, knb,
+                                      vnb, slot, *stores(c_p)[2:], mscale=mscale))
+    with _hb_mode(da):
+        outs += (da.decode_attention(qb, ref_c.k[0], ref_c.v[0], q_pos, ref_c.positions, inv,
+                                     *sc, mscale=mscale),)
+    for row, out, ref in zip(rows, outs, (ref_n, ref_p, ref_o), strict=True):
+        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        if not rel > F32Q_TOL:
+            raise AssertionError(f"f32-query control {row['kernel']} {row['shape']}: the bf16 "
+                                 f"instance on bf16-rounded inputs is within F32Q_TOL ({rel})")
+        row["control_rel"] = rel
+        log(f"f32-query control {row['kernel']} {row['shape'].split(' H=')[0]}: the bf16 "
+            f"instance on rounded inputs is {rel:.3g} x max|ref| off, outside F32Q_TOL")
 
 
 def _gather(pkv, table, G, kp, vp, ksp, vsp):
@@ -3092,7 +3138,7 @@ def _free(torch, model):
 def _default_http_server(torch, path, kind):
     """The reference server's default, as a user starts it: `python -m
     blama_tpu_torch.server.http` with BLAMA_DTYPE unset (the `bfloat16`
-    engine, attn fused on a llama file) on the paged scheduler, in a
+    engine and attn="xla", ModelParams' defaults) on the paged scheduler, in a
     process of its own; four concurrent /complete requests, each verified
     over /verify_completion at exactly 1.0; the process stopped with
     SIGTERM."""
@@ -3212,7 +3258,8 @@ def dense_phase(torch, kind):
     ENGINE_FILE_LAYERS layers, f32 KV (the reference's default store), the
     same requests under attn="fused" (the f32-query C and D) and "xla", and
     four requests through the paged scheduler (the f32-query E and F),
-    verified at 1.0; a Q5_K_M-pattern and a Q3_K_M-pattern file at
+    verified at 1.0, then the modes phase on that model (F32_MODE_RUNS: N,
+    P and O at f32 queries); a Q5_K_M-pattern and a Q3_K_M-pattern file at
     ENGINE_FILE_LAYERS layers, each type's dequantized values on the card
     equal to the numpy function's, loaded as `bfloat16` and replayed at
     1.0. Decode tok/s and TTFT of each engine graphed and eager
@@ -3245,6 +3292,10 @@ def dense_phase(torch, kind):
                 torch, model, kind, needs=("paged_decode_attention_f32q",
                                            "paged_prefill_attention_f32q"),
                 where="dense float32 serving")
+            t_modes = time.perf_counter()
+            out["float32 modes"] = modes_phase(torch, model, kind, F32_MODE_RUNS, "_f32q",
+                                               solo_http=False)
+            log(f"dense float32 modes took {time.perf_counter() - t_modes:.1f} s")
         model = _free(torch, model)
     log(f"dense float32 done in {time.perf_counter() - t_phase:.1f} s")
     for recipe in (Q5_K_M, Q3_K_M):
@@ -3259,6 +3310,130 @@ def dense_phase(torch, kind):
         model = _free(torch, model)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"dense phase took {out['seconds']:.1f} s")
+    return out
+
+
+# the fuse phase: the graphed decode steps timed a layout, and the layouts
+# (name, switch, the fused keys a layer must hold)
+FUSE_STEPS = 32
+FUSE_LAYOUTS = (("fuse_proj", "BLAMA_FUSE_PROJ", {"wqkv", "wgu"}),
+                ("fuse_kv", "BLAMA_FUSE_KV", {"wkv"}))
+
+
+def _graphed_decode(torch, model):
+    """profile_step's measure of FUSE_STEPS graphed decode steps after a
+    128-token prompt on an INT8 store, ctx 2048."""
+    from blama_tpu_torch.tools import profile_step as ps
+
+    steps, held = ps.solo_steps(model, "int8", 2048, True)
+    m = ps.measure(steps, FUSE_STEPS, 2, host_ops=False)
+    del steps, held
+    torch.cuda.empty_cache()
+    out = {k: m[k] for k in ("wall_ms_per_step", "device_span_ms_per_step",
+                             "device_busy_ms_per_step", "idle_share")}
+    out["decode_tok_s"] = 1e3 / m["wall_ms_per_step"]
+    return out
+
+
+def fuse_phase(torch, kind, model, record):
+    """The reference's fused projection layouts on the main path's engine:
+    `q4k_a8` on the llama3-8b file at full depth (32 layers). `model` is the
+    solo phase's (unfused) model and `record` its records; the file is
+    loaded again under BLAMA_FUSE_PROJ=1 (wqkv, N = 6144, and wgu, N =
+    28672: kernel A at the fused widths at one row, B at the prompt's) and
+    under BLAMA_FUSE_KV=1 (wkv, N = 2048), one fused model at a time. Each
+    proves the solo requests' prompts on an INT8 cache with fused attention,
+    every replay exactly 1.0, and its tokens and top-10 logits must equal
+    the unfused records bit for bit; it replays those records at exactly
+    1.0. Each layout's graphed decode step is timed as the unfused one is,
+    in this phase (_graphed_decode)."""
+    import os
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+
+    t_phase = time.perf_counter()
+    out = {"unfused": _graphed_decode(torch, model)}
+    log(f"fuse unfused: graphed decode {out['unfused']['decode_tok_s']:.1f} tok/s")
+    for name, env, fused in FUSE_LAYOUTS:
+        os.environ[env] = "1"
+        try:
+            fm, load_s = load_8b(torch, kind)
+        finally:
+            os.environ.pop(env)
+        keys = set(fm.weights["layers"][0])
+        if not fused <= keys or (keys & {"wqkv", "wkv", "wgu"}) != fused:
+            raise AssertionError(f"fuse {name}: layer keys {sorted(keys)}")
+        kernels.reset_launches()
+        inst = Instance(fm, InstanceInitParams(ctx_size=2048, flash_attn=True, kv_dtype="int8"))
+        mine, results = [], []
+        for prompt, preds in record:
+            r = prove_and_verify(inst, prompt, len(preds), mine)
+            if r["score"] != 1.0:
+                raise AssertionError(f"fuse {name}: replay scored {r['score']}")
+            results.append(r)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        require_launched(launches, ("w4a8_gemv", "q4k_dequant_matmul", "decode_attention",
+                                    "prefill_attention"), f"fuse {name}")
+        if _record_bits(mine) != _record_bits(record):
+            raise AssertionError(f"fuse {name}: tokens or top-10 differ from the unfused model's")
+        replays = [replay(inst, p, preds)[0] for p, preds in record]
+        if replays != [1.0] * len(record):
+            raise AssertionError(f"fuse {name}: replaying the unfused records scored {replays}")
+        del inst
+        torch.cuda.empty_cache()
+        out[name] = dict(load_s=load_s, layer_keys=sorted(keys), requests=results,
+                         launches=launches, replays_unfused=replays,
+                         **_graphed_decode(torch, fm))
+        fm = _free(torch, fm)
+        log(f"fuse {name}: layer keys {sorted(keys)}, records bit-equal to the unfused "
+            f"model's, replays 1.0; graphed decode {out[name]['decode_tok_s']:.1f} tok/s "
+            f"(wall {out[name]['wall_ms_per_step']:.3f} ms, busy "
+            f"{out[name]['device_busy_ms_per_step']} ms, idle {out[name]['idle_share']:.3f})")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# the examples phase: each example program and the marker it must print
+EXAMPLES = {"e_basic": "tiny synthetic fixture", "e_server_cli": "completion:",
+            "e_verify": "aggregate verification score: 1.000000",
+            "e_verified_chat": "verification score: 1.0000 — trusted"}
+
+
+def examples_phase(torch):
+    """The four example programs (blama_tpu_torch/examples/) as a user runs
+    them, `python -m blama_tpu_torch.examples.<name>` with no device
+    argument, so on the card (in this process, through runpy), each on its
+    tiny synthetic fixture with ModelParams' defaults (float32, attn="xla");
+    e_verified_chat answers one turn from stdin. Each must print the
+    reference's marker (e_verify and the chat turn: a replay of exactly
+    1.0) and have used the card."""
+    import io
+    import os
+    import runpy
+
+    out = {}
+    for name, marker in EXAMPLES.items():
+        argv, stdin, dev = sys.argv, sys.stdin, os.environ.pop("BLAMA_DEVICE", None)
+        buf = io.StringIO()
+        sys.argv, sys.stdin = [f"{name}.py"], io.StringIO("hello there\n")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_module(f"blama_tpu_torch.examples.{name}", run_name="__main__")
+        finally:
+            sys.argv, sys.stdin = argv, stdin
+            if dev is not None:
+                os.environ["BLAMA_DEVICE"] = dev
+        text, seconds = buf.getvalue(), time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if marker not in text or (name == "e_verify" and "ACCEPT" not in text) or not peak:
+            raise AssertionError(f"example {name}: no {marker!r} (card peak {peak} B): "
+                                 f"{text[-2000:]}")
+        out[name] = dict(seconds=seconds, card_peak_bytes=peak, tail=text[-300:])
+        log(f"example {name} on the card: {seconds:.1f} s, {marker!r} printed")
     return out
 
 
@@ -3326,6 +3501,10 @@ MODE_KERNEL = {"write": "decode_attention_write", "fresh": "decode_attention_fre
                "hb": "decode_attention_hb"}
 MODE_RUNS = (("write", "int8"), ("write", "float32"), ("fresh", "int8"),
              ("hb", "bfloat16"), ("hb", "float32"))
+# the float32 engine's runs (f32 queries and fresh rows): every store of each
+# mode the reference serves it on
+F32_MODE_RUNS = (("write", "int8"), ("write", "bfloat16"), ("write", "float32"),
+                 ("fresh", "int8"), ("hb", "bfloat16"), ("hb", "float32"))
 MODE_REQUESTS = ((128, 12), (5, 12), (3, 8))
 
 
@@ -3378,14 +3557,16 @@ def _top10(record):
             for _, preds in record]
 
 
-def modes_phase(torch, model, kind):
-    """This slice's main path, on the solo phase's model: the reference's
-    opt-in decode-attention modes through Model -> Instance -> Session, three
-    prove-and-verify requests each (replay exactly 1.0), the mode's kernel
-    launched and kernel C on no step: write (P) on INT8 and f32 stores and
-    fresh (N) on INT8 give the mode-off run's tokens and top-10 bit for bit;
-    head-batched (O) on bf16 and f32 replays the mode-off records at the
-    cross-mode thresholds (0.95 / 0.98). Then the solo HTTP server on its
+def modes_phase(torch, model, kind, runs=MODE_RUNS, sfx="", solo_http=True):
+    """The reference's opt-in decode-attention modes on `model` (the solo
+    phase's `q4k_a8` model; the float32 engine's with `sfx` "_f32q", whose
+    kernels are the f32-query instances) through Model -> Instance ->
+    Session, three prove-and-verify requests each (replay exactly 1.0), the
+    mode's kernel launched and kernel C on no step, each mode's steps and
+    loops graphed equal to eager (loops_equal): write (P) and fresh (N) on
+    their stores of `runs` give the mode-off run's tokens and top-10 bit for
+    bit; head-batched (O) replays the mode-off records at the cross-mode
+    thresholds (0.95 / 0.98). Then (`solo_http`) the solo HTTP server on its
     default f32 store verifies a request at 1.0, and the dense-row scheduler
     in write mode gives the mode-off tokens."""
     from blama_tpu_torch.ops import kernels
@@ -3398,14 +3579,14 @@ def modes_phase(torch, model, kind):
     off = {}
     for kv in ("int8", "float32", "bfloat16"):
         rec, res, launches, graphs = _mode_run(torch, model, kv, None)
-        require_launched(launches, ("decode_attention", "prefill_attention"),
+        require_launched(launches, ("decode_attention" + sfx, "prefill_attention" + sfx),
                          f"the mode-off run on {kv}")
         off[kv] = rec
         out[f"off {kv}"] = dict(requests=res, launches=launches, graphs=graphs)
-    for mode, kv in MODE_RUNS:
+    for mode, kv in runs:
         rec, res, launches, graphs = _mode_run(torch, model, kv, mode)
-        require_launched(launches, (MODE_KERNEL[mode],), f"mode {mode} on {kv}")
-        if launches["decode_attention"]:
+        require_launched(launches, (MODE_KERNEL[mode] + sfx,), f"mode {mode} on {kv}")
+        if launches["decode_attention" + sfx]:
             raise AssertionError(f"mode {mode} on {kv}: kernel C ran on a decode step")
         entry = dict(requests=res, launches=launches, graphs=graphs)
         if mode == "hb":
@@ -3427,22 +3608,23 @@ def modes_phase(torch, model, kind):
         out[f"{mode} {kv}"] = entry
     torch.cuda.empty_cache()
 
-    # the solo HTTP server as `python -m blama_tpu_torch.server.http` builds it
-    srv = Served(model, api=Server(model, InstanceInitParams()))
-    try:
-        store = srv.api._instance.cache.k_store.dtype
-        body = _request_body("plain", "the solo server keeps f32 rows", max_tokens=16,
-                             temp=0.0)
-        resp = srv.post(PATHS["plain"][0], body)
-        score = srv.post(PATHS["plain"][1], {"request": body, "response": resp})["result"]
-    finally:
-        srv.close()
-    del srv
-    torch.cuda.empty_cache()
-    log(f"modes: solo HTTP server, {store} KV: {len(resp['tokenData'])} tokens, verify {score}")
-    if store != torch.float32 or len(resp["tokenData"]) != 16 or score != 1.0:
-        raise AssertionError(f"solo HTTP server on {store}: verify scored {score}")
-    out["solo_http"] = dict(kv=str(store), score=score)
+    if solo_http:   # the solo HTTP server as `python -m blama_tpu_torch.server.http` builds it
+        srv = Served(model, api=Server(model, InstanceInitParams()))
+        try:
+            store = srv.api._instance.cache.k_store.dtype
+            body = _request_body("plain", "the solo server keeps f32 rows", max_tokens=16,
+                                 temp=0.0)
+            resp = srv.post(PATHS["plain"][0], body)
+            score = srv.post(PATHS["plain"][1], {"request": body, "response": resp})["result"]
+        finally:
+            srv.close()
+        del srv
+        torch.cuda.empty_cache()
+        log(f"modes: solo HTTP server, {store} KV: {len(resp['tokenData'])} tokens, "
+            f"verify {score}")
+        if store != torch.float32 or len(resp["tokenData"]) != 16 or score != 1.0:
+            raise AssertionError(f"solo HTTP server on {store}: verify scored {score}")
+        out["solo_http"] = dict(kv=str(store), score=score)
 
     prompts = [[1] + list(range(300 + 7 * i, 300 + 7 * i + n)) for i, n in
                enumerate((40, 9, 120))]
@@ -3467,11 +3649,12 @@ def modes_phase(torch, model, kind):
         del sched
         toks[mode] = [got[i] for i in range(len(prompts))]
         if mode:
-            require_launched(launches, (MODE_KERNEL[mode],), "the dense scheduler in write mode")
+            require_launched(launches, (MODE_KERNEL[mode] + sfx,),
+                             "the dense scheduler in write mode")
             out["scheduler_write"] = dict(launches=launches)
     if toks["write"] != toks[None]:
         raise AssertionError("the dense scheduler in write mode gave other tokens")
-    log(f"modes: dense scheduler (4 rows, one idle), write mode: the mode-off tokens")
+    log(f"modes{sfx}: dense scheduler (4 rows, one idle), write mode: the mode-off tokens")
     torch.cuda.empty_cache()
     return out
 
@@ -4450,6 +4633,17 @@ KERNELS = {
     "paged_prefill_attention_f32q": ("blama_tpu_torch/ops/csrc/attention_f32.cu",
                                      "blama_tpu/ops/pallas/paged_attention.py:155",
                                      "serving f32 B=8 T=256 "),
+    # N, P and O at f32 queries (the float32 engine's modes): P and O on the
+    # f32 store (the engine's default), N on INT8 (the only store it takes)
+    "decode_attention_fresh_f32q": ("blama_tpu_torch/ops/csrc/attention_f32.cu",
+                                    "blama_tpu/ops/pallas/decode_attention.py:106",
+                                    "modes int8 B=1 "),
+    "decode_attention_write_f32q": ("blama_tpu_torch/ops/csrc/attention_f32.cu",
+                                    "blama_tpu/ops/pallas/decode_attention.py:578",
+                                    "modes f32 B=1 "),
+    "decode_attention_hb_f32q": ("blama_tpu_torch/ops/csrc/attention_f32.cu",
+                                 "blama_tpu/ops/pallas/decode_attention.py:279",
+                                 "modes f32 B=1 "),
     "paged_decode_attention": ("blama_tpu_torch/ops/csrc/paged_attention.cu",
                                "blama_tpu/ops/pallas/paged_attention.py:155",
                                "serving bf16 B=8 T=1 "),
@@ -4617,6 +4811,7 @@ def main() -> int:
         rows += moe_dense_kernel_phase(torch, timer, np.random.default_rng(3))
         rows += tp_kernel_phase(torch, timer, np.random.default_rng(4))
         rows += modes_kernel_phase(torch, timer)
+        rows += modes_kernel_phase(torch, timer, torch.float32)
         rows += tools_kernel_phase(torch, timer, np.random.default_rng(5))
         t_new = time.perf_counter()
         rows += ubench_kernel_phase(torch, timer)
@@ -4635,6 +4830,8 @@ def main() -> int:
         log(f"modes phase done at {time.perf_counter() - t_start:.1f} s")
         res["serving"], serve_l, dense_l = serving_phase(torch, model, kind)
         log(f"serving phase done at {time.perf_counter() - t_start:.1f} s")
+        res["fuse"] = fuse_phase(torch, kind, model, a8_record)
+        log(f"fuse phase done at {time.perf_counter() - t_start:.1f} s")
         model.close()
         del model
         torch.cuda.empty_cache()
@@ -4651,6 +4848,8 @@ def main() -> int:
         log(f"tp_blocks phase done at {time.perf_counter() - t_start:.1f} s")
         res["small"] = small_phase(torch)
         log(f"small phase done at {time.perf_counter() - t_start:.1f} s")
+        res["examples"] = examples_phase(torch)
+        log(f"examples phase done at {time.perf_counter() - t_start:.1f} s")
         res["tools"], tools_l = tools_phase(torch)
         log(f"tools phase done at {time.perf_counter() - t_start:.1f} s")
         res["dense"] = dense_phase(torch, kind)
@@ -4722,6 +4921,16 @@ def main() -> int:
         "paged_prefill_attention_f32q":
             dense["float32 serving launches"]["paged_prefill_attention_f32q"],
     })
+    # N, P and O at f32 queries: the float32 engine's modes, each kernel from
+    # its mode's run on the store of its line
+    f32_modes = dense["float32 modes"]
+    line_launches.update({
+        "decode_attention_fresh_f32q":
+            f32_modes["fresh int8"]["launches"]["decode_attention_fresh_f32q"],
+        "decode_attention_write_f32q":
+            f32_modes["write float32"]["launches"]["decode_attention_write_f32q"],
+        "decode_attention_hb_f32q": f32_modes["hb float32"]["launches"]["decode_attention_hb_f32q"],
+    })
     kernels_line = []
     for name, (source, replaces, shape, *row_kernel) in KERNELS.items():
         base = row_kernel[0] if row_kernel else name.removesuffix("_bf16")
@@ -4734,7 +4943,7 @@ def main() -> int:
             library_ms=r["library_ms"], shape=r["shape"])
         # the exact tiles' f32 yardsticks; the decode kernels' single-launch times
         for key in ("library_f32_ms", "bound_f32_ms", "bound_f32_by", "event_ms",
-                    "library_event_ms"):
+                    "library_event_ms", "rel_err", "tol", "control_rel"):
             if key in r:
                 entry[key] = r[key]
         if name == base and solo_l.get(base):

@@ -436,3 +436,147 @@ def test_cross_backend_replay_in_the_same_mode(mode, port_model, jax_model, monk
             assert score >= 0.95 and sim >= 0.98, (mode, score, sim)
     finally:
         _set_jax_mode(monkeypatch, None)
+
+
+# -- the float32 engine: f32 queries and f32 fresh rows ---------------------------
+# The reference's default engine takes its activations, and so its queries and
+# the step's K/V rows, in f32; the port's f32 instances of N, P and O (and their
+# plain versions here) take them as they are, quantizing an f32 row with no bf16
+# rounding first. Both sides then compute in f32, so the outputs are held to
+# F32Q_TOL (1e-4 x max|ref|, the card's tolerance for the f32 instances).
+
+F32Q_TOL = 1e-4
+
+
+def _close_f32(out, ref, tol=F32Q_TOL):
+    out = out.numpy()
+    ref = np.asarray(ref)
+    assert out.dtype == ref.dtype == np.float32
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol * np.abs(ref).max())
+
+
+def _f32_inputs(kv, B, seed):
+    """_inputs with the query and the fresh rows in f32."""
+    k, v, ks, vs, pos, slot, q_pos, _, _, _ = _inputs(kv, B, seed)
+    rng = np.random.default_rng(seed + 100)
+    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.float32)
+    kn, vn = (jnp.asarray(rng.standard_normal((B, HKV, D)) * 3, jnp.float32)
+              for _ in range(2))
+    return k, v, ks, vs, pos, slot, q_pos, q, kn, vn
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("kv", STORES)
+def test_fresh_plain_matches_jax_at_f32_queries(kv, B):
+    """N's plain version at f32 queries and f32 fresh rows against the
+    reference's fresh-operand kernel, which takes the model's dtype: f32
+    out, within F32Q_TOL."""
+    k, v, ks, vs, pos, slot, q_pos, q, kn, vn = _f32_inputs(kv, B, seed=30 + B)
+    inv, ms = jda.effective_inv_freq(D, D, 10000.0)
+    grouped = lambda a: jnp.asarray(a).reshape(1, B, S // 32, 32, HKV * D)  # noqa: E731
+    ref = jda.decode_attention(q, grouped(k), grouped(v), jnp.asarray(q_pos),
+                               jnp.asarray(pos), inv, _jax_scales_t(ks), _jax_scales_t(vs),
+                               mscale=ms, layer=0, scales_t=ks is not None,
+                               k_new=kn.reshape(B, HKV * D), v_new=vn.reshape(B, HKV * D),
+                               slot=jnp.asarray(slot))
+    c = _port_cache(k, v, ks, vs, pos, kv)
+    pinv, pms = pda.effective_inv_freq(D, D, 10000.0)
+    out = pda.decode_attention(_t(q), c.k[0], c.v[0], _t(q_pos), c.positions, pinv,
+                               *((c.k_scale[0], c.v_scale[0]) if c.quantized
+                                 else (None, None)), mscale=pms,
+                               k_new=_t(kn), v_new=_t(vn), slot=_t(slot))
+    _close_f32(out, ref)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("kv", STORES)
+def test_write_plain_matches_jax_at_f32_queries(kv, B):
+    """P's plain version at f32 queries and f32 fresh rows against the
+    reference's write kernel: f32 out within F32Q_TOL, and the written row
+    exactly the reference's eager store of the f32 row (quantize_kv's codes
+    and scales of the f32 values with no bf16 round first, a bf16 store's
+    round to nearest even, an f32 store's values)."""
+    from blama_tpu.ops import kv_cache as jkvc
+
+    k, v, ks, vs, pos, slot, q_pos, q, kn, vn = _f32_inputs(kv, B, seed=40 + B)
+    inv, ms = jda.effective_inv_freq(D, D, 10000.0)
+    merged = lambda a: jnp.asarray(a).reshape(1, B, S, HKV * D)   # noqa: E731
+    ref = jda.decode_attention_write(
+        q, merged(k), merged(v), jnp.asarray(q_pos), jnp.asarray(pos), inv,
+        kn.reshape(B, HKV * D), vn.reshape(B, HKV * D), jnp.asarray(slot), 0,
+        k_scale=_jax_scales_t(ks), v_scale=_jax_scales_t(vs), mscale=ms)[0]
+    c = _port_cache(k, v, ks, vs, pos, kv)
+    pinv, pms = pda.effective_inv_freq(D, D, 10000.0)
+    sc = (c.k_scale_store[0], c.v_scale_store[0]) if c.quantized else (None, None)
+    out = pda.decode_attention_write(_t(q), c.k_store[0], c.v_store[0], _t(q_pos),
+                                     c.positions, pinv, _t(kn), _t(vn), _t(slot), *sc,
+                                     mscale=pms)
+    _close_f32(out, ref)
+    for got, new, scale_got in ((c.k[0], kn, c.k_scale), (c.v[0], vn, c.v_scale)):
+        with jax.disable_jit():   # IEEE amax / 127 (ROADMAP.md §3 hazard)
+            codes, scale = jkvc.quantize_kv(new) if c.quantized else (
+                new.astype(JDT[kv]), None)
+        for b, s_ in enumerate(slot):
+            if s_ < S:
+                assert torch.equal(got[b, s_], _t(np.asarray(codes)[b], PDT[kv]))
+                if scale is not None:
+                    assert torch.equal(scale_got[0][b, s_], _t(np.asarray(scale)[b]))
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("kv", STORES)
+def test_hb_plain_matches_jax_at_f32_queries(kv, B, monkeypatch):
+    """O's plain version at f32 queries against the reference's
+    head-batched kernel at f32 queries: f32 out within F32Q_TOL."""
+    k, v, ks, vs, pos, slot, q_pos, q, kn, vn = _f32_inputs(kv, B, seed=50 + B)
+    pos[0, 90] = 90
+    inv, ms = jda.effective_inv_freq(D, D, 10000.0)
+    monkeypatch.setattr(jda, "_HB", True)
+    monkeypatch.setattr(pda, "_HB", True)
+    jda._call.clear_cache()
+    try:
+        ref = jda.decode_attention(q, jnp.asarray(k), jnp.asarray(v), jnp.asarray(q_pos),
+                                   jnp.asarray(pos), inv,
+                                   None if ks is None else jnp.asarray(ks),
+                                   None if vs is None else jnp.asarray(vs), mscale=ms)
+    finally:
+        jda._call.clear_cache()
+    c = _port_cache(k, v, ks, vs, pos, kv)
+    pinv, pms = pda.effective_inv_freq(D, D, 10000.0)
+    out = pda.decode_attention(_t(q), c.k[0], c.v[0], _t(q_pos), c.positions, pinv,
+                               *((c.k_scale[0], c.v_scale[0]) if c.quantized
+                                 else (None, None)), mscale=pms)
+    _close_f32(out, ref)
+
+
+@pytest.fixture(scope="module")
+def port_model_f32(gguf_path):
+    m = Model(gguf_path, ModelParams(dtype="float32", attn="fused", device="cpu"))
+    yield m
+    m.close()
+
+
+@pytest.fixture(scope="module")
+def jax_model_f32(gguf_path):
+    m = JModel(gguf_path, JModelParams(dtype="float32", attn="fused"))
+    yield m
+    m.close()
+
+
+@pytest.mark.parametrize("mode,kv", MODE_CASES, ids=[f"{m}-{k}" for m, k in MODE_CASES])
+def test_f32_mode_session_equals_host_path_and_mode_off(mode, kv, port_model_f32,
+                                                        monkeypatch):
+    """The float32 engine (f32 queries and fresh rows) in each mode, as
+    test_mode_session_equals_host_path_and_mode_off holds the packed one:
+    device loop, host path and mode off give the same tokens, top-10 and
+    final cache bit for bit, and fill_ctx in the mode replays at 1.0."""
+    test_mode_session_equals_host_path_and_mode_off(mode, kv, port_model_f32, monkeypatch)
+
+
+@pytest.mark.parametrize("mode", sorted(CROSS))
+def test_f32_cross_backend_replay_in_the_same_mode(mode, port_model_f32, jax_model_f32,
+                                                   monkeypatch):
+    """The float32 engine in each mode on both sides of a cross-backend
+    replay, both directions at 0.95 / 0.98."""
+    test_cross_backend_replay_in_the_same_mode(mode, port_model_f32, jax_model_f32,
+                                               monkeypatch)

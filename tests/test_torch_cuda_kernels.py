@@ -176,6 +176,36 @@ def _acts(m, k, dtype, device):
     return torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(dtype).to(device)
 
 
+# the fused projection layouts' widths at 8B (BLAMA_FUSE_PROJ: wq|wk|wv and
+# gate|up; BLAMA_FUSE_KV: wk|wv), K = 4096
+FUSED_WIDTHS = {"wqkv": (4096, 1024, 1024), "wkv": (1024, 1024), "wgu": (14336, 14336)}
+FUSED_CASES = [(e, f) for e in ("a8", "exact", "k4", "a8k4") for f in FUSED_WIDTHS] + \
+    [(e, f) for e in ("q8", "q6") for f in ("wqkv", "wkv")]
+
+
+@pytest.mark.parametrize("engine,fused", FUSED_CASES)
+def test_fused_widths_keep_each_columns_bits(cuda, engine, fused):
+    """The wide products of the fused layouts at the 8B widths (N = 6144,
+    2048, 28672) through every kernel the packed engines reach at 1, 8 and
+    128 rows (A and B on QuantTensorA8S, B on f32 scales, H, I and H, G at
+    scale group 32 and 16): each column has the bits of the same column of
+    its part's product alone, so the fused layout moves no bit."""
+    k = 4096
+    repack = {"a8": qm.repack_q4k_a8s, "exact": qm.repack_q4k_exact,
+              "k4": qm.repack_q4k_native, "a8k4": qm.repack_q4k_a8k4,
+              "q8": qm.repack_q8_0, "q6": qm.repack_q6_k_expanded}[engine]
+    parts = []
+    for i, n in enumerate(FUSED_WIDTHS[fused]):
+        data = (_bytes(n, k, i, "Q8_0" if engine == "q8" else "Q6_K") if engine in ("q8", "q6")
+                else random_q4k(np.random.default_rng(i), n, k, k ** -0.5))
+        parts.append(repack(data, n, k, cuda))
+    wide = qm.concat_quant(parts)
+    assert wide.n_out == sum(FUSED_WIDTHS[fused])
+    for m in (1, 8, 128):
+        x = _acts(m, k, torch.bfloat16, cuda)
+        assert torch.equal(qm.qmm(x, wide), torch.cat([qm.qmm(x, p) for p in parts], dim=-1)), m
+
+
 # ragged edges of the exact kernels: one row (a thread per column) and 8 to
 # 130 rows (64 x 64 tiles that rows and columns do not fill), a K of one
 # superblock; a row must give the same bits through either
@@ -1110,7 +1140,7 @@ def test_tp_blocks_on_the_card(cuda, tmp_path, dtype):
 
     def run(dev, preds=None):
         nonlocal prompt
-        m = Model(path, ModelParams(dtype=dtype, tp_blocks=4, device=dev))
+        m = Model(path, ModelParams(dtype=dtype, tp_blocks=4, attn="fused", device=dev))
         inst = Instance(m, InstanceInitParams(ctx_size=64, flash_attn=True, kv_dtype="int8"))
         s = inst.start_session(SessionInitParams(seed=11, temperature=0.0))
         # 20 prompt tokens: a chunk of more than 16 rows (kernel L for q4k_a8)
@@ -1252,7 +1282,7 @@ def test_engines_on_the_card(cuda, tmp_path, dtype):
     write_tiny_llama(path, quant)
 
     def session(dev):
-        m = Model(path, ModelParams(dtype=dtype, device=dev))
+        m = Model(path, ModelParams(dtype=dtype, attn="fused", device=dev))
         inst = Instance(m, InstanceInitParams(ctx_size=64, flash_attn=True, kv_dtype="int8"))
         s = inst.start_session(SessionInitParams(seed=11, temperature=0.0))
         s.set_initial_prompt(m.vocab.tokenize("hello world the cat sat", True, True))
@@ -1409,14 +1439,14 @@ def _store(kv, b, s, hkv, d, seed, device):
     return kvc.KVCache(k[None], v[None], pos, lift(ks), lift(vs))
 
 
-def _fresh_step(cache, slots, seed):
-    """This step's bf16 K/V rows [B, Hkv, D] and query, each row's position
-    written at its slot (a pad slot >= S writes the spare slot), and the
-    query positions."""
+def _fresh_step(cache, slots, seed, dtype=torch.bfloat16):
+    """This step's K/V rows [B, Hkv, D] in `dtype` (the model's activation
+    type), each row's position written at its slot (a pad slot >= S writes
+    the spare slot), and the query positions."""
     B, S, Hkv, D = cache.k.shape[1:]
     dev = cache.device
     g = torch.Generator().manual_seed(seed)
-    kn, vn = (torch.randn((B, Hkv, D), generator=g).to(torch.bfloat16).to(dev)
+    kn, vn = (torch.randn((B, Hkv, D), generator=g).to(dtype).to(dev)
               for _ in range(2))
     slot = torch.tensor(slots, dtype=torch.int32, device=dev)
     q_pos = torch.where(slot < S, slot, 0)
@@ -1929,7 +1959,7 @@ def test_graphs_equal_eager_on_every_engine(cuda, graph_files, graph_checks, dty
     counters read the same."""
     from blama_tpu_torch.runtime.model import Model, ModelParams
 
-    m = Model(graph_files[GRAPH_ENGINES[dtype]], ModelParams(dtype=dtype))
+    m = Model(graph_files[GRAPH_ENGINES[dtype]], ModelParams(dtype=dtype, attn="fused"))
     _graphs_equal_eager(m, kv)
     m.close()
 
@@ -1942,8 +1972,27 @@ def test_graphs_equal_eager_in_every_mode(cuda, graph_files, graph_checks, monke
     if mode == "fresh" and kv != "int8":
         pytest.skip("fresh mode reads an INT8 store only (the reference's gate)")
     _set_attn_mode(monkeypatch, mode)
-    m = Model(graph_files["d128"], ModelParams(dtype="q4k_a8"))
+    m = Model(graph_files["d128"], ModelParams(dtype="q4k_a8", attn="fused"))
     _graphs_equal_eager(m, kv)
+    m.close()
+
+
+@pytest.mark.parametrize("kv", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("mode", ["write", "fresh", "hb"])
+def test_graphs_equal_eager_in_every_mode_at_f32_queries(cuda, graph_files, graph_checks,
+                                                         monkeypatch, mode, kv):
+    """The float32 engine in each mode (the f32-query N, P and O, f32 fresh
+    rows): the captured steps and loops equal the eager launches, the
+    stores compared without the spare slot the warm-up pads write."""
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.testing import graphs_equal_eager
+
+    if mode == "fresh" and kv != "int8":
+        pytest.skip("fresh mode reads an INT8 store only (the reference's gate)")
+    _set_attn_mode(monkeypatch, mode)
+    m = Model(graph_files["d128"], ModelParams(dtype="float32", attn="fused"))
+    launches = graphs_equal_eager(m, kv, GRAPH_PROMPT, 6, ctx=64)
+    assert launches[f"decode_attention_{mode}_f32q"] > 0, launches
     m.close()
 
 
@@ -1955,7 +2004,7 @@ def test_graphs_equal_eager_on_moe_and_tp_blocks(cuda, graph_files, graph_checks
     if kind == "moe":
         m = Model(graph_files["moe"], ModelParams(dtype=dtype))
     else:
-        m = Model(graph_files["d128"], ModelParams(dtype=dtype, tp_blocks=4))
+        m = Model(graph_files["d128"], ModelParams(dtype=dtype, tp_blocks=4, attn="fused"))
     _graphs_equal_eager(m, "int8")
     m.close()
 
@@ -1974,7 +2023,8 @@ def test_graphed_scheduler_equals_eager(cuda, graph_files, graph_checks, which, 
     from blama_tpu_torch.server.scheduler import (ContinuousBatchingScheduler, GenRequest,
                                                   VerifyRequest)
 
-    m = Model(graph_files["Q4_K" if which == "llama" else "moe"], ModelParams(dtype="q4k_a8"))
+    m = Model(graph_files["Q4_K" if which == "llama" else "moe"],
+              ModelParams(dtype="q4k_a8", attn="fused" if which == "llama" else "xla"))
     prompts = [GRAPH_PROMPT, [1, 230, 17, 44, 231], [1, 9, 200, 280, 12, 13, 14, 15, 16, 17]]
 
     def run(graphs):
@@ -2010,7 +2060,7 @@ def test_graphed_replays_after_cache_edits(cuda, graph_files, edit):
     from blama_tpu_torch.runtime.model import Model, ModelParams
     from blama_tpu_torch.runtime.session import CompleteParams, SessionInitParams
 
-    m = Model(graph_files["Q4_K"], ModelParams(dtype="q4k_a8"))
+    m = Model(graph_files["Q4_K"], ModelParams(dtype="q4k_a8", attn="fused"))
 
     def run(graphs):
         ctx, ga = (32, 1) if edit == "context-shift" else (64, 2 if edit == "self-extend" else 1)
@@ -2143,20 +2193,90 @@ def test_f32_query_kernels_c_to_f(cuda, kv, d):
         assert (rounded - ref).abs().max().item() > F32Q_TOL * ref.abs().max().item()
 
 
-def test_f32_queries_refused_by_n_p_o(cuda):
-    """N, P and O have no f32-query instance: they raise, naming the item."""
-    kv = _store("f32", 1, 128, 2, 128, seed=3, device=cuda)
-    q = torch.randn((1, 1, 4, 128), device=cuda)
-    inv = da.effective_inv_freq(128, 128, 10000.0)[0].to(cuda)
-    kn = torch.zeros((1, 2, 128), dtype=torch.bfloat16, device=cuda)
-    slot = torch.zeros((1,), dtype=torch.int32, device=cuda)
-    qp = torch.zeros((1,), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        da.decode_attention(q, kv.k[0], kv.v[0], qp, kv.positions, inv, k_new=kn, v_new=kn,
-                            slot=slot)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        da.decode_attention_write(q, kv.k_store[0], kv.v_store[0], qp, kv.positions, inv, kn,
-                                  kn, slot)
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("slots", [[1700], [300, 1500, 2047, 129, 640, 256, 1000, 2048]])
+def test_f32_query_kernels_n_p_o(cuda, monkeypatch, kv, d, slots):
+    """N, P and O at f32 queries (the float32 engine's instances) at H 32 /
+    Hkv 8 / S 2048, one row and 8 (the last a pad row): f32 queries and
+    fresh rows in, f32 out. N and P equal the f32-query C after the cache
+    write of the same f32 rows bit for bit, and P leaves the store the write
+    leaves (codes, scales, the pad row's spare slot); N, P and O (at the D
+    its gate admits) are within F32Q_TOL of their plain versions, where the
+    bf16 instance on the queries and fresh rows rounded to bf16 falls
+    outside it; each launch counts under its f32 name."""
+    from blama_tpu_torch.ops import kernels
+
+    h, hkv, s = 32, 8, 2048
+    b = len(slots)
+    scale = d ** -0.5
+    scales = lambda c: (c.k_scale[0], c.v_scale[0]) if c.quantized else (None, None)  # noqa
+    qs = lambda c: (c.k_scale_store[0], c.v_scale_store[0]) if c.quantized \
+        else (None, None)                                           # noqa: E731
+    ref_c = _store(kv, b, s, hkv, d, seed=s + d, device=cuda)
+    kn, vn, slot, q_pos = _fresh_step(ref_c, slots, seed=b + d, dtype=torch.float32)
+    inv = da.effective_inv_freq(d, d, 500000.0)[0].to(cuda)
+    q = torch.randn((b, 1, h, d), generator=torch.Generator().manual_seed(4)).to(cuda)
+
+    def twin():
+        c = _store(kv, b, s, hkv, d, seed=s + d, device=cuda)
+        c.pos_store.copy_(ref_c.pos_store)
+        return c
+
+    n_c, p_c, plain_n, plain_p = twin(), twin(), twin(), twin()
+    ref_c.write(0, ref_c.flat_slots(slot[:, None].long()), kn[:, None], vn[:, None])
+    kernels.reset_launches()
+    ref = da.decode_attention(q, ref_c.k[0], ref_c.v[0], q_pos, ref_c.positions, inv,
+                              *scales(ref_c))
+    out_n = da.decode_attention(q, n_c.k[0], n_c.v[0], q_pos, n_c.positions, inv,
+                                *scales(n_c), k_new=kn, v_new=vn, slot=slot)
+    out_p = da.decode_attention_write(q, p_c.k_store[0], p_c.v_store[0], q_pos,
+                                      p_c.positions, inv, kn, vn, slot, *qs(p_c))
+    counts = dict(kernels.LAUNCHES)
+    assert counts["decode_attention_f32q"] == counts["decode_attention_fresh_f32q"] == \
+        counts["decode_attention_write_f32q"] == 1, counts
+    assert counts["decode_attention"] == counts["decode_attention_fresh"] == \
+        counts["decode_attention_write"] == 0, counts
+    assert out_n.dtype == out_p.dtype == torch.float32
+    assert torch.equal(out_n, ref) and torch.equal(out_p, ref)
+    for a, r in zip(qs(p_c) + (p_c.k_store, p_c.v_store),
+                    qs(ref_c) + (ref_c.k_store, ref_c.v_store), strict=True):
+        assert a is None or torch.equal(a, r)
+    refs = {
+        "N": da.fresh_attention_plain(q, plain_n.k[0], plain_n.v[0], q_pos[:, None],
+                                      plain_n.positions, inv, kn, vn, slot,
+                                      *scales(plain_n), scale),
+        "P": da.write_attention_plain(q, plain_p.k_store[0], plain_p.v_store[0],
+                                      q_pos[:, None], plain_p.positions, inv, kn, vn, slot,
+                                      *qs(plain_p), scale)}
+    _close(out_n, refs["N"], F32Q_TOL)
+    _close(out_p, refs["P"], F32Q_TOL)
+    qb, knb, vnb = (t.to(torch.bfloat16) for t in (q, kn, vn))
+    ctl_n, ctl_p = twin(), twin()
+    rounded = {
+        "N": da.decode_attention(qb, ctl_n.k[0], ctl_n.v[0], q_pos, ctl_n.positions, inv,
+                                 *scales(ctl_n), k_new=knb, v_new=vnb, slot=slot),
+        "P": da.decode_attention_write(qb, ctl_p.k_store[0], ctl_p.v_store[0], q_pos,
+                                       ctl_p.positions, inv, knb, vnb, slot, *qs(ctl_p))}
+    monkeypatch.setattr(da, "_HB", True)
+    if da.hb_split(s, d, hkv, ref_c.k.dtype, b) is not None:   # O's gate: D % 128 == 0
+        kernels.reset_launches()
+        out_o = da.decode_attention(q, ref_c.k[0], ref_c.v[0], q_pos, ref_c.positions, inv,
+                                    *scales(ref_c))
+        assert kernels.LAUNCHES["decode_attention_hb_f32q"] == 1
+        assert kernels.LAUNCHES["decode_attention_hb"] == 0
+        assert out_o.dtype == torch.float32
+        refs["O"] = da.flash_attention_plain(q, ref_c.k[0], ref_c.v[0], q_pos[:, None],
+                                             ref_c.positions, inv, *scales(ref_c), scale)
+        _close(out_o, refs["O"], F32Q_TOL)
+        assert torch.equal(out_o, da.decode_attention(q, ref_c.k[0], ref_c.v[0], q_pos,
+                                                      ref_c.positions, inv, *scales(ref_c)))
+        rounded["O"] = da.decode_attention(qb, ref_c.k[0], ref_c.v[0], q_pos,
+                                           ref_c.positions, inv, *scales(ref_c))
+    for name, out in rounded.items():   # the control: a bf16-grade answer fails F32Q_TOL
+        ref_n = refs[name]
+        assert (out.float() - ref_n).abs().max().item() > F32Q_TOL * ref_n.abs().max().item(), \
+            name
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -82,7 +82,8 @@ def port_models(files):
 
     def get(case):
         if case not in cache:
-            cache[case] = Model(files[case[0]], ModelParams(dtype=case[1], device="cpu"))
+            cache[case] = Model(files[case[0]], ModelParams(dtype=case[1], attn="fused",
+                                                            device="cpu"))
         return cache[case]
 
     yield get
@@ -323,7 +324,7 @@ def test_tied_q8_0_embedding_gives_a_dense_head(tmp_path):
     lm head its transpose (bf16 operands, f32 sums), as in the reference."""
     p = str(tmp_path / "tied.gguf")
     write_tiny_llama(p, GGMLType.Q8_0, spec=dict(tie_output=True))
-    pm = Model(p, ModelParams(dtype="q8_0_fused", device="cpu"))
+    pm = Model(p, ModelParams(dtype="q8_0_fused", attn="fused", device="cpu"))
     jm = JModel(p, JModelParams(dtype="q8_0_fused", attn="fused"))
     w = pm.weights
     assert w["tok_emb"].dtype == torch.bfloat16 and w["output"].dtype == torch.bfloat16
@@ -343,7 +344,7 @@ def test_tied_q8_0_embedding_gives_a_dense_head(tmp_path):
 def test_unpacked_tensors_are_dense_bf16(files):
     """Under a fused engine an F16 tensor is a dense bf16 (n_in, n_out)
     weight through matmul; the model runs and replays exactly."""
-    pm = Model(files["f16"], ModelParams(dtype="q4k_fused", device="cpu"))
+    pm = Model(files["f16"], ModelParams(dtype="q4k_fused", attn="fused", device="cpu"))
     p0 = pm.weights["layers"][0]
     assert p0["wq"].dtype == torch.bfloat16 and p0["wq"].shape == (256, 256)
     assert p0["w_gate"].shape == (256, 512) and p0["w_gate"].is_contiguous()

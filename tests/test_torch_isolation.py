@@ -41,7 +41,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tools.bench_serving", "tools.profile_load", "tools.trace_step",
                  "tools.ubench_q4k", "tools.probe_swar", "tools.probe_mosaic",
                  "tools.probe_casts", "tools.ubench_attn", "tools.ubench_paged",
-                 "ops.dequant", "tools.perplexity", "tools.ppl_compare"):
+                 "ops.dequant", "tools.perplexity", "tools.ppl_compare",
+                 "examples.common", "examples.e_basic", "examples.e_server_cli",
+                 "examples.e_verified_chat", "examples.e_verify"):
         assert f"blama_tpu_torch.{name}" in res["modules"], name
 
 

@@ -585,9 +585,9 @@ def test_http_serves_and_verifies_a_moe_model(port_models):
 
 
 def test_http_main_picks_xla_attention_for_moe(moe_file, monkeypatch):
-    """The server leaves attn to the file (ModelParams.attn=None): the
-    two-pass chain for a MoE file, the fused kernels for a llama file;
-    BLAMA_DTYPE still names the engine."""
+    """The server builds ModelParams as the reference's does, attn left at
+    its default, "xla": the two-pass chain for a MoE file and for a llama
+    file alike; BLAMA_DTYPE still names the engine."""
     seen = {}
 
     class Stop(Exception):
@@ -609,11 +609,11 @@ def test_http_main_picks_xla_attention_for_moe(moe_file, monkeypatch):
     monkeypatch.setenv("BLAMA_DTYPE", "q4k_fused")
     monkeypatch.delenv("BLAMA_MULTIHOST", raising=False)
     monkeypatch.setattr(pmodel, "Model", recording_model)
-    for path, fused in ((moe_file, False), (llama, True)):
+    for path in (moe_file, llama):
         monkeypatch.setenv("BLAMA_MODEL", path)
         with pytest.raises(Stop):
             phttp.main()
-        assert seen["model"] == ("q4k_fused", None, fused, "cpu")
+        assert seen["model"] == ("q4k_fused", "xla", False, "cpu")
 
 
 # -- refusals ---------------------------------------------------------------------

@@ -112,7 +112,7 @@ def test_only_fused_attention_is_served(gguf_path, caplog):
     assert xm.config.attn_fused is False
     assert Instance(xm, InstanceInitParams(ctx_size=64)).step_config.attn_fused is False
     xm.close()
-    pm = Model(gguf_path, ModelParams(dtype="q4k_a8", device="cpu"))
+    pm = Model(gguf_path, ModelParams(dtype="q4k_a8", attn="fused", device="cpu"))
     with caplog.at_level(logging.WARNING, logger="blama_tpu_torch"):
         inst = Instance(pm, InstanceInitParams(ctx_size=60, kv_dtype="int8"))
     assert "using XLA attention" in caplog.text

@@ -88,8 +88,9 @@ def model(files):
         key = (dtype, file, tp_blocks)
         if key not in _models:
             path = files[file] if file else files[ENGINES[dtype]]
-            _models[key] = Model(path, ModelParams(dtype=dtype, device="cpu",
-                                                   tp_blocks=tp_blocks))
+            _models[key] = Model(path, ModelParams(
+                dtype=dtype, device="cpu", tp_blocks=tp_blocks,
+                attn="xla" if file == "moe" else "fused"))
         return _models[key]
     yield get
     for m in _models.values():
@@ -507,7 +508,7 @@ def test_cached_rope_angles_equal_jax(freq_factors, yarn):
 def test_rope_freqs_forward_matches_jax(files):
     """A llama-3.1 rope_freqs vector in both packages' weights: the fused
     forward's logits agree as the plain file's do (tests/test_torch_session.py)."""
-    pm = Model(files[GGMLType.Q4_K], ModelParams(dtype="q4k_a8", device="cpu"))
+    pm = Model(files[GGMLType.Q4_K], ModelParams(dtype="q4k_a8", attn="fused", device="cpu"))
     jm = JModel(files[GGMLType.Q4_K], JModelParams(dtype="q4k_a8", attn="fused"))
     w, ff = _rope_freqs(pm)
     pm.weights = w
@@ -526,7 +527,7 @@ def test_rope_freqs_forward_matches_jax(files):
 def test_graphed_greedy_generate_matches_jax(files):
     """The graphed loop's tokens are the JAX package's greedy_generate's on
     the tiny file (q4k_a8, INT8 store, fused attention)."""
-    pm = Model(files[GGMLType.Q4_K], ModelParams(dtype="q4k_a8", device="cpu"))
+    pm = Model(files[GGMLType.Q4_K], ModelParams(dtype="q4k_a8", attn="fused", device="cpu"))
     jm = JModel(files[GGMLType.Q4_K], JModelParams(dtype="q4k_a8", attn="fused"))
     ji = JInstance(jm, JInstanceInitParams(ctx_size=CTX, flash_attn=True, kv_dtype="int8"))
     jst = jllama.LlamaStatic.of(ji.step_config)

@@ -259,7 +259,8 @@ def port_models(tp_file):
 
     def get(dtype):
         if dtype not in cache:
-            cache[dtype] = Model(tp_file, ModelParams(dtype=dtype, tp_blocks=TPB, device="cpu"))
+            cache[dtype] = Model(tp_file, ModelParams(dtype=dtype, tp_blocks=TPB, attn="fused",
+                                                      device="cpu"))
         return cache[dtype]
 
     yield get
