@@ -103,10 +103,10 @@ class GGUFWriter:
             items = list(v)
             if etype is None:
                 etype = _infer_type(items[0]) if items else GGUFValueType.UINT32
-            out = struct.pack("<I", int(etype)) + struct.pack("<Q", len(items))
-            for item in items:
-                out += self._pack_value(item, etype)
-            return out
+            head = struct.pack("<I", int(etype)) + struct.pack("<Q", len(items))
+            # one join: a vocabulary holds 10^5 items, and `+=` on bytes is
+            # quadratic in them
+            return head + b"".join(self._pack_value(item, etype) for item in items)
         return struct.pack(_SCALAR_PACK[vtype], v)
 
     def write(self) -> None:

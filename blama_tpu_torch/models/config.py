@@ -45,6 +45,9 @@ class ModelConfig:
     act_fn: str = "silu"               # silu | gelu
     emb_scale: float = 1.0             # input embedding multiplier (gemma: sqrt(E))
     norm_plus_one: bool = False        # RMSNorm weight applied as (1 + w) (gemma)
+    # the (1 + w) sum rounds to bf16: the dense bfloat16 engine, whose norm
+    # weights the reference keeps in bf16. Set by Model from ModelParams.
+    norm_bf16: bool = False
     chat_template: str = ""
     # fixed-topology contraction blocks for sharding-invariant logits
     # (power of two ≥ max tp degree; 0 = plain contraction). Set by Model

@@ -1,6 +1,9 @@
 """Llama-family transformer: GGUF weight loading and the forward pass.
 
 Counterpart of blama_tpu/models/llama.py for the slice the port serves: the
+llama-family architectures of ARCHS (qwen2's q/k/v biases, gemma's scaled
+input and (1 + w) norms with the exact GELU, phi3's fused attn_qkv and
+stacked [gate; up] ffn_up, split at load as the reference splits them), the
 dense engines (`fused_quant=False`: every tensor dequantized to float32 or
 bfloat16, the reference's defaults) and the packed weight engines
 (`fused_quant` True, "k4", "a8", "a8k4", "a8x": Q4_K tensors packed as the
@@ -50,8 +53,9 @@ from ..ops.quant_matmul import (QuantEmbedding, emb_lookup, qmm_blocked, qmm_nbl
 from ..ops.rope import apply_rope, rope_angles
 from .config import ModelConfig
 
-# llama-family architectures whose GGUFs the dense forward below serves
-ARCHS = ("llama", "mistral", "mixtral")
+# llama-family architectures whose GGUFs the forward below serves (the
+# reference's list, blama_tpu/runtime/model.py:109)
+ARCHS = ("llama", "mistral", "qwen2", "mixtral", "gemma", "gemma2", "phi3")
 
 _LAYER_TENSORS = {
     "attn_norm": "blk.{i}.attn_norm.weight",
@@ -64,6 +68,14 @@ _LAYER_TENSORS = {
     "w_up": "blk.{i}.ffn_up.weight",
     "w_down": "blk.{i}.ffn_down.weight",
 }
+
+# qwen2's projection biases: loaded when every layer has attn_q.bias
+_OPTIONAL_BIASES = {
+    "bq": "blk.{i}.attn_q.bias",
+    "bk": "blk.{i}.attn_k.bias",
+    "bv": "blk.{i}.attn_v.bias",
+}
+
 
 def _bf16_rounded(a, device) -> torch.Tensor:
     """f32 tensor whose values went through bf16, as the reference stores
@@ -92,27 +104,81 @@ def tensor_values(reader, name: str, device, dtype=torch.float32) -> torch.Tenso
                               device, dtype)
 
 
+def _layout(reader, cfg: ModelConfig) -> tuple[bool, bool, bool]:
+    """(has_bias, fused_qkv, fused_gate_up) of a llama-family file, as the
+    reference's load_llama_params tells them: q/k/v biases in every layer
+    (qwen2), phi3's fused attn_qkv, and its ffn_up holding [gate; up] with
+    no ffn_gate."""
+    t = reader.tensors
+    L = cfg.n_layer
+    has_bias = L > 0 and all(_OPTIONAL_BIASES["bq"].format(i=i) in t for i in range(L))
+    fused_qkv = L > 0 and "blk.0.attn_qkv.weight" in t
+    fused_gate_up = L > 0 and "blk.0.ffn_gate.weight" not in t and "blk.0.ffn_up.weight" in t
+    return has_bias, fused_qkv, fused_gate_up
+
+
+def _split_parts(reader, cfg: ModelConfig, i: int, fused_qkv: bool, fused_gate_up: bool,
+                 device, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """Layer i's projections cut from phi3's fused tensors, dense (n_in,
+    n_out) in `dtype`, as the reference splits them (through tensor_float,
+    under every engine): attn_qkv's rows into wq | wk | wv of H·D, Hkv·D and
+    Hkv·D, ffn_up's into w_gate | w_up halves. The GGUF bytes are
+    dequantized on `device` (tensor_values) and cut there."""
+    out = {}
+    if fused_qkv:
+        qkv = tensor_values(reader, f"blk.{i}.attn_qkv.weight", device)   # [N, E]
+        hd, kvd = cfg.n_head * cfg.head_dim_, cfg.n_head_kv * cfg.head_dim_
+        for key, lo, hi in (("wq", 0, hd), ("wk", hd, hd + kvd),
+                            ("wv", hd + kvd, hd + 2 * kvd)):
+            out[key] = qkv[lo:hi].to(dtype).t().contiguous()
+    if fused_gate_up:
+        gu = tensor_values(reader, f"blk.{i}.ffn_up.weight", device)      # [2F, E]
+        half = gu.shape[0] // 2
+        out["w_gate"] = gu[:half].to(dtype).t().contiguous()
+        out["w_up"] = gu[half:].to(dtype).t().contiguous()
+    return out
+
+
+def _layer_keys(fused_qkv: bool, fused_gate_up: bool):
+    """The (key, tensor name pattern) pairs a layer reads one by one: the
+    parts a fused tensor carries are cut by _split_parts instead."""
+    skip = ({"wq", "wk", "wv"} if fused_qkv else set()) | (
+        {"w_gate", "w_up"} if fused_gate_up else set())
+    return [(k, pat) for k, pat in _LAYER_TENSORS.items() if k not in skip]
+
+
 def load_dense_params(reader, cfg: ModelConfig, dtype: torch.dtype,
                       device="cuda", progress_cb=None) -> dict[str, Any]:
     """The reference's load_llama_params with fused_quant=False: every
     tensor `reader.tensor_float(...)` converted to `dtype` (float32 or
-    bfloat16), matmul weights transposed to (n_in, n_out), the norms (and
-    rope_freqs) kept as f32 of their `dtype`-rounded values, a tied head the
-    embedding's transpose. Each tensor is dequantized on `device`
-    (tensor_values) and converted as soon as it is read."""
+    bfloat16), matmul weights transposed to (n_in, n_out), the q/k/v biases
+    in `dtype`, the norms (and rope_freqs) kept as f32 of their
+    `dtype`-rounded values (gemma's w + 1 then rounds to `dtype` where the
+    reference's does: LlamaStatic.norm_bf16), a tied head the embedding's
+    transpose. Each tensor is dequantized on `device` (tensor_values) and
+    converted as soon as it is read."""
     device = resolve_device(device)
+    has_bias, fused_qkv, fused_gate_up = _layout(reader, cfg)
 
     def get_t(name: str) -> torch.Tensor:
         return tensor_values(reader, name, device).to(dtype).t().contiguous()
 
+    def get_b(name: str) -> torch.Tensor:
+        return tensor_values(reader, name, device).to(dtype)
+
     def get_v(name: str) -> torch.Tensor:
-        return tensor_values(reader, name, device).to(dtype).float()
+        return get_b(name).float()
 
     n_total = cfg.n_layer + 2
     layers = []
+    keys = _layer_keys(fused_qkv, fused_gate_up)
     for i in range(cfg.n_layer):
-        layers.append({key: get_v(pat.format(i=i)) if key.endswith("_norm")
-                       else get_t(pat.format(i=i)) for key, pat in _LAYER_TENSORS.items()})
+        p = {key: get_v(pat.format(i=i)) if key.endswith("_norm")
+             else get_t(pat.format(i=i)) for key, pat in keys}
+        p.update(_split_parts(reader, cfg, i, fused_qkv, fused_gate_up, device, dtype))
+        if has_bias:
+            p.update({k: get_b(pat.format(i=i)) for k, pat in _OPTIONAL_BIASES.items()})
+        layers.append(p)
         if progress_cb:
             progress_cb((i + 1) / n_total)
     tok_emb = tensor_values(reader, "token_embd.weight", device).to(dtype)   # (V, E)
@@ -154,20 +220,17 @@ def load_llama_params(reader, cfg: ModelConfig, fused_quant: bool | str = "a8",
     Else per tensor, as in the reference: a Q8_0 or Q6_K tensor is packed
     for the exact int8-code kernel whatever the engine, a Q4_K tensor is
     packed as `fused_quant` says, any other type becomes a dense bf16
-    (n_in, n_out) weight; `fuse_proj` (True or "kv") then fuses the
-    projections as fuse_projections says. Every tensor is repacked on the
-    device and uploaded as soon as it is read, so host memory holds one
-    tensor's GGUF bytes at a time.
+    (n_in, n_out) weight; phi3's fused tensors are split into dense bf16
+    parts (_split_parts), as the reference reads them through tensor_float
+    under every engine, and qwen2's biases are bf16, the engine's dtype;
+    `fuse_proj` (True or "kv") then fuses the projections as
+    fuse_projections says (dense parts stay apart). Every tensor is
+    repacked on the device and uploaded as soon as it is read, so host
+    memory holds one tensor's GGUF bytes at a time.
     """
     from ..gguf.constants import GGMLType
 
     device = resolve_device(device)
-    if cfg.n_layer and ("blk.0.attn_qkv.weight" in reader.tensors
-                        or "blk.0.ffn_gate.weight" not in reader.tensors
-                        or "blk.0.attn_q.bias" in reader.tensors):
-        raise NotImplementedError(
-            "fused qkv / gate-up tensors (phi3) and q/k/v biases (qwen2) are "
-            "not ported (ROADMAP.md §1 item 12, other families)")
     if fused_quant is False:
         return load_dense_params(reader, cfg, dtype, device, progress_cb)
     if fused_quant not in Q4K_REPACKS:
@@ -190,16 +253,21 @@ def load_llama_params(reader, cfg: ModelConfig, fused_quant: bool | str = "a8",
     def get_v(name: str) -> np.ndarray:
         return reader.tensor_float(name)
 
+    has_bias, fused_qkv, fused_gate_up = _layout(reader, cfg)
     n_total = cfg.n_layer + 2
     layers = []
     for i in range(cfg.n_layer):
         p = {}
-        for key, pat in _LAYER_TENSORS.items():
+        for key, pat in _layer_keys(fused_qkv, fused_gate_up):
             name = pat.format(i=i)
             if key in ("attn_norm", "ffn_norm"):
                 p[key] = _bf16_rounded(get_v(name), device)
             else:
                 p[key] = get_t(name)
+        p.update(_split_parts(reader, cfg, i, fused_qkv, fused_gate_up, device,
+                              torch.bfloat16))
+        if has_bias:
+            p.update({k: dense(pat.format(i=i)) for k, pat in _OPTIONAL_BIASES.items()})
         if fuse_proj:
             fuse_projections(p, fuse_proj)
         layers.append(p)
@@ -297,8 +365,9 @@ def _weight_from_jax(w, device, n_vocab: int | None = None):
 def params_from_jax(tree: dict, device="cuda") -> dict[str, Any]:
     """Carry a packed engine's parameter tree of the JAX package (leaves as
     numpy arrays: QuantTensor, QuantTensorA8S, QuantTensorK4, QuantTensorA8K4,
-    QuantTensorQ8 or QuantTensorA8 weights, dense bf16 leaves, a packed or
-    dense embedding, the f32 norms) over to the port's layouts."""
+    QuantTensorQ8 or QuantTensorA8 weights, dense bf16 leaves such as phi3's
+    split parts and qwen2's bq / bk / bv biases, a packed or dense
+    embedding, the f32 norms) over to the port's layouts."""
     device = resolve_device(device)
     emb = tree["tok_emb"]
     if type(emb).__name__ == "QuantEmbedding":
@@ -370,6 +439,12 @@ class LlamaStatic:
     rms_eps: float
     act_fn: str
     causal: bool
+    # gemma: the embedded input times sqrt(E) (rounded to the activation
+    # dtype first), and every norm's weight applied as (1 + w), the sum
+    # rounded to bf16 under the dense bfloat16 engine (norm_bf16)
+    emb_scale: float = 1.0
+    norm_plus_one: bool = False
+    norm_bf16: bool = False
     rope_scale: float = 1.0   # 1/factor for linear/yarn rope scaling
     # fixed-topology blocks (tp_blocks mode, ops/quant_matmul qmm_blocked /
     # qmm_nblocked): the logits of a prover sharded over tp | tp_blocks
@@ -405,8 +480,8 @@ class LlamaStatic:
                     cfg.rope_orig_ctx or cfg.n_ctx_train)
         return cls(cfg.n_head, cfg.n_head_kv, cfg.head_dim_, cfg.rope_dim_,
                    cfg.rope_freq_base, cfg.rms_norm_eps, cfg.act_fn, cfg.causal,
-                   rope_scale, tp_blocks=cfg.tp_blocks, yarn=yarn,
-                   attn_fused=cfg.attn_fused)
+                   cfg.emb_scale, cfg.norm_plus_one, cfg.norm_bf16, rope_scale,
+                   tp_blocks=cfg.tp_blocks, yarn=yarn, attn_fused=cfg.attn_fused)
 
     def step(self, params, tokens, positions, slots, cache, logits_index=None):
         """forward under this config (every loop calls its static's step)."""
@@ -425,6 +500,49 @@ def _inv_freq_on(rope_dim, head_dim, freq_base, scale, yarn, device, freq_factor
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)   # x·sigmoid(x) in x's dtype, as jax.nn.silu
+
+
+@functools.lru_cache(maxsize=64)
+def rounded_to(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype` (f32 or bf16, to nearest even), as a
+    Python float: a constant a step can fold in without making a tensor
+    (no host work inside a captured graph)."""
+    bits = int(np.float32(value).view(np.uint32))
+    if dtype == torch.bfloat16:
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    elif dtype != torch.float32:
+        raise ValueError(f"no rounding to {dtype}")
+    return float(np.uint32(bits).view(np.float32))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU in x's dtype, op by op as
+    jax.nn.gelu(approximate=False): 0.5·x·erfc(-x·√½), √½ rounded to x's
+    dtype and each product rounded there."""
+    return 0.5 * x * torch.special.erfc(-x * rounded_to(0.5 ** 0.5, x.dtype))
+
+
+ACTS = {"silu": _silu, "gelu": gelu}
+
+
+def _norm_weight(w: torch.Tensor, plus_one: bool, bf16: bool = False) -> torch.Tensor:
+    """A norm's weight (f32, rounded through the engine's dtype at load) as
+    the reference applies it: gemma's (1 + w), the sum rounded to bf16 where
+    the reference stores the weight in bf16 (the dense bfloat16 engine:
+    `bf16`), else kept in f32 (float32 and the packed engines, whose norms
+    the reference upcasts at load)."""
+    if not plus_one:
+        return w
+    return (w + 1.0).to(torch.bfloat16).float() if bf16 else w + 1.0
+
+
+def scale_input(x: torch.Tensor, emb_scale: float) -> torch.Tensor:
+    """Gemma's input scaling: x times the scale rounded to x's dtype first
+    (the reference's jnp.asarray(emb_scale, x.dtype): √3072 is 55.5 in
+    bf16), one rounding of the product."""
+    if emb_scale == 1.0:
+        return x
+    return x * rounded_to(emb_scale, x.dtype)
 
 
 def _dense_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -447,20 +565,22 @@ def _place(params, tokens, positions, slots, cache):
     return emb_lookup(params["tok_emb"], tokens.to(dev).long()), positions, flat
 
 
-def _head(params, x, logits_index, eps, tpb=0, all_positions=False):
+def _head(params, x, logits_index, eps, tpb=0, all_positions=False, plus_one=(False, False)):
     """The forward's epilogue: each row's logit token (the last when
     logits_index is None; every position with `all_positions`), the final
-    norm and the lm head → [B, V] (or [B, T, V]) f32. A packed head takes
-    f32 rows (pinned under tp_blocks); a dense one operands in its dtype and
-    f32 sums, in tpb column blocks under tp_blocks."""
+    norm ((1 + w) as _norm_weight's `plus_one`, `bf16` say) and the lm head
+    → [B, V] (or [B, T, V]) f32. A packed head takes f32 rows (pinned under
+    tp_blocks); a dense one operands in its dtype and f32 sums, in tpb
+    column blocks under tp_blocks."""
     B, T = x.shape[:2]
+    w = _norm_weight(params["out_norm"], *plus_one)
     if all_positions:
-        last_h = rms_norm(x, params["out_norm"], eps).reshape(B * T, -1)
+        last_h = rms_norm(x, w, eps).reshape(B * T, -1)
         return _head_product(params["output"], last_h, tpb).reshape(B, T, -1)
     if logits_index is None:
         logits_index = torch.full((B,), T - 1, dtype=torch.long, device=x.device)
     last_h = x[torch.arange(B, device=x.device), logits_index.to(x.device).long()]
-    last_h = rms_norm(last_h, params["out_norm"], eps)                    # [B, E]
+    last_h = rms_norm(last_h, w, eps)                                     # [B, E]
     return _head_product(params["output"], last_h, tpb)
 
 
@@ -495,12 +615,12 @@ def forward(
     st = cfg if isinstance(cfg, LlamaStatic) else LlamaStatic.of(cfg)
     H, Hkv, D = st.n_head, st.n_head_kv, st.head_dim
     rope_dim, freq_base = st.rope_dim, st.freq_base
-    if st.act_fn != "silu":
-        raise NotImplementedError(f"act_fn={st.act_fn!r} (ROADMAP.md §1 item 12)")
+    act = ACTS[st.act_fn]
     B, T = tokens.shape
     dev = cache.device
     paged = isinstance(cache, pkv.PagedKVCache)
     x, positions, flat = _place(params, tokens, positions, slots, cache)
+    x = scale_input(x, st.emb_scale)
     new_positions = cache.positions
     kv_dtype = cache.k_store.dtype
 
@@ -535,8 +655,9 @@ def forward(
                               freq_base, rs, yarn=yarn, freq_factors=ff)
 
     tpb = st.tp_blocks
+    npo = (st.norm_plus_one, st.norm_bf16)
     for li, p in enumerate(params["layers"]):
-        h = rms_norm(x, p["attn_norm"], eps)
+        h = rms_norm(x, _norm_weight(p["attn_norm"], *npo), eps)
         if "wqkv" in p:
             # the fused layout (BLAMA_FUSE_PROJ): one wide product, split
             # after; each column's bits are its part's
@@ -550,6 +671,10 @@ def forward(
             q = qmm_nblocked(h, p["wq"], tpb)
             k = qmm_nblocked(h, p["wk"], tpb)
             v = qmm_nblocked(h, p["wv"], tpb)
+        if "bq" in p:
+            # qwen2's biases: one point of the step, after every layout's
+            # products (and their split), whatever the rows or the graph
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         q = q.reshape(B, T, H, D)
         k = k.reshape(B, T, Hkv, D)
         v = v.reshape(B, T, Hkv, D)
@@ -606,15 +731,15 @@ def forward(
                                  interleaved=True, causal=st.causal, kv_rope=kv_rope)
         x = x + qmm_blocked(attn.reshape(B, T, H * D), p["wo"], tpb)
 
-        h2 = rms_norm(x, p["ffn_norm"], eps)
+        h2 = rms_norm(x, _norm_weight(p["ffn_norm"], *npo), eps)
         if "wgu" in p:
             gate, up = qmm_nblocked(h2, p["wgu"], tpb).chunk(2, dim=-1)
-            x = x + qmm_blocked(_silu(gate) * up, p["w_down"], tpb)
+            x = x + qmm_blocked(act(gate) * up, p["w_down"], tpb)
         else:
-            gate = _silu(qmm_nblocked(h2, p["w_gate"], tpb))
+            gate = act(qmm_nblocked(h2, p["w_gate"], tpb))
             x = x + qmm_blocked(gate * qmm_nblocked(h2, p["w_up"], tpb), p["w_down"], tpb)
 
-    return _head(params, x, logits_index, eps, tpb, all_positions), cache
+    return _head(params, x, logits_index, eps, tpb, all_positions, npo), cache
 
 
 def all_logits(st: LlamaStatic, params, tokens, positions, slots, cache) -> torch.Tensor:

@@ -26,6 +26,7 @@ import os
 
 import torch
 
+from ..models import gpt2 as gpt2_mod
 from ..models import llama as llama_mod
 from ..models import moe as moe_mod
 from . import decode_attention as dattn
@@ -69,9 +70,11 @@ def _mode_for(st, cache):
 
 def static_of(cfg):
     """The static config of a model config, which carries its forward as
-    `step`: MoEStatic for a MoE (Mixtral-family) model, else LlamaStatic.
-    The one place the loops, the session, the instance and the scheduler
-    tell the two families apart."""
+    `step`: GPT2Static for a gpt2 model, MoEStatic for a MoE (Mixtral-family)
+    one, else LlamaStatic. The one place the loops, the session, the
+    instance and the scheduler tell the families apart."""
+    if cfg.arch == "gpt2":
+        return gpt2_mod.GPT2Static.of(cfg)
     return (moe_mod.MoEStatic if cfg.is_moe else llama_mod.LlamaStatic).of(cfg)
 
 

@@ -69,6 +69,10 @@ class Instance:
             raise NotImplementedError(
                 "ring (sequence-parallel) prefill is not ported "
                 "(ROADMAP.md §1 item 13, multi-GPU)")
+        if cfg.arch == "gpt2" and kv_dtype == torch.int8:
+            raise NotImplementedError(
+                "gpt2 on an INT8 KV store: the reference casts its float rows "
+                "into the codes (ROADMAP.md §3); use kv_dtype float32 or bfloat16")
         self.ctx_len = self.params.ctx_size or cfg.n_ctx_train
         if self.ctx_len > cfg.n_ctx_train:
             logging.getLogger("blama_tpu_torch").warning(
@@ -103,7 +107,8 @@ class Instance:
         a mode of its own numerics, never a quiet substitute. A geometry the
         gates admit is checked against the kernels where the cache lives on
         a card (decode_attention.require_kernel_geometry)."""
-        if not (self.params.flash_attn or cfg.attn_fused):
+        if cfg.arch == "gpt2" or not (self.params.flash_attn or cfg.attn_fused):
+            # gpt2's step runs the two-pass chain whatever the mode, as there
             return cfg
         log = logging.getLogger("blama_tpu_torch")
         if cfg.is_moe:

@@ -35,6 +35,11 @@ DENSE_ENGINES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the engines that serve a MoE (Mixtral-family) file: packed Q4_K expert banks
 # for the exact engine and for W4A8 (models/moe.load_moe_params)
 MOE_ENGINES = {"q4k_fused": True, "q4k_a8": "a8"}
+# a gpt2 file loads dense under every engine name, as in the reference
+# (blama_tpu/runtime/model.py:100-105): bf16 under `bfloat16` and the packed
+# engines' names, f32 under `float32` (models/gpt2.load_gpt2_params)
+GPT2_DTYPES = {**{name: torch.bfloat16 for name in ENGINES},
+               "bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclass
@@ -78,7 +83,7 @@ class Model:
         self.config.tp_blocks = 0 if tpb < 0 else tpb
         from ..models.llama import ARCHS
 
-        if self.config.arch not in ARCHS:
+        if self.config.arch not in ARCHS + ("gpt2",):
             raise NotImplementedError(
                 f"architecture {self.config.arch!r} is not ported "
                 "(ROADMAP.md §1 item 12, other families)")
@@ -105,6 +110,8 @@ class Model:
             self.weights = self._load_weights(progress_cb)
 
     def _load_weights(self, progress_cb: ModelLoadProgressCb | None):
+        if self.config.arch == "gpt2":
+            return self._load_gpt2(progress_cb)
         engines = MOE_ENGINES if self.config.is_moe else {**ENGINES, **DENSE_ENGINES}
         if self.params.dtype not in engines:
             raise NotImplementedError(
@@ -123,11 +130,27 @@ class Model:
             from ..models.llama import load_llama_params
 
             dense = DENSE_ENGINES.get(self.params.dtype)
+            self.config.norm_bf16 = dense == torch.bfloat16
             w = load_llama_params(self.reader, self.config,
                                   fused_quant=False if dense else engines[self.params.dtype],
                                   device=self.device, progress_cb=progress_cb,
                                   dtype=dense or torch.bfloat16,
                                   fuse_proj=False if dense else self._fuse_proj())
+        if progress_cb:
+            progress_cb(1.0)
+        return w
+
+    def _load_gpt2(self, progress_cb: ModelLoadProgressCb | None):
+        if self.params.dtype not in GPT2_DTYPES:
+            raise NotImplementedError(
+                f"dtype={self.params.dtype!r} is not ported; the port serves "
+                f"{sorted(GPT2_DTYPES)} (ROADMAP.md §1 item 9, other engines)")
+        from ..models.gpt2 import load_gpt2_params
+
+        if progress_cb:
+            progress_cb(0.0)
+        w = load_gpt2_params(self.reader, self.config, GPT2_DTYPES[self.params.dtype],
+                             device=self.device, progress_cb=progress_cb)
         if progress_cb:
             progress_cb(1.0)
         return w

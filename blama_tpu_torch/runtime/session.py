@@ -36,6 +36,13 @@ from .sampler import Sampler, SamplerParams
 from .token_data import TOKEN_INVALID, TokenData, TokenPrediction
 
 
+# the architectures whose sessions take the device loops, as the reference
+# gates them (blama_tpu/runtime/session.py:264, :363); gemma, gemma2, phi3
+# and gpt2 take the step-by-step path there, so they do here (a mixtral
+# file's architecture is llama)
+FAST_PATH_ARCHS = ("llama", "mistral", "qwen2")
+
+
 class Phase(enum.Enum):
     INITIAL = 0
     GENERATING = 1
@@ -251,6 +258,8 @@ class Session:
             hp[self._num_past:] >= 0
         ).any():
             return None  # non-sequential layout (after shifts/edits)
+        if inst.model.config.arch not in FAST_PATH_ARCHS:
+            return None
 
         import torch
 
@@ -343,6 +352,8 @@ class Session:
         if not (hp[: self._num_past] == np.arange(self._num_past)).all() or (
             hp[self._num_past:] >= 0
         ).any():
+            return None
+        if inst.model.config.arch not in FAST_PATH_ARCHS:
             return None
         if inst.model.prefix_inputs_with_bos():
             return None  # slow path interleaves BOS before every claim token

@@ -251,11 +251,12 @@ def main() -> None:
     8, 0 disables) is the number of decode steps per scheduler iteration
     with the logits kept on the device; it engages only when every active
     row is greedy or a verification row and gives way to per-token steps
-    otherwise. BLAMA_DTYPE names the weight engine (default `bfloat16`, the
-    reference server's; one the port does not serve fails here with Model's
-    NotImplementedError; a MoE file takes `q4k_a8` or `q4k_fused`). The
-    model takes ModelParams' default attention, attn="xla" (the two-pass
-    chain), as the reference server's does.
+    otherwise. Unset, BLAMA_DTYPE leaves the model at ModelParams' defaults,
+    the `float32` engine and attn="xla" (the two-pass chain), as the
+    reference's single-process server builds Model(path); set, it names the
+    weight engine (an extension of the port: the reference reads it only
+    under BLAMA_MULTIHOST; one the port does not serve fails here with
+    Model's NotImplementedError; a MoE file takes `q4k_a8` or `q4k_fused`).
     """
     import logging
 
@@ -274,11 +275,12 @@ def main() -> None:
     def progress(p: float) -> None:
         print(f"\rloading model: {p * 100:5.1f}%", end="", flush=True)
 
-    # as the reference server builds it: attn at its default, "xla"
-    model = Model(model_path,
-                  ModelParams(dtype=os.environ.get("BLAMA_DTYPE", "bfloat16"),
-                              device=os.environ.get("BLAMA_DEVICE", "cuda")),
-                  progress_cb=progress)
+    # as the reference server builds it, Model(path): dtype "float32" and
+    # attn "xla" unless BLAMA_DTYPE names another engine
+    params = ModelParams(device=os.environ.get("BLAMA_DEVICE", "cuda"))
+    if "BLAMA_DTYPE" in os.environ:
+        params.dtype = os.environ["BLAMA_DTYPE"]
+    model = Model(model_path, params, progress_cb=progress)
     print()
     # the solo path keeps the reference's default f32 KV rows; the
     # scheduler picks its own store type
@@ -309,7 +311,7 @@ def main() -> None:
 
     signal.signal(signal.SIGTERM, on_term)
     print(f"blama-tpu-torch http server listening on {host}:{port} "
-          f"({model.device})")
+          f"({model.device}, engine {model.params.dtype}, attn {model.params.attn})")
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

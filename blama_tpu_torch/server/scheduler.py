@@ -116,6 +116,12 @@ class ContinuousBatchingScheduler:
                  horizon: int = 0, graphs: bool = True):
         self.model = model
         cfg = model.config
+        if cfg.arch == "gpt2":
+            # the reference's scheduler builds LlamaStatic for every non-MoE
+            # file, which cannot run a gpt2 file either
+            raise NotImplementedError(
+                "the continuous-batching scheduler serves llama-family and MoE "
+                "files; gpt2 is served by the solo server (BLAMA_SCHEDULER=0)")
         self.B = max_batch
         self.S = ctx_size or cfg.n_ctx_train
         self.device = model.device

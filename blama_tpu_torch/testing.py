@@ -7,7 +7,10 @@ and its smoke script never import that package; `write_tiny_llama` writes the
 same file from the same seed. Beyond the copy: the mixed-type layout of
 llama.cpp's Q4_K_M, Q5_K_M and Q3_K_M files (`quant=Q4_K_M` ...), direct
 Q6_K, Q5_K and Q3_K packers, a
-`n_layer` cut of the presets, and the Mixtral-8x7B widths as a MoE preset.
+`n_layer` cut of the presets, the Mixtral-8x7B widths as a MoE preset, the
+other llama-family architectures (qwen2, gemma, gemma2, phi3) at Q4_K-packable
+tiny widths (write_tiny_family) and at published widths (the qwen2-7b,
+gemma-7b and phi3-mini presets), and GPT-2 117M (synthesize_gpt2_gguf).
 """
 
 from __future__ import annotations
@@ -188,6 +191,110 @@ def write_tiny_llama(
     g.write()
 
 
+# tiny geometries of the other llama-family architectures, every matmul
+# input width a multiple of 256 so each tensor packs as Q4_K: gemma's head
+# dim (attention.key_length) 128 makes H·D = 512 differ from the width 256
+FAMILY_SPECS = {
+    "qwen2": dict(n_embd=256, n_head=4, n_head_kv=2, n_ff=512, rope_freq_base=1e6,
+                  rms_eps=1e-6),
+    "gemma": dict(n_embd=256, n_head=4, n_head_kv=2, n_ff=512, head_dim=128,
+                  rope_freq_base=10000.0, rms_eps=1e-6),
+    "phi3": dict(n_embd=256, n_head=4, n_head_kv=2, n_ff=512, rope_freq_base=10000.0,
+                 rms_eps=1e-5),
+}
+FAMILY_SPECS["gemma2"] = FAMILY_SPECS["gemma"]
+FAMILIES = ("qwen2", "gemma", "gemma2", "phi3")
+
+
+def write_tiny_family(path: str, arch: str, quant: GGMLType = GGMLType.Q4_K,
+                      seed: int = 31, emb_quant: GGMLType | None = None,
+                      n_layer: int = 2, spec: dict | None = None) -> None:
+    """A tiny GGUF of one of FAMILIES, its metadata under `arch`'s keys:
+    qwen2 with q/k/v biases; gemma / gemma2 with a tied head, head dim 128
+    and random norm weights around 0 (the reference applies them as 1 + w;
+    its own fixture writes zeros, which would hide where the sum rounds);
+    phi3 with attn_qkv and ffn_up holding [gate; up]. Matmul tensors are
+    `quant`, the embedding `emb_quant` (default `quant`), norms and biases
+    F32; `spec` overrides FAMILY_SPECS[arch]'s entries."""
+    s = {**FAMILY_SPECS[arch], **(spec or {})}
+    tokens, scores, types = tiny_spm_vocab()
+    n_vocab = len(tokens)
+    E, H, HKV, F, L = s["n_embd"], s["n_head"], s["n_head_kv"], s["n_ff"], n_layer
+    D = s.get("head_dim", E // H)
+    gemma = arch in ("gemma", "gemma2")
+    rng = np.random.default_rng(seed)
+
+    def w(shape, scale=None):
+        scale = scale if scale is not None else (1.0 / np.sqrt(shape[-1]))
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def norm(name):
+        g.add_tensor(name, w((E,), 0.1) if gemma else np.ones(E, np.float32) + w((E,), 0.05),
+                     GGMLType.F32)
+
+    g = GGUFWriter(path)
+    g.add_kv("general.architecture", arch)
+    g.add_kv("general.name", f"tiny-{arch}-fixture")
+    g.add_kv(f"{arch}.block_count", L)
+    g.add_kv(f"{arch}.embedding_length", E)
+    g.add_kv(f"{arch}.feed_forward_length", F)
+    g.add_kv(f"{arch}.attention.head_count", H)
+    g.add_kv(f"{arch}.attention.head_count_kv", HKV)
+    if "head_dim" in s:
+        g.add_kv(f"{arch}.attention.key_length", D)
+    g.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", float(s["rms_eps"]))
+    g.add_kv(f"{arch}.context_length", 512)
+    g.add_kv(f"{arch}.rope.freq_base", float(s["rope_freq_base"]))
+    g.add_kv(f"{arch}.rope.dimension_count", D)
+    g.add_kv(f"{arch}.vocab_size", n_vocab)
+    g.add_kv("tokenizer.ggml.model", "llama")
+    g.add_kv("tokenizer.ggml.tokens", tokens)
+    g.add_kv("tokenizer.ggml.scores", scores)
+    g.add_kv("tokenizer.ggml.token_type", types)
+    g.add_kv("tokenizer.ggml.bos_token_id", 1)
+    g.add_kv("tokenizer.ggml.eos_token_id", 2)
+    g.add_kv("tokenizer.ggml.unknown_token_id", 0)
+    g.add_kv("tokenizer.ggml.add_bos_token", True)
+
+    g.add_tensor("token_embd.weight", w((n_vocab, E), 0.05), emb_quant or quant)
+    norm("output_norm.weight")
+    if not gemma:
+        g.add_tensor("output.weight", w((n_vocab, E)), quant)
+    for i in range(L):
+        for name, shape, kind in _family_layer(arch, i, E, H, HKV, D, F):
+            if kind == "norm":
+                norm(name)
+            elif kind == "bias":
+                g.add_tensor(name, w(shape, 0.2), GGMLType.F32)
+            else:
+                g.add_tensor(name, w(shape), quant)
+    g.write()
+
+
+def _family_layer(arch: str, i: int, E: int, H: int, HKV: int, D: int,
+                  F: int) -> list[tuple[str, tuple[int, ...], str]]:
+    """Layer i's tensors of a llama-family GGUF in llama.cpp's names and
+    order, as (name, shape, kind): a norm (E,), a bias (n,) or a matmul
+    (n_out, n_in). qwen2 adds the q/k/v biases; phi3 writes attn_qkv and an
+    ffn_up holding [gate; up] in place of the separate tensors."""
+    b = f"blk.{i}."
+    qkv = (("q", H), ("k", HKV), ("v", HKV))
+    out = [(b + "attn_norm.weight", (E,), "norm")]
+    if arch == "phi3":
+        out.append((b + "attn_qkv.weight", ((H + 2 * HKV) * D, E), "matmul"))
+    else:
+        out += [(b + f"attn_{x}.weight", (n * D, E), "matmul") for x, n in qkv]
+    if arch == "qwen2":
+        out += [(b + f"attn_{x}.bias", (n * D,), "bias") for x, n in qkv]
+    out += [(b + "attn_output.weight", (E, H * D), "matmul"),
+            (b + "ffn_norm.weight", (E,), "norm")]
+    if arch == "phi3":
+        out.append((b + "ffn_up.weight", (2 * F, E), "matmul"))
+    else:
+        out += [(b + "ffn_gate.weight", (F, E), "matmul"), (b + "ffn_up.weight", (F, E), "matmul")]
+    return out + [(b + "ffn_down.weight", (E, F), "matmul")]
+
+
 # ---------------------------------------------------------------------------
 # fast direct-packed synthesis (for benchmarks: no float source material)
 # ---------------------------------------------------------------------------
@@ -203,12 +310,27 @@ MODEL_PRESETS = {
     # ~0.3B debug size
     "debug-0.3b": dict(n_layer=8, n_embd=1024, n_head=16, n_head_kv=4,
                        n_ff=2816, n_ctx=2048, n_vocab=32000),
-    # a llama-architecture file at Phi-3-mini's widths
-    # (microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072, 32 heads,
-    # 32 KV heads, FFN 8192, vocab 32064, rope theta 10000, 4k context):
-    # head dim 96, one query head per KV head
+    # a phi3 file at Phi-3-mini's widths (microsoft/Phi-3-mini-4k-instruct
+    # config.json: hidden 3072, 32 heads, 32 KV heads, FFN 8192, vocab 32064,
+    # rope theta 10000, 4k context): head dim 96, one query head per KV
+    # head; attn_qkv [3072 -> 9216] and ffn_up [3072 -> 16384] holding
+    # [gate; up], as llama.cpp writes them
     "phi3-mini": dict(n_layer=32, n_embd=3072, n_head=32, n_head_kv=32,
-                      n_ff=8192, n_ctx=4096, n_vocab=32064, rope_freq_base=10000.0),
+                      n_ff=8192, n_ctx=4096, n_vocab=32064, rope_freq_base=10000.0,
+                      arch="phi3"),
+    # Qwen/Qwen2-7B config.json: hidden 3584, intermediate 18944, 28 layers,
+    # 28 heads over 4 KV heads (a group of 7), vocab 152064, rope theta 1e6,
+    # rms eps 1e-6, untied; q/k/v biases
+    "qwen2-7b": dict(n_layer=28, n_embd=3584, n_head=28, n_head_kv=4,
+                     n_ff=18944, n_ctx=32768, n_vocab=152064, rope_freq_base=1e6,
+                     rms_eps=1e-6, arch="qwen2"),
+    # google/gemma-7b config.json: hidden 3072, intermediate 24576, 28
+    # layers, 16 heads, 16 KV heads, head_dim 256 (attention.key_length:
+    # H·D = 4096 is not the width), vocab 256000, rope theta 10000, rms eps
+    # 1e-6, tied head (no output.weight)
+    "gemma-7b": dict(n_layer=28, n_embd=3072, n_head=16, n_head_kv=16,
+                     n_ff=24576, n_ctx=8192, n_vocab=256000, rope_freq_base=10000.0,
+                     rms_eps=1e-6, head_dim=256, arch="gemma"),
 }
 
 
@@ -337,8 +459,10 @@ def _pack_f32_norm(n: int) -> tuple[bytes, tuple[int, ...]]:
 def _synthetic_header(path: str, preset: str, s: dict,
                       arch: str = "llama") -> GGUFWriter:
     """A GGUFWriter holding the metadata of a synthesized preset `s`: the
-    architecture keys of `arch` (the expert counts when `s` has them) and a
-    vocabulary of specials, 256 byte tokens and numbered pieces."""
+    architecture keys of `arch` (the expert counts when `s` has them, the
+    head dim as attention.key_length when `s` sets one, gpt2's layer-norm
+    epsilon and no rope for gpt2) and a vocabulary of specials, 256 byte
+    tokens and numbered pieces (an SPM vocab padded to n_vocab)."""
     E, H, V = s["n_embd"], s["n_head"], s["n_vocab"]
     tokens = ["<unk>", "<s>", "</s>"]
     types = [TT_UNKNOWN, TT_CONTROL, TT_CONTROL]
@@ -360,10 +484,17 @@ def _synthetic_header(path: str, preset: str, s: dict,
     g.add_kv(f"{arch}.feed_forward_length", s["n_ff"])
     g.add_kv(f"{arch}.attention.head_count", H)
     g.add_kv(f"{arch}.attention.head_count_kv", s["n_head_kv"])
-    g.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", 1e-5)
+    if arch == "gpt2":
+        g.add_kv(f"{arch}.attention.layer_norm_epsilon", 1e-5)
+    else:
+        g.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", float(s.get("rms_eps", 1e-5)))
     g.add_kv(f"{arch}.context_length", s["n_ctx"])
-    g.add_kv(f"{arch}.rope.freq_base", float(s.get("rope_freq_base", 10000.0)))
-    g.add_kv(f"{arch}.rope.dimension_count", E // H)
+    if "head_dim" in s:
+        g.add_kv(f"{arch}.attention.key_length", s["head_dim"])
+        g.add_kv(f"{arch}.attention.value_length", s["head_dim"])
+    if arch != "gpt2":
+        g.add_kv(f"{arch}.rope.freq_base", float(s.get("rope_freq_base", 10000.0)))
+        g.add_kv(f"{arch}.rope.dimension_count", s.get("head_dim", E // H))
     if "n_expert" in s:
         g.add_kv(f"{arch}.expert_count", s["n_expert"])
         g.add_kv(f"{arch}.expert_used_count", s["n_expert_used"])
@@ -381,15 +512,20 @@ def _synthetic_header(path: str, preset: str, s: dict,
 
 def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
                           seed: int = 7, quant: GGMLType | str = GGMLType.Q4_K,
-                          n_layer: int | None = None) -> dict:
-    """Write a realistic-size llama GGUF with direct-packed quantized tensors.
+                          n_layer: int | None = None, arch: str | None = None) -> dict:
+    """Write a realistic-size llama-family GGUF with direct-packed quantized
+    tensors.
 
     Weight *values* are random (throughput benchmarking does not depend on
     them) but every byte layout, metadata key, and tensor name is real, so the
     full load path (parse → dequant/repack → upload) is exercised. `quant`
     is Q4_K, Q5_K, Q3_K, Q8_0, Q6_K or one of llama.cpp's mixed layouts
     (Q4_K_M, Q5_K_M, Q3_K_M: mixed_type); `n_layer` cuts the
-    preset's depth (its widths stay).
+    preset's depth (its widths stay). `arch` (default: the preset's, else
+    "llama") names the architecture and its layout: qwen2 adds F32 q/k/v
+    biases, gemma / gemma2 tie the head and write random norm weights
+    around 0 (applied as 1 + w), phi3 writes attn_qkv and a stacked [gate;
+    up] ffn_up.
     """
     if quant not in MIXED and quant not in _DIRECT_PACKERS:
         raise NotImplementedError(
@@ -397,11 +533,13 @@ def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
     s = dict(MODEL_PRESETS[preset])
     if n_layer is not None:
         s["n_layer"] = n_layer
+    arch = arch or s.get("arch", "llama")
     E, H, HKV, F, L, V = (s["n_embd"], s["n_head"], s["n_head_kv"],
                           s["n_ff"], s["n_layer"], s["n_vocab"])
-    D = E // H
+    D = s.get("head_dim", E // H)
+    gemma = arch in ("gemma", "gemma2")
     rng = np.random.default_rng(seed)
-    g = _synthetic_header(path, preset, s)
+    g = _synthetic_header(path, preset, s, arch)
 
     def q(name, n_out, n_in, sigma=None):
         sigma = sigma if sigma is not None else 1.0 / np.sqrt(n_in)
@@ -411,24 +549,90 @@ def synthesize_llama_gguf(path: str, preset: str = "tinyllama-1.1b",
                      ne=(n_in, n_out))
 
     def norm(name, n):
+        if gemma:
+            g.add_tensor(name, (0.1 * rng.standard_normal(n)).astype(np.float32),
+                         GGMLType.F32)
+            return
         data, ne = _pack_f32_norm(n)
         g.add_tensor(name, None, GGMLType.F32, raw_bytes=data, ne=ne)
 
     q("token_embd.weight", V, E, 0.02)
     norm("output_norm.weight", E)
-    q("output.weight", V, E)
+    if not gemma:
+        q("output.weight", V, E)
     for i in range(L):
-        norm(f"blk.{i}.attn_norm.weight", E)
-        q(f"blk.{i}.attn_q.weight", H * D, E)
-        q(f"blk.{i}.attn_k.weight", HKV * D, E)
-        q(f"blk.{i}.attn_v.weight", HKV * D, E)
-        q(f"blk.{i}.attn_output.weight", E, H * D)
-        norm(f"blk.{i}.ffn_norm.weight", E)
-        q(f"blk.{i}.ffn_gate.weight", F, E)
-        q(f"blk.{i}.ffn_up.weight", F, E)
-        q(f"blk.{i}.ffn_down.weight", E, F)
+        for name, shape, kind in _family_layer(arch, i, E, H, HKV, D, F):
+            if kind == "norm":
+                norm(name, E)
+            elif kind == "bias":
+                g.add_tensor(name, (0.02 * rng.standard_normal(shape)).astype(np.float32),
+                             GGMLType.F32)
+            else:
+                q(name, *shape)
     g.write()
     return s
+
+
+# GPT-2 117M (openai-community/gpt2 config.json: n_embd 768, 12 layers, 12
+# heads, n_ctx 1024, vocab 50257, layer_norm_epsilon 1e-5, FFN 4 x 768), the
+# original blama's default model, which it serves as a Q6_K file
+GPT2_PRESETS = {
+    "gpt2-117m": dict(n_layer=12, n_embd=768, n_head=12, n_head_kv=12, n_ff=3072,
+                      n_ctx=1024, n_vocab=50257),
+}
+
+
+def synthesize_gpt2_gguf(path: str, preset: str = "gpt2-117m", seed: int = 5,
+                         quant: GGMLType = GGMLType.Q6_K, n_layer: int | None = None) -> dict:
+    """Write a GPT-2 GGUF of a preset's geometry: direct-packed `quant`
+    matmul tensors and token embedding (Q6_K, as blama's default file), F32
+    position embedding, norms and biases (random, so each bias shows), the
+    head tied to the embedding as llama.cpp's GPT-2 files are. The tokenizer
+    metadata is the synthesized presets' SPM vocabulary (specials, 256 byte
+    tokens, numbered pieces) padded to the preset's 50257 entries, not
+    GPT-2's byte-level BPE: the forward's widths are the published ones."""
+    s = dict(GPT2_PRESETS[preset])
+    if n_layer is not None:
+        s["n_layer"] = n_layer
+    E, F, L, V = s["n_embd"], s["n_ff"], s["n_layer"], s["n_vocab"]
+    rng = np.random.default_rng(seed)
+    g = _synthetic_header(path, preset, s, "gpt2")
+
+    def q(name, n_out, n_in, sigma=None):
+        sigma = sigma if sigma is not None else 1.0 / np.sqrt(n_in)
+        g.add_tensor(name, None, quant, raw_bytes=_DIRECT_PACKERS[quant](rng, n_out, n_in, sigma),
+                     ne=(n_in, n_out))
+
+    def f32(name, a):
+        g.add_tensor(name, a.astype(np.float32), GGMLType.F32)
+
+    def ln(name, n):
+        f32(f"{name}.weight", 1.0 + 0.05 * rng.standard_normal(n))
+        f32(f"{name}.bias", 0.02 * rng.standard_normal(n))
+
+    q("token_embd.weight", V, E, 0.05)
+    f32("position_embd.weight", 0.02 * rng.standard_normal((s["n_ctx"], E)))
+    ln("output_norm", E)
+    for i in range(L):
+        ln(f"blk.{i}.attn_norm", E)
+        q(f"blk.{i}.attn_qkv.weight", 3 * E, E)
+        f32(f"blk.{i}.attn_qkv.bias", 0.02 * rng.standard_normal(3 * E))
+        q(f"blk.{i}.attn_output.weight", E, E)
+        f32(f"blk.{i}.attn_output.bias", 0.02 * rng.standard_normal(E))
+        ln(f"blk.{i}.ffn_norm", E)
+        q(f"blk.{i}.ffn_up.weight", F, E)
+        f32(f"blk.{i}.ffn_up.bias", 0.02 * rng.standard_normal(F))
+        q(f"blk.{i}.ffn_down.weight", E, F)
+        f32(f"blk.{i}.ffn_down.bias", 0.02 * rng.standard_normal(E))
+    g.write()
+    return s
+
+
+def cached_gpt2_gguf(preset: str = "gpt2-117m", seed: int = 5) -> str:
+    """Path of synthesize_gpt2_gguf(preset, seed) in the temp directory,
+    written once (atomically) and reused by later runs."""
+    return _cached(f"blama_tpu_torch-{preset}-seed{seed}.gguf",
+                   lambda p: synthesize_gpt2_gguf(p, preset, seed=seed))
 
 
 def _cached(name: str, write) -> str:

@@ -104,16 +104,29 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    (wkv), each proving the solo requests' prompts with the unfused records'
    tokens and top-10 bit for bit, replaying them at 1.0, its graphed decode
    timed;
-   then the head-dim-96 phase: a llama-architecture file at Phi-3-mini's
-   widths (head dim 96, 32 / 32 heads; testing.MODEL_PRESETS["phi3-mini"])
-   cut to HD96_LAYERS layers, `q4k_a8`, two solo requests on an INT8 cache
-   replayed at exactly 1.0 (C, D) and four behind the HTTP server on the
-   paged scheduler verified at 1.0 (E, F);
-5. engines: at full 8B width, `q4k_fused` (kernel B on f32 scales),
-   `q4k_fused_k4` (H) and `q4k_a8_k4` (I, H) load the same Q4_K file at full
-   depth, `q8_0_fused` (G) a synthesized Q8_0 file and `q4k_a8` a mixed Q4_K
-   + Q6_K file in llama.cpp's Q4_K_M pattern (A, B, G), the last two cut to
-   ENGINE_FILE_LAYERS layers; one model on the card at a time, the solo
+   then the head-dim-96 phase: a phi3 file at Phi-3-mini's widths (head dim
+   96, 32 / 32 heads, fused attn_qkv and [gate; up]; testing.MODEL_PRESETS
+   ["phi3-mini"]) cut to HD96_LAYERS layers, `q4k_a8`, two solo requests on
+   an INT8 cache replayed at exactly 1.0 (C, D) and four behind the HTTP
+   server on the paged scheduler verified at 1.0 (E, F);
+   then the families phase: Qwen2-7B (full depth, q/k/v biases, 28 / 4
+   heads) and Gemma-7B (cut to 8 layers; head dim 256, H·D 4096 over a
+   width of 3072, tied 256000-row head, (1 + w) norms, GELU) at published
+   widths as `q4k_a8` with fused attention: two solo requests on an INT8
+   cache replayed at 1.0, four through the paged scheduler verified at 1.0,
+   Qwen2's steps and loops graphed = eager, `q4k_fused` replaying the
+   records at 0.95 / 0.98, the widths cut to FAMILY_DENSE_LAYERS layers as
+   `float32` / attn="xla" with one request replayed at 1.0; each family's
+   launches of A-F on a line; GPT-2 117M (Q6_K) at full depth behind the
+   solo HTTP server, two requests verified at 1.0 (kernel A and B at the
+   families' heads and wk/wv / wq, C-F at head dim 256 on every store and
+   at f32 queries, are held in the kernel and geometry phases);
+5. engines: at full 8B width, `q4k_fused` (kernel B on f32 scales) loads
+   the all-Q4_K file at full depth, `q4k_fused_k4` (H) and `q4k_a8_k4` (I,
+   H) the same widths cut to ENGINE_FILE_LAYERS layers, `q8_0_fused` (G) a
+   synthesized Q8_0 file and `q4k_a8` a mixed Q4_K + Q6_K file in
+   llama.cpp's Q4_K_M pattern (A, B, G), both cut to ENGINE_FILE_LAYERS
+   layers; one model on the card at a time, the solo
    phase's three request shapes each, every same-backend replay exactly 1.0,
    and each engine must have launched its own kernels and no other matmul
    kernel;
@@ -154,8 +167,10 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    card at load), the solo phase's three request shapes under attn="fused"
    (bf16 C, D) and attn="xla" (the two-pass chain, no attention kernel),
    every replay exactly 1.0, then `python -m blama_tpu_torch.server.http`
-   with BLAMA_DTYPE unset (bfloat16) on the paged scheduler, four requests
-   verified at 1.0; the `float32` engine at full width cut to
+   with BLAMA_DTYPE=bfloat16 on the paged scheduler, four requests verified
+   at 1.0, and with BLAMA_DTYPE unset (it must load `float32`, the
+   reference server's default) on the cut file below; the `float32` engine
+   at full width cut to
    ENGINE_FILE_LAYERS layers on f32 KV, the same requests in both modes
    (C and D at f32 queries) and four requests through the paged scheduler
    (E and F at f32 queries), verified at 1.0, and the decode-attention
@@ -671,6 +686,74 @@ def _f32_yardstick(torch, timer, x, wf, nbytes, K, N, min_row=False, n_mat=1, kb
     M = x.shape[-2]
     return dict(library_f32_ms=_exact_time(timer, lib, M == 1),
                 **_bound_f32(nbytes, 2 * M * K * N * n_mat, kb + (kb // 32 if min_row else 0)))
+
+
+# the other llama-family architectures' matmul shapes (K, N): Qwen2-7B's
+# wk / wv (a group of 7 leaves them 512 wide) and lm head, Gemma-7B's wq
+# (3072 -> H·D 4096) and tied lm head (token_embd through the matmul repack)
+FAMILY_SHAPES = {"qwen2-7b wk/wv": (3584, 512), "qwen2-7b lm_head": (3584, 152064),
+                 "gemma-7b wq": (3072, 4096), "gemma-7b lm_head": (3072, 256000)}
+
+
+def family_kernel_phase(torch, timer, rng):
+    """Kernel A (W4A8) at 1 and 8 rows and kernel B on f32 scales (the
+    `q4k_fused` engine's head) at 1 and 8 rows at FAMILY_SHAPES, each
+    against its plain version, timed beside its bound and the bf16 library
+    product; the lm heads take f32 rows (bf16-valued), the projections bf16.
+    A row alone equals its row of 8 in both."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = []
+    for label, (K, N) in FAMILY_SHAPES.items():
+        data = random_q4k(rng, N, K, K ** -0.5)
+        head = label.endswith("lm_head")
+        x8 = torch.randn((8, K), generator=gen, device="cuda").to(torch.bfloat16)
+        if head:
+            x8 = x8.float()
+        w = qm.repack_q4k_a8s(data, N, K, "cuda")
+        wb = qm.dequantize(w).to(torch.bfloat16)
+        outs = {}
+        for M in (1, 8):
+            x = x8[8 - M:].contiguous()
+            xb = x.to(torch.bfloat16)
+            outs[M] = qm.w4a8_matmul(x, w)
+            err = check_close(f"kernel A {label} M={M}", outs[M], qm.w4a8_matmul_plain(x, w),
+                              MATMUL_TOL)
+            nbytes = K * N // 2 + 4 * (K // 32) * N + x.numel() * x.element_size() + M * N * 4
+            rows.append(dict(
+                kernel="w4a8_gemv", shape=f"{label} K={K} N={N} M={M}", max_abs_err=err,
+                plain_ms=timer(lambda: qm.w4a8_matmul_plain(x, w), reps=3, warm=1),
+                **_graph_row(timer, lambda: qm.w4a8_matmul(x, w),
+                             lambda: torch.matmul(xb, wb.t())),
+                **_bound(nbytes, 2 * M * K * N, INT8_OPS)))
+            log(f"kernel A {rows[-1]}")
+        if not torch.equal(outs[8][7:], outs[1]):
+            raise AssertionError(f"kernel A {label}: row 7 of 8 differs from the row alone")
+        del w
+        we = qm.repack_q4k_exact(data, N, K, "cuda")
+        wf = qm._q4k_values(we)
+        for M in (1, 8):
+            x = x8[8 - M:].contiguous()
+            xb = x.to(torch.bfloat16)
+            outs[M] = qm.q4k_pos(x, we)
+            err = check_close(f"kernel B f32 {label} M={M}", outs[M], qm.q4k_pos_plain(x, we),
+                              MATMUL_TOL)
+            nbytes = K * N // 2 + 4 * (K // 32) * N + x.numel() * x.element_size() + M * N * 4
+            rows.append(dict(
+                kernel="q4k_dequant_matmul_f32", shape=f"{label} K={K} N={N} M={M}",
+                max_abs_err=err,
+                plain_ms=timer(lambda: qm.q4k_pos_plain(x, we), reps=3, warm=1),
+                **_exact_row(timer, M, lambda: qm.q4k_pos(x, we),
+                             lambda: torch.matmul(xb, wb.t())),
+                **_f32_yardstick(torch, timer, x, wf, nbytes, K, N),
+                **_bound(nbytes, 2 * M * K * N, BF16_FLOPS)))
+            log(f"kernel B {rows[-1]}")
+        if not torch.equal(outs[8][7:], outs[1]):
+            raise AssertionError(f"kernel B f32 {label}: row 7 of 8 differs from the row alone")
+        del we, wf, wb, outs
+        torch.cuda.empty_cache()
+    return rows
 
 
 def engine_kernel_phase(torch, timer, rng):
@@ -1847,14 +1930,20 @@ def _f32q_control(torch, gen, da, Hkv, H, D, pos, inv, mscale, scale):
 # head geometries the reference's fused gates admit beyond the 8B one: head
 # dims that are not a padded width (Phi-2's 80, Phi-3's 96, open_llama_3b's
 # 100) at 32 / 8 heads, and more than 32 query heads per kv head at D = 128
-GEOMETRIES = ((32, 8, 80), (32, 8, 96), (32, 8, 100), (64, 1, 128), (33, 1, 128))
+GEOMETRIES = ((32, 8, 80), (32, 8, 96), (32, 8, 100), (64, 1, 128), (33, 1, 128),
+              (16, 16, 256), (16, 8, 256))
+# the geometries whose engines also run at f32 queries here (the float32
+# engine's instances): Gemma-7B's (16 / 16) and Gemma-2-9B's (16 / 8) head
+# dim 256, the edge of the fused gates' domain
+F32Q_GEOMETRIES = ((16, 16, 256), (16, 8, 256))
 
 
 def geometry_phase(torch, timer):
     """Kernels C, D, E and F at GEOMETRIES on INT8, bf16 and f32 stores: the
     serving shape's 8 rows (S = 2048) on a scrambled pool of 128-slot pages,
     decode (T = 1) and a 128-token chunk, each within ATTN_TOL of its plain
-    version, E equal to C and F to D bit for bit over the same logical rows."""
+    version (F32Q_TOL at f32 queries, which F32Q_GEOMETRIES run too), E
+    equal to C and F to D bit for bit over the same logical rows."""
     from blama_tpu_torch.ops import decode_attention as da
     from blama_tpu_torch.ops import paged_attention as pa
 
@@ -1868,11 +1957,13 @@ def geometry_phase(torch, timer):
             lens, G, (kp, vp, ksp, vsp, pool_pos, table), (kd, vd, ksd, vsd, pos_v) = \
                 _serving_pool(torch, gen, tag, Hkv, D)
             dense = (kd, vd, ksd, vsd, pos_v)
-            label = f"geometry {tag}"
-            for T in (1, 128):
+            qdts = ((torch.bfloat16, ""), (torch.float32, "_f32q")) \
+                if (H, Hkv, D) in F32Q_GEOMETRIES else ((torch.bfloat16, ""),)
+            for (qdt, sfx), T in ((qd, T) for qd in qdts for T in (1, 128)):
+                label = f"geometry {tag}" + (" f32q" if sfx else "")
                 qp = torch.stack([torch.arange(T, dtype=torch.int32) + max(n - T, 0)
                                   for n in lens]).cuda()
-                q = torch.randn((8, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+                q = torch.randn((8, T, H, D), generator=gen, device="cuda").to(qdt)
                 if T == 1:
                     paged = lambda: pa.paged_decode_attention(          # noqa: E731
                         q, kp, vp, pool_pos, table, qp[:, 0], inv, ksp, vsp, mscale=mscale)
@@ -1885,6 +1976,7 @@ def geometry_phase(torch, timer):
                     dense_fn = lambda: da.prefill_attention(            # noqa: E731
                         q, kd, vd, qp, pos_v, inv, ksd, vsd, mscale=mscale)
                     names = ("paged_prefill_attention", "prefill_attention")
+                names = tuple(n + sfx for n in names)
                 r_p, out_p = _attn_row(
                     torch, timer, names[0], label, paged,
                     lambda: pa.paged_attention_plain(q, kp, vp, pool_pos, table, qp, inv, ksp,
@@ -1897,8 +1989,8 @@ def geometry_phase(torch, timer):
                 if not torch.equal(out_p, out_d):
                     raise AssertionError(f"{names[0]} {label} T={T}: differs from {names[1]}")
                 rows += [r_p, r_d]
-            log(f"{label} H={H} Hkv={Hkv} D={D}: C, D within ATTN_TOL; E = C and F = D bit "
-                "for bit")
+            log(f"geometry {tag} H={H} Hkv={Hkv} D={D}: C, D within their tolerance at "
+                f"{len(qdts)} query type(s); E = C and F = D bit for bit")
             del kp, vp, ksp, vsp, kd, vd, ksd, vsd
             torch.cuda.empty_cache()
     return rows
@@ -3135,13 +3227,15 @@ def _free(torch, model):
     torch.cuda.empty_cache()
 
 
-def _default_http_server(torch, path, kind):
-    """The reference server's default, as a user starts it: `python -m
-    blama_tpu_torch.server.http` with BLAMA_DTYPE unset (the `bfloat16`
-    engine and attn="xla", ModelParams' defaults) on the paged scheduler, in a
-    process of its own; four concurrent /complete requests, each verified
-    over /verify_completion at exactly 1.0; the process stopped with
-    SIGTERM."""
+def _default_http_server(torch, path, kind, dtype=None):
+    """The HTTP server as a user starts it: `python -m
+    blama_tpu_torch.server.http` with BLAMA_DTYPE set to `dtype`, or unset
+    (dtype None: the reference server's default, ModelParams(): the
+    `float32` engine and attn="xla"), on the paged scheduler, in a process
+    of its own; the engine it reports loading must be the one asked for
+    (`float32` when unset); four concurrent /complete requests, each
+    verified over /verify_completion at exactly 1.0; the process stopped
+    with SIGTERM."""
     import os
     import signal
     import socket
@@ -3153,6 +3247,10 @@ def _default_http_server(torch, path, kind):
     env = {k: v for k, v in os.environ.items() if k != "BLAMA_DTYPE"}
     env.update(BLAMA_MODEL=str(path), BLAMA_HOST="127.0.0.1", BLAMA_PORT=str(port),
                BLAMA_SCHEDULER="4", BLAMA_PAGED_KV="1", PYTHONPATH=str(ROOT))
+    if dtype is not None:
+        env["BLAMA_DTYPE"] = dtype
+    engine = dtype or "float32"
+    what = f"BLAMA_DTYPE={dtype}" if dtype else "BLAMA_DTYPE unset"
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "blama_tpu_torch.server.http"], cwd=ROOT,
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -3192,7 +3290,7 @@ def _default_http_server(torch, path, kind):
                                  zip(bodies, resps, strict=True)))
         got = [sc["result"] for sc in scores]
         n_tok = sum(len(r["tokenData"]) for r in resps)
-        log(f"dense default server (bfloat16, paged, 4 rows): ready in {ready_s:.1f} s, "
+        log(f"dense server ({what}, paged, 4 rows): ready in {ready_s:.1f} s, "
             f"{n_tok} tokens in {wall:.2f} s on {kind}; verify {got}")
         if got != [1.0] * len(bodies) or n_tok != 16 * len(bodies):
             raise AssertionError(f"default server: verify {got}, {n_tok} tokens")
@@ -3200,8 +3298,10 @@ def _default_http_server(torch, path, kind):
         rc = proc.wait(timeout=120)
         text = proc.stdout.read()
         if rc != 0 or "continuous batching enabled (max_batch=4, paged KV)" not in text:
-            raise AssertionError(f"default server exit {rc}: {text[-4000:]}")
-        return dict(ready_s=ready_s, tokens=n_tok, wall_s=wall, scores=got)
+            raise AssertionError(f"server ({what}) exit {rc}: {text[-4000:]}")
+        if f"engine {engine}," not in text:
+            raise AssertionError(f"server ({what}) did not load {engine}: {text[-4000:]}")
+        return dict(engine=engine, ready_s=ready_s, tokens=n_tok, wall_s=wall, scores=got)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -3253,7 +3353,7 @@ def dense_phase(torch, kind):
     llama3-8b all-Q4_K file (seed 7, dequantized at load) at full depth,
     the solo phase's three request shapes under attn="fused" (bf16 C and D)
     and attn="xla" (no attention kernel), each replayed at exactly 1.0, and
-    the HTTP server with BLAMA_DTYPE unset on the paged scheduler (E, F),
+    the HTTP server with BLAMA_DTYPE=bfloat16 on the paged scheduler,
     verified at 1.0; the `float32` engine on the same file's widths cut to
     ENGINE_FILE_LAYERS layers, f32 KV (the reference's default store), the
     same requests under attn="fused" (the f32-query C and D) and "xla", and
@@ -3262,8 +3362,9 @@ def dense_phase(torch, kind):
     P and O at f32 queries); a Q5_K_M-pattern and a Q3_K_M-pattern file at
     ENGINE_FILE_LAYERS layers, each type's dequantized values on the card
     equal to the numpy function's, loaded as `bfloat16` and replayed at
-    1.0. Decode tok/s and TTFT of each engine graphed and eager
-    (step_report)."""
+    1.0; the HTTP server with BLAMA_DTYPE unset (it must load `float32`,
+    the reference server's default) on the cut file, verified at 1.0.
+    Decode tok/s and TTFT of each engine graphed and eager (step_report)."""
     from blama_tpu_torch.testing import Q3_K_M, Q5_K_M, cached_llama_gguf
 
     out, t_phase = {}, time.perf_counter()
@@ -3277,7 +3378,7 @@ def dense_phase(torch, kind):
             out["bfloat16 fused"]["report"] = step_report(torch, model, "dense bfloat16",
                                                           kv="float32")
         model = _free(torch, model)
-    out["default server"] = _default_http_server(torch, path, kind)
+    out["bfloat16 server"] = _default_http_server(torch, path, kind, "bfloat16")
     log(f"dense bfloat16 done in {time.perf_counter() - t_phase:.1f} s")
     path8 = cached_llama_gguf("llama3-8b", seed=7, n_layer=ENGINE_FILE_LAYERS)
     for attn in ("fused", "xla"):
@@ -3297,6 +3398,7 @@ def dense_phase(torch, kind):
                                                solo_http=False)
             log(f"dense float32 modes took {time.perf_counter() - t_modes:.1f} s")
         model = _free(torch, model)
+    out["default server"] = _default_http_server(torch, path8, kind)
     log(f"dense float32 done in {time.perf_counter() - t_phase:.1f} s")
     for recipe in (Q5_K_M, Q3_K_M):
         p = cached_llama_gguf("llama3-8b", seed=7, quant=recipe, n_layer=ENGINE_FILE_LAYERS)
@@ -3444,10 +3546,12 @@ HD96_PRESET, HD96_LAYERS = "phi3-mini", 4
 
 def head_dim_96_phase(torch, kind):
     """Every head geometry the gates admit runs on the card, end to end: the
-    HD96_PRESET file (hidden 3072, 32 query and 32 KV heads, so head dim 96
-    and one query head per KV head; FFN 8192, vocab 32064), synthesized at
-    Q4_K from a seed and cut to HD96_LAYERS layers, loaded as `q4k_a8` with
-    fused attention. A solo Session on an INT8 cache proves and replays two
+    HD96_PRESET file, a phi3 file (hidden 3072, 32 query and 32 KV heads, so
+    head dim 96 and one query head per KV head; FFN 8192, vocab 32064;
+    attn_qkv and a stacked [gate; up] ffn_up, which load as dense bf16 parts
+    as in the reference, so A and B carry wo, down and the head),
+    synthesized at Q4_K from a seed and cut to HD96_LAYERS layers, loaded as
+    `q4k_a8` with fused attention. A solo Session on an INT8 cache proves and replays two
     requests (128 and 5 prompt tokens, 16 tokens each) at exactly 1.0
     (kernels C, D), then the model behind the HTTP server on the paged
     scheduler verifies every response at exactly 1.0 (E, F)."""
@@ -3465,8 +3569,8 @@ def head_dim_96_phase(torch, kind):
     log(f"head-dim-96: {HD96_PRESET} file at {cfg.n_layer} layers (cut), width {cfg.n_embd}, "
         f"{cfg.n_head} / {cfg.n_head_kv} heads, head dim {cfg.head_dim_}, ready in "
         f"{time.perf_counter() - t0:.1f} s on {kind}")
-    if cfg.head_dim_ != 96:
-        raise AssertionError(f"head-dim-96: the file's head dim is {cfg.head_dim_}")
+    if cfg.head_dim_ != 96 or cfg.arch != "phi3":
+        raise AssertionError(f"head-dim-96: the file is {cfg.arch}, head dim {cfg.head_dim_}")
     try:
         kernels.reset_launches()
         inst = Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True,
@@ -3493,6 +3597,189 @@ def head_dim_96_phase(torch, kind):
         del model
         torch.cuda.empty_cache()
     return dict(solo=results, serving=served, launches=dict(solo=solo_l, serving=serve_l))
+
+
+# the families phase: the other llama-family architectures at their
+# published widths (testing.MODEL_PRESETS), each synthesized at Q4_K from a
+# seed: (preset, depth cut or None for the full depth). Gemma-7B is cut to
+# 8 of its 28 layers (widths, head and tied lm head whole); Qwen2-7B runs
+# at its full 28 layers.
+FAMILY_FILES = (("qwen2-7b", None), ("gemma-7b", 8))
+# the depth of the same presets' files under the reference's default
+# engine, float32 with attn="xla" (f32 weights of a Gemma-7B layer are
+# 1.1 GB)
+FAMILY_DENSE_LAYERS = 2
+FAMILY_REQUESTS = ((128, 16), (5, 16))
+# kernels A-F by counter name, as the families' launch lines print them
+FAMILY_KERNELS = {"A": "w4a8_gemv", "B": "q4k_dequant_matmul", "C": "decode_attention",
+                  "D": "prefill_attention", "E": "paged_decode_attention",
+                  "F": "paged_prefill_attention"}
+
+
+def _family_config(cfg, preset, arch):
+    """Raise unless the loaded config is the preset's architecture at its
+    published widths."""
+    from blama_tpu_torch.testing import MODEL_PRESETS
+
+    s = MODEL_PRESETS[preset]
+    want = (arch, s["n_embd"], s["n_head"], s["n_head_kv"], s.get("head_dim",
+                                                                   s["n_embd"] // s["n_head"]),
+            s["n_ff"], s["n_vocab"])
+    got = (cfg.arch, cfg.n_embd, cfg.n_head, cfg.n_head_kv, cfg.head_dim_, cfg.n_ff,
+           cfg.n_vocab)
+    if got != want:
+        raise AssertionError(f"{preset}: config {got}, want {want}")
+
+
+def family_run(torch, kind, preset, n_layer):
+    """One llama-family file on the card: `q4k_a8` with fused attention on
+    an INT8 cache (ctx 2048) through Instance -> Session, FAMILY_REQUESTS
+    proven and replayed at exactly 1.0 (A, B, C, D); the same model behind
+    the HTTP server on the paged scheduler (4 rows, bf16 pool, horizon 8),
+    four requests verified at 1.0 (A at 8 rows, B, E, F); its steps and
+    loops graphed against eager (loops_equal, Qwen2 only) and its decode
+    step timed (step_report); `q4k_fused` replaying the `q4k_a8` records at
+    the cross-engine thresholds (0.95 / 0.98); then the preset's widths cut
+    to FAMILY_DENSE_LAYERS layers under the reference's defaults (`float32`,
+    attn="xla", f32 KV), one request proven and replayed at 1.0."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.testing import MODEL_PRESETS, cached_llama_gguf
+
+    arch = MODEL_PRESETS[preset]["arch"]
+    t0 = time.perf_counter()
+    path = cached_llama_gguf(preset, seed=7, n_layer=n_layer)
+    synth_s = time.perf_counter() - t0
+    out = dict(synth_s=synth_s, file_gib=Path(path).stat().st_size / 2 ** 30)
+    t0 = time.perf_counter()
+    model = Model(path, ModelParams(dtype="q4k_a8", attn="fused"))
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    cfg = model.config
+    _family_config(cfg, preset, arch)
+    out["layers"] = cfg.n_layer
+    log(f"families: {preset} ({arch}) at {cfg.n_layer} layers"
+        f"{'' if n_layer is None else ' (cut)'}, width {cfg.n_embd}, {cfg.n_head} / "
+        f"{cfg.n_head_kv} heads, head dim {cfg.head_dim_} (H·D {cfg.n_head * cfg.head_dim_}), "
+        f"vocab {cfg.n_vocab}: file {out['file_gib']:.2f} GiB in {synth_s:.1f} s, q4k_a8 load "
+        f"{out['load_s']:.1f} s on {kind}")
+    record = []
+    try:
+        kernels.reset_launches()
+        inst = Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True,
+                                                  kv_dtype="int8"))
+        rng = np.random.default_rng(22)
+        solo = []
+        for n_prompt, n_gen in FAMILY_REQUESTS:
+            prompt = [1] + rng.integers(259, cfg.n_vocab, n_prompt - 1).tolist()
+            r = prove_and_verify(inst, prompt, n_gen, record)
+            log(f"families: {preset} solo request {r}")
+            if r["score"] != 1.0:
+                raise AssertionError(f"{preset}: same-backend replay scored {r['score']}")
+            solo.append(r)
+        del inst
+        torch.cuda.synchronize()
+        solo_l = dict(kernels.LAUNCHES)
+        require_launched(solo_l, ("w4a8_gemv", "q4k_dequant_matmul", "decode_attention",
+                                  "prefill_attention"), f"the {preset} solo path")
+        out["solo"] = solo
+        out["serving"], serve_l = _serve_and_verify(
+            torch, model, kind, needs=("w4a8_gemv", "q4k_dequant_matmul",
+                                       "paged_decode_attention", "paged_prefill_attention"),
+            where=f"{preset} serving")
+        if arch == "qwen2":
+            out["loops_equal"] = loops_equal(torch, model, preset)
+        out["report"] = step_report(torch, model, preset)
+    finally:
+        model = _free(torch, model)
+    launches = {k: solo_l[n] + serve_l[n] for k, n in FAMILY_KERNELS.items()}
+    out["launches"] = dict(solo=solo_l, serving=serve_l, a_to_f=launches)
+    exact, load_s = _dense_model(torch, path, "q4k_fused", "fused", kind)
+    try:
+        inst = Instance(exact, InstanceInitParams(ctx_size=2048, flash_attn=True,
+                                                  kv_dtype="int8"))
+        cross = [replay(inst, p, preds) for p, preds in record]
+        del inst
+    finally:
+        exact = _free(torch, exact)
+    log(f"families: {preset} q4k_fused replaying q4k_a8's records (score, similarity): "
+        f"{cross}")
+    if any(s < 0.95 or sim < 0.98 for s, sim in cross):
+        raise AssertionError(f"{preset}: q4k_fused replays q4k_a8 at {cross}")
+    out["q4k_fused_replays_q4k_a8"] = cross
+    cut = cached_llama_gguf(preset, seed=7, n_layer=FAMILY_DENSE_LAYERS)
+    dense, load_s = _dense_model(torch, cut, "float32", "xla", kind)
+    try:
+        res, _ = _dense_solo(torch, dense, kind, f"{preset} float32 xla", (),
+                             FAMILY_REQUESTS[1:])
+    finally:
+        dense = _free(torch, dense)
+    out["float32 xla"] = dict(layers=FAMILY_DENSE_LAYERS, load_s=load_s, requests=res)
+    return out
+
+
+def gpt2_run(torch, kind):
+    """GPT-2 117M (testing.GPT2_PRESETS: openai-community/gpt2's widths,
+    Q6_K as the original blama's default file) at full depth under the
+    reference's default engine (`float32`), behind the solo HTTP server
+    (Server: one Instance, f32 KV rows, ctx 1024): two /complete requests,
+    each verified over /verify_completion at exactly 1.0. Its products are
+    dense and its attention the two-pass chain, as in the reference: no
+    kernel of the port runs."""
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.instance import InstanceInitParams
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.server.server import Server
+    from blama_tpu_torch.testing import cached_gpt2_gguf
+
+    t0 = time.perf_counter()
+    path = cached_gpt2_gguf()
+    model = Model(path, ModelParams())
+    torch.cuda.synchronize()
+    ready = time.perf_counter() - t0
+    cfg = model.config
+    if (cfg.arch, cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_vocab) != ("gpt2", 12, 768, 12,
+                                                                        50257):
+        raise AssertionError(f"gpt2-117m: config {cfg}")
+    kernels.reset_launches()
+    srv = Served(model, api=Server(model, InstanceInitParams(ctx_size=1024)))
+    try:
+        bodies = [{"prompt": t, "max_tokens": 16, "temp": 0.0}
+                  for t in ("the default model of blama", "a" * 40)]
+        resps, wall = srv.post_all([("/complete", b) for b in bodies])
+        scores, vwall = srv.post_all([("/verify_completion", {"request": b, "response": r})
+                                      for b, r in zip(bodies, resps, strict=True)])
+    finally:
+        srv.close()
+        model = _free(torch, model)
+    got = [sc["result"] for sc in scores]
+    n_tok = sum(len(r["tokenData"]) for r in resps)
+    fused = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    log(f"families: gpt2-117m (12 layers, width 768, float32) ready in {ready:.1f} s, solo "
+        f"server: {n_tok} tokens in {wall:.2f} s, verify {got} in {vwall:.2f} s on {kind}; "
+        f"kernel launches {fused}")
+    if got != [1.0] * len(bodies) or n_tok != 16 * len(bodies):
+        raise AssertionError(f"gpt2-117m: verify {got}, {n_tok} tokens")
+    return dict(ready_s=ready, tokens=n_tok, wall_s=wall, verify_s=vwall, scores=got)
+
+
+def families_phase(torch, kind):
+    """The other llama-family architectures at published widths
+    (family_run for each of FAMILY_FILES) and GPT-2 117M (gpt2_run); each
+    family's launches of A-F on one line."""
+    t0 = time.perf_counter()
+    out = {}
+    for preset, n_layer in FAMILY_FILES:
+        out[preset] = family_run(torch, kind, preset, n_layer)
+        log(f"families: {preset} launches of A-F (solo + serving): "
+            f"{out[preset]['launches']['a_to_f']}")
+    out["gpt2-117m"] = gpt2_run(torch, kind)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"families phase took {out['seconds']:.1f} s")
+    return out
 
 
 # the decode-attention modes (BLAMA_ATTN_*), each with its kernel, and the
@@ -3678,16 +3965,19 @@ def engines_phase(torch, kind, a8_record, records):
     from blama_tpu_torch.testing import Q4_K_M
 
     cut = ENGINE_FILE_LAYERS
-    # engine, file type, depth, the matmul kernels it must launch
+    # engine, file type, depth, the matmul kernels it must launch; the two
+    # native-layout engines run the all-Q4_K file's widths cut to `cut`
+    # layers (the families phase's time; `q4k_fused` stays at full depth: the
+    # tp_blocks phase replays its records)
     engines = [
         ("q4k_fused", None, None, ("q4k_dequant_matmul",)),
-        ("q4k_fused_k4", None, None, ("q4k_native_matmul",)),
-        ("q4k_a8_k4", None, None, ("w4a8k4_gemv", "q4k_native_matmul")),
+        ("q4k_fused_k4", None, cut, ("q4k_native_matmul",)),
+        ("q4k_a8_k4", None, cut, ("w4a8k4_gemv", "q4k_native_matmul")),
         ("q8_0_fused", GGMLType.Q8_0, cut, ("q8_dequant_matmul",)),
         ("q4k_a8", Q4_K_M, cut, ("w4a8_gemv", "q4k_dequant_matmul", "q8_dequant_matmul")),
     ]
     requests = [(128, 16), (5, 16), (3, 8)]
-    out, tokens = {}, {}
+    out = {}
     for dtype, quant, n_layer, needs in engines:
         name = dtype if quant is None else f"{dtype} on {getattr(quant, 'name', quant)}"
         gc.collect()        # the previous model's arrays
@@ -3727,15 +4017,10 @@ def engines_phase(torch, kind, a8_record, records):
             res["replay_of_q4k_a8"] = [replay(inst, p, preds)[0] for p, preds in a8_record]
             log(f"engine q4k_fused replaying q4k_a8's records: {res['replay_of_q4k_a8']}")
             records["q4k_fused"] = record
-        if quant is None:
-            tokens[dtype] = [[p.token for p in preds] for _, preds in record]
         out[name] = res
         model.close()
         del inst, model, record
         torch.cuda.empty_cache()
-    same = tokens["q4k_fused"] == tokens["q4k_fused_k4"]
-    log(f"engines q4k_fused and q4k_fused_k4 give {'the same' if same else 'other'} tokens")
-    out["fused_and_k4_same_tokens"] = same
     return out
 
 
@@ -4800,6 +5085,7 @@ def main() -> int:
         res["row_sweep"] = row_sweep(torch, timer, np.random.default_rng(7))
         log(f"row sweep took {time.perf_counter() - t_sweep:.1f} s")
         rows += engine_kernel_phase(torch, timer, np.random.default_rng(1))
+        rows += family_kernel_phase(torch, timer, np.random.default_rng(8))
         rows += attention_phase(torch, timer)
         rows += f32_query_attention_phase(torch, timer)
         t_geo = time.perf_counter()
@@ -4837,6 +5123,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         res["head_dim_96"] = head_dim_96_phase(torch, kind)
         log(f"head-dim-96 phase done at {time.perf_counter() - t_start:.1f} s")
+        res["families"] = families_phase(torch, kind)
+        log(f"families phase done at {time.perf_counter() - t_start:.1f} s")
         tp0_records = {"q4k_a8": a8_record}
         res["engines"] = engines_phase(torch, kind, a8_record, tp0_records)
         del a8_record

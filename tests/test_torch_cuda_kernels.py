@@ -2367,3 +2367,73 @@ def test_dense_engines_on_the_card(cuda, tmp_path, dtype, attn):
     else:
         assert not any(kernels.LAUNCHES[n] for n in kernels.LAUNCHES if "attention" in n)
     m.close()
+
+
+# ---------------------------------------------------------------------------
+# the other llama-family architectures' geometries: Gemma's head dim 256 at
+# 16 / 16 (Gemma-7B) and 16 / 8 (Gemma-2-9B) heads, Qwen2-7B's group of 7
+# (28 / 4 heads, D 128); Qwen2-7B's and Gemma-7B's lm heads through A and B
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32], ids=["bf16q", "f32q"])
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("h,hkv,d", [(16, 16, 256), (16, 8, 256), (28, 4, 128)])
+def test_family_head_geometries(cuda, monkeypatch, qdt, kv, h, hkv, d):
+    """C, D (and O, head-batched) within their tolerance of the plain
+    version at the families' geometries, on every store, at the serving
+    shape (8 rows, S 2048), bf16 and f32 queries; E and F on a scrambled
+    pool equal C and D bit for bit; a row alone equals its row of the
+    batch."""
+    s = 2048
+    tol = ATTN_TOL if qdt == torch.bfloat16 else F32Q_TOL
+    k, v, ks, vs, pos = _prefill_store(kv, 8, s, hkv, d, PREFILL_LENS, seed=d + h,
+                                       device=cuda)
+    inv = da.effective_inv_freq(d, d, 10000.0)[0].to(cuda)
+    pool, pos_v = _pool_of(k, v, ks, vs, pos, 128, seed=h)
+    row = lambda a: None if a is None else a[2:3].contiguous()   # noqa: E731
+    for t in (1, 16):
+        q, qp = _prefill_queries(8, t, h, d, PREFILL_LENS, seed=t + h, device=cuda, dtype=qdt)
+        ref = da.flash_attention_plain(q, k, v, qp, pos, inv, ks, vs, d ** -0.5)
+        if t == 1:
+            run = lambda q_, k_, v_, p_, pos_, ks_, vs_: da.decode_attention(  # noqa: E731
+                q_, k_, v_, p_[:, 0].contiguous(), pos_, inv, ks_, vs_)
+            paged = pa.paged_decode_attention(q, *pool[:2], pool[4], pool[5],
+                                              qp[:, 0].contiguous(), inv, *pool[2:4])
+        else:
+            run = lambda q_, k_, v_, p_, pos_, ks_, vs_: da.prefill_attention(  # noqa: E731
+                q_, k_, v_, p_, pos_, inv, ks_, vs_)
+            paged = pa.paged_prefill_attention(q, *pool[:2], pool[4], pool[5], qp, inv,
+                                               *pool[2:4])
+        out = run(q, k, v, qp, pos, ks, vs)
+        torch.cuda.synchronize()
+        assert out.dtype == qdt
+        _close(out, ref, tol)
+        assert torch.equal(paged, run(q, k, v, qp, pos_v, ks, vs))
+        assert torch.equal(run(row(q), row(k), row(v), row(qp), row(pos), row(ks), row(vs)),
+                           out[2:3])
+        if t == 1 and d % 128 == 0:
+            monkeypatch.setattr(da, "_HB", True)
+            hb = run(q, k, v, qp, pos, ks, vs)
+            monkeypatch.setattr(da, "_HB", False)
+            _close(hb, ref, tol)
+
+
+@pytest.mark.parametrize("n,k", [(152064, 3584), (256000, 3072)], ids=["qwen2_7b", "gemma_7b"])
+def test_family_lm_heads(cuda, n, k):
+    """Qwen2-7B's and Gemma-7B's (tied: token_embd through the matmul
+    repack) lm heads on f32 rows: A (q4k_a8) and B (q4k_fused, f32 scales)
+    at one row and 8, within MATMUL_TOL of their plain versions, a row alone
+    equal to its row of 8."""
+    data = random_q4k(np.random.default_rng(n % 97), n, k, k ** -0.5)
+    x = _acts(8, k, torch.float32, cuda)
+    wa = qm.repack_q4k_a8s(data, n, k, cuda)
+    out = qm.w4a8_matmul(x, wa)
+    _close(out, qm.w4a8_matmul_plain(x, wa), MATMUL_TOL)
+    assert torch.equal(out[3:4], qm.w4a8_matmul(x[3:4].contiguous(), wa))
+    del wa
+    wb = qm.repack_q4k_exact(data, n, k, cuda)
+    for m in (1, 8):
+        xm = x[:m].contiguous()
+        out = qm.q4k_pos(xm, wb)
+        _close(out, qm.q4k_pos_plain(xm, wb), MATMUL_TOL)
+        assert torch.equal(out, qm.q4k_pos(xm, wb))

@@ -411,8 +411,9 @@ def test_every_engine_wants_the_card_by_default(files):
 
 
 def test_http_main_reads_the_engine_name(files, monkeypatch):
-    """BLAMA_DTYPE reaches ModelParams (unset: `bfloat16`, the reference
-    server's default); an unported name fails at start-up."""
+    """BLAMA_DTYPE reaches ModelParams (unset: ModelParams' default,
+    `float32`, which the reference's single-process server builds); an
+    unported name fails at start-up."""
     seen = {}
 
     class Stop(Exception):
@@ -428,7 +429,7 @@ def test_http_main_reads_the_engine_name(files, monkeypatch):
     monkeypatch.setenv("BLAMA_DEVICE", "cpu")
     monkeypatch.delenv("BLAMA_MULTIHOST", raising=False)
     monkeypatch.setattr(pmodel, "Model", fake_model)
-    for env, want in ((None, "bfloat16"), ("q4k_a8", "q4k_a8"), ("q4k_fused", "q4k_fused"),
+    for env, want in ((None, "float32"), ("q4k_a8", "q4k_a8"), ("q4k_fused", "q4k_fused"),
                       ("q8_0_fused", "q8_0_fused")):
         if env is None:
             monkeypatch.delenv("BLAMA_DTYPE", raising=False)

@@ -44,14 +44,14 @@ def _cover(B, T, H, Hkv, S):
     return owned, starts, split
 
 
-@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("T", [8, 16, 24, 128, 256, 512])
 @pytest.mark.parametrize("B", [1, 8])
 def test_plan_covers_each_query_once(B, T, g):
     """Each (row, token, head) of the chunk falls in exactly one CTA of each
     split; split boundaries are multiples of one width, the same for every
     B, T and S, a whole number of tiles, and the splits cover S."""
-    Hkv = 8 if g < 8 else 4
+    Hkv = 8 if g < 7 else 4       # g 7: Qwen2-7B's 28 / 4 heads
     for S in (64, 96, 2048, 4096):
         owned, starts, split = _cover(B, T, g * Hkv, Hkv, S)
         assert (owned == 1).all(), (B, T, g, S)
@@ -157,13 +157,14 @@ def _store(kv, B, S, Hkv, D, rng):
     return k, v, None, None
 
 
-def _case(kv, sharp, pad=0):
-    """The 8B head geometry (H 32, Hkv 8, D 128, rope theta 5e5), scores
+def _case(kv, sharp, pad=0, geom=(32, 8, 128, 500000.0)):
+    """A head geometry (H, Hkv, D, rope theta; by default the 8B one), scores
     `sharp` times those of unit-variance q and k; row 1 has masked tiles
     between visible ones and slots placed past every query; `pad` empty
     slots after the 1024 (random K and V, position -1)."""
     rng = np.random.default_rng(11)
-    B, T, H, Hkv, D, S = 2, 32, 32, 8, 128, 1024 + pad
+    H, Hkv, D, theta = geom
+    B, T, S = 2, 32, 1024 + pad
     k, v, ks, vs = _store(kv, B, S, Hkv, D, rng)
     lens = [700, 1000]
     pos = np.full((B, S), -1, np.int32)
@@ -176,7 +177,7 @@ def _case(kv, sharp, pad=0):
     q = torch.from_numpy(sharp * rng.standard_normal((B, T, H, D)).astype(np.float32))
     q = q.to(torch.bfloat16)
     qp = torch.from_numpy(np.stack([np.arange(T) + n - T for n in lens]).astype(np.int32))
-    inv, _ = da.effective_inv_freq(D, D, 500000.0)
+    inv, _ = da.effective_inv_freq(D, D, theta)
     return q, k, v, qp, pos, inv, ks, vs, D ** -0.5
 
 
@@ -198,6 +199,18 @@ def test_bf16_operands_fit_the_tolerance(kv, sharp, pad):
     ref = da.flash_attention_plain(*args)
     for split in (da.PREFILL_SPLIT, 2 * da.PREFILL_SPLIT):
         assert _err(_emulate(*args, da.PREFILL_TILE, split), ref) <= 1.0, split
+
+
+@pytest.mark.parametrize("geom", [(16, 16, 256, 10000.0), (16, 8, 256, 10000.0),
+                                  (28, 4, 128, 1e6)], ids=["gemma_7b", "gemma2_9b", "qwen2_7b"])
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+def test_bf16_operands_fit_the_tolerance_at_the_families_geometries(kv, geom):
+    """Gemma's head dim 256 (16 / 16 and 16 / 8 heads) and Qwen2-7B's group
+    of 7: the emulated kernel stays within ATTN_TOL of the plain version on
+    every store at the fixed split width."""
+    args = _case(kv, 1.0, geom=geom)
+    ref = da.flash_attention_plain(*args)
+    assert _err(_emulate(*args, da.PREFILL_TILE, da.PREFILL_SPLIT), ref) <= 1.0
 
 
 def test_one_bf16_half_misses_the_tolerance_at_sharp_scores():

@@ -219,3 +219,45 @@ def test_sampling_path_is_seeded(gguf_path):
         pi.stop_session()
     assert streams[0] == streams[1] and len(streams[0]) > 0
     pm.close()
+
+
+@pytest.mark.parametrize("arch", ["gemma", "phi3", "gpt2", "qwen2"])
+def test_fast_path_gate_follows_the_reference(arch, tmp_path, monkeypatch):
+    """The device loops serve llama, mistral and qwen2 sessions only, as the
+    reference's gate says (its session.py:264, :363): gemma, phi3 and gpt2
+    sessions take the step-by-step path with fast_greedy on, entering no
+    loop, and give the records of fast_greedy off; a qwen2 session enters
+    both loops."""
+    from blama_tpu import testing as jt
+    from blama_tpu_torch.testing import write_tiny_family
+
+    path = str(tmp_path / f"{arch}.gguf")
+    if arch == "gpt2":
+        jt.write_tiny_gpt2(path)
+    else:
+        write_tiny_family(path, arch)
+    pm = Model(path, ModelParams(device="cpu"))
+    entered = []
+    for name in ("continue_greedy", "teacher_forced"):
+        real = getattr(generate_loop, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            entered.append(_name)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(generate_loop, name, spy)
+    out = []
+    for fast in (True, False):
+        inst = Instance(pm, InstanceInitParams(ctx_size=64, fast_greedy=fast))
+        preds = _generate(inst, pm.vocab, SessionInitParams, CompleteParams, 5)
+        s = inst.start_session(SessionInitParams(seed=11, temperature=0.0))
+        s.set_initial_prompt(pm.vocab.tokenize(PROMPT, True, True))
+        replayed = s.fill_ctx(preds)
+        inst.stop_session()
+        out.append([[(p.token, [(t.token, t.logit) for t in p.logits]) for p in ps]
+                    for ps in (preds, replayed)])
+        if fast:
+            want = ["continue_greedy", "teacher_forced"] if arch == "qwen2" else []
+            assert entered == want, entered
+    assert out[0] == out[1]
+    pm.close()
