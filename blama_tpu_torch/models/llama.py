@@ -16,6 +16,11 @@ the two-pass chain still serves the chunks and geometries the fused gates
 refuse, T in {2, 4}, as in the reference) or the two-pass chain at every
 chunk (attn="xla"), with the reference's opt-in decode-attention modes on
 dense rows (LlamaStatic.attn_write / attn_fresh, set by ops/generate_loop).
+A layer dict may carry a control vector's bias ("cvec", added after the
+layer's residual) and LoRA-wrapped projections (quant_matmul.LoraWrapped,
+through the same dispatch); `forward(..., return_hidden=True)` and
+last_hidden give the lm head's input, the embeddings path of a
+decoder-only model.
 
 Weights are a plain dict: {"tok_emb", "out_norm", "output", "layers": [one
 dict per layer], optional "rope_freqs"}. The forward keeps the reference's
@@ -565,22 +570,29 @@ def _place(params, tokens, positions, slots, cache):
     return emb_lookup(params["tok_emb"], tokens.to(dev).long()), positions, flat
 
 
-def _head(params, x, logits_index, eps, tpb=0, all_positions=False, plus_one=(False, False)):
+def _head(params, x, logits_index, eps, tpb=0, all_positions=False, plus_one=(False, False),
+          return_hidden=False):
     """The forward's epilogue: each row's logit token (the last when
     logits_index is None; every position with `all_positions`), the final
     norm ((1 + w) as _norm_weight's `plus_one`, `bf16` say) and the lm head
-    → [B, V] (or [B, T, V]) f32. A packed head takes f32 rows (pinned under
-    tp_blocks); a dense one operands in its dtype and f32 sums, in tpb
-    column blocks under tp_blocks."""
+    → [B, V] (or [B, T, V]) f32; with `return_hidden` the normed rows
+    themselves, the lm head's input (the reference's return_hidden). A
+    packed head takes f32 rows (pinned under tp_blocks); a dense one
+    operands in its dtype and f32 sums, in tpb column blocks under
+    tp_blocks."""
     B, T = x.shape[:2]
     w = _norm_weight(params["out_norm"], *plus_one)
     if all_positions:
-        last_h = rms_norm(x, w, eps).reshape(B * T, -1)
-        return _head_product(params["output"], last_h, tpb).reshape(B, T, -1)
+        last_h = rms_norm(x, w, eps)                                      # [B, T, E]
+        if return_hidden:
+            return last_h
+        return _head_product(params["output"], last_h.reshape(B * T, -1), tpb).reshape(B, T, -1)
     if logits_index is None:
         logits_index = torch.full((B,), T - 1, dtype=torch.long, device=x.device)
     last_h = x[torch.arange(B, device=x.device), logits_index.to(x.device).long()]
     last_h = rms_norm(last_h, w, eps)                                     # [B, E]
+    if return_hidden:
+        return last_h
     return _head_product(params["output"], last_h, tpb)
 
 
@@ -602,9 +614,12 @@ def forward(
     cache: SlotStore,
     logits_index: torch.Tensor | None = None,  # [B] index into T of the logit token
     all_positions: bool = False,  # logits for every position (perplexity path)
+    return_hidden: bool = False,  # the final normed hidden state, not the logits
 ) -> tuple[torch.Tensor, SlotStore]:
     """One decode/prefill step. Returns (logits [B, V] f32, or [B, T, V]
-    with `all_positions`, cache); the cache
+    with `all_positions`; with `return_hidden` the final normed hidden
+    state [B, E] (or [B, T, E]) in the activation dtype, the lm head's
+    input; cache); the cache
     (dense KVCache rows, or the scheduler's PagedKVCache pool, where `slots`
     are FLAT pool indices and reads go through the row's page table) is
     updated in place. A pad token (slot >= n_slots) writes to the store's
@@ -738,14 +753,28 @@ def forward(
         else:
             gate = act(qmm_nblocked(h2, p["w_gate"], tpb))
             x = x + qmm_blocked(gate * qmm_nblocked(h2, p["w_up"], tpb), p["w_down"], tpb)
+        if "cvec" in p:
+            # a control vector's bias after the layer's residual (the
+            # reference's site; Instance.apply_control_vector)
+            x = x + p["cvec"]
 
-    return _head(params, x, logits_index, eps, tpb, all_positions, npo), cache
+    return _head(params, x, logits_index, eps, tpb, all_positions, npo, return_hidden), cache
 
 
 def all_logits(st: LlamaStatic, params, tokens, positions, slots, cache) -> torch.Tensor:
     """Logits at every position, [B, T, V] f32 (the perplexity path; the
     reference's all_logits). The cache is updated in place, as by a step."""
     return forward(params, st, tokens, positions, slots, cache, all_positions=True)[0]
+
+
+def last_hidden(st: LlamaStatic, params, tokens, positions, slots, cache,
+                logits_index) -> torch.Tensor:
+    """The final normed hidden state [B, E] at logits_index, in the
+    activation dtype (the embeddings path of a decoder-only model,
+    InstanceEmbedding.cpp:129-157; the reference's last_hidden). The cache
+    is updated in place, as by a step."""
+    return forward(params, st, tokens, positions, slots, cache, logits_index,
+                   return_hidden=True)[0]
 
 
 def make_step_fn(cfg: ModelConfig):

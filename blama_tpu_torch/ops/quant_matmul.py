@@ -37,6 +37,9 @@ the arrays' own first dimension.
                    [N, K/32]; plain PyTorch on every device, as the reference
                    leaves this engine to XLA.
   torch.Tensor     any other tensor type: dense bf16 [K, N] through matmul.
+  LoraWrapped      any of these with runtime LoRA terms (runtime/lora.py on
+                   the packed engines): the base product, then + (x·a)·b per
+                   column segment (lora_term: two rows_mm products, f32).
 
 `qmm` dispatches on the class and the number of flat rows as the reference's
 _quant_kernel_call does. The kernels are CUDA C++
@@ -166,6 +169,81 @@ class QuantEmbedding:
     @property
     def shape(self):
         return (self.codes.shape[0], self.codes.shape[1] * 2)
+
+    @property
+    def dtype(self):
+        # the rows it gathers (emb_lookup) and the reference's class's dtype
+        return torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# runtime LoRA terms (runtime/lora.py attaches them on the packed engines)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class LoraSegment:
+    """Output columns [off, off + n) of a LoraWrapped weight and the
+    low-rank term they take: + (x·a)·b, a f32 [K, R], b f32 [R, n] with the
+    adapters' effective scales folded in. Adapters on these columns stack
+    along the rank axis; `tags` holds their (tag, rank) pieces in stacking
+    order."""
+
+    off: int
+    a: torch.Tensor
+    b: torch.Tensor
+    tags: tuple = ()
+
+
+@dataclass
+class LoraWrapped:
+    """A weight with runtime LoRA terms, the reference's LoraWrapped
+    (blama_tpu/ops/pallas/quant_matmul.py:385): y = qmm(x, base) + (x_f32·a)·b,
+    cast back to the base product's dtype, the base never touched. The
+    reference pads b into a fused tensor's (wqkv, wgu) column segments;
+    here each segment keeps its own a and b (`segments`, ordered by column),
+    so a fused layout computes each part's term at the unfused shapes and
+    keeps the unfused bits."""
+
+    base: object          # a packed class or a dense [K, N] tensor
+    segments: tuple       # LoraSegment, by column
+
+    @property
+    def shape(self):
+        return self.base.shape
+
+    @property
+    def n_out(self) -> int:
+        return self.base.shape[1]
+
+    @property
+    def device(self):
+        return self.base.device
+
+
+def lora_term(flat: torch.Tensor, seg: LoraSegment) -> torch.Tensor:
+    """(x_f32·a)·b of rows flat [M, K] → [M, n] f32: two rows_mm products,
+    f32 and never TF32, each row's bits its own (a decode row and the same
+    row in a replay chunk sum the rank axis in one order). A library
+    product, as in the reference, which computes it outside any kernel."""
+    return rows_mm(rows_mm(flat.float(), seg.a), seg.b)
+
+
+def _with_lora(out: torch.Tensor, flat: torch.Tensor, w: LoraWrapped,
+               out_dtype=None) -> torch.Tensor:
+    """out [M, N] (the base product in its dtype) with each segment's term
+    added in f32 and the sum cast to out_dtype (default out's), in the
+    reference's order; columns outside the segments pass as they are."""
+    out_dtype = out_dtype or out.dtype
+    parts, at = [], 0
+    for s in w.segments:
+        n = s.b.shape[1]
+        if s.off > at:
+            parts.append(out[:, at:s.off].to(out_dtype))
+        parts.append((out[:, s.off:s.off + n].float() + lora_term(flat, s)).to(out_dtype))
+        at = s.off + n
+    if at < out.shape[1]:
+        parts.append(out[:, at:].to(out_dtype))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -1690,7 +1768,12 @@ def qmm_blocked(x: torch.Tensor, w, nb: int) -> torch.Tensor:
     tree_combine adds. An eligible packed weight takes kernel L or M (one
     dispatch for all blocks); a dense [K, N] tensor nb products of K/nb
     rows; nb = 0, a non-power-of-two nb, a K that does not split, or an
-    ineligible packed class: qmm."""
+    ineligible packed class: qmm. A LoraWrapped weight: its base through
+    this dispatch, then its runtime term (the reference's branch)."""
+    if nb and isinstance(w, LoraWrapped):
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        base = qmm_blocked(flat, w.base, nb)
+        return _with_lora(base, flat, w).reshape(*x.shape[:-1], -1)
     if nb and _parts_supported(w, nb):
         lead = x.shape[:-1]
         flat = x.reshape(-1, x.shape[-1]).contiguous()
@@ -1711,7 +1794,12 @@ def qmm_nblocked(x: torch.Tensor, w, nb: int, out_dtype=None) -> torch.Tensor:
     QuantTensorA8S, else kernel L at nb = 1); a dense [K, N] tensor nb
     column blocks of N/nb, each its own product; nb = 0, an N that does not
     split or an ineligible packed class: qmm (in x's dtype, as the
-    reference)."""
+    reference). A LoraWrapped weight: its base through this dispatch, then
+    its runtime term, the sum in out_dtype (the reference's branch)."""
+    if nb and isinstance(w, LoraWrapped):
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        base = qmm_nblocked(flat, w.base, nb)
+        return _with_lora(base, flat, w, out_dtype).reshape(*x.shape[:-1], -1)
     if nb and _pinned_supported(w):
         lead = x.shape[:-1]
         flat = x.reshape(-1, x.shape[-1]).contiguous()
@@ -1748,9 +1836,13 @@ def _quant_kernel_call(flat: torch.Tensor, w) -> torch.Tensor:
 def qmm(x: torch.Tensor, w) -> torch.Tensor:
     """x [..., K] @ W → [..., N] in x's dtype: a packed weight through its
     kernel (f32 accumulation inside), a dense [K, N] tensor through rows_mm
-    (f32 sums, each row's bits its own)."""
+    (f32 sums, each row's bits its own), a LoraWrapped weight its base and
+    then its runtime term (lora_term), added in f32 and cast back to x's
+    dtype as the reference does."""
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1]).contiguous()
+    if isinstance(w, LoraWrapped):
+        return _with_lora(qmm(flat, w.base), flat, w).reshape(*lead, -1)
     if isinstance(w, torch.Tensor):
         return rows_mm(flat, w).reshape(*lead, -1)
     out = _quant_kernel_call(flat, w)

@@ -25,8 +25,10 @@ scheduler, a loop call) share one memory pool: they never run at the same
 time, and nothing in the pool outlives a replay (inputs and outputs are
 static buffers made outside it). A graph's key holds the data pointers of
 the stores it writes, so a reallocated store is captured anew; `retain`
-drops the graphs of stores an owner no longer holds, and each graph holds
-the tensors its pointers point at.
+drops the graphs of stores an owner no longer holds, `retain_params` (at
+every call) those of a weights dict it no longer serves (an adapter or a
+control vector makes a new dict), and each graph holds the tensors its
+pointers point at.
 
 A capture first sets the inputs to pads (every slot is the store's spare
 slot, which nothing reads), then runs the step once eagerly on the capture
@@ -259,6 +261,16 @@ class StepGraphs:
         for key in [k for k in self._graphs if k[-1] != keep]:
             del self._graphs[key]
 
+    def retain_params(self, params) -> None:
+        """Drop every graph captured on another weights dict than `params`:
+        an adapter's attach or detach and a control vector make a new dict
+        (runtime/lora.py, Instance.apply_control_vector), and a graph of the
+        old one would replay the old work. Every step and loop call makes
+        this check, so an owner holds the graphs of one dict only."""
+        keep = id(params)
+        for key in [k for k in self._graphs if k[-2] != keep]:
+            del self._graphs[key]
+
     def pool_gib(self) -> float:
         return sum(c["gib"] for c in self.captures)
 
@@ -294,6 +306,7 @@ class StepGraphs:
 
     def prepare_step(self, st, params, cache, B: int, T: int) -> _Graph:
         """The graph of st.step at [B, T] on `cache`, captured if new."""
+        self.retain_params(params)
         key = ("step", st, B, T, dattn._HB, id(params), store_key(cache))
         return self._get(key, lambda: self._build_step(st, params, cache, B, T),
                          f"step B={B} T={T}")
@@ -384,6 +397,7 @@ class StepGraphs:
         [B, n, 10], claimed_vals [B, n, 10], full [B, n, V] f32; and
         logits [B, V], the last step's."""
         B = pos0.shape[0]
+        self.retain_params(params)
         key = ("loop", st, B, top, full, claimed is not None, dattn._HB, id(params),
                store_key(cache))
         g = self._get(key, lambda: self._build_loop(st, params, cache, B, top, full,

@@ -69,6 +69,12 @@ class Instance:
             raise NotImplementedError(
                 "ring (sequence-parallel) prefill is not ported "
                 "(ROADMAP.md §1 item 13, multi-GPU)")
+        if cfg.arch == "bert":
+            # the reference's Instance builds no step for an encoder-only
+            # file (blama_tpu/runtime/instance.py:168); bert embeds through
+            # runtime/embedding.InstanceEmbedding
+            raise NotImplementedError(
+                "bert has no decode step: use runtime.embedding.InstanceEmbedding")
         if cfg.arch == "gpt2" and kv_dtype == torch.int8:
             raise NotImplementedError(
                 "gpt2 on an INT8 KV store: the reference casts its float rows "
@@ -96,6 +102,7 @@ class Instance:
         self.graphs = (StepGraphs(self.device)
                        if self.params.graphs and self.device.type == "cuda" else False)
         self._session: Session | None = None
+        self._loras: list = []
 
     def _attention_mode(self, cfg, kv_dtype):
         """The step config's attention mode, as the reference's Instance
@@ -135,17 +142,75 @@ class Instance:
     def stop_session(self) -> None:
         self._session = None
 
-    # -- adapters --------------------------------------------------------------
+    # -- adapters (Instance.cpp:52-84) -----------------------------------------
+
+    def _folds(self) -> bool:
+        """Whether adapters fold into the weights (the dense engines) or run
+        as runtime terms (the packed engines), as the reference's two modes;
+        gpt2 is refused (its fused attn_qkv has no 'wq' for the reference's
+        fold to look up: a KeyError there)."""
+        from .model import DENSE_ENGINES
+
+        if self.model.config.arch == "gpt2":
+            raise NotImplementedError(
+                "LoRA on a gpt2 model: the reference's fold looks up the "
+                "stacked 'wq', which gpt2's attn_qkv layout lacks, and raises "
+                "KeyError; the port refuses it too (ROADMAP.md §3)")
+        return self.model.params.dtype in DENSE_ENGINES
 
     def add_lora(self, adapter, scale: float = 1.0) -> None:
-        raise NotImplementedError("LoRA adapters are not ported (ROADMAP.md §1 item 11)")
+        """Attach a LoRA adapter (llama_set_adapter_lora): folded into the
+        dense engines' weights in place, or a runtime term beside the packed
+        engines' kernels in a new weights dict (runtime/lora.py)."""
+        from .lora import apply_lora
+
+        self.model.weights = apply_lora(self.model.weights, adapter, scale, +1.0,
+                                        fold=self._folds())
+        self._loras.append((adapter, scale))
 
     def clear_lora_state(self) -> None:
-        raise NotImplementedError("LoRA adapters are not ported (ROADMAP.md §1 item 11)")
+        """Remove every attached adapter (llama_clear_adapter_lora): the
+        packed engines' bare weights come back bit for bit, the dense
+        engines' within rounding (the fold is undone by subtraction)."""
+        from .lora import apply_lora
+
+        if not self._loras:
+            return
+        fold = self._folds()
+        for adapter, scale in self._loras:
+            self.model.weights = apply_lora(self.model.weights, adapter, scale, -1.0,
+                                            fold=fold)
+        self._loras.clear()
 
     def apply_control_vector(self, cvec, layer_start: int = 1,
                              layer_end: int | None = None) -> None:
-        raise NotImplementedError("control vectors are not ported (ROADMAP.md §1 item 11)")
+        """Attach (or with cvec=None detach) a control vector
+        (llama_apply_adapter_cvec, Instance.cpp:73-84): each layer's bias
+        [n_embd] in the embedding table's dtype (bf16 for a packed table,
+        the reference's QuantEmbedding.dtype), added after the layer's
+        residual; the weights become a new dict with new layer dicts. A MoE
+        or gpt2 model is refused: the reference's forwards for them never
+        read the bias, so it would serve the model unsteered."""
+        cfg = self.model.config
+        if cvec is not None and (cfg.is_moe or cfg.arch == "gpt2"):
+            raise NotImplementedError(
+                f"control vectors on a {'MoE' if cfg.is_moe else 'gpt2'} model: the "
+                "reference's forward never reads the bias and serves the model "
+                "unsteered; the port refuses rather than drop it (ROADMAP.md §3)")
+        w = self.model.weights
+        if cvec is not None:
+            end = layer_end if layer_end is not None else cfg.n_layer
+            bias = torch.from_numpy(cvec.as_layer_bias(cfg.n_layer, layer_start, end)).to(
+                self.device, w["tok_emb"].dtype)
+        layers = []
+        for li, p in enumerate(w["layers"]):
+            p = dict(p)
+            if cvec is None:
+                p.pop("cvec", None)
+            else:
+                p["cvec"] = bias[li]
+            layers.append(p)
+        self.model.weights = {**w, "layers": layers}
 
     def warmup(self) -> None:
         """Single decode of [BOS, EOS] then clear (Instance.cpp:86-119). As

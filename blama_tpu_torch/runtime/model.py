@@ -35,11 +35,14 @@ DENSE_ENGINES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the engines that serve a MoE (Mixtral-family) file: packed Q4_K expert banks
 # for the exact engine and for W4A8 (models/moe.load_moe_params)
 MOE_ENGINES = {"q4k_fused": True, "q4k_a8": "a8"}
-# a gpt2 file loads dense under every engine name, as in the reference
-# (blama_tpu/runtime/model.py:100-105): bf16 under `bfloat16` and the packed
-# engines' names, f32 under `float32` (models/gpt2.load_gpt2_params)
-GPT2_DTYPES = {**{name: torch.bfloat16 for name in ENGINES},
-               "bfloat16": torch.bfloat16, "float32": torch.float32}
+# the architectures Model opens besides the llama family's: a gpt2 or bert
+# file loads dense under every engine name, as in the reference
+# (blama_tpu/runtime/model.py:95-105, :157-160): bf16 under `bfloat16` and
+# the packed engines' names, f32 under `float32` (models/gpt2.load_gpt2_params,
+# models/bert.load_bert_params)
+OTHER_ARCHS = ("gpt2", "bert")
+OTHER_ARCH_DTYPES = {**{name: torch.bfloat16 for name in ENGINES},
+                     "bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclass
@@ -83,10 +86,11 @@ class Model:
         self.config.tp_blocks = 0 if tpb < 0 else tpb
         from ..models.llama import ARCHS
 
-        if self.config.arch not in ARCHS + ("gpt2",):
+        if self.config.arch not in ARCHS + OTHER_ARCHS:
             raise NotImplementedError(
-                f"architecture {self.config.arch!r} is not ported "
-                "(ROADMAP.md §1 item 12, other families)")
+                f"architecture {self.config.arch!r} is not ported: the port opens "
+                f"{sorted(ARCHS + OTHER_ARCHS)}; t5 (with the Session's encoder "
+                "step) heads ROADMAP.md §1 item 12")
         if self.config.is_moe and self.params.attn == "fused":
             # the reference's refusal: fused attention is a verification
             # mode, and the MoE forward runs the two-pass chain only
@@ -110,8 +114,8 @@ class Model:
             self.weights = self._load_weights(progress_cb)
 
     def _load_weights(self, progress_cb: ModelLoadProgressCb | None):
-        if self.config.arch == "gpt2":
-            return self._load_gpt2(progress_cb)
+        if self.config.arch in OTHER_ARCHS:
+            return self._load_dense_arch(progress_cb)
         engines = MOE_ENGINES if self.config.is_moe else {**ENGINES, **DENSE_ENGINES}
         if self.params.dtype not in engines:
             raise NotImplementedError(
@@ -140,17 +144,21 @@ class Model:
             progress_cb(1.0)
         return w
 
-    def _load_gpt2(self, progress_cb: ModelLoadProgressCb | None):
-        if self.params.dtype not in GPT2_DTYPES:
+    def _load_dense_arch(self, progress_cb: ModelLoadProgressCb | None):
+        """gpt2 and bert: dense weights at the dtype each engine name maps to."""
+        if self.params.dtype not in OTHER_ARCH_DTYPES:
             raise NotImplementedError(
                 f"dtype={self.params.dtype!r} is not ported; the port serves "
-                f"{sorted(GPT2_DTYPES)} (ROADMAP.md §1 item 9, other engines)")
-        from ..models.gpt2 import load_gpt2_params
+                f"{sorted(OTHER_ARCH_DTYPES)} (ROADMAP.md §1 item 9, other engines)")
+        if self.config.arch == "gpt2":
+            from ..models.gpt2 import load_gpt2_params as load
+        else:
+            from ..models.bert import load_bert_params as load
 
         if progress_cb:
             progress_cb(0.0)
-        w = load_gpt2_params(self.reader, self.config, GPT2_DTYPES[self.params.dtype],
-                             device=self.device, progress_cb=progress_cb)
+        w = load(self.reader, self.config, OTHER_ARCH_DTYPES[self.params.dtype],
+                 device=self.device, progress_cb=progress_cb)
         if progress_cb:
             progress_cb(1.0)
         return w

@@ -800,6 +800,186 @@ def write_tiny_moe(path: str, seed: int = 77, n_expert: int = 4,
 
 
 # ---------------------------------------------------------------------------
+# bert (embeddings), LoRA adapters and control vectors
+# ---------------------------------------------------------------------------
+
+def _bert_vocab(n_vocab: int | None = None) -> tuple[list[str], list[int], list[float]]:
+    """The JAX package's tiny bert vocabulary (an SPM one: [PAD] [UNK] [CLS]
+    [SEP], 256 byte tokens, three words), padded with numbered pieces to
+    n_vocab."""
+    tokens = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"]
+    types = [TT_CONTROL, TT_UNKNOWN, TT_CONTROL, TT_CONTROL]
+    scores = [0.0] * 4
+    for b in range(256):
+        tokens.append(f"<0x{b:02X}>")
+        types.append(TT_BYTE)
+        scores.append(-1e6)
+    for w in ["▁hello", "▁world", "▁the"]:
+        tokens.append(w)
+        types.append(TT_NORMAL)
+        scores.append(-5.0)
+    for i in range((n_vocab or len(tokens)) - len(tokens)):
+        tokens.append(f"▁tok{i}")
+        types.append(TT_NORMAL)
+        scores.append(-10.0)
+    return tokens, types, scores
+
+
+# bge-small-en-v1.5 (BAAI/bge-small-en-v1.5 config.json: BertModel, hidden
+# 384, 12 layers, 12 heads, intermediate 1536, vocab 30522, 512 positions,
+# layer_norm_eps 1e-12; CLS pooling, as its sentence-transformers config)
+BERT_PRESETS = {
+    "tiny": dict(n_layer=2, n_embd=64, n_head=4, n_ff=128, n_ctx=512, n_vocab=None),
+    "bge-small-en-v1.5": dict(n_layer=12, n_embd=384, n_head=12, n_ff=1536, n_ctx=512,
+                              n_vocab=30522),
+}
+
+
+def write_tiny_bert(path: str, seed: int = 99, pooling_type: int = 2,
+                    preset: str = "tiny") -> None:
+    """BERT-architecture GGUF for the embeddings path, F32 tensors: "tiny"
+    is the JAX package's fixture of the same name (the same file from the
+    same seed), "bge-small-en-v1.5" the same layout at that model's widths
+    (its SPM stand-in vocabulary padded to 30522)."""
+    s = BERT_PRESETS[preset]
+    E, H, F, L = s["n_embd"], s["n_head"], s["n_ff"], s["n_layer"]
+    tokens, types, scores = _bert_vocab(s["n_vocab"])
+    n_vocab = len(tokens)
+    rng = np.random.default_rng(seed)
+
+    def w(shape, scale=None):
+        scale = scale if scale is not None else (1.0 / np.sqrt(shape[-1]))
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    g = GGUFWriter(path)
+    g.add_kv("general.architecture", "bert")
+    g.add_kv("bert.block_count", L)
+    g.add_kv("bert.embedding_length", E)
+    g.add_kv("bert.feed_forward_length", F)
+    g.add_kv("bert.attention.head_count", H)
+    g.add_kv("bert.attention.layer_norm_epsilon", 1e-12)
+    g.add_kv("bert.context_length", s["n_ctx"])
+    g.add_kv("bert.vocab_size", n_vocab)
+    g.add_kv("bert.pooling_type", pooling_type)
+    g.add_kv("tokenizer.ggml.model", "llama")
+    g.add_kv("tokenizer.ggml.tokens", tokens)
+    g.add_kv("tokenizer.ggml.scores", scores)
+    g.add_kv("tokenizer.ggml.token_type", types)
+    g.add_kv("tokenizer.ggml.bos_token_id", 2)
+    g.add_kv("tokenizer.ggml.eos_token_id", 3)
+    g.add_kv("tokenizer.ggml.unknown_token_id", 1)
+
+    g.add_tensor("token_embd.weight", w((n_vocab, E), 0.05))
+    g.add_tensor("token_types.weight", w((2, E), 0.02))
+    g.add_tensor("position_embd.weight", w((s["n_ctx"], E), 0.02))
+    g.add_tensor("token_embd_norm.weight", np.ones(E, np.float32))
+    g.add_tensor("token_embd_norm.bias", np.zeros(E, np.float32))
+    for i in range(L):
+        g.add_tensor(f"blk.{i}.attn_q.weight", w((E, E)))
+        g.add_tensor(f"blk.{i}.attn_q.bias", np.zeros(E, np.float32))
+        g.add_tensor(f"blk.{i}.attn_k.weight", w((E, E)))
+        g.add_tensor(f"blk.{i}.attn_k.bias", np.zeros(E, np.float32))
+        g.add_tensor(f"blk.{i}.attn_v.weight", w((E, E)))
+        g.add_tensor(f"blk.{i}.attn_v.bias", np.zeros(E, np.float32))
+        g.add_tensor(f"blk.{i}.attn_output.weight", w((E, E)))
+        g.add_tensor(f"blk.{i}.attn_output.bias", np.zeros(E, np.float32))
+        g.add_tensor(f"blk.{i}.attn_output_norm.weight", np.ones(E, np.float32))
+        g.add_tensor(f"blk.{i}.attn_output_norm.bias", np.zeros(E, np.float32))
+        g.add_tensor(f"blk.{i}.ffn_up.weight", w((F, E)))
+        g.add_tensor(f"blk.{i}.ffn_up.bias", np.zeros(F, np.float32))
+        g.add_tensor(f"blk.{i}.ffn_down.weight", w((E, F)))
+        g.add_tensor(f"blk.{i}.ffn_down.bias", np.zeros(E, np.float32))
+        g.add_tensor(f"blk.{i}.layer_output_norm.weight", np.ones(E, np.float32))
+        g.add_tensor(f"blk.{i}.layer_output_norm.bias", np.zeros(E, np.float32))
+    g.write()
+
+
+def cached_bert_gguf(preset: str = "bge-small-en-v1.5", seed: int = 99) -> str:
+    """Path of write_tiny_bert(preset=preset, seed=seed) in the temp
+    directory, written once (atomically) and reused by later runs."""
+    return _cached(f"blama_tpu_torch-bert-{preset}-seed{seed}.gguf",
+                   lambda p: write_tiny_bert(p, seed=seed, preset=preset))
+
+
+# the seven llama projections an adapter may target (llama.cpp's names)
+LORA_TARGETS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up", "ffn_down")
+# LoRA recipes, (rank, alpha, targets): PEFT's LoraConfig defaults on a llama
+# (r 16 as commonly set, alpha 32, target_modules q_proj / v_proj) and the
+# QLoRA paper's "all-linear" recipe (r 64, alpha 16, every linear layer)
+LORA_RECIPES = {
+    "peft-default": (16, 32.0, ("attn_q", "attn_v")),
+    "all-linear": (64, 16.0, LORA_TARGETS),
+}
+
+
+def lora_shapes(E: int, H: int, HKV: int, F: int, D: int | None = None) -> dict:
+    """(n_out, n_in) of each llama projection."""
+    D = D or E // H
+    return {"attn_q": (H * D, E), "attn_k": (HKV * D, E), "attn_v": (HKV * D, E),
+            "attn_output": (E, H * D), "ffn_gate": (F, E), "ffn_up": (F, E),
+            "ffn_down": (E, F)}
+
+
+def write_tiny_lora(path: str, n_layer: int = 2, n_embd: int = 256, r: int = 4,
+                    alpha: float = 8.0, seed: int = 5, targets=("attn_q",),
+                    shapes: dict | None = None, a_scale: float = 0.05,
+                    b_scale: float = 0.05) -> None:
+    """A LoRA GGUF in llama.cpp's layout (F32 `blk.N.<name>.weight.lora_a`
+    [r, n_in] and `.lora_b` [n_out, r], `adapter.lora.alpha`): the JAX
+    package's test fixture (attn_q of an n_embd-wide model) with the
+    defaults, any of LORA_TARGETS with `shapes` (lora_shapes). a_scale None
+    draws a at 1/sqrt(n_in)."""
+    rng = np.random.default_rng(seed)
+    shapes = shapes or {"attn_q": (n_embd, n_embd)}
+    w = GGUFWriter(path)
+    w.add_kv("general.architecture", "llama")
+    w.add_kv("general.type", "adapter")
+    w.add_kv("adapter.type", "lora")
+    w.add_kv("adapter.lora.alpha", alpha)
+    for i in range(n_layer):
+        for t in targets:
+            n_out, n_in = shapes[t]
+            sa = a_scale if a_scale is not None else 1.0 / np.sqrt(n_in)
+            a = (rng.standard_normal((r, n_in)) * sa).astype(np.float32)
+            b = (rng.standard_normal((n_out, r)) * b_scale).astype(np.float32)
+            w.add_tensor(f"blk.{i}.{t}.weight.lora_a", a, GGMLType.F32)
+            w.add_tensor(f"blk.{i}.{t}.weight.lora_b", b, GGMLType.F32)
+    w.write()
+
+
+def cached_lora_gguf(recipe: str, preset: str = "llama3-8b", n_layer: int | None = None,
+                     seed: int = 13) -> str:
+    """A LoRA GGUF of LORA_RECIPES[recipe] for the llama preset's widths
+    (every layer, or the first n_layer), a drawn at 1/sqrt(n_in) and b at
+    0.02, in the temp directory, written once and reused by later runs."""
+    r, alpha, targets = LORA_RECIPES[recipe]
+    s = MODEL_PRESETS[preset]
+    L = n_layer or s["n_layer"]
+    shapes = lora_shapes(s["n_embd"], s["n_head"], s["n_head_kv"], s["n_ff"], s.get("head_dim"))
+    return _cached(f"blama_tpu_torch-lora-{recipe}-{preset}-L{L}-seed{seed}.gguf",
+                   lambda p: write_tiny_lora(p, n_layer=L, r=r, alpha=alpha, seed=seed,
+                                             targets=targets, shapes=shapes, a_scale=None,
+                                             b_scale=0.02))
+
+
+def cached_control_vector(preset: str = "llama3-8b", seed: int = 17,
+                          scale: float = 0.25) -> str:
+    """A control-vector GGUF as llama.cpp's cvector-generator writes one for
+    the preset: `direction.1` ... `direction.{n_layer - 1}`, each F32
+    [n_embd], drawn at `scale` an element; in the temp directory, written
+    once and reused by later runs."""
+    from .runtime.control_vector import write_control_vector
+
+    s = MODEL_PRESETS[preset]
+
+    def write(path):
+        rng = np.random.default_rng(seed)
+        write_control_vector(path, {i: (rng.standard_normal(s["n_embd"]) * scale)
+                                    .astype(np.float32) for i in range(1, s["n_layer"])})
+    return _cached(f"blama_tpu_torch-cvec-{preset}-seed{seed}.gguf", write)
+
+
+# ---------------------------------------------------------------------------
 # graphed against eager launches (ops/step_graph.py)
 # ---------------------------------------------------------------------------
 

@@ -99,11 +99,25 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    bit for bit (where a resumed row first leaves the uncontended tokens, the
    margin and the drift there are logged); dense rows (kernels C and D on bf16)
    must give the paged run's tokens;
+   then the adapters phase on the solo model: PEFT's rank-16 LoRA on
+   attn_q / attn_v and the all-linear rank-64 one (testing.LORA_RECIPES,
+   llama.cpp's F32 layout at the 8B widths) attached as runtime terms
+   beside kernels A and B, then an 8B control vector (direction.1 ...
+   direction.31): under each, the solo requests' prompts proven (+ 32
+   tokens) and replayed at exactly 1.0 with tokens that differ from the bare
+   run's, the steps and loops graphed equal to eager launches, the graphed
+   decode step timed and the LoRA terms a step counted, attach and detach
+   timed, and after the detach the bare run's tokens and top-10 bit for
+   bit; then the embeddings phase: a bert at bge-small-en-v1.5's widths
+   (`float32`) at T = 8, 128 and 512, ms an embedding, the same bits for
+   the same input and within BERT_CARD_TOL of the CPU's embedding, and the
+   8B decoder path at T = 128 and 512 (kernels B and D);
    then the fuse phase: the solo model's graphed decode timed, and the same
    file loaded under BLAMA_FUSE_PROJ=1 (wqkv, wgu) and BLAMA_FUSE_KV=1
    (wkv), each proving the solo requests' prompts with the unfused records'
    tokens and top-10 bit for bit, replaying them at 1.0, its graphed decode
-   timed;
+   timed, and with each attachment of the adapters phase the unfused
+   model's records under it bit for bit;
    then the head-dim-96 phase: a phi3 file at Phi-3-mini's widths (head dim
    96, 32 / 32 heads, fused attn_qkv and [gate; up]; testing.MODEL_PRESETS
    ["phi3-mini"]) cut to HD96_LAYERS layers, `q4k_a8`, two solo requests on
@@ -176,7 +190,10 @@ Builds the port's CUDA kernels from the checkout (nvcc, sm_90a), then:
    (E and F at f32 queries), verified at 1.0, and the decode-attention
    modes on that model (write on INT8, bf16 and f32 stores, fresh on INT8,
    head-batched on bf16 and f32: N, P and O at f32 queries, the modes
-   phase's checks, and the dense scheduler in write mode); Q5_K_M- and
+   phase's checks, and the dense scheduler in write mode), and PEFT's
+   rank-16 LoRA at that depth folded into its f32 weights in place (no
+   weight moves), the three requests replayed at 1.0 with tokens that
+   differ from the bare run's, then unfolded; Q5_K_M- and
    Q3_K_M-pattern
    files at ENGINE_FILE_LAYERS layers, each GGML type's values dequantized
    on the card equal to the numpy function's, loaded as `bfloat16` and
@@ -3168,7 +3185,7 @@ def solo_phase(torch, model, kind, record):
 DENSE_REQUESTS = ((128, 16), (5, 16), (3, 8))
 
 
-def _dense_solo(torch, model, kind, where, needs, requests=DENSE_REQUESTS):
+def _dense_solo(torch, model, kind, where, needs, requests=DENSE_REQUESTS, record=None):
     """One solo Instance at the reference's defaults (InstanceInitParams():
     f32 KV rows) proves and replays `requests`, each replay exactly 1.0; the
     attention kernels `needs` must have launched (none at all under
@@ -3187,7 +3204,7 @@ def _dense_solo(torch, model, kind, where, needs, requests=DENSE_REQUESTS):
     results = []
     for n_prompt, n_gen in requests:
         prompt = [1] + rng.integers(259, model.config.n_vocab, n_prompt - 1).tolist()
-        r = prove_and_verify(inst, prompt, n_gen)
+        r = prove_and_verify(inst, prompt, n_gen, record)
         log(f"{where} request {r} on {kind}")
         if r["score"] != 1.0:
             raise AssertionError(f"{where}: same-backend replay scored {r['score']}, not 1.0")
@@ -3348,6 +3365,45 @@ def _dequant_on_card(torch, path):
     return out
 
 
+def _dense_fold(torch, model, kind, needs, bare_record):
+    """The dense engines' LoRA on the float32 model: PEFT's recipe
+    (testing.LORA_RECIPES["peft-default"]) at the model's depth folded into
+    the weights in place (attach timed; no weight moves), the bare run's
+    requests proven again, each replayed at exactly 1.0, their tokens not
+    the bare run's; then the fold undone (by subtraction, as the
+    reference)."""
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.lora import LoraAdapter
+    from blama_tpu_torch.testing import cached_lora_gguf
+
+    t0 = time.perf_counter()
+    adapter = LoraAdapter(cached_lora_gguf("peft-default", n_layer=model.config.n_layer))
+    read_s = time.perf_counter() - t0
+    owner = Instance(model, InstanceInitParams(ctx_size=256, graphs=False))
+    ptrs = [p["wq"].data_ptr() for p in model.weights["layers"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    owner.add_lora(adapter, 1.0)
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    if [p["wq"].data_ptr() for p in model.weights["layers"]] != ptrs:
+        raise AssertionError("dense fold: a weight moved")
+    record = []
+    res, launches = _dense_solo(torch, model, kind, "dense float32 + lora fold", needs,
+                                record=record)
+    tokens = [[p.token for p in preds] for _, preds in record]
+    if tokens == [[p.token for p in preds] for _, preds in bare_record]:
+        raise AssertionError("dense fold: the tokens are the bare model's")
+    t0 = time.perf_counter()
+    owner.clear_lora_state()
+    torch.cuda.synchronize()
+    clear_s = time.perf_counter() - t0
+    log(f"dense float32 + lora fold: read {read_s:.2f} s, attach {attach_s:.3f} s, clear "
+        f"{clear_s:.3f} s; replays 1.0, tokens differ from the bare run's")
+    return dict(read_s=read_s, attach_s=attach_s, clear_s=clear_s, requests=res,
+                launches=launches)
+
+
 def dense_phase(torch, kind):
     """The reference's defaults on the card: the `bfloat16` engine on the
     llama3-8b all-Q4_K file (seed 7, dequantized at load) at full depth,
@@ -3384,7 +3440,9 @@ def dense_phase(torch, kind):
     for attn in ("fused", "xla"):
         model, load_s = _dense_model(torch, path8, "float32", attn, kind)
         needs = ("decode_attention_f32q", "prefill_attention_f32q") if attn == "fused" else ()
-        res, launches = _dense_solo(torch, model, kind, f"dense float32 {attn}", needs)
+        bare_record = []
+        res, launches = _dense_solo(torch, model, kind, f"dense float32 {attn}", needs,
+                                    record=bare_record)
         out[f"float32 {attn}"] = dict(load_s=load_s, requests=res, launches=launches)
         if attn == "fused":
             out["float32 fused"]["report"] = step_report(torch, model, "dense float32",
@@ -3397,6 +3455,7 @@ def dense_phase(torch, kind):
             out["float32 modes"] = modes_phase(torch, model, kind, F32_MODE_RUNS, "_f32q",
                                                solo_http=False)
             log(f"dense float32 modes took {time.perf_counter() - t_modes:.1f} s")
+            out["float32 lora fold"] = _dense_fold(torch, model, kind, needs, bare_record)
         model = _free(torch, model)
     out["default server"] = _default_http_server(torch, path8, kind)
     log(f"dense float32 done in {time.perf_counter() - t_phase:.1f} s")
@@ -3432,12 +3491,247 @@ def _graphed_decode(torch, model):
     del steps, held
     torch.cuda.empty_cache()
     out = {k: m[k] for k in ("wall_ms_per_step", "device_span_ms_per_step",
-                             "device_busy_ms_per_step", "idle_share")}
+                             "device_busy_ms_per_step", "device_launches_per_step",
+                             "idle_share")}
     out["decode_tok_s"] = 1e3 / m["wall_ms_per_step"]
     return out
 
 
-def fuse_phase(torch, kind, model, record):
+# the adapters phase: tokens proven after each of the solo record's prompts,
+# and the control vector's strength
+ADAPTER_GEN = 32
+CVEC_STRENGTH = 1.0
+
+
+def _lora_terms(weights) -> int:
+    """The runtime LoRA terms a decode step computes: one per segment of a
+    wrapped weight, each two library products (quant_matmul.lora_term)."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+
+    return sum(len(w.segments) for p in weights["layers"] for w in p.values()
+               if isinstance(w, qm.LoraWrapped))
+
+
+def _solo_inst(model):
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+
+    return Instance(model, InstanceInitParams(ctx_size=2048, flash_attn=True, kv_dtype="int8"))
+
+
+def _attached_run(torch, model, where, bare_record):
+    """What is attached to `model`, on one solo Instance (INT8 store, fused
+    attention, ctx 2048): the bare record's prompts proven, ADAPTER_GEN
+    tokens each, every replay on the same instance exactly 1.0, kernels A-D
+    launched, the tokens not the bare record's; then the steps and loops
+    graphed equal to eager launches (loops_equal). Returns (results,
+    record, launches)."""
+    from blama_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    inst = _solo_inst(model)
+    record, results = [], []
+    for prompt, _ in bare_record:
+        r = prove_and_verify(inst, prompt, ADAPTER_GEN, record)
+        if r["score"] != 1.0:
+            raise AssertionError(f"{where}: same-backend replay scored {r['score']}, not 1.0")
+        results.append(r)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require_launched(launches, ("w4a8_gemv", "q4k_dequant_matmul", "decode_attention",
+                                "prefill_attention"), where)
+    tokens = [[p.token for p in preds] for _, preds in record]
+    bare = [[p.token for p in preds] for _, preds in bare_record]
+    if all(t[:len(b)] == b for t, b in zip(tokens, bare, strict=True)):
+        raise AssertionError(f"{where}: the tokens are the bare model's")
+    del inst
+    torch.cuda.empty_cache()
+    loops_equal(torch, model, where)
+    log(f"{where}: {len(record)} requests replayed at 1.0, tokens differ from the bare run's, "
+        f"decode {[round(r['decode_tok_s'], 1) for r in results]} tok/s")
+    return results, record, launches
+
+
+def _bare_again(torch, model, where, bare_record):
+    """After a detach: the bare record's prompts give its tokens and
+    top-10 bit for bit."""
+    inst = _solo_inst(model)
+    mine = []
+    for prompt, preds in bare_record:
+        prove_and_verify(inst, prompt, len(preds), mine)
+    if _record_bits(mine) != _record_bits(bare_record):
+        raise AssertionError(f"{where}: tokens or top-10 differ from the bare run's")
+    del inst
+    torch.cuda.empty_cache()
+    log(f"{where}: the bare run's tokens and top-10 bit for bit")
+
+
+def adapters_phase(torch, kind, model, bare_record):
+    """LoRA adapters and a control vector on the solo phase's model (`q4k_a8`
+    on the llama3-8b file, 32 layers, fused attention), whose bare records
+    are `bare_record`: each of testing.LORA_RECIPES at the 8B widths (PEFT's
+    rank 16 on attn_q / attn_v of every layer; the all-linear rank 64, w_down
+    at K = 14336), synthesized from a seed, read (LoraAdapter) and attached
+    as runtime terms beside kernels A and B (attach and detach timed); then
+    testing.cached_control_vector (direction.1 ... direction.31) at
+    CVEC_STRENGTH. Under each: _attached_run (replays 1.0, tokens moved,
+    graphed = eager), the graphed decode step timed (_graphed_decode) and
+    its LoRA terms counted; detached, the bare run's bits again. Returns
+    (the report, the attachments with their records for the fuse phase)."""
+    from blama_tpu_torch.runtime.control_vector import ControlVector, ControlVectorLoadInfo
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.lora import LoraAdapter
+    from blama_tpu_torch.testing import LORA_RECIPES, cached_control_vector, cached_lora_gguf
+
+    t_phase = time.perf_counter()
+    out = {"bare": _graphed_decode(torch, model)}
+    log(f"adapters: bare graphed decode {out['bare']['decode_tok_s']:.1f} tok/s "
+        f"({out['bare']['device_launches_per_step']} device launches a step)")
+    # the Instance that attaches and clears (it keeps the attach list)
+    owner = Instance(model, InstanceInitParams(ctx_size=256, kv_dtype="int8", graphs=False))
+    attachments = []
+    for recipe, (rank, alpha, targets) in LORA_RECIPES.items():
+        t0 = time.perf_counter()
+        path = Path(cached_lora_gguf(recipe))
+        synth_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        adapter = LoraAdapter(str(path))
+        read_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        owner.add_lora(adapter, 1.0)
+        torch.cuda.synchronize()
+        attach_s = time.perf_counter() - t0
+        terms = _lora_terms(model.weights)
+        where = f"lora {recipe}"
+        results, record, launches = _attached_run(torch, model, where, bare_record)
+        decode = _graphed_decode(torch, model)
+        t0 = time.perf_counter()
+        owner.clear_lora_state()
+        torch.cuda.synchronize()
+        clear_s = time.perf_counter() - t0
+        _bare_again(torch, model, f"{where} cleared", bare_record)
+        bare_n, n = out["bare"]["device_launches_per_step"], decode["device_launches_per_step"]
+        out[recipe] = dict(rank=rank, alpha=alpha, targets=list(targets),
+                           file_gib=path.stat().st_size / 2 ** 30, synth_s=synth_s,
+                           read_s=read_s, attach_s=attach_s, clear_s=clear_s,
+                           lora_terms_per_step=terms, lora_products_per_step=2 * terms,
+                           launches_added_per_step=(n - bare_n) if n and bare_n else None,
+                           requests=results, launches=launches, **decode)
+        log(f"{where}: rank {rank}, {terms} terms a step ({2 * terms} products); read "
+            f"{read_s:.2f} s, attach {attach_s:.3f} s, clear {clear_s:.3f} s; graphed decode "
+            f"{decode['decode_tok_s']:.1f} tok/s against {out['bare']['decode_tok_s']:.1f} bare, "
+            f"{out[recipe]['launches_added_per_step']} device launches a step more")
+        attachments.append((where, lambda inst, a=adapter: inst.add_lora(a, 1.0),
+                            lambda inst: inst.clear_lora_state(), record))
+    cv = ControlVector(ControlVectorLoadInfo(cached_control_vector(), CVEC_STRENGTH))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    owner.apply_control_vector(cv)
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    results, record, launches = _attached_run(torch, model, "cvec", bare_record)
+    decode = _graphed_decode(torch, model)
+    owner.apply_control_vector(None)
+    _bare_again(torch, model, "cvec detached", bare_record)
+    out["cvec"] = dict(layers=len(cv.directions), strength=CVEC_STRENGTH, attach_s=attach_s,
+                       requests=results, launches=launches, **decode)
+    log(f"cvec: {len(cv.directions)} directions, attach {attach_s:.3f} s; graphed decode "
+        f"{decode['decode_tok_s']:.1f} tok/s")
+    attachments.append(("cvec", lambda inst: inst.apply_control_vector(cv),
+                        lambda inst: inst.apply_control_vector(None), record))
+    del owner
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"adapters phase took {out['seconds']:.1f} s")
+    return out, attachments
+
+
+# the embeddings phase: the bge-small-width bert's and the 8B decoder path's
+# prompt lengths, timed calls a length, and the bert's card-vs-CPU bound
+EMBED_BERT_T = (8, 128, 512)
+EMBED_DECODER_T = (128, 512)
+EMBED_REPS = 5
+# absolute, on unit vectors: the card's f32 products (cuBLAS, no TF32)
+# against the CPU's, summed in other orders
+BERT_CARD_TOL = 1e-4
+
+
+def _embed_ms(torch, emb, prompt, where):
+    """(the vector, ms per embedding: the median wall of EMBED_REPS calls
+    after a first one, the card synchronized); every call's bits equal the
+    first's, the vector finite and of unit norm."""
+    import numpy as np
+
+    first = emb.get_embedding_vector(prompt)
+    times = []
+    for _ in range(EMBED_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = emb.get_embedding_vector(prompt)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if not np.array_equal(v, first):
+            raise AssertionError(f"{where}: the same input gave other bits")
+    if not np.isfinite(first).all() or abs(float(np.linalg.norm(first)) - 1.0) > 1e-4:
+        raise AssertionError(f"{where}: not a finite unit vector")
+    return first, sorted(times)[EMBED_REPS // 2]
+
+
+def embeddings_phase(torch, kind, model):
+    """InstanceEmbedding on the card. A bert at bge-small-en-v1.5's widths
+    (testing.cached_bert_gguf: 12 layers, 384 wide, 12 heads, FFN 1536,
+    vocab 30522, CLS pooling), loaded with the reference's defaults
+    (`float32`), embeds prompts of EMBED_BERT_T tokens: ms per embedding,
+    equal bits for the same input, and within BERT_CARD_TOL of the same
+    file's embedding on the CPU. The decoder path on the solo phase's 8B
+    `q4k_a8` model (fused attention) at EMBED_DECODER_T tokens: ms per
+    embedding, and B and D in its launches (the prompt's projections and
+    attention over the fresh f32 store)."""
+    import numpy as np
+
+    from blama_tpu_torch.ops import kernels
+    from blama_tpu_torch.runtime.embedding import InstanceEmbedding
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+    from blama_tpu_torch.testing import cached_bert_gguf
+
+    t_phase, out = time.perf_counter(), {}
+    rng = np.random.default_rng(41)
+    path = cached_bert_gguf()
+    bm, cm = Model(path), Model(path, ModelParams(device="cpu"))
+    c = bm.config
+    if (c.n_layer, c.n_embd, c.n_head, c.n_ff, c.n_vocab, c.pooling_type) != (
+            12, 384, 12, 1536, 30522, 2):
+        raise AssertionError(f"bge-small geometry: {c}")
+    card, cpu = InstanceEmbedding(bm), InstanceEmbedding(cm)
+    for T in EMBED_BERT_T:
+        prompt = [2] + rng.integers(263, c.n_vocab, T - 1).tolist()
+        v, ms = _embed_ms(torch, card, prompt, f"bert T={T}")
+        err = float(np.abs(v - cpu.get_embedding_vector(prompt)).max())
+        if err > BERT_CARD_TOL:
+            raise AssertionError(f"bert T={T}: card vs CPU {err} > {BERT_CARD_TOL}")
+        out[f"bert T={T}"] = dict(ms=ms, max_abs_err_vs_cpu=err, tol=BERT_CARD_TOL)
+        log(f"embeddings: bge-small-width bert T={T}: {ms:.2f} ms an embedding on {kind}, "
+            f"card vs CPU {err:.2e}")
+    for m in (bm, cm):
+        _free(torch, m)
+    dec = InstanceEmbedding(model)
+    for T in EMBED_DECODER_T:
+        prompt = [1] + rng.integers(259, model.config.n_vocab, T - 1).tolist()
+        kernels.reset_launches()
+        dec.get_embedding_vector(prompt)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        require_launched(kernels.LAUNCHES, ("q4k_dequant_matmul", "prefill_attention"),
+                         f"the decoder embedding path at T={T}")
+        _, ms = _embed_ms(torch, dec, prompt, f"decoder T={T}")
+        out[f"decoder T={T}"] = dict(ms=ms, launches=launches)
+        log(f"embeddings: 8B q4k_a8 decoder path T={T}: {ms:.2f} ms an embedding on {kind}, "
+            f"launches {launches}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"embeddings phase took {out['seconds']:.1f} s")
+    return out
+
+
+def fuse_phase(torch, kind, model, record, adapter_records=()):
     """The reference's fused projection layouts on the main path's engine:
     `q4k_a8` on the llama3-8b file at full depth (32 layers). `model` is the
     solo phase's (unfused) model and `record` its records; the file is
@@ -3448,7 +3742,12 @@ def fuse_phase(torch, kind, model, record):
     every replay exactly 1.0, and its tokens and top-10 logits must equal
     the unfused records bit for bit; it replays those records at exactly
     1.0. Each layout's graphed decode step is timed as the unfused one is,
-    in this phase (_graphed_decode)."""
+    in this phase (_graphed_decode). Then, with each of the adapters phase's
+    attachments (`adapter_records`: the two 8B LoRAs and the control
+    vector, each with the unfused model's records under it), the fused
+    model proves the same prompts with the unfused records' tokens and
+    top-10 bit for bit (each part's LoRA term at the unfused shapes, the
+    k / v halves of wkv included), and is cleared again."""
     import os
 
     from blama_tpu_torch.ops import kernels
@@ -3488,12 +3787,41 @@ def fuse_phase(torch, kind, model, record):
         out[name] = dict(load_s=load_s, layer_keys=sorted(keys), requests=results,
                          launches=launches, replays_unfused=replays,
                          **_graphed_decode(torch, fm))
+        out[name]["adapters"] = _fused_with_adapters(torch, fm, name, adapter_records)
         fm = _free(torch, fm)
         log(f"fuse {name}: layer keys {sorted(keys)}, records bit-equal to the unfused "
             f"model's, replays 1.0; graphed decode {out[name]['decode_tok_s']:.1f} tok/s "
             f"(wall {out[name]['wall_ms_per_step']:.3f} ms, busy "
             f"{out[name]['device_busy_ms_per_step']} ms, idle {out[name]['idle_share']:.3f})")
     out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _fused_with_adapters(torch, fm, name, adapter_records):
+    """Each attachment of the adapters phase on the fused model `fm`: the
+    records it proves must be the unfused model's with the same attachment,
+    bit for bit; then it is detached. Returns the wrapped keys of layer 0
+    under each."""
+    from blama_tpu_torch.ops import quant_matmul as qm
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+
+    out = {}
+    for label, attach, detach, record in adapter_records:
+        inst = Instance(fm, InstanceInitParams(ctx_size=2048, flash_attn=True, kv_dtype="int8"))
+        attach(inst)
+        mine = []
+        for prompt, preds in record:
+            prove_and_verify(inst, prompt, len(preds), mine)
+        if _record_bits(mine) != _record_bits(record):
+            raise AssertionError(f"fuse {name} + {label}: tokens or top-10 differ from the "
+                                 "unfused model's with the same attachment")
+        out[label] = sorted(k for k, w in fm.weights["layers"][0].items()
+                            if isinstance(w, qm.LoraWrapped) or k == "cvec")
+        detach(inst)
+        del inst
+        torch.cuda.empty_cache()
+        log(f"fuse {name} + {label}: records bit-equal to the unfused model's "
+            f"(layer 0: {out[label]})")
     return out
 
 
@@ -5116,7 +5444,12 @@ def main() -> int:
         log(f"modes phase done at {time.perf_counter() - t_start:.1f} s")
         res["serving"], serve_l, dense_l = serving_phase(torch, model, kind)
         log(f"serving phase done at {time.perf_counter() - t_start:.1f} s")
-        res["fuse"] = fuse_phase(torch, kind, model, a8_record)
+        res["adapters"], attachments = adapters_phase(torch, kind, model, a8_record)
+        log(f"adapters phase done at {time.perf_counter() - t_start:.1f} s")
+        res["embeddings"] = embeddings_phase(torch, kind, model)
+        log(f"embeddings phase done at {time.perf_counter() - t_start:.1f} s")
+        res["fuse"] = fuse_phase(torch, kind, model, a8_record, attachments)
+        del attachments
         log(f"fuse phase done at {time.perf_counter() - t_start:.1f} s")
         model.close()
         del model

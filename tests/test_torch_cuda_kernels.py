@@ -13,10 +13,11 @@ replay determinism (two launches give the same bits), for every kernel (A, B
 with bf16 and f32 scales, C to F, G, H, I, the expert-bank kernels J and K,
 the tp_blocks kernels L and M with their invariances, the decode-attention
 modes' kernels N, O and P, the tools' kernels Q, R, S, T and U to Y, rows_mm,
-C to F at f32 queries and the dense engines' products). The last tests drive
+C to F at f32 queries, the dense engines' products and the runtime LoRA
+term, quant_matmul.lora_term, a row's bits its own). The last tests drive
 each engine (the dense float32 / bfloat16 ones in both attention modes), the
 MoE fixture, the tp_blocks mode and the scheduler on the card on the tiny
-fixtures.
+fixtures, and an adapter and a control vector on the tiny llama.
 """
 
 import numpy as np
@@ -2437,3 +2438,67 @@ def test_family_lm_heads(cuda, n, k):
         out = qm.q4k_pos(xm, wb)
         _close(out, qm.q4k_pos_plain(xm, wb), MATMUL_TOL)
         assert torch.equal(out, qm.q4k_pos(xm, wb))
+
+
+# -- LoRA terms (the packed engines' runtime adapters) -----------------------------
+
+@pytest.mark.parametrize("r", [16, 64])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (14336, 4096)], ids=["wk_wv", "down"])
+def test_lora_term_gives_a_row_its_bits(cuda, r, k, n):
+    """quant_matmul.lora_term, (x_f32·a)·b through two rows_mm products at
+    the 8B widths of PEFT's rank 16 and the all-linear rank 64: a row alone
+    equals the same row inside 1, 4, 8 and 128-row calls, bit for bit (a
+    decode row and its replay chunk), within MATMUL_TOL of an f64 product."""
+    g = torch.Generator().manual_seed(r + k)
+    x = torch.randn((128, k), generator=g).to(torch.bfloat16).to(cuda)
+    seg = qm.LoraSegment(0, (torch.randn((k, r), generator=g) * k ** -0.5).to(cuda),
+                         (torch.randn((r, n), generator=g) * 0.02).to(cuda))
+    full = qm.lora_term(x, seg)
+    assert full.dtype == torch.float32 and full.shape == (128, n)
+    for m in (1, 4, 8, 128):
+        assert torch.equal(qm.lora_term(x[:m], seg), full[:m]), m
+    for i in (0, 3, 7, 100, 127):
+        assert torch.equal(qm.lora_term(x[i:i + 1], seg), full[i:i + 1]), i
+    ref = (x.double() @ seg.a.double()) @ seg.b.double()
+    _close(full, ref, MATMUL_TOL)
+
+
+def test_adapters_on_the_card(cuda, tmp_path):
+    """The tiny llama as q4k_a8 with fused attention on an INT8 store: an
+    all-linear adapter and then a control vector, each graphed equal to
+    eager (steps, loops, stores, launches) and moving the logits; cleared,
+    the bare logits come back bit for bit."""
+    from blama_tpu_torch import testing
+    from blama_tpu_torch.runtime.control_vector import (ControlVector, ControlVectorLoadInfo,
+                                                        write_control_vector)
+    from blama_tpu_torch.runtime.instance import Instance, InstanceInitParams
+    from blama_tpu_torch.runtime.lora import LoraAdapter
+    from blama_tpu_torch.runtime.model import Model, ModelParams
+
+    path, lora, cvec = (str(tmp_path / n) for n in ("t.gguf", "l.gguf", "c.gguf"))
+    testing.write_tiny_llama(path)
+    s = testing.TINY_LLAMA_SPEC
+    testing.write_tiny_lora(lora, r=4, seed=21, targets=testing.LORA_TARGETS, a_scale=None,
+                            shapes=testing.lora_shapes(s["n_embd"], s["n_head"],
+                                                       s["n_head_kv"], s["n_ff"]))
+    rng = np.random.default_rng(3)
+    write_control_vector(cvec, {i: rng.standard_normal(256).astype(np.float32) for i in (1, 2)})
+    m = Model(path, ModelParams(dtype="q4k_a8", attn="fused"))
+    inst = Instance(m, InstanceInitParams(ctx_size=64, flash_attn=True, kv_dtype="int8"))
+    prompt = [1, 77, 205, 219, 149, 164, 91, 162]
+
+    def logits():
+        inst.clear_cache()
+        return inst.decode(prompt, np.arange(8))
+
+    bare = logits()
+    for attach, detach in ((lambda: inst.add_lora(LoraAdapter(lora), 1.0),
+                            inst.clear_lora_state),
+                           (lambda: inst.apply_control_vector(
+                               ControlVector(ControlVectorLoadInfo(cvec, 3.0))),
+                            lambda: inst.apply_control_vector(None))):
+        attach()
+        testing.graphs_equal_eager(m, "int8", prompt, 8, ctx=64)
+        assert not np.array_equal(logits(), bare)
+        detach()
+        assert np.array_equal(logits(), bare)

@@ -43,7 +43,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "tools.probe_casts", "tools.ubench_attn", "tools.ubench_paged",
                  "ops.dequant", "tools.perplexity", "tools.ppl_compare",
                  "examples.common", "examples.e_basic", "examples.e_server_cli",
-                 "examples.e_verified_chat", "examples.e_verify"):
+                 "examples.e_verified_chat", "examples.e_verify", "runtime.lora",
+                 "runtime.control_vector", "runtime.embedding", "models.bert"):
         assert f"blama_tpu_torch.{name}" in res["modules"], name
 
 
@@ -57,8 +58,10 @@ from blama_tpu_torch.models.llama import params_from_jax
 from blama_tpu_torch.ops import quant_matmul as qm
 from blama_tpu_torch.runtime.model import Model, ModelParams
 from blama_tpu_torch.models.moe import params_from_jax as params_from_jax_moe
-from blama_tpu_torch.testing import synthesize_moe_gguf, write_tiny_llama
+from blama_tpu_torch.testing import synthesize_moe_gguf, write_tiny_bert, write_tiny_llama
 write_tiny_llama({path!r})
+bert_path = {path!r} + ".bert.gguf"
+write_tiny_bert(bert_path)
 moe_path = {path!r} + ".moe.gguf"
 synthesize_moe_gguf(moe_path, "mixtral-debug")
 q4k = np.zeros(144, np.uint8)
@@ -83,6 +86,7 @@ calls = {{
     "moe.params_from_jax": lambda: params_from_jax_moe({{}}),
     "Model float32": lambda: Model({path!r}),
     "Model bfloat16 xla": lambda: Model({path!r}, ModelParams(dtype="bfloat16", attn="xla")),
+    "Model bert": lambda: Model(bert_path),
 }}
 for name, call in calls.items():
     try:
@@ -103,7 +107,7 @@ def test_model_without_cuda_raises(tmp_path):
                          text=True, check=True, cwd=ROOT,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     lines = out.stdout.strip().splitlines()
-    assert len(lines) == 20, out.stdout
+    assert len(lines) == 21, out.stdout
     for line in lines:
         assert " refused: no CUDA device" in line, line
 
